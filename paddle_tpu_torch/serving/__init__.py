@@ -1,0 +1,15 @@
+"""Serving front door of the port: a stdlib asyncio HTTP process over the
+continuous-batching engine (OpenAI-shaped streaming ``/v1/completions``,
+``/healthz``, ``/readyz``).
+
+Quickstart::
+
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.serving import serve_forever
+    serve_forever(ContinuousBatchingEngine(model, ...), port=8000)
+"""
+
+from . import http
+from .server import ServingServer, serve_forever
+
+__all__ = ["ServingServer", "serve_forever", "http"]
