@@ -12,20 +12,34 @@ is caught; there is no ``ok`` line unless every phase passed):
    card's ``nvidia-smi`` name and power limit.
 2. ``build``   — nvcc-builds every kernel under
    ``paddle_tpu_torch/kernels/csrc`` (one nvcc per source, in parallel).
-3. ``kernel``  — the ragged paged-attention kernel against its plain
-   PyTorch version on the card over a case matrix (decode and mixed
-   prefill/decode, GQA groups 1/4/8, fp32 and bf16, ragged and page-exact
-   contexts, idle rows), then CUDA-event times at the llama2_7b decode
-   shape: kernel, plain version, ``scaled_dot_product_attention`` as a
-   yardstick, and the memory-bound least time.
-4. ``engine_parity`` — a 2-layer fp32 llama2_7b-width model served by the
-   continuous-batching engine on the card, its greedy tokens held against
-   the port's full-sequence forward on the CPU (teacher forcing).
-5. ``serve``   — full llama2_7b (32 layers, bf16, random weights from a
-   seed) behind ``ServingServer.start_http`` with the launcher's defaults;
-   8 concurrent streamed completions.  Kernel launch counts are reset just
-   before and read just after.
-6. the ``kernels`` line, then the last line
+3. ``kernel``  — the ragged paged-attention kernel (float pools) against
+   its plain PyTorch version on the card over a case matrix (decode and
+   mixed prefill/decode, GQA groups 1/4/8, fp32 and bf16, ragged and
+   page-exact contexts, idle rows, a pool dtype other than q's), then
+   CUDA-event times at the llama2_7b decode shape: kernel, plain version,
+   ``scaled_dot_product_attention`` as a yardstick, and the memory-bound
+   least time.
+4. ``kernel_int8`` — the same kernel over int8 pools (fp32 scale per
+   (kv-head, page), pages 8/16/32, all-zero pages) against its plain
+   version, then times at the same decode shape with an int8 pool.
+5. ``kernel_gmm`` — the grouped-matmul kernel against its plain version in
+   fp32 and bf16, with and without the fused row gather (bm 8/16/128/512,
+   empty experts, one expert holding every row, zero sentinel rows, widths
+   from 64 up to Mixtral's), then times at the Mixtral-width decode and
+   prefill shapes, with ``torch._grouped_mm`` (or per-expert matmuls) as
+   the yardstick.
+6. ``engine_parity``, ``engine_parity_int8``, ``engine_parity_moe`` — a
+   2-layer fp32 model (llama2_7b widths; the same over an int8 pool;
+   Mixtral-8x7B widths) served by the continuous-batching engine on the
+   card, its greedy tokens held against the port's full-sequence forward on
+   the CPU (teacher forcing); near-ties are counted.
+7. ``serve``, ``serve_int8``, ``serve_moe`` — through the launcher's
+   ``build_engine`` and ``ServingServer.start_http`` with the launcher's
+   geometry, 8 concurrent streamed completions each: full llama2_7b (32
+   layers, bf16, random weights from a seed); the same over an int8 pool;
+   Mixtral-8x7B widths cut to 16 layers, bf16.  Kernel launch counts are
+   reset just before each run and read just after.
+8. the ``kernels`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device.  Imports nothing
@@ -35,12 +49,14 @@ of JAX.
 from __future__ import annotations
 
 import asyncio
+import gc
 import json
 import subprocess
 import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
+L2_BYTES = 50 * 2 ** 20            # H100 L2 cache
 PEAK_FLOPS = {"float32": 67e12,    # fp32 outside the tensor cores
               "bfloat16": 989e12}  # bf16 dense tensor-core peak
 TOL = {  # (rtol, atol) per output and dtype
@@ -49,8 +65,12 @@ TOL = {  # (rtol, atol) per output and dtype
     ("out", "bfloat16"): (1e-2, 2e-2),    # one bf16 rounding of the output
     ("lse", "bfloat16"): (0.0, 1e-3),     # fp32 lse from bf16 inputs
 }
-KERNEL_SOURCE = "paddle_tpu_torch/kernels/csrc/ragged_paged_attention.cu"
-KERNEL_REPLACES = "paddle_tpu/kernels/paged_attention.py:163"
+GMM_TOL = {"float32": (1e-4, 2e-5),    # (rtol, atol x max |ref|): sum order
+           "bfloat16": (1e-2, 1e-2)}   # one bf16 rounding of the output
+ATTN_SOURCE = "paddle_tpu_torch/kernels/csrc/ragged_paged_attention.cu"
+ATTN_REPLACES = "paddle_tpu/kernels/paged_attention.py:163"
+GMM_SOURCE = "paddle_tpu_torch/kernels/csrc/grouped_matmul.cu"
+GMM_REPLACES = "paddle_tpu/kernels/grouped_matmul.py:205"
 
 
 def emit(phase: str, **kw) -> None:
@@ -114,11 +134,17 @@ def phase_build():
 
 # ------------------------------------------------------------ kernel ---
 
-def make_case(gen, *, B, T, qh, kvh, d, page, ctxs, qls, dtype):
+def make_case(gen, *, B, T, qh, kvh, d, page, ctxs, qls, dtype,
+              pool_dtype=None, zero_pages=0):
     """Random inputs on the card; block-table entries past each context
-    hold out-of-range garbage the kernel must never dereference."""
+    hold out-of-range garbage the kernel must never dereference.  The pool
+    is in ``pool_dtype`` (default: q's); an int8 pool is the per-(kv-head,
+    page) absmax quantization of a random fp32 pool, with scales in
+    ``k_scale``/``v_scale`` and its first ``zero_pages`` pages all-zero
+    (scale 1.0, as a fresh pool holds them)."""
     import torch
     dev = "cuda"
+    pool_dtype = pool_dtype or dtype
     need = [-(-c // page) for c in ctxs]
     W = max(need) + 2
     n_pages = sum(need) + 8
@@ -132,21 +158,47 @@ def make_case(gen, *, B, T, qh, kvh, d, page, ctxs, qls, dtype):
         used += n
 
     def rnd(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+        return torch.randn(shape, generator=gen, device=dev)
 
-    return dict(q=rnd(B, T, qh, d), k_cache=rnd(kvh, n_pages, page, d),
-                v_cache=rnd(kvh, n_pages, page, d), block_tables=bt,
+    case = dict(q=rnd(B, T, qh, d).to(dtype), block_tables=bt,
                 context_lens=torch.tensor(ctxs, dtype=torch.int32, device=dev),
                 q_lens=torch.tensor(qls, dtype=torch.int32, device=dev),
-                k_new=rnd(B, T, kvh, d), v_new=rnd(B, T, kvh, d))
+                k_new=rnd(B, T, kvh, d).to(dtype),
+                v_new=rnd(B, T, kvh, d).to(dtype))
+    for name in ("k", "v"):
+        pool = rnd(kvh, n_pages, page, d)
+        if pool_dtype == torch.int8:
+            pool[:, :zero_pages] = 0
+            amax = pool.abs().amax(dim=(2, 3))
+            sc = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+            pool = torch.clamp(torch.round(pool / sc[..., None, None]),
+                               -127, 127).to(torch.int8)
+            case[f"{name}_scale"] = sc.contiguous()
+        case[f"{name}_cache"] = pool.to(pool_dtype)
+    return case
 
 
-def bound_ms(B, qh, kvh, d, ctxs, T, dtype):
+def _attn_args(c):
+    return (c["q"], c["k_cache"], c["v_cache"], c["block_tables"],
+            c["context_lens"])
+
+
+def _attn_kw(c):
+    return dict(q_lens=c["q_lens"], k_new=c["k_new"], v_new=c["v_new"],
+                k_scale=c.get("k_scale"), v_scale=c.get("v_scale"))
+
+
+def bound_ms(B, qh, kvh, d, ctxs, T, dtype, pool_dtype=None, page=16):
     """Least time: the larger of bytes moved / HBM rate and flops / peak.
-    Bytes: each live K/V row once, q, the fresh rows, out and lse once."""
+    Bytes: each live K/V row once (plus one fp32 scale per live page and
+    kv-head of an int8 pool), q, the fresh rows, out and lse once."""
     import torch
     it = torch.empty((), dtype=dtype).element_size()
-    kv = sum(ctxs) * kvh * d * 2 * it
+    pool_dtype = pool_dtype or dtype
+    kv_it = torch.empty((), dtype=pool_dtype).element_size()
+    kv = sum(ctxs) * kvh * d * 2 * kv_it
+    if pool_dtype == torch.int8:
+        kv += sum(-(-c // page) for c in ctxs) * kvh * 2 * 4
     io = B * T * (qh * d * 2 + kvh * d * 2) * it + B * T * qh * 4
     flops = sum(4 * T * qh * (c + T) * d for c in ctxs)
     peak = PEAK_FLOPS[str(dtype).replace("torch.", "")]
@@ -155,134 +207,401 @@ def bound_ms(B, qh, kvh, d, ctxs, T, dtype):
                                        else "operations")
 
 
-def phase_kernel():
+def _attention_matrix(gen, shapes, dtypes):
+    """Run the kernel against its plain version over ``shapes`` (label,
+    shape dict, kv heads, extra make_case kwargs) for each q dtype; returns
+    (case rows, worst abs error per output)."""
     import torch
     from paddle_tpu_torch.kernels import paged_attention as pa
+    cases, worst = [], {}
+    for dtype in dtypes:
+        for label, shp, kvh, extra in shapes:
+            c = make_case(gen, qh=32, kvh=kvh, dtype=dtype, **shp, **extra)
+            out, lse = pa.ragged_paged_attention(*_attn_args(c), **_attn_kw(c),
+                                                 with_lse=True)
+            ref, ref_lse = pa._reference_ragged_paged_attention(
+                *_attn_args(c), c["q_lens"], c["k_new"], c["v_new"],
+                c.get("k_scale"), c.get("v_scale"))
+            torch.cuda.synchronize()
+            pool = str(c["k_cache"].dtype).replace("torch.", "")
+            dname = str(dtype).replace("torch.", "")
+            name = f"{label}/{dname}/pool {pool}"
+            if not (torch.isfinite(out.float()).all()
+                    and torch.isfinite(lse).all()):
+                raise AssertionError(f"{name}: non-finite output (idle and "
+                                     "past-q_lens rows included)")
+            # rows past q_lens are don't-care: compare only valid rows
+            keep = torch.arange(shp["T"], device="cuda")[None, :] < \
+                c["q_lens"][:, None]
+            bf = "bfloat16" in (dname, pool)
+            tol_dt = "bfloat16" if bf else "float32"
+            row = {"case": label, "dtype": dname, "pool": pool, "qh": 32,
+                   "kvh": kvh, "d": shp["d"], "page": shp["page"],
+                   "T": shp["T"]}
+            for which, got, want in (("out", out, ref), ("lse", lse, ref_lse)):
+                g, w = got[keep].float(), want[keep].float()
+                err = (g - w).abs()
+                rtol, atol = TOL[(which, tol_dt)]
+                bad = int((err > atol + rtol * w.abs()).sum())
+                row[f"{which}_max_abs_err"] = float(err.max())
+                row[f"{which}_tol"] = [rtol, atol]
+                if bad:
+                    raise AssertionError(f"{name} {which}: {bad} elements out "
+                                         f"of tolerance (max err "
+                                         f"{float(err.max())})")
+                worst[which] = max(worst.get(which, 0.0), float(err.max()))
+            cases.append(row)
+    return cases, worst
 
+
+def _attention_timing(gen, pool_dtype, library):
+    """CUDA-event times at the llama2_7b decode shape of the serve phases
+    (bf16 q, B=8, 32 heads, d=128, page 16, context 512 each): kernel and
+    plain version in turns (plain, kernel, kernel, plain), the bound, and
+    ``scaled_dot_product_attention`` over the gathered keys when
+    ``library``.  Each timed call takes the next of several independent
+    cases whose pools together exceed the 50 MB L2 cache, so every call
+    reads its pool from device memory, as a serving step does."""
+    import torch
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    ctxs = [512] * 8
+    pool_bytes = sum(ctxs) * 32 * 128 * 2 * \
+        torch.empty((), dtype=pool_dtype).element_size()
+    n_cases = -(-3 * L2_BYTES // pool_bytes)
+    cases = [make_case(gen, B=8, T=1, qh=32, kvh=32, d=128, page=16,
+                       ctxs=ctxs, qls=[1] * 8, dtype=torch.bfloat16,
+                       pool_dtype=pool_dtype) for _ in range(n_cases)]
+    args = [_attn_args(c) for c in cases]
+    kws = [_attn_kw(c) for c in cases]
+    plain_args = [(*_attn_args(c), c["q_lens"], c["k_new"], c["v_new"],
+                   c.get("k_scale"), c.get("v_scale")) for c in cases]
+
+    def rotate(call):
+        it = iter(range(1 << 62))
+        return lambda: call(next(it) % n_cases)
+
+    fns = [("plain", rotate(lambda i: pa._reference_ragged_paged_attention(
+                *plain_args[i]))),
+           ("kernel", rotate(lambda i: pa.ragged_paged_attention(
+               *args[i], **kws[i])))]
+    timing = {}
+    if library:
+        # the library yardstick attends the same keys: gathered cache + new
+        sdpa_in = []
+        for c in cases:
+            flat = c["block_tables"][:, :32].reshape(-1).long()
+            kg = c["k_cache"][:, flat].reshape(32, 8, 512, 128).transpose(0, 1)
+            vg = c["v_cache"][:, flat].reshape(32, 8, 512, 128).transpose(0, 1)
+            sdpa_in.append((
+                c["q"].transpose(1, 2).contiguous(),          # [B, qh, 1, d]
+                torch.cat([kg, c["k_new"].transpose(1, 2)], 2).contiguous(),
+                torch.cat([vg, c["v_new"].transpose(1, 2)], 2).contiguous()))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = sdpa(*sdpa_in[0])
+        mine = pa.ragged_paged_attention(*args[0], **kws[0])
+        torch.cuda.synchronize()
+        timing["library_max_abs_err"] = float(
+            (lib.transpose(1, 2).float() - mine.float()).abs().max())
+        fns.append(("library", rotate(lambda i: sdpa(*sdpa_in[i]))))
+    t = {}
+    for key, fn in (fns[0], fns[1], *fns[2:], ("kernel2", fns[1][1]),
+                    ("plain2", fns[0][1])):
+        t[key] = cuda_ms(fn, 20 if key.startswith("plain") else 200)
+    b_ms, b_by = bound_ms(8, 32, 32, 128, ctxs, 1, torch.bfloat16,
+                          pool_dtype=pool_dtype)
+    pool = str(pool_dtype).replace("torch.", "")
+    timing.update({"shape": f"llama2_7b decode B=8 ctx=512 bf16 q, {pool} pool",
+                   "rotated_cases": n_cases,
+                   "kernel_ms": min(t["kernel"], t["kernel2"]),
+                   "kernel_ms_runs": [t["kernel"], t["kernel2"]],
+                   "plain_ms": min(t["plain"], t["plain2"]),
+                   "plain_ms_runs": [t["plain"], t["plain2"]],
+                   "library_ms": t.get("library"),
+                   "bound_ms": b_ms, "bound_by": b_by})
+    return timing
+
+
+def phase_kernel():
+    import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     decode = dict(B=8, T=1, ctxs=[1, 15, 16, 17, 255, 512, 1000, 1023],
                   qls=[1] * 8, page=16, d=128)
     mixed = dict(B=4, T=64, ctxs=[0, 16, 33, 960], qls=[64, 1, 17, 0],
                  page=16, d=128)
-    shapes = [("decode", decode, 32), ("decode", decode, 8),
-              ("decode", decode, 4), ("mixed", mixed, 32),
-              ("mixed", mixed, 8), ("mixed", mixed, 4),
-              ("mixed_d64_page8", {**mixed, "d": 64, "page": 8}, 8),
-              ("mixed_page128", {**mixed, "page": 128}, 4)]
-    cases, worst = [], {}
-    for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype).replace("torch.", "")
-        for label, shp, kvh in shapes:
-            c = make_case(gen, qh=32, kvh=kvh, dtype=dtype, **shp)
-            out, lse = pa.ragged_paged_attention(
-                c["q"], c["k_cache"], c["v_cache"], c["block_tables"],
-                c["context_lens"], q_lens=c["q_lens"], k_new=c["k_new"],
-                v_new=c["v_new"], with_lse=True)
-            ref, ref_lse = pa._reference_ragged_paged_attention(
-                c["q"], c["k_cache"], c["v_cache"], c["block_tables"],
-                c["context_lens"], c["q_lens"], c["k_new"], c["v_new"])
-            torch.cuda.synchronize()
-            if not (torch.isfinite(out.float()).all()
-                    and torch.isfinite(lse).all()):
-                raise AssertionError(f"{label}/{dname}: non-finite output "
-                                     "(idle and past-q_lens rows included)")
-            # rows past q_lens are don't-care: compare only valid rows
-            keep = torch.arange(shp["T"], device="cuda")[None, :] < \
-                c["q_lens"][:, None]
-            row = {"case": label, "dtype": dname, "qh": 32, "kvh": kvh,
-                   "d": shp["d"], "page": shp["page"], "T": shp["T"]}
-            for which, got, want in (("out", out, ref), ("lse", lse, ref_lse)):
-                g, w = got[keep].float(), want[keep].float()
-                err = (g - w).abs()
-                rtol, atol = TOL[(which, dname)]
-                bad = int((err > atol + rtol * w.abs()).sum())
-                row[f"{which}_max_abs_err"] = float(err.max())
-                row[f"{which}_tol"] = [rtol, atol]
-                if bad:
-                    raise AssertionError(f"{label}/{dname} {which}: {bad} "
-                                         f"elements out of tolerance "
-                                         f"(max err {float(err.max())})")
-                worst[which] = max(worst.get(which, 0.0), float(err.max()))
-            cases.append(row)
-
-    # timing at the llama2_7b decode shape of the serve phase (bf16,
-    # B=8, 32 heads, d=128, page 16, context 512 each)
-    ctxs = [512] * 8
-    c = make_case(gen, B=8, T=1, qh=32, kvh=32, d=128, page=16, ctxs=ctxs,
-                  qls=[1] * 8, dtype=torch.bfloat16)
-    args = (c["q"], c["k_cache"], c["v_cache"], c["block_tables"],
-            c["context_lens"])
-    kw = dict(q_lens=c["q_lens"], k_new=c["k_new"], v_new=c["v_new"])
-    # the library yardstick attends the same keys: gathered cache + new row
-    flat = c["block_tables"][:, :32].reshape(-1).long()
-    kg = c["k_cache"][:, flat].reshape(32, 8, 512, 128).transpose(0, 1)
-    vg = c["v_cache"][:, flat].reshape(32, 8, 512, 128).transpose(0, 1)
-    k_all = torch.cat([kg, c["k_new"].transpose(1, 2)], dim=2).contiguous()
-    v_all = torch.cat([vg, c["v_new"].transpose(1, 2)], dim=2).contiguous()
-    q_sdpa = c["q"].transpose(1, 2).contiguous()          # [B, qh, 1, d]
-    F = torch.nn.functional
-    lib = F.scaled_dot_product_attention(q_sdpa, k_all, v_all)
-    mine = pa.ragged_paged_attention(*args, **kw)
-    torch.cuda.synchronize()
-    lib_err = float((lib.transpose(1, 2).float() - mine.float()).abs().max())
-    t = {}
-    for key, fn in (("plain", lambda: pa._reference_ragged_paged_attention(
-                        *args, c["q_lens"], c["k_new"], c["v_new"])),
-                    ("kernel", lambda: pa.ragged_paged_attention(*args, **kw)),
-                    ("library", lambda: F.scaled_dot_product_attention(
-                        q_sdpa, k_all, v_all)),
-                    ("kernel2", lambda: pa.ragged_paged_attention(*args, **kw)),
-                    ("plain2", lambda: pa._reference_ragged_paged_attention(
-                        *args, c["q_lens"], c["k_new"], c["v_new"]))):
-        t[key] = cuda_ms(fn, 20 if key.startswith("plain") else 200)
-    b_ms, b_by = bound_ms(8, 32, 32, 128, ctxs, 1, torch.bfloat16)
-    timing = {"shape": "llama2_7b decode B=8 ctx=512 bf16",
-              "kernel_ms": min(t["kernel"], t["kernel2"]),
-              "kernel_ms_runs": [t["kernel"], t["kernel2"]],
-              "plain_ms": min(t["plain"], t["plain2"]),
-              "plain_ms_runs": [t["plain"], t["plain2"]],
-              "library_ms": t["library"], "library_max_abs_err": lib_err,
-              "bound_ms": b_ms, "bound_by": b_by}
+    shapes = [("decode", decode, 32, {}), ("decode", decode, 8, {}),
+              ("decode", decode, 4, {}), ("mixed", mixed, 32, {}),
+              ("mixed", mixed, 8, {}), ("mixed", mixed, 4, {}),
+              ("mixed_d64_page8", {**mixed, "d": 64, "page": 8}, 8, {}),
+              ("mixed_page128", {**mixed, "page": 128}, 4, {})]
+    cases, worst = _attention_matrix(gen, shapes,
+                                     (torch.float32, torch.bfloat16))
+    # the pool dtype is not the model dtype (cache_dtype= / the flag)
+    for q_dt, pool_dt in ((torch.bfloat16, torch.float32),
+                          (torch.float32, torch.bfloat16)):
+        more, w = _attention_matrix(
+            gen, [("mixed_dtypes", mixed, 8, {"pool_dtype": pool_dt}),
+                  ("decode_mixed_dtypes", decode, 8, {"pool_dtype": pool_dt})],
+            (q_dt,))
+        cases += more
+        worst = {k: max(worst[k], w[k]) for k in worst}
+    timing = _attention_timing(gen, torch.bfloat16, library=True)
     emit("kernel", cases=cases, max_abs_err=worst, timing=timing)
     return worst, timing
 
 
+def phase_kernel_int8():
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    i8 = {"pool_dtype": torch.int8, "zero_pages": 3}
+    decode = dict(B=8, T=1, ctxs=[1, 15, 16, 17, 255, 512, 1000, 1023],
+                  qls=[1] * 8, page=16, d=128)
+    mixed = dict(B=4, T=64, ctxs=[0, 16, 33, 960], qls=[64, 1, 17, 0],
+                 page=16, d=128)
+    shapes = [("decode", decode, 32, i8), ("decode", decode, 8, i8),
+              ("decode_page8", {**decode, "page": 8}, 4, i8),
+              ("mixed", mixed, 32, i8), ("mixed", mixed, 8, i8),
+              ("mixed", mixed, 4, i8),
+              ("mixed_page32", {**mixed, "page": 32}, 8, i8),
+              ("mixed_d64_page8", {**mixed, "d": 64, "page": 8}, 8, i8),
+              ("mixed_page128", {**mixed, "page": 128}, 4, i8)]
+    cases, worst = _attention_matrix(gen, shapes,
+                                     (torch.float32, torch.bfloat16))
+    timing = _attention_timing(gen, torch.int8, library=False)
+    timing["library_note"] = ("no single PyTorch call attends over an int8 "
+                              "paged pool with per-page scales")
+    emit("kernel_int8", cases=cases, max_abs_err=worst, timing=timing)
+    return worst, timing
+
+
+# --------------------------------------------------------------- gmm ---
+
+def _routing_ids(gen, N, E, k):
+    """Top-k expert ids of N tokens from random router logits."""
+    import torch
+    logits = torch.randn((N, E), generator=gen, device="cuda")
+    return torch.topk(logits, k, dim=-1).indices.reshape(N * k)
+
+
+def _gmm_case(gen, dtype, *, E, ids, bm, C, O, fused):
+    """gmm operands for a dispatch of the flat expert ``ids``: with
+    ``fused`` the rows gather from an un-permuted [F+1, C] buffer whose
+    last row is the zero sentinel (as the MoE FFN's ``xz``)."""
+    import torch
+    from paddle_tpu_torch.kernels import grouped_matmul as gm
+    inv, _pos, tg = gm.sorted_dispatch_plan(ids, E, bm)
+    F = ids.shape[0]
+    rhs = (torch.randn((E, C, O), generator=gen, device="cuda")
+           / C ** 0.5).to(dtype)
+    if fused:
+        lhs = torch.randn((F + 1, C), generator=gen, device="cuda").to(dtype)
+        lhs[-1] = 0
+        rows = torch.where(inv < F, inv, torch.full_like(inv, F))
+        return lhs, rhs, tg, rows
+    lhs = torch.randn((inv.shape[0], C), generator=gen,
+                      device="cuda").to(dtype)
+    return lhs, rhs, tg, None
+
+
+def _gmm_bound_ms(lhs, rhs, tg, rows, M):
+    """Least time of one gmm: the larger of bytes / HBM rate (the weights of
+    every expert that owns a tile, the lhs rows, the row and group indices
+    and the output, each once) and 2*M*C*O flops / the dtype's peak."""
+    C, O = rhs.shape[1], rhs.shape[2]
+    it = lhs.element_size()
+    experts = int(tg.unique().numel())
+    nbytes = (experts * C * O + lhs.shape[0] * C + M * O) * it + \
+        tg.numel() * 4 + (rows.numel() * 4 if rows is not None else 0)
+    flops = 2 * M * C * O
+    peak = PEAK_FLOPS[str(lhs.dtype).replace("torch.", "")]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_kernel_gmm():
+    import torch
+    from paddle_tpu_torch.kernels import grouped_matmul as gm
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    dev = "cuda"
+
+    def ids_of(counts):
+        e = torch.repeat_interleave(torch.arange(len(counts), device=dev),
+                                    torch.tensor(counts, device=dev))
+        return e[torch.randperm(e.numel(), generator=gen, device=dev)]
+
+    matrix = [
+        ("empty_experts_bm8", 8, ids_of([3, 0, 9, 1, 0, 0, 2, 1]), 8, 64, 64),
+        ("one_expert_bm16", 8, ids_of([40, 0, 0, 0, 0, 0, 0, 0]), 16, 128,
+         192),
+        ("bm24_tile8", 4, ids_of([5, 30, 0, 2]), 24, 96, 128),
+        ("bm128", 8, _routing_ids(gen, 300, 8, 2), 128, 512, 1024),
+        ("bm512", 4, ids_of([600, 1, 3, 0]), 512, 256, 512),
+        ("mixtral_decode_up", 8, _routing_ids(gen, 8, 8, 2), 16, 4096, 14336),
+        ("mixtral_decode_down", 8, _routing_ids(gen, 8, 8, 2), 16, 14336,
+         4096),
+        ("mixtral_prefill_up", 8, _routing_ids(gen, 512, 8, 2), 512, 4096,
+         14336),
+    ]
+    cases, worst = [], 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        for label, E, ids, bm, C, O in matrix:
+            for fused in (True, False):
+                if label.startswith("mixtral") and fused != ("up" in label):
+                    continue        # the serve path's form of each shape
+                lhs, rhs, tg, rows = _gmm_case(gen, dtype, E=E, ids=ids,
+                                               bm=bm, C=C, O=O, fused=fused)
+                out = gm.gmm(lhs, rhs, tg, bm=bm, rows=rows)
+                ref = gm._gmm_reference(lhs, rhs, tg, bm=bm, rows=rows)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs()
+                scale = float(ref.float().abs().max())
+                rtol, atol = GMM_TOL[dname]
+                bad = int((err > atol * scale + rtol * ref.float().abs())
+                          .sum())
+                name = f"{label}/{dname}/{'rows' if fused else 'plain'}"
+                if bad:
+                    raise AssertionError(f"gmm {name}: {bad} elements out of "
+                                         f"tolerance (max err "
+                                         f"{float(err.max())}, scale {scale})")
+                if rows is not None:
+                    pad = rows == lhs.shape[0] - 1
+                    if pad.any() and out[pad].abs().max().item() != 0:
+                        raise AssertionError(f"gmm {name}: sentinel rows "
+                                             "are not exactly 0")
+                cases.append({"case": label, "dtype": dname, "rows": fused,
+                              "E": E, "F": int(ids.numel()), "bm": bm,
+                              "M": int(out.shape[0]), "C": C, "O": O,
+                              "row_tile": gm.row_tile(bm),
+                              "max_abs_err": float(err.max()),
+                              "ref_max_abs": scale,
+                              "tol": [rtol, atol]})
+                worst = max(worst, float(err.max()))
+                del lhs, rhs, tg, rows, out, ref, err
+        torch.cuda.empty_cache()
+
+    # times at the Mixtral-width shapes of the serve path, bf16: decode
+    # (B=8, T=1: N=8, F=16, bm=16, M=144) and a prefill chunk (B=8, T=64:
+    # N=512, F=1024, bm=512, M=5120), gate/up (fused rows) and down
+    have_grouped_mm = hasattr(torch, "_grouped_mm")
+    timings = []
+    for label, N, bm, C, O, fused in (
+            ("decode_gate_up", 8, 16, 4096, 14336, True),
+            ("decode_down", 8, 16, 14336, 4096, False),
+            ("prefill_gate_up", 512, 512, 4096, 14336, True),
+            ("prefill_down", 512, 512, 14336, 4096, False)):
+        ids = _routing_ids(gen, N, 8, 2)
+        lhs, rhs, tg, rows = _gmm_case(gen, torch.bfloat16, E=8, ids=ids,
+                                       bm=bm, C=C, O=O, fused=fused)
+        M = rows.shape[0] if fused else lhs.shape[0]
+        # the library yardstick multiplies pre-gathered rows, expert spans
+        # given by their padded ends
+        a = lhs[rows.long()] if fused else lhs
+        ends = torch.searchsorted(tg, torch.arange(8, device=dev,
+                                                   dtype=torch.int32),
+                                  right=True).to(torch.int32) * bm
+        if have_grouped_mm:
+            library_call = "torch._grouped_mm on pre-gathered rows"
+
+            def lib():
+                return torch._grouped_mm(a, rhs, offs=ends)
+        else:
+            library_call = "per-expert torch.matmul on pre-gathered rows"
+            bounds = [0] + ends.tolist()
+
+            def lib():
+                return [a[bounds[e]:bounds[e + 1]] @ rhs[e] for e in range(8)]
+
+        mine = gm.gmm(lhs, rhs, tg, bm=bm, rows=rows)
+        lib_out = lib()
+        torch.cuda.synchronize()
+        lib_err = float((torch.cat(lib_out) if isinstance(lib_out, list)
+                         else lib_out).float().sub(mine.float()).abs().max())
+        big = label.startswith("prefill")
+        t = {}
+        for key, fn in (("plain", lambda: gm._gmm_reference(
+                            lhs, rhs, tg, bm=bm, rows=rows)),
+                        ("kernel", lambda: gm.gmm(lhs, rhs, tg, bm=bm,
+                                                  rows=rows)),
+                        ("library", lib),
+                        ("kernel2", lambda: gm.gmm(lhs, rhs, tg, bm=bm,
+                                                   rows=rows)),
+                        ("plain2", lambda: gm._gmm_reference(
+                            lhs, rhs, tg, bm=bm, rows=rows))):
+            plain = key.startswith("plain")
+            t[key] = cuda_ms(fn, (2 if big else 5) if plain else
+                             (10 if big else 50))
+        b_ms, b_by = _gmm_bound_ms(lhs, rhs, tg, rows, M)
+        timings.append({
+            "shape": f"mixtral {label} N={N} F={2 * N} bm={bm} M={M} "
+                     f"C={C} O={O} bf16",
+            "kernel_ms": min(t["kernel"], t["kernel2"]),
+            "kernel_ms_runs": [t["kernel"], t["kernel2"]],
+            "plain_ms": min(t["plain"], t["plain2"]),
+            "plain_ms_runs": [t["plain"], t["plain2"]],
+            "library_ms": t["library"], "library_call": library_call,
+            "library_max_abs_err": lib_err,
+            "bound_ms": b_ms, "bound_by": b_by})
+        del lhs, rhs, tg, rows, a, mine, lib_out
+        torch.cuda.empty_cache()
+    emit("kernel_gmm", cases=cases, max_abs_err=worst, timings=timings)
+    return worst, timings
+
+
 # ----------------------------------------------------- engine parity ---
 
-def phase_engine_parity():
-    import numpy as np
+def _expected_launches(cfg, quantized, steps):
+    """Each engine step launches attention once per layer (over the float
+    or the int8 pool) and, for an MoE model, gmm three times per layer."""
+    L = cfg.num_hidden_layers
+    return {"attention": 0 if quantized else L * steps,
+            "attention_int8": L * steps if quantized else 0,
+            "gmm": 3 * L * steps if cfg.moe_num_experts else 0}
+
+
+def _engine_parity(phase, cfg, prompts, *, new_tokens, cache_dtype=None,
+                   tie_rel=1e-3, max_tie_share=0.0):
+    """Serve ``prompts`` on the card with the continuous-batching engine,
+    then teacher-force its tokens through the full-sequence forward on the
+    CPU (fp32, plain attention and plain gmm).  A token that is not the CPU
+    argmax passes only as a near-tie: a logit gap <= ``tie_rel`` x the
+    row's largest |logit|, and at most ``max_tie_share`` of the tokens."""
     import torch
     from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
                                             GenerationConfig)
+    from paddle_tpu_torch.kernels import grouped_matmul as gm
     from paddle_tpu_torch.kernels import paged_attention as pa
-    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
 
-    cfg = LlamaConfig.llama2_7b(num_hidden_layers=2, dtype="float32")
     model = LlamaForCausalLM(cfg, device="cuda", seed=0)
     eng = ContinuousBatchingEngine(
-        model, max_batch=4, gen=GenerationConfig(max_new_tokens=16),
-        max_seq_len=256, page_size=16, prefill_bucket=64, device="cuda")
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
-               for n in (5, 64, 100, 200)]
-    n0, s0 = pa.LAUNCHES, eng.steps
+        model, max_batch=4, gen=GenerationConfig(max_new_tokens=new_tokens),
+        max_seq_len=256, page_size=16, prefill_bucket=64, device="cuda",
+        cache_dtype=cache_dtype)
+    pa.LAUNCHES = pa.LAUNCHES_INT8 = gm.LAUNCHES = 0
+    s0 = eng.steps
     rids = [eng.add_request(p) for p in prompts]
     out = eng.run()
     torch.cuda.synchronize()
     steps = eng.steps - s0
-    launches = pa.LAUNCHES - n0
-    if launches != cfg.num_hidden_layers * steps:
-        raise AssertionError(f"kernel launches {launches} != layers x steps "
-                             f"{cfg.num_hidden_layers} x {steps}")
+    launches = {"attention": pa.LAUNCHES, "attention_int8": pa.LAUNCHES_INT8,
+                "gmm": gm.LAUNCHES}
+    L = cfg.num_hidden_layers
+    want = _expected_launches(cfg, cache_dtype == "int8", steps)
+    if launches != want:
+        raise AssertionError(f"{phase}: kernel launches {launches} != "
+                             f"{want} ({L} layers x {steps} steps)")
 
-    # teacher-force the engine's tokens through the full-sequence forward
-    # on the CPU (fp32, the plain attention)
     cpu = model.to("cpu")
-    near_ties, checked = 0, 0
+    del eng
+    torch.cuda.empty_cache()
+    near_ties, checked, gaps = 0, 0, []
     for p, rid in zip(prompts, rids):
         toks = out[rid]
-        if len(toks) != 16:
-            raise AssertionError(f"request {rid}: {len(toks)} tokens, want 16")
+        if len(toks) != new_tokens:
+            raise AssertionError(f"{phase} request {rid}: {len(toks)} "
+                                 f"tokens, want {new_tokens}")
         seq = torch.tensor([p + toks[:-1]], dtype=torch.long)
         logits = cpu(seq)[0, len(p) - 1:].float()
         for j, tok in enumerate(toks):
@@ -291,17 +610,64 @@ def phase_engine_parity():
             if int(row.argmax()) == tok:
                 continue
             gap = float(row.max() - row[tok])
-            if gap <= 1e-3 * float(row.abs().max()):
+            gaps.append(gap / float(row.abs().max()))
+            if gap <= tie_rel * float(row.abs().max()):
                 near_ties += 1
                 continue
             raise AssertionError(
-                f"request {rid} token {j}: engine {tok}, CPU argmax "
+                f"{phase} request {rid} token {j}: engine {tok}, CPU argmax "
                 f"{int(row.argmax())}, logit gap {gap}")
-    emit("engine_parity", layers=cfg.num_hidden_layers,
-         hidden=cfg.hidden_size, heads=cfg.num_attention_heads,
-         prompt_lens=[len(p) for p in prompts], new_tokens=16,
-         tokens_checked=checked, near_ties=near_ties, engine_steps=steps,
+    if near_ties > max_tie_share * checked:
+        raise AssertionError(f"{phase}: {near_ties} near-ties of {checked} "
+                             f"tokens (at most {max_tie_share:.0%})")
+    emit(phase, layers=L, hidden=cfg.hidden_size,
+         heads=cfg.num_attention_heads, kv_heads=cfg.num_key_value_heads,
+         experts=cfg.moe_num_experts, cache_dtype=cache_dtype or cfg.dtype,
+         prompt_lens=[len(p) for p in prompts], new_tokens=new_tokens,
+         tokens_checked=checked, near_ties=near_ties,
+         near_tie_rel_gaps=gaps, tie_rel=tie_rel, engine_steps=steps,
          kernel_launches=launches)
+    del cpu, model
+    gc.collect()
+
+
+def phase_engine_parity():
+    import numpy as np
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=2, dtype="float32")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (5, 64, 100, 200)]
+    _engine_parity("engine_parity", cfg, prompts, new_tokens=16)
+
+
+def phase_engine_parity_int8():
+    """The int8 pool quantizes K/V per page (absmax / 127: at most 1/254 of
+    the page's largest |value| per element), so a near-tie here is a logit
+    gap <= 2% of the row's largest |logit| against the float forward, and
+    at most a quarter of the tokens may be such ties."""
+    import numpy as np
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=2, dtype="float32")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (5, 64, 100, 200)]
+    _engine_parity("engine_parity_int8", cfg, prompts, new_tokens=16,
+                   cache_dtype="int8", tie_rel=2e-2, max_tie_share=0.25)
+
+
+def phase_engine_parity_moe():
+    """Mixtral widths, 2 layers, fp32; block_m 64 keeps the CPU forward's
+    padded rows (and its time) small and runs the kernel at bm 64 in
+    prefill beside the decode steps' bm 16."""
+    import numpy as np
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    cfg = LlamaConfig.mixtral_8x7b(num_hidden_layers=2, dtype="float32",
+                                   moe_block_m=64)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (5, 48, 64, 96)]
+    _engine_parity("engine_parity_moe", cfg, prompts, new_tokens=16)
 
 
 # ------------------------------------------------------------- serve ---
@@ -333,19 +699,27 @@ async def _client(host, port, prompt, max_tokens):
             "finish": finish, "seconds": time.perf_counter() - t0}
 
 
-def phase_serve():
+def phase_serve(phase, argv):
+    """One serving replica built by the launcher from ``argv`` behind
+    ``ServingServer.start_http``; 8 concurrent streamed completions of 64
+    tokens.  Launch counts are set to 0 just before the requests and read
+    just after; each kernel of the path must have run once per layer (gmm:
+    three times per layer) and engine step.  Frees the model before it
+    returns.  Returns the launch counts."""
     import numpy as np
     import torch
+    from paddle_tpu_torch.kernels import grouped_matmul as gm
     from paddle_tpu_torch.kernels import paged_attention as pa
     from paddle_tpu_torch.serving import ServingServer
     from paddle_tpu_torch.serving.__main__ import build_engine, build_parser
 
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    args = build_parser().parse_args(["--preset", "llama2_7b"])
+    args = build_parser().parse_args(argv)
     t0 = time.perf_counter()
     engine = build_engine(args)
     cfg = engine.g.config
-    srv = ServingServer(engine, model_name="llama2_7b", warmup=True)
+    srv = ServingServer(engine, model_name=args.preset, warmup=True)
     rng = np.random.default_rng(1)
     lens = [int(x) for x in np.linspace(32, 512, 8)]
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in lens]
@@ -360,13 +734,16 @@ def phase_serve():
                 await asyncio.sleep(0.05)
             t_ready = time.perf_counter() - t0
             # the main path's run: counts from zero, read right after
-            pa.LAUNCHES = 0
+            pa.LAUNCHES = pa.LAUNCHES_INT8 = gm.LAUNCHES = 0
             steps0 = engine.steps
             t1 = time.perf_counter()
             res = await asyncio.gather(*[
                 _client(host, port, p, max_tokens) for p in prompts])
             wall = time.perf_counter() - t1
-            return res, wall, pa.LAUNCHES, engine.steps - steps0, t_ready
+            launches = {"attention": pa.LAUNCHES,
+                        "attention_int8": pa.LAUNCHES_INT8,
+                        "gmm": gm.LAUNCHES}
+            return res, wall, launches, engine.steps - steps0, t_ready
         finally:
             await srv.stop_http()
 
@@ -374,25 +751,31 @@ def phase_serve():
     for n, r in zip(lens, res):
         if r["finish"] != "length" or len(r["ids"]) != max_tokens or \
                 not all(0 <= t < cfg.vocab_size for t in r["ids"]):
-            raise AssertionError(f"prompt of {n} tokens: {r['status']}, "
-                                 f"finish {r['finish']}, "
+            raise AssertionError(f"{phase}: prompt of {n} tokens: "
+                                 f"{r['status']}, finish {r['finish']}, "
                                  f"{len(r['ids'])} ids")
-    if launches == 0 or launches != cfg.num_hidden_layers * steps:
-        raise AssertionError(f"kernel launches {launches} != layers x steps "
-                             f"{cfg.num_hidden_layers} x {steps}")
+    L = cfg.num_hidden_layers
+    want = _expected_launches(cfg, engine.g.cache.quantized, steps)
+    if steps == 0 or launches != want:
+        raise AssertionError(f"{phase}: kernel launches {launches} != "
+                             f"{want} ({L} layers x {steps} steps)")
     ttfts = sorted(r["ttft_s"] for r in res)
-    emit("serve", preset="llama2_7b", layers=cfg.num_hidden_layers,
-         dtype=cfg.dtype, max_batch=args.max_batch,
-         max_seq_len=args.max_seq_len, page_size=args.page_size,
-         prefill_bucket=args.prefill_bucket, num_pages=engine.g.num_pages,
-         pool_bytes=engine.g.pool_bytes, prompt_lens=lens,
-         max_tokens=max_tokens, requests=len(res),
+    emit(phase, preset=args.preset, layers=L, hidden=cfg.hidden_size,
+         intermediate=cfg.intermediate_size, experts=cfg.moe_num_experts,
+         dtype=cfg.dtype, kv_cache_dtype=engine.stats()["kv_cache_dtype"],
+         max_batch=args.max_batch, max_seq_len=args.max_seq_len,
+         page_size=args.page_size, prefill_bucket=args.prefill_bucket,
+         num_pages=engine.g.num_pages, pool_bytes=engine.g.pool_bytes,
+         prompt_lens=lens, max_tokens=max_tokens, requests=len(res),
          setup_and_warmup_s=t_ready, wall_s=wall,
          tokens_per_s=len(res) * max_tokens / wall,
          ttft_p50_s=float(np.median(ttfts)), ttft_max_s=ttfts[-1],
          engine_steps=steps, kernel_launches=launches,
-         launches_per_step=launches / steps,
+         launches_per_step={k: v / steps for k, v in launches.items()},
          max_memory_allocated=torch.cuda.max_memory_allocated())
+    del engine, srv
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -400,16 +783,39 @@ def main() -> int:
     name, _smi = phase_device()
     import torch
     phase_build()
-    worst, timing = phase_kernel()
+    attn_err, attn_t = phase_kernel()
+    int8_err, int8_t = phase_kernel_int8()
+    gmm_err, gmm_t = phase_kernel_gmm()
     phase_engine_parity()
-    launches = phase_serve()
-    print(json.dumps({"kernels": [{
-        "name": "ragged_paged_attention", "route": "cuda",
-        "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": launches, "max_abs_err": worst["out"],
-        "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"]}]}), flush=True)
+    phase_engine_parity_int8()
+    phase_engine_parity_moe()
+    runs = [phase_serve("serve", ["--preset", "llama2_7b"]),
+            phase_serve("serve_int8", ["--preset", "llama2_7b",
+                                       "--cache-dtype", "int8"]),
+            phase_serve("serve_moe", ["--preset", "mixtral_8x7b",
+                                      "--num-layers", "16"])]
+    launches = {k: sum(r[k] for r in runs) for k in runs[0]}
+    decode = gmm_t[0]              # the gmm line: the decode gate/up shape
+    print(json.dumps({"kernels": [
+        {"name": "ragged_paged_attention", "route": "cuda",
+         "source": ATTN_SOURCE, "replaces": ATTN_REPLACES,
+         "launches": launches["attention"], "max_abs_err": attn_err["out"],
+         "ms": attn_t["kernel_ms"], "plain_ms": attn_t["plain_ms"],
+         "bound_ms": attn_t["bound_ms"], "bound_by": attn_t["bound_by"],
+         "library_ms": attn_t["library_ms"]},
+        {"name": "ragged_paged_attention_int8", "route": "cuda",
+         "source": ATTN_SOURCE, "replaces": ATTN_REPLACES,
+         "launches": launches["attention_int8"],
+         "max_abs_err": int8_err["out"],
+         "ms": int8_t["kernel_ms"], "plain_ms": int8_t["plain_ms"],
+         "bound_ms": int8_t["bound_ms"], "bound_by": int8_t["bound_by"],
+         "library_ms": None},
+        {"name": "grouped_matmul", "route": "cuda",
+         "source": GMM_SOURCE, "replaces": GMM_REPLACES,
+         "launches": launches["gmm"], "max_abs_err": gmm_err,
+         "ms": decode["kernel_ms"], "plain_ms": decode["plain_ms"],
+         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
+         "library_ms": decode["library_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

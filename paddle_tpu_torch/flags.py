@@ -55,5 +55,6 @@ def flag(name: str) -> Any:
 
 define_flag("kv_cache_dtype", "auto",
             "Serving KV page-pool storage dtype: 'auto' follows the model "
-            "dtype, 'fp32'/'float32'/'bf16'/'bfloat16' force a float pool. "
-            "'int8' (quantized pages) is not ported yet and raises.")
+            "dtype, 'fp32'/'float32'/'bf16'/'bfloat16' force a float pool, "
+            "'int8' stores int8 pages with one fp32 absmax scale per "
+            "(layer, kv-head, page).")

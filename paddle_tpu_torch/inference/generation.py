@@ -1,5 +1,5 @@
 """Autoregressive generation over a paged KV cache — the serving decode loop
-(port of ``paddle_tpu/inference/generation.py``, dense float-pool path).
+(port of ``paddle_tpu/inference/generation.py``).
 
 - ``LlamaGenerator._step_fn`` is the one fused engine step: derive write
   slots from the block table, run every layer through the mixed-mode
@@ -7,15 +7,22 @@
   causal mask), commit all layers' fresh KV in ONE in-place scatter at the
   end (attention reads the pre-step pool), then sample.  T=1 is pure
   decode; T=prefill_bucket is a chunked-prefill / mixed step.
+- The pool is float (fp32/bf16, any model dtype) or int8 with per-(layer,
+  kv-head, page) scales: pages dequantize inside the attention kernel and
+  the commit requantizes per page, so both modes share the step.
+- MoE models route every layer's FFN through :func:`_moe_ffn`: the
+  expert-sorted grouped-matmul kernel for ``moe_dispatch="grouped"``, a
+  plain loop over experts otherwise.
 - EOS / budget / capacity tracking stays on the device (``finished``,
   ``counts``, ``budgets``): a step enqueues work and returns without reading
   anything back; the host drains results every ``sync_every`` steps.  Small
   per-step host inputs go up through pinned buffers with
   ``non_blocking=True``.
 
-Not ported in this slice (each a later ROADMAP item; the constructors do not
-take their options): the prefix cache, speculative decoding, the host spill
-tier, tensor parallelism, int8 pages, and the metrics / attribution hooks.
+Not ported yet (each a later ROADMAP item; the constructors do not take
+their options): the prefix cache, speculative decoding, the host spill
+tier, tensor parallelism (and with it the sharded MoE branch), and the
+metrics / attribution hooks.
 """
 
 from __future__ import annotations
@@ -29,10 +36,13 @@ import torch
 import torch.nn.functional as F
 
 from .. import flags, resolve_device
+from ..kernels.grouped_matmul import sorted_dispatch_plan
 from ..kernels.paged_attention import (ragged_paged_attention,
-                                       write_kv_pages_all_layers)
+                                       write_kv_pages_all_layers,
+                                       write_kv_pages_all_layers_quantized)
 from ..kernels.rms_norm import rms_norm_fp32
-from ..models.llama import LlamaForCausalLM, _rope_cos_sin
+from ..models.llama import (LlamaForCausalLM, _grouped_ffn, _rope_cos_sin,
+                            _route_topk)
 from ..utils import extract_params
 from .kv_cache import PagedKVCache
 
@@ -56,6 +66,43 @@ def _rope_bt(x, cos, sin):
     o1 = x1 * c - x2 * s
     o2 = x2 * c + x1 * s
     return torch.stack([o1, o2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def _moe_ffn(y, lp, top_k, dispatch="dense", block_m=128):
+    """Routed SwiGLU expert mixture for the serving path.
+
+    - grouped (``dispatch="grouped"``): the expert-sorted grouped-matmul
+      path (``models.llama._grouped_ffn``) — each expert runs over exactly
+      its own rows.  Serves prefill chunks AND decode steps: the row tile
+      shrinks to the 8-row multiple that covers the actual (token, choice)
+      entry count, so a decode batch does not pay a full ``block_m`` of
+      padding per expert.
+    - dense (non-grouped configs): every expert runs over all rows in a
+      plain loop, combined with the top-k gate weights — exact routing, no
+      capacity.
+    """
+    gw = lp["mlp.gate.weight"]              # [H, E]
+    shape = y.shape
+    xf = y.reshape(-1, shape[-1])
+    E = gw.shape[-1]
+    wg, wu, wd = (lp["mlp.experts_gate"], lp["mlp.experts_up"],
+                  lp["mlp.experts_down"])
+    if dispatch == "grouped":
+        N = xf.shape[0]
+        bm = max(8, min(block_m, -(-N * top_k // 8) * 8))
+        topv, topi, _, _ = _route_topk(xf, gw, top_k)
+        inv, pos, tg = sorted_dispatch_plan(topi.reshape(N * top_k), E, bm)
+        out = _grouped_ffn(xf, wg, wu, wd, topv, inv, pos, tg, E, top_k, bm)
+        return out.reshape(shape)
+    probs = torch.softmax(xf.float() @ gw.float(), dim=-1)
+    topv, topi = torch.topk(probs, top_k, dim=-1)
+    topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+    comb = torch.zeros_like(probs).scatter_(1, topi, topv).to(xf.dtype)
+    acc = torch.zeros_like(xf)
+    for e in range(E):
+        h = F.silu(xf @ wg[e]) * (xf @ wu[e])
+        acc = acc + comb[:, e, None] * (h @ wd[e])
+    return acc.reshape(shape)
 
 
 def _filter_logits(logits, gc: GenerationConfig):
@@ -181,18 +228,26 @@ class LlamaGenerator:
     # ---- the shared transformer core of every serving step ----
     def _forward_tokens(self, params, tokens, ql, positions, block_tables):
         """Run the whole model over this step's query tokens and commit all
-        layers' fresh KV in one in-place scatter; returns the final-norm
+        layers' fresh KV in one in-place commit; returns the final-norm
         hidden states for all T positions.
 
         tokens: [B, T] int32; ql: [B] valid tokens per row (0 = inert row);
         positions: [B] cache tokens BEFORE this step (the write cursor);
-        block_tables: [B, W] int32.
+        block_tables: [B, W] int32.  The pool is ``self.cache.arrays``:
+        (kc, vc) float, or (kc, vc, ks, vs) for the int8 plane, whose pages
+        dequantize inside the attention kernel and whose commit requantizes
+        per page.
         """
         c = self.config
         B, T = tokens.shape
         page = self.page_size
         dev = tokens.device
-        kc, vc = self.cache.arrays
+        cache = self.cache.arrays
+        quant = len(cache) == 4
+        if quant:
+            kc, vc, ks, vs = cache
+        else:
+            kc, vc = cache
 
         offs = torch.arange(T, dtype=torch.int32, device=dev)
         pos = positions[:, None] + offs[None, :]                  # [B, T]
@@ -220,22 +275,34 @@ class LlamaGenerator:
             k = _rope_bt(k, cos, sin)
             # prior context from the pool + this step's own rows (causal),
             # one mixed-mode kernel call; the commit follows all layers
-            attn = ragged_paged_attention(q, kc[li], vc[li], block_tables,
-                                          ctx_prev, q_lens=ql,
-                                          k_new=k, v_new=v)
+            attn = ragged_paged_attention(
+                q, kc[li], vc[li], block_tables, ctx_prev, q_lens=ql,
+                k_new=k, v_new=v, k_scale=ks[li] if quant else None,
+                v_scale=vs[li] if quant else None)
             h = h + attn.reshape(B, T, -1) @ lp["self_attn.o_proj.weight"]
             y = rms_norm_fp32(h, lp["post_attention_layernorm.weight"],
                               c.rms_norm_eps)
-            act = F.silu(y @ lp["mlp.gate_proj.weight"]) * \
-                (y @ lp["mlp.up_proj.weight"])
-            h = h + act @ lp["mlp.down_proj.weight"]
+            if "mlp.experts_gate" in lp:              # MoE model serving
+                h = h + _moe_ffn(y, lp, c.moe_top_k, dispatch=c.moe_dispatch,
+                                 block_m=c.moe_block_m)
+            else:
+                act = F.silu(y @ lp["mlp.gate_proj.weight"]) * \
+                    (y @ lp["mlp.up_proj.weight"])
+                h = h + act @ lp["mlp.down_proj.weight"]
             k_rows.append(k)
             v_rows.append(v)
 
         L = len(k_rows)
-        write_kv_pages_all_layers(
-            kc, vc, torch.stack(k_rows).reshape(L, B * T, kvh, dh),
-            torch.stack(v_rows).reshape(L, B * T, kvh, dh), slots)
+        k_all = torch.stack(k_rows).reshape(L, B * T, kvh, dh)
+        v_all = torch.stack(v_rows).reshape(L, B * T, kvh, dh)
+        if quant:
+            # quantize fresh K/V per page on the way in (page-level RMW:
+            # the absmax scale covers every row of the page)
+            write_kv_pages_all_layers_quantized(
+                kc, vc, ks, vs, k_all, v_all, positions, ql, block_tables,
+                self.max_seq_len)
+        else:
+            write_kv_pages_all_layers(kc, vc, k_all, v_all, slots)
         return rms_norm_fp32(h, params["norm"], c.rms_norm_eps)
 
     # ---- the ONE engine step ----

@@ -6,12 +6,17 @@
   ``pool[l]`` is a contiguous ``[kv_heads, num_pages, page_size, head_dim]``
   tensor, the layout the ragged paged-attention kernel reads.  The engine
   step reads the pool and commits fresh rows in place once, at its end.
+- **int8 plane** (``dtype="int8"``): int8 K/V pools plus fp32 scale planes
+  ``[layers, kv_heads, num_pages]`` (one absmax scale per (layer, kv-head,
+  page)).  Each int8 plane holds one physical scratch page past
+  ``num_pages`` that the allocator never hands out: the quantized commit
+  writes its dropped window entries there instead of over a real page.
 - **Host**: a free-list page allocator (plain Python) producing the int32
   block tables the kernel consumes.
 
 Pages are ref-counted: a page returns to the free list only when its last
 reference drops, and releasing a free page raises (the double-free guard).
-Float pools only; the int8 plane is a later slice.
+The host spill tier of the reference waits for the prefix cache.
 """
 
 from __future__ import annotations
@@ -193,28 +198,47 @@ class PagedKVCache:
     def __init__(self, num_layers: int, num_pages: int, page_size: int,
                  num_kv_heads: int, head_dim: int, dtype="bfloat16",
                  device=None):
-        if str(dtype) == "int8":
-            raise NotImplementedError(
-                "int8 KV pages are not ported yet (ROADMAP Queue 1 item 10 "
-                "and Queue 2 item 2)")
         self.num_layers = num_layers
         self.page_size = page_size
         self.num_kv_heads = num_kv_heads
         self.head_dim = head_dim
-        self.quantized = False
-        shape = (num_layers, num_kv_heads, num_pages, page_size, head_dim)
-        dt = torch_dtype(dtype)
-        self.k = torch.zeros(shape, dtype=dt, device=device)
-        self.v = torch.zeros(shape, dtype=dt, device=device)
+        self.quantized = str(dtype) == "int8"
+        if self.quantized:
+            # + 1: the scratch page of the quantized commit (never handed out)
+            shape = (num_layers, num_kv_heads, num_pages + 1, page_size,
+                     head_dim)
+            self.k = torch.zeros(shape, dtype=torch.int8, device=device)
+            self.v = torch.zeros(shape, dtype=torch.int8, device=device)
+            # all-zero pages dequantize to exactly 0 under any scale; 1.0
+            # keeps untouched pages' dequant well-defined
+            self.k_scale = torch.ones(shape[:3], dtype=torch.float32,
+                                      device=device)
+            self.v_scale = torch.ones(shape[:3], dtype=torch.float32,
+                                      device=device)
+        else:
+            shape = (num_layers, num_kv_heads, num_pages, page_size,
+                     head_dim)
+            dt = torch_dtype(dtype)
+            self.k = torch.zeros(shape, dtype=dt, device=device)
+            self.v = torch.zeros(shape, dtype=dt, device=device)
+            self.k_scale = None
+            self.v_scale = None
         self.allocator = PageAllocator(num_pages, page_size)
 
     @property
     def arrays(self):
+        """The device state of one engine step: ``(k, v)`` for a float
+        pool, ``(k, v, k_scale, v_scale)`` when quantized."""
+        if self.quantized:
+            return self.k, self.v, self.k_scale, self.v_scale
         return self.k, self.v
 
     @staticmethod
     def bytes_per_page(num_layers: int, num_kv_heads: int, page_size: int,
                        head_dim: int, dtype="bfloat16") -> int:
-        """Device bytes one pool page costs (K + V, all layers)."""
+        """Device bytes one pool page costs (K + V + scales, all layers)."""
+        per = num_layers * num_kv_heads
+        if str(dtype) == "int8":
+            return 2 * per * (page_size * head_dim + 4)
         itemsize = torch.empty((), dtype=torch_dtype(dtype)).element_size()
-        return 2 * num_layers * num_kv_heads * page_size * head_dim * itemsize
+        return 2 * per * page_size * head_dim * itemsize

@@ -1,7 +1,7 @@
 // Ragged paged attention for Hopper (sm_90a), the serving hot op.
 //
 // Replaces: paddle_tpu/kernels/paged_attention.py:_ragged_paged_attn_kernel
-// (the Pallas TPU kernel, float mode), launched there by
+// (the Pallas TPU kernel, float mode and quantized=True), launched there by
 // _pallas_ragged_paged_attention.  It computes exactly what the plain
 // _reference_ragged_paged_attention computes: for each sequence b, each
 // query token t < T and each query head, softmax attention over
@@ -13,10 +13,19 @@
 // Outputs out [B, T, q_heads, head_dim] in q's dtype and lse [B, T, q_heads]
 // in fp32.  Scale is 1/sqrt(head_dim); all softmax math is fp32.
 //
+// Two dtypes, chosen apart: q / fresh rows / out (fp32 or bf16) and the
+// pool (fp32, bf16 or int8).  An int8 pool carries one fp32 scale per
+// (kv-head, page) (k_scale/v_scale [kv_heads, num_pages]); each staged
+// key and value row is dequantized as it is loaded (int8 * scale, fp32),
+// and everything after that is the float mode unchanged.  The TPU's
+// page_size % 32 rule for int8 (sublane packing) does not apply here: any
+// multiple of 8 up to 128 works in every mode.
+//
 // What bounds it on this card: bytes.  Decode reads every live K/V row of
 // the context once per kv-head and does 4 flops per K/V element pair, far
 // below the ~295 flops/byte an H100 needs to be compute bound; the least
-// time is (K/V bytes of the live context) / 3.35 TB/s.
+// time is (K/V bytes of the live context) / 3.35 TB/s.  The int8 pool
+// halves those bytes against bf16 (plus 4 bytes of scale per page).
 //
 // What the design does about it (simple first, fast later):
 // - One thread block per (row tile, kv-head, sequence).  Query row
@@ -53,6 +62,7 @@ constexpr float kNegInf = -1e30f;   // the TPU kernel's mask value
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
@@ -72,10 +82,13 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T, int D>
+// T: q / fresh rows / out; KV: the pool (float, bf16 or int8 with scales)
+template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(kThreads)
-ragged_paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
-                         const T* __restrict__ v_cache,
+ragged_paged_attn_kernel(const T* __restrict__ q, const KV* __restrict__ k_cache,
+                         const KV* __restrict__ v_cache,
+                         const float* __restrict__ k_scale,
+                         const float* __restrict__ v_scale,
                          const int32_t* __restrict__ block_tables,
                          const int32_t* __restrict__ context_lens,
                          const int32_t* __restrict__ q_lens,
@@ -96,6 +109,8 @@ ragged_paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
   __shared__ float k_s[kTK][D + 1];   // +1: lanes read distinct keys, no bank conflicts
   __shared__ float v_s[kTK][D];
   __shared__ int64_t row_off[kTK];    // element offset of each staged key row
+  __shared__ float k_sc[kTK], v_sc[kTK];  // dequant scale of each staged row
+  constexpr bool kQuant = sizeof(KV) == 1;
 
   // this block's query rows, pre-scaled; rows past R are zero
   for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
@@ -167,13 +182,22 @@ ragged_paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
       page = min(max(page, 0), num_pages - 1);
       row_off[threadIdx.x] =
           (((int64_t)h * num_pages + page) * page_size + p % page_size) * D;
+      if constexpr (kQuant) {
+        k_sc[threadIdx.x] = k_scale[(int64_t)h * num_pages + page];
+        v_sc[threadIdx.x] = v_scale[(int64_t)h * num_pages + page];
+      }
     }
     __syncthreads();
     for (int i = threadIdx.x; i < n * D; i += kThreads) {
       const int kk = i / D, e = i % D;
       const int64_t off = row_off[kk] + e;
-      k_s[kk][e] = to_f(k_cache[off]);
-      v_s[kk][e] = to_f(v_cache[off]);
+      if constexpr (kQuant) {
+        k_s[kk][e] = to_f(k_cache[off]) * k_sc[kk];
+        v_s[kk][e] = to_f(v_cache[off]) * v_sc[kk];
+      } else {
+        k_s[kk][e] = to_f(k_cache[off]);
+        v_s[kk][e] = to_f(v_cache[off]);
+      }
     }
     __syncthreads();
     update(base, n, false);
@@ -210,15 +234,17 @@ ragged_paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* kc, const void* vc, const void* bt,
-                   const void* cl, const void* ql, const void* kn, const void* vn,
-                   void* out, void* lse, int B, int T_, int qh, int kvh,
-                   int num_pages, int page_size, int W, cudaStream_t stream) {
+template <typename T, typename KV, int D>
+cudaError_t launch(const void* q, const void* kc, const void* vc, const void* ks,
+                   const void* vs, const void* bt, const void* cl, const void* ql,
+                   const void* kn, const void* vn, void* out, void* lse, int B,
+                   int T_, int qh, int kvh, int num_pages, int page_size, int W,
+                   cudaStream_t stream) {
   const int R = T_ * (qh / kvh);
   dim3 grid((R + kRows - 1) / kRows, kvh, B);
-  ragged_paged_attn_kernel<T, D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc),
+  ragged_paged_attn_kernel<T, KV, D><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(kc), static_cast<const KV*>(vc),
+      static_cast<const float*>(ks), static_cast<const float*>(vs),
       static_cast<const int32_t*>(bt), static_cast<const int32_t*>(cl),
       static_cast<const int32_t*>(ql), static_cast<const T*>(kn),
       static_cast<const T*>(vn), static_cast<T*>(out), static_cast<float*>(lse),
@@ -226,25 +252,57 @@ cudaError_t launch(const void* q, const void* kc, const void* vc, const void* bt
   return cudaGetLastError();
 }
 
+template <typename T, typename KV>
+cudaError_t launch_d(int head_dim, const void* q, const void* kc, const void* vc,
+                     const void* ks, const void* vs, const void* bt, const void* cl,
+                     const void* ql, const void* kn, const void* vn, void* out,
+                     void* lse, int B, int T_, int qh, int kvh, int num_pages,
+                     int page_size, int W, cudaStream_t s) {
+#define PTT_ARGS q, kc, vc, ks, vs, bt, cl, ql, kn, vn, out, lse, B, T_, qh, kvh, \
+                 num_pages, page_size, W, s
+  if (head_dim == 64) return launch<T, KV, 64>(PTT_ARGS);
+  if (head_dim == 128) return launch<T, KV, 128>(PTT_ARGS);
+#undef PTT_ARGS
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t launch_kv(int kv_dtype, int head_dim, const void* q, const void* kc,
+                      const void* vc, const void* ks, const void* vs, const void* bt,
+                      const void* cl, const void* ql, const void* kn, const void* vn,
+                      void* out, void* lse, int B, int T_, int qh, int kvh,
+                      int num_pages, int page_size, int W, cudaStream_t s) {
+#define PTT_ARGS head_dim, q, kc, vc, ks, vs, bt, cl, ql, kn, vn, out, lse, B, T_, \
+                 qh, kvh, num_pages, page_size, W, s
+  if (kv_dtype == 0) return launch_d<T, float>(PTT_ARGS);
+  if (kv_dtype == 1) return launch_d<T, __nv_bfloat16>(PTT_ARGS);
+  if (kv_dtype == 2) return launch_d<T, int8_t>(PTT_ARGS);
+#undef PTT_ARGS
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// Plain C entry point, loaded with ctypes.  dtype: 0 = float32, 1 = bfloat16.
-// q_lens and k_new/v_new may be null (all T valid / no fresh rows).
-// Returns the cudaError_t of the launch (0 = success); an unsupported
-// dtype/head_dim returns cudaErrorInvalidValue.
+// Plain C entry point, loaded with ctypes.  q_dtype (q, fresh rows, out):
+// 0 = float32, 1 = bfloat16.  kv_dtype (the pool): 0 = float32,
+// 1 = bfloat16, 2 = int8 (k_scale/v_scale [kv_heads, num_pages] fp32 then
+// required, else ignored and may be null).  q_lens and k_new/v_new may be
+// null (all T valid / no fresh rows).  Returns the cudaError_t of the
+// launch (0 = success); an unsupported dtype/head_dim returns
+// cudaErrorInvalidValue.
 extern "C" int ptt_ragged_paged_attention(
-    const void* q, const void* k_cache, const void* v_cache, const void* block_tables,
-    const void* context_lens, const void* q_lens, const void* k_new, const void* v_new,
-    void* out, void* lse, int B, int T, int qh, int kvh, int head_dim, int num_pages,
-    int page_size, int W, int dtype, void* stream) {
+    const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
+    const void* v_scale, const void* block_tables, const void* context_lens,
+    const void* q_lens, const void* k_new, const void* v_new, void* out, void* lse,
+    int B, int T, int qh, int kvh, int head_dim, int num_pages, int page_size, int W,
+    int q_dtype, int kv_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PTT_ARGS q, k_cache, v_cache, block_tables, context_lens, q_lens, k_new, \
-                 v_new, out, lse, B, T, qh, kvh, num_pages, page_size, W, s
+#define PTT_ARGS kv_dtype, head_dim, q, k_cache, v_cache, k_scale, v_scale, \
+                 block_tables, context_lens, q_lens, k_new, v_new, out, lse, B, T, \
+                 qh, kvh, num_pages, page_size, W, s
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0 && head_dim == 64) err = launch<float, 64>(PTT_ARGS);
-  else if (dtype == 0 && head_dim == 128) err = launch<float, 128>(PTT_ARGS);
-  else if (dtype == 1 && head_dim == 64) err = launch<__nv_bfloat16, 64>(PTT_ARGS);
-  else if (dtype == 1 && head_dim == 128) err = launch<__nv_bfloat16, 128>(PTT_ARGS);
+  if (q_dtype == 0) err = launch_kv<float>(PTT_ARGS);
+  else if (q_dtype == 1) err = launch_kv<__nv_bfloat16>(PTT_ARGS);
 #undef PTT_ARGS
   return static_cast<int>(err);
 }

@@ -9,15 +9,22 @@ table) and then this step's own fresh K/V rows under a causal mask.
 
 - On a CUDA tensor the wrapper launches the hand-written Hopper kernel
   ``csrc/ragged_paged_attention.cu`` (it replaces the Pallas
-  ``_ragged_paged_attn_kernel``); every launch adds one to
-  :data:`LAUNCHES`.  Shapes the kernel does not take raise.
+  ``_ragged_paged_attn_kernel``, float and int8 modes).  Every launch over
+  a float pool adds one to :data:`LAUNCHES`, every launch over an int8
+  pool one to :data:`LAUNCHES_INT8`.  Shapes the kernel does not take
+  raise.
 - On a CPU tensor it runs the plain PyTorch version
   (:func:`_reference_ragged_paged_attention`), the tests' oracle.
 
-The int8 pool mode (``k_scale``/``v_scale``) is not ported yet.
+The pool dtype is independent of the model dtype: q and the fresh rows
+are fp32 or bf16, the pool fp32, bf16 or int8.  An int8 pool carries one
+fp32 scale per (kv-head, page) in ``k_scale``/``v_scale``; pages are
+dequantized right after they are loaded.
 
 ``write_kv_pages`` / ``write_kv_pages_all_layers`` commit fresh rows into
-the pool in place (the reference's donated-buffer scatters).
+a float pool in place (the reference's donated-buffer scatters);
+``write_kv_pages_all_layers_quantized`` is the int8 pool's page-level
+read-modify-write commit.
 """
 
 from __future__ import annotations
@@ -29,9 +36,11 @@ import torch
 
 NEG_INF = -1e30
 
-# Launches of the CUDA kernel since import (or the last reset by a caller):
-# a run shows it went through the kernel by reading this before and after.
+# Launches of the CUDA kernel since import (or the last reset by a caller),
+# over float pools and over int8 pools: a run shows it went through the
+# kernel by reading these before and after.
 LAUNCHES = 0
+LAUNCHES_INT8 = 0
 
 _SUPPORTED_D = (64, 128)
 _MAX_T = 128
@@ -51,10 +60,12 @@ def _reference_paged_attention(q, k_cache, v_cache, block_tables,
 
 def _reference_ragged_paged_attention(q, k_cache, v_cache, block_tables,
                                       context_lens, q_lens=None, k_new=None,
-                                      v_new=None):
+                                      v_new=None, k_scale=None, v_scale=None):
     """Plain version of the mixed prefill+decode form: gather pages, masked
     softmax.  q: [B, T, qh, d]; k_new/v_new: [B, T, kvh, d].  Rows with
-    token index >= q_lens[b] are don't-care (finite).  Returns
+    token index >= q_lens[b] are don't-care (finite).  With
+    ``k_scale``/``v_scale`` ([kvh, num_pages] fp32, an int8 pool) gathered
+    pages are dequantized to fp32 before the math.  Returns
     (out [B, T, qh, d] in q.dtype, lse [B, T, qh] fp32)."""
     b, t, qh, d = q.shape
     kvh, n_pages, page_size, _ = k_cache.shape
@@ -66,8 +77,13 @@ def _reference_ragged_paged_attention(q, k_cache, v_cache, block_tables,
     # table entries past the context are garbage: clamp so the gather stays
     # in bounds (the mask below drops them)
     flat = block_tables.reshape(-1).long().clamp(0, n_pages - 1)
-    k = k_cache[:, flat].reshape(kvh, b, S, d).float()   # [kvh, B, S, d]
-    v = v_cache[:, flat].reshape(kvh, b, S, d).float()
+    k = k_cache[:, flat].float()                  # [kvh, B*W, page, d]
+    v = v_cache[:, flat].float()
+    if k_scale is not None:
+        k = k * k_scale[:, flat].float()[..., None, None]
+        v = v * v_scale[:, flat].float()[..., None, None]
+    k = k.reshape(kvh, b, S, d)                   # [kvh, B, S, d]
+    v = v.reshape(kvh, b, S, d)
 
     qg = q.reshape(b, t, kvh, group, d).float()
     s = torch.einsum("btkgd,kbsd->btkgs", qg, k) * scale
@@ -100,25 +116,28 @@ def _reference_ragged_paged_attention(q, k_cache, v_cache, block_tables,
 
 # ---------------------------------------------------------------- kernel ---
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# dtype codes of the C entry point: q / fresh rows / out, and the pool
+_Q_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_KV_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def _kernel_fn():
     from . import _build
     fn = _build.load("ragged_paged_attention").ptt_ragged_paged_attention
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + \
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def _check_cuda_args(q, k_cache, v_cache, block_tables, context_lens, q_lens,
-                     k_new, v_new):
+                     k_new, v_new, k_scale, v_scale):
     dev = q.device
     tensors = {"q": q, "k_cache": k_cache, "v_cache": v_cache,
                "block_tables": block_tables, "context_lens": context_lens,
-               "q_lens": q_lens, "k_new": k_new, "v_new": v_new}
+               "q_lens": q_lens, "k_new": k_new, "v_new": v_new,
+               "k_scale": k_scale, "v_scale": v_scale}
     for name, x in tensors.items():
         if x is None:
             continue
@@ -130,12 +149,25 @@ def _check_cuda_args(q, k_cache, v_cache, block_tables, context_lens, q_lens,
         raise RuntimeError(
             "the ragged paged-attention kernel is built for sm_90a (H100/"
             f"H200); this card is sm_{''.join(map(str, torch.cuda.get_device_capability(dev)))}")
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in _Q_DTYPE_CODE:
         raise TypeError(f"q dtype {q.dtype} not supported (float32, bfloat16)")
-    for name in ("k_cache", "v_cache", "k_new", "v_new"):
+    for name in ("k_new", "v_new"):
         x = tensors[name]
         if x is not None and x.dtype != q.dtype:
             raise TypeError(f"{name} dtype {x.dtype} != q dtype {q.dtype}")
+    if k_cache.dtype not in _KV_DTYPE_CODE or v_cache.dtype != k_cache.dtype:
+        raise TypeError(f"pool dtypes {k_cache.dtype}/{v_cache.dtype} not "
+                        "supported (one of float32, bfloat16, int8 for both)")
+    if (k_cache.dtype == torch.int8) != (k_scale is not None):
+        raise ValueError("k_scale/v_scale go with an int8 pool, and only "
+                         "with one")
+    if k_scale is not None:
+        want = tuple(k_cache.shape[:2])
+        for name in ("k_scale", "v_scale"):
+            x = tensors[name]
+            if x.dtype != torch.float32 or tuple(x.shape) != want:
+                raise TypeError(f"{name} must be float32 {want}, got "
+                                f"{x.dtype} {tuple(x.shape)}")
     for name in ("block_tables", "context_lens", "q_lens"):
         x = tensors[name]
         if x is not None and x.dtype != torch.int32:
@@ -167,11 +199,12 @@ def _check_cuda_args(q, k_cache, v_cache, block_tables, context_lens, q_lens,
 
 
 def _cuda_ragged_paged_attention(q, k_cache, v_cache, block_tables,
-                                 context_lens, q_lens, k_new, v_new):
+                                 context_lens, q_lens, k_new, v_new,
+                                 k_scale, v_scale):
     """Launch the Hopper kernel on the current stream."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_INT8
     _check_cuda_args(q, k_cache, v_cache, block_tables, context_lens, q_lens,
-                     k_new, v_new)
+                     k_new, v_new, k_scale, v_scale)
     b, t, qh, d = q.shape
     kvh, n_pages, page_size, _ = k_cache.shape
     out = torch.empty_like(q)
@@ -181,15 +214,19 @@ def _cuda_ragged_paged_attention(q, k_cache, v_cache, block_tables,
         return None if x is None else x.data_ptr()
 
     err = _kernel_fn()(
-        ptr(q), ptr(k_cache), ptr(v_cache), ptr(block_tables),
-        ptr(context_lens), ptr(q_lens), ptr(k_new), ptr(v_new), ptr(out),
-        ptr(lse), b, t, qh, kvh, d, n_pages, page_size,
-        block_tables.shape[1], _DTYPE_CODE[q.dtype],
+        ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_scale), ptr(v_scale),
+        ptr(block_tables), ptr(context_lens), ptr(q_lens), ptr(k_new),
+        ptr(v_new), ptr(out), ptr(lse), b, t, qh, kvh, d, n_pages, page_size,
+        block_tables.shape[1], _Q_DTYPE_CODE[q.dtype],
+        _KV_DTYPE_CODE[k_cache.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ragged_paged_attention launch failed: CUDA "
                            f"error {err}")
-    LAUNCHES += 1
+    if k_scale is None:
+        LAUNCHES += 1
+    else:
+        LAUNCHES_INT8 += 1
     return out, lse
 
 
@@ -197,7 +234,7 @@ def _cuda_ragged_paged_attention(q, k_cache, v_cache, block_tables,
 
 def ragged_paged_attention(q, k_cache, v_cache, block_tables, context_lens,
                            *, q_lens=None, k_new=None, v_new=None,
-                           with_lse=False):
+                           k_scale=None, v_scale=None, with_lse=False):
     """Mixed-mode serving attention: prefill chunks and decode tokens in one
     call over a paged KV cache.
 
@@ -213,6 +250,8 @@ def ragged_paged_attention(q, k_cache, v_cache, block_tables, context_lens,
       k_new/v_new:  [batch, T, num_kv_heads, head_dim] — the step's fresh
                     KV rows, folded in with a causal mask (token j attends
                     new tokens <= j).  Commit them after the call.
+      k_scale/v_scale: [num_kv_heads, num_pages] fp32 — per-(kv-head,
+                    page) dequant scales of an int8 pool.
       with_lse:     also return the fp32 logsumexp [batch, T, q_heads].
 
     CUDA tensors launch the Hopper kernel; CPU tensors take the plain
@@ -223,26 +262,29 @@ def ragged_paged_attention(q, k_cache, v_cache, block_tables, context_lens,
         raise ValueError(f"q heads ({qh}) must be a multiple of kv heads ({kvh})")
     if (k_new is None) != (v_new is None):
         raise ValueError("k_new and v_new must be given together")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be given together")
     if q.device.type == "cuda":
         out, lse = _cuda_ragged_paged_attention(
             q, k_cache, v_cache, block_tables, context_lens, q_lens, k_new,
-            v_new)
+            v_new, k_scale, v_scale)
     elif q.device.type == "cpu":
         out, lse = _reference_ragged_paged_attention(
             q, k_cache, v_cache, block_tables, context_lens, q_lens, k_new,
-            v_new)
+            v_new, k_scale, v_scale)
     else:
         raise ValueError(f"unsupported device {q.device}")
     return (out, lse) if with_lse else out
 
 
 def paged_attention(q, k_cache, v_cache, block_tables, context_lens,
-                    with_lse=False):
+                    with_lse=False, k_scale=None, v_scale=None):
     """Single-token decode attention over a paged KV cache: the T=1,
     no-fresh-rows form of :func:`ragged_paged_attention`.
     q: [batch, num_q_heads, head_dim]."""
     res = ragged_paged_attention(q[:, None].contiguous(), k_cache, v_cache,
                                  block_tables, context_lens,
+                                 k_scale=k_scale, v_scale=v_scale,
                                  with_lse=with_lse)
     if with_lse:
         out, lse = res
@@ -299,3 +341,106 @@ def write_kv_pages_all_layers(k_cache, v_cache, k_all, v_all, slot_mapping):
     _scatter_rows(flat_k, slot_mapping, k_all.transpose(1, 2).to(k_cache.dtype))
     _scatter_rows(flat_v, slot_mapping, v_all.transpose(1, 2).to(v_cache.dtype))
     return k_cache, v_cache
+
+
+def _requantize_pages(flat, fresh, lslot, new_scale_shape):
+    """Shared K/V half of the quantized commit: insert fresh fp32 rows into
+    the dequantized gathered pages, recompute each page's absmax scale,
+    requantize.  ``flat``: [L, kvh, G*page, d] fp32 (G gathered pages);
+    ``lslot`` [n] window-local row of each fresh row, ``G*page`` = drop.
+    Returns (int8 pages [L, kvh, G, page, d], scales [L, kvh, G])."""
+    L, kvh, _, d = flat.shape
+    G, page = new_scale_shape
+    # one extra row takes the dropped entries (mode="drop" in the reference)
+    flat = torch.cat([flat, flat.new_zeros((L, kvh, 1, d))], dim=2)
+    flat.index_copy_(2, lslot, fresh)
+    pages = flat[:, :, :G * page].reshape(L, kvh, G, page, d)
+    amax = pages.abs().amax(dim=(3, 4))                      # [L, kvh, G]
+    # amax/127 as a multiply by the fp32 reciprocal: the reference's XLA
+    # lowers its division by the constant that way, so scales match bitwise
+    scales = torch.where(amax > 0, amax * (1.0 / 127.0), torch.ones_like(amax))
+    q = torch.clamp(torch.round(pages / scales[..., None, None]),
+                    -127.0, 127.0).to(torch.int8)
+    return q, scales
+
+
+def write_kv_pages_all_layers_quantized(k_cache, v_cache, k_scale, v_scale,
+                                        k_all, v_all, positions, q_lens,
+                                        block_tables, max_len):
+    """The int8 pool's batched all-layer commit, in place: quantize fresh
+    K/V per page on the way in (one fp32 absmax scale per (layer, kv-head,
+    page)).
+
+    The scale is page-granular, so the commit is a page-level
+    read-modify-write over at most ``Pmax`` pages per row: gather the pages
+    this step's tokens land in, dequantize with the old scales, zero the
+    rows past the sequence's post-step extent (a recycled page may hold a
+    previous occupant's bytes, which must not inflate the new scale),
+    insert the fresh fp32 rows, recompute each page's absmax scale
+    (amax/127, or 1.0 for an all-zero page), round half to even, clip to
+    ±127 and write pages and scales back.  Rows never share a write page.
+
+    The LAST physical page of every plane is a scratch page that the
+    allocator never hands out: untouched window entries write there (the
+    reference drops them with ``mode="drop"``), so no real page is ever
+    rewritten by a dropped entry and nothing syncs with the host.
+
+    k_cache/v_cache: [L, kvh, num_pages + 1, page, d] int8;
+    k_scale/v_scale: [L, kvh, num_pages + 1] fp32; k_all/v_all:
+    [L, B*T, kvh, d] fresh rows; positions/q_lens: [B] (write cursor /
+    valid tokens per row); block_tables: [B, W].  Returns the four planes.
+    """
+    L, kvh, P, page, d = k_cache.shape
+    B, W = block_tables.shape
+    T = k_all.shape[1] // B
+    dev = k_cache.device
+    scratch = P - 1
+    # a T-token run starting anywhere in a page straddles at most Pmax
+    # pages; gathering exactly that window keeps the RMW O(B * Pmax)
+    Pmax = 1 + (max(T - 1, 0) + page - 1) // page
+
+    i64 = torch.int64
+    pos0 = positions.to(i64)
+    ql = q_lens.to(i64)
+    offs = torch.arange(T, dtype=i64, device=dev)
+    pos = pos0[:, None] + offs[None, :]                            # [B, T]
+    pos_c = torch.clamp(pos, max=max_len - 1)
+    valid = (offs[None, :] < ql[:, None]) & (pos < max_len)        # [B, T]
+    start = torch.clamp(pos0, max=max_len - 1)
+    first = start // page                                          # [B]
+
+    # touched pages per row: page-list indices [first, first + npg)
+    ntok = valid.to(i64).sum(dim=1)                                # [B]
+    npg = torch.where(ntok > 0, (start % page + ntok + page - 1) // page,
+                      torch.zeros_like(ntok))
+    j = torch.arange(Pmax, dtype=i64, device=dev)
+    touched = j[None, :] < npg[:, None]                            # [B, Pmax]
+    plist = torch.clamp(first[:, None] + j[None, :], max=W - 1)
+    page_ids = torch.gather(block_tables.to(i64), 1, plist)        # [B, Pmax]
+    flat_pid = torch.where(touched, page_ids.clamp(0, scratch - 1),
+                           torch.full_like(page_ids, scratch)).reshape(-1)
+
+    # live-extent mask: row r of window page j holds a valid token iff its
+    # position is below the sequence's post-step extent
+    r = torch.arange(page, dtype=i64, device=dev)
+    gpos = ((first[:, None] + j[None, :]) * page)[:, :, None] + \
+        r[None, None, :]                                       # [B, Pmax, page]
+    live = (gpos < (pos0 + ntok)[:, None, None]).reshape(
+        1, 1, B * Pmax * page, 1).to(torch.float32)
+
+    # fresh rows land at window-local slots (invalid tokens -> drop row)
+    b_ix = torch.arange(B, dtype=i64, device=dev)[:, None]
+    rel = pos_c // page - first[:, None]                           # [B, T]
+    lslot = torch.where(valid, (b_ix * Pmax + rel) * page + pos_c % page,
+                        torch.full_like(pos_c, B * Pmax * page)).reshape(B * T)
+
+    for cache, scale, rows in ((k_cache, k_scale, k_all),
+                               (v_cache, v_scale, v_all)):
+        g = cache[:, :, flat_pid].to(torch.float32) * \
+            scale[:, :, flat_pid][..., None, None]       # [L, kvh, B*Pmax, page, d]
+        g = g.reshape(L, kvh, B * Pmax * page, d) * live
+        fresh = rows.transpose(1, 2).to(torch.float32)  # [L, kvh, B*T, d]
+        qp, sc = _requantize_pages(g, fresh, lslot, (B * Pmax, page))
+        cache.index_copy_(2, flat_pid, qp)
+        scale.index_copy_(2, flat_pid, sc)
+    return k_cache, v_cache, k_scale, v_scale

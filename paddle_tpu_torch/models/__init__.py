@@ -1,4 +1,4 @@
-"""Models of the port (dense Llama in this slice)."""
+"""Models of the port: Llama, dense and Mixtral-style MoE."""
 
 from .llama import LlamaConfig, LlamaForCausalLM
 

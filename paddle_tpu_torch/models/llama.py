@@ -1,4 +1,5 @@
-"""Llama-2 decoder family (port of ``paddle_tpu/models/llama.py``, dense).
+"""Llama-2 decoder family and its Mixtral-style MoE form (port of
+``paddle_tpu/models/llama.py``).
 
 Weights keep the reference's layout: every projection is ``[in, out]`` and
 applied as ``y @ W``, and parameter names equal the reference's
@@ -7,7 +8,11 @@ applied as ``y @ W``, and parameter names equal the reference's
 model's weights over one to one.  RoPE rotates interleaved pairs
 ``(x[..., 0::2], x[..., 1::2])`` as the reference does.
 
-MoE configurations (``moe_num_experts > 0``) are not ported yet.
+MoE configurations (``moe_num_experts > 0``) replace every layer's MLP with
+:class:`LlamaMoEMLP`: a top-k router and stacked expert banks run through
+the grouped-matmul kernel (``moe_dispatch="grouped"``).  The reference's
+``gather`` and ``einsum`` dispatch forms of the full-sequence forward are not
+ported yet (serving takes its dense expert loop for them).
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ from torch import nn
 
 from .. import resolve_device
 from ..kernels.flash_attention import flash_attention
+from ..kernels.grouped_matmul import (gmm, sorted_dispatch_plan,
+                                      take_sentinel_rows)
 from ..kernels.rms_norm import rms_norm_fp32
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -49,13 +56,26 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
     dtype: str = "bfloat16"
-    # MoE: 0 experts = dense.  Expert layers are not ported yet
-    # (ROADMAP Queue 1 item 7, with the gmm kernel of Queue 2).
+    # MoE (Mixtral-style: every layer's MLP becomes a top-k expert mixture;
+    # 0 experts = dense).  "grouped" runs the expert-sorted grouped-matmul
+    # kernel; "gather"/"einsum" (the reference's capacity formulations) are
+    # accepted for the serving path's dense expert loop but the
+    # full-sequence forward raises for them.
     moe_num_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_loss_weight: float = 0.01
+    moe_dispatch: str = "grouped"
+    moe_groups: int = 0          # einsum only: token groups (0 -> batch dim)
+    moe_block_m: int = 512       # grouped only: row-tile (group alignment)
 
     def __post_init__(self):
         if self.num_key_value_heads is None:
             self.num_key_value_heads = self.num_attention_heads
+        if self.moe_dispatch not in ("gather", "einsum", "grouped"):
+            raise ValueError(
+                f"moe_dispatch must be 'gather', 'einsum' or 'grouped', "
+                f"got {self.moe_dispatch!r}")
 
     @property
     def head_dim(self) -> int:
@@ -79,6 +99,33 @@ class LlamaConfig:
     def llama2_13b(**kw) -> "LlamaConfig":
         return LlamaConfig(**{**dict(hidden_size=5120, intermediate_size=13824,
                                      num_hidden_layers=40, num_attention_heads=40), **kw})
+
+    @staticmethod
+    def mixtral_tiny(**kw) -> "LlamaConfig":
+        """Mixtral-shaped MoE test config."""
+        base = dict(vocab_size=256, hidden_size=64, intermediate_size=128,
+                    num_hidden_layers=2, num_attention_heads=4,
+                    num_key_value_heads=2, max_position_embeddings=128,
+                    moe_num_experts=4, moe_top_k=2, dtype="float32",
+                    # tiny token counts: a 512-row tile would pad the
+                    # grouped dispatch ~10x; 16 keeps M near the entries
+                    moe_block_m=16)
+        base.update(kw)
+        return LlamaConfig(**base)
+
+    @staticmethod
+    def mixtral_8x7b(**kw) -> "LlamaConfig":
+        """The published widths of Mixtral-8x7B-v0.1 (its Hugging Face
+        ``config.json``): hidden 4096, intermediate 14336, 32 layers, 32
+        heads over 8 kv heads, vocab 32000, rope_theta 1e6, rms_norm_eps
+        1e-5, 8 experts, top-2."""
+        base = dict(vocab_size=32000, hidden_size=4096,
+                    intermediate_size=14336, num_hidden_layers=32,
+                    num_attention_heads=32, num_key_value_heads=8,
+                    max_position_embeddings=32768, rms_norm_eps=1e-5,
+                    rope_theta=1e6, moe_num_experts=8, moe_top_k=2)
+        base.update(kw)
+        return LlamaConfig(**base)
 
 
 def _rope_cos_sin(seq_len: int, head_dim: int, theta: float,
@@ -193,11 +240,101 @@ class LlamaMLP(nn.Module):
         return self.down_proj(swiglu(self.gate_proj(x), self.up_proj(x)))
 
 
+def _route_topk(xf, gate_w, k):
+    """Shared top-k router: returns (normalized gate weights [N, k] fp32,
+    expert ids [N, k], GShard aux loss, first-choice load ce [E])."""
+    N = xf.shape[0]
+    E = gate_w.shape[-1]
+    logits = xf.float() @ gate_w.float()                       # [N, E]
+    probs = torch.softmax(logits, dim=-1)
+    topv, topi = torch.topk(probs, k, dim=-1)
+    topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+    me = probs.mean(dim=0)
+    ce = torch.zeros(E, dtype=torch.float32, device=xf.device).index_add_(
+        0, topi[:, 0], torch.ones(N, dtype=torch.float32,
+                                  device=xf.device)) / N
+    aux = E * torch.sum(me * ce)
+    return topv, topi, aux, ce
+
+
+def _grouped_ffn(xf, w_gate, w_up, w_down, gates, inv_flat, pos,
+                 tile_groups, E, k, bm):
+    """Grouped-GEMM SwiGLU expert mixture over pre-sorted tokens (forward).
+
+    xf [N, H]; w_gate/w_up [E, H, I]; w_down [E, I, H]; gates [N, k] fp32
+    combine weights; inv_flat/pos/tile_groups from
+    :func:`~paddle_tpu_torch.kernels.grouped_matmul.sorted_dispatch_plan`.
+    The dispatch gather rides inside the two up-projection ``gmm`` calls
+    (``rows=tok_of`` over a zero-extended ``xz``: padding rows read the zero
+    row ``xz[N]``), and the combine is a gather through
+    ``take_sentinel_rows``."""
+    N, H = xf.shape
+    xz = torch.cat([xf, xf.new_zeros((1, H))], dim=0)
+    tok_of = torch.where(inv_flat < N * k,
+                         torch.div(inv_flat, k, rounding_mode="floor"),
+                         torch.full_like(inv_flat, N))
+    h_g = gmm(xz, w_gate, tile_groups, bm=bm, rows=tok_of)    # fused gather
+    h_u = gmm(xz, w_up, tile_groups, bm=bm, rows=tok_of)
+    a = F.silu(h_g) * h_u
+    o = gmm(a, w_down, tile_groups, bm=bm)                     # [M, H]
+    o_pos = take_sentinel_rows(o, pos).reshape(N, k, H)
+    return (o_pos * gates[..., None].to(o.dtype)).sum(dim=1)
+
+
+def moe_mlp_forward_grouped(x, gate_w, w_gate, w_up, w_down, *, top_k,
+                            block_m=512):
+    """Grouped-GEMM (megablocks-style) MoE: tokens are sorted by expert
+    and each expert runs one ragged GEMM over exactly its own tokens — no
+    capacity bound, nothing dropped.  Returns (y [B, S, H], aux loss,
+    stats [kept_frac = 1, max load x E])."""
+    B, S, H = x.shape
+    E = gate_w.shape[-1]
+    N = B * S
+    xf = x.reshape(N, H)
+    topv, topi, aux, ce = _route_topk(xf, gate_w, top_k)
+    inv_flat, pos, tile_groups = sorted_dispatch_plan(
+        topi.reshape(N * top_k), E, block_m)
+    y = _grouped_ffn(xf, w_gate, w_up, w_down, topv, inv_flat, pos,
+                     tile_groups, E, top_k, block_m)
+    stats = torch.stack([torch.ones((), device=x.device), ce.max() * E])
+    return y.reshape(B, S, H), aux, stats
+
+
+class LlamaMoEMLP(nn.Module):
+    """Mixtral-style MoE FFN block (drop-in for LlamaMLP when
+    ``config.moe_num_experts > 0``), with the reference's parameter names
+    and layouts: ``gate.weight`` [H, E], ``experts_gate``/``experts_up``
+    [E, H, I], ``experts_down`` [E, I, H]."""
+
+    def __init__(self, config: LlamaConfig, init: _Init):
+        super().__init__()
+        c = config
+        self.config = c
+        E, H, I = c.moe_num_experts, c.hidden_size, c.intermediate_size
+        self.gate = _ParamLinear(H, E, init)
+        self.experts_gate = init.scaled((E, H, I), H)
+        self.experts_up = init.scaled((E, H, I), H)
+        self.experts_down = init.scaled((E, I, H), I)
+
+    def forward(self, x):
+        c = self.config
+        if c.moe_dispatch != "grouped":
+            raise NotImplementedError(
+                f"the {c.moe_dispatch!r} MoE dispatch of the full-sequence "
+                "forward is not ported yet (ROADMAP Queue 1 item 7); use "
+                "moe_dispatch='grouped'")
+        y, _aux, _stats = moe_mlp_forward_grouped(
+            x, self.gate.weight, self.experts_gate, self.experts_up,
+            self.experts_down, top_k=c.moe_top_k, block_m=c.moe_block_m)
+        return y
+
+
 class LlamaDecoderLayer(nn.Module):
     def __init__(self, config: LlamaConfig, init: _Init):
         super().__init__()
         self.self_attn = LlamaAttention(config, init)
-        self.mlp = LlamaMLP(config, init)
+        self.mlp = LlamaMoEMLP(config, init) if config.moe_num_experts \
+            else LlamaMLP(config, init)
         self.input_layernorm = LlamaRMSNorm(config.hidden_size,
                                             config.rms_norm_eps, init)
         self.post_attention_layernorm = LlamaRMSNorm(config.hidden_size,
@@ -229,17 +366,13 @@ class LlamaModel(nn.Module):
 
 
 class LlamaForCausalLM(nn.Module):
-    """Dense Llama with random init from ``seed`` on ``device`` (default
-    ``"cuda"``; raises without a GPU).  ``forward(input_ids [b, s])`` returns
-    logits [b, s, vocab] (full-sequence causal attention; CPU tensors only
-    until the flash-attention kernel is ported)."""
+    """Llama (dense or MoE) with random init from ``seed`` on ``device``
+    (default ``"cuda"``; raises without a GPU).  ``forward(input_ids
+    [b, s])`` returns logits [b, s, vocab] (full-sequence causal attention;
+    CPU tensors only until the flash-attention kernel is ported)."""
 
     def __init__(self, config: LlamaConfig, *, device=None, seed: int = 0):
         super().__init__()
-        if config.moe_num_experts:
-            raise NotImplementedError(
-                "MoE Llama is not ported yet (ROADMAP Queue 1 item 7 and "
-                "Queue 2 item 3, the gmm kernel)")
         dev = resolve_device(device)
         init = _Init(dev, torch_dtype(config.dtype), seed)
         self.config = config

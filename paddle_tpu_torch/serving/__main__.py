@@ -15,7 +15,8 @@ from typing import List, Optional
 
 from .. import flags
 
-_PRESETS = ("tiny", "llama2_7b", "llama2_13b")
+_PRESETS = ("tiny", "llama2_7b", "llama2_13b", "mixtral_tiny",
+            "mixtral_8x7b")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -28,6 +29,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--preset", choices=_PRESETS, default="tiny",
                    help="model config preset (random-init weights)")
+    p.add_argument("--num-layers", type=int, default=None,
+                   help="cut the preset's depth to this many layers "
+                        "(widths unchanged)")
     p.add_argument("--model-name", default=None,
                    help="name reported in completion responses "
                         "(default: the preset)")
@@ -43,7 +47,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num-pages", type=int, default=None,
                    help="KV pool pages (default: engine sizing rule)")
     p.add_argument("--cache-dtype", default=None,
-                   choices=("auto", "fp32", "float32", "bf16", "bfloat16"),
+                   choices=("auto", "fp32", "float32", "bf16", "bfloat16",
+                            "int8"),
                    help="KV page-pool storage dtype (FLAGS_kv_cache_dtype)")
     p.add_argument("--max-new-tokens", type=int, default=128,
                    help="default completion budget when the request "
@@ -92,7 +97,9 @@ def build_engine(args):
     from ..inference import ContinuousBatchingEngine
     from ..models.llama import LlamaConfig, LlamaForCausalLM
 
-    cfg = getattr(LlamaConfig, args.preset)()
+    kw = {} if args.num_layers is None else \
+        {"num_hidden_layers": args.num_layers}
+    cfg = getattr(LlamaConfig, args.preset)(**kw)
     model = LlamaForCausalLM(cfg, device=args.device, seed=args.seed)
     return ContinuousBatchingEngine(model, **engine_kwargs(args))
 

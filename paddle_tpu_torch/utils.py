@@ -28,9 +28,11 @@ def load_reference_state(model: nn.Module,
     """Copy a reference model's weights into ``model`` in place.
 
     ``arrays`` holds numpy arrays keyed by the reference's ``state_dict()``
-    names (``llama.layers.0.self_attn.q_proj.weight``, ``[in, out]``) —
-    the same names and layouts as the port's parameters, so both packages
-    then compute the same function.  Every parameter must be given, with
+    names (``llama.layers.0.self_attn.q_proj.weight``, ``[in, out]``; for
+    MoE layers ``llama.layers.0.mlp.gate.weight`` ``[H, E]`` and the expert
+    banks ``llama.layers.0.mlp.experts_gate``/``experts_up`` ``[E, H, I]``
+    and ``experts_down`` ``[E, I, H]``) — the same names and layouts as the
+    port's parameters, so both packages then compute the same function.  Every parameter must be given, with
     its exact shape; values are cast to the parameter's dtype.
     """
     params = dict(model.named_parameters())

@@ -9,13 +9,16 @@ without it:
 
 Tolerances: fp32 2e-5 (summation order only); bf16 ``out`` 2e-2 abs +
 1e-2 rel (one bf16 rounding of the output); ``lse`` is fp32 from bf16
-inputs, 1e-3.
+inputs, 1e-3.  Grouped matmul: fp32 1e-4 rel + 2e-5 of the output's largest
+magnitude (summation order over C); bf16 1e-2 rel + 1e-2 of the largest
+magnitude (one bf16 rounding of the output).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.kernels import grouped_matmul as gm
 from paddle_tpu_torch.kernels import paged_attention as pa
 
 torch.set_num_threads(2)
@@ -93,3 +96,119 @@ def test_decode_form_and_argument_checks_on_card(h100):
         q = torch.zeros((3, 1, 4, 32), device=h100)
         kc = torch.zeros((4, 8, 16, 32), device=h100)
         pa.ragged_paged_attention(q, kc, kc, t["block_tables"], ctx)
+
+
+def _int8_pool(h100, rng, kvh, n_pages, page, d, zero_pages=()):
+    """An int8 pool with per-(kv-head, page) absmax scales; the listed pages
+    are all-zero with scale 1.0, as a fresh pool holds them."""
+    x = rng.standard_normal((kvh, n_pages, page, d)).astype(np.float32)
+    x[:, list(zero_pages)] = 0.0
+    amax = np.abs(x).max(axis=(2, 3))
+    sc = np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
+    qv = np.clip(np.round(x / sc[..., None, None]), -127, 127).astype(np.int8)
+    return (torch.from_numpy(qv).to(h100), torch.from_numpy(sc).to(h100))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("kvh,page", [(8, 8), (2, 16), (1, 32)])
+def test_int8_pool_kernel_vs_plain_on_card(h100, dtype, atol, kvh, page):
+    """int8 pages x fp32 scale per (kv-head, page), with all-zero pages,
+    against the plain version's dequantized math."""
+    rng = np.random.default_rng(kvh * 100 + page)
+    t = _inputs(h100, dtype, B=4, T=8, qh=8, kvh=kvh, d=128, page=page,
+                n_pages=24, width=12, seed=kvh + page)
+    kc, ks = _int8_pool(h100, rng, kvh, 24, page, 128, zero_pages=(0, 5))
+    vc, vs = _int8_pool(h100, rng, kvh, 24, page, 128, zero_pages=(0, 7))
+    ctx = torch.tensor([0, page, 2 * page + 1, 90], dtype=torch.int32,
+                       device=h100)
+    ql = torch.tensor([8, 1, 5, 0], dtype=torch.int32, device=h100)
+    n0, i0 = pa.LAUNCHES, pa.LAUNCHES_INT8
+    out, lse = pa.ragged_paged_attention(
+        t["q"], kc, vc, t["block_tables"], ctx, q_lens=ql, k_new=t["k_new"],
+        v_new=t["v_new"], k_scale=ks, v_scale=vs, with_lse=True)
+    torch.cuda.synchronize()
+    assert (pa.LAUNCHES, pa.LAUNCHES_INT8) == (n0, i0 + 1)
+    ref, ref_lse = pa._reference_ragged_paged_attention(
+        t["q"], kc, vc, t["block_tables"], ctx, ql, t["k_new"], t["v_new"],
+        ks, vs)
+    keep = torch.arange(8, device=h100)[None, :] < ql[:, None]
+    torch.testing.assert_close(out[keep].float(), ref[keep].float(),
+                               rtol=1e-2 if dtype == torch.bfloat16 else 2e-5,
+                               atol=atol)
+    torch.testing.assert_close(lse[keep], ref_lse[keep], rtol=2e-5,
+                               atol=1e-3 if dtype == torch.bfloat16 else 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,pool_dtype", [
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
+def test_pool_dtype_differs_from_model_dtype_on_card(h100, q_dtype,
+                                                     pool_dtype):
+    t = _inputs(h100, q_dtype, B=4, T=8, qh=8, kvh=2, d=128, page=16,
+                n_pages=16, width=12, seed=3)
+    kc, vc = t["k_cache"].to(pool_dtype), t["v_cache"].to(pool_dtype)
+    ctx = torch.tensor([0, 16, 33, 96], dtype=torch.int32, device=h100)
+    ql = torch.tensor([8, 1, 5, 0], dtype=torch.int32, device=h100)
+    out = pa.ragged_paged_attention(t["q"], kc, vc, t["block_tables"], ctx,
+                                    q_lens=ql, k_new=t["k_new"],
+                                    v_new=t["v_new"])
+    ref, _ = pa._reference_ragged_paged_attention(
+        t["q"], kc, vc, t["block_tables"], ctx, ql, t["k_new"], t["v_new"])
+    keep = torch.arange(8, device=h100)[None, :] < ql[:, None]
+    bf = torch.bfloat16 in (q_dtype, pool_dtype)
+    torch.testing.assert_close(out[keep].float(), ref[keep].float(),
+                               rtol=1e-2 if bf else 2e-5,
+                               atol=2e-2 if bf else 2e-5)
+
+
+def _gmm_case(h100, dtype, *, E, counts, bm, C, O, seed, fused):
+    """A dispatch over the given per-expert entry counts (zero allowed);
+    with ``fused`` the rows gather from an un-permuted buffer whose last
+    row is the zero sentinel."""
+    rng = np.random.default_rng(seed)
+    ids = np.repeat(np.arange(E), counts)
+    rng.shuffle(ids)
+    inv, _pos, tg = gm.sorted_dispatch_plan(
+        torch.from_numpy(ids).to(h100), E, bm)
+    F = len(ids)
+    rhs = torch.from_numpy(rng.standard_normal((E, C, O)).astype(
+        np.float32) / np.sqrt(C)).to(h100).to(dtype)
+    if fused:
+        n = F + 1
+        lhs = torch.from_numpy(rng.standard_normal((n, C)).astype(
+            np.float32)).to(h100).to(dtype)
+        lhs[-1] = 0
+        rows = torch.where(inv < F, inv, torch.full_like(inv, n - 1))
+        return lhs, rhs, tg, rows
+    lhs = torch.from_numpy(rng.standard_normal((inv.shape[0], C)).astype(
+        np.float32)).to(h100).to(dtype)
+    return lhs, rhs, tg, None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bm,counts,fused", [
+    (8, [3, 0, 9, 1], True),            # an empty expert, sentinel rows
+    (16, [16, 0, 0, 0], False),         # one expert holds everything
+    (24, [5, 30, 0, 2], True),          # bm not a power of two: tile 8
+    (128, [100, 7, 0, 200], True),
+    (512, [600, 1, 3, 0], False),
+])
+def test_gmm_kernel_vs_plain_on_card(h100, dtype, bm, counts, fused):
+    lhs, rhs, tg, rows = _gmm_case(h100, dtype, E=4, counts=counts, bm=bm,
+                                   C=96, O=128, seed=bm, fused=fused)
+    n0 = gm.LAUNCHES
+    out = gm.gmm(lhs, rhs, tg, bm=bm, rows=rows)
+    torch.cuda.synchronize()
+    assert gm.LAUNCHES == n0 + 1
+    ref = gm._gmm_reference(lhs, rhs, tg, bm=bm, rows=rows)
+    scale = float(ref.float().abs().max())
+    bf = dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref.float(),
+                               rtol=1e-2 if bf else 1e-4,
+                               atol=(1e-2 if bf else 2e-5) * scale)
+    if rows is not None:                # sentinel rows come out exactly 0
+        pad = rows == lhs.shape[0] - 1
+        assert torch.equal(out[pad], torch.zeros_like(out[pad]))

@@ -150,8 +150,9 @@ def test_engine_rejects_unported_options(pair):
                dict(tensor_parallel=2), dict(kv_spill_pages=4)):
         with pytest.raises(TypeError):
             ContinuousBatchingEngine(tm, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="int8"):
-        ContinuousBatchingEngine(tm, device="cpu", cache_dtype="int8")
+    # the int8 plane is ported: the engine builds a quantized pool
+    eng = ContinuousBatchingEngine(tm, device="cpu", cache_dtype="int8")
+    assert eng.g.cache.quantized and len(eng.g.cache.arrays) == 4
 
 
 def test_page_allocator_trace_matches_jax():

@@ -138,18 +138,24 @@ def test_bf16_model_and_configs():
     m = llama.LlamaForCausalLM(cfg, device="cpu")
     logits = m(torch.tensor([[1, 2, 3, 4]]))
     assert logits.dtype == torch.bfloat16 and torch.isfinite(logits.float()).all()
-    for name in ("tiny", "llama2_7b", "llama2_13b"):
+    for name in ("tiny", "llama2_7b", "llama2_13b", "mixtral_tiny"):
         mine = getattr(llama.LlamaConfig, name)()
         ref = getattr(jllama.LlamaConfig, name)()
         for f in ("vocab_size", "hidden_size", "intermediate_size",
                   "num_hidden_layers", "num_attention_heads",
                   "num_key_value_heads", "max_position_embeddings",
-                  "rms_norm_eps", "rope_theta", "dtype"):
+                  "rms_norm_eps", "rope_theta", "dtype", "moe_num_experts",
+                  "moe_top_k", "moe_capacity_factor", "moe_aux_loss_weight",
+                  "moe_dispatch", "moe_groups", "moe_block_m"):
             assert getattr(mine, f) == getattr(ref, f), (name, f)
         assert mine.head_dim == ref.head_dim
+    # MoE models build; only the grouped dispatch of the full-sequence
+    # forward is ported
+    m = llama.LlamaForCausalLM(
+        llama.LlamaConfig.tiny(moe_num_experts=4, moe_dispatch="gather"),
+        device="cpu")
     with pytest.raises(NotImplementedError, match="MoE"):
-        llama.LlamaForCausalLM(llama.LlamaConfig.tiny(moe_num_experts=4),
-                               device="cpu")
+        m(torch.tensor([[1, 2, 3, 4]]))
 
 
 def test_extract_and_stack_params_match_jax(pair):

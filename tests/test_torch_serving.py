@@ -197,3 +197,18 @@ def test_launcher_builds_the_engine_from_args():
     assert engine_kwargs(build_parser().parse_args([]))["device"] == "cuda"
     with pytest.raises(SystemExit):
         apply_flag_sets(["no_such_flag=1"])
+
+
+def test_launcher_moe_preset_depth_cut_and_int8_pool():
+    """``--preset mixtral_tiny --num-layers 1 --cache-dtype int8``: an MoE
+    model cut to one layer over an int8 pool, served end to end."""
+    args = build_parser().parse_args(
+        ["--preset", "mixtral_tiny", "--num-layers", "1", "--device", "cpu",
+         "--max-seq-len", "64", "--page-size", "8", "--prefill-bucket", "8",
+         "--cache-dtype", "int8"])
+    eng = build_engine(args)
+    c = eng.g.config
+    assert (c.num_hidden_layers, c.moe_num_experts) == (1, 4)
+    assert eng.stats()["kv_cache_dtype"] == "int8"
+    rid = eng.add_request([3, 1, 4, 1, 5], 4)
+    assert len(eng.run()[rid]) == 4
