@@ -39,8 +39,27 @@ is caught; there is no ``ok`` line unless every phase passed):
    layers, bf16, random weights from a seed); the same over an int8 pool;
    Mixtral-8x7B widths cut to 16 layers, bf16.  Kernel launch counts are
    reset just before each run and read just after.
-8. the ``kernels`` line, then the last line
-   ``{"ok": true, "device": {...}}``.
+8. ``kernel_flash`` — the three flash-attention kernels (forward, dQ,
+   dK/dV) against their plain versions over every combination of causal
+   or not, GQA groups 1/4/8, d 64/128, fp32/bf16 and five shapes (b 1 to 4,
+   sq = sk from 128 to 2048, sq < sk, lengths off the 64-row tile), and at
+   the training shape (b 4, s 2048, 32 heads, d 128, bf16, causal), each
+   output held by its relative Frobenius error and elementwise against its
+   RMS; then CUDA-event times at the training shape: each kernel, its plain
+   version, its operations bound, and ``scaled_dot_product_attention``
+   forward, backward and forward + backward as the yardstick.
+9. ``train_parity`` — ``PretrainStep`` on the card (kernels) against the
+   same step on the CPU (plain versions) from one ``restore_canonical``
+   state: a 2-layer fp32 model at llama2_7b widths, B=2, T=256, remat and
+   a 4-chunk loss, first-step gradients, then 3 steps' losses and
+   parameters.
+10. ``train`` — through the pretrain entry point's ``build_trainer``: full
+    llama2_7b (bf16, remat full, 16 loss chunks, bf16 ``m``, fp32 ``v``),
+    B=4, T=2048, 1 warm-up step then 4 timed steps; launch counts reset
+    before the timed steps must be exactly 2·L·steps (forward, remat
+    included) and L·steps (dQ, dK/dV); tokens/s, MFU and peak memory.
+11. the ``kernels`` line, then the last line
+    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device.  Imports nothing
 of JAX.
@@ -55,10 +74,7 @@ import subprocess
 import sys
 import time
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 L2_BYTES = 50 * 2 ** 20            # H100 L2 cache
-PEAK_FLOPS = {"float32": 67e12,    # fp32 outside the tensor cores
-              "bfloat16": 989e12}  # bf16 dense tensor-core peak
 TOL = {  # (rtol, atol) per output and dtype
     ("out", "float32"): (2e-5, 2e-5),     # fp32: summation order only
     ("lse", "float32"): (2e-5, 2e-5),
@@ -71,6 +87,29 @@ ATTN_SOURCE = "paddle_tpu_torch/kernels/csrc/ragged_paged_attention.cu"
 ATTN_REPLACES = "paddle_tpu/kernels/paged_attention.py:163"
 GMM_SOURCE = "paddle_tpu_torch/kernels/csrc/grouped_matmul.cu"
 GMM_REPLACES = "paddle_tpu/kernels/grouped_matmul.py:205"
+FLASH_SOURCE = "paddle_tpu_torch/kernels/csrc/flash_attention.cu"
+FLASH_REPLACES = {"fwd": "paddle_tpu/kernels/flash_attention.py:180",
+                  "dq": "paddle_tpu/kernels/flash_attention.py:253",
+                  "dkv": "paddle_tpu/kernels/flash_attention.py:317"}
+# flash kernels vs plain, per output tensor: the relative Frobenius error
+# ||got - want|| / ||want|| within `rel`, and every element within
+# rtol x |want| + atol x the larger of its row's RMS and the tensor's (an
+# RMS, not the largest magnitude: with causal attention row 0 is v_0
+# itself, far above a long row's values)
+FLASH_TOL = {"float32": dict(rel=1e-5, rtol=1e-4, atol=1e-4),  # sum order
+             # p and ds rounded to bf16 before their matmuls, + the output
+             "bfloat16": dict(rel=1e-2, rtol=2e-2, atol=5e-2)}
+FLASH_LSE_ATOL = 1e-4                    # lse is fp32 in both dtypes
+# (b, sq, sk) of the flash case matrix, and the training shape timed
+FLASH_SHAPES = [(1, 128, 128), (2, 512, 512), (4, 2048, 2048),
+                (3, 192, 640), (2, 100, 300)]
+FLASH_TIMED = dict(b=4, s=2048, h=32, d=128)
+PARITY = dict(preset="llama2_7b", layers=2, batch=2, seq=256, steps=3)
+# share of parameters further apart than 1e-6 after the parity steps:
+# 8.4e-5 measured on an H100 80GB HBM3, with 6x room
+PARITY_FAR_SHARE = 5e-4
+TRAIN_ARGV = ["--preset", "llama2_7b", "--batch", "4", "--seq", "2048"]
+TRAIN_STEPS = 4                    # timed, after one warm-up step
 
 
 def emit(phase: str, **kw) -> None:
@@ -201,6 +240,7 @@ def bound_ms(B, qh, kvh, d, ctxs, T, dtype, pool_dtype=None, page=16):
         kv += sum(-(-c // page) for c in ctxs) * kvh * 2 * 4
     io = B * T * (qh * d * 2 + kvh * d * 2) * it + B * T * qh * 4
     flops = sum(4 * T * qh * (c + T) * d for c in ctxs)
+    from paddle_tpu_torch import HBM_BYTES_PER_S, PEAK_FLOPS
     peak = PEAK_FLOPS[str(dtype).replace("torch.", "")]
     t_bytes, t_ops = (kv + io) / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -412,6 +452,7 @@ def _gmm_bound_ms(lhs, rhs, tg, rows, M):
     nbytes = (experts * C * O + lhs.shape[0] * C + M * O) * it + \
         tg.numel() * 4 + (rows.numel() * 4 if rows is not None else 0)
     flops = 2 * M * C * O
+    from paddle_tpu_torch import HBM_BYTES_PER_S, PEAK_FLOPS
     peak = PEAK_FLOPS[str(lhs.dtype).replace("torch.", "")]
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -779,7 +820,347 @@ def phase_serve(phase, argv):
     return launches
 
 
+# ------------------------------------------------------- flash attention ---
+
+def _causal_pairs(sq, sk, causal):
+    """(query, key) pairs the attention visits: every pair, or the causal
+    ones (key <= query + sk - sq)."""
+    if not causal:
+        return sq * sk
+    return sum(min(sk, i + 1 + sk - sq) for i in range(sq))
+
+
+def _flash_bound_ms(which, b, sq, sk, hq, hkv, d, causal, itemsize):
+    """Least time of one flash kernel: the larger of bytes / HBM rate (each
+    input read once, each output written once) and its matmul operations
+    over the live (query, key) pairs / the bf16 or fp32 peak.  forward: 2
+    matmuls (q k^T, p v); dQ: 3 (q k^T, dO v^T, ds k); dK/dV: 4 (q k^T,
+    dO v^T, p^T dO, ds^T q)."""
+    q_bytes = b * sq * hq * d * itemsize
+    kv_bytes = b * sk * hkv * d * itemsize
+    rows = b * hq * sq * 4                       # one fp32 per query row
+    nbytes, mm = {"fwd": (q_bytes + 2 * kv_bytes + q_bytes + rows, 2),
+                  "dq": (3 * q_bytes + 2 * kv_bytes + 2 * rows, 3),
+                  "dkv": (2 * q_bytes + 4 * kv_bytes + 2 * rows, 4)}[which]
+    flops = mm * 2 * b * hq * d * _causal_pairs(sq, sk, causal)
+    from paddle_tpu_torch import HBM_BYTES_PER_S, PEAK_FLOPS
+    peak = PEAK_FLOPS["bfloat16" if itemsize == 2 else "float32"]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _flash_case(gen, dtype, b, sq, sk, hq, hkv, d):
+    import torch
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    return (rnd(b, sq, hq, d), rnd(b, sk, hkv, d), rnd(b, sk, hkv, d),
+            rnd(b, sq, hq, d))
+
+
+def _flash_check(got, want, tol):
+    """``got`` against ``want``: max abs error, RMS(want), the relative
+    Frobenius error and ``need``, the least ``atol`` that passes with
+    ``tol["rtol"]``, in units of each element's scale: the RMS of its row
+    (over d) or of the tensor, whichever is larger (an early causal row
+    attends to few keys and holds values, and rounding errors, far above
+    the tensor's RMS).  ``ok`` when finite and within ``tol``."""
+    import torch
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    rms = float(w.square().mean().sqrt()) or 1.0
+    rel = float(err.norm() / (w.norm() or 1.0))
+    scale = w.square().mean(-1, keepdim=True).sqrt().clamp_min(rms)
+    need = float(((err - tol["rtol"] * w.abs()) / scale).max())
+    ok = bool(torch.isfinite(g).all()) and rel <= tol["rel"] and \
+        need <= tol["atol"]
+    return {"max_abs_err": float(err.max()), "rms": rms, "rel": rel,
+            "need": need, "ok": ok}
+
+
+def _flash_lse_check(got, want):
+    """lse is fp32 in both dtypes and log-scaled: an absolute limit."""
+    import torch
+    err = float((got - want).abs().max())
+    return {"max_abs_err": err, "ok": bool(torch.isfinite(got).all())
+            and err <= FLASH_LSE_ATOL}
+
+
+def _flash_checks(tol, got, want):
+    """Checks of one case: got and want are (out, lse, dq, dk, dv)."""
+    keys = ("out", "lse", "dq", "dk", "dv")
+    return {k: (_flash_lse_check(g, w) if k == "lse" else
+                _flash_check(g, w, tol))
+            for k, g, w in zip(keys, got, want)}
+
+
+def _flash_compare(q, k, v, g, causal, tol):
+    """Each kernel against its plain version on the same inputs: the
+    forward on q, k, v; dQ and dK/dV (through ``flash_backward``) on the
+    plain forward's out and lse, so the forward's bf16 rounding of out
+    does not reach the backward's inputs through delta = rowsum(dO * out).
+    Checks of (out, lse, dq, dk, dv)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    out, lse = fa._reference_attention_lse(q, k, v, causal)
+    delta = fa._delta(out, g)
+    want = (out, lse, fa._flash_bwd_dq(q, k, v, g, lse, delta, causal)) + \
+        tuple(fa._flash_bwd_dkv(q, k, v, g, lse, delta, causal))
+    got = tuple(fa.flash_forward(q, k, v, causal)) + \
+        tuple(fa.flash_backward(q, k, v, out, lse, g, causal))
+    return _flash_checks(tol, got, want)
+
+
+def phase_kernel_flash():
+    """The three kernels against their plain versions over the case matrix
+    and at the training shape.  Every case is checked before any failure
+    raises, and the line reports, per dtype and output, the worst max abs
+    error, relative Frobenius error and ``need`` (least atol x RMS)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases, failed = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        tol = FLASH_TOL[dname]
+        for (b, sq, sk), causal, hkv, d in (
+                (shp, c, h, dd) for shp in FLASH_SHAPES for c in (False, True)
+                for h in (8, 2, 1) for dd in (64, 128)):
+            q, k, v, g = _flash_case(gen, dtype, b, sq, sk, 8, hkv, d)
+            checks = _flash_compare(q, k, v, g, causal, tol)
+            label = (f"b{b} sq{sq} sk{sk} group{8 // hkv} d{d} "
+                     f"{'causal' if causal else 'full'} {dname}")
+            cases.append((dname, label, checks))
+            failed += [f"{label} {k}: {c}" for k, c in checks.items()
+                       if not c["ok"]]
+            del q, k, v, g
+        torch.cuda.empty_cache()
+    timing, train_checks = _flash_timing(gen)
+    failed += [f"training shape {k}: {c}" for k, c in train_checks.items()
+               if not c["ok"]]
+    summary = {}              # dtype -> output -> stat -> (worst, case)
+    for dname, label, checks in cases:
+        for key, c in checks.items():
+            by_stat = summary.setdefault(dname, {}).setdefault(key, {})
+            for stat, val in c.items():
+                if stat != "ok" and val > by_stat.get(stat, (-1.0,))[0]:
+                    by_stat[stat] = (val, label)
+    emit("kernel_flash", cases=len(cases), tol=FLASH_TOL,
+         lse_atol=FLASH_LSE_ATOL, worst=summary,
+         training_shape_checks=train_checks, failed=failed, timing=timing)
+    if failed:
+        raise AssertionError(f"kernel_flash: {len(failed)} checks out of "
+                             f"tolerance: {failed[:8]}")
+    every = [c for _, _, c in cases] + [train_checks]
+    err = {which: max(c[k]["max_abs_err"] for c in every for k in keys)
+           for which, keys in (("fwd", ("out",)), ("dq", ("dq",)),
+                               ("dkv", ("dk", "dv")))}
+    return err, timing
+
+
+def _flash_timing(gen):
+    """At the training shape (b 4, s 2048, 32 heads, d 128, bf16, causal):
+    each kernel's output against its plain version's, then CUDA-event times
+    of each kernel and its plain version in turns (plain, kernel, kernel,
+    plain), its bound, and scaled_dot_product_attention on the same inputs
+    in [b, h, s, d]: forward, backward (autograd, computing dQ, dK and dV
+    in one call) and forward + backward.  Returns (timing, checks)."""
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    b, s, h, d = (FLASH_TIMED[x] for x in "bshd")
+    q, k, v, g = _flash_case(gen, torch.bfloat16, b, s, s, h, h, d)
+    checks = _flash_compare(q, k, v, g, True, FLASH_TOL["bfloat16"])
+    torch.cuda.empty_cache()
+    out, lse = fa.flash_forward(q, k, v, True)
+    delta = fa._delta(out, g)
+    calls = {
+        "fwd": (lambda: fa.flash_forward(q, k, v, True),
+                lambda: fa._reference_attention_lse(q, k, v, True)),
+        "dq": (lambda: fa._cuda_bwd_dq(q, k, v, g, lse, delta, True),
+               lambda: fa._flash_bwd_dq(q, k, v, g, lse, delta, True)),
+        "dkv": (lambda: fa._cuda_bwd_dkv(q, k, v, g, lse, delta, True),
+                lambda: fa._flash_bwd_dkv(q, k, v, g, lse, delta, True)),
+    }
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh, vh, gh = (x.transpose(1, 2).contiguous() for x in (q, k, v, g))
+    leaves = [x.clone().requires_grad_() for x in (qh, kh, vh)]
+    lib_out = sdpa(*leaves, is_causal=True)
+    lib_err = float((lib_out.detach().transpose(1, 2).float()
+                     - out.float()).abs().max())
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_out, leaves, gh, retain_graph=True)
+
+    def lib_fwd_bwd():
+        o = sdpa(*leaves, is_causal=True)
+        return torch.autograd.grad(o, leaves, gh)
+
+    timing = {"shape": f"b={b} s={s} hq=hkv={h} d={d} bf16 causal",
+              "library_max_abs_err_out": lib_err,
+              "sdpa_fwd_ms": cuda_ms(lambda: sdpa(qh, kh, vh, is_causal=True),
+                                     20),
+              "sdpa_bwd_ms": cuda_ms(lib_bwd, 20),
+              "sdpa_fwd_bwd_ms": cuda_ms(lib_fwd_bwd, 20)}
+    for which, (kernel, plain) in calls.items():
+        t = {}
+        for key, fn in (("plain", plain), ("kernel", kernel),
+                        ("kernel2", kernel), ("plain2", plain)):
+            t[key] = cuda_ms(fn, 3 if key.startswith("plain") else 10)
+        b_ms, b_by = _flash_bound_ms(which, b, s, s, h, h, d, True, 2)
+        timing[which] = {"kernel_ms": min(t["kernel"], t["kernel2"]),
+                         "kernel_ms_runs": [t["kernel"], t["kernel2"]],
+                         "plain_ms": min(t["plain"], t["plain2"]),
+                         "plain_ms_runs": [t["plain"], t["plain2"]],
+                         "bound_ms": b_ms, "bound_by": b_by}
+    timing["fwd"]["library_ms"] = timing["sdpa_fwd_ms"]
+    # one PyTorch call computes dQ, dK and dV together: the SDPA backward
+    timing["dq"]["library_ms"] = timing["dkv"]["library_ms"] = \
+        timing["sdpa_bwd_ms"]
+    del q, k, v, g, out, lse, delta, qh, kh, vh, gh, leaves, lib_out
+    torch.cuda.empty_cache()
+    return timing, checks
+
+
+# ------------------------------------------------------------- train ---
+
+def _flash_counts():
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    return {"fwd": fa.LAUNCHES_FWD, "dq": fa.LAUNCHES_BWD_DQ,
+            "dkv": fa.LAUNCHES_BWD_DKV}
+
+
+def _reset_flash_counts():
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    fa.LAUNCHES_FWD = fa.LAUNCHES_BWD_DQ = fa.LAUNCHES_BWD_DKV = 0
+
+
+def phase_train_parity():
+    """A 2-layer fp32 model at llama2_7b widths (remat full, 4 loss chunks,
+    B=2, T=256): the trainer on the card (the flash kernels, cuBLAS fp32
+    without TF32) against the same trainer on the CPU (plain versions),
+    from one state carried with restore_canonical.
+
+    Tolerances: losses rtol 1e-4; first-step gradients 1e-4 rel + 1e-4 x
+    the leaf's largest |grad| (fp32 sums in other orders).  AdamW's first
+    update is lr x sign(grad), so an entry whose gradient sits below the
+    two devices' rounding noise moves the other way (2 x lr apart); after
+    3 steps at most PARITY_FAR_SHARE of the parameters may lie further
+    apart than 1e-6."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.models.pretrain import ParallelConfig, PretrainStep
+
+    steps, B, T = PARITY["steps"], PARITY["batch"], PARITY["seq"]
+    cfg = getattr(LlamaConfig, PARITY["preset"])(
+        num_hidden_layers=PARITY["layers"], dtype="float32")
+    pc = ParallelConfig(remat=True, loss_chunks=4)
+    cpu = PretrainStep(cfg, pc, device="cpu")
+    gpu = PretrainStep(cfg, pc, device="cuda")
+    cs = cpu.init_state(seed=0)
+    gs = gpu.restore_canonical(cpu.canonical_state(cs))
+    rng = np.random.default_rng(0)
+    ids, labels = (rng.integers(0, cfg.vocab_size, (B, T)) for _ in range(2))
+
+    _reset_flash_counts()
+    g_loss, g_grads = gpu.loss_and_grads(gs["params"], ids, labels)
+    c_loss, c_grads = cpu.loss_and_grads(cs["params"], ids, labels)
+    torch.cuda.synchronize()
+    grad_err = 0.0
+    for i, (a, w) in enumerate(zip(gpu._leaves(g_grads),
+                                   cpu._leaves(c_grads))):
+        err = (a.cpu() - w).abs()
+        scale = float(w.abs().max())
+        bad = int((err > 1e-4 * scale + 1e-4 * w.abs()).sum())
+        if bad:
+            raise AssertionError(f"train_parity: gradient leaf {i}: {bad} "
+                                 f"entries out of tolerance (max err "
+                                 f"{float(err.max())}, scale {scale})")
+        grad_err = max(grad_err, float(err.max()))
+    del g_grads, c_grads
+    g_losses, c_losses = [], []
+    for _ in range(steps):
+        gs, gl = gpu.train_step(gs, ids, labels)
+        cs, cl = cpu.train_step(cs, ids, labels)
+        g_losses.append(float(gl))
+        c_losses.append(float(cl))
+    launches = _flash_counts()
+    L = cfg.num_hidden_layers
+    want = {"fwd": 2 * L * (steps + 1), "dq": L * (steps + 1),
+            "dkv": L * (steps + 1)}
+    if launches != want:
+        raise AssertionError(f"train_parity: flash launches {launches} != "
+                             f"{want}")
+    np.testing.assert_allclose(g_losses, c_losses, rtol=1e-4)
+    if not g_losses[-1] < g_losses[0]:
+        raise AssertionError(f"train_parity: loss did not fall {g_losses}")
+    total, far, worst = 0, 0, 0.0
+    for a, w in zip(gpu._leaves(gs["params"]), cpu._leaves(cs["params"])):
+        err = (a.detach().cpu() - w.detach()).abs()
+        total += err.numel()
+        far += int((err > 1e-6).sum())
+        worst = max(worst, float(err.max()))
+    if far > PARITY_FAR_SHARE * total:
+        raise AssertionError(f"train_parity: {far} of {total} parameters "
+                             f"differ by more than 1e-6 (max {worst})")
+    emit("train_parity", layers=cfg.num_hidden_layers, hidden=cfg.hidden_size, batch=B, seq=T,
+         steps=steps, dtype="float32", losses_card=g_losses,
+         losses_cpu=c_losses, first_step_grad_max_abs_err=grad_err,
+         params_max_abs_err=worst, params_further_than_1e6=far,
+         params_total=total, flash_launches=launches)
+    del gs, cs, gpu, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train():
+    """The slice's run at full width through the entry point's
+    ``build_trainer`` and ``run_steps``: 1 warm-up step, then
+    ``TRAIN_STEPS`` timed steps with launch counts from 0.  Frees the state
+    before it returns the launch counts."""
+    import math
+    import torch
+    from paddle_tpu_torch.models import pretrain
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = pretrain.build_parser().parse_args(TRAIN_ARGV)
+    t0 = time.perf_counter()
+    ps, state, ids, labels = pretrain.build_trainer(args)
+    L = ps.config.num_hidden_layers
+    state, losses, _ = pretrain.run_steps(ps, state, ids, labels, 1)
+    t_setup = time.perf_counter() - t0
+    steps = TRAIN_STEPS
+    _reset_flash_counts()
+    state, timed, seconds = pretrain.run_steps(ps, state, ids, labels, steps)
+    launches = _flash_counts()
+    losses += timed
+    want = {"fwd": 2 * L * steps if ps.pc.remat else L * steps,
+            "dq": L * steps, "dkv": L * steps}
+    if launches != want:
+        raise AssertionError(f"train: flash launches {launches} != {want} "
+                             f"({L} layers x {steps} steps)")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"train: losses {losses}")
+    emit("train", preset=args.preset, layers=L, hidden=ps.config.hidden_size,
+         intermediate=ps.config.intermediate_size,
+         heads=ps.config.num_attention_heads, vocab=ps.config.vocab_size,
+         params=ps.config.num_params(), batch=args.batch, seq=args.seq,
+         remat_policy=args.remat_policy, loss_chunks=args.loss_chunks,
+         m_dtype=args.m_dtype, v_dtype=ps.pc.v_dtype,
+         setup_and_warmup_s=t_setup, step_ms_runs=[t * 1e3 for t in seconds],
+         **pretrain.throughput(ps, ids, seconds),
+         losses=losses, flash_launches=launches)
+    del state, ps, ids, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
+    from paddle_tpu_torch.models.pretrain import use_expandable_segments
+    use_expandable_segments()         # before CUDA's first allocation
     name, _smi = phase_device()
     import torch
     phase_build()
@@ -796,6 +1177,9 @@ def main() -> int:
                                       "--num-layers", "16"])]
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     decode = gmm_t[0]              # the gmm line: the decode gate/up shape
+    flash_err, flash_t = phase_kernel_flash()
+    phase_train_parity()
+    flash_launches = phase_train()
     print(json.dumps({"kernels": [
         {"name": "ragged_paged_attention", "route": "cuda",
          "source": ATTN_SOURCE, "replaces": ATTN_REPLACES,
@@ -815,7 +1199,16 @@ def main() -> int:
          "launches": launches["gmm"], "max_abs_err": gmm_err,
          "ms": decode["kernel_ms"], "plain_ms": decode["plain_ms"],
          "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
-         "library_ms": decode["library_ms"]}]}), flush=True)
+         "library_ms": decode["library_ms"]}] + [
+        {"name": f"flash_attention_{nm}", "route": "cuda",
+         "source": FLASH_SOURCE, "replaces": FLASH_REPLACES[key],
+         "launches": flash_launches[key], "max_abs_err": flash_err[key],
+         "ms": flash_t[key]["kernel_ms"], "plain_ms": flash_t[key]["plain_ms"],
+         "bound_ms": flash_t[key]["bound_ms"],
+         "bound_by": flash_t[key]["bound_by"],
+         "library_ms": flash_t[key]["library_ms"]}
+        for nm, key in (("fwd", "fwd"), ("bwd_dq", "dq"),
+                        ("bwd_dkv", "dkv"))]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,8 @@
-"""paddle_tpu_torch — the PyTorch + CUDA port of ``paddle_tpu``'s serving path.
+"""paddle_tpu_torch — the PyTorch + CUDA port of ``paddle_tpu``'s serving and
+training paths.
 
-The JAX package ``paddle_tpu`` is the reference; this package serves the same
-Llama models on an NVIDIA Hopper card (sm_90a) with hand-written CUDA
+The JAX package ``paddle_tpu`` is the reference; this package serves and
+trains the same Llama models on an NVIDIA Hopper card (sm_90a) with hand-written CUDA
 kernels in place of the TPU's Pallas kernels.  It imports ``torch`` and never
 ``jax`` or ``paddle_tpu``.
 
@@ -18,6 +19,11 @@ import torch
 __version__ = "0.1.0"
 
 DEFAULT_DEVICE = "cuda"
+
+# the card the port targets: H100 SXM, NVIDIA data sheet (dense rates)
+PEAK_FLOPS = {"float32": 67e12,    # fp32 outside the tensor cores
+              "bfloat16": 989e12}  # bf16 tensor cores
+HBM_BYTES_PER_S = 3.35e12
 
 
 def resolve_device(device=None) -> torch.device:
@@ -36,4 +42,5 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-__all__ = ["__version__", "DEFAULT_DEVICE", "resolve_device"]
+__all__ = ["__version__", "DEFAULT_DEVICE", "HBM_BYTES_PER_S", "PEAK_FLOPS",
+           "resolve_device"]

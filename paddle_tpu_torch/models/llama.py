@@ -81,6 +81,23 @@ class LlamaConfig:
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
 
+    def _per_layer_params(self):
+        """(dense per-layer params, expert-bank per-layer params)."""
+        h, i = self.hidden_size, self.intermediate_size
+        kvh = self.num_key_value_heads * self.head_dim
+        attn = h * h + 2 * h * kvh + h * h + 2 * h
+        if self.moe_num_experts:
+            return attn + h * self.moe_num_experts, \
+                self.moe_num_experts * 3 * h * i
+        return attn + 3 * h * i, 0
+
+    def num_params(self) -> int:
+        dense, experts = self._per_layer_params()
+        emb = self.vocab_size * self.hidden_size * \
+            (1 if self.tie_word_embeddings else 2)
+        return self.num_hidden_layers * (dense + experts) + emb + \
+            self.hidden_size
+
     @staticmethod
     def tiny(**kw) -> "LlamaConfig":
         base = dict(vocab_size=256, hidden_size=64, intermediate_size=128,
@@ -157,13 +174,19 @@ def swiglu(gate, up):
 class _Init:
     """The reference's ``_scaled_init``: N(0, 1/fan_in) drawn in fp32 from
     one seeded ``torch.Generator`` on the target device, cast to the model
-    dtype — full-width bf16 activations stay finite."""
+    dtype — full-width bf16 activations stay finite.  On the ``meta``
+    device it makes shapes only (the trainer's template layer)."""
 
     def __init__(self, device, dtype, seed: int):
-        self.device, self.dtype = device, dtype
-        self.gen = torch.Generator(device=device).manual_seed(seed)
+        self.device, self.dtype = torch.device(device), dtype
+        self.gen = None if self.device.type == "meta" else \
+            torch.Generator(device=self.device).manual_seed(seed)
 
     def scaled(self, shape, fan_in):
+        if self.gen is None:
+            return nn.Parameter(torch.empty(shape, device=self.device,
+                                            dtype=self.dtype),
+                                requires_grad=False)
         w = torch.randn(shape, generator=self.gen, device=self.device,
                         dtype=torch.float32) * (1.0 / math.sqrt(fan_in))
         return nn.Parameter(w.to(self.dtype), requires_grad=False)
@@ -368,8 +391,10 @@ class LlamaModel(nn.Module):
 class LlamaForCausalLM(nn.Module):
     """Llama (dense or MoE) with random init from ``seed`` on ``device``
     (default ``"cuda"``; raises without a GPU).  ``forward(input_ids
-    [b, s])`` returns logits [b, s, vocab] (full-sequence causal attention;
-    CPU tensors only until the flash-attention kernel is ported)."""
+    [b, s])`` returns logits [b, s, vocab] (full-sequence causal attention:
+    the flash-attention forward kernel on the card, its plain version on
+    the CPU).  Its parameters do not require gradients; the trainer
+    (:mod:`paddle_tpu_torch.models.pretrain`) keeps its own."""
 
     def __init__(self, config: LlamaConfig, *, device=None, seed: int = 0):
         super().__init__()

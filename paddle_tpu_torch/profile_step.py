@@ -1,8 +1,23 @@
-"""Where the time of a serving step goes on the card.
+"""Where the time of a serving step, or of a training step, goes on the card.
 
     python -m paddle_tpu_torch.profile_step [--preset llama2_7b]
         [--num-layers N] [--cache-dtype int8] [--batch 8] [--context 512]
         [--steps 16]
+    python -m paddle_tpu_torch.profile_step --train [pretrain options]
+        [--top 12]
+
+With ``--train`` every other option is the pretrain entry point's
+(``python -m paddle_tpu_torch.models.pretrain --help``; its defaults are
+the llama2_7b run at B=4, T=2048 and 5 steps).  It builds the trainer
+through that entry point's ``build_trainer`` (random weights and batch from
+``--seed``), takes one warm-up step, times ``--steps`` − 1 steps without
+the profiler and as many under ``torch.profiler``, and prints one JSON line:
+wall milliseconds per step, tokens/s and MFU, device-busy milliseconds, the
+device's idle share, the three flash-attention kernels (ms and launches per
+step), cuBLAS GEMMs, the AdamW update and the cross-entropy forward (the
+device time of the kernels launched inside their ``record_function``
+ranges), and the top kernels.
+Without it, it profiles a serving step as follows.
 
 (``--preset mixtral_8x7b --num-layers 16`` is the Mixtral-width MoE model
 cut to 16 layers, as ``chip_smoke.py`` serves it.)  Builds the model (random
@@ -27,12 +42,125 @@ from __future__ import annotations
 import argparse
 import json
 import subprocess
+import sys
 import time
 from collections import defaultdict
 
 
+def _smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
+def _device_events(prof, annotations: bool):
+    """The profile's device-timeline events: the kernels (and memcpys and
+    memsets), or with ``annotations`` the spans the profiler mirrors there
+    for each ``record_function`` range (a span covers its kernels and the
+    gaps between them, so it is never counted as busy time)."""
+    import torch
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and bool(getattr(e, "is_user_annotation", False)) == annotations]
+
+
+def _device_ms(prof):
+    """{kernel name: device ms} summed over the profile."""
+    by_name = defaultdict(float)
+    for evt in _device_events(prof, annotations=False):
+        by_name[evt.name] += evt.time_range.elapsed_us() / 1e3
+    return by_name
+
+
+def _range_device_ms(prof, name):
+    """Device ms of the kernels that start inside the device-side spans of
+    ``record_function(name)`` (one stream: the kernels launched in it)."""
+    spans = [(e.time_range.start, e.time_range.end)
+             for e in _device_events(prof, annotations=True) if e.name == name]
+    return sum(e.time_range.elapsed_us()
+               for e in _device_events(prof, annotations=False)
+               if any(s <= e.time_range.start < t for s, t in spans)) / 1e3
+
+
+GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
+
+
+def profile_train(argv) -> dict:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from .kernels import flash_attention as fa
+    from .models import pretrain
+
+    p = pretrain.build_parser()
+    p.prog = "python -m paddle_tpu_torch.profile_step --train"
+    p.add_argument("--top", type=int, default=12)
+    args = p.parse_args(argv)
+    if torch.device(args.device).type != "cuda":
+        raise SystemExit("profile_step --train profiles the card: "
+                         "--device cuda")
+    pretrain.use_expandable_segments()
+    ps, state, ids, labels = pretrain.build_trainer(args)
+    n = max(args.steps - 1, 1)
+    state, _, _ = pretrain.run_steps(ps, state, ids, labels, 1)  # warm-up
+    state, _, seconds = pretrain.run_steps(ps, state, ids, labels, n)
+
+    def counts():
+        return fa.LAUNCHES_FWD, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV
+
+    c0 = counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, losses, profiled = pretrain.run_steps(ps, state, ids, labels,
+                                                     n)
+    launches = [c - c_ for c, c_ in zip(counts(), c0)]
+    by_name = _device_ms(prof)
+    busy_ms = sum(by_name.values())
+    wall_ms = sum(seconds) * 1e3
+
+    def share(*keys):
+        return sum(v for k, v in by_name.items() if any(x in k for x in keys))
+
+    flash = {nm: share(f"flash_{nm}_kernel") / n for nm in ("fwd", "bwd_dq",
+                                                            "bwd_dkv")}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:args.top]
+    return {
+        "mode": "train", "preset": args.preset,
+        "layers": ps.config.num_hidden_layers, "batch": args.batch,
+        "seq": args.seq, "remat_policy": args.remat_policy,
+        "loss_chunks": args.loss_chunks, "m_dtype": args.m_dtype,
+        "steps": n, "loss": losses[-1],
+        **pretrain.throughput(ps, ids, seconds),
+        "step_ms_profiled": sum(profiled) * 1e3 / n,
+        "device_busy_ms_per_step": busy_ms / n if busy_ms else None,
+        "device_idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
+        "flash_ms_per_step": flash,
+        "flash_launches_per_step": dict(zip(("fwd", "bwd_dq", "bwd_dkv"),
+                                            (x / n for x in launches))),
+        "gemm_ms_per_step": share(*GEMM_NAMES) / n,
+        "adamw_ms_per_step": _range_device_ms(prof, "adamw") / n,
+        "ce_forward_ms_per_step": _range_device_ms(prof, "ce_forward") / n,
+        "top_kernels_ms_per_step": [[k, v / n] for k, v in top],
+    }
+
+
 def main(argv=None) -> int:
-    p = argparse.ArgumentParser(prog="python -m paddle_tpu_torch.profile_step")
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if "--train" in argv:
+        argv.remove("--train")
+        import torch
+
+        from . import resolve_device
+        dev = resolve_device("cuda")
+        print(json.dumps({"device": torch.cuda.get_device_name(dev),
+                          "nvidia_smi": _smi(), **profile_train(argv)}))
+        return 0
+    p = argparse.ArgumentParser(
+        prog="python -m paddle_tpu_torch.profile_step",
+        description="Profiles a serving step; with --train a training step "
+                    "(then the other options are the pretrain entry "
+                    "point's, and --top).")
     p.add_argument("--preset", default="llama2_7b")
     p.add_argument("--num-layers", type=int, default=None,
                    help="cut the preset's depth (widths unchanged)")
@@ -57,10 +185,7 @@ def main(argv=None) -> int:
     from .models.llama import LlamaConfig, LlamaForCausalLM
 
     dev = resolve_device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
+    smi = _smi()
     kw = {} if args.num_layers is None else \
         {"num_hidden_layers": args.num_layers}
     cfg = getattr(LlamaConfig, args.preset)(**kw)
@@ -110,10 +235,7 @@ def main(argv=None) -> int:
     launches = pa.LAUNCHES + pa.LAUNCHES_INT8 - launches0
     gmm_launches = gm.LAUNCHES - gmm0
 
-    by_name = defaultdict(float)
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[evt.name] += evt.time_range.elapsed_us() / 1e3
+    by_name = _device_ms(prof)
     busy_ms = sum(by_name.values())
     attn_ms = sum(v for k, v in by_name.items()
                   if "ragged_paged_attn" in k)

@@ -11,7 +11,12 @@ Tolerances: fp32 2e-5 (summation order only); bf16 ``out`` 2e-2 abs +
 1e-2 rel (one bf16 rounding of the output); ``lse`` is fp32 from bf16
 inputs, 1e-3.  Grouped matmul: fp32 1e-4 rel + 2e-5 of the output's largest
 magnitude (summation order over C); bf16 1e-2 rel + 1e-2 of the largest
-magnitude (one bf16 rounding of the output).
+magnitude (one bf16 rounding of the output).  Flash attention, each output
+held as ``chip_smoke.py`` holds it: relative Frobenius error 1e-5 (fp32:
+a blockwise online softmax against one dense softmax) or 1e-2 (bf16:
+probabilities and ds rounded to bf16 before their products), and every
+element within rtol x |want| + atol x the larger of its row's RMS and the
+tensor's (fp32 1e-4 and 1e-4, bf16 2e-2 and 5e-2); ``lse`` 1e-4.
 """
 
 import numpy as np
@@ -212,3 +217,90 @@ def test_gmm_kernel_vs_plain_on_card(h100, dtype, bm, counts, fused):
     if rows is not None:                # sentinel rows come out exactly 0
         pad = rows == lhs.shape[0] - 1
         assert torch.equal(out[pad], torch.zeros_like(out[pad]))
+
+
+def _flash_inputs(h100, dtype, *, b, sq, sk, hq, hkv, d, seed):
+    rng = np.random.default_rng(seed)
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(h100).to(dtype)
+
+    return rnd(b, sq, hq, d), rnd(b, sk, hkv, d), rnd(b, sk, hkv, d), \
+        rnd(b, sq, hq, d)
+
+
+FLASH_TOL = {torch.float32: dict(rel=1e-5, rtol=1e-4, atol=1e-4),
+             torch.bfloat16: dict(rel=1e-2, rtol=2e-2, atol=5e-2)}
+
+
+def _assert_flash_close(got, want, rel, rtol, atol):
+    g, w = got.float(), want.float()
+    assert bool(torch.isfinite(g).all())
+    err = (g - w).abs()
+    assert float(err.norm()) <= rel * float(w.norm())
+    scale = w.square().mean(-1, keepdim=True).sqrt().clamp_min(
+        float(w.square().mean().sqrt()))
+    need = float(((err - rtol * w.abs()) / scale).max())
+    assert need <= atol, need
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,d,causal", [
+    (2, 128, 128, 4, 4, 64, False),
+    (2, 256, 256, 8, 2, 128, True),      # GQA group 4
+    (1, 100, 300, 8, 1, 128, True),      # sq < sk, ragged tiles, group 8
+    (3, 77, 77, 2, 2, 64, False),        # lengths off the 64-row tile
+])
+def test_flash_kernels_vs_plain_on_card(h100, dtype, b, sq, sk, hq, hkv, d,
+                                        causal):
+    """Forward (out, lse), dQ and dK/dV against the plain versions on the
+    same inputs (tolerances in the module docstring)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    q, k, v, g = _flash_inputs(h100, dtype, b=b, sq=sq, sk=sk, hq=hq,
+                               hkv=hkv, d=d, seed=sq + hkv)
+    n0 = (fa.LAUNCHES_FWD, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV)
+    out, lse = fa.flash_forward(q, k, v, causal)
+    dq, dk, dv = fa.flash_backward(q, k, v, out, lse, g, causal)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES_FWD, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV) == \
+        (n0[0] + 1, n0[1] + 1, n0[2] + 1)
+    ref, ref_lse = fa._reference_attention_lse(q, k, v, causal)
+    tol = FLASH_TOL[dtype]
+    _assert_flash_close(out, ref, **tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
+    delta = fa._delta(out, g)
+    want = (fa._flash_bwd_dq(q, k, v, g, lse, delta, causal),
+            *fa._flash_bwd_dkv(q, k, v, g, lse, delta, causal))
+    for got, ref_grad in zip((dq, dk, dv), want):
+        assert got.dtype == dtype and got.shape == ref_grad.shape
+        _assert_flash_close(got, ref_grad, **tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_cuda_only_modes_raise_on_card(h100):
+    """The additive mask (plain version only), dropout and head dims other
+    than 64/128 raise on CUDA tensors; nothing falls back to the plain
+    version."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    q, k, v, _ = _flash_inputs(h100, torch.bfloat16, b=1, sq=64, sk=64,
+                               hq=2, hkv=2, d=64, seed=0)
+    mask = torch.zeros((1, 1, 64, 64), device=h100)
+    n0 = fa.LAUNCHES_FWD
+    with pytest.raises(NotImplementedError, match="attn_mask"):
+        fa.flash_attention(q, k, v, causal=True, attn_mask=mask)
+    with pytest.raises(NotImplementedError, match="dropout"):
+        fa.flash_attention(q, k, v, dropout=0.1)
+    q96 = torch.zeros((1, 64, 2, 96), device=h100, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q96, q96, q96, causal=True)
+    with pytest.raises(ValueError, match="causal"):
+        fa.flash_attention(q, k[:, :32], v[:, :32], causal=True)
+    assert fa.LAUNCHES_FWD == n0
+    # the autograd Function runs the three kernels
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    fa.flash_attention(*leaves, causal=True).float().sum().backward()
+    assert fa.LAUNCHES_FWD == n0 + 1
+    assert all(x.grad is not None and torch.isfinite(x.grad.float()).all()
+               for x in leaves)

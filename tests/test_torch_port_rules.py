@@ -47,6 +47,17 @@ def test_importing_the_serving_stack_loads_no_jax():
     assert r.returncode == 0, r.stderr
 
 
+def test_importing_the_training_stack_loads_no_jax():
+    code = ("import paddle_tpu_torch.models.pretrain, "
+            "paddle_tpu_torch.kernels.flash_attention, "
+            "paddle_tpu_torch.profile_step, sys; "
+            "assert 'jax' not in sys.modules; "
+            "assert 'paddle_tpu' not in sys.modules")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
 def test_default_device_is_cuda_and_raises_without_gpu():
     """Entry points run on the card unless the caller asks for the CPU:
     with no GPU the default raises instead of carrying on on the CPU."""
@@ -69,6 +80,24 @@ def test_default_device_is_cuda_and_raises_without_gpu():
     from paddle_tpu_torch.serving.__main__ import build_engine, build_parser
     with pytest.raises(RuntimeError, match="cuda"):
         build_engine(build_parser().parse_args([]))
+    from paddle_tpu_torch.models import pretrain
+    with pytest.raises(RuntimeError, match="cuda"):
+        pretrain.PretrainStep(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        pretrain.build_trainer(pretrain.build_parser().parse_args(
+            ["--preset", "tiny"]))
+
+
+def test_training_entry_point_defaults_to_the_card():
+    """``python -m paddle_tpu_torch.models.pretrain`` with no --device
+    refuses to run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device works here")
+    r = subprocess.run([sys.executable, "-m", "paddle_tpu_torch.models.pretrain",
+                        "--preset", "tiny", "--steps", "1"], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0 and "cuda" in r.stderr
+    assert '"loss"' not in r.stdout
 
 
 def test_model_and_engine_devices_must_agree():
@@ -82,13 +111,17 @@ def test_model_and_engine_devices_must_agree():
 
 
 def test_cuda_only_paths_refuse_cpu_fallback():
-    """The full-sequence flash attention has no Hopper kernel yet: a CUDA
-    tensor raises rather than silently using the plain version.  (Checked
-    through the dispatch on the tensor's device type.)"""
+    """Flash attention takes its plain version only for a CPU tensor: a
+    tensor on any other device launches a kernel or raises, forward and
+    backward alike (checked through the dispatch on the device type; the
+    CUDA launches are tests/test_torch_cuda_kernels.py's)."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     meta = torch.empty((1, 4, 2, 64), device="meta")
     with pytest.raises(NotImplementedError, match="flash"):
         fa.flash_attention(meta, meta, meta, causal=True)
+    lse = torch.empty((1, 2, 4), device="meta")
+    with pytest.raises(NotImplementedError, match="flash"):
+        fa.flash_backward(meta, meta, meta, meta, lse, meta, True)
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
