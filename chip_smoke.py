@@ -58,11 +58,46 @@ is caught; there is no ``ok`` line unless every phase passed):
     B=4, T=2048, 1 warm-up step then 4 timed steps; launch counts reset
     before the timed steps must be exactly 2·L·steps (forward, remat
     included) and L·steps (dQ, dK/dV); tokens/s, MFU and peak memory.
-11. the ``kernels`` line, then the last line
+11. ``kernel_tgmm`` — the MoE backward's grouped kernels against their
+    plain versions in fp32 and bf16: ``tgmm`` with and without each fused
+    row gather and the rhs scale, and ``gmm`` with ``trans_rhs`` and
+    ``row_scale`` (bm 8/16/128/512, an expert with no rows, one expert
+    holding every row, a truncated plan whose last expert owns no tile,
+    zero sentinel rows, widths from 64 up to Mixtral's); then, at the
+    Mixtral training shape (8192 tokens, top-2, bm 512: M 20480 rows, 16384
+    of them live; H 4096, I 14336, bf16), ``tgmm`` for ``dw_gate`` and
+    ``dw_down``, ``gmm`` ``trans_rhs`` for ``da`` and ``dx`` and the
+    forward's gate/up ``gmm``, each held against its plain version (and
+    the yardstick's output too), then CUDA-event times beside the plain
+    versions, the live rows' operations bound and ``torch._grouped_mm`` (or
+    per-expert matmuls) as the yardstick.  The kernels line reports the
+    launch-weighted mean of each kernel's forms on the training step.
+12. ``moe_train_parity`` — ``PretrainStep`` on the card against the same
+    step on the CPU from one ``restore_canonical`` state: 1 fp32 layer at
+    Mixtral-8x7B widths (1.71 B parameters), B=2, T=256, remat and a
+    4-chunk loss; first-step gradients, then 3 steps' losses and
+    parameters (at most MOE_PARITY_FAR_SHARE further apart than 1e-6);
+    tokens whose top-2 experts differ between card and CPU in the first
+    forward are counted as near-ties.
+13. ``train_moe`` — through the pretrain entry point's ``build_trainer``:
+    Mixtral-8x7B widths cut to 4 layers (bf16, remat full, 16 loss chunks,
+    bf16 ``m``, fp32 ``v``), B=4, T=2048, 1 warm-up step then 4 timed
+    steps; launch counts reset before the timed steps must be exactly
+    6·L·steps (gmm forward, remat included), 3·L·steps (gmm ``trans_rhs``),
+    3·L·steps (``tgmm``) and the flash kernels' 2·L·steps, L·steps,
+    L·steps; tokens/s, MFU on the active parameters, peak memory and the
+    router's stats.
+14. the ``kernels`` line, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device.  Imports nothing
 of JAX.
+
+    python3 chip_smoke.py --moe-parity-spread
+
+runs only ``moe_train_parity``'s comparison over several seeds and with
+TF32 on as a control, and prints the readings MOE_PARITY_FAR_SHARE is set
+from (no ``ok`` line).
 """
 
 from __future__ import annotations
@@ -110,6 +145,25 @@ PARITY = dict(preset="llama2_7b", layers=2, batch=2, seq=256, steps=3)
 PARITY_FAR_SHARE = 5e-4
 TRAIN_ARGV = ["--preset", "llama2_7b", "--batch", "4", "--seq", "2048"]
 TRAIN_STEPS = 4                    # timed, after one warm-up step
+TGMM_REPLACES = "paddle_tpu/kernels/grouped_matmul.py:334"
+# the Mixtral training shape of the grouped kernels: B=4 x T=2048 tokens,
+# top-2 of 8 experts, bm 512 (M = 16384 live rows + 8 x 512 = 20480)
+MOE_TIMED = dict(tokens=8192, E=8, k=2, bm=512, H=4096, I=14336)
+# the MoE backward's timed forms with their launches per layer per step
+# (models/llama.py _grouped_ffn_bwd); the kernels line reports their
+# launch-weighted means
+MOE_BACKWARD_MIX = {"trans": {"trans_da": 1, "trans_dx": 2},
+                    "tgmm": {"tgmm_dw_gate": 2, "tgmm_dw_down": 1}}
+MOE_PARITY = dict(preset="mixtral_8x7b", layers=1, batch=2, seq=256, steps=3)
+# share of moe_train_parity's parameters further apart than 1e-6, set from
+# `python3 chip_smoke.py --moe-parity-spread` on an H100 80GB HBM3: fp32
+# read 1.3e-4 to 3.1e-4 over seeds 0-3, TF32 on (the control of a
+# lower-precision step) 0.18 and 0.25; 6x above the one, 90x below the other
+MOE_PARITY_FAR_SHARE = 2e-3
+MOE_SPREAD_SEEDS = (0, 0, 1, 2, 3)
+MOE_CONTROL_SEEDS = (0, 1)
+TRAIN_MOE_ARGV = ["--preset", "mixtral_8x7b", "--num-layers", "4",
+                  "--batch", "4", "--seq", "2048"]
 
 
 def emit(phase: str, **kw) -> None:
@@ -1158,6 +1212,534 @@ def phase_train():
     return launches
 
 
+# ------------------------------------------------------- MoE backward ---
+
+def _grouped_counts():
+    from paddle_tpu_torch.kernels import grouped_matmul as gm
+    return {"gmm": gm.LAUNCHES, "gmm_trans": gm.LAUNCHES_TRANS,
+            "tgmm": gm.LAUNCHES_TGMM}
+
+
+def _reset_grouped_counts():
+    from paddle_tpu_torch.kernels import grouped_matmul as gm
+    gm.LAUNCHES = gm.LAUNCHES_TRANS = gm.LAUNCHES_TGMM = 0
+
+
+def _dispatch_rows(ids, E, bm, cut=False):
+    """``(rows, tile_groups)`` of the sorted dispatch of the flat expert
+    ``ids``: ``rows`` indexes an un-permuted [F + 1, ...] buffer whose last
+    row is the zero sentinel.  ``cut`` truncates the plan after the last
+    tile of expert E - 2, so expert E - 1 owns no tile."""
+    import torch
+    from paddle_tpu_torch.kernels import grouped_matmul as gm
+    inv, _pos, tg = gm.sorted_dispatch_plan(ids, E, bm)
+    if cut:
+        keep = int((tg != E - 1).sum())
+        inv, tg = inv[:keep * bm], tg[:keep]
+    F = ids.numel()
+    return torch.where(inv < F, inv, torch.full_like(inv, F)), tg
+
+
+def _rows_operand(gen, dtype, F, M, width, fused):
+    """A gathered operand: the un-permuted [F + 1, width] buffer with a zero
+    last row (``fused``), else a pre-permuted [M, width] one."""
+    import torch
+    x = torch.randn((F + 1 if fused else M, width), generator=gen,
+                    device="cuda")
+    if fused:
+        x[-1] = 0
+    return x.to(dtype)
+
+
+def _check_close(what, out, ref, dtype):
+    """Every element within rtol x |ref| + atol x max |ref| (GMM_TOL)."""
+    rtol, atol = GMM_TOL[str(dtype).replace("torch.", "")]
+    err = (out.float() - ref.float()).abs()
+    scale = float(ref.float().abs().max())
+    bad = int((err > atol * scale + rtol * ref.float().abs()).sum())
+    if bad:
+        raise AssertionError(f"{what}: {bad} elements out of tolerance (max "
+                             f"err {float(err.max())}, scale {scale})")
+    return float(err.max()), scale, [rtol, atol]
+
+
+def _grouped_bound_ms(operands, out, flops, dtype):
+    """Least time of one grouped call: the larger of the bytes its operands
+    and output move once each (over the HBM rate) and ``flops`` over the
+    dtype's peak."""
+    from paddle_tpu_torch import HBM_BYTES_PER_S, PEAK_FLOPS
+    nbytes = sum(x.numel() * x.element_size() for x in operands
+                 if x is not None) + out.numel() * out.element_size()
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[str(dtype).replace("torch.", "")]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _moe_backward_matrix(gen):
+    """tgmm and gmm trans_rhs/row_scale against their plain versions over
+    the case matrix, fp32 and bf16.  Returns (cases, worst errors)."""
+    import torch
+    from paddle_tpu_torch.kernels import grouped_matmul as gm
+    dev = "cuda"
+
+    def ids_of(counts):
+        e = torch.repeat_interleave(torch.arange(len(counts), device=dev),
+                                    torch.tensor(counts, device=dev))
+        return e[torch.randperm(e.numel(), generator=gen, device=dev)]
+
+    # (label, E, ids, bm, K, N, cut, forms): gmm trans reads rhs [E, N, K]
+    # (contracting over K, out [M, N]); tgmm writes [E, K, N]
+    every = ("trans_rows_scale", "trans_plain", "tgmm_lrows",
+             "tgmm_rrows_scale", "tgmm_plain", "tgmm_both_scale")
+    matrix = [
+        ("empty_experts_bm8", 8, ids_of([3, 0, 9, 1, 0, 0, 2, 1]), 8, 64, 64,
+         False, every),
+        ("one_expert_bm16", 8, ids_of([40, 0, 0, 0, 0, 0, 0, 0]), 16, 128,
+         192, False, every),
+        ("cut_plan_bm512", 4, ids_of([600, 1, 3, 0]), 512, 256, 512, True,
+         every),
+        ("bm128", 8, _routing_ids(gen, 300, 8, 2), 128, 512, 1024, False,
+         every),
+        ("mixtral_h_i", 8, _routing_ids(gen, 512, 8, 2), 512, 4096, 14336,
+         False, ("trans_rows_scale", "tgmm_lrows")),
+        ("mixtral_i_h", 8, _routing_ids(gen, 512, 8, 2), 512, 14336, 4096,
+         False, ("trans_plain", "tgmm_rrows_scale")),
+    ]
+    cases, worst = [], {"trans": 0.0, "tgmm": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        for label, E, ids, bm, K, N, cut, forms in matrix:
+            rows, tg = _dispatch_rows(ids, E, bm, cut)
+            F, M = ids.numel(), rows.shape[0]
+            scale = torch.rand((M,), generator=gen, device=dev)
+            for form in forms:
+                lf = form in ("trans_rows_scale", "tgmm_lrows",
+                              "tgmm_both_scale")
+                rf = form in ("tgmm_rrows_scale", "tgmm_both_scale")
+                s = scale if form.endswith("scale") else None
+                lhs = _rows_operand(gen, dtype, F, M, K, lf)
+                lr = rows if lf else None
+                if form.startswith("trans"):
+                    rhs = (torch.randn((E, N, K), generator=gen, device=dev)
+                           / K ** 0.5).to(dtype)
+                    out = gm.gmm(lhs, rhs, tg, bm=bm, rows=lr,
+                                 trans_rhs=True, row_scale=s)
+                    ref = gm._gmm_reference(lhs, rhs, tg, bm=bm, rows=lr,
+                                            trans_rhs=True, row_scale=s)
+                    kind = "trans"
+                else:
+                    rhs = _rows_operand(gen, dtype, F, M, N, rf)
+                    rr = rows if rf else None
+                    out = gm.tgmm(lhs, rhs, tg, E, bm=bm, lhs_rows=lr,
+                                  rhs_rows=rr, rhs_scale=s)
+                    ref = gm._tgmm_reference(lhs, rhs, tg, E, bm=bm,
+                                             lhs_rows=lr, rhs_rows=rr,
+                                             rhs_scale=s)
+                    kind = "tgmm"
+                torch.cuda.synchronize()
+                name = f"{label}/{dname}/{form}"
+                err, ref_max, tol = _check_close(name, out, ref, dtype)
+                if kind == "trans" and lf:
+                    pad = rows == F
+                    if pad.any() and out[pad].abs().max().item() != 0:
+                        raise AssertionError(f"{name}: sentinel rows are "
+                                             "not exactly 0")
+                if kind == "tgmm" and cut and out[E - 1].abs().max() != 0:
+                    raise AssertionError(f"{name}: the expert with no tile "
+                                         "is not exactly 0")
+                cases.append({"case": label, "dtype": dname, "form": form,
+                              "E": E, "F": F, "bm": bm, "M": M, "K": K,
+                              "N": N, "max_abs_err": err,
+                              "ref_max_abs": ref_max, "tol": tol})
+                worst[kind] = max(worst[kind], err)
+                del lhs, rhs, out, ref
+            del rows, tg, scale
+        torch.cuda.empty_cache()
+    return cases, worst
+
+
+def _moe_backward_timing(gen):
+    """The MoE step's grouped calls at the Mixtral training shape (bf16):
+    the backward's tgmm and gmm trans_rhs forms and the forward's gate/up
+    gmm.  Each output is held against its plain version (GMM_TOL; rows
+    that read the zero sentinel exactly 0), and so is the library
+    yardstick's.  Then CUDA-event times of each beside its plain version
+    (in turns: plain, kernel, library, kernel, plain), its bound (2 x the
+    live rows x K x N over the bf16 peak, or the bytes, whichever is
+    larger; the figure on all M rows beside it) and the library yardstick
+    on pre-gathered (and pre-scaled) rows."""
+    import torch
+    from paddle_tpu_torch import PEAK_FLOPS
+    from paddle_tpu_torch.kernels import grouped_matmul as gm
+    dev, bf = "cuda", torch.bfloat16
+    c = MOE_TIMED
+    E, bm, H, I = c["E"], c["bm"], c["H"], c["I"]
+    ids = _routing_ids(gen, c["tokens"], E, c["k"])
+    rows, tg = _dispatch_rows(ids, E, bm)
+    F, M = ids.numel(), rows.shape[0]
+    live = F
+    xz = _rows_operand(gen, bf, F, M, H, True)        # [F + 1, H] buffers
+    dy_z = _rows_operand(gen, bf, F, M, H, True)
+    dh = _rows_operand(gen, bf, F, M, I, False)       # [M, I]
+    a = _rows_operand(gen, bf, F, M, I, False)
+    w_gate = (torch.randn((E, H, I), generator=gen, device=dev)
+              / H ** 0.5).to(bf)
+    w_down = (torch.randn((E, I, H), generator=gen, device=dev)
+              / I ** 0.5).to(bf)
+    s = torch.rand((M,), generator=gen, device=dev)
+    ends = torch.searchsorted(tg, torch.arange(E, device=dev,
+                                               dtype=torch.int32),
+                              right=True).to(torch.int32) * bm
+    bounds = [0] + ends.tolist()
+    x_g = xz[rows.long()]                             # pre-gathered rows
+    dy_gs = (dy_z[rows.long()] * s[:, None].to(bf)).contiguous()
+    grouped_mm = hasattr(torch, "_grouped_mm")
+
+    def per_expert_tn(p, q):
+        return [p[bounds[e]:bounds[e + 1]].t() @ q[bounds[e]:bounds[e + 1]]
+                for e in range(E)]
+
+    def per_expert_nn(p, w):
+        return [p[bounds[e]:bounds[e + 1]] @ w[e] for e in range(E)]
+
+    def per_expert_nt(p, w):
+        return [p[bounds[e]:bounds[e + 1]] @ w[e].t() for e in range(E)]
+
+    calls = {
+        "gmm_up": dict(     # the forward's gate/up form, for comparison
+            kernel=lambda: gm.gmm(xz, w_gate, tg, bm=bm, rows=rows),
+            plain=lambda: gm._gmm_reference(xz, w_gate, tg, bm=bm,
+                                            rows=rows),
+            library=(lambda: torch._grouped_mm(x_g, w_gate, offs=ends))
+            if grouped_mm else (lambda: per_expert_nn(x_g, w_gate)),
+            operands=(xz, w_gate, rows, tg), K=H, N=I),
+        "tgmm_dw_gate": dict(
+            kernel=lambda: gm.tgmm(xz, dh, tg, E, bm=bm, lhs_rows=rows),
+            plain=lambda: gm._tgmm_reference(xz, dh, tg, E, bm=bm,
+                                             lhs_rows=rows),
+            library=(lambda: torch._grouped_mm(x_g.t(), dh, offs=ends))
+            if grouped_mm else
+            (lambda: per_expert_tn(x_g, dh)),
+            operands=(xz, dh, rows, tg), K=H, N=I),
+        "tgmm_dw_down": dict(
+            kernel=lambda: gm.tgmm(a, dy_z, tg, E, bm=bm, rhs_rows=rows,
+                                   rhs_scale=s),
+            plain=lambda: gm._tgmm_reference(a, dy_z, tg, E, bm=bm,
+                                             rhs_rows=rows, rhs_scale=s),
+            library=(lambda: torch._grouped_mm(a.t(), dy_gs, offs=ends))
+            if grouped_mm else
+            (lambda: per_expert_tn(a, dy_gs)),
+            operands=(a, dy_z, rows, s, tg), K=I, N=H),
+        "trans_da": dict(
+            kernel=lambda: gm.gmm(dy_z, w_down, tg, bm=bm, rows=rows,
+                                  trans_rhs=True, row_scale=s),
+            plain=lambda: gm._gmm_reference(dy_z, w_down, tg, bm=bm,
+                                            rows=rows, trans_rhs=True,
+                                            row_scale=s),
+            library=(lambda: torch._grouped_mm(dy_gs, w_down.transpose(1, 2),
+                                               offs=ends))
+            if grouped_mm else (lambda: per_expert_nt(dy_gs, w_down)),
+            operands=(dy_z, w_down, rows, s, tg), K=H, N=I),
+        "trans_dx": dict(
+            kernel=lambda: gm.gmm(dh, w_gate, tg, bm=bm, trans_rhs=True),
+            plain=lambda: gm._gmm_reference(dh, w_gate, tg, bm=bm,
+                                            trans_rhs=True),
+            library=(lambda: torch._grouped_mm(dh, w_gate.transpose(1, 2),
+                                               offs=ends))
+            if grouped_mm else (lambda: per_expert_nt(dh, w_gate)),
+            operands=(dh, w_gate, tg), K=I, N=H),
+    }
+    timings = {}
+    for name, cl in calls.items():
+        mine = cl["kernel"]()
+        ref = cl["plain"]()
+        lib_out = cl["library"]()
+        if isinstance(lib_out, list):
+            lib_out = torch.stack(lib_out) if name.startswith("tgmm") else \
+                torch.cat(lib_out)
+        torch.cuda.synchronize()
+        err, ref_max, tol = _check_close(f"training shape {name}", mine, ref,
+                                         bf)
+        lib_err = _check_close(f"training shape {name} library", lib_out,
+                               ref, bf)[0]
+        if name in ("gmm_up", "trans_da") and \
+                mine[rows == F].abs().max().item() != 0:
+            raise AssertionError(f"training shape {name}: sentinel rows are "
+                                 "not exactly 0")
+        del lib_out, ref
+        t = {}
+        for key in ("plain", "kernel", "library", "kernel2", "plain2"):
+            fn = cl[key.rstrip("2")]
+            t[key] = cuda_ms(fn, 2 if key.startswith("plain") else 5)
+            torch.cuda.empty_cache()
+        K, N = cl["K"], cl["N"]
+        # the live rows' products: the padding rows read the zero sentinel
+        # (or are dropped by the tile's group) and add nothing
+        b_ms, b_by = _grouped_bound_ms(cl["operands"], mine,
+                                       2 * live * K * N, bf)
+        ms = min(t["kernel"], t["kernel2"])
+        lib_call = ("torch._grouped_mm" if grouped_mm else
+                    "per-expert torch.matmul") + " on pre-gathered rows"
+        timings[name] = {
+            "shape": f"mixtral train {name} M={M} live={live} bm={bm} "
+                     f"K={K} N={N} bf16",
+            "max_abs_err": err, "ref_max_abs": ref_max, "tol": tol,
+            "kernel_ms": ms, "kernel_ms_runs": [t["kernel"], t["kernel2"]],
+            "plain_ms": min(t["plain"], t["plain2"]),
+            "plain_ms_runs": [t["plain"], t["plain2"]],
+            "library_ms": t["library"], "library_call": lib_call,
+            "library_max_abs_err": lib_err,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms_padded_rows":
+                2 * M * K * N / PEAK_FLOPS["bfloat16"] * 1e3,
+            "tflops_live_rows": 2 * live * K * N / (ms * 1e9)}
+        del mine
+    del xz, dy_z, dh, a, w_gate, w_down, s, x_g, dy_gs
+    torch.cuda.empty_cache()
+    return timings
+
+
+def _launch_mix(timings, mix):
+    """Launch-weighted means of the timed forms in ``mix`` ({form:
+    launches}); ``bound_by`` of the form that weighs most in the bound."""
+    n = sum(mix.values())
+    out = {k: sum(w * timings[f][k] for f, w in mix.items()) / n
+           for k in ("kernel_ms", "plain_ms", "bound_ms", "library_ms")}
+    top = max(mix, key=lambda f: mix[f] * timings[f]["bound_ms"])
+    out["bound_by"] = timings[top]["bound_by"]
+    out["forms"] = {timings[f]["shape"]: w for f, w in mix.items()}
+    return out
+
+
+def phase_kernel_tgmm():
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases, worst = _moe_backward_matrix(gen)
+    timings = _moe_backward_timing(gen)
+    for kind, mix in MOE_BACKWARD_MIX.items():
+        worst[kind] = max([worst[kind]] + [timings[f]["max_abs_err"]
+                                           for f in mix])
+    mixes = {kind: _launch_mix(timings, mix)
+             for kind, mix in MOE_BACKWARD_MIX.items()}
+    emit("kernel_tgmm", cases=cases, max_abs_err=worst, timings=timings,
+         launch_mix=mixes)
+    return worst, timings, mixes
+
+
+def _first_layer_topk(ps, params, ids):
+    """Top-k expert ids [B*T, k] of the first layer's router in the first
+    forward, computed from the layer's own submodules."""
+    import torch
+    from paddle_tpu_torch.models.llama import _route_topk
+    lp = params["blocks"][0]
+    t = ps._template
+
+    def sub(prefix):
+        return {k[len(prefix) + 1:]: v for k, v in lp.items()
+                if k.startswith(prefix + ".")}
+
+    def call(mod, name, *args):
+        return torch.func.functional_call(mod, sub(name), args)
+
+    ids = ps.shard_batch(ids, ids)[0]
+    cos, sin = ps._rope_tables(ids.shape[1])
+    with torch.no_grad():
+        h = torch.nn.functional.embedding(ids, params["embed"])
+        h = h + call(t.self_attn, "self_attn",
+                     call(t.input_layernorm, "input_layernorm", h), cos, sin)
+        x = call(t.post_attention_layernorm, "post_attention_layernorm", h)
+        topi = _route_topk(x.reshape(-1, x.shape[-1]),
+                           lp["mlp.gate.weight"], ps.config.moe_top_k)[1]
+    return torch.sort(topi, dim=-1).values.cpu()
+
+
+def _moe_parity_run(seed, tf32=False):
+    """One fp32 layer at Mixtral-8x7B widths (remat full, 4 loss chunks,
+    B=2, T=256): the trainer on the card (the grouped and flash kernels,
+    cuBLAS fp32) against the same trainer on the CPU (plain versions), from
+    one state carried with restore_canonical; ``seed`` draws the state and
+    the batch.  With ``tf32`` cuBLAS runs the card's dense matmuls in TF32
+    (the control: a step of lower precision).  Returns the readings and
+    checks nothing: first-step gradient entries out of train_parity's
+    tolerance, 3 steps' losses, parameters further apart than 1e-6, launch
+    counts, and the tokens routed to other experts on the card than on the
+    CPU in the first forward (near-ties)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.models.pretrain import ParallelConfig, PretrainStep
+
+    t0 = time.perf_counter()
+    steps, B, T = MOE_PARITY["steps"], MOE_PARITY["batch"], MOE_PARITY["seq"]
+    cfg = getattr(LlamaConfig, MOE_PARITY["preset"])(
+        num_hidden_layers=MOE_PARITY["layers"], dtype="float32")
+    pc = ParallelConfig(remat=True, loss_chunks=4)
+    cpu = PretrainStep(cfg, pc, device="cpu")
+    gpu = PretrainStep(cfg, pc, device="cuda")
+    cs = cpu.init_state(seed=seed)
+    gs = gpu.restore_canonical(cpu.canonical_state(cs))
+    gc.collect()
+    rng = np.random.default_rng(seed)
+    ids, labels = (rng.integers(0, cfg.vocab_size, (B, T)) for _ in range(2))
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    near_ties = int((_first_layer_topk(gpu, gs["params"], ids) !=
+                     _first_layer_topk(cpu, cs["params"], ids))
+                    .any(dim=-1).sum())
+
+    _reset_flash_counts()
+    _reset_grouped_counts()
+    g_loss, g_grads = gpu.loss_and_grads(gs["params"], ids, labels)
+    c_loss, c_grads = cpu.loss_and_grads(cs["params"], ids, labels)
+    torch.cuda.synchronize()
+    grad_err, grad_bad = 0.0, {}
+    for i, (a, w) in enumerate(zip(gpu._leaves(g_grads),
+                                   cpu._leaves(c_grads))):
+        err = (a.cpu() - w).abs()
+        bad = int((err > 1e-4 * float(w.abs().max()) + 1e-4 * w.abs()).sum())
+        if bad:
+            grad_bad[i] = bad
+        grad_err = max(grad_err, float(err.max()))
+    del g_grads, c_grads
+    g_losses, c_losses = [], []
+    for _ in range(steps):
+        gs, gl = gpu.train_step(gs, ids, labels)
+        cs, cl = cpu.train_step(cs, ids, labels)
+        g_losses.append(float(gl))
+        c_losses.append(float(cl))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launches = {**_flash_counts(), **_grouped_counts()}
+    total, far, worst = 0, 0, 0.0
+    for a, w in zip(gpu._leaves(gs["params"]), cpu._leaves(cs["params"])):
+        err = (a.detach().cpu() - w.detach()).abs()
+        total += err.numel()
+        far += int((err > 1e-6).sum())
+        worst = max(worst, float(err.max()))
+    out = dict(seed=seed, tf32=tf32, layers=cfg.num_hidden_layers,
+               hidden=cfg.hidden_size, intermediate=cfg.intermediate_size,
+               experts=cfg.moe_num_experts, params=cfg.num_params(),
+               batch=B, seq=T, steps=steps, dtype="float32",
+               near_ties=near_ties, tokens=B * T, losses_card=g_losses,
+               losses_cpu=c_losses, first_step_grad_max_abs_err=grad_err,
+               first_step_grad_out_of_tol=grad_bad, params_max_abs_err=worst,
+               params_further_than_1e6=far, params_total=total,
+               far_share=far / total,
+               router_stats_card=gpu.router_stats(gs, ids),
+               router_stats_cpu=cpu.router_stats(cs, ids), launches=launches,
+               seconds=time.perf_counter() - t0)
+    del gs, cs, gpu, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe_train_parity():
+    """``_moe_parity_run`` at seed 0, held to train_parity's tolerances
+    (losses rtol 1e-4; first-step gradients 1e-4 rel + 1e-4 x the leaf's
+    largest |grad|), exact launch counts, a falling loss, and at most
+    MOE_PARITY_FAR_SHARE of the parameters further apart than 1e-6."""
+    import numpy as np
+    r = _moe_parity_run(0)
+    if r["first_step_grad_out_of_tol"]:
+        raise AssertionError(f"moe_train_parity: gradient entries out of "
+                             f"tolerance per leaf "
+                             f"{r['first_step_grad_out_of_tol']} (max err "
+                             f"{r['first_step_grad_max_abs_err']}; "
+                             f"{r['near_ties']} near-ties)")
+    n = r["layers"] * (r["steps"] + 1)
+    want = {"fwd": 2 * n, "dq": n, "dkv": n, "gmm": 6 * n,
+            "gmm_trans": 3 * n, "tgmm": 3 * n}
+    if r["launches"] != want:
+        raise AssertionError(f"moe_train_parity: launches {r['launches']} "
+                             f"!= {want}")
+    np.testing.assert_allclose(r["losses_card"], r["losses_cpu"], rtol=1e-4)
+    if not r["losses_card"][-1] < r["losses_card"][0]:
+        raise AssertionError(f"moe_train_parity: loss did not fall "
+                             f"{r['losses_card']}")
+    if r["far_share"] > MOE_PARITY_FAR_SHARE:
+        raise AssertionError(f"moe_train_parity: {r['far_share']} of the "
+                             f"parameters differ by more than 1e-6 (max "
+                             f"{r['params_max_abs_err']}; limit "
+                             f"{MOE_PARITY_FAR_SHARE})")
+    emit("moe_train_parity", far_share_limit=MOE_PARITY_FAR_SHARE, **r)
+
+
+def moe_parity_spread() -> int:
+    """``python3 chip_smoke.py --moe-parity-spread``: the readings that
+    MOE_PARITY_FAR_SHARE is set from.  ``_moe_parity_run`` at each of
+    MOE_SPREAD_SEEDS in fp32 (seed 0 twice: the backward's atomics make
+    repeats differ), then at MOE_CONTROL_SEEDS with TF32 on.  One line per
+    run and a summary line; checks nothing and prints no ``ok`` line."""
+    from paddle_tpu_torch.models.pretrain import use_expandable_segments
+    use_expandable_segments()
+    phase_device()
+    phase_build()
+    runs = []
+    for seed, tf32 in ([(s, False) for s in MOE_SPREAD_SEEDS] +
+                       [(s, True) for s in MOE_CONTROL_SEEDS]):
+        runs.append(_moe_parity_run(seed, tf32))
+        emit("moe_parity_spread_run", **runs[-1])
+    share = {key: [r["far_share"] for r in runs if r["tf32"] == key]
+             for key in (False, True)}
+    emit("moe_parity_spread", fp32_far_share=share[False],
+         tf32_far_share=share[True], fp32_max=max(share[False]),
+         tf32_min=min(share[True]), limit=MOE_PARITY_FAR_SHARE)
+    return 0
+
+
+def phase_train_moe():
+    """The slice's run at Mixtral-8x7B widths, 4 layers, through the entry
+    point's ``build_trainer`` and ``run_steps``: 1 warm-up step, then
+    ``TRAIN_STEPS`` timed steps with launch counts from 0.  Frees the state
+    before it returns the launch counts."""
+    import math
+    import torch
+    from paddle_tpu_torch.models import pretrain
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = pretrain.build_parser().parse_args(TRAIN_MOE_ARGV)
+    t0 = time.perf_counter()
+    ps, state, ids, labels = pretrain.build_trainer(args)
+    L = ps.config.num_hidden_layers
+    state, losses, _ = pretrain.run_steps(ps, state, ids, labels, 1)
+    t_setup = time.perf_counter() - t0
+    steps = TRAIN_STEPS
+    _reset_flash_counts()
+    _reset_grouped_counts()
+    state, timed, seconds = pretrain.run_steps(ps, state, ids, labels, steps)
+    launches = {**_flash_counts(), **_grouped_counts()}
+    losses += timed
+    n = L * steps
+    fwd = 2 if ps.pc.remat else 1
+    want = {"fwd": fwd * n, "dq": n, "dkv": n, "gmm": 3 * fwd * n,
+            "gmm_trans": 3 * n, "tgmm": 3 * n}
+    if launches != want:
+        raise AssertionError(f"train_moe: launches {launches} != {want} "
+                             f"({L} layers x {steps} steps)")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"train_moe: losses {losses}")
+    tp = pretrain.throughput(ps, ids, seconds)
+    router = ps.router_stats(state, ids)
+    cfg = ps.config
+    emit("train_moe", preset=args.preset, layers=L, hidden=cfg.hidden_size,
+         intermediate=cfg.intermediate_size,
+         heads=cfg.num_attention_heads, kv_heads=cfg.num_key_value_heads,
+         vocab=cfg.vocab_size, experts=cfg.moe_num_experts,
+         top_k=cfg.moe_top_k, block_m=cfg.moe_block_m,
+         params=cfg.num_params(), active_params=cfg.num_active_params(),
+         batch=args.batch, seq=args.seq, remat_policy=args.remat_policy,
+         loss_chunks=args.loss_chunks, m_dtype=args.m_dtype,
+         v_dtype=ps.pc.v_dtype, setup_and_warmup_s=t_setup,
+         step_ms_runs=[t * 1e3 for t in seconds], **tp, losses=losses,
+         router_stats=router, launches=launches)
+    del state, ps, ids, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     from paddle_tpu_torch.models.pretrain import use_expandable_segments
     use_expandable_segments()         # before CUDA's first allocation
@@ -1180,6 +1762,9 @@ def main() -> int:
     flash_err, flash_t = phase_kernel_flash()
     phase_train_parity()
     flash_launches = phase_train()
+    moe_err, moe_t, moe_mix = phase_kernel_tgmm()
+    phase_moe_train_parity()
+    moe_launches = phase_train_moe()
     print(json.dumps({"kernels": [
         {"name": "ragged_paged_attention", "route": "cuda",
          "source": ATTN_SOURCE, "replaces": ATTN_REPLACES,
@@ -1196,7 +1781,8 @@ def main() -> int:
          "library_ms": None},
         {"name": "grouped_matmul", "route": "cuda",
          "source": GMM_SOURCE, "replaces": GMM_REPLACES,
-         "launches": launches["gmm"], "max_abs_err": gmm_err,
+         "launches": launches["gmm"],
+         "max_abs_err": max(gmm_err, moe_t["gmm_up"]["max_abs_err"]),
          "ms": decode["kernel_ms"], "plain_ms": decode["plain_ms"],
          "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
          "library_ms": decode["library_ms"]}] + [
@@ -1208,7 +1794,18 @@ def main() -> int:
          "bound_by": flash_t[key]["bound_by"],
          "library_ms": flash_t[key]["library_ms"]}
         for nm, key in (("fwd", "fwd"), ("bwd_dq", "dq"),
-                        ("bwd_dkv", "dkv"))]}), flush=True)
+                        ("bwd_dkv", "dkv"))] + [
+        {"name": nm, "route": "cuda", "source": GMM_SOURCE,
+         "replaces": replaces, "launches": moe_launches[key],
+         "max_abs_err": moe_err[kind], "ms": moe_mix[kind]["kernel_ms"],
+         "plain_ms": moe_mix[kind]["plain_ms"],
+         "bound_ms": moe_mix[kind]["bound_ms"],
+         "bound_by": moe_mix[kind]["bound_by"],
+         "library_ms": moe_mix[kind]["library_ms"]}
+        for nm, replaces, key, kind in (
+            ("grouped_matmul_trans_rhs", GMM_REPLACES, "gmm_trans", "trans"),
+            ("grouped_matmul_tgmm", TGMM_REPLACES, "tgmm", "tgmm"))]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -1216,4 +1813,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(moe_parity_spread() if sys.argv[1:] == ["--moe-parity-spread"]
+             else main())

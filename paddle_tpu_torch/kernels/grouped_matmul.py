@@ -1,25 +1,39 @@
 """Grouped (ragged) expert matmul — the MoE compute op (port of
-``paddle_tpu/kernels/grouped_matmul.py``, forward form).
+``paddle_tpu/kernels/grouped_matmul.py``).
 
 Tokens are sorted by expert outside the kernel (:func:`sorted_dispatch_plan`)
 so each expert's rows fill a contiguous, ``bm``-aligned span of the padded
 row buffer and every ``bm``-row tile belongs to one expert, named by
-``tile_groups``.  :func:`gmm` then computes
-``out[m] = lhs[rows[m]] @ rhs[tile_groups[m // bm]]`` with an fp32
-accumulator.
+``tile_groups``.  Three products, each with an fp32 accumulator:
 
-- On a CUDA tensor :func:`gmm` launches the hand-written Hopper kernel
-  ``csrc/grouped_matmul.cu`` (it replaces the Pallas ``_gmm_kernel`` and its
-  fused row gather ``_gather_rows``); every launch adds one to
-  :data:`LAUNCHES`.  Shapes the kernel does not take raise.
-- On a CPU tensor it runs the plain PyTorch version
-  (:func:`_gmm_reference`), the tests' oracle.
+- :func:`gmm` ``out[m] = s[m]·lhs[rows[m]] @ rhs[tile_groups[m // bm]]``
+  with rhs ``[E, C, O]`` (the MoE forward), or ``[E, O, C]`` read
+  transposed with ``trans_rhs`` (the backward's dlhs); ``rows`` fuses the
+  dispatch gather and ``row_scale`` the combine weight;
+- :func:`tgmm` ``out[e] = Σ_{m in e's tiles} lhs[lrows[m]]ᵀ ⊗
+  s[m]·rhs[rrows[m]]``, ``[E, K, N]`` (the backward's weight gradient);
+- :func:`grouped_matmul`, the differentiable entry point: ``gmm`` forward,
+  ``gmm(trans_rhs=True)`` and ``tgmm`` backward.
+
+On a CUDA tensor :func:`gmm` and :func:`tgmm` launch the hand-written Hopper
+kernels of ``csrc/grouped_matmul.cu``; on a CPU tensor they run the plain
+PyTorch versions (:func:`_gmm_reference`, :func:`_tgmm_reference`), the
+tests' oracles.  Any other device raises, and so do shapes the kernels do
+not take.  Launches are counted apart: :data:`LAUNCHES` (gmm, forward
+form; it replaces the Pallas ``_gmm_kernel`` and its fused row gather
+``_gather_rows``), :data:`LAUNCHES_TRANS` (gmm with ``trans_rhs``, the same
+Pallas kernel's backward mode) and :data:`LAUNCHES_TGMM` (it replaces
+``_tgmm_kernel``).
+
+The reference's TPU tile knobs (the ``grouped_matmul_bn``/``_bk`` flags,
+``validate_tile_flags``, ``_resolve_tiles`` and the autotune probe
+``_tune``) are not ported: the CUDA kernels choose their own tiles from the
+shapes.
 
 The dispatch plan is built on the device without reading anything back to
 the host: expert counts come from a ``scatter_add_`` into a fixed ``[E]``
 tensor (not ``bincount``, whose output size is read from the device), and
-every size is static.  The backward modes of the reference (``trans_rhs``,
-``row_scale``) and ``tgmm`` belong to the training slice and raise here.
+every size is static.
 """
 
 from __future__ import annotations
@@ -28,27 +42,57 @@ import ctypes
 
 import torch
 
-# Launches of the CUDA kernel since import (or the last reset by a caller).
-LAUNCHES = 0
+# Launches of each CUDA kernel since import (or the last reset by a caller).
+LAUNCHES = 0          # gmm, forward form (rhs [E, C, O])
+LAUNCHES_TRANS = 0    # gmm with trans_rhs (rhs [E, O, C])
+LAUNCHES_TGMM = 0     # tgmm
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ROW_TILES = (64, 32, 16, 8)      # the kernel's row tiles (must divide bm)
-_BK, _BN = 32, 64                 # C and O must be multiples of these
+_ROW_TILES = (64, 32, 16, 8)      # gmm's row tiles (must divide bm)
+_BK, _BN = 32, 64                 # gmm: C and O must be multiples of these
+_TG = 64                          # tgmm: K and N must be multiples of this
 
 
 # --------------------------------------------------------------- oracles ---
 
-def _gmm_reference(lhs, rhs, tile_groups, *, bm, rows=None):
+def _gmm_reference(lhs, rhs, tile_groups, *, bm, trans_rhs=False, rows=None,
+                   row_scale=None):
     """Plain version: gather each row tile's expert weights and run one
     batched matmul in fp32 (M*C*O multiply-adds, no E-fold masking), the
-    result in lhs's dtype."""
+    result in lhs's dtype.  ``row_scale`` is cast to lhs's dtype and
+    multiplies the gathered rows in that dtype, before the matmul."""
     if rows is not None:
         lhs = lhs[rows.long()]
+    if row_scale is not None:
+        lhs = lhs * row_scale[:, None].to(lhs.dtype)
     M, C = lhs.shape
     T = M // bm
-    w = rhs[tile_groups.long()]                           # [T, C, O]
+    w = rhs[tile_groups.long()]                   # [T, C, O] or [T, O, C]
+    if trans_rhs:
+        w = w.transpose(1, 2)
     out = torch.bmm(lhs.reshape(T, bm, C).float(), w.float())
     return out.reshape(M, -1).to(lhs.dtype)
+
+
+def _tgmm_reference(lhs, rhs, tile_groups, num_groups, *, bm, lhs_rows=None,
+                    rhs_rows=None, rhs_scale=None):
+    """Plain version: per row tile ``lhsᵀ @ rhs`` in fp32, summed per group
+    (a group that owns no tile gets zeros), cast to lhs's dtype.
+    ``rhs_scale`` is cast to rhs's dtype and multiplies the gathered rhs
+    rows in that dtype."""
+    if lhs_rows is not None:
+        lhs = lhs[lhs_rows.long()]
+    if rhs_rows is not None:
+        rhs = rhs[rhs_rows.long()]
+    if rhs_scale is not None:
+        rhs = rhs * rhs_scale[:, None].to(rhs.dtype)
+    M, K = lhs.shape
+    T = M // bm
+    per_tile = torch.bmm(lhs.reshape(T, bm, K).float().transpose(1, 2),
+                         rhs.reshape(T, bm, -1).float())      # [T, K, N]
+    out = per_tile.new_zeros((num_groups,) + tuple(per_tile.shape[1:]))
+    out.index_add_(0, tile_groups.long(), per_tile)
+    return out.to(lhs.dtype)
 
 
 # ------------------------------------------------------------ dispatch ---
@@ -102,20 +146,23 @@ def sorted_dispatch_plan(expert_ids, num_groups, bm):
     return inv_flat, pos, tile_groups
 
 
-# ---------------------------------------------------------------- kernel ---
+# --------------------------------------------------------------- kernels ---
 
-def _kernel_fn():
+def _lib():
     from . import _build
-    fn = _build.load("grouped_matmul").ptt_gmm
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + \
+    lib = _build.load("grouped_matmul")
+    if lib.ptt_gmm.argtypes is None:
+        lib.ptt_gmm.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + \
             [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+        lib.ptt_gmm.restype = ctypes.c_int
+        lib.ptt_tgmm.argtypes = [ctypes.c_void_p] * 7 + \
+            [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        lib.ptt_tgmm.restype = ctypes.c_int
+    return lib
 
 
 def row_tile(bm: int) -> int:
-    """The kernel's row tile for a group alignment ``bm``: the largest of
+    """gmm's row tile for a group alignment ``bm``: the largest of
     64/32/16/8 that divides it, so no tile straddles two experts."""
     for tm in _ROW_TILES:
         if bm % tm == 0:
@@ -123,14 +170,10 @@ def row_tile(bm: int) -> int:
     raise ValueError(f"bm ({bm}) must be a multiple of 8")
 
 
-def _cuda_gmm(lhs, rhs, tile_groups, bm, rows):
-    global LAUNCHES
-    M = rows.shape[0] if rows is not None else lhs.shape[0]
-    L, C = lhs.shape
-    E, C2, O = rhs.shape
-    dev = lhs.device
-    tensors = {"lhs": lhs, "rhs": rhs, "tile_groups": tile_groups,
-               "rows": rows}
+def _check_operands(what, dev, tensors, dtype, ints):
+    """The checks every launch makes: one device, contiguous, sm_90, the
+    float operands of one supported dtype, int32 indices, 16-byte aligned
+    float operands."""
     for name, x in tensors.items():
         if x is None:
             continue
@@ -139,15 +182,44 @@ def _cuda_gmm(lhs, rhs, tile_groups, bm, rows):
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if torch.cuda.get_device_capability(dev) != (9, 0):
-        raise RuntimeError("the grouped-matmul kernel is built for sm_90a "
+        raise RuntimeError(f"the {what} kernel is built for sm_90a "
                            "(H100/H200)")
-    if lhs.dtype not in _DTYPE_CODE or rhs.dtype != lhs.dtype:
-        raise TypeError(f"lhs/rhs dtypes {lhs.dtype}/{rhs.dtype} not "
-                        "supported (both float32 or both bfloat16)")
-    for name in ("tile_groups", "rows"):
+    floats = [x for n, x in tensors.items() if n not in ints and x is not None]
+    if dtype not in _DTYPE_CODE or any(x.dtype != dtype for x in floats):
+        raise TypeError(f"{what}: dtypes {[x.dtype for x in floats]} not "
+                        "supported (all float32 or all bfloat16)")
+    for name in ints:
         x = tensors[name]
         if x is not None and x.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {x.dtype}")
+    for x in floats:
+        if x.data_ptr() % 16:
+            raise ValueError(f"{what}: float operands must be 16-byte "
+                             "aligned")
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _cuda_gmm(lhs, rhs, tile_groups, bm, rows, trans_rhs, row_scale):
+    global LAUNCHES, LAUNCHES_TRANS
+    M = rows.shape[0] if rows is not None else lhs.shape[0]
+    L, C = lhs.shape
+    if trans_rhs:
+        E, O, C2 = rhs.shape
+    else:
+        E, C2, O = rhs.shape
+    if row_scale is not None:
+        if tuple(row_scale.shape) != (M,):
+            raise ValueError(f"row_scale must be [{M}], got "
+                             f"{tuple(row_scale.shape)}")
+        row_scale = row_scale.to(lhs.dtype).contiguous()
+    out = torch.empty((M, O), dtype=lhs.dtype, device=lhs.device)
+    _check_operands("grouped_matmul", lhs.device,
+                    {"lhs": lhs, "rhs": rhs, "row_scale": row_scale,
+                     "out": out, "tile_groups": tile_groups, "rows": rows},
+                    lhs.dtype, ("tile_groups", "rows"))
     if C2 != C:
         raise ValueError(f"rhs contracts over {C2}, lhs has {C} columns")
     if C % _BK or O % _BN:
@@ -156,25 +228,59 @@ def _cuda_gmm(lhs, rhs, tile_groups, bm, rows):
     if tile_groups.shape != (M // bm,):
         raise ValueError(f"tile_groups must be [{M // bm}], got "
                          f"{tuple(tile_groups.shape)}")
-    out = torch.empty((M, O), dtype=lhs.dtype, device=dev)
-    for name, x in (("lhs", lhs), ("rhs", rhs), ("out", out)):
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
-
-    def ptr(x):
-        return None if x is None else x.data_ptr()
-
-    err = _kernel_fn()(
-        ptr(lhs), ptr(rhs), ptr(tile_groups), ptr(rows), ptr(out), M, C, O,
-        E, L, bm, row_tile(bm), _DTYPE_CODE[lhs.dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
+    err = _lib().ptt_gmm(
+        _ptr(lhs), _ptr(rhs), _ptr(tile_groups), _ptr(rows), _ptr(row_scale),
+        _ptr(out), M, C, O, E, L, bm, row_tile(bm), int(trans_rhs),
+        _DTYPE_CODE[lhs.dtype], torch.cuda.current_stream(lhs.device)
+        .cuda_stream)
     if err != 0:
         raise RuntimeError(f"grouped_matmul launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    if trans_rhs:
+        LAUNCHES_TRANS += 1
+    else:
+        LAUNCHES += 1
     return out
 
 
-# ----------------------------------------------------------- entry point ---
+def _cuda_tgmm(lhs, rhs, tile_groups, num_groups, bm, lhs_rows, rhs_rows,
+               rhs_scale):
+    global LAUNCHES_TGMM
+    M = lhs_rows.shape[0] if lhs_rows is not None else lhs.shape[0]
+    Mr = rhs_rows.shape[0] if rhs_rows is not None else rhs.shape[0]
+    Ll, K = lhs.shape
+    Lr, N = rhs.shape
+    if Mr != M:
+        raise ValueError(f"lhs gives {M} rows, rhs {Mr}")
+    if rhs_scale is not None:
+        if tuple(rhs_scale.shape) != (M,):
+            raise ValueError(f"rhs_scale must be [{M}], got "
+                             f"{tuple(rhs_scale.shape)}")
+        rhs_scale = rhs_scale.to(rhs.dtype).contiguous()
+    # every element is written: a group that owns no tile gets zeros (the
+    # reference's ``visited`` mask)
+    out = torch.empty((num_groups, K, N), dtype=lhs.dtype, device=lhs.device)
+    _check_operands("tgmm", lhs.device,
+                    {"lhs": lhs, "rhs": rhs, "rhs_scale": rhs_scale,
+                     "out": out, "tile_groups": tile_groups,
+                     "lhs_rows": lhs_rows, "rhs_rows": rhs_rows},
+                    lhs.dtype, ("tile_groups", "lhs_rows", "rhs_rows"))
+    if K % _TG or N % _TG:
+        raise ValueError(f"K ({K}) and N ({N}) must be multiples of {_TG}")
+    if tile_groups.shape != (M // bm,):
+        raise ValueError(f"tile_groups must be [{M // bm}], got "
+                         f"{tuple(tile_groups.shape)}")
+    err = _lib().ptt_tgmm(
+        _ptr(lhs), _ptr(rhs), _ptr(tile_groups), _ptr(lhs_rows),
+        _ptr(rhs_rows), _ptr(rhs_scale), _ptr(out), M, K, N, num_groups, Ll,
+        Lr, bm, M // bm, _DTYPE_CODE[lhs.dtype],
+        torch.cuda.current_stream(lhs.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"tgmm launch failed: CUDA error {err}")
+    LAUNCHES_TGMM += 1
+    return out
+
+
+# ----------------------------------------------------------- entry points ---
 
 def gmm(lhs, rhs, tile_groups, *, bm, rows=None, trans_rhs=False,
         row_scale=None):
@@ -183,23 +289,81 @@ def gmm(lhs, rhs, tile_groups, *, bm, rows=None, trans_rhs=False,
     lhs: [M, C] with rows grouped by expert, group spans bm-aligned; or,
     with ``rows`` ([M] int32, the fused dispatch gather), the un-permuted
     token buffer [L, C], and then ``out[m] = lhs[rows[m]] @ rhs[...]``
-    without an [M, C] permuted copy.  rhs: [E, C, O].  tile_groups:
-    [M//bm] int32, nondecreasing, expert id per row tile.  Returns [M, O]
-    in lhs.dtype (fp32 accumulation).
+    without an [M, C] permuted copy.  rhs: [E, C, O], or [E, O, C] read
+    transposed with ``trans_rhs``.  row_scale: optional [M] per-row
+    multiplier, cast to lhs's dtype and applied to the gathered rows in
+    that dtype before the matmul.  tile_groups: [M//bm] int32,
+    nondecreasing, expert id per row tile.  Returns [M, O] in lhs.dtype
+    (fp32 accumulation).
 
     CUDA tensors launch the Hopper kernel; CPU tensors take the plain
-    version.  ``trans_rhs`` and ``row_scale`` (the MoE backward) are not
-    ported yet.
+    version.
     """
-    if trans_rhs or row_scale is not None:
-        raise NotImplementedError(
-            "gmm's trans_rhs/row_scale modes (the MoE backward) come with "
-            "the training slice (ROADMAP Queue 2 item 4)")
     M = rows.shape[0] if rows is not None else lhs.shape[0]
     if M % bm:
         raise ValueError(f"M ({M}) must be a multiple of bm ({bm})")
     if lhs.device.type == "cuda":
-        return _cuda_gmm(lhs, rhs, tile_groups, bm, rows)
+        return _cuda_gmm(lhs, rhs, tile_groups, bm, rows, trans_rhs,
+                         row_scale)
     if lhs.device.type == "cpu":
-        return _gmm_reference(lhs, rhs, tile_groups, bm=bm, rows=rows)
+        return _gmm_reference(lhs, rhs, tile_groups, bm=bm,
+                              trans_rhs=trans_rhs, rows=rows,
+                              row_scale=row_scale)
     raise ValueError(f"unsupported device {lhs.device}")
+
+
+def tgmm(lhs, rhs, tile_groups, num_groups, *, bm, lhs_rows=None,
+         rhs_rows=None, rhs_scale=None):
+    """Transposed grouped matmul (the weight gradient):
+    ``out[e] = Σ over e's rows of lhs[m, :]ᵀ ⊗ rhs[m, :]``.
+
+    lhs: [M, K]; rhs: [M, N]; both row-grouped as in :func:`gmm`.
+    ``lhs_rows`` / ``rhs_rows``: optional fused row gathers ([M] int32, as
+    ``rows`` in :func:`gmm`): the named operand is then an un-permuted
+    [L, dim] buffer indexed per padded row.  ``rhs_scale``: optional [M]
+    multiplier, cast to rhs's dtype and applied to the gathered rhs rows in
+    that dtype.  tile_groups: [M//bm] int32, nondecreasing.  A group that
+    owns no tile gets zeros.  Returns [E, K, N] in lhs.dtype (fp32
+    accumulation).
+
+    CUDA tensors launch the Hopper kernel; CPU tensors take the plain
+    version.
+    """
+    M = lhs_rows.shape[0] if lhs_rows is not None else lhs.shape[0]
+    if M % bm:
+        raise ValueError(f"M ({M}) must be a multiple of bm ({bm})")
+    if lhs.device.type == "cuda":
+        return _cuda_tgmm(lhs, rhs, tile_groups, num_groups, bm, lhs_rows,
+                          rhs_rows, rhs_scale)
+    if lhs.device.type == "cpu":
+        return _tgmm_reference(lhs, rhs, tile_groups, num_groups, bm=bm,
+                               lhs_rows=lhs_rows, rhs_rows=rhs_rows,
+                               rhs_scale=rhs_scale)
+    raise ValueError(f"unsupported device {lhs.device}")
+
+
+class _GroupedMatmul(torch.autograd.Function):
+    """The counterpart of the reference's ``grouped_matmul`` custom VJP."""
+
+    @staticmethod
+    def forward(ctx, lhs, rhs, tile_groups, num_groups, bm):
+        ctx.save_for_backward(lhs, rhs, tile_groups)
+        ctx.num_groups, ctx.bm = num_groups, bm
+        return gmm(lhs, rhs, tile_groups, bm=bm)
+
+    @staticmethod
+    def backward(ctx, dy):
+        lhs, rhs, tile_groups = ctx.saved_tensors
+        dy = dy.contiguous()
+        # dlhs[m] = dy[m] @ rhs[g]ᵀ: rhs's [E, C, O] is the trans_rhs
+        # [E, out, contract] layout of this product
+        dlhs = gmm(dy, rhs, tile_groups, bm=ctx.bm, trans_rhs=True)
+        drhs = tgmm(lhs, dy, tile_groups, ctx.num_groups, bm=ctx.bm)
+        return dlhs.to(lhs.dtype), drhs.to(rhs.dtype), None, None, None
+
+
+def grouped_matmul(lhs, rhs, tile_groups, num_groups, bm=512):
+    """Differentiable grouped matmul: :func:`gmm` forward; the backward runs
+    ``gmm`` against the transposed expert weights (dlhs) and :func:`tgmm`
+    (drhs).  lhs [M, C] row-grouped, rhs [E, C, O]; returns [M, O]."""
+    return _GroupedMatmul.apply(lhs, rhs, tile_groups, num_groups, bm)

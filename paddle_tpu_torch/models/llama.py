@@ -10,9 +10,10 @@ model's weights over one to one.  RoPE rotates interleaved pairs
 
 MoE configurations (``moe_num_experts > 0``) replace every layer's MLP with
 :class:`LlamaMoEMLP`: a top-k router and stacked expert banks run through
-the grouped-matmul kernel (``moe_dispatch="grouped"``).  The reference's
-``gather`` and ``einsum`` dispatch forms of the full-sequence forward are not
-ported yet (serving takes its dense expert loop for them).
+the grouped-matmul kernels (``moe_dispatch="grouped"``), forward and
+backward (:class:`_GroupedFFN`).  The reference's ``gather`` and ``einsum``
+dispatch forms of the full-sequence forward are not ported yet (serving
+takes its dense expert loop for them).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from torch import nn
 from .. import resolve_device
 from ..kernels.flash_attention import flash_attention
 from ..kernels.grouped_matmul import (gmm, sorted_dispatch_plan,
-                                      take_sentinel_rows)
+                                      take_sentinel_rows, tgmm)
 from ..kernels.rms_norm import rms_norm_fp32
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -91,12 +92,24 @@ class LlamaConfig:
                 self.moe_num_experts * 3 * h * i
         return attn + 3 * h * i, 0
 
+    def _embed_params(self) -> int:
+        return self.vocab_size * self.hidden_size * \
+            (1 if self.tie_word_embeddings else 2) + self.hidden_size
+
     def num_params(self) -> int:
         dense, experts = self._per_layer_params()
-        emb = self.vocab_size * self.hidden_size * \
-            (1 if self.tie_word_embeddings else 2)
-        return self.num_hidden_layers * (dense + experts) + emb + \
-            self.hidden_size
+        return self.num_hidden_layers * (dense + experts) + \
+            self._embed_params()
+
+    def num_active_params(self) -> int:
+        """Parameters touched per token (MoE: only top_k of E experts), the
+        N of the 6·N·T MFU formula for sparse models."""
+        if not self.moe_num_experts:
+            return self.num_params()
+        dense, experts = self._per_layer_params()
+        active = experts * self.moe_top_k // self.moe_num_experts
+        return self.num_hidden_layers * (dense + active) + \
+            self._embed_params()
 
     @staticmethod
     def tiny(**kw) -> "LlamaConfig":
@@ -280,28 +293,110 @@ def _route_topk(xf, gate_w, k):
     return topv, topi, aux, ce
 
 
-def _grouped_ffn(xf, w_gate, w_up, w_down, gates, inv_flat, pos,
-                 tile_groups, E, k, bm):
-    """Grouped-GEMM SwiGLU expert mixture over pre-sorted tokens (forward).
+def _token_rows(inv_flat, N, k):
+    """Token row of each padded-buffer row (``inv_flat // k``), or ``N`` (the
+    zero row of a zero-extended ``[N + 1, H]`` buffer) for padding rows."""
+    return torch.where(inv_flat < N * k,
+                       torch.div(inv_flat, k, rounding_mode="floor"),
+                       torch.full_like(inv_flat, N))
 
-    xf [N, H]; w_gate/w_up [E, H, I]; w_down [E, I, H]; gates [N, k] fp32
-    combine weights; inv_flat/pos/tile_groups from
-    :func:`~paddle_tpu_torch.kernels.grouped_matmul.sorted_dispatch_plan`.
-    The dispatch gather rides inside the two up-projection ``gmm`` calls
-    (``rows=tok_of`` over a zero-extended ``xz``: padding rows read the zero
-    row ``xz[N]``), and the combine is a gather through
-    ``take_sentinel_rows``."""
+
+def _zero_row(x):
+    """``x`` [N, H] with a zero row appended: the sentinel padding rows and
+    dropped entries gather."""
+    return torch.cat([x, x.new_zeros((1, x.shape[1]))], dim=0)
+
+
+def _grouped_ffn_fwd(xf, w_gate, w_up, w_down, gates, inv_flat, pos,
+                     tile_groups, k, bm):
+    """The expert mixture's forward: ``(y, h_g, h_u, o)``.  The dispatch
+    gather rides inside the two up-projection ``gmm`` calls (``rows`` over
+    the zero-extended ``xz``: padding rows read the zero row ``xz[N]``), and
+    the combine is a gather through ``take_sentinel_rows``."""
     N, H = xf.shape
-    xz = torch.cat([xf, xf.new_zeros((1, H))], dim=0)
-    tok_of = torch.where(inv_flat < N * k,
-                         torch.div(inv_flat, k, rounding_mode="floor"),
-                         torch.full_like(inv_flat, N))
+    xz = _zero_row(xf)
+    tok_of = _token_rows(inv_flat, N, k)
     h_g = gmm(xz, w_gate, tile_groups, bm=bm, rows=tok_of)    # fused gather
     h_u = gmm(xz, w_up, tile_groups, bm=bm, rows=tok_of)
     a = F.silu(h_g) * h_u
     o = gmm(a, w_down, tile_groups, bm=bm)                     # [M, H]
     o_pos = take_sentinel_rows(o, pos).reshape(N, k, H)
-    return (o_pos * gates[..., None].to(o.dtype)).sum(dim=1)
+    y = (o_pos * gates[..., None].to(o.dtype)).sum(dim=1)
+    return y, h_g, h_u, o
+
+
+def _grouped_ffn_bwd(dy, xf, w_gate, w_up, w_down, gates, inv_flat, pos,
+                     tile_groups, h_g, h_u, o, E, k, bm):
+    """The reference's ``_grouped_ffn_bwd``: ``(dxf, dw_gate, dw_up,
+    dw_down, d_gates)``.  Dispatch and combine stay gathers in reverse; the
+    combine weight and the token gather of ``dy`` ride inside the kernels as
+    ``(rows, row_scale)``, so ``do = gate · dy[token]`` never materialises.
+    Dropped entries (``pos >= M``) read the sentinel zero row: exactly zero
+    gradient."""
+    N, H = xf.shape
+    xz = _zero_row(xf)
+    tok_of = _token_rows(inv_flat, N, k)
+
+    o_pos = take_sentinel_rows(o, pos).reshape(N, k, H)
+    d_gates = (o_pos.float() * dy[:, None, :].float()).sum(-1)   # [N, k]
+    del o_pos
+    gate_pad = take_sentinel_rows(
+        gates.reshape(N * k).to(dy.dtype), inv_flat)              # [M]
+    dy_z = _zero_row(dy)
+
+    sg = F.silu(h_g)
+    dw_d = tgmm(sg * h_u, dy_z, tile_groups, E, bm=bm, rhs_rows=tok_of,
+                rhs_scale=gate_pad)
+    da = gmm(dy_z, w_down, tile_groups, bm=bm, trans_rhs=True,
+             rows=tok_of, row_scale=gate_pad)                     # [M, I]
+    sig = torch.sigmoid(h_g.float()).to(h_g.dtype)
+    dsilu = sig + h_g * sig * (1 - sig)
+    del sig
+    dh_g = da * h_u * dsilu
+    dh_u = da * sg
+    del da, dsilu, sg
+    dw_g = tgmm(xz, dh_g, tile_groups, E, bm=bm, lhs_rows=tok_of)
+    dw_u = tgmm(xz, dh_u, tile_groups, E, bm=bm, lhs_rows=tok_of)
+    dx_pad = gmm(dh_g, w_gate, tile_groups, bm=bm, trans_rhs=True) + \
+        gmm(dh_u, w_up, tile_groups, bm=bm, trans_rhs=True)       # [M, H]
+    # d(dispatch): token t accumulates its k buffer rows, a gather; dropped
+    # entries read the sentinel zero row
+    dxf = take_sentinel_rows(dx_pad, pos).reshape(N, k, H).sum(dim=1)
+    return (dxf.to(xf.dtype), dw_g.to(w_gate.dtype), dw_u.to(w_up.dtype),
+            dw_d.to(w_down.dtype), d_gates.to(gates.dtype))
+
+
+class _GroupedFFN(torch.autograd.Function):
+    """Grouped-GEMM SwiGLU expert mixture over pre-sorted tokens, the
+    counterpart of the reference's ``_grouped_ffn`` custom VJP.
+
+    xf [N, H]; w_gate/w_up [E, H, I]; w_down [E, I, H]; gates [N, k] fp32
+    combine weights; inv_flat/pos/tile_groups from
+    :func:`~paddle_tpu_torch.kernels.grouped_matmul.sorted_dispatch_plan`.
+    The forward saves ``h_g``, ``h_u`` and ``o`` (under remat the block is
+    recomputed anyway; without it this saves three of the nine grouped
+    products).  ``pos`` entries >= M are a dropped-entry sentinel: they give
+    exactly zero output and gradient."""
+
+    @staticmethod
+    def forward(ctx, xf, w_gate, w_up, w_down, gates, inv_flat, pos,
+                tile_groups, E, k, bm):
+        y, h_g, h_u, o = _grouped_ffn_fwd(xf, w_gate, w_up, w_down, gates,
+                                          inv_flat, pos, tile_groups, k, bm)
+        ctx.save_for_backward(xf, w_gate, w_up, w_down, gates, inv_flat, pos,
+                              tile_groups, h_g, h_u, o)
+        ctx.E, ctx.k, ctx.bm = E, k, bm
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        grads = _grouped_ffn_bwd(dy.contiguous(), *ctx.saved_tensors,
+                                 ctx.E, ctx.k, ctx.bm)
+        return grads + (None,) * 6
+
+
+# (xf, w_gate, w_up, w_down, gates, inv_flat, pos, tile_groups, E, k, bm)
+_grouped_ffn = _GroupedFFN.apply
 
 
 def moe_mlp_forward_grouped(x, gate_w, w_gate, w_up, w_down, *, top_k,
@@ -338,6 +433,10 @@ class LlamaMoEMLP(nn.Module):
         self.experts_gate = init.scaled((E, H, I), H)
         self.experts_up = init.scaled((E, H, I), H)
         self.experts_down = init.scaled((E, I, H), I)
+        # the last forward's aux loss and [kept_frac, imbalance] (the
+        # trainer reads them right after the call, as the reference does)
+        self._last_aux = None
+        self._last_stats = None
 
     def forward(self, x):
         c = self.config
@@ -346,9 +445,11 @@ class LlamaMoEMLP(nn.Module):
                 f"the {c.moe_dispatch!r} MoE dispatch of the full-sequence "
                 "forward is not ported yet (ROADMAP Queue 1 item 7); use "
                 "moe_dispatch='grouped'")
-        y, _aux, _stats = moe_mlp_forward_grouped(
+        y, aux, stats = moe_mlp_forward_grouped(
             x, self.gate.weight, self.experts_gate, self.experts_up,
             self.experts_down, top_k=c.moe_top_k, block_m=c.moe_block_m)
+        self._last_aux = aux
+        self._last_stats = stats
         return y
 
 

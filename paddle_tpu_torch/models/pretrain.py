@@ -1,35 +1,43 @@
-"""Dense Llama pretraining on one card (port of ``paddle_tpu/models/pretrain.py``).
+"""Llama pretraining on one card, dense or MoE (port of
+``paddle_tpu/models/pretrain.py``).
 
 :class:`PretrainStep` keeps the reference's interface: ``init_state`` /
 ``train_step(state, ids, labels) -> (state, loss)`` with AdamW, the
-per-layer remat policies and the chunked cross-entropy, and the
-topology-free ``canonical_state`` / ``restore_canonical`` pair that carries
-a state between the two packages.  Attention runs the flash-attention
-kernels (forward, and dQ and dK/dV in the backward) on the card and their
-plain versions on the CPU.
+per-layer remat policies, the chunked cross-entropy, the MoE load-balancing
+aux loss and ``router_stats``, and the topology-free ``canonical_state`` /
+``restore_canonical`` pair that carries a state between the two packages.
+Attention runs the flash-attention kernels (forward, and dQ and dK/dV in
+the backward) and the MoE expert FFN the grouped-matmul kernels (gmm
+forward; gmm ``trans_rhs`` and ``tgmm`` in the backward) on the card, and
+their plain versions on the CPU.
 
 What differs from the reference, and why:
 
 - One device.  :class:`ParallelConfig` keeps every field, but only
   ``remat``, ``remat_policy``, ``loss_chunks``, ``m_dtype`` and ``v_dtype``
   may leave their defaults; the mesh, pipeline, ZeRO and ``grad_comm``
-  settings raise (ROADMAP Queue 1 item 18).  MoE configs raise (the MoE
-  training slice, Queue 1 item 15).
+  settings raise (ROADMAP Queue 1 item 18).  MoE trains with
+  ``moe_dispatch="grouped"`` only; ``gather``/``einsum`` raise.
 - No ``jit``: autograd computes the gradients, ``torch.utils.checkpoint``
   takes the place of ``jax.checkpoint``, and the layer loop is a Python
   loop over per-layer leaf tensors (stacked ``[L, ...]`` only at the state
   boundary).
 - The state is updated in place (the reference donates it): a 7B state
-  leaves no room on an 80 GB card for a second copy.
+  leaves no room on an 80 GB card for a second copy.  The stacked expert
+  banks ``[E, ...]`` are updated one expert at a time, which bounds
+  AdamW's fp32 transients (elementwise, so bitwise the same).
 
 Run it (default device ``cuda``; ``--device cpu`` for the plain path):
 
     python -m paddle_tpu_torch.models.pretrain --preset llama2_7b \\
         --batch 4 --seq 2048 --steps 5 [--num-layers N] \\
         [--remat-policy full|dots|none] [--loss-chunks 16] [--m-dtype bfloat16]
+    python -m paddle_tpu_torch.models.pretrain --preset mixtral_8x7b \\
+        --num-layers 4 --batch 4 --seq 2048
 
 It prints one JSON line per step (loss, ms) and a last line with tokens/s,
-MFU and the peak memory allocated.
+MFU (on the active parameters for MoE), the peak memory allocated and, for
+MoE presets, the router's ``kept_frac`` and ``imbalance``.
 """
 
 from __future__ import annotations
@@ -164,13 +172,13 @@ class PretrainStep:
                  learning_rate: float = 3e-4, weight_decay: float = 0.1,
                  beta1: float = 0.9, beta2: float = 0.95, eps: float = 1e-8,
                  *, device=None):
-        if config.moe_num_experts:
+        if config.moe_num_experts and config.moe_dispatch != "grouped":
             raise NotImplementedError(
-                "MoE pretraining (tgmm, gmm trans_rhs/row_scale, "
-                "_grouped_ffn_bwd, the aux loss and router_stats) is the "
-                "next slice of the port (ROADMAP Queue 1 item 15, Queue 2 "
-                "item 4)")
+                f"MoE training with moe_dispatch={config.moe_dispatch!r} is "
+                "not ported (ROADMAP Queue 1 item 7); use "
+                "moe_dispatch='grouped'")
         self.config = config
+        self._moe = bool(config.moe_num_experts)
         self.pc = parallel or ParallelConfig()
         self.device = resolve_device(device)
         self.lr, self.wd = learning_rate, weight_decay
@@ -182,8 +190,9 @@ class PretrainStep:
             config, _Init(torch.device("meta"), self.dtype, 0))
         self._shapes = {n: tuple(p.shape)
                         for n, p in self._template.named_parameters()}
-        self._block = _remat(self._layer, self.pc.remat_policy) \
-            if self.pc.remat else self._layer
+        block = self._layer_aux if self._moe else self._layer
+        self._block = _remat(block, self.pc.remat_policy) \
+            if self.pc.remat else block
         self._rope: Dict[int, Any] = {}
 
     # ---- state ----
@@ -236,6 +245,16 @@ class PretrainStep:
     def _layer(self, lp, x, cos, sin):
         return torch.func.functional_call(self._template, lp, (x, cos, sin))
 
+    def _layer_aux(self, lp, x, cos, sin):
+        """An MoE layer: ``(y, aux, stats)``, the aux loss and router stats
+        read off the template's MoE block right after the call (the
+        reference's ``block_aux``).  They leave as outputs of the function,
+        so under remat nothing reads what the backward's recompute
+        overwrites."""
+        y = self._layer(lp, x, cos, sin)
+        mlp = self._template.mlp
+        return y, mlp._last_aux, mlp._last_stats
+
     def _rope_tables(self, T):
         if T not in self._rope:
             c = self.config
@@ -244,13 +263,27 @@ class PretrainStep:
         return self._rope[T]
 
     def _hidden(self, params, ids):
-        """Final-norm hidden states [B, T, H] (the reference's dense
-        ``_hidden`` at pp=1: the layer loop, then ``rms_norm_fp32``)."""
+        """``(h, aux, stats)``: final-norm hidden states [B, T, H], the
+        weighted MoE aux loss (``moe_aux_loss_weight`` · the layers' sum)
+        and the layer mean of the router stats ``[kept_frac, imbalance]``
+        (aux and stats None for a dense model).  The reference's
+        ``_hidden`` at pp=1: the layer loop, then ``rms_norm_fp32``."""
+        c = self.config
         cos, sin = self._rope_tables(ids.shape[1])
         h = F.embedding(ids, params["embed"])
+        aux = stats = None
         for lp in params["blocks"]:
-            h = self._block(lp, h, cos, sin)
-        return rms_norm_fp32(h, params["norm"], self.config.rms_norm_eps)
+            if not self._moe:
+                h = self._block(lp, h, cos, sin)
+                continue
+            h, a, st = self._block(lp, h, cos, sin)
+            aux = a if aux is None else aux + a
+            stats = st if stats is None else stats + st
+        h = rms_norm_fp32(h, params["norm"], c.rms_norm_eps)
+        if self._moe:
+            aux = c.moe_aux_loss_weight * aux
+            stats = stats / c.num_hidden_layers
+        return h, aux, stats
 
     @staticmethod
     def _ce_sum(h, gold_ids, head):
@@ -261,27 +294,31 @@ class PretrainStep:
 
     def _forward_loss(self, params, ids, labels):
         C = self.pc.loss_chunks
-        h = self._hidden(params, ids)
+        h, aux, _ = self._hidden(params, ids)
         with record_function("ce_forward"):
-            if C <= 1:
-                return self._ce_sum(h, labels, params["head"]) / labels.numel()
-            # chunked CE: head matmul + logsumexp per token chunk under
-            # remat, so the peak holds one [N/C, V] fp32 block
-            H = h.shape[-1]
-            hf = h.reshape(-1, H)
-            lf = labels.reshape(-1)
-            N = hf.shape[0]
-            if N % C:
-                raise ValueError(f"loss_chunks ({C}) must divide B*T ({N})")
-            parts = [checkpoint(self._ce_sum, hc, lc, params["head"],
-                                use_reentrant=False)
-                     for hc, lc in zip(hf.chunk(C), lf.chunk(C))]
-            return torch.stack(parts).sum() / N
+            loss = self._ce_loss(h, labels, params["head"], C)
+        return loss if aux is None else loss + aux
+
+    def _ce_loss(self, h, labels, head, C):
+        """Mean cross-entropy of ``h @ head`` against ``labels``."""
+        if C <= 1:
+            return self._ce_sum(h, labels, head) / labels.numel()
+        # chunked CE: head matmul + logsumexp per token chunk under remat,
+        # so the peak holds one [N/C, V] fp32 block
+        H = h.shape[-1]
+        hf = h.reshape(-1, H)
+        lf = labels.reshape(-1)
+        N = hf.shape[0]
+        if N % C:
+            raise ValueError(f"loss_chunks ({C}) must divide B*T ({N})")
+        parts = [checkpoint(self._ce_sum, hc, lc, head, use_reentrant=False)
+                 for hc, lc in zip(hf.chunk(C), lf.chunk(C))]
+        return torch.stack(parts).sum() / N
 
     def forward_logits(self, params, ids):
         """fp32 logits [B, T, V] (no gradients)."""
         with torch.no_grad():
-            return (self._hidden(params, ids) @ params["head"]).float()
+            return (self._hidden(params, ids)[0] @ params["head"]).float()
 
     def eval_loss(self, state, ids, labels):
         with torch.no_grad():
@@ -317,14 +354,18 @@ class PretrainStep:
         for p, g, m, v in zip(self._leaves(state["params"]), grads,
                               self._leaves(state["m"]),
                               self._leaves(state["v"])):
-            g = g.float()
-            m32 = m.float().mul_(b1).add_(g, alpha=1 - b1)
-            v32 = v.float().mul_(b2).addcmul_(g, g, value=1 - b2)
-            u = (m32 / c1).div_(torch.sqrt(v32 / c2).add_(eps))
-            pf = p.float()
-            p.copy_(pf - u.add_(pf, alpha=wd).mul_(lr))
-            m.copy_(m32)
-            v.copy_(v32)
+            # an expert bank [E, ...] one expert at a time: its fp32
+            # transients (~5 copies) would otherwise hold 9.4 GB at
+            # Mixtral widths
+            for sl in (range(p.shape[0]) if p.dim() == 3 else (...,)):
+                g32 = g[sl].float()
+                m32 = m[sl].float().mul_(b1).add_(g32, alpha=1 - b1)
+                v32 = v[sl].float().mul_(b2).addcmul_(g32, g32, value=1 - b2)
+                u = (m32 / c1).div_(torch.sqrt(v32 / c2).add_(eps))
+                pf = p[sl].float()
+                p[sl].copy_(pf - u.add_(pf, alpha=wd).mul_(lr))
+                m[sl].copy_(m32)
+                v[sl].copy_(v32)
         return state
 
     # ---- the step ----
@@ -345,11 +386,23 @@ class PretrainStep:
             self._update(state, grads)
         return state, loss
 
+    def router_stats(self, state, ids):
+        """Layer-mean MoE routing health on one batch (no gradients):
+        ``kept_frac`` (routed entries that were computed; 1.0 for the
+        grouped dispatch, which drops nothing) and ``imbalance`` (the
+        busiest expert's first-choice share x E; 1.0 = balanced)."""
+        ids, _ = self._batch(ids, ids)
+        with torch.no_grad():
+            st = self._hidden(state["params"], ids)[2]
+        kept, imbalance = [1.0, 1.0] if st is None else st.tolist()
+        return {"kept_frac": float(kept), "imbalance": float(imbalance)}
+
     # ---- accounting (BASELINE.md MFU formula) ----
     def flops_per_token(self, include_remat: bool = False) -> float:
-        """6*N per token (N = the dense model's params); with
+        """6*N per token (N = the active parameters: for MoE only the
+        top_k experts a token routes through count); with
         ``include_remat``, adds the 2*N recompute forward."""
-        n = self.config.num_params()
+        n = self.config.num_active_params()
         f = 6.0 * n
         if include_remat and self.pc.remat:
             f += 2.0 * n
@@ -418,11 +471,12 @@ class PretrainStep:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m paddle_tpu_torch.models.pretrain",
-        description="Dense Llama pretraining steps on one device, random "
-                    "weights and a random batch from --seed (the same batch "
-                    "every step).")
+        description="Llama (dense or MoE) pretraining steps on one device, "
+                    "random weights and a random batch from --seed (the same "
+                    "batch every step).")
     p.add_argument("--preset", default="llama2_7b",
-                   choices=("tiny", "llama2_7b"))
+                   choices=("tiny", "llama2_7b", "mixtral_tiny",
+                            "mixtral_8x7b"))
     p.add_argument("--num-layers", type=int, default=None,
                    help="cut the preset's depth (widths unchanged)")
     p.add_argument("--batch", type=int, default=4)
@@ -511,13 +565,17 @@ def main(argv=None) -> int:
               flush=True)
 
     state, _, seconds = run_steps(ps, state, ids, labels, args.steps, log)
-    print(json.dumps({
-        "device": torch.cuda.get_device_name(ps.device) if cuda else "cpu",
-        "preset": args.preset, "layers": ps.config.num_hidden_layers,
-        "params": ps.config.num_params(), "batch": args.batch,
-        "seq": args.seq, "remat_policy": args.remat_policy,
-        # the first step warms up
-        **throughput(ps, ids, seconds[1:] or seconds)}), flush=True)
+    # the first step warms up
+    last = {"device": torch.cuda.get_device_name(ps.device) if cuda else "cpu",
+            "preset": args.preset, "layers": ps.config.num_hidden_layers,
+            "params": ps.config.num_params(),
+            "active_params": ps.config.num_active_params(),
+            "batch": args.batch, "seq": args.seq,
+            "remat_policy": args.remat_policy,
+            **throughput(ps, ids, seconds[1:] or seconds)}
+    if ps.config.moe_num_experts:
+        last["router_stats"] = ps.router_stats(state, ids)
+    print(json.dumps(last), flush=True)
     return 0
 
 

@@ -14,9 +14,11 @@ through that entry point's ``build_trainer`` (random weights and batch from
 the profiler and as many under ``torch.profiler``, and prints one JSON line:
 wall milliseconds per step, tokens/s and MFU, device-busy milliseconds, the
 device's idle share, the three flash-attention kernels (ms and launches per
-step), cuBLAS GEMMs, the AdamW update and the cross-entropy forward (the
-device time of the kernels launched inside their ``record_function``
-ranges), and the top kernels.
+step), for MoE presets (``--preset mixtral_8x7b --num-layers 4``) the three
+grouped-matmul kernels (gmm forward, gmm ``trans_rhs``, ``tgmm``; ms and
+launches per step), cuBLAS GEMMs, the AdamW update and the cross-entropy
+forward (the device time of the kernels launched inside their
+``record_function`` ranges), and the top kernels.
 Without it, it profiles a serving step as follows.
 
 (``--preset mixtral_8x7b --num-layers 16`` is the Mixtral-width MoE model
@@ -86,11 +88,22 @@ def _range_device_ms(prof, name):
 GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
 
 
+def grouped_kind(name: str):
+    """Which grouped-matmul kernel a device kernel name is: 'tgmm',
+    'gmm_trans' (gmm with trans_rhs), 'gmm' (forward form), or None."""
+    if "tgmm_" in name:
+        return "tgmm"
+    if "gmm_bf16_kernel" in name or "gmm_f32_kernel" in name:
+        return "gmm_trans" if "true>" in name else "gmm"
+    return None
+
+
 def profile_train(argv) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from .kernels import flash_attention as fa
+    from .kernels import grouped_matmul as gm
     from .models import pretrain
 
     p = pretrain.build_parser()
@@ -107,7 +120,8 @@ def profile_train(argv) -> dict:
     state, _, seconds = pretrain.run_steps(ps, state, ids, labels, n)
 
     def counts():
-        return fa.LAUNCHES_FWD, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV
+        return (fa.LAUNCHES_FWD, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV,
+                gm.LAUNCHES, gm.LAUNCHES_TRANS, gm.LAUNCHES_TGMM)
 
     c0 = counts()
     with profile(activities=[ProfilerActivity.CPU,
@@ -125,6 +139,18 @@ def profile_train(argv) -> dict:
     flash = {nm: share(f"flash_{nm}_kernel") / n for nm in ("fwd", "bwd_dq",
                                                             "bwd_dkv")}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:args.top]
+    moe = {}
+    if ps.config.moe_num_experts:
+        grouped = defaultdict(float)
+        for k, v in by_name.items():
+            if grouped_kind(k):
+                grouped[grouped_kind(k)] += v
+        kinds = ("gmm", "gmm_trans", "tgmm")
+        moe = {"grouped_ms_per_step": {k: grouped[k] / n for k in kinds},
+               "grouped_launches_per_step": dict(zip(
+                   kinds, (x / n for x in launches[3:]))),
+               "grouped_share_of_busy": sum(grouped.values()) / busy_ms
+               if busy_ms else None}
     return {
         "mode": "train", "preset": args.preset,
         "layers": ps.config.num_hidden_layers, "batch": args.batch,
@@ -137,7 +163,8 @@ def profile_train(argv) -> dict:
         "device_idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
         "flash_ms_per_step": flash,
         "flash_launches_per_step": dict(zip(("fwd", "bwd_dq", "bwd_dkv"),
-                                            (x / n for x in launches))),
+                                            (x / n for x in launches[:3]))),
+        **moe,
         "gemm_ms_per_step": share(*GEMM_NAMES) / n,
         "adamw_ms_per_step": _range_device_ms(prof, "adamw") / n,
         "ce_forward_ms_per_step": _range_device_ms(prof, "ce_forward") / n,
@@ -239,7 +266,7 @@ def main(argv=None) -> int:
     busy_ms = sum(by_name.values())
     attn_ms = sum(v for k, v in by_name.items()
                   if "ragged_paged_attn" in k)
-    gmm_ms = sum(v for k, v in by_name.items() if "gmm_" in k)
+    gmm_ms = sum(v for k, v in by_name.items() if grouped_kind(k))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:args.top]
     n = args.steps
     print(json.dumps({

@@ -219,6 +219,96 @@ def test_gmm_kernel_vs_plain_on_card(h100, dtype, bm, counts, fused):
         assert torch.equal(out[pad], torch.zeros_like(out[pad]))
 
 
+
+def _close(out, ref, bf):
+    """Grouped-matmul tolerance: fp32 1e-4 rel + 2e-5 of the largest
+    magnitude (summation order), bf16 1e-2 and 1e-2 (one output rounding)."""
+    scale = float(ref.float().abs().max())
+    torch.testing.assert_close(out.float(), ref.float(),
+                               rtol=1e-2 if bf else 1e-4,
+                               atol=(1e-2 if bf else 2e-5) * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bm,counts,fused,scaled", [
+    (8, [3, 0, 9, 1], True, True),      # an empty expert, sentinel rows
+    (16, [16, 0, 0, 0], False, True),   # one expert holds everything
+    (24, [5, 30, 0, 2], True, False),   # bm not a power of two: tile 8
+    (128, [100, 7, 0, 200], True, True),
+    (512, [600, 1, 3, 0], False, False),
+])
+def test_gmm_trans_rhs_row_scale_kernel_vs_plain_on_card(
+        h100, dtype, bm, counts, fused, scaled):
+    lhs, rhs, tg, rows = _gmm_case(h100, dtype, E=4, counts=counts, bm=bm,
+                                   C=96, O=128, seed=bm + 1, fused=fused)
+    rhs_t = rhs.transpose(1, 2).contiguous()            # [E, O, C]
+    M = tg.shape[0] * bm
+    gen = torch.Generator(device=h100).manual_seed(bm)
+    s = torch.rand((M,), generator=gen, device=h100) if scaled else None
+    n0, t0 = gm.LAUNCHES, gm.LAUNCHES_TRANS
+    out = gm.gmm(lhs, rhs_t, tg, bm=bm, rows=rows, trans_rhs=True,
+                 row_scale=s)
+    torch.cuda.synchronize()
+    assert (gm.LAUNCHES, gm.LAUNCHES_TRANS) == (n0, t0 + 1)
+    ref = gm._gmm_reference(lhs, rhs_t, tg, bm=bm, rows=rows, trans_rhs=True,
+                            row_scale=s)
+    _close(out, ref, dtype == torch.bfloat16)
+    if scaled:                          # the forward form takes the scale too
+        _close(gm.gmm(lhs, rhs, tg, bm=bm, rows=rows, row_scale=s),
+               gm._gmm_reference(lhs, rhs, tg, bm=bm, rows=rows,
+                                 row_scale=s), dtype == torch.bfloat16)
+    if rows is not None:                # sentinel rows come out exactly 0
+        pad = rows == lhs.shape[0] - 1
+        assert torch.equal(out[pad], torch.zeros_like(out[pad]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,N", [(64, 192), (128, 256)])   # bf16 tiles 64, 128
+@pytest.mark.parametrize("bm,counts,lfused,rfused,scaled,cut", [
+    (8, [3, 0, 9, 1], True, False, False, False),   # empty expert, sentinels
+    (16, [40, 0, 0, 0], False, True, True, False),  # one expert: every row
+    (128, [100, 7, 0, 200], True, True, True, False),
+    (512, [600, 1, 3, 0], False, False, False, True),   # expert 3 owns no tile
+])
+def test_tgmm_kernel_vs_plain_on_card(h100, dtype, K, N, bm, counts, lfused,
+                                      rfused, scaled, cut):
+    rng = np.random.default_rng(bm + K)
+    ids = np.repeat(np.arange(4), counts)
+    rng.shuffle(ids)
+    inv, _pos, tg = gm.sorted_dispatch_plan(torch.from_numpy(ids).to(h100),
+                                            4, bm)
+    if cut:                             # a truncated plan, as the reference's
+        keep = int((tg != 3).sum())
+        inv, tg = inv[:keep * bm], tg[:keep]
+    F, M = len(ids), inv.shape[0]
+    rows = torch.where(inv < F, inv, torch.full_like(inv, F))
+
+    def operand(width, fused):
+        x = torch.from_numpy(rng.standard_normal(
+            (F + 1 if fused else M, width)).astype(np.float32)).to(h100)
+        if fused:
+            x[-1] = 0
+        return x.to(dtype), rows if fused else None
+
+    lhs, lr = operand(K, lfused)
+    rhs, rr = operand(N, rfused)
+    s = torch.from_numpy(rng.random(M).astype(np.float32)).to(h100) \
+        if scaled else None
+    n0 = gm.LAUNCHES_TGMM
+    out = gm.tgmm(lhs, rhs, tg, 4, bm=bm, lhs_rows=lr, rhs_rows=rr,
+                  rhs_scale=s)
+    torch.cuda.synchronize()
+    assert gm.LAUNCHES_TGMM == n0 + 1
+    ref = gm._tgmm_reference(lhs, rhs, tg, 4, bm=bm, lhs_rows=lr,
+                             rhs_rows=rr, rhs_scale=s)
+    assert out.shape == (4, K, N) and out.dtype == dtype
+    _close(out, ref, dtype == torch.bfloat16)
+    if cut:
+        assert torch.equal(out[3], torch.zeros_like(out[3]))
+
+
 def _flash_inputs(h100, dtype, *, b, sq, sk, hq, hkv, d, seed):
     rng = np.random.default_rng(seed)
 

@@ -111,14 +111,19 @@ def test_gmm_plain_matches_jax(fused, bm):
 
 
 def test_gmm_refuses_backward_modes_and_bad_tiles():
-    lhs, rhs = torch.zeros((16, 32)), torch.zeros((2, 32, 64))
+    # the backward modes compute now (held against JAX in
+    # tests/test_torch_moe_train.py); the bad-tile checks stay
+    lhs, rhs = torch.ones((16, 32)), torch.ones((2, 32, 64))
     tg = torch.zeros((2,), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="training"):
-        gm.gmm(lhs, rhs, tg, bm=8, trans_rhs=True)
-    with pytest.raises(NotImplementedError, match="training"):
-        gm.gmm(lhs, rhs, tg, bm=8, row_scale=torch.ones(16))
+    out = gm.gmm(lhs, rhs.transpose(1, 2).contiguous(), tg, bm=8,
+                 trans_rhs=True)
+    assert torch.equal(out, torch.full((16, 64), 32.0))
+    out = gm.gmm(lhs, rhs, tg, bm=8, row_scale=torch.full((16,), 0.5))
+    assert torch.equal(out, torch.full((16, 64), 16.0))
     with pytest.raises(ValueError, match="multiple"):
         gm.gmm(lhs, rhs, tg, bm=12)
+    with pytest.raises(ValueError, match="multiple"):
+        gm.tgmm(lhs, lhs, tg, 2, bm=12)
     assert [gm.row_tile(b) for b in (8, 24, 48, 96, 512)] == [8, 8, 16, 32, 64]
 
 

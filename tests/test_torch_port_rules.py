@@ -111,10 +111,10 @@ def test_model_and_engine_devices_must_agree():
 
 
 def test_cuda_only_paths_refuse_cpu_fallback():
-    """Flash attention takes its plain version only for a CPU tensor: a
-    tensor on any other device launches a kernel or raises, forward and
-    backward alike (checked through the dispatch on the device type; the
-    CUDA launches are tests/test_torch_cuda_kernels.py's)."""
+    """Flash attention and the grouped matmuls take their plain versions
+    only for a CPU tensor: a tensor on any other device launches a kernel
+    or raises, forward and backward alike (checked through the dispatch on
+    the device type; the CUDA launches are tests/test_torch_cuda_kernels.py's)."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     meta = torch.empty((1, 4, 2, 64), device="meta")
     with pytest.raises(NotImplementedError, match="flash"):
@@ -122,6 +122,16 @@ def test_cuda_only_paths_refuse_cpu_fallback():
     lse = torch.empty((1, 2, 4), device="meta")
     with pytest.raises(NotImplementedError, match="flash"):
         fa.flash_backward(meta, meta, meta, meta, lse, meta, True)
+    # the grouped matmuls likewise, forward and backward modes
+    from paddle_tpu_torch.kernels import grouped_matmul as gm
+    x = torch.empty((16, 64), device="meta")
+    w = torch.empty((2, 64, 64), device="meta")
+    tg = torch.zeros((2,), dtype=torch.int32, device="meta")
+    for call in (lambda: gm.gmm(x, w, tg, bm=8),
+                 lambda: gm.gmm(x, w, tg, bm=8, trans_rhs=True),
+                 lambda: gm.tgmm(x, x, tg, 2, bm=8)):
+        with pytest.raises(ValueError, match="device"):
+            call()
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -177,8 +177,13 @@ def test_port_state_round_trips_through_jax_restore_canonical():
 
 
 def test_unported_configurations_raise():
-    with pytest.raises(NotImplementedError, match="MoE"):
-        pretrain.PretrainStep(llama.LlamaConfig.mixtral_tiny(), device="cpu")
+    # MoE trains with the grouped dispatch only (tests/test_torch_moe_train.py)
+    pretrain.PretrainStep(llama.LlamaConfig.mixtral_tiny(), device="cpu")
+    for dispatch in ("gather", "einsum"):
+        with pytest.raises(NotImplementedError, match="MoE training"):
+            pretrain.PretrainStep(
+                llama.LlamaConfig.mixtral_tiny(moe_dispatch=dispatch),
+                device="cpu")
     for kw in (dict(dp=2), dict(pp=2, micro_batches=2), dict(mp=2),
                dict(zero1=True), dict(schedule="1f1b"),
                dict(grad_comm="ring")):
