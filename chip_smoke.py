@@ -87,7 +87,26 @@ is caught; there is no ``ok`` line unless every phase passed):
     3·L·steps (``tgmm``) and the flash kernels' 2·L·steps, L·steps,
     L·steps; tokens/s, MFU on the active parameters, peak memory and the
     router's stats.
-14. the ``kernels`` line, then the last line
+14. ``kernel_wo`` — the weight-only W8A16/W4A16 kernel against its plain
+    version: int8 and int4, x in fp32/bf16/fp16, m 1/7/8/16/100/512, (k, n)
+    from (64, 64) and (96, 200) up to every llama2_7b projection, with an
+    odd int4 k (4095); each weight with an all-zero column (output exactly
+    0); a [2, 3, 7, k] input through ``weight_only_linear`` with and
+    without a bias; the empty batch; extreme codes; then CUDA-event times at
+    llama2_7b's gate/up shape (k 4096, n 11008, bf16) for m 8 and 512:
+    kernel, plain version, bound, the library call
+    (``torch._weight_int8pack_mm`` for int8, ``torch._weight_int4pack_mm``
+    for int4, each held against the plain version with its scale in bf16)
+    and ``torch.matmul`` over the bf16 weight.
+15. ``weight_only_path`` — all 225 projections of llama2_7b (32 layers, not
+    cut, and the LM head; random bf16 weights from a seed) quantized on the
+    card, int8 and int4, then ``weight_only_linear`` over all of them for
+    m 8 and 512: launches counted from 0 over one untimed sweep per (m,
+    mode), exactly 225 each; layer 0's and the head's outputs against the
+    plain version; ms per sweep against the bytes bound and against the
+    same sweep through ``torch.matmul`` in bf16; peak memory; ``dx`` on the
+    card against the CPU.
+16. the ``kernels`` line, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device.  Imports nothing
@@ -164,6 +183,22 @@ MOE_SPREAD_SEEDS = (0, 0, 1, 2, 3)
 MOE_CONTROL_SEEDS = (0, 1)
 TRAIN_MOE_ARGV = ["--preset", "mixtral_8x7b", "--num-layers", "4",
                   "--batch", "4", "--seq", "2048"]
+WO_SOURCE = "paddle_tpu_torch/kernels/csrc/weight_only.cu"
+WO_REPLACES = "paddle_tpu/kernels/weight_only.py:28"
+# kernel_wo's case matrix: rows m, and (k, n) from tiny and ragged (n off
+# the 16-byte vector, odd int4 k) up to every llama2_7b projection
+WO_MS = (1, 7, 8, 16, 100, 512)
+WO_KN = ((64, 64), (96, 200), (4095, 4096), (4096, 4096), (4096, 11008),
+         (11008, 4096), (4096, 32000))
+# the timed shape: llama2_7b's gate/up projection at decode (the serve
+# phases' 8 slots) and in a 512-row prefill chunk, bf16 activations
+WO_TIMED = dict(k=4096, n=11008, ms=(8, 512))
+WO_PATH_MS = (8, 512)
+WO_MODES = {"int8": "weight_only_int8", "int4": "weight_only_int4"}
+# torch._weight_int4pack_mm's operands for the int4 library yardstick: the
+# per-channel scale repeated in every group of 256 rows, zero points 0
+WO_LIB_GROUP = 256
+WO_LIB_INNER_K_TILES = 8
 
 
 def emit(phase: str, **kw) -> None:
@@ -1740,6 +1775,452 @@ def phase_train_moe():
     return launches
 
 
+# ------------------------------------------------------- weight-only ---
+
+def _wo_counts():
+    from paddle_tpu_torch.kernels import weight_only as wo
+    return {"int8": wo.LAUNCHES, "int4": wo.LAUNCHES_INT4}
+
+
+def _reset_wo_counts():
+    from paddle_tpu_torch.kernels import weight_only as wo
+    wo.LAUNCHES = wo.LAUNCHES_INT4 = 0
+
+
+def _wo_check(what, out, ref):
+    """The weight-only kernel against its plain version: fp32 by the
+    relative RMS error, at most 1e-5 of the output's RMS, and every element
+    within 1e-4 of that RMS (summation order over k); bf16/fp16 every
+    element within one ulp of the largest output (both sum in fp32 and
+    round once).  Returns (max abs error, the largest share of its limit
+    that a check used); raises past 1."""
+    import math
+    import torch
+    if out.dtype != ref.dtype or out.shape != ref.shape:
+        raise AssertionError(f"{what}: {out.dtype} {tuple(out.shape)} vs "
+                             f"{ref.dtype} {tuple(ref.shape)}")
+    o, r = out.float(), ref.float()
+    if not bool(torch.isfinite(o).all()):
+        raise AssertionError(f"{what}: non-finite output")
+    err = (o - r).abs()
+    max_err = float(err.max()) if err.numel() else 0.0
+    if out.dtype == torch.float32:
+        rms = float(r.square().mean().sqrt())
+        limits = [(float(err.square().mean().sqrt()), 1e-5 * rms),
+                  (max_err, 1e-4 * rms)]
+    else:
+        big = float(r.abs().max())
+        ulp = torch.finfo(out.dtype).eps * 2.0 ** math.floor(math.log2(big)) \
+            if big else 0.0
+        limits = [(max_err, ulp)]
+    need = max((e / lim) if lim else (math.inf if e else 0.0)
+               for e, lim in limits)
+    if need > 1:
+        raise AssertionError(f"{what}: error {max_err} is {need:.3g} x its "
+                             "tolerance")
+    return max_err, need
+
+
+def _wo_library_check(what, y, x, q, s_lib, int4, k):
+    """A library yardstick against the plain version with the scale the
+    library takes, ``s_lib`` in bf16: every element within one bf16 ulp of
+    the largest output plus ``2u * (|x| @ |q|) * |s_lib|`` (u = 2^-8, the
+    bf16 unit roundoff: room for a call that rounds the dequantized weight
+    ``q * s`` to bf16 before its product).  Returns the largest share of its
+    limit that an element used; raises past 1."""
+    import math
+    import torch
+    from paddle_tpu_torch.kernels import weight_only as wo
+    if y.shape != (x.shape[0], q.shape[1]) or \
+            not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"{what}: {tuple(y.shape)} or non-finite")
+    codes = wo._unpack(q, int4, k).float()
+    sb = s_lib.float()
+    ref = (x.float() @ codes) * sb
+    mag = (x.float().abs() @ codes.abs()) * sb.abs()
+    big = float(ref.abs().max())
+    ulp = torch.finfo(torch.bfloat16).eps * 2.0 ** math.floor(math.log2(big))
+    need = float(((y.float() - ref).abs() / (ulp + 2 * 2.0 ** -8 * mag)).max())
+    if need > 1:
+        raise AssertionError(f"{what}: error is {need:.3g} x its tolerance")
+    return need
+
+
+def _wo_matrix(gen):
+    """The weight-only kernel against its plain version over WO_MS x WO_KN,
+    int8 and int4, x in fp32/bf16/fp16, each weight with an all-zero column
+    (its output must be exactly 0); a [2, 3, 7, k] input through
+    ``weight_only_linear`` with and without a bias; the empty batch (no
+    launch); extreme codes (all -127/-8, all +127/+7)."""
+    import torch
+    from paddle_tpu_torch.kernels import weight_only as wo
+    from paddle_tpu_torch.quantization import (_pack_int4, weight_only_linear,
+                                               weight_quantize)
+    dev = "cuda"
+    dtypes = (torch.float32, torch.bfloat16, torch.float16)
+    worst = {mode: {"max_abs_err": 0.0, "need": 0.0, "cases": 0,
+                    "need_by_dtype": {}} for mode in WO_MODES}
+
+    def check(mode, what, out, ref):
+        err, need = _wo_check(f"kernel_wo {mode}/{what}", out, ref)
+        w = worst[mode]
+        w["max_abs_err"] = max(w["max_abs_err"], err)
+        w["need"] = max(w["need"], need)
+        w["cases"] += 1
+        dn = str(out.dtype).replace("torch.", "")
+        w["need_by_dtype"][dn] = max(w["need_by_dtype"].get(dn, 0.0), need)
+        if out[..., 1].any():
+            raise AssertionError(f"kernel_wo {mode}/{what}: the zero weight "
+                                 "column's output is not 0")
+
+    for mode, algo in WO_MODES.items():
+        int4 = mode == "int4"
+        rows_of = (lambda k: k) if int4 else (lambda k: None)
+        for k, n in WO_KN:
+            w = torch.randn((k, n), generator=gen, device=dev)
+            w[:, 1] = 0
+            q, s = weight_quantize(w, algo)
+            del w
+            for dtype in dtypes:
+                dn = str(dtype).replace("torch.", "")
+                for m in WO_MS:
+                    x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+                    out = wo.weight_only_matmul(x, q, s, int4_rows=rows_of(k))
+                    check(mode, f"{dn}/m{m}/k{k}/n{n}", out,
+                          wo._wo_reference(x, q, s, int4, k, dtype))
+                x = torch.randn((2, 3, 7, k), generator=gen,
+                                device=dev).to(dtype)
+                out = weight_only_linear(x, q, weight_scale=s,
+                                         weight_dtype=mode)
+                check(mode, f"{dn}/[2,3,7]/k{k}/n{n}", out, wo._wo_reference(
+                    x.reshape(-1, k), q, s, int4, k, dtype).reshape(out.shape))
+                bias = torch.randn((n,), generator=gen, device=dev)
+                yb = weight_only_linear(x, q, bias=bias, weight_scale=s,
+                                        weight_dtype=mode)
+                if yb.dtype != torch.promote_types(dtype, torch.float32) or \
+                        not torch.equal(yb, out + bias):
+                    raise AssertionError(f"kernel_wo {mode}/{dn}: the bias is "
+                                         "not added after the product")
+                before = _wo_counts()
+                empty = wo.weight_only_matmul(x[:, :, :0], q, s,
+                                              int4_rows=rows_of(k))
+                if tuple(empty.shape) != (2, 3, 0, n) or \
+                        _wo_counts() != before:
+                    raise AssertionError(f"kernel_wo {mode}: the empty batch")
+        for code in ((-8, 7) if int4 else (-127, 127)):
+            for k, n in ((96, 200), (4096, 4096)):
+                c = torch.full((k, n), code, dtype=torch.int8, device=dev)
+                c[:, 1] = 0
+                q = _pack_int4(c) if int4 else c
+                s = torch.full((n,), 1.0 / abs(code), device=dev)
+                for dtype in dtypes:
+                    x = torch.randn((8, k), generator=gen, device=dev).to(dtype)
+                    out = wo.weight_only_matmul(x, q, s, int4_rows=rows_of(k))
+                    check(mode, f"codes{code}/{dtype}/k{k}/n{n}", out,
+                          wo._wo_reference(x, q, s, int4, k, dtype))
+    torch.cuda.synchronize()
+    return worst
+
+
+def _wo_timing(gen):
+    """CUDA-event times at llama2_7b's gate/up shape (k 4096, n 11008, bf16
+    x) for each m of WO_TIMED, in turns (plain, kernel, yardsticks, kernel,
+    plain): the kernel, its plain version, the library call and
+    ``torch.matmul`` over the unquantized bf16 weight.  The library call is
+    ``torch._weight_int8pack_mm`` for int8 (weight [n, k], its scale in
+    bf16) and ``torch._weight_int4pack_mm`` for int4 (the codes + 8 packed
+    once by ``torch._convert_weight_to_int4pack``, the scale in bf16
+    repeated in every group of WO_LIB_GROUP rows, zero points 0, so it
+    computes ``x @ ((q + 8 - 8) * scale)``); each is held against the plain
+    version by :func:`_wo_library_check`.  Each timed call takes the next of
+    several copies of its weight that together exceed 3x the 50 MB L2
+    cache, so every call reads its weight from device memory, as a sweep
+    over a model's projections does."""
+    import itertools
+    import torch
+    from paddle_tpu_torch.kernels import weight_only as wo
+    from paddle_tpu_torch.quantization import weight_quantize
+    k, n = WO_TIMED["k"], WO_TIMED["n"]
+    bf16 = torch.bfloat16
+    w = (torch.randn((k, n), generator=gen, device="cuda") * 0.02).to(bf16)
+    ws = [w] + [w.clone() for _ in range(-(-3 * L2_BYTES // (2 * w.numel()))
+                                         - 1)]
+
+    def rotate(call, count):
+        it = itertools.count()
+        return lambda: call(next(it) % count)
+
+    timings = {}
+    for mode, algo in WO_MODES.items():
+        int4 = mode == "int4"
+        rows = k if int4 else None
+        q, s = weight_quantize(w, algo)
+        copies = -(-3 * L2_BYTES // q.numel())
+        qs = [q] + [q.clone() for _ in range(copies - 1)]
+        s_lib = s.to(bf16)
+        lib_fn, lib = None, {}
+        try:
+            if int4:
+                gs = WO_LIB_GROUP
+                u = (wo._unpack_int4(q, k).int() + 8).t().contiguous()
+                pk = torch._convert_weight_to_int4pack(
+                    ((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8),
+                    WO_LIB_INNER_K_TILES)
+                del u
+                lib_ws = [pk] + [pk.clone() for _ in range(copies - 1)]
+                sz = torch.stack([s_lib.expand(k // gs, n),
+                                  torch.zeros_like(s_lib).expand(k // gs, n)],
+                                 dim=-1).contiguous()
+                lib["library_call"] = (
+                    f"torch._weight_int4pack_mm (group {gs}, inner k tiles "
+                    f"{WO_LIB_INNER_K_TILES}, per-channel bf16 scale in every "
+                    "group, zero points 0)")
+
+                def lib_fn(x, i):
+                    return torch._weight_int4pack_mm(x, lib_ws[i], gs, sz)
+            else:
+                lib_ws = [c.t().contiguous() for c in qs]
+                lib["library_call"] = ("torch._weight_int8pack_mm (weight "
+                                       "[n, k], bf16 scale)")
+
+                def lib_fn(x, i):
+                    return torch._weight_int8pack_mm(x, lib_ws[i], s_lib)
+        except (RuntimeError, NotImplementedError) as e:
+            lib_fn, lib_ws = None, []
+            lib["library_note"] = (f"null: packing for the library call "
+                                   f"raised on CUDA: {str(e)[:300]}")
+        for m in WO_TIMED["ms"]:
+            x = torch.randn((m, k), generator=gen, device="cuda").to(bf16)
+            out = wo.weight_only_matmul(x, q, s, int4_rows=rows)
+            ref = wo._wo_reference(x, q, s, int4, k, bf16)
+            err, need = _wo_check(f"kernel_wo timed {mode} m{m}", out, ref)
+            fns = {"plain": rotate(lambda i: wo._wo_reference(
+                       x, qs[i], s, int4, k, bf16), copies),
+                   "kernel": rotate(lambda i: wo.weight_only_matmul(
+                       x, qs[i], s, int4_rows=rows), copies),
+                   "bf16_matmul": rotate(lambda i: torch.matmul(x, ws[i]),
+                                         len(ws))}
+            lib_m = dict(lib)
+            if lib_fn is not None:
+                try:
+                    y = lib_fn(x, 0)
+                    torch.cuda.synchronize()
+                except (RuntimeError, NotImplementedError) as e:
+                    y = None
+                    lib_m["library_note"] = (f"null: the library call raised "
+                                             f"on CUDA: {str(e)[:300]}")
+                if y is not None:
+                    lib_m["library_need"] = _wo_library_check(
+                        f"kernel_wo library {mode} m{m}", y, x, q, s_lib,
+                        int4, k)
+                    lib_m["library_max_abs_err_vs_plain"] = float(
+                        (y.float() - ref.float()).abs().max())
+                    fns["library"] = rotate(lambda i: lib_fn(x, i), copies)
+            iters = 100 if m <= 16 else 30
+            t = {}
+            for key in ("plain", "kernel", "bf16_matmul", "library", "kernel2",
+                        "plain2"):
+                fn = fns.get(key.rstrip("2"))
+                if fn is not None:
+                    t[key] = cuda_ms(fn, 10 if key.startswith("plain")
+                                     else iters)
+            b_ms, b_by = _grouped_bound_ms([x, q, s], out, 2 * m * k * n, bf16)
+            timings[f"{mode}_m{m}"] = {
+                "shape": f"llama2_7b gate/up m={m} k={k} n={n} bf16 x, {mode}",
+                "weight_copies": copies, "max_abs_err": err, "need": need,
+                "kernel_ms": min(t["kernel"], t["kernel2"]),
+                "kernel_ms_runs": [t["kernel"], t["kernel2"]],
+                "plain_ms": min(t["plain"], t["plain2"]),
+                "plain_ms_runs": [t["plain"], t["plain2"]],
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": t.get("library"), **lib_m,
+                "bf16_matmul_ms": t["bf16_matmul"]}
+        del qs, lib_ws
+    return timings
+
+
+def phase_kernel_wo():
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    worst = _wo_matrix(gen)
+    timings = _wo_timing(gen)
+    emit("kernel_wo", worst=worst, timings=timings)
+    torch.cuda.empty_cache()
+    return worst, timings
+
+
+def phase_weight_only_path():
+    """The slice at full width: every projection of llama2_7b (32 layers,
+    not cut: q, k, v, o, gate, up, down) and its LM head, 225 random bf16
+    weights from a seed, made one layer at a time and quantized on the
+    card with ``weight_quantize``, int8 and int4; then ``weight_only_linear``
+    over all 225 for bf16 activations of each m in WO_PATH_MS.  Launch
+    counts are set to 0 just before one untimed sweep per (m, mode) and read
+    just after: exactly 225 per sweep.  Layer 0's and the head's outputs are
+    held against the plain version; then timed sweeps beside the same sweep
+    through ``torch.matmul`` over the bf16 weights; then ``dx`` through
+    ``weight_only_linear`` (layer 0's gate, fp32 and bf16 x) against the
+    same call on the CPU.  Frees everything before it returns the launch
+    counts and the sweep times."""
+    import torch
+    from paddle_tpu_torch import HBM_BYTES_PER_S, PEAK_FLOPS
+    from paddle_tpu_torch.kernels import weight_only as wo
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.quantization import (weight_only_linear,
+                                               weight_quantize)
+    cfg = LlamaConfig.llama2_7b()
+    H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    L = cfg.num_hidden_layers
+    kv = (cfg.num_key_value_heads or cfg.num_attention_heads) * \
+        (H // cfg.num_attention_heads)
+    per_layer = (("q", H, H), ("k", H, kv), ("v", H, kv), ("o", H, H),
+                 ("gate", H, I), ("up", H, I), ("down", I, H))
+    bf16 = torch.bfloat16
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    names, shapes, dense, quant = [], [], [], {mode: [] for mode in WO_MODES}
+    t0 = time.perf_counter()
+    for layer in [f"{i}." for i in range(L)] + [""]:
+        for name, k, n in (per_layer if layer else (("lm_head", H, V),)):
+            w = torch.randn((k, n), generator=gen, device="cuda",
+                            dtype=bf16) * 0.02
+            for mode, algo in WO_MODES.items():
+                quant[mode].append(weight_quantize(w, algo))
+            names.append(layer + name)
+            shapes.append((k, n))
+            dense.append(w)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    index = {nm: i for i, nm in enumerate(names)}
+    checked = [f"0.{nm}" for nm, _, _ in per_layer] + ["lm_head"]
+    xs = {m: {d: torch.randn((m, d), generator=gen, device="cuda").to(bf16)
+              for d in (H, I)} for m in WO_PATH_MS}
+
+    def sweep(m, mode, keep=()):
+        kept, finite = {}, []
+        for i, (k, _n) in enumerate(shapes):
+            q, s = quant[mode][i]
+            y = weight_only_linear(xs[m][k], q, weight_scale=s,
+                                   weight_dtype=mode)
+            if keep:
+                finite.append(torch.isfinite(y).all())
+                if names[i] in keep:
+                    kept[names[i]] = y
+        return kept, finite
+
+    def sweep_dense(m):
+        for i, (k, _n) in enumerate(shapes):
+            torch.matmul(xs[m][k], dense[i])
+
+    _reset_wo_counts()
+    _reset_flash_counts()
+    _reset_grouped_counts()
+    outs = {(m, mode): sweep(m, mode, checked) for m in WO_PATH_MS
+            for mode in WO_MODES}
+    torch.cuda.synchronize()
+    launches = _wo_counts()
+    others = {**_flash_counts(), **_grouped_counts()}
+    want = {mode: len(shapes) * len(WO_PATH_MS) for mode in WO_MODES}
+    if launches != want or any(others.values()):
+        raise AssertionError(f"weight_only_path: launches {launches} != "
+                             f"{want}, other kernels {others}")
+    checks = {}
+    for (m, mode), (kept, finite) in outs.items():
+        if not bool(torch.stack(finite).all()):
+            raise AssertionError(f"weight_only_path m{m} {mode}: non-finite")
+        worst = [0.0, 0.0]
+        for nm, y in kept.items():
+            i = index[nm]
+            k = shapes[i][0]
+            q, s = quant[mode][i]
+            err, need = _wo_check(f"weight_only_path m{m} {mode} {nm}", y,
+                                  wo._wo_reference(xs[m][k], q, s,
+                                                   mode == "int4", k, bf16))
+            worst = [max(worst[0], err), max(worst[1], need)]
+        checks[f"{mode}_m{m}"] = {"outputs": len(kept), "max_abs_err": worst[0],
+                                  "need": worst[1]}
+    del outs
+
+    def timed(fn, reps):
+        """(device ms per sweep over ``reps`` sweeps, host ms to enqueue
+        one sweep onto an idle card: 225 launches stay below the launch
+        queue's depth, so the host is never held back by it)."""
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        fn()
+        host = (time.perf_counter() - h0) * 1e3
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps, host
+
+    sweeps = {}
+    for m in WO_PATH_MS:
+        reps = 20 if m <= 16 else 5
+        fns = {"bf16": lambda: sweep_dense(m)}
+        for mode in WO_MODES:
+            fns[mode] = (lambda md: lambda: sweep(m, md))(mode)
+        order = ["bf16", *WO_MODES, *reversed(WO_MODES), "bf16"]
+        runs = {key: [] for key in fns}
+        sweep_dense(m)                              # warm the bf16 path
+        for key in order:
+            runs[key].append(timed(fns[key], reps))
+        for key, rs in runs.items():
+            nbytes, flops = 0, 0
+            for i, (k, n) in enumerate(shapes):
+                w = dense[i] if key == "bf16" else quant[key][i][0]
+                s_bytes = 0 if key == "bf16" else 4 * n
+                nbytes += 2 * m * k + w.numel() * w.element_size() + \
+                    s_bytes + 2 * m * n
+                flops += 2 * m * k * n
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+            sweeps[f"{key}_m{m}"] = {
+                "ms_per_sweep": min(r[0] for r in rs),
+                "ms_runs": [r[0] for r in rs],
+                "host_enqueue_ms": min(r[1] for r in rs),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": nbytes, "calls": len(shapes)}
+
+    gi = index["0.gate"]
+    k, n = shapes[gi]
+    grads = {}
+    for mode in WO_MODES:
+        q, s = quant[mode][gi]
+        for dtype in (torch.float32, bf16):
+            x = torch.randn((8, k), generator=gen, device="cuda").to(dtype)
+            g = torch.randn((8, n), generator=gen, device="cuda").to(dtype)
+            res = []
+            for dev in ("cuda", "cpu"):
+                xl = x.detach().to(dev).requires_grad_(True)
+                y = weight_only_linear(xl, q.to(dev), weight_scale=s.to(dev),
+                                       weight_dtype=mode)
+                y.backward(g.to(dev))
+                res.append((y.detach().cpu(), xl.grad.cpu()))
+            dn = str(dtype).replace("torch.", "")
+            what = f"weight_only_path dx {mode} {dn}"
+            grads[f"{mode}_{dn}"] = {
+                "forward": _wo_check(what + " forward", res[0][0], res[1][0]),
+                "dx": _wo_check(what, res[0][1], res[1][1])}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    params = sum(k * n for k, n in shapes)
+    emit("weight_only_path", preset="llama2_7b", layers=L, weights=len(shapes),
+         params=params, setup_and_quantize_s=setup_s, ms=list(WO_PATH_MS),
+         launches=launches, checks=checks, sweeps=sweeps, dx=grads,
+         peak_gb=peak)
+    del dense, quant, xs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, sweeps
+
+
 def main() -> int:
     from paddle_tpu_torch.models.pretrain import use_expandable_segments
     use_expandable_segments()         # before CUDA's first allocation
@@ -1765,6 +2246,8 @@ def main() -> int:
     moe_err, moe_t, moe_mix = phase_kernel_tgmm()
     phase_moe_train_parity()
     moe_launches = phase_train_moe()
+    wo_err, wo_t = phase_kernel_wo()
+    wo_launches, _wo_sweeps = phase_weight_only_path()
     print(json.dumps({"kernels": [
         {"name": "ragged_paged_attention", "route": "cuda",
          "source": ATTN_SOURCE, "replaces": ATTN_REPLACES,
@@ -1804,7 +2287,16 @@ def main() -> int:
          "library_ms": moe_mix[kind]["library_ms"]}
         for nm, replaces, key, kind in (
             ("grouped_matmul_trans_rhs", GMM_REPLACES, "gmm_trans", "trans"),
-            ("grouped_matmul_tgmm", TGMM_REPLACES, "tgmm", "tgmm"))]}),
+            ("grouped_matmul_tgmm", TGMM_REPLACES, "tgmm", "tgmm"))] + [
+        {"name": f"weight_only_{mode}", "route": "cuda", "source": WO_SOURCE,
+         "replaces": WO_REPLACES, "launches": wo_launches[mode],
+         "max_abs_err": wo_err[mode]["max_abs_err"],
+         "ms": wo_t[f"{mode}_m8"]["kernel_ms"],
+         "plain_ms": wo_t[f"{mode}_m8"]["plain_ms"],
+         "bound_ms": wo_t[f"{mode}_m8"]["bound_ms"],
+         "bound_by": wo_t[f"{mode}_m8"]["bound_by"],
+         "library_ms": wo_t[f"{mode}_m8"]["library_ms"]}
+        for mode in WO_MODES]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -394,3 +394,104 @@ def test_flash_attention_cuda_only_modes_raise_on_card(h100):
     assert fa.LAUNCHES_FWD == n0 + 1
     assert all(x.grad is not None and torch.isfinite(x.grad.float()).all()
                for x in leaves)
+
+
+def _wo_close(out, ref):
+    """Weight-only kernel vs plain: fp32 by the relative RMS error (1e-5;
+    summation order over k) with every element within 1e-4 of the
+    output's RMS; bf16/fp16 every element within one ulp of the largest
+    output (both sum in fp32 and round once)."""
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    o, r = out.float(), ref.float()
+    assert bool(torch.isfinite(o).all())
+    err = (o - r).abs()
+    if out.dtype == torch.float32:
+        rms = float(r.square().mean().sqrt())
+        assert float(err.square().mean().sqrt()) <= 1e-5 * rms
+        assert float(err.max()) <= 1e-4 * rms
+    else:
+        big = float(r.abs().max())
+        ulp = torch.finfo(out.dtype).eps * 2.0 ** np.floor(np.log2(big)) \
+            if big else 0.0
+        assert float(err.max()) <= ulp
+
+
+def _wo_weights(h100, k, n, int4, seed):
+    from paddle_tpu_torch.quantization import weight_quantize
+    gen = torch.Generator(device=h100).manual_seed(seed)
+    w = torch.randn((k, n), generator=gen, device=h100)
+    return weight_quantize(w, "weight_only_int4" if int4 else
+                           "weight_only_int8")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("m,k,n", [
+    (1, 64, 64), (7, 96, 200),           # n off the 16-byte vector
+    (8, 4095, 256),                      # odd k: the int4 pad nibble
+    (16, 256, 512), (100, 512, 320),     # 16- and 64-row tiles, ragged m
+])
+def test_weight_only_kernel_vs_plain_on_card(h100, dtype, int4, m, k, n):
+    from paddle_tpu_torch.kernels import weight_only as wo
+    q, s = _wo_weights(h100, k, n, int4, seed=m + k)
+    x = torch.randn((m, k), device=h100).to(dtype)
+    rows = k if int4 else None
+    n0 = (wo.LAUNCHES, wo.LAUNCHES_INT4)
+    out = wo.weight_only_matmul(x, q, s, int4_rows=rows)
+    torch.cuda.synchronize()
+    assert (wo.LAUNCHES, wo.LAUNCHES_INT4) == \
+        (n0[0] + (not int4), n0[1] + int4)
+    _wo_close(out, wo._wo_reference(x, q, s, int4, k, dtype))
+
+
+@pytest.mark.cuda
+def test_weight_only_edges_on_card(h100):
+    """Extreme codes, a zero weight column (exactly 0), leading dims, an
+    out_dtype apart from x's, the empty batch (no launch), a bias through
+    weight_only_linear, a non-contiguous x (raises, no fallback) and dx
+    against the same call on the CPU."""
+    from paddle_tpu_torch.kernels import weight_only as wo
+    from paddle_tpu_torch.quantization import weight_only_linear
+    k, n = 256, 128
+    x = torch.randn((2, 3, 5, k), device=h100, dtype=torch.bfloat16)
+    for int4, code in ((False, 127), (False, -127), (True, 7), (True, -8)):
+        full = torch.full((k, n), code, dtype=torch.int8, device=h100)
+        full[:, 3] = 0
+        if int4:
+            from paddle_tpu_torch.quantization import _pack_int4
+            full = _pack_int4(full)
+        s = torch.full((n,), 1.0 / 127, device=h100)
+        rows = k if int4 else None
+        out = wo.weight_only_matmul(x, full, s, int4_rows=rows)
+        assert out.shape == (2, 3, 5, n)
+        ref = wo._wo_reference(x.reshape(-1, k), full, s, int4, k,
+                               torch.bfloat16)
+        _wo_close(out.reshape(-1, n), ref)
+        assert not out[..., 3].any()
+        out32 = wo.weight_only_matmul(x, full, s, int4_rows=rows,
+                                      out_dtype=torch.float32)
+        _wo_close(out32.reshape(-1, n), wo._wo_reference(
+            x.reshape(-1, k), full, s, int4, k, torch.float32))
+    q, s = _wo_weights(h100, k, n, False, seed=1)
+    n0 = wo.LAUNCHES
+    assert wo.weight_only_matmul(x[:, :0], q, s).shape == (2, 0, 5, n)
+    assert wo.LAUNCHES == n0
+    with pytest.raises(ValueError, match="contiguous"):
+        wo.weight_only_matmul(x.transpose(1, 2), q, s)
+    bias = torch.randn(n, device=h100)
+    y = weight_only_linear(x, q, bias=bias, weight_scale=s)
+    assert y.dtype == torch.float32
+    torch.testing.assert_close(y, wo.weight_only_matmul(x, q, s) + bias,
+                               rtol=0, atol=0)
+    for dtype in (torch.float32, torch.bfloat16):
+        xs = torch.randn((8, k), device=h100).to(dtype)
+        g = torch.randn((8, n), device=h100).to(dtype)
+        grads = []
+        for dev in (h100, torch.device("cpu")):
+            xl = xs.detach().to(dev).requires_grad_(True)
+            weight_only_linear(xl, q.to(dev), weight_scale=s.to(dev)
+                               ).backward(g.to(dev))
+            grads.append(xl.grad)
+        _wo_close(grads[0].cpu(), grads[1])

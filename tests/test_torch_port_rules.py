@@ -111,10 +111,11 @@ def test_model_and_engine_devices_must_agree():
 
 
 def test_cuda_only_paths_refuse_cpu_fallback():
-    """Flash attention and the grouped matmuls take their plain versions
-    only for a CPU tensor: a tensor on any other device launches a kernel
-    or raises, forward and backward alike (checked through the dispatch on
-    the device type; the CUDA launches are tests/test_torch_cuda_kernels.py's)."""
+    """Flash attention, the grouped matmuls and the weight-only matmul take
+    their plain versions only for a CPU tensor: a tensor on any other
+    device launches a kernel or raises, forward and backward alike (checked
+    through the dispatch on the device type; the CUDA launches are
+    tests/test_torch_cuda_kernels.py's)."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     meta = torch.empty((1, 4, 2, 64), device="meta")
     with pytest.raises(NotImplementedError, match="flash"):
@@ -130,6 +131,20 @@ def test_cuda_only_paths_refuse_cpu_fallback():
     for call in (lambda: gm.gmm(x, w, tg, bm=8),
                  lambda: gm.gmm(x, w, tg, bm=8, trans_rhs=True),
                  lambda: gm.tgmm(x, x, tg, 2, bm=8)):
+        with pytest.raises(ValueError, match="device"):
+            call()
+    # the weight-only matmul and the linear over it, int8 and int4
+    from paddle_tpu_torch.kernels import weight_only as wo
+    from paddle_tpu_torch.quantization import weight_only_linear
+    xq = torch.empty((4, 64), device="meta")
+    q8 = torch.empty((64, 32), dtype=torch.int8, device="meta")
+    q4 = torch.empty((32, 32), dtype=torch.int8, device="meta")
+    s = torch.empty((32,), device="meta")
+    for call in (lambda: wo.weight_only_matmul(xq, q8, s),
+                 lambda: wo.weight_only_matmul(xq, q4, s, int4_rows=64),
+                 lambda: weight_only_linear(xq, q8, weight_scale=s),
+                 lambda: weight_only_linear(xq, q4, weight_scale=s,
+                                            weight_dtype="int4")):
         with pytest.raises(ValueError, match="device"):
             call()
 
