@@ -48,6 +48,25 @@ is caught; there is no ``ok`` line unless every phase passed):
    RMS; then CUDA-event times at the training shape: each kernel, its plain
    version, its operations bound, and ``scaled_dot_product_attention``
    forward, backward and forward + backward as the yardstick.
+8b. ``kernel_flash_modes`` — the three flash kernels in every mode
+    against their plain versions: an additive mask (one head plane or one
+    per head, causal or not), segment ids (causal with equal packings; not
+    causal with different ones and an empty key segment), dropout 0.1 and
+    0.5 (causal or not), mask and dropout together; each in fp32 and bf16,
+    GQA groups 1/4, d 64/96/128/256, b 2, sq 136 / sk 200 (lengths off the
+    64-row tile); the forward's keep-mask read off its output (q = 0, v =
+    I) and held bit for bit against the plain ``_drop_keep_dense``; then,
+    at llama2_7b attention widths (b 4, s 2048, 32 heads, d 128, bf16), the
+    ``mask`` (fp32 [4, 1, 2048, 2048], full), ``dropout`` (0.1, causal,
+    ``nn.functional.flash_attention``) and ``varlen`` (one causal packing of
+    8192 tokens through ``nn.functional.flash_attn_varlen_qkvpacked``)
+    configurations: forward and backward through the public entry point
+    (exactly one launch of each kernel), each kernel against its plain
+    version, CUDA-event times beside the plain version, the operations
+    bound and ``scaled_dot_product_attention`` (with the mask in bf16; over
+    the block-diagonal causal mask; with dropout as a cost reference only);
+    then the port's ``nn.functional.scaled_dot_product_attention`` on the
+    card against the CPU (fp32, bool and additive masks, causal, dropout).
 9. ``train_parity`` — ``PretrainStep`` on the card (kernels) against the
    same step on the CPU (plain versions) from one ``restore_canonical``
    state: a 2-layer fp32 model at llama2_7b widths, B=2, T=256, remat and
@@ -158,6 +177,36 @@ FLASH_LSE_ATOL = 1e-4                    # lse is fp32 in both dtypes
 FLASH_SHAPES = [(1, 128, 128), (2, 512, 512), (4, 2048, 2048),
                 (3, 192, 640), (2, 100, 300)]
 FLASH_TIMED = dict(b=4, s=2048, h=32, d=128)
+# kernel_flash_modes: the mode matrix (name, causal, mask heads (0, 1 or
+# "hq"), segments, dropout rate), its shape (b 2, sq 136, sk 200: lengths
+# off the 64-row tile; 4 q-heads) and head dims; the segment packings
+# (per batch row: q lengths, k lengths; "empty": a k segment of none, so
+# its queries have no live key); the dropout seed; the keep-mask check
+# (b, rows, heads, d = sk) and its rates; the varlen configuration's
+# packing (timed at FLASH_TIMED's widths)
+FLASH_MODE_CASES = (
+    ("mask_h1_full", False, 1, None, 0.0),
+    ("mask_h1_causal", True, 1, None, 0.0),
+    ("mask_hq_full", False, "hq", None, 0.0),
+    ("mask_hq_causal", True, "hq", None, 0.0),
+    ("seg_causal", True, 0, "equal", 0.0),
+    ("seg_full_empty_k", False, 0, "empty", 0.0),
+    ("drop0.1_full", False, 0, None, 0.1),
+    ("drop0.1_causal", True, 0, None, 0.1),
+    ("drop0.5_full", False, 0, None, 0.5),
+    ("drop0.5_causal", True, 0, None, 0.5),
+    ("mask_drop0.1_causal", True, 1, None, 0.1),
+)
+FLASH_MODES_SHAPE = dict(b=2, sq=136, sk=200, hq=4)
+FLASH_MODES_DIMS = (64, 96, 128, 256)
+FLASH_MODE_SEGMENTS = {
+    "equal": ([(50, 70, 80), (136, 64)], [(50, 70, 80), (136, 64)]),
+    "empty": ([(60, 40, 100), (100, 100)], [(90, 0, 110), (150, 50)]),
+}
+FLASH_MODE_SEED = (1 << 23) - 1
+FLASH_KEEP_CHECK = dict(b=2, s=2048, h=4, d=256)
+FLASH_KEEP_RATES = (0.1, 0.5)
+FLASH_VARLEN_LENS = (512, 1024, 1536, 2048, 3072)
 PARITY = dict(preset="llama2_7b", layers=2, batch=2, seq=256, steps=3)
 # share of parameters further apart than 1e-6 after the parity steps:
 # 8.4e-5 measured on an H100 80GB HBM3, with 6x room
@@ -223,6 +272,14 @@ def cuda_ms(fn, iters: int) -> float:
 
 # ------------------------------------------------------------ device ---
 
+def _nvidia_smi() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
 def phase_device():
     import torch
     if not torch.cuda.is_available():
@@ -232,10 +289,7 @@ def phase_device():
     if cap != (9, 0):
         raise SystemExit(f"chip_smoke: needs compute capability (9, 0), "
                          f"found {cap}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = _nvidia_smi()
     print(smi, flush=True)
     name = torch.cuda.get_device_name(0)
     # fp32 references must be full fp32 on the card
@@ -919,19 +973,25 @@ def _causal_pairs(sq, sk, causal):
     return sum(min(sk, i + 1 + sk - sq) for i in range(sq))
 
 
-def _flash_bound_ms(which, b, sq, sk, hq, hkv, d, causal, itemsize):
+def _flash_bound_ms(which, b, sq, sk, hq, hkv, d, causal, itemsize,
+                    pairs=None, extra_bytes=0):
     """Least time of one flash kernel: the larger of bytes / HBM rate (each
-    input read once, each output written once) and its matmul operations
-    over the live (query, key) pairs / the bf16 or fp32 peak.  forward: 2
-    matmuls (q k^T, p v); dQ: 3 (q k^T, dO v^T, ds k); dK/dV: 4 (q k^T,
-    dO v^T, p^T dO, ds^T q)."""
+    input read once, each output written once, plus ``extra_bytes``: a
+    mask, segment ids) and its matmul operations over the live (query, key)
+    pairs / the bf16 or fp32 peak.  ``pairs``: the live pairs of one batch
+    row and head where they are not the causal or full count (segments).
+    forward: 2 matmuls (q k^T, p v); dQ: 3 (q k^T, dO v^T, ds k); dK/dV: 4
+    (q k^T, dO v^T, p^T dO, ds^T q)."""
     q_bytes = b * sq * hq * d * itemsize
     kv_bytes = b * sk * hkv * d * itemsize
     rows = b * hq * sq * 4                       # one fp32 per query row
     nbytes, mm = {"fwd": (q_bytes + 2 * kv_bytes + q_bytes + rows, 2),
                   "dq": (3 * q_bytes + 2 * kv_bytes + 2 * rows, 3),
                   "dkv": (2 * q_bytes + 4 * kv_bytes + 2 * rows, 4)}[which]
-    flops = mm * 2 * b * hq * d * _causal_pairs(sq, sk, causal)
+    nbytes += extra_bytes
+    if pairs is None:
+        pairs = _causal_pairs(sq, sk, causal)
+    flops = mm * 2 * b * hq * d * pairs
     from paddle_tpu_torch import HBM_BYTES_PER_S, PEAK_FLOPS
     peak = PEAK_FLOPS["bfloat16" if itemsize == 2 else "float32"]
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
@@ -985,20 +1045,36 @@ def _flash_checks(tol, got, want):
             for k, g, w in zip(keys, got, want)}
 
 
-def _flash_compare(q, k, v, g, causal, tol):
-    """Each kernel against its plain version on the same inputs: the
-    forward on q, k, v; dQ and dK/dV (through ``flash_backward``) on the
-    plain forward's out and lse, so the forward's bf16 rounding of out
-    does not reach the backward's inputs through delta = rowsum(dO * out).
-    Checks of (out, lse, dq, dk, dv)."""
+def _flash_compare(q, k, v, g, causal, tol, **modes):
+    """Each kernel against its plain version on the same inputs (and the
+    same ``modes``: mask, seg_q/seg_k, drop_p/seed): the forward on q, k,
+    v; dQ and dK/dV (through ``flash_backward``) on the plain forward's out
+    and lse, so the forward's bf16 rounding of out does not reach the
+    backward's inputs through delta = rowsum(dO * out).  Checks of (out,
+    lse, dq, dk, dv)."""
     from paddle_tpu_torch.kernels import flash_attention as fa
-    out, lse = fa._reference_attention_lse(q, k, v, causal)
+    out, lse = fa._reference_attention_lse(q, k, v, causal, **modes)
     delta = fa._delta(out, g)
-    want = (out, lse, fa._flash_bwd_dq(q, k, v, g, lse, delta, causal)) + \
-        tuple(fa._flash_bwd_dkv(q, k, v, g, lse, delta, causal))
-    got = tuple(fa.flash_forward(q, k, v, causal)) + \
-        tuple(fa.flash_backward(q, k, v, out, lse, g, causal))
+    want = (out, lse,
+            fa._flash_bwd_dq(q, k, v, g, lse, delta, causal, **modes)) + \
+        tuple(fa._flash_bwd_dkv(q, k, v, g, lse, delta, causal, **modes))
+    del delta
+    got = tuple(fa.flash_forward(q, k, v, causal, **modes)) + \
+        tuple(fa.flash_backward(q, k, v, out, lse, g, causal, **modes))
     return _flash_checks(tol, got, want)
+
+
+def _flash_worst(cases):
+    """Per dtype and output, the worst value of each check statistic over
+    ``cases`` ((dtype, label, checks) each), with the case's label."""
+    summary = {}              # dtype -> output -> stat -> (worst, case)
+    for dname, label, checks in cases:
+        for key, c in checks.items():
+            by_stat = summary.setdefault(dname, {}).setdefault(key, {})
+            for stat, val in c.items():
+                if stat != "ok" and val > by_stat.get(stat, (-1.0,))[0]:
+                    by_stat[stat] = (val, label)
+    return summary
 
 
 def phase_kernel_flash():
@@ -1027,15 +1103,8 @@ def phase_kernel_flash():
     timing, train_checks = _flash_timing(gen)
     failed += [f"training shape {k}: {c}" for k, c in train_checks.items()
                if not c["ok"]]
-    summary = {}              # dtype -> output -> stat -> (worst, case)
-    for dname, label, checks in cases:
-        for key, c in checks.items():
-            by_stat = summary.setdefault(dname, {}).setdefault(key, {})
-            for stat, val in c.items():
-                if stat != "ok" and val > by_stat.get(stat, (-1.0,))[0]:
-                    by_stat[stat] = (val, label)
     emit("kernel_flash", cases=len(cases), tol=FLASH_TOL,
-         lse_atol=FLASH_LSE_ATOL, worst=summary,
+         lse_atol=FLASH_LSE_ATOL, worst=_flash_worst(cases),
          training_shape_checks=train_checks, failed=failed, timing=timing)
     if failed:
         raise AssertionError(f"kernel_flash: {len(failed)} checks out of "
@@ -1108,6 +1177,316 @@ def _flash_timing(gen):
     del q, k, v, g, out, lse, delta, qh, kh, vh, gh, leaves, lib_out
     torch.cuda.empty_cache()
     return timing, checks
+
+
+# ------------------------------------------------- flash attention modes ---
+
+def _mode_mask(gen, shape, dev="cuda"):
+    """An additive fp32 mask: N(0, 0.5) scores with a tenth of the
+    positions at -1e30 (masked out)."""
+    import torch
+    x = torch.randn(shape, generator=gen, device=dev) * 0.5
+    drop = torch.rand(shape, generator=gen, device=dev) < 0.1
+    return x.masked_fill(drop, -1e30)
+
+
+def _segment_ids(lens_per_row, dev="cuda"):
+    """[b, sum(lens)] int32 segment ids, one packing per batch row."""
+    import torch
+    return torch.stack([
+        torch.repeat_interleave(torch.arange(len(lens), device=dev),
+                                torch.tensor(lens, device=dev))
+        for lens in lens_per_row]).to(torch.int32)
+
+
+def _flash_mode_case(gen, mode, dtype, hkv, d, dev="cuda"):
+    """(q, k, v, g, causal, modes) of one kernel_flash_modes case: the
+    matrix shape (b 2, sq 136 / sk 200, 4 q-heads; segments sq = sk =
+    200) with the mode's mask, segment ids or dropout."""
+    import torch
+    name, causal, mask_heads, segs, drop_p = mode
+    b, hq = FLASH_MODES_SHAPE["b"], FLASH_MODES_SHAPE["hq"]
+    sq, sk = FLASH_MODES_SHAPE["sq"], FLASH_MODES_SHAPE["sk"]
+    modes = {}
+    if segs:
+        qlens, klens = FLASH_MODE_SEGMENTS[segs]
+        sq, sk = sum(qlens[0]), sum(klens[0])
+        modes["seg_q"] = _segment_ids(qlens, dev)
+        modes["seg_k"] = _segment_ids(klens, dev)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    q, k, v, g = (rnd(b, sq, hq, d), rnd(b, sk, hkv, d), rnd(b, sk, hkv, d),
+                  rnd(b, sq, hq, d))
+    if mask_heads:
+        modes["mask"] = _mode_mask(gen, (b, hq if mask_heads == "hq" else 1,
+                                         sq, sk), dev)
+    if drop_p:
+        modes["drop_p"] = drop_p
+        modes["seed"] = torch.tensor([FLASH_MODE_SEED], dtype=torch.int32,
+                                     device=dev)
+    return q, k, v, g, causal, modes
+
+
+def _flash_keep_check(gen):
+    """The forward kernel's keep-mask read off its output: q = 0 and v the
+    identity (sk = d, fp32) give out[b, row, h, col] = keep * inv / sk
+    exactly, held bit for bit against ``_drop_keep_dense`` for each rate."""
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    b, s, h, d = (FLASH_KEEP_CHECK[x] for x in "bshd")
+    q = torch.zeros((b, s, h, d), device="cuda")
+    k = torch.randn((b, d, h, d), generator=gen, device="cuda")
+    v = torch.eye(d, device="cuda")[None, :, None, :].expand(
+        b, d, h, d).contiguous()
+    res = {}
+    for p in FLASH_KEEP_RATES:
+        seed = torch.tensor([FLASH_MODE_SEED], dtype=torch.int32,
+                            device="cuda")
+        out, _ = fa._cuda_fwd(q, k, v, False, drop_p=p, seed=seed)
+        kernel_keep = (out != 0).transpose(1, 2)          # [b, h, s, d]
+        want = fa._drop_keep_dense((b, h, s, d), seed, p)
+        inv = float(fa._drop_scale(p)) / d
+        kept = out.transpose(1, 2)[want]
+        res[str(p)] = {
+            "positions": want.numel(),
+            "mismatches": int((kernel_keep != want).sum()),
+            "kept_share": float(want.float().mean()),
+            "values_off": int((kept != inv).sum())}
+    return res
+
+
+def _varlen_pairs(lens):
+    """Live (query, key) pairs of one head of a causal packing."""
+    return sum(n * (n + 1) // 2 for n in lens)
+
+
+def _flash_mode_timing(gen, cfg):
+    """One configuration at llama2_7b attention widths (b 4, s 2048, 32
+    q-heads, d 128, bf16; varlen: one causal packing of 8192 tokens):
+    forward and backward through the public entry point with the launch
+    counts read just after; each kernel held against its plain version on
+    the same inputs; CUDA-event times of each kernel and its plain version
+    in turns (plain, kernel, kernel, plain), its bound, and the library
+    yardstick.  Returns (timing, checks, launches)."""
+    import torch
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    F = tnn.functional
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bf16 = torch.bfloat16
+    b, s, h, d = (FLASH_TIMED[x] for x in "bshd")
+    pairs, extra = None, 0
+    if cfg == "varlen":
+        lens = FLASH_VARLEN_LENS
+        total = sum(lens)
+        cu = torch.tensor((0,) + tuple(
+            sum(lens[:i + 1]) for i in range(len(lens))), dtype=torch.int32,
+            device="cuda")
+        qkv = torch.randn((total, 3, h, d), generator=gen, device="cuda").to(
+            bf16)
+        q, k, v = (qkv[:, i][None].contiguous() for i in range(3))
+        g = torch.randn((1, total, h, d), generator=gen, device="cuda").to(
+            bf16)
+        seg = fa._segments_from_cu(cu, total)[0][None].to(torch.int32)
+        causal, modes = True, dict(seg_q=seg, seg_k=seg)
+        b, s = 1, total
+        pairs, extra = _varlen_pairs(lens), 2 * total * 4
+        leaf = qkv.clone().requires_grad_()
+
+        def entry():
+            return F.flash_attn_varlen_qkvpacked(leaf, cu, cu,
+                                                 causal=True)[0][None]
+        same = seg[0][:, None] == seg[0][None, :]
+        lib_mask = same & torch.ones_like(same).tril()
+    else:
+        q, k, v, g = _flash_case(gen, bf16, b, s, s, h, h, d)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        if cfg == "mask":
+            mask = _mode_mask(gen, (b, 1, s, s))
+            causal, modes, extra = False, dict(mask=mask), mask.numel() * 4
+            lib_mask = mask.to(bf16)
+
+            def entry():
+                return fa.flash_attention(*leaves, causal=False,
+                                          attn_mask=mask)
+        else:
+            seed = torch.randint(0, 1 << 23, (1,), generator=gen,
+                                 device="cuda", dtype=torch.int32)
+            causal, modes = True, dict(drop_p=0.1, seed=seed)
+            lib_mask = None
+
+            def entry():
+                return F.flash_attention(*leaves, dropout=0.1,
+                                         causal=True)[0]
+    checks = _flash_compare(q, k, v, g, causal, FLASH_TOL["bfloat16"],
+                            **modes)
+    torch.cuda.empty_cache()
+    _reset_flash_counts()
+    entry().backward(g)
+    torch.cuda.synchronize()
+    launches = _flash_counts()
+    out, lse = fa.flash_forward(q, k, v, causal, **modes)
+    delta = fa._delta(out, g)
+    calls = {
+        "fwd": (lambda: fa._cuda_fwd(q, k, v, causal, **modes),
+                lambda: fa._reference_attention_lse(q, k, v, causal,
+                                                    **modes)),
+        "dq": (lambda: fa._cuda_bwd_dq(q, k, v, g, lse, delta, causal,
+                                       **modes),
+               lambda: fa._flash_bwd_dq(q, k, v, g, lse, delta, causal,
+                                        **modes)),
+        "dkv": (lambda: fa._cuda_bwd_dkv(q, k, v, g, lse, delta, causal,
+                                         **modes),
+                lambda: fa._flash_bwd_dkv(q, k, v, g, lse, delta, causal,
+                                          **modes)),
+    }
+    timing = {"shape": f"b={b} s={s} hq=hkv={h} d={d} bf16 "
+                       f"{'causal' if causal else 'full'} {cfg}"}
+    for which, (kernel, plain) in calls.items():
+        t = {}
+        for key, fn in (("plain", plain), ("kernel", kernel),
+                        ("kernel2", kernel), ("plain2", plain)):
+            t[key] = cuda_ms(fn, 2 if key.startswith("plain") else 5)
+            torch.cuda.empty_cache()
+        b_ms, b_by = _flash_bound_ms(which, b, s, s, h, h, d, causal, 2,
+                                     pairs=pairs, extra_bytes=extra)
+        timing[which] = {"kernel_ms": min(t["kernel"], t["kernel2"]),
+                         "kernel_ms_runs": [t["kernel"], t["kernel2"]],
+                         "plain_ms": min(t["plain"], t["plain2"]),
+                         "plain_ms_runs": [t["plain"], t["plain2"]],
+                         "bound_ms": b_ms, "bound_by": b_by}
+    # the library yardstick (and, for dropout, a cost reference only: no
+    # PyTorch call draws this keep-mask)
+    qh, kh, vh, gh = (x.transpose(1, 2).contiguous() for x in (q, k, v, g))
+    lib_leaves = [x.clone().requires_grad_() for x in (qh, kh, vh)]
+    lib_kw = dict(attn_mask=lib_mask) if lib_mask is not None else \
+        dict(is_causal=True, dropout_p=0.1)
+    lib_out = sdpa(*lib_leaves, **lib_kw)
+    if lib_mask is not None:
+        checks["library_out"] = _flash_check(
+            lib_out.detach().transpose(1, 2), out, FLASH_TOL["bfloat16"])
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_out, lib_leaves, gh, retain_graph=True)
+
+    lib = {"call": "scaled_dot_product_attention " + (
+        "attn_mask (bf16)" if cfg == "mask" else
+        "block-diagonal causal bool mask" if cfg == "varlen" else
+        "dropout_p=0.1, is_causal (cost reference only)"),
+        "fwd_ms": cuda_ms(lambda: sdpa(qh, kh, vh, **lib_kw), 5),
+        "bwd_ms": cuda_ms(lib_bwd, 5)}
+    timing["sdpa"] = lib
+    timing["sum"] = {
+        key: sum(timing[w][key] for w in ("fwd", "dq", "dkv"))
+        for key in ("kernel_ms", "plain_ms", "bound_ms")}
+    timing["sum"]["library_ms"] = None if cfg == "dropout" else \
+        lib["fwd_ms"] + lib["bwd_ms"]
+    del q, k, v, g, out, lse, delta, qh, kh, vh, gh, lib_leaves, lib_out
+    del lib_mask, modes, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    return timing, checks, launches
+
+
+def _sdpa_card_vs_cpu(gen):
+    """The port's nn.functional.scaled_dot_product_attention (plain PyTorch,
+    no kernel) on the card against the CPU, fp32, b 1, s 1024, 32 heads,
+    d 128: bool mask, additive mask, causal, and dropout with one seed fed
+    to both devices."""
+    import torch
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    F = tnn.functional
+    shape = (1, 1024, 32, 128)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               for _ in range(3))
+    masks = {"bool_mask": dict(attn_mask=torch.rand(
+                 (1, 1, 1024, 1024), generator=gen, device="cuda") > 0.2),
+             "additive_mask": dict(attn_mask=_mode_mask(
+                 gen, (1, 32, 1024, 1024))),
+             "causal": dict(is_causal=True),
+             "dropout": dict(is_causal=True, dropout_p=0.1)}
+    draw = fa._draw_seed
+    fa._draw_seed = lambda device, generator=None: torch.tensor(
+        [FLASH_MODE_SEED], dtype=torch.int32, device=device)
+    try:
+        res = {}
+        for name, kw in masks.items():
+            got = F.scaled_dot_product_attention(q, k, v, **kw)
+            cpu_kw = {a: (x.cpu() if torch.is_tensor(x) else x)
+                      for a, x in kw.items()}
+            want = F.scaled_dot_product_attention(q.cpu(), k.cpu(), v.cpu(),
+                                                  **cpu_kw)
+            res[name] = _flash_check(got.cpu(), want, FLASH_TOL["float32"])
+    finally:
+        fa._draw_seed = draw
+    return res
+
+
+def phase_kernel_flash_modes(smi=None):
+    """The three flash kernels in every mode against their plain versions
+    over the mode matrix (mask with 1 or every head, causal or not;
+    segments, causal with equal packings and not with different ones and
+    an empty key segment; dropout 0.1 and 0.5, causal and not; mask and
+    dropout together) x fp32/bf16 x GQA groups 1/4 x d 64/96/128/256, at
+    lengths off the 64-row tile; the forward's keep-mask bit for bit; then
+    the mask, dropout and varlen configurations at llama2_7b attention
+    widths through the public entry points (exact launch counts, checks,
+    times beside the plain versions, bounds and SDPA); then the port's
+    scaled_dot_product_attention on the card against the CPU."""
+    import torch
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    hq = FLASH_MODES_SHAPE["hq"]
+    cases, failed = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        for mode in FLASH_MODE_CASES:
+            for hkv, d in ((hh, dd) for hh in (hq, hq // 4)
+                           for dd in FLASH_MODES_DIMS):
+                q, k, v, g, causal, modes = _flash_mode_case(
+                    gen, mode, dtype, hkv, d)
+                checks = _flash_compare(q, k, v, g, causal, FLASH_TOL[dname],
+                                        **modes)
+                label = f"{mode[0]} group{hq // hkv} d{d} {dname}"
+                cases.append((dname, label, checks))
+                failed += [f"{label} {key}: {c}" for key, c in checks.items()
+                           if not c["ok"]]
+        torch.cuda.empty_cache()
+    matrix_s = time.perf_counter() - t0
+    keep = _flash_keep_check(gen)
+    failed += [f"keep-mask p={p}: {r}" for p, r in keep.items()
+               if r["mismatches"] or r["values_off"]]
+    timed, launches = {}, {}
+    for cfg in ("mask", "dropout", "varlen"):
+        timing, checks, counts = _flash_mode_timing(gen, cfg)
+        timed[cfg] = dict(timing, checks=checks)
+        launches[cfg] = counts
+        failed += [f"{cfg} at llama2_7b widths {key}: {c}"
+                   for key, c in checks.items() if not c["ok"]]
+        if counts != {"fwd": 1, "dq": 1, "dkv": 1}:
+            failed.append(f"{cfg}: launches {counts}, expected one of each "
+                          f"kernel")
+    sdpa = _sdpa_card_vs_cpu(gen)
+    failed += [f"nn.functional sdpa {k}: {c}" for k, c in sdpa.items()
+               if not c["ok"]]
+    emit("kernel_flash_modes", nvidia_smi=smi or _nvidia_smi(),
+         cases=len(cases), matrix_seconds=matrix_s, tol=FLASH_TOL,
+         lse_atol=FLASH_LSE_ATOL, worst=_flash_worst(cases), keep_mask=keep,
+         launches=launches, timed=timed, sdpa_card_vs_cpu=sdpa,
+         failed=failed, seconds=time.perf_counter() - t0)
+    if failed:
+        raise AssertionError(f"kernel_flash_modes: {len(failed)} checks "
+                             f"failed: {failed[:8]}")
+    err = max(c[key]["max_abs_err"] for _, _, c in cases
+              for key in ("out", "dq", "dk", "dv"))
+    return {cfg: dict(timed[cfg]["sum"], launches=sum(launches[cfg].values()),
+                      max_abs_err=max(err, *(
+                          timed[cfg]["checks"][key]["max_abs_err"]
+                          for key in ("out", "dq", "dk", "dv"))))
+            for cfg in timed}
 
 
 # ------------------------------------------------------------- train ---
@@ -2241,6 +2620,7 @@ def main() -> int:
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     decode = gmm_t[0]              # the gmm line: the decode gate/up shape
     flash_err, flash_t = phase_kernel_flash()
+    flash_modes = phase_kernel_flash_modes(_smi)
     phase_train_parity()
     flash_launches = phase_train()
     moe_err, moe_t, moe_mix = phase_kernel_tgmm()
@@ -2278,6 +2658,13 @@ def main() -> int:
          "library_ms": flash_t[key]["library_ms"]}
         for nm, key in (("fwd", "fwd"), ("bwd_dq", "dq"),
                         ("bwd_dkv", "dkv"))] + [
+        {"name": f"flash_attention_{cfg}", "route": "cuda",
+         "source": FLASH_SOURCE, "replaces": FLASH_REPLACES["fwd"],
+         "launches": m["launches"], "max_abs_err": m["max_abs_err"],
+         "ms": m["kernel_ms"], "plain_ms": m["plain_ms"],
+         "bound_ms": m["bound_ms"], "bound_by": "operations",
+         "library_ms": m["library_ms"]}
+        for cfg, m in flash_modes.items()] + [
         {"name": nm, "route": "cuda", "source": GMM_SOURCE,
          "replaces": replaces, "launches": moe_launches[key],
          "max_abs_err": moe_err[kind], "ms": moe_mix[kind]["kernel_ms"],

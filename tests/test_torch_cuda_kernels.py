@@ -370,30 +370,119 @@ def test_flash_kernels_vs_plain_on_card(h100, dtype, b, sq, sk, hq, hkv, d,
 
 @pytest.mark.cuda
 def test_flash_attention_cuda_only_modes_raise_on_card(h100):
-    """The additive mask (plain version only), dropout and head dims other
-    than 64/128 raise on CUDA tensors; nothing falls back to the plain
-    version."""
+    """What the kernels do not take raises on CUDA tensors (d 72, a causal
+    call with sq > sk, a mask of the wrong shape, float segment ids,
+    dropout without a seed) and nothing falls back to the plain version;
+    the mask and dropout modes launch the kernels through the autograd
+    Function, and the mask gets no gradient."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     q, k, v, _ = _flash_inputs(h100, torch.bfloat16, b=1, sq=64, sk=64,
                                hq=2, hkv=2, d=64, seed=0)
-    mask = torch.zeros((1, 1, 64, 64), device=h100)
     n0 = fa.LAUNCHES_FWD
-    with pytest.raises(NotImplementedError, match="attn_mask"):
-        fa.flash_attention(q, k, v, causal=True, attn_mask=mask)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        fa.flash_attention(q, k, v, dropout=0.1)
-    q96 = torch.zeros((1, 64, 2, 96), device=h100, dtype=torch.bfloat16)
+    q72 = torch.zeros((1, 64, 2, 72), device=h100, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_attention(q96, q96, q96, causal=True)
+        fa.flash_attention(q72, q72, q72, causal=True)
     with pytest.raises(ValueError, match="causal"):
         fa.flash_attention(q, k[:, :32], v[:, :32], causal=True)
+    with pytest.raises(ValueError, match="attn_mask"):
+        fa.flash_attention(q, k, v, attn_mask=torch.zeros((1, 1, 64, 32),
+                                                          device=h100))
+    seg = torch.zeros((1, 64), device=h100)
+    with pytest.raises(TypeError, match="seg_q"):
+        fa.flash_forward(q, k, v, False, seg_q=seg, seg_k=seg)
+    with pytest.raises(ValueError, match="seed"):
+        fa.flash_forward(q, k, v, False, drop_p=0.1)
     assert fa.LAUNCHES_FWD == n0
-    # the autograd Function runs the three kernels
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    fa.flash_attention(*leaves, causal=True).float().sum().backward()
+    mask = torch.zeros((1, 1, 64, 64), device=h100, requires_grad=True)
+    out = fa.flash_attention(*leaves, causal=True, attn_mask=mask,
+                             dropout=0.1)
+    out.float().sum().backward()
     assert fa.LAUNCHES_FWD == n0 + 1
+    assert mask.grad is None or not bool(mask.grad.any())
     assert all(x.grad is not None and torch.isfinite(x.grad.float()).all()
                for x in leaves)
+
+
+def _flash_mode_inputs(h100, mode, dtype, hkv, d):
+    """(q, k, v, g, causal, modes): b 2, sq 136 / sk 200 (segments 200 /
+    200), 4 q-heads, with the mode's mask, segment ids or dropout."""
+    gen = torch.Generator(device=h100).manual_seed(d + hkv)
+    b, hq, sq, sk = 2, 4, 136, 200
+    causal, modes = mode.endswith("causal"), {}
+    if mode.startswith("seg"):
+        sq = 200
+        qlens = [(50, 70, 80), (136, 64)] if causal else [(60, 40, 100),
+                                                           (100, 100)]
+        klens = qlens if causal else [(90, 0, 110), (150, 50)]
+        modes = {name: torch.stack([
+            torch.repeat_interleave(torch.arange(3, device=h100)[:len(ln)],
+                                    torch.tensor(ln, device=h100))
+            for ln in lens]).to(torch.int32)
+            for name, lens in (("seg_q", qlens), ("seg_k", klens))}
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=h100).to(dtype)
+
+    q, k, v, g = (rnd(b, sq, hq, d), rnd(b, sk, hkv, d), rnd(b, sk, hkv, d),
+                  rnd(b, sq, hq, d))
+    if mode.startswith("mask"):
+        mh = hq if mode == "mask_hq" else 1
+        x = torch.randn((b, mh, sq, sk), generator=gen, device=h100) * 0.5
+        modes["mask"] = x.masked_fill(
+            torch.rand(x.shape, generator=gen, device=h100) < 0.1, -1e30)
+    if "drop" in mode:
+        modes["drop_p"] = 0.5 if mode == "drop_full" else 0.1
+        modes["seed"] = torch.tensor([7], dtype=torch.int32, device=h100)
+    return q, k, v, g, causal, modes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["mask_h1", "mask_hq", "mask_causal",
+                                  "seg_causal", "seg_full_empty",
+                                  "drop_full", "drop_causal",
+                                  "mask_drop_causal"])
+@pytest.mark.parametrize("hkv,d", [(4, 64), (1, 96), (4, 128), (1, 256)])
+def test_flash_modes_vs_plain_on_card(h100, dtype, mode, hkv, d):
+    """Every mode's forward (out, lse), dQ and dK/dV against the plain
+    versions on the same inputs, as chip_smoke.py's kernel_flash_modes
+    holds them (tolerances in the module docstring)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    q, k, v, g, causal, modes = _flash_mode_inputs(h100, mode, dtype, hkv, d)
+    n0 = (fa.LAUNCHES_FWD, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV)
+    ref, ref_lse = fa._reference_attention_lse(q, k, v, causal, **modes)
+    out, lse = fa.flash_forward(q, k, v, causal, **modes)
+    dq, dk, dv = fa.flash_backward(q, k, v, ref, ref_lse, g, causal, **modes)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES_FWD, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV) == \
+        (n0[0] + 1, n0[1] + 1, n0[2] + 1)
+    tol = FLASH_TOL[dtype]
+    _assert_flash_close(out, ref, **tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
+    delta = fa._delta(ref, g)
+    want = (fa._flash_bwd_dq(q, k, v, g, ref_lse, delta, causal, **modes),
+            *fa._flash_bwd_dkv(q, k, v, g, ref_lse, delta, causal, **modes))
+    for got, ref_grad in zip((dq, dk, dv), want):
+        assert got.dtype == dtype and got.shape == ref_grad.shape
+        _assert_flash_close(got, ref_grad, **tol)
+
+
+@pytest.mark.cuda
+def test_flash_forward_keep_mask_is_the_plain_one_on_card(h100):
+    """q = 0 and v = I (sk = d, fp32): the forward's output is keep * inv /
+    sk exactly, so the kernel's keep-mask reads off it; it equals
+    _drop_keep_dense bit for bit."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    b, s, h, d = 2, 300, 2, 256
+    q = torch.zeros((b, s, h, d), device=h100)
+    k = torch.randn((b, d, h, d), device=h100)
+    v = torch.eye(d, device=h100)[None, :, None, :].expand(b, d, h, d)
+    seed = torch.tensor([(1 << 23) - 1], dtype=torch.int32, device=h100)
+    out, _ = fa.flash_forward(q, k, v.contiguous(), False, drop_p=0.3,
+                              seed=seed)
+    want = fa._drop_keep_dense((b, h, s, d), seed, 0.3)
+    assert torch.equal((out != 0).transpose(1, 2), want)
 
 
 def _wo_close(out, ref):

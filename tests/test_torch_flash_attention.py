@@ -102,19 +102,27 @@ def test_autograd_function_backward_matches_autograd_of_plain_forward(causal):
         torch.testing.assert_close(a, b, **TOL)
 
 
-def test_mask_runs_on_the_plain_version_and_dropout_raises():
+def test_mask_and_dropout_run_through_the_autograd_function():
+    """A masked call and a dropout call both go through _FlashAttention
+    (no plain autograd): the mask output equals the reference's, dropout
+    runs and is off outside training, as in the reference."""
     q, k, v, _ = _inputs(3, 1, 32, 32, 2, 2, 16)
     mask = np.random.default_rng(4).standard_normal((1, 1, 32, 32)).astype(
         np.float32)
     want = jfa._reference_attention(jnp.asarray(q), jnp.asarray(k),
                                     jnp.asarray(v), True,
                                     mask=jnp.asarray(mask))
-    got = fa.flash_attention(*_t(q, k, v), causal=True,
+    leaves = [x.requires_grad_() for x in _t(q, k, v)]
+    got = fa.flash_attention(*leaves, causal=True,
                              attn_mask=torch.from_numpy(mask))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        fa.flash_attention(*_t(q, k, v), dropout=0.1)
+    assert type(got.grad_fn).__name__ == "_FlashAttentionBackward"
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    dropped = fa.flash_attention(*leaves, dropout=0.1,
+                                 generator=torch.Generator().manual_seed(0))
+    assert type(dropped.grad_fn).__name__ == "_FlashAttentionBackward"
+    full = fa._reference_attention(*_t(q, k, v), False)
+    assert bool(torch.isfinite(dropped).all())
+    assert not torch.allclose(dropped.detach(), full)
     # dropout is off outside training, as in the reference
     torch.testing.assert_close(
-        fa.flash_attention(*_t(q, k, v), dropout=0.1, training=False),
-        fa._reference_attention(*_t(q, k, v), False))
+        fa.flash_attention(*_t(q, k, v), dropout=0.1, training=False), full)

@@ -149,6 +149,55 @@ def test_cuda_only_paths_refuse_cpu_fallback():
             call()
 
 
+def test_importing_nn_functional_loads_no_jax():
+    code = ("import paddle_tpu_torch.nn, paddle_tpu_torch.nn.functional, sys; "
+            "assert 'jax' not in sys.modules; "
+            "assert 'paddle_tpu' not in sys.modules")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_flash_modes_refuse_cpu_fallback(monkeypatch):
+    """Masked, dropout and varlen calls (and nn.functional's flash ops) on a
+    tensor that is neither on the CPU nor on a card raise, and never reach
+    a plain version."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    reached = []
+
+    def plain(*args, **kw):
+        reached.append(args)
+        raise AssertionError("the plain version ran")
+
+    for name in ("_reference_attention_lse", "_flash_bwd_dq",
+                 "_flash_bwd_dkv"):
+        monkeypatch.setattr(fa, name, plain)
+    x = torch.empty((1, 64, 2, 64), device="meta")
+    mask = torch.empty((1, 1, 64, 64), device="meta")
+    cu = torch.tensor([0, 30, 64], dtype=torch.int32, device="meta")
+    lse = torch.empty((1, 2, 64), device="meta")
+    seed = torch.zeros((1,), dtype=torch.int32, device="meta")
+    F = nn.functional
+    for call in (
+            lambda: fa.flash_attention(x, x, x, causal=True, attn_mask=mask),
+            lambda: fa.flash_attention(x, x, x, dropout=0.1),
+            lambda: fa.flash_attention(x, x, x, attn_mask=mask, dropout=0.5),
+            lambda: fa.flash_attn_varlen(x[0], x[0], x[0], cu, cu),
+            lambda: fa.flash_backward(x, x, x, x, lse, x, False, mask=mask,
+                                      drop_p=0.1, seed=seed),
+            lambda: F.flash_attention(x, x, x, dropout=0.1, causal=True),
+            lambda: F.flash_attn_qkvpacked(torch.stack([x, x, x], 2)),
+            lambda: F.flash_attn_varlen_qkvpacked(
+                torch.stack([x[0]] * 3, 1), cu, cu)):
+        with pytest.raises(NotImplementedError, match="flash"):
+            call()
+    # the causal varlen's eager packing check cannot read meta values
+    with pytest.raises(NotImplementedError):
+        fa.flash_attn_varlen(x[0], x[0], x[0], cu, cu, causal=True)
+    assert not reached
+
+
 def test_chip_smoke_fails_without_a_card(tmp_path):
     """No CPU fallback: without CUDA the script exits non-zero and prints
     no result; alone in a directory (no package) it cannot pass either."""
