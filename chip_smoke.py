@@ -11,7 +11,9 @@ is caught; there is no ``ok`` line unless every phase passed):
 1. ``device``  — requires CUDA and compute capability (9, 0); prints the
    card's ``nvidia-smi`` name and power limit.
 2. ``build``   — nvcc-builds every kernel under
-   ``paddle_tpu_torch/kernels/csrc`` (one nvcc per source, in parallel).
+   ``paddle_tpu_torch/kernels/csrc`` and the generated primitive builds
+   that ``kernel_primitives`` uses (one nvcc per source and per generated
+   header, all in parallel).
 3. ``kernel``  — the ragged paged-attention kernel (float pools) against
    its plain PyTorch version on the card over a case matrix (decode and
    mixed prefill/decode, GQA groups 1/4/8, fp32 and bf16, ragged and
@@ -125,7 +127,25 @@ is caught; there is no ``ok`` line unless every phase passed):
     plain version; ms per sweep against the bytes bound and against the
     same sweep through ``torch.matmul`` in bf16; peak memory; ``dx`` on the
     card against the CPU.
-16. the ``kernels`` line, then the last line
+16. ``kernel_primitives`` — the primitive library's generated kernels
+    (``kernels/primitives.py``: each caller's function compiled into
+    ``csrc/primitives.cu``) against their plain versions: elementwise
+    ``silu(a) * b``, ``max(a, 0) * 2`` and ``a * b + c`` (mixed
+    fp32/bf16/fp16 inputs) over 1, 37 x 19, 8 x 1024 and 1,000,003
+    elements, within one ulp of the output + 1e-6 x (|want| + max |want|);
+    reduce max/min/add, fp32/bf16/fp16, rows 1/100/8192, columns
+    1/19/300/4096/32000, bit for bit; matmul (1, 1, 1) up to llama2_7b's
+    gate and down projections, fp32/bf16/fp16 in, the output in x's dtype
+    and another, epilogues none/relu*2/silu, by PRIM_MM_TOL.  Then the
+    library's path at llama2_7b widths (an FFN over 8192 rows, the LM head,
+    the logits' row max, fp32 row sums, the gate with its silu fused), its
+    launches counted from 0: 5 matmuls, 1 elementwise, 2 reduces; then
+    CUDA-event times of SwiGLU [8192, 11008], row max [8192, 32000], fp32
+    row sum [8192, 4096] and the gate projection with and without the silu
+    epilogue, beside the plain versions, the bounds and ``torch.amax`` /
+    ``torch.matmul`` (cost references where no one call computes the same
+    function).
+17. the ``kernels`` line, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device.  Imports nothing
@@ -143,6 +163,7 @@ from __future__ import annotations
 import asyncio
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -248,6 +269,35 @@ WO_MODES = {"int8": "weight_only_int8", "int4": "weight_only_int4"}
 # per-channel scale repeated in every group of 256 rows, zero points 0
 WO_LIB_GROUP = 256
 WO_LIB_INNER_K_TILES = 8
+PRIM_SOURCE = "paddle_tpu_torch/kernels/csrc/primitives.cu"
+PRIM_REPLACES = {"elementwise": "paddle_tpu/kernels/primitives.py:71",
+                 "reduce": "paddle_tpu/kernels/primitives.py:102",
+                 "matmul": "paddle_tpu/kernels/primitives.py:130"}
+# kernel_primitives' matrix: elementwise sizes (flat element counts or
+# shapes); reduce rows and columns; matmul (M, K, N), the last two
+# llama2_7b's gate and down projections at B*T = 8192 rows
+PRIM_EW_SHAPES = ((1,), (37, 19), (8, 1024), (1_000_003,))
+PRIM_RED_ROWS = (1, 100, 8192)
+PRIM_RED_COLS = (1, 19, 300, 4096, 32000)
+PRIM_MM_SHAPES = ((1, 1, 1), (100, 70, 50), (16, 24, 8), (257, 4095, 129),
+                  (8192, 4096, 11008), (8192, 11008, 4096))
+# matmul kernel vs plain, by output dtype, as _flash_check reads it: fp32
+# sums in other orders (fp32 out); plus one rounding of the output, one ulp
+# relative (bf16 2^-7, fp16 2^-10).  The fp32 relative Frobenius limit
+# grows with k (_prim_mm_tol): sums of k terms in two orders, the tensor
+# cores' fp32 accumulation among them, differ by ~sqrt(k) fp32 ulps (bf16
+# in, fp32 out at k 11008 read 1.24e-5 on an H100 80GB HBM3)
+PRIM_MM_TOL = {"float32": dict(rel=1e-5, rtol=1e-4, atol=1e-4),
+               "bfloat16": dict(rel=1e-2, rtol=2.0 ** -7, atol=1e-4),
+               "float16": dict(rel=2e-3, rtol=2.0 ** -10, atol=1e-4)}
+# elementwise kernel vs plain: every element within one ulp of its output
+# dtype (0 for fp32) + 1e-6 x |want| + 1e-6 x max |want| (the functor in
+# fp32 on both sides; nvcc contracts a * b + c into one fma, expf rounds
+# apart from torch's exp by an fp32 ulp)
+PRIM_EW_TOL = 1e-6
+# llama2_7b widths of the timed calls and of the path: B*T rows, hidden,
+# FFN width, vocabulary
+PRIM_WIDTHS = dict(rows=8192, hidden=4096, ffn=11008, vocab=32000)
 
 
 def emit(phase: str, **kw) -> None:
@@ -306,7 +356,7 @@ def phase_device():
 def phase_build():
     from paddle_tpu_torch.kernels import _build
     t0 = time.perf_counter()
-    built = _build.build_all()
+    built = _build.build_all(generated=_prim_headers())
     emit("build", seconds=time.perf_counter() - t0,
          kernels={n: {"seconds": b["seconds"],
                       "ptxas": [ln for ln in b["log"].splitlines()
@@ -2600,6 +2650,412 @@ def phase_weight_only_path():
     return launches, sweeps
 
 
+# -------------------------------------------------------- primitives ---
+
+def _prim_fns():
+    """kernel_primitives' functions, each a KernelFn (torch + CUDA body):
+    elementwise name -> (fn, arity); reduce name -> fn; matmul epilogue
+    name -> fn (None: no epilogue)."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels.primitives import KernelFn
+    silu = "return a / (1.0f + expf(-a))"
+    return {
+        "elementwise": {
+            "silu_mul": (KernelFn(lambda a, b: F.silu(a) * b,
+                                  silu + " * b;"), 2),
+            "relu2": (KernelFn(lambda a: torch.clamp_min(a, 0) * 2.0,
+                               "return fmaxf(a, 0.0f) * 2.0f;"), 1),
+            "fma3": (KernelFn(lambda a, b, c: a * b + c,
+                              "return a * b + c;"), 3)},
+        "reduce": {"max": KernelFn(torch.maximum, "return fmaxf(a, b);"),
+                   "min": KernelFn(torch.minimum, "return fminf(a, b);"),
+                   "add": KernelFn(torch.add, "return a + b;")},
+        "matmul": {"none": None,
+                   "relu2": KernelFn(lambda a: torch.clamp_min(a, 0) * 2.0,
+                                     "return fmaxf(a, 0.0f) * 2.0f;"),
+                   "silu": KernelFn(F.silu, silu + ";")}}
+
+
+def _prim_headers():
+    """(source, header) of every generated build kernel_primitives uses, for
+    phase_build to start beside the other sources."""
+    from paddle_tpu_torch.kernels import primitives as P
+    fns = _prim_fns()
+    heads = [P.generated_header("elementwise", fn, arity)
+             for fn, arity in fns["elementwise"].values()]
+    heads += [P.generated_header("reduce", fn)
+              for fn in fns["reduce"].values()]
+    heads += [P.generated_header("matmul", fn or P._IDENTITY)
+              for fn in fns["matmul"].values()]
+    return [("primitives", h) for h in heads]
+
+
+def _prim_counts():
+    from paddle_tpu_torch.kernels import primitives as P
+    return {"elementwise": P.LAUNCHES_ELEMENTWISE,
+            "reduce": P.LAUNCHES_REDUCE, "matmul": P.LAUNCHES_MATMUL}
+
+
+def _reset_prim_counts():
+    from paddle_tpu_torch.kernels import primitives as P
+    P.LAUNCHES_ELEMENTWISE = P.LAUNCHES_REDUCE = P.LAUNCHES_MATMUL = 0
+
+
+def _ulp(want):
+    """One ulp of each element of ``want`` in its own dtype (0 for fp32)."""
+    import torch
+    if want.dtype == torch.float32:
+        return torch.zeros_like(want)
+    fi = torch.finfo(want.dtype)
+    mag = want.float().abs().clamp_min(fi.tiny)
+    return fi.eps * torch.exp2(torch.floor(torch.log2(mag)))
+
+
+def _ew_check(what, got, want):
+    """The elementwise kernel against its plain version (PRIM_EW_TOL).
+    Returns (max abs error, the largest share of its limit used); raises
+    past 1."""
+    import torch
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} vs "
+                             f"{want.dtype} {tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{what}: non-finite output")
+    err = (g - w).abs()
+    lim = _ulp(want) + PRIM_EW_TOL * (w.abs() + float(w.abs().max()))
+    need = float((err / lim.clamp_min(1e-38)).max())
+    if need > 1:
+        raise AssertionError(f"{what}: error {float(err.max())} is "
+                             f"{need:.3g} x its tolerance")
+    return float(err.max()), need
+
+
+def _bits_equal(a, b):
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    iview = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+             torch.float16: torch.int16}[a.dtype]
+    return torch.equal(a.view(iview), b.view(iview))
+
+
+def _ms_once(fn):
+    """Milliseconds of one call after one warm-up, CUDA events (for plain
+    versions that issue thousands of small ops)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def _prim_mm_tol(out_name, k):
+    """PRIM_MM_TOL for an output dtype and a sum over k terms: the fp32
+    relative limit is at least 4 sqrt(k) fp32 ulps."""
+    tol = dict(PRIM_MM_TOL[out_name])
+    if out_name == "float32":
+        tol["rel"] = max(tol["rel"], 4 * math.sqrt(k) * 2.0 ** -24)
+    return tol
+
+
+def _prim_matrix(gen):
+    """The three generators against their plain versions: elementwise (three
+    functions, arity 1/2/3, over PRIM_EW_SHAPES, fp32/bf16/fp16 and mixed
+    input dtypes), reduce (max/min/add x fp32/bf16/fp16 x PRIM_RED_ROWS x
+    PRIM_RED_COLS, bit for bit) and matmul (PRIM_MM_SHAPES x fp32/bf16/fp16
+    x out_dtype equal or not x epilogues none/relu2/silu).  Returns the
+    worst errors by generator."""
+    import torch
+    from paddle_tpu_torch.kernels import primitives as P
+    fns = _prim_fns()
+    dev = "cuda"
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    worst = {"elementwise": {"max_abs_err": 0.0, "need": 0.0, "cases": 0},
+             "reduce": {"max_abs_err": 0.0, "cases": 0, "mismatches": 0},
+             "matmul": {"max_abs_err": 0.0, "rel": 0.0, "need": {},
+                        "cases": 0}}
+
+    we = worst["elementwise"]
+    for name, (fn, arity) in fns["elementwise"].items():
+        if arity == 3:
+            mixes = [(f32, bf16, f16), (bf16, f16, f32), (f16, f32, bf16)]
+        else:
+            mixes = [(dt,) * arity for dt in (f32, bf16, f16)]
+        apply = P.elementwise_kernel(fn)
+        for shape in PRIM_EW_SHAPES:
+            for mix in mixes:
+                ins = [torch.randn(shape, generator=gen, device=dev).to(dt)
+                       for dt in mix]
+                got = apply(*ins)
+                want = P._elementwise_reference(fn, ins)
+                err, need = _ew_check(
+                    f"elementwise {name} {shape} {mix}", got, want)
+                we["max_abs_err"] = max(we["max_abs_err"], err)
+                we["need"] = max(we["need"], need)
+                we["cases"] += 1
+
+    wr = worst["reduce"]
+    for name, fn in fns["reduce"].items():
+        apply = P.reduce_kernel(fn, None)
+        for dt in (f32, bf16, f16):
+            for cols in PRIM_RED_COLS:
+                x = torch.randn((max(PRIM_RED_ROWS), cols), generator=gen,
+                                device=dev).to(dt)
+                want = P._reduce_reference(fn, x)   # rows fold apart
+                for rows in PRIM_RED_ROWS:
+                    got = apply(x[:rows])
+                    wr["cases"] += 1
+                    if not _bits_equal(got, want[:rows]):
+                        wr["mismatches"] += 1
+                        diff = (got.float() - want[:rows].float()).abs()
+                        raise AssertionError(
+                            f"reduce {name} {dt} rows {rows} cols {cols}: "
+                            f"not bit for bit (max abs err "
+                            f"{float(diff.max())})")
+                del x
+    wm = worst["matmul"]
+    for m, k, n in PRIM_MM_SHAPES:
+        for dt, other in ((f32, bf16), (bf16, f32), (f16, f32)):
+            x = torch.randn((m, k), generator=gen, device=dev).to(dt)
+            w = (torch.randn((k, n), generator=gen, device=dev) /
+                 math.sqrt(k)).to(dt)
+            acc = x.float() @ w.float()
+            for ename, efn in fns["matmul"].items():
+                pre = acc if efn is None else efn.torch(acc)
+                for odt in (dt, other):
+                    got = P.matmul_kernel(epilogue=efn, out_dtype=odt)(x, w)
+                    want = pre.to(odt)
+                    oname = str(odt).replace("torch.", "")
+                    c = _flash_check(got, want, _prim_mm_tol(oname, k))
+                    label = f"matmul {m}x{k}x{n} {dt}->{odt} {ename}"
+                    if not c["ok"] or got.dtype != odt:
+                        raise AssertionError(f"{label}: {c}")
+                    wm["max_abs_err"] = max(wm["max_abs_err"],
+                                            c["max_abs_err"])
+                    wm["rel"] = max(wm["rel"], c["rel"])
+                    wm["need"][oname] = max(wm["need"].get(oname, 0.0),
+                                            c["need"])
+                    wm["cases"] += 1
+            del x, w, acc, pre
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return worst
+
+
+def _prim_path(gen):
+    """The library's main path at llama2_7b widths, through the public
+    generators: the FFN of one layer (gate and up projections, silu(gate)
+    * up, the down projection) over B*T = 8192 rows of bf16, the LM head,
+    the row max of the logits, the fp32 row sums of the FFN output, and the
+    gate projection again with the silu fused as its epilogue.  Launch
+    counts are set to 0 just before and read just after: exactly 5
+    matmuls, 1 elementwise, 2 reduces.  Each output is then held against
+    its plain version on the same inputs."""
+    import torch
+    from paddle_tpu_torch.kernels import primitives as P
+    fns = _prim_fns()
+    R, H, I, V = (PRIM_WIDTHS[k] for k in ("rows", "hidden", "ffn", "vocab"))
+    bf16 = torch.bfloat16
+
+    def weight(k, n):
+        return (torch.randn((k, n), generator=gen, device="cuda") /
+                math.sqrt(k)).to(bf16)
+
+    x = torch.randn((R, H), generator=gen, device="cuda").to(bf16)
+    wg, wu, wd, wh = weight(H, I), weight(H, I), weight(I, H), weight(H, V)
+    mm = P.matmul_kernel()
+    mm_silu = P.matmul_kernel(epilogue=fns["matmul"]["silu"])
+    swiglu = P.elementwise_kernel(fns["elementwise"]["silu_mul"][0])
+    rmax = P.reduce_kernel(fns["reduce"]["max"], -math.inf)
+    radd = P.reduce_kernel(fns["reduce"]["add"], 0.0)
+    torch.cuda.synchronize()
+    _reset_prim_counts()
+    t0 = time.perf_counter()
+    gate, up = mm(x, wg), mm(x, wu)
+    h = swiglu(gate, up)
+    y = mm(h, wd)
+    logits = mm(y, wh)
+    row_max = rmax(logits)
+    yf = y.float()
+    row_sum = radd(yf)
+    gate_act = mm_silu(x, wg)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _prim_counts()
+    if launches != {"elementwise": 1, "reduce": 2, "matmul": 5}:
+        raise AssertionError(f"primitives path: launches {launches}")
+    tol = PRIM_MM_TOL["bfloat16"]
+    checks = {
+        "gate": _flash_check(gate, (x.float() @ wg.float()).to(bf16), tol),
+        "down": _flash_check(y, (h.float() @ wd.float()).to(bf16), tol),
+        "logits": _flash_check(logits, (y.float() @ wh.float()).to(bf16),
+                               tol),
+        "gate_silu": _flash_check(gate_act, torch.nn.functional.silu(
+            x.float() @ wg.float()).to(bf16), tol)}
+    bad = {k: c for k, c in checks.items() if not c["ok"]}
+    if bad:
+        raise AssertionError(f"primitives path: {bad}")
+    ew = _ew_check("primitives path silu_mul", h, P._elementwise_reference(
+        fns["elementwise"]["silu_mul"][0], [gate, up]))
+    if not _bits_equal(row_max, torch.amax(logits, -1)):
+        raise AssertionError("primitives path: the logits' row max is not "
+                             "torch.amax's")
+    if not _bits_equal(row_sum, P._reduce_reference(fns["reduce"]["add"],
+                                                    yf)):
+        raise AssertionError("primitives path: the row sums are not the "
+                             "plain fold's")
+    out = {"launches": launches, "seconds": seconds,
+           "checks": {k: {"rel": c["rel"], "need": c["need"],
+                          "max_abs_err": c["max_abs_err"]}
+                      for k, c in checks.items()},
+           "silu_mul": {"max_abs_err": ew[0], "need": ew[1]},
+           "logits_shape": list(logits.shape)}
+    del x, wg, wu, wd, wh, gate, up, h, y, logits, yf, gate_act
+    torch.cuda.empty_cache()
+    return out
+
+
+def _prim_timing(gen):
+    """CUDA-event times at llama2_7b widths, bf16 unless named: SwiGLU
+    silu(gate) * up over [8192, 11008]; the row max of the logits [8192,
+    32000]; the fp32 row sum of [8192, 4096]; the gate projection [8192,
+    4096] @ [4096, 11008] without and with the silu epilogue.  Each beside
+    its plain version, its bound and the one PyTorch call that computes the
+    same function (``torch.amax``, ``torch.matmul``) or, where there is none,
+    a cost reference (``F.silu(a) * b``; ``torch.sum``, another summation
+    order; ``torch.matmul`` then ``F.silu``).  Every input exceeds the 50 MB
+    L2 cache."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import primitives as P
+    fns = _prim_fns()
+    R, H, I, V = (PRIM_WIDTHS[k] for k in ("rows", "hidden", "ffn", "vocab"))
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = {}
+
+    def rec(key, shape, kernel, plain, bound, library=None, cost=None,
+            iters=20, plain_once=False, **extra):
+        t = {"plain": (_ms_once(plain) if plain_once else cuda_ms(plain, 3)),
+             "kernel": cuda_ms(kernel, iters)}
+        t["kernel2"] = cuda_ms(kernel, iters)
+        if library is not None:
+            t["library"] = cuda_ms(library, iters)
+        if cost is not None:
+            t["cost_reference"] = cuda_ms(cost, iters)
+        out[key] = {"shape": shape,
+                    "kernel_ms": min(t["kernel"], t["kernel2"]),
+                    "kernel_ms_runs": [t["kernel"], t["kernel2"]],
+                    "plain_ms": t["plain"], "bound_ms": bound[0],
+                    "bound_by": bound[1], "library_ms": t.get("library"),
+                    "cost_reference_ms": t.get("cost_reference"), **extra}
+
+    # SwiGLU: 5 fp32 operations an element (negate, exp, add, divide, multiply)
+    fn = fns["elementwise"]["silu_mul"][0]
+    sw = P.elementwise_kernel(fn)
+    a = torch.randn((R, I), generator=gen, device="cuda").to(bf16)
+    b = torch.randn((R, I), generator=gen, device="cuda").to(bf16)
+    y = sw(a, b)
+    err = _ew_check("timed silu_mul", y, P._elementwise_reference(fn, [a, b]))
+    rec("elementwise_silu_mul", f"[{R}, {I}] bf16", lambda: sw(a, b),
+        lambda: P._elementwise_reference(fn, [a, b]),
+        _grouped_bound_ms([a, b], y, 5 * y.numel(), f32),
+        cost=lambda: F.silu(a) * b, max_abs_err=err[0],
+        library_note="null: no single PyTorch call computes silu(a) * b; "
+                     "cost_reference_ms is F.silu(a) * b, two calls")
+    del a, b, y
+
+    # the logits' row max: one fp32 operation an element
+    fn = fns["reduce"]["max"]
+    rmax = P.reduce_kernel(fn, -math.inf)
+    x = torch.randn((R, V), generator=gen, device="cuda").to(bf16)
+    y = rmax(x)
+    if not _bits_equal(y, P._reduce_reference(fn, x)) or \
+            not _bits_equal(y, torch.amax(x, -1)):
+        raise AssertionError("timed reduce max: not bit for bit")
+    rec("reduce_max", f"[{R}, {V}] bf16", lambda: rmax(x),
+        lambda: P._reduce_reference(fn, x),
+        _grouped_bound_ms([x], y, x.numel(), f32),
+        library=lambda: torch.amax(x, -1), iters=10, plain_once=True,
+        max_abs_err=0.0, library_call="torch.amax(x, -1), bit for bit")
+    del x, y
+
+    # fp32 row sum: torch.sum sums in another order, a cost reference only
+    fn = fns["reduce"]["add"]
+    radd = P.reduce_kernel(fn, 0.0)
+    x = torch.randn((R, H), generator=gen, device="cuda")
+    y = radd(x)
+    if not _bits_equal(y, P._reduce_reference(fn, x)):
+        raise AssertionError("timed reduce add: not bit for bit")
+    rec("reduce_add", f"[{R}, {H}] fp32", lambda: radd(x),
+        lambda: P._reduce_reference(fn, x),
+        _grouped_bound_ms([x], y, x.numel(), f32),
+        cost=lambda: torch.sum(x, -1), iters=10, plain_once=True,
+        max_abs_err=0.0,
+        sum_vs_fold_max_abs_diff=float((torch.sum(x, -1) - y).abs().max()),
+        library_note="null: torch.sum sums in another order; "
+                     "cost_reference_ms is torch.sum(x, -1)")
+    del x, y
+
+    # the gate projection, without and with the silu epilogue
+    x = torch.randn((R, H), generator=gen, device="cuda").to(bf16)
+    w = (torch.randn((H, I), generator=gen, device="cuda") /
+         math.sqrt(H)).to(bf16)
+    for key, efn in (("matmul", None), ("matmul_silu", fns["matmul"]["silu"])):
+        mmk = P.matmul_kernel(epilogue=efn)
+        e = efn or P._IDENTITY
+        y = mmk(x, w)
+        c = _flash_check(y, P._matmul_reference(e, x, w, bf16),
+                         PRIM_MM_TOL["bfloat16"])
+        if not c["ok"]:
+            raise AssertionError(f"timed {key}: {c}")
+        extra = {"max_abs_err": c["max_abs_err"], "rel": c["rel"]}
+        if efn is None:
+            lib = torch.matmul(x, w)
+            extra["library_vs_plain"] = _flash_check(
+                lib, P._matmul_reference(e, x, w, bf16),
+                PRIM_MM_TOL["bfloat16"])
+            kw = dict(library=lambda: torch.matmul(x, w),
+                      library_call="torch.matmul")
+        else:
+            kw = dict(cost=lambda: F.silu(torch.matmul(x, w)),
+                      library_note="null: no single PyTorch call fuses the "
+                                   "silu; cost_reference_ms is torch.matmul "
+                                   "then F.silu")
+        rec(key, f"[{R}, {H}] @ [{H}, {I}] bf16", lambda: mmk(x, w),
+            lambda: P._matmul_reference(e, x, w, bf16),
+            _grouped_bound_ms([x, w], y, 2 * R * H * I, bf16), iters=10,
+            **kw, **extra)
+    del x, w, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_kernel_primitives(smi=None):
+    """The primitive library's three generated kernels (elementwise, reduce,
+    matmul) against their plain versions over the case matrix, then the
+    library's path at llama2_7b widths with exact launch counts, then the
+    times of each generator at those widths."""
+    import torch
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    worst = _prim_matrix(gen)
+    matrix_s = time.perf_counter() - t0
+    path = _prim_path(gen)
+    timed = _prim_timing(gen)
+    emit("kernel_primitives", nvidia_smi=smi or _nvidia_smi(),
+         matrix_seconds=matrix_s, worst=worst, path=path, timed=timed,
+         ew_tol=PRIM_EW_TOL, mm_tol=PRIM_MM_TOL,
+         seconds=time.perf_counter() - t0)
+    return worst, path, timed
+
+
 def main() -> int:
     from paddle_tpu_torch.models.pretrain import use_expandable_segments
     use_expandable_segments()         # before CUDA's first allocation
@@ -2628,6 +3084,7 @@ def main() -> int:
     moe_launches = phase_train_moe()
     wo_err, wo_t = phase_kernel_wo()
     wo_launches, _wo_sweeps = phase_weight_only_path()
+    prim_err, prim_path, prim_t = phase_kernel_primitives(_smi)
     print(json.dumps({"kernels": [
         {"name": "ragged_paged_attention", "route": "cuda",
          "source": ATTN_SOURCE, "replaces": ATTN_REPLACES,
@@ -2683,7 +3140,19 @@ def main() -> int:
          "bound_ms": wo_t[f"{mode}_m8"]["bound_ms"],
          "bound_by": wo_t[f"{mode}_m8"]["bound_by"],
          "library_ms": wo_t[f"{mode}_m8"]["library_ms"]}
-        for mode in WO_MODES]}),
+        for mode in WO_MODES] + [
+        {"name": f"primitives_{kind}", "route": "cuda", "source": PRIM_SOURCE,
+         "replaces": PRIM_REPLACES[kind],
+         "launches": prim_path["launches"][kind],
+         "max_abs_err": max(prim_err[kind]["max_abs_err"],
+                            prim_t[key]["max_abs_err"]),
+         "ms": prim_t[key]["kernel_ms"], "plain_ms": prim_t[key]["plain_ms"],
+         "bound_ms": prim_t[key]["bound_ms"],
+         "bound_by": prim_t[key]["bound_by"],
+         "library_ms": prim_t[key]["library_ms"]}
+        for kind, key in (("elementwise", "elementwise_silu_mul"),
+                          ("reduce", "reduce_max"),
+                          ("matmul", "matmul"))]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -17,6 +17,10 @@ a blockwise online softmax against one dense softmax) or 1e-2 (bf16:
 probabilities and ds rounded to bf16 before their products), and every
 element within rtol x |want| + atol x the larger of its row's RMS and the
 tensor's (fp32 1e-4 and 1e-4, bf16 2e-2 and 5e-2); ``lse`` 1e-4.
+Primitives: ``reduce_kernel`` bit for bit; ``elementwise_kernel`` within one
+ulp of the output dtype + 1e-6 x (|want| + max |want|) (the functor in fp32
+on both sides); ``matmul_kernel`` within 1e-4 x |want| + 1e-4 x max |want|
+(fp32 out: sums in other orders) plus one ulp of a bf16/fp16 output.
 """
 
 import numpy as np
@@ -584,3 +588,128 @@ def test_weight_only_edges_on_card(h100):
                                ).backward(g.to(dev))
             grads.append(xl.grad)
         _wo_close(grads[0].cpu(), grads[1])
+
+
+# ------------------------------------------------------------ primitives
+
+def _prim_fns():
+    from paddle_tpu_torch.kernels.primitives import KernelFn
+    silu = "return a / (1.0f + expf(-a))"
+    return {"silu_mul": KernelFn(lambda a, b: torch.nn.functional.silu(a) * b,
+                                 silu + " * b;"),
+            "relu2": KernelFn(lambda a: torch.clamp_min(a, 0) * 2.0,
+                              "return fmaxf(a, 0.0f) * 2.0f;"),
+            "fma3": KernelFn(lambda a, b, c: a * b + c, "return a * b + c;"),
+            "max": KernelFn(torch.maximum, "return fmaxf(a, b);"),
+            "add": KernelFn(torch.add, "return a + b;"),
+            "silu": KernelFn(torch.nn.functional.silu, silu + ";")}
+
+
+def _ulp(want):
+    if want.dtype == torch.float32:
+        return torch.zeros_like(want)
+    fi = torch.finfo(want.dtype)
+    return fi.eps * torch.exp2(torch.floor(torch.log2(
+        want.float().abs().clamp_min(fi.tiny))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dtypes", [
+    ("relu2", (torch.float32,)), ("relu2", (torch.float16,)),
+    ("silu_mul", (torch.bfloat16,) * 2), ("silu_mul", (torch.float32,) * 2),
+    ("fma3", (torch.float32, torch.bfloat16, torch.float16)),
+    ("fma3", (torch.bfloat16, torch.float16, torch.float32))])
+@pytest.mark.parametrize("shape", [(1,), (37, 19), (1_000_003,)])
+def test_primitives_elementwise_vs_plain_on_card(h100, name, dtypes, shape):
+    from paddle_tpu_torch.kernels import primitives as P
+    fn = _prim_fns()[name]
+    gen = torch.Generator(device=h100).manual_seed(len(shape))
+    ins = [torch.randn(shape, generator=gen, device=h100).to(dt)
+           for dt in dtypes]
+    n0 = P.LAUNCHES_ELEMENTWISE
+    got = P.elementwise_kernel(fn)(*ins)
+    torch.cuda.synchronize()
+    assert P.LAUNCHES_ELEMENTWISE == n0 + 1
+    want = P._elementwise_reference(fn, ins)
+    assert got.dtype == dtypes[0] and got.shape == want.shape
+    w = want.float()
+    lim = _ulp(want) + 1e-6 * (w.abs() + float(w.abs().max()))
+    assert bool(((got.float() - w).abs() <= lim).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("op", ["max", "add"])
+@pytest.mark.parametrize("rows,cols", [(1, 1), (100, 19), (8192, 300),
+                                       (33, 4096)])
+def test_primitives_reduce_bit_for_bit_on_card(h100, dtype, op, rows, cols):
+    from paddle_tpu_torch.kernels import primitives as P
+    fn = _prim_fns()[op]
+    gen = torch.Generator(device=h100).manual_seed(cols)
+    x = torch.randn((rows, cols), generator=gen, device=h100).to(dtype)
+    n0 = P.LAUNCHES_REDUCE
+    got = P.reduce_kernel(fn, 0.0)(x)
+    torch.cuda.synchronize()
+    assert P.LAUNCHES_REDUCE == n0 + 1
+    want = P._reduce_reference(fn, x)
+    iv = torch.int32 if dtype == torch.float32 else torch.int16
+    assert got.dtype == dtype and torch.equal(got.view(iv), want.view(iv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,out_dtype", [
+    (torch.float32, None), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, None), (torch.bfloat16, torch.float32),
+    (torch.float16, None), (torch.float16, torch.float32)])
+@pytest.mark.parametrize("epilogue", [None, "relu2", "silu"])
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (100, 70, 50), (16, 24, 8),
+                                   (257, 4095, 129), (512, 4096, 1024)])
+def test_primitives_matmul_vs_plain_on_card(h100, dtype, out_dtype, epilogue,
+                                           m, k, n):
+    from paddle_tpu_torch.kernels import primitives as P
+    efn = _prim_fns()[epilogue] if epilogue else None
+    gen = torch.Generator(device=h100).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=gen, device=h100).to(dtype)
+    w = (torch.randn((k, n), generator=gen, device=h100) / k ** 0.5).to(dtype)
+    n0 = P.LAUNCHES_MATMUL
+    got = P.matmul_kernel(epilogue=efn, out_dtype=out_dtype)(x, w)
+    torch.cuda.synchronize()
+    assert P.LAUNCHES_MATMUL == n0 + 1
+    odt = out_dtype or dtype
+    want = P._matmul_reference(efn or P._IDENTITY, x, w, odt)
+    assert got.dtype == odt and got.shape == (m, n)
+    wf = want.float()
+    lim = _ulp(want) + 1e-4 * (wf.abs() + float(wf.abs().max()))
+    assert bool(((got.float() - wf).abs() <= lim).all())
+
+
+@pytest.mark.cuda
+def test_primitives_refuse_what_the_kernels_do_not_take_on_card(h100):
+    """No fallback on the card: a function without a CUDA body, a
+    non-contiguous input and a device mismatch raise; empty inputs return
+    without a launch."""
+    from paddle_tpu_torch.kernels import primitives as P
+    x = torch.randn((8, 64), device=h100)
+    with pytest.raises(ValueError, match="CUDA body"):
+        P.elementwise_kernel(lambda a: a)(x)
+    with pytest.raises(ValueError, match="CUDA body"):
+        P.reduce_kernel(torch.add, 0.0)(x)
+    with pytest.raises(ValueError, match="contiguous"):
+        P.reduce_kernel(_prim_fns()["add"], 0.0)(x.T)
+    with pytest.raises(ValueError, match="contiguous"):
+        P.matmul_kernel()(x, x.T)
+    with pytest.raises(ValueError):
+        P.elementwise_kernel(_prim_fns()["silu_mul"])(x, x.cpu())
+    counts = (P.LAUNCHES_ELEMENTWISE, P.LAUNCHES_REDUCE, P.LAUNCHES_MATMUL)
+    assert P.elementwise_kernel(_prim_fns()["relu2"])(x[:0]).shape == (0, 64)
+    assert P.reduce_kernel(_prim_fns()["max"], 0.0)(x[:0]).shape == (0,)
+    assert P.matmul_kernel()(x[:0], x.T.contiguous()).shape == (0, 8)
+    assert counts == (P.LAUNCHES_ELEMENTWISE, P.LAUNCHES_REDUCE,
+                      P.LAUNCHES_MATMUL)
+    # k = 0: the sum is 0, and the epilogue still runs on it
+    y = P.matmul_kernel(epilogue=P.KernelFn(lambda a: a + 1,
+                                            "return a + 1.0f;"))(
+        x[:, :0], x[:0, :5].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(y, torch.ones((8, 5), device=h100))

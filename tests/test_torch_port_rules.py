@@ -31,6 +31,7 @@ def _imported_roots(path: Path):
 def test_port_and_chip_smoke_import_no_jax():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    assert PORT / "kernels" / "primitives.py" in files
     bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}"
            for f in files for mod, line in _imported_roots(f)
            if mod in ("jax", "jaxlib", "paddle_tpu")]
@@ -147,6 +148,37 @@ def test_cuda_only_paths_refuse_cpu_fallback():
                                             weight_dtype="int4")):
         with pytest.raises(ValueError, match="device"):
             call()
+
+
+def test_primitives_refuse_cpu_fallback():
+    """The primitive generators take their plain versions only for CPU
+    tensors: a meta tensor raises, and so does a function with no CUDA body
+    on any tensor that is not on the CPU (the CUDA launches are
+    tests/test_torch_cuda_kernels.py's)."""
+    from paddle_tpu_torch.kernels import primitives as P
+    x = torch.empty((8, 32), device="meta")
+    full = {"elementwise": P.KernelFn(lambda a, b: a * b, "return a * b;"),
+            "reduce": P.KernelFn(torch.add, "return a + b;"),
+            "matmul": P.KernelFn(lambda a: a * 2, "return a * 2.0f;")}
+    plain = {k: P.KernelFn(f.torch) for k, f in full.items()}
+    calls = {"elementwise": lambda fn: P.elementwise_kernel(fn)(x, x),
+             "reduce": lambda fn: P.reduce_kernel(fn, 0.0)(x),
+             "matmul": lambda fn: P.matmul_kernel(epilogue=fn)(x, x.T)}
+    for kind, call in calls.items():
+        with pytest.raises(ValueError, match="device"):
+            call(full[kind])
+        with pytest.raises(ValueError, match="CUDA body"):
+            call(plain[kind])
+    # a bare callable is a function with no CUDA body
+    with pytest.raises(ValueError, match="CUDA body"):
+        P.elementwise_kernel(lambda a: a)(x)
+    # matmul with no epilogue has one (the identity), so it reaches the
+    # device check
+    with pytest.raises(ValueError, match="device"):
+        P.matmul_kernel()(x, x.T)
+    # and a CPU tensor still runs the plain version
+    xc = torch.ones((2, 3))
+    assert torch.equal(P.elementwise_kernel(lambda a: a + 1)(xc), xc + 1)
 
 
 def test_importing_nn_functional_loads_no_jax():
