@@ -49,7 +49,14 @@ is caught; there is no ``ok`` line unless every phase passed):
    output held by its relative Frobenius error and elementwise against its
    RMS; then CUDA-event times at the training shape: each kernel, its plain
    version, its operations bound, and ``scaled_dot_product_attention``
-   forward, backward and forward + backward as the yardstick.
+   forward, backward and forward + backward as the yardstick.  The backward
+   of every bf16 d 64/128 case must take the "sm90" route
+   (``flash_attention_bwd_sm90.cu``: wgmma, TMA rings, warp
+   specialisation) and every other case the "mma" route, by the route
+   counters; at the training shape dQ and dK/dV must repeat bit for bit
+   and ptxas must report no spill for the sm90 kernels at d 128; the line
+   carries their ptxas record and the pair's time and TFLOP/s beside the
+   SDPA backward's.
 8b. ``kernel_flash_modes`` — the three flash kernels in every mode
     against their plain versions: an additive mask (one head plane or one
     per head, causal or not), segment ids (causal with equal packings; not
@@ -156,6 +163,10 @@ of JAX.
 runs only ``moe_train_parity``'s comparison over several seeds and with
 TF32 on as a control, and prints the readings MOE_PARITY_FAR_SHARE is set
 from (no ``ok`` line).
+
+A phase runs alone after the device and build phases, e.g. the flash
+kernels': ``python3 -c "import chip_smoke as c; c.phase_device();
+c.phase_kernel_flash(c.phase_build())"``.
 """
 
 from __future__ import annotations
@@ -182,6 +193,10 @@ ATTN_REPLACES = "paddle_tpu/kernels/paged_attention.py:163"
 GMM_SOURCE = "paddle_tpu_torch/kernels/csrc/grouped_matmul.cu"
 GMM_REPLACES = "paddle_tpu/kernels/grouped_matmul.py:205"
 FLASH_SOURCE = "paddle_tpu_torch/kernels/csrc/flash_attention.cu"
+# the backward's "sm90" route (bf16 at d 64 and 128): wgmma, TMA rings,
+# warp specialisation; its kernels' names in the ptxas log
+FLASH_BWD_SOURCE = "paddle_tpu_torch/kernels/csrc/flash_attention_bwd_sm90.cu"
+FLASH_BWD_LIBRARY = "flash_attention_bwd_sm90"
 FLASH_REPLACES = {"fwd": "paddle_tpu/kernels/flash_attention.py:180",
                   "dq": "paddle_tpu/kernels/flash_attention.py:253",
                   "dkv": "paddle_tpu/kernels/flash_attention.py:317"}
@@ -354,6 +369,8 @@ def phase_device():
 # ------------------------------------------------------------- build ---
 
 def phase_build():
+    """Builds every library; returns ``_build.build_all``'s record (the
+    ptxas logs among it)."""
     from paddle_tpu_torch.kernels import _build
     t0 = time.perf_counter()
     built = _build.build_all(generated=_prim_headers())
@@ -362,6 +379,38 @@ def phase_build():
                       "ptxas": [ln for ln in b["log"].splitlines()
                                 if "registers" in ln or "spill" in ln]}
                   for n, b in built.items()})
+    return built
+
+
+def _sm90_ptxas(log):
+    """ptxas's record of each backward kernel of the sm90 route, from its
+    library's build log: ``{"dq d128": {"registers", "spill_stores",
+    "spill_loads", "stack_bytes"}, ...}`` ("... modes" for the build with
+    mask, segments and dropout).  ``registers`` is the launch count; the
+    consumers raise theirs with setmaxnreg."""
+    import re
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for \S*flash_bwd_(dq|dkv)_sm90_"
+                      r"kernelILi(\d+)ELb(\d)", ln)
+        if m:
+            name = f"{m.group(1)} d{m.group(2)}" + (
+                " modes" if m.group(3) == "1" else "")
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            out[name].update(stack_bytes=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            name = None
+    return out
 
 
 # ------------------------------------------------------------ kernel ---
@@ -1127,13 +1176,19 @@ def _flash_worst(cases):
     return summary
 
 
-def phase_kernel_flash():
+def phase_kernel_flash(built):
     """The three kernels against their plain versions over the case matrix
     and at the training shape.  Every case is checked before any failure
     raises, and the line reports, per dtype and output, the worst max abs
-    error, relative Frobenius error and ``need`` (least atol x RMS)."""
+    error, relative Frobenius error and ``need`` (least atol x RMS).  Each
+    case's backward must take the route ``_bwd_route`` names (the "sm90"
+    counters move for bf16 at d 64 and 128 and for nothing else); at the
+    training shape the new kernels must repeat bit for bit and their ptxas
+    record (``built``, from the build phase) must show no spill."""
     import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(3)
+    routes = {"sm90": 0, "mma": 0}
     cases, failed = [], []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
@@ -1142,19 +1197,39 @@ def phase_kernel_flash():
                 (shp, c, h, dd) for shp in FLASH_SHAPES for c in (False, True)
                 for h in (8, 2, 1) for dd in (64, 128)):
             q, k, v, g = _flash_case(gen, dtype, b, sq, sk, 8, hkv, d)
+            n0 = _flash_sm90_counts()
             checks = _flash_compare(q, k, v, g, causal, tol)
             label = (f"b{b} sq{sq} sk{sk} group{8 // hkv} d{d} "
                      f"{'causal' if causal else 'full'} {dname}")
             cases.append((dname, label, checks))
             failed += [f"{label} {k}: {c}" for k, c in checks.items()
                        if not c["ok"]]
+            route = fa._bwd_route(dtype, d)
+            moved = {key: n - n0[key] for key, n in
+                     _flash_sm90_counts().items()}
+            routes[route] += 1
+            if moved != {key: int(route == "sm90") for key in moved}:
+                failed.append(f"{label}: route {route}, sm90 launches "
+                              f"{moved}")
             del q, k, v, g
         torch.cuda.empty_cache()
     timing, train_checks = _flash_timing(gen)
     failed += [f"training shape {k}: {c}" for k, c in train_checks.items()
                if not c["ok"]]
+    if timing["routes"] != {"dq": 1, "dkv": 1, "dq_sm90": 1, "dkv_sm90": 1}:
+        failed.append(f"training shape routes: {timing['routes']}")
+    failed += [f"training shape: {k} not bit for bit on a repeat"
+               for k, same in timing["bitwise_repeat"].items() if not same]
+    ptxas = _sm90_ptxas(built[FLASH_BWD_LIBRARY]["log"])
+    if set(ptxas) != {f"{w} d{dd}{m}" for w in ("dq", "dkv")
+                      for dd in (64, 128) for m in ("", " modes")}:
+        failed.append(f"ptxas record of the sm90 kernels: {sorted(ptxas)}")
+    failed += [f"{name}: ptxas spills {r}" for name, r in ptxas.items()
+               if name in ("dq d128", "dkv d128") and
+               (r.get("spill_stores") or r.get("spill_loads"))]
     emit("kernel_flash", cases=len(cases), tol=FLASH_TOL,
          lse_atol=FLASH_LSE_ATOL, worst=_flash_worst(cases),
+         cases_by_route=routes, sm90_ptxas=ptxas,
          training_shape_checks=train_checks, failed=failed, timing=timing)
     if failed:
         raise AssertionError(f"kernel_flash: {len(failed)} checks out of "
@@ -1172,15 +1247,30 @@ def _flash_timing(gen):
     of each kernel and its plain version in turns (plain, kernel, kernel,
     plain), its bound, and scaled_dot_product_attention on the same inputs
     in [b, h, s, d]: forward, backward (autograd, computing dQ, dK and dV
-    in one call) and forward + backward.  Returns (timing, checks)."""
+    in one call) and forward + backward.  ``timing`` also holds the
+    launches of the checked forward and backward, counted from 0 (``routes``:
+    both backward kernels on the "sm90" route), whether a second launch of
+    dQ and of dK/dV gives the same bits (``bitwise_repeat``), and the
+    backward pair's time and rates beside SDPA's backward (``bwd_pair``).
+    Returns (timing, checks)."""
     import torch
     from paddle_tpu_torch.kernels import flash_attention as fa
     b, s, h, d = (FLASH_TIMED[x] for x in "bshd")
     q, k, v, g = _flash_case(gen, torch.bfloat16, b, s, s, h, h, d)
+    _reset_flash_counts()
     checks = _flash_compare(q, k, v, g, True, FLASH_TOL["bfloat16"])
+    counts = {**_flash_counts(), **_flash_sm90_counts()}
+    routes = {key: counts[key] for key in ("dq", "dkv", "dq_sm90", "dkv_sm90")}
     torch.cuda.empty_cache()
     out, lse = fa.flash_forward(q, k, v, True)
     delta = fa._delta(out, g)
+    dq1 = fa._cuda_bwd_dq(q, k, v, g, lse, delta, True)
+    dq2 = fa._cuda_bwd_dq(q, k, v, g, lse, delta, True)
+    dk1, dv1 = fa._cuda_bwd_dkv(q, k, v, g, lse, delta, True)
+    dk2, dv2 = fa._cuda_bwd_dkv(q, k, v, g, lse, delta, True)
+    bitwise = {"dq": torch.equal(dq1, dq2), "dk": torch.equal(dk1, dk2),
+               "dv": torch.equal(dv1, dv2)}
+    del dq1, dq2, dk1, dv1, dk2, dv2
     calls = {
         "fwd": (lambda: fa.flash_forward(q, k, v, True),
                 lambda: fa._reference_attention_lse(q, k, v, True)),
@@ -1204,6 +1294,7 @@ def _flash_timing(gen):
         return torch.autograd.grad(o, leaves, gh)
 
     timing = {"shape": f"b={b} s={s} hq=hkv={h} d={d} bf16 causal",
+              "routes": routes, "bitwise_repeat": bitwise,
               "library_max_abs_err_out": lib_err,
               "sdpa_fwd_ms": cuda_ms(lambda: sdpa(qh, kh, vh, is_causal=True),
                                      20),
@@ -1224,6 +1315,17 @@ def _flash_timing(gen):
     # one PyTorch call computes dQ, dK and dV together: the SDPA backward
     timing["dq"]["library_ms"] = timing["dkv"]["library_ms"] = \
         timing["sdpa_bwd_ms"]
+    # the backward pair (7 matmul units here, 5 in SDPA's backward, which
+    # computes dS once) against SDPA's backward, and the rates of each
+    unit = 2 * b * h * d * _causal_pairs(s, s, True)
+    pair = timing["dq"]["kernel_ms"] + timing["dkv"]["kernel_ms"]
+    timing["bwd_pair"] = {
+        "kernel_ms": pair, "sdpa_bwd_ms": timing["sdpa_bwd_ms"],
+        "kernel_tflops": 7 * unit / pair / 1e9,
+        "dq_tflops": 3 * unit / timing["dq"]["kernel_ms"] / 1e9,
+        "dkv_tflops": 4 * unit / timing["dkv"]["kernel_ms"] / 1e9,
+        "sdpa_bwd_tflops": 5 * unit / timing["sdpa_bwd_ms"] / 1e9,
+        "bound_ms": timing["dq"]["bound_ms"] + timing["dkv"]["bound_ms"]}
     del q, k, v, g, out, lse, delta, qh, kh, vh, gh, leaves, lib_out
     torch.cuda.empty_cache()
     return timing, checks
@@ -1377,6 +1479,7 @@ def _flash_mode_timing(gen, cfg):
     entry().backward(g)
     torch.cuda.synchronize()
     launches = _flash_counts()
+    sm90 = _flash_sm90_counts()
     out, lse = fa.flash_forward(q, k, v, causal, **modes)
     delta = fa._delta(out, g)
     calls = {
@@ -1393,7 +1496,8 @@ def _flash_mode_timing(gen, cfg):
                                           **modes)),
     }
     timing = {"shape": f"b={b} s={s} hq=hkv={h} d={d} bf16 "
-                       f"{'causal' if causal else 'full'} {cfg}"}
+                       f"{'causal' if causal else 'full'} {cfg}",
+              "sm90_launches": sm90}
     for which, (kernel, plain) in calls.items():
         t = {}
         for key, fn in (("plain", plain), ("kernel", kernel),
@@ -1519,6 +1623,9 @@ def phase_kernel_flash_modes(smi=None):
         if counts != {"fwd": 1, "dq": 1, "dkv": 1}:
             failed.append(f"{cfg}: launches {counts}, expected one of each "
                           f"kernel")
+        if timing["sm90_launches"] != {"dq_sm90": 1, "dkv_sm90": 1}:
+            failed.append(f"{cfg}: the backward did not take the sm90 "
+                          f"route: {timing['sm90_launches']}")
     sdpa = _sdpa_card_vs_cpu(gen)
     failed += [f"nn.functional sdpa {k}: {c}" for k, c in sdpa.items()
                if not c["ok"]]
@@ -1547,9 +1654,17 @@ def _flash_counts():
             "dkv": fa.LAUNCHES_BWD_DKV}
 
 
+def _flash_sm90_counts():
+    """The backward launches that took the "sm90" route."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    return {"dq_sm90": fa.LAUNCHES_BWD_DQ_SM90,
+            "dkv_sm90": fa.LAUNCHES_BWD_DKV_SM90}
+
+
 def _reset_flash_counts():
     from paddle_tpu_torch.kernels import flash_attention as fa
     fa.LAUNCHES_FWD = fa.LAUNCHES_BWD_DQ = fa.LAUNCHES_BWD_DKV = 0
+    fa.LAUNCHES_BWD_DQ_SM90 = fa.LAUNCHES_BWD_DKV_SM90 = 0
 
 
 def phase_train_parity():
@@ -1652,12 +1767,15 @@ def phase_train():
     _reset_flash_counts()
     state, timed, seconds = pretrain.run_steps(ps, state, ids, labels, steps)
     launches = _flash_counts()
+    sm90 = _flash_sm90_counts()
     losses += timed
     want = {"fwd": 2 * L * steps if ps.pc.remat else L * steps,
             "dq": L * steps, "dkv": L * steps}
-    if launches != want:
+    if launches != want or sm90 != {"dq_sm90": L * steps,
+                                    "dkv_sm90": L * steps}:
         raise AssertionError(f"train: flash launches {launches} != {want} "
-                             f"({L} layers x {steps} steps)")
+                             f"({L} layers x {steps} steps), sm90 route "
+                             f"{sm90}")
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < losses[0]:
         raise AssertionError(f"train: losses {losses}")
@@ -1669,7 +1787,8 @@ def phase_train():
          m_dtype=args.m_dtype, v_dtype=ps.pc.v_dtype,
          setup_and_warmup_s=t_setup, step_ms_runs=[t * 1e3 for t in seconds],
          **pretrain.throughput(ps, ids, seconds),
-         losses=losses, flash_launches=launches)
+         losses=losses, flash_launches=launches,
+         flash_bwd_sm90_launches=sm90)
     del state, ps, ids, labels
     gc.collect()
     torch.cuda.empty_cache()
@@ -3061,7 +3180,7 @@ def main() -> int:
     use_expandable_segments()         # before CUDA's first allocation
     name, _smi = phase_device()
     import torch
-    phase_build()
+    built = phase_build()
     attn_err, attn_t = phase_kernel()
     int8_err, int8_t = phase_kernel_int8()
     gmm_err, gmm_t = phase_kernel_gmm()
@@ -3075,7 +3194,7 @@ def main() -> int:
                                       "--num-layers", "16"])]
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     decode = gmm_t[0]              # the gmm line: the decode gate/up shape
-    flash_err, flash_t = phase_kernel_flash()
+    flash_err, flash_t = phase_kernel_flash(built)
     flash_modes = phase_kernel_flash_modes(_smi)
     phase_train_parity()
     flash_launches = phase_train()
@@ -3107,7 +3226,8 @@ def main() -> int:
          "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
          "library_ms": decode["library_ms"]}] + [
         {"name": f"flash_attention_{nm}", "route": "cuda",
-         "source": FLASH_SOURCE, "replaces": FLASH_REPLACES[key],
+         "source": FLASH_SOURCE if key == "fwd" else FLASH_BWD_SOURCE,
+         "replaces": FLASH_REPLACES[key],
          "launches": flash_launches[key], "max_abs_err": flash_err[key],
          "ms": flash_t[key]["kernel_ms"], "plain_ms": flash_t[key]["plain_ms"],
          "bound_ms": flash_t[key]["bound_ms"],

@@ -5,8 +5,9 @@ shared library with a plain C interface and loaded with ``ctypes`` (the
 ``hopper-kernels`` route (b): seconds per source, where building against
 PyTorch's headers takes minutes).  Libraries land in
 ``build/paddle_tpu_torch_kernels/`` beside the package (listed in
-``.gitignore``), in a file named by a hash of the source and the flags, so a
-changed source rebuilds and an unchanged one loads at once.
+``.gitignore``), in a file named by a hash of the source, the shared
+``csrc/*.cuh`` headers and the flags, so a changed source or header
+rebuilds and an unchanged one loads at once.
 
 A *generated* build (:func:`load_generated`) compiles one source with a
 header pre-included (``nvcc -include``): the primitive generators write a
@@ -57,9 +58,13 @@ def _nvcc() -> str:
 
 def _target(name: str, header: str = "") -> Path:
     """The library of ``csrc/<name>.cu``, compiled alone or, given a
-    ``header``, with that header pre-included."""
+    ``header``, with that header pre-included.  Its name hashes the source,
+    every ``csrc/*.cuh`` (a source may include any of them), the header and
+    the flags, so an edit to any of them rebuilds."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + header.encode() +
+    shared = b"".join(p.name.encode() + p.read_bytes()
+                      for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + shared + header.encode() +
                             " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     stem = f"lib{name}-gen-{digest}" if header else f"lib{name}-{digest}"
     return BUILD_DIR / f"{stem}.so"

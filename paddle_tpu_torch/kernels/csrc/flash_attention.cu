@@ -4,6 +4,8 @@
 //   - _fa_fwd_kernel      (launched by _fwd_call)            -> flash_fwd_kernel
 //   - _fa_bwd_dq_kernel   (launched by _fa_pallas_backward)  -> flash_bwd_dq_kernel
 //   - _fa_bwd_dkv_kernel  (launched by _fa_pallas_backward)  -> flash_bwd_dkv_kernel
+// (the two backward kernels for fp32, and for bf16 at d 96 and 256; bf16 at
+// d 64 and 128 runs flash_attention_bwd_sm90.cu's wgmma kernels)
 // with all their modes, each composable with the others: causal, GQA, an
 // additive fp32 mask, segment ids (varlen) and dropout on the probabilities.
 // They compute what the plain versions in flash_attention.py compute:
@@ -76,9 +78,9 @@
 //   own each row for the row max and sum.
 // - Rows and columns past the sequence ends are zero-filled and masked, so
 //   any lengths work.
-// Later work (not here): wgmma with TMA-fed multi-stage rings, warp
-// specialization, accumulators in registers, more than one CTA per SM,
-// skipping tiles with no live pair of a segment.
+// Later work (not here): the forward as flash_attention_bwd_sm90.cu's
+// kernels are built (wgmma, TMA rings, warp specialization, accumulators in
+// registers); skipping tiles with no live pair of a segment.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -86,9 +88,12 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
 
 using namespace nvcuda;
+using namespace ptt_flash;
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 128;   // 4 warps
@@ -119,34 +124,6 @@ struct Cfg {
   static constexpr int dq_bm = (kF32 && kBig) ? 32 : 64, dq_bn = kBig ? 32 : 64;
   static constexpr int dkv_bm = kBig ? 32 : 64, dkv_bn = kF32 ? 32 : 64;   // kv rows, q rows
 };
-
-// The modes of one launch.
-struct Modes {
-  const float* mask;        // fp32 [b|1, hq|1, sq, sk] or null
-  int64_t mask_sb, mask_sh; // batch and head strides (0 where it broadcasts)
-  const int* seg_q;         // int32 [b, sq] or null (then seg_k too)
-  const int* seg_k;         // int32 [b, sk]
-  const int* seed;          // int32 [1] or null: no dropout
-  uint32_t thresh;          // keep where hash >= thresh
-  float inv;                // 1 / (1 - rate)
-};
-
-// The reference's _drop_mix: hash of (row, col) and the per-CTA base
-// seed * C ^ b * C ^ h * C.
-__device__ __forceinline__ uint32_t drop_base(uint32_t seed, uint32_t b, uint32_t h) {
-  return (seed * 2246822519u) ^ (b * 3266489917u) ^ (h * 668265263u);
-}
-
-__device__ __forceinline__ bool drop_keep(uint32_t base, uint32_t row, uint32_t col,
-                                          uint32_t thresh) {
-  uint32_t z = (row * 2654435761u) ^ (col * 1013904223u) ^ base;
-  z ^= z >> 16;
-  z *= 2246822519u;
-  z ^= z >> 13;
-  z *= 3266489917u;
-  z ^= z >> 16;
-  return z >= thresh;
-}
 
 struct Carve {
   unsigned char* p;
@@ -306,20 +283,6 @@ __device__ void mm_nn_acc(const float* A, int lda, const float* B, int ldb, floa
 
 __device__ __forceinline__ void zero(float* p, int n) {
   for (int i = threadIdx.x; i < n; i += kThreads) p[i] = 0.f;
-}
-
-// past a sequence end, or past the causal diagonal: p = 0 in the backward
-__device__ __forceinline__ bool masked(int qi, int kj, int Sq, int Sk, int causal) {
-  return qi >= Sq || kj >= Sk || (causal && kj > qi + (Sk - Sq));
-}
-
-// number of BN-row kv tiles a BM-row q tile starting at q0 needs (reference: _needed)
-template <int BM, int BN>
-__device__ __forceinline__ int kv_tiles(int q0, int Sq, int Sk, int causal) {
-  const int n = (Sk + BN - 1) / BN;
-  if (!causal) return n;
-  const int last = min(q0 + BM - 1, Sq - 1) + (Sk - Sq);
-  return min(n, last / BN + 1);
 }
 
 // The mask and the segment test on a score tile in shared memory, with the
@@ -824,6 +787,16 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dou
     if (dtype == 1) PTT_DISPATCH_D(FN, bf16, __VA_ARGS__);                    \
     return static_cast<int>(cudaErrorInvalidValue);                           \
   } while (0)
+// The backward here serves fp32 at every head dim and bf16 at d 96 and 256;
+// bf16 at d 64 and 128 is flash_attention_bwd_sm90.cu's (the wrapper's
+// _bwd_route), so it is neither built nor taken here.
+#define PTT_DISPATCH_BWD(FN, ...)                                             \
+  do {                                                                        \
+    if (dtype == 0) PTT_DISPATCH_D(FN, float, __VA_ARGS__);                   \
+    if (dtype == 1 && d.D == 96) return static_cast<int>(FN<bf16, 96>(__VA_ARGS__));   \
+    if (dtype == 1 && d.D == 256) return static_cast<int>(FN<bf16, 256>(__VA_ARGS__)); \
+    return static_cast<int>(cudaErrorInvalidValue);                           \
+  } while (0)
 
 Modes make_modes(const void* mask, int64_t mask_sb, int64_t mask_sh, const void* seg_q,
                  const void* seg_k, const void* seed, uint32_t thresh, float inv) {
@@ -838,7 +811,9 @@ Modes make_modes(const void* mask, int64_t mask_sb, int64_t mask_sh, const void*
 // [b, s, h, d] (q, out, dout, dq: [B, Sq, Hq, D]; k, v, dk, dv: [B, Sk, Hkv,
 // D]) and 16-byte aligned; lse and delta are fp32 [B, Hq, Sq].  dtype: 0 =
 // float32, 1 = bfloat16 (all of q, k, v, dout and the outputs).  D is 64,
-// 96, 128 or 256, Hkv divides Hq, Sq and Sk are positive, and a causal call
+// 96, 128 or 256 (the backward's bf16: 96 or 256; bf16 at 64 and 128 is
+// refused, it runs ptt_flash_bwd_*_sm90), Hkv divides Hq, Sq and Sk are
+// positive, and a causal call
 // has Sq <= Sk.  The modes: mask (fp32 [B|1, Hq|1, Sq, Sk], with its batch
 // and head strides, 0 where it broadcasts) or null; seg_q / seg_k (int32
 // [B, Sq] / [B, Sk]) or null; seed (int32 [1] on the device) or null for no
@@ -865,8 +840,8 @@ extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
   const Dims d{B, Sq, Sk, Hq, Hkv, D, causal};
   const Modes md = make_modes(mask, mask_sb, mask_sh, seg_q, seg_k, seed, thresh, inv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  PTT_DISPATCH(bwd_dq, q, k, v, dout, static_cast<const float*>(lse),
-               static_cast<const float*>(delta), dq, md, d, s);
+  PTT_DISPATCH_BWD(bwd_dq, q, k, v, dout, static_cast<const float*>(lse),
+                   static_cast<const float*>(delta), dq, md, d, s);
 }
 
 extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -879,6 +854,6 @@ extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   const Dims d{B, Sq, Sk, Hq, Hkv, D, causal};
   const Modes md = make_modes(mask, mask_sb, mask_sh, seg_q, seg_k, seed, thresh, inv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  PTT_DISPATCH(bwd_dkv, q, k, v, dout, static_cast<const float*>(lse),
-               static_cast<const float*>(delta), dk, dv, md, d, s);
+  PTT_DISPATCH_BWD(bwd_dkv, q, k, v, dout, static_cast<const float*>(lse),
+                   static_cast<const float*>(delta), dk, dv, md, d, s);
 }

@@ -10,11 +10,16 @@ segment ids and the seed are data: their cotangents are ``None`` (the
 reference's ``zeros``).
 
 - On CUDA tensors each of the three steps launches a hand-written Hopper
-  kernel from ``csrc/flash_attention.cu`` (it replaces the Pallas
-  ``_fa_fwd_kernel``, ``_fa_bwd_dq_kernel`` and ``_fa_bwd_dkv_kernel``);
-  every launch adds one to :data:`LAUNCHES_FWD`, :data:`LAUNCHES_BWD_DQ` or
-  :data:`LAUNCHES_BWD_DKV`, whatever the mode.  A shape the kernels do not
-  take raises.
+  kernel (it replaces the Pallas ``_fa_fwd_kernel``, ``_fa_bwd_dq_kernel``
+  and ``_fa_bwd_dkv_kernel``); every launch adds one to
+  :data:`LAUNCHES_FWD`, :data:`LAUNCHES_BWD_DQ` or :data:`LAUNCHES_BWD_DKV`,
+  whatever the mode.  The forward is ``csrc/flash_attention.cu``; the two
+  backward kernels take the route :func:`_bwd_route` picks by dtype and
+  head dim: ``"sm90"`` (bf16 at d 64 and 128:
+  ``csrc/flash_attention_bwd_sm90.cu``, wgmma fed by TMA rings, also
+  counted in :data:`LAUNCHES_BWD_DQ_SM90` / :data:`LAUNCHES_BWD_DKV_SM90`)
+  or ``"mma"`` (fp32, and bf16 at d 96 and 256: ``csrc/flash_attention.cu``).
+  A shape the kernels do not take raises.
 - On CPU tensors the same steps run their plain PyTorch versions
   (:func:`_reference_attention_lse`, :func:`_flash_bwd_dq`,
   :func:`_flash_bwd_dkv`), the tests' oracle.
@@ -49,6 +54,9 @@ NEG_INF = -1e30
 LAUNCHES_FWD = 0
 LAUNCHES_BWD_DQ = 0
 LAUNCHES_BWD_DKV = 0
+# the backward launches that took the "sm90" route (a part of the above)
+LAUNCHES_BWD_DQ_SM90 = 0
+LAUNCHES_BWD_DKV_SM90 = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 96, 128, 256)
@@ -228,23 +236,48 @@ def _delta(out, dout):
 
 # ---------------------------------------------------------------- kernels ---
 
-def _lib():
-    from . import _build
-    lib = _build.load("flash_attention")
-    if lib.ptt_flash_fwd.argtypes is None:
-        # mask, mask batch stride, mask head stride, seg_q, seg_k, seed,
-        # keep threshold, 1/(1-p); then the dims, dtype and the stream
-        modes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                 ctypes.c_uint32, ctypes.c_float]
-        tail = modes + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-        lib.ptt_flash_fwd.argtypes = [ctypes.c_void_p] * 5 + tail
-        lib.ptt_flash_bwd_dq.argtypes = [ctypes.c_void_p] * 7 + tail
-        lib.ptt_flash_bwd_dkv.argtypes = [ctypes.c_void_p] * 8 + tail
-        for fn in (lib.ptt_flash_fwd, lib.ptt_flash_bwd_dq,
-                   lib.ptt_flash_bwd_dkv):
+# mask, mask batch stride, mask head stride, seg_q, seg_k, seed, keep
+# threshold, 1/(1-p); then the dims, dtype and the stream
+_MODE_ARGS = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float]
+_TAIL_ARGS = _MODE_ARGS + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+# library (``csrc/<name>.cu``) -> C entry point -> its argument types
+ENTRY_POINTS = {
+    "flash_attention": {
+        "ptt_flash_fwd": [ctypes.c_void_p] * 5 + _TAIL_ARGS,
+        "ptt_flash_bwd_dq": [ctypes.c_void_p] * 7 + _TAIL_ARGS,
+        "ptt_flash_bwd_dkv": [ctypes.c_void_p] * 8 + _TAIL_ARGS,
+    },
+    "flash_attention_bwd_sm90": {
+        "ptt_flash_bwd_dq_sm90": [ctypes.c_void_p] * 7 + _TAIL_ARGS,
+        "ptt_flash_bwd_dkv_sm90": [ctypes.c_void_p] * 8 + _TAIL_ARGS,
+    },
+}
+
+
+def _setup(lib, name):
+    """Sets the argument and result types of library ``name``'s entry
+    points on ``lib`` (once)."""
+    for fn_name, argtypes in ENTRY_POINTS[name].items():
+        fn = getattr(lib, fn_name)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     return lib
+
+
+def _lib(name="flash_attention"):
+    from . import _build
+    return _setup(_build.load(name), name)
+
+
+def _bwd_route(dtype, d):
+    """The backward kernels' route for inputs of ``dtype`` at head dim
+    ``d``: ``"sm90"`` (bf16 at d 64 and 128) or ``"mma"`` (the rest: fp32,
+    where wgmma would need TF32, and bf16 at d 96, which wgmma's 64-column
+    swizzle blocks do not tile, and 256, whose two 64 x 256 fp32
+    accumulators do not fit a warpgroup's registers)."""
+    return "sm90" if dtype == torch.bfloat16 and d in (64, 128) else "mma"
 
 
 class _Modes:
@@ -376,31 +409,43 @@ def _cuda_fwd(q, k, v, causal, mask=None, seg_q=None, seg_k=None, drop_p=0.0,
     return out, lse
 
 
+def _bwd_fn(q, which):
+    """The C entry point of backward kernel ``which`` ("dq" or "dkv") on
+    ``q``'s route, and whether that route is "sm90"."""
+    if _bwd_route(q.dtype, q.shape[-1]) == "sm90":
+        return getattr(_lib("flash_attention_bwd_sm90"),
+                       f"ptt_flash_bwd_{which}_sm90"), True
+    return getattr(_lib(), f"ptt_flash_bwd_{which}"), False
+
+
 def _cuda_bwd_dq(q, k, v, dout, lse, delta, causal, mask=None, seg_q=None,
                  seg_k=None, drop_p=0.0, seed=None):
-    global LAUNCHES_BWD_DQ
+    global LAUNCHES_BWD_DQ, LAUNCHES_BWD_DQ_SM90
     q, k, v, dout = _check_cuda(q, k, v, causal, (("dout", dout),))
     md = _Modes(q, k, mask, seg_q, seg_k, drop_p, seed)
     dq = torch.empty_like(q)
-    _raise_on(_lib().ptt_flash_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *md.args(),
-        *_dims(q, k, causal)), "flash_bwd_dq")
+    fn, sm90 = _bwd_fn(q, "dq")
+    _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *md.args(),
+                 *_dims(q, k, causal)), "flash_bwd_dq")
     LAUNCHES_BWD_DQ += 1
+    LAUNCHES_BWD_DQ_SM90 += sm90
     return dq
 
 
 def _cuda_bwd_dkv(q, k, v, dout, lse, delta, causal, mask=None, seg_q=None,
                   seg_k=None, drop_p=0.0, seed=None):
-    global LAUNCHES_BWD_DKV
+    global LAUNCHES_BWD_DKV, LAUNCHES_BWD_DKV_SM90
     q, k, v, dout = _check_cuda(q, k, v, causal, (("dout", dout),))
     md = _Modes(q, k, mask, seg_q, seg_k, drop_p, seed)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _raise_on(_lib().ptt_flash_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *md.args(), *_dims(q, k, causal)), "flash_bwd_dkv")
+    fn, sm90 = _bwd_fn(q, "dkv")
+    _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), *md.args(), *_dims(q, k, causal)),
+              "flash_bwd_dkv")
     LAUNCHES_BWD_DKV += 1
+    LAUNCHES_BWD_DKV_SM90 += sm90
     return dk, dv
 
 

@@ -346,20 +346,28 @@ def _assert_flash_close(got, want, rel, rtol, atol):
     (2, 256, 256, 8, 2, 128, True),      # GQA group 4
     (1, 100, 300, 8, 1, 128, True),      # sq < sk, ragged tiles, group 8
     (3, 77, 77, 2, 2, 64, False),        # lengths off the 64-row tile
+    (3, 192, 640, 8, 2, 128, True),      # sm90 route (bf16): sk > sq, ragged
+    (2, 100, 300, 8, 1, 64, True),       # sm90 route (bf16): partial tiles
+    (1, 300, 300, 4, 4, 128, False),     # full attention, three q tiles
 ])
 def test_flash_kernels_vs_plain_on_card(h100, dtype, b, sq, sk, hq, hkv, d,
                                         causal):
     """Forward (out, lse), dQ and dK/dV against the plain versions on the
-    same inputs (tolerances in the module docstring)."""
+    same inputs (tolerances in the module docstring); the backward takes
+    the route ``_bwd_route`` names (bf16 at d 64/128: the sm90 kernels)."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     q, k, v, g = _flash_inputs(h100, dtype, b=b, sq=sq, sk=sk, hq=hq,
                                hkv=hkv, d=d, seed=sq + hkv)
     n0 = (fa.LAUNCHES_FWD, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV)
+    s0 = (fa.LAUNCHES_BWD_DQ_SM90, fa.LAUNCHES_BWD_DKV_SM90)
     out, lse = fa.flash_forward(q, k, v, causal)
     dq, dk, dv = fa.flash_backward(q, k, v, out, lse, g, causal)
     torch.cuda.synchronize()
     assert (fa.LAUNCHES_FWD, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV) == \
         (n0[0] + 1, n0[1] + 1, n0[2] + 1)
+    sm90 = int(fa._bwd_route(dtype, d) == "sm90")
+    assert (fa.LAUNCHES_BWD_DQ_SM90, fa.LAUNCHES_BWD_DKV_SM90) == \
+        (s0[0] + sm90, s0[1] + sm90)
     ref, ref_lse = fa._reference_attention_lse(q, k, v, causal)
     tol = FLASH_TOL[dtype]
     _assert_flash_close(out, ref, **tol)
@@ -370,6 +378,46 @@ def test_flash_kernels_vs_plain_on_card(h100, dtype, b, sq, sk, hq, hkv, d,
     for got, ref_grad in zip((dq, dk, dv), want):
         assert got.dtype == dtype and got.shape == ref_grad.shape
         _assert_flash_close(got, ref_grad, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,causal,modes", [
+    (128, True, ""), (64, False, ""), (128, True, "mask"),
+    (128, False, "dropout"), (64, True, "segments")])
+def test_flash_bwd_sm90_repeats_bit_for_bit_on_card(h100, d, causal, modes):
+    """The sm90 dQ and dK/dV write each output element once after a sum in
+    a fixed order: a second launch on the same inputs gives the same bits,
+    in the plain build and in the modes build."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    b, s, hq, hkv = 2, 200, 4, 2
+    q, k, v, g = _flash_inputs(h100, torch.bfloat16, b=b, sq=s, sk=s, hq=hq,
+                               hkv=hkv, d=d, seed=d + s)
+    kw = {}
+    if modes == "mask":
+        kw["mask"] = torch.randn((b, 1, s, s), device=h100)
+    elif modes == "dropout":
+        kw.update(drop_p=0.2, seed=torch.tensor([7], dtype=torch.int32,
+                                                device=h100))
+    elif modes == "segments":
+        seg = torch.tensor([[0] * 80 + [1] * 120, [0] * 200],
+                           dtype=torch.int32, device=h100)
+        kw.update(seg_q=seg, seg_k=seg)
+    out, lse = fa._reference_attention_lse(q, k, v, causal, **kw)
+    delta = fa._delta(out, g)
+    s0 = (fa.LAUNCHES_BWD_DQ_SM90, fa.LAUNCHES_BWD_DKV_SM90)
+    first = (fa._cuda_bwd_dq(q, k, v, g, lse, delta, causal, **kw),
+             *fa._cuda_bwd_dkv(q, k, v, g, lse, delta, causal, **kw))
+    second = (fa._cuda_bwd_dq(q, k, v, g, lse, delta, causal, **kw),
+              *fa._cuda_bwd_dkv(q, k, v, g, lse, delta, causal, **kw))
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES_BWD_DQ_SM90, fa.LAUNCHES_BWD_DKV_SM90) == \
+        (s0[0] + 2, s0[1] + 2)
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+    want = (fa._flash_bwd_dq(q, k, v, g, lse, delta, causal, **kw),
+            *fa._flash_bwd_dkv(q, k, v, g, lse, delta, causal, **kw))
+    for got, ref in zip(first, want):
+        _assert_flash_close(got, ref, **FLASH_TOL[torch.bfloat16])
 
 
 @pytest.mark.cuda
