@@ -49,14 +49,14 @@ is caught; there is no ``ok`` line unless every phase passed):
    output held by its relative Frobenius error and elementwise against its
    RMS; then CUDA-event times at the training shape: each kernel, its plain
    version, its operations bound, and ``scaled_dot_product_attention``
-   forward, backward and forward + backward as the yardstick.  The backward
-   of every bf16 d 64/128 case must take the "sm90" route
-   (``flash_attention_bwd_sm90.cu``: wgmma, TMA rings, warp
-   specialisation) and every other case the "mma" route, by the route
-   counters; at the training shape dQ and dK/dV must repeat bit for bit
-   and ptxas must report no spill for the sm90 kernels at d 128; the line
-   carries their ptxas record and the pair's time and TFLOP/s beside the
-   SDPA backward's.
+   forward, backward and forward + backward as the yardstick.  All three
+   kernels of every bf16 d 64/128 case must take the "sm90" route
+   (``flash_attention_fwd_sm90.cu``, ``flash_attention_bwd_sm90.cu``:
+   wgmma, TMA rings, warp specialisation) and every other case the "mma"
+   route, by the route counters; at the training shape the forward, dQ and
+   dK/dV must repeat bit for bit and ptxas must report no spill for the
+   sm90 kernels at d 128; the line carries their ptxas record, the
+   forward's and the backward pair's times and TFLOP/s beside SDPA's.
 8b. ``kernel_flash_modes`` — the three flash kernels in every mode
     against their plain versions: an additive mask (one head plane or one
     per head, causal or not), segment ids (causal with equal packings; not
@@ -64,15 +64,17 @@ is caught; there is no ``ok`` line unless every phase passed):
     0.5 (causal or not), mask and dropout together; each in fp32 and bf16,
     GQA groups 1/4, d 64/96/128/256, b 2, sq 136 / sk 200 (lengths off the
     64-row tile); the forward's keep-mask read off its output (q = 0, v =
-    I) and held bit for bit against the plain ``_drop_keep_dense``; then,
-    at llama2_7b attention widths (b 4, s 2048, 32 heads, d 128, bf16), the
-    ``mask`` (fp32 [4, 1, 2048, 2048], full), ``dropout`` (0.1, causal,
+    I) on both routes (fp32 d 256, bf16 d 128) and held bit for bit
+    against the plain ``_drop_keep_dense``; then, at llama2_7b attention
+    widths (b 4, s 2048, 32 heads, d 128, bf16), the ``mask`` (fp32 [4, 1,
+    2048, 2048], full), ``dropout`` (0.1, causal,
     ``nn.functional.flash_attention``) and ``varlen`` (one causal packing of
     8192 tokens through ``nn.functional.flash_attn_varlen_qkvpacked``)
     configurations: forward and backward through the public entry point
-    (exactly one launch of each kernel), each kernel against its plain
-    version, CUDA-event times beside the plain version, the operations
-    bound and ``scaled_dot_product_attention`` (with the mask in bf16; over
+    (exactly one launch of each kernel, all on the "sm90" route), each
+    kernel against its plain version, CUDA-event times beside the plain
+    version, the operations bound and ``scaled_dot_product_attention``
+    (with the mask in bf16; over
     the block-diagonal causal mask; with dropout as a cost reference only);
     then the port's ``nn.functional.scaled_dot_product_attention`` on the
     card against the CPU (fp32, bool and additive masks, causal, dropout).
@@ -192,11 +194,11 @@ ATTN_SOURCE = "paddle_tpu_torch/kernels/csrc/ragged_paged_attention.cu"
 ATTN_REPLACES = "paddle_tpu/kernels/paged_attention.py:163"
 GMM_SOURCE = "paddle_tpu_torch/kernels/csrc/grouped_matmul.cu"
 GMM_REPLACES = "paddle_tpu/kernels/grouped_matmul.py:205"
-FLASH_SOURCE = "paddle_tpu_torch/kernels/csrc/flash_attention.cu"
-# the backward's "sm90" route (bf16 at d 64 and 128): wgmma, TMA rings,
-# warp specialisation; its kernels' names in the ptxas log
+# the "sm90" route (bf16 at d 64 and 128): wgmma, TMA rings, warp
+# specialisation; the libraries whose ptxas logs name its kernels
+FLASH_FWD_SOURCE = "paddle_tpu_torch/kernels/csrc/flash_attention_fwd_sm90.cu"
 FLASH_BWD_SOURCE = "paddle_tpu_torch/kernels/csrc/flash_attention_bwd_sm90.cu"
-FLASH_BWD_LIBRARY = "flash_attention_bwd_sm90"
+FLASH_SM90_LIBRARIES = ("flash_attention_fwd_sm90", "flash_attention_bwd_sm90")
 FLASH_REPLACES = {"fwd": "paddle_tpu/kernels/flash_attention.py:180",
                   "dq": "paddle_tpu/kernels/flash_attention.py:253",
                   "dkv": "paddle_tpu/kernels/flash_attention.py:317"}
@@ -240,7 +242,9 @@ FLASH_MODE_SEGMENTS = {
     "empty": ([(60, 40, 100), (100, 100)], [(90, 0, 110), (150, 50)]),
 }
 FLASH_MODE_SEED = (1 << 23) - 1
-FLASH_KEEP_CHECK = dict(b=2, s=2048, h=4, d=256)
+# the keep-mask check on each route: (dtype, d = sk); b 2, s 2048, 4 heads
+FLASH_KEEP_CHECK = dict(b=2, s=2048, h=4, routes=(("float32", 256),
+                                                  ("bfloat16", 128)))
 FLASH_KEEP_RATES = (0.1, 0.5)
 FLASH_VARLEN_LENS = (512, 1024, 1536, 2048, 3072)
 PARITY = dict(preset="llama2_7b", layers=2, batch=2, seq=256, steps=3)
@@ -383,16 +387,16 @@ def phase_build():
 
 
 def _sm90_ptxas(log):
-    """ptxas's record of each backward kernel of the sm90 route, from its
-    library's build log: ``{"dq d128": {"registers", "spill_stores",
-    "spill_loads", "stack_bytes"}, ...}`` ("... modes" for the build with
+    """ptxas's record of each kernel of the sm90 route, from its libraries'
+    build logs: ``{"fwd d128": {"registers", "spill_stores", "spill_loads",
+    "stack_bytes"}, "dq d128": ..., ...}`` ("... modes" for the build with
     mask, segments and dropout).  ``registers`` is the launch count; the
     consumers raise theirs with setmaxnreg."""
     import re
     out, name = {}, None
     for ln in log.splitlines():
-        m = re.search(r"Function properties for \S*flash_bwd_(dq|dkv)_sm90_"
-                      r"kernelILi(\d+)ELb(\d)", ln)
+        m = re.search(r"Function properties for \S*flash_(?:bwd_)?(fwd|dq|dkv)"
+                      r"_sm90_kernelILi(\d+)ELb(\d)", ln)
         if m:
             name = f"{m.group(1)} d{m.group(2)}" + (
                 " modes" if m.group(3) == "1" else "")
@@ -1181,9 +1185,9 @@ def phase_kernel_flash(built):
     and at the training shape.  Every case is checked before any failure
     raises, and the line reports, per dtype and output, the worst max abs
     error, relative Frobenius error and ``need`` (least atol x RMS).  Each
-    case's backward must take the route ``_bwd_route`` names (the "sm90"
+    case's three kernels must take the route ``_route`` names (the "sm90"
     counters move for bf16 at d 64 and 128 and for nothing else); at the
-    training shape the new kernels must repeat bit for bit and their ptxas
+    training shape the sm90 kernels must repeat bit for bit and their ptxas
     record (``built``, from the build phase) must show no spill."""
     import torch
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -1204,7 +1208,7 @@ def phase_kernel_flash(built):
             cases.append((dname, label, checks))
             failed += [f"{label} {k}: {c}" for k, c in checks.items()
                        if not c["ok"]]
-            route = fa._bwd_route(dtype, d)
+            route = fa._route(dtype, d)
             moved = {key: n - n0[key] for key, n in
                      _flash_sm90_counts().items()}
             routes[route] += 1
@@ -1216,17 +1220,19 @@ def phase_kernel_flash(built):
     timing, train_checks = _flash_timing(gen)
     failed += [f"training shape {k}: {c}" for k, c in train_checks.items()
                if not c["ok"]]
-    if timing["routes"] != {"dq": 1, "dkv": 1, "dq_sm90": 1, "dkv_sm90": 1}:
+    if timing["routes"] != {"fwd": 1, "dq": 1, "dkv": 1, "fwd_sm90": 1,
+                             "dq_sm90": 1, "dkv_sm90": 1}:
         failed.append(f"training shape routes: {timing['routes']}")
     failed += [f"training shape: {k} not bit for bit on a repeat"
                for k, same in timing["bitwise_repeat"].items() if not same]
-    ptxas = _sm90_ptxas(built[FLASH_BWD_LIBRARY]["log"])
-    if set(ptxas) != {f"{w} d{dd}{m}" for w in ("dq", "dkv")
+    ptxas = _sm90_ptxas("\n".join(built[lib]["log"]
+                                  for lib in FLASH_SM90_LIBRARIES))
+    if set(ptxas) != {f"{w} d{dd}{m}" for w in ("fwd", "dq", "dkv")
                       for dd in (64, 128) for m in ("", " modes")}:
         failed.append(f"ptxas record of the sm90 kernels: {sorted(ptxas)}")
     failed += [f"{name}: ptxas spills {r}" for name, r in ptxas.items()
-               if name in ("dq d128", "dkv d128") and
-               (r.get("spill_stores") or r.get("spill_loads"))]
+               if name in ("fwd d128", "fwd d128 modes", "dq d128", "dkv d128")
+               and (r.get("spill_stores") or r.get("spill_loads"))]
     emit("kernel_flash", cases=len(cases), tol=FLASH_TOL,
          lse_atol=FLASH_LSE_ATOL, worst=_flash_worst(cases),
          cases_by_route=routes, sm90_ptxas=ptxas,
@@ -1249,8 +1255,9 @@ def _flash_timing(gen):
     in [b, h, s, d]: forward, backward (autograd, computing dQ, dK and dV
     in one call) and forward + backward.  ``timing`` also holds the
     launches of the checked forward and backward, counted from 0 (``routes``:
-    both backward kernels on the "sm90" route), whether a second launch of
-    dQ and of dK/dV gives the same bits (``bitwise_repeat``), and the
+    all three kernels on the "sm90" route), whether a second launch of the
+    forward, of dQ and of dK/dV gives the same bits (``bitwise_repeat``),
+    the forward's rate beside SDPA's forward (``fwd_rate``) and the
     backward pair's time and rates beside SDPA's backward (``bwd_pair``).
     Returns (timing, checks)."""
     import torch
@@ -1260,16 +1267,20 @@ def _flash_timing(gen):
     _reset_flash_counts()
     checks = _flash_compare(q, k, v, g, True, FLASH_TOL["bfloat16"])
     counts = {**_flash_counts(), **_flash_sm90_counts()}
-    routes = {key: counts[key] for key in ("dq", "dkv", "dq_sm90", "dkv_sm90")}
+    routes = {key: counts[key] for key in ("fwd", "dq", "dkv", "fwd_sm90",
+                                           "dq_sm90", "dkv_sm90")}
     torch.cuda.empty_cache()
     out, lse = fa.flash_forward(q, k, v, True)
+    out2, lse2 = fa.flash_forward(q, k, v, True)
+    fwd_same = {"out": torch.equal(out, out2), "lse": torch.equal(lse, lse2)}
+    del out2, lse2
     delta = fa._delta(out, g)
     dq1 = fa._cuda_bwd_dq(q, k, v, g, lse, delta, True)
     dq2 = fa._cuda_bwd_dq(q, k, v, g, lse, delta, True)
     dk1, dv1 = fa._cuda_bwd_dkv(q, k, v, g, lse, delta, True)
     dk2, dv2 = fa._cuda_bwd_dkv(q, k, v, g, lse, delta, True)
-    bitwise = {"dq": torch.equal(dq1, dq2), "dk": torch.equal(dk1, dk2),
-               "dv": torch.equal(dv1, dv2)}
+    bitwise = {**fwd_same, "dq": torch.equal(dq1, dq2),
+               "dk": torch.equal(dk1, dk2), "dv": torch.equal(dv1, dv2)}
     del dq1, dq2, dk1, dv1, dk2, dv2
     calls = {
         "fwd": (lambda: fa.flash_forward(q, k, v, True),
@@ -1318,6 +1329,10 @@ def _flash_timing(gen):
     # the backward pair (7 matmul units here, 5 in SDPA's backward, which
     # computes dS once) against SDPA's backward, and the rates of each
     unit = 2 * b * h * d * _causal_pairs(s, s, True)
+    timing["fwd_rate"] = {
+        "kernel_tflops": 2 * unit / timing["fwd"]["kernel_ms"] / 1e9,
+        "sdpa_fwd_tflops": 2 * unit / timing["sdpa_fwd_ms"] / 1e9,
+        "share_of_bound": timing["fwd"]["bound_ms"] / timing["fwd"]["kernel_ms"]}
     pair = timing["dq"]["kernel_ms"] + timing["dkv"]["kernel_ms"]
     timing["bwd_pair"] = {
         "kernel_ms": pair, "sdpa_bwd_ms": timing["sdpa_bwd_ms"],
@@ -1382,30 +1397,38 @@ def _flash_mode_case(gen, mode, dtype, hkv, d, dev="cuda"):
 
 
 def _flash_keep_check(gen):
-    """The forward kernel's keep-mask read off its output: q = 0 and v the
-    identity (sk = d, fp32) give out[b, row, h, col] = keep * inv / sk
-    exactly, held bit for bit against ``_drop_keep_dense`` for each rate."""
+    """The forward kernel's keep-mask read off its output, on each route
+    (``FLASH_KEEP_CHECK``: fp32 on the mma route, bf16 at d 128 on the sm90
+    one): q = 0 and v the identity (sk = d) give out[b, row, h, col] = keep
+    * inv / sk exactly (bf16: inv rounded to bf16, as P is, then / sk, a
+    power of two), held bit for bit against ``_drop_keep_dense`` for each
+    rate; each record names the route its launch took."""
     import torch
     from paddle_tpu_torch.kernels import flash_attention as fa
-    b, s, h, d = (FLASH_KEEP_CHECK[x] for x in "bshd")
-    q = torch.zeros((b, s, h, d), device="cuda")
-    k = torch.randn((b, d, h, d), generator=gen, device="cuda")
-    v = torch.eye(d, device="cuda")[None, :, None, :].expand(
-        b, d, h, d).contiguous()
+    b, s, h = (FLASH_KEEP_CHECK[x] for x in "bsh")
     res = {}
-    for p in FLASH_KEEP_RATES:
-        seed = torch.tensor([FLASH_MODE_SEED], dtype=torch.int32,
-                            device="cuda")
-        out, _ = fa._cuda_fwd(q, k, v, False, drop_p=p, seed=seed)
-        kernel_keep = (out != 0).transpose(1, 2)          # [b, h, s, d]
-        want = fa._drop_keep_dense((b, h, s, d), seed, p)
-        inv = float(fa._drop_scale(p)) / d
-        kept = out.transpose(1, 2)[want]
-        res[str(p)] = {
-            "positions": want.numel(),
-            "mismatches": int((kernel_keep != want).sum()),
-            "kept_share": float(want.float().mean()),
-            "values_off": int((kept != inv).sum())}
+    for dname, d in FLASH_KEEP_CHECK["routes"]:
+        dtype = getattr(torch, dname)
+        q = torch.zeros((b, s, h, d), device="cuda", dtype=dtype)
+        k = torch.randn((b, d, h, d), generator=gen, device="cuda").to(dtype)
+        v = torch.eye(d, device="cuda", dtype=dtype)[None, :, None, :].expand(
+            b, d, h, d).contiguous()
+        for p in FLASH_KEEP_RATES:
+            seed = torch.tensor([FLASH_MODE_SEED], dtype=torch.int32,
+                                device="cuda")
+            n0 = fa.LAUNCHES_FWD_SM90
+            out, _ = fa._cuda_fwd(q, k, v, False, drop_p=p, seed=seed)
+            kernel_keep = (out != 0).transpose(1, 2)          # [b, h, s, d]
+            want = fa._drop_keep_dense((b, h, s, d), seed, p)
+            inv = fa._drop_scale(p).to(dtype).float() / d
+            kept = out.transpose(1, 2)[want].float()
+            res[f"{dname} d{d} p={p}"] = {
+                "route": "sm90" if fa.LAUNCHES_FWD_SM90 > n0 else "mma",
+                "expected_route": fa._route(dtype, d),
+                "positions": want.numel(),
+                "mismatches": int((kernel_keep != want).sum()),
+                "kept_share": float(want.float().mean()),
+                "values_off": int((kept != inv.to(kept.device)).sum())}
     return res
 
 
@@ -1611,8 +1634,9 @@ def phase_kernel_flash_modes(smi=None):
         torch.cuda.empty_cache()
     matrix_s = time.perf_counter() - t0
     keep = _flash_keep_check(gen)
-    failed += [f"keep-mask p={p}: {r}" for p, r in keep.items()
-               if r["mismatches"] or r["values_off"]]
+    failed += [f"keep-mask {key}: {r}" for key, r in keep.items()
+               if r["mismatches"] or r["values_off"] or
+               r["route"] != r["expected_route"]]
     timed, launches = {}, {}
     for cfg in ("mask", "dropout", "varlen"):
         timing, checks, counts = _flash_mode_timing(gen, cfg)
@@ -1623,8 +1647,9 @@ def phase_kernel_flash_modes(smi=None):
         if counts != {"fwd": 1, "dq": 1, "dkv": 1}:
             failed.append(f"{cfg}: launches {counts}, expected one of each "
                           f"kernel")
-        if timing["sm90_launches"] != {"dq_sm90": 1, "dkv_sm90": 1}:
-            failed.append(f"{cfg}: the backward did not take the sm90 "
+        if timing["sm90_launches"] != {"fwd_sm90": 1, "dq_sm90": 1,
+                                       "dkv_sm90": 1}:
+            failed.append(f"{cfg}: the kernels did not take the sm90 "
                           f"route: {timing['sm90_launches']}")
     sdpa = _sdpa_card_vs_cpu(gen)
     failed += [f"nn.functional sdpa {k}: {c}" for k, c in sdpa.items()
@@ -1655,15 +1680,17 @@ def _flash_counts():
 
 
 def _flash_sm90_counts():
-    """The backward launches that took the "sm90" route."""
+    """The launches that took the "sm90" route."""
     from paddle_tpu_torch.kernels import flash_attention as fa
-    return {"dq_sm90": fa.LAUNCHES_BWD_DQ_SM90,
+    return {"fwd_sm90": fa.LAUNCHES_FWD_SM90,
+            "dq_sm90": fa.LAUNCHES_BWD_DQ_SM90,
             "dkv_sm90": fa.LAUNCHES_BWD_DKV_SM90}
 
 
 def _reset_flash_counts():
     from paddle_tpu_torch.kernels import flash_attention as fa
     fa.LAUNCHES_FWD = fa.LAUNCHES_BWD_DQ = fa.LAUNCHES_BWD_DKV = 0
+    fa.LAUNCHES_FWD_SM90 = 0
     fa.LAUNCHES_BWD_DQ_SM90 = fa.LAUNCHES_BWD_DKV_SM90 = 0
 
 
@@ -1771,7 +1798,8 @@ def phase_train():
     losses += timed
     want = {"fwd": 2 * L * steps if ps.pc.remat else L * steps,
             "dq": L * steps, "dkv": L * steps}
-    if launches != want or sm90 != {"dq_sm90": L * steps,
+    if launches != want or sm90 != {"fwd_sm90": want["fwd"],
+                                    "dq_sm90": L * steps,
                                     "dkv_sm90": L * steps}:
         raise AssertionError(f"train: flash launches {launches} != {want} "
                              f"({L} layers x {steps} steps), sm90 route "
@@ -1787,8 +1815,7 @@ def phase_train():
          m_dtype=args.m_dtype, v_dtype=ps.pc.v_dtype,
          setup_and_warmup_s=t_setup, step_ms_runs=[t * 1e3 for t in seconds],
          **pretrain.throughput(ps, ids, seconds),
-         losses=losses, flash_launches=launches,
-         flash_bwd_sm90_launches=sm90)
+         losses=losses, flash_launches=launches, flash_sm90_launches=sm90)
     del state, ps, ids, labels
     gc.collect()
     torch.cuda.empty_cache()
@@ -2291,11 +2318,13 @@ def phase_train_moe():
     _reset_flash_counts()
     _reset_grouped_counts()
     state, timed, seconds = pretrain.run_steps(ps, state, ids, labels, steps)
-    launches = {**_flash_counts(), **_grouped_counts()}
+    launches = {**_flash_counts(), **_flash_sm90_counts(),
+                **_grouped_counts()}
     losses += timed
     n = L * steps
     fwd = 2 if ps.pc.remat else 1
-    want = {"fwd": fwd * n, "dq": n, "dkv": n, "gmm": 3 * fwd * n,
+    want = {"fwd": fwd * n, "dq": n, "dkv": n, "fwd_sm90": fwd * n,
+            "dq_sm90": n, "dkv_sm90": n, "gmm": 3 * fwd * n,
             "gmm_trans": 3 * n, "tgmm": 3 * n}
     if launches != want:
         raise AssertionError(f"train_moe: launches {launches} != {want} "
@@ -3226,7 +3255,7 @@ def main() -> int:
          "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
          "library_ms": decode["library_ms"]}] + [
         {"name": f"flash_attention_{nm}", "route": "cuda",
-         "source": FLASH_SOURCE if key == "fwd" else FLASH_BWD_SOURCE,
+         "source": FLASH_FWD_SOURCE if key == "fwd" else FLASH_BWD_SOURCE,
          "replaces": FLASH_REPLACES[key],
          "launches": flash_launches[key], "max_abs_err": flash_err[key],
          "ms": flash_t[key]["kernel_ms"], "plain_ms": flash_t[key]["plain_ms"],
@@ -3236,7 +3265,7 @@ def main() -> int:
         for nm, key in (("fwd", "fwd"), ("bwd_dq", "dq"),
                         ("bwd_dkv", "dkv"))] + [
         {"name": f"flash_attention_{cfg}", "route": "cuda",
-         "source": FLASH_SOURCE, "replaces": FLASH_REPLACES["fwd"],
+         "source": FLASH_FWD_SOURCE, "replaces": FLASH_REPLACES["fwd"],
          "launches": m["launches"], "max_abs_err": m["max_abs_err"],
          "ms": m["kernel_ms"], "plain_ms": m["plain_ms"],
          "bound_ms": m["bound_ms"], "bound_by": "operations",

@@ -1,13 +1,13 @@
-// Flash attention for Hopper (sm_90a): forward, dQ and dK/dV, every mode.
+// Flash attention for Hopper (sm_90a): forward, dQ and dK/dV, every mode,
+// for fp32 and for bf16 at d 96 and 256 (the "mma" route).
 //
 // Replaces the Pallas TPU kernels of paddle_tpu/kernels/flash_attention.py:
 //   - _fa_fwd_kernel      (launched by _fwd_call)            -> flash_fwd_kernel
 //   - _fa_bwd_dq_kernel   (launched by _fa_pallas_backward)  -> flash_bwd_dq_kernel
 //   - _fa_bwd_dkv_kernel  (launched by _fa_pallas_backward)  -> flash_bwd_dkv_kernel
-// (the two backward kernels for fp32, and for bf16 at d 96 and 256; bf16 at
-// d 64 and 128 runs flash_attention_bwd_sm90.cu's wgmma kernels)
-// with all their modes, each composable with the others: causal, GQA, an
-// additive fp32 mask, segment ids (varlen) and dropout on the probabilities.
+// for those dtypes and head dims, with all their modes, each composable with
+// the others: causal, GQA, an additive fp32 mask, segment ids (varlen) and
+// dropout on the probabilities.
 // They compute what the plain versions in flash_attention.py compute:
 //
 //   s = scale * q k^T + mask;  s = -1e30 where k_pos > q_pos + (sk - sq) (causal)
@@ -78,9 +78,10 @@
 //   own each row for the row max and sum.
 // - Rows and columns past the sequence ends are zero-filled and masked, so
 //   any lengths work.
-// Later work (not here): the forward as flash_attention_bwd_sm90.cu's
-// kernels are built (wgmma, TMA rings, warp specialization, accumulators in
-// registers); skipping tiles with no live pair of a segment.
+// bf16 at d 64 and 128 (the "sm90" route: the wrapper's _route) runs the
+// wgmma kernels of flash_attention_fwd_sm90.cu and flash_attention_bwd_sm90.cu
+// instead, and is not built here.  Later work (not here): fp32 and d 96/256
+// on wgmma; skipping tiles with no live pair of a segment.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -687,22 +688,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 
 // ---- launches -------------------------------------------------------------
 
-struct Dims {
-  int B, Sq, Sk, Hq, Hkv, D, causal;
-};
-
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
 }
-
-template <int D>
-float scale_of() { return static_cast<float>(1.0 / sqrt((double)D)); }
-
-// Each kernel is built twice: without the modes' code (causal/full
-// attention: the training step) and with it (kModes).
-bool any_mode(const Modes& md) { return md.mask || md.seg_q || md.seed; }
 
 template <typename T, int D, bool kModes>
 cudaError_t fwd_as(const void* q, const void* k, const void* v, void* out, float* lse,
@@ -773,37 +763,21 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dou
                       : bwd_dkv_as<T, D, false>(q, k, v, dout, lse, delta, dk, dv, md, d, s);
 }
 
-// Calls FN<T, D>(args...) for dtype (0 float32, 1 bfloat16) and D (64, 96, 128, 256).
-#define PTT_DISPATCH_D(FN, T, ...)                                            \
+// Calls FN<T, D>(args...) for the dtypes and head dims this route serves:
+// float32 (dtype 0) at D 64, 96, 128 and 256, bfloat16 (dtype 1) at D 96
+// and 256.  bf16 at D 64 and 128 is the sm90 route's (the wrapper's
+// _route: flash_attention_fwd_sm90.cu, flash_attention_bwd_sm90.cu), so it
+// is neither built nor taken here.
+#define PTT_DISPATCH_MMA(FN, ...)                                             \
   do {                                                                        \
-    if (d.D == 64) return static_cast<int>(FN<T, 64>(__VA_ARGS__));           \
-    if (d.D == 96) return static_cast<int>(FN<T, 96>(__VA_ARGS__));           \
-    if (d.D == 128) return static_cast<int>(FN<T, 128>(__VA_ARGS__));         \
-    if (d.D == 256) return static_cast<int>(FN<T, 256>(__VA_ARGS__));         \
-  } while (0)
-#define PTT_DISPATCH(FN, ...)                                                 \
-  do {                                                                        \
-    if (dtype == 0) PTT_DISPATCH_D(FN, float, __VA_ARGS__);                   \
-    if (dtype == 1) PTT_DISPATCH_D(FN, bf16, __VA_ARGS__);                    \
+    if (dtype == 0 && d.D == 64) return static_cast<int>(FN<float, 64>(__VA_ARGS__));   \
+    if (dtype == 0 && d.D == 96) return static_cast<int>(FN<float, 96>(__VA_ARGS__));   \
+    if (dtype == 0 && d.D == 128) return static_cast<int>(FN<float, 128>(__VA_ARGS__)); \
+    if (dtype == 0 && d.D == 256) return static_cast<int>(FN<float, 256>(__VA_ARGS__)); \
+    if (dtype == 1 && d.D == 96) return static_cast<int>(FN<bf16, 96>(__VA_ARGS__));    \
+    if (dtype == 1 && d.D == 256) return static_cast<int>(FN<bf16, 256>(__VA_ARGS__));  \
     return static_cast<int>(cudaErrorInvalidValue);                           \
   } while (0)
-// The backward here serves fp32 at every head dim and bf16 at d 96 and 256;
-// bf16 at d 64 and 128 is flash_attention_bwd_sm90.cu's (the wrapper's
-// _bwd_route), so it is neither built nor taken here.
-#define PTT_DISPATCH_BWD(FN, ...)                                             \
-  do {                                                                        \
-    if (dtype == 0) PTT_DISPATCH_D(FN, float, __VA_ARGS__);                   \
-    if (dtype == 1 && d.D == 96) return static_cast<int>(FN<bf16, 96>(__VA_ARGS__));   \
-    if (dtype == 1 && d.D == 256) return static_cast<int>(FN<bf16, 256>(__VA_ARGS__)); \
-    return static_cast<int>(cudaErrorInvalidValue);                           \
-  } while (0)
-
-Modes make_modes(const void* mask, int64_t mask_sb, int64_t mask_sh, const void* seg_q,
-                 const void* seg_k, const void* seed, uint32_t thresh, float inv) {
-  return Modes{static_cast<const float*>(mask), mask_sb, mask_sh,
-               static_cast<const int*>(seg_q), static_cast<const int*>(seg_k),
-               static_cast<const int*>(seed), thresh, inv};
-}
 
 }  // namespace
 
@@ -811,10 +785,9 @@ Modes make_modes(const void* mask, int64_t mask_sb, int64_t mask_sh, const void*
 // [b, s, h, d] (q, out, dout, dq: [B, Sq, Hq, D]; k, v, dk, dv: [B, Sk, Hkv,
 // D]) and 16-byte aligned; lse and delta are fp32 [B, Hq, Sq].  dtype: 0 =
 // float32, 1 = bfloat16 (all of q, k, v, dout and the outputs).  D is 64,
-// 96, 128 or 256 (the backward's bf16: 96 or 256; bf16 at 64 and 128 is
-// refused, it runs ptt_flash_bwd_*_sm90), Hkv divides Hq, Sq and Sk are
-// positive, and a causal call
-// has Sq <= Sk.  The modes: mask (fp32 [B|1, Hq|1, Sq, Sk], with its batch
+// 96, 128 or 256 for float32 and 96 or 256 for bfloat16 (bf16 at 64 and 128
+// is refused: it runs the ptt_flash_*_sm90 entry points), Hkv divides Hq,
+// Sq and Sk are positive, and a causal call has Sq <= Sk.  The modes: mask (fp32 [B|1, Hq|1, Sq, Sk], with its batch
 // and head strides, 0 where it broadcasts) or null; seg_q / seg_k (int32
 // [B, Sq] / [B, Sk]) or null; seed (int32 [1] on the device) or null for no
 // dropout, with the keep threshold and 1 / (1 - rate).  The Python wrapper
@@ -828,7 +801,7 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v, void* 
   const Dims d{B, Sq, Sk, Hq, Hkv, D, causal};
   const Modes md = make_modes(mask, mask_sb, mask_sh, seg_q, seg_k, seed, thresh, inv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  PTT_DISPATCH(fwd, q, k, v, out, static_cast<float*>(lse), md, d, s);
+  PTT_DISPATCH_MMA(fwd, q, k, v, out, static_cast<float*>(lse), md, d, s);
 }
 
 extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -840,7 +813,7 @@ extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
   const Dims d{B, Sq, Sk, Hq, Hkv, D, causal};
   const Modes md = make_modes(mask, mask_sb, mask_sh, seg_q, seg_k, seed, thresh, inv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  PTT_DISPATCH_BWD(bwd_dq, q, k, v, dout, static_cast<const float*>(lse),
+  PTT_DISPATCH_MMA(bwd_dq, q, k, v, dout, static_cast<const float*>(lse),
                    static_cast<const float*>(delta), dq, md, d, s);
 }
 
@@ -854,6 +827,6 @@ extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   const Dims d{B, Sq, Sk, Hq, Hkv, D, causal};
   const Modes md = make_modes(mask, mask_sb, mask_sh, seg_q, seg_k, seed, thresh, inv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  PTT_DISPATCH_BWD(bwd_dkv, q, k, v, dout, static_cast<const float*>(lse),
+  PTT_DISPATCH_MMA(bwd_dkv, q, k, v, dout, static_cast<const float*>(lse),
                    static_cast<const float*>(delta), dk, dv, md, d, s);
 }

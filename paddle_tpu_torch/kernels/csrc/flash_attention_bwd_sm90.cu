@@ -6,7 +6,7 @@
 //   - _fa_bwd_dkv_kernel  (launched by _fa_pallas_backward)  -> flash_bwd_dkv_sm90_kernel
 // for bf16 inputs at d 64 and 128, in every mode (causal, GQA, additive mask,
 // segment ids, dropout).  fp32, and bf16 at d 96 and 256, stay on the kernels
-// of flash_attention.cu (kernels/flash_attention.py: _bwd_route).  They
+// of flash_attention.cu (kernels/flash_attention.py: _route).  They
 // compute what the plain versions _flash_bwd_dq and _flash_bwd_dkv compute:
 //
 //   p = exp(s - lse),  s = scale q k^T (+ mask, -1e30 between segments)
@@ -80,6 +80,7 @@ constexpr int kBN = 64;                // rows of each streamed tile
 constexpr int kStages = 4;
 constexpr int kWindow = 16;            // (head, batch) pairs the grid walks together
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+constexpr int kRegsNeeded = kProducerRegs * 128 + kConsumerRegs * 256;   // setmaxnreg
 constexpr int kConsumerWarps = 8;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -91,61 +92,11 @@ constexpr uint32_t kBlockRows64 = kBN * kRowBytes;   // a 64-row, 64-column bloc
 template <int D>
 constexpr uint32_t tile_bytes(int rows) { return rows * D * 2; }
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  const uintptr_t a = (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023);
-  return reinterpret_cast<unsigned char*>(a);
-}
-
-// S[64 x 64] = A B^T over d: A the warpgroup's 64 rows (at a_off) of a
-// kBM-row tile, B a kBN-row tile, both K-major.  Descriptors are a base plus
-// a constant, so none is held in registers across the tile loop.
-template <int D>
-__device__ __forceinline__ void mm_scores(float (&acc)[32], const unsigned char* a,
-                                          uint32_t a_off, const unsigned char* bt) {
-  const uint64_t da = desc_sw128(a + a_off, 16, 1024), db = desc_sw128(bt, 16, 1024);
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t blk = kk / 4, k32 = (kk % 4) * 32;
-    const uint64_t a_k = desc_advance(da, blk * kBM * kRowBytes + k32);
-    const uint64_t b_k = desc_advance(db, blk * kBlockRows64 + k32);
-    if (kk == 0) wgmma_ss_m64n64k16<true>(acc, a_k, b_k);
-    else wgmma_ss_m64n64k16<false>(acc, a_k, b_k);
-  }
-}
-
-// ACC[64 x D] += A[64 x 64] B[64 x D]: A four bf16 fragments (k steps of 16
-// rows of B), B a kBN-row tile read transposed (MN-major)
-template <int D>
-__device__ __forceinline__ void mm_accumulate(float (&acc)[D / 2], const uint32_t (&a)[4][4],
-                                              const unsigned char* b) {
-  const uint64_t db = desc_sw128(b, kBlockRows64, 1024);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs_t(acc, a[kk], desc_advance(db, kk * 16 * kRowBytes), 1);
-}
-
 // v[i], or with dropout v[i] / (1 - rate) where bit i of `keep` is set and 0
 // where it is not
 __device__ __forceinline__ float dropped(const float (&v)[32], int i, uint32_t keep, bool drop,
                                          float inv) {
   return drop ? (((keep >> i) & 1) ? v[i] * inv : 0.f) : v[i];
-}
-
-// The CTA's tile (0 the heaviest), head and batch, from a 1-D grid of
-// n_tiles x heads x batches.  CTAs start in launch order, so the grid walks
-// the (head, batch) pairs in windows of kWindow: inside a window every
-// pair's heaviest tile first, then every pair's next one, and so on.  A
-// window's pairs share their streamed operands in L2, and the CTAs that
-// start last are light, so the card's last wave is short.
-struct Work {
-  int tile, head, batch;
-};
-
-__device__ __forceinline__ Work work_of(int n_tiles, int heads, int batches) {
-  const int pairs = heads * batches, per_window = n_tiles * kWindow;
-  const int win = blockIdx.x / per_window, r = blockIdx.x % per_window;
-  const int in_window = min(kWindow, pairs - win * kWindow);
-  const int pair = win * kWindow + r % in_window;
-  return {r / in_window, pair % heads, pair / heads};
 }
 
 // ---- dQ -------------------------------------------------------------------
@@ -178,7 +129,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   int* segk_s = reinterpret_cast<int*>(smem + L::off_segk);
 
   const int n_q = (Sq + kBM - 1) / kBM;
-  const Work wk = work_of(n_q, Hq, gridDim.x / (n_q * Hq));
+  const Work wk = work_of<kWindow>(n_q, Hq, gridDim.x / (n_q * Hq));
   const int q0 = (n_q - 1 - wk.tile) * kBM;               // longest rows first
   const int h = wk.head, b = wk.batch;
   const int hk = h / (Hq / Hkv);
@@ -270,9 +221,9 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         const unsigned char* vs = ks + L::kv;
         float sv[32], dpv[32];
         wgmma_fence();
-        mm_scores<D>(sv, q_s, a_off, ks);           // S = Q K^T
+        wgmma_scores<D, kBM>(sv, q_s + a_off, ks);           // S = Q K^T
         wgmma_commit();
-        mm_scores<D>(dpv, do_s, a_off, vs);         // dP = dO V^T
+        wgmma_scores<D, kBM>(dpv, do_s + a_off, vs);         // dP = dO V^T
         wgmma_commit();
         wgmma_wait<1>();
         fence_regs(sv);
@@ -316,7 +267,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int kk = 0; kk < 4; ++kk) frag_to_a(dpv, kk, a[kk]);
         fence_regs(acc);
         wgmma_fence();
-        mm_accumulate<D>(acc, a, ks);               // dQ += dS K
+        wgmma_accumulate<D>(acc, a, ks);               // dQ += dS K
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(acc);
@@ -369,7 +320,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   float* rows_s = reinterpret_cast<float*>(smem + L::off_rows);
 
   const int n_k = (Sk + kBM - 1) / kBM;
-  const Work wk = work_of(n_k, Hkv, gridDim.x / (n_k * Hkv));
+  const Work wk = work_of<kWindow>(n_k, Hkv, gridDim.x / (n_k * Hkv));
   const int k0 = wk.tile * kBM;                          // heaviest (first) tiles first
   const int hk = wk.head, b = wk.batch;
   const int group = Hq / Hkv;
@@ -481,9 +432,9 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
           const float* delta_s = lse_s + kBN;
           float sv[32], dpv[32];
           wgmma_fence();
-          mm_scores<D>(sv, k_s, a_off, qs);          // S^T = K Q^T
+          wgmma_scores<D, kBM>(sv, k_s + a_off, qs);          // S^T = K Q^T
           wgmma_commit();
-          mm_scores<D>(dpv, v_s, a_off, dos);        // dP^T = V dO^T
+          wgmma_scores<D, kBM>(dpv, v_s + a_off, dos);        // dP^T = V dO^T
           wgmma_commit();
           wgmma_wait<1>();
           fence_regs(sv);
@@ -528,7 +479,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
           }
           fence_regs(dv_acc);
           wgmma_fence();
-          mm_accumulate<D>(dv_acc, a, dos);          // dV += P^T dO
+          wgmma_accumulate<D>(dv_acc, a, dos);          // dV += P^T dO
           wgmma_commit();
           // dP^T has landed (the modes build, shorter of registers, also
           // lets dV's product finish, so `a` is free before dS^T)
@@ -544,7 +495,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
           for (int kk = 0; kk < 4; ++kk) frag_to_a(dpv, kk, ads[kk]);
           fence_regs(dk_acc);
           wgmma_fence();
-          mm_accumulate<D>(dk_acc, ads, qs);         // dK += dS^T Q
+          wgmma_accumulate<D>(dk_acc, ads, qs);         // dK += dS^T Q
           wgmma_commit();
           wgmma_wait<0>();
           fence_regs(dv_acc);
@@ -570,33 +521,6 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // ---- launches -------------------------------------------------------------
 
-struct Dims {
-  int B, Sq, Sk, Hq, Hkv, D, causal;
-};
-
-bool any_mode(const Modes& md) { return md.mask || md.seg_q || md.seed; }
-
-// The consumers' setmaxnreg.inc waits for registers the producer gives back;
-// it can only be met when the launch holds kThreads x numRegs >= what the
-// two roles take.  Checked once per kernel, so a build that breaks it fails
-// the launch instead of hanging the card.
-template <auto Kernel>
-cudaError_t prepare(size_t smem_bytes) {
-  static const cudaError_t checked = [smem_bytes]() -> cudaError_t {
-    cudaFuncAttributes attr;
-    cudaError_t e = cudaFuncGetAttributes(&attr, Kernel);
-    if (e != cudaSuccess) return e;
-    if (attr.numRegs * kThreads < kProducerRegs * 128 + kConsumerRegs * 256)
-      return cudaErrorLaunchOutOfResources;
-    return cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(smem_bytes));
-  }();
-  return checked;
-}
-
-template <int D>
-float scale_of() { return static_cast<float>(1.0 / sqrt((double)D)); }
-
 template <int D, bool kModes>
 cudaError_t dq_as(const void* q, const void* k, const void* v, const void* dout,
                   const float* lse, const float* delta, void* dq, const Modes& md, const Dims& d,
@@ -608,7 +532,8 @@ cudaError_t dq_as(const void* q, const void* k, const void* v, const void* dout,
       !encode_bshd(&tv, v, d.B, d.Sk, d.Hkv, D, kBN))
     return cudaErrorInvalidValue;
   constexpr size_t bytes = DqSmem<D>::bytes;
-  const cudaError_t e = prepare<flash_bwd_dq_sm90_kernel<D, kModes>>(bytes);
+  const cudaError_t e = prepare_warp_specialized<flash_bwd_dq_sm90_kernel<D, kModes>>(
+      bytes, kThreads, kRegsNeeded);
   if (e != cudaSuccess) return e;
   const dim3 grid(((d.Sq + kBM - 1) / kBM) * d.Hq * d.B);
   flash_bwd_dq_sm90_kernel<D, kModes><<<grid, kThreads, bytes, s>>>(
@@ -628,7 +553,8 @@ cudaError_t dkv_as(const void* q, const void* k, const void* v, const void* dout
       !encode_bshd(&tv, v, d.B, d.Sk, d.Hkv, D, kBM))
     return cudaErrorInvalidValue;
   constexpr size_t bytes = DkvSmem<D>::bytes;
-  const cudaError_t e = prepare<flash_bwd_dkv_sm90_kernel<D, kModes>>(bytes);
+  const cudaError_t e = prepare_warp_specialized<flash_bwd_dkv_sm90_kernel<D, kModes>>(
+      bytes, kThreads, kRegsNeeded);
   if (e != cudaSuccess) return e;
   const dim3 grid(((d.Sk + kBM - 1) / kBM) * d.Hkv * d.B);
   flash_bwd_dkv_sm90_kernel<D, kModes><<<grid, kThreads, bytes, s>>>(
@@ -636,25 +562,6 @@ cudaError_t dkv_as(const void* q, const void* k, const void* v, const void* dout
       d.Sk, d.Hq, d.Hkv, d.causal, scale_of<D>());
   return cudaGetLastError();
 }
-
-Modes make_modes(const void* mask, int64_t mask_sb, int64_t mask_sh, const void* seg_q,
-                 const void* seg_k, const void* seed, uint32_t thresh, float inv) {
-  return Modes{static_cast<const float*>(mask), mask_sb, mask_sh,
-               static_cast<const int*>(seg_q), static_cast<const int*>(seg_k),
-               static_cast<const int*>(seed), thresh, inv};
-}
-
-// Calls FN<D, kModes>(args...) for D 64 or 128; anything else is refused.
-#define PTT_SM90_DISPATCH(FN, ...)                                                     \
-  do {                                                                                 \
-    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);                    \
-    const bool m = any_mode(md);                                                       \
-    if (d.D == 64) return static_cast<int>(m ? FN<64, true>(__VA_ARGS__)               \
-                                             : FN<64, false>(__VA_ARGS__));            \
-    if (d.D == 128) return static_cast<int>(m ? FN<128, true>(__VA_ARGS__)             \
-                                              : FN<128, false>(__VA_ARGS__));          \
-    return static_cast<int>(cudaErrorInvalidValue);                                    \
-  } while (0)
 
 }  // namespace
 

@@ -208,6 +208,25 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t da, 
   }
 }
 
+// S[64 x 64] = A B^T over D (a multiple of 64): A the 64 rows at `a` of a
+// tile of A_ROWS rows, B a 64-row tile, both K-major (D / 64 column blocks
+// of 128-byte rows, block c of a tile of R rows at c * R * 128).
+// Descriptors are a base plus a constant, so none is held in registers
+// across a caller's tile loop.
+template <int D, int A_ROWS>
+__device__ __forceinline__ void wgmma_scores(float (&acc)[32], const unsigned char* a,
+                                             const unsigned char* b) {
+  const uint64_t da = desc_sw128(a, 16, 1024), db = desc_sw128(b, 16, 1024);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t blk = kk / 4, k32 = (kk % 4) * 32;
+    const uint64_t a_k = desc_advance(da, blk * A_ROWS * 128 + k32);
+    const uint64_t b_k = desc_advance(db, blk * 64 * 128 + k32);
+    if (kk == 0) wgmma_ss_m64n64k16<true>(acc, a_k, b_k);
+    else wgmma_ss_m64n64k16<false>(acc, a_k, b_k);
+  }
+}
+
 // D[64 x 64] += A[64 x 16] B[16 x 64], A in registers (a[0..3], the
 // accumulator's fragment layout packed to bf16 pairs), B MN-major in shared
 // memory (tnsp = 1); `accumulate` 0 overwrites D
@@ -261,6 +280,17 @@ __device__ __forceinline__ void wgmma_rs_t(float (&d)[NF], const uint32_t (&a)[4
   else wgmma_rs_m64n128k16_t(d, a, db, accumulate);
 }
 
+// ACC[64 x D] += A[64 x 64] B[64 x D]: A four bf16 register fragments (k
+// steps of 16 rows of B), B a 64-row tile read transposed (MN-major; LBO
+// the 8 KB between its 64-column blocks)
+template <int D>
+__device__ __forceinline__ void wgmma_accumulate(float (&acc)[D / 2], const uint32_t (&a)[4][4],
+                                                 const unsigned char* b) {
+  const uint64_t db = desc_sw128(b, 64 * 128, 1024);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs_t(acc, a[kk], desc_advance(db, kk * 16 * 128), 1);
+}
+
 // Accumulator fragment of an m64nN product: thread t of the warpgroup holds
 // element i at row 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2) and column
 // 8 (i / 4) + 2 (t % 4) + i % 2.
@@ -298,6 +328,13 @@ __device__ __forceinline__ float ex2_approx(float x) {
 
 // ---- warp specialisation --------------------------------------------------
 
+// the first 1024-byte boundary at or after p (a 128-byte-swizzled tile's
+// alignment)
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uintptr_t a = (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023);
+  return reinterpret_cast<unsigned char*>(a);
+}
+
 template <int R>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
@@ -305,6 +342,25 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 template <int R>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// A warp-specialised kernel's consumers raise their registers with
+// setmaxnreg.inc, which waits for registers the producer gives back; it can
+// only be met when the launch holds threads x numRegs >= `regs_needed`, the
+// sum of both roles' budgets.  Checked once per kernel, so a build that
+// breaks it fails the launch instead of hanging the card; then allows
+// `smem_bytes` of dynamic shared memory.
+template <auto Kernel>
+cudaError_t prepare_warp_specialized(size_t smem_bytes, int threads, int regs_needed) {
+  static const cudaError_t checked = [=]() -> cudaError_t {
+    cudaFuncAttributes attr;
+    cudaError_t e = cudaFuncGetAttributes(&attr, Kernel);
+    if (e != cudaSuccess) return e;
+    if (attr.numRegs * threads < regs_needed) return cudaErrorLaunchOutOfResources;
+    return cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(smem_bytes));
+  }();
+  return checked;
 }
 
 }  // namespace sm90

@@ -13,13 +13,15 @@ reference's ``zeros``).
   kernel (it replaces the Pallas ``_fa_fwd_kernel``, ``_fa_bwd_dq_kernel``
   and ``_fa_bwd_dkv_kernel``); every launch adds one to
   :data:`LAUNCHES_FWD`, :data:`LAUNCHES_BWD_DQ` or :data:`LAUNCHES_BWD_DKV`,
-  whatever the mode.  The forward is ``csrc/flash_attention.cu``; the two
-  backward kernels take the route :func:`_bwd_route` picks by dtype and
-  head dim: ``"sm90"`` (bf16 at d 64 and 128:
+  whatever the mode.  All three take the route :func:`_route` picks by
+  dtype and head dim, so a forward and its backward never take different
+  routes: ``"sm90"`` (bf16 at d 64 and 128:
+  ``csrc/flash_attention_fwd_sm90.cu`` and
   ``csrc/flash_attention_bwd_sm90.cu``, wgmma fed by TMA rings, also
-  counted in :data:`LAUNCHES_BWD_DQ_SM90` / :data:`LAUNCHES_BWD_DKV_SM90`)
-  or ``"mma"`` (fp32, and bf16 at d 96 and 256: ``csrc/flash_attention.cu``).
-  A shape the kernels do not take raises.
+  counted in :data:`LAUNCHES_FWD_SM90`, :data:`LAUNCHES_BWD_DQ_SM90` and
+  :data:`LAUNCHES_BWD_DKV_SM90`) or ``"mma"`` (fp32, and bf16 at d 96 and
+  256: ``csrc/flash_attention.cu``).  A shape the kernels do not take
+  raises; nothing falls back to another route.
 - On CPU tensors the same steps run their plain PyTorch versions
   (:func:`_reference_attention_lse`, :func:`_flash_bwd_dq`,
   :func:`_flash_bwd_dkv`), the tests' oracle.
@@ -54,7 +56,8 @@ NEG_INF = -1e30
 LAUNCHES_FWD = 0
 LAUNCHES_BWD_DQ = 0
 LAUNCHES_BWD_DKV = 0
-# the backward launches that took the "sm90" route (a part of the above)
+# the launches that took the "sm90" route (a part of the above)
+LAUNCHES_FWD_SM90 = 0
 LAUNCHES_BWD_DQ_SM90 = 0
 LAUNCHES_BWD_DKV_SM90 = 0
 
@@ -248,6 +251,9 @@ ENTRY_POINTS = {
         "ptt_flash_bwd_dq": [ctypes.c_void_p] * 7 + _TAIL_ARGS,
         "ptt_flash_bwd_dkv": [ctypes.c_void_p] * 8 + _TAIL_ARGS,
     },
+    "flash_attention_fwd_sm90": {
+        "ptt_flash_fwd_sm90": [ctypes.c_void_p] * 5 + _TAIL_ARGS,
+    },
     "flash_attention_bwd_sm90": {
         "ptt_flash_bwd_dq_sm90": [ctypes.c_void_p] * 7 + _TAIL_ARGS,
         "ptt_flash_bwd_dkv_sm90": [ctypes.c_void_p] * 8 + _TAIL_ARGS,
@@ -271,8 +277,8 @@ def _lib(name="flash_attention"):
     return _setup(_build.load(name), name)
 
 
-def _bwd_route(dtype, d):
-    """The backward kernels' route for inputs of ``dtype`` at head dim
+def _route(dtype, d):
+    """The route of all three kernels for inputs of ``dtype`` at head dim
     ``d``: ``"sm90"`` (bf16 at d 64 and 128) or ``"mma"`` (the rest: fp32,
     where wgmma would need TF32, and bf16 at d 96, which wgmma's 64-column
     swizzle blocks do not tile, and 256, whose two 64 x 256 fp32
@@ -394,28 +400,31 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
+def _entry(q, which):
+    """The C entry point of kernel ``which`` ("fwd", "bwd_dq" or
+    "bwd_dkv") on ``q``'s route, and whether that route is "sm90"."""
+    if _route(q.dtype, q.shape[-1]) == "sm90":
+        lib = "flash_attention_fwd_sm90" if which == "fwd" else \
+            "flash_attention_bwd_sm90"
+        return getattr(_lib(lib), f"ptt_flash_{which}_sm90"), True
+    return getattr(_lib(), f"ptt_flash_{which}"), False
+
+
 def _cuda_fwd(q, k, v, causal, mask=None, seg_q=None, seg_k=None, drop_p=0.0,
               seed=None):
-    global LAUNCHES_FWD
+    global LAUNCHES_FWD, LAUNCHES_FWD_SM90
     q, k, v = _check_cuda(q, k, v, causal)
     md = _Modes(q, k, mask, seg_q, seg_k, drop_p, seed)
     b, sq, hq, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    _raise_on(_lib().ptt_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                   out.data_ptr(), lse.data_ptr(), *md.args(),
-                                   *_dims(q, k, causal)), "flash_fwd")
+    fn, sm90 = _entry(q, "fwd")
+    _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr(), *md.args(), *_dims(q, k, causal)),
+              "flash_fwd")
     LAUNCHES_FWD += 1
+    LAUNCHES_FWD_SM90 += sm90
     return out, lse
-
-
-def _bwd_fn(q, which):
-    """The C entry point of backward kernel ``which`` ("dq" or "dkv") on
-    ``q``'s route, and whether that route is "sm90"."""
-    if _bwd_route(q.dtype, q.shape[-1]) == "sm90":
-        return getattr(_lib("flash_attention_bwd_sm90"),
-                       f"ptt_flash_bwd_{which}_sm90"), True
-    return getattr(_lib(), f"ptt_flash_bwd_{which}"), False
 
 
 def _cuda_bwd_dq(q, k, v, dout, lse, delta, causal, mask=None, seg_q=None,
@@ -424,7 +433,7 @@ def _cuda_bwd_dq(q, k, v, dout, lse, delta, causal, mask=None, seg_q=None,
     q, k, v, dout = _check_cuda(q, k, v, causal, (("dout", dout),))
     md = _Modes(q, k, mask, seg_q, seg_k, drop_p, seed)
     dq = torch.empty_like(q)
-    fn, sm90 = _bwd_fn(q, "dq")
+    fn, sm90 = _entry(q, "bwd_dq")
     _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *md.args(),
                  *_dims(q, k, causal)), "flash_bwd_dq")
@@ -439,7 +448,7 @@ def _cuda_bwd_dkv(q, k, v, dout, lse, delta, causal, mask=None, seg_q=None,
     q, k, v, dout = _check_cuda(q, k, v, causal, (("dout", dout),))
     md = _Modes(q, k, mask, seg_q, seg_k, drop_p, seed)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn, sm90 = _bwd_fn(q, "dkv")
+    fn, sm90 = _entry(q, "bwd_dkv")
     _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
                  dv.data_ptr(), *md.args(), *_dims(q, k, causal)),

@@ -14,8 +14,9 @@ through that entry point's ``build_trainer`` (random weights and batch from
 the profiler and as many under ``torch.profiler``, and prints one JSON line:
 wall milliseconds per step, tokens/s and MFU, device-busy milliseconds, the
 device's idle share, the three flash-attention kernels (ms and launches per
-step, the backward's launches on the "sm90" route, and the backward's
-share of the device-busy time), for MoE presets (``--preset mixtral_8x7b --num-layers 4``) the three
+step, the launches on the "sm90" route, and the forward's and the
+backward's shares of the device-busy time), for MoE presets
+(``--preset mixtral_8x7b --num-layers 4``) the three
 grouped-matmul kernels (gmm forward, gmm ``trans_rhs``, ``tgmm``; ms and
 launches per step), cuBLAS GEMMs, the AdamW update and the cross-entropy
 forward (the device time of the kernels launched inside their
@@ -123,7 +124,8 @@ def profile_train(argv) -> dict:
     def counts():
         return (fa.LAUNCHES_FWD, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV,
                 gm.LAUNCHES, gm.LAUNCHES_TRANS, gm.LAUNCHES_TGMM,
-                fa.LAUNCHES_BWD_DQ_SM90, fa.LAUNCHES_BWD_DKV_SM90)
+                fa.LAUNCHES_BWD_DQ_SM90, fa.LAUNCHES_BWD_DKV_SM90,
+                fa.LAUNCHES_FWD_SM90)
 
     c0 = counts()
     with profile(activities=[ProfilerActivity.CPU,
@@ -138,9 +140,9 @@ def profile_train(argv) -> dict:
     def share(*keys):
         return sum(v for k, v in by_name.items() if any(x in k for x in keys))
 
-    # each backward kernel on either route (flash_attention.cu's
-    # flash_bwd_dq_kernel, flash_attention_bwd_sm90.cu's
-    # flash_bwd_dq_sm90_kernel, and so on)
+    # each kernel on either route (flash_attention.cu's flash_fwd_kernel,
+    # flash_attention_fwd_sm90.cu's flash_fwd_sm90_kernel,
+    # flash_attention_bwd_sm90.cu's flash_bwd_dq_sm90_kernel, and so on)
     flash = {nm: share(f"flash_{nm}_kernel", f"flash_{nm}_sm90_kernel") / n
              for nm in ("fwd", "bwd_dq", "bwd_dkv")}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:args.top]
@@ -169,8 +171,11 @@ def profile_train(argv) -> dict:
         "flash_ms_per_step": flash,
         "flash_launches_per_step": dict(zip(("fwd", "bwd_dq", "bwd_dkv"),
                                             (x / n for x in launches[:3]))),
+        "flash_fwd_sm90_launches_per_step": launches[8] / n,
         "flash_bwd_sm90_launches_per_step": dict(zip(
-            ("bwd_dq", "bwd_dkv"), (x / n for x in launches[6:]))),
+            ("bwd_dq", "bwd_dkv"), (x / n for x in launches[6:8]))),
+        "flash_fwd_share_of_busy": flash["fwd"] * n / busy_ms
+        if busy_ms else None,
         "flash_bwd_share_of_busy": (flash["bwd_dq"] + flash["bwd_dkv"]) * n
         / busy_ms if busy_ms else None,
         **moe,

@@ -353,21 +353,22 @@ def _assert_flash_close(got, want, rel, rtol, atol):
 def test_flash_kernels_vs_plain_on_card(h100, dtype, b, sq, sk, hq, hkv, d,
                                         causal):
     """Forward (out, lse), dQ and dK/dV against the plain versions on the
-    same inputs (tolerances in the module docstring); the backward takes
-    the route ``_bwd_route`` names (bf16 at d 64/128: the sm90 kernels)."""
+    same inputs (tolerances in the module docstring); all three take the
+    route ``_route`` names (bf16 at d 64/128: the sm90 kernels)."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     q, k, v, g = _flash_inputs(h100, dtype, b=b, sq=sq, sk=sk, hq=hq,
                                hkv=hkv, d=d, seed=sq + hkv)
     n0 = (fa.LAUNCHES_FWD, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV)
-    s0 = (fa.LAUNCHES_BWD_DQ_SM90, fa.LAUNCHES_BWD_DKV_SM90)
+    s0 = (fa.LAUNCHES_FWD_SM90, fa.LAUNCHES_BWD_DQ_SM90,
+          fa.LAUNCHES_BWD_DKV_SM90)
     out, lse = fa.flash_forward(q, k, v, causal)
     dq, dk, dv = fa.flash_backward(q, k, v, out, lse, g, causal)
     torch.cuda.synchronize()
     assert (fa.LAUNCHES_FWD, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV) == \
         (n0[0] + 1, n0[1] + 1, n0[2] + 1)
-    sm90 = int(fa._bwd_route(dtype, d) == "sm90")
-    assert (fa.LAUNCHES_BWD_DQ_SM90, fa.LAUNCHES_BWD_DKV_SM90) == \
-        (s0[0] + sm90, s0[1] + sm90)
+    sm90 = int(fa._route(dtype, d) == "sm90")
+    assert (fa.LAUNCHES_FWD_SM90, fa.LAUNCHES_BWD_DQ_SM90,
+            fa.LAUNCHES_BWD_DKV_SM90) == tuple(n + sm90 for n in s0)
     ref, ref_lse = fa._reference_attention_lse(q, k, v, causal)
     tol = FLASH_TOL[dtype]
     _assert_flash_close(out, ref, **tol)
@@ -418,6 +419,120 @@ def test_flash_bwd_sm90_repeats_bit_for_bit_on_card(h100, d, causal, modes):
             *fa._flash_bwd_dkv(q, k, v, g, lse, delta, causal, **kw))
     for got, ref in zip(first, want):
         _assert_flash_close(got, ref, **FLASH_TOL[torch.bfloat16])
+
+
+def _fwd_modes(h100, mode, b, sq, sk, hq):
+    """The forward's mode operands for ``mode`` at these dims."""
+    gen = torch.Generator(device=h100).manual_seed(sq * 7 + sk)
+    if mode == "mask":
+        # a tenth of the keys at -1e30, key 0 never: every causal row keeps
+        # a live key (a row with none averages only the keys the kernels
+        # visit, not every key as the plain version does)
+        x = torch.randn((b, hq, sq, sk), generator=gen, device=h100) * 0.5
+        drop = torch.rand(x.shape, generator=gen, device=h100) < 0.1
+        drop[..., 0] = False
+        return {"mask": x.masked_fill(drop, -1e30)}
+    if mode == "mask_h1":
+        return {"mask": torch.randn((1, 1, sq, sk), generator=gen,
+                                    device=h100)}
+    if mode == "segments":
+        seg_q = torch.randint(0, 3, (b, sq), generator=gen,
+                              device=h100).sort(dim=1).values
+        seg_k = torch.randint(0, 3, (b, sk), generator=gen,
+                              device=h100).sort(dim=1).values
+        return {"seg_q": seg_q.to(torch.int32), "seg_k": seg_k.to(torch.int32)}
+    if mode == "dropout":
+        return {"drop_p": 0.2,
+                "seed": torch.tensor([11], dtype=torch.int32, device=h100)}
+    return {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["", "mask", "mask_h1", "segments",
+                                  "dropout"])
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,d,causal", [
+    (2, 128, 128, 4, 4, 64, False),
+    (2, 256, 256, 8, 2, 128, True),      # GQA group 4
+    (1, 100, 300, 8, 1, 128, True),      # sq < sk, ragged tiles, group 8
+    (3, 77, 77, 2, 2, 64, False),        # lengths off the 64-row tile
+    (2, 200, 136, 4, 1, 128, False),     # sq > sk (full), group 4
+    (1, 300, 300, 4, 4, 64, True),       # three q tiles, a half-empty last
+])
+def test_flash_fwd_sm90_vs_plain_on_card(h100, mode, b, sq, sk, hq, hkv, d,
+                                         causal):
+    """The sm90 forward (bf16, d 64/128) against ``_reference_attention_lse``
+    on the same inputs over shapes, GQA groups, causal/full and each mode;
+    one launch, on the sm90 route."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    if causal and mode == "segments":
+        sk = sq                          # causal segments: equal packings
+    q, k, v, _ = _flash_inputs(h100, torch.bfloat16, b=b, sq=sq, sk=sk,
+                               hq=hq, hkv=hkv, d=d, seed=sq + sk + d)
+    modes = _fwd_modes(h100, mode, b, sq, sk, hq)
+    if causal and mode == "segments":
+        modes["seg_k"] = modes["seg_q"]
+    n0 = (fa.LAUNCHES_FWD, fa.LAUNCHES_FWD_SM90)
+    out, lse = fa.flash_forward(q, k, v, causal, **modes)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES_FWD, fa.LAUNCHES_FWD_SM90) == (n0[0] + 1, n0[1] + 1)
+    ref, ref_lse = fa._reference_attention_lse(q, k, v, causal, **modes)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    _assert_flash_close(out, ref, **FLASH_TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,causal,mode", [
+    (128, True, ""), (64, False, ""), (128, True, "mask"),
+    (128, False, "dropout"), (64, True, "segments")])
+def test_flash_fwd_sm90_repeats_bit_for_bit_on_card(h100, d, causal, mode):
+    """The sm90 forward writes each output once after a sum in a fixed
+    order: a second launch gives the same bits, in both builds."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    b, s, hq, hkv = 2, 200, 4, 2
+    q, k, v, _ = _flash_inputs(h100, torch.bfloat16, b=b, sq=s, sk=s, hq=hq,
+                               hkv=hkv, d=d, seed=d + s + 1)
+    modes = _fwd_modes(h100, mode, b, s, s, hq)
+    if mode == "segments":
+        modes["seg_k"] = modes["seg_q"]
+    n0 = fa.LAUNCHES_FWD_SM90
+    first = fa._cuda_fwd(q, k, v, causal, **modes)
+    second = fa._cuda_fwd(q, k, v, causal, **modes)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES_FWD_SM90 == n0 + 2
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_fwd_sm90_fully_masked_causal_row_on_card(h100, d):
+    """A causal row whose every key the mask sets to -1e30 averages the keys
+    it visits (the 64-key tiles its 64-row group needs): the sm90 forward
+    (bf16) gives the mma route's average (fp32, the same values) and its
+    lse, which the backward's p = exp(s - lse) expects."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    b, s, h = 1, 200, 2
+    q, k, v, _ = _flash_inputs(h100, torch.bfloat16, b=b, sq=s, sk=s, hq=h,
+                               hkv=h, d=d, seed=d)
+    mask = torch.zeros((b, 1, s, s), device=h100)
+    rows = [0, 70, 130, 199]             # in each 64-row group
+    mask[:, :, rows] = -1e30
+    n0 = fa.LAUNCHES_FWD_SM90
+    out, lse = fa.flash_forward(q, k, v, True, mask=mask)
+    assert fa.LAUNCHES_FWD_SM90 == n0 + 1
+    want, want_lse = fa.flash_forward(q.float(), k.float(), v.float(), True,
+                                      mask=mask)
+    assert fa.LAUNCHES_FWD_SM90 == n0 + 1         # fp32: the mma route
+    torch.cuda.synchronize()
+    for r in rows:                      # the average over keys 0 .. 64 n - 1
+        n = min(s, 64 * (r // 64 + 1))
+        avg = v[:, :n].float().mean(dim=1)          # [b, h, d]
+        torch.testing.assert_close(want[:, r], avg, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(out[:, r].float(), avg, rtol=1e-2,
+                                   atol=2e-2)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-4)
+    _assert_flash_close(out, want, **FLASH_TOL[torch.bfloat16])
 
 
 @pytest.mark.cuda

@@ -26,7 +26,7 @@ SM90_SOURCE = "flash_attention_bwd_sm90"
 @pytest.mark.parametrize("dtype", list(fa._DTYPE_CODE))
 def test_bwd_route_by_dtype_and_head_dim(dtype, d):
     want = "sm90" if dtype == torch.bfloat16 and d in (64, 128) else "mma"
-    assert fa._bwd_route(dtype, d) == want
+    assert fa._route(dtype, d) == want
 
 
 class _FakeFn:
@@ -99,8 +99,8 @@ def test_sm90_entry_points_are_in_the_table():
                                      (torch.float32, 128)])
 @pytest.mark.parametrize("which", ["dq", "dkv"])
 def test_bwd_fn_takes_the_routes_library(monkeypatch, dtype, d, which):
-    """``_bwd_fn`` picks its library and entry point by ``_bwd_route``
-    alone (no try, no fallback)."""
+    """``_entry`` picks a backward kernel's library and entry point by
+    ``_route`` alone (no try, no fallback)."""
     libs = {src: _FakeLib(fns) for src, fns in fa.ENTRY_POINTS.items()}
     loaded = []
 
@@ -110,8 +110,8 @@ def test_bwd_fn_takes_the_routes_library(monkeypatch, dtype, d, which):
 
     monkeypatch.setattr(fa, "_lib", fake_lib)
     q = torch.zeros((1, 4, 2, d), dtype=dtype)
-    fn, sm90 = fa._bwd_fn(q, which)
-    route = fa._bwd_route(dtype, d)
+    fn, sm90 = fa._entry(q, f"bwd_{which}")
+    route = fa._route(dtype, d)
     assert sm90 == (route == "sm90")
     src = SM90_SOURCE if sm90 else "flash_attention"
     assert loaded == [src]
@@ -164,11 +164,11 @@ def test_mma_route_builds_no_bf16_backward_at_d64_or_d128():
     backward entry points dispatch fp32 at every head dim and bf16 at d 96
     and 256, so no unreachable kernel is built."""
     old = (_build.CSRC / "flash_attention.cu").read_text()
-    body = old[old.index("#define PTT_DISPATCH_BWD"):]
+    body = old[old.index("#define PTT_DISPATCH_MMA"):]
     body = body[:body.index("} while (0)")]
     assert "FN<bf16, 96>" in body and "FN<bf16, 256>" in body
     assert "FN<bf16, 64>" not in body and "FN<bf16, 128>" not in body
     for entry in ("ptt_flash_bwd_dq", "ptt_flash_bwd_dkv"):
         fn = old[old.index(f'extern "C" int {entry}('):]
         fn = fn[:fn.index("\n}")]
-        assert "PTT_DISPATCH_BWD(" in fn
+        assert "PTT_DISPATCH_MMA(" in fn
