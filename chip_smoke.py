@@ -14,20 +14,27 @@ is caught; there is no ``ok`` line unless every phase passed):
    ``paddle_tpu_torch/kernels/csrc`` and the generated primitive builds
    that ``kernel_primitives`` uses (one nvcc per source and per generated
    header, all in parallel).
-3. ``kernel``  — the ragged paged-attention kernel (float pools) against
-   its plain PyTorch version on the card over a case matrix (decode and
-   mixed prefill/decode, GQA groups 1/4/8, fp32 and bf16, ragged and
-   page-exact contexts, idle rows, a pool dtype other than q's), then
-   CUDA-event times at the llama2_7b decode shape: kernel, plain version,
-   ``scaled_dot_product_attention`` as a yardstick, and the memory-bound
-   least time.
-4. ``kernel_int8`` — the same kernel over int8 pools (fp32 scale per
-   (kv-head, page), pages 8/16/32, all-zero pages) against its plain
-   version, then times at the same decode shape with an int8 pool.
-5. ``kernel_gmm`` — the grouped-matmul kernel against its plain version in
-   fp32 and bf16, with and without the fused row gather (bm 8/16/128/512,
-   empty experts, one expert holding every row, zero sentinel rows, widths
-   from 64 up to Mixtral's), then times at the Mixtral-width decode and
+3. ``kernel``  — the ragged paged-attention kernels (float pools) against
+   their plain PyTorch version on the card over a case matrix (decode at
+   contexts 0 to 1023, speculative verify at T 4, mixed prefill/decode at
+   T 64, GQA groups 1/4/8, fp32 and bf16, ragged and page-exact contexts,
+   idle rows, a pool dtype other than q's); every case with T x group <= 16
+   must take the "split" route and every other the "tile" route (the
+   route counters); then device times (CUDA-graph replays) at the
+   llama2_7b decode shape: kernel (its split count, and its eager time
+   beside), plain version, ``scaled_dot_product_attention`` as a
+   yardstick, and the memory-bound least time.
+4. ``kernel_int8`` — the same kernels over int8 pools (fp32 scale per
+   (kv-head, page), pages 8/16/32, all-zero pages) against their plain
+   version, routes as in ``kernel``, then times at the same decode shape
+   with an int8 pool.
+5. ``kernel_gmm`` — the grouped-matmul kernels against their plain version
+   in fp32 and bf16, with and without the fused row gather (bm
+   8/16/24/128/512, empty experts, one expert holding every row, zero
+   sentinel rows, widths from 64 up to Mixtral's); every bf16 launch must
+   take the "sm90" route (``grouped_matmul_sm90.cu``) and every fp32 launch
+   the "simt" route, and ptxas must report 0 spill bytes for every sm90
+   kernel (``gmm_sm90_ptxas``); then times at the Mixtral-width decode and
    prefill shapes, with ``torch._grouped_mm`` (or per-expert matmuls) as
    the yardstick.
 6. ``engine_parity``, ``engine_parity_int8``, ``engine_parity_moe`` — a
@@ -40,7 +47,9 @@ is caught; there is no ``ok`` line unless every phase passed):
    geometry, 8 concurrent streamed completions each: full llama2_7b (32
    layers, bf16, random weights from a seed); the same over an int8 pool;
    Mixtral-8x7B widths cut to 16 layers, bf16.  Kernel launch counts are
-   reset just before each run and read just after.
+   reset just before each run and read just after; decode steps take the
+   attention's split route and prefill chunks its tile route, and every
+   gmm launch the sm90 route.
 8. ``kernel_flash`` — the three flash-attention kernels (forward, dQ,
    dK/dV) against their plain versions over every combination of causal
    or not, GQA groups 1/4/8, d 64/128, fp32/bf16 and five shapes (b 1 to 4,
@@ -93,14 +102,16 @@ is caught; there is no ``ok`` line unless every phase passed):
     row gather and the rhs scale, and ``gmm`` with ``trans_rhs`` and
     ``row_scale`` (bm 8/16/128/512, an expert with no rows, one expert
     holding every row, a truncated plan whose last expert owns no tile,
-    zero sentinel rows, widths from 64 up to Mixtral's); then, at the
-    Mixtral training shape (8192 tokens, top-2, bm 512: M 20480 rows, 16384
-    of them live; H 4096, I 14336, bf16), ``tgmm`` for ``dw_gate`` and
-    ``dw_down``, ``gmm`` ``trans_rhs`` for ``da`` and ``dx`` and the
-    forward's gate/up ``gmm``, each held against its plain version (and
-    the yardstick's output too), then CUDA-event times beside the plain
-    versions, the live rows' operations bound and ``torch._grouped_mm`` (or
-    per-expert matmuls) as the yardstick.  The kernels line reports the
+    zero sentinel rows, widths from 64 up to Mixtral's; gmm's routes
+    checked as in ``kernel_gmm``); then, at the Mixtral training shape
+    (8192 tokens, top-2, bm 512: M 20480 rows, 16384 of them live; H 4096,
+    I 14336, bf16), ``tgmm`` for ``dw_gate`` and ``dw_down``, ``gmm``
+    ``trans_rhs`` for ``da`` and ``dx`` and the forward's gate/up and down
+    ``gmm``, each held against its plain version (and the yardstick's
+    output too; each gmm form on the sm90 route and bit for bit the same
+    in two runs), then CUDA-event times beside the plain versions, the live
+    rows' operations bound and ``torch._grouped_mm`` (or per-expert
+    matmuls) as the yardstick.  The kernels line reports the
     launch-weighted mean of each kernel's forms on the training step.
 12. ``moe_train_parity`` — ``PretrainStep`` on the card against the same
     step on the CPU from one ``restore_canonical`` state: 1 fp32 layer at
@@ -154,8 +165,8 @@ is caught; there is no ``ok`` line unless every phase passed):
     epilogue, beside the plain versions, the bounds and ``torch.amax`` /
     ``torch.matmul`` (cost references where no one call computes the same
     function).
-17. the ``kernels`` line, then the last line
-    ``{"ok": true, "device": {...}}``.
+17. the ``kernels`` line (each kernel's launches on its routes under
+    ``routes``), then the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device.  Imports nothing
 of JAX.
@@ -168,7 +179,8 @@ from (no ``ok`` line).
 
 A phase runs alone after the device and build phases, e.g. the flash
 kernels': ``python3 -c "import chip_smoke as c; c.phase_device();
-c.phase_kernel_flash(c.phase_build())"``.
+c.phase_kernel_flash(c.phase_build())"`` (``phase_kernel_gmm`` takes the
+build record too).
 """
 
 from __future__ import annotations
@@ -193,6 +205,7 @@ GMM_TOL = {"float32": (1e-4, 2e-5),    # (rtol, atol x max |ref|): sum order
 ATTN_SOURCE = "paddle_tpu_torch/kernels/csrc/ragged_paged_attention.cu"
 ATTN_REPLACES = "paddle_tpu/kernels/paged_attention.py:163"
 GMM_SOURCE = "paddle_tpu_torch/kernels/csrc/grouped_matmul.cu"
+GMM_SM90_SOURCE = "paddle_tpu_torch/kernels/csrc/grouped_matmul_sm90.cu"
 GMM_REPLACES = "paddle_tpu/kernels/grouped_matmul.py:205"
 # the "sm90" route (bf16 at d 64 and 128): wgmma, TMA rings, warp
 # specialisation; the libraries whose ptxas logs name its kernels
@@ -257,11 +270,12 @@ TGMM_REPLACES = "paddle_tpu/kernels/grouped_matmul.py:334"
 # the Mixtral training shape of the grouped kernels: B=4 x T=2048 tokens,
 # top-2 of 8 experts, bm 512 (M = 16384 live rows + 8 x 512 = 20480)
 MOE_TIMED = dict(tokens=8192, E=8, k=2, bm=512, H=4096, I=14336)
-# the MoE backward's timed forms with their launches per layer per step
-# (models/llama.py _grouped_ffn_bwd); the kernels line reports their
-# launch-weighted means
-MOE_BACKWARD_MIX = {"trans": {"trans_da": 1, "trans_dx": 2},
-                    "tgmm": {"tgmm_dw_gate": 2, "tgmm_dw_down": 1}}
+# the MoE step's timed grouped forms with their launches per layer per step
+# (models/llama.py _grouped_ffn_fwd, run twice with remat, and
+# _grouped_ffn_bwd); the kernels line reports their launch-weighted means
+MOE_MIX = {"forward": {"gmm_up": 4, "gmm_down": 2},
+           "trans": {"trans_da": 1, "trans_dx": 2},
+           "tgmm": {"tgmm_dw_gate": 2, "tgmm_dw_down": 1}}
 MOE_PARITY = dict(preset="mixtral_8x7b", layers=1, batch=2, seq=256, steps=3)
 # share of moe_train_parity's parameters further apart than 1e-6, set from
 # `python3 chip_smoke.py --moe-parity-spread` on an H100 80GB HBM3: fp32
@@ -337,6 +351,38 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls: int, reps: int = 5) -> float:
+    """Mean milliseconds per call of ``fn`` on the device alone: ``calls``
+    calls captured once into a CUDA graph, then ``reps`` replays between
+    CUDA events.  For kernels shorter than their wrapper's host time, where
+    ``cuda_ms`` would time the host; ``fn`` runs once before the capture
+    (one-time set-up: library loads, kernel attributes)."""
+    import torch
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * calls)
 
 
 # ------------------------------------------------------------ device ---
@@ -503,8 +549,14 @@ def _attention_matrix(gen, shapes, dtypes):
     for dtype in dtypes:
         for label, shp, kvh, extra in shapes:
             c = make_case(gen, qh=32, kvh=kvh, dtype=dtype, **shp, **extra)
+            route = pa._route(shp["T"], 32 // kvh)
+            n0 = pa.LAUNCHES_SPLIT + pa.LAUNCHES_INT8_SPLIT
             out, lse = pa.ragged_paged_attention(*_attn_args(c), **_attn_kw(c),
                                                  with_lse=True)
+            took = pa.LAUNCHES_SPLIT + pa.LAUNCHES_INT8_SPLIT - n0
+            if took != (route == "split"):
+                raise AssertionError(f"{label}: the {route} route's case "
+                                     f"counted {took} split launches")
             ref, ref_lse = pa._reference_ragged_paged_attention(
                 *_attn_args(c), c["q_lens"], c["k_new"], c["v_new"],
                 c.get("k_scale"), c.get("v_scale"))
@@ -523,7 +575,10 @@ def _attention_matrix(gen, shapes, dtypes):
             tol_dt = "bfloat16" if bf else "float32"
             row = {"case": label, "dtype": dname, "pool": pool, "qh": 32,
                    "kvh": kvh, "d": shp["d"], "page": shp["page"],
-                   "T": shp["T"]}
+                   "T": shp["T"], "route": route}
+            if route == "split":
+                row["splits"] = pa.split_plan(
+                    shp["B"], kvh, c["block_tables"].shape[1], shp["page"])
             for which, got, want in (("out", out, ref), ("lse", lse, ref_lse)):
                 g, w = got[keep].float(), want[keep].float()
                 err = (g - w).abs()
@@ -541,13 +596,16 @@ def _attention_matrix(gen, shapes, dtypes):
 
 
 def _attention_timing(gen, pool_dtype, library):
-    """CUDA-event times at the llama2_7b decode shape of the serve phases
-    (bf16 q, B=8, 32 heads, d=128, page 16, context 512 each): kernel and
-    plain version in turns (plain, kernel, kernel, plain), the bound, and
+    """Device times at the llama2_7b decode shape of the serve phases (bf16
+    q, B=8, 32 heads, d=128, page 16, context 512 each): kernel and plain
+    version in turns (plain, kernel, kernel, plain), the bound, and
     ``scaled_dot_product_attention`` over the gathered keys when
-    ``library``.  Each timed call takes the next of several independent
-    cases whose pools together exceed the 50 MB L2 cache, so every call
-    reads its pool from device memory, as a serving step does."""
+    ``library``, each from CUDA-graph replays (``graph_ms``: the split
+    kernel is shorter than its wrapper's host time); the kernel's eager
+    time (``cuda_ms``, host included) beside them.  Each timed call takes
+    the next of several independent cases whose pools together exceed the
+    50 MB L2 cache, so every call reads its pool from device memory, as a
+    serving step does."""
     import torch
     from paddle_tpu_torch.kernels import paged_attention as pa
     ctxs = [512] * 8
@@ -590,16 +648,23 @@ def _attention_timing(gen, pool_dtype, library):
             (lib.transpose(1, 2).float() - mine.float()).abs().max())
         fns.append(("library", rotate(lambda i: sdpa(*sdpa_in[i]))))
     t = {}
+    calls = 8 * n_cases
     for key, fn in (fns[0], fns[1], *fns[2:], ("kernel2", fns[1][1]),
                     ("plain2", fns[0][1])):
-        t[key] = cuda_ms(fn, 20 if key.startswith("plain") else 200)
+        t[key] = graph_ms(fn, n_cases if key.startswith("plain") else calls)
+    t["eager"] = cuda_ms(fns[1][1], 200)
     b_ms, b_by = bound_ms(8, 32, 32, 128, ctxs, 1, torch.bfloat16,
                           pool_dtype=pool_dtype)
     pool = str(pool_dtype).replace("torch.", "")
+    W = cases[0]["block_tables"].shape[1]
     timing.update({"shape": f"llama2_7b decode B=8 ctx=512 bf16 q, {pool} pool",
+                   "route": pa._route(1, 1),
+                   "splits": pa.split_plan(8, 32, W, 16),
                    "rotated_cases": n_cases,
+                   "timed_by": "CUDA graph replays",
                    "kernel_ms": min(t["kernel"], t["kernel2"]),
                    "kernel_ms_runs": [t["kernel"], t["kernel2"]],
+                   "kernel_ms_eager": t["eager"],
                    "plain_ms": min(t["plain"], t["plain2"]),
                    "plain_ms_runs": [t["plain"], t["plain2"]],
                    "library_ms": t.get("library"),
@@ -612,10 +677,16 @@ def phase_kernel():
     gen = torch.Generator(device="cuda").manual_seed(0)
     decode = dict(B=8, T=1, ctxs=[1, 15, 16, 17, 255, 512, 1000, 1023],
                   qls=[1] * 8, page=16, d=128)
+    short = dict(B=2, T=1, ctxs=[0, 1], qls=[1, 1], page=16, d=128)
+    verify = dict(B=4, T=4, ctxs=[0, 1, 17, 700], qls=[4, 1, 3, 4], page=16,
+                  d=128)
     mixed = dict(B=4, T=64, ctxs=[0, 16, 33, 960], qls=[64, 1, 17, 0],
                  page=16, d=128)
     shapes = [("decode", decode, 32, {}), ("decode", decode, 8, {}),
-              ("decode", decode, 4, {}), ("mixed", mixed, 32, {}),
+              ("decode", decode, 4, {}), ("decode_ctx01", short, 32, {}),
+              ("decode_ctx01", short, 8, {}), ("verify_T4", verify, 32, {}),
+              ("verify_T4", verify, 8, {}), ("verify_T4", verify, 4, {}),
+              ("mixed", mixed, 32, {}),
               ("mixed", mixed, 8, {}), ("mixed", mixed, 4, {}),
               ("mixed_d64_page8", {**mixed, "d": 64, "page": 8}, 8, {}),
               ("mixed_page128", {**mixed, "page": 128}, 4, {})]
@@ -641,10 +712,15 @@ def phase_kernel_int8():
     i8 = {"pool_dtype": torch.int8, "zero_pages": 3}
     decode = dict(B=8, T=1, ctxs=[1, 15, 16, 17, 255, 512, 1000, 1023],
                   qls=[1] * 8, page=16, d=128)
+    short = dict(B=2, T=1, ctxs=[0, 1], qls=[1, 1], page=16, d=128)
+    verify = dict(B=4, T=4, ctxs=[0, 1, 17, 700], qls=[4, 1, 3, 4], page=16,
+                  d=128)
     mixed = dict(B=4, T=64, ctxs=[0, 16, 33, 960], qls=[64, 1, 17, 0],
                  page=16, d=128)
     shapes = [("decode", decode, 32, i8), ("decode", decode, 8, i8),
               ("decode_page8", {**decode, "page": 8}, 4, i8),
+              ("decode_ctx01", short, 32, i8), ("decode_ctx01", short, 4, i8),
+              ("verify_T4", verify, 8, i8), ("verify_T4", verify, 4, i8),
               ("mixed", mixed, 32, i8), ("mixed", mixed, 8, i8),
               ("mixed", mixed, 4, i8),
               ("mixed_page32", {**mixed, "page": 32}, 8, i8),
@@ -690,14 +766,23 @@ def _gmm_case(gen, dtype, *, E, ids, bm, C, O, fused):
 
 def _gmm_bound_ms(lhs, rhs, tg, rows, M):
     """Least time of one gmm: the larger of bytes / HBM rate (the weights of
-    every expert that owns a tile, the lhs rows, the row and group indices
-    and the output, each once) and 2*M*C*O flops / the dtype's peak."""
+    every expert whose tiles this run needs, the lhs rows, the row and
+    group indices and the output, each once) and 2 x rows x C x O flops /
+    the dtype's peak.  With a gather, rows that read the zero sentinel
+    (lhs's last row) add nothing and tiles made only of them need no
+    weight, so the live rows and experts are counted."""
     C, O = rhs.shape[1], rhs.shape[2]
     it = lhs.element_size()
-    experts = int(tg.unique().numel())
+    if rows is not None:
+        bm = M // tg.numel()
+        live = rows != lhs.shape[0] - 1
+        experts = int(tg[live.reshape(-1, bm).any(dim=1)].unique().numel())
+        n_live = int(live.sum())
+    else:
+        experts, n_live = int(tg.unique().numel()), M
     nbytes = (experts * C * O + lhs.shape[0] * C + M * O) * it + \
         tg.numel() * 4 + (rows.numel() * 4 if rows is not None else 0)
-    flops = 2 * M * C * O
+    flops = 2 * n_live * C * O
     from paddle_tpu_torch import HBM_BYTES_PER_S, PEAK_FLOPS
     peak = PEAK_FLOPS[str(lhs.dtype).replace("torch.", "")]
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
@@ -705,9 +790,69 @@ def _gmm_bound_ms(lhs, rhs, tg, rows, M):
                                        else "operations")
 
 
-def phase_kernel_gmm():
+def _gmm_sm90_ptxas(log):
+    """ptxas's record of each kernel of ``grouped_matmul_sm90``'s build log:
+    ``{"wide bn256 trans1 gather0": {"registers", "spill_stores",
+    "spill_loads", "stack_bytes"}, "narrow tm16 trans0": ..., ...}``
+    (``registers`` is the launch count; the wide form's consumers raise
+    theirs with setmaxnreg)."""
+    import re
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for \S*gmm_sm90_(wide|narrow)_"
+                      r"kernelILi(\d+)ELb(\d)E(?:Lb(\d)E)?", ln)
+        if m:
+            name = (f"wide bn{m.group(2)} trans{m.group(3)} gather"
+                    f"{m.group(4)}" if m.group(1) == "wide" else
+                    f"narrow tm{m.group(2)} trans{m.group(3)}")
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            out[name].update(stack_bytes=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            name = None
+    return out
+
+
+def _gmm_route_counts():
+    from paddle_tpu_torch.kernels import grouped_matmul as gm
+    return (gm.LAUNCHES + gm.LAUNCHES_TRANS,
+            gm.LAUNCHES_SM90 + gm.LAUNCHES_TRANS_SM90)
+
+
+def _check_gmm_route(name, dtype, before, launches=1):
+    """The gmm launches since ``before`` (``_gmm_route_counts``) took the
+    route of their dtype: sm90 for bf16, simt for fp32."""
+    from paddle_tpu_torch.kernels import grouped_matmul as gm
+    n, sm90 = (a - b for a, b in zip(_gmm_route_counts(), before))
+    want = launches if gm._route(dtype) == "sm90" else 0
+    if n != launches or sm90 != want:
+        raise AssertionError(f"{name}: {n} gmm launches, {sm90} on the sm90 "
+                             f"route; want {launches} and {want}")
+    return gm._route(dtype)
+
+
+def phase_kernel_gmm(built):
+    """``built``: ``phase_build``'s record (the sm90 build's ptxas log)."""
     import torch
     from paddle_tpu_torch.kernels import grouped_matmul as gm
+
+    ptxas = _gmm_sm90_ptxas(built.get("grouped_matmul_sm90", {})
+                            .get("log", ""))
+    spills = {k: v for k, v in ptxas.items()
+              if v.get("spill_stores") or v.get("spill_loads")}
+    if not ptxas or spills:
+        raise AssertionError(f"grouped_matmul_sm90: ptxas record {ptxas} "
+                             "(empty: built before phase_build; every "
+                             "kernel must have 0 spill bytes)")
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     dev = "cuda"
@@ -739,7 +884,10 @@ def phase_kernel_gmm():
                     continue        # the serve path's form of each shape
                 lhs, rhs, tg, rows = _gmm_case(gen, dtype, E=E, ids=ids,
                                                bm=bm, C=C, O=O, fused=fused)
+                name = f"{label}/{dname}/{'rows' if fused else 'plain'}"
+                c0 = _gmm_route_counts()
                 out = gm.gmm(lhs, rhs, tg, bm=bm, rows=rows)
+                route = _check_gmm_route(name, dtype, c0)
                 ref = gm._gmm_reference(lhs, rhs, tg, bm=bm, rows=rows)
                 torch.cuda.synchronize()
                 err = (out.float() - ref.float()).abs()
@@ -747,7 +895,6 @@ def phase_kernel_gmm():
                 rtol, atol = GMM_TOL[dname]
                 bad = int((err > atol * scale + rtol * ref.float().abs())
                           .sum())
-                name = f"{label}/{dname}/{'rows' if fused else 'plain'}"
                 if bad:
                     raise AssertionError(f"gmm {name}: {bad} elements out of "
                                          f"tolerance (max err "
@@ -757,10 +904,13 @@ def phase_kernel_gmm():
                     if pad.any() and out[pad].abs().max().item() != 0:
                         raise AssertionError(f"gmm {name}: sentinel rows "
                                              "are not exactly 0")
+                M = int(out.shape[0])
                 cases.append({"case": label, "dtype": dname, "rows": fused,
                               "E": E, "F": int(ids.numel()), "bm": bm,
-                              "M": int(out.shape[0]), "C": C, "O": O,
-                              "row_tile": gm.row_tile(bm),
+                              "M": M, "C": C, "O": O, "route": route,
+                              "plan": gm.sm90_plan(bm, M, O)
+                              if route == "sm90" else
+                              {"row_tile": gm.row_tile(bm)},
                               "max_abs_err": float(err.max()),
                               "ref_max_abs": scale,
                               "tol": [rtol, atol]})
@@ -823,6 +973,7 @@ def phase_kernel_gmm():
         timings.append({
             "shape": f"mixtral {label} N={N} F={2 * N} bm={bm} M={M} "
                      f"C={C} O={O} bf16",
+            "plan": gm.sm90_plan(bm, M, O),
             "kernel_ms": min(t["kernel"], t["kernel2"]),
             "kernel_ms_runs": [t["kernel"], t["kernel2"]],
             "plain_ms": min(t["plain"], t["plain2"]),
@@ -832,7 +983,8 @@ def phase_kernel_gmm():
             "bound_ms": b_ms, "bound_by": b_by})
         del lhs, rhs, tg, rows, a, mine, lib_out
         torch.cuda.empty_cache()
-    emit("kernel_gmm", cases=cases, max_abs_err=worst, timings=timings)
+    emit("kernel_gmm", cases=cases, max_abs_err=worst, timings=timings,
+         gmm_sm90_ptxas=ptxas)
     return worst, timings
 
 
@@ -1022,6 +1174,8 @@ def phase_serve(phase, argv):
             t_ready = time.perf_counter() - t0
             # the main path's run: counts from zero, read right after
             pa.LAUNCHES = pa.LAUNCHES_INT8 = gm.LAUNCHES = 0
+            pa.LAUNCHES_SPLIT = pa.LAUNCHES_INT8_SPLIT = 0
+            gm.LAUNCHES_SM90 = 0
             steps0 = engine.steps
             t1 = time.perf_counter()
             res = await asyncio.gather(*[
@@ -1030,11 +1184,15 @@ def phase_serve(phase, argv):
             launches = {"attention": pa.LAUNCHES,
                         "attention_int8": pa.LAUNCHES_INT8,
                         "gmm": gm.LAUNCHES}
-            return res, wall, launches, engine.steps - steps0, t_ready
+            routes = {"attention_split": pa.LAUNCHES_SPLIT,
+                      "attention_int8_split": pa.LAUNCHES_INT8_SPLIT,
+                      "gmm_sm90": gm.LAUNCHES_SM90}
+            return (res, wall, launches, routes, engine.steps - steps0,
+                    t_ready)
         finally:
             await srv.stop_http()
 
-    res, wall, launches, steps, t_ready = asyncio.run(go())
+    res, wall, launches, routes, steps, t_ready = asyncio.run(go())
     for n, r in zip(lens, res):
         if r["finish"] != "length" or len(r["ids"]) != max_tokens or \
                 not all(0 <= t < cfg.vocab_size for t in r["ids"]):
@@ -1046,6 +1204,13 @@ def phase_serve(phase, argv):
     if steps == 0 or launches != want:
         raise AssertionError(f"{phase}: kernel launches {launches} != "
                              f"{want} ({L} layers x {steps} steps)")
+    # decode steps (T 1) take the split route, prefill chunks the tile
+    # route; a bf16 model's gmm launches all take the sm90 route
+    split = routes["attention_split"] + routes["attention_int8_split"]
+    if not 0 < split < launches["attention"] + launches["attention_int8"] \
+            or routes["gmm_sm90"] != launches["gmm"]:
+        raise AssertionError(f"{phase}: route launches {routes} against "
+                             f"{launches}")
     ttfts = sorted(r["ttft_s"] for r in res)
     emit(phase, preset=args.preset, layers=L, hidden=cfg.hidden_size,
          intermediate=cfg.intermediate_size, experts=cfg.moe_num_experts,
@@ -1057,13 +1222,13 @@ def phase_serve(phase, argv):
          setup_and_warmup_s=t_ready, wall_s=wall,
          tokens_per_s=len(res) * max_tokens / wall,
          ttft_p50_s=float(np.median(ttfts)), ttft_max_s=ttfts[-1],
-         engine_steps=steps, kernel_launches=launches,
+         engine_steps=steps, kernel_launches=launches, route_launches=routes,
          launches_per_step={k: v / steps for k, v in launches.items()},
          max_memory_allocated=torch.cuda.max_memory_allocated())
     del engine, srv
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return {**launches, **routes}
 
 
 # ------------------------------------------------------- flash attention ---
@@ -1827,12 +1992,14 @@ def phase_train():
 def _grouped_counts():
     from paddle_tpu_torch.kernels import grouped_matmul as gm
     return {"gmm": gm.LAUNCHES, "gmm_trans": gm.LAUNCHES_TRANS,
-            "tgmm": gm.LAUNCHES_TGMM}
+            "tgmm": gm.LAUNCHES_TGMM, "gmm_sm90": gm.LAUNCHES_SM90,
+            "gmm_trans_sm90": gm.LAUNCHES_TRANS_SM90}
 
 
 def _reset_grouped_counts():
     from paddle_tpu_torch.kernels import grouped_matmul as gm
     gm.LAUNCHES = gm.LAUNCHES_TRANS = gm.LAUNCHES_TGMM = 0
+    gm.LAUNCHES_SM90 = gm.LAUNCHES_TRANS_SM90 = 0
 
 
 def _dispatch_rows(ids, E, bm, cut=False):
@@ -1933,8 +2100,10 @@ def _moe_backward_matrix(gen):
                 if form.startswith("trans"):
                     rhs = (torch.randn((E, N, K), generator=gen, device=dev)
                            / K ** 0.5).to(dtype)
+                    c0 = _gmm_route_counts()
                     out = gm.gmm(lhs, rhs, tg, bm=bm, rows=lr,
                                  trans_rhs=True, row_scale=s)
+                    _check_gmm_route(f"{label}/{form}", dtype, c0)
                     ref = gm._gmm_reference(lhs, rhs, tg, bm=bm, rows=lr,
                                             trans_rhs=True, row_scale=s)
                     kind = "trans"
@@ -2017,13 +2186,19 @@ def _moe_backward_timing(gen):
         return [p[bounds[e]:bounds[e + 1]] @ w[e].t() for e in range(E)]
 
     calls = {
-        "gmm_up": dict(     # the forward's gate/up form, for comparison
+        "gmm_up": dict(     # the forward's gate/up form (fused gather)
             kernel=lambda: gm.gmm(xz, w_gate, tg, bm=bm, rows=rows),
             plain=lambda: gm._gmm_reference(xz, w_gate, tg, bm=bm,
                                             rows=rows),
             library=(lambda: torch._grouped_mm(x_g, w_gate, offs=ends))
             if grouped_mm else (lambda: per_expert_nn(x_g, w_gate)),
             operands=(xz, w_gate, rows, tg), K=H, N=I),
+        "gmm_down": dict(   # the forward's down form (no gather)
+            kernel=lambda: gm.gmm(a, w_down, tg, bm=bm),
+            plain=lambda: gm._gmm_reference(a, w_down, tg, bm=bm),
+            library=(lambda: torch._grouped_mm(a, w_down, offs=ends))
+            if grouped_mm else (lambda: per_expert_nn(a, w_down)),
+            operands=(a, w_down, tg), K=I, N=H),
         "tgmm_dw_gate": dict(
             kernel=lambda: gm.tgmm(xz, dh, tg, E, bm=bm, lhs_rows=rows),
             plain=lambda: gm._tgmm_reference(xz, dh, tg, E, bm=bm,
@@ -2062,7 +2237,15 @@ def _moe_backward_timing(gen):
     }
     timings = {}
     for name, cl in calls.items():
+        c0 = _gmm_route_counts()
         mine = cl["kernel"]()
+        if not name.startswith("tgmm"):
+            route = _check_gmm_route(f"training shape {name}", bf, c0)
+            again = cl["kernel"]()
+            torch.cuda.synchronize()
+            if not torch.equal(mine, again):
+                raise AssertionError(f"training shape {name}: two runs differ")
+            del again
         ref = cl["plain"]()
         lib_out = cl["library"]()
         if isinstance(lib_out, list):
@@ -2094,6 +2277,9 @@ def _moe_backward_timing(gen):
         timings[name] = {
             "shape": f"mixtral train {name} M={M} live={live} bm={bm} "
                      f"K={K} N={N} bf16",
+            **({} if name.startswith("tgmm") else
+               {"route": route, "plan": gm.sm90_plan(bm, M, N),
+                "bitwise_repeat": True}),
             "max_abs_err": err, "ref_max_abs": ref_max, "tol": tol,
             "kernel_ms": ms, "kernel_ms_runs": [t["kernel"], t["kernel2"]],
             "plain_ms": min(t["plain"], t["plain2"]),
@@ -2127,11 +2313,10 @@ def phase_kernel_tgmm():
     gen = torch.Generator(device="cuda").manual_seed(4)
     cases, worst = _moe_backward_matrix(gen)
     timings = _moe_backward_timing(gen)
-    for kind, mix in MOE_BACKWARD_MIX.items():
-        worst[kind] = max([worst[kind]] + [timings[f]["max_abs_err"]
-                                           for f in mix])
-    mixes = {kind: _launch_mix(timings, mix)
-             for kind, mix in MOE_BACKWARD_MIX.items()}
+    for kind, mix in MOE_MIX.items():
+        worst[kind] = max([worst.get(kind, 0.0)] +
+                          [timings[f]["max_abs_err"] for f in mix])
+    mixes = {kind: _launch_mix(timings, mix) for kind, mix in MOE_MIX.items()}
     emit("kernel_tgmm", cases=cases, max_abs_err=worst, timings=timings,
          launch_mix=mixes)
     return worst, timings, mixes
@@ -2257,8 +2442,10 @@ def phase_moe_train_parity():
                              f"{r['first_step_grad_max_abs_err']}; "
                              f"{r['near_ties']} near-ties)")
     n = r["layers"] * (r["steps"] + 1)
+    # fp32: every gmm launch on the simt route
     want = {"fwd": 2 * n, "dq": n, "dkv": n, "gmm": 6 * n,
-            "gmm_trans": 3 * n, "tgmm": 3 * n}
+            "gmm_trans": 3 * n, "tgmm": 3 * n, "gmm_sm90": 0,
+            "gmm_trans_sm90": 0}
     if r["launches"] != want:
         raise AssertionError(f"moe_train_parity: launches {r['launches']} "
                              f"!= {want}")
@@ -2325,7 +2512,8 @@ def phase_train_moe():
     fwd = 2 if ps.pc.remat else 1
     want = {"fwd": fwd * n, "dq": n, "dkv": n, "fwd_sm90": fwd * n,
             "dq_sm90": n, "dkv_sm90": n, "gmm": 3 * fwd * n,
-            "gmm_trans": 3 * n, "tgmm": 3 * n}
+            "gmm_trans": 3 * n, "tgmm": 3 * n, "gmm_sm90": 3 * fwd * n,
+            "gmm_trans_sm90": 3 * n}
     if launches != want:
         raise AssertionError(f"train_moe: launches {launches} != {want} "
                              f"({L} layers x {steps} steps)")
@@ -3212,7 +3400,7 @@ def main() -> int:
     built = phase_build()
     attn_err, attn_t = phase_kernel()
     int8_err, int8_t = phase_kernel_int8()
-    gmm_err, gmm_t = phase_kernel_gmm()
+    gmm_err, gmm_t = phase_kernel_gmm(built)
     phase_engine_parity()
     phase_engine_parity_int8()
     phase_engine_parity_moe()
@@ -3233,27 +3421,35 @@ def main() -> int:
     wo_err, wo_t = phase_kernel_wo()
     wo_launches, _wo_sweeps = phase_weight_only_path()
     prim_err, prim_path, prim_t = phase_kernel_primitives(_smi)
+    # each kernel's launches on its routes: the split and tile kernels of
+    # the attention source, gmm's sm90 and simt kernels
+    attn_routes = {
+        key: {"split": launches[f"{key}_split"],
+              "tile": launches[key] - launches[f"{key}_split"]}
+        for key in ("attention", "attention_int8")}
     print(json.dumps({"kernels": [
         {"name": "ragged_paged_attention", "route": "cuda",
          "source": ATTN_SOURCE, "replaces": ATTN_REPLACES,
          "launches": launches["attention"], "max_abs_err": attn_err["out"],
          "ms": attn_t["kernel_ms"], "plain_ms": attn_t["plain_ms"],
          "bound_ms": attn_t["bound_ms"], "bound_by": attn_t["bound_by"],
-         "library_ms": attn_t["library_ms"]},
+         "library_ms": attn_t["library_ms"],
+         "routes": attn_routes["attention"]},
         {"name": "ragged_paged_attention_int8", "route": "cuda",
          "source": ATTN_SOURCE, "replaces": ATTN_REPLACES,
          "launches": launches["attention_int8"],
          "max_abs_err": int8_err["out"],
          "ms": int8_t["kernel_ms"], "plain_ms": int8_t["plain_ms"],
          "bound_ms": int8_t["bound_ms"], "bound_by": int8_t["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "routes": attn_routes["attention_int8"]},
         {"name": "grouped_matmul", "route": "cuda",
-         "source": GMM_SOURCE, "replaces": GMM_REPLACES,
-         "launches": launches["gmm"],
-         "max_abs_err": max(gmm_err, moe_t["gmm_up"]["max_abs_err"]),
+         "source": GMM_SM90_SOURCE, "replaces": GMM_REPLACES,
+         "launches": launches["gmm"], "max_abs_err": gmm_err,
          "ms": decode["kernel_ms"], "plain_ms": decode["plain_ms"],
          "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
-         "library_ms": decode["library_ms"]}] + [
+         "library_ms": decode["library_ms"],
+         "routes": {"sm90": launches["gmm_sm90"],
+                    "simt": launches["gmm"] - launches["gmm_sm90"]}}] + [
         {"name": f"flash_attention_{nm}", "route": "cuda",
          "source": FLASH_FWD_SOURCE if key == "fwd" else FLASH_BWD_SOURCE,
          "replaces": FLASH_REPLACES[key],
@@ -3271,16 +3467,24 @@ def main() -> int:
          "bound_ms": m["bound_ms"], "bound_by": "operations",
          "library_ms": m["library_ms"]}
         for cfg, m in flash_modes.items()] + [
-        {"name": nm, "route": "cuda", "source": GMM_SOURCE,
+        {"name": nm, "route": "cuda", "source": source,
          "replaces": replaces, "launches": moe_launches[key],
          "max_abs_err": moe_err[kind], "ms": moe_mix[kind]["kernel_ms"],
          "plain_ms": moe_mix[kind]["plain_ms"],
          "bound_ms": moe_mix[kind]["bound_ms"],
          "bound_by": moe_mix[kind]["bound_by"],
-         "library_ms": moe_mix[kind]["library_ms"]}
-        for nm, replaces, key, kind in (
-            ("grouped_matmul_trans_rhs", GMM_REPLACES, "gmm_trans", "trans"),
-            ("grouped_matmul_tgmm", TGMM_REPLACES, "tgmm", "tgmm"))] + [
+         "library_ms": moe_mix[kind]["library_ms"],
+         **({"routes": {"sm90": moe_launches[f"{key}_sm90"],
+                        "simt": moe_launches[key] -
+                        moe_launches[f"{key}_sm90"]}}
+            if key != "tgmm" else {})}
+        for nm, source, replaces, key, kind in (
+            ("grouped_matmul_train", GMM_SM90_SOURCE, GMM_REPLACES, "gmm",
+             "forward"),
+            ("grouped_matmul_trans_rhs", GMM_SM90_SOURCE, GMM_REPLACES,
+             "gmm_trans", "trans"),
+            ("grouped_matmul_tgmm", GMM_SOURCE, TGMM_REPLACES, "tgmm",
+             "tgmm"))] + [
         {"name": f"weight_only_{mode}", "route": "cuda", "source": WO_SOURCE,
          "replaces": WO_REPLACES, "launches": wo_launches[mode],
          "max_abs_err": wo_err[mode]["max_abs_err"],

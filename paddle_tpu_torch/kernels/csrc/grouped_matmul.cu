@@ -4,8 +4,9 @@
 // Replaces, in paddle_tpu/kernels/grouped_matmul.py (the Pallas TPU
 // kernels):
 // - _gmm_kernel (with its fused row gather _gather_rows), launched there by
-//   gmm, in all its modes: ptt_gmm computes what the plain _gmm_reference
-//   computes,
+//   gmm, in all its modes, for fp32 operands (bf16 takes the "sm90" route,
+//   grouped_matmul_sm90.cu; kernels/grouped_matmul.py:_route): ptt_gmm
+//   computes what the plain _gmm_reference computes,
 //
 //     out[m, :] = s[m] * lhs[rows[m], :] @ W[tile_groups[m / bm]]
 //
@@ -40,8 +41,8 @@
 //   because the fp32 path must match fp32 references to 1e-5.
 //
 // What the designs do about it (simple first, fast later):
-// - gmm: one thread block per (row tile of TM rows, 64 output columns).
-//   TM is the largest of 64/32/16/8 that divides bm, so a block never
+// - gmm (fp32): one thread block per (row tile of TM rows, 64 output
+//   columns).  TM is the largest of 64/32/16/8 that divides bm, so a block never
 //   straddles two experts; the block reads its expert id once.  blockIdx.x
 //   walks the row tiles, so blocks that run together share one expert's
 //   weight columns through L2.  The dispatch gather is fused: each block
@@ -50,9 +51,8 @@
 //   no [M, C] permuted copy is ever written; rows that point at the
 //   caller's zero sentinel row come out exactly 0.  The row scale is
 //   applied as a row is staged.  trans_rhs stages a [64 out, 32 contract]
-//   slice of W^T row by row from the [O, C] layout (16-byte loads along C)
-//   and hands it to the MMA as a col_major matrix_b fragment, so nothing
-//   is transposed element by element.
+//   slice of W^T row by row from the [O, C] layout (16-byte loads along
+//   C), so nothing is transposed element by element.
 // - tgmm: one thread block per (output tile, expert), the output tile
 //   128 x 128 (8 warps) when K and N allow it, else 64 x 64 (4 warps).
 //   The block finds its expert's contiguous row span with a binary search
@@ -64,20 +64,17 @@
 //   reduction over thousands of rows never leaves registers.  lhs goes in
 //   as a col_major matrix_a fragment (that is lhs^T).  Rows past the span
 //   read as zeros; sentinel rows point at the caller's zero row.
-// - bf16: WMMA 16x16x16 bf16 fragments (mma.sync on the tensor cores) with
-//   fp32 accumulators; gmm with TM 8 pads the MMA's rows 8-15 with zeros.
-//   fp32: register-tiled FMA loops.
+// - tgmm bf16: WMMA 16x16x16 bf16 fragments (mma.sync on the tensor
+//   cores) with fp32 accumulators.  fp32: register-tiled FMA loops.
 // - Epilogues stage fp32 results in shared memory and write them in lhs's
 //   dtype with 16-byte stores (bf16).
-// Later work (not here): wgmma with TMA-fed multi-stage shared-memory
-// rings, a persistent grid, and skipping tiles made only of padding rows.
+// Later work (not here): tgmm on wgmma with TMA-fed shared-memory rings,
+// as grouped_matmul_sm90.cu does for gmm.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -119,118 +116,6 @@ __device__ __forceinline__ int first_tile(const int32_t* tile_groups, int T, int
 }
 
 // ------------------------------------------------------------------- gmm ---
-
-template <int TM, bool TRANS>
-__global__ void __launch_bounds__(kThreads)
-gmm_bf16_kernel(const __nv_bfloat16* __restrict__ lhs,
-                const __nv_bfloat16* __restrict__ rhs,
-                const int32_t* __restrict__ tile_groups,
-                const int32_t* __restrict__ rows,
-                const __nv_bfloat16* __restrict__ scale,
-                __nv_bfloat16* __restrict__ out, int C, int O, int E, int L, int bm) {
-  constexpr int TMP = TM < 16 ? 16 : TM;      // MMA rows; rows >= TM stay 0
-  constexpr int WM = TMP >= 32 ? 2 : 1;       // warps along M
-  constexpr int WN = 4 / WM;                  // warps along N
-  constexpr int FM = TMP / 16 / WM;           // 16-row fragments per warp
-  constexpr int FN = kBN / WN / 16;           // 16-col fragments per warp
-  constexpr int LDA = kBK + 8;                // +16 bytes: fewer bank conflicts
-  // the weight tile: [k][n] (forward), or [n][k] (trans_rhs: rows of W^T
-  // as stored, read by the MMA as a col_major matrix_b)
-  constexpr int BR = TRANS ? kBN : kBK;
-  constexpr int LDB = TRANS ? kBK + 8 : kBN + 8;
-  constexpr int LDC = kBN + 4;
-  using BLayout = std::conditional_t<TRANS, wmma::col_major, wmma::row_major>;
-  __shared__ __align__(32) __nv_bfloat16 a_s[TMP][LDA];
-  __shared__ __align__(32) __nv_bfloat16 b_s[BR][LDB];
-  __shared__ __align__(32) float c_s[TMP][LDC];
-  __shared__ int64_t src_row[TM];
-  __shared__ float row_scale[TM];
-
-  const int m0 = blockIdx.x * TM;
-  const int n0 = blockIdx.y * kBN;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / WN, wn = warp % WN;
-  const __nv_bfloat16* w =
-      rhs + (int64_t)expert_of(tile_groups, m0, bm, E) * C * O;
-
-  for (int r = tid; r < TM; r += kThreads) {
-    src_row[r] = source_row(rows, m0 + r, L);
-    row_scale[r] = scale ? __bfloat162float(scale[m0 + r]) : 1.f;
-  }
-  for (int i = tid; i < (TMP - TM) * LDA; i += kThreads)
-    a_s[TM + i / LDA][i % LDA] = __float2bfloat16(0.f);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  __syncthreads();
-
-  for (int k0 = 0; k0 < C; k0 += kBK) {
-    // gathered (and scaled) lhs rows: TM x kBK, 8 bf16 (16 bytes) per load
-    for (int i = tid; i < TM * (kBK / 8); i += kThreads) {
-      const int r = i / (kBK / 8), c8 = (i % (kBK / 8)) * 8;
-      uint4 v = *reinterpret_cast<const uint4*>(lhs + src_row[r] * C + k0 + c8);
-      if (scale) v = scale8(v, row_scale[r]);
-      *reinterpret_cast<uint4*>(&a_s[r][c8]) = v;
-    }
-    if constexpr (!TRANS) {
-      // the expert's weight tile: kBK x kBN of [C, O]
-      for (int i = tid; i < kBK * (kBN / 8); i += kThreads) {
-        const int r = i / (kBN / 8), c8 = (i % (kBN / 8)) * 8;
-        *reinterpret_cast<uint4*>(&b_s[r][c8]) =
-            *reinterpret_cast<const uint4*>(w + (int64_t)(k0 + r) * O + n0 + c8);
-      }
-    } else {
-      // kBN rows of the [O, C] weight, kBK contiguous columns each
-      for (int i = tid; i < kBN * (kBK / 8); i += kThreads) {
-        const int r = i / (kBK / 8), c8 = (i % (kBK / 8)) * 8;
-        *reinterpret_cast<uint4*>(&b_s[r][c8]) =
-            *reinterpret_cast<const uint4*>(w + (int64_t)(n0 + r) * C + k0 + c8);
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout> b[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(a[i], &a_s[(wm * FM + i) * 16][kk], LDA);
-#pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        const int col = (wn * FN + j) * 16;
-        if constexpr (TRANS)
-          wmma::load_matrix_sync(b[j], &b_s[col][kk], LDB);
-        else
-          wmma::load_matrix_sync(b[j], &b_s[kk][col], LDB);
-      }
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j)
-      wmma::store_matrix_sync(&c_s[(wm * FM + i) * 16][(wn * FN + j) * 16], acc[i][j],
-                              LDC, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < TM * (kBN / 8); i += kThreads) {
-    const int r = i / (kBN / 8), c8 = (i % (kBN / 8)) * 8;
-    __align__(16) __nv_bfloat16 v[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = __float2bfloat16(c_s[r][c8 + e]);
-    *reinterpret_cast<uint4*>(out + (int64_t)(m0 + r) * O + n0 + c8) =
-        *reinterpret_cast<const uint4*>(v);
-  }
-}
 
 template <int TM, bool TRANS>
 __global__ void __launch_bounds__(kThreads)
@@ -319,39 +204,31 @@ gmm_f32_kernel(const float* __restrict__ lhs, const float* __restrict__ rhs,
       out[(int64_t)(m0 + ty + 8 * i) * O + n0 + tx + 16 * j] = acc[i][j];
 }
 
-template <typename T, int TM, bool TRANS>
+template <int TM, bool TRANS>
 cudaError_t launch_gmm(const void* lhs, const void* rhs, const void* tg,
                        const void* rows, const void* scale, void* out, int M, int C,
                        int O, int E, int L, int bm, cudaStream_t stream) {
   dim3 grid(M / TM, O / kBN);
-  if constexpr (sizeof(T) == 2) {
-    gmm_bf16_kernel<TM, TRANS><<<grid, kThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(lhs), static_cast<const __nv_bfloat16*>(rhs),
-        static_cast<const int32_t*>(tg), static_cast<const int32_t*>(rows),
-        static_cast<const __nv_bfloat16*>(scale), static_cast<__nv_bfloat16*>(out), C,
-        O, E, L, bm);
-  } else {
-    gmm_f32_kernel<TM, TRANS><<<grid, kThreads, 0, stream>>>(
-        static_cast<const float*>(lhs), static_cast<const float*>(rhs),
-        static_cast<const int32_t*>(tg), static_cast<const int32_t*>(rows),
-        static_cast<const float*>(scale), static_cast<float*>(out), C, O, E, L, bm);
-  }
+  gmm_f32_kernel<TM, TRANS><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(lhs), static_cast<const float*>(rhs),
+      static_cast<const int32_t*>(tg), static_cast<const int32_t*>(rows),
+      static_cast<const float*>(scale), static_cast<float*>(out), C, O, E, L, bm);
   return cudaGetLastError();
 }
 
-template <typename T, bool TRANS>
+template <bool TRANS>
 cudaError_t launch_gmm_tm(int tm, const void* lhs, const void* rhs, const void* tg,
                           const void* rows, const void* scale, void* out, int M,
                           int C, int O, int E, int L, int bm, cudaStream_t s) {
   switch (tm) {
     case 8:
-      return launch_gmm<T, 8, TRANS>(lhs, rhs, tg, rows, scale, out, M, C, O, E, L, bm, s);
+      return launch_gmm<8, TRANS>(lhs, rhs, tg, rows, scale, out, M, C, O, E, L, bm, s);
     case 16:
-      return launch_gmm<T, 16, TRANS>(lhs, rhs, tg, rows, scale, out, M, C, O, E, L, bm, s);
+      return launch_gmm<16, TRANS>(lhs, rhs, tg, rows, scale, out, M, C, O, E, L, bm, s);
     case 32:
-      return launch_gmm<T, 32, TRANS>(lhs, rhs, tg, rows, scale, out, M, C, O, E, L, bm, s);
+      return launch_gmm<32, TRANS>(lhs, rhs, tg, rows, scale, out, M, C, O, E, L, bm, s);
     case 64:
-      return launch_gmm<T, 64, TRANS>(lhs, rhs, tg, rows, scale, out, M, C, O, E, L, bm, s);
+      return launch_gmm<64, TRANS>(lhs, rhs, tg, rows, scale, out, M, C, O, E, L, bm, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -559,30 +436,23 @@ cudaError_t launch_tgmm_bf16(const void* lhs, const void* rhs, const void* tg,
 // 1 = bfloat16 (every float operand alike).  Each returns the cudaError_t of
 // its launch (0 = success).
 //
-// ptt_gmm: rows and scale may be null (lhs is then [M, C]; no scale); L is
-// lhs's row count; trans != 0 reads rhs as [E, O, C].  tm (8, 16, 32 or 64)
-// must divide bm, M must be a multiple of bm, C of 32 and O of 64, and the
-// float operands must be 16-byte aligned; the Python wrapper checks all of
-// it.
+// ptt_gmm: dtype 0 only (bf16 gmm is grouped_matmul_sm90.cu's
+// ptt_gmm_sm90; dtype 1 returns cudaErrorInvalidValue).  rows and scale may
+// be null (lhs is then [M, C]; no scale); L is lhs's row count; trans != 0
+// reads rhs as [E, O, C].  tm (8, 16, 32 or 64) must divide bm, M must be a
+// multiple of bm, C of 32 and O of 64, and the float operands must be
+// 16-byte aligned; the Python wrapper checks all of it.
 extern "C" int ptt_gmm(const void* lhs, const void* rhs, const void* tile_groups,
                        const void* rows, const void* scale, void* out, int M, int C,
                        int O, int E, int L, int bm, int tm, int trans, int dtype,
                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const void* tg = tile_groups;
-  if (dtype == 0)
-    return static_cast<int>(
-        trans ? launch_gmm_tm<float, true>(tm, lhs, rhs, tg, rows, scale, out, M, C, O,
-                                           E, L, bm, s)
-              : launch_gmm_tm<float, false>(tm, lhs, rhs, tg, rows, scale, out, M, C, O,
-                                            E, L, bm, s));
-  if (dtype == 1)
-    return static_cast<int>(
-        trans ? launch_gmm_tm<__nv_bfloat16, true>(tm, lhs, rhs, tg, rows, scale, out, M,
-                                                   C, O, E, L, bm, s)
-              : launch_gmm_tm<__nv_bfloat16, false>(tm, lhs, rhs, tg, rows, scale, out,
-                                                    M, C, O, E, L, bm, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      trans ? launch_gmm_tm<true>(tm, lhs, rhs, tg, rows, scale, out, M, C, O, E, L, bm, s)
+            : launch_gmm_tm<false>(tm, lhs, rhs, tg, rows, scale, out, M, C, O, E, L, bm,
+                                   s));
 }
 
 // ptt_tgmm: out [E, K, N]; lhs [Ll, K] and rhs [Lr, N], read at lrows[m] /

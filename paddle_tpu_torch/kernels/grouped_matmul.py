@@ -15,15 +15,21 @@ row buffer and every ``bm``-row tile belongs to one expert, named by
 - :func:`grouped_matmul`, the differentiable entry point: ``gmm`` forward,
   ``gmm(trans_rhs=True)`` and ``tgmm`` backward.
 
-On a CUDA tensor :func:`gmm` and :func:`tgmm` launch the hand-written Hopper
-kernels of ``csrc/grouped_matmul.cu``; on a CPU tensor they run the plain
-PyTorch versions (:func:`_gmm_reference`, :func:`_tgmm_reference`), the
-tests' oracles.  Any other device raises, and so do shapes the kernels do
-not take.  Launches are counted apart: :data:`LAUNCHES` (gmm, forward
-form; it replaces the Pallas ``_gmm_kernel`` and its fused row gather
-``_gather_rows``), :data:`LAUNCHES_TRANS` (gmm with ``trans_rhs``, the same
-Pallas kernel's backward mode) and :data:`LAUNCHES_TGMM` (it replaces
-``_tgmm_kernel``).
+On a CUDA tensor :func:`gmm` and :func:`tgmm` launch hand-written Hopper
+kernels; on a CPU tensor they run the plain PyTorch versions
+(:func:`_gmm_reference`, :func:`_tgmm_reference`), the tests' oracles.  Any
+other device raises, and so do shapes the kernels do not take.  gmm takes
+the route :func:`_route` picks by dtype: ``"sm90"`` (bf16:
+``csrc/grouped_matmul_sm90.cu``, wgmma fed by a TMA ring, warp-specialised,
+in the wide or narrow form :func:`sm90_plan` picks from ``bm``) or
+``"simt"`` (fp32: ``csrc/grouped_matmul.cu``); tgmm runs
+``csrc/grouped_matmul.cu``.  Launches are counted apart: :data:`LAUNCHES`
+(gmm, forward form; it replaces the Pallas ``_gmm_kernel`` and its fused
+row gather ``_gather_rows``), :data:`LAUNCHES_TRANS` (gmm with
+``trans_rhs``, the same Pallas kernel's backward mode), each on either
+route, with the launches that took the "sm90" route also in
+:data:`LAUNCHES_SM90` and :data:`LAUNCHES_TRANS_SM90`, and
+:data:`LAUNCHES_TGMM` (it replaces ``_tgmm_kernel``).
 
 The reference's TPU tile knobs (the ``grouped_matmul_bn``/``_bk`` flags,
 ``validate_tile_flags``, ``_resolve_tiles`` and the autotune probe
@@ -46,11 +52,16 @@ import torch
 LAUNCHES = 0          # gmm, forward form (rhs [E, C, O])
 LAUNCHES_TRANS = 0    # gmm with trans_rhs (rhs [E, O, C])
 LAUNCHES_TGMM = 0     # tgmm
+# the gmm launches that took the "sm90" route (a part of the above)
+LAUNCHES_SM90 = 0
+LAUNCHES_TRANS_SM90 = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ROW_TILES = (64, 32, 16, 8)      # gmm's row tiles (must divide bm)
 _BK, _BN = 32, 64                 # gmm: C and O must be multiples of these
 _TG = 64                          # tgmm: K and N must be multiples of this
+_WIDE_ROWS = 128                  # sm90 wide form: rows of a CTA
+_NARROW_COLS = 64                 # sm90 narrow form: output columns of a CTA
 
 
 # --------------------------------------------------------------- oracles ---
@@ -148,17 +159,56 @@ def sorted_dispatch_plan(expert_ids, num_groups, bm):
 
 # --------------------------------------------------------------- kernels ---
 
-def _lib():
+_GMM_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+
+# library -> {C entry point: argument types}; ptt_gmm_sm90 takes ptt_gmm's
+# (lhs, rhs, tile_groups, rows, scale, out, M, C, O, E, L, bm, tm, trans,
+# dtype, stream)
+ENTRY_POINTS = {
+    "grouped_matmul": {
+        "ptt_gmm": _GMM_ARGS,
+        "ptt_tgmm": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 +
+        [ctypes.c_void_p]},
+    "grouped_matmul_sm90": {"ptt_gmm_sm90": _GMM_ARGS},
+}
+
+
+def _lib(name="grouped_matmul"):
     from . import _build
-    lib = _build.load("grouped_matmul")
-    if lib.ptt_gmm.argtypes is None:
-        lib.ptt_gmm.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + \
-            [ctypes.c_void_p]
-        lib.ptt_gmm.restype = ctypes.c_int
-        lib.ptt_tgmm.argtypes = [ctypes.c_void_p] * 7 + \
-            [ctypes.c_int] * 9 + [ctypes.c_void_p]
-        lib.ptt_tgmm.restype = ctypes.c_int
+    lib = _build.load(name)
+    for fn_name, argtypes in ENTRY_POINTS[name].items():
+        fn = getattr(lib, fn_name)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
+
+
+def _route(dtype):
+    """gmm's route for operands of ``dtype``: ``"sm90"`` (bf16: wgmma) or
+    ``"simt"`` (fp32: FMA, which matches fp32 references to 1e-5 where
+    wgmma would need TF32)."""
+    return "sm90" if dtype == torch.bfloat16 else "simt"
+
+
+def sm90_plan(bm, M, O):
+    """The sm90 route's tiling of a gmm with group alignment ``bm`` over
+    ``M`` rows and ``O`` output columns: ``{"form", "tm", "bn", "ctas"}``.
+
+    - ``"wide"`` when 128 divides ``bm``: CTAs of ``tm`` = 128 rows x
+      ``bn`` columns (256 where O allows, else 128, the last one ragged);
+    - ``"narrow"`` otherwise: the operands swap, a CTA computes 64 output
+      columns (``bn``) x ``tm`` rows, ``tm`` = :func:`row_tile` (64, 32,
+      16 or 8; wgmma's n).
+
+    ``tm`` divides ``bm``, so no tile straddles two experts."""
+    if bm % _WIDE_ROWS == 0:
+        bn = 256 if O % 256 == 0 else 128
+        return {"form": "wide", "tm": _WIDE_ROWS, "bn": bn,
+                "ctas": (M // _WIDE_ROWS) * -(-O // bn)}
+    tm = row_tile(bm)
+    return {"form": "narrow", "tm": tm, "bn": _NARROW_COLS,
+            "ctas": (M // tm) * (O // _NARROW_COLS)}
 
 
 def row_tile(bm: int) -> int:
@@ -203,7 +253,7 @@ def _ptr(x):
 
 
 def _cuda_gmm(lhs, rhs, tile_groups, bm, rows, trans_rhs, row_scale):
-    global LAUNCHES, LAUNCHES_TRANS
+    global LAUNCHES, LAUNCHES_TRANS, LAUNCHES_SM90, LAUNCHES_TRANS_SM90
     M = rows.shape[0] if rows is not None else lhs.shape[0]
     L, C = lhs.shape
     if trans_rhs:
@@ -228,17 +278,24 @@ def _cuda_gmm(lhs, rhs, tile_groups, bm, rows, trans_rhs, row_scale):
     if tile_groups.shape != (M // bm,):
         raise ValueError(f"tile_groups must be [{M // bm}], got "
                          f"{tuple(tile_groups.shape)}")
-    err = _lib().ptt_gmm(
-        _ptr(lhs), _ptr(rhs), _ptr(tile_groups), _ptr(rows), _ptr(row_scale),
-        _ptr(out), M, C, O, E, L, bm, row_tile(bm), int(trans_rhs),
-        _DTYPE_CODE[lhs.dtype], torch.cuda.current_stream(lhs.device)
-        .cuda_stream)
+    sm90 = _route(lhs.dtype) == "sm90"
+    if sm90:
+        fn = _lib("grouped_matmul_sm90").ptt_gmm_sm90
+        tm = sm90_plan(bm, M, O)["tm"]
+    else:
+        fn, tm = _lib().ptt_gmm, row_tile(bm)
+    err = fn(_ptr(lhs), _ptr(rhs), _ptr(tile_groups), _ptr(rows),
+             _ptr(row_scale), _ptr(out), M, C, O, E, L, bm, tm,
+             int(trans_rhs), _DTYPE_CODE[lhs.dtype],
+             torch.cuda.current_stream(lhs.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"grouped_matmul launch failed: CUDA error {err}")
     if trans_rhs:
         LAUNCHES_TRANS += 1
+        LAUNCHES_TRANS_SM90 += sm90
     else:
         LAUNCHES += 1
+        LAUNCHES_SM90 += sm90
     return out
 
 
@@ -296,8 +353,8 @@ def gmm(lhs, rhs, tile_groups, *, bm, rows=None, trans_rhs=False,
     nondecreasing, expert id per row tile.  Returns [M, O] in lhs.dtype
     (fp32 accumulation).
 
-    CUDA tensors launch the Hopper kernel; CPU tensors take the plain
-    version.
+    CUDA tensors launch a Hopper kernel (the route :func:`_route` picks);
+    CPU tensors take the plain version.
     """
     M = rows.shape[0] if rows is not None else lhs.shape[0]
     if M % bm:

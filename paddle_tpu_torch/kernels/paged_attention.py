@@ -7,12 +7,18 @@ each sequence attends its cached context (``context_lens`` tokens in pages of
 a ``[kv_heads, num_pages, page_size, head_dim]`` pool, addressed by a block
 table) and then this step's own fresh K/V rows under a causal mask.
 
-- On a CUDA tensor the wrapper launches the hand-written Hopper kernel
+- On a CUDA tensor the wrapper launches a hand-written Hopper kernel of
   ``csrc/ragged_paged_attention.cu`` (it replaces the Pallas
-  ``_ragged_paged_attn_kernel``, float and int8 modes).  Every launch over
-  a float pool adds one to :data:`LAUNCHES`, every launch over an int8
-  pool one to :data:`LAUNCHES_INT8`.  Shapes the kernel does not take
-  raise.
+  ``_ragged_paged_attn_kernel``, float and int8 modes), on the route
+  :func:`_route` picks from the query rows a kv-head carries, ``R = T ·
+  (q_heads / kv_heads)``: ``"split"`` for R <= 16 (decode at every GQA
+  group, speculative verify up to R 16: the context cut into whole-page
+  splits by :func:`split_plan`, merged by their lse weights) or ``"tile"``
+  (prefill chunks: one CTA per 16-row tile walks the whole context).
+  Every call over a float pool adds one to :data:`LAUNCHES`, every call
+  over an int8 pool one to :data:`LAUNCHES_INT8`, on either route; the
+  calls that took the split route also to :data:`LAUNCHES_SPLIT` /
+  :data:`LAUNCHES_INT8_SPLIT`.  Shapes the kernels do not take raise.
 - On a CPU tensor it runs the plain PyTorch version
   (:func:`_reference_ragged_paged_attention`), the tests' oracle.
 
@@ -41,11 +47,18 @@ NEG_INF = -1e30
 # kernel by reading these before and after.
 LAUNCHES = 0
 LAUNCHES_INT8 = 0
+# the calls that took the "split" route (a part of the above)
+LAUNCHES_SPLIT = 0
+LAUNCHES_INT8_SPLIT = 0
 
 _SUPPORTED_D = (64, 128)
 _MAX_T = 128
 _MAX_PAGE = 128
 _MAX_GROUP = 8
+_SPLIT_ROWS = 16          # the split route's query rows a kv-head, at most
+_SPLIT_CTAS = 2 * 132     # the split plan's aim: two CTAs an H100 SM
+_SPLIT_MIN_KEYS = 64      # context keys a split holds at least
+_SPLIT_MAX = 64           # splits the merge kernel takes
 
 
 # --------------------------------------------------------------- oracles ---
@@ -121,14 +134,60 @@ _Q_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
-def _kernel_fn():
+_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10
+
+# C entry point -> argument types: (q, k_cache, v_cache, k_scale, v_scale,
+# block_tables, context_lens, q_lens, k_new, v_new, out, lse, B, T, qh, kvh,
+# head_dim, num_pages, page_size, W, q_dtype, kv_dtype, [splits,
+# workspace,] stream)
+ENTRY_POINTS = {
+    "ptt_ragged_paged_attention": _ARGS + [ctypes.c_void_p],
+    "ptt_ragged_paged_attention_split": _ARGS + [ctypes.c_int] +
+    [ctypes.c_void_p] * 2,
+}
+
+
+def _kernel_fn(name="ptt_ragged_paged_attention"):
     from . import _build
-    fn = _build.load("ragged_paged_attention").ptt_ragged_paged_attention
+    fn = getattr(_build.load("ragged_paged_attention"), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 + \
-            [ctypes.c_void_p]
+        fn.argtypes = ENTRY_POINTS[name]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _route(T, group):
+    """The kernel for T query tokens of a GQA group: ``"split"`` when the
+    ``T · group`` rows a kv-head carries fit the split kernel's 16 (decode,
+    speculative verify), else ``"tile"`` (prefill chunks)."""
+    return "split" if T * group <= _SPLIT_ROWS else "tile"
+
+
+def split_plan(B, kvh, W, page_size):
+    """The split route's split count, a function of the shapes alone (the
+    context lengths stay on the device): about ``_SPLIT_CTAS`` CTAs over
+    ``B · kvh · splits``, never more splits than the block table's ``W``
+    pages fill at ``_SPLIT_MIN_KEYS`` keys a split, nor than the merge
+    kernel's ``_SPLIT_MAX``.  The kernel cuts each sequence's live pages,
+    read on the device, into that many runs of whole pages (split s of S:
+    pages [n s / S, n (s + 1) / S))."""
+    min_pages = -(-_SPLIT_MIN_KEYS // page_size)
+    want = max(1, round(_SPLIT_CTAS / (B * kvh)))
+    return max(1, min(want, -(-W // min_pages), _SPLIT_MAX))
+
+
+def launch_plan(q, k_cache, block_tables):
+    """A launch's route, split count and partials workspace (fp32
+    elements), from the operands' shapes alone: no value is read, so the
+    context lengths stay on the device (meta tensors plan as well)."""
+    b, t, qh, d = q.shape
+    kvh, _, page_size, _ = k_cache.shape
+    if _route(t, qh // kvh) == "tile":
+        return {"route": "tile", "splits": None, "workspace": 0}
+    splits = split_plan(b, kvh, block_tables.shape[1], page_size)
+    return {"route": "split", "splits": splits,
+            "workspace": b * kvh * splits * _SPLIT_ROWS * (d + 2)
+            if splits > 1 else 0}
 
 
 def _check_cuda_args(q, k_cache, v_cache, block_tables, context_lens, q_lens,
@@ -201,32 +260,44 @@ def _check_cuda_args(q, k_cache, v_cache, block_tables, context_lens, q_lens,
 def _cuda_ragged_paged_attention(q, k_cache, v_cache, block_tables,
                                  context_lens, q_lens, k_new, v_new,
                                  k_scale, v_scale):
-    """Launch the Hopper kernel on the current stream."""
-    global LAUNCHES, LAUNCHES_INT8
+    """Launch the route's kernel(s) on the current stream."""
+    global LAUNCHES, LAUNCHES_INT8, LAUNCHES_SPLIT, LAUNCHES_INT8_SPLIT
     _check_cuda_args(q, k_cache, v_cache, block_tables, context_lens, q_lens,
                      k_new, v_new, k_scale, v_scale)
     b, t, qh, d = q.shape
     kvh, n_pages, page_size, _ = k_cache.shape
+    W = block_tables.shape[1]
     out = torch.empty_like(q)
     lse = torch.empty((b, t, qh), dtype=torch.float32, device=q.device)
 
     def ptr(x):
         return None if x is None else x.data_ptr()
 
-    err = _kernel_fn()(
-        ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_scale), ptr(v_scale),
-        ptr(block_tables), ptr(context_lens), ptr(q_lens), ptr(k_new),
-        ptr(v_new), ptr(out), ptr(lse), b, t, qh, kvh, d, n_pages, page_size,
-        block_tables.shape[1], _Q_DTYPE_CODE[q.dtype],
-        _KV_DTYPE_CODE[k_cache.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+    args = (ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_scale), ptr(v_scale),
+            ptr(block_tables), ptr(context_lens), ptr(q_lens), ptr(k_new),
+            ptr(v_new), ptr(out), ptr(lse), b, t, qh, kvh, d, n_pages,
+            page_size, W, _Q_DTYPE_CODE[q.dtype],
+            _KV_DTYPE_CODE[k_cache.dtype])
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    plan = launch_plan(q, k_cache, block_tables)
+    split = plan["route"] == "split"
+    if split:
+        # the partials (m, l, acc[d]) of every split, merged after
+        ws = torch.empty((plan["workspace"],), dtype=torch.float32,
+                         device=q.device) if plan["workspace"] else None
+        err = _kernel_fn("ptt_ragged_paged_attention_split")(
+            *args, plan["splits"], ptr(ws), stream)
+    else:
+        err = _kernel_fn()(*args, stream)
     if err != 0:
         raise RuntimeError(f"ragged_paged_attention launch failed: CUDA "
                            f"error {err}")
     if k_scale is None:
         LAUNCHES += 1
+        LAUNCHES_SPLIT += split
     else:
         LAUNCHES_INT8 += 1
+        LAUNCHES_INT8_SPLIT += split
     return out, lse
 
 
@@ -254,8 +325,9 @@ def ragged_paged_attention(q, k_cache, v_cache, block_tables, context_lens,
                     page) dequant scales of an int8 pool.
       with_lse:     also return the fp32 logsumexp [batch, T, q_heads].
 
-    CUDA tensors launch the Hopper kernel; CPU tensors take the plain
-    version.  Returns out [batch, T, num_q_heads, head_dim] (and lse).
+    CUDA tensors launch a Hopper kernel (the route :func:`_route` picks);
+    CPU tensors take the plain version.  Returns out [batch, T,
+    num_q_heads, head_dim] (and lse).
     """
     qh, kvh = q.shape[2], k_cache.shape[0]
     if qh % kvh:

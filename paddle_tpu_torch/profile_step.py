@@ -18,7 +18,7 @@ step, the launches on the "sm90" route, and the forward's and the
 backward's shares of the device-busy time), for MoE presets
 (``--preset mixtral_8x7b --num-layers 4``) the three
 grouped-matmul kernels (gmm forward, gmm ``trans_rhs``, ``tgmm``; ms and
-launches per step), cuBLAS GEMMs, the AdamW update and the cross-entropy
+launches per step, gmm's on the sm90 route beside them), cuBLAS GEMMs, the AdamW update and the cross-entropy
 forward (the device time of the kernels launched inside their
 ``record_function`` ranges), and the top kernels.
 Without it, it profiles a serving step as follows.
@@ -36,15 +36,17 @@ times ``--steps`` decode steps without the profiler (a drain every
 milliseconds per decode step (unprofiled, and profiled for reference),
 device-busy milliseconds per step from the profile, the device's idle share
 (busy over the unprofiled wall), and the kernels that took the most device
-time, with the shares of the ragged paged-attention kernel and of the
-grouped-matmul kernel (MoE models) and their launches per step.  Needs a
-CUDA device.
+time, with the shares of the ragged paged-attention kernels and of the
+grouped-matmul kernels (MoE models) and their launches per step (the
+attention's on its split route, gmm's on its sm90 route beside them).
+Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -90,14 +92,22 @@ def _range_device_ms(prof, name):
 GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
 
 
+_GMM_KERNEL = re.compile(r"gmm_(?:f32|sm90_wide|sm90_narrow)_kernel<([^>]*)>")
+
+
 def grouped_kind(name: str):
     """Which grouped-matmul kernel a device kernel name is: 'tgmm',
-    'gmm_trans' (gmm with trans_rhs), 'gmm' (forward form), or None."""
+    'gmm_trans' (gmm with trans_rhs), 'gmm' (forward form), or None.  Every
+    gmm kernel's second template argument is its trans_rhs flag
+    (grouped_matmul.cu's gmm_f32_kernel<TM, TRANS>, grouped_matmul_sm90.cu's
+    narrow <TM, TRANS> and wide <BN, TRANS, GATHER>)."""
     if "tgmm_" in name:
         return "tgmm"
-    if "gmm_bf16_kernel" in name or "gmm_f32_kernel" in name:
-        return "gmm_trans" if "true>" in name else "gmm"
-    return None
+    m = _GMM_KERNEL.search(name)
+    if m is None:
+        return None
+    args = [a.strip() for a in m.group(1).split(",")]
+    return "gmm_trans" if args[1] == "true" else "gmm"
 
 
 def profile_train(argv) -> dict:
@@ -125,7 +135,8 @@ def profile_train(argv) -> dict:
         return (fa.LAUNCHES_FWD, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV,
                 gm.LAUNCHES, gm.LAUNCHES_TRANS, gm.LAUNCHES_TGMM,
                 fa.LAUNCHES_BWD_DQ_SM90, fa.LAUNCHES_BWD_DKV_SM90,
-                fa.LAUNCHES_FWD_SM90)
+                fa.LAUNCHES_FWD_SM90, gm.LAUNCHES_SM90,
+                gm.LAUNCHES_TRANS_SM90)
 
     c0 = counts()
     with profile(activities=[ProfilerActivity.CPU,
@@ -155,7 +166,9 @@ def profile_train(argv) -> dict:
         kinds = ("gmm", "gmm_trans", "tgmm")
         moe = {"grouped_ms_per_step": {k: grouped[k] / n for k in kinds},
                "grouped_launches_per_step": dict(zip(
-                   kinds, (x / n for x in launches[3:]))),
+                   kinds, (x / n for x in launches[3:6]))),
+               "grouped_sm90_launches_per_step": dict(zip(
+                   kinds[:2], (x / n for x in launches[9:11]))),
                "grouped_share_of_busy": sum(grouped.values()) / busy_ms
                if busy_ms else None}
     return {
@@ -265,7 +278,8 @@ def main(argv=None) -> int:
     plain_wall_ms = (time.perf_counter() - t0) * 1e3
 
     launches0 = pa.LAUNCHES + pa.LAUNCHES_INT8
-    gmm0 = gm.LAUNCHES
+    split0 = pa.LAUNCHES_SPLIT + pa.LAUNCHES_INT8_SPLIT
+    gmm0, sm90_0 = gm.LAUNCHES, gm.LAUNCHES_SM90
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -274,7 +288,9 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     launches = pa.LAUNCHES + pa.LAUNCHES_INT8 - launches0
+    split = pa.LAUNCHES_SPLIT + pa.LAUNCHES_INT8_SPLIT - split0
     gmm_launches = gm.LAUNCHES - gmm0
+    gmm_sm90 = gm.LAUNCHES_SM90 - sm90_0
 
     by_name = _device_ms(prof)
     busy_ms = sum(by_name.values())
@@ -296,9 +312,11 @@ def main(argv=None) -> int:
         "attention_ms_per_step": attn_ms / n if busy_ms else None,
         "attention_share_of_busy": attn_ms / busy_ms if busy_ms else None,
         "attention_launches_per_step": launches / n,
+        "attention_split_launches_per_step": split / n,
         "gmm_ms_per_step": gmm_ms / n if busy_ms else None,
         "gmm_share_of_busy": gmm_ms / busy_ms if busy_ms else None,
         "gmm_launches_per_step": gmm_launches / n,
+        "gmm_sm90_launches_per_step": gmm_sm90 / n,
         "top_kernels_ms_per_step": [[k, v / n] for k, v in top],
     }))
     return 0

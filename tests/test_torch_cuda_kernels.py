@@ -172,6 +172,77 @@ def test_pool_dtype_differs_from_model_dtype_on_card(h100, q_dtype,
                                atol=2e-2 if bf else 2e-5)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,pool", [
+    (torch.float32, None), (torch.bfloat16, None), (torch.float32, "int8"),
+    (torch.bfloat16, "int8")])
+@pytest.mark.parametrize("group,T", [(1, 1), (4, 1), (1, 4), (4, 4), (8, 2),
+                                     (2, 8)])
+@pytest.mark.parametrize("page", [8, 16])
+def test_split_route_vs_plain_on_card(h100, dtype, pool, group, T, page):
+    """R = T x group <= 16 takes the split route: contexts 0, 1, page - 1,
+    page, page + 1 and long ones spread over several splits, float and
+    int8 pools; valid rows within tolerance, every row finite, two runs bit
+    for bit."""
+    kvh, B = 2, 6
+    rng = np.random.default_rng(group * 10 + T + page)
+    W = 320 // page + 2
+    t = _inputs(h100, dtype, B=B, T=T, qh=kvh * group, kvh=kvh, d=128,
+                page=page, n_pages=64, width=W, seed=group + T + page)
+    kc, vc, ks, vs = t["k_cache"], t["v_cache"], None, None
+    if pool == "int8":
+        kc, ks = _int8_pool(h100, rng, kvh, 64, page, 128, zero_pages=(0,))
+        vc, vs = _int8_pool(h100, rng, kvh, 64, page, 128, zero_pages=(3,))
+    ctx = torch.tensor([0, 1, page - 1, page, page + 1, 317],
+                       dtype=torch.int32, device=h100)
+    ql = torch.tensor([T, 1, T, max(T - 1, 0), T, T], dtype=torch.int32,
+                      device=h100)
+    assert pa._route(T, group) == "split"
+    assert pa.split_plan(B, kvh, W, page) > 1
+    n0, s0 = pa.LAUNCHES + pa.LAUNCHES_INT8, \
+        pa.LAUNCHES_SPLIT + pa.LAUNCHES_INT8_SPLIT
+    kw = dict(q_lens=ql, k_new=t["k_new"], v_new=t["v_new"], k_scale=ks,
+              v_scale=vs, with_lse=True)
+    out, lse = pa.ragged_paged_attention(t["q"], kc, vc, t["block_tables"],
+                                         ctx, **kw)
+    out2, lse2 = pa.ragged_paged_attention(t["q"], kc, vc,
+                                           t["block_tables"], ctx, **kw)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES + pa.LAUNCHES_INT8 == n0 + 2
+    assert pa.LAUNCHES_SPLIT + pa.LAUNCHES_INT8_SPLIT == s0 + 2
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    ref, ref_lse = pa._reference_ragged_paged_attention(
+        t["q"], kc, vc, t["block_tables"], ctx, ql, t["k_new"], t["v_new"],
+        ks, vs)
+    keep = torch.arange(T, device=h100)[None, :] < ql[:, None]
+    bf = dtype == torch.bfloat16
+    torch.testing.assert_close(out[keep].float(), ref[keep].float(),
+                               rtol=1e-2 if bf else 2e-5,
+                               atol=2e-2 if bf else 2e-5)
+    torch.testing.assert_close(lse[keep], ref_lse[keep], rtol=2e-5,
+                               atol=1e-3 if bf else 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,group", [(5, 4), (17, 1), (8, 8)])
+def test_more_than_16_rows_take_the_tile_route_on_card(h100, T, group):
+    t = _inputs(h100, torch.float32, B=2, T=T, qh=2 * group, kvh=2, d=64,
+                page=16, n_pages=16, width=6, seed=T)
+    ctx = torch.tensor([40, 3], dtype=torch.int32, device=h100)
+    assert pa._route(T, group) == "tile"
+    n0, s0 = pa.LAUNCHES, pa.LAUNCHES_SPLIT
+    out = pa.ragged_paged_attention(t["q"], t["k_cache"], t["v_cache"],
+                                    t["block_tables"], ctx, k_new=t["k_new"],
+                                    v_new=t["v_new"])
+    torch.cuda.synchronize()
+    assert (pa.LAUNCHES, pa.LAUNCHES_SPLIT) == (n0 + 1, s0)
+    ref, _ = pa._reference_ragged_paged_attention(
+        t["q"], t["k_cache"], t["v_cache"], t["block_tables"], ctx, None,
+        t["k_new"], t["v_new"])
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+
+
 def _gmm_case(h100, dtype, *, E, counts, bm, C, O, seed, fused):
     """A dispatch over the given per-expert entry counts (zero allowed);
     with ``fused`` the rows gather from an un-permuted buffer whose last
@@ -311,6 +382,61 @@ def test_tgmm_kernel_vs_plain_on_card(h100, dtype, K, N, bm, counts, lfused,
     _close(out, ref, dtype == torch.bfloat16)
     if cut:
         assert torch.equal(out[3], torch.zeros_like(out[3]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("bm,counts,fused,scaled,C,O", [
+    (8, [3, 0, 9, 1], True, True, 96, 128),      # narrow tm 8, sentinels
+    (16, [16, 0, 0, 0], False, False, 96, 128),  # narrow tm 16, one expert
+    (24, [5, 30, 0, 2], True, False, 160, 192),  # narrow tm 8, K tail 32
+    (64, [70, 0, 5, 64], True, True, 128, 64),   # narrow tm 64
+    (128, [100, 7, 0, 200], True, True, 96, 128),   # wide bn 128, K tail
+    (128, [0, 300, 2, 0], False, True, 256, 192),   # wide, N tail 64
+    (512, [600, 1, 3, 0], False, False, 96, 512),   # wide bn 256
+    (512, [900, 0, 17, 130], True, False, 160, 256),
+])
+def test_gmm_sm90_route_vs_plain_on_card(h100, trans, bm, counts, fused,
+                                         scaled, C, O):
+    """Every bf16 gmm takes the sm90 route (wide for bm % 128 == 0, else
+    narrow): each form against the plain version, sentinel rows exactly 0,
+    two runs bit for bit; the same call in fp32 takes the simt route."""
+    lhs, rhs, tg, rows = _gmm_case(h100, torch.bfloat16, E=4, counts=counts,
+                                   bm=bm, C=C, O=O, seed=bm + C, fused=fused)
+    if trans:
+        rhs = rhs.transpose(1, 2).contiguous()          # [E, O, C]
+    M = tg.shape[0] * bm
+    gen = torch.Generator(device=h100).manual_seed(bm)
+    s = torch.rand((M,), generator=gen, device=h100) if scaled else None
+    form = gm.sm90_plan(bm, M, O)["form"]
+    assert form == ("wide" if bm % 128 == 0 else "narrow")
+    c0 = (gm.LAUNCHES, gm.LAUNCHES_TRANS, gm.LAUNCHES_SM90,
+          gm.LAUNCHES_TRANS_SM90)
+    out = gm.gmm(lhs, rhs, tg, bm=bm, rows=rows, trans_rhs=trans,
+                 row_scale=s)
+    again = gm.gmm(lhs, rhs, tg, bm=bm, rows=rows, trans_rhs=trans,
+                   row_scale=s)
+    torch.cuda.synchronize()
+    step = (0, 2, 0, 2) if trans else (2, 0, 2, 0)
+    assert (gm.LAUNCHES, gm.LAUNCHES_TRANS, gm.LAUNCHES_SM90,
+            gm.LAUNCHES_TRANS_SM90) == tuple(a + b for a, b in zip(c0, step))
+    assert torch.equal(out, again)
+    ref = gm._gmm_reference(lhs, rhs, tg, bm=bm, rows=rows, trans_rhs=trans,
+                            row_scale=s)
+    _close(out, ref, True)
+    if rows is not None:                # sentinel rows come out exactly 0
+        pad = rows == lhs.shape[0] - 1
+        assert pad.any()
+        assert torch.equal(out[pad], torch.zeros_like(out[pad]))
+    # fp32 stays on the simt route
+    c1 = (gm.LAUNCHES_SM90, gm.LAUNCHES_TRANS_SM90)
+    out32 = gm.gmm(lhs.float(), rhs.float(), tg, bm=bm, rows=rows,
+                   trans_rhs=trans, row_scale=s)
+    torch.cuda.synchronize()
+    assert (gm.LAUNCHES_SM90, gm.LAUNCHES_TRANS_SM90) == c1
+    _close(out32, gm._gmm_reference(lhs.float(), rhs.float(), tg, bm=bm,
+                                    rows=rows, trans_rhs=trans, row_scale=s),
+           False)
 
 
 def _flash_inputs(h100, dtype, *, b, sq, sk, hq, hkv, d, seed):

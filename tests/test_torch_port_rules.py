@@ -150,6 +150,45 @@ def test_cuda_only_paths_refuse_cpu_fallback():
             call()
 
 
+def test_new_routes_refuse_cpu_fallback(monkeypatch):
+    """The gmm sm90 route (bf16) and the attention split route (T x group
+    <= 16) take their plain versions only for CPU tensors: on a meta tensor
+    both raise before any plain version runs, as the simt and tile routes
+    do."""
+    from paddle_tpu_torch.kernels import grouped_matmul as gm
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    def plain(*args, **kw):
+        raise AssertionError("the plain version ran")
+
+    monkeypatch.setattr(gm, "_gmm_reference", plain)
+    monkeypatch.setattr(pa, "_reference_ragged_paged_attention", plain)
+    bf = dict(device="meta", dtype=torch.bfloat16)
+    x, w = torch.empty((256, 64), **bf), torch.empty((2, 64, 128), **bf)
+    for bm in (16, 128):                       # narrow and wide forms
+        tg = torch.zeros((256 // bm,), dtype=torch.int32, device="meta")
+        assert gm._route(x.dtype) == "sm90"
+        for trans in (False, True):
+            with pytest.raises(ValueError, match="device"):
+                gm.gmm(x, w.transpose(1, 2) if trans else w, tg, bm=bm,
+                       trans_rhs=trans)
+    kc = torch.empty((2, 8, 16, 64), **bf)
+    bt = torch.zeros((3, 4), dtype=torch.int32, device="meta")
+    ctx = torch.zeros((3,), dtype=torch.int32, device="meta")
+    for T in (1, 4, 64):                      # split, split, tile
+        q = torch.empty((3, T, 8, 64), **bf)
+        assert pa.launch_plan(q, kc, bt)["route"] == \
+            ("tile" if T == 64 else "split")
+        with pytest.raises(ValueError, match="device"):
+            pa.ragged_paged_attention(q, kc, kc, bt, ctx)
+        with pytest.raises(ValueError, match="device"):
+            pa.ragged_paged_attention(q, kc, kc, bt, ctx,
+                                      k_scale=torch.empty((2, 8),
+                                                          device="meta"),
+                                      v_scale=torch.empty((2, 8),
+                                                          device="meta"))
+
+
 def test_primitives_refuse_cpu_fallback():
     """The primitive generators take their plain versions only for CPU
     tensors: a meta tensor raises, and so does a function with no CUDA body
