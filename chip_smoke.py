@@ -97,22 +97,25 @@ is caught; there is no ``ok`` line unless every phase passed):
     B=4, T=2048, 1 warm-up step then 4 timed steps; launch counts reset
     before the timed steps must be exactly 2·L·steps (forward, remat
     included) and L·steps (dQ, dK/dV); tokens/s, MFU and peak memory.
-11. ``kernel_tgmm`` — the MoE backward's grouped kernels against their
-    plain versions in fp32 and bf16: ``tgmm`` with and without each fused
-    row gather and the rhs scale, and ``gmm`` with ``trans_rhs`` and
-    ``row_scale`` (bm 8/16/128/512, an expert with no rows, one expert
-    holding every row, a truncated plan whose last expert owns no tile,
-    zero sentinel rows, widths from 64 up to Mixtral's; gmm's routes
-    checked as in ``kernel_gmm``); then, at the Mixtral training shape
-    (8192 tokens, top-2, bm 512: M 20480 rows, 16384 of them live; H 4096,
-    I 14336, bf16), ``tgmm`` for ``dw_gate`` and ``dw_down``, ``gmm``
-    ``trans_rhs`` for ``da`` and ``dx`` and the forward's gate/up and down
-    ``gmm``, each held against its plain version (and the yardstick's
-    output too; each gmm form on the sm90 route and bit for bit the same
-    in two runs), then CUDA-event times beside the plain versions, the live
-    rows' operations bound and ``torch._grouped_mm`` (or per-expert
-    matmuls) as the yardstick.  The kernels line reports the
-    launch-weighted mean of each kernel's forms on the training step.
+11. ``kernel_tgmm`` — first ptxas's record of the 4 ``tgmm_sm90`` kernels
+    (0 spill bytes each, or it fails); then the MoE backward's grouped
+    kernels against their plain versions in fp32 and bf16: ``tgmm`` with
+    and without each fused row gather and the rhs scale, and ``gmm`` with
+    ``trans_rhs`` and ``row_scale`` (bm 8/16/128/512, an expert with no
+    rows, one expert holding every row, a truncated plan whose last expert
+    owns no tile, zero sentinel rows, widths from 64 up to Mixtral's; each
+    launch's route checked by the counters: bf16 on "sm90", fp32 on
+    "simt"; every ``tgmm`` block the plain version gives as exact zeros is
+    exact zeros); then, at the Mixtral training shape (8192 tokens, top-2,
+    bm 512: M 20480 rows, 16384 of them live; H 4096, I 14336, bf16),
+    ``tgmm`` for ``dw_gate`` and ``dw_down``, ``gmm`` ``trans_rhs`` for
+    ``da`` and ``dx`` and the forward's gate/up and down ``gmm``, each
+    held against its plain version (and the yardstick's output too; each
+    on the sm90 route and bit for bit the same in two runs), then
+    CUDA-event times beside the plain versions, the live rows' operations
+    bound and ``torch._grouped_mm`` (or per-expert matmuls) as the
+    yardstick.  The kernels line reports the launch-weighted mean of each
+    kernel's forms on the training step.
 12. ``moe_train_parity`` — ``PretrainStep`` on the card against the same
     step on the CPU from one ``restore_canonical`` state: 1 fp32 layer at
     Mixtral-8x7B widths (1.71 B parameters), B=2, T=256, remat and a
@@ -125,9 +128,9 @@ is caught; there is no ``ok`` line unless every phase passed):
     bf16 ``m``, fp32 ``v``), B=4, T=2048, 1 warm-up step then 4 timed
     steps; launch counts reset before the timed steps must be exactly
     6·L·steps (gmm forward, remat included), 3·L·steps (gmm ``trans_rhs``),
-    3·L·steps (``tgmm``) and the flash kernels' 2·L·steps, L·steps,
-    L·steps; tokens/s, MFU on the active parameters, peak memory and the
-    router's stats.
+    3·L·steps (``tgmm``), each all on the sm90 route, and the flash
+    kernels' 2·L·steps, L·steps, L·steps; tokens/s, MFU on the active
+    parameters, peak memory and the router's stats.
 14. ``kernel_wo`` — the weight-only W8A16/W4A16 kernel against its plain
     version: int8 and int4, x in fp32/bf16/fp16, m 1/7/8/16/100/512, (k, n)
     from (64, 64) and (96, 200) up to every llama2_7b projection, with an
@@ -154,17 +157,22 @@ is caught; there is no ``ok`` line unless every phase passed):
     fp32/bf16/fp16 inputs) over 1, 37 x 19, 8 x 1024 and 1,000,003
     elements, within one ulp of the output + 1e-6 x (|want| + max |want|);
     reduce max/min/add, fp32/bf16/fp16, rows 1/100/8192, columns
-    1/19/300/4096/32000, bit for bit; matmul (1, 1, 1) up to llama2_7b's
+    1/19/300/4096/32000 and, up to 4096 columns, an offset view off the
+    16-byte alignment and for max/min rows with NaNs (the functors
+    propagate NaN as torch.maximum does), bit for bit, each on the route ``_reduce_route`` names and both
+    routes reached; matmul (1, 1, 1) up to llama2_7b's
     gate and down projections, fp32/bf16/fp16 in, the output in x's dtype
     and another, epilogues none/relu*2/silu, by PRIM_MM_TOL.  Then the
     library's path at llama2_7b widths (an FFN over 8192 rows, the LM head,
     the logits' row max, fp32 row sums, the gate with its silu fused), its
-    launches counted from 0: 5 matmuls, 1 elementwise, 2 reduces; then
-    CUDA-event times of SwiGLU [8192, 11008], row max [8192, 32000], fp32
-    row sum [8192, 4096] and the gate projection with and without the silu
-    epilogue, beside the plain versions, the bounds and ``torch.amax`` /
-    ``torch.matmul`` (cost references where no one call computes the same
-    function).
+    launches counted from 0: 5 matmuls, 1 elementwise, 2 reduces (both on
+    the "vec16" route); then CUDA-event times of SwiGLU [8192, 11008], row
+    max [8192, 32000] (and its chain alone, ``chain_floor_ms``: the same
+    kernel on 256 rows, with the NaN-propagating max and with ``fmaxf``
+    alone), fp32 row sum [8192, 4096] and the gate projection with and
+    without the silu epilogue, beside the plain versions, the bounds and
+    ``torch.amax`` / ``torch.matmul`` (cost references where no one call
+    computes the same function).
 17. the ``kernels`` line (each kernel's launches on its routes under
     ``routes``), then the last line ``{"ok": true, "device": {...}}``.
 
@@ -179,8 +187,8 @@ from (no ``ok`` line).
 
 A phase runs alone after the device and build phases, e.g. the flash
 kernels': ``python3 -c "import chip_smoke as c; c.phase_device();
-c.phase_kernel_flash(c.phase_build())"`` (``phase_kernel_gmm`` takes the
-build record too).
+c.phase_kernel_flash(c.phase_build())"`` (``phase_kernel_gmm`` and
+``phase_kernel_tgmm`` take the build record too).
 """
 
 from __future__ import annotations
@@ -267,6 +275,9 @@ PARITY_FAR_SHARE = 5e-4
 TRAIN_ARGV = ["--preset", "llama2_7b", "--batch", "4", "--seq", "2048"]
 TRAIN_STEPS = 4                    # timed, after one warm-up step
 TGMM_REPLACES = "paddle_tpu/kernels/grouped_matmul.py:334"
+# bf16 tgmm's route (fp32 stays on GMM_SOURCE's FMA kernel)
+TGMM_SOURCE = "paddle_tpu_torch/kernels/csrc/tgmm_sm90.cu"
+TGMM_SM90_KERNELS = 4              # its instantiations (BN x route)
 # the Mixtral training shape of the grouped kernels: B=4 x T=2048 tokens,
 # top-2 of 8 experts, bm 512 (M = 16384 live rows + 8 x 512 = 20480)
 MOE_TIMED = dict(tokens=8192, E=8, k=2, bm=512, H=4096, I=14336)
@@ -312,6 +323,10 @@ PRIM_REPLACES = {"elementwise": "paddle_tpu/kernels/primitives.py:71",
 PRIM_EW_SHAPES = ((1,), (37, 19), (8, 1024), (1_000_003,))
 PRIM_RED_ROWS = (1, 100, 8192)
 PRIM_RED_COLS = (1, 19, 300, 4096, 32000)
+# rows of the reduce matrix's offset-view and NaN cases
+PRIM_RED_OFFSET_ROWS = 100
+# rows of the reduce max's chain-floor timing (kernel_primitives)
+PRIM_CHAIN_ROWS = 256
 PRIM_MM_SHAPES = ((1, 1, 1), (100, 70, 50), (16, 24, 8), (257, 4095, 129),
                   (8192, 4096, 11008), (8192, 11008, 4096))
 # matmul kernel vs plain, by output dtype, as _flash_check reads it: fp32
@@ -1993,13 +2008,61 @@ def _grouped_counts():
     from paddle_tpu_torch.kernels import grouped_matmul as gm
     return {"gmm": gm.LAUNCHES, "gmm_trans": gm.LAUNCHES_TRANS,
             "tgmm": gm.LAUNCHES_TGMM, "gmm_sm90": gm.LAUNCHES_SM90,
-            "gmm_trans_sm90": gm.LAUNCHES_TRANS_SM90}
+            "gmm_trans_sm90": gm.LAUNCHES_TRANS_SM90,
+            "tgmm_sm90": gm.LAUNCHES_TGMM_SM90}
 
 
 def _reset_grouped_counts():
     from paddle_tpu_torch.kernels import grouped_matmul as gm
     gm.LAUNCHES = gm.LAUNCHES_TRANS = gm.LAUNCHES_TGMM = 0
-    gm.LAUNCHES_SM90 = gm.LAUNCHES_TRANS_SM90 = 0
+    gm.LAUNCHES_SM90 = gm.LAUNCHES_TRANS_SM90 = gm.LAUNCHES_TGMM_SM90 = 0
+
+
+def _tgmm_route_counts():
+    from paddle_tpu_torch.kernels import grouped_matmul as gm
+    return gm.LAUNCHES_TGMM, gm.LAUNCHES_TGMM_SM90
+
+
+def _check_tgmm_route(name, dtype, before):
+    """One tgmm launch since ``before`` (``_tgmm_route_counts``), on the
+    route of its dtype: sm90 for bf16, simt for fp32."""
+    from paddle_tpu_torch.kernels import grouped_matmul as gm
+    n, sm90 = (a - b for a, b in zip(_tgmm_route_counts(), before))
+    want = 1 if gm._route(dtype) == "sm90" else 0
+    if n != 1 or sm90 != want:
+        raise AssertionError(f"{name}: {n} tgmm launches, {sm90} on the sm90 "
+                             f"route; want 1 and {want}")
+    return gm._route(dtype)
+
+
+def _tgmm_sm90_ptxas(log):
+    """ptxas's record of each kernel of ``tgmm_sm90``'s build log:
+    ``{"bn256 cp1": {"registers", "spill_stores", "spill_loads",
+    "stack_bytes"}, ...}`` (``cp1``: the cp.async route, ``cp0`` TMA;
+    ``registers`` is the launch count; the consumers raise theirs with
+    setmaxnreg)."""
+    import re
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for \S*tgmm_sm90_kernelILi(\d+)E"
+                      r"Lb(\d)E", ln)
+        if m:
+            name = f"bn{m.group(1)} cp{m.group(2)}"
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            out[name].update(stack_bytes=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            name = None
+    return out
 
 
 def _dispatch_rows(ids, E, bm, cut=False):
@@ -2110,8 +2173,10 @@ def _moe_backward_matrix(gen):
                 else:
                     rhs = _rows_operand(gen, dtype, F, M, N, rf)
                     rr = rows if rf else None
+                    c0 = _tgmm_route_counts()
                     out = gm.tgmm(lhs, rhs, tg, E, bm=bm, lhs_rows=lr,
                                   rhs_rows=rr, rhs_scale=s)
+                    _check_tgmm_route(f"{label}/{form}", dtype, c0)
                     ref = gm._tgmm_reference(lhs, rhs, tg, E, bm=bm,
                                              lhs_rows=lr, rhs_rows=rr,
                                              rhs_scale=s)
@@ -2124,13 +2189,31 @@ def _moe_backward_matrix(gen):
                     if pad.any() and out[pad].abs().max().item() != 0:
                         raise AssertionError(f"{name}: sentinel rows are "
                                              "not exactly 0")
-                if kind == "tgmm" and cut and out[E - 1].abs().max() != 0:
-                    raise AssertionError(f"{name}: the expert with no tile "
-                                         "is not exactly 0")
-                cases.append({"case": label, "dtype": dname, "form": form,
-                              "E": E, "F": F, "bm": bm, "M": M, "K": K,
-                              "N": N, "max_abs_err": err,
-                              "ref_max_abs": ref_max, "tol": tol})
+                zero_blocks = []
+                if kind == "tgmm":
+                    # every block the plain version gives as exact zeros (an
+                    # expert with no tile, the cut tail, an expert whose
+                    # rows all read the zero sentinel) is exact zeros
+                    zero_blocks = (ref.flatten(1) == 0).all(1).nonzero() \
+                        .flatten().tolist()
+                    if cut and E - 1 not in zero_blocks:
+                        raise AssertionError(f"{name}: the plain version's "
+                                             "cut tail is not 0")
+                    for e in zero_blocks:
+                        if out[e].abs().max().item() != 0:
+                            raise AssertionError(f"{name}: expert {e}'s "
+                                                 "block is not exactly 0")
+                rec = {"case": label, "dtype": dname, "form": form, "E": E,
+                       "F": F, "bm": bm, "M": M, "K": K, "N": N,
+                       "route": gm._route(dtype), "max_abs_err": err,
+                       "ref_max_abs": ref_max, "tol": tol}
+                if kind == "tgmm":
+                    rec["zero_blocks"] = zero_blocks
+                    if rec["route"] == "sm90":
+                        rec["plan"] = gm.tgmm_sm90_plan(
+                            bm, K, N, E, lhs_rows=lf, rhs_rows=rf,
+                            rhs_scale=s is not None)
+                cases.append(rec)
                 worst[kind] = max(worst[kind], err)
                 del lhs, rhs, out, ref
             del rows, tg, scale
@@ -2141,7 +2224,8 @@ def _moe_backward_matrix(gen):
 def _moe_backward_timing(gen):
     """The MoE step's grouped calls at the Mixtral training shape (bf16):
     the backward's tgmm and gmm trans_rhs forms and the forward's gate/up
-    gmm.  Each output is held against its plain version (GMM_TOL; rows
+    gmm.  Each call takes the sm90 route (by the counters) and repeats bit
+    for bit; each output is held against its plain version (GMM_TOL; rows
     that read the zero sentinel exactly 0), and so is the library
     yardstick's.  Then CUDA-event times of each beside its plain version
     (in turns: plain, kernel, library, kernel, plain), its bound (2 x the
@@ -2201,6 +2285,8 @@ def _moe_backward_timing(gen):
             operands=(a, w_down, tg), K=I, N=H),
         "tgmm_dw_gate": dict(
             kernel=lambda: gm.tgmm(xz, dh, tg, E, bm=bm, lhs_rows=rows),
+            in_kernel=lambda: _tgmm_in_kernel_gather(xz, dh, tg, E, bm,
+                                                     lrows=rows),
             plain=lambda: gm._tgmm_reference(xz, dh, tg, E, bm=bm,
                                              lhs_rows=rows),
             library=(lambda: torch._grouped_mm(x_g.t(), dh, offs=ends))
@@ -2210,6 +2296,8 @@ def _moe_backward_timing(gen):
         "tgmm_dw_down": dict(
             kernel=lambda: gm.tgmm(a, dy_z, tg, E, bm=bm, rhs_rows=rows,
                                    rhs_scale=s),
+            in_kernel=lambda: _tgmm_in_kernel_gather(a, dy_z, tg, E, bm,
+                                                     rrows=rows, scale=s),
             plain=lambda: gm._tgmm_reference(a, dy_z, tg, E, bm=bm,
                                              rhs_rows=rows, rhs_scale=s),
             library=(lambda: torch._grouped_mm(a.t(), dy_gs, offs=ends))
@@ -2237,15 +2325,16 @@ def _moe_backward_timing(gen):
     }
     timings = {}
     for name, cl in calls.items():
-        c0 = _gmm_route_counts()
+        tg_form = name.startswith("tgmm")
+        c0 = _tgmm_route_counts() if tg_form else _gmm_route_counts()
         mine = cl["kernel"]()
-        if not name.startswith("tgmm"):
-            route = _check_gmm_route(f"training shape {name}", bf, c0)
-            again = cl["kernel"]()
-            torch.cuda.synchronize()
-            if not torch.equal(mine, again):
-                raise AssertionError(f"training shape {name}: two runs differ")
-            del again
+        route = (_check_tgmm_route if tg_form else _check_gmm_route)(
+            f"training shape {name}", bf, c0)
+        again = cl["kernel"]()
+        torch.cuda.synchronize()
+        if not torch.equal(mine, again):
+            raise AssertionError(f"training shape {name}: two runs differ")
+        del again
         ref = cl["plain"]()
         lib_out = cl["library"]()
         if isinstance(lib_out, list):
@@ -2260,7 +2349,21 @@ def _moe_backward_timing(gen):
                 mine[rows == F].abs().max().item() != 0:
             raise AssertionError(f"training shape {name}: sentinel rows are "
                                  "not exactly 0")
-        del lib_out, ref
+        del lib_out
+        extra = {}
+        if tg_form:
+            # the gather (and scale) inside the kernel, by cp.async, where
+            # the wrapper runs its gather pass and reads TMA tiles: the
+            # comparison that chose the pass
+            inner = cl["in_kernel"]()
+            torch.cuda.synchronize()
+            extra = {"in_kernel_gather_max_abs_err": _check_close(
+                f"training shape {name} in-kernel gather", inner, ref,
+                bf)[0],
+                "in_kernel_gather_ms": min(cuda_ms(cl["in_kernel"], 5)
+                                           for _ in range(2))}
+            del inner
+        del ref
         t = {}
         for key in ("plain", "kernel", "library", "kernel2", "plain2"):
             fn = cl[key.rstrip("2")]
@@ -2277,9 +2380,12 @@ def _moe_backward_timing(gen):
         timings[name] = {
             "shape": f"mixtral train {name} M={M} live={live} bm={bm} "
                      f"K={K} N={N} bf16",
-            **({} if name.startswith("tgmm") else
-               {"route": route, "plan": gm.sm90_plan(bm, M, N),
-                "bitwise_repeat": True}),
+            "route": route, "bitwise_repeat": True,
+            "plan": gm.tgmm_sm90_plan(
+                bm, K, N, E, lhs_rows=name == "tgmm_dw_gate",
+                rhs_rows=name == "tgmm_dw_down",
+                rhs_scale=name == "tgmm_dw_down")
+            if tg_form else gm.sm90_plan(bm, M, N),
             "max_abs_err": err, "ref_max_abs": ref_max, "tol": tol,
             "kernel_ms": ms, "kernel_ms_runs": [t["kernel"], t["kernel2"]],
             "plain_ms": min(t["plain"], t["plain2"]),
@@ -2289,11 +2395,32 @@ def _moe_backward_timing(gen):
             "bound_ms": b_ms, "bound_by": b_by,
             "bound_ms_padded_rows":
                 2 * M * K * N / PEAK_FLOPS["bfloat16"] * 1e3,
-            "tflops_live_rows": 2 * live * K * N / (ms * 1e9)}
+            "tflops_live_rows": 2 * live * K * N / (ms * 1e9), **extra}
         del mine
     del xz, dy_z, dh, a, w_gate, w_down, s, x_g, dy_gs
     torch.cuda.empty_cache()
     return timings
+
+
+def _tgmm_in_kernel_gather(lhs, rhs, tg, E, bm, lrows=None, rrows=None,
+                           scale=None):
+    """``tgmm`` on the sm90 kernel with the rows (and the scale) handed to
+    ``ptt_tgmm_sm90``, which then gathers them in the kernel by cp.async,
+    instead of the wrapper's gather pass and TMA tiles."""
+    import torch
+    from paddle_tpu_torch.kernels import grouped_matmul as gm
+    M = (lrows if lrows is not None else lhs).shape[0]
+    K, N = lhs.shape[1], rhs.shape[1]
+    out = torch.empty((E, K, N), dtype=lhs.dtype, device=lhs.device)
+    sc = None if scale is None else scale.to(rhs.dtype).contiguous()
+    ptr = gm._ptr
+    err = gm._lib("tgmm_sm90").ptt_tgmm_sm90(
+        ptr(lhs), ptr(rhs), ptr(tg), ptr(lrows), ptr(rrows), ptr(sc),
+        ptr(out), M, K, N, E, lhs.shape[0], rhs.shape[0], bm, M // bm, 1,
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"tgmm in-kernel gather: CUDA error {err}")
+    return out
 
 
 def _launch_mix(timings, mix):
@@ -2308,8 +2435,17 @@ def _launch_mix(timings, mix):
     return out
 
 
-def phase_kernel_tgmm():
+def phase_kernel_tgmm(built):
+    """``built``: ``phase_build``'s record (the tgmm_sm90 build's ptxas
+    log: every kernel must have 0 spill bytes)."""
     import torch
+    ptxas = _tgmm_sm90_ptxas(built.get("tgmm_sm90", {}).get("log", ""))
+    spills = {k: v for k, v in ptxas.items()
+              if v.get("spill_stores") or v.get("spill_loads")}
+    if len(ptxas) != TGMM_SM90_KERNELS or spills:
+        raise AssertionError(f"tgmm_sm90: ptxas record {ptxas} (empty: "
+                             f"built before phase_build; {TGMM_SM90_KERNELS} "
+                             "kernels, each with 0 spill bytes)")
     gen = torch.Generator(device="cuda").manual_seed(4)
     cases, worst = _moe_backward_matrix(gen)
     timings = _moe_backward_timing(gen)
@@ -2318,7 +2454,7 @@ def phase_kernel_tgmm():
                           [timings[f]["max_abs_err"] for f in mix])
     mixes = {kind: _launch_mix(timings, mix) for kind, mix in MOE_MIX.items()}
     emit("kernel_tgmm", cases=cases, max_abs_err=worst, timings=timings,
-         launch_mix=mixes)
+         launch_mix=mixes, tgmm_sm90_ptxas=ptxas)
     return worst, timings, mixes
 
 
@@ -2445,7 +2581,7 @@ def phase_moe_train_parity():
     # fp32: every gmm launch on the simt route
     want = {"fwd": 2 * n, "dq": n, "dkv": n, "gmm": 6 * n,
             "gmm_trans": 3 * n, "tgmm": 3 * n, "gmm_sm90": 0,
-            "gmm_trans_sm90": 0}
+            "gmm_trans_sm90": 0, "tgmm_sm90": 0}
     if r["launches"] != want:
         raise AssertionError(f"moe_train_parity: launches {r['launches']} "
                              f"!= {want}")
@@ -2513,7 +2649,7 @@ def phase_train_moe():
     want = {"fwd": fwd * n, "dq": n, "dkv": n, "fwd_sm90": fwd * n,
             "dq_sm90": n, "dkv_sm90": n, "gmm": 3 * fwd * n,
             "gmm_trans": 3 * n, "tgmm": 3 * n, "gmm_sm90": 3 * fwd * n,
-            "gmm_trans_sm90": 3 * n}
+            "gmm_trans_sm90": 3 * n, "tgmm_sm90": 3 * n}
     if launches != want:
         raise AssertionError(f"train_moe: launches {launches} != {want} "
                              f"({L} layers x {steps} steps)")
@@ -2996,6 +3132,12 @@ def _prim_fns():
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels.primitives import KernelFn
     silu = "return a / (1.0f + expf(-a))"
+    # max / min propagate NaN as torch.maximum / torch.minimum do (the NaN
+    # operand itself, the running value's first); fmaxf / fminf drop it.
+    # Written as selects after the fmaxf: the nested ternary takes 42.9 ns
+    # a fold step on an H100, this 21.8 (kernel_primitives' chain floor)
+    nan_last = ("float m = {}(a, b); m = b != b ? b : m; "
+                "return a != a ? a : m;")
     return {
         "elementwise": {
             "silu_mul": (KernelFn(lambda a, b: F.silu(a) * b,
@@ -3004,9 +3146,12 @@ def _prim_fns():
                                "return fmaxf(a, 0.0f) * 2.0f;"), 1),
             "fma3": (KernelFn(lambda a, b, c: a * b + c,
                               "return a * b + c;"), 3)},
-        "reduce": {"max": KernelFn(torch.maximum, "return fmaxf(a, b);"),
-                   "min": KernelFn(torch.minimum, "return fminf(a, b);"),
+        "reduce": {"max": KernelFn(torch.maximum, nan_last.format("fmaxf")),
+                   "min": KernelFn(torch.minimum, nan_last.format("fminf")),
                    "add": KernelFn(torch.add, "return a + b;")},
+        # timed beside max on the chain-floor shape: fmaxf alone (torch.fmax,
+        # which drops NaN), the step's cost without the NaN test
+        "reduce_timing": {"fmax": KernelFn(torch.fmax, "return fmaxf(a, b);")},
         "matmul": {"none": None,
                    "relu2": KernelFn(lambda a: torch.clamp_min(a, 0) * 2.0,
                                      "return fmaxf(a, 0.0f) * 2.0f;"),
@@ -3021,7 +3166,8 @@ def _prim_headers():
     heads = [P.generated_header("elementwise", fn, arity)
              for fn, arity in fns["elementwise"].values()]
     heads += [P.generated_header("reduce", fn)
-              for fn in fns["reduce"].values()]
+              for kind in ("reduce", "reduce_timing")
+              for fn in fns[kind].values()]
     heads += [P.generated_header("matmul", fn or P._IDENTITY)
               for fn in fns["matmul"].values()]
     return [("primitives", h) for h in heads]
@@ -3030,12 +3176,14 @@ def _prim_headers():
 def _prim_counts():
     from paddle_tpu_torch.kernels import primitives as P
     return {"elementwise": P.LAUNCHES_ELEMENTWISE,
-            "reduce": P.LAUNCHES_REDUCE, "matmul": P.LAUNCHES_MATMUL}
+            "reduce": P.LAUNCHES_REDUCE, "matmul": P.LAUNCHES_MATMUL,
+            "reduce_vec16": P.LAUNCHES_REDUCE_VEC16}
 
 
 def _reset_prim_counts():
     from paddle_tpu_torch.kernels import primitives as P
     P.LAUNCHES_ELEMENTWISE = P.LAUNCHES_REDUCE = P.LAUNCHES_MATMUL = 0
+    P.LAUNCHES_REDUCE_VEC16 = 0
 
 
 def _ulp(want):
@@ -3092,6 +3240,14 @@ def _ms_once(fn):
     return start.elapsed_time(end)
 
 
+def _nan_cells(cols):
+    """(row, column) of the NaNs of a reduce NaN case: one in the middle of
+    row 3, the first column of row 5, the last of row 7, and every column of
+    row 9."""
+    cells = [(3, cols // 2), (5, 0), (7, cols - 1)]
+    return cells + [(9, c) for c in range(cols)]
+
+
 def _prim_mm_tol(out_name, k):
     """PRIM_MM_TOL for an output dtype and a sum over k terms: the fp32
     relative limit is at least 4 sqrt(k) fp32 ulps."""
@@ -3105,7 +3261,9 @@ def _prim_matrix(gen):
     """The three generators against their plain versions: elementwise (three
     functions, arity 1/2/3, over PRIM_EW_SHAPES, fp32/bf16/fp16 and mixed
     input dtypes), reduce (max/min/add x fp32/bf16/fp16 x PRIM_RED_ROWS x
-    PRIM_RED_COLS, bit for bit) and matmul (PRIM_MM_SHAPES x fp32/bf16/fp16
+    PRIM_RED_COLS, plus, up to 4096 columns, an offset view off the 16-byte
+    alignment and, for max/min, rows with NaNs; bit for bit, each case on the route
+    _reduce_route names, both routes reached) and matmul (PRIM_MM_SHAPES x fp32/bf16/fp16
     x out_dtype equal or not x epilogues none/relu2/silu).  Returns the
     worst errors by generator."""
     import torch
@@ -3138,6 +3296,26 @@ def _prim_matrix(gen):
                 we["cases"] += 1
 
     wr = worst["reduce"]
+    wr.update(routes={"vec16": 0, "scalar": 0}, offset_cases=0, nan_cases=0)
+
+    def red_case(label, apply, x, want):
+        """One reduce launch, bit for bit against ``want``, on the route
+        _reduce_route names (by the counters)."""
+        route = P._reduce_route(x)
+        n0, v0 = P.LAUNCHES_REDUCE, P.LAUNCHES_REDUCE_VEC16
+        got = apply(x)
+        if (P.LAUNCHES_REDUCE - n0, P.LAUNCHES_REDUCE_VEC16 - v0) != \
+                (1, int(route == "vec16")):
+            raise AssertionError(f"reduce {label}: launches on the wrong "
+                                 f"route (want {route})")
+        wr["cases"] += 1
+        wr["routes"][route] += 1
+        if not _bits_equal(got, want):
+            wr["mismatches"] += 1
+            diff = (got.float() - want.float()).abs()
+            raise AssertionError(f"reduce {label} ({route}): not bit for "
+                                 f"bit (max abs err {float(diff.max())})")
+
     for name, fn in fns["reduce"].items():
         apply = P.reduce_kernel(fn, None)
         for dt in (f32, bf16, f16):
@@ -3146,16 +3324,30 @@ def _prim_matrix(gen):
                                 device=dev).to(dt)
                 want = P._reduce_reference(fn, x)   # rows fold apart
                 for rows in PRIM_RED_ROWS:
-                    got = apply(x[:rows])
-                    wr["cases"] += 1
-                    if not _bits_equal(got, want[:rows]):
-                        wr["mismatches"] += 1
-                        diff = (got.float() - want[:rows].float()).abs()
-                        raise AssertionError(
-                            f"reduce {name} {dt} rows {rows} cols {cols}: "
-                            f"not bit for bit (max abs err "
-                            f"{float(diff.max())})")
-                del x
+                    red_case(f"{name} {dt} rows {rows} cols {cols}", apply,
+                             x[:rows], want[:rows])
+                if cols == max(PRIM_RED_COLS):
+                    del x                  # the plain fold of 32000 is slow
+                    continue
+                # a view that starts one element into the buffer: the
+                # same shape off the 16-byte alignment
+                n = PRIM_RED_OFFSET_ROWS * cols
+                xo = x.view(-1)[1:1 + n].view(PRIM_RED_OFFSET_ROWS, cols)
+                red_case(f"{name} {dt} offset view cols {cols}", apply, xo,
+                         P._reduce_reference(fn, xo))
+                wr["offset_cases"] += 1
+                if name in ("max", "min"):
+                    xn = x[:PRIM_RED_OFFSET_ROWS].clone()
+                    for r, c in _nan_cells(cols):
+                        xn[r, c] = float("nan")
+                    red_case(f"{name} {dt} NaN rows cols {cols}", apply, xn,
+                             P._reduce_reference(fn, xn))
+                    wr["nan_cases"] += 1
+                    del xn
+                del x, xo
+    if not all(wr["routes"].values()):
+        raise AssertionError(f"reduce: a route was not reached "
+                             f"{wr['routes']}")
     wm = worst["matmul"]
     for m, k, n in PRIM_MM_SHAPES:
         for dt, other in ((f32, bf16), (bf16, f32), (f16, f32)):
@@ -3225,7 +3417,9 @@ def _prim_path(gen):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = _prim_counts()
-    if launches != {"elementwise": 1, "reduce": 2, "matmul": 5}:
+    # both reduces stage 16-byte copies: fresh tensors, 16-byte rows
+    if launches != {"elementwise": 1, "reduce": 2, "matmul": 5,
+                    "reduce_vec16": 2}:
         raise AssertionError(f"primitives path: launches {launches}")
     tol = PRIM_MM_TOL["bfloat16"]
     checks = {
@@ -3315,12 +3509,26 @@ def _prim_timing(gen):
     if not _bits_equal(y, P._reduce_reference(fn, x)) or \
             not _bits_equal(y, torch.amax(x, -1)):
         raise AssertionError("timed reduce max: not bit for bit")
+    # the chain alone: 256 rows (8 warps) of the same 32000 columns move 16
+    # MB, ~5 us of bytes, so nearly all of the time is each row's chain of
+    # 32000 dependent steps; the same with fmaxf alone (no NaN test)
+    xc = x[:PRIM_CHAIN_ROWS]
+    fmax = P.reduce_kernel(fns["reduce_timing"]["fmax"], -math.inf)
+    if not _bits_equal(fmax(xc), y[:PRIM_CHAIN_ROWS]):
+        raise AssertionError("chain floor: fmaxf's fold differs on finite "
+                             "rows")
+    chain = {"chain_floor_ms": min(cuda_ms(lambda: rmax(xc), 10)
+                                   for _ in range(2)),
+             "chain_floor_fmaxf_ms": min(cuda_ms(lambda: fmax(xc), 10)
+                                         for _ in range(2)),
+             "chain_floor_shape": f"[{PRIM_CHAIN_ROWS}, {V}] bf16"}
     rec("reduce_max", f"[{R}, {V}] bf16", lambda: rmax(x),
         lambda: P._reduce_reference(fn, x),
         _grouped_bound_ms([x], y, x.numel(), f32),
         library=lambda: torch.amax(x, -1), iters=10, plain_once=True,
-        max_abs_err=0.0, library_call="torch.amax(x, -1), bit for bit")
-    del x, y
+        max_abs_err=0.0, library_call="torch.amax(x, -1), bit for bit",
+        route=P._reduce_route(x), **chain)
+    del x, y, xc
 
     # fp32 row sum: torch.sum sums in another order, a cost reference only
     fn = fns["reduce"]["add"]
@@ -3336,7 +3544,8 @@ def _prim_timing(gen):
         max_abs_err=0.0,
         sum_vs_fold_max_abs_diff=float((torch.sum(x, -1) - y).abs().max()),
         library_note="null: torch.sum sums in another order; "
-                     "cost_reference_ms is torch.sum(x, -1)")
+                     "cost_reference_ms is torch.sum(x, -1)",
+        route=P._reduce_route(x))
     del x, y
 
     # the gate projection, without and with the silu epilogue
@@ -3415,7 +3624,7 @@ def main() -> int:
     flash_modes = phase_kernel_flash_modes(_smi)
     phase_train_parity()
     flash_launches = phase_train()
-    moe_err, moe_t, moe_mix = phase_kernel_tgmm()
+    moe_err, moe_t, moe_mix = phase_kernel_tgmm(built)
     phase_moe_train_parity()
     moe_launches = phase_train_moe()
     wo_err, wo_t = phase_kernel_wo()
@@ -3474,16 +3683,14 @@ def main() -> int:
          "bound_ms": moe_mix[kind]["bound_ms"],
          "bound_by": moe_mix[kind]["bound_by"],
          "library_ms": moe_mix[kind]["library_ms"],
-         **({"routes": {"sm90": moe_launches[f"{key}_sm90"],
-                        "simt": moe_launches[key] -
-                        moe_launches[f"{key}_sm90"]}}
-            if key != "tgmm" else {})}
+         "routes": {"sm90": moe_launches[f"{key}_sm90"],
+                    "simt": moe_launches[key] - moe_launches[f"{key}_sm90"]}}
         for nm, source, replaces, key, kind in (
             ("grouped_matmul_train", GMM_SM90_SOURCE, GMM_REPLACES, "gmm",
              "forward"),
             ("grouped_matmul_trans_rhs", GMM_SM90_SOURCE, GMM_REPLACES,
              "gmm_trans", "trans"),
-            ("grouped_matmul_tgmm", GMM_SOURCE, TGMM_REPLACES, "tgmm",
+            ("grouped_matmul_tgmm", TGMM_SOURCE, TGMM_REPLACES, "tgmm",
              "tgmm"))] + [
         {"name": f"weight_only_{mode}", "route": "cuda", "source": WO_SOURCE,
          "replaces": WO_REPLACES, "launches": wo_launches[mode],
@@ -3502,7 +3709,11 @@ def main() -> int:
          "ms": prim_t[key]["kernel_ms"], "plain_ms": prim_t[key]["plain_ms"],
          "bound_ms": prim_t[key]["bound_ms"],
          "bound_by": prim_t[key]["bound_by"],
-         "library_ms": prim_t[key]["library_ms"]}
+         "library_ms": prim_t[key]["library_ms"],
+         **({"routes": {"vec16": prim_path["launches"]["reduce_vec16"],
+                        "scalar": prim_path["launches"]["reduce"] -
+                        prim_path["launches"]["reduce_vec16"]}}
+            if kind == "reduce" else {})}
         for kind, key in (("elementwise", "elementwise_silu_mul"),
                           ("reduce", "reduce_max"),
                           ("matmul", "matmul"))]}),

@@ -1,12 +1,13 @@
-// Grouped (ragged) expert matmuls for Hopper (sm_90a): the MoE compute ops,
-// forward and backward.
+// Grouped (ragged) expert matmuls for Hopper (sm_90a), fp32: the MoE
+// compute ops, forward and backward, for fp32 operands (bf16 takes the
+// "sm90" route of kernels/grouped_matmul.py:_route: grouped_matmul_sm90.cu
+// for gmm, tgmm_sm90.cu for tgmm).
 //
 // Replaces, in paddle_tpu/kernels/grouped_matmul.py (the Pallas TPU
 // kernels):
 // - _gmm_kernel (with its fused row gather _gather_rows), launched there by
-//   gmm, in all its modes, for fp32 operands (bf16 takes the "sm90" route,
-//   grouped_matmul_sm90.cu; kernels/grouped_matmul.py:_route): ptt_gmm
-//   computes what the plain _gmm_reference computes,
+//   gmm, in all its modes: ptt_gmm computes what the plain _gmm_reference
+//   computes,
 //
 //     out[m, :] = s[m] * lhs[rows[m], :] @ W[tile_groups[m / bm]]
 //
@@ -14,8 +15,8 @@
 //   [E, O, C], the backward's dlhs); rows null reads lhs[m]; s null is 1,
 //   else s[m] multiplies the gathered row in lhs's dtype before the MMA
 //   (row_scale: the combine weight of the backward).
-// - _tgmm_kernel, launched there by tgmm: ptt_tgmm computes what the plain
-//   _tgmm_reference computes, the per-expert weight gradient
+// - _tgmm_kernel, launched there by tgmm: ptt_tgmm computes what the
+//   plain _tgmm_reference computes, the per-expert weight gradient
 //
 //     out[e] = sum over the rows m of e's tiles of
 //              lhs[lrows[m], :]^T (x) s[m] * rhs[rrows[m], :]      [K, N]
@@ -25,24 +26,16 @@
 //   tile (the reference's `visited` mask).
 // Rows are sorted by expert outside the kernels so every bm-row tile
 // belongs to one expert (tile_groups [M / bm] int32, nondecreasing).  All
-// outputs are in lhs's dtype, accumulated in fp32.
+// outputs are fp32, accumulated in fp32.
 //
-// What bounds them on this card:
-// - decode (a handful of rows per expert, gmm only): bytes.  Every expert
-//   that owns a tile has its whole [C, O] weight read; at Mixtral widths
-//   that is 8 x 4096 x 14336 x 2 B = 940 MB per call, 0.28 ms at 3.35 TB/s.
-// - prefill and training (hundreds to thousands of rows per expert):
-//   operations.  2 M C O (gmm) or 2 M K N (tgmm) flops at 989 TFLOP/s
-//   (bf16 tensor cores), counting the live rows: at the Mixtral training
-//   shape (M = 20480 padded rows, 16384 of them live, H 4096, I 14336)
-//   1.95 ms a call.  The padding rows read the zero sentinel and add
-//   nothing; these kernels still compute them (2.43 ms of work on all M
-//   rows).  fp32 inputs use plain FMA (67 TFLOP/s), not TF32,
-//   because the fp32 path must match fp32 references to 1e-5.
+// What bounds them on this card: operations, fp32 on plain FMA (67
+// TFLOP/s), not TF32, because the fp32 path must match fp32 references to
+// 1e-5.  The fp32 route serves the tests and the fp32 parity runs; the
+// bf16 route's kernels carry the shapes of the serving and training paths.
 //
 // What the designs do about it (simple first, fast later):
-// - gmm (fp32): one thread block per (row tile of TM rows, 64 output
-//   columns).  TM is the largest of 64/32/16/8 that divides bm, so a block never
+// - gmm: one thread block per (row tile of TM rows, 64 output columns).
+//   TM is the largest of 64/32/16/8 that divides bm, so a block never
 //   straddles two experts; the block reads its expert id once.  blockIdx.x
 //   walks the row tiles, so blocks that run together share one expert's
 //   weight columns through L2.  The dispatch gather is fused: each block
@@ -53,32 +46,21 @@
 //   applied as a row is staged.  trans_rhs stages a [64 out, 32 contract]
 //   slice of W^T row by row from the [O, C] layout (16-byte loads along
 //   C), so nothing is transposed element by element.
-// - tgmm: one thread block per (output tile, expert), the output tile
-//   128 x 128 (8 warps) when K and N allow it, else 64 x 64 (4 warps).
-//   The block finds its expert's contiguous row span with a binary search
-//   over tile_groups on the device (no host read), then walks it 32 rows
-//   at a time: it gathers lhs columns [k0, k0 + TK) and the scaled rhs
-//   columns [n0, n0 + TN) of each row into shared memory (the next rows'
-//   loads are issued into registers before the current rows' MMAs) and
-//   accumulates lhs^T rhs in fp32 fragments for the whole span, so the
-//   reduction over thousands of rows never leaves registers.  lhs goes in
-//   as a col_major matrix_a fragment (that is lhs^T).  Rows past the span
-//   read as zeros; sentinel rows point at the caller's zero row.
-// - tgmm bf16: WMMA 16x16x16 bf16 fragments (mma.sync on the tensor
-//   cores) with fp32 accumulators.  fp32: register-tiled FMA loops.
-// - Epilogues stage fp32 results in shared memory and write them in lhs's
-//   dtype with 16-byte stores (bf16).
-// Later work (not here): tgmm on wgmma with TMA-fed shared-memory rings,
-// as grouped_matmul_sm90.cu does for gmm.
+// - tgmm: one thread block per (64 x 64 output tile, expert), 4 x 4
+//   outputs a thread on FMA.  The block finds its expert's contiguous row
+//   span with a binary search over tile_groups on the device (no host
+//   read), then walks it 32 rows at a time, staging lhs columns
+//   [k0, k0 + 64) and the scaled rhs columns [n0, n0 + 64) of each row in
+//   shared memory, and accumulates lhs^T rhs in registers for the whole
+//   span, so the reduction over thousands of rows never leaves registers.
+//   Rows past the span read as zeros; sentinel rows point at the caller's
+//   zero row.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
-
-using namespace nvcuda;
 
 constexpr int kBN = 64;        // gmm: output columns per block
 constexpr int kBK = 32;        // gmm: contraction depth staged per step
@@ -94,15 +76,6 @@ __device__ __forceinline__ int expert_of(const int32_t* tile_groups, int m0, int
 __device__ __forceinline__ int64_t source_row(const int32_t* rows, int m, int L) {
   const int src = rows ? rows[m] : m;
   return (int64_t)min(max(src, 0), L - 1);
-}
-
-// 8 bf16 (16 bytes) times a bf16 scale, each product rounded to bf16 (the
-// product of two bf16 values is exact in fp32, so this is bf16 arithmetic).
-__device__ __forceinline__ uint4 scale8(uint4 v, float s) {
-  __nv_bfloat16* x = reinterpret_cast<__nv_bfloat16*>(&v);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) x[e] = __float2bfloat16(__bfloat162float(x[e]) * s);
-  return v;
 }
 
 // First tile t in [0, T) with tile_groups[t] >= g (tile_groups nondecreasing).
@@ -236,119 +209,8 @@ cudaError_t launch_gmm_tm(int tm, const void* lhs, const void* rhs, const void* 
 
 // ------------------------------------------------------------------ tgmm ---
 
-// bf16: a TK x TN output tile per block, WK x WN warps, each warp FK x FN
-// 16 x 16 fragments.  Shared memory: two 32-row staging tiles and one
-// 16 x 16 fp32 epilogue tile per warp.
-template <int TK, int TN, int WK, int WN>
-__global__ void __launch_bounds__(WK * WN * 32)
-tgmm_bf16_kernel(const __nv_bfloat16* __restrict__ lhs,
-                 const __nv_bfloat16* __restrict__ rhs,
-                 const int32_t* __restrict__ tile_groups,
-                 const int32_t* __restrict__ lrows, const int32_t* __restrict__ rrows,
-                 const __nv_bfloat16* __restrict__ rscale,
-                 __nv_bfloat16* __restrict__ out, int K, int N, int Ll, int Lr, int bm,
-                 int T) {
-  constexpr int NT = WK * WN * 32;
-  constexpr int FK = TK / 16 / WK, FN = TN / 16 / WN;
-  constexpr int LDA = TK + 8, LDB = TN + 8;   // +16 bytes: fewer bank conflicts
-  constexpr int CA = TK / 8, CB = TN / 8;     // 16-byte chunks per staged row
-  constexpr int NA = kRows * CA / NT, NB = kRows * CB / NT;
-  static_assert(NA * NT == kRows * CA && NB * NT == kRows * CB, "staging split");
-  __shared__ __align__(32) __nv_bfloat16 a_s[kRows][LDA];   // lhs rows: A^T
-  __shared__ __align__(32) __nv_bfloat16 b_s[kRows][LDB];   // rhs rows
-  __shared__ __align__(32) float c_s[WK * WN][16][20];
-
-  const int k0 = blockIdx.x * TK, n0 = blockIdx.y * TN, e = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wk = warp / WN, wn = warp % WN;
-  const int r0 = first_tile(tile_groups, T, e) * bm;
-  const int r1 = first_tile(tile_groups, T, e + 1) * bm;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FK][FN];
-#pragma unroll
-  for (int i = 0; i < FK; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  // rows [m0, m0 + kRows) of the span into registers; past the span: zeros
-  uint4 ra[NA], rb[NB];
-  float sb[NB];
-  auto fetch = [&](int m0) {
-#pragma unroll
-    for (int i = 0; i < NA; ++i) {
-      const int idx = tid + i * NT, r = idx / CA, c8 = (idx % CA) * 8, m = m0 + r;
-      ra[i] = make_uint4(0, 0, 0, 0);
-      if (m < r1)
-        ra[i] = *reinterpret_cast<const uint4*>(lhs + source_row(lrows, m, Ll) * K +
-                                                k0 + c8);
-    }
-#pragma unroll
-    for (int i = 0; i < NB; ++i) {
-      const int idx = tid + i * NT, r = idx / CB, c8 = (idx % CB) * 8, m = m0 + r;
-      rb[i] = make_uint4(0, 0, 0, 0);
-      sb[i] = 1.f;
-      if (m < r1) {
-        rb[i] = *reinterpret_cast<const uint4*>(rhs + source_row(rrows, m, Lr) * N +
-                                                n0 + c8);
-        if (rscale) sb[i] = __bfloat162float(rscale[m]);
-      }
-    }
-  };
-
-  if (r0 < r1) fetch(r0);
-  for (int m0 = r0; m0 < r1; m0 += kRows) {
-#pragma unroll
-    for (int i = 0; i < NA; ++i) {
-      const int idx = tid + i * NT;
-      *reinterpret_cast<uint4*>(&a_s[idx / CA][(idx % CA) * 8]) = ra[i];
-    }
-#pragma unroll
-    for (int i = 0; i < NB; ++i) {
-      const int idx = tid + i * NT;
-      *reinterpret_cast<uint4*>(&b_s[idx / CB][(idx % CB) * 8]) =
-          rscale ? scale8(rb[i], sb[i]) : rb[i];
-    }
-    __syncthreads();
-    if (m0 + kRows < r1) fetch(m0 + kRows);   // in flight during the MMAs
-#pragma unroll
-    for (int kk = 0; kk < kRows; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> a[FK];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[FN];
-#pragma unroll
-      for (int i = 0; i < FK; ++i)
-        wmma::load_matrix_sync(a[i], &a_s[kk][(wk * FK + i) * 16], LDA);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(b[j], &b_s[kk][(wn * FN + j) * 16], LDB);
-#pragma unroll
-      for (int i = 0; i < FK; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // epilogue: one 16 x 16 fragment at a time through the warp's own tile
-  __nv_bfloat16* o = out + (int64_t)e * K * N;
-  const int row = lane / 2, c8 = (lane % 2) * 8;
-#pragma unroll
-  for (int i = 0; i < FK; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      wmma::store_matrix_sync(&c_s[warp][0][0], acc[i][j], 20, wmma::mem_row_major);
-      __syncwarp();
-      __align__(16) __nv_bfloat16 v[8];
-#pragma unroll
-      for (int x = 0; x < 8; ++x) v[x] = __float2bfloat16(c_s[warp][row][c8 + x]);
-      *reinterpret_cast<uint4*>(o + (int64_t)(k0 + (wk * FK + i) * 16 + row) * N + n0 +
-                                (wn * FN + j) * 16 + c8) =
-          *reinterpret_cast<const uint4*>(v);
-      __syncwarp();
-    }
-}
-
-// fp32: a 64 x 64 output tile per block of 256 threads, 4 x 4 outputs per
-// thread on FMA, rows staged 32 at a time as in the bf16 kernel.
+// a 64 x 64 output tile per block of 256 threads, 4 x 4 outputs per thread
+// on FMA, rows staged 32 at a time
 constexpr int kTF = 64;
 constexpr int kTFThreads = 256;
 
@@ -416,20 +278,6 @@ tgmm_f32_kernel(const float* __restrict__ lhs, const float* __restrict__ rhs,
       o[(int64_t)(k0 + ty + 16 * i) * N + n0 + tx + 16 * j] = acc[i][j];
 }
 
-template <int TK, int TN, int WK, int WN>
-cudaError_t launch_tgmm_bf16(const void* lhs, const void* rhs, const void* tg,
-                             const void* lrows, const void* rrows, const void* rscale,
-                             void* out, int K, int N, int E, int Ll, int Lr, int bm,
-                             int T, cudaStream_t stream) {
-  dim3 grid(K / TK, N / TN, E);
-  tgmm_bf16_kernel<TK, TN, WK, WN><<<grid, WK * WN * 32, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(lhs), static_cast<const __nv_bfloat16*>(rhs),
-      static_cast<const int32_t*>(tg), static_cast<const int32_t*>(lrows),
-      static_cast<const int32_t*>(rrows), static_cast<const __nv_bfloat16*>(rscale),
-      static_cast<__nv_bfloat16*>(out), K, N, Ll, Lr, bm, T);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // Plain C entry points, loaded with ctypes.  dtype: 0 = float32,
@@ -455,32 +303,24 @@ extern "C" int ptt_gmm(const void* lhs, const void* rhs, const void* tile_groups
                                    s));
 }
 
-// ptt_tgmm: out [E, K, N]; lhs [Ll, K] and rhs [Lr, N], read at lrows[m] /
-// rrows[m] (or row m when null) for m < M; rscale [M] or null.  T = M / bm
-// tiles; K and N must be multiples of 64 and the float operands 16-byte
-// aligned; the Python wrapper checks all of it.
+// ptt_tgmm: dtype 0 only (bf16 tgmm is tgmm_sm90.cu's ptt_tgmm_sm90, with
+// these arguments; dtype 1 returns cudaErrorInvalidValue).  out [E, K, N];
+// lhs [Ll, K] and rhs [Lr, N], read at lrows[m] / rrows[m] (or row m when
+// null) for m < M; rscale [M] or null.  T = M / bm tiles; K and N must be
+// multiples of 64 and the float operands 16-byte aligned; the Python
+// wrapper checks all of it.
 extern "C" int ptt_tgmm(const void* lhs, const void* rhs, const void* tile_groups,
                         const void* lrows, const void* rrows, const void* rscale,
                         void* out, int M, int K, int N, int E, int Ll, int Lr, int bm,
                         int T, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   (void)M;
-  if (K % 64 || N % 64 || E <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0) {
-    dim3 grid(K / kTF, N / kTF, E);
-    tgmm_f32_kernel<<<grid, kTFThreads, 0, s>>>(
-        static_cast<const float*>(lhs), static_cast<const float*>(rhs),
-        static_cast<const int32_t*>(tile_groups), static_cast<const int32_t*>(lrows),
-        static_cast<const int32_t*>(rrows), static_cast<const float*>(rscale),
-        static_cast<float*>(out), K, N, Ll, Lr, bm, T);
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (dtype == 1) {
-    if (K % 128 == 0 && N % 128 == 0)
-      return static_cast<int>(launch_tgmm_bf16<128, 128, 4, 2>(
-          lhs, rhs, tile_groups, lrows, rrows, rscale, out, K, N, E, Ll, Lr, bm, T, s));
-    return static_cast<int>(launch_tgmm_bf16<64, 64, 2, 2>(
-        lhs, rhs, tile_groups, lrows, rrows, rscale, out, K, N, E, Ll, Lr, bm, T, s));
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0 || K % 64 || N % 64 || E <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(K / kTF, N / kTF, E);
+  tgmm_f32_kernel<<<grid, kTFThreads, 0, s>>>(
+      static_cast<const float*>(lhs), static_cast<const float*>(rhs),
+      static_cast<const int32_t*>(tile_groups), static_cast<const int32_t*>(lrows),
+      static_cast<const int32_t*>(rrows), static_cast<const float*>(rscale),
+      static_cast<float*>(out), K, N, Ll, Lr, bm, T);
+  return static_cast<int>(cudaGetLastError());
 }

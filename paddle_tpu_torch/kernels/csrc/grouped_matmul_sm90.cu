@@ -71,18 +71,18 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "grouped_sm90.cuh"
 #include "sm90.cuh"
 
 namespace {
 
 using namespace sm90;
+using namespace gsm90;   // kRowBytes, kProducerThreads, swz, scale8, zero8
 using bf16 = __nv_bfloat16;
 
 constexpr int kBK = 64;                 // contraction per k-step: one 128-byte row
 constexpr int kStages = 4;
 constexpr int kLag = 2;                 // stages a gathering thread runs ahead of its arrive
-constexpr uint32_t kRowBytes = 128;
-constexpr int kProducerThreads = 128;
 constexpr int kWideRows = 128;          // wide: rows of a CTA, 64 a consumer
 constexpr int kWideThreads = 384;
 constexpr int kNarrowCols = 64;         // narrow: output columns of a CTA
@@ -100,28 +100,6 @@ __device__ __forceinline__ int expert_of(const int32_t* tile_groups, int m0, int
 __device__ __forceinline__ int64_t source_row(const int32_t* rows, int m, int L) {
   const int src = rows ? rows[m] : m;
   return (int64_t)min(max(src, 0), L - 1);
-}
-
-// byte offset of row r's 16-byte chunk c in a 128-byte-swizzled tile
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return r * kRowBytes + ((c ^ (r & 7)) << 4);
-}
-
-// 8 bf16 (16 bytes) times a bf16 scale in four bf16x2 multiplies, each
-// product rounded once to bf16: the plain version's bf16 `lhs * scale`
-__device__ __forceinline__ uint32_t mul2(uint32_t x, __nv_bfloat162 s) {
-  __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&x);
-  v = __hmul2(v, s);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-__device__ __forceinline__ uint4 scale8(uint4 v, bf16 s) {
-  const __nv_bfloat162 s2 = __bfloat162bfloat162(s);
-  return make_uint4(mul2(v.x, s2), mul2(v.y, s2), mul2(v.z, s2), mul2(v.w, s2));
-}
-
-__device__ __forceinline__ bool zero8(uint4 v) {
-  // +0 and -0 in each bf16 half
-  return ((v.x | v.y | v.z | v.w) & 0x7FFF7FFFu) == 0u;
 }
 
 // Whether the gathered rows [m0, m0 + rows_n) all read one all-zero row of

@@ -25,7 +25,7 @@
 //   and one output written, 541.1 MB = 0.1615 ms;
 // - reduce max over the logits [8192, 32000]: bytes, 524.3 MB = 0.1565 ms;
 //   the reference's contract is a left fold, so each row is also one chain
-//   of 32000 dependent steps (~0.15 ms at a few cycles a step);
+//   of 32000 dependent steps (~0.2-0.3 ms at 10-20 cycles a step);
 // - matmul, the gate projection [8192, 4096] @ [4096, 11008]: operations,
 //   738.7 GFLOP = 0.747 ms.
 //
@@ -40,12 +40,19 @@
 //   round(fn(acc, x[:, i])) for i = 1 .. cols - 1, each step in fp32 and
 //   rounded to x's dtype (nearest even), so the result is bit for bit the
 //   plain loop's.  No tree: a tree changes the bits (by 1.25 on a bf16 row
-//   sum of 300 N(0, 1) values).  One thread owns a row; a warp owns 32 rows
-//   and stages [32 rows, 64 columns] tiles through shared memory, so the
-//   loads are coalesced (each row segment 128 bytes in bf16) while each
-//   thread's chain stays in order; the next tile is in flight in registers
-//   while the current one folds.  Latency-bound: 8192 rows are only 256
-//   warps for 132 SMs.
+//   sum of 300 N(0, 1) values), and the functor is the caller's opaque
+//   body, so nothing may be reassociated.  One lane owns a row and folds
+//   its columns in order; a warp owns 32 rows and keeps a ring of 8 tiles
+//   of [32 rows, 128 bytes] in shared memory, 7 in flight (28 KB a warp):
+//   tiles go global -> shared by cp.async, 16 bytes a chunk, where the
+//   rows are 16-byte multiples from a 16-byte aligned x (the "vec16" route
+//   of kernels/primitives.py:_reduce_route), else element by element
+//   ("scalar").  The raw x-dtype tile stays in shared memory, swizzled
+//   (chunk c of row r at c ^ (r % 8)), and each lane reads its row 16
+//   bytes at a time (8 bf16/fp16 or 4 fp32 steps a load, 4 wavefronts a
+//   warp); the widening happens in registers, off the accumulator's chain.
+//   What remains is the chain itself: cols dependent steps (fn, round,
+//   widen) a row, which chip_smoke.py times alone as chain_floor_ms.
 // - matmul: bf16 / fp16 through WMMA 16x16x16 fragments (mma.sync) with fp32
 //   accumulators, 128 x 128 output tiles, 8 warps of 64 x 32, k steps of 32
 //   staged through shared memory with the next step's loads in flight in
@@ -66,6 +73,8 @@
 #include <stdint.h>
 
 #include <utility>
+
+#include "sm90.cuh"
 
 #if !defined(PTT_ELEMENTWISE) && !defined(PTT_REDUCE) && !defined(PTT_MATMUL)
 #define PTT_ELEMENTWISE 1
@@ -169,9 +178,10 @@ extern "C" int ptt_elementwise(const uint64_t* ptrs, const int* codes, int arity
 #ifdef PTT_REDUCE
 namespace rd {
 
-constexpr int kRows = 32;        // rows a block (one warp; one row a thread)
-constexpr int kCols = 64;        // columns a staged tile
-constexpr int kPer = kCols / 32; // elements of one row a lane loads per tile
+constexpr int kRows = 32;          // rows a block (one warp; one row a lane)
+constexpr int kTileBytes = 128;    // bytes of each row in a staged tile
+constexpr int kTile = kRows * kTileBytes;   // 4 KB
+constexpr int kStages = 8;         // tiles of a warp's ring (7 in flight)
 
 template <typename T>
 __device__ __forceinline__ float widen(T v);
@@ -185,65 +195,126 @@ template <>
 __device__ __forceinline__ float widen<__half>(__half v) { return __half2float(v); }
 
 // v rounded to T (nearest even) and widened back: one step of the fold.
+// The packed conversion (cvt.rn.bf16x2 / f16x2.f32: one ALU op) rounds as
+// the scalar cvt.rn.bf16 / f16.f32 does, which runs on the conversion unit
+// at about twice the latency; on the fold's chain that is most of a step.
 template <typename T>
 __device__ __forceinline__ float round_to(float v);
 template <>
 __device__ __forceinline__ float round_to<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
+  return __low2float(__floats2bfloat162_rn(v, v));
 }
 template <>
 __device__ __forceinline__ float round_to<__half>(float v) {
-  return __half2float(__float2half_rn(v));
+  return __low2float(__floats2half2_rn(v, v));
+}
+
+// byte offset of row r's 16-byte chunk c in a tile: chunk c of a 128-byte
+// row stored at c ^ (r % 8), so the 32 lanes reading chunk c of their own
+// rows cover every bank once per 8 lanes (4 wavefronts, the least for 512
+// bytes)
+__device__ __forceinline__ int chunk_at(int r, int c) {
+  return r * kTileBytes + ((c ^ (r & 7)) << 4);
 }
 
 template <typename T>
-__device__ __forceinline__ void load_tile(T (&reg)[kRows][kPer], const T* __restrict__ x,
-                                          int r0, int nr, int c0, int cols, int lane) {
+__device__ __forceinline__ T elem(const unsigned char* tile, int r, int j) {
+  constexpr int kPer = 16 / sizeof(T);
+  return *reinterpret_cast<const T*>(tile + chunk_at(r, j / kPer) + (j % kPer) * sizeof(T));
+}
+
+// VEC: rows of cols * sizeof(T) bytes, a multiple of 16, from a 16-byte
+// aligned x: tiles go global -> shared by cp.async, 16 bytes a chunk (lane l
+// copies chunk l % 8 of rows l / 8 + 4 i: 4 rows x 128 contiguous bytes an
+// instruction).  Otherwise element by element through registers.  Chunks
+// and elements past the rows or the columns are zeros (never folded).
+template <typename T, bool VEC>
+__device__ __forceinline__ void stage_tile(unsigned char* dst, const T* __restrict__ x, int r0,
+                                           int nr, int c0, int cols, int lane) {
+  constexpr int kPerTile = kTileBytes / sizeof(T), kPer = 16 / sizeof(T);
+  if constexpr (VEC) {
 #pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int h = 0; h < kPer; ++h) {
-      const int c = c0 + lane + 32 * h;
-      reg[r][h] = (r < nr && c < cols) ? x[static_cast<int64_t>(r0 + r) * cols + c] : T(0.f);
+    for (int i = 0; i < kTile / 16 / 32; ++i) {
+      const int r = (lane >> 3) + 4 * i, c = lane & 7, col = c0 + c * kPer;
+      const bool ok = r < nr && col < cols;
+      const T* g = x + static_cast<int64_t>(r0 + (ok ? r : 0)) * cols + (ok ? col : 0);
+      sm90::cp_async16(dst + chunk_at(r, c), g, ok ? 16u : 0u);
     }
+  } else {
+#pragma unroll 4
+    for (int r = 0; r < kRows; ++r)
+#pragma unroll
+      for (int j = lane; j < kPerTile; j += 32) {
+        const int col = c0 + j;
+        const T v = (r < nr && col < cols) ? x[static_cast<int64_t>(r0 + r) * cols + col]
+                                           : T(0.f);
+        *reinterpret_cast<T*>(dst + chunk_at(r, j / kPer) + (j % kPer) * sizeof(T)) = v;
+      }
+  }
 }
 
-template <typename T>
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(32)
 reduce_kernel(const T* __restrict__ x, void* __restrict__ out, int out_code, int rows,
               int cols) {
-  __shared__ float tile[kRows][kCols + 1];   // +1: row `lane` on bank lane + c
+  constexpr int kPerTile = kTileBytes / sizeof(T), kPer = 16 / sizeof(T);
+  __shared__ __align__(128) unsigned char ring[kStages][kTile];
   const int lane = threadIdx.x;
   const int r0 = blockIdx.x * kRows;
   const int nr = min(kRows, rows - r0);
-  T reg[kRows][kPer];
-  load_tile(reg, x, r0, nr, 0, cols, lane);
+  const int nt = (cols + kPerTile - 1) / kPerTile;
+
+#pragma unroll 1
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < nt) stage_tile<T, VEC>(ring[t], x, r0, nr, t * kPerTile, cols, lane);
+    sm90::cp_async_commit();
+  }
   float acc = 0.f;
-  for (int c0 = 0; c0 < cols; c0 += kCols) {
+#pragma unroll 1
+  for (int t = 0; t < nt; ++t) {
+    const int ahead = t + kStages - 1;
+    if (ahead < nt) stage_tile<T, VEC>(ring[ahead % kStages], x, r0, nr, ahead * kPerTile, cols,
+                                       lane);
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<kStages - 1>();   // this lane's copies of tile t
+    __syncwarp();                         // and every lane's
+    const unsigned char* tile = ring[t % kStages];
+    const int cn = min(kPerTile, cols - t * kPerTile);
+    if (t > 0 && cn == kPerTile) {
+      // a whole tile: the row 16 bytes at a time, widened in registers off
+      // the accumulator's chain
 #pragma unroll
-    for (int r = 0; r < kRows; ++r)
+      for (int c = 0; c < kTileBytes / 16; ++c) {
+        const uint4 v = *reinterpret_cast<const uint4*>(tile + chunk_at(lane, c));
+        const T* e = reinterpret_cast<const T*>(&v);
 #pragma unroll
-      for (int h = 0; h < kPer; ++h) tile[r][lane + 32 * h] = widen(reg[r][h]);
-    __syncwarp();
-    if (c0 + kCols < cols) load_tile(reg, x, r0, nr, c0 + kCols, cols, lane);
-    const int cn = min(kCols, cols - c0);
-    int c = 0;
-    if (c0 == 0) {
-      acc = tile[lane][0];
-      c = 1;
+        for (int k = 0; k < kPer; ++k) acc = round_to<T>(ptt_reduce_fn(acc, widen(e[k])));
+      }
+    } else {
+      // the first tile (acc = x[:, 0]) or a ragged last one
+      int j = 0;
+      if (t == 0) {
+        acc = widen(elem<T>(tile, lane, 0));
+        j = 1;
+      }
+      for (; j < cn; ++j) acc = round_to<T>(ptt_reduce_fn(acc, widen(elem<T>(tile, lane, j))));
     }
-    for (; c < cn; ++c) acc = round_to<T>(ptt_reduce_fn(acc, tile[lane][c]));
-    __syncwarp();
+    __syncwarp();                         // before the stage is staged again
   }
   if (lane < nr) store_float(out, out_code, r0 + lane, acc);
 }
 
 template <typename T>
-cudaError_t launch(const void* x, void* out, int code, int rows, int cols, cudaStream_t s) {
-  reduce_kernel<T><<<(rows + kRows - 1) / kRows, 32, 0, s>>>(static_cast<const T*>(x), out,
-                                                              code, rows, cols);
+cudaError_t launch(bool vec, const void* x, void* out, int code, int rows, int cols,
+                   cudaStream_t s) {
+  const int blocks = (rows + kRows - 1) / kRows;
+  const T* xt = static_cast<const T*>(x);
+  if (vec)
+    reduce_kernel<T, true><<<blocks, 32, 0, s>>>(xt, out, code, rows, cols);
+  else
+    reduce_kernel<T, false><<<blocks, 32, 0, s>>>(xt, out, code, rows, cols);
   return cudaGetLastError();
 }
 
@@ -251,16 +322,23 @@ cudaError_t launch(const void* x, void* out, int code, int rows, int cols, cudaS
 
 // ptt_reduce: out[r] = the left fold of fn over x[r, 0 .. cols - 1], each
 // step rounded to x's dtype; x [rows, cols] contiguous, out [rows] in x's
-// dtype (code 0 fp32, 1 bf16, 2 fp16).  Returns the launch's cudaError_t.
-extern "C" int ptt_reduce(const void* x, void* out, int rows, int cols, int code,
+// dtype (code 0 fp32, 1 bf16, 2 fp16).  vec != 0 stages x with 16-byte
+// copies and needs x 16-byte aligned and cols x its item size a multiple
+// of 16 (the Python wrapper's route rule); vec 0 copies element by
+// element.  Returns cudaErrorInvalidValue for anything else, otherwise the
+// launch's cudaError_t.
+extern "C" int ptt_reduce(const void* x, void* out, int rows, int cols, int code, int vec,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows <= 0 || cols <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows <= 0 || cols <= 0 || code < 0 || code > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t row_bytes = static_cast<int64_t>(cols) * (code == 0 ? 4 : 2);
+  if (vec && (!aligned16(x) || row_bytes % 16)) return static_cast<int>(cudaErrorInvalidValue);
   switch (code) {
-    case 0: return static_cast<int>(rd::launch<float>(x, out, code, rows, cols, s));
-    case 1: return static_cast<int>(rd::launch<__nv_bfloat16>(x, out, code, rows, cols, s));
-    case 2: return static_cast<int>(rd::launch<__half>(x, out, code, rows, cols, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 0: return static_cast<int>(rd::launch<float>(vec, x, out, code, rows, cols, s));
+    case 1:
+      return static_cast<int>(rd::launch<__nv_bfloat16>(vec, x, out, code, rows, cols, s));
+    default: return static_cast<int>(rd::launch<__half>(vec, x, out, code, rows, cols, s));
   }
 }
 #endif  // PTT_REDUCE

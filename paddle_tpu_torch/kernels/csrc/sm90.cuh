@@ -122,6 +122,12 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
+// arrive on `bar` once every cp.async this thread has issued so far has
+// landed (the arrival is one of those the barrier's count expects)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -544,6 +550,25 @@ __device__ __forceinline__ float ex2_approx(float x) {
 }
 
 // ---- warp specialisation --------------------------------------------------
+
+// named barrier `id` over `threads` threads (a multiple of 32; id 0 is
+// __syncthreads')
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// named barrier `id` over `threads` threads that also returns whether
+// `pred` holds in every one of them
+__device__ __forceinline__ bool bar_and(int id, int threads, bool pred) {
+  uint32_t all;
+  asm volatile(
+      "{\n.reg .pred p, q;\nsetp.ne.u32 p, %1, 0;\n"
+      "bar.red.and.pred q, %2, %3, p;\nselp.u32 %0, 1, 0, q;\n}\n"
+      : "=r"(all)
+      : "r"(static_cast<uint32_t>(pred)), "r"(id), "r"(threads)
+      : "memory");
+  return all != 0;
+}
 
 // the first 1024-byte boundary at or after p (a 128-byte-swizzled tile's
 // alignment)

@@ -18,18 +18,20 @@ row buffer and every ``bm``-row tile belongs to one expert, named by
 On a CUDA tensor :func:`gmm` and :func:`tgmm` launch hand-written Hopper
 kernels; on a CPU tensor they run the plain PyTorch versions
 (:func:`_gmm_reference`, :func:`_tgmm_reference`), the tests' oracles.  Any
-other device raises, and so do shapes the kernels do not take.  gmm takes
-the route :func:`_route` picks by dtype: ``"sm90"`` (bf16:
-``csrc/grouped_matmul_sm90.cu``, wgmma fed by a TMA ring, warp-specialised,
-in the wide or narrow form :func:`sm90_plan` picks from ``bm``) or
-``"simt"`` (fp32: ``csrc/grouped_matmul.cu``); tgmm runs
-``csrc/grouped_matmul.cu``.  Launches are counted apart: :data:`LAUNCHES`
+other device raises, and so do shapes the kernels do not take.  Both take
+the route :func:`_route` picks by dtype: ``"sm90"`` for bf16 (wgmma fed by
+a TMA / ``cp.async`` ring, warp-specialised: gmm in
+``csrc/grouped_matmul_sm90.cu``, in the wide or narrow form
+:func:`sm90_plan` picks from ``bm``; tgmm in ``csrc/tgmm_sm90.cu``, tiled
+as :func:`tgmm_sm90_plan` says) or ``"simt"`` for fp32 (FMA, both in
+``csrc/grouped_matmul.cu``).  Launches are counted apart: :data:`LAUNCHES`
 (gmm, forward form; it replaces the Pallas ``_gmm_kernel`` and its fused
 row gather ``_gather_rows``), :data:`LAUNCHES_TRANS` (gmm with
-``trans_rhs``, the same Pallas kernel's backward mode), each on either
-route, with the launches that took the "sm90" route also in
-:data:`LAUNCHES_SM90` and :data:`LAUNCHES_TRANS_SM90`, and
-:data:`LAUNCHES_TGMM` (it replaces ``_tgmm_kernel``).
+``trans_rhs``, the same Pallas kernel's backward mode) and
+:data:`LAUNCHES_TGMM` (it replaces ``_tgmm_kernel``), each on either route,
+with the launches that took the "sm90" route also in
+:data:`LAUNCHES_SM90`, :data:`LAUNCHES_TRANS_SM90` and
+:data:`LAUNCHES_TGMM_SM90`.
 
 The reference's TPU tile knobs (the ``grouped_matmul_bn``/``_bk`` flags,
 ``validate_tile_flags``, ``_resolve_tiles`` and the autotune probe
@@ -52,14 +54,18 @@ import torch
 LAUNCHES = 0          # gmm, forward form (rhs [E, C, O])
 LAUNCHES_TRANS = 0    # gmm with trans_rhs (rhs [E, O, C])
 LAUNCHES_TGMM = 0     # tgmm
-# the gmm launches that took the "sm90" route (a part of the above)
+# the launches that took the "sm90" route (a part of the above)
 LAUNCHES_SM90 = 0
 LAUNCHES_TRANS_SM90 = 0
+LAUNCHES_TGMM_SM90 = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ROW_TILES = (64, 32, 16, 8)      # gmm's row tiles (must divide bm)
 _BK, _BN = 32, 64                 # gmm: C and O must be multiples of these
 _TG = 64                          # tgmm: K and N must be multiples of this
+_TGMM_STEP = 64                   # sm90 tgmm: rows of a k-step
+_TGMM_TILE_K = 128                # sm90 tgmm: K rows of a CTA
+_TGMM_MAX_EXPERTS = 256           # sm90 tgmm: experts it ranks in a CTA
 _WIDE_ROWS = 128                  # sm90 wide form: rows of a CTA
 _NARROW_COLS = 64                 # sm90 narrow form: output columns of a CTA
 
@@ -160,16 +166,19 @@ def sorted_dispatch_plan(expert_ids, num_groups, bm):
 # --------------------------------------------------------------- kernels ---
 
 _GMM_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_TGMM_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 # library -> {C entry point: argument types}; ptt_gmm_sm90 takes ptt_gmm's
 # (lhs, rhs, tile_groups, rows, scale, out, M, C, O, E, L, bm, tm, trans,
-# dtype, stream)
+# dtype, stream), ptt_tgmm_sm90 ptt_tgmm's (lhs, rhs, tile_groups, lrows,
+# rrows, rscale, out, M, K, N, E, Ll, Lr, bm, T, dtype, stream)
 ENTRY_POINTS = {
-    "grouped_matmul": {
-        "ptt_gmm": _GMM_ARGS,
-        "ptt_tgmm": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 +
-        [ctypes.c_void_p]},
+    "grouped_matmul": {"ptt_gmm": _GMM_ARGS, "ptt_tgmm": _TGMM_ARGS},
     "grouped_matmul_sm90": {"ptt_gmm_sm90": _GMM_ARGS},
+    "tgmm_sm90": {"ptt_tgmm_sm90": _TGMM_ARGS,
+                  # (x, rows, scale, out, M, W, L, stream)
+                  "ptt_gather_rows": [ctypes.c_void_p] * 4 +
+                  [ctypes.c_int] * 3 + [ctypes.c_void_p]},
 }
 
 
@@ -185,10 +194,37 @@ def _lib(name="grouped_matmul"):
 
 
 def _route(dtype):
-    """gmm's route for operands of ``dtype``: ``"sm90"`` (bf16: wgmma) or
-    ``"simt"`` (fp32: FMA, which matches fp32 references to 1e-5 where
-    wgmma would need TF32)."""
+    """gmm's and tgmm's route for operands of ``dtype``: ``"sm90"`` (bf16:
+    wgmma) or ``"simt"`` (fp32: FMA, which matches fp32 references to 1e-5
+    where wgmma would need TF32)."""
     return "sm90" if dtype == torch.bfloat16 else "simt"
+
+
+def tgmm_sm90_plan(bm, K, N, E, *, lhs_rows=False, rhs_rows=False,
+                   rhs_scale=False):
+    """The sm90 tgmm's tiling of ``out [E, K, N]`` with group alignment
+    ``bm``: ``{"tk", "bn", "step", "lhs", "rhs", "gather_pass", "ctas"}``.
+
+    - a CTA computes ``tk`` = 128 K rows x ``bn`` N columns (256 where 256
+      divides N, else 128, the last one ragged) of one expert, summing its
+      rows in k-steps of ``step`` = 64;
+    - ``"lhs"`` / ``"rhs"``: how each operand reaches shared memory: as TMA
+      tiles (``"tma"``) where 64 divides bm, since every expert's span then
+      starts and ends on a k-step; else row by row by ``cp.async``
+      (gathered and scaled in the kernel, rows past a span masked);
+    - ``"gather_pass"``: on the TMA route, the operands a gather pass
+      (``ptt_gather_rows``) makes contiguous first, a gathered one with its
+      rows, the rhs with its scale; the kernel then reads them as tiles;
+    - ``ctas``: E x ceil(K / 128) x ceil(N / bn)."""
+    bn = 256 if N % 256 == 0 else 128
+    tma = bm % _TGMM_STEP == 0
+    passed = tuple(name for name, on in (("lhs", lhs_rows),
+                                         ("rhs", rhs_rows or rhs_scale))
+                   if tma and on)
+    how = "tma" if tma else "cp.async"
+    return {"tk": _TGMM_TILE_K, "bn": bn, "step": _TGMM_STEP,
+            "lhs": how, "rhs": how, "gather_pass": passed,
+            "ctas": E * -(-K // _TGMM_TILE_K) * -(-N // bn)}
 
 
 def sm90_plan(bm, M, O):
@@ -299,9 +335,21 @@ def _cuda_gmm(lhs, rhs, tile_groups, bm, rows, trans_rhs, row_scale):
     return out
 
 
+def _gather_pass(lib, x, rows, scale, M, stream):
+    """``x[rows] * scale`` (bf16; row m where ``rows`` is None, no scale
+    where ``scale`` is None) as a new [M, W] tensor, by the sm90 tgmm's
+    gather pass."""
+    out = torch.empty((M, x.shape[1]), dtype=x.dtype, device=x.device)
+    err = lib.ptt_gather_rows(_ptr(x), _ptr(rows), _ptr(scale), _ptr(out), M,
+                              x.shape[1], x.shape[0], stream)
+    if err != 0:
+        raise RuntimeError(f"tgmm gather pass failed: CUDA error {err}")
+    return out
+
+
 def _cuda_tgmm(lhs, rhs, tile_groups, num_groups, bm, lhs_rows, rhs_rows,
                rhs_scale):
-    global LAUNCHES_TGMM
+    global LAUNCHES_TGMM, LAUNCHES_TGMM_SM90
     M = lhs_rows.shape[0] if lhs_rows is not None else lhs.shape[0]
     Mr = rhs_rows.shape[0] if rhs_rows is not None else rhs.shape[0]
     Ll, K = lhs.shape
@@ -326,14 +374,38 @@ def _cuda_tgmm(lhs, rhs, tile_groups, num_groups, bm, lhs_rows, rhs_rows,
     if tile_groups.shape != (M // bm,):
         raise ValueError(f"tile_groups must be [{M // bm}], got "
                          f"{tuple(tile_groups.shape)}")
-    err = _lib().ptt_tgmm(
-        _ptr(lhs), _ptr(rhs), _ptr(tile_groups), _ptr(lhs_rows),
-        _ptr(rhs_rows), _ptr(rhs_scale), _ptr(out), M, K, N, num_groups, Ll,
-        Lr, bm, M // bm, _DTYPE_CODE[lhs.dtype],
-        torch.cuda.current_stream(lhs.device).cuda_stream)
+    sm90 = _route(lhs.dtype) == "sm90"
+    if sm90 and (num_groups > _TGMM_MAX_EXPERTS or bm % 8):
+        raise ValueError(f"tgmm: the sm90 kernel takes at most "
+                         f"{_TGMM_MAX_EXPERTS} groups and bm a multiple of "
+                         f"8, got {num_groups} and {bm}")
+    if M == 0:                       # no rows: every group's block is zero
+        return out.zero_()
+    stream = torch.cuda.current_stream(lhs.device).cuda_stream
+    if sm90:
+        lib = _lib("tgmm_sm90")
+        fn = lib.ptt_tgmm_sm90
+        if bm % _TGMM_STEP == 0:
+            # the TMA route: a gather pass makes a gathered (or scaled)
+            # operand contiguous, and the kernel reads every operand as
+            # tiles (the gather in the kernel, row by row by cp.async, is
+            # slower at the Mixtral training shape: chip_smoke.py
+            # kernel_tgmm's in_kernel_gather_ms)
+            if lhs_rows is not None:
+                lhs = _gather_pass(lib, lhs, lhs_rows, None, M, stream)
+                Ll, lhs_rows = M, None
+            if rhs_rows is not None or rhs_scale is not None:
+                rhs = _gather_pass(lib, rhs, rhs_rows, rhs_scale, M, stream)
+                Lr, rhs_rows, rhs_scale = M, None, None
+    else:
+        fn = _lib().ptt_tgmm
+    err = fn(_ptr(lhs), _ptr(rhs), _ptr(tile_groups), _ptr(lhs_rows),
+             _ptr(rhs_rows), _ptr(rhs_scale), _ptr(out), M, K, N, num_groups,
+             Ll, Lr, bm, M // bm, _DTYPE_CODE[lhs.dtype], stream)
     if err != 0:
         raise RuntimeError(f"tgmm launch failed: CUDA error {err}")
     LAUNCHES_TGMM += 1
+    LAUNCHES_TGMM_SM90 += sm90
     return out
 
 
@@ -383,8 +455,8 @@ def tgmm(lhs, rhs, tile_groups, num_groups, *, bm, lhs_rows=None,
     owns no tile gets zeros.  Returns [E, K, N] in lhs.dtype (fp32
     accumulation).
 
-    CUDA tensors launch the Hopper kernel; CPU tensors take the plain
-    version.
+    CUDA tensors launch a Hopper kernel (the route :func:`_route` picks);
+    CPU tensors take the plain version.
     """
     M = lhs_rows.shape[0] if lhs_rows is not None else lhs.shape[0]
     if M % bm:

@@ -24,8 +24,10 @@ tensors, and a generator given one raises on any other device.
 
 **Devices.**  A CPU tensor runs the plain version; a CUDA tensor launches the
 kernel (each launch adds one to :data:`LAUNCHES_ELEMENTWISE`,
-:data:`LAUNCHES_REDUCE` or :data:`LAUNCHES_MATMUL`) or raises.  No path falls
-back.  Inputs are fp32, bf16 or fp16.
+:data:`LAUNCHES_REDUCE` or :data:`LAUNCHES_MATMUL`; a reduce that took the
+"vec16" route of :func:`_reduce_route` also to
+:data:`LAUNCHES_REDUCE_VEC16`) or raises.  No path falls back.  Inputs are
+fp32, bf16 or fp16.
 
 **What is not ported.**  The reference's TPU tile knobs (``block``,
 ``block_rows``, ``block_m``/``block_n``/``block_k``) and ``interpret``: the
@@ -85,6 +87,7 @@ def pick_block(dim: int, dtype, target: int = 512,
 LAUNCHES_ELEMENTWISE = 0
 LAUNCHES_REDUCE = 0
 LAUNCHES_MATMUL = 0
+LAUNCHES_REDUCE_VEC16 = 0   # the reduce launches on the "vec16" route
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ARG_NAMES = "abcdefgh"          # the CUDA body's arguments, in order
@@ -146,7 +149,8 @@ def _kernel_lib(kind: str, fn: KernelFn, arity: Optional[int] = None):
                             ctypes.POINTER(ctypes.c_int), ctypes.c_int,
                             ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p],
             "reduce": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p],
             "matmul": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 +
                       [ctypes.c_void_p]}[kind]
         f.restype = ctypes.c_int
@@ -243,18 +247,32 @@ def _reduce_reference(fn: KernelFn, x):
     return acc.to(x.dtype)
 
 
+def _reduce_route(x):
+    """How the reduce kernel stages ``x [rows, cols]``: ``"vec16"`` (16-byte
+    ``cp.async`` copies) when every row is a whole number of 16-byte chunks
+    (``cols * itemsize % 16 == 0``) and ``x.data_ptr()`` is 16-byte
+    aligned, else ``"scalar"`` (element by element, the ragged edge
+    masked).  The rule reads the pointer's alignment as well as dtype and
+    shape: a view that starts inside a row (an offset slice) of the same
+    shape can take the other route."""
+    if (x.shape[1] * x.element_size()) % 16 == 0 and x.data_ptr() % 16 == 0:
+        return "vec16"
+    return "scalar"
+
+
 def reduce_kernel(fn, init):
     """``apply(x)`` reducing the last axis of a 2-D ``x [rows, cols]`` (fp32,
     bf16 or fp16) to ``[rows]`` in x's dtype, as the reference's left fold
     over the columns (``functools.reduce`` over ``x[:, i]``): each step is
     ``fn`` in fp32 rounded to x's dtype (nearest even), in column order, so
-    the result is the same bits on the card and the CPU.  ``init`` is
-    accepted and ignored, as in the reference; 0 columns raise."""
+    the result is the same bits on the card and the CPU.  A CUDA tensor
+    launches the kernel on the route :func:`_reduce_route` picks.  ``init``
+    is accepted and ignored, as in the reference; 0 columns raise."""
     fn = _as_fn(fn)
     lib = None
 
     def apply(x):
-        global LAUNCHES_REDUCE
+        global LAUNCHES_REDUCE, LAUNCHES_REDUCE_VEC16
         nonlocal lib
         if x.dim() != 2:
             raise ValueError(f"reduce_kernel: x must be 2-D, got "
@@ -271,9 +289,12 @@ def reduce_kernel(fn, init):
         out = torch.empty((rows,), dtype=x.dtype, device=x.device)
         if rows == 0:
             return out
+        vec = _reduce_route(x) == "vec16"
         _raise_on("reduce_kernel", lib(x.data_ptr(), out.data_ptr(), rows,
-                                       cols, _DTYPE_CODE[x.dtype], stream))
+                                       cols, _DTYPE_CODE[x.dtype], int(vec),
+                                       stream))
         LAUNCHES_REDUCE += 1
+        LAUNCHES_REDUCE_VEC16 += vec
         return out
 
     return apply

@@ -96,7 +96,8 @@ _GMM_KERNEL = re.compile(r"gmm_(?:f32|sm90_wide|sm90_narrow)_kernel<([^>]*)>")
 
 
 def grouped_kind(name: str):
-    """Which grouped-matmul kernel a device kernel name is: 'tgmm',
+    """Which grouped-matmul kernel a device kernel name is: 'tgmm' (its
+    kernels and the sm90 route's gather pass, tgmm_gather_rows_kernel),
     'gmm_trans' (gmm with trans_rhs), 'gmm' (forward form), or None.  Every
     gmm kernel's second template argument is its trans_rhs flag
     (grouped_matmul.cu's gmm_f32_kernel<TM, TRANS>, grouped_matmul_sm90.cu's
@@ -136,7 +137,7 @@ def profile_train(argv) -> dict:
                 gm.LAUNCHES, gm.LAUNCHES_TRANS, gm.LAUNCHES_TGMM,
                 fa.LAUNCHES_BWD_DQ_SM90, fa.LAUNCHES_BWD_DKV_SM90,
                 fa.LAUNCHES_FWD_SM90, gm.LAUNCHES_SM90,
-                gm.LAUNCHES_TRANS_SM90)
+                gm.LAUNCHES_TRANS_SM90, gm.LAUNCHES_TGMM_SM90)
 
     c0 = counts()
     with profile(activities=[ProfilerActivity.CPU,
@@ -168,7 +169,7 @@ def profile_train(argv) -> dict:
                "grouped_launches_per_step": dict(zip(
                    kinds, (x / n for x in launches[3:6]))),
                "grouped_sm90_launches_per_step": dict(zip(
-                   kinds[:2], (x / n for x in launches[9:11]))),
+                   kinds, (x / n for x in launches[9:12]))),
                "grouped_share_of_busy": sum(grouped.values()) / busy_ms
                if busy_ms else None}
     return {

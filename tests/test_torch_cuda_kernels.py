@@ -371,17 +371,24 @@ def test_tgmm_kernel_vs_plain_on_card(h100, dtype, K, N, bm, counts, lfused,
     rhs, rr = operand(N, rfused)
     s = torch.from_numpy(rng.random(M).astype(np.float32)).to(h100) \
         if scaled else None
-    n0 = gm.LAUNCHES_TGMM
+    n0, s0 = gm.LAUNCHES_TGMM, gm.LAUNCHES_TGMM_SM90
     out = gm.tgmm(lhs, rhs, tg, 4, bm=bm, lhs_rows=lr, rhs_rows=rr,
                   rhs_scale=s)
     torch.cuda.synchronize()
     assert gm.LAUNCHES_TGMM == n0 + 1
+    assert gm.LAUNCHES_TGMM_SM90 == s0 + (dtype == torch.bfloat16)   # route
     ref = gm._tgmm_reference(lhs, rhs, tg, 4, bm=bm, lhs_rows=lr,
                              rhs_rows=rr, rhs_scale=s)
     assert out.shape == (4, K, N) and out.dtype == dtype
     _close(out, ref, dtype == torch.bfloat16)
     if cut:
         assert torch.equal(out[3], torch.zeros_like(out[3]))
+    # blocks the plain version gives as exact zeros are exact zeros
+    zero = (ref.flatten(1) == 0).all(1)
+    assert torch.equal(out[zero], torch.zeros_like(out[zero]))
+    again = gm.tgmm(lhs, rhs, tg, 4, bm=bm, lhs_rows=lr, rhs_rows=rr,
+                    rhs_scale=s)
+    assert torch.equal(out, again)         # no atomics: the same bits
 
 
 @pytest.mark.cuda
@@ -889,7 +896,8 @@ def _prim_fns():
             "relu2": KernelFn(lambda a: torch.clamp_min(a, 0) * 2.0,
                               "return fmaxf(a, 0.0f) * 2.0f;"),
             "fma3": KernelFn(lambda a, b, c: a * b + c, "return a * b + c;"),
-            "max": KernelFn(torch.maximum, "return fmaxf(a, b);"),
+            "max": KernelFn(torch.maximum, "float m = fmaxf(a, b); m = b != b"
+                            " ? b : m; return a != a ? a : m;"),
             "add": KernelFn(torch.add, "return a + b;"),
             "silu": KernelFn(torch.nn.functional.silu, silu + ";")}
 
@@ -932,15 +940,27 @@ def test_primitives_elementwise_vs_plain_on_card(h100, name, dtypes, shape):
 @pytest.mark.parametrize("op", ["max", "add"])
 @pytest.mark.parametrize("rows,cols", [(1, 1), (100, 19), (8192, 300),
                                        (33, 4096)])
-def test_primitives_reduce_bit_for_bit_on_card(h100, dtype, op, rows, cols):
+@pytest.mark.parametrize("offset", [0, 1])
+def test_primitives_reduce_bit_for_bit_on_card(h100, dtype, op, rows, cols,
+                                               offset):
+    """``offset`` 1 starts the view one element into its buffer (off the
+    16-byte alignment: the "scalar" route); max gets NaNs in rows 3 and
+    5 where there are rows."""
     from paddle_tpu_torch.kernels import primitives as P
     fn = _prim_fns()[op]
     gen = torch.Generator(device=h100).manual_seed(cols)
-    x = torch.randn((rows, cols), generator=gen, device=h100).to(dtype)
-    n0 = P.LAUNCHES_REDUCE
+    buf = torch.randn((rows * cols + offset,), generator=gen,
+                      device=h100).to(dtype)
+    x = buf[offset:].view(rows, cols)
+    if op == "max" and rows > 5:
+        x[3, cols // 2] = float("nan")
+        x[5] = float("nan")
+    route = P._reduce_route(x)
+    n0, v0 = P.LAUNCHES_REDUCE, P.LAUNCHES_REDUCE_VEC16
     got = P.reduce_kernel(fn, 0.0)(x)
     torch.cuda.synchronize()
     assert P.LAUNCHES_REDUCE == n0 + 1
+    assert P.LAUNCHES_REDUCE_VEC16 == v0 + (route == "vec16")
     want = P._reduce_reference(fn, x)
     iv = torch.int32 if dtype == torch.float32 else torch.int16
     assert got.dtype == dtype and torch.equal(got.view(iv), want.view(iv))

@@ -151,10 +151,10 @@ def test_cuda_only_paths_refuse_cpu_fallback():
 
 
 def test_new_routes_refuse_cpu_fallback(monkeypatch):
-    """The gmm sm90 route (bf16) and the attention split route (T x group
-    <= 16) take their plain versions only for CPU tensors: on a meta tensor
-    both raise before any plain version runs, as the simt and tile routes
-    do."""
+    """The gmm and tgmm sm90 routes (bf16) and the attention split route (T
+    x group <= 16) take their plain versions only for CPU tensors: on a meta
+    tensor each raises before any plain version runs, as the simt and tile
+    routes do."""
     from paddle_tpu_torch.kernels import grouped_matmul as gm
     from paddle_tpu_torch.kernels import paged_attention as pa
 
@@ -162,6 +162,7 @@ def test_new_routes_refuse_cpu_fallback(monkeypatch):
         raise AssertionError("the plain version ran")
 
     monkeypatch.setattr(gm, "_gmm_reference", plain)
+    monkeypatch.setattr(gm, "_tgmm_reference", plain)
     monkeypatch.setattr(pa, "_reference_ragged_paged_attention", plain)
     bf = dict(device="meta", dtype=torch.bfloat16)
     x, w = torch.empty((256, 64), **bf), torch.empty((2, 64, 128), **bf)
@@ -172,6 +173,15 @@ def test_new_routes_refuse_cpu_fallback(monkeypatch):
             with pytest.raises(ValueError, match="device"):
                 gm.gmm(x, w.transpose(1, 2) if trans else w, tg, bm=bm,
                        trans_rhs=trans)
+        # tgmm, plain and with its fused gather and scale (cp.async and
+        # TMA operands alike)
+        y = torch.empty((256, 128), **bf)
+        rows = torch.zeros((256,), dtype=torch.int32, device="meta")
+        s = torch.empty((256,), **bf)
+        for kw in ({}, {"lhs_rows": rows}, {"rhs_rows": rows,
+                                            "rhs_scale": s}):
+            with pytest.raises(ValueError, match="device"):
+                gm.tgmm(x, y, tg, 2, bm=bm, **kw)
     kc = torch.empty((2, 8, 16, 64), **bf)
     bt = torch.zeros((3, 4), dtype=torch.int32, device="meta")
     ctx = torch.zeros((3,), dtype=torch.int32, device="meta")

@@ -49,9 +49,13 @@ ELEMENTWISE = {  # arity -> (port function, reference function)
     2: (SILU_MUL, lambda a, b: jax.nn.silu(a) * b),
     3: (FMA3, lambda a, b, c: a * b + c),
 }
-REDUCE = {"max": (tp.KernelFn(torch.maximum, "return fmaxf(a, b);"),
+# max / min propagate NaN (the NaN operand itself) as torch.maximum,
+# torch.minimum and jnp.maximum do; fmaxf / fminf alone would drop it
+REDUCE = {"max": (tp.KernelFn(torch.maximum, "float m = fmaxf(a, b); "
+                              "m = b != b ? b : m; return a != a ? a : m;"),
                   jnp.maximum, -np.inf),
-          "min": (tp.KernelFn(torch.minimum, "return fminf(a, b);"),
+          "min": (tp.KernelFn(torch.minimum, "float m = fminf(a, b); "
+                              "m = b != b ? b : m; return a != a ? a : m;"),
                   jnp.minimum, np.inf),
           "add": (tp.KernelFn(torch.add, "return a + b;"), jnp.add, 0.0)}
 
