@@ -131,25 +131,32 @@ is caught; there is no ``ok`` line unless every phase passed):
     3·L·steps (``tgmm``), each all on the sm90 route, and the flash
     kernels' 2·L·steps, L·steps, L·steps; tokens/s, MFU on the active
     parameters, peak memory and the router's stats.
-14. ``kernel_wo`` — the weight-only W8A16/W4A16 kernel against its plain
-    version: int8 and int4, x in fp32/bf16/fp16, m 1/7/8/16/100/512, (k, n)
-    from (64, 64) and (96, 200) up to every llama2_7b projection, with an
-    odd int4 k (4095); each weight with an all-zero column (output exactly
-    0); a [2, 3, 7, k] input through ``weight_only_linear`` with and
-    without a bias; the empty batch; extreme codes; then CUDA-event times at
-    llama2_7b's gate/up shape (k 4096, n 11008, bf16) for m 8 and 512:
-    kernel, plain version, bound, the library call
-    (``torch._weight_int8pack_mm`` for int8, ``torch._weight_int4pack_mm``
-    for int4, each held against the plain version with its scale in bf16)
-    and ``torch.matmul`` over the bf16 weight.
+14. ``kernel_wo`` — ptxas's record of the 21 kernels of
+    ``weight_only_sm90.cu`` (0 spill bytes each, or it fails); then the
+    weight-only W8A16/W4A16 kernels against their plain version: int8 and
+    int4, x in fp32/bf16/fp16, m 1/7/8/16/20/64/100/512 (every narrow row
+    tile and the wide form), (k, n) from (64, 64), (96, 200) and (200, 176)
+    up to every llama2_7b projection, with an odd int4 k (4095); each case's
+    route by the counters (``kernels/weight_only.py:_route``: "narrow",
+    "wide", "fma", "legacy"; every route reached in each mode); each weight
+    with an all-zero column (output exactly 0); a [2, 3, 7, k] input
+    through ``weight_only_linear`` with and without a bias; the empty batch;
+    extreme codes at m 8 and 100; then, at llama2_7b's gate/up shape (k
+    4096, n 11008, bf16) for m 8 and 512, a bitwise repeat on the route
+    ``wo_plan`` names and device times by CUDA-graph replays: kernel, the
+    library call (``torch._weight_int8pack_mm`` for int8,
+    ``torch._weight_int4pack_mm`` for int4, each held against the plain
+    version with its scale in bf16) and ``torch.matmul`` over the bf16
+    weight, beside the plain version and the bound.
 15. ``weight_only_path`` — all 225 projections of llama2_7b (32 layers, not
     cut, and the LM head; random bf16 weights from a seed) quantized on the
     card, int8 and int4, then ``weight_only_linear`` over all of them for
-    m 8 and 512: launches counted from 0 over one untimed sweep per (m,
-    mode), exactly 225 each; layer 0's and the head's outputs against the
-    plain version; ms per sweep against the bytes bound and against the
-    same sweep through ``torch.matmul`` in bf16; peak memory; ``dx`` on the
-    card against the CPU.
+    m 8 and 512: launches counted from 0 over each untimed sweep per (m,
+    mode), exactly 225 of its mode, all on the route of its m ("narrow" at
+    8, "wide" at 512); layer 0's and the head's outputs against the plain
+    version; ms per sweep (and the host's enqueue ms) against the bytes
+    bound and against the same sweep through ``torch.matmul`` in bf16; peak
+    memory; ``dx`` on the card against the CPU.
 16. ``kernel_primitives`` — the primitive library's generated kernels
     (``kernels/primitives.py``: each caller's function compiled into
     ``csrc/primitives.cu``) against their plain versions: elementwise
@@ -166,13 +173,19 @@ is caught; there is no ``ok`` line unless every phase passed):
     library's path at llama2_7b widths (an FFN over 8192 rows, the LM head,
     the logits' row max, fp32 row sums, the gate with its silu fused), its
     launches counted from 0: 5 matmuls, 1 elementwise, 2 reduces (both on
-    the "vec16" route); then CUDA-event times of SwiGLU [8192, 11008], row
-    max [8192, 32000] (and its chain alone, ``chain_floor_ms``: the same
-    kernel on 256 rows, with the NaN-propagating max and with ``fmaxf``
-    alone), fp32 row sum [8192, 4096] and the gate projection with and
-    without the silu epilogue, beside the plain versions, the bounds and
-    ``torch.amax`` / ``torch.matmul`` (cost references where no one call
-    computes the same function).
+    the "vec16" route, the 5 matmuls on the "sm90" route); then CUDA-event
+    times of SwiGLU [8192, 11008], row max [8192, 32000] (and its chain
+    alone, ``chain_floor_ms``: the same kernel on 256 rows, with the
+    NaN-propagating max and with ``fmaxf`` alone), fp32 row sum [8192,
+    4096], the gate projection with and without the silu epilogue, the down
+    projection [8192, 11008] @ [11008, 4096] and the LM head [8192, 4096]
+    @ [4096, 32000] (each matmul on "sm90" and bit for bit the same in two
+    runs), beside the plain versions, the bounds and ``torch.amax`` /
+    ``torch.matmul`` (cost references where no one call computes the same
+    function).  First ptxas's record of the sm90 matmul kernels of every
+    generated matmul build: 0 spill bytes, or it fails.  The matrix checks
+    each matmul's route by the counters (``_matmul_route``: "sm90", "mma",
+    "fma"; every route reached).
 17. the ``kernels`` line (each kernel's launches on its routes under
     ``routes``), then the last line ``{"ok": true, "device": {...}}``.
 
@@ -298,12 +311,17 @@ MOE_CONTROL_SEEDS = (0, 1)
 TRAIN_MOE_ARGV = ["--preset", "mixtral_8x7b", "--num-layers", "4",
                   "--batch", "4", "--seq", "2048"]
 WO_SOURCE = "paddle_tpu_torch/kernels/csrc/weight_only.cu"
+WO_SM90_SOURCE = "paddle_tpu_torch/kernels/csrc/weight_only_sm90.cu"
 WO_REPLACES = "paddle_tpu/kernels/weight_only.py:28"
-# kernel_wo's case matrix: rows m, and (k, n) from tiny and ragged (n off
-# the 16-byte vector, odd int4 k) up to every llama2_7b projection
-WO_MS = (1, 7, 8, 16, 100, 512)
-WO_KN = ((64, 64), (96, 200), (4095, 4096), (4096, 4096), (4096, 11008),
-         (11008, 4096), (4096, 32000))
+# kernel_wo's case matrix: rows m (every narrow row tile 8/16/32/64, the
+# wide form above 64), and (k, n) from tiny and ragged (n off the 16-byte
+# vector and odd int4 k: the "legacy" route; k and n off the sm90 tiles) up
+# to every llama2_7b projection
+WO_MS = (1, 7, 8, 16, 20, 64, 100, 512)
+WO_KN = ((64, 64), (96, 200), (200, 176), (4095, 4096), (4096, 4096),
+         (4096, 11008), (11008, 4096), (4096, 32000))
+# the routes of kernels/weight_only.py:_route, each with its launch counter
+WO_ROUTES = ("narrow", "wide", "fma", "legacy")
 # the timed shape: llama2_7b's gate/up projection at decode (the serve
 # phases' 8 slots) and in a 512-row prefill chunk, bf16 activations
 WO_TIMED = dict(k=4096, n=11008, ms=(8, 512))
@@ -447,35 +465,58 @@ def phase_build():
     return built
 
 
+def _build_log(built, name):
+    """The ptxas log of the library ``name`` (a source, or a generated
+    build's library file name) in ``phase_build``'s record."""
+    return (built or {}).get(name, {}).get("log", "")
+
+
+def _ptxas_of(log, pattern, name):
+    """ptxas's record of the kernels of a build log whose mangled names
+    match ``pattern``, keyed by ``name(match)``: ``{"registers",
+    "spill_stores", "spill_loads", "stack_bytes"}`` each."""
+    import re
+    out, key = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for \S*" + pattern, ln)
+        if m:
+            key = name(m)
+            out[key] = {}
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            out[key].update(stack_bytes=int(m.group(1)),
+                            spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[key]["registers"] = int(m.group(1))
+            key = None
+    return out
+
+
+def _no_spills(what, record, want):
+    """Raises unless ``record`` (a ptxas record) has exactly ``want``
+    kernels, each with 0 spill bytes."""
+    if len(record) != want or any(
+            r.get("spill_stores", 1) or r.get("spill_loads", 1)
+            for r in record.values()):
+        raise AssertionError(f"{what}: want {want} kernels without spills, "
+                             f"ptxas says {record}")
+
+
 def _sm90_ptxas(log):
     """ptxas's record of each kernel of the sm90 route, from its libraries'
     build logs: ``{"fwd d128": {"registers", "spill_stores", "spill_loads",
     "stack_bytes"}, "dq d128": ..., ...}`` ("... modes" for the build with
     mask, segments and dropout).  ``registers`` is the launch count; the
     consumers raise theirs with setmaxnreg."""
-    import re
-    out, name = {}, None
-    for ln in log.splitlines():
-        m = re.search(r"Function properties for \S*flash_(?:bwd_)?(fwd|dq|dkv)"
-                      r"_sm90_kernelILi(\d+)ELb(\d)", ln)
-        if m:
-            name = f"{m.group(1)} d{m.group(2)}" + (
-                " modes" if m.group(3) == "1" else "")
-            out[name] = {}
-            continue
-        if name is None:
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", ln)
-        if m:
-            out[name].update(stack_bytes=int(m.group(1)),
-                             spill_stores=int(m.group(2)),
-                             spill_loads=int(m.group(3)))
-        m = re.search(r"Used (\d+) registers", ln)
-        if m:
-            out[name]["registers"] = int(m.group(1))
-            name = None
-    return out
+    return _ptxas_of(log, r"flash_(?:bwd_)?(fwd|dq|dkv)_sm90_kernelILi(\d+)"
+                     r"ELb(\d)", lambda m: f"{m.group(1)} d{m.group(2)}" +
+                     (" modes" if m.group(3) == "1" else ""))
 
 
 # ------------------------------------------------------------ kernel ---
@@ -811,30 +852,10 @@ def _gmm_sm90_ptxas(log):
     "spill_loads", "stack_bytes"}, "narrow tm16 trans0": ..., ...}``
     (``registers`` is the launch count; the wide form's consumers raise
     theirs with setmaxnreg)."""
-    import re
-    out, name = {}, None
-    for ln in log.splitlines():
-        m = re.search(r"Function properties for \S*gmm_sm90_(wide|narrow)_"
-                      r"kernelILi(\d+)ELb(\d)E(?:Lb(\d)E)?", ln)
-        if m:
-            name = (f"wide bn{m.group(2)} trans{m.group(3)} gather"
-                    f"{m.group(4)}" if m.group(1) == "wide" else
-                    f"narrow tm{m.group(2)} trans{m.group(3)}")
-            out[name] = {}
-            continue
-        if name is None:
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", ln)
-        if m:
-            out[name].update(stack_bytes=int(m.group(1)),
-                             spill_stores=int(m.group(2)),
-                             spill_loads=int(m.group(3)))
-        m = re.search(r"Used (\d+) registers", ln)
-        if m:
-            out[name]["registers"] = int(m.group(1))
-            name = None
-    return out
+    return _ptxas_of(
+        log, r"gmm_sm90_(wide|narrow)_kernelILi(\d+)ELb(\d)E(?:Lb(\d)E)?",
+        lambda m: f"wide bn{m.group(2)} trans{m.group(3)} gather{m.group(4)}"
+        if m.group(1) == "wide" else f"narrow tm{m.group(2)} trans{m.group(3)}")
 
 
 def _gmm_route_counts():
@@ -2041,28 +2062,8 @@ def _tgmm_sm90_ptxas(log):
     "stack_bytes"}, ...}`` (``cp1``: the cp.async route, ``cp0`` TMA;
     ``registers`` is the launch count; the consumers raise theirs with
     setmaxnreg)."""
-    import re
-    out, name = {}, None
-    for ln in log.splitlines():
-        m = re.search(r"Function properties for \S*tgmm_sm90_kernelILi(\d+)E"
-                      r"Lb(\d)E", ln)
-        if m:
-            name = f"bn{m.group(1)} cp{m.group(2)}"
-            out[name] = {}
-            continue
-        if name is None:
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", ln)
-        if m:
-            out[name].update(stack_bytes=int(m.group(1)),
-                             spill_stores=int(m.group(2)),
-                             spill_loads=int(m.group(3)))
-        m = re.search(r"Used (\d+) registers", ln)
-        if m:
-            out[name]["registers"] = int(m.group(1))
-            name = None
-    return out
+    return _ptxas_of(log, r"tgmm_sm90_kernelILi(\d+)ELb(\d)E",
+                     lambda m: f"bn{m.group(1)} cp{m.group(2)}")
 
 
 def _dispatch_rows(ids, E, bm, cut=False):
@@ -2439,13 +2440,9 @@ def phase_kernel_tgmm(built):
     """``built``: ``phase_build``'s record (the tgmm_sm90 build's ptxas
     log: every kernel must have 0 spill bytes)."""
     import torch
-    ptxas = _tgmm_sm90_ptxas(built.get("tgmm_sm90", {}).get("log", ""))
-    spills = {k: v for k, v in ptxas.items()
-              if v.get("spill_stores") or v.get("spill_loads")}
-    if len(ptxas) != TGMM_SM90_KERNELS or spills:
-        raise AssertionError(f"tgmm_sm90: ptxas record {ptxas} (empty: "
-                             f"built before phase_build; {TGMM_SM90_KERNELS} "
-                             "kernels, each with 0 spill bytes)")
+    ptxas = _tgmm_sm90_ptxas(_build_log(built, "tgmm_sm90"))
+    _no_spills("tgmm_sm90 (empty: built before phase_build)", ptxas,
+               TGMM_SM90_KERNELS)
     gen = torch.Generator(device="cuda").manual_seed(4)
     cases, worst = _moe_backward_matrix(gen)
     timings = _moe_backward_timing(gen)
@@ -2683,9 +2680,32 @@ def _wo_counts():
     return {"int8": wo.LAUNCHES, "int4": wo.LAUNCHES_INT4}
 
 
+def _wo_route_counts():
+    from paddle_tpu_torch.kernels import weight_only as wo
+    return {r: getattr(wo, f"LAUNCHES_{r.upper()}") for r in WO_ROUTES}
+
+
 def _reset_wo_counts():
     from paddle_tpu_torch.kernels import weight_only as wo
     wo.LAUNCHES = wo.LAUNCHES_INT4 = 0
+    for r in WO_ROUTES:
+        setattr(wo, f"LAUNCHES_{r.upper()}", 0)
+
+
+def _wo_sm90_ptxas(log):
+    """ptxas's record of each kernel of ``weight_only_sm90``'s build log:
+    ``{"narrow tm8 bf16 int4": {"registers", "spill_stores", "spill_loads",
+    "stack_bytes"}, "wide fp16 int8": ..., "splitk_finish": ...}``."""
+    def name(m):
+        ty = "bf16" if "bfloat16" in m.group(2) else "fp16"
+        mode = "int4" if m.group(3) == "1" else "int8"
+        if m.group(1) == "narrow":
+            return f"narrow tm{m.group(4)} {ty} {mode}"
+        return f"wide {ty} {mode}"
+    out = _ptxas_of(log, r"wo_(narrow|wide)_kernelI(13__nv_bfloat16|6__half)"
+                    r"Lb(\d)E(?:Li(\d+)E)?", name)
+    out.update(_ptxas_of(log, r"wo_splitk_finish", lambda m: "splitk_finish"))
+    return out
 
 
 def _wo_check(what, out, ref):
@@ -2760,7 +2780,22 @@ def _wo_matrix(gen):
     dev = "cuda"
     dtypes = (torch.float32, torch.bfloat16, torch.float16)
     worst = {mode: {"max_abs_err": 0.0, "need": 0.0, "cases": 0,
-                    "need_by_dtype": {}} for mode in WO_MODES}
+                    "need_by_dtype": {}, "routes": dict.fromkeys(WO_ROUTES, 0)}
+             for mode in WO_MODES}
+
+    def routed(mode, x, q, s, k):
+        """One launch on the route _route names (by its counter)."""
+        route = wo._route(x, q, k, q.shape[1])
+        before = _wo_route_counts()
+        out = wo.weight_only_matmul(x, q, s, int4_rows=k if mode == "int4"
+                                    else None)
+        after = _wo_route_counts()
+        if {r: after[r] - before[r] for r in WO_ROUTES} != \
+                {r: int(r == route) for r in WO_ROUTES}:
+            raise AssertionError(f"kernel_wo {mode}: a launch off its route "
+                                 f"{route}")
+        worst[mode]["routes"][route] += 1
+        return out
 
     def check(mode, what, out, ref):
         err, need = _wo_check(f"kernel_wo {mode}/{what}", out, ref)
@@ -2786,7 +2821,7 @@ def _wo_matrix(gen):
                 dn = str(dtype).replace("torch.", "")
                 for m in WO_MS:
                     x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
-                    out = wo.weight_only_matmul(x, q, s, int4_rows=rows_of(k))
+                    out = routed(mode, x, q, s, k)
                     check(mode, f"{dn}/m{m}/k{k}/n{n}", out,
                           wo._wo_reference(x, q, s, int4, k, dtype))
                 x = torch.randn((2, 3, 7, k), generator=gen,
@@ -2815,28 +2850,38 @@ def _wo_matrix(gen):
                 q = _pack_int4(c) if int4 else c
                 s = torch.full((n,), 1.0 / abs(code), device=dev)
                 for dtype in dtypes:
-                    x = torch.randn((8, k), generator=gen, device=dev).to(dtype)
-                    out = wo.weight_only_matmul(x, q, s, int4_rows=rows_of(k))
-                    check(mode, f"codes{code}/{dtype}/k{k}/n{n}", out,
-                          wo._wo_reference(x, q, s, int4, k, dtype))
+                    for m in (8, 100):
+                        x = torch.randn((m, k), generator=gen,
+                                        device=dev).to(dtype)
+                        out = routed(mode, x, q, s, k)
+                        check(mode, f"codes{code}/{dtype}/m{m}/k{k}/n{n}",
+                              out, wo._wo_reference(x, q, s, int4, k, dtype))
+        if not all(worst[mode]["routes"].values()):
+            raise AssertionError(f"kernel_wo {mode}: a route was not "
+                                 f"reached {worst[mode]['routes']}")
     torch.cuda.synchronize()
     return worst
 
 
 def _wo_timing(gen):
-    """CUDA-event times at llama2_7b's gate/up shape (k 4096, n 11008, bf16
-    x) for each m of WO_TIMED, in turns (plain, kernel, yardsticks, kernel,
-    plain): the kernel, its plain version, the library call and
-    ``torch.matmul`` over the unquantized bf16 weight.  The library call is
-    ``torch._weight_int8pack_mm`` for int8 (weight [n, k], its scale in
-    bf16) and ``torch._weight_int4pack_mm`` for int4 (the codes + 8 packed
-    once by ``torch._convert_weight_to_int4pack``, the scale in bf16
-    repeated in every group of WO_LIB_GROUP rows, zero points 0, so it
-    computes ``x @ ((q + 8 - 8) * scale)``); each is held against the plain
-    version by :func:`_wo_library_check`.  Each timed call takes the next of
-    several copies of its weight that together exceed 3x the 50 MB L2
-    cache, so every call reads its weight from device memory, as a sweep
-    over a model's projections does."""
+    """Device times at llama2_7b's gate/up shape (k 4096, n 11008, bf16 x)
+    for each m of WO_TIMED: the kernel, its plain version, the library call
+    and ``torch.matmul`` over the unquantized bf16 weight.  The kernel, the
+    library call and ``torch.matmul`` are timed by CUDA-graph replays
+    (``graph_ms``: a kernel near its ~0.014 ms bound is shorter than its
+    wrapper's host time, which CUDA events around eager calls would time),
+    in turns (kernel, yardsticks, kernel); the plain version, which is slow,
+    by CUDA events.  The library call is ``torch._weight_int8pack_mm`` for
+    int8 (weight [n, k], its scale in bf16) and
+    ``torch._weight_int4pack_mm`` for int4 (the codes + 8 packed once by
+    ``torch._convert_weight_to_int4pack``, the scale in bf16 repeated in
+    every group of WO_LIB_GROUP rows, zero points 0, so it computes ``x @
+    ((q + 8 - 8) * scale)``); each is held against the plain version by
+    :func:`_wo_library_check`.  Each timed call takes the next of several
+    copies of its weight that together exceed 3x the 50 MB L2 cache, so
+    every call reads its weight from device memory, as a sweep over a
+    model's projections does.  Each kernel's output repeats bit for bit,
+    and its route is the one ``wo_plan`` names."""
     import itertools
     import torch
     from paddle_tpu_torch.kernels import weight_only as wo
@@ -2892,12 +2937,18 @@ def _wo_timing(gen):
                                    f"raised on CUDA: {str(e)[:300]}")
         for m in WO_TIMED["ms"]:
             x = torch.randn((m, k), generator=gen, device="cuda").to(bf16)
+            route = wo._route(x, q, k, n)
+            before = _wo_route_counts()
             out = wo.weight_only_matmul(x, q, s, int4_rows=rows)
             ref = wo._wo_reference(x, q, s, int4, k, bf16)
             err, need = _wo_check(f"kernel_wo timed {mode} m{m}", out, ref)
-            fns = {"plain": rotate(lambda i: wo._wo_reference(
-                       x, qs[i], s, int4, k, bf16), copies),
-                   "kernel": rotate(lambda i: wo.weight_only_matmul(
+            again = wo.weight_only_matmul(x, q, s, int4_rows=rows)
+            if _wo_route_counts()[route] - before[route] != 2 or \
+                    route != wo.wo_plan(m, k, n, int4)["form"] or \
+                    not _bits_equal(out, again):
+                raise AssertionError(f"kernel_wo timed {mode} m{m}: route "
+                                     f"{route} or not bit for bit")
+            fns = {"kernel": rotate(lambda i: wo.weight_only_matmul(
                        x, qs[i], s, int4_rows=rows), copies),
                    "bf16_matmul": rotate(lambda i: torch.matmul(x, ws[i]),
                                          len(ws))}
@@ -2917,35 +2968,43 @@ def _wo_timing(gen):
                     lib_m["library_max_abs_err_vs_plain"] = float(
                         (y.float() - ref.float()).abs().max())
                     fns["library"] = rotate(lambda i: lib_fn(x, i), copies)
-            iters = 100 if m <= 16 else 30
-            t = {}
-            for key in ("plain", "kernel", "bf16_matmul", "library", "kernel2",
-                        "plain2"):
+            t = {"plain": cuda_ms(rotate(lambda i: wo._wo_reference(
+                x, qs[i], s, int4, k, bf16), copies), 10)}
+            calls = copies * (8 if m <= 16 else 2)
+            for key in ("kernel", "bf16_matmul", "library", "kernel2"):
                 fn = fns.get(key.rstrip("2"))
                 if fn is not None:
-                    t[key] = cuda_ms(fn, 10 if key.startswith("plain")
-                                     else iters)
+                    t[key] = graph_ms(fn, calls)
+            t["kernel_eager"] = cuda_ms(fns["kernel"], 50)
             b_ms, b_by = _grouped_bound_ms([x, q, s], out, 2 * m * k * n, bf16)
             timings[f"{mode}_m{m}"] = {
                 "shape": f"llama2_7b gate/up m={m} k={k} n={n} bf16 x, {mode}",
+                "route": route, "plan": wo.wo_plan(m, k, n, int4),
                 "weight_copies": copies, "max_abs_err": err, "need": need,
                 "kernel_ms": min(t["kernel"], t["kernel2"]),
                 "kernel_ms_runs": [t["kernel"], t["kernel2"]],
-                "plain_ms": min(t["plain"], t["plain2"]),
-                "plain_ms_runs": [t["plain"], t["plain2"]],
+                "kernel_ms_eager": t["kernel_eager"],
+                "plain_ms": t["plain"],
                 "bound_ms": b_ms, "bound_by": b_by,
+                "kernel_over_bound": min(t["kernel"], t["kernel2"]) / b_ms,
                 "library_ms": t.get("library"), **lib_m,
                 "bf16_matmul_ms": t["bf16_matmul"]}
         del qs, lib_ws
     return timings
 
 
-def phase_kernel_wo():
+def phase_kernel_wo(built=None):
+    """The weight-only kernels: ptxas's record of ``weight_only_sm90`` (0
+    spill bytes in each of its 21 kernels, or it fails; empty, and failing,
+    when the library was built before ``phase_build`` in the same call),
+    then the case matrix on every route, then the times."""
     import torch
+    ptxas = _wo_sm90_ptxas(_build_log(built, "weight_only_sm90"))
+    _no_spills("kernel_wo weight_only_sm90", ptxas, 21)
     gen = torch.Generator(device="cuda").manual_seed(6)
     worst = _wo_matrix(gen)
     timings = _wo_timing(gen)
-    emit("kernel_wo", worst=worst, timings=timings)
+    emit("kernel_wo", worst=worst, timings=timings, ptxas=ptxas)
     torch.cuda.empty_cache()
     return worst, timings
 
@@ -2959,7 +3018,9 @@ def phase_weight_only_path():
     counts are set to 0 just before one untimed sweep per (m, mode) and read
     just after: exactly 225 per sweep.  Layer 0's and the head's outputs are
     held against the plain version; then timed sweeps beside the same sweep
-    through ``torch.matmul`` over the bf16 weights; then ``dx`` through
+    through ``torch.matmul`` over the bf16 weights (CUDA events around the
+    host loop, which the host's enqueue of 225 wrapper calls can hold back,
+    and the device alone from a CUDA graph of one sweep); then ``dx`` through
     ``weight_only_linear`` (layer 0's gate, fp32 and bf16 x) against the
     same call on the CPU.  Frees everything before it returns the launch
     counts and the sweep times."""
@@ -3014,18 +3075,30 @@ def phase_weight_only_path():
         for i, (k, _n) in enumerate(shapes):
             torch.matmul(xs[m][k], dense[i])
 
-    _reset_wo_counts()
-    _reset_flash_counts()
-    _reset_grouped_counts()
-    outs = {(m, mode): sweep(m, mode, checked) for m in WO_PATH_MS
-            for mode in WO_MODES}
-    torch.cuda.synchronize()
-    launches = _wo_counts()
-    others = {**_flash_counts(), **_grouped_counts()}
-    want = {mode: len(shapes) * len(WO_PATH_MS) for mode in WO_MODES}
-    if launches != want or any(others.values()):
-        raise AssertionError(f"weight_only_path: launches {launches} != "
-                             f"{want}, other kernels {others}")
+    # one untimed sweep per (m, mode), its launches counted from 0: 225 of
+    # its mode, all on the route of its m, and no other kernel
+    outs, launches = {}, {mode: {"launches": 0, "routes": dict.fromkeys(
+        WO_ROUTES, 0)} for mode in WO_MODES}
+    for m in WO_PATH_MS:
+        route = "narrow" if m <= wo.NARROW_MAX_M else "wide"
+        for mode in WO_MODES:
+            _reset_wo_counts()
+            _reset_flash_counts()
+            _reset_grouped_counts()
+            outs[(m, mode)] = sweep(m, mode, checked)
+            torch.cuda.synchronize()
+            got = {"modes": _wo_counts(), "routes": _wo_route_counts(),
+                   "others": {**_flash_counts(), **_grouped_counts()}}
+            want = {"modes": {md: len(shapes) * (md == mode)
+                              for md in WO_MODES},
+                    "routes": {r: len(shapes) * (r == route)
+                               for r in WO_ROUTES},
+                    "others": dict.fromkeys(got["others"], 0)}
+            if got != want:
+                raise AssertionError(f"weight_only_path m{m} {mode}: "
+                                     f"launches {got}, want {want}")
+            launches[mode]["launches"] += len(shapes)
+            launches[mode]["routes"][route] += len(shapes)
     checks = {}
     for (m, mode), (kept, finite) in outs.items():
         if not bool(torch.stack(finite).all()):
@@ -3086,6 +3159,8 @@ def phase_weight_only_path():
                 "ms_per_sweep": min(r[0] for r in rs),
                 "ms_runs": [r[0] for r in rs],
                 "host_enqueue_ms": min(r[1] for r in rs),
+                # the device alone: one sweep captured in a CUDA graph
+                "device_ms_per_sweep": graph_ms(fns[key], 1, reps=3),
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bytes": nbytes, "calls": len(shapes)}
@@ -3173,17 +3248,38 @@ def _prim_headers():
     return [("primitives", h) for h in heads]
 
 
+PRIM_MM_ROUTES = ("sm90", "mma", "fma")   # kernels/primitives.py:_matmul_route
+
+
 def _prim_counts():
     from paddle_tpu_torch.kernels import primitives as P
     return {"elementwise": P.LAUNCHES_ELEMENTWISE,
             "reduce": P.LAUNCHES_REDUCE, "matmul": P.LAUNCHES_MATMUL,
-            "reduce_vec16": P.LAUNCHES_REDUCE_VEC16}
+            "reduce_vec16": P.LAUNCHES_REDUCE_VEC16,
+            **{f"matmul_{r}": getattr(P, f"LAUNCHES_MATMUL_{r.upper()}")
+               for r in PRIM_MM_ROUTES}}
 
 
 def _reset_prim_counts():
     from paddle_tpu_torch.kernels import primitives as P
     P.LAUNCHES_ELEMENTWISE = P.LAUNCHES_REDUCE = P.LAUNCHES_MATMUL = 0
     P.LAUNCHES_REDUCE_VEC16 = 0
+    for r in PRIM_MM_ROUTES:
+        setattr(P, f"LAUNCHES_MATMUL_{r.upper()}", 0)
+
+
+def _mm_sm90_ptxas(built):
+    """ptxas's record of the sm90 matmul kernels of every generated matmul
+    build: ``{"<library> bn256 bf16": {...}, ...}`` (4 a build)."""
+    out = {}
+    for key, b in (built or {}).items():
+        if key.startswith("libprimitives-gen-") and \
+                "mm_sm90_kernel" in b["log"]:
+            out.update(_ptxas_of(
+                b["log"], r"mm_sm90_kernelILi(\d+)E(13__nv_bfloat16|6__half)",
+                lambda m, k=key: f"{k[18:26]} bn{m.group(1)} "
+                f"{'bf16' if 'bfloat16' in m.group(2) else 'fp16'}"))
+    return out
 
 
 def _ulp(want):
@@ -3349,6 +3445,7 @@ def _prim_matrix(gen):
         raise AssertionError(f"reduce: a route was not reached "
                              f"{wr['routes']}")
     wm = worst["matmul"]
+    wm["routes"] = dict.fromkeys(PRIM_MM_ROUTES, 0)
     for m, k, n in PRIM_MM_SHAPES:
         for dt, other in ((f32, bf16), (bf16, f32), (f16, f32)):
             x = torch.randn((m, k), generator=gen, device=dev).to(dt)
@@ -3358,7 +3455,15 @@ def _prim_matrix(gen):
             for ename, efn in fns["matmul"].items():
                 pre = acc if efn is None else efn.torch(acc)
                 for odt in (dt, other):
+                    route = P._matmul_route(x, w)
+                    before = _prim_counts()
                     got = P.matmul_kernel(epilogue=efn, out_dtype=odt)(x, w)
+                    after = _prim_counts()
+                    if any(after[f"matmul_{r}"] - before[f"matmul_{r}"] !=
+                           (r == route) for r in PRIM_MM_ROUTES):
+                        raise AssertionError(f"matmul {m}x{k}x{n}: a launch "
+                                             f"off its route {route}")
+                    wm["routes"][route] += 1
                     want = pre.to(odt)
                     oname = str(odt).replace("torch.", "")
                     c = _flash_check(got, want, _prim_mm_tol(oname, k))
@@ -3373,6 +3478,9 @@ def _prim_matrix(gen):
                     wm["cases"] += 1
             del x, w, acc, pre
         torch.cuda.empty_cache()
+    if not all(wm["routes"].values()):
+        raise AssertionError(f"matmul: a route was not reached "
+                             f"{wm['routes']}")
     torch.cuda.synchronize()
     return worst
 
@@ -3417,9 +3525,11 @@ def _prim_path(gen):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = _prim_counts()
-    # both reduces stage 16-byte copies: fresh tensors, 16-byte rows
+    # both reduces stage 16-byte copies: fresh tensors, 16-byte rows; the
+    # five matmuls all take the wgmma route
     if launches != {"elementwise": 1, "reduce": 2, "matmul": 5,
-                    "reduce_vec16": 2}:
+                    "reduce_vec16": 2, "matmul_sm90": 5, "matmul_mma": 0,
+                    "matmul_fma": 0}:
         raise AssertionError(f"primitives path: launches {launches}")
     tol = PRIM_MM_TOL["bfloat16"]
     checks = {
@@ -3548,46 +3658,77 @@ def _prim_timing(gen):
         route=P._reduce_route(x))
     del x, y
 
-    # the gate projection, without and with the silu epilogue
+    # the gate projection, without and with the silu epilogue; the down
+    # projection and the LM head without: each on the "sm90" route, its
+    # output the same bits in two runs
     x = torch.randn((R, H), generator=gen, device="cuda").to(bf16)
     w = (torch.randn((H, I), generator=gen, device="cuda") /
          math.sqrt(H)).to(bf16)
-    for key, efn in (("matmul", None), ("matmul_silu", fns["matmul"]["silu"])):
+    h = torch.randn((R, I), generator=gen, device="cuda").to(bf16)
+    wd = (torch.randn((I, H), generator=gen, device="cuda") /
+          math.sqrt(I)).to(bf16)
+    wh = (torch.randn((H, V), generator=gen, device="cuda") /
+          math.sqrt(H)).to(bf16)
+    for key, a_in, b_in, efn in (
+            ("matmul", x, w, None), ("matmul_silu", x, w, fns["matmul"]["silu"]),
+            ("matmul_down", h, wd, None), ("matmul_lm_head", x, wh, None)):
         mmk = P.matmul_kernel(epilogue=efn)
         e = efn or P._IDENTITY
-        y = mmk(x, w)
-        c = _flash_check(y, P._matmul_reference(e, x, w, bf16),
+        route = P._matmul_route(a_in, b_in)
+        before = _prim_counts()["matmul_sm90"]
+        y = mmk(a_in, b_in)
+        again = mmk(a_in, b_in)
+        if route != "sm90" or _prim_counts()["matmul_sm90"] != before + 2 \
+                or not _bits_equal(y, again):
+            raise AssertionError(f"timed {key}: route {route} or not bit "
+                                 "for bit")
+        del again
+        c = _flash_check(y, P._matmul_reference(e, a_in, b_in, bf16),
                          PRIM_MM_TOL["bfloat16"])
         if not c["ok"]:
             raise AssertionError(f"timed {key}: {c}")
-        extra = {"max_abs_err": c["max_abs_err"], "rel": c["rel"]}
+        (M, K), N = a_in.shape, b_in.shape[1]
+        extra = {"max_abs_err": c["max_abs_err"], "rel": c["rel"],
+                 "route": route, "bitwise_repeat": True}
         if efn is None:
-            lib = torch.matmul(x, w)
+            lib = torch.matmul(a_in, b_in)
             extra["library_vs_plain"] = _flash_check(
-                lib, P._matmul_reference(e, x, w, bf16),
+                lib, P._matmul_reference(e, a_in, b_in, bf16),
                 PRIM_MM_TOL["bfloat16"])
-            kw = dict(library=lambda: torch.matmul(x, w),
+            del lib
+            kw = dict(library=lambda: torch.matmul(a_in, b_in),
                       library_call="torch.matmul")
         else:
-            kw = dict(cost=lambda: F.silu(torch.matmul(x, w)),
+            kw = dict(cost=lambda: F.silu(torch.matmul(a_in, b_in)),
                       library_note="null: no single PyTorch call fuses the "
                                    "silu; cost_reference_ms is torch.matmul "
                                    "then F.silu")
-        rec(key, f"[{R}, {H}] @ [{H}, {I}] bf16", lambda: mmk(x, w),
-            lambda: P._matmul_reference(e, x, w, bf16),
-            _grouped_bound_ms([x, w], y, 2 * R * H * I, bf16), iters=10,
-            **kw, **extra)
-    del x, w, y
+        rec(key, f"[{M}, {K}] @ [{K}, {N}] bf16", lambda: mmk(a_in, b_in),
+            lambda: P._matmul_reference(e, a_in, b_in, bf16),
+            _grouped_bound_ms([a_in, b_in], y, 2 * M * K * N, bf16),
+            iters=10, **kw, **extra)
+        k_ms = out[key]["kernel_ms"]
+        out[key]["tflops"] = 2 * M * K * N / k_ms / 1e9
+        ref_ms = out[key]["library_ms"] or out[key]["cost_reference_ms"]
+        out[key]["kernel_over_library"] = k_ms / ref_ms
+        del y
+    del x, w, h, wd, wh
     torch.cuda.empty_cache()
     return out
 
 
-def phase_kernel_primitives(smi=None):
+def phase_kernel_primitives(smi=None, built=None):
     """The primitive library's three generated kernels (elementwise, reduce,
     matmul) against their plain versions over the case matrix, then the
     library's path at llama2_7b widths with exact launch counts, then the
-    times of each generator at those widths."""
+    times of each generator at those widths.  First ptxas's record of the
+    sm90 matmul in each generated matmul build: 0 spill bytes in its 4
+    kernels a build, or it fails (empty, and failing, when the libraries
+    were built before ``phase_build`` in the same call)."""
     import torch
+    ptxas = _mm_sm90_ptxas(built)
+    n_mm = sum("#define PTT_MATMUL 1" in h for _, h in _prim_headers())
+    _no_spills("kernel_primitives mm_sm90", ptxas, 4 * n_mm)
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(7)
     worst = _prim_matrix(gen)
@@ -3596,7 +3737,7 @@ def phase_kernel_primitives(smi=None):
     timed = _prim_timing(gen)
     emit("kernel_primitives", nvidia_smi=smi or _nvidia_smi(),
          matrix_seconds=matrix_s, worst=worst, path=path, timed=timed,
-         ew_tol=PRIM_EW_TOL, mm_tol=PRIM_MM_TOL,
+         ew_tol=PRIM_EW_TOL, mm_tol=PRIM_MM_TOL, mm_sm90_ptxas=ptxas,
          seconds=time.perf_counter() - t0)
     return worst, path, timed
 
@@ -3627,9 +3768,9 @@ def main() -> int:
     moe_err, moe_t, moe_mix = phase_kernel_tgmm(built)
     phase_moe_train_parity()
     moe_launches = phase_train_moe()
-    wo_err, wo_t = phase_kernel_wo()
+    wo_err, wo_t = phase_kernel_wo(built)
     wo_launches, _wo_sweeps = phase_weight_only_path()
-    prim_err, prim_path, prim_t = phase_kernel_primitives(_smi)
+    prim_err, prim_path, prim_t = phase_kernel_primitives(_smi, built)
     # each kernel's launches on its routes: the split and tile kernels of
     # the attention source, gmm's sm90 and simt kernels
     attn_routes = {
@@ -3692,8 +3833,10 @@ def main() -> int:
              "gmm_trans", "trans"),
             ("grouped_matmul_tgmm", TGMM_SOURCE, TGMM_REPLACES, "tgmm",
              "tgmm"))] + [
-        {"name": f"weight_only_{mode}", "route": "cuda", "source": WO_SOURCE,
-         "replaces": WO_REPLACES, "launches": wo_launches[mode],
+        {"name": f"weight_only_{mode}", "route": "cuda",
+         "source": WO_SM90_SOURCE, "replaces": WO_REPLACES,
+         "launches": wo_launches[mode]["launches"],
+         "routes": wo_launches[mode]["routes"],
          "max_abs_err": wo_err[mode]["max_abs_err"],
          "ms": wo_t[f"{mode}_m8"]["kernel_ms"],
          "plain_ms": wo_t[f"{mode}_m8"]["plain_ms"],
@@ -3713,7 +3856,10 @@ def main() -> int:
          **({"routes": {"vec16": prim_path["launches"]["reduce_vec16"],
                         "scalar": prim_path["launches"]["reduce"] -
                         prim_path["launches"]["reduce_vec16"]}}
-            if kind == "reduce" else {})}
+            if kind == "reduce" else {}),
+         **({"routes": {r: prim_path["launches"][f"matmul_{r}"]
+                        for r in PRIM_MM_ROUTES}}
+            if kind == "matmul" else {})}
         for kind, key in (("elementwise", "elementwise_silu_mul"),
                           ("reduce", "reduce_max"),
                           ("matmul", "matmul"))]}),

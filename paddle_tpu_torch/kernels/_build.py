@@ -15,7 +15,8 @@ caller's function into that header.  The header lands beside the library,
 and both are named by a hash of the source, the header and the flags, so an
 unchanged function loads at once and a changed one rebuilds.  Several
 generated libraries export the same C names; each is its own ``CDLL``
-(``RTLD_LOCAL``), so their symbols never meet.
+(``RTLD_LOCAL``) and is built with ``-fno-gnu-unique``, so their symbols,
+and the statics of their templates, never meet.
 
 Nothing here runs at import time: :func:`load` builds on first use, and
 :func:`build_all` starts one ``nvcc`` per source (and per generated header
@@ -36,8 +37,14 @@ from typing import Dict, List, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch_kernels"
+# -fno-gnu-unique: a static inside a template or inline function (a
+# kernel's one-time attribute setting) stays the library's own; with GCC's
+# default STB_GNU_UNIQUE binding the dynamic linker would share it between
+# the generated libraries of one source, loaded RTLD_LOCAL or not, and the
+# second library's kernel would never get its attribute set
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-shared", "-Xcompiler", "-fPIC,-fno-gnu-unique", "-Xptxas",
+              "-v"]
 
 _LIBS: Dict[Tuple[str, str], ctypes.CDLL] = {}   # (name, header)
 _LOCK = threading.Lock()

@@ -53,18 +53,31 @@
 //   warp); the widening happens in registers, off the accumulator's chain.
 //   What remains is the chain itself: cols dependent steps (fn, round,
 //   widen) a row, which chip_smoke.py times alone as chain_floor_ms.
-// - matmul: bf16 / fp16 through WMMA 16x16x16 fragments (mma.sync) with fp32
-//   accumulators, 128 x 128 output tiles, 8 warps of 64 x 32, k steps of 32
-//   staged through shared memory with the next step's loads in flight in
-//   registers (the pattern of csrc/weight_only.cu); fp32 through
-//   register-tiled FMA, 64 x 64 tiles, 4 x 4 a thread, not TF32.  The
-//   epilogue runs on the fp32 sum, element by element, then the cast to the
-//   output dtype.  Rows past m, columns past n and k past its end read as
-//   zeros and are never stored (no padded copy, unlike the reference's
-//   :141-143); 16-byte loads only when k and n are multiples of 8 (4 in
-//   fp32) and both operands are 16-byte aligned.
-// Later work (not here): 16-byte loads for elementwise, wgmma and TMA rings
-// for matmul.
+// - matmul, three routes (kernels/primitives.py:_matmul_route):
+//   "sm90", bf16 / fp16 with k > 0, k and n multiples of 8 and both operands
+//   16-byte aligned (every matmul of the library's path): wgmma over a TMA
+//   ring, warp-specialised, wide_sm90.cuh's tile body.  One producer thread
+//   issues TMA for the x tile [128 x 64] and the w tile [64 x BN] (BN 256
+//   where n > 128, else 128; w [k, n] read MN-major, tnsp-b 1) of each
+//   k-step into a 4-stage ring; two consumer warpgroups of 64 rows run
+//   m64nBNk16 at setmaxnreg 232 (the producer at 40), one stage's products
+//   in flight; the epilogue runs on the fp32 accumulators in registers
+//   (the functor, then the one cast), stages the tile in the ring and
+//   stores it 16 bytes at a time.  Ragged m, n and k load zeros by TMA's
+//   out-of-bounds fill and are never stored.  CTAs walk the tiles in groups
+//   of 16 row tiles so the ones that run together share x rows and w
+//   columns through L2.
+//   "mma", every other bf16 / fp16 case: WMMA 16x16x16 fragments (mma.sync)
+//   with fp32 accumulators, 128 x 128 output tiles, 8 warps of 64 x 32, k
+//   steps of 32 staged through shared memory with the next step's loads in
+//   flight in registers (the pattern of csrc/weight_only.cu).
+//   "fma", fp32: register-tiled FMA, 64 x 64 tiles, 4 x 4 a thread, not
+//   TF32.  On "mma" and "fma" rows past m, columns past n and k past its
+//   end read as zeros and are never stored (no padded copy, unlike the
+//   reference's :141-143); 16-byte loads only when k and n are multiples of
+//   8 (4 in fp32) and both operands are 16-byte aligned.
+// Later work (not here): 16-byte loads for elementwise; a persistent grid
+// with the epilogue overlapping the next tile's loads for matmul.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -75,6 +88,7 @@
 #include <utility>
 
 #include "sm90.cuh"
+#include "wide_sm90.cuh"
 
 #if !defined(PTT_ELEMENTWISE) && !defined(PTT_REDUCE) && !defined(PTT_MATMUL)
 #define PTT_ELEMENTWISE 1
@@ -538,6 +552,93 @@ fma_kernel(const float* __restrict__ x, const float* __restrict__ w, void* __res
   }
 }
 
+// ---- bf16 / fp16 on the "sm90" route: wgmma over a TMA ring ----
+
+// the caller's epilogue on one fp32 sum (its column is not read)
+struct EpilogueFn {
+  __device__ __forceinline__ float operator()(float a, int) const { return ptt_epilogue_fn(a); }
+};
+
+// One CTA per 128 x BN output tile (wide_sm90.cuh): warpgroup 0's thread 0
+// issues TMA for the x tile [128 x 64] and the w tile [64 x BN] (BN / 64
+// boxes of 64 x 64 from w [k, n], MN-major) of each k-step into the ring;
+// the two consumer warpgroups run the wgmma and the epilogue.  Rows past m,
+// columns past n and k past its end load as zeros (TMA's out-of-bounds
+// fill) and are never stored.
+template <int BN, typename T>
+__global__ void __launch_bounds__(wide90::kThreads, 1)
+mm_sm90_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
+               void* __restrict__ out, int m, int k, int n, int out_code) {
+  using namespace sm90;
+  namespace w9 = wide90;
+  using S = w9::Smem<BN, 0>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::off_bar);
+  uint64_t* empty = full + w9::kStages;
+  int m0, n0;
+  w9::tile_origin(m, n, BN, m0, n0);
+  const int nk = (k + w9::kBK - 1) / w9::kBK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < w9::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);             // the consumers' warps
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (warpgroup_idx() == 0) {              // ---- producer: one thread
+    setmaxnreg_dec<w9::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      tma_prefetch_map(&tm_x);
+      tma_prefetch_map(&tm_w);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % w9::kStages, k0 = kt * w9::kBK;
+        unsigned char* a_s = smem + s * S::stage;
+        mbar_wait(&empty[s], ((kt / w9::kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], S::a + S::b);
+        tma_load_2d(a_s, &tm_x, &full[s], k0, m0);
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          tma_load_2d(a_s + S::a + j * 64 * w9::kRowBytes, &tm_w, &full[s], n0 + 64 * j, k0);
+      }
+    }
+  } else {                                 // ---- consumers: rows m0 + 64 w ..
+    setmaxnreg_inc<w9::kConsumerRegs>();
+    const int w = warpgroup_idx() - 1, t = threadIdx.x % 128;
+    float acc[BN / 2];
+    w9::mainloop<BN, T, w9::kStages>(acc, smem, S::stage, full, empty, nk, w, t,
+                                     w9::NoPrep());
+    w9::epilogue<BN>(acc, smem, out, out_code, m, n, m0, n0, w, t, EpilogueFn());
+  }
+}
+
+template <int BN, typename T>
+cudaError_t launch_sm90(const void* x, const void* w, void* out, int m, int k, int n,
+                        int out_code, cudaStream_t s) {
+  CUtensorMap tx, tw;
+  if (!wide90::encode_x<T>(&tx, x, m, k)) return cudaErrorInvalidValue;
+  const uint64_t dims[2] = {(uint64_t)n, (uint64_t)k};     // w [k, n], n contiguous
+  const uint64_t strides[1] = {(uint64_t)n * 2};
+  const uint32_t box[2] = {64, 64};
+  if (!sm90::encode_bf16(&tw, w, 2, dims, strides, box, wide90::map_type<T>()))
+    return cudaErrorInvalidValue;
+  constexpr size_t bytes = wide90::Smem<BN, 0>::bytes;
+  const cudaError_t e = sm90::prepare_warp_specialized<mm_sm90_kernel<BN, T>>(
+      bytes, wide90::kThreads, wide90::kRegsNeeded);
+  if (e != cudaSuccess) return e;
+  mm_sm90_kernel<BN, T><<<wide90::grid_size(m, n, BN), wide90::kThreads, bytes, s>>>(
+      tx, tw, out, m, k, n, out_code);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_sm90_bn(const void* x, const void* w, void* out, int m, int k, int n,
+                           int out_code, cudaStream_t s) {
+  return n > 128 ? launch_sm90<256, T>(x, w, out, m, k, n, out_code, s)
+                 : launch_sm90<128, T>(x, w, out, m, k, n, out_code, s);
+}
+
 template <typename T>
 cudaError_t launch_mma(bool vec, const void* x, const void* w, void* out, int m, int k, int n,
                        int out_code, cudaStream_t s) {
@@ -568,23 +669,34 @@ cudaError_t launch_fma(bool vec, const void* x, const void* w, void* out, int m,
 // ptt_matmul: out [m, n] = cast(epilogue(x [m, k] @ w [k, n])), the sum in
 // fp32; x and w of one dtype (code 0 fp32, 1 bf16, 2 fp16), out of any;
 // all contiguous on the stream's device (the Python wrapper checks that).
-// k may be 0 (the sum is 0).  Returns the launch's cudaError_t.
+// route is kernels/primitives.py:_matmul_route's: 0 "fma" (fp32), 1 "mma"
+// (bf16/fp16, WMMA), 2 "sm90" (bf16/fp16 with k > 0, k and n multiples of 8
+// and x, w 16-byte aligned: wgmma over a TMA ring).  k may be 0 on "fma"
+// and "mma" (the sum is 0).  Returns cudaErrorInvalidValue for a route the
+// operands do not fit, otherwise the launch's cudaError_t.
 extern "C" int ptt_matmul(const void* x, const void* w, void* out, int m, int k, int n,
-                          int code, int out_code, void* stream) {
+                          int code, int out_code, int route, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (m <= 0 || n <= 0 || k < 0 || out_code < 0 || out_code > 2)
+  if (m <= 0 || n <= 0 || k < 0 || out_code < 0 || out_code > 2 || code < 0 || code > 2 ||
+      (route == 0) != (code == 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool aligned = aligned16(x) && aligned16(w);
-  switch (code) {
+  switch (route) {
     case 0:
       return static_cast<int>(mm::launch_fma(aligned && k % 4 == 0 && n % 4 == 0, x, w, out,
                                              m, k, n, out_code, s));
     case 1:
-      return static_cast<int>(mm::launch_mma<__nv_bfloat16>(
-          aligned && k % 8 == 0 && n % 8 == 0, x, w, out, m, k, n, out_code, s));
+      return static_cast<int>(
+          code == 1 ? mm::launch_mma<__nv_bfloat16>(aligned && k % 8 == 0 && n % 8 == 0, x, w,
+                                                    out, m, k, n, out_code, s)
+                    : mm::launch_mma<__half>(aligned && k % 8 == 0 && n % 8 == 0, x, w, out, m,
+                                             k, n, out_code, s));
     case 2:
-      return static_cast<int>(mm::launch_mma<__half>(aligned && k % 8 == 0 && n % 8 == 0, x,
-                                                     w, out, m, k, n, out_code, s));
+      if (!aligned || k <= 0 || k % 8 || n % 8 || !aligned16(out))
+        return static_cast<int>(cudaErrorInvalidValue);
+      return static_cast<int>(
+          code == 1 ? mm::launch_sm90_bn<__nv_bfloat16>(x, w, out, m, k, n, out_code, s)
+                    : mm::launch_sm90_bn<__half>(x, w, out, m, k, n, out_code, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

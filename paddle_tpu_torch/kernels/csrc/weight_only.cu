@@ -1,8 +1,12 @@
-// Weight-only quantized matmul for Hopper (sm_90a): W8A16 and W4A16.
+// Weight-only quantized matmul for Hopper (sm_90a): W8A16 and W4A16, the
+// "fma" (fp32 x) and "legacy" routes of kernels/weight_only.py:_route.
 //
 // Replaces _wo_kernel in paddle_tpu/kernels/weight_only.py (the Pallas TPU
 // kernel launched there by weight_only_matmul through the _wo_core custom
-// VJP).  ptt_weight_only computes what the plain _wo_reference computes,
+// VJP) for fp32 x and for the bf16/fp16 shapes TMA cannot map (n % 16,
+// k % 8, an unaligned pointer); every other bf16/fp16 shape runs
+// csrc/weight_only_sm90.cu.  ptt_weight_only computes what the plain
+// _wo_reference computes,
 //
 //     out[m, n] = cast(scale[n] * sum_k x[m, k] * q[k, n])
 //
@@ -42,9 +46,7 @@
 //   Shapes whose rows are not 16-byte multiples (n % 16, k % 8) or whose
 //   pointers are not 16-byte aligned take the same kernel with element
 //   loads instead of vectors.
-// Later work (not here): split-K or a GEMV form for small m (at n = 4096 the
-// 64-column tiles give only 64 blocks for 132 SMs), cp.async/TMA rings, and
-// wgmma for prefill.
+// The wgmma forms with TMA rings and split-K are csrc/weight_only_sm90.cu's.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

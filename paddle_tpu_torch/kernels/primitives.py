@@ -26,8 +26,16 @@ tensors, and a generator given one raises on any other device.
 kernel (each launch adds one to :data:`LAUNCHES_ELEMENTWISE`,
 :data:`LAUNCHES_REDUCE` or :data:`LAUNCHES_MATMUL`; a reduce that took the
 "vec16" route of :func:`_reduce_route` also to
-:data:`LAUNCHES_REDUCE_VEC16`) or raises.  No path falls back.  Inputs are
-fp32, bf16 or fp16.
+:data:`LAUNCHES_REDUCE_VEC16`; a matmul also to the counter of its route)
+or raises.  No path falls back.  Inputs are fp32, bf16 or fp16.
+
+**The matmul's routes** (:func:`_matmul_route`, which reads dtype, shape
+and alignment only): ``"sm90"`` (:data:`LAUNCHES_MATMUL_SM90`), bf16/fp16
+with k > 0, k and n multiples of 8 and both operands 16-byte aligned: wgmma
+over a TMA ring, warp-specialised (``csrc/wide_sm90.cuh``'s tile body;
+TMA's out-of-bounds fill covers ragged m, n and k); ``"mma"``
+(:data:`LAUNCHES_MATMUL_MMA`), every other bf16/fp16 case: WMMA; ``"fma"``
+(:data:`LAUNCHES_MATMUL_FMA`), fp32: register-tiled FMA, not TF32.
 
 **What is not ported.**  The reference's TPU tile knobs (``block``,
 ``block_rows``, ``block_m``/``block_n``/``block_k``) and ``interpret``: the
@@ -88,6 +96,11 @@ LAUNCHES_ELEMENTWISE = 0
 LAUNCHES_REDUCE = 0
 LAUNCHES_MATMUL = 0
 LAUNCHES_REDUCE_VEC16 = 0   # the reduce launches on the "vec16" route
+# the matmul launches by route (_matmul_route)
+LAUNCHES_MATMUL_SM90 = 0
+LAUNCHES_MATMUL_MMA = 0
+LAUNCHES_MATMUL_FMA = 0
+_MATMUL_ROUTE_CODE = {"fma": 0, "mma": 1, "sm90": 2}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ARG_NAMES = "abcdefgh"          # the CUDA body's arguments, in order
@@ -151,7 +164,7 @@ def _kernel_lib(kind: str, fn: KernelFn, arity: Optional[int] = None):
             "reduce": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_void_p],
-            "matmul": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 +
+            "matmul": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 +
                       [ctypes.c_void_p]}[kind]
         f.restype = ctypes.c_int
     return f
@@ -305,12 +318,28 @@ def _matmul_reference(epilogue: KernelFn, x, w, out_dtype):
     return epilogue.torch(x.float() @ w.float()).to(out_dtype)
 
 
+def _matmul_route(x, w):
+    """The matmul kernel for ``x [M, K] @ w [K, N]``: ``"fma"`` for fp32;
+    for bf16/fp16 ``"sm90"`` when K > 0, K and N are multiples of 8 (TMA's
+    16-byte row strides) and both operands are 16-byte aligned, else
+    ``"mma"``.  Reads dtype, shape and the pointers' alignment only."""
+    if x.dtype == torch.float32:
+        return "fma"
+    k, n = x.shape[1], w.shape[1]
+    if k > 0 and k % 8 == 0 and n % 8 == 0 and x.data_ptr() % 16 == 0 and \
+            w.data_ptr() % 16 == 0:
+        return "sm90"
+    return "mma"
+
+
 def matmul_kernel(epilogue=None, out_dtype=None):
     """``apply(x, w)``: ``[M, K] @ [K, N]`` with an fp32 sum, then
     ``epilogue`` on the fp32 sum, then the cast to ``out_dtype`` (default
     x's dtype).  x and w share a dtype: fp32, bf16 or fp16.  The epilogue
     is elementwise on the fp32 sum (a scaling, a bias constant, an
-    activation): the kernel applies it to each output element alone."""
+    activation): the kernel applies it to each output element alone.  A
+    CUDA tensor launches the kernel of the route :func:`_matmul_route`
+    picks."""
     epilogue = _IDENTITY if epilogue is None else _as_fn(epilogue)
     if out_dtype is not None and out_dtype not in _DTYPE_CODE:
         raise TypeError(f"matmul_kernel: out_dtype {out_dtype} not supported "
@@ -318,7 +347,8 @@ def matmul_kernel(epilogue=None, out_dtype=None):
     lib = None
 
     def apply(x, w):
-        global LAUNCHES_MATMUL
+        global LAUNCHES_MATMUL, LAUNCHES_MATMUL_SM90, LAUNCHES_MATMUL_MMA, \
+            LAUNCHES_MATMUL_FMA
         nonlocal lib
         if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
             raise ValueError(f"matmul_kernel: [M, K] @ [K, N], got "
@@ -336,10 +366,18 @@ def matmul_kernel(epilogue=None, out_dtype=None):
         out = torch.empty((m, n), dtype=dt, device=x.device)
         if m == 0 or n == 0:
             return out
-        _raise_on("matmul_kernel", lib(
+        route = _matmul_route(x, w)
+        _raise_on(f"matmul_kernel ({route})", lib(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
-            _DTYPE_CODE[x.dtype], _DTYPE_CODE[dt], stream))
+            _DTYPE_CODE[x.dtype], _DTYPE_CODE[dt], _MATMUL_ROUTE_CODE[route],
+            stream))
         LAUNCHES_MATMUL += 1
+        if route == "sm90":
+            LAUNCHES_MATMUL_SM90 += 1
+        elif route == "mma":
+            LAUNCHES_MATMUL_MMA += 1
+        else:
+            LAUNCHES_MATMUL_FMA += 1
         return out
 
     return apply

@@ -886,6 +886,58 @@ def test_weight_only_edges_on_card(h100):
         _wo_close(grads[0].cpu(), grads[1])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("m,k,n,route", [
+    (8, 4096, 11008, "narrow"),          # llama2_7b gate/up at decode
+    (1, 2048, 128, "narrow"),            # split-K
+    (20, 200, 176, "narrow"),            # k and n off the tiles, 32-row tile
+    (64, 256, 512, "narrow"),            # the largest narrow row tile
+    (100, 200, 176, "wide"), (512, 4096, 4096, "wide"),
+    (8, 96, 200, "legacy"),              # n off the 16-byte rows
+])
+def test_weight_only_routes_on_card(h100, dtype, int4, m, k, n, route):
+    """Each route by its counter, against the plain version, and the same
+    bits in two runs."""
+    from paddle_tpu_torch.kernels import weight_only as wo
+    q, s = _wo_weights(h100, k, n, int4, seed=m + n)
+    x = torch.randn((m, k), device=h100).to(dtype)
+    rows = k if int4 else None
+    assert wo._route(x, q, k, n) == route
+    counter = f"LAUNCHES_{route.upper()}"
+    n0 = getattr(wo, counter)
+    out = wo.weight_only_matmul(x, q, s, int4_rows=rows)
+    again = wo.weight_only_matmul(x, q, s, int4_rows=rows)
+    torch.cuda.synchronize()
+    assert getattr(wo, counter) == n0 + 2
+    _wo_close(out, wo._wo_reference(x, q, s, int4, k, dtype))
+    assert torch.equal(out.view(torch.int16), again.view(torch.int16))
+    if route != "legacy":
+        out32 = wo.weight_only_matmul(x, q, s, int4_rows=rows,
+                                      out_dtype=torch.float32)
+        _wo_close(out32, wo._wo_reference(x, q, s, int4, k, torch.float32))
+
+
+@pytest.mark.cuda
+def test_weight_only_fma_and_unaligned_routes_on_card(h100):
+    """fp32 x takes "fma"; a bf16 x one element into its buffer, "legacy"."""
+    from paddle_tpu_torch.kernels import weight_only as wo
+    k, n = 256, 128
+    q, s = _wo_weights(h100, k, n, False, seed=3)
+    x = torch.randn((8, k), device=h100)
+    n0 = (wo.LAUNCHES_FMA, wo.LAUNCHES_LEGACY)
+    _wo_close(wo.weight_only_matmul(x, q, s),
+              wo._wo_reference(x, q, s, False, k, torch.float32))
+    buf = torch.randn((8 * k + 1,), device=h100).to(torch.bfloat16)
+    xo = buf[1:].view(8, k)
+    assert wo._route(xo, q, k, n) == "legacy"
+    _wo_close(wo.weight_only_matmul(xo, q, s),
+              wo._wo_reference(xo, q, s, False, k, torch.bfloat16))
+    torch.cuda.synchronize()
+    assert (wo.LAUNCHES_FMA, wo.LAUNCHES_LEGACY) == (n0[0] + 1, n0[1] + 1)
+
+
 # ------------------------------------------------------------ primitives
 
 def _prim_fns():
@@ -1022,3 +1074,43 @@ def test_primitives_refuse_what_the_kernels_do_not_take_on_card(h100):
         x[:, :0], x[:0, :5].contiguous())
     torch.cuda.synchronize()
     assert torch.equal(y, torch.ones((8, 5), device=h100))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,out_dtype", [
+    (torch.bfloat16, None), (torch.bfloat16, torch.float32),
+    (torch.float16, None), (torch.float32, None)])
+@pytest.mark.parametrize("m,k,n,offset", [
+    (300, 200, 520, 0), (100, 72, 56, 0), (8192, 4096, 11008, 0),
+    (100, 70, 50, 0), (64, 128, 64, 1)])
+def test_primitives_matmul_routes_on_card(h100, dtype, out_dtype, m, k, n,
+                                          offset):
+    """Each route by its counter ("sm90" for bf16/fp16 with k, n multiples
+    of 8 and aligned operands, "mma" for other bf16/fp16, "fma" for fp32),
+    against the plain version; the "sm90" route repeats bit for bit."""
+    from paddle_tpu_torch.kernels import primitives as P
+    gen = torch.Generator(device=h100).manual_seed(m + k)
+    x = torch.randn((m, k), generator=gen, device=h100).to(dtype)
+    if offset:             # the same values off the 16-byte alignment
+        xb = torch.empty((m * k + offset,), device=h100, dtype=dtype)
+        xb[offset:].copy_(x.view(-1))
+        x = xb[offset:].view(m, k)
+    w = (torch.randn((k, n), generator=gen, device=h100) / k ** 0.5).to(dtype)
+    route = P._matmul_route(x, w)
+    want_route = "fma" if dtype == torch.float32 else \
+        "sm90" if (k % 8 == 0 and n % 8 == 0 and not offset) else "mma"
+    assert route == want_route
+    counter = f"LAUNCHES_MATMUL_{route.upper()}"
+    n0 = getattr(P, counter)
+    mm = P.matmul_kernel(epilogue=_prim_fns()["silu"], out_dtype=out_dtype)
+    got = mm(x, w)
+    again = mm(x, w)
+    torch.cuda.synchronize()
+    assert getattr(P, counter) == n0 + 2
+    odt = out_dtype or dtype
+    want = P._matmul_reference(_prim_fns()["silu"], x, w, odt)
+    wf = want.float()
+    lim = _ulp(want) + 1e-4 * (wf.abs() + float(wf.abs().max()))
+    assert bool(((got.float() - wf).abs() <= lim).all())
+    if route == "sm90":
+        assert torch.equal(got, again)

@@ -273,6 +273,7 @@ def test_moe_mlp_forward_grouped_and_aux_gradient_match_jax():
 # -------------------------------------------------------------- trainer ---
 
 B, T, STEPS = 2, 32, 3
+CARRIED_CFG = dict(num_hidden_layers=1)    # the carried-state steps' model
 
 
 def _host(tree):
@@ -317,12 +318,13 @@ def _batch(seed=0):
                                 dict(remat=True, loss_chunks=4)],
                          ids=["plain", "remat_full_chunked_ce"])
 def test_mixtral_tiny_three_steps_match_jax_from_a_carried_state(kw):
-    jps = JPretrainStep(jllama.LlamaConfig.mixtral_tiny(),
+    # one layer: the steps' cost is mostly JAX tracing and compiling it
+    jps = JPretrainStep(jllama.LlamaConfig.mixtral_tiny(**CARRIED_CFG),
                         JParallelConfig(**kw))
     js = jps.init_state(seed=0)
     carried = jax.tree_util.tree_map(lambda x: np.array(x, copy=True),
                                      jps.canonical_state(js))
-    tps = pretrain.PretrainStep(llama.LlamaConfig.mixtral_tiny(),
+    tps = pretrain.PretrainStep(llama.LlamaConfig.mixtral_tiny(**CARRIED_CFG),
                                 pretrain.ParallelConfig(**kw), device="cpu")
     ts = tps.restore_canonical(carried)
     ids, labels = _batch()

@@ -3,6 +3,7 @@ entry points default to the GPU and refuse to fall back to the CPU, and
 ``chip_smoke.py`` fails without a card before allocating anything."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -38,25 +39,79 @@ def test_port_and_chip_smoke_import_no_jax():
     assert not bad, bad
 
 
-def test_importing_the_serving_stack_loads_no_jax():
-    code = ("import paddle_tpu_torch.serving.server, "
-            "paddle_tpu_torch.serving.__main__, paddle_tpu_torch.inference, "
-            "sys; assert 'jax' not in sys.modules; "
-            "assert 'paddle_tpu' not in sys.modules")
-    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                       capture_output=True, text=True, timeout=120)
-    assert r.returncode == 0, r.stderr
+# One interpreter imports the port's stacks in turn and reports, after each,
+# the modules it has loaded; then it runs the training entry point as ``python
+# -m`` does, with no --device, and ``chip_smoke.py`` as ``python3
+# chip_smoke.py`` does.  The tests below read that report.
+_STACKS = (
+    ("nn_functional", ("paddle_tpu_torch.nn", "paddle_tpu_torch.nn.functional")),
+    ("serving", ("paddle_tpu_torch.serving.server",
+                 "paddle_tpu_torch.serving.__main__",
+                 "paddle_tpu_torch.inference")),
+    ("training", ("paddle_tpu_torch.models.pretrain",
+                  "paddle_tpu_torch.kernels.flash_attention",
+                  "paddle_tpu_torch.profile_step")),
+)
+_REPORT = """
+import contextlib, importlib, io, json, runpy, sys
+stacks, report, before = json.loads(sys.argv[1]), {}, set(sys.modules)
+for name, modules in stacks:
+    for m in modules:
+        importlib.import_module(m)
+    report[name] = sorted(set(sys.modules) - before)
+    before = set(sys.modules)
+def run(argv, main):
+    sys.argv = argv
+    out, err, code = io.StringIO(), io.StringIO(), 0
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            main()
+    except SystemExit as e:
+        code = e.code if isinstance(e.code, int) else 1
+    except Exception as e:
+        code, _ = 1, err.write(repr(e))
+    return {"exit": code, "stdout": out.getvalue(), "stderr": err.getvalue()}
+report["entry_point"] = run(
+    ["pretrain", "--preset", "tiny", "--steps", "1"],
+    lambda: runpy.run_module("paddle_tpu_torch.models.pretrain",
+                             run_name="__main__"))
+report["chip_smoke"] = run(
+    ["chip_smoke.py"], lambda: runpy.run_path("chip_smoke.py",
+                                              run_name="__main__"))
+print(json.dumps(report))
+"""
 
 
-def test_importing_the_training_stack_loads_no_jax():
-    code = ("import paddle_tpu_torch.models.pretrain, "
-            "paddle_tpu_torch.kernels.flash_attention, "
-            "paddle_tpu_torch.profile_step, sys; "
-            "assert 'jax' not in sys.modules; "
-            "assert 'paddle_tpu' not in sys.modules")
-    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                       capture_output=True, text=True, timeout=120)
+@pytest.fixture(scope="module")
+def stack_report():
+    r = subprocess.run([sys.executable, "-c", _REPORT, json.dumps(_STACKS)],
+                       cwd=ROOT, capture_output=True, text=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=""))
     assert r.returncode == 0, r.stderr
+    report = json.loads(r.stdout.strip().splitlines()[-1])
+    assert list(report) == [name for name, _ in _STACKS] + ["entry_point",
+                                                             "chip_smoke"]
+    return report
+
+
+def _loaded_no_jax(report, upto):
+    """The modules loaded by the stacks up to ``upto`` hold neither JAX nor
+    the JAX package (each stack's own modules are among them)."""
+    names = [n for n, _ in _STACKS]
+    loaded = [m for n in names[:names.index(upto) + 1] for m in report[n]]
+    stack = dict(_STACKS)[upto]
+    assert set(stack) <= set(loaded), (upto, stack)
+    bad = [m for m in loaded if m.split(".")[0] in ("jax", "jaxlib",
+                                                     "paddle_tpu")]
+    assert not bad, bad
+
+
+def test_importing_the_serving_stack_loads_no_jax(stack_report):
+    _loaded_no_jax(stack_report, "serving")
+
+
+def test_importing_the_training_stack_loads_no_jax(stack_report):
+    _loaded_no_jax(stack_report, "training")
 
 
 def test_default_device_is_cuda_and_raises_without_gpu():
@@ -89,16 +144,14 @@ def test_default_device_is_cuda_and_raises_without_gpu():
             ["--preset", "tiny"]))
 
 
-def test_training_entry_point_defaults_to_the_card():
+def test_training_entry_point_defaults_to_the_card(stack_report):
     """``python -m paddle_tpu_torch.models.pretrain`` with no --device
     refuses to run on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device works here")
-    r = subprocess.run([sys.executable, "-m", "paddle_tpu_torch.models.pretrain",
-                        "--preset", "tiny", "--steps", "1"], cwd=ROOT,
-                       capture_output=True, text=True, timeout=120)
-    assert r.returncode != 0 and "cuda" in r.stderr
-    assert '"loss"' not in r.stdout
+    r = stack_report["entry_point"]
+    assert r["exit"] != 0 and "cuda" in r["stderr"]
+    assert '"loss"' not in r["stdout"]
 
 
 def test_model_and_engine_devices_must_agree():
@@ -151,10 +204,11 @@ def test_cuda_only_paths_refuse_cpu_fallback():
 
 
 def test_new_routes_refuse_cpu_fallback(monkeypatch):
-    """The gmm and tgmm sm90 routes (bf16) and the attention split route (T
-    x group <= 16) take their plain versions only for CPU tensors: on a meta
-    tensor each raises before any plain version runs, as the simt and tile
-    routes do."""
+    """The gmm and tgmm sm90 routes (bf16), the attention split route (T x
+    group <= 16), the primitive matmul's "sm90" route and the weight-only
+    matmul's "narrow" and "wide" routes take their plain versions only for
+    CPU tensors: on a meta tensor each raises before any plain version runs,
+    as the other routes do."""
     from paddle_tpu_torch.kernels import grouped_matmul as gm
     from paddle_tpu_torch.kernels import paged_attention as pa
 
@@ -182,6 +236,28 @@ def test_new_routes_refuse_cpu_fallback(monkeypatch):
                                             "rhs_scale": s}):
             with pytest.raises(ValueError, match="device"):
                 gm.tgmm(x, y, tg, 2, bm=bm, **kw)
+    # the primitive matmul's "sm90" route (bf16 and fp16) and the
+    # weight-only matmul's "narrow" and "wide" routes, int8 and int4
+    from paddle_tpu_torch.kernels import primitives as P
+    from paddle_tpu_torch.kernels import weight_only as wo
+    monkeypatch.setattr(P, "_matmul_reference", plain)
+    monkeypatch.setattr(wo, "_wo_reference", plain)
+    for dt in (torch.bfloat16, torch.float16):
+        xm = torch.empty((256, 64), device="meta", dtype=dt)
+        wm = torch.empty((64, 128), device="meta", dtype=dt)
+        assert P._matmul_route(xm, wm) == "sm90"
+        with pytest.raises(ValueError, match="device"):
+            P.matmul_kernel()(xm, wm)
+    q8 = torch.empty((64, 128), dtype=torch.int8, device="meta")
+    q4 = torch.empty((32, 128), dtype=torch.int8, device="meta")
+    s = torch.empty((128,), device="meta")
+    for m, route in ((8, "narrow"), (100, "wide")):
+        xq = torch.empty((m, 64), **bf)
+        assert wo._route(xq, q8, 64, 128) == route
+        with pytest.raises(ValueError, match="device"):
+            wo.weight_only_matmul(xq, q8, s)
+        with pytest.raises(ValueError, match="device"):
+            wo.weight_only_matmul(xq, q4, s, int4_rows=64)
     kc = torch.empty((2, 8, 16, 64), **bf)
     bt = torch.zeros((3, 4), dtype=torch.int32, device="meta")
     ctx = torch.zeros((3,), dtype=torch.int32, device="meta")
@@ -230,13 +306,8 @@ def test_primitives_refuse_cpu_fallback():
     assert torch.equal(P.elementwise_kernel(lambda a: a + 1)(xc), xc + 1)
 
 
-def test_importing_nn_functional_loads_no_jax():
-    code = ("import paddle_tpu_torch.nn, paddle_tpu_torch.nn.functional, sys; "
-            "assert 'jax' not in sys.modules; "
-            "assert 'paddle_tpu' not in sys.modules")
-    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                       capture_output=True, text=True, timeout=120)
-    assert r.returncode == 0, r.stderr
+def test_importing_nn_functional_loads_no_jax(stack_report):
+    _loaded_no_jax(stack_report, "nn_functional")
 
 
 def test_flash_modes_refuse_cpu_fallback(monkeypatch):
@@ -279,17 +350,16 @@ def test_flash_modes_refuse_cpu_fallback(monkeypatch):
     assert not reached
 
 
-def test_chip_smoke_fails_without_a_card(tmp_path):
+def test_chip_smoke_fails_without_a_card(tmp_path, stack_report):
     """No CPU fallback: without CUDA the script exits non-zero and prints
-    no result; alone in a directory (no package) it cannot pass either."""
+    no result (run as ``__main__`` in the report's interpreter); alone in a
+    directory (no package) it cannot pass either."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")
     env = dict(os.environ, PYTHONPATH="")
-    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
-                       cwd=ROOT, capture_output=True, text=True, timeout=60,
-                       env=env)
-    assert r.returncode != 0
-    assert '"ok": true' not in r.stdout
+    r = stack_report["chip_smoke"]
+    assert r["exit"] != 0
+    assert '"ok": true' not in r["stdout"]
     lone = tmp_path / "chip_smoke.py"
     lone.write_text((ROOT / "chip_smoke.py").read_text())
     r = subprocess.run([sys.executable, str(lone)], cwd=tmp_path,
