@@ -14,20 +14,26 @@ is caught; there is no ``ok`` line unless every phase passed):
    ``paddle_tpu_torch/kernels/csrc`` and the generated primitive builds
    that ``kernel_primitives`` uses (one nvcc per source and per generated
    header, all in parallel).
-3. ``kernel``  — the ragged paged-attention kernels (float pools) against
-   their plain PyTorch version on the card over a case matrix (decode at
-   contexts 0 to 1023, speculative verify at T 4, mixed prefill/decode at
-   T 64, GQA groups 1/4/8, fp32 and bf16, ragged and page-exact contexts,
-   idle rows, a pool dtype other than q's); every case with T x group <= 16
-   must take the "split" route and every other the "tile" route (the
-   route counters); then device times (CUDA-graph replays) at the
-   llama2_7b decode shape: kernel (its split count, and its eager time
+3. ``kernel``  — first ptxas's record of the attention's split, merge and
+   sm90 prefill kernels (0 spill bytes each, or it fails); then the ragged
+   paged-attention kernels (float pools) against their plain PyTorch
+   version on the card over a case matrix (decode at contexts 0 to 1023,
+   speculative verify at T 4, mixed prefill/decode at T 64, prefill at T
+   64 and 128 over pages 8, 16 and 128, GQA groups 1/4/8, fp32 and bf16,
+   ragged and page-exact contexts, idle rows, a pool dtype other than
+   q's); each case's route ("split" for T x group <= 16, "sm90" for the
+   other bf16 cases, "tile" for the rest) by the route counters, and each
+   case repeated bit for bit; then device times (CUDA-graph replays) at
+   the llama2_7b decode shape: kernel (its split count, and its eager time
    beside), plain version, ``scaled_dot_product_attention`` as a
-   yardstick, and the memory-bound least time.
+   yardstick, and the memory-bound least time; and at the llama2_7b
+   prefill chunk (B 8, T 64, context 448): the sm90 kernel, the tile
+   kernel at the same shape (the "before"), the plain version, SDPA with
+   an explicit boolean mask, and the bound.
 4. ``kernel_int8`` — the same kernels over int8 pools (fp32 scale per
-   (kv-head, page), pages 8/16/32, all-zero pages) against their plain
-   version, routes as in ``kernel``, then times at the same decode shape
-   with an int8 pool.
+   (kv-head, page), pages 8/16/32/128, all-zero pages) against their plain
+   version, routes as in ``kernel``, then times at the same decode and
+   prefill shapes with an int8 pool.
 5. ``kernel_gmm`` — the grouped-matmul kernels against their plain version
    in fp32 and bf16, with and without the fused row gather (bm
    8/16/24/128/512, empty experts, one expert holding every row, zero
@@ -48,8 +54,8 @@ is caught; there is no ``ok`` line unless every phase passed):
    layers, bf16, random weights from a seed); the same over an int8 pool;
    Mixtral-8x7B widths cut to 16 layers, bf16.  Kernel launch counts are
    reset just before each run and read just after; decode steps take the
-   attention's split route and prefill chunks its tile route, and every
-   gmm launch the sm90 route.
+   attention's split route and prefill chunks its sm90 route (none the
+   tile route), and every gmm launch the sm90 route.
 8. ``kernel_flash`` — the three flash-attention kernels (forward, dQ,
    dK/dV) against their plain versions over every combination of causal
    or not, GQA groups 1/4/8, d 64/128, fp32/bf16 and five shapes (b 1 to 4,
@@ -162,7 +168,9 @@ is caught; there is no ``ok`` line unless every phase passed):
     ``csrc/primitives.cu``) against their plain versions: elementwise
     ``silu(a) * b``, ``max(a, 0) * 2`` and ``a * b + c`` (mixed
     fp32/bf16/fp16 inputs) over 1, 37 x 19, 8 x 1024 and 1,000,003
-    elements, within one ulp of the output + 1e-6 x (|want| + max |want|);
+    elements, within one ulp of the output + 1e-6 x (|want| + max |want|),
+    each case on the "vec16" route and again, bit for bit, on the "scalar"
+    route (the same values in views one element into their buffers);
     reduce max/min/add, fp32/bf16/fp16, rows 1/100/8192, columns
     1/19/300/4096/32000 and, up to 4096 columns, an offset view off the
     16-byte alignment and for max/min rows with NaNs (the functors
@@ -172,9 +180,10 @@ is caught; there is no ``ok`` line unless every phase passed):
     and another, epilogues none/relu*2/silu, by PRIM_MM_TOL.  Then the
     library's path at llama2_7b widths (an FFN over 8192 rows, the LM head,
     the logits' row max, fp32 row sums, the gate with its silu fused), its
-    launches counted from 0: 5 matmuls, 1 elementwise, 2 reduces (both on
-    the "vec16" route, the 5 matmuls on the "sm90" route); then CUDA-event
-    times of SwiGLU [8192, 11008], row max [8192, 32000] (and its chain
+    launches counted from 0: 5 matmuls, 1 elementwise, 2 reduces (the
+    elementwise and both reduces on the "vec16" route, the 5 matmuls on
+    the "sm90" route); then CUDA-event times of SwiGLU [8192, 11008] (on
+    both routes, bit for bit), row max [8192, 32000] (and its chain
     alone, ``chain_floor_ms``: the same kernel on 256 rows, with the
     NaN-propagating max and with ``fmaxf`` alone), fp32 row sum [8192,
     4096], the gate projection with and without the silu epilogue, the down
@@ -183,7 +192,8 @@ is caught; there is no ``ok`` line unless every phase passed):
     runs), beside the plain versions, the bounds and ``torch.amax`` /
     ``torch.matmul`` (cost references where no one call computes the same
     function).  First ptxas's record of the sm90 matmul kernels of every
-    generated matmul build: 0 spill bytes, or it fails.  The matrix checks
+    generated matmul build and of the "vec16" elementwise kernel of every
+    generated elementwise build: 0 spill bytes, or it fails.  The matrix checks
     each matmul's route by the counters (``_matmul_route``: "sm90", "mma",
     "fma"; every route reached).
 17. the ``kernels`` line (each kernel's launches on its routes under
@@ -224,6 +234,8 @@ TOL = {  # (rtol, atol) per output and dtype
 GMM_TOL = {"float32": (1e-4, 2e-5),    # (rtol, atol x max |ref|): sum order
            "bfloat16": (1e-2, 1e-2)}   # one bf16 rounding of the output
 ATTN_SOURCE = "paddle_tpu_torch/kernels/csrc/ragged_paged_attention.cu"
+ATTN_SM90_SOURCE = \
+    "paddle_tpu_torch/kernels/csrc/ragged_paged_attention_sm90.cu"
 ATTN_REPLACES = "paddle_tpu/kernels/paged_attention.py:163"
 GMM_SOURCE = "paddle_tpu_torch/kernels/csrc/grouped_matmul.cu"
 GMM_SM90_SOURCE = "paddle_tpu_torch/kernels/csrc/grouped_matmul_sm90.cu"
@@ -595,6 +607,56 @@ def bound_ms(B, qh, kvh, d, ctxs, T, dtype, pool_dtype=None, page=16):
                                        else "operations")
 
 
+def _attn_plan(c):
+    """The launch plan (route, splits) of attention case ``c``."""
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    return pa.launch_plan(c["q"], c["k_cache"], c["block_tables"],
+                          v_cache=c["v_cache"], k_new=c["k_new"],
+                          v_new=c["v_new"])
+
+
+def _attn_route_counts():
+    """(all, split, sm90) attention launches so far, both pools."""
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    return (pa.LAUNCHES + pa.LAUNCHES_INT8,
+            pa.LAUNCHES_SPLIT + pa.LAUNCHES_INT8_SPLIT,
+            pa.LAUNCHES_SM90 + pa.LAUNCHES_INT8_SM90)
+
+
+def _attn_ptxas(built):
+    """ptxas's record of the split and merge kernels
+    (``ragged_paged_attention.cu``) and the sm90 prefill kernels
+    (``ragged_paged_attention_sm90.cu``), by template arguments:
+    ``{"split q bf16 kv int8 d128 r16": {"registers", "spill_stores",
+    "spill_loads", "stack_bytes"}, "merge q bf16 d128": ...,
+    "sm90 d128 int8": ...}``."""
+    ty = {"f": "fp32", "13__nv_bfloat16": "bf16", "a": "int8"}
+    t = r"(f|13__nv_bfloat16|a)"
+    # a pool of q's class type mangles as a substitution (S<n>_)
+    rec = _ptxas_of(_build_log(built, "ragged_paged_attention"),
+                    r"ragged_paged_attn_split_kernelI" + t +
+                    r"(f|a|13__nv_bfloat16|S\d*_)Li(\d+)ELi(\d+)E",
+                    lambda m: f"split q {ty[m.group(1)]} kv "
+                    f"{ty.get(m.group(2), ty[m.group(1)])} d{m.group(3)} "
+                    f"r{m.group(4)}")
+    rec.update(_ptxas_of(_build_log(built, "ragged_paged_attention"),
+                         r"ragged_paged_attn_merge_kernelI" + t +
+                         r"Li(\d+)E",
+                         lambda m: f"merge q {ty[m.group(1)]} d{m.group(2)}"))
+    rec.update(_ptxas_of(_build_log(built, "ragged_paged_attention_sm90"),
+                         r"ragged_paged_attn_prefill_sm90_kernel"
+                         r"ILi(\d+)ELb(\d)E",
+                         lambda m: f"sm90 d{m.group(1)} "
+                         f"{'int8' if m.group(2) == '1' else 'bf16'}"))
+    return rec
+
+
+# the kernels _attn_ptxas must find: split 2 q x 3 pool dtypes x 5 (row
+# bounds 1, 4, 16 at d 128; 1, 16 at d 64), merge 2 q x 2 d, sm90 2 d x 2
+# pools
+ATTN_PTXAS_KERNELS = 30 + 4 + 4
+
+
 def _attention_matrix(gen, shapes, dtypes):
     """Run the kernel against its plain version over ``shapes`` (label,
     shape dict, kv heads, extra make_case kwargs) for each q dtype; returns
@@ -605,14 +667,20 @@ def _attention_matrix(gen, shapes, dtypes):
     for dtype in dtypes:
         for label, shp, kvh, extra in shapes:
             c = make_case(gen, qh=32, kvh=kvh, dtype=dtype, **shp, **extra)
-            route = pa._route(shp["T"], 32 // kvh)
-            n0 = pa.LAUNCHES_SPLIT + pa.LAUNCHES_INT8_SPLIT
+            route = _attn_plan(c)["route"]
+            n0 = _attn_route_counts()
             out, lse = pa.ragged_paged_attention(*_attn_args(c), **_attn_kw(c),
                                                  with_lse=True)
-            took = pa.LAUNCHES_SPLIT + pa.LAUNCHES_INT8_SPLIT - n0
-            if took != (route == "split"):
+            took = tuple(a - b for a, b in zip(_attn_route_counts(), n0))
+            if took != (1, int(route == "split"), int(route == "sm90")):
                 raise AssertionError(f"{label}: the {route} route's case "
-                                     f"counted {took} split launches")
+                                     f"counted (all, split, sm90) launches "
+                                     f"{took}")
+            # no atomics: a second run gives the same bits
+            out2, lse2 = pa.ragged_paged_attention(
+                *_attn_args(c), **_attn_kw(c), with_lse=True)
+            if not (_bits_equal(out, out2) and _bits_equal(lse, lse2)):
+                raise AssertionError(f"{label} ({route}): two runs differ")
             ref, ref_lse = pa._reference_ragged_paged_attention(
                 *_attn_args(c), c["q_lens"], c["k_new"], c["v_new"],
                 c.get("k_scale"), c.get("v_scale"))
@@ -631,7 +699,7 @@ def _attention_matrix(gen, shapes, dtypes):
             tol_dt = "bfloat16" if bf else "float32"
             row = {"case": label, "dtype": dname, "pool": pool, "qh": 32,
                    "kvh": kvh, "d": shp["d"], "page": shp["page"],
-                   "T": shp["T"], "route": route}
+                   "T": shp["T"], "route": route, "bitwise_repeat": True}
             if route == "split":
                 row["splits"] = pa.split_plan(
                     shp["B"], kvh, c["block_tables"].shape[1], shp["page"])
@@ -649,6 +717,33 @@ def _attention_matrix(gen, shapes, dtypes):
                 worst[which] = max(worst.get(which, 0.0), float(err.max()))
             cases.append(row)
     return cases, worst
+
+
+def _prefill_shapes(extra):
+    """The prefill cases beside ``mixed``: T 64 and 128, GQA groups 1, 4
+    and 8 (kv heads 32, 8, 4 of 32), pages 8, 16, 128 and 40 (a page that
+    neither divides 64 nor is divided by it), contexts from 0 to past a
+    64-key tile and a page of 128, q_lens 0, 1, ragged and T."""
+    p128 = dict(B=3, T=128, ctxs=[0, 200, 1000], qls=[128, 77, 1], page=16,
+                d=128)
+    p64 = dict(B=4, T=64, ctxs=[1, 127, 129, 500], qls=[0, 64, 33, 64],
+               page=8, d=128)
+    return [("prefill_T128", p128, 32, extra),
+            ("prefill_T128", p128, 8, extra),
+            ("prefill_T128", p128, 4, extra),
+            ("prefill_page8", p64, 32, extra),
+            ("prefill_page8", p64, 4, extra),
+            ("prefill_page128", {**p64, "page": 128}, 8, extra),
+            ("prefill_page40", {**p64, "page": 40}, 8, extra),
+            ("prefill_T128_page128", {**p128, "page": 128}, 32, extra)]
+
+
+def _route_tally(cases):
+    """Cases per route of an attention matrix."""
+    tally = {}
+    for row in cases:
+        tally[row["route"]] = tally.get(row["route"], 0) + 1
+    return tally
 
 
 def _attention_timing(gen, pool_dtype, library):
@@ -714,7 +809,7 @@ def _attention_timing(gen, pool_dtype, library):
     pool = str(pool_dtype).replace("torch.", "")
     W = cases[0]["block_tables"].shape[1]
     timing.update({"shape": f"llama2_7b decode B=8 ctx=512 bf16 q, {pool} pool",
-                   "route": pa._route(1, 1),
+                   "route": _attn_plan(cases[0])["route"],
                    "splits": pa.split_plan(8, 32, W, 16),
                    "rotated_cases": n_cases,
                    "timed_by": "CUDA graph replays",
@@ -728,7 +823,141 @@ def _attention_timing(gen, pool_dtype, library):
     return timing
 
 
-def phase_kernel():
+PREFILL_TIMED = dict(B=8, T=64, qh=32, kvh=32, d=128, page=16, ctx=448)
+
+
+def _tile_launch(c):
+    """The tile kernel (the first prefill design) on case ``c`` through its C
+    entry point, whatever the route rule says and with no counter: the
+    "before" of the sm90 route at the same shape.  Returns (out, lse)."""
+    import torch
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    q = c["q"]
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    err = pa._kernel_fn()(*pa._entry_args(
+        q, c["k_cache"], c["v_cache"], c["block_tables"], c["context_lens"],
+        c["q_lens"], c["k_new"], c["v_new"], c.get("k_scale"),
+        c.get("v_scale"), out, lse), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"tile kernel launch failed: CUDA error {err}")
+    return out, lse
+
+
+def _prefill_timing(gen, pool_dtype, library):
+    """Device times at the serve phases' last llama2_7b prefill chunk
+    (PREFILL_TIMED: bf16 q, B 8, T 64, 32 heads, d 128, page 16, context 448
+    each): the route's kernel ("sm90"), the tile kernel at the same shape
+    (``_tile_launch``, the "before") and the plain version, in turns (plain,
+    kernel, tile, kernel, tile, plain), and, over a float pool when
+    ``library``, ``scaled_dot_product_attention`` over the gathered context
+    and the fresh rows with an explicit boolean mask (the context visible,
+    the fresh block causal); each from CUDA-graph replays, each call on the
+    next of several independent cases whose pools together exceed the
+    50 MB L2 cache.  The kernel and the tile kernel are first held against
+    the plain version on one case (TOL) and the kernel repeated bit for
+    bit."""
+    import torch
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    P = PREFILL_TIMED
+    B, T, qh, kvh, d, page = (P[k] for k in ("B", "T", "qh", "kvh", "d",
+                                             "page"))
+    ctxs = [P["ctx"]] * B
+    pool_bytes = sum(ctxs) * kvh * d * 2 * \
+        torch.empty((), dtype=pool_dtype).element_size()
+    n_cases = -(-3 * L2_BYTES // pool_bytes)
+    cases = [make_case(gen, B=B, T=T, qh=qh, kvh=kvh, d=d, page=page,
+                       ctxs=ctxs, qls=[T] * B, dtype=torch.bfloat16,
+                       pool_dtype=pool_dtype) for _ in range(n_cases)]
+    route = _attn_plan(cases[0])["route"]
+    if route != "sm90":
+        raise AssertionError(f"prefill timing shape took the {route} route")
+    args = [_attn_args(c) for c in cases]
+    kws = [_attn_kw(c) for c in cases]
+    plain_args = [(*_attn_args(c), c["q_lens"], c["k_new"], c["v_new"],
+                   c.get("k_scale"), c.get("v_scale")) for c in cases]
+    ref, ref_lse = pa._reference_ragged_paged_attention(*plain_args[0])
+    mine, mine_lse = pa.ragged_paged_attention(*args[0], **kws[0],
+                                               with_lse=True)
+    again, again_lse = pa.ragged_paged_attention(*args[0], **kws[0],
+                                                 with_lse=True)
+    tile, tile_lse = _tile_launch(cases[0])
+    torch.cuda.synchronize()
+    if not (_bits_equal(mine, again) and _bits_equal(mine_lse, again_lse)):
+        raise AssertionError("prefill timing: two runs of the kernel differ")
+    errs = {}
+    for key, (o, ls) in (("kernel", (mine, mine_lse)),
+                         ("tile", (tile, tile_lse))):
+        for which, got, want in (("out", o, ref), ("lse", ls, ref_lse)):
+            err = (got.float() - want.float()).abs()
+            rtol, atol = TOL[(which, "bfloat16")]
+            if bool((err > atol + rtol * want.float().abs()).any()):
+                raise AssertionError(f"prefill timing {key} {which}: max "
+                                     f"err {float(err.max())}")
+            errs[f"{key}_{which}_max_abs_err"] = float(err.max())
+
+    def rotate(call):
+        it = iter(range(1 << 62))
+        return lambda: call(next(it) % n_cases)
+
+    fns = {"plain": rotate(lambda i: pa._reference_ragged_paged_attention(
+               *plain_args[i])),
+           "kernel": rotate(lambda i: pa.ragged_paged_attention(
+               *args[i], **kws[i])),
+           "tile": rotate(lambda i: _tile_launch(cases[i]))}
+    timing = {}
+    if library:
+        S = P["ctx"] + T
+        mask = torch.ones((T, S), dtype=torch.bool, device="cuda")
+        mask[:, P["ctx"]:] = torch.tril(mask[:, P["ctx"]:])
+        sdpa_in = []
+        for c in cases:
+            W = -(-P["ctx"] // page)
+            flat = c["block_tables"][:, :W].reshape(-1).long()
+            kg = c["k_cache"][:, flat].reshape(kvh, B, W * page, d)[
+                :, :, :P["ctx"]].transpose(0, 1)
+            vg = c["v_cache"][:, flat].reshape(kvh, B, W * page, d)[
+                :, :, :P["ctx"]].transpose(0, 1)
+            sdpa_in.append((
+                c["q"].transpose(1, 2).contiguous(),          # [B, qh, T, d]
+                torch.cat([kg, c["k_new"].transpose(1, 2)], 2).contiguous(),
+                torch.cat([vg, c["v_new"].transpose(1, 2)], 2).contiguous()))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = sdpa(*sdpa_in[0], attn_mask=mask)
+        torch.cuda.synchronize()
+        timing["library_max_abs_err"] = float(
+            (lib.transpose(1, 2).float() - mine.float()).abs().max())
+        fns["library"] = rotate(lambda i: sdpa(*sdpa_in[i], attn_mask=mask))
+    t = {}
+    calls = 8 * n_cases
+    order = ["plain", "kernel", "tile"] + (["library"] if library else []) + \
+        ["kernel2", "tile2", "plain2"]
+    for key in order:
+        t[key] = graph_ms(fns[key.rstrip("2")],
+                          n_cases if key.startswith("plain") else calls)
+    b_ms, b_by = bound_ms(B, qh, kvh, d, ctxs, T, torch.bfloat16,
+                          pool_dtype=pool_dtype, page=page)
+    pool = str(pool_dtype).replace("torch.", "")
+    timing.update({
+        "shape": f"llama2_7b prefill chunk B={B} T={T} ctx={P['ctx']} bf16 "
+                 f"q, {pool} pool, page {page}",
+        "route": route, "rotated_cases": n_cases,
+        "timed_by": "CUDA graph replays", "bitwise_repeat": True, **errs,
+        "kernel_ms": min(t["kernel"], t["kernel2"]),
+        "kernel_ms_runs": [t["kernel"], t["kernel2"]],
+        "tile_ms": min(t["tile"], t["tile2"]),
+        "tile_ms_runs": [t["tile"], t["tile2"]],
+        "plain_ms": min(t["plain"], t["plain2"]),
+        "plain_ms_runs": [t["plain"], t["plain2"]],
+        "library_ms": t.get("library"), "bound_ms": b_ms, "bound_by": b_by})
+    del cases, args, kws, plain_args
+    torch.cuda.empty_cache()
+    return timing
+
+
+def phase_kernel(built):
+    """``built``: ``phase_build``'s record (the attention sources' ptxas
+    logs)."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     decode = dict(B=8, T=1, ctxs=[1, 15, 16, 17, 255, 512, 1000, 1023],
@@ -738,6 +967,9 @@ def phase_kernel():
                   d=128)
     mixed = dict(B=4, T=64, ctxs=[0, 16, 33, 960], qls=[64, 1, 17, 0],
                  page=16, d=128)
+    ptxas = _attn_ptxas(built)
+    _no_spills("attention split/merge/sm90 (empty: built before "
+               "phase_build)", ptxas, ATTN_PTXAS_KERNELS)
     shapes = [("decode", decode, 32, {}), ("decode", decode, 8, {}),
               ("decode", decode, 4, {}), ("decode_ctx01", short, 32, {}),
               ("decode_ctx01", short, 8, {}), ("verify_T4", verify, 32, {}),
@@ -745,7 +977,8 @@ def phase_kernel():
               ("mixed", mixed, 32, {}),
               ("mixed", mixed, 8, {}), ("mixed", mixed, 4, {}),
               ("mixed_d64_page8", {**mixed, "d": 64, "page": 8}, 8, {}),
-              ("mixed_page128", {**mixed, "page": 128}, 4, {})]
+              ("mixed_page128", {**mixed, "page": 128}, 4, {})] + \
+        _prefill_shapes({})
     cases, worst = _attention_matrix(gen, shapes,
                                      (torch.float32, torch.bfloat16))
     # the pool dtype is not the model dtype (cache_dtype= / the flag)
@@ -758,8 +991,11 @@ def phase_kernel():
         cases += more
         worst = {k: max(worst[k], w[k]) for k in worst}
     timing = _attention_timing(gen, torch.bfloat16, library=True)
-    emit("kernel", cases=cases, max_abs_err=worst, timing=timing)
-    return worst, timing
+    prefill = _prefill_timing(gen, torch.bfloat16, library=True)
+    emit("kernel", cases=cases, max_abs_err=worst, timing=timing,
+         prefill_timing=prefill, routes=_route_tally(cases),
+         attention_ptxas=ptxas)
+    return worst, timing, prefill
 
 
 def phase_kernel_int8():
@@ -781,14 +1017,19 @@ def phase_kernel_int8():
               ("mixed", mixed, 4, i8),
               ("mixed_page32", {**mixed, "page": 32}, 8, i8),
               ("mixed_d64_page8", {**mixed, "d": 64, "page": 8}, 8, i8),
-              ("mixed_page128", {**mixed, "page": 128}, 4, i8)]
+              ("mixed_page128", {**mixed, "page": 128}, 4, i8)] + \
+        _prefill_shapes(i8)
     cases, worst = _attention_matrix(gen, shapes,
                                      (torch.float32, torch.bfloat16))
+    note = ("no single PyTorch call attends over an int8 paged pool with "
+            "per-page scales")
     timing = _attention_timing(gen, torch.int8, library=False)
-    timing["library_note"] = ("no single PyTorch call attends over an int8 "
-                              "paged pool with per-page scales")
-    emit("kernel_int8", cases=cases, max_abs_err=worst, timing=timing)
-    return worst, timing
+    timing["library_note"] = note
+    prefill = _prefill_timing(gen, torch.int8, library=False)
+    prefill["library_note"] = note
+    emit("kernel_int8", cases=cases, max_abs_err=worst, timing=timing,
+         prefill_timing=prefill, routes=_route_tally(cases))
+    return worst, timing, prefill
 
 
 # --------------------------------------------------------------- gmm ---
@@ -1211,6 +1452,7 @@ def phase_serve(phase, argv):
             # the main path's run: counts from zero, read right after
             pa.LAUNCHES = pa.LAUNCHES_INT8 = gm.LAUNCHES = 0
             pa.LAUNCHES_SPLIT = pa.LAUNCHES_INT8_SPLIT = 0
+            pa.LAUNCHES_SM90 = pa.LAUNCHES_INT8_SM90 = 0
             gm.LAUNCHES_SM90 = 0
             steps0 = engine.steps
             t1 = time.perf_counter()
@@ -1222,6 +1464,8 @@ def phase_serve(phase, argv):
                         "gmm": gm.LAUNCHES}
             routes = {"attention_split": pa.LAUNCHES_SPLIT,
                       "attention_int8_split": pa.LAUNCHES_INT8_SPLIT,
+                      "attention_sm90": pa.LAUNCHES_SM90,
+                      "attention_int8_sm90": pa.LAUNCHES_INT8_SM90,
                       "gmm_sm90": gm.LAUNCHES_SM90}
             return (res, wall, launches, routes, engine.steps - steps0,
                     t_ready)
@@ -1240,13 +1484,16 @@ def phase_serve(phase, argv):
     if steps == 0 or launches != want:
         raise AssertionError(f"{phase}: kernel launches {launches} != "
                              f"{want} ({L} layers x {steps} steps)")
-    # decode steps (T 1) take the split route, prefill chunks the tile
-    # route; a bf16 model's gmm launches all take the sm90 route
+    # decode steps (T 1) take the split route, prefill chunks (bf16 q over
+    # a bf16 or int8 pool) the sm90 route, none the tile route; a bf16
+    # model's gmm launches all take the sm90 route
     split = routes["attention_split"] + routes["attention_int8_split"]
-    if not 0 < split < launches["attention"] + launches["attention_int8"] \
+    sm90 = routes["attention_sm90"] + routes["attention_int8_sm90"]
+    total = launches["attention"] + launches["attention_int8"]
+    if not 0 < split < total or sm90 != total - split \
             or routes["gmm_sm90"] != launches["gmm"]:
         raise AssertionError(f"{phase}: route launches {routes} against "
-                             f"{launches}")
+                             f"{launches} (the tile route must take none)")
     ttfts = sorted(r["ttft_s"] for r in res)
     emit(phase, preset=args.preset, layers=L, hidden=cfg.hidden_size,
          intermediate=cfg.intermediate_size, experts=cfg.moe_num_experts,
@@ -3255,6 +3502,7 @@ def _prim_counts():
     from paddle_tpu_torch.kernels import primitives as P
     return {"elementwise": P.LAUNCHES_ELEMENTWISE,
             "reduce": P.LAUNCHES_REDUCE, "matmul": P.LAUNCHES_MATMUL,
+            "elementwise_vec16": P.LAUNCHES_ELEMENTWISE_VEC16,
             "reduce_vec16": P.LAUNCHES_REDUCE_VEC16,
             **{f"matmul_{r}": getattr(P, f"LAUNCHES_MATMUL_{r.upper()}")
                for r in PRIM_MM_ROUTES}}
@@ -3263,7 +3511,7 @@ def _prim_counts():
 def _reset_prim_counts():
     from paddle_tpu_torch.kernels import primitives as P
     P.LAUNCHES_ELEMENTWISE = P.LAUNCHES_REDUCE = P.LAUNCHES_MATMUL = 0
-    P.LAUNCHES_REDUCE_VEC16 = 0
+    P.LAUNCHES_REDUCE_VEC16 = P.LAUNCHES_ELEMENTWISE_VEC16 = 0
     for r in PRIM_MM_ROUTES:
         setattr(P, f"LAUNCHES_MATMUL_{r.upper()}", 0)
 
@@ -3279,6 +3527,17 @@ def _mm_sm90_ptxas(built):
                 b["log"], r"mm_sm90_kernelILi(\d+)E(13__nv_bfloat16|6__half)",
                 lambda m, k=key: f"{k[18:26]} bn{m.group(1)} "
                 f"{'bf16' if 'bfloat16' in m.group(2) else 'fp16'}"))
+    return out
+
+
+def _ew_vec16_ptxas(built):
+    """ptxas's record of the "vec16" elementwise kernel of every generated
+    elementwise build: ``{"<library>": {...}, ...}`` (one a build)."""
+    out = {}
+    for key, b in (built or {}).items():
+        if key.startswith("libprimitives-gen-"):
+            out.update(_ptxas_of(b["log"], r"elementwise_vec16_kernel",
+                                 lambda m, k=key: k[18:26]))
     return out
 
 
@@ -3373,6 +3632,26 @@ def _prim_matrix(gen):
                         "cases": 0}}
 
     we = worst["elementwise"]
+    we["routes"] = {"vec16": 0, "scalar": 0}
+
+    def offset_copy(x):
+        """x's values in a view one element into its buffer (the "scalar"
+        route)."""
+        buf = torch.empty((x.numel() + 1,), dtype=x.dtype, device=dev)
+        buf[1:] = x.reshape(-1)
+        return buf[1:].view(x.shape)
+
+    def ew_case(apply, ins, route):
+        """One elementwise launch on ``route`` (by the counters)."""
+        n0, v0 = P.LAUNCHES_ELEMENTWISE, P.LAUNCHES_ELEMENTWISE_VEC16
+        got = apply(*ins)
+        if (P.LAUNCHES_ELEMENTWISE - n0, P.LAUNCHES_ELEMENTWISE_VEC16 - v0) \
+                != (1, int(route == "vec16")):
+            raise AssertionError(f"elementwise: launches on the wrong route "
+                                 f"(want {route})")
+        we["routes"][route] += 1
+        return got
+
     for name, (fn, arity) in fns["elementwise"].items():
         if arity == 3:
             mixes = [(f32, bf16, f16), (bf16, f16, f32), (f16, f32, bf16)]
@@ -3383,7 +3662,12 @@ def _prim_matrix(gen):
             for mix in mixes:
                 ins = [torch.randn(shape, generator=gen, device=dev).to(dt)
                        for dt in mix]
-                got = apply(*ins)
+                got = ew_case(apply, ins, "vec16")
+                # the same values through the scalar route: the same bits
+                if not _bits_equal(got, ew_case(
+                        apply, [offset_copy(x) for x in ins], "scalar")):
+                    raise AssertionError(f"elementwise {name} {shape} {mix}: "
+                                         "the vec16 and scalar routes differ")
                 want = P._elementwise_reference(fn, ins)
                 err, need = _ew_check(
                     f"elementwise {name} {shape} {mix}", got, want)
@@ -3492,8 +3776,8 @@ def _prim_path(gen):
     the row max of the logits, the fp32 row sums of the FFN output, and the
     gate projection again with the silu fused as its epilogue.  Launch
     counts are set to 0 just before and read just after: exactly 5
-    matmuls, 1 elementwise, 2 reduces.  Each output is then held against
-    its plain version on the same inputs."""
+    matmuls, 1 elementwise (on the "vec16" route), 2 reduces.  Each output
+    is then held against its plain version on the same inputs."""
     import torch
     from paddle_tpu_torch.kernels import primitives as P
     fns = _prim_fns()
@@ -3528,8 +3812,8 @@ def _prim_path(gen):
     # both reduces stage 16-byte copies: fresh tensors, 16-byte rows; the
     # five matmuls all take the wgmma route
     if launches != {"elementwise": 1, "reduce": 2, "matmul": 5,
-                    "reduce_vec16": 2, "matmul_sm90": 5, "matmul_mma": 0,
-                    "matmul_fma": 0}:
+                    "elementwise_vec16": 1, "reduce_vec16": 2,
+                    "matmul_sm90": 5, "matmul_mma": 0, "matmul_fma": 0}:
         raise AssertionError(f"primitives path: launches {launches}")
     tol = PRIM_MM_TOL["bfloat16"]
     checks = {
@@ -3601,15 +3885,33 @@ def _prim_timing(gen):
     sw = P.elementwise_kernel(fn)
     a = torch.randn((R, I), generator=gen, device="cuda").to(bf16)
     b = torch.randn((R, I), generator=gen, device="cuda").to(bf16)
+    # the same values one element into their buffers: the "scalar" route
+    a_off, b_off = (torch.empty((R * I + 1,), dtype=bf16, device="cuda")
+                    for _ in range(2))
+    a_off[1:], b_off[1:] = a.reshape(-1), b.reshape(-1)
+    a_off, b_off = a_off[1:].view(R, I), b_off[1:].view(R, I)
+    out_probe = torch.empty_like(a)
+    routes = (P._elementwise_route([a, b], out_probe),
+              P._elementwise_route([a_off, b_off], out_probe))
     y = sw(a, b)
+    y_scalar = sw(a_off, b_off)
+    if routes != ("vec16", "scalar") or not _bits_equal(y, sw(a, b)) or \
+            not _bits_equal(y, y_scalar):
+        raise AssertionError(f"timed silu_mul: routes {routes}, or the "
+                             "vec16 route not bit for bit with itself and "
+                             "the scalar route")
     err = _ew_check("timed silu_mul", y, P._elementwise_reference(fn, [a, b]))
     rec("elementwise_silu_mul", f"[{R}, {I}] bf16", lambda: sw(a, b),
         lambda: P._elementwise_reference(fn, [a, b]),
         _grouped_bound_ms([a, b], y, 5 * y.numel(), f32),
-        cost=lambda: F.silu(a) * b, max_abs_err=err[0],
+        cost=lambda: F.silu(a) * b, max_abs_err=err[0], route=routes[0],
+        bitwise_repeat=True, bitwise_vs_scalar=True,
         library_note="null: no single PyTorch call computes silu(a) * b; "
                      "cost_reference_ms is F.silu(a) * b, two calls")
-    del a, b, y
+    t_sc = [cuda_ms(lambda: sw(a_off, b_off), 20) for _ in range(2)]
+    out["elementwise_silu_mul"].update(scalar_ms=min(t_sc),
+                                       scalar_ms_runs=t_sc)
+    del a, b, y, a_off, b_off, y_scalar, out_probe
 
     # the logits' row max: one fp32 operation an element
     fn = fns["reduce"]["max"]
@@ -3722,13 +4024,17 @@ def phase_kernel_primitives(smi=None, built=None):
     matmul) against their plain versions over the case matrix, then the
     library's path at llama2_7b widths with exact launch counts, then the
     times of each generator at those widths.  First ptxas's record of the
-    sm90 matmul in each generated matmul build: 0 spill bytes in its 4
-    kernels a build, or it fails (empty, and failing, when the libraries
-    were built before ``phase_build`` in the same call)."""
+    sm90 matmul in each generated matmul build and of the "vec16"
+    elementwise kernel in each generated elementwise build: 0 spill bytes
+    in its 4 kernels (1) a build, or it fails (empty, and failing, when the
+    libraries were built before ``phase_build`` in the same call)."""
     import torch
     ptxas = _mm_sm90_ptxas(built)
     n_mm = sum("#define PTT_MATMUL 1" in h for _, h in _prim_headers())
     _no_spills("kernel_primitives mm_sm90", ptxas, 4 * n_mm)
+    ew_ptxas = _ew_vec16_ptxas(built)
+    n_ew = sum("#define PTT_ELEMENTWISE 1" in h for _, h in _prim_headers())
+    _no_spills("kernel_primitives elementwise vec16", ew_ptxas, n_ew)
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(7)
     worst = _prim_matrix(gen)
@@ -3738,6 +4044,7 @@ def phase_kernel_primitives(smi=None, built=None):
     emit("kernel_primitives", nvidia_smi=smi or _nvidia_smi(),
          matrix_seconds=matrix_s, worst=worst, path=path, timed=timed,
          ew_tol=PRIM_EW_TOL, mm_tol=PRIM_MM_TOL, mm_sm90_ptxas=ptxas,
+         ew_vec16_ptxas=ew_ptxas,
          seconds=time.perf_counter() - t0)
     return worst, path, timed
 
@@ -3748,8 +4055,8 @@ def main() -> int:
     name, _smi = phase_device()
     import torch
     built = phase_build()
-    attn_err, attn_t = phase_kernel()
-    int8_err, int8_t = phase_kernel_int8()
+    attn_err, attn_t, attn_p = phase_kernel(built)
+    int8_err, int8_t, int8_p = phase_kernel_int8()
     gmm_err, gmm_t = phase_kernel_gmm(built)
     phase_engine_parity()
     phase_engine_parity_int8()
@@ -3772,10 +4079,13 @@ def main() -> int:
     wo_launches, _wo_sweeps = phase_weight_only_path()
     prim_err, prim_path, prim_t = phase_kernel_primitives(_smi, built)
     # each kernel's launches on its routes: the split and tile kernels of
-    # the attention source, gmm's sm90 and simt kernels
+    # the attention source and the sm90 prefill kernel, gmm's sm90 and simt
+    # kernels
     attn_routes = {
         key: {"split": launches[f"{key}_split"],
-              "tile": launches[key] - launches[f"{key}_split"]}
+              "sm90": launches[f"{key}_sm90"],
+              "tile": launches[key] - launches[f"{key}_split"] -
+              launches[f"{key}_sm90"]}
         for key in ("attention", "attention_int8")}
     print(json.dumps({"kernels": [
         {"name": "ragged_paged_attention", "route": "cuda",
@@ -3791,7 +4101,17 @@ def main() -> int:
          "max_abs_err": int8_err["out"],
          "ms": int8_t["kernel_ms"], "plain_ms": int8_t["plain_ms"],
          "bound_ms": int8_t["bound_ms"], "bound_by": int8_t["bound_by"],
-         "library_ms": None, "routes": attn_routes["attention_int8"]},
+         "library_ms": None, "routes": attn_routes["attention_int8"]}] + [
+        {"name": name, "route": "cuda", "source": ATTN_SM90_SOURCE,
+         "replaces": ATTN_REPLACES, "launches": launches[f"{key}_sm90"],
+         "max_abs_err": err["out"], "ms": pt["kernel_ms"],
+         "plain_ms": pt["plain_ms"], "bound_ms": pt["bound_ms"],
+         "bound_by": pt["bound_by"], "library_ms": pt["library_ms"],
+         "tile_ms": pt["tile_ms"], "routes": attn_routes[key]}
+        for name, key, err, pt in (
+            ("ragged_paged_attention_prefill", "attention", attn_err, attn_p),
+            ("ragged_paged_attention_int8_prefill", "attention_int8",
+             int8_err, int8_p))] + [
         {"name": "grouped_matmul", "route": "cuda",
          "source": GMM_SM90_SOURCE, "replaces": GMM_REPLACES,
          "launches": launches["gmm"], "max_abs_err": gmm_err,
@@ -3853,10 +4173,10 @@ def main() -> int:
          "bound_ms": prim_t[key]["bound_ms"],
          "bound_by": prim_t[key]["bound_by"],
          "library_ms": prim_t[key]["library_ms"],
-         **({"routes": {"vec16": prim_path["launches"]["reduce_vec16"],
-                        "scalar": prim_path["launches"]["reduce"] -
-                        prim_path["launches"]["reduce_vec16"]}}
-            if kind == "reduce" else {}),
+         **({"routes": {"vec16": prim_path["launches"][f"{kind}_vec16"],
+                        "scalar": prim_path["launches"][kind] -
+                        prim_path["launches"][f"{kind}_vec16"]}}
+            if kind in ("elementwise", "reduce") else {}),
          **({"routes": {r: prim_path["launches"][f"matmul_{r}"]
                         for r in PRIM_MM_ROUTES}}
             if kind == "matmul" else {})}

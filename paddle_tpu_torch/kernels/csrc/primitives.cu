@@ -30,12 +30,19 @@
 //   738.7 GFLOP = 0.747 ms.
 //
 // What the design does about it (simple first, fast later):
-// - elementwise: a grid-stride pass over the flat elements, 4 elements a
-//   thread per pass in flight, the ragged end masked (no padded copy, unlike
-//   the reference's :86-88).  Each input carries its own dtype code, so one
-//   build serves every dtype mix of one functor; every value is widened to
-//   float, the functor runs in fp32, the result is rounded once (nearest
-//   even) to the first input's dtype.  Element loads, no 16-byte vectors.
+// - elementwise, two routes (kernels/primitives.py:_elementwise_route):
+//   "vec16" when every input and the output start on 16 bytes: each thread
+//   moves whole vectors of 8 elements (one 16-byte load of bf16/fp16, two
+//   of fp32), kVecUnroll vectors of every input in flight per pass (all
+//   loads issued before any arithmetic), the dtype switch taken once per
+//   vector; the ragged tail of fewer than 8 elements is masked in the
+//   kernel (no padded copy, unlike the reference's :86-88).  "scalar"
+//   otherwise: a grid-stride pass over the flat elements, 4 elements a
+//   thread per pass in flight, element loads.  On both, each input carries
+//   its own dtype code, so one build serves every dtype mix of one functor;
+//   every value is widened to float, the functor runs in fp32, the result
+//   is rounded once (nearest even) to the first input's dtype: the two
+//   routes give the same bits.
 // - reduce: the reference's left fold, acc = x[:, 0], then acc =
 //   round(fn(acc, x[:, i])) for i = 1 .. cols - 1, each step in fp32 and
 //   rounded to x's dtype (nearest even), so the result is bit for bit the
@@ -76,8 +83,8 @@
 //   end read as zeros and are never stored (no padded copy, unlike the
 //   reference's :141-143); 16-byte loads only when k and n are multiples of
 //   8 (4 in fp32) and both operands are 16-byte aligned.
-// Later work (not here): 16-byte loads for elementwise; a persistent grid
-// with the epilogue overlapping the next tile's loads for matmul.
+// Later work (not here): a persistent grid with the epilogue overlapping
+// the next tile's loads for matmul.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -85,6 +92,7 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <utility>
 
 #include "sm90.cuh"
@@ -163,26 +171,151 @@ elementwise_kernel(Inputs in, void* __restrict__ out, int out_code, int64_t n) {
   }
 }
 
+// ---- the "vec16" route: 8 elements a vector
+constexpr int kVec = 8;
+// vectors of each input a thread has in flight per pass (the raw words of
+// kVecUnroll x kArity vectors stay in registers until the arithmetic)
+constexpr int kVecUnroll = kArity <= 2 ? 4 : kArity <= 4 ? 2 : 1;
+
+// vector v (elements 8v .. 8v + 7) of an input as it lies in memory: one
+// 16-byte word (bf16 / fp16) or two (fp32)
+struct Raw8 {
+  uint4 lo, hi;
+};
+
+__device__ __forceinline__ Raw8 load_raw8(const void* p, int code, int64_t v) {
+  Raw8 r;
+  if (code == 0) {
+    const uint4* q = static_cast<const uint4*>(p) + 2 * v;
+    r.lo = q[0];
+    r.hi = q[1];
+  } else {
+    r.lo = static_cast<const uint4*>(p)[v];
+    r.hi = make_uint4(0u, 0u, 0u, 0u);
+  }
+  return r;
+}
+
+// the 8 values of a raw vector as floats (exact)
+__device__ __forceinline__ void widen8(const Raw8& r, int code, float (&f)[kVec]) {
+  const uint32_t w[4] = {r.lo.x, r.lo.y, r.lo.z, r.lo.w};
+  if (code == 0) {
+    const uint32_t x[8] = {r.lo.x, r.lo.y, r.lo.z, r.lo.w, r.hi.x, r.hi.y, r.hi.z, r.hi.w};
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) f[e] = __uint_as_float(x[e]);
+  } else if (code == 1) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      f[2 * e] = __uint_as_float(w[e] << 16);
+      f[2 * e + 1] = __uint_as_float(w[e] & 0xFFFF0000u);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 h = __half22float2(*reinterpret_cast<const __half2*>(&w[e]));
+      f[2 * e] = h.x;
+      f[2 * e + 1] = h.y;
+    }
+  }
+}
+
+// 8 results rounded to the dtype `code` (nearest even) and stored as vector v
+__device__ __forceinline__ void store8(void* out, int code, int64_t v, const float (&f)[kVec]) {
+  if (code == 0) {
+    uint4* q = static_cast<uint4*>(out) + 2 * v;
+    q[0] = make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                      __float_as_uint(f[3]));
+    q[1] = make_uint4(__float_as_uint(f[4]), __float_as_uint(f[5]), __float_as_uint(f[6]),
+                      __float_as_uint(f[7]));
+    return;
+  }
+  uint32_t w[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if (code == 1) {
+      const __nv_bfloat162 b = __floats2bfloat162_rn(f[2 * e], f[2 * e + 1]);
+      w[e] = *reinterpret_cast<const uint32_t*>(&b);
+    } else {
+      const __half2 hh = __floats2half2_rn(f[2 * e], f[2 * e + 1]);
+      w[e] = *reinterpret_cast<const uint32_t*>(&hh);
+    }
+  }
+  static_cast<uint4*>(out)[v] = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// every input and out start on 16 bytes; n / 8 whole vectors, then the
+// n % 8 elements of the tail element by element (block 0)
+__global__ void __launch_bounds__(kThreads)
+elementwise_vec16_kernel(Inputs in, void* __restrict__ out, int out_code, int64_t n) {
+  const int64_t nv = n / kVec;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kThreads * kVecUnroll;
+  for (int64_t base = static_cast<int64_t>(blockIdx.x) * kThreads * kVecUnroll + threadIdx.x;
+       base < nv; base += step) {
+    Raw8 raw[kVecUnroll][kArity];
+#pragma unroll
+    for (int u = 0; u < kVecUnroll; ++u) {
+      const int64_t v = base + u * kThreads;
+#pragma unroll
+      for (int j = 0; j < kArity; ++j)
+        if (v < nv) raw[u][j] = load_raw8(in.p[j], in.code[j], v);
+    }
+#pragma unroll
+    for (int u = 0; u < kVecUnroll; ++u) {
+      const int64_t v = base + u * kThreads;
+      if (v < nv) {
+        float x[kArity][kVec], y[kVec];
+#pragma unroll
+        for (int j = 0; j < kArity; ++j) widen8(raw[u][j], in.code[j], x[j]);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          float a[kArity];
+#pragma unroll
+          for (int j = 0; j < kArity; ++j) a[j] = x[j][e];
+          y[e] = call(a, std::make_index_sequence<kArity>{});
+        }
+        store8(out, out_code, v, y);
+      }
+    }
+  }
+  const int64_t i = nv * kVec + threadIdx.x;
+  if (blockIdx.x == 0 && i < n) {
+    float a[kArity];
+#pragma unroll
+    for (int j = 0; j < kArity; ++j) a[j] = load_float(in.p[j], in.code[j], i);
+    store_float(out, out_code, i, call(a, std::make_index_sequence<kArity>{}));
+  }
+}
+
 }  // namespace ew
 
 // ptt_elementwise: out[i] = cast(fn(float(in_0[i]), ..., float(in_{arity-1}[i])))
 // over n flat elements; ptrs / codes are host arrays of `arity` input
 // pointers and dtype codes (arity must be the header's); out takes codes[0].
-// Returns the launch's cudaError_t.
+// vec 1 takes the "vec16" route (every pointer 16-byte aligned, else
+// cudaErrorInvalidValue), 0 the "scalar" one.  Returns the launch's
+// cudaError_t.
 extern "C" int ptt_elementwise(const uint64_t* ptrs, const int* codes, int arity, void* out,
-                               int64_t n, void* stream) {
+                               int64_t n, int vec, void* stream) {
   if (arity != ew::kArity || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   ew::Inputs in;
+  bool all16 = aligned16(out);
   for (int j = 0; j < ew::kArity; ++j) {
     if (codes[j] < 0 || codes[j] > 2) return static_cast<int>(cudaErrorInvalidValue);
     in.p[j] = reinterpret_cast<const void*>(ptrs[j]);
     in.code[j] = codes[j];
+    all16 = all16 && aligned16(in.p[j]);
   }
-  const int64_t per_block = static_cast<int64_t>(ew::kThreads) * ew::kUnroll;
-  const int64_t blocks = (n + per_block - 1) / per_block;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t per_block = static_cast<int64_t>(ew::kThreads) *
+                            (vec ? ew::kVecUnroll * ew::kVec : ew::kUnroll);
+  const int64_t blocks = std::max<int64_t>((n + per_block - 1) / per_block, 1);
   const int grid = static_cast<int>(blocks < 132 * 8 ? blocks : 132 * 8);
-  ew::elementwise_kernel<<<grid, ew::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      in, out, codes[0], n);
+  if (vec) {
+    if (!all16) return static_cast<int>(cudaErrorInvalidValue);
+    ew::elementwise_vec16_kernel<<<grid, ew::kThreads, 0, s>>>(in, out, codes[0], n);
+  } else {
+    ew::elementwise_kernel<<<grid, ew::kThreads, 0, s>>>(in, out, codes[0], n);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 #endif  // PTT_ELEMENTWISE

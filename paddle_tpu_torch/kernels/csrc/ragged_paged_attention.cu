@@ -28,8 +28,11 @@
 // (B 8, 32 kv-heads, context 512, bf16) 67 MB, 0.0201 ms.  The int8 pool
 // halves those bytes against bf16 (plus 4 bytes of scale per page).
 //
-// Two routes, one rule (kernels/paged_attention.py:_route, on the query
-// rows a kv-head carries, R = T * group):
+// Three routes, one rule (kernels/paged_attention.py:_route, on the query
+// rows a kv-head carries, R = T * group, the dtypes, head_dim and the
+// operands' alignment); two of them are in this file, the third, "sm90"
+// (prefill chunks with bf16 q over a bf16 or int8 pool), in
+// ragged_paged_attention_sm90.cu:
 //
 // "split" (R <= 16: decode at every GQA group, speculative verify) --
 // ragged_paged_attn_split_kernel and ragged_paged_attn_merge_kernel, C
@@ -64,7 +67,8 @@
 //   kernel combines them in split order.  No atomics: two runs give the
 //   same bits.
 //
-// "tile" (R > 16: prefill chunks) -- ragged_paged_attn_kernel, C entry
+// "tile" (R > 16 where the sm90 route does not apply: fp32 q, an fp32
+// pool, q and pool of other dtypes) -- ragged_paged_attn_kernel, C entry
 // point ptt_ragged_paged_attention, the first design (simple first):
 // - One thread block per (row tile, kv-head, sequence).  Query row
 //   r = t * group + g holds every query head of the GQA group of this
@@ -81,8 +85,6 @@
 // - The step's fresh rows are folded in last, under the causal mask.
 // - Rows past q_lens[b] and idle rows come out finite: the final sum is
 //   clamped to 1e-30, as the TPU kernel does.
-// Later work (not here): wgmma tiles for prefill (the GQA group's query
-// rows as M, pages through a TMA ring).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -512,7 +514,7 @@ struct SplitSmem {
   static_assert(ring >= 1u * kSplitWarps * kSplitRows * D * 4, "the combine must fit the rings");
 };
 
-// T: q / fresh rows / out; KV: the pool; RMAX 1, 4 or 16 bounds R.  One CTA
+// T: q / fresh rows / out; KV: the pool; RMAX 1, 4 (D 128) or 16 bounds R.  One CTA
 // per (split, kv-head, sequence).  Split sp of S takes pages [n sp / S,
 // n (sp + 1) / S) of the sequence's n = ceil(context / page) live pages
 // (read here, on the device), and the last split also the step's fresh
@@ -794,7 +796,11 @@ cudaError_t launch_split(const void* q, const void* kc, const void* vc, const vo
 #define PTT_ARGS q, kc, vc, ks, vs, bt, cl, ql, kn, vn, out, lse, ws, B, T_, qh, kvh, \
                  num_pages, page_size, W, splits, stream
   if (R == 1) return launch_split_r<T, KV, D, 1>(PTT_ARGS);
-  if (R <= 4) return launch_split_r<T, KV, D, 4>(PTT_ARGS);
+  // RMAX 4 only at D 128: at D 64 ptxas held it to 64 registers and spilled
+  // (an fp32 pool), where RMAX 16's row loop (uniform branches on R) does not
+  if constexpr (D == 128) {
+    if (R <= 4) return launch_split_r<T, KV, D, 4>(PTT_ARGS);
+  }
   return launch_split_r<T, KV, D, kSplitRows>(PTT_ARGS);
 #undef PTT_ARGS
 }

@@ -7,18 +7,28 @@ each sequence attends its cached context (``context_lens`` tokens in pages of
 a ``[kv_heads, num_pages, page_size, head_dim]`` pool, addressed by a block
 table) and then this step's own fresh K/V rows under a causal mask.
 
-- On a CUDA tensor the wrapper launches a hand-written Hopper kernel of
-  ``csrc/ragged_paged_attention.cu`` (it replaces the Pallas
-  ``_ragged_paged_attn_kernel``, float and int8 modes), on the route
-  :func:`_route` picks from the query rows a kv-head carries, ``R = T ·
-  (q_heads / kv_heads)``: ``"split"`` for R <= 16 (decode at every GQA
-  group, speculative verify up to R 16: the context cut into whole-page
-  splits by :func:`split_plan`, merged by their lse weights) or ``"tile"``
-  (prefill chunks: one CTA per 16-row tile walks the whole context).
+- On a CUDA tensor the wrapper launches a hand-written Hopper kernel (it
+  replaces the Pallas ``_ragged_paged_attn_kernel``, float and int8
+  modes), on the route :func:`_route` picks from the query rows a kv-head
+  carries, ``R = T · (q_heads / kv_heads)``, the dtypes, the head dim and
+  the operands' alignment:
+
+  - ``"split"`` for R <= 16 (decode at every GQA group, speculative verify
+    up to R 16; ``csrc/ragged_paged_attention.cu``): the context cut into
+    whole-page splits by :func:`split_plan`, merged by their lse weights;
+  - ``"sm90"`` for prefill chunks (R > 16) with bf16 q and fresh rows, a
+    bf16 or int8 pool, d 64 or 128, a GQA group that divides 64 and every
+    operand 16-byte aligned (``csrc/ragged_paged_attention_sm90.cu``):
+    wgmma over 64-row Q tiles, the pages through a TMA ring;
+  - ``"tile"`` for the other prefill chunks (fp32 q, an fp32 pool, q and
+    pool of other dtypes; ``csrc/ragged_paged_attention.cu``): one CTA per
+    16-row tile walks the whole context.
+
   Every call over a float pool adds one to :data:`LAUNCHES`, every call
-  over an int8 pool one to :data:`LAUNCHES_INT8`, on either route; the
-  calls that took the split route also to :data:`LAUNCHES_SPLIT` /
-  :data:`LAUNCHES_INT8_SPLIT`.  Shapes the kernels do not take raise.
+  over an int8 pool one to :data:`LAUNCHES_INT8`, on any route; the calls
+  that took the split route also to :data:`LAUNCHES_SPLIT` /
+  :data:`LAUNCHES_INT8_SPLIT`, the sm90 route to :data:`LAUNCHES_SM90` /
+  :data:`LAUNCHES_INT8_SM90`.  Shapes the kernels do not take raise.
 - On a CPU tensor it runs the plain PyTorch version
   (:func:`_reference_ragged_paged_attention`), the tests' oracle.
 
@@ -47,9 +57,11 @@ NEG_INF = -1e30
 # kernel by reading these before and after.
 LAUNCHES = 0
 LAUNCHES_INT8 = 0
-# the calls that took the "split" route (a part of the above)
+# the calls that took the "split" and the "sm90" route (a part of the above)
 LAUNCHES_SPLIT = 0
 LAUNCHES_INT8_SPLIT = 0
+LAUNCHES_SM90 = 0
+LAUNCHES_INT8_SM90 = 0
 
 _SUPPORTED_D = (64, 128)
 _MAX_T = 128
@@ -59,6 +71,8 @@ _SPLIT_ROWS = 16          # the split route's query rows a kv-head, at most
 _SPLIT_CTAS = 2 * 132     # the split plan's aim: two CTAs an H100 SM
 _SPLIT_MIN_KEYS = 64      # context keys a split holds at least
 _SPLIT_MAX = 64           # splits the merge kernel takes
+_SM90_ROWS = 64           # query rows of an sm90 CTA: whole tokens of a group
+_SM90_MAX_POOL_ROWS = 2 ** 31 - 65   # TMA's int32 row coordinate, one tile spare
 
 
 # --------------------------------------------------------------- oracles ---
@@ -144,23 +158,46 @@ ENTRY_POINTS = {
     "ptt_ragged_paged_attention": _ARGS + [ctypes.c_void_p],
     "ptt_ragged_paged_attention_split": _ARGS + [ctypes.c_int] +
     [ctypes.c_void_p] * 2,
+    "ptt_ragged_paged_attention_sm90": _ARGS + [ctypes.c_void_p],
 }
+# the library (csrc/<name>.cu) of each entry point
+_LIBRARY = {"ptt_ragged_paged_attention": "ragged_paged_attention",
+            "ptt_ragged_paged_attention_split": "ragged_paged_attention",
+            "ptt_ragged_paged_attention_sm90": "ragged_paged_attention_sm90"}
 
 
 def _kernel_fn(name="ptt_ragged_paged_attention"):
     from . import _build
-    fn = getattr(_build.load("ragged_paged_attention"), name)
+    fn = getattr(_build.load(_LIBRARY[name]), name)
     if fn.argtypes is None:
         fn.argtypes = ENTRY_POINTS[name]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _route(T, group):
+def _route(T, group, q_dtype, kv_dtype, d, aligned=True):
     """The kernel for T query tokens of a GQA group: ``"split"`` when the
     ``T · group`` rows a kv-head carries fit the split kernel's 16 (decode,
-    speculative verify), else ``"tile"`` (prefill chunks)."""
-    return "split" if T * group <= _SPLIT_ROWS else "tile"
+    speculative verify); for prefill chunks ``"sm90"`` when q (and the
+    fresh rows) are bf16, the pool bf16 or int8, d 64 or 128, the group
+    divides 64 (a 64-row Q tile is whole tokens of whole groups) and the
+    operands suit TMA (``aligned``: :func:`_tma_ready`), else ``"tile"``."""
+    if T * group <= _SPLIT_ROWS:
+        return "split"
+    if q_dtype == torch.bfloat16 and kv_dtype in (torch.bfloat16, torch.int8) \
+            and d in _SUPPORTED_D and _SM90_ROWS % group == 0 and aligned:
+        return "sm90"
+    return "tile"
+
+
+def _tma_ready(k_cache, *tensors):
+    """Whether TMA can map the sm90 route's operands: the pool's rows
+    (``kv_heads · num_pages · page_size``) fit TMA's int32 coordinate, and
+    the pool and every other operand given start on 16 bytes.  Reads
+    pointers and shapes only (a meta tensor's pointer is 0)."""
+    rows = k_cache.numel() // max(k_cache.shape[-1], 1)
+    return rows <= _SM90_MAX_POOL_ROWS and all(
+        x.data_ptr() % 16 == 0 for x in (k_cache, *tensors) if x is not None)
 
 
 def split_plan(B, kvh, W, page_size):
@@ -176,14 +213,18 @@ def split_plan(B, kvh, W, page_size):
     return max(1, min(want, -(-W // min_pages), _SPLIT_MAX))
 
 
-def launch_plan(q, k_cache, block_tables):
+def launch_plan(q, k_cache, block_tables, *, v_cache=None, k_new=None,
+                v_new=None):
     """A launch's route, split count and partials workspace (fp32
-    elements), from the operands' shapes alone: no value is read, so the
-    context lengths stay on the device (meta tensors plan as well)."""
+    elements), from the operands' dtypes, shapes and alignment alone: no
+    value is read, so the context lengths stay on the device (meta tensors
+    plan as well)."""
     b, t, qh, d = q.shape
     kvh, _, page_size, _ = k_cache.shape
-    if _route(t, qh // kvh) == "tile":
-        return {"route": "tile", "splits": None, "workspace": 0}
+    aligned = _tma_ready(k_cache, q, v_cache, k_new, v_new)
+    route = _route(t, qh // kvh, q.dtype, k_cache.dtype, d, aligned)
+    if route != "split":
+        return {"route": route, "splits": None, "workspace": 0}
     splits = split_plan(b, kvh, block_tables.shape[1], page_size)
     return {"route": "split", "splits": splits,
             "workspace": b * kvh * splits * _SPLIT_ROWS * (d + 2)
@@ -257,47 +298,62 @@ def _check_cuda_args(q, k_cache, v_cache, block_tables, context_lens, q_lens,
         raise ValueError("v_new must match k_new's shape")
 
 
-def _cuda_ragged_paged_attention(q, k_cache, v_cache, block_tables,
-                                 context_lens, q_lens, k_new, v_new,
-                                 k_scale, v_scale):
-    """Launch the route's kernel(s) on the current stream."""
-    global LAUNCHES, LAUNCHES_INT8, LAUNCHES_SPLIT, LAUNCHES_INT8_SPLIT
-    _check_cuda_args(q, k_cache, v_cache, block_tables, context_lens, q_lens,
-                     k_new, v_new, k_scale, v_scale)
+def _entry_args(q, k_cache, v_cache, block_tables, context_lens, q_lens,
+                k_new, v_new, k_scale, v_scale, out, lse):
+    """The arguments every C entry point takes before its own (ENTRY_POINTS'
+    order, up to kv_dtype): pointers (None for an absent operand), shapes
+    and dtype codes."""
     b, t, qh, d = q.shape
     kvh, n_pages, page_size, _ = k_cache.shape
-    W = block_tables.shape[1]
-    out = torch.empty_like(q)
-    lse = torch.empty((b, t, qh), dtype=torch.float32, device=q.device)
 
     def ptr(x):
         return None if x is None else x.data_ptr()
 
-    args = (ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_scale), ptr(v_scale),
+    return (ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_scale), ptr(v_scale),
             ptr(block_tables), ptr(context_lens), ptr(q_lens), ptr(k_new),
             ptr(v_new), ptr(out), ptr(lse), b, t, qh, kvh, d, n_pages,
-            page_size, W, _Q_DTYPE_CODE[q.dtype],
+            page_size, block_tables.shape[1], _Q_DTYPE_CODE[q.dtype],
             _KV_DTYPE_CODE[k_cache.dtype])
+
+
+def _cuda_ragged_paged_attention(q, k_cache, v_cache, block_tables,
+                                 context_lens, q_lens, k_new, v_new,
+                                 k_scale, v_scale):
+    """Launch the route's kernel(s) on the current stream."""
+    global LAUNCHES, LAUNCHES_INT8, LAUNCHES_SPLIT, LAUNCHES_INT8_SPLIT, \
+        LAUNCHES_SM90, LAUNCHES_INT8_SM90
+    _check_cuda_args(q, k_cache, v_cache, block_tables, context_lens, q_lens,
+                     k_new, v_new, k_scale, v_scale)
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    args = _entry_args(q, k_cache, v_cache, block_tables, context_lens,
+                       q_lens, k_new, v_new, k_scale, v_scale, out, lse)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    plan = launch_plan(q, k_cache, block_tables)
-    split = plan["route"] == "split"
-    if split:
+    plan = launch_plan(q, k_cache, block_tables, v_cache=v_cache,
+                       k_new=k_new, v_new=v_new)
+    route = plan["route"]
+    if route == "split":
         # the partials (m, l, acc[d]) of every split, merged after
         ws = torch.empty((plan["workspace"],), dtype=torch.float32,
                          device=q.device) if plan["workspace"] else None
         err = _kernel_fn("ptt_ragged_paged_attention_split")(
-            *args, plan["splits"], ptr(ws), stream)
+            *args, plan["splits"], None if ws is None else ws.data_ptr(),
+            stream)
+    elif route == "sm90":
+        err = _kernel_fn("ptt_ragged_paged_attention_sm90")(*args, stream)
     else:
         err = _kernel_fn()(*args, stream)
     if err != 0:
-        raise RuntimeError(f"ragged_paged_attention launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"ragged_paged_attention ({route}) launch failed: "
+                           f"CUDA error {err}")
     if k_scale is None:
         LAUNCHES += 1
-        LAUNCHES_SPLIT += split
+        LAUNCHES_SPLIT += route == "split"
+        LAUNCHES_SM90 += route == "sm90"
     else:
         LAUNCHES_INT8 += 1
-        LAUNCHES_INT8_SPLIT += split
+        LAUNCHES_INT8_SPLIT += route == "split"
+        LAUNCHES_INT8_SM90 += route == "sm90"
     return out, lse
 
 

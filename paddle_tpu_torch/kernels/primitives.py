@@ -24,10 +24,18 @@ tensors, and a generator given one raises on any other device.
 
 **Devices.**  A CPU tensor runs the plain version; a CUDA tensor launches the
 kernel (each launch adds one to :data:`LAUNCHES_ELEMENTWISE`,
-:data:`LAUNCHES_REDUCE` or :data:`LAUNCHES_MATMUL`; a reduce that took the
-"vec16" route of :func:`_reduce_route` also to
-:data:`LAUNCHES_REDUCE_VEC16`; a matmul also to the counter of its route)
-or raises.  No path falls back.  Inputs are fp32, bf16 or fp16.
+:data:`LAUNCHES_REDUCE` or :data:`LAUNCHES_MATMUL`; an elementwise call
+that took the "vec16" route of :func:`_elementwise_route` also to
+:data:`LAUNCHES_ELEMENTWISE_VEC16`; a reduce that took the "vec16" route of
+:func:`_reduce_route` also to :data:`LAUNCHES_REDUCE_VEC16`; a matmul also
+to the counter of its route) or raises.  No path falls back.  Inputs are
+fp32, bf16 or fp16.
+
+**The elementwise routes** (:func:`_elementwise_route`, which reads the
+pointers' alignment only): ``"vec16"`` when every input and the output
+start on 16 bytes: 16-byte vectors (8 bf16/fp16 or 4 fp32 elements a
+load), the ragged tail of fewer than 8 elements masked in the kernel;
+``"scalar"`` otherwise: element loads.  Both give the same bits.
 
 **The matmul's routes** (:func:`_matmul_route`, which reads dtype, shape
 and alignment only): ``"sm90"`` (:data:`LAUNCHES_MATMUL_SM90`), bf16/fp16
@@ -96,6 +104,7 @@ LAUNCHES_ELEMENTWISE = 0
 LAUNCHES_REDUCE = 0
 LAUNCHES_MATMUL = 0
 LAUNCHES_REDUCE_VEC16 = 0   # the reduce launches on the "vec16" route
+LAUNCHES_ELEMENTWISE_VEC16 = 0   # the elementwise launches on "vec16"
 # the matmul launches by route (_matmul_route)
 LAUNCHES_MATMUL_SM90 = 0
 LAUNCHES_MATMUL_MMA = 0
@@ -160,7 +169,8 @@ def _kernel_lib(kind: str, fn: KernelFn, arity: Optional[int] = None):
         f.argtypes = {
             "elementwise": [ctypes.POINTER(ctypes.c_uint64),
                             ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-                            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p],
+                            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                            ctypes.c_void_p],
             "reduce": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_void_p],
@@ -208,16 +218,29 @@ def _elementwise_reference(fn: KernelFn, tensors):
     return fn.torch(*[t.float() for t in tensors]).to(tensors[0].dtype)
 
 
+def _elementwise_route(tensors, out):
+    """How the elementwise kernel moves ``tensors`` into ``out``:
+    ``"vec16"`` (16-byte vectors, the ragged tail masked) when every input
+    and the output start on 16 bytes, else ``"scalar"`` (element loads).
+    Reads the pointers only: a view that starts inside a vector (an offset
+    slice) takes "scalar"; any numel takes either."""
+    if all(t.data_ptr() % 16 == 0 for t in (*tensors, out)):
+        return "vec16"
+    return "scalar"
+
+
 def elementwise_kernel(fn):
     """``apply(*tensors)`` computing ``fn(*tensors)`` elementwise over
     equally shaped inputs (any arity up to 8, each fp32, bf16 or fp16): the
     values are widened to fp32, ``fn`` runs in fp32 and the result is cast
-    once to the first input's dtype, in the first input's shape."""
+    once to the first input's dtype, in the first input's shape.  A CUDA
+    tensor launches the kernel on the route :func:`_elementwise_route`
+    picks."""
     fn = _as_fn(fn)
     libs = {}
 
     def apply(*tensors):
-        global LAUNCHES_ELEMENTWISE
+        global LAUNCHES_ELEMENTWISE, LAUNCHES_ELEMENTWISE_VEC16
         if not tensors:
             raise ValueError("elementwise_kernel: no inputs")
         shape = tensors[0].shape
@@ -239,9 +262,11 @@ def elementwise_kernel(fn):
         ptrs = (ctypes.c_uint64 * arity)(*[t.data_ptr() for t in tensors])
         codes = (ctypes.c_int * arity)(*[_DTYPE_CODE[t.dtype]
                                          for t in tensors])
+        vec = _elementwise_route(tensors, out) == "vec16"
         _raise_on("elementwise_kernel", libs[arity](
-            ptrs, codes, arity, out.data_ptr(), out.numel(), stream))
+            ptrs, codes, arity, out.data_ptr(), out.numel(), int(vec), stream))
         LAUNCHES_ELEMENTWISE += 1
+        LAUNCHES_ELEMENTWISE_VEC16 += vec
         return out
 
     return apply

@@ -29,7 +29,8 @@ weights from ``--seed``) and the engine with the launcher's geometry (page
 16, prefill bucket 64, max_seq_len 1024, the pool in ``--cache-dtype``),
 admits
 ``--batch`` requests of ``--context`` prompt tokens after a warm-up request,
-and times the prefill steps (host clock around synchronised work).  It then
+and times the prefill steps (host clock around synchronised work), with
+their attention launches by route (all, "split", "sm90").  It then
 times ``--steps`` decode steps without the profiler (a drain every
 ``sync_every`` steps, as in serving), profiles as many again with
 ``torch.profiler`` (CPU and CUDA activities), and prints one JSON line: wall
@@ -261,7 +262,13 @@ def main(argv=None) -> int:
         return any(r is not None and eng.prompt_pos[b] < len(r.prompt)
                    for b, r in enumerate(eng.slot_req)) or bool(eng.waiting)
 
+    def attention_counts():                 # (all, split, sm90), both pools
+        return (pa.LAUNCHES + pa.LAUNCHES_INT8,
+                pa.LAUNCHES_SPLIT + pa.LAUNCHES_INT8_SPLIT,
+                pa.LAUNCHES_SM90 + pa.LAUNCHES_INT8_SM90)
+
     torch.cuda.synchronize()
+    prefill0 = attention_counts()
     t0 = time.perf_counter()
     n_prefill = 0
     while prefilling():
@@ -269,6 +276,7 @@ def main(argv=None) -> int:
         n_prefill += 1
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_launches = [a - b for a, b in zip(attention_counts(), prefill0)]
     for _ in range(4):                      # warm decode steps
         eng.step()
     torch.cuda.synchronize()
@@ -305,7 +313,10 @@ def main(argv=None) -> int:
         "preset": args.preset, "layers": cfg.num_hidden_layers,
         "kv_cache_dtype": eng.stats()["kv_cache_dtype"], "batch": args.batch,
         "context": args.context, "prefill_steps": n_prefill,
-        "prefill_ms": prefill_ms, "decode_steps": n,
+        "prefill_ms": prefill_ms,
+        "prefill_attention_launches": dict(zip(
+            ("all", "split", "sm90"), prefill_launches)),
+        "decode_steps": n,
         "decode_wall_ms_per_step": plain_wall_ms / n,
         "decode_wall_ms_per_step_profiled": wall_ms / n,
         "device_busy_ms_per_step": busy_ms / n if busy_ms else None,

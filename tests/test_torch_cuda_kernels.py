@@ -197,7 +197,7 @@ def test_split_route_vs_plain_on_card(h100, dtype, pool, group, T, page):
                        dtype=torch.int32, device=h100)
     ql = torch.tensor([T, 1, T, max(T - 1, 0), T, T], dtype=torch.int32,
                       device=h100)
-    assert pa._route(T, group) == "split"
+    assert pa._route(T, group, dtype, kc.dtype, 128) == "split"
     assert pa.split_plan(B, kvh, W, page) > 1
     n0, s0 = pa.LAUNCHES + pa.LAUNCHES_INT8, \
         pa.LAUNCHES_SPLIT + pa.LAUNCHES_INT8_SPLIT
@@ -230,7 +230,7 @@ def test_more_than_16_rows_take_the_tile_route_on_card(h100, T, group):
     t = _inputs(h100, torch.float32, B=2, T=T, qh=2 * group, kvh=2, d=64,
                 page=16, n_pages=16, width=6, seed=T)
     ctx = torch.tensor([40, 3], dtype=torch.int32, device=h100)
-    assert pa._route(T, group) == "tile"
+    assert pa._route(T, group, torch.float32, torch.float32, 64) == "tile"
     n0, s0 = pa.LAUNCHES, pa.LAUNCHES_SPLIT
     out = pa.ragged_paged_attention(t["q"], t["k_cache"], t["v_cache"],
                                     t["block_tables"], ctx, k_new=t["k_new"],
@@ -242,6 +242,57 @@ def test_more_than_16_rows_take_the_tile_route_on_card(h100, T, group):
         t["k_new"], t["v_new"])
     torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", [None, "int8"])
+@pytest.mark.parametrize("group,T,d", [(1, 64, 128), (4, 20, 128),
+                                       (8, 12, 64), (1, 128, 128),
+                                       (2, 40, 64)])
+@pytest.mark.parametrize("page", [8, 16, 40, 96, 128])
+def test_sm90_prefill_route_vs_plain_on_card(h100, pool, group, T, d, page):
+    """R = T x group > 16 with bf16 q over a bf16 or int8 pool takes the
+    sm90 route: contexts 0, 1, page - 1, page, page + 1 and a long one,
+    q_lens T, 1, 0 and ragged; pages that divide 64, that 64 divides, and
+    neither (40, 96: key tiles of 8- and 32-row boxes); valid rows within
+    the bf16 tolerance, every row finite, two runs bit for bit."""
+    kvh, B, long_ctx = 2, 6, 300
+    rng = np.random.default_rng(group * 1000 + T + page)
+    W = -(-long_ctx // page) + 2
+    n_pages = 2 * W
+    t = _inputs(h100, torch.bfloat16, B=B, T=T, qh=kvh * group, kvh=kvh,
+                d=d, page=page, n_pages=n_pages, width=W, seed=T + page)
+    kc, vc, ks, vs = t["k_cache"], t["v_cache"], None, None
+    if pool == "int8":
+        kc, ks = _int8_pool(h100, rng, kvh, n_pages, page, d,
+                            zero_pages=(0,))
+        vc, vs = _int8_pool(h100, rng, kvh, n_pages, page, d,
+                            zero_pages=(1,))
+    ctx = torch.tensor([0, 1, page - 1, page, page + 1, long_ctx],
+                       dtype=torch.int32, device=h100)
+    ql = torch.tensor([T, 1, 0, T - 5, T, T], dtype=torch.int32, device=h100)
+    assert pa._route(T, group, torch.bfloat16, kc.dtype, d) == "sm90"
+    n0 = pa.LAUNCHES + pa.LAUNCHES_INT8
+    s0 = pa.LAUNCHES_SM90 + pa.LAUNCHES_INT8_SM90
+    kw = dict(q_lens=ql, k_new=t["k_new"], v_new=t["v_new"], k_scale=ks,
+              v_scale=vs, with_lse=True)
+    out, lse = pa.ragged_paged_attention(t["q"], kc, vc, t["block_tables"],
+                                         ctx, **kw)
+    out2, lse2 = pa.ragged_paged_attention(t["q"], kc, vc,
+                                           t["block_tables"], ctx, **kw)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES + pa.LAUNCHES_INT8 == n0 + 2
+    assert pa.LAUNCHES_SM90 + pa.LAUNCHES_INT8_SM90 == s0 + 2
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    ref, ref_lse = pa._reference_ragged_paged_attention(
+        t["q"], kc, vc, t["block_tables"], ctx, ql, t["k_new"], t["v_new"],
+        ks, vs)
+    keep = torch.arange(T, device=h100)[None, :] < ql[:, None]
+    torch.testing.assert_close(out[keep].float(), ref[keep].float(),
+                               rtol=1e-2, atol=2e-2)
+    torch.testing.assert_close(lse[keep], ref_lse[keep], rtol=2e-5,
+                               atol=1e-3)
 
 def _gmm_case(h100, dtype, *, E, counts, bm, C, O, seed, fused):
     """A dispatch over the given per-expert entry counts (zero allowed);
@@ -985,6 +1036,45 @@ def test_primitives_elementwise_vs_plain_on_card(h100, name, dtypes, shape):
     lim = _ulp(want) + 1e-6 * (w.abs() + float(w.abs().max()))
     assert bool(((got.float() - w).abs() <= lim).all())
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dtypes", [
+    ("silu_mul", (torch.bfloat16,) * 2), ("silu_mul", (torch.float32,) * 2),
+    ("relu2", (torch.float16,)),
+    ("fma3", (torch.float32, torch.bfloat16, torch.float16))])
+@pytest.mark.parametrize("n", [1, 7, 8, 4099 * 8 + 5, 1_000_003])
+def test_primitives_elementwise_routes_bit_for_bit_on_card(h100, name,
+                                                            dtypes, n):
+    """Aligned inputs take the "vec16" route (an odd numel's tail masked in
+    the kernel), the same values in views one element into their buffers
+    the "scalar" route; both give the same bits, each counted on its
+    route."""
+    from paddle_tpu_torch.kernels import primitives as P
+    kern = P.elementwise_kernel(_prim_fns()[name])
+    gen = torch.Generator(device=h100).manual_seed(n)
+    ins = [torch.randn((n,), generator=gen, device=h100).to(dt)
+           for dt in dtypes]
+    offs = []
+    for x in ins:
+        buf = torch.empty((n + 1,), dtype=x.dtype, device=h100)
+        buf[1:] = x
+        offs.append(buf[1:])
+    out = torch.empty((n,), dtype=dtypes[0], device=h100)
+    assert P._elementwise_route(ins, out) == "vec16"
+    assert P._elementwise_route(offs, out) == "scalar"
+    n0, v0 = P.LAUNCHES_ELEMENTWISE, P.LAUNCHES_ELEMENTWISE_VEC16
+    vec = kern(*ins)
+    torch.cuda.synchronize()
+    assert (P.LAUNCHES_ELEMENTWISE, P.LAUNCHES_ELEMENTWISE_VEC16) == \
+        (n0 + 1, v0 + 1)
+    scalar = kern(*offs)
+    torch.cuda.synchronize()
+    assert (P.LAUNCHES_ELEMENTWISE, P.LAUNCHES_ELEMENTWISE_VEC16) == \
+        (n0 + 2, v0 + 1)
+    assert torch.equal(vec.view(torch.int16 if vec.element_size() == 2
+                                else torch.int32),
+                       scalar.view(torch.int16 if vec.element_size() == 2
+                                   else torch.int32))
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,

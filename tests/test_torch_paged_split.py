@@ -16,8 +16,9 @@ holds
 
 The emulation is held against the port's plain
 ``_reference_ragged_paged_attention`` and the JAX package's
-``_reference_ragged_paged_attention`` (jitted; the Pallas interpret mode of
-this kernel does not run on the installed jax), over tiny shapes with
+``_reference_ragged_paged_attention`` (jitted, called with fp32 pools and
+scales in both modes; the Pallas interpret mode of this kernel does not
+run on the installed jax), over tiny shapes with
 contexts 0, 1, page - 1, page and page + 1 and a long one, GQA groups 1 and
 4, T 1 and 4, float and int8 pools, at the plan's split count and at a
 forced larger one.  Rows past ``q_lens`` are don't-care and are not
@@ -53,7 +54,12 @@ _jax_ragged = jax.jit(jpa._reference_ragged_paged_attention)
     (1, 1, "split"), (1, 8, "split"), (4, 4, "split"), (2, 8, "split"),
     (16, 1, "split"), (17, 1, "tile"), (5, 4, "tile"), (64, 1, "tile")])
 def test_route_rule(T, group, route):
-    assert pa._route(T, group) == route
+    """The split rule is R = T x group <= 16 whatever the dtypes; above it
+    fp32 takes the tile kernel and bf16 the sm90 one (the whole sm90 rule:
+    ``tests/test_torch_paged_prefill_sm90.py``)."""
+    for dt in (torch.float32, torch.bfloat16):
+        want = route if route == "split" or dt == torch.float32 else "sm90"
+        assert pa._route(T, group, dt, dt, 128) == want
 
 
 def test_split_plan_is_whole_pages_capped_by_the_table():
@@ -207,18 +213,23 @@ def test_split_emulation_matches_port_and_jax(int8, group, T):
                   t["block_tables"], torch.from_numpy(ctx),
                   torch.from_numpy(ql), t["k_new"], t["v_new"],
                   t.get("k_scale"), t.get("v_scale"))
-    assert pa._route(T, group) == "split"
+    assert pa._route(T, group, torch.float32, t["k_cache"].dtype, d) == \
+        "split"
     want, want_lse = pa._reference_ragged_paged_attention(
         t["q"], t["k_cache"], t["v_cache"], t["block_tables"],
         torch.from_numpy(ctx), torch.from_numpy(ql), t["k_new"], t["v_new"],
         t.get("k_scale"), t.get("v_scale"))
+    # the JAX reference with fp32 pools and scales in both modes (an int8
+    # pool's codes as fp32, a float pool with unit scales: the same
+    # values), so both modes of a shape share one compile
+    ones = np.ones(x["k_cache"].shape[:2], np.float32)
     jw, jw_lse = _jax_ragged(
-        *(jnp.asarray(x[k]) for k in ("q", "k_cache", "v_cache",
-                                      "block_tables")),
-        jnp.asarray(ctx), jnp.asarray(ql), jnp.asarray(x["k_new"]),
-        jnp.asarray(x["v_new"]),
-        *((jnp.asarray(x["k_scale"]), jnp.asarray(x["v_scale"])) if int8
-          else ()))
+        jnp.asarray(x["q"]), jnp.asarray(x["k_cache"].astype(np.float32)),
+        jnp.asarray(x["v_cache"].astype(np.float32)),
+        jnp.asarray(x["block_tables"]), jnp.asarray(ctx), jnp.asarray(ql),
+        jnp.asarray(x["k_new"]), jnp.asarray(x["v_new"]),
+        jnp.asarray(x.get("k_scale", ones)),
+        jnp.asarray(x.get("v_scale", ones)))
     keep = np.arange(T)[None, :] < ql[:, None]
     plan = pa.split_plan(B, kvh, W, page)
     for splits in sorted({plan, 3}):

@@ -205,10 +205,10 @@ def test_cuda_only_paths_refuse_cpu_fallback():
 
 def test_new_routes_refuse_cpu_fallback(monkeypatch):
     """The gmm and tgmm sm90 routes (bf16), the attention split route (T x
-    group <= 16), the primitive matmul's "sm90" route and the weight-only
-    matmul's "narrow" and "wide" routes take their plain versions only for
-    CPU tensors: on a meta tensor each raises before any plain version runs,
-    as the other routes do."""
+    group <= 16) and sm90 route (bf16 prefill), the primitive matmul's
+    "sm90" route and the weight-only matmul's "narrow" and "wide" routes
+    take their plain versions only for CPU tensors: on a meta tensor each
+    raises before any plain version runs, as the other routes do."""
     from paddle_tpu_torch.kernels import grouped_matmul as gm
     from paddle_tpu_torch.kernels import paged_attention as pa
 
@@ -258,13 +258,15 @@ def test_new_routes_refuse_cpu_fallback(monkeypatch):
             wo.weight_only_matmul(xq, q8, s)
         with pytest.raises(ValueError, match="device"):
             wo.weight_only_matmul(xq, q4, s, int4_rows=64)
-    kc = torch.empty((2, 8, 16, 64), **bf)
     bt = torch.zeros((3, 4), dtype=torch.int32, device="meta")
     ctx = torch.zeros((3,), dtype=torch.int32, device="meta")
-    for T in (1, 4, 64):                      # split, split, tile
-        q = torch.empty((3, T, 8, 64), **bf)
-        assert pa.launch_plan(q, kc, bt)["route"] == \
-            ("tile" if T == 64 else "split")
+    for T, dt, route in ((1, torch.bfloat16, "split"),
+                         (4, torch.bfloat16, "split"),
+                         (64, torch.bfloat16, "sm90"),
+                         (64, torch.float32, "tile")):
+        kc = torch.empty((2, 8, 16, 64), device="meta", dtype=dt)
+        q = torch.empty((3, T, 8, 64), device="meta", dtype=dt)
+        assert pa.launch_plan(q, kc, bt)["route"] == route
         with pytest.raises(ValueError, match="device"):
             pa.ragged_paged_attention(q, kc, kc, bt, ctx)
         with pytest.raises(ValueError, match="device"):

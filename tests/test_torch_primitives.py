@@ -181,6 +181,26 @@ def test_elementwise_kernel_mixed_dtypes_cast_once_to_the_first():
     assert tp.elementwise_kernel(FMA3)(c, a, b).dtype == torch.float16
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_elementwise_route(dtype):
+    """"vec16" when every input and the output start on 16 bytes, whatever
+    the numel (an odd one: the tail is masked in the kernel) and the dtype
+    mix; a view that starts inside a vector, as an input or as the output,
+    takes "scalar"; one that starts a whole vector in takes "vec16"."""
+    dt = DTYPES[dtype][1]
+    n = 37 * 19
+    a, other = torch.zeros(n, dtype=dt), torch.zeros(n, dtype=torch.float32)
+    out = torch.empty(n, dtype=dt)
+    assert tp._elementwise_route([a, other], out) == "vec16"
+    assert tp._elementwise_route([a.view(37, 19)], out.view(37, 19)) == \
+        "vec16"
+    per16 = 16 // a.element_size()
+    buf = torch.zeros(n + per16, dtype=dt)
+    assert tp._elementwise_route([buf[1:n + 1], other], out) == "scalar"
+    assert tp._elementwise_route([a], buf[1:n + 1]) == "scalar"
+    assert tp._elementwise_route([buf[per16:], other], out) == "vec16"
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(64, 32), (64, 300), (100, 19)])
 @pytest.mark.parametrize("op", list(REDUCE))
