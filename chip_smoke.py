@@ -48,6 +48,19 @@ is caught; there is no ``ok`` line unless every phase passed):
    Mixtral-8x7B widths) served by the continuous-batching engine on the
    card, its greedy tokens held against the port's full-sequence forward on
    the CPU (teacher forcing); near-ties are counted.
+6b. ``engine_parity_prefix_spec`` — the prefix cache, ngram speculative
+    decoding (K 4) and the pinned host spill ring (8 pages) together, on
+    the same 2-layer fp32 model over a float and an int8 pool, then the
+    fused lane (K 4) on the float pool: three waves of 8 requests (waves 1
+    and 3 share a 256-token prefix, wave 2 another; tails of 16-96 tokens
+    built from repeated motifs; 32 new tokens each; one request a wave is
+    whole cached pages, so copy-on-write) over a pool of one wave's pages
+    + 8, so wave 2 evicts wave 1's cached pages into the ring and wave 3
+    swaps its prefix back in.  Tokens held against the CPU teacher-forced
+    forward as in ``engine_parity`` (the int8 pool's near-ties as in
+    ``engine_parity_int8``); the prefix, COW, eviction, spill, swap-in and
+    spec counters each > 0; each step's attention launches on the route
+    ``_route`` names for its T (verify steps at T 4 on "split").
 7. ``serve``, ``serve_int8``, ``serve_moe`` — through the launcher's
    ``build_engine`` and ``ServingServer.start_http`` with the launcher's
    geometry, 8 concurrent streamed completions each: full llama2_7b (32
@@ -56,6 +69,19 @@ is caught; there is no ``ok`` line unless every phase passed):
    reset just before each run and read just after; decode steps take the
    attention's split route and prefill chunks its sm90 route (none the
    tile route), and every gmm launch the sm90 route.
+7b. ``serve_prefix_spec`` — full llama2_7b (bf16) through the launcher
+    with ``--prefix-cache --set kv_spill_pages=64 --set
+    spec_decode=ngram`` and a ``--num-pages`` of one wave's pages + 8,
+    three waves of 8 streamed completions of 64 tokens (waves 1 and 3
+    share a 384-token prefix, wave 2 another; tails of 32-128 tokens):
+    per wave tokens/s and TTFT p50/p95; the run's prefix, COW, eviction,
+    spill and swap-in counters, swap-in host ms, spec steps (drafted and
+    accepted tokens), plain and spec step counts, attention launches per
+    route, peak memory.  Decode and verify steps on "split", every
+    prefill chunk (prefix hits' mid-context chunks among them) on "sm90",
+    none on "tile"; every wave-1 request after the first a prefix hit;
+    wave 3 swaps pages in; attention launches = layers x (plain + verify
+    steps).  Its launches join the ``kernels`` line.
 8. ``kernel_flash`` — the three flash-attention kernels (forward, dQ,
    dK/dV) against their plain versions over every combination of causal
    or not, GQA groups 1/4/8, d 64/128, fp32/bf16 and five shapes (b 1 to 4,
@@ -1276,13 +1302,62 @@ def _expected_launches(cfg, quantized, steps):
             "gmm": 3 * L * steps if cfg.moe_num_experts else 0}
 
 
+def _teacher_force(phase, cpu, runs, *, new_tokens, tie_rel, max_tie_share,
+                   memo=None):
+    """Hold engine tokens against the full-sequence forward of ``cpu`` (the
+    model on the CPU, fp32, plain attention and plain gmm): ``runs`` is a
+    list of (request id, prompt, tokens).  A token that is not the CPU
+    argmax passes only as a near-tie: a logit gap <= ``tie_rel`` x the
+    row's largest |logit|, and at most ``max_tie_share`` of the tokens.
+    Sequences go through the forward 8 at a time, padded on the right (the
+    causal forward's logits at a position never see the padding);
+    ``memo`` (sequence -> logits) spares a forward another run already
+    made.  Returns (tokens checked, near-ties, their relative gaps)."""
+    import torch
+    memo = {} if memo is None else memo
+    seqs = [tuple(p + toks[:-1]) for _rid, p, toks in runs]
+    todo = list(dict.fromkeys(s for s in seqs if s not in memo))
+    for i in range(0, len(todo), 8):
+        batch = todo[i:i + 8]
+        width = max(len(s) for s in batch)
+        ids = torch.zeros((len(batch), width), dtype=torch.long)
+        for j, seq in enumerate(batch):
+            ids[j, :len(seq)] = torch.tensor(seq, dtype=torch.long)
+        with torch.no_grad():
+            logits = cpu(ids).float()
+        for j, seq in enumerate(batch):
+            memo[seq] = logits[j, :len(seq)]
+        del logits
+    near_ties, checked, gaps = 0, 0, []
+    for (rid, p, toks), seq in zip(runs, seqs):
+        if len(toks) != new_tokens:
+            raise AssertionError(f"{phase} request {rid}: {len(toks)} "
+                                 f"tokens, want {new_tokens}")
+        logits = memo[seq][len(p) - 1:]
+        for j, tok in enumerate(toks):
+            row = logits[j]
+            checked += 1
+            if int(row.argmax()) == tok:
+                continue
+            gap = float(row.max() - row[tok])
+            gaps.append(gap / float(row.abs().max()))
+            if gap <= tie_rel * float(row.abs().max()):
+                near_ties += 1
+                continue
+            raise AssertionError(
+                f"{phase} request {rid} token {j}: engine {tok}, CPU argmax "
+                f"{int(row.argmax())}, logit gap {gap}")
+    if near_ties > max_tie_share * checked:
+        raise AssertionError(f"{phase}: {near_ties} near-ties of {checked} "
+                             f"tokens (at most {max_tie_share:.0%})")
+    return checked, near_ties, gaps
+
+
 def _engine_parity(phase, cfg, prompts, *, new_tokens, cache_dtype=None,
                    tie_rel=1e-3, max_tie_share=0.0):
     """Serve ``prompts`` on the card with the continuous-batching engine,
     then teacher-force its tokens through the full-sequence forward on the
-    CPU (fp32, plain attention and plain gmm).  A token that is not the CPU
-    argmax passes only as a near-tie: a logit gap <= ``tie_rel`` x the
-    row's largest |logit|, and at most ``max_tie_share`` of the tokens."""
+    CPU (``_teacher_force``)."""
     import torch
     from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
                                             GenerationConfig)
@@ -1312,30 +1387,9 @@ def _engine_parity(phase, cfg, prompts, *, new_tokens, cache_dtype=None,
     cpu = model.to("cpu")
     del eng
     torch.cuda.empty_cache()
-    near_ties, checked, gaps = 0, 0, []
-    for p, rid in zip(prompts, rids):
-        toks = out[rid]
-        if len(toks) != new_tokens:
-            raise AssertionError(f"{phase} request {rid}: {len(toks)} "
-                                 f"tokens, want {new_tokens}")
-        seq = torch.tensor([p + toks[:-1]], dtype=torch.long)
-        logits = cpu(seq)[0, len(p) - 1:].float()
-        for j, tok in enumerate(toks):
-            row = logits[j]
-            checked += 1
-            if int(row.argmax()) == tok:
-                continue
-            gap = float(row.max() - row[tok])
-            gaps.append(gap / float(row.abs().max()))
-            if gap <= tie_rel * float(row.abs().max()):
-                near_ties += 1
-                continue
-            raise AssertionError(
-                f"{phase} request {rid} token {j}: engine {tok}, CPU argmax "
-                f"{int(row.argmax())}, logit gap {gap}")
-    if near_ties > max_tie_share * checked:
-        raise AssertionError(f"{phase}: {near_ties} near-ties of {checked} "
-                             f"tokens (at most {max_tie_share:.0%})")
+    checked, near_ties, gaps = _teacher_force(
+        phase, cpu, [(rid, p, out[rid]) for p, rid in zip(prompts, rids)],
+        new_tokens=new_tokens, tie_rel=tie_rel, max_tie_share=max_tie_share)
     emit(phase, layers=L, hidden=cfg.hidden_size,
          heads=cfg.num_attention_heads, kv_heads=cfg.num_key_value_heads,
          experts=cfg.moe_num_experts, cache_dtype=cache_dtype or cfg.dtype,
@@ -1384,6 +1438,217 @@ def phase_engine_parity_moe():
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
                for n in (5, 48, 64, 96)]
     _engine_parity("engine_parity_moe", cfg, prompts, new_tokens=16)
+
+
+# ---------------------------------- prefix cache, spec decode, spill ---
+
+PREFIX_SPEC = dict(prefix=256, tails=(16, 96), new_tokens=32, spill=8,
+                   spec_k=4, requests=8, page=16, bucket=64)
+SERVE_PREFIX_SPEC = dict(prefix=384, tails=(32, 128), new_tokens=64,
+                         spill=64, spec_k=4, requests=8, page=16)
+PREFIX_SPEC_COUNTERS = ("prefix_hits", "prefix_tokens_saved", "cow_copies",
+                        "evicted_pages", "kv_spilled_pages", "kv_swapins",
+                        "spec_steps", "spec_drafted_tokens",
+                        "spec_accepted_tokens", "spec_committed_tokens")
+
+
+def _prefix_waves(vocab, prefix, tails, n, seed=0):
+    """Three waves of ``n`` prompts: waves 1 and 3 share one ``prefix``-token
+    prefix, wave 2 another.  Each prompt ends in its own tail (lengths in
+    ``tails``, the same lengths in every wave): a few distinct tokens, then
+    a short motif repeated, so the n-gram drafter finds matches.  Request
+    0's tail is the longest; request 1's is its first 32 tokens, so request
+    1's prompt is whole pages that request 0 caches (a fully cached prompt:
+    copy-on-write)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    shared = [rng.integers(1, vocab, prefix).tolist() for _ in range(2)]
+    lens = [tails[1], 32] + [int(x) for x in
+                             rng.integers(tails[0], tails[1] + 1, n - 2)]
+    waves = []
+    for w in range(3):
+        wave = []
+        for length in lens:
+            head = rng.integers(1, vocab, 8).tolist()
+            motif = rng.integers(1, vocab, int(rng.integers(3, 7))).tolist()
+            wave.append(shared[w == 1] + (head + motif * length)[:length])
+        wave[1] = wave[0][:prefix + 32]
+        waves.append(wave)
+    return waves
+
+
+def _wave_pages(wave, prefix, page, new_tokens, spec_k):
+    """Pool pages one wave holds at its peak: the shared prefix once, each
+    request's own pages to the end of its budget (the speculative lane
+    grows K tokens ahead)."""
+    own = sum(-(-(len(p) + new_tokens + spec_k) // page) - prefix // page
+              for p in wave)
+    return prefix // page + own
+
+
+def _count_steps(g):
+    """Wrap the generator's device steps to count them by kind: plain
+    steps by their T, speculative verify steps and fused K-steps."""
+    kinds = {}
+    for name in ("_step_fn", "_spec_verify_fn", "_fused_decode_fn"):
+        real = getattr(g, name)
+
+        def counted(gc, T, *args, _real=real, _name=name, **kw):
+            key = f"T{T}" if _name == "_step_fn" else (
+                "verify" if _name == "_spec_verify_fn" else "fused")
+            kinds[key] = kinds.get(key, 0) + 1
+            return _real(gc, T, *args, **kw)
+
+        setattr(g, name, counted)
+    return kinds
+
+
+def _attn_counts():
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    return {"attention": pa.LAUNCHES, "attention_int8": pa.LAUNCHES_INT8,
+            "attention_split": pa.LAUNCHES_SPLIT,
+            "attention_int8_split": pa.LAUNCHES_INT8_SPLIT,
+            "attention_sm90": pa.LAUNCHES_SM90,
+            "attention_int8_sm90": pa.LAUNCHES_INT8_SM90}
+
+
+def _reset_attn_counts():
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    pa.LAUNCHES = pa.LAUNCHES_INT8 = 0
+    pa.LAUNCHES_SPLIT = pa.LAUNCHES_INT8_SPLIT = 0
+    pa.LAUNCHES_SM90 = pa.LAUNCHES_INT8_SM90 = 0
+
+
+def _expected_routes(cfg, kinds, k, q_dtype, kv_dtype):
+    """Attention launches each route should take: one a layer a plain
+    step (at its T) and a verify step (at T = k), k a layer a fused step
+    (T = 1), each on the route ``paged_attention._route`` names for its
+    T (the operands are aligned)."""
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    group = cfg.num_attention_heads // cfg.num_key_value_heads
+    L = cfg.num_hidden_layers
+    want = {"split": 0, "sm90": 0, "tile": 0}
+    for kind, n in kinds.items():
+        T, per = ((int(kind[1:]), 1) if kind.startswith("T") else
+                  (k, 1) if kind == "verify" else (1, k))
+        want[pa._route(T, group, q_dtype, kv_dtype, cfg.head_dim)] += \
+            L * per * n
+    return want
+
+
+def _routes_of(counts, quantized):
+    key = "attention_int8" if quantized else "attention"
+    total = counts[key]
+    split, sm90 = counts[f"{key}_split"], counts[f"{key}_sm90"]
+    return {"split": split, "sm90": sm90, "tile": total - split - sm90}
+
+
+def _prefix_spec_run(model, waves, *, num_pages, max_seq_len,
+                     cache_dtype=None, spec_decode="ngram", device="cuda"):
+    """Serve the waves one after another on one engine with the prefix
+    cache, ``spec_decode`` and the spill ring on; launches counted from 0
+    just before the first wave and read after the last.  Returns the
+    per-wave tokens, the engine's stats, the step kinds and the attention
+    launches."""
+    import torch
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            GenerationConfig)
+    c = PREFIX_SPEC
+    eng = ContinuousBatchingEngine(
+        model, max_batch=c["requests"],
+        gen=GenerationConfig(max_new_tokens=c["new_tokens"]),
+        max_seq_len=max_seq_len, page_size=c["page"],
+        prefill_bucket=c["bucket"], num_pages=num_pages, device=device,
+        cache_dtype=cache_dtype, prefix_cache=True, spec_decode=spec_decode,
+        spec_k=c["spec_k"], kv_spill_pages=c["spill"])
+    kinds = _count_steps(eng.g)
+    _reset_attn_counts()
+    outs = []
+    for wave in waves:
+        rids = [eng.add_request(p) for p in wave]
+        res = eng.run()
+        outs.append([res[r] for r in rids])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    counts = _attn_counts()
+    return outs, eng.stats(), kinds, counts, eng
+
+
+def phase_engine_parity_prefix_spec(cfg=None, device="cuda"):
+    """The prefix cache, ngram speculative decoding (K 4) and the spill
+    ring (8 pages) together on the 2-layer fp32 model at llama2_7b widths,
+    over a float and an int8 pool, then the fused lane (K 4) on the float
+    pool: three waves of 8 requests (waves 1 and 3 share a 256-token
+    prefix, wave 2 another; tails of 16-96 tokens; 32 new tokens each) over
+    a pool of one wave's pages + 8, so wave 2 evicts wave 1's cached pages
+    into the ring and wave 3 swaps its prefix back.  Every run's tokens are
+    held against the CPU teacher-forced forward (near-ties as in
+    ``engine_parity`` and ``engine_parity_int8``); the prefix, COW,
+    eviction, spill, swap-in and spec counters must each be > 0 (fused:
+    all but the spec accept counters, which ngram alone has); every
+    attention launch takes the route ``_route`` names for its step."""
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    cfg = cfg or LlamaConfig.llama2_7b(num_hidden_layers=2, dtype="float32")
+    c = PREFIX_SPEC
+    waves = _prefix_waves(cfg.vocab_size, c["prefix"], c["tails"],
+                          c["requests"])
+    num_pages = max(_wave_pages(w, c["prefix"], c["page"], c["new_tokens"],
+                                c["spec_k"]) for w in waves) + 8
+    max_seq_len = c["prefix"] + c["tails"][1] + c["new_tokens"] + 2 * c["page"]
+    model = LlamaForCausalLM(cfg, device=device, seed=0)
+    runs = {}
+    for name, dtype, mode in (("float", None, "ngram"),
+                              ("int8", "int8", "ngram"),
+                              ("float_fused", None, "fused")):
+        outs, st, kinds, counts, eng = _prefix_spec_run(
+            model, waves, num_pages=num_pages,
+            max_seq_len=max_seq_len, cache_dtype=dtype, spec_decode=mode,
+            device=device)
+        quant = dtype == "int8"
+        kv_dtype = torch.int8 if quant else eng.g.cache.k.dtype
+        want = _expected_routes(cfg, kinds, c["spec_k"], eng.g.params[
+            "embed"].dtype, kv_dtype)
+        got = _routes_of(counts, quant)
+        other = counts["attention" if quant else "attention_int8"]
+        if got != want or other:
+            raise AssertionError(f"engine_parity_prefix_spec {name}: route "
+                                 f"launches {got} != {want} ({kinds})")
+        need = [k for k in PREFIX_SPEC_COUNTERS
+                if mode == "ngram" or k not in ("spec_drafted_tokens",
+                                                "spec_accepted_tokens")]
+        low = [k for k in need if st[k] <= 0]
+        if low:
+            raise AssertionError(f"engine_parity_prefix_spec {name}: "
+                                 f"counters {low} are 0: {st}")
+        runs[name] = dict(outs=outs, stats={k: st[k] for k in
+                                            PREFIX_SPEC_COUNTERS},
+                          steps=kinds, routes=got,
+                          pool_pages=eng.g.num_pages)
+        del eng
+    cpu = model.to("cpu")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    memo = {}
+    for name, r in runs.items():
+        flat = [(f"w{w}r{i}", p, toks)
+                for w, (wave, outs) in enumerate(zip(waves, r["outs"]))
+                for i, (p, toks) in enumerate(zip(wave, outs))]
+        tie = (2e-2, 0.25) if name == "int8" else (1e-3, 0.0)
+        checked, near, gaps = _teacher_force(
+            f"engine_parity_prefix_spec {name}", cpu, flat,
+            new_tokens=c["new_tokens"], tie_rel=tie[0], max_tie_share=tie[1],
+            memo=memo)
+        r.update(tokens_checked=checked, near_ties=near,
+                 near_tie_rel_gaps=gaps, tie_rel=tie[0])
+        del r["outs"]
+    emit("engine_parity_prefix_spec", layers=cfg.num_hidden_layers,
+         hidden=cfg.hidden_size, heads=cfg.num_attention_heads,
+         kv_heads=cfg.num_key_value_heads, num_pages=num_pages,
+         max_seq_len=max_seq_len, **{k: v for k, v in c.items()},
+         prompt_lens=[[len(p) for p in w] for w in waves], runs=runs)
+    del cpu, model
+    gc.collect()
 
 
 # ------------------------------------------------------------- serve ---
@@ -1512,6 +1777,160 @@ def phase_serve(phase, argv):
     gc.collect()
     torch.cuda.empty_cache()
     return {**launches, **routes}
+
+
+def phase_serve_prefix_spec(argv=None):
+    """Full llama2_7b (32 layers, bf16, random weights from the seed) built
+    by the launcher with ``--prefix-cache --set kv_spill_pages=64 --set
+    spec_decode=ngram`` and a ``--num-pages`` of one wave's pages + 8,
+    behind ``ServingServer.start_http``: three waves of 8 streamed
+    completions of 64 tokens (waves 1 and 3 share a 384-token prefix, wave
+    2 another; tails of 32-128 tokens), one wave after another.  Launch
+    counts are set to 0 just before the first wave and read after the last.
+    Gates: no attention launch on the tile route (decode and verify steps
+    on split, every prefill chunk, prefix hits' mid-context chunks among
+    them, on sm90); every request of wave 1 after the first is a prefix hit;
+    wave 3 swaps pages in; attention launches = layers x (plain steps +
+    verify steps).  Reports each wave's tokens/s and TTFT p50/p95 and the
+    run's counters, swap-in host ms, steps, routes and peak memory.
+    Returns the launch counts in ``phase_serve``'s form."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.kernels import grouped_matmul as gm
+    from paddle_tpu_torch.serving import ServingServer
+    from paddle_tpu_torch.serving.__main__ import (apply_flag_sets,
+                                                   build_engine, build_parser)
+    c = SERVE_PREFIX_SPEC
+    base = argv or ["--preset", "llama2_7b"]
+    args = build_parser().parse_args(base)
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    vocab = getattr(LlamaConfig, args.preset)().vocab_size
+    waves = _prefix_waves(vocab, c["prefix"], c["tails"], c["requests"],
+                          seed=1)
+    num_pages = max(_wave_pages(w, c["prefix"], c["page"], c["new_tokens"],
+                                c["spec_k"]) for w in waves) + 8
+    argv = base + ["--prefix-cache", "--set",
+                   f"kv_spill_pages={c['spill']}", "--set",
+                   "spec_decode=ngram", "--set", f"spec_k={c['spec_k']}",
+                   "--num-pages", str(num_pages),
+                   "--page-size", str(c["page"])]
+    cuda = torch.cuda.is_available()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    args = build_parser().parse_args(argv)
+    saved = flags.get_flags(["kv_spill_pages", "spec_decode", "spec_k"])
+    try:
+        apply_flag_sets(args.flag_sets)
+        t0 = time.perf_counter()
+        engine = build_engine(args)
+    finally:
+        flags.set_flags(saved)
+    cfg = engine.g.config
+    kinds = _count_steps(engine.g)
+    srv = ServingServer(engine, model_name=args.preset, warmup=True)
+
+    async def go():
+        host, port = await srv.start_http("127.0.0.1", 0)
+        try:
+            while not srv.ready():
+                if not srv.engine_alive():
+                    raise RuntimeError("engine thread died during warmup")
+                await asyncio.sleep(0.05)
+            t_ready = time.perf_counter() - t0
+            st0 = engine.stats()
+            # the main path's run: counts from zero, read right after
+            _reset_attn_counts()
+            gm.LAUNCHES = gm.LAUNCHES_SM90 = 0
+            kinds.clear()
+            steps0, spec0 = engine.steps, engine.spec_dispatches
+            per_wave, before = [], st0
+            for wave in waves:
+                t1 = time.perf_counter()
+                res = await asyncio.gather(*[
+                    _client(host, port, p, c["new_tokens"]) for p in wave])
+                wall = time.perf_counter() - t1
+                st = engine.stats()
+                per_wave.append((res, wall, {k: st[k] - before[k] for k in
+                                             PREFIX_SPEC_COUNTERS}))
+                before = st
+            counts = _attn_counts()
+            counts["gmm"], counts["gmm_sm90"] = gm.LAUNCHES, gm.LAUNCHES_SM90
+            return (per_wave, counts, engine.steps - steps0,
+                    engine.spec_dispatches - spec0, t_ready, st0)
+        finally:
+            await srv.stop_http()
+
+    per_wave, counts, steps, spec_steps, t_ready, st0 = asyncio.run(go())
+    for w, (res, _wall, _st) in enumerate(per_wave):
+        for r in res:
+            if r["finish"] != "length" or len(r["ids"]) != c["new_tokens"] \
+                    or not all(0 <= t < cfg.vocab_size for t in r["ids"]):
+                raise AssertionError(
+                    f"serve_prefix_spec wave {w + 1}: {r['status']}, finish "
+                    f"{r['finish']}, {len(r['ids'])} ids")
+    L = cfg.num_hidden_layers
+    quant = engine.g.cache.quantized
+    routes = _routes_of(counts, quant)
+    total = counts["attention_int8" if quant else "attention"]
+    plain = steps - spec_steps
+    hits = [st["prefix_hits"] for _r, _w, st in per_wave]
+    swaps = [st["kv_swapins"] for _r, _w, st in per_wave]
+    fails = []
+    dt = engine.g.params["embed"].dtype
+    want = _expected_routes(cfg, kinds, c["spec_k"], dt,
+                            torch.int8 if quant else engine.g.cache.k.dtype)
+    if routes != want or routes["tile"] or not routes["split"] \
+            or not routes["sm90"]:
+        fails.append(f"routes {routes}, want {want} (tile must take none; "
+                     f"steps {kinds})")
+    if hits[0] != c["requests"] - 1:
+        fails.append(f"wave 1 prefix hits {hits[0]}, want "
+                     f"{c['requests'] - 1}")
+    if swaps[2] <= 0:
+        fails.append(f"wave 3 swapped nothing in (swap-ins by wave {swaps})")
+    if total != L * (plain + spec_steps) or spec_steps == 0:
+        fails.append(f"attention launches {total} != {L} layers x "
+                     f"({plain} plain + {spec_steps} verify steps)")
+    if fails:
+        raise AssertionError("serve_prefix_spec: " + "; ".join(fails))
+    st = engine.stats()
+    waves_out = []
+    for res, wall, wst in per_wave:
+        ttfts = sorted(r["ttft_s"] for r in res)
+        waves_out.append(dict(
+            wall_s=wall, tokens_per_s=len(res) * c["new_tokens"] / wall,
+            ttft_p50_s=float(np.percentile(ttfts, 50)),
+            ttft_p95_s=float(np.percentile(ttfts, 95)), counters=wst))
+    emit("serve_prefix_spec", preset=args.preset, layers=L,
+         hidden=cfg.hidden_size, dtype=cfg.dtype,
+         kv_cache_dtype=st["kv_cache_dtype"], max_batch=args.max_batch,
+         max_seq_len=args.max_seq_len, page_size=args.page_size,
+         prefill_bucket=args.prefill_bucket, num_pages=engine.g.num_pages,
+         pool_bytes=engine.g.pool_bytes,
+         spill_ring_bytes=engine.spill.ring_bytes,
+         prompt_lens=[[len(p) for p in w] for w in waves],
+         new_tokens=c["new_tokens"], setup_and_warmup_s=t_ready,
+         waves=waves_out,
+         counters={k: st[k] - st0[k] for k in PREFIX_SPEC_COUNTERS},
+         swapin_host_ms=engine.spill.swapin_host_ms,
+         plain_steps=plain, spec_steps=spec_steps, step_kinds=dict(kinds),
+         attention_routes=routes, kernel_launches=counts,
+         max_memory_allocated=(torch.cuda.max_memory_allocated()
+                               if cuda else None),
+         nvidia_smi=_nvidia_smi() if cuda else None)
+    del engine, srv
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return {"attention": counts["attention"],
+            "attention_int8": counts["attention_int8"], "gmm": counts["gmm"],
+            "attention_split": counts["attention_split"],
+            "attention_int8_split": counts["attention_int8_split"],
+            "attention_sm90": counts["attention_sm90"],
+            "attention_int8_sm90": counts["attention_int8_sm90"],
+            "gmm_sm90": counts["gmm_sm90"]}
 
 
 # ------------------------------------------------------- flash attention ---
@@ -4061,11 +4480,13 @@ def main() -> int:
     phase_engine_parity()
     phase_engine_parity_int8()
     phase_engine_parity_moe()
+    phase_engine_parity_prefix_spec()
     runs = [phase_serve("serve", ["--preset", "llama2_7b"]),
             phase_serve("serve_int8", ["--preset", "llama2_7b",
                                        "--cache-dtype", "int8"]),
             phase_serve("serve_moe", ["--preset", "mixtral_8x7b",
-                                      "--num-layers", "16"])]
+                                      "--num-layers", "16"]),
+            phase_serve_prefix_spec()]
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     decode = gmm_t[0]              # the gmm line: the decode gate/up shape
     flash_err, flash_t = phase_kernel_flash(built)

@@ -18,11 +18,18 @@
   anything back; the host drains results every ``sync_every`` steps.  Small
   per-step host inputs go up through pinned buffers with
   ``non_blocking=True``.
+- The engine's optional serving features, each off by default: the prefix
+  cache (``prefix_cache=``: radix-shared KV pages, copy-on-write, LRU
+  eviction), speculative decoding (``spec_decode="ngram"``: the T=K verify
+  step, ``_spec_verify_fn``; ``"fused"``: K decode steps per dispatch,
+  ``_fused_decode_fn``) and the pinned host spill tier under the prefix
+  cache (``kv_spill_pages=``).  Every pool write (step commit, COW page
+  copy, swap-in) is enqueued on the one current stream, whose order is the
+  only ordering they rely on.
 
 Not ported yet (each a later ROADMAP item; the constructors do not take
-their options): the prefix cache, speculative decoding, the host spill
-tier, tensor parallelism (and with it the sharded MoE branch), and the
-metrics / attribution hooks.
+their options): tensor parallelism (and with it the sharded MoE branch),
+session migration, and the metrics / attribution hooks.
 """
 
 from __future__ import annotations
@@ -44,7 +51,23 @@ from ..kernels.rms_norm import rms_norm_fp32
 from ..models.llama import (LlamaForCausalLM, _grouped_ffn, _rope_cos_sin,
                             _route_topk)
 from ..utils import extract_params
+from . import speculative as _sp
 from .kv_cache import PagedKVCache
+from .kv_spill import HostSpillPool
+from .prefix_cache import PrefixCache
+
+
+def _cow_copy_pages(arrays, src, dst):
+    """Whole-page copies ``src[i] -> dst[i]`` across every layer and head
+    of every pool plane (the prefix cache's copy-on-write), in place.
+    ``arrays`` is the pool tuple: ``(k, v)`` float or ``(k, v, k_scale,
+    v_scale)`` int8; each plane indexes pages on axis 2, so one loop copies
+    them all.  ``src``/``dst``: int64 index tensors on the pool's device,
+    holding live pairs only (the caller drops the no-op ones on the host:
+    on the int8 pool index ``num_pages`` is the commit's scratch page, not
+    an out-of-range id)."""
+    for arr in arrays:
+        arr.index_copy_(2, dst, arr.index_select(2, src))
 
 
 @dataclass
@@ -308,7 +331,8 @@ class LlamaGenerator:
     # ---- the ONE engine step ----
     @torch.no_grad()
     def _step_fn(self, gc, T, tokens, q_lens, positions, finished,
-                 decode_mask, commit_mask, counts, budgets, block_tables):
+                 decode_mask, commit_mask, counts, budgets, block_tables,
+                 recent=None):
         """One fused serving step: attention over every layer → one batched
         KV commit → sample.  All arguments are device tensors ([B] or
         [B, T]); nothing is read back to the host.
@@ -316,8 +340,13 @@ class LlamaGenerator:
         tokens: [B, T] this step's query tokens (decode rows use column 0);
         q_lens: [B] valid tokens per row; positions: [B] write cursor;
         decode_mask: [B] rows whose column-0 token is generated output;
-        commit_mask: [B] rows whose sample is a real generated token.
-        Returns (out_tokens, new_positions, finished, all_done, counts).
+        commit_mask: [B] rows whose sample is a real generated token;
+        recent: [B, nmax] the n-gram drafter's ring of last committed
+        tokens (ngram spec engines only), appended to on every committing
+        row so the verify step's context is exact across prefill and mixed
+        steps.
+        Returns (out_tokens, new_positions, finished, all_done, counts) and,
+        with ``recent``, the updated ring last.
         """
         B = tokens.shape[0]
         if gc.eos_token_id is not None:
@@ -342,7 +371,115 @@ class LlamaGenerator:
         committed = commit_mask & ~finished
         counts = counts + committed.to(torch.int32)
         finished = finished | (counts >= budgets)
-        return out_tokens, new_positions, finished, finished.all(), counts
+        out = (out_tokens, new_positions, finished, finished.all(), counts)
+        if recent is not None:
+            recent = _sp.shift_append(recent, out_tokens[:, None],
+                                      committed.to(torch.int32))
+            return out + (recent,)
+        return out
+
+    # ---- the T=K speculative verify step (ngram mode) ----
+    @torch.no_grad()
+    def _spec_verify_fn(self, gc, K, nmax, last_tok, recent, hist, hist_len,
+                        positions, finished, counts, budgets, write_caps,
+                        block_tables):
+        """One speculative decode step: draft K-1 tokens on the device from
+        the history table, verify all of them in ONE mixed-mode T=K forward
+        (one attention launch per layer), commit the longest accepted
+        prefix plus the bonus token, and roll back the rest, all on the
+        device.
+
+        Rollback is positional: rejected rows' KV was written but
+        ``positions`` only advances by the commit count, so the kernel
+        (which masks by context length) never reads a stale row and the
+        cursor overwrites it in place later.  ``write_caps`` [B] is the
+        tokens each row's block table covers: a row never writes past it.
+
+        Returns (sampled [B,K], n_commit [B], drafted [B], last_tok,
+        positions, finished, all_done, counts, recent).
+        """
+        if gc.eos_token_id is not None:
+            # EOS on the chained input token: the final prompt chunk's
+            # sample is checked here as the plain step checks column 0
+            finished = finished | (last_tok == gc.eos_token_id)
+        finished = finished | (positions >= self.max_seq_len)
+        drafts, draft_len = _sp.lookup_drafts(hist, hist_len, recent, K, nmax)
+        cap_room = torch.clamp(write_caps - positions, min=0)
+        ql = torch.where(finished, torch.zeros_like(draft_len),
+                         torch.minimum(1 + draft_len, cap_room)
+                         ).to(torch.int32)
+        drafted = torch.clamp(ql - 1, min=0)      # drafts actually verified
+        tokens = torch.cat([last_tok[:, None], drafts], dim=1)
+
+        h = self._forward_tokens(self.params, tokens, ql, positions,
+                                 block_tables)
+        B = tokens.shape[0]
+        logits = (h @ self.params["head"]).float()               # [B, K, V]
+        # slot j samples the token at sequence index positions + j + 1
+        pos_k = positions[:, None] + torch.arange(
+            1, K + 1, dtype=torch.int32, device=positions.device)[None, :]
+        sampled = _sample(logits.reshape(B * K, -1), gc.seed,
+                          pos_k.reshape(B * K), gc).reshape(B, K)
+
+        n_commit = _sp.accept_length(tokens, sampled, ql)
+        if gc.eos_token_id is not None:
+            n_commit, hit_eos = _sp.eos_clamp(sampled, n_commit,
+                                              gc.eos_token_id)
+            finished = finished | hit_eos
+        n_commit = torch.minimum(n_commit, torch.clamp(budgets - counts,
+                                                       min=0))
+        n_commit = torch.minimum(
+            n_commit, torch.clamp(self.max_seq_len - positions, min=0)
+        ).to(torch.int32)
+        counts = counts + n_commit
+        finished = finished | (counts >= budgets)
+        positions = positions + n_commit
+        finished = finished | (positions >= self.max_seq_len)
+
+        picked = torch.gather(
+            sampled, 1, torch.clamp(n_commit - 1, min=0)[:, None].long())[:, 0]
+        last_tok = torch.where(n_commit > 0, picked, last_tok)
+        recent = _sp.shift_append(recent, sampled, n_commit)
+        return (sampled, n_commit, drafted, last_tok, positions, finished,
+                finished.all(), counts, recent)
+
+    # ---- fused K-steps-per-dispatch decode (fused mode) ----
+    @torch.no_grad()
+    def _fused_decode_fn(self, gc, K, last_tok, positions, finished, counts,
+                         budgets, write_caps, block_tables):
+        """K sequential T=1 decode steps in ONE engine dispatch: every token
+        is committed, so this amortizes the host's per-step work.  Each
+        step replays the plain step's freezes (input EOS, capacity, budget),
+        so the committed tokens are a prefix of the [B, K] output and greedy
+        outputs equal the sequential engine's.
+
+        Returns (out [B,K], n_commit [B], last_tok, positions, finished,
+        all_done, counts).
+        """
+        outs, n_commit = [], None
+        tok = last_tok
+        for _ in range(K):
+            if gc.eos_token_id is not None:
+                finished = finished | (tok == gc.eos_token_id)
+            finished = finished | (positions >= self.max_seq_len)
+            # a row whose block table ran out of grown pages stalls; it
+            # resumes next dispatch once the host grew or reclaimed pages
+            ql = torch.where(finished | (positions >= write_caps),
+                             torch.zeros_like(positions),
+                             torch.ones_like(positions)).to(torch.int32)
+            h = self._forward_tokens(self.params, tok[:, None], ql,
+                                     positions, block_tables)
+            logits = (h[:, 0] @ self.params["head"]).float()
+            sampled = _sample(logits, gc.seed, positions + ql, gc)
+            out = torch.where(ql > 0, sampled, tok)
+            positions = positions + ql
+            counts = counts + ql
+            finished = finished | (counts >= budgets)
+            outs.append(out)
+            n_commit = ql if n_commit is None else n_commit + ql
+            tok = out
+        return (torch.stack(outs, dim=1), n_commit, tok, positions, finished,
+                finished.all(), counts)
 
     # ---- host loop ----
     def generate(self, prompts: Sequence[Sequence[int]],
@@ -485,10 +622,35 @@ class ContinuousBatchingEngine:
     Engine geometry kwargs (``max_seq_len``, ``page_size``,
     ``prefill_bucket``, ``num_pages``, ``cache_dtype``, ``sync_every``) go to
     :class:`LlamaGenerator`.
+
+    Optional features, each resolved from its flag when the argument is
+    None and off by default:
+
+    - ``prefix_cache=True``: admission consults the radix prefix cache
+      (``inference/prefix_cache.py``).  A prompt's longest cached
+      page-aligned prefix is attached to its block table by reference (no
+      prefill and no KV writes for those tokens: the chunked prefill starts
+      at the first uncached token), a fully cached prompt privatizes its
+      last page copy-on-write, retired sequences park their prompt pages in
+      an LRU pool evicted only under pressure, and rows that matched pages
+      a concurrent producer is still writing idle until the producer's
+      prefill has been enqueued past them.
+    - ``spec_decode="ngram"`` / ``"fused"`` (``spec_k``, ``spec_ngram_max``):
+      decode-only steps take the speculative lane, one dispatch committing
+      up to K tokens a row (``inference/speculative.py``).
+    - ``kv_spill_pages=N`` (with the prefix cache): evicted cached pages
+      move to a pinned host ring of N pages and swap back in on a match
+      (``inference/kv_spill.py``).
+
+    Greedy outputs with any of them on equal the plain engine's.
     """
 
     def __init__(self, model: LlamaForCausalLM, *, max_batch: int = 8,
-                 gen: Optional[GenerationConfig] = None, device=None, **kw):
+                 gen: Optional[GenerationConfig] = None, device=None,
+                 prefix_cache: Optional[bool] = None,
+                 spec_decode=None, spec_k: Optional[int] = None,
+                 spec_ngram_max: Optional[int] = None,
+                 kv_spill_pages: Optional[int] = None, **kw):
         self.gen_cfg = gen or GenerationConfig()
         self.g = LlamaGenerator(model, max_batch=max_batch, device=device,
                                 **kw)
@@ -510,13 +672,61 @@ class ContinuousBatchingEngine:
         self._next_id = 0
         self._bt = np.zeros((B, self.g.pages_per_seq), np.int32)
         self._bt_dev = self.g.upload(self._bt)
-        # pending window: (out_tokens [B] on the device, commit np [B])
+        # pending window: ("step", out [B], commit np [B], None) for plain
+        # steps, ("spec", out [B, K], n_commit [B], drafted [B] | None) for
+        # speculative ones (device tensors until the drain)
         self._pending: List[tuple] = []
         self._steps_since_drain = 0
         # per-slot cap on valid generated tokens, set when a sequence
         # freezes early because the pool ran dry mid-decode
         self._gen_cap: List[Optional[int]] = [None] * B
-        self.steps = 0                       # fused device steps dispatched
+        self.steps = 0                # device dispatches, plain and spec
+        self.spec_dispatches = 0      # of which speculative
+
+        # ---- prefix cache: radix-shared KV pages ----
+        if prefix_cache is None:
+            prefix_cache = flags.flag("prefix_cache")
+        self.prefix_cache: Optional[PrefixCache] = None
+        # per-slot admission leftovers: the nodes a row waits on before its
+        # first prefill chunk (their producer is still writing them) and
+        # the COW page copies to enqueue once the row may start
+        self._gate: List[tuple] = [()] * B
+        self._cow_pairs: List[List[tuple]] = [[] for _ in range(B)]
+        # ---- speculative decoding ----
+        self.spec = _sp.resolve_spec_config(spec_decode, spec_k,
+                                            spec_ngram_max)
+        self._spec_counts = {"spec_steps": 0, "spec_committed_tokens": 0,
+                             "spec_drafted_tokens": 0,
+                             "spec_accepted_tokens": 0,
+                             "spec_rejected_tokens": 0}
+        if self.spec is not None and self.spec.mode == "ngram":
+            # host-owned history table (uploaded at admission and drains
+            # only) + the device-resident recent-token ring every step keeps
+            self._hist = _sp.SpecHistory(B, self.g.max_seq_len,
+                                         upload=self.g.upload)
+            self._recent = torch.full((B, self.spec.ngram_max),
+                                      int(_sp.CTX_PAD), dtype=i32, device=dev)
+        else:
+            self._hist = None
+            self._recent = None
+        # per-row write caps of the spec steps (tokens the block table
+        # covers): uploaded only when an allocation, truncation or
+        # admission changed them, so warm spec steps upload nothing
+        self._caps_dev = torch.zeros((B,), dtype=i32, device=dev)
+        self._caps_dirty = True
+        self.spill: Optional[HostSpillPool] = None
+        if prefix_cache:
+            self.prefix_cache = PrefixCache(
+                self.g.cache.allocator, self.g.page_size,
+                min_pages=flags.flag("prefix_cache_min_pages"))
+            # ---- pinned host spill tier: evicted cached pages move to a
+            # host ring instead of being dropped, and swap back in on a
+            # match (a copy instead of a re-prefill)
+            if kv_spill_pages is None:
+                kv_spill_pages = flags.flag("kv_spill_pages")
+            if kv_spill_pages and kv_spill_pages > 0:
+                self.spill = HostSpillPool(self.g.cache, int(kv_spill_pages))
+                self.prefix_cache.set_spill(self.spill)
 
     # ---- public api ----
     def submit(self, prompt: Sequence[int],
@@ -558,16 +768,39 @@ class ContinuousBatchingEngine:
 
     # ---- engine step ----
     def step(self) -> List[Request]:
-        """Admit what fits, run ONE fused device step, drain every
-        ``sync_every`` steps.  Returns requests retired by this call."""
+        """Admit what fits, run ONE device step (plain or speculative),
+        drain every ``sync_every`` steps.  Returns requests retired by this
+        call."""
         self._admit()
+        # requests retired by a mid-step drain under pool pressure still
+        # ride this call's return
+        early_done: List[Request] = []
         if all(r is None for r in self.slot_req):
             return self._drain() if self._pending else []
         g = self.g
         B = self.B
-        prompt_rows = [b for b in range(B) if self.slot_req[b] is not None
+        if self.prefix_cache is not None:
+            self._open_gates()
+        prompt_rows = [b for b in range(B)
+                       if self.slot_req[b] is not None and not self._gate[b]
                        and self.prompt_pos[b] < len(self.slot_req[b].prompt)]
+        # decode-only steps take the speculative lane: ONE dispatch commits
+        # up to K tokens a row.  Steps with prefill chunks in flight, or
+        # with rows gated on a producer, take the plain step
+        spec_lane = (self.spec is not None and not prompt_rows
+                     and not any(self._gate)
+                     and any(r is not None for r in self.slot_req))
         T = g.prefill_bucket if prompt_rows else 1
+        if spec_lane:
+            # the step may commit up to K tokens a row: raise the host's
+            # length bound first so the growth below covers every position
+            # it can write (the drain resyncs the bound and rolls surplus
+            # pages back)
+            for b in range(B):
+                req = self.slot_req[b]
+                if req is not None and self.prompt_pos[b] >= len(req.prompt):
+                    self.host_lens[b] = min(
+                        int(self.host_lens[b]) + self.spec.k, g.max_seq_len)
 
         # grow pages BEFORE the step: every position this step writes must
         # already be inside the row's block table
@@ -579,14 +812,23 @@ class ContinuousBatchingEngine:
                 continue
             while alloc.context_len(req.req_id) <= int(self.host_lens[b]) \
                     and alloc.context_len(req.req_id) < g.max_seq_len:
-                if alloc.free_pages == 0:
+                if alloc.available_pages == 0:
+                    if self.spec is not None and self._pending:
+                        # the speculative overestimate may be what holds
+                        # the pool: drain now (it resyncs host lengths and
+                        # rolls surplus tail pages back), then retry this
+                        # row's growth once, with the window empty
+                        early_done.extend(self._drain())
+                        if self.slot_req[b] is None:
+                            break
+                        continue
                     # pool ran dry mid-decode (undersized num_pages):
                     # finalize THIS sequence early — freeze it on the
                     # device and cap its valid output at what was
                     # generated before this step
                     if self._gen_cap[b] is None:
                         self._gen_cap[b] = len(req.output) + sum(
-                            int(cm[b]) for _o, cm in self._pending)
+                            int(cm[b]) for _k, _o, cm, _d in self._pending)
                         self.finished[b] = True
                     break
                 alloc.extend(req.req_id,
@@ -597,6 +839,17 @@ class ContinuousBatchingEngine:
                 grew = True
         if grew:
             self._bt_dev = g.upload(self._bt)
+            self._caps_dirty = True
+
+        if spec_lane:
+            out_mat, ncommit, dlen = self._dispatch_spec()
+            self._pending.append(("spec", out_mat, ncommit, dlen))
+            self.steps += 1
+            self.spec_dispatches += 1
+            self._steps_since_drain += 1
+            if self._steps_since_drain >= g.sync_every:
+                return early_done + self._drain()
+            return early_done
 
         ql = np.zeros((B,), np.int32)
         decode = np.zeros((B,), bool)
@@ -604,7 +857,9 @@ class ContinuousBatchingEngine:
         chunk = np.zeros((B, T), np.int32)
         for b in range(B):
             req = self.slot_req[b]
-            if req is None:
+            if req is None or self._gate[b]:
+                # gated: this row's matched prefix pages are still being
+                # written by their producer row
                 continue
             rem = len(req.prompt) - int(self.prompt_pos[b])
             if rem > 0:                      # prefill chunk
@@ -626,26 +881,154 @@ class ContinuousBatchingEngine:
         dm = g.upload(decode)
         # decode rows feed their last sampled token, still on the device
         tokens_in[:, 0] = torch.where(dm, self.tokens, tokens_in[:, 0])
-        (self.tokens, self.positions, self.finished, _all_done,
-         self.counts) = g._step_fn(
-            self.gen_cfg, T, tokens_in, g.upload(ql), self.positions,
-            self.finished, dm, g.upload(commit), self.counts, self.budgets,
-            self._bt_dev)
-        self._pending.append((self.tokens, commit))
+        args = (self.gen_cfg, T, tokens_in, g.upload(ql), self.positions,
+                self.finished, dm, g.upload(commit), self.counts,
+                self.budgets, self._bt_dev)
+        if self._recent is not None:
+            # ngram engines carry the drafter's ring through EVERY step, so
+            # the verify step's context is exact when the row reaches decode
+            (self.tokens, self.positions, self.finished, _all_done,
+             self.counts, self._recent) = g._step_fn(*args,
+                                                     recent=self._recent)
+        else:
+            (self.tokens, self.positions, self.finished, _all_done,
+             self.counts) = g._step_fn(*args)
+        self._pending.append(("step", self.tokens, commit, None))
         self.steps += 1
+        if self.prefix_cache is not None:
+            # this step's prefill writes are enqueued: pages wholly below
+            # each row's prompt cursor are safe for later steps of other
+            # rows to read (the stream runs work in enqueue order)
+            for b in range(B):
+                req = self.slot_req[b]
+                if req is not None and ql[b] > 0 and not decode[b]:
+                    self.prefix_cache.note_progress(
+                        req.req_id, int(self.prompt_pos[b]))
         self._steps_since_drain += 1
         if self._steps_since_drain >= g.sync_every:
-            return self._drain()
-        return []
+            return early_done + self._drain()
+        return early_done
+
+    # ---- prefix-cache gates: rows waiting on a producer's prefill ----
+    def _open_gates(self):
+        """Clear gates whose matched pages became ready, and enqueue the
+        cleared rows' COW page copies BEFORE this step reads them.
+        Producers advance every step, so every gate opens in bounded
+        time."""
+        starting = []
+        for b in range(self.B):
+            if self._gate[b] and all(x.ready for x in self._gate[b]):
+                self._gate[b] = ()
+            if not self._gate[b] and self._cow_pairs[b]:
+                starting.extend(self._cow_pairs[b])
+                self._cow_pairs[b] = []
+        if starting:
+            src = self.g.upload(np.asarray([s for s, _ in starting], np.int64))
+            dst = self.g.upload(np.asarray([d for _, d in starting], np.int64))
+            _cow_copy_pages(self.g.cache.arrays, src, dst)
+
+    # ---- the speculative dispatch (decode-only batches) ----
+    def _dispatch_spec(self):
+        """Enqueue ONE speculative step: the T=K ngram verify step or the
+        fused K-step decode.  Beyond the chained engine state it reads only
+        the drain-refreshed history table and the cached write caps, so the
+        warm spec loop uploads and reads back nothing.
+
+        Returns the pending-window payload ``(out [B, K], n_commit [B],
+        drafted [B] | None)``, device tensors read at the drain."""
+        g = self.g
+        spec = self.spec
+        if self._caps_dirty:
+            alloc = g.cache.allocator
+            caps = np.zeros((self.B,), np.int32)
+            for b in range(self.B):
+                req = self.slot_req[b]
+                if req is not None:
+                    caps[b] = alloc.context_len(req.req_id)
+            self._caps_dev = g.upload(caps)
+            self._caps_dirty = False
+        if spec.mode == "ngram":
+            hist, hist_len = self._hist.device_arrays()
+            (out, ncommit, dlen, self.tokens, self.positions, self.finished,
+             _all_done, self.counts, self._recent) = g._spec_verify_fn(
+                self.gen_cfg, spec.k, spec.ngram_max, self.tokens,
+                self._recent, hist, hist_len, self.positions, self.finished,
+                self.counts, self.budgets, self._caps_dev, self._bt_dev)
+        else:
+            (out, ncommit, self.tokens, self.positions, self.finished,
+             _all_done, self.counts) = g._fused_decode_fn(
+                self.gen_cfg, spec.k, self.tokens, self.positions,
+                self.finished, self.counts, self.budgets, self._caps_dev,
+                self._bt_dev)
+            dlen = None
+        return out, ncommit, dlen
 
     # ---- serving telemetry ----
     def stats(self) -> dict:
-        """Pool telemetry and the count of fused device steps."""
+        """Pool, prefix-cache, spill and speculative telemetry and the count
+        of device dispatches (with a feature off, its counters are absent
+        or 0)."""
         s = self.g.cache.allocator.stats()
         s["kv_cache_dtype"] = str(self.g.cache.k.dtype).replace("torch.", "")
         s["pool_bytes"] = self.g.pool_bytes
         s["steps"] = self.steps
+        s["prefix_cache_enabled"] = self.prefix_cache is not None
+        if self.prefix_cache is not None:
+            s["prefix_cached_pages"] = self.prefix_cache.cached_pages()
+            s["prefix_evictable_pages"] = self.prefix_cache.evictable_pages()
+            s["prefix_spilled_pages"] = self.prefix_cache.spilled_pages()
+            s["prefix_digest_epoch"] = self.prefix_cache.digest_epoch
+        s["kv_spill_enabled"] = self.spill is not None
+        if self.spill is not None:
+            s.update(self.spill.stats())
+        s["spec_decode_enabled"] = self.spec is not None
+        if self.spec is not None:
+            s["spec_mode"] = self.spec.mode
+            s["spec_k"] = self.spec.k
+            s.update(self._spec_counts)
         return s
+
+    def prefix_digest(self, max_entries: Optional[int] = None,
+                      since: Optional[str] = None):
+        """Prefix-residency digest for router placement: the chain hashes
+        of this engine's indexed KV pages and the page geometry a router
+        needs to hash an incoming prompt (``prefix_cache.block_hashes``).
+        ``None`` with the cache off.
+
+        ``since="<gen>:<epoch>"`` asks for only the adds/evictions after a
+        confirmed epoch: ``mode="delta"`` when the change log still covers
+        that epoch of this cache instance, else ``mode="full"`` with the
+        whole (truncated) set.  Past ``router_digest_sketch_threshold``
+        entries the digest ships as the Bloom sketch (``mode="sketch"``)."""
+        cache = self.prefix_cache
+        if cache is None:
+            return None
+        if max_entries is None:
+            max_entries = flags.flag("router_digest_max")
+        out = {"page_size": self.g.page_size,
+               "algo": "blake2b8-chain",
+               "gen": cache.digest_gen,
+               "epoch": cache.digest_epoch,
+               # the subset demoted to the host ring, shipped whole
+               "spilled": cache.spilled_hashes()}
+        sk = cache.sketch_wire()
+        if (sk is not None and sk["n"] >
+                int(flags.flag("router_digest_sketch_threshold"))):
+            out.update(mode="sketch", sketch=sk, count=sk["n"])
+            return out
+        if since:
+            gen, _, ep = str(since).partition(":")
+            if gen == cache.digest_gen:
+                try:
+                    delta = cache.digest_delta(int(ep))
+                except ValueError:
+                    delta = None
+                if delta is not None:
+                    adds, dels = delta
+                    out.update(mode="delta", adds=adds, dels=dels)
+                    return out
+        out.update(mode="full", hashes=cache.digest(max_entries))
+        return out
 
     # ---- drain: the ONLY host<->device sync of the steady state ----
     def _drain(self) -> List[Request]:
@@ -653,20 +1036,55 @@ class ContinuousBatchingEngine:
         if not self._pending:
             self._steps_since_drain = 0
             return done
-        outs = torch.stack([o for o, _cm in self._pending]).cpu().numpy()
-        window = [(outs[i], cm) for i, (_o, cm) in enumerate(self._pending)]
+        # one transfer: the finished flags and every pending output (and,
+        # for spec steps, commit and draft counts), flattened together
+        B = self.B
+        parts = [self.finished.to(torch.int32)]
+        for kind, out, cm, dl in self._pending:
+            parts.append(out.reshape(-1).to(torch.int32))
+            if kind == "spec":
+                parts.append(cm.to(torch.int32))
+                if dl is not None:
+                    parts.append(dl.to(torch.int32))
+        flat = torch.cat(parts).cpu().numpy()
+        fin = flat[:B].astype(bool)
+        off = B
+        window = []
+        for kind, out, cm, dl in self._pending:
+            n = out.numel()
+            o = flat[off:off + n].reshape(tuple(out.shape))
+            off += n
+            if kind == "spec":
+                c = flat[off:off + B]
+                off += B
+                d = None
+                if dl is not None:
+                    d = flat[off:off + B]
+                    off += B
+                window.append((kind, o, c, d))
+            else:
+                window.append((kind, o, cm, None))
         self._pending.clear()
         self._steps_since_drain = 0
-        fin = self.finished.cpu().numpy()
+        self._fold_spec_metrics(window)
         alloc = self.g.cache.allocator
         eos = self.gen_cfg.eos_token_id
-        for b in range(self.B):
+        bt_dirty = False
+        for b in range(B):
             req = self.slot_req[b]
             if req is None:
                 continue
-            for out, cm in window:
-                if cm[b]:
-                    req.output.append(int(out[b]))
+            # committed tokens this window: a plain step contributes its
+            # sample where the host marked the row committing, a spec step
+            # its accepted prefix (frozen rows: none)
+            new_tok: List[int] = []
+            for kind, out, cm, _dl in window:
+                if kind == "step":
+                    if cm[b]:
+                        new_tok.append(int(out[b]))
+                else:
+                    new_tok.extend(int(v) for v in out[b, :int(cm[b])])
+            req.output.extend(new_tok)
             # the device freeze repeats the last token once finished: trim
             # to the true capacity / EOS / budget boundary here.  cap = what
             # fits in the cache (max_seq minus the prompt), lowered further
@@ -681,15 +1099,77 @@ class ContinuousBatchingEngine:
             elif len(req.output) >= req.max_new_tokens:
                 req.output = req.output[:req.max_new_tokens]
             elif len(req.output) < cap and not fin[b]:
+                if self.spec is not None and \
+                        self.prompt_pos[b] >= len(req.prompt):
+                    bt_dirty |= self._rollback_tail(b, req)
+                if self._hist is not None and new_tok:
+                    # the drafter's table grows only here, at the drain
+                    self._hist.extend_row(b, new_tok)
                 continue                     # still running
             req.done = True
+            if self.prefix_cache is not None:
+                # its cached prefix pages fall to the LRU pool (evicted
+                # only when an allocation needs the memory)
+                self.prefix_cache.release(req.req_id)
             alloc.free(req.req_id)
             self.slot_req[b] = None
             self._gen_cap[b] = None
             self.finished[b] = True
             self.completed[req.req_id] = req.output
             done.append(req)
+        if bt_dirty:
+            self._bt_dev = self.g.upload(self._bt)
+            self._caps_dirty = True
         return done
+
+    def _fold_spec_metrics(self, window) -> None:
+        """Fold the window's speculative counters (steps, committed,
+        drafted, accepted, rejected tokens) into the engine's books, at the
+        drain."""
+        if self.spec is None:
+            return
+        n_spec = c_tot = d_tot = a_tot = r_tot = 0
+        for kind, _out, cm, dl in window:
+            if kind != "spec":
+                continue
+            n_spec += 1
+            for b in range(self.B):
+                n = int(cm[b])
+                d = int(dl[b]) if dl is not None else 0
+                if n <= 0 and d <= 0:
+                    continue
+                acc = min(max(n - 1, 0), d)
+                c_tot += n
+                d_tot += d
+                a_tot += acc
+                r_tot += d - acc
+        if not n_spec:
+            return
+        sc = self._spec_counts
+        sc["spec_steps"] += n_spec
+        sc["spec_committed_tokens"] += c_tot
+        sc["spec_drafted_tokens"] += d_tot
+        sc["spec_accepted_tokens"] += a_tot
+        sc["spec_rejected_tokens"] += r_tot
+
+    def _rollback_tail(self, b: int, req: Request) -> bool:
+        """Resync the host length bound to the device's true commit count
+        and release surplus tail pages the speculative overestimate grew
+        for tokens that were then rejected.  ``PageAllocator.truncate``
+        drops only THIS sequence's references, so a shared or COW page is
+        never taken from a sibling.  K tokens of headroom stay allocated.
+        Returns True when the row's block table changed."""
+        g = self.g
+        true_len = len(req.prompt) + len(req.output)
+        self.host_lens[b] = true_len
+        alloc = g.cache.allocator
+        keep = min(true_len + self.spec.k, g.max_seq_len)
+        if alloc.context_len(req.req_id) > keep + g.page_size:
+            alloc.truncate(req.req_id, keep)
+            self._bt[b] = alloc.block_table(
+                [req.req_id], max_pages=g.pages_per_seq)[0]
+            return True
+        return False
 
     # ---- admission (host-known free slots only; frees appear at drains) ----
     def _admit(self):
@@ -698,23 +1178,70 @@ class ContinuousBatchingEngine:
             return
         g = self.g
         alloc = g.cache.allocator
+        cache = self.prefix_cache
         admitted = []
+        starts = np.zeros((self.B,), np.int32)
         while free and self.waiting:
             req = self.waiting[0]
             # truncate ONCE here; every later length derives from it
             req.prompt = req.prompt[: g.max_seq_len - 1]
-            need = -(-len(req.prompt) // g.page_size)
-            if alloc.free_pages < need:
+            dense_need = -(-len(req.prompt) // g.page_size)
+            # prefix match: the longest cached page-aligned prefix trims
+            # both the fresh-page demand and the prefill schedule
+            plan = cache.plan(req.prompt) if cache is not None else None
+            need = plan.fresh_pages if plan is not None else dense_need
+            # matched idle pages are about to be pinned, not evicted: they
+            # cannot count as reclaimable supply
+            avail = alloc.available_pages - (
+                plan.idle_matched if plan is not None else 0)
+            if plan is not None and plan.nodes and avail < need \
+                    and len(free) == self.B and not admitted:
+                # nothing is running: admit from scratch (and let reclaim
+                # evict the cache) rather than wait forever
+                plan = None
+                need, avail = dense_need, alloc.available_pages
+            if avail < need:
                 if len(free) == self.B and not admitted \
-                        and need > alloc.num_pages:
+                        and dense_need > alloc.num_pages:
                     raise MemoryError(
-                        f"prompt needs {need} pages but the pool only "
+                        f"prompt needs {dense_need} pages but the pool only "
                         f"has {alloc.num_pages}; raise num_pages or "
                         "page_size")
                 break                         # wait for pages to free up
             self.waiting.popleft()
             b = free.pop(0)
-            alloc.allocate(req.req_id, len(req.prompt))
+            if plan is not None:
+                try:
+                    # pin before any reclaim runs; spilled matches are
+                    # copied back in here, ahead of the first chunk
+                    cache.attach(plan)
+                except MemoryError:
+                    # a swap-in found no page: retry at the next admission
+                    self.waiting.appendleft(req)
+                    free.insert(0, b)
+                    break
+                shared = [x.page for x in plan.nodes]
+            else:
+                shared = ()
+            try:
+                alloc.allocate(req.req_id, len(req.prompt),
+                               shared_pages=shared)
+            except MemoryError:
+                # the evictable estimate raced a structure change: roll
+                # back and retry this request at the next admission
+                if plan is not None:
+                    cache.detach(plan)
+                self.waiting.appendleft(req)
+                free.insert(0, b)
+                break
+            if plan is not None:
+                self._cow_pairs[b] = cache.admit(req.req_id, req.prompt,
+                                                 plan)
+                self._gate[b] = tuple(plan.wait)
+                starts[b] = plan.start
+            else:
+                self._gate[b] = ()
+                self._cow_pairs[b] = []
             admitted.append((b, req))
         if not admitted:
             return
@@ -722,16 +1249,29 @@ class ContinuousBatchingEngine:
         budgets = self._budgets_np
         for b, req in admitted:
             self.slot_req[b] = req
-            self.prompt_pos[b] = 0
-            self.host_lens[b] = 0
+            self.prompt_pos[b] = int(starts[b])
+            self.host_lens[b] = int(starts[b])
             mask[b] = True
             budgets[b] = req.max_new_tokens
             self._bt[b] = alloc.block_table(
                 [req.req_id], max_pages=g.pages_per_seq)[0]
         m = g.upload(mask)
         zero = torch.zeros((), dtype=torch.int32, device=g.device)
-        self.positions = torch.where(m, zero, self.positions)
+        # rows with a prefix hit start mid-prompt: their write cursor and
+        # RoPE positions begin at the first uncached token
+        self.positions = torch.where(m, g.upload(starts), self.positions)
         self.counts = torch.where(m, zero, self.counts)
         self.budgets = g.upload(budgets)
         self.finished = self.finished & ~m
         self._bt_dev = g.upload(self._bt)
+        self._caps_dirty = True
+        if self._hist is not None:
+            # seed the drafter: the full prompt into the history table, the
+            # prompt's tail into the device recent ring
+            nmax = self.spec.ngram_max
+            rec = np.full((self.B, nmax), int(_sp.CTX_PAD), np.int32)
+            for b, req in admitted:
+                self._hist.reset_row(b, req.prompt)
+                rec[b] = _sp.recent_window(req.prompt, nmax)
+            self._recent = torch.where(m[:, None], g.upload(rec),
+                                       self._recent)

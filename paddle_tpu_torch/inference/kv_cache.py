@@ -16,12 +16,14 @@
 
 Pages are ref-counted: a page returns to the free list only when its last
 reference drops, and releasing a free page raises (the double-free guard).
-The host spill tier of the reference waits for the prefix cache.
+A prefix cache (``inference/prefix_cache.py``) shares pages between
+sequences and registers itself as the allocator's reclaimer, so idle cached
+pages are evicted exactly when an allocation finds the free list empty.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,7 +38,11 @@ class PageAllocator:
     worst case: freed pages recycle through the free list, the engine holds
     admission back on pressure and finalizes a sequence early when its
     decode growth finds the pool dry; ``stats()`` reports the high-water
-    mark."""
+    mark.
+
+    With a prefix cache attached (:meth:`set_reclaimer`) the allocator asks
+    the cache to evict idle cached pages back into the free list before it
+    declares the pool exhausted."""
 
     def __init__(self, num_pages: int, page_size: int):
         self.num_pages = num_pages
@@ -46,22 +52,49 @@ class PageAllocator:
         self._pages: Dict[int, List[int]] = {}     # seq id -> page ids
         self._lens: Dict[int, int] = {}            # seq id -> token count
         self.peak_in_use = 0
-        self.cow_copies = 0
+        # the prefix cache's hooks: evict idle cached pages on demand /
+        # count how many could be evicted right now
+        self._reclaim: Optional[Callable[[int], int]] = None
+        self._evictable: Optional[Callable[[], int]] = None
+        # prefix-cache telemetry (all stay 0 with the cache off)
+        self.prefix_hits = 0          # admissions that reused cached pages
+        self.prefix_tokens_saved = 0  # prompt tokens whose prefill was skipped
+        self.cow_copies = 0           # shared pages privatized copy-on-write
+        self.evicted_pages = 0        # cached pages reclaimed under pressure
+
+    def set_reclaimer(self, reclaim: Callable[[int], int],
+                      evictable: Callable[[], int]) -> None:
+        """Attach an eviction source: ``reclaim(n)`` moves up to ``n`` idle
+        cached pages back to the free list (returns how many it moved);
+        ``evictable()`` counts the pages reclaim could free right now."""
+        self._reclaim = reclaim
+        self._evictable = evictable
 
     @property
     def free_pages(self) -> int:
         return len(self._free)
 
     @property
+    def available_pages(self) -> int:
+        """Pages obtainable right now: free list + evictable cached pages."""
+        extra = self._evictable() if self._evictable is not None else 0
+        return len(self._free) + extra
+
+    @property
     def pages_in_use(self) -> int:
         return self.num_pages - len(self._free)
 
     def stats(self) -> Dict[str, int]:
+        """Pool telemetry: live and peak page use, active sequences, and
+        the prefix-cache counters (all 0 with the cache off)."""
         return {"num_pages": self.num_pages,
                 "pages_in_use": self.pages_in_use,
                 "peak_in_use": self.peak_in_use,
                 "active_seqs": len(self._pages),
-                "cow_copies": self.cow_copies}
+                "prefix_hits": self.prefix_hits,
+                "prefix_tokens_saved": self.prefix_tokens_saved,
+                "cow_copies": self.cow_copies,
+                "evicted_pages": self.evicted_pages}
 
     def context_len(self, seq_id: int) -> int:
         return self._lens[seq_id]
@@ -86,11 +119,24 @@ class PageAllocator:
             self._free.append(page)
 
     def _alloc_page(self) -> int:
+        if not self._free and self._reclaim is not None:
+            self._reclaim(1)
         if not self._free:
             raise MemoryError(
                 f"KV cache exhausted: {self.num_pages} pages in use")
         p = self._free.pop()
+        if self._ref[p] != 0:
+            raise RuntimeError(f"free-list page {p} has live references")
         self._ref[p] = 1
+        return p
+
+    def acquire_page(self) -> int:
+        """Allocate one standalone page holding a single reference (the
+        spill tier's swap-in target; the holder releases it with
+        :meth:`release_page`).  Reclaims from the prefix cache under
+        pressure like any other allocation; raises MemoryError when dry."""
+        p = self._alloc_page()
+        self.peak_in_use = max(self.peak_in_use, self.pages_in_use)
         return p
 
     def _grow(self, seq_id: int, new_len: int) -> None:
@@ -116,7 +162,7 @@ class PageAllocator:
                 self.retain(p)
                 pages.append(p)
             self._grow(seq_id, num_tokens)
-        except (MemoryError, ValueError):
+        except BaseException:
             for p in pages:
                 self.release_page(p)
             del self._pages[seq_id]
@@ -158,6 +204,15 @@ class PageAllocator:
         self.cow_copies += 1
         return src, dst
 
+    def record_prefix_hit(self, tokens_saved: int) -> None:
+        """Count one admission that reused cached pages."""
+        self.prefix_hits += 1
+        self.prefix_tokens_saved += tokens_saved
+
+    def record_evictions(self, n: int = 1) -> None:
+        """Count cached pages reclaimed under pressure."""
+        self.evicted_pages += n
+
     def slots(self, seq_id: int, start: int, count: int) -> np.ndarray:
         pages = self._pages[seq_id]
         pos = np.arange(start, start + count)
@@ -175,6 +230,10 @@ class PageAllocator:
             self.release_page(p)
         del self._lens[seq_id]
 
+    def release(self, seq_id: int) -> None:
+        """Alias of :meth:`free` (same contract, same KeyError)."""
+        self.free(seq_id)
+
     def block_table(self, seq_ids: Sequence[int],
                     max_pages: Optional[int] = None) -> np.ndarray:
         """[batch, max_pages] int32 table, padded with page 0 (the kernel
@@ -190,6 +249,9 @@ class PageAllocator:
                     f"sequence needs {len(r)} pages > table width {width}")
             out[i, :len(r)] = r
         return out
+
+    def context_lens(self, seq_ids: Sequence[int]) -> np.ndarray:
+        return np.asarray([self._lens[s] for s in seq_ids], np.int32)
 
 
 class PagedKVCache:

@@ -4,7 +4,10 @@
 The model is built with random weights from ``--seed`` directly on
 ``--device`` (default ``cuda``; with no GPU the launcher fails instead of
 running on the CPU).  Any registered flag can be set with
-``--set NAME=VALUE``.  The replica warms up before ``/readyz`` reports
+``--set NAME=VALUE``: the engine's optional features read theirs when it
+is built (``--prefix-cache``, or ``--set prefix_cache=1``;
+``--set kv_spill_pages=64``; ``--set spec_decode=ngram``,
+``--set spec_k=4``).  The replica warms up before ``/readyz`` reports
 ready unless ``--no-warmup`` is given.
 """
 
@@ -53,6 +56,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-new-tokens", type=int, default=128,
                    help="default completion budget when the request "
                         "omits max_tokens")
+    p.add_argument("--prefix-cache", action="store_true",
+                   help="enable the shared-prefix KV cache "
+                        "(FLAGS_prefix_cache for this process)")
     p.add_argument("--no-warmup", action="store_true",
                    help="skip the readiness warmup run")
     p.add_argument("--set", action="append", default=[],
@@ -89,11 +95,14 @@ def engine_kwargs(args) -> dict:
     if args.cache_dtype is not None:
         kw["cache_dtype"] = None if args.cache_dtype == "auto" \
             else args.cache_dtype
+    if args.prefix_cache:
+        kw["prefix_cache"] = True
     return kw
 
 
 def build_engine(args):
-    """Model + engine from parsed args."""
+    """Model + engine from parsed args (the flags set by ``--set`` are read
+    when the engine is built)."""
     from ..inference import ContinuousBatchingEngine
     from ..models.llama import LlamaConfig, LlamaForCausalLM
 

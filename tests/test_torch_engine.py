@@ -146,10 +146,8 @@ def test_sampled_run_is_seed_deterministic_across_batches(pair):
 
 def test_engine_rejects_unported_options(pair):
     _, tm = pair
-    for kw in (dict(prefix_cache=True), dict(spec_decode="ngram"),
-               dict(tensor_parallel=2), dict(kv_spill_pages=4)):
-        with pytest.raises(TypeError):
-            ContinuousBatchingEngine(tm, device="cpu", **kw)
+    with pytest.raises(TypeError):
+        ContinuousBatchingEngine(tm, device="cpu", tensor_parallel=2)
     # the int8 plane is ported: the engine builds a quantized pool
     eng = ContinuousBatchingEngine(tm, device="cpu", cache_dtype="int8")
     assert eng.g.cache.quantized and len(eng.g.cache.arrays) == 4
@@ -159,8 +157,6 @@ def test_page_allocator_trace_matches_jax():
     """The same allocation trace gives the same block tables, slots,
     refcounts and pool stats as the reference allocator."""
     a, b = JAllocator(num_pages=10, page_size=4), PageAllocator(10, 4)
-    keys = ("num_pages", "pages_in_use", "peak_in_use", "active_seqs",
-            "cow_copies")
     assert a.allocate(0, 9).tolist() == b.allocate(0, 9).tolist()
     for op in [("allocate", 1, 3), ("extend", 0, 5), ("free", 1),
                ("allocate", 2, 4), ("retain", 2), ("cow", 2, 0),
@@ -174,7 +170,7 @@ def test_page_allocator_trace_matches_jax():
                 r = getattr(alloc, op[0])(*op[1:])
                 outs.append(r.tolist() if isinstance(r, np.ndarray) else r)
         assert outs[0] == outs[1], op
-        assert {k: a.stats()[k] for k in keys} == b.stats()
+        assert a.stats() == b.stats()
         ids = sorted(b._pages)
         np.testing.assert_array_equal(a.block_table(ids, max_pages=6),
                                       b.block_table(ids, max_pages=6))

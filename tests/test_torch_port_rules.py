@@ -29,10 +29,14 @@ def _imported_roots(path: Path):
             yield node.module.split(".")[0], node.lineno
 
 
+SERVING_FEATURES = ("prefix_cache.py", "speculative.py", "kv_spill.py")
+
+
 def test_port_and_chip_smoke_import_no_jax():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     assert PORT / "kernels" / "primitives.py" in files
+    assert {PORT / "inference" / f for f in SERVING_FEATURES} <= set(files)
     bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}"
            for f in files for mod, line in _imported_roots(f)
            if mod in ("jax", "jaxlib", "paddle_tpu")]
@@ -47,7 +51,10 @@ _STACKS = (
     ("nn_functional", ("paddle_tpu_torch.nn", "paddle_tpu_torch.nn.functional")),
     ("serving", ("paddle_tpu_torch.serving.server",
                  "paddle_tpu_torch.serving.__main__",
-                 "paddle_tpu_torch.inference")),
+                 "paddle_tpu_torch.inference",
+                 "paddle_tpu_torch.inference.prefix_cache",
+                 "paddle_tpu_torch.inference.speculative",
+                 "paddle_tpu_torch.inference.kv_spill")),
     ("training", ("paddle_tpu_torch.models.pretrain",
                   "paddle_tpu_torch.kernels.flash_attention",
                   "paddle_tpu_torch.profile_step")),
@@ -142,6 +149,58 @@ def test_default_device_is_cuda_and_raises_without_gpu():
     with pytest.raises(RuntimeError, match="cuda"):
         pretrain.build_trainer(pretrain.build_parser().parse_args(
             ["--preset", "tiny"]))
+
+
+def test_serving_features_default_to_the_card():
+    """The engine with the prefix cache, speculative decoding and the spill
+    tier on (arguments or launcher options) still defaults to the card and
+    raises without one; on the CPU the spill ring is plain host memory."""
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving.__main__ import build_engine, build_parser
+    model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
+    on = dict(prefix_cache=True, spec_decode="ngram", kv_spill_pages=4)
+    eng = ContinuousBatchingEngine(model, device="cpu", max_seq_len=32, **on)
+    assert eng.g.device.type == "cpu" and not eng.spill._ring[0].is_pinned()
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device works here")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ContinuousBatchingEngine(model, **on)
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_engine(build_parser().parse_args(["--prefix-cache"]))
+
+
+# the kernel wrappers and the engine's device steps: a launch sits in no
+# try block, so a failed launch surfaces instead of falling back
+_LAUNCHES = {"ragged_paged_attention", "paged_attention",
+             "write_kv_pages_all_layers",
+             "write_kv_pages_all_layers_quantized", "gmm", "tgmm",
+             "_grouped_ffn", "_moe_ffn", "_forward_tokens", "_step_fn",
+             "_spec_verify_fn", "_fused_decode_fn", "_dispatch_spec",
+             "_cow_copy_pages", "step"}
+
+
+def test_no_try_around_a_launch():
+    """No try block in the serving modules (the engine, the allocator, the
+    prefix cache, speculative decoding, the spill tier, the server) wraps a
+    kernel launch or an engine step."""
+    files = [PORT / "inference" / f for f in
+             ("generation.py", "kv_cache.py") + SERVING_FEATURES] + \
+        [PORT / "serving" / "__main__.py"]
+    bad = []
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text(), filename=str(f))):
+            if not isinstance(node, ast.Try):
+                continue
+            for sub in ast.walk(ast.Module(body=node.body, type_ignores=[])):
+                if isinstance(sub, ast.Call):
+                    fn = sub.func
+                    name = fn.attr if isinstance(fn, ast.Attribute) else \
+                        getattr(fn, "id", None)
+                    if name in _LAUNCHES:
+                        bad.append(f"{f.relative_to(ROOT)}:{sub.lineno} "
+                                   f"{name}")
+    assert not bad, bad
 
 
 def test_training_entry_point_defaults_to_the_card(stack_report):
