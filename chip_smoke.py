@@ -61,6 +61,19 @@ is caught; there is no ``ok`` line unless every phase passed):
     ``engine_parity_int8``); the prefix, COW, eviction, spill, swap-in and
     spec counters each > 0; each step's attention launches on the route
     ``_route`` names for its T (verify steps at T 4 on "split").
+6c. ``engine_parity_migration`` — session migration on the same 2-layer
+    fp32 model, over a float and an int8 pool: engine A serves 8 streams
+    (prompts of 280-320 tokens, 32 new tokens) and exports every session
+    mid-decode (``export_all``, once each has 8 tokens); the snapshots go
+    through ``to_wire`` -> JSON -> ``from_wire`` with unchanged digests;
+    engine B (prefix cache on) rejects a byte-flipped snapshot with 0 pages
+    installed, then imports them with ``resume=True``: the imported pages'
+    bytes equal the exported ones bit for bit, B's prefix hits cover
+    exactly the full pages (only the partial-page tails re-prefill), each
+    resumed step's attention launches take ``_route``'s route, and the
+    resumed tokens pass ``_teacher_force`` against the CPU.  Then a parked
+    session whose pages the spill ring holds ships the ring's bytes (no
+    swap-in) and its next turn on the importer hits them.
 7. ``serve``, ``serve_int8``, ``serve_moe`` — through the launcher's
    ``build_engine`` and ``ServingServer.start_http`` with the launcher's
    geometry, 8 concurrent streamed completions each: full llama2_7b (32
@@ -82,6 +95,19 @@ is caught; there is no ``ok`` line unless every phase passed):
     none on "tile"; every wave-1 request after the first a prefix hit;
     wave 3 swaps pages in; attention launches = layers x (plain + verify
     steps).  Its launches join the ``kernels`` line.
+7c. ``serve_migrate`` — full llama2_7b (bf16), one model shared by two
+    ``ServingServer``s in one process, each with its own pool and the
+    prefix cache, with the metrics, the SLO controller and the sentinel on:
+    8 streamed completions on A while ``/metrics`` is scraped;
+    ``/migratez/export`` of each finished session on A, one
+    ``/migratez/import`` on B; 8 follow-up turns on B (8 prefix hits over
+    the migrated pages), then the same turns on A, both held by
+    ``_teacher_force``'s rule against the card's full-sequence forward; no
+    kernel built after warm-up; ``/statusz`` on both; ``/drainz`` on A with
+    4 streams in flight, which finish before A reports drained.  Tokens/s,
+    TTFT p50/p95, pages moved, export / import ms, the migration books and
+    the sentinel's anomalies; its attention launches join the ``kernels``
+    line.
 8. ``kernel_flash`` — the three flash-attention kernels (forward, dQ,
    dK/dV) against their plain versions over every combination of causal
    or not, GQA groups 1/4/8, d 64/128, fp32/bf16 and five shapes (b 1 to 4,
@@ -1355,9 +1381,10 @@ def _teacher_force(phase, cpu, runs, *, new_tokens, tie_rel, max_tie_share,
 
 def _engine_parity(phase, cfg, prompts, *, new_tokens, cache_dtype=None,
                    tie_rel=1e-3, max_tie_share=0.0):
-    """Serve ``prompts`` on the card with the continuous-batching engine,
-    then teacher-force its tokens through the full-sequence forward on the
-    CPU (``_teacher_force``)."""
+    """Serve ``prompts`` on the card with the continuous-batching engine
+    (the steps between the first and the next drains without a sync:
+    ``_steps_without_sync``), then teacher-force its tokens through the
+    full-sequence forward on the CPU (``_teacher_force``)."""
     import torch
     from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
                                             GenerationConfig)
@@ -1373,6 +1400,8 @@ def _engine_parity(phase, cfg, prompts, *, new_tokens, cache_dtype=None,
     pa.LAUNCHES = pa.LAUNCHES_INT8 = gm.LAUNCHES = 0
     s0 = eng.steps
     rids = [eng.add_request(p) for p in prompts]
+    eng.step()                  # the first window may load a library
+    sync_checked = _steps_without_sync(eng, "cuda")
     out = eng.run()
     torch.cuda.synchronize()
     steps = eng.steps - s0
@@ -1396,7 +1425,7 @@ def _engine_parity(phase, cfg, prompts, *, new_tokens, cache_dtype=None,
          prompt_lens=[len(p) for p in prompts], new_tokens=new_tokens,
          tokens_checked=checked, near_ties=near_ties,
          near_tie_rel_gaps=gaps, tie_rel=tie_rel, engine_steps=steps,
-         kernel_launches=launches)
+         steps_checked_without_sync=sync_checked, kernel_launches=launches)
     del cpu, model
     gc.collect()
 
@@ -1564,8 +1593,13 @@ def _prefix_spec_run(model, waves, *, num_pages, max_seq_len,
     kinds = _count_steps(eng.g)
     _reset_attn_counts()
     outs = []
-    for wave in waves:
+    for i, wave in enumerate(waves):
         rids = [eng.add_request(p) for p in wave]
+        if i == 0:
+            # wave 1 fits the pool (no eviction, no spill): its steps
+            # between drains hold no sync
+            eng.step()
+            _steps_without_sync(eng, device)
         res = eng.run()
         outs.append([res[r] for r in rids])
     if device == "cuda":
@@ -1931,6 +1965,595 @@ def phase_serve_prefix_spec(argv=None):
             "attention_sm90": counts["attention_sm90"],
             "attention_int8_sm90": counts["attention_int8_sm90"],
             "gmm_sm90": counts["gmm_sm90"]}
+
+
+# --------------------------------------------------------- migration ---
+
+MIGRATE = dict(prompts=(280, 320), requests=8, new_tokens=32,
+               export_after=8, page=16, bucket=64, spill=16, spill_pages=12)
+SERVE_MIGRATE = dict(prompts=(48, 144), requests=8, new_tokens=32,
+                     follow=16, drain_requests=4, tie_rel=2e-2,
+                     max_tie_share=0.25)
+# serve_migrate's host-cost variants of wave A on server A: /metrics
+# scraped every so many seconds (None: not scraped), A's flight-recorder
+# ring attached (the tracer on) or detached
+SERVE_MIGRATE_VARIANTS = {"scrape_100ms": (0.1, True),
+                          "scrape_15s": (15.0, True),
+                          "no_scrape": (None, True),
+                          "no_scrape_ring_off": (None, False)}
+
+
+def _planes_equal(a, b):
+    """Two page planes hold the same bits (int8 codes, fp32 scales, float
+    rows)."""
+    import torch
+    if a.dtype != b.dtype or tuple(a.shape) != tuple(b.shape):
+        return False
+    if a.dtype == torch.int8:
+        return torch.equal(a, b)
+    return _bits_equal(a.contiguous(), b.contiguous())
+
+
+def _imported_bytes_equal(eng, snaps):
+    """Every page a snapshot installed on ``eng`` holds the snapshot's
+    bytes, bit for bit; returns the pages compared."""
+    n = 0
+    for snap in snaps:
+        nodes = eng.prefix_cache.chain(snap["tokens"])
+        if len(nodes) < len(snap["pages"]):
+            raise AssertionError(f"{len(nodes)} indexed pages for a "
+                                 f"snapshot of {len(snap['pages'])}")
+        for node, pg in zip(nodes, snap["pages"]):
+            for plane, arr in zip(pg["planes"], eng.g.cache.arrays):
+                if not _planes_equal(arr[:, :, node.page].cpu(), plane):
+                    raise AssertionError(
+                        f"page {pg['index']} of a migrated session differs "
+                        f"from the exported bytes")
+                n += 1
+    return n
+
+
+def _flip_byte(wire_snap):
+    """A copy of a wire snapshot with one byte of its first plane flipped
+    (still valid base64)."""
+    import base64
+    bad = json.loads(json.dumps(wire_snap))
+    plane = bad["pages"][0]["planes"][0]
+    raw = bytearray(base64.b64decode(plane["b64"]))
+    raw[len(raw) // 3] ^= 0x10
+    plane["b64"] = base64.b64encode(bytes(raw)).decode("ascii")
+    return bad
+
+
+def _steps_without_sync(eng, device, windows=2):
+    """Run ``windows`` stretches of ``sync_every - 1`` engine steps, each
+    starting just after a drain (the first one at once), under
+    ``assert_overhead(max_compiles=0, max_syncs=0)`` and, on the card,
+    ``torch.cuda.set_sync_debug_mode("error")``: a step between drains
+    that builds a kernel, marks a sync or makes any synchronizing CUDA call
+    fails the phase.  Returns the steps checked."""
+    import torch
+    from paddle_tpu_torch import observability as obs
+    cuda = device == "cuda"
+    n = 0
+    for _ in range(windows):
+        while eng._pending:           # run on to the next drain
+            eng.step()
+        if not eng.has_work():
+            break
+        mode = torch.cuda.get_sync_debug_mode() if cuda else 0
+        with obs.assert_overhead(max_compiles=0, max_syncs=0):
+            if cuda:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                for _ in range(eng.g.sync_every - 1):
+                    eng.step()
+                    n += 1
+            finally:
+                if cuda:
+                    torch.cuda.set_sync_debug_mode(mode)
+    if not n:
+        raise AssertionError("no engine step was checked for syncs")
+    return n
+
+
+def _migrate_pool(model, cfg, prompts, dtype, device):
+    """Serve ``prompts`` on engine A, export every session mid-decode, put
+    the snapshots through the wire, import them on engine B (prefix cache
+    on) with ``resume=True`` and run B to completion.  Returns the record
+    and the (id, prompt, tokens) runs for teacher forcing."""
+    import torch
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            GenerationConfig)
+    from paddle_tpu_torch.inference import migration as mig
+    c = MIGRATE
+    max_seq = max(len(p) for p in prompts) + c["new_tokens"] + 2 * c["page"]
+    kw = dict(max_batch=c["requests"],
+              gen=GenerationConfig(max_new_tokens=c["new_tokens"]),
+              max_seq_len=max_seq, page_size=c["page"],
+              prefill_bucket=c["bucket"], device=device, cache_dtype=dtype)
+    a = ContinuousBatchingEngine(model, **kw)
+    reqs = [a.submit(p) for p in prompts]
+    while min(len(r.output) for r in reqs) < c["export_after"]:
+        a.step()
+    t0 = time.perf_counter()
+    snaps = mig.export_all(a)
+    export_ms = (time.perf_counter() - t0) * 1e3
+    if len(snaps) != len(prompts) or any(r.done for r in reqs):
+        raise AssertionError(f"engine_parity_migration: {len(snaps)} "
+                             f"sessions exported of {len(prompts)}")
+    wire = json.dumps([mig.to_wire(s) for s in snaps])
+    back = [mig.from_wire(s) for s in json.loads(wire)]
+    if [mig.snapshot_digest(s) for s in back] != \
+            [s["digest"] for s in snaps]:
+        raise AssertionError("engine_parity_migration: a digest changed "
+                             "through the wire")
+    del a
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    b = ContinuousBatchingEngine(model, prefix_cache=True, **kw)
+    alloc = b.g.cache.allocator
+    free0 = alloc.free_pages
+    try:
+        mig.import_session(b, _flip_byte(json.loads(wire)[0]))
+        rejected = False
+    except mig.MigrationError:
+        rejected = True
+    if not rejected or alloc.free_pages != free0 or \
+            b.prefix_cache.cached_pages() != 0:
+        raise AssertionError("engine_parity_migration: a byte-flipped "
+                             "snapshot was not rejected with 0 pages "
+                             "installed")
+    saved0, hits0 = alloc.prefix_tokens_saved, alloc.prefix_hits
+    t0 = time.perf_counter()
+    results = [mig.import_session(b, s, resume=True) for s in back]
+    if device == "cuda":
+        torch.cuda.synchronize()
+    import_ms = (time.perf_counter() - t0) * 1e3
+    imported = sum(r["imported"] for r in results)
+    compared = _imported_bytes_equal(b, back)
+    kinds = _count_steps(b.g)
+    _reset_attn_counts()
+    checked_steps = _steps_without_sync(b, device)
+    out = b.run()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    counts = _attn_counts()
+    quant = dtype == "int8"
+    kv_dtype = torch.int8 if quant else b.g.cache.k.dtype
+    want = _expected_routes(cfg, kinds, 1, b.g.params["embed"].dtype,
+                            kv_dtype)
+    got = _routes_of(counts, quant)
+    saved = alloc.prefix_tokens_saved - saved0
+    hits = alloc.prefix_hits - hits0
+    fails = []
+    if got != want or not got["split"]:
+        fails.append(f"routes {got}, want {want} ({kinds})")
+    if imported != sum(len(s["pages"]) for s in back) or \
+            saved != imported * c["page"] or hits != len(back):
+        fails.append(f"{imported} pages imported, {saved} prompt tokens "
+                     f"skipped, {hits} hits: the resumed prefill must "
+                     f"cover only the partial-page tails")
+    if fails:
+        raise AssertionError("engine_parity_migration: " + "; ".join(fails))
+    runs = [(f"{dtype or 'float'}{i}", p, s["emitted"] +
+             out[r["resume_req_id"]])
+            for i, (p, s, r) in enumerate(zip(prompts, back, results))]
+    st = b.stats()
+    rec = dict(sessions=len(back), pages_imported=imported,
+               pages_compared_bitwise=compared, wire_bytes=len(wire),
+               export_ms=export_ms, import_ms=import_ms,
+               emitted_at_export=[len(s["emitted"]) for s in back],
+               prefix_hits=hits, prefix_tokens_saved=saved,
+               resumed_steps=kinds, routes=got,
+               steps_checked_without_sync=checked_steps,
+               migration={k: v for k, v in st.items()
+                          if k.startswith("migration_")})
+    del b
+    return rec, runs
+
+
+def _migrate_spilled(model, prompts, device):
+    """A parked session whose pages the spill ring holds ships the ring's
+    bytes (no swap-in); the importer stores them bit for bit and its next
+    turn hits them."""
+    import torch
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            GenerationConfig)
+    from paddle_tpu_torch.inference import migration as mig
+    c = MIGRATE
+    page = c["page"]
+    parked = prompts[0][:4 * page]
+    kw = dict(max_batch=2, gen=GenerationConfig(max_new_tokens=4),
+              max_seq_len=8 * page, page_size=page,
+              prefill_bucket=c["bucket"], device=device,
+              num_pages=c["spill_pages"], prefix_cache=True,
+              kv_spill_pages=c["spill"])
+    src = ContinuousBatchingEngine(model, **kw)
+    src.add_request(parked)
+    src.run()
+    for p in prompts[1:4]:                # crush the pool: parked spills
+        src.add_request(p[:5 * page], max_new_tokens=8)
+    src.run()
+    swapins0 = src.spill.swapins
+    snap = mig.export_session(src, tokens=parked)
+    sources = [pg["source"] for pg in snap["pages"]]
+    if src.spill.swapins != swapins0 or "spill" not in sources:
+        raise AssertionError(f"engine_parity_migration spill: sources "
+                             f"{sources}, swap-ins "
+                             f"{src.spill.swapins - swapins0}")
+    dst = ContinuousBatchingEngine(model, **kw)
+    res = mig.import_session(dst, json.loads(json.dumps(mig.to_wire(snap))))
+    compared = _imported_bytes_equal(dst, [snap])
+    follow = parked + prompts[0][4 * page:4 * page + 5]
+    rid = dst.add_request(follow, max_new_tokens=c["new_tokens"])
+    out = dst.run()[rid]
+    if device == "cuda":
+        torch.cuda.synchronize()
+    st = dst.stats()
+    if st["prefix_hits"] != 1 or st["prefix_tokens_saved"] != 4 * page:
+        raise AssertionError(f"engine_parity_migration spill: the next "
+                             f"turn did not hit the migrated pages ({st})")
+    rec = dict(sources=sources, pages_imported=res["imported"],
+               pages_compared_bitwise=compared, swapins_at_export=0,
+               follow_prefix_tokens_saved=st["prefix_tokens_saved"])
+    del src, dst
+    return rec, [("spill0", follow, out)]
+
+
+def phase_engine_parity_migration(cfg=None, device="cuda"):
+    """Session migration on the 2-layer fp32 model at llama2_7b widths,
+    over a float and an int8 pool: engine A serves 8 streams with prompts
+    of 280-320 tokens and exports every session mid-decode (``export_all``)
+    once each has 8 tokens; the snapshots go through ``to_wire`` -> JSON ->
+    ``from_wire`` with unchanged digests; engine B (prefix cache on)
+    rejects a byte-flipped snapshot with 0 pages installed, then imports
+    them with ``resume=True``: the imported pages' bytes on B equal A's
+    exported bytes bit for bit, B's prefix hits cover exactly the full
+    pages (prompt tokens skipped = pages x page size: only the partial-page
+    tails re-prefill), each resumed step's attention launches take the
+    route ``_route`` names for it, and the resumed tokens (A's before the
+    export, B's after) pass ``_teacher_force`` against the CPU (near-ties
+    as in ``engine_parity`` / ``engine_parity_int8``).  Then a parked
+    session whose pages the spill ring holds ships the ring's bytes (no
+    swap-in) and its next turn on the importer hits them."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    cfg = cfg or LlamaConfig.llama2_7b(num_hidden_layers=2, dtype="float32")
+    c = MIGRATE
+    rng = np.random.default_rng(5)
+    lens = np.linspace(c["prompts"][0], c["prompts"][1],
+                       c["requests"]).astype(int)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+               for n in lens]
+    model = LlamaForCausalLM(cfg, device=device, seed=0)
+    pools, runs = {}, {}
+    for name, dtype in (("float", None), ("int8", "int8")):
+        pools[name], runs[name] = _migrate_pool(model, cfg, prompts, dtype,
+                                                device)
+    pools["spill"], runs["spill"] = _migrate_spilled(model, prompts, device)
+    cpu = model.to("cpu")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    memo = {}
+    for name, r in runs.items():
+        tie = (2e-2, 0.25) if name == "int8" else (1e-3, 0.0)
+        checked, near, gaps = _teacher_force(
+            f"engine_parity_migration {name}", cpu, r,
+            new_tokens=c["new_tokens"], tie_rel=tie[0], max_tie_share=tie[1],
+            memo=memo)
+        pools[name].update(tokens_checked=checked, near_ties=near,
+                           near_tie_rel_gaps=gaps, tie_rel=tie[0])
+    emit("engine_parity_migration", layers=cfg.num_hidden_layers,
+         hidden=cfg.hidden_size, heads=cfg.num_attention_heads,
+         kv_heads=cfg.num_key_value_heads, prompt_lens=[int(n) for n in lens],
+         **{k: v for k, v in c.items() if k != "prompts"}, pools=pools)
+    del cpu, model
+    gc.collect()
+
+
+async def _http_call(host, port, method, path, body=b""):
+    """One request over a socket; returns (status, body bytes)."""
+    reader, writer = await asyncio.open_connection(host, port)
+    writer.write((f"{method} {path} HTTP/1.1\r\nHost: smoke\r\n"
+                  f"Content-Length: {len(body)}\r\n\r\n").encode() + body)
+    await writer.drain()
+    raw = await reader.read()
+    writer.close()
+    await writer.wait_closed()
+    head, _, payload = raw.partition(b"\r\n\r\n")
+    return int(head.split()[1]), payload
+
+
+def phase_serve_migrate(argv=None):
+    """Full llama2_7b (32 layers, bf16, random weights from the seed), one
+    model shared by two ``ServingServer``s in one process, each with its
+    own pool (the launcher's geometry and ``--prefix-cache``) and with the
+    metrics, the SLO controller and the sentinel on (server A with the
+    flight recorder): 8 streamed completions of 32 tokens on A (prompts of
+    48-144 tokens) while ``/metrics`` is scraped; ``/migratez/export`` of
+    each finished session on A and one ``/migratez/import`` of all of them
+    on B; 8 follow-up turns (each session's tokens + 16 new) on B, then the
+    same turns on A.  Gates: every stream finishes with its budget, B's
+    follow-ups are 8 prefix hits over at least the migrated pages, the
+    follow-up tokens of both servers pass ``_teacher_force`` against the
+    card's full-sequence forward (near-ties within SERVE_MIGRATE's
+    tie_rel and share), no kernel is built after warm-up, every attention
+    launch takes the split (decode) or sm90 (prefill) route; then
+    ``/statusz`` on both servers, and ``/drainz`` on A with 4 streams in
+    flight: each finishes with its budget, a new completion is refused and
+    A reports drained.  Before wave 1, the same traffic with fresh prompts
+    runs on A under each of ``SERVE_MIGRATE_VARIANTS`` (scrape interval,
+    flight-recorder ring on or off), twice each, to take wave 1's host cost
+    apart.  Launch counts are set to 0 just before A's first wave and read
+    after the drain.  Returns them in ``phase_serve``'s
+    form.  ``argv`` (launcher options) replaces ``--preset llama2_7b``."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import ServingServer
+    from paddle_tpu_torch.serving.__main__ import build_parser, engine_kwargs
+    c = SERVE_MIGRATE
+    args = build_parser().parse_args(
+        (argv or ["--preset", "llama2_7b"]) + ["--prefix-cache"])
+    cuda = args.device == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = getattr(LlamaConfig, args.preset)()
+    model = LlamaForCausalLM(cfg, device=args.device, seed=args.seed)
+    engines = [ContinuousBatchingEngine(model, **engine_kwargs(args))
+               for _ in range(2)]
+    # the phase reads its own traffic: the SLO and the sentinel see the
+    # serving series from zero
+    obs.reset("serving.")
+    fr = obs.FlightRecorder(path="flight_record_serve_migrate.json")
+    servers = [ServingServer(engines[0], model_name=args.preset,
+                             warmup=True, flight_recorder=fr),
+               ServingServer(engines[1], model_name=args.preset,
+                             warmup=True, flight_recorder=False)]
+    rng = np.random.default_rng(7)
+    lens = np.linspace(c["prompts"][0], c["prompts"][1],
+                       c["requests"]).astype(int)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+               for n in lens]
+    extra = [rng.integers(1, cfg.vocab_size, c["follow"]).tolist()
+             for _ in prompts]
+
+    async def wave(addr, turns):
+        t1 = time.perf_counter()
+        res = await asyncio.gather(*[_client(*addr, p, c["new_tokens"])
+                                     for p in turns])
+        wall = time.perf_counter() - t1
+        for r in res:
+            if r["finish"] != "length" or len(r["ids"]) != c["new_tokens"] \
+                    or not all(0 <= t < cfg.vocab_size for t in r["ids"]):
+                raise AssertionError(f"serve_migrate: {r['status']}, finish "
+                                     f"{r['finish']}, {len(r['ids'])} ids")
+        ttfts = sorted(r["ttft_s"] for r in res)
+        return res, dict(wall_s=wall,
+                         tokens_per_s=len(res) * c["new_tokens"] / wall,
+                         ttft_p50_s=float(np.percentile(ttfts, 50)),
+                         ttft_p95_s=float(np.percentile(ttfts, 95)))
+
+    async def go():
+        addrs = [await s.start_http("127.0.0.1", 0) for s in servers]
+        try:
+            while not all(s.ready() for s in servers):
+                if not all(s.engine_alive() for s in servers):
+                    raise RuntimeError("engine thread died during warmup")
+                await asyncio.sleep(0.05)
+            t_ready = time.perf_counter() - t0
+
+            async def scrape(interval, into):
+                while True:
+                    into.append(await _http_call(*addrs[0], "GET",
+                                                 "/metrics"))
+                    await asyncio.sleep(interval)
+
+            # wave A's host cost taken apart: the same traffic (fresh
+            # prompts of wave 1's lengths) on A under each variant, twice
+            # each, in turn and then in reverse
+            variants = {k: [] for k in SERVE_MIGRATE_VARIANTS}
+            vrng = np.random.default_rng(11)
+            for name in list(variants) + list(variants)[::-1]:
+                interval, ring = SERVE_MIGRATE_VARIANTS[name]
+                turns = [vrng.integers(1, cfg.vocab_size, int(n)).tolist()
+                         for n in lens]
+                if not ring:
+                    fr.detach()
+                seen = []
+                scraper = asyncio.ensure_future(scrape(interval, seen)) \
+                    if interval else None
+                try:
+                    _, w = await wave(addrs[0], turns)
+                finally:
+                    if scraper is not None:
+                        scraper.cancel()
+                    fr.attach()
+                variants[name].append(dict(w, scrapes=len(seen)))
+            compiles0 = obs.backend_compiles()
+            _reset_attn_counts()
+            steps0 = [e.steps for e in engines]
+            # wave 1 on A, /metrics scraped while it streams
+            scrapes = []
+            scraper = asyncio.ensure_future(scrape(0.1, scrapes))
+            res1, w1 = await wave(addrs[0], prompts)
+            scraper.cancel()
+            if not scrapes or any(st != 200 for st, _ in scrapes) or \
+                    b"paddle_tpu_serving_ttft_ms_count" not in scrapes[-1][1]:
+                raise AssertionError(f"serve_migrate: {len(scrapes)} "
+                                     f"/metrics scrapes")
+            turns = [p + r["ids"] for p, r in zip(prompts, res1)]
+            # export each finished session from A, import all on B
+            t1 = time.perf_counter()
+            sessions = []
+            for tokens in turns:
+                st, body = await _http_call(*addrs[0], "POST",
+                                            "/migratez/export", json.dumps(
+                                                {"tokens": tokens}).encode())
+                if st != 200:
+                    raise AssertionError(f"serve_migrate: export {st} "
+                                         f"{body[:200]!r}")
+                sessions += json.loads(body)["sessions"]
+            export_ms = (time.perf_counter() - t1) * 1e3
+            payload = json.dumps({"sessions": sessions}).encode()
+            t1 = time.perf_counter()
+            st, body = await _http_call(*addrs[1], "POST",
+                                        "/migratez/import", payload)
+            import_ms = (time.perf_counter() - t1) * 1e3
+            result = json.loads(body)
+            pages = sum(len(s["pages"]) for s in sessions)
+            if st != 200 or result["imported"] != pages or \
+                    result["aborted"]:
+                raise AssertionError(f"serve_migrate: import {st} {result}")
+            st_b0 = engines[1].stats()
+            follow = [t + x for t, x in zip(turns, extra)]
+            res_b, wb = await wave(addrs[1], follow)
+            st_b1 = engines[1].stats()
+            res_a, wa = await wave(addrs[0], follow)
+            statusz = []
+            for addr in addrs:
+                st, body = await _http_call(*addr, "GET", "/statusz")
+                if st != 200:
+                    raise AssertionError(f"serve_migrate: /statusz {st}")
+                statusz.append(json.loads(body))
+            compiles = obs.backend_compiles() - compiles0
+            # drain A with streams in flight
+            drain_turns = prompts[:c["drain_requests"]]
+            tasks = [asyncio.ensure_future(_client(*addrs[0], p,
+                                                   c["new_tokens"]))
+                     for p in drain_turns]
+            deadline = time.perf_counter() + 120
+            while len(servers[0]._live) < len(tasks):
+                if time.perf_counter() > deadline:
+                    raise AssertionError("serve_migrate: drain streams "
+                                         "never went live")
+                await asyncio.sleep(0.005)
+            st, body = await _http_call(*addrs[0], "POST", "/drainz")
+            drainz = json.loads(body)
+            refused, _ = await _http_call(
+                *addrs[0], "POST", "/v1/completions",
+                json.dumps({"prompt": prompts[0], "max_tokens": 4}).encode())
+            res_d = await asyncio.gather(*tasks)
+            deadline = time.perf_counter() + 60
+            while not servers[0].drained():
+                if time.perf_counter() > deadline:
+                    raise AssertionError("serve_migrate: A never drained")
+                await asyncio.sleep(0.01)
+            drained_status = json.loads((await _http_call(
+                *addrs[0], "GET", "/statusz"))[1])["drained"]
+            steps = sum(e.steps - s for e, s in zip(engines, steps0))
+            counts = _attn_counts()
+            return dict(t_ready=t_ready, w1=w1, wb=wb, wa=wa, res_b=res_b,
+                        res_a=res_a, res_d=res_d, sessions=sessions,
+                        pages=pages, result=result, export_ms=export_ms,
+                        import_ms=import_ms, wire_bytes=len(payload),
+                        st_b=(st_b0, st_b1), statusz=statusz,
+                        compiles=compiles, drainz=(st, drainz),
+                        refused=refused, drained=drained_status,
+                        steps=steps, counts=counts, scrapes=len(scrapes),
+                        variants=variants)
+        finally:
+            for s in servers:
+                await s.stop_http()
+
+    r = asyncio.run(go())
+    fails = []
+    st_b0, st_b1 = r["st_b"]
+    hits = st_b1["prefix_hits"] - st_b0["prefix_hits"]
+    saved = st_b1["prefix_tokens_saved"] - st_b0["prefix_tokens_saved"]
+    if hits != c["requests"] or saved < r["pages"] * args.page_size:
+        fails.append(f"B's follow-ups: {hits} hits, {saved} prompt tokens "
+                     f"skipped for {r['pages']} migrated pages")
+    for d in r["res_d"]:
+        if d["finish"] != "length" or len(d["ids"]) != c["new_tokens"]:
+            fails.append(f"a drained stream ended {d['finish']} with "
+                         f"{len(d['ids'])} ids")
+    if r["drainz"][0] != 200 or r["refused"] != 503 or not r["drained"]:
+        fails.append(f"drain: /drainz {r['drainz']}, new completion "
+                     f"{r['refused']}, drained {r['drained']}")
+    if r["compiles"]:
+        fails.append(f"{r['compiles']} kernel builds after warm-up")
+    routes = _routes_of(r["counts"], False)
+    total = r["counts"]["attention"]
+    if routes["tile"] or not routes["split"] or not routes["sm90"] or \
+            total != cfg.num_hidden_layers * r["steps"] or \
+            r["counts"]["attention_int8"]:
+        fails.append(f"routes {routes}, {total} launches for "
+                     f"{r['steps']} steps")
+    device_name = torch.cuda.get_device_name(0) if cuda else "cpu"
+    for doc in r["statusz"]:
+        if doc["draining"] or not doc["ready"] or \
+                doc["build"]["device"] != device_name or \
+                doc["latency"]["serving.ttft_ms"]["count"] == 0:
+            fails.append(f"/statusz: ready {doc['ready']}, draining "
+                         f"{doc['draining']}, {doc['build']}")
+    if fails:
+        raise AssertionError("serve_migrate: " + "; ".join(fails))
+    # follow-up tokens of both servers against the card's full forward
+    turns = [s["tokens"] for s in r["sessions"]]
+    card = lambda ids: model(ids.to(args.device)).float().cpu()  # noqa: E731
+    tf = {}
+    memo = {}
+    for name, res in (("B", r["res_b"]), ("A", r["res_a"])):
+        runs = [(f"{name}{i}", t + x, q["ids"])
+                for i, (t, x, q) in enumerate(zip(turns, extra, res))]
+        checked, near, gaps = _teacher_force(
+            f"serve_migrate {name}", card, runs,
+            new_tokens=c["new_tokens"], tie_rel=c["tie_rel"],
+            max_tie_share=c["max_tie_share"], memo=memo)
+        tf[name] = dict(tokens_checked=checked, near_ties=near,
+                        near_tie_rel_gaps=gaps)
+    same = sum(a == b for qa, qb in zip(r["res_a"], r["res_b"])
+               for a, b in zip(qa["ids"], qb["ids"]))
+    stats = {n: {k: v for k, v in doc["engine"].items()
+                 if k.startswith("migration_")}
+             for n, doc in zip("AB", r["statusz"])}
+    emit("serve_migrate", preset=args.preset, layers=cfg.num_hidden_layers,
+         dtype=cfg.dtype, max_batch=args.max_batch,
+         max_seq_len=args.max_seq_len, page_size=args.page_size,
+         num_pages=engines[0].g.num_pages,
+         prompt_lens=[int(n) for n in lens], new_tokens=c["new_tokens"],
+         follow_tokens=c["follow"], setup_and_warmup_s=r["t_ready"],
+         wave_a=r["w1"], follow_b=r["wb"], follow_a=r["wa"],
+         wave_a_variants=r["variants"],
+         metrics_scrapes=r["scrapes"], sessions=len(r["sessions"]),
+         pages_moved=r["pages"], wire_bytes=r["wire_bytes"],
+         export_ms=r["export_ms"], import_ms=r["import_ms"],
+         import_result=r["result"], migration_stats=stats,
+         follow_prefix_hits_b=hits, follow_prefix_tokens_saved_b=saved,
+         follow_tokens_equal_a_b=same,
+         follow_tokens_compared=c["requests"] * c["new_tokens"],
+         teacher_forced=tf, tie_rel=c["tie_rel"],
+         kernel_builds_after_warmup=r["compiles"],
+         sentinel={n: {"checks": doc["anomalies"]["checks"],
+                       "anomalies_total": doc["anomalies"]["anomalies_total"],
+                       "recent": doc["anomalies"]["recent"][-4:]}
+                   for n, doc in zip("AB", r["statusz"])},
+         slo={n: doc["slo"]["decision"] for n, doc in zip("AB",
+                                                           r["statusz"])},
+         drainz=r["drainz"][1], engine_steps=r["steps"],
+         attention_routes=routes, kernel_launches=r["counts"],
+         max_memory_allocated=(torch.cuda.max_memory_allocated()
+                               if cuda else None),
+         nvidia_smi=_nvidia_smi() if cuda else None)
+    del engines, servers, model, card
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    counts = r["counts"]
+    return {"attention": counts["attention"],
+            "attention_int8": counts["attention_int8"], "gmm": 0,
+            "attention_split": counts["attention_split"],
+            "attention_int8_split": counts["attention_int8_split"],
+            "attention_sm90": counts["attention_sm90"],
+            "attention_int8_sm90": counts["attention_int8_sm90"],
+            "gmm_sm90": 0}
 
 
 # ------------------------------------------------------- flash attention ---
@@ -4481,12 +5104,14 @@ def main() -> int:
     phase_engine_parity_int8()
     phase_engine_parity_moe()
     phase_engine_parity_prefix_spec()
+    phase_engine_parity_migration()
     runs = [phase_serve("serve", ["--preset", "llama2_7b"]),
             phase_serve("serve_int8", ["--preset", "llama2_7b",
                                        "--cache-dtype", "int8"]),
             phase_serve("serve_moe", ["--preset", "mixtral_8x7b",
                                       "--num-layers", "16"]),
-            phase_serve_prefix_spec()]
+            phase_serve_prefix_spec(),
+            phase_serve_migrate()]
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     decode = gmm_t[0]              # the gmm line: the decode gate/up shape
     flash_err, flash_t = phase_kernel_flash(built)

@@ -2,8 +2,9 @@
 
 Flags are seeded from the environment (``FLAGS_<name>``) at definition time
 and set at run time with :func:`set_flags` (the launcher's ``--set``).  Only
-the flags the ported serving path reads are registered here, with the
-reference's names and defaults.
+the flags the port reads are registered here (the serving engine, the front
+door, observability, the watchdog), with the reference's names and
+defaults.
 """
 
 from __future__ import annotations
@@ -111,3 +112,90 @@ define_flag("router_digest_sketch_bits", 65536,
 define_flag("router_digest_sketch_hashes", 4,
             "Bloom hash count k (indices from one blake2b by double "
             "hashing).")
+define_flag("enable_async_trace", False,
+            "Step watchdog: record the stack of every watched task and "
+            "print it when the task times out (distributed/watchdog.py).")
+define_flag("comm_timeout_s", 600,
+            "Step watchdog timeout in seconds: a watched task (the serving "
+            "front door's engine step) running longer fires the timeout "
+            "hooks (the flight recorder's dump).")
+define_flag("metrics", True,
+            "Process-wide metrics registry collection on the serving hot "
+            "paths (paddle_tpu_torch/observability/): per-request TTFT/ITL "
+            "histograms, per-phase step attribution, pool gauges.  Warm "
+            "steps add no kernel build and no device sync with it on; 0 "
+            "disables every hot-path instrumentation site.")
+define_flag("trace_max_events", 200000,
+            "Cap on buffered Chrome-trace events in the observability "
+            "tracer (observability/tracing.py); the overflow is counted in "
+            "the exported file's metadata and in tracing.dropped_events.")
+define_flag("metrics_max_series", 512,
+            "Cap on LABELED series per metric family in the registry "
+            "(observability/metrics.py).  A family at the cap folds every "
+            "further label set into one {series=__overflow__} series and "
+            "bumps metrics.dropped_series.")
+define_flag("serving_slo_ttft_ms", 2000.0,
+            "HTTP front door TTFT SLO target in ms (serving/slo.py): the "
+            "serving.ttft_ms quantile FLAGS_serving_slo_quantile must stay "
+            "under this.  <=0 disables the TTFT term.")
+define_flag("serving_slo_itl_ms", 200.0,
+            "HTTP front door inter-token-latency SLO target in ms "
+            "(serving.itl_ms histogram).  <=0 disables the ITL term.")
+define_flag("serving_slo_quantile", 0.95,
+            "SLO quantile: the fraction of observations that must meet the "
+            "TTFT/ITL targets (0.95 = a 5% violation budget).")
+define_flag("serving_slo_burn", 2.0,
+            "Load-shed threshold as a multiple of the SLO violation "
+            "budget: an observed violation rate > burn * (1 - quantile) "
+            "sheds new requests with 503; > 1x budget marks them 'queue' "
+            "(admitted, counted as at-risk).")
+define_flag("serving_slo_min_samples", 64,
+            "Minimum fresh histogram observations in the current window "
+            "before SLO burn decisions activate (a cold start admits).")
+define_flag("serving_slo_window", 512,
+            "Observations per SLO decision window: burn is computed over "
+            "deltas since the window base, rebased every this many.")
+define_flag("serving_sentinel", True,
+            "Online regression sentinel (observability/sentinel.py) in the "
+            "serving front door: EWMA+MAD drift detectors over TTFT/ITL, "
+            "per-phase step_ms, kernel builds after warm-up, queue depth "
+            "and spec accept rate, swept from the engine loop.")
+define_flag("sentinel_alpha", 0.2,
+            "EWMA smoothing factor for the sentinel's baseline mean and "
+            "absolute-deviation trackers (observability/sentinel.py) and "
+            "the step attribution's cost table.")
+define_flag("sentinel_k", 4.0,
+            "Sentinel anomaly threshold: a sample is anomalous when "
+            "|value - ewma| > k * max(deviation, 10% of the baseline).")
+define_flag("sentinel_min_samples", 16,
+            "Observations a sentinel detector folds into its baseline "
+            "before it may flag anomalies.")
+define_flag("sentinel_interval_s", 1.0,
+            "Minimum seconds between sentinel sweeps from the serving "
+            "engine loop; a sweep reads host-side registry series only.")
+define_flag("sentinel_history", 64,
+            "Recent anomaly records the sentinel keeps for /statusz.")
+define_flag("fleet_drain_timeout_s", 30.0,
+            "Bound on a replica's graceful drain: after admission stops "
+            "(SIGTERM or /drainz), in-flight requests get this many "
+            "seconds to finish before the shutdown path stops waiting.")
+define_flag("serving_queue_timeout_s", 0.0,
+            "Queue-expiry shedding: a request still waiting in the engine "
+            "inbox (never admitted, no prefill spent) past this many "
+            "seconds is retired: unary replies 504, a stream gets a finish "
+            "frame with finish_reason=queue_expired "
+            "(serving.http.queue_expired).  <=0 disables expiry.")
+define_flag("flight_recorder_min_interval_s", 30.0,
+            "Per-reason rate limit on flight-recorder dumps: repeat dumps "
+            "with the same reason inside this window are suppressed "
+            "(flight_recorder.suppressed_dumps).  <=0 disables the limit.")
+define_flag("flight_recorder_events", 4096,
+            "Bounded ring of recent trace spans kept by the crash flight "
+            "recorder (observability/flight_recorder.py), dumped as a "
+            "Chrome trace on watchdog timeout / SIGTERM / crash.")
+define_flag("flight_recorder_snapshot_s", 10.0,
+            "Seconds between periodic registry snapshots folded into the "
+            "flight-recorder ring (each is one instant event).")
+define_flag("flight_recorder_path", "flight_record.json",
+            "Base path for flight-recorder dumps; the trigger reason and "
+            "the process id are suffixed to the stem.")

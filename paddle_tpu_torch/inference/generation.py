@@ -27,13 +27,21 @@
   copy, swap-in) is enqueued on the one current stream, whose order is the
   only ordering they rely on.
 
-Not ported yet (each a later ROADMAP item; the constructors do not take
-their options): tensor parallelism (and with it the sharded MoE branch),
-session migration, and the metrics / attribution hooks.
+- Telemetry (``metrics=``, default ``FLAGS_metrics``): per-request
+  lifecycle timestamps, the ``serving.*`` registry series and the
+  per-phase step attribution (``observability/``).  A step stamps host
+  timestamps and appends to lists; TTFT, ITL and queue wait are folded from
+  those stamps at the drain, so telemetry reads no device tensor.  Session
+  migration (``inference/migration.py``) exports and imports an engine's
+  sessions between steps.
+
+Not ported yet (a later ROADMAP item; the constructors do not take its
+option): tensor parallelism (and with it the sharded MoE branch).
 """
 
 from __future__ import annotations
 
+import time
 from collections import deque
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
@@ -43,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import flags, resolve_device
+from .. import observability as _obs
 from ..kernels.grouped_matmul import sorted_dispatch_plan
 from ..kernels.paged_attention import (ragged_paged_attention,
                                        write_kv_pages_all_layers,
@@ -227,6 +236,7 @@ class LlamaGenerator:
             c.head_dim, cache_dtype or c.dtype)
         self._cos, self._sin = _rope_cos_sin(self.max_seq_len, c.head_dim,
                                              c.rope_theta, device=dev)
+        self._metrics_on = _obs.metrics_enabled()
 
     # ---- params ----
     def _extract(self, model: LlamaForCausalLM):
@@ -563,12 +573,16 @@ class LlamaGenerator:
             steps_until_sync -= 1
             if gen.eos_token_id is not None and steps_until_sync <= 0:
                 steps_until_sync = self.sync_every
+                if self._metrics_on:
+                    _obs.count_sync()
                 if bool(all_done):           # single scalar sync at a drain
                     break
 
         for s in seq_ids:
             alloc.free(s)
 
+        if self._metrics_on:
+            _obs.count_sync()                # one bulk transfer
         mat = torch.stack(collected, dim=1).cpu().numpy()    # [MB, steps]
         out: List[List[int]] = []
         for i in range(B):
@@ -594,9 +608,17 @@ def generate(model: LlamaForCausalLM, prompts,
 
 class Request:
     """One in-flight generation request of the continuous-batching engine.
-    ``output`` grows at the engine's drains; ``done`` flips at retirement."""
+    ``output`` grows at the engine's drains; ``done`` flips at retirement.
+
+    Lifecycle timestamps (host ``perf_counter``, stamped only with metrics
+    on): ``t_enqueue`` at submit, ``t_admit`` at admission, ``t_first`` /
+    ``t_last`` from the dispatch stamps of the steps that committed the
+    first / latest token, folded in at the drain.  ``trace_id`` is the
+    caller's trace context (the HTTP front door's response id): the
+    request's lifecycle spans ride a trace lane named after it."""
 
     __slots__ = ("req_id", "prompt", "max_new_tokens", "output", "done",
+                 "t_enqueue", "t_admit", "t_first", "t_last", "n_emitted",
                  "trace_id")
 
     def __init__(self, req_id, prompt, max_new_tokens, trace_id=None):
@@ -605,7 +627,63 @@ class Request:
         self.max_new_tokens = max_new_tokens
         self.output: List[int] = []
         self.done = False
+        self.t_enqueue = None
+        self.t_admit = None
+        self.t_first = None
+        self.t_last = None
+        self.n_emitted = 0
         self.trace_id = trace_id
+
+
+class _ServingMetrics:
+    """Registry handles of the serving hot path, resolved once at engine
+    construction (plain attribute access per step)."""
+
+    __slots__ = ("requests", "completed", "tokens", "prefill_tokens",
+                 "queue_wait", "ttft", "itl", "queue_depth", "queue_now",
+                 "occupancy", "steps", "drains", "pages_in_use",
+                 "peak_pages", "active_seqs", "cached_pages",
+                 "evictable_pages", "spec_drafted", "spec_accepted",
+                 "spec_rejected", "accept_len", "digest_epoch")
+
+    def __init__(self):
+        m = _obs.metrics
+        # speculative decoding: folded in at the drain, never per step
+        self.spec_drafted = m.counter("serving.spec.drafted_tokens")
+        self.spec_accepted = m.counter("serving.spec.accepted_tokens")
+        self.spec_rejected = m.counter("serving.spec.rejected_tokens")
+        self.accept_len = m.histogram(
+            "serving.spec.accept_len",
+            bounds=[0.0, 1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0, 16.0])
+        self.requests = m.counter("serving.requests_total")
+        self.completed = m.counter("serving.requests_completed")
+        self.tokens = m.counter("serving.tokens_generated")
+        self.prefill_tokens = m.counter("serving.prefill_tokens")
+        self.queue_wait = m.histogram("serving.queue_wait_ms")
+        self.ttft = m.histogram("serving.ttft_ms")
+        self.itl = m.histogram("serving.itl_ms")
+        self.queue_depth = m.histogram("serving.queue_depth")
+        self.queue_now = m.gauge("serving.queue_depth_now")
+        self.occupancy = m.histogram("serving.batch_occupancy")
+        self.steps = m.counter("serving.steps")
+        self.drains = m.counter("serving.drains")
+        self.pages_in_use = m.gauge("serving.pages_in_use")
+        self.peak_pages = m.gauge("serving.peak_pages_in_use")
+        self.active_seqs = m.gauge("serving.active_seqs")
+        self.cached_pages = m.gauge("serving.prefix_cached_pages")
+        self.evictable_pages = m.gauge("serving.prefix_evictable_pages")
+        self.digest_epoch = m.gauge("serving.prefix_digest_epoch")
+
+    def update_pool(self, stats: dict) -> None:
+        """Fold the allocator and prefix-cache gauges in from
+        ``engine.stats()`` (at every drain)."""
+        self.pages_in_use.set(stats["pages_in_use"])
+        self.peak_pages.set(stats["peak_in_use"])
+        self.active_seqs.set(stats["active_seqs"])
+        if "prefix_cached_pages" in stats:
+            self.cached_pages.set(stats["prefix_cached_pages"])
+            self.evictable_pages.set(stats["prefix_evictable_pages"])
+            self.digest_epoch.set(stats.get("prefix_digest_epoch", 0))
 
 
 class ContinuousBatchingEngine:
@@ -643,6 +721,11 @@ class ContinuousBatchingEngine:
       (``inference/kv_spill.py``).
 
     Greedy outputs with any of them on equal the plain engine's.
+
+    ``metrics`` (default ``FLAGS_metrics``) records the per-request
+    lifecycle histograms, the pool gauges and the per-phase step
+    attribution (``self.attribution``) from host timestamps; off, nothing
+    is recorded.
     """
 
     def __init__(self, model: LlamaForCausalLM, *, max_batch: int = 8,
@@ -650,7 +733,8 @@ class ContinuousBatchingEngine:
                  prefix_cache: Optional[bool] = None,
                  spec_decode=None, spec_k: Optional[int] = None,
                  spec_ngram_max: Optional[int] = None,
-                 kv_spill_pages: Optional[int] = None, **kw):
+                 kv_spill_pages: Optional[int] = None,
+                 metrics: Optional[bool] = None, **kw):
         self.gen_cfg = gen or GenerationConfig()
         self.g = LlamaGenerator(model, max_batch=max_batch, device=device,
                                 **kw)
@@ -672,9 +756,10 @@ class ContinuousBatchingEngine:
         self._next_id = 0
         self._bt = np.zeros((B, self.g.pages_per_seq), np.int32)
         self._bt_dev = self.g.upload(self._bt)
-        # pending window: ("step", out [B], commit np [B], None) for plain
-        # steps, ("spec", out [B, K], n_commit [B], drafted [B] | None) for
-        # speculative ones (device tensors until the drain)
+        # pending window: ("step", out [B], commit np [B], None, t_disp)
+        # for plain steps, ("spec", out [B, K], n_commit [B], drafted [B] |
+        # None, t_disp) for speculative ones (device tensors until the
+        # drain; t_disp the host's dispatch timestamp)
         self._pending: List[tuple] = []
         self._steps_since_drain = 0
         # per-slot cap on valid generated tokens, set when a sequence
@@ -682,6 +767,16 @@ class ContinuousBatchingEngine:
         self._gen_cap: List[Optional[int]] = [None] * B
         self.steps = 0                # device dispatches, plain and spec
         self.spec_dispatches = 0      # of which speculative
+        # ---- telemetry: lifecycle histograms and pool gauges, stamped on
+        # the host at dispatch and folded in at the drain
+        if metrics is None:
+            metrics = _obs.metrics_enabled()
+        self._obs: Optional[_ServingMetrics] = \
+            _ServingMetrics() if metrics else None
+        # per-phase step attribution: stamp() on the step path is one list
+        # append; durations, histograms and baselines fold at the drain
+        self.attribution: Optional[_obs.StepAttribution] = \
+            _obs.StepAttribution() if metrics else None
 
         # ---- prefix cache: radix-shared KV pages ----
         if prefix_cache is None:
@@ -727,6 +822,7 @@ class ContinuousBatchingEngine:
             if kv_spill_pages and kv_spill_pages > 0:
                 self.spill = HostSpillPool(self.g.cache, int(kv_spill_pages))
                 self.prefix_cache.set_spill(self.spill)
+        self.last_stats: dict = self.stats()
 
     # ---- public api ----
     def submit(self, prompt: Sequence[int],
@@ -739,6 +835,10 @@ class ContinuousBatchingEngine:
                       max_new_tokens or self.gen_cfg.max_new_tokens,
                       trace_id=trace_id)
         self.waiting.append(req)
+        if self._obs is not None:
+            req.t_enqueue = time.perf_counter()
+            self._obs.requests.inc()
+            self._obs.queue_now.set(len(self.waiting))
         return req
 
     def add_request(self, prompt: Sequence[int],
@@ -753,6 +853,8 @@ class ContinuousBatchingEngine:
         except ValueError:
             return False
         req.done = True
+        if self._obs is not None:
+            self._obs.queue_now.set(len(self.waiting))
         return True
 
     def has_work(self) -> bool:
@@ -771,6 +873,7 @@ class ContinuousBatchingEngine:
         """Admit what fits, run ONE device step (plain or speculative),
         drain every ``sync_every`` steps.  Returns requests retired by this
         call."""
+        t_host0 = time.perf_counter() if _obs.TRACER.enabled else None
         self._admit()
         # requests retired by a mid-step drain under pool pressure still
         # ride this call's return
@@ -827,8 +930,15 @@ class ContinuousBatchingEngine:
                     # device and cap its valid output at what was
                     # generated before this step
                     if self._gen_cap[b] is None:
-                        self._gen_cap[b] = len(req.output) + sum(
-                            int(cm[b]) for _k, _o, cm, _d in self._pending)
+                        n = len(req.output)
+                        for kind, _o, cm, _d, _t in self._pending:
+                            if kind != "step":
+                                # the in-flight spec commit count is a
+                                # device tensor: one marked sync on this
+                                # degraded path
+                                _obs.count_sync()
+                            n += int(cm[b])
+                        self._gen_cap[b] = n
                         self.finished[b] = True
                     break
                 alloc.extend(req.req_id,
@@ -843,9 +953,28 @@ class ContinuousBatchingEngine:
 
         if spec_lane:
             out_mat, ncommit, dlen = self._dispatch_spec()
-            self._pending.append(("spec", out_mat, ncommit, dlen))
+            t_step = time.perf_counter()
+            self._pending.append(("spec", out_mat, ncommit, dlen, t_step))
             self.steps += 1
             self.spec_dispatches += 1
+            if self.attribution is not None:
+                # commit counts stay on the device until the drain, which
+                # credits them
+                self.attribution.stamp(
+                    "spec_verify" if self.spec.mode == "ngram"
+                    else "fused_k", int(self.spec.k), t_step)
+            if self._obs is not None:
+                o = self._obs
+                o.steps.inc()
+                o.occupancy.observe(
+                    sum(r is not None for r in self.slot_req) / B)
+                o.queue_depth.observe(len(self.waiting))
+                o.queue_now.set(len(self.waiting))
+            if t_host0 is not None:
+                _obs.TRACER.event("engine.step", t_host0, t_step - t_host0,
+                                  cat="serving", tid="engine",
+                                  args={"T": int(self.spec.k),
+                                        "spec": self.spec.mode})
             self._steps_since_drain += 1
             if self._steps_since_drain >= g.sync_every:
                 return early_done + self._drain()
@@ -893,8 +1022,30 @@ class ContinuousBatchingEngine:
         else:
             (self.tokens, self.positions, self.finished, _all_done,
              self.counts) = g._step_fn(*args)
-        self._pending.append(("step", self.tokens, commit, None))
+        # the dispatch timestamp rides the pending window: the drain
+        # stamps TTFT/ITL per committed token from it
+        t_step = time.perf_counter()
+        self._pending.append(("step", self.tokens, commit, None, t_step))
         self.steps += 1
+        if self.attribution is not None:
+            # a mixed step (prefill chunks in flight) is the prefill-chunk
+            # shape; T=1 is pure decode.  Tokens: query tokens processed
+            self.attribution.stamp("prefill" if T > 1 else "decode",
+                                   int(T), t_step, int(ql.sum()))
+        if self._obs is not None:
+            o = self._obs
+            o.steps.inc()
+            o.occupancy.observe(
+                sum(r is not None for r in self.slot_req) / B)
+            o.queue_depth.observe(len(self.waiting))
+            o.queue_now.set(len(self.waiting))
+            n_prefill = int(ql.sum()) - int(decode.sum())
+            if n_prefill:
+                o.prefill_tokens.inc(n_prefill)
+        if t_host0 is not None:
+            _obs.TRACER.event("engine.step", t_host0, t_step - t_host0,
+                              cat="serving", tid="engine",
+                              args={"T": int(T)})
         if self.prefix_cache is not None:
             # this step's prefill writes are enqueued: pages wholly below
             # each row's prompt cursor are safe for later steps of other
@@ -926,6 +1077,8 @@ class ContinuousBatchingEngine:
             src = self.g.upload(np.asarray([s for s, _ in starting], np.int64))
             dst = self.g.upload(np.asarray([d for _, d in starting], np.int64))
             _cow_copy_pages(self.g.cache.arrays, src, dst)
+            if self.attribution is not None:
+                self.attribution.stamp("cow_copy", 0)
 
     # ---- the speculative dispatch (decode-only batches) ----
     def _dispatch_spec(self):
@@ -978,6 +1131,11 @@ class ContinuousBatchingEngine:
             s["prefix_evictable_pages"] = self.prefix_cache.evictable_pages()
             s["prefix_spilled_pages"] = self.prefix_cache.spilled_pages()
             s["prefix_digest_epoch"] = self.prefix_cache.digest_epoch
+        # session-migration books, once the engine has exported or
+        # imported a snapshot
+        mc = getattr(self, "_migration_counts", None)
+        if mc is not None:
+            s.update(mc)
         s["kv_spill_enabled"] = self.spill is not None
         if self.spill is not None:
             s.update(self.spill.stats())
@@ -987,6 +1145,34 @@ class ContinuousBatchingEngine:
             s["spec_k"] = self.spec.k
             s.update(self._spec_counts)
         return s
+
+    def inflight_requests(self, top_k: int = 8) -> List[dict]:
+        """The oldest in-flight requests (busy slots and the waiting queue)
+        with their trace ids: the ``/statusz`` hung-request table.  Reads
+        host state only, so the status thread may call it while the engine
+        thread runs."""
+        now = time.perf_counter()
+
+        def row(req: Request, state: str, slot) -> dict:
+            t0 = req.t_enqueue
+            return {"req_id": req.req_id, "trace_id": req.trace_id,
+                    "state": state, "slot": slot,
+                    "age_s": None if t0 is None else round(now - t0, 3),
+                    "prompt_tokens": len(req.prompt),
+                    "generated": len(req.output)}
+
+        rows = []
+        for b in range(self.B):
+            req = self.slot_req[b]
+            if req is None:
+                continue
+            state = "prefill" if self.prompt_pos[b] < len(req.prompt) \
+                else "decode"
+            rows.append(row(req, state, b))
+        for req in list(self.waiting):
+            rows.append(row(req, "queued", None))
+        rows.sort(key=lambda r: -(r["age_s"] or 0.0))
+        return rows[:top_k]
 
     def prefix_digest(self, max_entries: Optional[int] = None,
                       since: Optional[str] = None):
@@ -1036,11 +1222,17 @@ class ContinuousBatchingEngine:
         if not self._pending:
             self._steps_since_drain = 0
             return done
+        obs = self._obs
+        attr = self.attribution
+        t_drain0 = time.perf_counter() if attr is not None else None
+        if obs is not None:
+            obs.drains.inc()
+            _obs.count_sync()        # the window's host<->device transfer
         # one transfer: the finished flags and every pending output (and,
         # for spec steps, commit and draft counts), flattened together
         B = self.B
         parts = [self.finished.to(torch.int32)]
-        for kind, out, cm, dl in self._pending:
+        for kind, out, cm, dl, _t in self._pending:
             parts.append(out.reshape(-1).to(torch.int32))
             if kind == "spec":
                 parts.append(cm.to(torch.int32))
@@ -1050,7 +1242,7 @@ class ContinuousBatchingEngine:
         fin = flat[:B].astype(bool)
         off = B
         window = []
-        for kind, out, cm, dl in self._pending:
+        for kind, out, cm, dl, t in self._pending:
             n = out.numel()
             o = flat[off:off + n].reshape(tuple(out.shape))
             off += n
@@ -1061,12 +1253,16 @@ class ContinuousBatchingEngine:
                 if dl is not None:
                     d = flat[off:off + B]
                     off += B
-                window.append((kind, o, c, d))
+                window.append((kind, o, c, d, t))
             else:
-                window.append((kind, o, cm, None))
+                window.append((kind, o, cm, None, t))
         self._pending.clear()
         self._steps_since_drain = 0
         self._fold_spec_metrics(window)
+        if attr is not None:
+            # the window's stamps (the last closes against the drain's
+            # entry), after the spec token credits landed
+            attr.fold(t_drain0)
         alloc = self.g.cache.allocator
         eos = self.gen_cfg.eos_token_id
         bt_dirty = False
@@ -1074,17 +1270,43 @@ class ContinuousBatchingEngine:
             req = self.slot_req[b]
             if req is None:
                 continue
-            # committed tokens this window: a plain step contributes its
-            # sample where the host marked the row committing, a spec step
-            # its accepted prefix (frozen rows: none)
+            prev_len = len(req.output)
+            # committed tokens this window and their dispatch stamps: a
+            # plain step contributes its sample where the host marked the
+            # row committing, a spec step its accepted prefix (frozen
+            # rows: none)
             new_tok: List[int] = []
-            for kind, out, cm, _dl in window:
+            tok_ts: List[float] = []
+            for kind, out, cm, _dl, t in window:
                 if kind == "step":
                     if cm[b]:
                         new_tok.append(int(out[b]))
+                        tok_ts.append(t)
                 else:
-                    new_tok.extend(int(v) for v in out[b, :int(cm[b])])
+                    for v in out[b, :int(cm[b])]:
+                        new_tok.append(int(v))
+                        tok_ts.append(t)
             req.output.extend(new_tok)
+            if obs is not None:
+                # TTFT/ITL from the committing steps' dispatch stamps; the
+                # commits the trims below drop (past the budget, past the
+                # cache, frozen repeats after EOS) are not timed
+                room = max(0, req.max_new_tokens - prev_len)
+                cap_v = max(1, self.g.max_seq_len - len(req.prompt))
+                if self._gen_cap[b] is not None:
+                    cap_v = min(cap_v, max(1, self._gen_cap[b]))
+                room = min(room, max(0, cap_v - prev_len))
+                if eos is not None and eos in new_tok:
+                    room = min(room, new_tok.index(eos) + 1)
+                for tj in tok_ts[:room]:
+                    if req.t_first is None:
+                        req.t_first = tj
+                        base = req.t_enqueue if req.t_enqueue is not None \
+                            else tj
+                        obs.ttft.observe((tj - base) * 1e3)
+                    else:
+                        obs.itl.observe((tj - req.t_last) * 1e3)
+                    req.t_last = tj
             # the device freeze repeats the last token once finished: trim
             # to the true capacity / EOS / budget boundary here.  cap = what
             # fits in the cache (max_seq minus the prompt), lowered further
@@ -1099,6 +1321,9 @@ class ContinuousBatchingEngine:
             elif len(req.output) >= req.max_new_tokens:
                 req.output = req.output[:req.max_new_tokens]
             elif len(req.output) < cap and not fin[b]:
+                if obs is not None and len(req.output) > req.n_emitted:
+                    obs.tokens.inc(len(req.output) - req.n_emitted)
+                    req.n_emitted = len(req.output)
                 if self.spec is not None and \
                         self.prompt_pos[b] >= len(req.prompt):
                     bt_dirty |= self._rollback_tail(b, req)
@@ -1107,6 +1332,13 @@ class ContinuousBatchingEngine:
                     self._hist.extend_row(b, new_tok)
                 continue                     # still running
             req.done = True
+            if obs is not None:
+                if len(req.output) > req.n_emitted:
+                    obs.tokens.inc(len(req.output) - req.n_emitted)
+                    req.n_emitted = len(req.output)
+                obs.completed.inc()
+                if _obs.TRACER.enabled and req.t_enqueue is not None:
+                    self._lifecycle_spans(b, req)
             if self.prefix_cache is not None:
                 # its cached prefix pages fall to the LRU pool (evicted
                 # only when an allocation needs the memory)
@@ -1120,16 +1352,45 @@ class ContinuousBatchingEngine:
         if bt_dirty:
             self._bt_dev = self.g.upload(self._bt)
             self._caps_dirty = True
+        self.last_stats = self.stats()
+        if obs is not None:
+            obs.update_pool(self.last_stats)
+        if attr is not None:
+            # the drain is a phase: the window's transfer and the retire
+            # bookkeeping
+            attr.observe_host("drain", time.perf_counter() - t_drain0)
         return done
+
+    def _lifecycle_spans(self, b: int, req: Request) -> None:
+        """Retroactive queued -> prefill -> decode spans of a retired
+        request, on its trace lane (or its slot's)."""
+        tr = _obs.TRACER
+        t_adm = req.t_admit or req.t_enqueue
+        t_f = req.t_first if req.t_first is not None else t_adm
+        t_l = req.t_last if req.t_last is not None else t_f
+        lane = req.trace_id or f"slot{b}"
+        rid = req.req_id
+        ctx = {"trace_id": req.trace_id, "slot": b} \
+            if req.trace_id else {"slot": b}
+        proc = getattr(self, "trace_proc", None)
+        if proc:
+            ctx["proc"] = proc
+        tr.event(f"req{rid}.queued", req.t_enqueue, t_adm - req.t_enqueue,
+                 cat="serving", tid=lane, args=ctx)
+        tr.event(f"req{rid}.prefill", t_adm, t_f - t_adm, cat="serving",
+                 tid=lane, args={**ctx, "prompt_tokens": len(req.prompt)})
+        tr.event(f"req{rid}.decode", t_f, t_l - t_f, cat="serving",
+                 tid=lane, args={**ctx, "generated": len(req.output)})
 
     def _fold_spec_metrics(self, window) -> None:
         """Fold the window's speculative counters (steps, committed,
-        drafted, accepted, rejected tokens) into the engine's books, at the
-        drain."""
+        drafted, accepted, rejected tokens) into the engine's books and the
+        registry (and the accept-length histogram), at the drain."""
         if self.spec is None:
             return
+        obs = self._obs
         n_spec = c_tot = d_tot = a_tot = r_tot = 0
-        for kind, _out, cm, dl in window:
+        for kind, _out, cm, dl, _t in window:
             if kind != "spec":
                 continue
             n_spec += 1
@@ -1143,14 +1404,29 @@ class ContinuousBatchingEngine:
                 d_tot += d
                 a_tot += acc
                 r_tot += d - acc
+                if obs is not None and n > 0:
+                    # ngram: accepted drafts a dispatch; fused: tokens
+                    # beyond the first
+                    obs.accept_len.observe(float(n - 1))
         if not n_spec:
             return
+        if self.attribution is not None and c_tot:
+            self.attribution.credit_tokens(
+                "spec_verify" if self.spec.mode == "ngram" else "fused_k",
+                c_tot)
         sc = self._spec_counts
         sc["spec_steps"] += n_spec
         sc["spec_committed_tokens"] += c_tot
         sc["spec_drafted_tokens"] += d_tot
         sc["spec_accepted_tokens"] += a_tot
         sc["spec_rejected_tokens"] += r_tot
+        if obs is not None:
+            if d_tot:
+                obs.spec_drafted.inc(d_tot)
+            if a_tot:
+                obs.spec_accepted.inc(a_tot)
+            if r_tot:
+                obs.spec_rejected.inc(r_tot)
 
     def _rollback_tail(self, b: int, req: Request) -> bool:
         """Resync the host length bound to the device's true commit count
@@ -1247,6 +1523,14 @@ class ContinuousBatchingEngine:
             return
         mask = np.zeros((self.B,), bool)
         budgets = self._budgets_np
+        if self._obs is not None:
+            now = time.perf_counter()
+            for _, req in admitted:
+                req.t_admit = now
+                if req.t_enqueue is not None:
+                    self._obs.queue_wait.observe(
+                        (now - req.t_enqueue) * 1e3)
+            self._obs.queue_now.set(len(self.waiting))
         for b, req in admitted:
             self.slot_req[b] = req
             self.prompt_pos[b] = int(starts[b])

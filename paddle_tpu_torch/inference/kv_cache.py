@@ -31,6 +31,16 @@ import torch
 from ..models.llama import torch_dtype
 
 
+def _serving_bump(key: str, n: int = 1) -> None:
+    """Mirror a pool counter into the process-wide registry counter
+    ``serving.<key>`` (what ``prefix_cache.serving_stats()`` and
+    ``observability.snapshot()`` read).  The allocator is the one place
+    each counter increments, so the per-engine and process-wide books
+    cannot diverge."""
+    from ..observability import metrics as _metrics
+    _metrics.counter("serving." + key).inc(n)
+
+
 class PageAllocator:
     """Free-list allocator mapping sequence ids to ref-counted page lists.
 
@@ -202,16 +212,20 @@ class PageAllocator:
         self.release_page(src)
         self.peak_in_use = max(self.peak_in_use, self.pages_in_use)
         self.cow_copies += 1
+        _serving_bump("cow_copies")
         return src, dst
 
     def record_prefix_hit(self, tokens_saved: int) -> None:
-        """Count one admission that reused cached pages."""
+        """Count one admission that reused cached pages (both books)."""
         self.prefix_hits += 1
         self.prefix_tokens_saved += tokens_saved
+        _serving_bump("prefix_hits")
+        _serving_bump("prefix_tokens_saved", tokens_saved)
 
     def record_evictions(self, n: int = 1) -> None:
-        """Count cached pages reclaimed under pressure."""
+        """Count cached pages reclaimed under pressure (both books)."""
         self.evicted_pages += n
+        _serving_bump("evicted_pages", n)
 
     def slots(self, seq_id: int, start: int, count: int) -> np.ndarray:
         pages = self._pages[seq_id]
@@ -277,6 +291,11 @@ class PagedKVCache:
                                       device=device)
             self.v_scale = torch.ones(shape[:3], dtype=torch.float32,
                                       device=device)
+            # pool bytes saved against an equal-page fp32 pool (K and V,
+            # minus the scale planes)
+            per = num_layers * num_kv_heads * num_pages
+            saved = 2 * (per * page_size * head_dim * 3 - per * 4)
+            _serving_bump("kv.quant_bytes_saved", max(saved, 0))
         else:
             shape = (num_layers, num_kv_heads, num_pages, page_size,
                      head_dim)

@@ -35,6 +35,11 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from .. import observability as _obs
+
+# swap-in host-time histogram ladder (ms)
+_SWAPIN_BOUNDS = [0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0]
+
 
 class HostSpillPool:
     """Fixed ring of pinned host page slots and the page copies in and out
@@ -56,6 +61,11 @@ class HostSpillPool:
         self.spilled_pages = 0           # cumulative spills
         self.swapins = 0                 # cumulative swap-ins
         self.swapin_host_ms = 0.0        # host time spent enqueuing swap-ins
+        m = _obs.metrics
+        self._c_spilled = m.counter("serving.kv.spilled_pages")
+        self._c_swapins = m.counter("serving.kv.swapins")
+        self._h_wait = m.histogram("serving.kv.swapin_wait_ms",
+                                   bounds=_SWAPIN_BOUNDS)
 
     @property
     def ring_bytes(self) -> int:
@@ -89,10 +99,12 @@ class HostSpillPool:
         if not self._free:
             return None
         slot = self._free.pop()
+        _obs.count_sync()                # eviction-path page readback
         for ring, plane in zip(self._ring, self.cache.arrays):
             ring[slot].copy_(plane[:, :, page_id])
         self._used[slot] = None
         self.spilled_pages += 1
+        self._c_spilled.inc()
         return slot
 
     # ---- host -> device (admission) ----
@@ -108,9 +120,12 @@ class HostSpillPool:
             ev = torch.cuda.Event()
             ev.record()
             self._uploads[slot] = ev
-        self.swapin_host_ms += (time.perf_counter() - t0) * 1e3
+        ms = (time.perf_counter() - t0) * 1e3
+        self.swapin_host_ms += ms
+        self._h_wait.observe(ms)
         self._free.append(slot)
         self.swapins += 1
+        self._c_swapins.inc()
 
     def peek(self, slot: int) -> Tuple[torch.Tensor, ...]:
         """A spilled page's host planes, without retiring the slot (session
@@ -118,6 +133,7 @@ class HostSpillPool:
         an upload still reading the slot."""
         ev = self._uploads.pop(slot, None)
         if ev is not None:
+            _obs.count_sync()            # waits for the slot's upload
             ev.synchronize()
         if slot not in self._used:
             raise KeyError(f"spill slot {slot} holds no page")

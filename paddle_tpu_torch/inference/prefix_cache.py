@@ -47,6 +47,21 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 from .. import flags
 
+# process-wide prefix-cache counters: ``serving.*`` registry series, summed
+# over every engine in the process.  Each increment happens inside the
+# allocator (``kv_cache._serving_bump``), which also keeps the per-engine
+# books of ``PageAllocator.stats()``, so the two never diverge.
+_SERVING_KEYS = ("prefix_hits", "prefix_tokens_saved", "cow_copies",
+                 "evicted_pages")
+
+
+def serving_stats() -> Dict[str, int]:
+    """Process-wide prefix-cache counters (all engines summed), a view of
+    the ``serving.*`` registry series."""
+    from ..observability import metrics as _metrics
+    return {k: int(_metrics.counter("serving." + k).value)
+            for k in _SERVING_KEYS}
+
 
 # ---------------------------------------------------------------------------
 # Digest sketch: a counting Bloom filter kept on the index's membership

@@ -21,6 +21,11 @@ and the statics of their templates, never meet.
 Nothing here runs at import time: :func:`load` builds on first use, and
 :func:`build_all` starts one ``nvcc`` per source (and per generated header
 it is given), all at once.
+
+These builds and loads are the port's compiles: each nvcc run and each
+library load counts once in ``jit.backend_compiles`` (with its duration in
+``jit.backend_compile_ms``), so ``observability.assert_overhead`` and the
+sentinel see a kernel built after warm-up.
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
+
+from .. import observability as _obs
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch_kernels"
@@ -120,7 +127,10 @@ def build_all(generated: Sequence[Tuple[str, str]] = ()) -> Dict[str, dict]:
         out = {}
         for key, n, h, st in started:
             log = _finish(n, st)
-            out[key] = {"seconds": time.perf_counter() - t0, "log": log,
+            seconds = time.perf_counter() - t0
+            if st is not None:
+                _obs.record_compile(seconds)
+            out[key] = {"seconds": seconds, "log": log,
                         "library": str(_target(n, h))}
         return out
 
@@ -139,7 +149,9 @@ def load_generated(name: str, header: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(key)
         if lib is None:
+            t0 = time.perf_counter()
             _finish(name, _start(name, header))
             lib = ctypes.CDLL(str(_target(name, header)))
             _LIBS[key] = lib
+            _obs.record_compile(time.perf_counter() - t0)
         return lib

@@ -431,10 +431,15 @@ def _scatter_rows(flat, slots, rows):
     slots = slots.to(device=flat.device, dtype=torch.long)
     keep = slots >= 0
     any_keep = keep.any()
-    first = keep.to(torch.int8).argmax()
-    fill_slot = torch.where(any_keep, slots[first], torch.zeros_like(slots[0]))
+    # a one-element index tensor: indexing by a 0-d tensor reads it on the
+    # host (a sync)
+    first = keep.to(torch.int8).argmax().reshape(1)
+    fill_slot = torch.where(any_keep, slots.index_select(0, first)[0],
+                            torch.zeros_like(slots[0]))
     target = torch.where(keep, slots, fill_slot)
-    fill_row = torch.where(any_keep, rows[..., first, :], flat[..., 0, :])
+    fill_row = torch.where(any_keep,
+                           rows.index_select(rows.dim() - 2, first)[..., 0, :],
+                           flat[..., 0, :])
     rows = torch.where(keep[:, None], rows, fill_row[..., None, :])
     flat.index_copy_(flat.dim() - 2, target, rows)
 

@@ -1,0 +1,239 @@
+"""Metric series catalog: the documented surface of the port's registry
+(port of ``paddle_tpu/observability/catalog.py``).
+
+One table maps every metric family the port can emit to its kind, label
+set and meaning.  A family the JAX package emits too keeps that package's
+kind and labels, so a dashboard reads either.  ``generate_markdown()``
+renders the table (``python -m paddle_tpu_torch.observability.catalog``
+prints it); the tests assert that every family a test process created is
+cataloged.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+from . import metrics as _metrics
+
+__all__ = ["CATALOG", "undocumented", "generate_markdown", "apply_help"]
+
+# family -> (kind, labels, meaning)
+CATALOG: Dict[str, tuple] = {
+    # ---- serving: request lifecycle ----
+    "serving.requests_total": (
+        "counter", "", "requests submitted to the engine"),
+    "serving.requests_completed": (
+        "counter", "", "requests retired by the engine"),
+    "serving.tokens_generated": (
+        "counter", "", "generated tokens retired across all requests"),
+    "serving.prefill_tokens": (
+        "counter", "", "prompt tokens prefilled (after the prefix-cache "
+        "trim)"),
+    "serving.steps": ("counter", "", "engine dispatches"),
+    "serving.drains": (
+        "counter", "", "host<->device drains (the steady state's only "
+        "sync; one per sync_every steps)"),
+    "serving.queue_wait_ms": (
+        "histogram", "", "enqueue -> admission wait per request"),
+    "serving.ttft_ms": (
+        "histogram", "", "enqueue -> first token per request "
+        "(dispatch-stamped, drain-folded)"),
+    "serving.itl_ms": (
+        "histogram", "", "inter-token latency per generated token after "
+        "the first"),
+    "serving.queue_depth": (
+        "histogram", "", "waiting-queue depth observed at each step"),
+    "serving.queue_depth_now": (
+        "gauge", "", "live waiting-queue depth"),
+    "serving.batch_occupancy": (
+        "histogram", "", "busy slots / max_batch per step"),
+    # ---- serving: per-phase step attribution ----
+    "serving.step_ms": (
+        "histogram", "phase=prefill|decode|spec_verify|fused_k|cow_copy"
+        "|drain",
+        "per-phase dispatch-to-dispatch engine step wall time "
+        "(observability/attribution.py; folded at drains)"),
+    "serving.tokens_per_sec": (
+        "gauge", "phase=...",
+        "per-phase throughput over the last drained window"),
+    # ---- serving: KV pool + prefix cache ----
+    "serving.pages_in_use": ("gauge", "", "allocated KV pages"),
+    "serving.peak_pages_in_use": (
+        "gauge", "", "high-water allocated KV pages"),
+    "serving.active_seqs": ("gauge", "", "sequences holding pages"),
+    "serving.prefix_cached_pages": (
+        "gauge", "", "radix-indexed shared KV pages"),
+    "serving.prefix_evictable_pages": (
+        "gauge", "", "idle cached pages the LRU pool could reclaim"),
+    "serving.prefix_digest_epoch": (
+        "gauge", "", "prefix-digest change epoch (every index insert or "
+        "eviction bumps it)"),
+    "serving.prefix_hits": (
+        "counter", "", "admissions that attached a cached prefix"),
+    "serving.prefix_tokens_saved": (
+        "counter", "", "prompt tokens skipped via cached prefixes"),
+    "serving.cow_copies": (
+        "counter", "", "copy-on-write page privatizations"),
+    "serving.evicted_pages": (
+        "counter", "", "cached pages reclaimed under memory pressure"),
+    # ---- serving: int8 KV plane + host spill tier ----
+    "serving.kv.quant_bytes_saved": (
+        "counter", "", "pool bytes the int8 KV plane saves against an "
+        "equal-page fp32 pool (stamped once per cache construction)"),
+    "serving.kv.spilled_pages": (
+        "counter", "", "LRU-evicted prefix-cache pages copied to the "
+        "pinned host spill ring instead of dropped"),
+    "serving.kv.swapins": (
+        "counter", "", "spilled pages copied back into the device pool "
+        "by an admission match"),
+    "serving.kv.swapin_wait_ms": (
+        "histogram", "", "host time enqueuing one spilled page's copy "
+        "back to the card (no device sync)"),
+    # ---- serving: session migration ----
+    "serving.kv.migration_exports": (
+        "counter", "", "session snapshots exported (inference/"
+        "migration.py: raw pool bytes; int8 pages ship quantized, "
+        "spilled pages ship their host-ring bytes)"),
+    "serving.kv.migration_imports": (
+        "counter", "", "session snapshots imported and indexed as ready "
+        "prefix-cache pages (acquire_page, then one page copy a page on "
+        "the current stream)"),
+    "serving.kv.migration_pages": (
+        "counter", "direction=out|in", "KV pages moved by session "
+        "migration"),
+    "serving.kv.migration_aborts": (
+        "counter", "", "transfers that failed mid-flight (the in-flight "
+        "page's allocator reference is released; pages already linked "
+        "stay valid cache entries)"),
+    "serving.kv.migration_rejected": (
+        "counter", "", "snapshots refused by the blake2b integrity check "
+        "at import (corrupt or truncated bytes: nothing installed, no "
+        "allocator reference leaked)"),
+    "serving.kv.handoff_sessions": (
+        "counter", "outcome=ok|partial", "prefill->decode handoffs "
+        "imported on this replica: ok = every full page under the "
+        "journaled tokens arrived, partial = the decode leg re-prefills "
+        "the shortfall"),
+    "serving.kv.handoff_reprefill_tokens": (
+        "counter", "", "tokens the decode leg re-prefills because their "
+        "pages did not survive the handoff"),
+    # ---- serving: speculative decoding ----
+    "serving.spec.drafted_tokens": (
+        "counter", "", "draft tokens dispatched for verification"),
+    "serving.spec.accepted_tokens": (
+        "counter", "", "draft tokens accepted by the verifier"),
+    "serving.spec.rejected_tokens": (
+        "counter", "", "draft tokens rolled back"),
+    "serving.spec.accept_len": (
+        "histogram", "", "tokens committed per speculative dispatch "
+        "beyond the first"),
+    # ---- serving: HTTP front door ----
+    "serving.http.requests": ("counter", "", "HTTP requests accepted"),
+    "serving.http.streams": ("counter", "", "streaming completions"),
+    "serving.http.responses": (
+        "counter", "code=...", "responses by status code"),
+    "serving.http.inflight": ("gauge", "", "open HTTP requests"),
+    "serving.http.request_ms": (
+        "histogram", "", "HTTP request wall time"),
+    "serving.http.slo_decision": (
+        "counter", "decision=admit|queue|shed", "SLO-burn admission "
+        "decisions"),
+    "serving.http.shed": (
+        "counter", "", "requests shed with 503 + Retry-After"),
+    "serving.http.queue_expired": (
+        "counter", "", "requests retired from the engine inbox past "
+        "FLAGS_serving_queue_timeout_s before dispatch (no prefill spent; "
+        "unary = 504, stream = finish_reason queue_expired)"),
+    # ---- regression sentinel ----
+    "observability.anomaly": (
+        "counter", "series=...,kind=drift|burst",
+        "sentinel anomalies by watched series and detector kind "
+        "(observability/sentinel.py; each also lands as a tracer instant "
+        "event and a rate-limited flight-recorder dump)"),
+    # ---- train loop (StepTimer, default name) ----
+    "train.steps": ("counter", "", "train steps dispatched"),
+    "train.step_ms": (
+        "histogram", "", "warm train-step wall time (steps that built a "
+        "kernel excluded)"),
+    "train.tokens_per_sec": (
+        "gauge", "", "throughput of the last warm train step"),
+    "train.recompiles": (
+        "counter", "", "kernel builds attributed to train steps"),
+    "train.grad_comm_bytes": (
+        "counter", "", "analytic gradient-sync traffic"),
+    # ---- compile telemetry: the port's kernel builds ----
+    "jit.backend_compiles": (
+        "counter", "", "process-wide kernel builds and loads "
+        "(kernels/_build.py: one nvcc run, or one library load, each); "
+        "any after warm-up is an anomaly"),
+    "jit.backend_compile_ms": (
+        "histogram", "", "kernel build / load durations "
+        "(kernels/_build.py)"),
+    # ---- observability runtime guards ----
+    "host.device_syncs": (
+        "counter", "", "marked intentional host<->device syncs "
+        "(count_sync; assert_overhead bounds these)"),
+    "metrics.dropped_series": (
+        "counter", "", "label sets folded into {series=__overflow__} by "
+        "the FLAGS_metrics_max_series cardinality guard"),
+    "tracing.dropped_events": (
+        "counter", "", "trace events dropped at the "
+        "FLAGS_trace_max_events cap"),
+    "flight_recorder.dumps": (
+        "counter", "", "flight-recorder dump files written"),
+    "flight_recorder.suppressed_dumps": (
+        "counter", "", "dumps swallowed by the per-reason rate limit "
+        "(FLAGS_flight_recorder_min_interval_s)"),
+    # ---- step watchdog ----
+    "watchdog.timeouts": ("counter", "", "watchdog timeout fires"),
+    "watchdog.outstanding_tasks": (
+        "gauge", "", "watched tasks (engine steps) currently in flight"),
+    "watchdog.last_heartbeat_age_s": (
+        "gauge", "", "seconds since the last watched task began"),
+}
+
+
+def undocumented(families: Optional[Dict[str, str]] = None) -> list:
+    """Families present in the registry but missing from the catalog
+    (``StepTimer`` families under a custom name are the caller's to
+    exclude)."""
+    if families is None:
+        families = _metrics.REGISTRY.families()
+    return sorted(n for n in families if n not in CATALOG)
+
+
+def apply_help() -> None:
+    """Attach every entry's meaning as its family's ``# HELP`` text."""
+    for name, (_kind, _labels, help_text) in CATALOG.items():
+        _metrics.REGISTRY.set_help(name, help_text)
+
+
+def generate_markdown() -> str:
+    """The catalog as a markdown document, grouped by family prefix."""
+    groups: Dict[str, list] = {}
+    for name, (kind, labels, help_text) in CATALOG.items():
+        groups.setdefault(name.split(".", 1)[0], []).append(
+            (name, kind, labels, help_text))
+    lines = [
+        "# Metric series catalog (paddle_tpu_torch)",
+        "",
+        "Every registry family `paddle_tpu_torch` emits, generated from",
+        "`paddle_tpu_torch/observability/catalog.py`.  Scrape them live",
+        "from a serving replica's `/metrics` (Prometheus text, dots",
+        "sanitized to underscores, prefix `paddle_tpu_`).",
+        "",
+        "`train.*` rows describe the default `StepTimer(\"train\")`;",
+        "a custom timer name replaces the prefix.",
+    ]
+    for prefix in sorted(groups):
+        lines += ["", f"## `{prefix}.*`", "",
+                  "| series | kind | labels | meaning |",
+                  "|---|---|---|---|"]
+        for name, kind, labels, help_text in groups[prefix]:
+            lbl = f"`{labels}`" if labels else "—"
+            lines.append(f"| `{name}` | {kind} | {lbl} | {help_text} |")
+    return "\n".join(lines) + "\n"
+
+
+if __name__ == "__main__":
+    print(generate_markdown(), end="")

@@ -5,6 +5,7 @@
         [--steps 16]
     python -m paddle_tpu_torch.profile_step --train [pretrain options]
         [--top 12]
+    python -m paddle_tpu_torch.profile_step --metrics-ab 4 [serving options]
 
 With ``--train`` every other option is the pretrain entry point's
 (``python -m paddle_tpu_torch.models.pretrain --help``; its defaults are
@@ -40,7 +41,22 @@ device-busy milliseconds per step from the profile, the device's idle share
 time, with the shares of the ragged paged-attention kernels and of the
 grouped-matmul kernels (MoE models) and their launches per step (the
 attention's on its split route, gmm's on its sm90 route beside them).
-Needs a CUDA device.
+The engine's telemetry follows ``FLAGS_metrics`` (``FLAGS_metrics=0 python
+-m paddle_tpu_torch.profile_step`` times the step without it); the line
+says which.
+
+``--metrics-ab N`` compares the telemetry's host cost inside one process
+instead: two engines over the same model, one with ``metrics=True`` and one
+with ``metrics=False``, each with ``--batch`` requests of ``--context``
+tokens prefilled, then N rounds of ``--steps`` decode steps on each in
+turn (on, off, then off, on), each window timed on the host clock around
+synchronised work; then two profiled windows on each, in turn (device-busy
+ms and idle share), and one window each under ``cProfile`` (the host
+functions that take the most time).  The "on" windows also carry what a
+default ``ServingServer`` adds around its engine: the flight recorder's
+span ring attached (the tracer's ``engine.step`` events and request spans)
+and, after every step, the recorder's snapshot fold and the sentinel's
+sweep.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -201,6 +217,112 @@ def profile_train(argv) -> dict:
     }
 
 
+def metrics_ab(args) -> dict:
+    """The engine's telemetry on against off, in one process (see the
+    module docstring)."""
+    import cProfile
+    import pstats
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from . import observability as obs
+    from . import resolve_device
+    from .inference import ContinuousBatchingEngine, GenerationConfig
+    from .models.llama import LlamaConfig, LlamaForCausalLM
+
+    dev = resolve_device("cuda")
+    kw = {} if args.num_layers is None else \
+        {"num_hidden_layers": args.num_layers}
+    cfg = getattr(LlamaConfig, args.preset)(**kw)
+    model = LlamaForCausalLM(cfg, device=dev, seed=args.seed)
+    n = args.steps
+    budget = n * (args.metrics_ab + 3) + 24
+    engines = {}
+    for name, on in (("on", True), ("off", False)):
+        eng = ContinuousBatchingEngine(
+            model, max_batch=args.batch,
+            gen=GenerationConfig(max_new_tokens=budget), max_seq_len=1024,
+            page_size=16, prefill_bucket=64, device=dev,
+            cache_dtype=args.cache_dtype, metrics=on)
+        eng.submit(list(range(1, 70)), max_new_tokens=2)
+        eng.run()
+        rng = np.random.default_rng(args.seed)
+        for _ in range(args.batch):
+            eng.submit(rng.integers(1, cfg.vocab_size,
+                                    args.context).tolist())
+        while eng.waiting or any(
+                r is not None and eng.prompt_pos[b] < len(r.prompt)
+                for b, r in enumerate(eng.slot_req)):
+            eng.step()
+        for _ in range(4):
+            eng.step()
+        engines[name] = eng
+
+    recorder = obs.FlightRecorder()
+    sentinel = obs.Sentinel(flight_recorder=recorder)
+
+    def window(name):
+        eng = engines[name]
+        on = name == "on"
+        if on:
+            recorder.attach()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            eng.step()
+            if on:
+                recorder.maybe_snapshot()
+                sentinel.maybe_check()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+        recorder.detach()
+        return wall
+
+    walls = {"on": [], "off": []}
+    for r in range(args.metrics_ab):
+        order = ("on", "off") if r % 2 == 0 else ("off", "on")
+        for name in order:
+            walls[name].append(window(name))
+    out = {"device": torch.cuda.get_device_name(dev), "nvidia_smi": _smi(),
+           "preset": args.preset, "layers": cfg.num_hidden_layers,
+           "batch": args.batch, "context": args.context, "steps": n,
+           "rounds": args.metrics_ab,
+           "decode_wall_ms_per_step": walls,
+           "median_ms": {k: float(np.median(v)) for k, v in walls.items()}}
+    for name in engines:
+        out[name] = {"profiled_wall_ms_per_step": [],
+                     "device_busy_ms_per_step": []}
+    # two profiled windows each, in turn (on, off, off, on): the first
+    # window a process profiles pays the profiler's start-up
+    for name in ("on", "off", "off", "on"):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall = window(name)
+        out[name]["profiled_wall_ms_per_step"].append(wall)
+        out[name]["device_busy_ms_per_step"].append(
+            sum(_device_ms(prof).values()) / n)
+    for name in engines:
+        busy = float(np.median(out[name]["device_busy_ms_per_step"]))
+        host = cProfile.Profile()
+        host.enable()
+        host_wall = window(name)
+        host.disable()
+        st = pstats.Stats(host).stats
+        top = sorted(st.items(), key=lambda kv: -kv[1][2])[:args.top]
+        out[name].update({
+            "device_idle_share": 1 - busy / float(np.median(walls[name])),
+            "cprofile_wall_ms_per_step": host_wall,
+            "host_tottime_ms_per_step": [
+                [f"{f[0].rsplit('/', 1)[-1]}:{f[1]}:{f[2]}",
+                 v[2] * 1e3 / n, v[1]] for f, v in top]})
+    # the span events the "on" windows recorded (the ring keeps the last
+    # FLAGS_flight_recorder_events of them)
+    out["on"]["ring_events"] = len(recorder._ring)
+    return out
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if "--train" in argv:
@@ -228,7 +350,13 @@ def main(argv=None) -> int:
     p.add_argument("--steps", type=int, default=16)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--top", type=int, default=12)
+    p.add_argument("--metrics-ab", type=int, default=0, metavar="N",
+                   help="compare decode windows with the engine's "
+                        "telemetry on and off, N rounds, in one process")
     args = p.parse_args(argv)
+    if args.metrics_ab:
+        print(json.dumps(metrics_ab(args)))
+        return 0
 
     import numpy as np
     import torch
@@ -311,6 +439,7 @@ def main(argv=None) -> int:
     print(json.dumps({
         "device": torch.cuda.get_device_name(dev), "nvidia_smi": smi,
         "preset": args.preset, "layers": cfg.num_hidden_layers,
+        "metrics": eng._obs is not None,
         "kv_cache_dtype": eng.stats()["kv_cache_dtype"], "batch": args.batch,
         "context": args.context, "prefill_steps": n_prefill,
         "prefill_ms": prefill_ms,

@@ -1,6 +1,8 @@
 """Serving front door of the port: a stdlib asyncio HTTP process over the
 continuous-batching engine (OpenAI-shaped streaming ``/v1/completions``,
-``/healthz``, ``/readyz``).
+``/healthz``, ``/readyz``, ``/metrics``, ``/statusz``, ``/drainz`` and the
+``/migratez`` session-transfer endpoints), with SLO shedding
+(``slo.SLOController``), graceful drain and the flight recorder.
 
 Quickstart::
 
@@ -11,5 +13,6 @@ Quickstart::
 
 from . import http
 from .server import ServingServer, serve_forever
+from .slo import SLOController
 
-__all__ = ["ServingServer", "serve_forever", "http"]
+__all__ = ["ServingServer", "SLOController", "serve_forever", "http"]

@@ -7,8 +7,17 @@ running on the CPU).  Any registered flag can be set with
 ``--set NAME=VALUE``: the engine's optional features read theirs when it
 is built (``--prefix-cache``, or ``--set prefix_cache=1``;
 ``--set kv_spill_pages=64``; ``--set spec_decode=ngram``,
-``--set spec_k=4``).  The replica warms up before ``/readyz`` reports
+``--set spec_k=4``), and so do the front door's (``--set
+serving_slo_ttft_ms=500``, ``--set serving_sentinel=0``, ``--set
+flight_recorder_path=/tmp/fr.json``, ``--set fleet_drain_timeout_s=10``,
+``--set metrics=0``).  The replica warms up before ``/readyz`` reports
 ready unless ``--no-warmup`` is given.
+
+``serve_forever`` wires SIGTERM to a graceful drain (after the flight
+recorder's dump), the crash hooks and the step watchdog
+(``distributed/watchdog.py``); the replica serves ``/metrics``,
+``/statusz``, ``/drainz`` and ``/migratez/{export,import}`` beside
+``/v1/completions``.
 """
 
 from __future__ import annotations
@@ -27,7 +36,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog="paddle-tpu-torch-serve",
         description="One paddle_tpu_torch serving replica: OpenAI-shaped "
                     "streaming /v1/completions over the continuous-"
-                    "batching engine, with /healthz and /readyz.")
+                    "batching engine, with /healthz, /readyz, /metrics, "
+                    "/statusz, /drainz and /migratez.")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--preset", choices=_PRESETS, default="tiny",

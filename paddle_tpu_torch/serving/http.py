@@ -18,11 +18,11 @@ from __future__ import annotations
 
 import json
 import re
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 __all__ = ["HttpError", "read_request", "response", "sse_headers",
            "sse_event", "sse_done", "json_response", "error_response",
-           "SAFE_ID_OK"]
+           "SAFE_ID_OK", "MAX_BODY"]
 
 # charset a caller-supplied trace/session id must satisfy to be honored
 # (anything else would leak into trace lanes, log lines, and response
@@ -39,7 +39,7 @@ _REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found",
             405: "Method Not Allowed", 409: "Conflict",
             413: "Payload Too Large",
             500: "Internal Server Error", 502: "Bad Gateway",
-            503: "Service Unavailable"}
+            503: "Service Unavailable", 504: "Gateway Timeout"}
 
 
 class HttpError(Exception):
@@ -61,10 +61,13 @@ async def _readline(reader) -> bytes:
         raise HttpError(400, "line too long")
 
 
-async def read_request(reader) -> Tuple[str, str, Dict[str, str], bytes]:
+async def read_request(reader, body_limit: Optional[Callable[[str, str],
+                                                            int]] = None
+                       ) -> Tuple[str, str, Dict[str, str], bytes]:
     """Parse one request: ``(method, path, headers, body)``.  Headers are
     lower-cased; the body is read per Content-Length (no request chunking
-    — none of the served clients need it)."""
+    — none of the served clients need it), up to ``MAX_BODY`` bytes or,
+    given ``body_limit``, ``body_limit(method, path)``."""
     line = await _readline(reader)
     if not line:
         raise HttpError(400, "empty request")
@@ -94,8 +97,9 @@ async def read_request(reader) -> Tuple[str, str, Dict[str, str], bytes]:
             n = int(headers["content-length"])
         except ValueError:
             raise HttpError(400, "bad Content-Length")
-        if n < 0 or n > MAX_BODY:
-            raise HttpError(413, f"body of {n} bytes exceeds {MAX_BODY}")
+        limit = MAX_BODY if body_limit is None else body_limit(method, path)
+        if n < 0 or n > limit:
+            raise HttpError(413, f"body of {n} bytes exceeds {limit}")
         if n:
             body = await reader.readexactly(n)
     return method, path, headers, body

@@ -30,6 +30,13 @@ def _imported_roots(path: Path):
 
 
 SERVING_FEATURES = ("prefix_cache.py", "speculative.py", "kv_spill.py")
+# the front door's control and observability plane, and session migration
+CONTROL_PLANE = ("observability/__init__.py", "observability/metrics.py",
+                 "observability/tracing.py", "observability/attribution.py",
+                 "observability/flight_recorder.py",
+                 "observability/sentinel.py", "observability/catalog.py",
+                 "distributed/watchdog.py", "inference/migration.py",
+                 "serving/slo.py")
 
 
 def test_port_and_chip_smoke_import_no_jax():
@@ -37,6 +44,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert len(files) > 10
     assert PORT / "kernels" / "primitives.py" in files
     assert {PORT / "inference" / f for f in SERVING_FEATURES} <= set(files)
+    assert {PORT / f for f in CONTROL_PLANE} <= set(files)
     bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}"
            for f in files for mod, line in _imported_roots(f)
            if mod in ("jax", "jaxlib", "paddle_tpu")]
@@ -54,7 +62,14 @@ _STACKS = (
                  "paddle_tpu_torch.inference",
                  "paddle_tpu_torch.inference.prefix_cache",
                  "paddle_tpu_torch.inference.speculative",
-                 "paddle_tpu_torch.inference.kv_spill")),
+                 "paddle_tpu_torch.inference.kv_spill",
+                 "paddle_tpu_torch.inference.migration",
+                 "paddle_tpu_torch.serving.slo",
+                 "paddle_tpu_torch.observability",
+                 "paddle_tpu_torch.observability.catalog",
+                 "paddle_tpu_torch.observability.flight_recorder",
+                 "paddle_tpu_torch.observability.sentinel",
+                 "paddle_tpu_torch.distributed.watchdog")),
     ("training", ("paddle_tpu_torch.models.pretrain",
                   "paddle_tpu_torch.kernels.flash_attention",
                   "paddle_tpu_torch.profile_step")),
@@ -182,11 +197,14 @@ _LAUNCHES = {"ragged_paged_attention", "paged_attention",
 
 def test_no_try_around_a_launch():
     """No try block in the serving modules (the engine, the allocator, the
-    prefix cache, speculative decoding, the spill tier, the server) wraps a
-    kernel launch or an engine step."""
+    prefix cache, speculative decoding, the spill tier, the launcher) or in
+    the control and observability plane (session migration, the SLO
+    controller, the registry, tracer, attribution, flight recorder,
+    sentinel and catalog, the step watchdog) wraps a kernel launch or an
+    engine step."""
     files = [PORT / "inference" / f for f in
              ("generation.py", "kv_cache.py") + SERVING_FEATURES] + \
-        [PORT / "serving" / "__main__.py"]
+        [PORT / "serving" / "__main__.py"] + [PORT / f for f in CONTROL_PLANE]
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), filename=str(f))):
@@ -334,6 +352,28 @@ def test_new_routes_refuse_cpu_fallback(monkeypatch):
                                                           device="meta"),
                                       v_scale=torch.empty((2, 8),
                                                           device="meta"))
+
+
+def test_kv_commits_read_nothing_back():
+    """The engine step's KV commits (float and int8 pools) read no tensor
+    back to the host: they run on meta tensors, where any host read (an
+    ``.item()``, or indexing by a 0-d tensor) raises.  On the card such a
+    read syncs the stream every step."""
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    L, kvh, P, page, d, B, T = 2, 2, 5, 4, 8, 2, 3
+    meta = dict(device="meta")
+    i32 = dict(device="meta", dtype=torch.int32)
+    kc = torch.empty((L, kvh, P, page, d), **meta)
+    rows = torch.empty((L, B * T, kvh, d), **meta)
+    pa.write_kv_pages_all_layers(kc, kc.clone(), rows, rows.clone(),
+                                 torch.empty((B * T,), **i32))
+    kq = torch.empty((L, kvh, P + 1, page, d), dtype=torch.int8,
+                     device="meta")
+    sc = torch.empty((L, kvh, P + 1), **meta)
+    pa.write_kv_pages_all_layers_quantized(
+        kq, kq.clone(), sc, sc.clone(), rows, rows.clone(),
+        torch.empty((B,), **i32), torch.empty((B,), **i32),
+        torch.empty((B, 4), **i32), 16)
 
 
 def test_primitives_refuse_cpu_fallback():
