@@ -108,6 +108,34 @@ is caught; there is no ``ok`` line unless every phase passed):
     TTFT p50/p95, pages moved, export / import ms, the migration books and
     the sentinel's anomalies; its attention launches join the ``kernels``
     line.
+7d. ``engine_parity_router`` — the router on the card: the 2-layer fp32
+    model at llama2_7b widths shared by a prefill and a decode
+    ``ServingServer`` (prefix cache on both) behind a ``RouterServer`` on
+    a localhost socket; 4 streams each hand off prefill -> decode (every
+    handoff ``ok``); a mixed pair serves the same prompts and loses the
+    first stream's replica mid-stream (the stream resumes from the
+    router's journal); no kernel built after warm-up; follow-ups on the
+    decode engine hit the imported pages with no sync between drains; all
+    tokens pass ``_teacher_force`` against the CPU.  Its launches join the
+    ``kernels`` line.
+7e. ``serve_disagg`` — full llama2_7b (bf16), a prefill and a decode
+    replica on one model under an in-process ``FleetSupervisor``
+    (``fleet_roles=prefill=1,decode=1``), the router on a localhost
+    socket: 8 streamed completions of 32 tokens (prompts of 48-144 tokens)
+    over HTTP, each handed off (at least 6 of 8 ``ok``); then the same
+    traffic with fresh prompts on one mixed replica.  Every attention
+    launch on "split" or "sm90"; no kernel built after warm-up; the bf16
+    decode engine's steps between drains make no sync; tokens held by
+    ``_teacher_force`` against the card's forward.  Tokens/s, TTFT and ITL
+    p50/p95 of both, handoff export / import ms, pages and wire bytes.
+    Its launches join the ``kernels`` line.
+7f. ``fleet_failover`` — ``python -m paddle_tpu_torch.fleet --replicas 2
+    --preset llama2_7b --num-layers 4 --device cuda`` as processes: one
+    stream through the router, its replica killed (SIGKILL) after the
+    first chunk; the stream resumes on the survivor (tokens held by
+    ``_teacher_force`` against the same model in this process), the
+    supervisor restarts the replica (restart seconds reported), SIGTERM
+    drains the fleet and the launcher exits 0.
 8. ``kernel_flash`` — the three flash-attention kernels (forward, dQ,
    dK/dV) against their plain versions over every combination of causal
    or not, GQA groups 1/4/8, d 64/128, fp32/bf16 and five shapes (b 1 to 4,
@@ -1687,7 +1715,12 @@ def phase_engine_parity_prefix_spec(cfg=None, device="cuda"):
 
 # ------------------------------------------------------------- serve ---
 
-async def _client(host, port, prompt, max_tokens):
+async def _client(host, port, prompt, max_tokens, first=None, headers=None):
+    """One streamed completion over a socket.  Returns its status line, ids,
+    TTFT, finish, seconds, the arrival time and token count of each token
+    chunk (``chunks``) and the completion ids seen (``cmpl_ids``).
+    ``first`` (an ``asyncio.Event``) is set at the first token chunk;
+    ``headers`` (a dict) receives the response head's headers."""
     reader, writer = await asyncio.open_connection(host, port)
     body = json.dumps({"prompt": prompt, "max_tokens": max_tokens,
                        "stream": True}).encode()
@@ -1696,22 +1729,36 @@ async def _client(host, port, prompt, max_tokens):
                   f"Content-Length: {len(body)}\r\n\r\n").encode() + body)
     await writer.drain()
     status = (await reader.readline()).decode()
-    ids, ttft, finish = [], None, None
+    while True:
+        line = await reader.readline()
+        if line in (b"\r\n", b"\n", b""):
+            break
+        k, _, v = line.decode("latin-1").partition(":")
+        if headers is not None:
+            headers[k.strip().lower()] = v.strip()
+    ids, ttft, finish, chunks, cmpl_ids = [], None, None, [], set()
     while True:
         line = await reader.readline()
         if not line:
             break
         if not line.startswith(b"data: ") or line.strip() == b"data: [DONE]":
             continue
-        ch = json.loads(line[len(b"data: "):])["choices"][0]
-        if ch["token_ids"] and ttft is None:
-            ttft = time.perf_counter() - t0
+        doc = json.loads(line[len(b"data: "):])
+        cmpl_ids.add(doc.get("id"))
+        ch = doc["choices"][0]
+        if ch["token_ids"]:
+            chunks.append((time.perf_counter() - t0, len(ch["token_ids"])))
+            if ttft is None:
+                ttft = chunks[-1][0]
+                if first is not None:
+                    first.set()
         ids.extend(ch["token_ids"])
         finish = ch["finish_reason"] or finish
     writer.close()
     await writer.wait_closed()
     return {"status": status.strip(), "ids": ids, "ttft_s": ttft,
-            "finish": finish, "seconds": time.perf_counter() - t0}
+            "finish": finish, "seconds": time.perf_counter() - t0,
+            "chunks": chunks, "cmpl_ids": cmpl_ids}
 
 
 def phase_serve(phase, argv):
@@ -2554,6 +2601,731 @@ def phase_serve_migrate(argv=None):
             "attention_sm90": counts["attention_sm90"],
             "attention_int8_sm90": counts["attention_int8_sm90"],
             "gmm_sm90": 0}
+
+
+# ------------------------------------------------ router, fleet, disagg ---
+
+ROUTER_PARITY = dict(prompts=(40, 200), requests=4, new_tokens=16, page=16,
+                     bucket=64, max_seq=288, follow=8)
+SERVE_DISAGG = dict(prompts=(48, 144), requests=8, new_tokens=32,
+                    min_ok=6, follow=16, tie_rel=2e-2, max_tie_share=0.25)
+FLEET_FAILOVER = dict(preset="llama2_7b", layers=4, prompt=96,
+                      new_tokens=64, tie_rel=2e-2, max_tie_share=0.25,
+                      ready_s=600, restart_s=300, drain_s=120)
+HANDOFF_OUTCOMES = ("ok", "export_failed", "import_failed", "no_successor")
+
+
+def _router_counts(family, label, values):
+    from paddle_tpu_torch import observability as obs
+    return {v: int(obs.metrics.counter(family, **{label: v}).value)
+            for v in values}
+
+
+def _delta(after, before):
+    return {k: after[k] - before[k] for k in after}
+
+
+def _itl_ms(results):
+    """Inter-token latencies (ms) of streamed results: each token chunk's
+    gap to the previous one, split evenly over its tokens."""
+    out = []
+    for r in results:
+        for (t0, _n0), (t1, n1) in zip(r["chunks"], r["chunks"][1:]):
+            out += [(t1 - t0) * 1e3 / n1] * n1
+    return out
+
+
+def _latency_summary(results, new_tokens, wall):
+    import numpy as np
+    ttfts = [r["ttft_s"] * 1e3 for r in results]
+    itl = _itl_ms(results)
+    return dict(wall_s=wall, tokens_per_s=len(results) * new_tokens / wall,
+                ttft_p50_ms=float(np.percentile(ttfts, 50)),
+                ttft_p95_ms=float(np.percentile(ttfts, 95)),
+                itl_p50_ms=float(np.percentile(itl, 50)) if itl else None,
+                itl_p95_ms=float(np.percentile(itl, 95)) if itl else None)
+
+
+def _check_streams(phase, results, new_tokens, vocab):
+    for r in results:
+        if r["finish"] != "length" or len(r["ids"]) != new_tokens or \
+                len(r["cmpl_ids"]) != 1 or \
+                not all(0 <= t < vocab for t in r["ids"]):
+            raise AssertionError(
+                f"{phase}: {r['status']}, finish {r['finish']}, "
+                f"{len(r['ids'])} ids, completion ids {r['cmpl_ids']}")
+
+
+def _timed_migration_calls(router):
+    """Wrap the router's migration POSTs: each call's path, ms and the
+    bytes it moved (the export's response, the import's request)."""
+    calls = []
+    real = router._post_json
+
+    async def timed(client, path, doc, timeout_s):
+        t0 = time.perf_counter()
+        status, out = await real(client, path, doc, timeout_s)
+        ms = (time.perf_counter() - t0) * 1e3
+        moved = out if path.endswith("export") else doc
+        calls.append(dict(path=path, status=status, ms=ms,
+                          pages=sum(len(x.get("pages", ()))
+                                    for x in moved.get("sessions") or ()),
+                          bytes=len(json.dumps(moved))))
+        return status, out
+
+    router._post_json = timed
+    return calls
+
+
+def _sum_calls(calls, suffix):
+    sel = [c for c in calls if c["path"].endswith(suffix)]
+    return dict(calls=len(sel), ms=[c["ms"] for c in sel],
+                ms_total=sum(c["ms"] for c in sel),
+                pages=sum(c["pages"] for c in sel),
+                bytes=sum(c["bytes"] for c in sel))
+
+
+def _attn_window(phase, counts, steps, layers, want_routes):
+    """The attention launches of one window: every launch on the float
+    pool, layers x engine steps of them, and on the routes asked for
+    (``want_routes`` a set of the routes that must all be non-zero, none
+    other taken)."""
+    routes = _routes_of(counts, False)
+    bad = counts["attention_int8"] or \
+        counts["attention"] != layers * steps or \
+        any(routes[r] for r in routes if r not in want_routes) or \
+        not all(routes[r] for r in want_routes)
+    if bad:
+        raise AssertionError(f"{phase}: routes {routes}, "
+                             f"{counts['attention']} launches for {steps} "
+                             f"steps x {layers} layers")
+    return routes
+
+
+def _follow_up_without_sync(phase, eng, sessions, follow, new_tokens,
+                            device, vocab):
+    """On a stopped replica's engine: each session's tokens plus ``follow``
+    fresh ones as a new request of ``new_tokens`` (a prefix hit on the
+    session's pages), the steps between drains checked by
+    ``_steps_without_sync``.  Returns the (id, prompt, tokens) runs, the
+    steps checked and the prefix hits."""
+    import numpy as np
+    rng = np.random.default_rng(21)
+    hits0 = eng.g.cache.allocator.prefix_hits
+    prompts = [list(t) + rng.integers(1, vocab, follow).tolist()
+               for t in sessions]
+    rids = [eng.add_request(p, max_new_tokens=new_tokens) for p in prompts]
+    eng.step()
+    checked = _steps_without_sync(eng, device)
+    out = eng.run()
+    hits = eng.g.cache.allocator.prefix_hits - hits0
+    if hits < len(prompts):
+        raise AssertionError(f"{phase}: {hits} prefix hits for "
+                             f"{len(prompts)} follow-ups on the imported "
+                             f"pages")
+    return ([(f"follow{i}", p, out[r]) for i, (p, r) in
+             enumerate(zip(prompts, rids))], checked, hits)
+
+
+def phase_engine_parity_router(cfg=None, device="cuda"):
+    """The router over the continuous-batching engines on the card: the
+    2-layer fp32 model at llama2_7b widths, one model shared by a prefill
+    and a decode ``ServingServer`` (prefix cache on both) behind an
+    in-process ``RouterServer`` bound to a localhost socket; 4 streamed
+    completions (prompts of 40-200 tokens, 16 new tokens) each hand off
+    from the prefill to the decode replica.  Then a mixed pair serves the
+    same prompts, and the replica holding the first stream is killed after
+    its first token chunk: that stream resumes on the survivor from the
+    router's journal.  Gates: every stream finishes with its budget as one
+    client stream; every handoff outcome is ``ok``; the killed stream
+    resumed; no kernel is built after warm-up; the attention launches are
+    layers x engine steps; after the servers stop, follow-up turns on the
+    decode engine hit the imported pages and its steps between drains make
+    no sync (``_steps_without_sync``); all tokens pass ``_teacher_force``
+    against the CPU (fp32: near-ties as in ``engine_parity``).  Returns the
+    launch counts in ``phase_serve``'s form."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            GenerationConfig)
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.router import InprocReplica, RouterServer
+    from paddle_tpu_torch.serving import ServingServer
+    cfg = cfg or LlamaConfig.llama2_7b(num_hidden_layers=2, dtype="float32")
+    c = ROUTER_PARITY
+    cuda = device == "cuda"
+    rng = np.random.default_rng(13)
+    lens = np.linspace(c["prompts"][0], c["prompts"][1],
+                       c["requests"]).astype(int)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+               for n in lens]
+    model = LlamaForCausalLM(cfg, device=device, seed=0)
+    kw = dict(max_batch=c["requests"],
+              gen=GenerationConfig(max_new_tokens=c["new_tokens"]),
+              max_seq_len=c["max_seq"], page_size=c["page"],
+              prefill_bucket=c["bucket"], device=device, prefix_cache=True)
+
+    def fleet(roles):
+        servers = [ServingServer(ContinuousBatchingEngine(model, **kw),
+                                 role=r, warmup=True, slo=False,
+                                 flight_recorder=False, sentinel=False)
+                   for r in roles]
+        replicas = [InprocReplica(f"{r}{i}", s.start())
+                    for i, (r, s) in enumerate(zip(roles, servers))]
+        return servers, replicas, RouterServer(
+            replicas, policy="scored", health_interval_s=0.5)
+
+    async def serve(router, servers, kill=False):
+        addr = await router.start_http("127.0.0.1", 0)
+        try:
+            while len(router._candidates()) < len(servers):
+                if not all(s.engine_alive() for s in servers):
+                    raise RuntimeError("engine thread died during warmup")
+                await asyncio.sleep(0.05)
+            first, head = asyncio.Event(), {}
+            tasks = [asyncio.ensure_future(_client(
+                *addr, p, c["new_tokens"],
+                first=first if i == 0 else None,
+                headers=head if i == 0 else None))
+                for i, p in enumerate(prompts)]
+            victim = None
+            if kill:
+                await asyncio.wait_for(first.wait(), 120)
+                victim = head["x-router-replica"]
+                next(r for r in router.states if r.id == victim) \
+                    .client.kill()
+            res = await asyncio.gather(*tasks)
+            return res, victim
+        finally:
+            await router.stop_http()
+
+    obs.reset("router.")
+    d_servers, _d_reps, d_router = fleet(["prefill", "decode"])
+    m_servers, _m_reps, m_router = fleet(["mixed", "mixed"])
+    while not all(s.ready() for s in d_servers + m_servers):
+        if not all(s.engine_alive() for s in d_servers + m_servers):
+            raise RuntimeError("engine thread died during warmup")
+        time.sleep(0.05)
+    engines = [s.engine for s in d_servers + m_servers]
+    compiles0 = obs.backend_compiles()
+    _reset_attn_counts()
+    steps0 = [e.steps for e in engines]
+    res_d, _ = asyncio.run(serve(d_router, d_servers))
+    handoffs = _router_counts("router.handoff", "outcome", HANDOFF_OUTCOMES)
+    res_m, victim = asyncio.run(serve(m_router, m_servers, kill=True))
+    resumes = _router_counts("router.resumes", "outcome",
+                             ("resumed", "handoff"))
+    for s in d_servers + m_servers:
+        s.close()
+    steps = sum(e.steps - s for e, s in zip(engines, steps0))
+    counts = _attn_counts()
+    compiles = obs.backend_compiles() - compiles0
+    _check_streams("engine_parity_router", res_d + res_m, c["new_tokens"],
+                   cfg.vocab_size)
+    fails = []
+    if handoffs != {**dict.fromkeys(HANDOFF_OUTCOMES, 0),
+                    "ok": c["requests"]}:
+        fails.append(f"handoff outcomes {handoffs}")
+    if resumes["handoff"] != c["requests"] or resumes["resumed"] < 1:
+        fails.append(f"resumes {resumes} (the killed stream of {victim})")
+    if compiles:
+        fails.append(f"{compiles} kernel builds after warm-up")
+    if fails:
+        raise AssertionError("engine_parity_router: " + "; ".join(fails))
+    routes = _attn_window("engine_parity_router", counts, steps,
+                          cfg.num_hidden_layers, {"split", "tile"}) \
+        if cuda else None
+    # the decode engine after the imports: follow-ups hit the imported
+    # pages, no sync between drains
+    decode = d_servers[1].engine
+    sessions = [p + r["ids"][:1] for p, r in zip(prompts, res_d)]
+    follow_new = 2 * decode.g.sync_every + 2
+    follow, checked, hits = _follow_up_without_sync(
+        "engine_parity_router", decode, sessions, c["follow"], follow_new,
+        device, cfg.vocab_size)
+    del d_servers, m_servers, engines, decode
+    cpu = model.to("cpu")
+    if cuda:
+        torch.cuda.empty_cache()
+    runs = [(f"disagg{i}", p, r["ids"]) for i, (p, r) in
+            enumerate(zip(prompts, res_d))] + \
+        [(f"mixed{i}", p, r["ids"]) for i, (p, r) in
+         enumerate(zip(prompts, res_m))]
+    memo = {}
+    checked_tf, near, gaps = _teacher_force(
+        "engine_parity_router", cpu, runs, new_tokens=c["new_tokens"],
+        tie_rel=1e-3, max_tie_share=0.0, memo=memo)
+    f_checked, f_near, f_gaps = _teacher_force(
+        "engine_parity_router follow-ups", cpu, follow,
+        new_tokens=follow_new,
+        tie_rel=1e-3, max_tie_share=0.0, memo=memo)
+    emit("engine_parity_router", layers=cfg.num_hidden_layers,
+         hidden=cfg.hidden_size, heads=cfg.num_attention_heads,
+         kv_heads=cfg.num_key_value_heads, prompt_lens=[int(n) for n in lens],
+         new_tokens=c["new_tokens"], handoff_outcomes=handoffs,
+         resume_outcomes=resumes, killed_replica=victim,
+         tokens_checked=checked_tf + f_checked, near_ties=near + f_near,
+         near_tie_rel_gaps=gaps + f_gaps, tie_rel=1e-3,
+         follow_up_prefix_hits=hits, steps_checked_without_sync=checked,
+         kernel_builds_after_warmup=compiles, engine_steps=steps,
+         attention_routes=routes, kernel_launches=counts)
+    del cpu, model
+    gc.collect()
+    return {"attention": counts["attention"],
+            "attention_int8": counts["attention_int8"], "gmm": 0,
+            "attention_split": counts["attention_split"],
+            "attention_int8_split": counts["attention_int8_split"],
+            "attention_sm90": counts["attention_sm90"],
+            "attention_int8_sm90": counts["attention_int8_sm90"],
+            "gmm_sm90": 0}
+
+
+def phase_serve_disagg(argv=None):
+    """Disaggregated serving at full width: llama2_7b (32 layers, bf16,
+    random weights from the seed), one model shared by a prefill and a
+    decode replica (``InprocReplicaHandle``s, the launcher's geometry and
+    ``--prefix-cache``) under an in-process ``FleetSupervisor`` with
+    ``fleet_roles=prefill=1,decode=1`` and its control loop on a thread; the
+    ``RouterServer`` bound to a localhost socket.  8 streamed completions of
+    32 tokens (prompts of 48-144 tokens) go to the router over HTTP: each
+    prefills one token on the prefill replica, its prefix ships over the
+    migration wire and the decode leg splices into the same client stream.
+    Then, in the same call, the same traffic with fresh prompts runs on one
+    mixed replica behind the router.  Gates: every stream finishes with its
+    budget as one client stream; at least 6 of 8 handoffs are ``ok``; no
+    kernel is built after warm-up; every attention launch takes the split
+    or the sm90 route (layers x engine steps of them); after the fleet
+    stops, follow-up turns on the bf16 decode engine hit the imported pages
+    and its steps between drains make no sync (``_steps_without_sync``);
+    the tokens pass ``_teacher_force`` against the card's full-sequence
+    forward under SERVE_DISAGG's near-tie rule.  Reports tokens/s, TTFT and
+    ITL p50/p95 for both, the router-side export and import ms, and the
+    pages and wire bytes moved.  ``argv`` (launcher options) replaces
+    ``--preset llama2_7b``.  Returns the launch counts in ``phase_serve``'s
+    form."""
+    import threading
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.fleet import FleetSupervisor, InprocReplicaHandle
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.router import InprocReplica, RouterServer
+    from paddle_tpu_torch.serving import ServingServer
+    from paddle_tpu_torch.serving.__main__ import build_parser, engine_kwargs
+    c = SERVE_DISAGG
+    args = build_parser().parse_args(
+        (argv or ["--preset", "llama2_7b"]) + ["--prefix-cache"])
+    cuda = args.device == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    kw = {} if args.num_layers is None else \
+        {"num_hidden_layers": args.num_layers}
+    cfg = getattr(LlamaConfig, args.preset)(**kw)
+    model = LlamaForCausalLM(cfg, device=args.device, seed=args.seed)
+    rng = np.random.default_rng(17)
+    lens = np.linspace(c["prompts"][0], c["prompts"][1],
+                       c["requests"]).astype(int)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+               for n in lens]
+    fresh = [rng.integers(1, cfg.vocab_size, int(n)).tolist() for n in lens]
+
+    def factory():
+        return ContinuousBatchingEngine(model, **engine_kwargs(args))
+
+    def spawner(rid, role):
+        return InprocReplicaHandle(rid, factory, warmup=True, server_kw=dict(
+            role=role, model_name=args.preset, sentinel=False))
+
+    old_roles = flags.flag("fleet_roles")
+    flags.set_flags({"fleet_roles": "prefill=1,decode=1"})
+    try:
+        router = RouterServer([], allow_empty=True, policy="scored",
+                              model_name=args.preset,
+                              health_interval_s=0.5)
+        sup = FleetSupervisor(router, spawner, min_replicas=1,
+                              max_replicas=2, hot_ticks=10**9,
+                              cold_ticks=10**9, rebalance=False)
+    finally:
+        flags.set_flags({"fleet_roles": old_roles})
+    calls = _timed_migration_calls(router)
+    stop = threading.Event()
+
+    async def wave(addr, turns):
+        t1 = time.perf_counter()
+        res = await asyncio.gather(*[_client(*addr, p, c["new_tokens"])
+                                     for p in turns])
+        wall = time.perf_counter() - t1
+        _check_streams("serve_disagg", res, c["new_tokens"], cfg.vocab_size)
+        return res, _latency_summary(res, c["new_tokens"], wall)
+
+    async def disagg():
+        sup.start()
+        ticker = threading.Thread(target=sup.run_forever,
+                                  kwargs=dict(interval_s=0.2, stop=stop),
+                                  name="fleet-supervisor", daemon=True)
+        ticker.start()
+        addr = await router.start_http("127.0.0.1", 0)
+        try:
+            deadline = time.perf_counter() + 900
+            while len(router._candidates()) < 2 or not sup.converged():
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"serve_disagg: the fleet never "
+                                         f"came up: {sup.state()}")
+                await asyncio.sleep(0.1)
+            t_ready = time.perf_counter() - t0
+            roles = {s.handle.id: s.role for s in sup._slots}
+            engines = {s.role: s.handle.server.engine for s in sup._slots}
+            compiles0 = obs.backend_compiles()
+            h0 = _router_counts("router.handoff", "outcome",
+                                HANDOFF_OUTCOMES)
+            _reset_attn_counts()
+            steps0 = {k: e.steps for k, e in engines.items()}
+            res, w = await wave(addr, prompts)
+            counts = _attn_counts()
+            steps = sum(e.steps - steps0[k] for k, e in engines.items())
+            handoffs = _delta(_router_counts(
+                "router.handoff", "outcome", HANDOFF_OUTCOMES), h0)
+            st, body = await _http_call(*addr, "GET", "/statusz")
+            statusz = json.loads(body)
+            compiles = obs.backend_compiles() - compiles0
+            return dict(t_ready=t_ready, roles=roles, engines=engines,
+                        res=res, w=w, counts=counts, steps=steps,
+                        handoffs=handoffs, statusz=statusz,
+                        compiles=compiles)
+        finally:
+            await router.stop_http()
+            stop.set()
+            ticker.join(timeout=10)
+
+    r = asyncio.run(disagg())
+    decode = r["engines"]["decode"]
+    sup.shutdown(drain=False, timeout_s=5.0)
+    fails = []
+    ok = r["handoffs"]["ok"]
+    if ok < c["min_ok"]:
+        fails.append(f"{ok} of {c['requests']} handoffs ok: "
+                     f"{r['handoffs']}")
+    if r["compiles"]:
+        fails.append(f"{r['compiles']} kernel builds after warm-up")
+    if fails:
+        raise AssertionError("serve_disagg: " + "; ".join(fails))
+    routes = _attn_window("serve_disagg", r["counts"], r["steps"],
+                          cfg.num_hidden_layers, {"split", "sm90"}) \
+        if cuda else None
+    # the bf16 decode engine after the imports, its server stopped
+    sessions = [p + q["ids"][:1] for p, q in zip(prompts, r["res"])]
+    follow_new = 2 * decode.g.sync_every + 2
+    _reset_attn_counts()
+    s0 = decode.steps
+    follow, checked, hits = _follow_up_without_sync(
+        "serve_disagg", decode, sessions, c["follow"], follow_new,
+        args.device, cfg.vocab_size)
+    f_counts = _attn_counts()
+    f_routes = _attn_window("serve_disagg follow-ups", f_counts,
+                            decode.steps - s0, cfg.num_hidden_layers,
+                            {"split", "sm90"}) if cuda else None
+    del decode, r["engines"]
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # the same traffic, fresh prompts, on one mixed replica
+    async def mixed():
+        srv = ServingServer(factory(), model_name=args.preset, warmup=True,
+                            sentinel=False, flight_recorder=False)
+        srv.start()
+        m_router = RouterServer([InprocReplica("m0", srv)],
+                                policy="scored", model_name=args.preset,
+                                health_interval_s=0.5)
+        addr = await m_router.start_http("127.0.0.1", 0)
+        try:
+            while not m_router._candidates():
+                if not srv.engine_alive():
+                    raise RuntimeError("engine thread died during warmup")
+                await asyncio.sleep(0.05)
+            compiles0 = obs.backend_compiles()
+            _reset_attn_counts()
+            s0 = srv.engine.steps
+            res, w = await wave(addr, fresh)
+            return dict(res=res, w=w, counts=_attn_counts(),
+                        steps=srv.engine.steps - s0,
+                        compiles=obs.backend_compiles() - compiles0)
+        finally:
+            await m_router.stop_http()
+            srv.close()
+
+    m = asyncio.run(mixed())
+    if m["compiles"]:
+        raise AssertionError(f"serve_disagg mixed: {m['compiles']} kernel "
+                             f"builds after warm-up")
+    m_routes = _attn_window("serve_disagg mixed", m["counts"], m["steps"],
+                            cfg.num_hidden_layers, {"split", "sm90"}) \
+        if cuda else None
+    card = lambda ids: model(ids.to(args.device)).float().cpu()  # noqa: E731
+    tf, memo = {}, {}
+    for name, runs, n in (
+            ("disagg", [(f"d{i}", p, q["ids"]) for i, (p, q) in
+                        enumerate(zip(prompts, r["res"]))], c["new_tokens"]),
+            ("mixed", [(f"m{i}", p, q["ids"]) for i, (p, q) in
+                       enumerate(zip(fresh, m["res"]))], c["new_tokens"]),
+            ("follow_up", follow, follow_new)):
+        checked_tf, near, gaps = _teacher_force(
+            f"serve_disagg {name}", card, runs, new_tokens=n,
+            tie_rel=c["tie_rel"], max_tie_share=c["max_tie_share"],
+            memo=memo)
+        tf[name] = dict(tokens_checked=checked_tf, near_ties=near,
+                        near_tie_rel_gaps=gaps)
+    export, imp = _sum_calls(calls, "export"), _sum_calls(calls, "import")
+    emit("serve_disagg", preset=args.preset, layers=cfg.num_hidden_layers,
+         dtype=cfg.dtype, max_batch=args.max_batch,
+         max_seq_len=args.max_seq_len, page_size=args.page_size,
+         prompt_lens=[int(n) for n in lens], new_tokens=c["new_tokens"],
+         roles=r["roles"], setup_and_warmup_s=r["t_ready"],
+         disagg=r["w"], mixed=m["w"], handoff_outcomes=r["handoffs"],
+         handoff_export=export, handoff_import=imp,
+         router_statusz_handoff=r["statusz"]["handoff"],
+         router_statusz_resume=r["statusz"]["resume"]["outcomes"],
+         teacher_forced=tf, tie_rel=c["tie_rel"],
+         kernel_builds_after_warmup=r["compiles"],
+         follow_up_prefix_hits=hits, steps_checked_without_sync=checked,
+         attention_routes={"disagg": routes, "follow_up": f_routes,
+                           "mixed": m_routes},
+         engine_steps={"disagg": r["steps"], "mixed": m["steps"]},
+         max_memory_allocated=(torch.cuda.max_memory_allocated()
+                               if cuda else None),
+         nvidia_smi=_nvidia_smi() if cuda else None)
+    del model, card
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    keys = ("attention", "attention_int8", "attention_split",
+            "attention_int8_split", "attention_sm90", "attention_int8_sm90")
+    total = {k: r["counts"][k] + f_counts[k] + m["counts"][k] for k in keys}
+    return {**total, "gmm": 0, "gmm_sm90": 0}
+
+
+def _free_port_run(n):
+    """A base port with ``n`` consecutive free localhost ports."""
+    import socket
+    for _ in range(50):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            base = s.getsockname()[1]
+        if base + n > 65535:
+            continue
+        socks = []
+        try:
+            for i in range(n):
+                socks.append(socket.socket())
+                socks[-1].bind(("127.0.0.1", base + i))
+            return base
+        except OSError:
+            continue
+        finally:
+            for t in socks:
+                t.close()
+    raise RuntimeError("no run of free localhost ports")
+
+
+def _get_json(port, path, timeout=5.0):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read() or b"{}")
+    finally:
+        conn.close()
+
+
+def _pid_alive(pid):
+    import os
+    try:
+        os.kill(pid, 0)
+    except OSError:
+        return False
+    return True
+
+
+def phase_fleet_failover(argv=None):
+    """The real process topology: ``python -m paddle_tpu_torch.fleet
+    --replicas 2 --min-replicas 2 --preset llama2_7b --num-layers 4 --device
+    cuda`` (a depth cut, to keep each replica's start short): the launcher
+    runs the router and the supervisor, each replica is its own
+    ``python -m paddle_tpu_torch.serving`` process on the card.  Once the
+    router's ``/readyz`` reports both replicas, one streamed completion of
+    64 tokens (a 96-token prompt) goes to the router; after its first
+    token chunk the replica serving it is killed with SIGKILL.  Gates: the
+    stream finishes with its budget as one client stream (resumed on the
+    survivor from the router's journal), its tokens pass ``_teacher_force``
+    against an in-process model of the same preset, seed and depth on the
+    card; the supervisor restarts the dead replica on its port and the
+    router's ``/statusz`` shows 2 ready replicas again (the restart
+    seconds are reported); SIGTERM to the launcher drains both replicas
+    and it exits 0, with no replica process left.  ``argv`` replaces the
+    launcher's model options (``--preset``, ``--num-layers``,
+    ``--device``).  The replicas' kernel launches happen in their own
+    processes and are not counted here."""
+    import os
+    import signal
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    c = FLEET_FAILOVER
+    model_argv = argv or ["--preset", c["preset"], "--num-layers",
+                          str(c["layers"]), "--device", "cuda"]
+    opts = dict(zip(model_argv[::2], model_argv[1::2]))
+    device = opts["--device"]
+    base = _free_port_run(3)
+    port, replica_base = base, base + 1
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(root, "smoke_out"), exist_ok=True)
+    log_path = os.path.join(root, "smoke_out", "fleet_failover.log")
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.fleet", "--replicas", "2",
+           "--min-replicas", "2", "--port", str(port),
+           "--replica-port-base", str(replica_base),
+           "--set", "fleet_tick_interval_s=0.25",
+           "--set", "router_health_interval_s=0.25",
+           "--set", "fleet_drain_timeout_s=30",
+           "--set", "flight_recorder_path=smoke_out/fleet_failover_fr.json"
+           ] + model_argv
+    log = open(log_path, "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, stdout=log,
+                            stderr=subprocess.STDOUT)
+    pids = set()
+
+    def replica_pid(i):
+        st, doc = _get_json(replica_base + i, "/statusz")
+        return doc["build"]["pid"] if st == 200 else None
+
+    def log_tail():
+        log.flush()
+        with open(log_path) as f:
+            return f.read()[-2000:]
+
+    def wait(what, cond, limit):
+        deadline = time.perf_counter() + limit
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"fleet_failover: the launcher exited "
+                                     f"{proc.returncode} while waiting for "
+                                     f"{what}; its log ends:\n{log_tail()}")
+            try:
+                if cond():
+                    return
+            except OSError:
+                pass
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"fleet_failover: no {what} in "
+                                     f"{limit} s; the launcher's log "
+                                     f"ends:\n{log_tail()}")
+            time.sleep(0.2)
+
+    def ready_replicas():
+        st, doc = _get_json(port, "/statusz")
+        return [r for r in doc.get("replicas", []) if r["state"] == "ready"]
+
+    rc = None
+    try:
+        wait("ready fleet", lambda: len(ready_replicas()) == 2,
+             c["ready_s"])
+        t_ready = time.perf_counter() - t0
+        before = {i: replica_pid(i) for i in range(2)}
+        pids |= set(before.values())
+        kw = {"num_hidden_layers": int(opts["--num-layers"])} \
+            if "--num-layers" in opts else {}
+        cfg = getattr(LlamaConfig, opts["--preset"])(**kw)
+        rng = np.random.default_rng(23)
+        prompt = rng.integers(1, cfg.vocab_size, c["prompt"]).tolist()
+
+        async def stream_and_kill():
+            first, head = asyncio.Event(), {}
+            task = asyncio.ensure_future(_client(
+                "127.0.0.1", port, prompt, c["new_tokens"], first=first,
+                headers=head))
+            await asyncio.wait_for(first.wait(), 300)
+            victim = head["x-router-replica"]
+            slot = int(victim.removeprefix("fs"))
+            os.kill(before[slot], signal.SIGKILL)
+            t_kill = time.perf_counter()
+            res = await asyncio.wait_for(task, 300)
+            return res, victim, slot, t_kill
+
+        res, victim, slot, t_kill = asyncio.run(stream_and_kill())
+        _check_streams("fleet_failover", [res], c["new_tokens"],
+                       cfg.vocab_size)
+        tokens_before_kill = res["chunks"][0][1]
+        wait("restarted replica",
+             lambda: replica_pid(slot) not in (None, before[slot])
+             and len(ready_replicas()) == 2, c["restart_s"])
+        restart_s = time.perf_counter() - t_kill
+        after = {i: replica_pid(i) for i in range(2)}
+        pids |= set(after.values())
+        st, statusz = _get_json(port, "/statusz")
+        proc.send_signal(signal.SIGTERM)
+        t_term = time.perf_counter()
+        rc = proc.wait(timeout=c["drain_s"])
+        drain_s = time.perf_counter() - t_term
+        left = sorted(p for p in pids if p and _pid_alive(p))
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        for i in range(2):
+            try:
+                pids.add(replica_pid(i))
+            except OSError:
+                pass
+        for p in pids:
+            if p and _pid_alive(p):
+                os.kill(p, signal.SIGKILL)
+        log.close()
+    fails = []
+    if rc != 0 or left:
+        fails.append(f"launcher exit {rc} after SIGTERM, replica processes "
+                     f"left {left}")
+    if statusz["resume"]["outcomes"]["resumed"] < 1 or \
+            statusz["failover"]["stream"] < 1:
+        fails.append(f"router resume {statusz['resume']}, failover "
+                     f"{statusz['failover']}")
+    if fails:
+        raise AssertionError("fleet_failover: " + "; ".join(fails))
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    model = LlamaForCausalLM(cfg, device=device, seed=0)
+    card = lambda ids: model(ids.to(device)).float().cpu()  # noqa: E731
+    checked, near, gaps = _teacher_force(
+        "fleet_failover", card, [("stream", prompt, res["ids"])],
+        new_tokens=c["new_tokens"], tie_rel=c["tie_rel"],
+        max_tie_share=c["max_tie_share"])
+    emit("fleet_failover", preset=opts["--preset"],
+         layers=cfg.num_hidden_layers, dtype=cfg.dtype, device=device,
+         prompt_len=c["prompt"], new_tokens=c["new_tokens"],
+         setup_and_ready_s=t_ready, killed_replica=victim,
+         tokens_before_kill=tokens_before_kill, stream_s=res["seconds"],
+         restart_s=restart_s, drain_s=drain_s, launcher_exit=rc,
+         replica_pids={"before": before, "after": after},
+         router_resume=statusz["resume"]["outcomes"],
+         router_failover=statusz["failover"],
+         tokens_checked=checked, near_ties=near, near_tie_rel_gaps=gaps,
+         tie_rel=c["tie_rel"], log=os.path.relpath(log_path, root),
+         nvidia_smi=_nvidia_smi() if device == "cuda" else None)
+    del model, card
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------- flash attention ---
@@ -5105,13 +5877,17 @@ def main() -> int:
     phase_engine_parity_moe()
     phase_engine_parity_prefix_spec()
     phase_engine_parity_migration()
+    router_parity = phase_engine_parity_router()
     runs = [phase_serve("serve", ["--preset", "llama2_7b"]),
             phase_serve("serve_int8", ["--preset", "llama2_7b",
                                        "--cache-dtype", "int8"]),
             phase_serve("serve_moe", ["--preset", "mixtral_8x7b",
                                       "--num-layers", "16"]),
             phase_serve_prefix_spec(),
-            phase_serve_migrate()]
+            phase_serve_migrate(),
+            phase_serve_disagg(),
+            router_parity]
+    phase_fleet_failover()
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     decode = gmm_t[0]              # the gmm line: the decode gate/up shape
     flash_err, flash_t = phase_kernel_flash(built)

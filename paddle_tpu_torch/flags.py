@@ -3,8 +3,8 @@
 Flags are seeded from the environment (``FLAGS_<name>``) at definition time
 and set at run time with :func:`set_flags` (the launcher's ``--set``).  Only
 the flags the port reads are registered here (the serving engine, the front
-door, observability, the watchdog), with the reference's names and
-defaults.
+door, observability, the watchdog, the router and the fleet supervisor),
+with the reference's names and defaults.
 """
 
 from __future__ import annotations
@@ -199,3 +199,200 @@ define_flag("flight_recorder_snapshot_s", 10.0,
 define_flag("flight_recorder_path", "flight_record.json",
             "Base path for flight-recorder dumps; the trigger reason and "
             "the process id are suffixed to the stem.")
+
+# -- the router, the fleet supervisor and disaggregated serving --------------
+define_flag("router_placement", "scored",
+            "Multi-replica router placement policy (paddle_tpu_torch/"
+            "router/): 'scored' = expected prefix-hit pages (residency "
+            "digest) minus load, with session affinity; 'round_robin' = "
+            "naive rotation, no affinity (the A/B baseline arm).")
+define_flag("router_health_interval_s", 2.0,
+            "Seconds between router health polls of each replica "
+            "(/statusz); consecutive failures back the poll off "
+            "exponentially up to 8x this interval.")
+define_flag("router_dead_after", 3,
+            "Consecutive failed health polls before the router marks a "
+            "replica dead (new traffic re-routes; polling continues so a "
+            "recovered replica rejoins).")
+define_flag("router_poll_timeout_s", 5.0,
+            "Per-request timeout for router health polls, the connect "
+            "phase of proxied completions, and a STREAMING completion's "
+            "response head (written at admission, so slower means the "
+            "replica is wedged); a unary head waits out generation "
+            "unbounded.")
+define_flag("router_session_cap", 4096,
+            "Max tracked session-affinity pins in the router (LRU "
+            "eviction; an evicted session is re-placed by score, which "
+            "the residency digest steers back to its page-holding "
+            "replica).")
+define_flag("router_hit_weight", 1.0,
+            "Placement score weight per expected prefix-hit TOKEN "
+            "(digest match x page_size).")
+define_flag("router_load_weight", 1.0,
+            "Placement score penalty weight per queued/busy request on a "
+            "replica, in page_size token units (one queued request "
+            "offsets one cached page at 1.0).")
+define_flag("router_capacity_weight", 1.0,
+            "Weight folding a replica's advertised capacity (tensor-"
+            "parallel degree + KV pool GiB from /statusz) into router "
+            "ordering: handoff/fallback ranking and scored placement "
+            "subtract capacity_weight * ((tp - 1) + pool_bytes/GiB).  0 "
+            "restores the pure lexicographic role>load rank; homogeneous "
+            "fleets order identically at any weight.")
+define_flag("fleet_restart_budget", 3,
+            "Consecutive crash-restarts the fleet supervisor grants one "
+            "replica slot before marking it permanently failed (counted "
+            "in fleet.replicas{state=failed}; a replica that stays ready "
+            "past FLAGS_fleet_backoff_reset_s earns its budget back).")
+define_flag("fleet_backoff_base_s", 0.5,
+            "First crash-restart delay; doubles per consecutive restart "
+            "up to FLAGS_fleet_backoff_max_s.")
+define_flag("fleet_backoff_max_s", 30.0,
+            "Cap on the exponential crash-restart backoff.")
+define_flag("fleet_backoff_reset_s", 60.0,
+            "A replica continuously ready this long has its restart "
+            "count (and so its backoff and budget) reset at the next "
+            "crash — an old flap must not doom a now-stable replica.")
+define_flag("fleet_min_replicas", 1,
+            "Autoscaler floor: scale-down never drains below this.")
+define_flag("fleet_max_replicas", 8,
+            "Autoscaler ceiling: scale-up never spawns above this.")
+define_flag("fleet_scale_up_load", 4.0,
+            "Autoscale-up threshold on mean placeable-replica load "
+            "(router in-flight + polled queue depth, requests): hot "
+            "when above this OR when every placeable replica is "
+            "shedding its SLO.")
+define_flag("fleet_scale_down_load", 0.5,
+            "Autoscale-down threshold on mean placeable-replica load: "
+            "cold only below this with zero shedding and a quiet "
+            "anomaly stream (hysteresis gap vs fleet_scale_up_load).")
+define_flag("fleet_hot_ticks", 3,
+            "Consecutive hot supervisor ticks required before a "
+            "scale-up (hysteresis: one burst must not grow the fleet).")
+define_flag("fleet_cold_ticks", 10,
+            "Consecutive cold supervisor ticks required before a "
+            "scale-down (cold evidence is cheaper than a re-warmup).")
+define_flag("fleet_scale_cooldown_s", 30.0,
+            "Minimum seconds between autoscale actions in either "
+            "direction, so a burst cannot flap the fleet.")
+define_flag("fleet_tick_interval_s", 1.0,
+            "Seconds between fleet-supervisor control-loop ticks when "
+            "run_forever paces itself (tests tick explicitly).")
+define_flag("fleet_migrate_on_drain", True,
+            "Session-continuity migration: when the fleet supervisor "
+            "drains a replica for scale-down, the victim exports its live "
+            "sessions' KV pages to a supervisor-chosen READY successor "
+            "(inference/migration.py) before admission closes, so the "
+            "sessions' next turns / failover resumes hit the successor's "
+            "prefix cache instead of re-prefilling.  Best-effort: a "
+            "failed migration never blocks the drain.")
+define_flag("router_failover_resume", True,
+            "Journaled failover resume: an unplanned replica death "
+            "mid-stream re-places the session on a survivor and REPLAYS "
+            "its emitted tokens as a prefill (prefix-cache hits make the "
+            "replay cheap), continuing the client's SSE stream with no "
+            "synthesized error — greedy sessions (and survivors with the "
+            "identical seeded positional sampling config) only.  "
+            "Post-dispatch unary deaths re-run the same way instead of "
+            "502.  Off restores the synthesized-error failover contract.")
+define_flag("router_journal_cap", 512,
+            "Max in-flight requests the router's replay journal tracks "
+            "(LRU; an evicted entry's stream falls back to the "
+            "synthesized-error failover path).")
+define_flag("router_journal_max_tokens", 4096,
+            "Per-request cap on journaled emitted tokens: a stream that "
+            "outgrows it is marked non-resumable (bounded memory; the "
+            "synthesized-error contract still applies to it).")
+define_flag("router_poison_strikes", 2,
+            "Poison-request quarantine: a replica death strikes every "
+            "journaled request in-flight on it whose current flight had "
+            "relayed ZERO tokens (the death happened at/near their "
+            "dispatch — the poison shape; a mid-stream request is a "
+            "victim, not a suspect).  A request signature (prompt-ids "
+            "hash + sampling config) that accumulates this many strikes "
+            "without progress in between (a relayed token absolves) is "
+            "quarantined: replay stops and new submits are refused 503 "
+            "with a 'quarantined' error body.  0 disables the "
+            "quarantine.")
+define_flag("router_quarantine_ttl_s", 300.0,
+            "Seconds a quarantined request signature stays refused (and "
+            "seconds an un-quarantined signature's strikes persist).  A "
+            "latent kernel bug fixed by a restart should not ban the "
+            "prompt forever — TTL expiry re-admits it on probation.")
+define_flag("router_breaker_park_timeout_s", 20.0,
+            "How long a journaled failover resume parks while the "
+            "fleet's cascade breaker is open before giving up and "
+            "falling back to the synthesized-error contract (the "
+            "journal entry waits for a half-open probe slot or a "
+            "closed breaker; it never replays into an open one).")
+define_flag("fleet_cascade_threshold", 3,
+            "Cascade breaker: replica deaths inside "
+            "FLAGS_fleet_cascade_window_s that trip the breaker OPEN — "
+            "failover resume parks, new router admissions shed with "
+            "jittered Retry-After, crash restarts continue.  "
+            "0 disables the breaker.")
+define_flag("fleet_cascade_window_s", 30.0,
+            "Sliding window (seconds) the cascade breaker counts "
+            "replica deaths over.")
+define_flag("fleet_cascade_cooldown_s", 10.0,
+            "Seconds an OPEN cascade breaker waits (with no further "
+            "deaths) before going HALF-OPEN: one parked resume is "
+            "released as a probe; its survival closes the breaker, "
+            "another death re-opens it.")
+define_flag("serving_role", "mixed",
+            "Disaggregated serving role this replica advertises via "
+            "/statusz: 'prefill' replicas take new requests and run "
+            "chunked prefill at full occupancy, 'decode' replicas adopt "
+            "handed-off sessions and run the generation leg, 'mixed' "
+            "does both (the classic fleet).  The role is a routing "
+            "preference, not an engine capability — any role can serve "
+            "any request.")
+define_flag("router_prefill_handoff", True,
+            "Prefill->decode handoff: with prefill-role replicas in the "
+            "fleet, the router caps a new stream's first leg at one "
+            "token on a prefill replica, ships the finished prefix KV "
+            "over /migratez to a decode successor, and splices the "
+            "decode leg into the SAME client stream (journal replay "
+            "semantics; 0 re-prefilled full pages on the successor).  "
+            "Off routes by role preference only, with no mid-stream "
+            "handoff.")
+define_flag("router_handoff_timeout_s", 30.0,
+            "Bound on each handoff transfer call (/migratez export and "
+            "import); past it the router falls back to re-prefilling "
+            "the session on a mixed replica — the stream never drops.")
+define_flag("router_spill_hit_weight", 0.5,
+            "Placement score multiplier for an expected prefix hit "
+            "whose page is SPILLED to the replica's host ring: swap-in "
+            "costs a page upload, not a re-prefill, so a spilled hit "
+            "scores between resident (1.0) and absent (0.0).")
+define_flag("router_overlay_cap", 4096,
+            "Global LRU cap on each replica's routed-overlay credit "
+            "map (the optimistic just-routed prefix hashes scored "
+            "before the next /statusz confirms them); evictions count "
+            "in router.overlay_evictions.")
+define_flag("router_quarantine_sweep_s", 5.0,
+            "Min seconds between TTL sweeps of the poison-quarantine "
+            "signature table on the read path (quarantined/progress "
+            "checks); strikes always sweep inline.  Bounds the table "
+            "even when no new strikes arrive.  <=0 sweeps every read.")
+define_flag("router_quarantine_cap", 4096,
+            "Max tracked poison-quarantine signatures (oldest evicted "
+            "first; router.quarantine_entries gauges the table).")
+define_flag("fleet_roles", "",
+            "Role-specialized fleet spec: comma-separated role=target "
+            "pairs, e.g. 'prefill=1,decode=2'.  Empty grows a classic "
+            "mixed fleet.  Per-role autoscaling moves each role's target "
+            "independently: prefill on queue depth / TTFT burn, decode "
+            "on resident sessions / ITL burn.")
+define_flag("fleet_rebalance", True,
+            "Proactive hot-session rebalance: when a READY replica is "
+            "shedding on SLO burn while a same-role peer still admits, "
+            "the supervisor exports the burner's sessions, pre-stages "
+            "them on the peer via the migration plane, and re-points the "
+            "router's session pins — the burner cools instead of "
+            "melting.  In-flight streams finish out on the source (drain "
+            "semantics).")
+define_flag("fleet_rebalance_cooldown_s", 10.0,
+            "Min seconds between proactive rebalances (one victim per "
+            "pass; the cooldown lets the SLO window react before the "
+            "supervisor moves more state).")

@@ -39,13 +39,13 @@ Nothing here runs unless the engine's ``prefix_cache=`` argument (or the
 
 from __future__ import annotations
 
-import base64
 import hashlib
 import os
 from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from .. import flags
+from ..controlplane.sketch import CountingBloom
 
 # process-wide prefix-cache counters: ``serving.*`` registry series, summed
 # over every engine in the process.  Each increment happens inside the
@@ -61,60 +61,6 @@ def serving_stats() -> Dict[str, int]:
     from ..observability import metrics as _metrics
     return {k: int(_metrics.counter("serving." + k).value)
             for k in _SERVING_KEYS}
-
-
-# ---------------------------------------------------------------------------
-# Digest sketch: a counting Bloom filter kept on the index's membership
-# changes, so a large digest ships as m/8 bitmap bytes.  Indices come from
-# one blake2b-16 per item by double hashing (h1 + i*h2 mod m), the same
-# probes a router computes.
-# ---------------------------------------------------------------------------
-
-def _indices(item: str, m: int, k: int) -> List[int]:
-    d = hashlib.blake2b(item.encode(), digest_size=16).digest()
-    h1 = int.from_bytes(d[:8], "big")
-    h2 = int.from_bytes(d[8:], "big") | 1  # odd -> full-period stride
-    return [(h1 + i * h2) % m for i in range(k)]
-
-
-class CountingBloom:
-    """Replica-side sketch: one-byte saturating counters, added to and
-    removed from as pages come and go; the wire form is the membership
-    bitmap (counter > 0)."""
-
-    __slots__ = ("m", "k", "counters", "items")
-
-    def __init__(self, m_bits: Optional[int] = None,
-                 k_hashes: Optional[int] = None):
-        self.m = int(flags.flag("router_digest_sketch_bits")
-                     if m_bits is None else m_bits)
-        self.k = int(flags.flag("router_digest_sketch_hashes")
-                     if k_hashes is None else k_hashes)
-        self.counters = bytearray(self.m)
-        self.items = 0
-
-    def add(self, item: str) -> None:
-        self.items += 1
-        for i in _indices(item, self.m, self.k):
-            if self.counters[i] < 255:  # saturate: never wraps
-                self.counters[i] += 1
-
-    def remove(self, item: str) -> None:
-        self.items = max(0, self.items - 1)
-        for i in _indices(item, self.m, self.k):
-            # a saturated counter lost its true count: leaving it set only
-            # risks a false positive, never a false negative
-            if 0 < self.counters[i] < 255:
-                self.counters[i] -= 1
-
-    def wire(self) -> dict:
-        """Membership bitmap (counter > 0), base64: m/8 bytes flat."""
-        bits = bytearray((self.m + 7) // 8)
-        for i, c in enumerate(self.counters):
-            if c:
-                bits[i >> 3] |= 1 << (i & 7)
-        return {"m": self.m, "k": self.k, "n": self.items,
-                "bits": base64.b64encode(bytes(bits)).decode("ascii")}
 
 
 # ---------------------------------------------------------------------------

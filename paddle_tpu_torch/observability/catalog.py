@@ -184,6 +184,107 @@ CATALOG: Dict[str, tuple] = {
     "flight_recorder.suppressed_dumps": (
         "counter", "", "dumps swallowed by the per-reason rate limit "
         "(FLAGS_flight_recorder_min_interval_s)"),
+    # ---- router ----
+    "router.requests": ("counter", "", "router requests accepted"),
+    "router.streams": ("counter", "", "router streaming completions"),
+    "router.responses": (
+        "counter", "code=...", "router responses by status code"),
+    "router.inflight": ("gauge", "", "open router requests"),
+    "router.request_ms": ("histogram", "", "router request wall time"),
+    "router.placement": (
+        "counter", "reason=affinity|prefix|load|round_robin",
+        "placement decisions by reason"),
+    "router.prefix_hit_pages": (
+        "histogram", "", "expected prefix-hit depth of scored "
+        "placements"),
+    "router.session_pins": ("gauge", "", "live session-affinity pins"),
+    "router.session_evictions": (
+        "counter", "", "LRU-evicted session pins"),
+    "router.failover": (
+        "counter", "phase=connect|stream", "requests that hit a dead "
+        "replica"),
+    "router.slo_decision": (
+        "counter", "decision=admit|shed|unavailable|breaker",
+        "fleet admission decisions (breaker = shed because the cascade "
+        "breaker is open)"),
+    "router.shed": ("counter", "", "fleet-wide sheds"),
+    "router.health_polls": (
+        "counter", "result=ok|fail", "replica /statusz polls"),
+    "router.replicas": (
+        "gauge", "state=ready|warming|suspect|dead|draining",
+        "replica count by health state"),
+    "router.replica_rejoins": (
+        "counter", "", "dead -> live replica transitions (the rejoined "
+        "replica's routed-overlay staleness is reset)"),
+    "router.resumes": (
+        "counter",
+        "outcome=resumed|unary|handoff|finished|ineligible|exhausted",
+        "journaled failover-resume outcomes: resumed = a dead stream "
+        "continued on a survivor, unary = a post-dispatch unary death "
+        "re-ran, handoff = a prefill->decode splice completed, finished "
+        "= only the finish frame was lost, ineligible = replay "
+        "impossible (synthesized-error / 502 contract), exhausted = "
+        "replay attempted but no survivor could finish it"),
+    "router.journal_entries": (
+        "gauge", "", "in-flight requests tracked by the replay journal"),
+    "router.journal_evictions": (
+        "counter", "", "journal entries LRU-evicted past "
+        "FLAGS_router_journal_cap"),
+    "router.digest_sync": (
+        "counter", "mode=full|delta|sketch", "prefix-digest syncs by "
+        "mode: delta = only the changes since the confirmed epoch, full "
+        "= the complete set, sketch = a counting-Bloom bitmap"),
+    "router.quarantine": (
+        "counter", "action=strike|quarantined|refused",
+        "poison-request crash attribution (router/quarantine.py)"),
+    "router.quarantine_entries": (
+        "gauge", "", "request signatures tracked by the quarantine"),
+    "router.handoff": (
+        "counter", "outcome=ok|export_failed|import_failed|no_successor",
+        "prefill->decode KV handoffs (router/server.py): ok = the "
+        "finished prefix shipped to a decode successor and the stream "
+        "spliced; the failures re-prefill on a fallback replica"),
+    "router.overlay_entries": (
+        "gauge", "", "routed-overlay credits across all replica views"),
+    "router.overlay_evictions": (
+        "counter", "", "overlay credits LRU-evicted past "
+        "FLAGS_router_overlay_cap"),
+    # ---- fleet supervisor ----
+    "fleet.replicas": (
+        "gauge", "state=starting|ready|draining|backoff|failed",
+        "supervised replica slots by lifecycle state "
+        "(fleet/supervisor.py)"),
+    "fleet.target_replicas": (
+        "gauge", "", "the autoscaler's current fleet-size target"),
+    "fleet.replica_restarts": (
+        "counter", "", "crash-restarts performed (after exponential "
+        "backoff, within FLAGS_fleet_restart_budget)"),
+    "fleet.crashes": (
+        "counter", "kind=exit|wedged|router",
+        "deaths detected: process/engine exit, or a wedge (the router "
+        "reports it dead while the process is still alive); router = a "
+        "supervised router slot's death (the port supervises none yet)"),
+    "fleet.scale_events": (
+        "counter", "direction=up|down",
+        "autoscale actions taken after hysteresis + cooldown"),
+    "fleet.drains": (
+        "counter", "outcome=clean|timeout|died",
+        "graceful drains by outcome"),
+    "fleet.migrations": (
+        "counter", "outcome=ok|skipped|failed",
+        "drain-triggered session migrations"),
+    "fleet.migrated_pages": (
+        "counter", "", "KV pages installed on successors by drain "
+        "migrations and rebalances"),
+    "fleet.role": (
+        "gauge", "role=prefill|decode|mixed",
+        "non-failed supervised slots by serving role"),
+    "fleet.rebalances": (
+        "counter", "outcome=ok|skipped|failed",
+        "proactive session rebalances off an SLO-burning replica"),
+    "fleet.breaker_state": (
+        "gauge", "", "cascade-breaker state (fleet/breaker.py): "
+        "0=closed, 1=half-open, 2=open"),
     # ---- step watchdog ----
     "watchdog.timeouts": ("counter", "", "watchdog timeout fires"),
     "watchdog.outstanding_tasks": (

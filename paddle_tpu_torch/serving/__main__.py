@@ -10,8 +10,9 @@ is built (``--prefix-cache``, or ``--set prefix_cache=1``;
 ``--set spec_k=4``), and so do the front door's (``--set
 serving_slo_ttft_ms=500``, ``--set serving_sentinel=0``, ``--set
 flight_recorder_path=/tmp/fr.json``, ``--set fleet_drain_timeout_s=10``,
-``--set metrics=0``).  The replica warms up before ``/readyz`` reports
-ready unless ``--no-warmup`` is given.
+``--set metrics=0``).  ``--role prefill|decode|mixed`` sets the role the
+replica advertises to a router (``FLAGS_serving_role``).  The replica warms
+up before ``/readyz`` reports ready unless ``--no-warmup`` is given.
 
 ``serve_forever`` wires SIGTERM to a graceful drain (after the flight
 recorder's dump), the crash hooks and the step watchdog
@@ -66,6 +67,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-new-tokens", type=int, default=128,
                    help="default completion budget when the request "
                         "omits max_tokens")
+    p.add_argument("--role", choices=("mixed", "prefill", "decode"),
+                   default=None,
+                   help="disaggregated-serving role advertised via "
+                        "/statusz (FLAGS_serving_role for this process; "
+                        "the router's phase routing keys off it)")
     p.add_argument("--prefix-cache", action="store_true",
                    help="enable the shared-prefix KV cache "
                         "(FLAGS_prefix_cache for this process)")
@@ -126,6 +132,9 @@ def build_engine(args):
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     apply_flag_sets(args.flag_sets)
+    if args.role:
+        # the server's role=None default reads the flag
+        flags.set_flags({"serving_role": args.role})
     engine = build_engine(args)
     from .server import serve_forever
     serve_forever(engine, host=args.host, port=args.port,

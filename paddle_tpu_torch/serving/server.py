@@ -171,16 +171,25 @@ class ServingServer:
       metrics are on; ``False`` disables it.
     - ``warmup=True`` drives one junk request through both step shapes on
       the engine thread before ``/readyz`` reports ready.
+    - ``role`` ("mixed", "prefill" or "decode"; ``None`` reads
+      ``FLAGS_serving_role``) is what ``/statusz`` advertises to a router.
     """
 
     def __init__(self, engine, *, model_name: str = "paddle-tpu-torch",
                  slo=None, flight_recorder=None, watchdog=None,
                  sentinel=None, poll_s: float = 0.02,
-                 warmup: bool = False):
+                 warmup: bool = False, role: Optional[str] = None):
         self.engine = engine
         self.model_name = model_name
-        # the port serves every phase on one replica
-        self.role = "mixed"
+        # the disaggregated-serving role advertised via /statusz: a routing
+        # preference the router's phase placement reads, never an engine
+        # capability (a decode replica still prefills what it is asked to)
+        self.role = str(flags.flag("serving_role") if role is None
+                        else role)
+        if self.role not in ("mixed", "prefill", "decode"):
+            raise ValueError(
+                f"serving role must be mixed/prefill/decode, "
+                f"got {self.role!r}")
         self._warmup = warmup
         self._ready = threading.Event()
         self.slo: Optional[SLOController] = \

@@ -37,6 +37,13 @@ CONTROL_PLANE = ("observability/__init__.py", "observability/metrics.py",
                  "observability/sentinel.py", "observability/catalog.py",
                  "distributed/watchdog.py", "inference/migration.py",
                  "serving/slo.py")
+# the router, the fleet supervisor and the digest sketch
+FLEET_STACK = ("router/__init__.py", "router/__main__.py", "router/replica.py",
+               "router/journal.py", "router/quarantine.py",
+               "router/placement.py", "router/server.py",
+               "controlplane/__init__.py", "controlplane/sketch.py",
+               "fleet/__init__.py", "fleet/__main__.py", "fleet/breaker.py",
+               "fleet/chaos.py", "fleet/supervisor.py")
 
 
 def test_port_and_chip_smoke_import_no_jax():
@@ -45,6 +52,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert PORT / "kernels" / "primitives.py" in files
     assert {PORT / "inference" / f for f in SERVING_FEATURES} <= set(files)
     assert {PORT / f for f in CONTROL_PLANE} <= set(files)
+    assert {PORT / f for f in FLEET_STACK} <= set(files)
     bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}"
            for f in files for mod, line in _imported_roots(f)
            if mod in ("jax", "jaxlib", "paddle_tpu")]
@@ -70,6 +78,10 @@ _STACKS = (
                  "paddle_tpu_torch.observability.flight_recorder",
                  "paddle_tpu_torch.observability.sentinel",
                  "paddle_tpu_torch.distributed.watchdog")),
+    ("fleet", ("paddle_tpu_torch.router", "paddle_tpu_torch.router.__main__",
+               "paddle_tpu_torch.controlplane",
+               "paddle_tpu_torch.controlplane.sketch",
+               "paddle_tpu_torch.fleet", "paddle_tpu_torch.fleet.__main__")),
     ("training", ("paddle_tpu_torch.models.pretrain",
                   "paddle_tpu_torch.kernels.flash_attention",
                   "paddle_tpu_torch.profile_step")),
@@ -130,6 +142,52 @@ def _loaded_no_jax(report, upto):
 
 def test_importing_the_serving_stack_loads_no_jax(stack_report):
     _loaded_no_jax(stack_report, "serving")
+
+
+def test_importing_the_fleet_stack_loads_no_jax(stack_report):
+    _loaded_no_jax(stack_report, "fleet")
+
+
+def test_fleet_spawns_port_replicas_on_the_card_by_default(monkeypatch):
+    """A process replica is ``python -m paddle_tpu_torch.serving`` (never
+    the JAX package's launcher), and the fleet launcher asks every replica
+    for the card unless told otherwise."""
+    from paddle_tpu_torch.fleet import ProcessReplicaHandle, supervisor
+    from paddle_tpu_torch.fleet.__main__ import (build_parser,
+                                                 replica_launch_args)
+    seen = []
+
+    class Popen:
+        def __init__(self, argv):
+            seen.append(argv)
+
+    monkeypatch.setattr(supervisor.subprocess, "Popen", Popen)
+    args = build_parser().parse_args([])
+    assert args.device == "cuda"
+    ProcessReplicaHandle("fs0", "127.0.0.1", 8001,
+                         launch_args=replica_launch_args(args)).spawn()
+    argv = seen[0]
+    assert argv[1:3] == ["-m", "paddle_tpu_torch.serving"]
+    assert argv[argv.index("--device") + 1] == "cuda"
+    assert not any(a == "paddle_tpu.serving" for a in argv)
+
+
+def test_unported_control_plane_asks_raise():
+    """Asking for the multi-router control plane (``controlplane=``, the
+    router's ``--store``, the fleet's ``--routers 2``) raises naming item
+    13b, and ``--tensor-parallel`` naming item 14: nothing is skipped
+    quietly."""
+    from paddle_tpu_torch.fleet.__main__ import main as fleet_main
+    from paddle_tpu_torch.router import RouterServer
+    from paddle_tpu_torch.router.__main__ import main as router_main
+    for call in (lambda: RouterServer([], allow_empty=True,
+                                      controlplane=object()),
+                 lambda: router_main(["--store", "127.0.0.1:9000"]),
+                 lambda: fleet_main(["--routers", "2"])):
+        with pytest.raises(NotImplementedError, match="13b"):
+            call()
+    with pytest.raises(NotImplementedError, match="item 14"):
+        fleet_main(["--tensor-parallel", "2"])
 
 
 def test_importing_the_training_stack_loads_no_jax(stack_report):
