@@ -130,12 +130,38 @@ is caught; there is no ``ok`` line unless every phase passed):
     p50/p95 of both, handoff export / import ms, pages and wire bytes.
     Its launches join the ``kernels`` line.
 7f. ``fleet_failover`` — ``python -m paddle_tpu_torch.fleet --replicas 2
-    --preset llama2_7b --num-layers 4 --device cuda`` as processes: one
-    stream through the router, its replica killed (SIGKILL) after the
-    first chunk; the stream resumes on the survivor (tokens held by
-    ``_teacher_force`` against the same model in this process), the
-    supervisor restarts the replica (restart seconds reported), SIGTERM
-    drains the fleet and the launcher exits 0.
+    --routers 2 --preset llama2_7b --num-layers 4 --device cuda`` as
+    processes (router rt0, the membership store and the trace collector in
+    the launcher, router rt1 and each replica a process of its own): one
+    stream through rt0, its replica killed (SIGKILL) after the first chunk;
+    the stream resumes on the survivor, the supervisor restarts the
+    replica; then a stream of a session rt1 owns goes to rt1, rt1's process
+    is killed (SIGKILL) after the first chunk and the client retries on
+    rt0, which takes the stream over from rt1's store-replicated journal;
+    the supervisor restarts rt1 on its port, rt1 holds no CUDA context, and
+    rt0's ``/tracez`` returns the stream's merged timeline from 2 processes
+    or more (tokens held by ``_teacher_force`` against the same model in
+    this process; restart seconds reported); SIGTERM drains the fleet and
+    the launcher exits 0 with no process left.
+7g. ``serve_routers`` — the multi-router control plane at full width:
+    llama2_7b (bf16), two mixed replicas on one model with HTTP listeners,
+    an in-process ``FleetSupervisor`` publishing them to a ``StoreServer``,
+    routers rt0 and rt1 (a supervised ``InprocRouterHandle``) each with a
+    ``RouterControlPlane`` over a ``StoreClient`` and store discovery;
+    spans of every component shipped by ``StoreTransport`` to the
+    supervisor's ``TraceCollector``.  8 streamed completions of 32 tokens,
+    four sessions a router, four one-hop forwards; rt1 killed once its
+    streams have 8 tokens, its clients reconnect to rt0.  Gates: every
+    stream whole, takeovers ``resumed`` = rt1's streams in flight, the ring
+    epoch rises and rt1 is restarted (2 members again), every trace with a
+    router and a replica track and a critical path within its stream's wall
+    time, each taken-over trace with the ``router.takeover`` marker and a
+    replay-phase span, no span dropped, no kernel build after warm-up,
+    attention on "split"/"sm90" only, tokens by ``_teacher_force``; then
+    follow-up turns on one replica's engine with the exporter attached make
+    no sync between drains, and ``Tracer.device_trace`` around 2 of its
+    decode steps holds the split attention kernel's events.  Its launches
+    join the ``kernels`` line.
 8. ``kernel_flash`` — the three flash-attention kernels (forward, dQ,
    dK/dV) against their plain versions over every combination of causal
    or not, GQA groups 1/4/8, d 64/128, fp32/bf16 and five shapes (b 1 to 4,
@@ -1715,18 +1741,23 @@ def phase_engine_parity_prefix_spec(cfg=None, device="cuda"):
 
 # ------------------------------------------------------------- serve ---
 
-async def _client(host, port, prompt, max_tokens, first=None, headers=None):
+async def _client(host, port, prompt, max_tokens, first=None, headers=None,
+                  send=(), mark=None):
     """One streamed completion over a socket.  Returns its status line, ids,
     TTFT, finish, seconds, the arrival time and token count of each token
     chunk (``chunks``) and the completion ids seen (``cmpl_ids``).
     ``first`` (an ``asyncio.Event``) is set at the first token chunk;
-    ``headers`` (a dict) receives the response head's headers."""
+    ``headers`` (a dict) receives the response head's headers; ``send``
+    holds extra request headers (name, value); ``mark`` (n, an
+    ``asyncio.Event``) is set once n tokens have arrived."""
     reader, writer = await asyncio.open_connection(host, port)
     body = json.dumps({"prompt": prompt, "max_tokens": max_tokens,
                        "stream": True}).encode()
     t0 = time.perf_counter()
+    extra = "".join(f"{k}: {v}\r\n" for k, v in send)
     writer.write((f"POST /v1/completions HTTP/1.1\r\nHost: smoke\r\n"
-                  f"Content-Length: {len(body)}\r\n\r\n").encode() + body)
+                  f"{extra}Content-Length: {len(body)}\r\n\r\n").encode()
+                 + body)
     await writer.drain()
     status = (await reader.readline()).decode()
     while True:
@@ -1738,7 +1769,10 @@ async def _client(host, port, prompt, max_tokens, first=None, headers=None):
             headers[k.strip().lower()] = v.strip()
     ids, ttft, finish, chunks, cmpl_ids = [], None, None, [], set()
     while True:
-        line = await reader.readline()
+        try:
+            line = await reader.readline()
+        except ConnectionError:       # the server died mid-stream
+            break
         if not line:
             break
         if not line.startswith(b"data: ") or line.strip() == b"data: [DONE]":
@@ -1754,8 +1788,13 @@ async def _client(host, port, prompt, max_tokens, first=None, headers=None):
                     first.set()
         ids.extend(ch["token_ids"])
         finish = ch["finish_reason"] or finish
+        if mark is not None and len(ids) >= mark[0]:
+            mark[1].set()
     writer.close()
-    await writer.wait_closed()
+    try:
+        await writer.wait_closed()
+    except ConnectionError:
+        pass
     return {"status": status.strip(), "ids": ids, "ttft_s": ttft,
             "finish": finish, "seconds": time.perf_counter() - t0,
             "chunks": chunks, "cmpl_ids": cmpl_ids}
@@ -2611,7 +2650,8 @@ SERVE_DISAGG = dict(prompts=(48, 144), requests=8, new_tokens=32,
                     min_ok=6, follow=16, tie_rel=2e-2, max_tie_share=0.25)
 FLEET_FAILOVER = dict(preset="llama2_7b", layers=4, prompt=96,
                       new_tokens=64, tie_rel=2e-2, max_tie_share=0.25,
-                      ready_s=600, restart_s=300, drain_s=120)
+                      ready_s=600, restart_s=300, drain_s=120,
+                      router_restart_s=120, trace_s=30)
 HANDOFF_OUTCOMES = ("ok", "export_failed", "import_failed", "no_successor")
 
 
@@ -3110,6 +3150,628 @@ def phase_serve_disagg(argv=None):
     return {**total, "gmm": 0, "gmm_sm90": 0}
 
 
+SERVE_ROUTERS = dict(prompts=(48, 144), requests=8, new_tokens=32,
+                     kill_after=8, tie_rel=2e-2, max_tie_share=0.25,
+                     heartbeat_ttl_s=1.0, heartbeat_interval_s=0.2,
+                     router_backoff_s=3.0, follow=16, trace_steps=2,
+                     wait_s=60.0)
+SPLIT_KERNEL = "ragged_paged_attn_split_kernel"
+
+
+class _DeadStore:
+    """What a killed router's control plane reaches: nothing."""
+
+    def __getattr__(self, name):
+        async def dead(*args, **kw):
+            raise ConnectionResetError("the router is gone")
+        return dead
+
+
+def _served_store(host="127.0.0.1"):
+    """A ``StoreServer`` on a localhost socket, on its own thread and event
+    loop (as the fleet launcher runs it).  Returns (state, port, stop)."""
+    import threading
+
+    from paddle_tpu_torch.controlplane import StoreServer, StoreState
+    state = StoreState()
+    server = StoreServer(state)
+    loop = asyncio.new_event_loop()
+    port, ready = [], threading.Event()
+
+    def run():
+        asyncio.set_event_loop(loop)
+        port.append(loop.run_until_complete(server.start(host, 0)))
+        ready.set()
+        loop.run_forever()
+
+    thread = threading.Thread(target=run, name="smoke-store", daemon=True)
+    thread.start()
+    if not ready.wait(10):
+        raise AssertionError("the membership store did not bind")
+
+    def stop():
+        # close the listener and stop the loop without waiting for the
+        # clients' connections (a killed router's never closes)
+        loop.call_soon_threadsafe(server._server.close)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(10)
+
+    return state, port[0], stop
+
+
+def _wait_until(what, cond, limit_s, tick=None):
+    deadline = time.perf_counter() + limit_s
+    while not cond():
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"no {what} in {limit_s} s")
+        if tick is not None:
+            tick()
+        time.sleep(0.05)
+
+
+async def _wait_until_async(what, cond, limit_s):
+    deadline = time.perf_counter() + limit_s
+    while not cond():
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"no {what} in {limit_s} s")
+        await asyncio.sleep(0.05)
+
+
+def _kernel_events(path):
+    """(all CUDA kernel event names, count) of a ``torch.profiler`` Chrome
+    trace."""
+    with open(path) as f:
+        doc = json.load(f)
+    names = [e.get("name", "") for e in doc.get("traceEvents", [])
+             if e.get("cat") == "kernel"]
+    return names
+
+
+def phase_serve_routers(argv=None):
+    """The multi-router control plane at full width: llama2_7b (32 layers,
+    bf16, random weights from the seed), one model shared by two mixed
+    replicas (the launcher's geometry and ``--prefix-cache``), each an
+    in-process ``ServingServer`` with its HTTP listener on localhost, under
+    an in-process ``FleetSupervisor`` that publishes their endpoints to a
+    ``StoreServer`` (its own thread and loop, a localhost socket).  Two
+    routers, rt0 (the launcher's, handed the replicas by the supervisor) and
+    rt1 (a supervised ``InprocRouterHandle`` slot, ``router_target`` 1),
+    each with a ``RouterControlPlane`` over a ``StoreClient`` and replica
+    discovery from the store.  Spans of every component (one process-wide
+    tracer, ``FLAGS_trace_sample_rate`` 1.0) ship through a
+    ``StoreTransport``; the supervisor's tick drains them into its
+    ``TraceCollector``.  8 streamed completions of 32 tokens (prompts of
+    48-144 tokens), sessions chosen so the ring gives each router four; two
+    of each router's sessions go to it, two to the other router (4 one-hop
+    forwards).  Once every stream rt1 owns has 8 tokens, rt1 is killed
+    (``InprocRouterHandle.kill``: its listener closes, its client
+    connections abort, its store face goes dead); every client whose
+    stream broke reconnects to rt0 with the same session and trace ids.
+    Gates: every stream ends as one client stream with its budget; the
+    takeovers ``resumed`` equal rt1's streams in flight at the kill, none
+    ``failed``; the ``cp/ring`` epoch rises and ``router.ring_moves`` >= 1;
+    the supervisor restarts rt1 (``fleet.router_restarts`` 1) and the ring
+    has 2 members again; every request's trace assembles with a router and
+    a replica track, its critical path no longer than the stream's wall
+    time, each resumed stream's trace with the ``router.takeover`` marker
+    and a span of the replay phase; the exporter dropped nothing; no
+    kernel built after warm-up; every attention launch on "split" or
+    "sm90" (layers x engine steps of them); tokens pass ``_teacher_force``
+    against the card's forward under SERVE_DISAGG's near-tie rule.  Then,
+    after the fleet stops, follow-up turns on one replica's bf16 engine
+    with the exporter still attached make no sync between drains
+    (``_steps_without_sync``), and ``Tracer.device_trace`` around 2 of its
+    decode steps writes a ``torch.profiler`` trace holding the split
+    attention kernel.  ``argv`` (launcher options) replaces ``--preset
+    llama2_7b``.  Returns the launch counts in ``phase_serve``'s form."""
+    import os
+    import threading
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.controlplane import (HashRing, InprocRouterHandle,
+                                               RouterControlPlane,
+                                               StoreClient, SyncStoreClient)
+    from paddle_tpu_torch.fleet import FleetSupervisor, InprocReplicaHandle
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.observability.collector import (SpanExporter,
+                                                          StoreTransport,
+                                                          TraceCollector)
+    from paddle_tpu_torch.router import RouterServer
+    from paddle_tpu_torch.router.replica import HttpReplica
+    from paddle_tpu_torch.serving.__main__ import build_parser, engine_kwargs
+    c = SERVE_ROUTERS
+    args = build_parser().parse_args(
+        (argv or ["--preset", "llama2_7b"]) + ["--prefix-cache"])
+    cuda = args.device == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    kw = {} if args.num_layers is None else \
+        {"num_hidden_layers": args.num_layers}
+    cfg = getattr(LlamaConfig, args.preset)(**kw)
+    model = LlamaForCausalLM(cfg, device=args.device, seed=args.seed)
+    rng = np.random.default_rng(19)
+    lens = np.linspace(c["prompts"][0], c["prompts"][1],
+                       c["requests"]).astype(int)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+               for n in lens]
+    host = "127.0.0.1"
+    base = _free_port_run(4)
+    rt_ports = {"rt0": base, "rt1": base + 1}
+    replica_ports = {"fs0": base + 2, "fs1": base + 3}
+    # sessions: the ring gives each router four; two of each go to their
+    # owner, two to the other router
+    ring = HashRing(["rt0", "rt1"])
+    owned = {"rt0": [], "rt1": []}
+    for n in range(10_000):
+        sid = f"smoke-session-{n}"
+        if len(owned[ring.owner(sid)]) < c["requests"] // 2:
+            owned[ring.owner(sid)].append(sid)
+        if all(len(v) == c["requests"] // 2 for v in owned.values()):
+            break
+    plan = []          # (session, owner, first router)
+    for owner, other in (("rt0", "rt1"), ("rt1", "rt0")):
+        for k, sid in enumerate(owned[owner]):
+            plan.append((sid, owner, owner if k % 2 == 0 else other))
+    old_flags = flags.get_flags(["controlplane_heartbeat_ttl_s",
+                                 "controlplane_heartbeat_interval_s",
+                                 "trace_sample_rate"])
+    flags.set_flags({
+        "controlplane_heartbeat_ttl_s": c["heartbeat_ttl_s"],
+        "controlplane_heartbeat_interval_s": c["heartbeat_interval_s"],
+        "trace_sample_rate": 1.0})
+    store_state, store_port, stop_store = _served_store(host)
+    collector = TraceCollector()
+    exporter = SpanExporter(StoreTransport(SyncStoreClient(host,
+                                                           store_port)),
+                            proc=f"smoke@{host}", role="fleet",
+                            sample_rate=1.0)
+    m = obs.metrics
+
+    def factory():
+        return ContinuousBatchingEngine(model, **engine_kwargs(args))
+
+    class ServedReplicaHandle(InprocReplicaHandle):
+        """An in-process replica that also listens on a localhost port:
+        the supervisor publishes its endpoint, routers dial it."""
+
+        def __init__(self, rid, loop):
+            super().__init__(rid, factory, warmup=True, server_kw=dict(
+                model_name=args.preset, sentinel=False))
+            self.host, self.port, self._loop = host, replica_ports[rid], loop
+            self._http = None
+
+        def ready(self):
+            if not super().ready():
+                return False
+            if self._http is None:
+                self._http = asyncio.run_coroutine_threadsafe(
+                    self.server.start_http(self.host, self.port),
+                    self._loop)
+            return self._http.done() and self._http.exception() is None
+
+        def client(self):
+            return HttpReplica(self.id, self.host, self.port)
+
+    def kill_router(handle):
+        r = handle.router
+        r.cp.store = _DeadStore()     # no heartbeat, publish or drop
+        if r._cp_task is not None:
+            r._cp_task.cancel()
+        r.stop_health()
+        if r._asyncio_server is not None:
+            r._asyncio_server.close()
+        for w in list(r.smoke_conns):
+            w.transport.abort()
+
+    generations = []
+    publish_ms = []                   # each journal write's round trip
+
+    async def fleet():
+        loop = asyncio.get_running_loop()
+
+        def router(rid):
+            plane = RouterControlPlane(
+                rid, StoreClient(host, store_port),
+                advertise={"host": host, "port": rt_ports[rid]})
+            r = RouterServer([], allow_empty=True, policy="scored",
+                             model_name=args.preset, health_interval_s=0.5,
+                             controlplane=plane, discover_replicas=True)
+            publish = plane.publish_journal
+
+            async def timed_publish(session_id, doc):
+                t = time.perf_counter()
+                await publish(session_id, doc)
+                publish_ms.append((time.perf_counter() - t) * 1e3)
+
+            plane.publish_journal = timed_publish
+            r.smoke_conns = set()
+            serve = r.handle
+
+            async def handle(reader, writer):
+                r.smoke_conns.add(writer)
+                try:
+                    await serve(reader, writer)
+                finally:
+                    r.smoke_conns.discard(writer)
+
+            r.handle = handle
+            return r
+
+        def router_slot(rid):
+            r = router(rid)
+            generations.append(asyncio.run_coroutine_threadsafe(
+                r.start_http(host, rt_ports[rid]), loop))
+            return r
+
+        rt0 = router("rt0")
+        sup = FleetSupervisor(
+            rt0, lambda rid: ServedReplicaHandle(rid, loop), target=2,
+            min_replicas=2, max_replicas=2, hot_ticks=10**9,
+            cold_ticks=10**9, rebalance=False,
+            router_spawner=lambda rid: InprocRouterHandle(
+                rid, router_slot, on_kill=kill_router),
+            router_target=1, store=SyncStoreClient(host, store_port),
+            collector=collector, backoff_base_s=c["router_backoff_s"])
+        stop = threading.Event()
+        exporter.start()
+        sup.start()
+        ticker = threading.Thread(target=sup.run_forever,
+                                  kwargs=dict(interval_s=0.2, stop=stop),
+                                  name="fleet-supervisor", daemon=True)
+        ticker.start()
+        await rt0.start_http(host, rt_ports["rt0"])
+        try:
+            return await traffic(sup, rt0)
+        finally:
+            stop.set()
+            ticker.join(timeout=10)
+            routers = [rt0] + [s.handle.router for s in sup._router_slots]
+            for rt in routers:
+                if rt._asyncio_server is not None:
+                    await rt.stop_http()
+            # the killed generation's handlers: their clients are gone
+            for w in [w for rt in routers for w in rt.smoke_conns]:
+                w.transport.abort()
+            await asyncio.sleep(0.2)
+            for slot in sup._slots:
+                if slot.handle.server is not None:
+                    await slot.handle.server.stop_http()
+            sup.shutdown(drain=False, timeout_s=5.0)
+            for rt in routers:
+                if not isinstance(rt.cp.store, _DeadStore):
+                    await rt.cp.store.close()
+
+    async def traffic(sup, rt0):
+        def rt1():
+            return sup._router_slots[0].handle.router
+
+        def up():
+            routers = [rt0, rt1()]
+            return sup.converged() and all(
+                len(r._candidates()) == 2 and len(r.cp.members) == 2
+                for r in routers) and generations and \
+                generations[-1].done()
+
+        await _wait_until_async("ready fleet", up, 900)
+        t_ready = time.perf_counter() - t0
+        engines = {s.handle.id: s.handle.server.engine for s in sup._slots}
+        compiles0 = obs.backend_compiles()
+        take0 = {o: m.counter("controlplane.takeovers", outcome=o).value
+                 for o in ("resumed", "stale", "failed")}
+        fwd0 = {o: m.counter("router.forwarded", outcome=o).value
+                for o in ("out", "received", "fallback")}
+        moves0 = m.counter("router.ring_moves").value
+        restarts0 = m.counter("fleet.router_restarts").value
+        epoch0 = store_state.get("cp/ring")[1]["epoch"]
+        ops0 = {op: m.counter("controlplane.store_ops", op=op).value
+                for op in ("set", "get", "cas", "del", "hb", "members")}
+        _reset_attn_counts()
+        steps0 = {k: e.steps for k, e in engines.items()}
+        marks = {sid: asyncio.Event() for sid, owner, _ in plan
+                 if owner == "rt1"}
+        t_kill = [None]
+
+        async def one(i, sid, owner, first):
+            send = (("X-Session-Id", sid), ("X-Trace-Id", f"smoke-tr-{i}"))
+            t1 = time.perf_counter()
+            head = {}
+            res = await _client(host, rt_ports[first], prompts[i],
+                                c["new_tokens"], headers=head, send=send,
+                                mark=(c["kill_after"], marks[sid])
+                                if sid in marks else None)
+            attempts = [dict(res, router=first, head=head)]
+            if res["finish"] is None:         # its router died: reconnect
+                head = {}
+                t_retry = time.perf_counter()
+                res = await _client(host, rt_ports["rt0"], prompts[i],
+                                    c["new_tokens"], headers=head,
+                                    send=send)
+                attempts.append(dict(res, router="rt0", head=head,
+                                     started=t_retry))
+            res = dict(res, wall_s=time.perf_counter() - t1)
+            return dict(i=i, sid=sid, owner=owner, first=first,
+                        trace=f"smoke-tr-{i}", res=res, attempts=attempts)
+
+        lag_ms = []                   # the event loop's lateness
+
+        async def lag_probe():
+            while True:
+                t = time.perf_counter()
+                await asyncio.sleep(0.01)
+                lag_ms.append((time.perf_counter() - t - 0.01) * 1e3)
+
+        probe = asyncio.ensure_future(lag_probe())
+        publish_ms.clear()
+        t1 = time.perf_counter()
+        tasks = [asyncio.ensure_future(one(i, *p)) for i, p in
+                 enumerate(plan)]
+        await asyncio.wait_for(asyncio.gather(*(e.wait() for e in
+                                                marks.values())), 300)
+        victims = [p[0] for p, t in zip(plan, tasks)
+                   if p[1] == "rt1" and not t.done()]
+        sup._router_slots[0].handle.kill()
+        t_kill[0] = time.perf_counter()
+        results = await asyncio.wait_for(asyncio.gather(*tasks), 600)
+        wall = time.perf_counter() - t1
+        probe.cancel()
+        counts = _attn_counts()
+        steps_by = {k: e.steps - steps0[k] for k, e in engines.items()}
+        steps = sum(steps_by.values())
+        compiles = obs.backend_compiles() - compiles0
+        # the ring drops rt1, then the supervisor brings it back
+        await _wait_until_async(
+            "ring without rt1", lambda: rt0.cp.members.keys() == {"rt0"}
+            or m.counter("fleet.router_restarts").value > restarts0,
+            c["wait_s"])
+        await _wait_until_async(
+            "rt1 restarted", lambda: m.counter(
+                "fleet.router_restarts").value > restarts0 and
+            len(rt0.cp.members) == 2 and len(rt1().cp.members) == 2 and
+            generations[-1].done(), c["wait_s"])
+        epoch1 = store_state.get("cp/ring")[1]["epoch"]
+        takeovers = {o: m.counter("controlplane.takeovers", outcome=o).value
+                     - take0[o] for o in take0}
+        forwarded = {o: m.counter("router.forwarded", outcome=o).value
+                     - fwd0[o] for o in fwd0}
+        ops = {op: m.counter("controlplane.store_ops", op=op).value - ops0[op]
+               for op in ops0}
+        st, body = await _http_call(host, rt_ports["rt0"], "GET", "/statusz")
+        return dict(t_ready=t_ready, engines=engines, results=results,
+                    wall=wall, counts=counts, steps=steps,
+                    compiles=compiles, victims=victims, t_kill=t_kill[0],
+                    steps_by=steps_by, lag_ms=list(lag_ms),
+                    publish_ms=list(publish_ms),
+                    takeovers=takeovers, forwarded=forwarded,
+                    ring_moves=m.counter("router.ring_moves").value - moves0,
+                    router_restarts=m.counter(
+                        "fleet.router_restarts").value - restarts0,
+                    epochs=(epoch0, epoch1), store_ops=ops,
+                    members=sorted(rt0.cp.members),
+                    statusz_cp=json.loads(body)["controlplane"])
+
+    try:
+        r = asyncio.run(fleet())
+        # every trace, assembled from the store-shipped batches
+        want = {x["trace"] for x in r["results"]}
+
+        def assembled():
+            have = set(collector.traces())
+            if not want <= have:
+                return False
+            return all(any(t.split("/")[1].startswith("router:")
+                           for t in collector.track_names(tid)) and
+                       any(not t.split("/")[1].startswith("router:")
+                           for t in collector.track_names(tid))
+                       for tid in want)
+
+        poller = SyncStoreClient(host, store_port)
+
+        def drain():
+            exporter.flush()
+            collector.poll_store(poller)
+
+        _wait_until("assembled traces", assembled, c["wait_s"], tick=drain)
+        dropped = m.counter("observability.collector.export_dropped").value
+        export_errors = m.counter(
+            "observability.collector.export_errors").value
+        refused = m.counter("controlplane.store_refused").value
+        traces = {}
+        for x in r["results"]:
+            doc = collector.assemble(x["trace"])
+            names = {e.get("name") for e in doc["traceEvents"]}
+            traces[x["trace"]] = dict(
+                tracks=collector.track_names(x["trace"]),
+                critical_path=doc["metadata"]["critical_path"],
+                takeover="router.takeover" in names,
+                replay_spans=sum(
+                    1 for e in doc["traceEvents"] if e.get("ph") == "X"
+                    and TraceCollector._phase_of(e["name"]) == "replay"))
+        engine = r["engines"]["fs0"]
+        # the bf16 engine after the fleet, the exporter still attached:
+        # follow-up turns, the steps between drains checked for syncs
+        follow_new = 2 * engine.g.sync_every + 2
+        frng = np.random.default_rng(29)
+        fprompts = [prompts[x["i"]] + x["res"]["ids"][:8] +
+                    frng.integers(1, cfg.vocab_size, c["follow"]).tolist()
+                    for x in r["results"][:4]]
+        _reset_attn_counts()
+        s0 = engine.steps
+        frids = [engine.add_request(p, max_new_tokens=follow_new)
+                 for p in fprompts]
+        t_follow = time.perf_counter()
+        engine.step()
+        checked = _steps_without_sync(engine, args.device)
+        fout = engine.run()
+        follow_ms = (time.perf_counter() - t_follow) * 1e3 / \
+            (engine.steps - s0)
+        follow = [(f"follow{i}", p, fout[q]) for i, (p, q) in
+                  enumerate(zip(fprompts, frids))]
+        f_counts = _attn_counts()
+        f_routes = _attn_window("serve_routers follow-ups", f_counts,
+                                engine.steps - s0, cfg.num_hidden_layers,
+                                {"split", "sm90"}) if cuda else None
+        # Tracer.device_trace around decode steps of the same engine
+        logdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "smoke_out", "device_trace")
+        for p in prompts[:2]:
+            engine.add_request(list(p), max_new_tokens=8)
+        while engine.waiting or any(
+                q is not None and engine.prompt_pos[b] < len(q.prompt)
+                for b, q in enumerate(engine.slot_req)):
+            engine.step()
+        with obs.TRACER.device_trace(logdir) as traced:
+            for _ in range(c["trace_steps"]):
+                engine.step()
+            if cuda:
+                torch.cuda.synchronize()
+        engine.run()
+        trace_path = os.path.join(logdir, "device_trace.json")
+        kernels = _kernel_events(trace_path) if traced else []
+    finally:
+        exporter.close()
+        stop_store()
+        flags.set_flags(old_flags)
+    fails = []
+    res = r["results"]
+    _check_streams("serve_routers", [x["res"] for x in res],
+                   c["new_tokens"], cfg.vocab_size)
+    resumed = [x for x in res if x["sid"] in r["victims"]]
+    if len(r["victims"]) != c["requests"] // 2 or \
+            r["takeovers"]["resumed"] != len(r["victims"]) or \
+            r["takeovers"]["failed"]:
+        fails.append(f"takeovers {r['takeovers']} for rt1's "
+                     f"{len(r['victims'])} streams in flight")
+    if any(x["attempts"][-1]["head"].get("x-router-replica") != "takeover"
+           for x in resumed):
+        fails.append("a resumed stream was not a takeover")
+    if r["forwarded"]["out"] < c["requests"] // 2:
+        fails.append(f"forwards {r['forwarded']}")
+    if not r["epochs"][1] > r["epochs"][0] or r["ring_moves"] < 1:
+        fails.append(f"cp/ring epochs {r['epochs']}, ring moves "
+                     f"{r['ring_moves']}")
+    if r["router_restarts"] != 1 or r["members"] != ["rt0", "rt1"]:
+        fails.append(f"router restarts {r['router_restarts']}, members "
+                     f"{r['members']}")
+    for x in res:
+        t = traces[x["trace"]]
+        total = (t["critical_path"] or {}).get("total_ms")
+        if total is None or total > x["res"]["wall_s"] * 1e3:
+            fails.append(f"{x['trace']}: critical path {total} ms over a "
+                         f"{x['res']['wall_s'] * 1e3:.1f} ms stream")
+        # the replay leg is a span of the replay phase; the critical path
+        # credits it only where the dead leg's decode (the replica finishes
+        # a request whose client left) no longer covers it
+        if x in resumed and (not t["takeover"] or not t["replay_spans"]):
+            fails.append(f"{x['trace']}: no takeover marker or replay "
+                         f"span: {t['critical_path']}")
+    if dropped:
+        fails.append(f"the exporter dropped {dropped} spans")
+    if r["compiles"]:
+        fails.append(f"{r['compiles']} kernel builds after warm-up")
+    if cuda and not any(SPLIT_KERNEL in k for k in kernels):
+        fails.append(f"device_trace: no {SPLIT_KERNEL} among "
+                     f"{len(kernels)} kernel events")
+    if fails:
+        raise AssertionError("serve_routers: " + "; ".join(fails))
+    routes = _attn_window("serve_routers", r["counts"], r["steps"],
+                          cfg.num_hidden_layers, {"split", "sm90"}) \
+        if cuda else None
+    card = lambda ids: model(ids.to(args.device)).float().cpu()  # noqa: E731
+    memo = {}
+    tf = {}
+    for name, runs, n in (
+            ("streams", [(x["trace"], prompts[x["i"]], x["res"]["ids"])
+                         for x in res], c["new_tokens"]),
+            ("follow_up", follow, follow_new)):
+        checked_tf, near, gaps = _teacher_force(
+            f"serve_routers {name}", card, runs, new_tokens=n,
+            tie_rel=c["tie_rel"], max_tie_share=c["max_tie_share"],
+            memo=memo)
+        tf[name] = dict(tokens_checked=checked_tf, near_ties=near,
+                        near_tie_rel_gaps=gaps)
+    # ms from the kill to each resumed stream's first token past the ones
+    # its client held
+    resume_ms = []
+    for x in resumed:
+        before = len(x["attempts"][0]["ids"])
+        last = x["attempts"][-1]
+        n = 0
+        for t_arr, k in last["chunks"]:
+            n += k
+            if n > before:
+                resume_ms.append((last["started"] + t_arr - r["t_kill"])
+                                 * 1e3)
+                break
+    phases = {}
+    for t in traces.values():
+        for ph, ms in t["critical_path"]["phases_ms"].items():
+            phases.setdefault(ph, []).append(ms)
+    emit("serve_routers", preset=args.preset, layers=cfg.num_hidden_layers,
+         dtype=cfg.dtype, max_batch=args.max_batch,
+         max_seq_len=args.max_seq_len, page_size=args.page_size,
+         prompt_lens=[int(n) for n in lens], new_tokens=c["new_tokens"],
+         setup_and_warmup_s=r["t_ready"],
+         traffic=_latency_summary([x["res"] for x in res],
+                                  c["new_tokens"], r["wall"]),
+         plan=[dict(session=x["sid"], owner=x["owner"], first=x["first"],
+                    attempts=[a["router"] for a in x["attempts"]],
+                    tokens_before_kill=len(x["attempts"][0]["ids"]))
+               for x in res],
+         killed="rt1", streams_in_flight_at_kill=len(r["victims"]),
+         takeovers=r["takeovers"], forwarded=r["forwarded"],
+         kill_to_next_token_ms=resume_ms, ring_moves=r["ring_moves"],
+         ring_epochs=r["epochs"], router_restarts=r["router_restarts"],
+         members_after=r["members"], statusz_controlplane=r["statusz_cp"],
+         store_ops=r["store_ops"], store_refused=refused,
+         export_dropped=dropped, export_errors=export_errors,
+         collector_processes=collector.processes(),
+         critical_path_p50_ms={ph: float(np.percentile(v, 50))
+                               for ph, v in sorted(phases.items())},
+         traces={k: dict(tracks=v["tracks"],
+                         phases_ms=v["critical_path"]["phases_ms"],
+                         total_ms=v["critical_path"]["total_ms"],
+                         wall_ms=x["res"]["wall_s"] * 1e3)
+                 for x in res for k, v in traces.items()
+                 if k == x["trace"]},
+         teacher_forced=tf, tie_rel=c["tie_rel"],
+         kernel_builds_after_warmup=r["compiles"],
+         steps_checked_without_sync=checked,
+         device_trace=dict(started=traced, path=os.path.relpath(
+             trace_path, os.path.dirname(os.path.abspath(__file__))),
+             kernel_events=len(kernels),
+                           split_kernel_events=sum(SPLIT_KERNEL in k
+                                                   for k in kernels)),
+         attention_routes={"streams": routes, "follow_up": f_routes},
+         engine_steps=r["steps"],
+         ms_per_engine_step={k: r["wall"] * 1e3 / n
+                             for k, n in r["steps_by"].items() if n},
+         ms_per_step_one_engine_alone=follow_ms,
+         loop_lag_ms={q: float(np.percentile(r["lag_ms"], q))
+                      for q in (50, 95, 100)} if r["lag_ms"] else None,
+         journal_publish_ms=dict(
+             calls=len(r["publish_ms"]),
+             p50=float(np.percentile(r["publish_ms"], 50)),
+             p95=float(np.percentile(r["publish_ms"], 95)))
+         if r["publish_ms"] else None,
+         max_memory_allocated=(torch.cuda.max_memory_allocated()
+                               if cuda else None),
+         nvidia_smi=_nvidia_smi() if cuda else None)
+    keys = ("attention", "attention_int8", "attention_split",
+            "attention_int8_split", "attention_sm90", "attention_int8_sm90")
+    total = {k: r["counts"][k] + f_counts[k] for k in keys}
+    del model, card, engine, r
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return {**total, "gmm": 0, "gmm_sm90": 0}
+
+
 def _free_port_run(n):
     """A base port with ``n`` consecutive free localhost ports."""
     import socket
@@ -3144,6 +3806,15 @@ def _get_json(port, path, timeout=5.0):
         conn.close()
 
 
+def _cuda_contexts():
+    """How many processes hold a CUDA context on the card (``nvidia-smi``'s
+    compute apps; their pids are the host's, so only the count is read)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout
+    return len(out.split())
+
+
 def _pid_alive(pid):
     import os
     try:
@@ -3155,23 +3826,35 @@ def _pid_alive(pid):
 
 def phase_fleet_failover(argv=None):
     """The real process topology: ``python -m paddle_tpu_torch.fleet
-    --replicas 2 --min-replicas 2 --preset llama2_7b --num-layers 4 --device
-    cuda`` (a depth cut, to keep each replica's start short): the launcher
-    runs the router and the supervisor, each replica is its own
-    ``python -m paddle_tpu_torch.serving`` process on the card.  Once the
-    router's ``/readyz`` reports both replicas, one streamed completion of
-    64 tokens (a 96-token prompt) goes to the router; after its first
-    token chunk the replica serving it is killed with SIGKILL.  Gates: the
-    stream finishes with its budget as one client stream (resumed on the
-    survivor from the router's journal), its tokens pass ``_teacher_force``
+    --replicas 2 --min-replicas 2 --routers 2 --preset llama2_7b
+    --num-layers 4 --device cuda`` (a depth cut, to keep each replica's
+    start short): the launcher runs router rt0, the membership store, the
+    trace collector and the supervisor; each replica is its own ``python -m
+    paddle_tpu_torch.serving`` process on the card and router rt1 its own
+    ``python -m paddle_tpu_torch.router`` process, which discovers the
+    replicas from the store.  Once rt0's ``/statusz`` shows both replicas
+    ready, one streamed completion of 64 tokens (a 96-token prompt) goes to
+    rt0; after its first token chunk the replica serving it is killed with
+    SIGKILL.  Then, once rt1 has joined the ring and discovered both
+    replicas, one stream of a session rt1 owns goes to rt1's port; after
+    its first chunk rt1's process is killed with SIGKILL and the client
+    retries on rt0 with the same session and trace ids.  Gates: each stream
+    finishes with its budget as one client stream (the first resumed on the
+    survivor from the router's journal, the second taken over by rt0 from
+    rt1's store-replicated journal), its tokens pass ``_teacher_force``
     against an in-process model of the same preset, seed and depth on the
-    card; the supervisor restarts the dead replica on its port and the
-    router's ``/statusz`` shows 2 ready replicas again (the restart
-    seconds are reported); SIGTERM to the launcher drains both replicas
-    and it exits 0, with no replica process left.  ``argv`` replaces the
-    launcher's model options (``--preset``, ``--num-layers``,
-    ``--device``).  The replicas' kernel launches happen in their own
-    processes and are not counted here."""
+    card; the supervisor restarts the dead replica on its port (2 ready
+    replicas again) and rt1 on its port (the ring has 2 members again; the
+    restart seconds are reported); killing rt1 frees no CUDA context (a
+    router holds no tensors);
+    ``GET /tracez?trace_id=`` on rt0 returns the taken-over stream's
+    timeline with tracks from 2 processes or more (the replicas POST their
+    spans to rt0's ``/collectz``, rt1 ships its own through the store) and
+    the index reports each process's clock offset; SIGTERM to the launcher
+    drains the fleet and it exits 0, with no router or replica process
+    left.  ``argv`` replaces the launcher's model options (``--preset``,
+    ``--num-layers``, ``--device``).  The replicas' kernel launches happen
+    in their own processes and are not counted here."""
     import os
     import signal
 
@@ -3183,15 +3866,21 @@ def phase_fleet_failover(argv=None):
                           str(c["layers"]), "--device", "cuda"]
     opts = dict(zip(model_argv[::2], model_argv[1::2]))
     device = opts["--device"]
-    base = _free_port_run(3)
+    base = _free_port_run(4)
     port, replica_base = base, base + 1
+    router_base = base + 2             # rt1 listens on router_base + 1
+    rt1_port = router_base + 1
     root = os.path.dirname(os.path.abspath(__file__))
     os.makedirs(os.path.join(root, "smoke_out"), exist_ok=True)
     log_path = os.path.join(root, "smoke_out", "fleet_failover.log")
     cmd = [sys.executable, "-m", "paddle_tpu_torch.fleet", "--replicas", "2",
            "--min-replicas", "2", "--port", str(port),
            "--replica-port-base", str(replica_base),
+           "--routers", "2", "--router-port-base", str(router_base),
            "--set", "fleet_tick_interval_s=0.25",
+           "--set", "controlplane_heartbeat_ttl_s=1.0",
+           "--set", "controlplane_heartbeat_interval_s=0.25",
+           "--set", "trace_export_interval_s=0.25",
            "--set", "router_health_interval_s=0.25",
            "--set", "fleet_drain_timeout_s=30",
            "--set", "flight_recorder_path=smoke_out/fleet_failover_fr.json"
@@ -3229,9 +3918,17 @@ def phase_fleet_failover(argv=None):
                                      f"ends:\n{log_tail()}")
             time.sleep(0.2)
 
-    def ready_replicas():
-        st, doc = _get_json(port, "/statusz")
+    def ready_replicas(at=port):
+        st, doc = _get_json(at, "/statusz")
         return [r for r in doc.get("replicas", []) if r["state"] == "ready"]
+
+    def router_pid(at):
+        st, doc = _get_json(at, "/statusz")
+        return doc.get("pid") if st == 200 else None
+
+    def ring_members():
+        st, doc = _get_json(port, "/statusz")
+        return (doc.get("controlplane") or {}).get("members")
 
     rc = None
     try:
@@ -3269,6 +3966,80 @@ def phase_fleet_failover(argv=None):
         restart_s = time.perf_counter() - t_kill
         after = {i: replica_pid(i) for i in range(2)}
         pids |= set(after.values())
+        # router rt1, a process of its own: a stream of a session it owns,
+        # the process killed after the first chunk, the client retried on
+        # rt0 with the same session and trace ids
+        from paddle_tpu_torch.controlplane import HashRing
+        wait("rt1 on the ring with both replicas",
+             lambda: ring_members() == ["rt0", "rt1"]
+             and len(ready_replicas(rt1_port)) == 2, c["ready_s"])
+        rt1_before = router_pid(rt1_port)
+        pids.add(rt1_before)
+        ring = HashRing(["rt0", "rt1"])
+        sid = next(f"smoke-failover-{n}" for n in range(10_000)
+                   if ring.owner(f"smoke-failover-{n}") == "rt1")
+        trace_id = "smoke-failover-router"
+        prompt_rt = rng.integers(1, cfg.vocab_size, c["prompt"]).tolist()
+        send = (("X-Session-Id", sid), ("X-Trace-Id", trace_id))
+        contexts = {}
+        # one short stream rt1 serves whole: its spans ship through the
+        # store to the launcher's collector
+        probe = asyncio.run(_client("127.0.0.1", rt1_port, prompt_rt[:16],
+                                    2))
+        if probe["finish"] != "length":
+            raise AssertionError(f"fleet_failover: rt1 probe {probe}")
+        wait("rt1's spans through the store", lambda: any(
+            k.startswith("rt1@") for k in
+            _get_json(port, "/tracez")[1].get("processes", {})),
+            c["trace_s"])
+
+        async def stream_and_kill_router():
+            first, head = asyncio.Event(), {}
+            task = asyncio.ensure_future(_client(
+                "127.0.0.1", rt1_port, prompt_rt, c["new_tokens"],
+                first=first, headers=head, send=send))
+            await asyncio.wait_for(first.wait(), 300)
+            if device == "cuda":
+                contexts["rt1_alive"] = _cuda_contexts()
+            os.kill(rt1_before, signal.SIGKILL)
+            t_kill = time.perf_counter()
+            if device == "cuda":
+                while _pid_alive(rt1_before) and \
+                        time.perf_counter() - t_kill < 10:
+                    await asyncio.sleep(0.05)
+                contexts["rt1_dead"] = _cuda_contexts()
+            broken = await asyncio.wait_for(task, 300)
+            head2 = {}
+            res = await asyncio.wait_for(_client(
+                "127.0.0.1", port, prompt_rt, c["new_tokens"],
+                headers=head2, send=send), 300)
+            return broken, res, head2, t_kill
+
+        broken, res_rt, head_rt, t_kill_rt = asyncio.run(
+            stream_and_kill_router())
+        _check_streams("fleet_failover router", [res_rt], c["new_tokens"],
+                       cfg.vocab_size)
+        wait("restarted rt1", lambda: router_pid(rt1_port) not in
+             (None, rt1_before) and ring_members() == ["rt0", "rt1"],
+             c["router_restart_s"])
+        router_restart_s = time.perf_counter() - t_kill_rt
+        rt1_after = router_pid(rt1_port)
+        pids.add(rt1_after)
+        # the collector: the taken-over stream's merged timeline
+        tracez = {}
+
+        def traced():
+            st, doc = _get_json(port, f"/tracez?trace_id={trace_id}")
+            if st != 200:
+                return False
+            procs = {k.split("/")[0] for k in doc["metadata"]["processes"]}
+            tracez.update(doc=doc, procs=sorted(procs))
+            return len(procs) >= 2 and any(
+                e.get("name") == "router.takeover"
+                for e in doc["traceEvents"])
+
+        wait("merged timeline", traced, c["trace_s"])
+        st, index = _get_json(port, "/tracez")
         st, statusz = _get_json(port, "/statusz")
         proc.send_signal(signal.SIGTERM)
         t_term = time.perf_counter()
@@ -3300,6 +4071,17 @@ def phase_fleet_failover(argv=None):
             statusz["failover"]["stream"] < 1:
         fails.append(f"router resume {statusz['resume']}, failover "
                      f"{statusz['failover']}")
+    takeovers = statusz["controlplane"]["takeovers"]
+    if broken["finish"] is not None or takeovers["resumed"] != 1 or \
+            takeovers["failed"] or \
+            head_rt.get("x-router-replica") != "takeover":
+        fails.append(f"rt1's stream: first attempt finish "
+                     f"{broken['finish']}, takeovers {takeovers}")
+    # a router holds no tensors: its death takes no CUDA context with it
+    if contexts.get("rt1_alive") != contexts.get("rt1_dead"):
+        fails.append(f"CUDA contexts with rt1 alive / dead: {contexts}")
+    if len(index.get("processes", {})) < 3:
+        fails.append(f"collector processes {index.get('processes')}")
     if fails:
         raise AssertionError("fleet_failover: " + "; ".join(fails))
     if device == "cuda":
@@ -3307,7 +4089,9 @@ def phase_fleet_failover(argv=None):
     model = LlamaForCausalLM(cfg, device=device, seed=0)
     card = lambda ids: model(ids.to(device)).float().cpu()  # noqa: E731
     checked, near, gaps = _teacher_force(
-        "fleet_failover", card, [("stream", prompt, res["ids"])],
+        "fleet_failover", card, [("stream", prompt, res["ids"]),
+                                 ("router_stream", prompt_rt,
+                                  res_rt["ids"])],
         new_tokens=c["new_tokens"], tie_rel=c["tie_rel"],
         max_tie_share=c["max_tie_share"])
     emit("fleet_failover", preset=opts["--preset"],
@@ -3319,6 +4103,18 @@ def phase_fleet_failover(argv=None):
          replica_pids={"before": before, "after": after},
          router_resume=statusz["resume"]["outcomes"],
          router_failover=statusz["failover"],
+         router_kill=dict(
+             session=sid, tokens_before_kill=len(broken["ids"]),
+             stream_s=res_rt["seconds"], router_restart_s=router_restart_s,
+             router_pids={"before": rt1_before, "after": rt1_after},
+             controlplane=statusz["controlplane"],
+             trace_processes=tracez["procs"],
+             trace_tracks=sorted(tracez["doc"]["metadata"]["processes"]),
+             critical_path=tracez["doc"]["metadata"]["critical_path"],
+             collector_processes={
+                 k: {f: v.get(f) for f in ("role", "offset_us", "rtt_us")}
+                 for k, v in index["processes"].items()},
+             cuda_contexts=contexts),
          tokens_checked=checked, near_ties=near, near_tie_rel_gaps=gaps,
          tie_rel=c["tie_rel"], log=os.path.relpath(log_path, root),
          nvidia_smi=_nvidia_smi() if device == "cuda" else None)
@@ -5886,6 +6682,7 @@ def main() -> int:
             phase_serve_prefix_spec(),
             phase_serve_migrate(),
             phase_serve_disagg(),
+            phase_serve_routers(),
             router_parity]
     phase_fleet_failover()
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}

@@ -112,6 +112,23 @@ define_flag("router_digest_sketch_bits", 65536,
 define_flag("router_digest_sketch_hashes", 4,
             "Bloom hash count k (indices from one blake2b by double "
             "hashing).")
+define_flag("controlplane_heartbeat_ttl_s", 5.0,
+            "Router-liveness TTL in the membership store: a router whose "
+            "last heartbeat is older than this drops out of the "
+            "consistent-hash ring and its span moves to the survivors.")
+define_flag("controlplane_heartbeat_interval_s", 1.0,
+            "Seconds between router heartbeats and membership refreshes "
+            "against the store (the background control-plane loop).")
+define_flag("controlplane_vnodes", 64,
+            "Virtual nodes per router on the consistent-hash ring; more "
+            "vnodes split the span more smoothly on a membership change.")
+define_flag("controlplane_journal_ttl_s", 120.0,
+            "TTL on the journal records a router replicates into the "
+            "membership store for a cross-router takeover; past it an "
+            "orphaned record is swept.")
+define_flag("controlplane_store_max_keys", 65536,
+            "Hard cap on membership-store keys (the oldest set is evicted "
+            "first); bounds the store's memory under session churn.")
 define_flag("enable_async_trace", False,
             "Step watchdog: record the stack of every watched task and "
             "print it when the task times out (distributed/watchdog.py).")
@@ -129,6 +146,38 @@ define_flag("trace_max_events", 200000,
             "Cap on buffered Chrome-trace events in the observability "
             "tracer (observability/tracing.py); the overflow is counted in "
             "the exported file's metadata and in tracing.dropped_events.")
+define_flag("trace_sample_rate", 1.0,
+            "Fraction of request traces the span exporter ships to the "
+            "fleet collector (observability/collector.py), decided per "
+            "trace id by a stable hash, so every process keeps or drops the "
+            "same traces.  Anomalous, shed, failover and handoff traces are "
+            "kept whatever the rate; 0 disables export (the exporter never "
+            "attaches).")
+define_flag("trace_export_events", 8192,
+            "Bound on pending span-export events buffered per process (the "
+            "SpanExporter ring).  The tracer's offer into the ring is one "
+            "deque append; overflow evicts the oldest and bumps "
+            "observability.collector.export_dropped, never blocking the "
+            "engine or the event loop.")
+define_flag("trace_export_batch", 512,
+            "Most span events per export batch shipped to the collector; a "
+            "flush splits a larger backlog into several batches.")
+define_flag("trace_export_interval_s", 0.5,
+            "Seconds between span-export flushes from each process's "
+            "exporter thread to the fleet collector (a host daemon thread, "
+            "off the dispatch path).")
+define_flag("trace_collector", "",
+            "host:port of the fleet trace collector's HTTP ingest (POST "
+            "/collectz on the router or the fleet launcher).  Non-empty "
+            "makes `python -m paddle_tpu_torch.serving` start a span "
+            "exporter over HTTP; empty, tracing stays process-local unless "
+            "a control-plane store carries the batches.")
+define_flag("trace_clock_drift_ms", 5.0,
+            "Clock-offset drift threshold of the collector's NTP-style "
+            "handshake (observability/collector.py ClockSync): a fresh "
+            "midpoint measurement differing from the held offset by more "
+            "than this (and not explained by round-trip jitter) replaces "
+            "it and bumps observability.collector.clock_resyncs.")
 define_flag("metrics_max_series", 512,
             "Cap on LABELED series per metric family in the registry "
             "(observability/metrics.py).  A family at the cap folds every "

@@ -12,8 +12,16 @@ each replica; ``--set fleet_roles=prefill=1,decode=1`` grows a
 disaggregated fleet whose replicas start with ``--role``.  Crash restart,
 wedge detection, autoscaling between ``--min-replicas`` and
 ``--max-replicas`` and the SIGTERM graceful drain ride the
-``FLAGS_fleet_*`` family.  ``--routers`` above 1 (the multi-router control
-plane) and ``--tensor-parallel`` are not ported yet and raise.
+``FLAGS_fleet_*`` family.
+
+``--routers N`` (N > 1) shards ``X-Session-Id`` space over a consistent-hash
+ring of routers: this process runs router rt0 and the membership store, and
+the supervisor runs rt1..rt<N-1> as ``python -m paddle_tpu_torch.router``
+subprocesses on ``--router-port-base + i`` that discover the replicas from
+the store.  The launcher owns the fleet's ``TraceCollector``: replicas POST
+their spans to rt0's ``/collectz``, spawned routers ship theirs through the
+store, and ``GET /tracez?trace_id=`` on rt0 serves one merged timeline.
+``--tensor-parallel`` is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -48,8 +56,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="replica slot i listens on base+i; a restarted "
                         "slot reuses its port")
     p.add_argument("--routers", type=int, default=1,
-                   help="router fleet size; only 1 (one front door) is "
-                        "ported, more raises")
+                   help="router fleet size: 1 keeps one front door; N>1 "
+                        "shards X-Session-Id space over a consistent-hash "
+                        "ring (this process runs router rt0 and the "
+                        "membership store and spawns rt1..rt<N-1> as "
+                        "python -m paddle_tpu_torch.router subprocesses)")
+    p.add_argument("--router-port-base", type=int, default=8901,
+                   help="spawned router rt<i> listens on base+i; a "
+                        "restarted router slot reuses its port")
+    p.add_argument("--store-port", type=int, default=0,
+                   help="membership store bind port (0 = ephemeral; bound "
+                        "only when --routers > 1)")
     p.add_argument("--preset", choices=_PRESETS, default="tiny",
                    help="model preset forwarded to each replica")
     p.add_argument("--num-layers", type=int, default=None,
@@ -98,10 +115,6 @@ def replica_launch_args(args) -> List[str]:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    if args.routers > 1:
-        raise NotImplementedError(
-            "--routers > 1 (the multi-router control plane) is ROADMAP "
-            "item 13b and not ported yet")
     if args.tensor_parallel is not None:
         raise NotImplementedError(
             "--tensor-parallel is ROADMAP item 14 and not ported yet")
@@ -123,7 +136,22 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     signal.signal(signal.SIGTERM, _sigterm)
 
+    # fleet tracing: the launcher owns the fleet's trace collector.
+    # Replica (and spawned router) processes export span batches back
+    # here, over the membership store when there is one, else by HTTP POST
+    # to the router's /collectz, and /tracez on the in-process router
+    # serves the merged, clock-aligned timelines.
+    from .. import flags as _flags
+    from ..observability.collector import (InprocTransport, SpanExporter,
+                                           TraceCollector)
+    collector = TraceCollector()
+    trace_on = float(_flags.flag("trace_sample_rate")) > 0
+
     launch = replica_launch_args(args)
+    if trace_on and not str(_flags.flag("trace_collector")):
+        # replicas POST spans to the router's /collectz unless the
+        # operator pointed them elsewhere
+        launch += ["--set", f"trace_collector={args.host}:{args.port}"]
 
     def spawner(rid: str, role: str = "mixed") -> ProcessReplicaHandle:
         # slot ids are "fs<i>"; a restarted slot keeps its port so the
@@ -135,12 +163,78 @@ def main(argv: Optional[List[str]] = None) -> int:
         return ProcessReplicaHandle(rid, args.host, port,
                                     launch_args=launch + extra)
 
+    # multi-router control plane: with --routers N>1 this process owns the
+    # membership store (on its own thread and loop, so its port exists
+    # before the router subprocesses spawn) and runs rt0 in-process on a
+    # socket-free LocalStore face; rt1.. are supervised subprocesses that
+    # join over the socket and discover the replicas from the store.
+    controlplane = None
+    router_spawner = None
+    router_target = 0
+    store_state = None
+    if args.routers > 1:
+        from ..controlplane import (LocalStore, RouterControlPlane,
+                                    StoreServer, StoreState)
+        store_state = StoreState()
+        store_ready = threading.Event()
+        store_port: List[int] = []
+
+        def _store_thread():
+            async def _run():
+                srv = StoreServer(store_state)
+                store_port.append(await srv.start(args.host,
+                                                  args.store_port))
+                store_ready.set()
+                while True:
+                    await asyncio.sleep(3600)
+            asyncio.run(_run())
+
+        threading.Thread(target=_store_thread, name="fleet-store",
+                         daemon=True).start()
+        if not store_ready.wait(timeout=10):
+            raise SystemExit("membership store failed to bind")
+        controlplane = RouterControlPlane(
+            "rt0", LocalStore(store_state),
+            advertise={"host": args.host, "port": args.port})
+
+        router_launch: List[str] = ["--model-name",
+                                    args.model_name or args.preset]
+        if args.policy is not None:
+            router_launch += ["--policy", args.policy]
+        for pair in args.flag_sets:
+            router_launch += ["--set", pair]
+
+        def router_spawner(rid: str):
+            from ..controlplane import ProcessRouterHandle
+            port = args.router_port_base + int(rid.removeprefix("rt"))
+            return ProcessRouterHandle(rid, args.host, port,
+                                       store_host=args.host,
+                                       store_port=store_port[0],
+                                       launch_args=router_launch)
+
+        router_target = args.routers - 1
+        print(f"[paddle_tpu_torch fleet] membership store on "
+              f"{args.host}:{store_port[0]}  routers={args.routers} "
+              f"(ports from {args.router_port_base + 1})", flush=True)
+
     router = RouterServer([], policy=args.policy,
                           model_name=args.model_name or args.preset,
-                          allow_empty=True)
+                          allow_empty=True, controlplane=controlplane)
+    router.collector = collector
     sup = FleetSupervisor(router, spawner, target=args.replicas,
                           min_replicas=args.min_replicas,
-                          max_replicas=args.max_replicas)
+                          max_replicas=args.max_replicas,
+                          router_spawner=router_spawner,
+                          router_target=router_target,
+                          store=store_state, collector=collector)
+    # this process's own spans (router rt0 and the supervisor) join the
+    # merged timelines through the in-process transport
+    exporter = None
+    if trace_on:
+        exporter = SpanExporter(InprocTransport(collector),
+                                proc=f"fleet@{args.host}:{args.port}",
+                                role="router")
+        exporter.start()
     sup.start()
     stop = threading.Event()
     loop_thread = threading.Thread(target=sup.run_forever,
@@ -167,6 +261,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     finally:
         stop.set()
         loop_thread.join(timeout=5)
+        if exporter is not None:
+            exporter.close()
         sup.shutdown(drain=True)
     return 0
 

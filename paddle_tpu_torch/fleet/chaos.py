@@ -34,6 +34,12 @@ Fault kinds and their real-world shapes:
   (with integrity digests on, the importer REJECTS the
   corrupt snapshot with zero leaked allocator refs).  Both leave the
   drain itself intact.
+- ``router_kill`` — a SIGKILL aimed at a control-plane node: the target
+  is a supervised router slot id (``rt1``...), gripped through
+  ``ChaosController.register_router`` (the supervisor's
+  ``on_router_spawn`` seam).  The victim's in-flight client streams
+  sever, its heartbeats stop, its ring span moves to the survivors, and
+  the store-replicated journal lets the new owner resume its sessions.
 - ``poison`` — a deterministically-fatal request: the event
   ``target`` is the poison PROMPT as space-joined token ids (not a
   replica id — a poison kills whatever replica it is dispatched on).
@@ -60,7 +66,8 @@ __all__ = ["FaultEvent", "ChaosPlan", "ChaosClient", "ChaosController",
 
 KINDS = ("kill", "wedge", "unwedge", "refuse", "allow", "poll_timeout",
          "poll_ok", "cut", "throttle", "unthrottle",
-         "migrate_interrupt", "partial_transfer", "poison")
+         "migrate_interrupt", "partial_transfer", "poison",
+         "router_kill")
 # (fault, recovery) pairs the seeded generator schedules together so a
 # generated plan never leaves a replica permanently faulted by accident
 _PAIRED = {"wedge": "unwedge", "refuse": "allow",
@@ -254,6 +261,7 @@ class ChaosController:
         self.log: List[Tuple[int, dict]] = []
         self._clients: Dict[str, ChaosClient] = {}
         self._handles: Dict[str, object] = {}
+        self._routers: Dict[str, object] = {}   # supervised router slots
         # armed poison prompts (tuples of token ids) + kills they caused
         self.poison_prompts: set = set()
         self.poison_kills: List[str] = []
@@ -265,6 +273,12 @@ class ChaosController:
 
     def register_handle(self, handle) -> None:
         self._handles[handle.id] = handle
+
+    def register_router(self, handle) -> None:
+        """The supervisor's ``on_router_spawn`` seam: grip every router
+        slot generation, so ``router_kill`` aims at the live handle (a
+        fault against a stale one would do nothing)."""
+        self._routers[handle.id] = handle
 
     def kill_replica(self, rid: str) -> None:
         """Kill one replica NOW (the poison dispatch seam): through its
@@ -329,6 +343,10 @@ class ChaosController:
             # id to aim at)
             self.poison_prompts.add(
                 tuple(int(t) for t in e.target.split()))
+        elif e.kind == "router_kill":
+            router = self._routers.get(e.target)
+            if router is not None:
+                router.kill()
 
     def advance(self, tick: int) -> List[FaultEvent]:
         applied: List[FaultEvent] = []

@@ -102,7 +102,7 @@ class _FleetMetrics:
 
     __slots__ = ("replicas", "target", "restarts", "crashes", "scale",
                  "drains", "migrations", "migrated_pages", "role_gauge",
-                 "rebalances")
+                 "rebalances", "routers", "router_restarts")
 
     def __init__(self):
         m = _obs.metrics
@@ -120,6 +120,9 @@ class _FleetMetrics:
         self.crashes = lambda kind: m.counter("fleet.crashes", kind=kind)
         self.scale = lambda d: m.counter("fleet.scale_events", direction=d)
         self.drains = lambda o: m.counter("fleet.drains", outcome=o)
+        # the multi-router control plane's supervised router slots
+        self.routers = m.gauge("controlplane.routers")
+        self.router_restarts = m.counter("fleet.router_restarts")
 
 
 # ---------------------------------------------------------------------------
@@ -474,6 +477,13 @@ class FleetSupervisor:
                  on_spawn: Optional[Callable[[ReplicaHandle],
                                              None]] = None,
                  breaker=None,
+                 router_spawner: Optional[Callable[[str],
+                                                   object]] = None,
+                 router_target: int = 0,
+                 on_router_spawn: Optional[Callable[[object],
+                                                    None]] = None,
+                 store=None,
+                 collector=None,
                  clock: Callable[[], float] = time.monotonic):
         f = flags.flag
         self.router = router
@@ -570,6 +580,26 @@ class FleetSupervisor:
         if self.breaker is not None:
             # plain attribute write: GIL-atomic vs the event loop's reads
             self.router.breaker = self.breaker
+        # multi-router control plane: the supervisor owns the membership
+        # store and N router slots beside its replica slots, through the
+        # same state machine with a simpler lifecycle (no drain: a dying
+        # router's in-flight streams fail over to the ring's survivors over
+        # the store-replicated journal, so a router death is a restart,
+        # never a breaker-visible replica death).  ``store`` is a sync face
+        # (StoreState or SyncStoreClient): the tick thread publishes
+        # ``replica/<id>`` endpoints through it, so spawned routers
+        # discover the replica set with no static --replica wiring.
+        self._router_spawner = router_spawner
+        self._on_router_spawn = on_router_spawn
+        self.router_target = int(router_target)
+        self._router_slots: List[_Slot] = []
+        self._next_router_slot = 0
+        self.store = store
+        # fleet tracing: the supervisor owns the trace collector; replicas
+        # publish span batches under ``trace/batch/*`` on the store (or
+        # POST them to a router's ``/collectz``), and the tick thread
+        # drains the store's here, so assembly needs no poller thread
+        self.collector = collector
     # --------------------------------------------------------- population --
     def _build_handle(self, rid: str, role: str) -> ReplicaHandle:
         if self._spawner_roleful:
@@ -586,6 +616,18 @@ class FleetSupervisor:
         self._slots.append(slot)
         return slot
 
+    def _spawn_router_slot(self) -> _Slot:
+        # rt0 is the launcher's in-process router; supervised peers start
+        # at rt1, so the ids never collide
+        self._next_router_slot += 1
+        rid = f"rt{self._next_router_slot}"
+        slot = _Slot(self._router_spawner(rid), role="router")
+        slot.handle.spawn()
+        if self._on_router_spawn is not None:
+            self._on_router_spawn(slot.handle)
+        self._router_slots.append(slot)
+        return slot
+
     def _role_count(self, role: str) -> int:
         return sum(1 for s in self._slots
                    if s.role == role and s.state != FAILED)
@@ -593,6 +635,9 @@ class FleetSupervisor:
     def start(self) -> "FleetSupervisor":
         """Spawn the initial ``target`` replica slots (idempotent);
         with roles, one slot per role unit."""
+        if self._router_spawner is not None:
+            while len(self._router_slots) < self.router_target:
+                self._spawn_router_slot()
         if self.roles is not None:
             for role in sorted(self.roles):
                 while self._role_count(role) < self.roles[role]:
@@ -618,7 +663,89 @@ class FleetSupervisor:
     def _deregister(self, slot: _Slot) -> None:
         if slot.registered:
             self.router.remove_replica(slot.handle.id)
+            self._unpublish_replica(slot.handle)
+            if self.collector is not None:
+                self.collector.unregister_ring(slot.handle.id)
             slot.registered = False
+
+    def _register_ring(self, handle: ReplicaHandle) -> None:
+        """Hand the trace collector an in-process replica's flight-recorder
+        ring, so a fleet-correlated anomaly dump merges its window.  Process
+        replicas have no in-process ring: their tail-kept spans arrive by
+        the export path instead."""
+        if self.collector is None:
+            return
+        fr = getattr(getattr(handle, "server", None),
+                     "flight_recorder", None)
+        if fr is not None:
+            self.collector.register_ring(handle.id, fr.events)
+
+    # ------------------------------------------- store publication --
+    def _publish_replica(self, handle: ReplicaHandle) -> None:
+        """Advertise a READY replica's endpoint under ``replica/<id>``
+        so store-discovering routers (the spawned rt1..rtN fleet) pick
+        it up.  In-process handles have no endpoint to advertise — the
+        harness registers their clients with each router directly."""
+        if self.store is None:
+            return
+        host = getattr(handle, "host", None)
+        port = getattr(handle, "port", None)
+        if host is None or port is None:
+            return
+        try:
+            self.store.set(f"replica/{handle.id}",
+                           {"host": host, "port": int(port)})
+        except Exception:
+            pass    # the store being down must never wedge the loop
+
+    def _unpublish_replica(self, handle: ReplicaHandle) -> None:
+        if self.store is None:
+            return
+        try:
+            self.store.delete(f"replica/{handle.id}")
+        except Exception:
+            pass
+
+    # ------------------------------------------------ router slots --
+    def _tick_routers(self, now: float, actions: list) -> None:
+        """Supervise the router fleet exactly like replica slots minus
+        the drain protocol and the breaker: a router death is a control-
+        plane event (its ring span moves to survivors and store-journal
+        takeover resumes its streams), not a capacity death the cascade
+        breaker should trip on."""
+        for slot in list(self._router_slots):
+            h = slot.handle
+            if slot.state in (STARTING, READY) and not h.alive():
+                self._m.crashes("router").inc()
+                if slot.ready_since is not None and \
+                        now - slot.ready_since >= self.backoff_reset_s:
+                    slot.restarts = 0
+                if slot.restarts >= self.restart_budget:
+                    slot.state = FAILED
+                    actions.append(("router_failed", h.id))
+                else:
+                    slot.state = BACKOFF
+                    slot.deadline = now + min(
+                        self.backoff_max_s,
+                        self.backoff_base_s * (2.0 ** min(slot.restarts,
+                                                          16)))
+                    actions.append(("router_backoff", h.id))
+                continue
+            if slot.state == BACKOFF and now >= slot.deadline:
+                slot.restarts += 1
+                self._m.router_restarts.inc()
+                slot.handle = self._router_spawner(h.id)
+                slot.handle.spawn()
+                if self._on_router_spawn is not None:
+                    self._on_router_spawn(slot.handle)
+                slot.state = STARTING
+                slot.ready_since = None
+                actions.append(("router_restart", h.id))
+                continue
+            if slot.state == STARTING and h.ready():
+                slot.state = READY
+                slot.ready_since = now
+                actions.append(("router_ready", h.id))
 
     def _crash(self, slot: _Slot, now: float, kind: str,
                actions: list) -> None:
@@ -651,6 +778,7 @@ class FleetSupervisor:
             # time-driven breaker transitions (open -> half-open after a
             # death-free cooldown) ride the control loop's clock
             self.breaker.update(now)
+        self._tick_routers(now, actions)
         for slot in list(self._slots):
             h = slot.handle
             if slot.state == DRAINING:
@@ -715,6 +843,8 @@ class FleetSupervisor:
                 # /readyz warmup gate passed: ONLY now does the router
                 # see it — live traffic never lands on a cold engine
                 self.router.add_replica(h.client())
+                self._publish_replica(h)
+                self._register_ring(h)
                 slot.state = READY
                 slot.ready_since = now
                 slot.registered = True
@@ -722,6 +852,11 @@ class FleetSupervisor:
         self._maybe_rebalance(now, actions)
         self._autoscale(now, actions)
         self._converge(now, actions)
+        if self.collector is not None and self.store is not None:
+            # drain the span batches published over the control plane; a
+            # broken store face must not wedge the loop (poll_store
+            # swallows transport errors)
+            self.collector.poll_store(self.store)
         self._export_gauges()
         return actions
 
@@ -1063,7 +1198,9 @@ class FleetSupervisor:
         for slot in self._slots:
             counts[slot.state] += 1
         want = max(0, self.target - counts[FAILED])
-        return counts[READY] == want and \
+        routers_settled = all(s.state in (READY, FAILED)
+                              for s in self._router_slots)
+        return counts[READY] == want and routers_settled and \
             counts[STARTING] == counts[BACKOFF] == counts[DRAINING] == 0
 
     def _export_gauges(self) -> None:
@@ -1078,6 +1215,8 @@ class FleetSupervisor:
         for r, n in role_counts.items():
             self._m.role_gauge(r).set(n)
         self._m.target.set(self.target)
+        self._m.routers.set(sum(1 for s in self._router_slots
+                                if s.state != FAILED))
 
     def state(self) -> dict:
         """Introspection for the launcher / tests / statusz."""
@@ -1099,6 +1238,10 @@ class FleetSupervisor:
             "slots": [{"id": s.handle.id, "state": s.state,
                        "role": s.role, "restarts": s.restarts,
                        **s.handle.describe()} for s in self._slots],
+            "router_slots": [{"id": s.handle.id, "state": s.state,
+                              "restarts": s.restarts,
+                              **s.handle.describe()}
+                             for s in self._router_slots],
             "signals": self.router.fleet_signals(),
             "breaker": self.breaker.state_dict()
             if self.breaker is not None else None,
@@ -1141,4 +1284,8 @@ class FleetSupervisor:
             self._deregister(slot)
             slot.handle.stop(timeout_s=max(0.1, deadline - self._clock()))
         self._slots.clear()
+        # routers go last: the drains above may still relay through them
+        for slot in self._router_slots:
+            slot.handle.stop(timeout_s=max(0.1, deadline - self._clock()))
+        self._router_slots.clear()
         self._export_gauges()

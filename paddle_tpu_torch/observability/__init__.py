@@ -30,6 +30,8 @@ from typing import Optional
 from .. import flags
 from . import catalog, metrics, tracing
 from .attribution import StepAttribution
+from .collector import (ClockSync, HttpTransport, InprocTransport,
+                        SpanExporter, StoreTransport, TraceCollector)
 from .flight_recorder import FlightRecorder
 from .metrics import (REGISTRY, counter, find, gauge, histogram,
                       prometheus_text, reset, set_help, snapshot)
@@ -41,7 +43,10 @@ tracer = TRACER
 __all__ = ["metrics", "tracing", "catalog", "REGISTRY", "counter", "gauge",
            "histogram", "snapshot", "prometheus_text", "reset", "find",
            "set_help", "tracer", "Tracer", "TRACER", "FlightRecorder",
-           "StepAttribution", "Sentinel", "metrics_enabled", "count_sync",
+           "StepAttribution", "Sentinel",
+           "ClockSync", "SpanExporter", "TraceCollector",
+           "InprocTransport", "StoreTransport", "HttpTransport",
+           "metrics_enabled", "count_sync",
            "record_compile", "backend_compiles", "assert_overhead",
            "StepTimer", "export_chrome_trace"]
 

@@ -263,7 +263,7 @@ CATALOG: Dict[str, tuple] = {
         "counter", "kind=exit|wedged|router",
         "deaths detected: process/engine exit, or a wedge (the router "
         "reports it dead while the process is still alive); router = a "
-        "supervised router slot's death (the port supervises none yet)"),
+        "supervised router slot's death"),
     "fleet.scale_events": (
         "counter", "direction=up|down",
         "autoscale actions taken after hysteresis + cooldown"),
@@ -285,6 +285,96 @@ CATALOG: Dict[str, tuple] = {
     "fleet.breaker_state": (
         "gauge", "", "cascade-breaker state (fleet/breaker.py): "
         "0=closed, 1=half-open, 2=open"),
+    # ---- multi-router control plane ----
+    "router.forwarded": (
+        "counter", "outcome=out|received|fallback",
+        "consistent-hash ownership forwards (router/server.py): out = this "
+        "router relayed a session it does not own one hop to its ring "
+        "owner, received = it served a request forwarded to it (the "
+        "X-Router-Forwarded loop guard: never forwarded again), fallback = "
+        "the owner was unreachable, so the request was served here"),
+    "router.ring_moves": (
+        "counter", "", "consistent-hash ring rebuilds this router saw (a "
+        "router joined, or one's heartbeat expired and its span moved)"),
+    "fleet.router_restarts": (
+        "counter", "", "supervised router-slot crash-restarts (after "
+        "exponential backoff, within FLAGS_fleet_restart_budget)"),
+    "controlplane.routers": (
+        "gauge", "", "non-failed supervised router slots "
+        "(fleet/supervisor.py; the launcher's in-process rt0 is no slot)"),
+    "controlplane.store_ops": (
+        "counter", "op=set|get|cas|del|hb|members",
+        "membership-store operations served, by protocol verb "
+        "(controlplane/store.py)"),
+    "controlplane.store_keys": (
+        "gauge", "", "keys resident in the membership store (TTL-swept on "
+        "writes and membership reads, LRU-capped at "
+        "FLAGS_controlplane_store_max_keys)"),
+    "controlplane.store_evictions": (
+        "counter", "", "store keys LRU-evicted past "
+        "FLAGS_controlplane_store_max_keys"),
+    "controlplane.store_refused": (
+        "counter", "", "store request lines refused for passing the 1 MiB "
+        "line cap (the connection is answered with an error and closed)"),
+    "controlplane.members": (
+        "gauge", "", "live routers on the consistent-hash ring as this "
+        "router sees them (unexpired router/ heartbeats, itself included)"),
+    "controlplane.ring_epoch": (
+        "gauge", "", "epoch of the shared cp/ring record (CAS-bumped once "
+        "a membership change; every router converges to the winner's)"),
+    "controlplane.heartbeats": (
+        "counter", "", "liveness stamps written to the store (TTL "
+        "FLAGS_controlplane_heartbeat_ttl_s; expiry is the death signal)"),
+    "controlplane.journal_replicated": (
+        "counter", "", "in-flight journal records mirrored to the store "
+        "under journal/<session_id> (TTL FLAGS_controlplane_journal_ttl_s) "
+        "so the session's next owner can resume the stream"),
+    "controlplane.takeovers": (
+        "counter", "outcome=resumed|stale|failed",
+        "cross-router journal adoptions: resumed = the new owner replayed "
+        "the dead router's journal and went on with the stream, stale = "
+        "the record did not match the request (another prompt, its own "
+        "record, nothing emitted), failed = the replay could not finish"),
+    # ---- fleet tracing ----
+    "serving.trace.critical_path_ms": (
+        "histogram", "phase=queue|prefill|transfer|decode|replay",
+        "per-request critical-path breakdown at timeline assembly "
+        "(observability/collector.py): an interval sweep over the "
+        "clock-aligned spans, gaps riding the ongoing phase, so the phases "
+        "sum to the trace's extent"),
+    "observability.collector.export_batches": (
+        "counter", "", "span batches shipped by this process's "
+        "SpanExporter (store set, HTTP POST or in-process ingest)"),
+    "observability.collector.export_spans": (
+        "counter", "", "span events shipped in export batches"),
+    "observability.collector.export_dropped": (
+        "counter", "", "span events evicted from the bounded export ring "
+        "before a flush shipped them (FLAGS_trace_export_events)"),
+    "observability.collector.sampled_out": (
+        "counter", "", "span events skipped by head sampling "
+        "(FLAGS_trace_sample_rate; tail-kept lanes ship regardless)"),
+    "observability.collector.export_errors": (
+        "counter", "", "export batch sends that raised (the transport is "
+        "down or refused the line; the batch is dropped, serving never "
+        "waits)"),
+    "observability.collector.clock_resyncs": (
+        "counter", "", "clock-offset re-estimations taken because the "
+        "midpoint drifted past FLAGS_trace_clock_drift_ms beyond the "
+        "handshake's rtt/2"),
+    "observability.collector.batches": (
+        "counter", "", "export batches ingested by the collector"),
+    "observability.collector.spans": (
+        "counter", "", "span events ingested by the collector"),
+    "observability.collector.traces": (
+        "gauge", "", "trace ids held in the collector's bounded span store "
+        "(LRU past max_traces)"),
+    "observability.collector.processes": (
+        "gauge", "", "exporting processes the collector has seen (each "
+        "with its own clock offset)"),
+    "observability.collector.fleet_dumps": (
+        "counter", "", "fleet-correlated anomaly dumps written (every "
+        "registered flight-recorder ring and the collector's aligned spans "
+        "of the window, in one file)"),
     # ---- step watchdog ----
     "watchdog.timeouts": ("counter", "", "watchdog timeout fires"),
     "watchdog.outstanding_tasks": (

@@ -109,6 +109,16 @@ class FlightRecorder:
         self.snapshot_now(now)
         return True
 
+    def events(self) -> list:
+        """A copy of the ring's buffered events (the trace collector's
+        fleet-dump provider).  Retries when a writer mutates the deque
+        mid-copy."""
+        while True:
+            try:
+                return list(self._ring)
+            except RuntimeError:
+                continue
+
     def snapshot_now(self, now: Optional[float] = None) -> None:
         now = time.perf_counter() if now is None else now
         self._ring.append({"ph": "i", "s": "g", "pid": 0, "tid": 0,

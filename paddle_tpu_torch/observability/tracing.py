@@ -49,6 +49,7 @@ class Tracer:
         self._active = False
         self._max = max_events
         self._ring = None           # flight-recorder sink (bounded deque)
+        self._export = None         # span-export sink (collector shipping)
         self.dropped = 0
         self._tids: Dict[str, int] = {}
         self._lock = threading.Lock()
@@ -56,7 +57,8 @@ class Tracer:
     @property
     def enabled(self) -> bool:
         """True when spans are recorded anywhere: the flat buffer
-        (``start``) or an attached flight-recorder ring.  Every
+        (``start``), an attached flight-recorder ring or an attached span
+        exporter.  Every
         instrumentation site gates on this one attribute."""
         return self._active
 
@@ -72,7 +74,7 @@ class Tracer:
 
     def stop(self) -> "Tracer":
         self._enabled = False
-        self._active = self._ring is not None
+        self._active = self._ring is not None or self._export is not None
         return self
 
     def attach_ring(self, ring) -> None:
@@ -84,7 +86,21 @@ class Tracer:
 
     def detach_ring(self) -> None:
         self._ring = None
-        self._active = self._enabled
+        self._active = self._enabled or self._export is not None
+
+    def attach_export(self, sink) -> None:
+        """Attach a span-export sink (any object with a non-blocking
+        ``offer(ev)``, such as ``SpanExporter``) that receives every event
+        from now on: the fleet tracing's shipping lane.  As with the ring,
+        attaching it alone turns span recording on; ``offer`` runs on the
+        engine's and the event loop's threads, so the sink must be a
+        bounded buffer, never a network call."""
+        self._export = sink
+        self._active = True
+
+    def detach_export(self) -> None:
+        self._export = None
+        self._active = self._enabled or self._ring is not None
 
     # one named lane per request trace id: past this many lanes a name gets
     # a stable hashed tid with no stored metadata (bounded memory)
@@ -113,6 +129,13 @@ class Tracer:
                                   "args": {"name": tid}})
         return n
 
+    def lane_names(self) -> Dict[int, str]:
+        """Snapshot of the integer tid -> lane name map (request trace ids,
+        "train", ...).  Span-export batches carry it, so the collector
+        recovers trace ids from the compact integer tids."""
+        with self._lock:
+            return {n: name for name, n in self._tids.items()}
+
     def thread_metadata(self) -> List[dict]:
         """Fresh thread_name events for every known lane (a ring dump
         prepends them: the originals may have been evicted)."""
@@ -124,6 +147,9 @@ class Tracer:
         ring = self._ring
         if ring is not None:
             ring.append(ev)         # deque(maxlen): oldest out
+        exp = self._export
+        if exp is not None:
+            exp.offer(ev)           # a bounded append, never blocks
         if not self._enabled:
             return
         cap = self._max

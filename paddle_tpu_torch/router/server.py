@@ -62,9 +62,17 @@ journaled stream runs a one-token leg on a prefill replica, its finished
 prefix ships to a decode successor over ``/migratez`` (``_handoff_kv``),
 and the decode leg splices into the same client stream.
 
-Not ported yet: the multi-router control plane (``controlplane=`` and the
-launcher's ``--store``) and the fleet trace collector (``/tracez``,
-``/collectz``).  Asking for a control plane raises ``NotImplementedError``.
+Multi-router control plane: with a ``RouterControlPlane`` attached
+(``controlplane=``) this router is one of N.  It heartbeats its membership
+into the shared store, forwards a session it does not own one hop to the
+session's ring owner (``X-Router-Forwarded`` guards against loops), mirrors
+each in-flight journaled stream into the store, and adopts a dead peer's
+record, so the dead router's streams resume here (``_maybe_takeover``).
+
+Fleet tracing: ``router.collector`` (a ``TraceCollector``, attached by the
+fleet launcher or a harness) backs ``GET /tracez`` (the merged, clock-aligned
+timeline of one request) and ``POST /collectz`` (span-batch ingest and the
+clock handshake).
 """
 
 from __future__ import annotations
@@ -103,7 +111,7 @@ class _RouterMetrics:
     __slots__ = ("requests", "streams", "responses", "inflight",
                  "request_ms", "failover", "shed", "slo_decision",
                  "health_polls", "replicas_gauge", "resumes", "handoff",
-                 "overlay_entries")
+                 "overlay_entries", "forwarded")
 
     def __init__(self):
         m = _obs.metrics
@@ -121,6 +129,8 @@ class _RouterMetrics:
         self.resumes = lambda o: m.counter("router.resumes", outcome=o)
         self.handoff = lambda o: m.counter("router.handoff", outcome=o)
         self.overlay_entries = m.gauge("router.overlay_entries")
+        self.forwarded = lambda o: m.counter("router.forwarded",
+                                             outcome=o)
         self.shed = m.counter("router.shed")
         self.slo_decision = lambda d: m.counter("router.slo_decision",
                                                 decision=d)
@@ -145,11 +155,8 @@ class RouterServer:
                  poll_timeout_s: Optional[float] = None,
                  allow_empty: bool = False,
                  router_id: str = "router0",
-                 controlplane=None):
-        if controlplane is not None:
-            raise NotImplementedError(
-                "the multi-router control plane (controlplane=, --store) "
-                "is ROADMAP item 13b and not ported yet")
+                 controlplane=None,
+                 discover_replicas: bool = False):
         # an empty replica set is only sane when a fleet supervisor owns
         # the set and will register replicas as they warm; a
         # hand-launched router with zero upstreams is a misconfiguration
@@ -191,7 +198,22 @@ class RouterServer:
         self.breaker = None
         self._park_timeout_s = float(f("router_breaker_park_timeout_s"))
         self._parked = 0              # resumes currently parked
-        self.router_id = router_id
+        # multi-router control plane: with a RouterControlPlane attached
+        # this router is one of N: it heartbeats membership, forwards the
+        # sessions it does not own one hop to their ring owner, and adopts
+        # a dead peer's store-replicated journal so its streams resume here
+        self.router_id = (controlplane.rid if controlplane is not None
+                          else router_id)
+        self.cp = controlplane
+        self._discover_replicas = bool(discover_replicas)
+        self._cp_task: Optional[asyncio.Task] = None
+        # fleet tracing: the launcher or a harness attaches a
+        # TraceCollector here; /tracez serves its merged timelines and
+        # /collectz is its HTTP span ingest
+        self.collector = None
+        # takeovers waiting for their first live token: id(journal entry)
+        # -> the takeover's start, closed as a ``router.replay`` span
+        self._replaying: Dict[int, float] = {}
         self._t0 = time.perf_counter()
         self._next_rid = 0
         self._health_tasks: Dict[str, asyncio.Task] = {}
@@ -421,6 +443,77 @@ class RouterServer:
             await asyncio.gather(*(self.poll_replica(s) for s in todo))
             self._export_replica_gauges()
 
+    # ---------------------------------------------------- control plane --
+    async def cp_tick(self) -> bool:
+        """One control-plane beat: heartbeat + membership refresh (and,
+        for store-discovered fleets, replica-set sync).  Tests and the
+        in-proc supervisor call this explicitly; production routers run
+        it on the background loop.  Returns True when the ring moved."""
+        if self.cp is None:
+            return False
+        moved = await self.cp.tick()
+        if self._discover_replicas:
+            await self._sync_replicas_from_store()
+        return moved
+
+    async def _cp_loop(self) -> None:
+        interval = float(flags.flag("controlplane_heartbeat_interval_s"))
+        while True:
+            try:
+                await self.cp_tick()
+            except Exception:
+                pass                 # a store blip must not kill the loop
+            await asyncio.sleep(max(0.05, interval))
+
+    async def _sync_replicas_from_store(self) -> None:
+        """Adopt the supervisor-published replica set (``replica/<id>``
+        store keys): process routers launched with ``--store`` need no
+        ``--replica`` flags and follow fleet scaling live."""
+        try:
+            members = await self.cp.replica_members()
+        except Exception:
+            return
+        known = {s.id for s in self.states}
+        for rid, addr in members.items():
+            if rid not in known and isinstance(addr, dict) \
+                    and "host" in addr:
+                from .replica import HttpReplica
+                self.add_replica(HttpReplica(rid, addr["host"],
+                                             int(addr["port"])))
+        for s in list(self.states):
+            if s.id not in members:
+                self.remove_replica(s.id)
+
+    async def _cp_publish(self, entry) -> None:
+        """Mirror a journaled stream's state into the store so the
+        session's NEXT owner can resume it if this router dies.  Best
+        effort: a store outage must not kill the live stream."""
+        t0 = self._replaying.pop(id(entry), None)
+        if t0 is not None and _obs.TRACER.enabled:
+            # a takeover's first live token: the replay leg (re-prefilling
+            # the prompt and the journaled tokens) is over
+            _obs.TRACER.event("router.replay", t0, time.perf_counter() - t0,
+                              cat="router", tid=entry.trace_id,
+                              args={"trace_id": entry.trace_id,
+                                    "proc": f"router:{self.router_id}",
+                                    "session": entry.session_id})
+        if (self.cp is None or entry is None
+                or entry.session_id is None or not entry.resumable):
+            return
+        try:
+            await self.cp.publish_journal(entry.session_id, {
+                "router": self.cp.rid,
+                "prompt": list(entry.prompt),
+                "emitted": list(entry.emitted),
+                "payload": entry.payload,
+                "max_tokens": entry.max_tokens,
+                # the originating trace id rides the replicated journal,
+                # so a surviving router's takeover resume continues the
+                # same trace lane
+                "trace_id": entry.trace_id})
+        except Exception:
+            pass
+
     # ----------------------------------------------------------- handler --
     async def handle(self, reader, writer) -> None:
         """One client HTTP connection (asyncio.start_server signature;
@@ -460,7 +553,7 @@ class RouterServer:
                 pass
 
     async def _route(self, method, path, headers, body, writer) -> int:
-        path = path.partition("?")[0]
+        path, _, query = path.partition("?")
         if path == "/metrics" and method == "GET":
             text = _obs.prometheus_text().encode()
             writer.write(_http.response(
@@ -492,14 +585,81 @@ class RouterServer:
             return 200
         if path == "/v1/completions" and method == "POST":
             return await self._completions(headers, body, writer)
+        if path == "/tracez" and method == "GET":
+            return await self._tracez(query, writer)
+        if path == "/collectz" and method == "POST":
+            return await self._collectz(body, writer)
         if path in ("/metrics", "/healthz", "/readyz", "/statusz",
-                    "/v1/completions"):
+                    "/v1/completions", "/tracez", "/collectz"):
             writer.write(_http.error_response(405, f"{method} not allowed"))
             await writer.drain()
             return 405
         writer.write(_http.error_response(404, f"no route {path}"))
         await writer.drain()
         return 404
+
+    # ---------------------------------------------------- fleet tracing --
+    async def _tracez(self, query, writer) -> int:
+        """``GET /tracez?trace_id=`` — the merged, clock-aligned fleet
+        timeline for one request from the attached ``TraceCollector``
+        (the fleet launcher / tests wire ``router.collector``); without
+        ``trace_id``, an index of known traces."""
+        col = self.collector
+        if col is None:
+            writer.write(_http.error_response(
+                503, "no trace collector attached to this router"))
+            await writer.drain()
+            return 503
+        trace_id = None
+        if query:
+            from urllib.parse import parse_qs
+            trace_id = (parse_qs(query).get("trace_id") or [None])[0]
+        if not trace_id:
+            ids = col.traces()
+            writer.write(_http.json_response(
+                200, {"traces": ids[-64:], "known": len(ids),
+                      "processes": col.processes()}))
+            await writer.drain()
+            return 200
+        doc = col.assemble(trace_id)
+        if doc is None:
+            writer.write(_http.error_response(
+                404, f"no spans collected for trace {trace_id!r}"))
+            await writer.drain()
+            return 404
+        writer.write(_http.json_response(200, doc))
+        await writer.drain()
+        return 200
+
+    async def _collectz(self, body, writer) -> int:
+        """``POST /collectz`` — span-export ingest (the direct-HTTP
+        transport for processes with no control-plane store) and the
+        ``{"op": "clock"}`` handshake probe.  Ingest is one dict fold
+        into the collector's in-memory store — cheap enough for the
+        event loop; the response timestamp doubles as the NTP-style
+        server time."""
+        col = self.collector
+        if col is None:
+            writer.write(_http.error_response(
+                503, "no trace collector attached to this router"))
+            await writer.drain()
+            return 503
+        try:
+            doc = json.loads(body.decode() or "{}")
+            if not isinstance(doc, dict):
+                raise ValueError("body must be a JSON object")
+        except (ValueError, UnicodeDecodeError) as e:
+            writer.write(_http.error_response(400, f"bad JSON body: {e}"))
+            await writer.drain()
+            return 400
+        if doc.get("op") == "clock":
+            writer.write(_http.json_response(200, {"t": col.now()}))
+            await writer.drain()
+            return 200
+        resp = col.ingest(doc)
+        writer.write(_http.json_response(200, resp))
+        await writer.drain()
+        return 200
 
     # -------------------------------------------------------- completions --
     def _candidates(self, include_shedding: bool = False
@@ -544,6 +704,25 @@ class RouterServer:
             pass
         stream = bool(payload.get("stream", False))
         session_id = self._session_id(headers)
+
+        # session-sharded ownership: a session belongs to exactly one
+        # router on the consistent-hash ring, where its pins, journal and
+        # quarantine strikes live.  A request landing on another router
+        # forwards one hop to the owner; the X-Router-Forwarded loop guard
+        # makes a stale ring view degrade to local service, never a loop.
+        if self.cp is not None and session_id is not None:
+            if "x-router-forwarded" in headers:
+                self._m.forwarded("received").inc()
+            else:
+                owner = self.cp.owner(session_id)
+                if owner != self.cp.rid:
+                    code = await self._forward(owner, headers, body,
+                                               writer)
+                    if code is not None:
+                        return code
+                    # owner unreachable: availability beats purity, so
+                    # serve here off the stale ring view
+                    self._m.forwarded("fallback").inc()
 
         # poison quarantine: a signature that has struck out
         # is refused with a clean 503 BEFORE any replica sees it — the
@@ -620,8 +799,19 @@ class RouterServer:
         if stream:
             self._m.streams.inc()
         t_accept = time.perf_counter()
-        code = await self._proxy(trace_id, session_id, prompt, payload,
-                                 body, candidates, writer, stream, sig=sig)
+        # cross-router takeover: when this session's previous owner died
+        # mid-stream, its store-replicated journal waits here (the ring
+        # moved the session to us); adopt it and resume the stream
+        code = None
+        if (self.cp is not None and stream and session_id is not None
+                and self._resume_on and prompt):
+            code = await self._maybe_takeover(trace_id, session_id,
+                                              prompt, payload,
+                                              candidates, writer, sig)
+        if code is None:
+            code = await self._proxy(trace_id, session_id, prompt,
+                                     payload, body, candidates, writer,
+                                     stream, sig=sig)
         if _obs.TRACER.enabled:
             _obs.TRACER.event("router.request", t_accept,
                               time.perf_counter() - t_accept,
@@ -631,6 +821,145 @@ class RouterServer:
                                     "proc": f"router:{self.router_id}",
                                     "prompt_tokens": len(prompt)})
         return code
+
+    async def _forward(self, owner: str, headers, body,
+                       writer) -> Optional[int]:
+        """Proxy this request one hop to its owning router.
+        Returns the relayed status, or None when the owner could not be
+        reached BEFORE anything was written — the caller serves locally
+        off its (possibly stale) ring view instead."""
+        peer = self.cp.peer(owner)
+        if peer is None:
+            return None
+        fwd = [("X-Router-Forwarded", self.cp.rid),
+               ("Content-Type", "application/json")]
+        for h in ("x-session-id", "x-trace-id"):
+            if h in headers:
+                fwd.append((h, headers[h]))
+        try:
+            up, close = await peer.open("POST", "/v1/completions",
+                                        headers=tuple(fwd), body=body)
+            status, _headers, head_raw = await _read_head(up)
+        except Exception:
+            return None
+        self._m.forwarded("out").inc()
+        try:
+            writer.write(_head_with(head_raw, (
+                ("X-Router-Owner", owner),)))
+            await writer.drain()
+            # pump verbatim until the owner closes: SSE frames, unary
+            # bodies, and error documents all relay unmodified — the
+            # owner's resume/quarantine/breaker machinery already ran
+            while True:
+                chunk = await up.read(65536)
+                if not chunk:
+                    break
+                writer.write(chunk)
+                await writer.drain()
+        finally:
+            close()
+        return status
+
+    async def _maybe_takeover(self, trace_id, session_id, prompt,
+                              payload, candidates, writer,
+                              sig) -> Optional[int]:
+        """Adopt a dead peer's store-replicated journal for this
+        session, if one is waiting and matches the resubmitted request.
+        Returns None (no takeover — serve normally) or the final
+        status."""
+        try:
+            rec = await self.cp.take_journal(session_id)
+        except Exception:
+            return None
+        if not isinstance(rec, dict):
+            return None
+        emitted = rec.get("emitted")
+        if (rec.get("router") == self.cp.rid
+                or rec.get("prompt") != prompt
+                or not emitted
+                or not all(isinstance(t, int) and not isinstance(t, bool)
+                           for t in emitted)):
+            # our own live record, a different conversation, or nothing
+            # relayed yet (a fresh serve replays from scratch anyway)
+            self.cp.takeover("stale")
+            return None
+        # trace continuity: the journaled record carries the originating
+        # request's trace id; resume on that lane (the same logical
+        # request, only the router died), so the takeover leg joins the
+        # original merged timeline
+        orig = rec.get("trace_id")
+        if isinstance(orig, str) and orig and _TRACE_ID_OK(orig):
+            trace_id = orig
+        return await self._takeover_resume(trace_id, session_id, prompt,
+                                           payload, emitted, candidates,
+                                           writer, sig)
+
+    async def _takeover_resume(self, trace_id, session_id, prompt,
+                               payload, emitted, candidates, writer,
+                               sig) -> Optional[int]:
+        """Resume a dead peer's stream here: re-emit the journaled
+        tokens the client already saw on the old connection's stream
+        position zero, then splice a live replay leg (the journal's
+        replay plane): concatenated, the client's token stream is the
+        no-fault run's."""
+        entry = self.journal.begin(trace_id, session_id, prompt,
+                                   dict(payload))
+        if entry is None or not entry.resumable:
+            self.journal.finish(entry)
+            self.cp.takeover("stale")
+            return None
+        if _obs.TRACER.enabled:
+            self._replaying[id(entry)] = time.perf_counter()
+            # the takeover marker on the originating lane: tail-kept by
+            # the span exporter regardless of sampling
+            _obs.TRACER.instant("router.takeover", cat="router",
+                                tid=trace_id,
+                                args={"trace_id": trace_id,
+                                      "proc": f"router:{self.router_id}",
+                                      "session": session_id,
+                                      "replayed": len(emitted)})
+        writer.write(_http.sse_headers((
+            ("X-Router-Replica", "takeover"),)))
+        writer.write(_http.sse_event({
+            "id": trace_id, "object": "text_completion.chunk",
+            "model": self.model_name,
+            "choices": [{"index": 0, "text": "",
+                         "token_ids": list(emitted),
+                         "finish_reason": None}]}))
+        await writer.drain()
+        self.journal.record(entry, emitted)
+        try:
+            if not entry.resumable:
+                # adoption overflowed the journal bound: terminate with
+                # the synthesized error, never a silent truncation
+                writer.write(_http.sse_event(self._finish_chunk(
+                    trace_id, "error")))
+                writer.write(_http.sse_done())
+                await writer.drain()
+                self.cp.takeover("failed")
+                return 200
+            rem = entry.remaining()
+            if rem is not None and rem <= 0:
+                # the dead peer had already delivered the whole budget;
+                # only its finish frame was lost
+                writer.write(_http.sse_event(self._finish_chunk(
+                    trace_id, "length")))
+                writer.write(_http.sse_done())
+                await writer.drain()
+                self.cp.takeover("resumed")
+                return 200
+            code = await self._proxy_dispatch(
+                trace_id, session_id, prompt, b"", candidates, writer,
+                True, entry, sig, resuming=True, head_sent=[True])
+            self.cp.takeover("resumed" if code == 200 else "failed")
+            return code
+        finally:
+            self._replaying.pop(id(entry), None)
+            self.journal.finish(entry)
+            try:
+                await self.cp.drop_journal(session_id)
+            except Exception:
+                pass
 
     def _resume_candidates(self, tried: List[str],
                            entry=None) -> List[ReplicaState]:
@@ -791,13 +1120,28 @@ class RouterServer:
             # raising out of a relay write) must not strand the entry
             # in the journal until LRU pressure pushes it out
             self.journal.finish(entry)
+            # the store mirror is only for this router's death: a request
+            # it finished (however it finished) must leave no record for
+            # the session's next owner to misread
+            if (self.cp is not None and entry is not None
+                    and entry.session_id is not None):
+                try:
+                    await self.cp.drop_journal(entry.session_id)
+                except Exception:
+                    pass
 
     async def _proxy_dispatch(self, trace_id, session_id, prompt, body,
                               candidates: List[ReplicaState], writer,
-                              stream, entry, sig=None) -> int:
+                              stream, entry, sig=None,
+                              resuming: bool = False,
+                              head_sent: Optional[list] = None) -> int:
+        # ``resuming=True`` with a pre-set ``head_sent`` is the cross-router
+        # takeover's entry: the adopted journal replays from the first
+        # dispatch and the client's head is already out
         tried: List[str] = []
-        head_sent = [False]           # flipped by _relay at the SSE head
-        resuming = False              # a replay body is in flight
+        if head_sent is None:
+            head_sent = [False]       # flipped by _relay at the SSE head
+        resuming = bool(resuming)     # a replay body is in flight
         unary_replayed = False
         died_post_dispatch = False    # a death a replay COULD recover
         quarantined_out = False       # this signature struck out (15)
@@ -1188,6 +1532,7 @@ class RouterServer:
                     if toks:
                         if journaling:
                             self.journal.record(entry, toks)
+                            await self._cp_publish(entry)
                         if flight_tokens is not None:
                             flight_tokens[0] = True
                         if not progressed and sig is not None:
@@ -1196,6 +1541,7 @@ class RouterServer:
                 if toks:
                     if journaling:
                         self.journal.record(entry, toks)
+                        await self._cp_publish(entry)
                     if flight_tokens is not None:
                         flight_tokens[0] = True
                     if not progressed and sig is not None:
@@ -1273,8 +1619,9 @@ class RouterServer:
                     for o in ("ok", "export_failed", "import_failed",
                               "no_successor")},
             },
-            # no multi-router control plane in the port yet
-            "controlplane": None,
+            # multi-router control plane: ring membership and forwarding
+            # counters (None on a single router)
+            "controlplane": self._controlplane_state(),
             # live size + cap of every per-session/per-signature table,
             # so "is the router's memory bounded?" is one statusz read
             "tables": self._tables_state(),
@@ -1291,6 +1638,19 @@ class RouterServer:
             "shed_total": int(self._m.shed.value),
             "pid": os.getpid(),
         }
+
+    def _controlplane_state(self) -> Optional[dict]:
+        if self.cp is None:
+            return None
+        m = _obs.metrics
+        return {**self.cp.describe(),
+                "forwarded": {o: int(m.counter(
+                    "router.forwarded", outcome=o).value)
+                    for o in ("out", "received", "fallback")},
+                "ring_moves": int(m.counter("router.ring_moves").value),
+                "takeovers": {o: int(m.counter(
+                    "controlplane.takeovers", outcome=o).value)
+                    for o in ("resumed", "stale", "failed")}}
 
     def _tables_state(self) -> dict:
         sess = self.placer.session_state()
@@ -1327,8 +1687,12 @@ class RouterServer:
 
     # --------------------------------------------------------- lifecycle --
     async def start_http(self, host: str = "127.0.0.1", port: int = 0):
-        """Bind a listener and start background health polling."""
+        """Bind a listener and start background health polling (and the
+        control-plane heartbeat loop when a plane is attached)."""
         self.start_health()
+        if self.cp is not None:
+            await self.cp_tick()        # join membership before serving
+            self._cp_task = asyncio.ensure_future(self._cp_loop())
         await self.poll_replicas()      # first view before first request
         self._asyncio_server = await asyncio.start_server(
             self.handle, host, port)
@@ -1336,6 +1700,9 @@ class RouterServer:
 
     async def stop_http(self) -> None:
         self.stop_health()
+        if self._cp_task is not None:
+            self._cp_task.cancel()
+            self._cp_task = None
         if self._asyncio_server is not None:
             self._asyncio_server.close()
             await self._asyncio_server.wait_closed()
@@ -1408,7 +1775,34 @@ def route_forever(replicas: List[ReplicaClient], *,
     """Blocking convenience entry: build the router and serve until
     killed (``python -m paddle_tpu_torch.router`` wraps this)."""
     router = RouterServer(replicas, **kw)
+    # fleet tracing: a spawned router ships its spans to the supervisor's
+    # collector, over the control-plane store when it joined one (the fleet
+    # launcher's tick drains ``trace/batch/*``), else by HTTP POST to
+    # FLAGS_trace_collector
+    exporter = None
+    if float(flags.flag("trace_sample_rate")) > 0:
+        from ..observability.collector import (HttpTransport,
+                                               SpanExporter,
+                                               StoreTransport)
+        plane = kw.get("controlplane")
+        sc = getattr(plane, "store", None)
+        transport = None
+        if sc is not None and hasattr(sc, "host"):
+            from ..controlplane import SyncStoreClient
+            transport = StoreTransport(
+                SyncStoreClient(sc.host, sc.port))
+        elif str(flags.flag("trace_collector")):
+            transport = HttpTransport(str(flags.flag("trace_collector")))
+        if transport is not None:
+            rid = getattr(plane, "rid", None) or "router"
+            exporter = SpanExporter(transport,
+                                    proc=f"{rid}@{host}:{port}",
+                                    role="router")
+            exporter.start()
     try:
         asyncio.run(_route_async(router, host, port))
     except KeyboardInterrupt:
         pass
+    finally:
+        if exporter is not None:
+            exporter.close()

@@ -1116,9 +1116,23 @@ def serve_forever(engine, *, host: str = "127.0.0.1", port: int = 8000,
     server.start()
     server.install_drain_signal()     # before the crash hooks: dump first
     server.install_crash_hooks()
+    # fleet span export: with a collector address set (the fleet launcher
+    # passes its router's host:port down as --set trace_collector=...),
+    # ship this replica's spans by HTTP POST /collectz from a host daemon
+    # thread, off the dispatch path (warm steps still make no sync)
+    exporter = None
+    addr = str(flags.flag("trace_collector"))
+    if addr and float(flags.flag("trace_sample_rate")) > 0:
+        from ..observability.collector import HttpTransport, SpanExporter
+        exporter = SpanExporter(
+            HttpTransport(addr),
+            proc=f"{server.trace_proc}@{host}:{port}",
+            role=server.role).start()
     try:
         asyncio.run(_serve_async(server, host, port))
     except KeyboardInterrupt:
         pass
     finally:
+        if exporter is not None:
+            exporter.close()
         server.close()

@@ -172,20 +172,55 @@ def test_fleet_spawns_port_replicas_on_the_card_by_default(monkeypatch):
     assert not any(a == "paddle_tpu.serving" for a in argv)
 
 
-def test_unported_control_plane_asks_raise():
-    """Asking for the multi-router control plane (``controlplane=``, the
-    router's ``--store``, the fleet's ``--routers 2``) raises naming item
-    13b, and ``--tensor-parallel`` naming item 14: nothing is skipped
-    quietly."""
+def test_unported_control_plane_asks_raise(monkeypatch):
+    """The multi-router control plane runs: ``RouterServer(controlplane=)``
+    builds a router that joins the ring, the router launcher's ``--store``
+    and the fleet launcher's ``--routers 2`` reach their serving loops
+    (stubbed here: the router's loop records its arguments, the fleet's
+    router listener stops at once, its router slot spawns no process);
+    ``--tensor-parallel`` still raises naming item 14: nothing unported is
+    skipped quietly."""
+    import asyncio
+    import signal
+
+    from paddle_tpu_torch.controlplane import (LocalStore,
+                                               ProcessRouterHandle,
+                                               RouterControlPlane)
     from paddle_tpu_torch.fleet.__main__ import main as fleet_main
     from paddle_tpu_torch.router import RouterServer
+    from paddle_tpu_torch.router import server as router_server
     from paddle_tpu_torch.router.__main__ import main as router_main
-    for call in (lambda: RouterServer([], allow_empty=True,
-                                      controlplane=object()),
-                 lambda: router_main(["--store", "127.0.0.1:9000"]),
-                 lambda: fleet_main(["--routers", "2"])):
-        with pytest.raises(NotImplementedError, match="13b"):
-            call()
+    router = RouterServer([], allow_empty=True, health_interval_s=1e9,
+                          controlplane=RouterControlPlane("rt0",
+                                                          LocalStore()))
+    asyncio.run(router.cp_tick())
+    cp = router.statusz()["controlplane"]
+    assert (cp["router_id"], cp["members"]) == ("rt0", ["rt0"])
+    seen = {}
+
+    def route_forever(replicas, **kw):
+        seen["router"] = kw
+
+    monkeypatch.setattr(router_server, "route_forever", route_forever)
+    assert router_main(["--store", "127.0.0.1:9000",
+                        "--router-id", "rt3"]) == 0
+    assert seen["router"]["controlplane"].rid == "rt3"
+    assert seen["router"]["discover_replicas"]
+
+    async def start_http(self, host, port):
+        seen["fleet"] = self.cp.rid
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(RouterServer, "start_http", start_http)
+    monkeypatch.setattr(ProcessRouterHandle, "spawn",
+                        lambda self: seen.setdefault("slot", self.id))
+    old = signal.getsignal(signal.SIGTERM)
+    try:
+        assert fleet_main(["--routers", "2", "--replicas", "0",
+                           "--min-replicas", "0", "--device", "cpu"]) == 0
+    finally:
+        signal.signal(signal.SIGTERM, old)
+    assert (seen["fleet"], seen["slot"]) == ("rt0", "rt1")
     with pytest.raises(NotImplementedError, match="item 14"):
         fleet_main(["--tensor-parallel", "2"])
 
