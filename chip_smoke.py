@@ -162,6 +162,23 @@ is caught; there is no ``ok`` line unless every phase passed):
     no sync between drains, and ``Tracer.device_trace`` around 2 of its
     decode steps holds the split attention kernel's events.  Its launches
     join the ``kernels`` line.
+7h. ``serve_tp`` — tensor-parallel serving on the one card: one engine
+    over the shard devices ``["cuda:0", "cuda:0"]`` (tp=2) against the tp=1
+    engine over the same full llama2_7b (32 layers, bf16) at the launcher's
+    geometry, 8 streams of 64 tokens (prompts 32-512): tokens equal, the
+    final hidden states of a prefill and a decode step ``torch.equal``,
+    every attention launch count 2x tp=1's on every route, each shard's
+    launch planned with tp=1's split count (printed); the same over an
+    int8 pool; the prefix cache, the spill ring and both spec modes (K 4)
+    in short waves, tokens and counters equal; a session resumed across
+    degrees (2->1, 1->2, 2->2) equal to the 1->1 resume, which passes
+    ``_teacher_force`` with the no-fault run, a tp=1 and a tp=2 export
+    with one digest; warm tp=2 steps with no sync and no build; 8 HTTP
+    streams on the tp=2 engine with tp=1's tokens and ``/statusz`` tp 2;
+    then Mixtral widths at 4 layers with the experts sharded (tokens equal,
+    gmm launches 2x and all on sm90, hidden-state equality reported);
+    tokens/s, decode step ms and idle share at tp=1 and tp=2.  The tp=2
+    runs' launches (HTTP bf16, int8, Mixtral) join the ``kernels`` line.
 8. ``kernel_flash`` — the three flash-attention kernels (forward, dQ,
    dK/dV) against their plain versions over every combination of causal
    or not, GQA groups 1/4/8, d 64/128, fp32/bf16 and five shapes (b 1 to 4,
@@ -538,12 +555,14 @@ def graph_ms(fn, calls: int, reps: int = 5) -> float:
 
 # ------------------------------------------------------------ device ---
 
-def _nvidia_smi() -> str:
-    """The card's name and power limit, as ``nvidia-smi`` gives them."""
-    return subprocess.run(
+def _nvidia_smi(every_card=False):
+    """The card's name and power limit, as ``nvidia-smi`` gives them (a
+    list of every card's where ``every_card``)."""
+    lines = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+        timeout=60, check=True).stdout.strip().splitlines()
+    return lines if every_card else lines[0]
 
 
 def phase_device():
@@ -1694,7 +1713,7 @@ def phase_engine_parity_prefix_spec(cfg=None, device="cuda"):
             max_seq_len=max_seq_len, cache_dtype=dtype, spec_decode=mode,
             device=device)
         quant = dtype == "int8"
-        kv_dtype = torch.int8 if quant else eng.g.cache.k.dtype
+        kv_dtype = eng.g.cache.kv_dtype
         want = _expected_routes(cfg, kinds, c["spec_k"], eng.g.params[
             "embed"].dtype, kv_dtype)
         got = _routes_of(counts, quant)
@@ -2000,7 +2019,7 @@ def phase_serve_prefix_spec(argv=None):
     fails = []
     dt = engine.g.params["embed"].dtype
     want = _expected_routes(cfg, kinds, c["spec_k"], dt,
-                            torch.int8 if quant else engine.g.cache.k.dtype)
+                            engine.g.cache.kv_dtype)
     if routes != want or routes["tile"] or not routes["split"] \
             or not routes["sm90"]:
         fails.append(f"routes {routes}, want {want} (tile must take none; "
@@ -2090,8 +2109,9 @@ def _imported_bytes_equal(eng, snaps):
             raise AssertionError(f"{len(nodes)} indexed pages for a "
                                  f"snapshot of {len(snap['pages'])}")
         for node, pg in zip(nodes, snap["pages"]):
-            for plane, arr in zip(pg["planes"], eng.g.cache.arrays):
-                if not _planes_equal(arr[:, :, node.page].cpu(), plane):
+            for plane, got in zip(pg["planes"], eng.g.cache.page_planes(
+                    node.page, device="cpu")):
+                if not _planes_equal(got, plane):
                     raise AssertionError(
                         f"page {pg['index']} of a migrated session differs "
                         f"from the exported bytes")
@@ -2206,7 +2226,7 @@ def _migrate_pool(model, cfg, prompts, dtype, device):
         torch.cuda.synchronize()
     counts = _attn_counts()
     quant = dtype == "int8"
-    kv_dtype = torch.int8 if quant else b.g.cache.k.dtype
+    kv_dtype = b.g.cache.kv_dtype
     want = _expected_routes(cfg, kinds, 1, b.g.params["embed"].dtype,
                             kv_dtype)
     got = _routes_of(counts, quant)
@@ -4122,6 +4142,583 @@ def phase_fleet_failover(argv=None):
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------ tensor parallel ---
+
+SERVE_TP = dict(max_batch=8, max_seq_len=1024, page=16, bucket=64,
+                num_pages=512, prompts=(32, 512), requests=8, new_tokens=64,
+                timed_context=512, timed_steps=16, moe_layers=4,
+                moe_new_tokens=32, waves=dict(prefix=128, tails=(16, 64),
+                                              requests=4, new_tokens=16,
+                                              spill=8, spec_k=4),
+                migrate_prompt=200, migrate_after=8, migrate_new_tokens=32,
+                migrate_pages=64, tie_rel=2e-2, max_tie_share=0.25)
+
+
+def _tp_devices(tp, device, devices=None):
+    """The shard devices of a ``tp``-degree engine: ``devices`` where it is
+    given, else every shard on the one card (or the CPU for a
+    rehearsal)."""
+    if tp == 1 or device == "cpu":
+        return device
+    return devices or [f"{device}:0"] * tp
+
+
+def _tp_engine(model, tp, device, *, devices=None, new_tokens=None, **kw):
+    """An engine over ``model`` at the launcher's geometry (8 slots,
+    max_seq_len 1024, page 16, bucket 64, 512 pages unless ``kw`` says
+    otherwise) with ``tp`` shards (on ``devices`` where given)."""
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            GenerationConfig)
+    c = SERVE_TP
+    geo = dict(max_batch=c["max_batch"], max_seq_len=c["max_seq_len"],
+               page_size=c["page"], prefill_bucket=c["bucket"],
+               num_pages=c["num_pages"])
+    geo.update(kw)
+    return ContinuousBatchingEngine(
+        model, tensor_parallel=tp,
+        device=_tp_devices(tp, device, devices),
+        gen=GenerationConfig(max_new_tokens=new_tokens or c["new_tokens"]),
+        **geo)
+
+
+def _tp_streams(eng, prompts, device):
+    """Serve ``prompts`` to completion on ``eng`` with every launch count
+    set to 0 just before and read just after.  Returns the tokens, the
+    final hidden states of the first prefill step and the first decode step,
+    the launch counts (attention by route, gmm and its sm90 launches), the
+    attention launches' plans ((T, kv heads, route, splits) -> launches) and
+    the wall seconds."""
+    import collections
+
+    import torch
+    from paddle_tpu_torch.kernels import grouped_matmul as gm
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    g = eng.g
+    real_fwd, real_plan = g._forward_tokens, pa.launch_plan
+    hidden, plans = {}, collections.Counter()
+
+    def record(params, tokens, *a, **k):
+        h = real_fwd(params, tokens, *a, **k)
+        hidden.setdefault("decode" if tokens.shape[1] == 1 else "prefill",
+                          h.clone())
+        return h
+
+    def plan(q, k_cache, *a, **k):
+        p = real_plan(q, k_cache, *a, **k)
+        plans[(q.shape[1], k_cache.shape[0], p["route"], p["splits"])] += 1
+        return p
+
+    g._forward_tokens, pa.launch_plan = record, plan
+    try:
+        _reset_attn_counts()
+        gm.LAUNCHES = gm.LAUNCHES_SM90 = 0
+        t0 = time.perf_counter()
+        rids = [eng.add_request(p) for p in prompts]
+        out = eng.run()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _attn_counts()
+        counts["gmm"], counts["gmm_sm90"] = gm.LAUNCHES, gm.LAUNCHES_SM90
+    finally:
+        del g._forward_tokens
+        pa.launch_plan = real_plan
+    return [out[r] for r in rids], hidden, counts, dict(plans), wall
+
+
+def _tp_pair(what, model, prompts, device, *, tp=2, hidden_gate=True,
+             devices=None, **kw):
+    """The same streams through a tp=1 and a ``tp``-degree engine over one
+    model: tokens equal; the final hidden states of the first prefill and
+    the first decode step ``torch.equal`` (reported only where
+    ``hidden_gate`` is false); each kernel's launches exactly ``tp`` x
+    tp=1's on every route (one a shard); every sharded attention launch
+    planned with tp=1's split count at its T.  ``devices`` places the
+    shards (default: all on the one card).  Returns the record, the
+    failures, tp=1's tokens and the sharded run's launch counts."""
+    import torch
+    runs = {}
+    for n in (1, tp):
+        eng = _tp_engine(model, n, device, devices=devices, **kw)
+        # a short warm-up run first: the first calls' library loads and
+        # allocations stay out of the timed run
+        eng.add_request(prompts[0][:8], max_new_tokens=2)
+        eng.run()
+        s0 = eng.steps
+        toks, hidden, counts, plans, wall = _tp_streams(eng, prompts, device)
+        runs[n] = dict(tokens=toks, hidden=hidden, counts=counts,
+                       plans=plans, wall=wall, steps=eng.steps - s0,
+                       moe_shards=eng.g._moe_shards,
+                       devices=[str(d) for d in eng.g.devices])
+        del eng
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    one, many = runs[1], runs[tp]
+    fails = []
+    if one["tokens"] != many["tokens"]:
+        bad = [i for i, (a, b) in enumerate(zip(one["tokens"],
+                                                many["tokens"])) if a != b]
+        fails.append(f"tokens differ on streams {bad}")
+    hidden_equal = {k: bool(torch.equal(one["hidden"][k], many["hidden"][k]))
+                    for k in ("prefill", "decode")}
+    if hidden_gate and not all(hidden_equal.values()):
+        fails.append(f"final hidden states differ: {hidden_equal}")
+    off = {k: (one["counts"][k], many["counts"][k]) for k in one["counts"]
+           if many["counts"][k] != tp * one["counts"][k]}
+    if off or one["steps"] != many["steps"]:
+        fails.append(f"launches not {tp}x tp=1's: {off} (steps "
+                     f"{one['steps']} / {many['steps']})")
+    splits = {1: {}, tp: {}}
+    for n in (1, tp):
+        for (T, _h, route, s), _n in runs[n]["plans"].items():
+            splits[n].setdefault(f"T{T} {route}", set()).add(s)
+    if splits[1] != splits[tp]:
+        fails.append(f"split plans differ: tp=1 {splits[1]}, tp={tp} "
+                     f"{splits[tp]}")
+    if device == "cuda" and not (one["counts"]["attention_split"] +
+                                 one["counts"]["attention_int8_split"]):
+        fails.append("no launch took the split route")
+    rec = dict(tp=tp, devices=many["devices"],
+               tokens_equal=one["tokens"] == many["tokens"],
+               hidden_equal=hidden_equal, steps=one["steps"],
+               moe_shards=many["moe_shards"],
+               launches={n: runs[n]["counts"] for n in (1, tp)},
+               decode_splits={n: sorted(
+                   s for (T, _h, r, s) in runs[n]["plans"]
+                   if T == 1 and r == "split") for n in (1, tp)},
+               plans={n: {f"T{T} kvh{h} {r} splits {s}": k
+                          for (T, h, r, s), k in runs[n]["plans"].items()}
+                      for n in (1, tp)},
+               tokens_per_s={n: sum(map(len, runs[n]["tokens"])) /
+                             runs[n]["wall"] for n in (1, tp)})
+    return rec, fails, one["tokens"], many["counts"]
+
+
+def _tp_decode_timing(model, device, prompts, steps, rounds=3):
+    """Decode step wall ms at tp=1 and tp=2 over one model, B 8 at
+    ``timed_context`` tokens of context: ``rounds`` unprofiled windows of
+    ``steps`` steps a degree, in turn (tp=1, tp=2, tp=1, ...; the median
+    reported), then one window each under ``torch.profiler`` for the device
+    busy ms, attention ms and idle share (busy over the median wall)."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.profile_step import _device_ms
+    engs = {}
+    for tp in (1, 2):
+        eng = _tp_engine(model, tp, device,
+                         new_tokens=(rounds + 1) * steps + 8)
+        for p in prompts:
+            eng.submit(p)
+        while eng.waiting or any(
+                r is not None and eng.prompt_pos[b] < len(r.prompt)
+                for b, r in enumerate(eng.slot_req)):
+            eng.step()
+        for _ in range(4):
+            eng.step()
+        engs[tp] = eng
+    walls = {1: [], 2: []}
+    for _ in range(rounds):
+        for tp, eng in engs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                eng.step()
+            torch.cuda.synchronize()
+            walls[tp].append((time.perf_counter() - t0) * 1e3 / steps)
+    out = {}
+    for tp, eng in engs.items():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                eng.step()
+            torch.cuda.synchronize()
+        by_name = _device_ms(prof)
+        busy = sum(by_name.values()) / steps
+        attn = sum(v for k, v in by_name.items()
+                   if "ragged_paged_attn" in k) / steps
+        wall = statistics.median(walls[tp])
+        eng.run()
+        out[f"tp{tp}"] = dict(decode_wall_ms_per_step=wall,
+                              decode_wall_ms_windows=walls[tp],
+                              device_busy_ms_per_step=busy or None,
+                              attention_ms_per_step=attn if busy else None,
+                              device_idle_share=1 - busy / wall
+                              if busy else None)
+    del engs, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_feature_waves(model, vocab, device, devices=None):
+    """Short waves with the prefix cache, the spill ring and each spec
+    mode (K 4) at tp=1 and tp=2: three waves of 4 requests (waves 1 and 3
+    share a prefix, wave 2 another) over a pool of one wave's pages + 8,
+    so wave 2 spills wave 1's cached pages and wave 3 swaps them back in.
+    Gates: tokens equal tp=1's in every wave; prefix tokens saved, spills
+    and swap-ins > 0 and equal tp=1's."""
+    w = SERVE_TP["waves"]
+    waves = _prefix_waves(vocab, w["prefix"], w["tails"], w["requests"],
+                          seed=3)
+    num_pages = max(_wave_pages(x, w["prefix"], SERVE_TP["page"],
+                                w["new_tokens"], w["spec_k"])
+                    for x in waves) + 8
+    keys = ("prefix_hits", "prefix_tokens_saved", "cow_copies",
+            "kv_spilled_pages", "kv_swapins", "spec_steps",
+            "spec_committed_tokens")
+    rec, fails = {}, []
+    for mode in ("ngram", "fused"):
+        runs = {}
+        for tp in (1, 2):
+            eng = _tp_engine(model, tp, device, devices=devices,
+                             new_tokens=w["new_tokens"],
+                             num_pages=num_pages, prefix_cache=True,
+                             kv_spill_pages=w["spill"], spec_decode=mode,
+                             spec_k=w["spec_k"])
+            outs = []
+            for wave in waves:
+                rids = [eng.add_request(p) for p in wave]
+                res = eng.run()
+                outs.append([res[r] for r in rids])
+            st = eng.stats()
+            runs[tp] = (outs, {k: st[k] for k in keys})
+            del eng
+        if runs[1][0] != runs[2][0]:
+            fails.append(f"{mode}: tokens differ from tp=1's")
+        if runs[1][1] != runs[2][1]:
+            fails.append(f"{mode}: counters {runs[2][1]} != tp=1's "
+                         f"{runs[1][1]}")
+        low = [k for k in ("prefix_tokens_saved", "kv_spilled_pages",
+                           "kv_swapins", "spec_steps") if runs[2][1][k] <= 0]
+        if low:
+            fails.append(f"{mode}: {low} are 0 at tp=2 ({runs[2][1]})")
+        rec[mode] = dict(tokens_equal=runs[1][0] == runs[2][0],
+                         counters=runs[2][1])
+    return dict(num_pages=num_pages, **w, runs=rec), fails
+
+
+def _tp_migration(model, vocab, device, devices=None):
+    """A session exported mid-stream at one degree resumes at another
+    (through the wire).  Gates: a tp=1 and a tp=2 export of the session at
+    the same point have one digest; the joined streams tp=2 -> tp=1, tp=1
+    -> tp=2 and tp=2 -> tp=2 equal tp=1 -> tp=1's; the joined 1 -> 1
+    stream and the no-fault tp=1 run both pass ``_teacher_force`` against
+    the model's full-sequence forward (near-ties as in ``serve_migrate``).
+    The resume re-prefills the partial-page tail in a prefill chunk, where
+    the no-fault run computed those rows in decode steps, so a bf16 resumed
+    stream may part from the no-fault one at a near-tie: how many tokens
+    they share is reported."""
+    import numpy as np
+    from paddle_tpu_torch.inference import migration as mig
+    c = SERVE_TP
+    prompt = np.random.default_rng(7).integers(
+        1, vocab, c["migrate_prompt"]).tolist()
+    kw = dict(new_tokens=c["migrate_new_tokens"], prefix_cache=True,
+              num_pages=c["migrate_pages"])
+    oracle = _tp_engine(model, 1, device, **kw)
+    rid = oracle.add_request(prompt)
+    want = oracle.run()[rid]
+    del oracle
+    snaps, wires = {}, {}
+    for tp in (2, 1):
+        eng = _tp_engine(model, tp, device, devices=devices, **kw)
+        req = eng.submit(prompt)
+        while len(req.output) < c["migrate_after"]:
+            eng.step()
+        eng._drain()
+        snaps[tp] = mig.export_session(eng, req_id=req.req_id)
+        wires[tp] = json.dumps(mig.to_wire(snaps[tp]))
+        del eng
+    joined = {}
+    for src, dst in ((1, 1), (2, 1), (1, 2), (2, 2)):
+        b = _tp_engine(model, dst, device, devices=devices, **kw)
+        res = mig.import_session(b, mig.from_wire(json.loads(wires[src])),
+                                 resume=True)
+        joined[f"{src}->{dst}"] = snaps[src]["emitted"] + \
+            b.run()[res["resume_req_id"]]
+        del b
+    fails = []
+    if snaps[1]["digest"] != snaps[2]["digest"] or \
+            snaps[1]["emitted"] != snaps[2]["emitted"] or \
+            wires[1] != wires[2]:
+        fails.append("tp=1 and tp=2 exports of one session differ")
+    base = joined["1->1"]
+    bad = [k for k, v in joined.items() if v != base]
+    if bad:
+        fails.append(f"resumed streams {bad} differ from 1->1's")
+    same = next((i for i, (a, b) in enumerate(zip(base, want)) if a != b),
+                min(len(base), len(want)))
+    card = lambda ids: model(ids.to(device)).float().cpu()  # noqa: E731
+    try:
+        checked, near, gaps = _teacher_force(
+            "serve_tp migration", card, [("1->1", prompt, base),
+                                         ("no-fault", prompt, want)],
+            new_tokens=c["migrate_new_tokens"], tie_rel=c["tie_rel"],
+            max_tie_share=c["max_tie_share"])
+    except AssertionError as e:
+        fails.append(str(e))
+        checked, near, gaps = None, None, None
+    return dict(pages=len(snaps[2]["pages"]), wire_bytes=len(wires[2]),
+                tokens_checked=checked, near_ties=near,
+                near_tie_rel_gaps=gaps, tie_rel=c["tie_rel"],
+                emitted_at_export=len(snaps[2]["emitted"]),
+                digest=snaps[2]["digest"],
+                digests_equal=snaps[1]["digest"] == snaps[2]["digest"],
+                resumed_equal={k: v == base for k, v in joined.items()},
+                equals_no_fault=base == want,
+                tokens_equal_to_no_fault_before_first_difference=same,
+                tokens=len(want)), fails
+
+
+def _tp_http(eng, prompts, want, max_tokens, vocab):
+    """A ``ServingServer`` on the tp=2 engine: 8 streams over HTTP with
+    tokens equal to ``want`` (tp=1's); ``/statusz`` advertises tp and pool
+    bytes.  Returns the record, failures and the launch counts of the
+    streams (counted from 0 just before, read just after)."""
+    from paddle_tpu_torch.kernels import grouped_matmul as gm
+    from paddle_tpu_torch.serving import ServingServer
+    import threading
+    srv = ServingServer(eng, model_name="llama2_7b", warmup=True)
+    holding = threading.Event()
+
+    def hold(_eng):
+        # the engine thread waits here, between steps, until every stream
+        # is queued: all are admitted in one step, as in the oracle's run
+        holding.set()
+        t_end = time.perf_counter() + 60.0
+        while srv._inbox.qsize() < len(prompts) and \
+                time.perf_counter() < t_end:
+            time.sleep(0.001)
+
+    async def go():
+        host, port = await srv.start_http("127.0.0.1", 0)
+        try:
+            while not srv.ready():
+                if not srv.engine_alive():
+                    raise RuntimeError("engine thread died during warmup")
+                await asyncio.sleep(0.05)
+            _reset_attn_counts()
+            gm.LAUNCHES = gm.LAUNCHES_SM90 = 0
+            held = asyncio.get_running_loop().run_in_executor(
+                None, srv.run_on_engine, hold, 90.0)
+            while not holding.is_set():
+                await asyncio.sleep(0.001)
+            t0 = time.perf_counter()
+            res = await asyncio.gather(*[
+                _client(host, port, p, max_tokens) for p in prompts])
+            wall = time.perf_counter() - t0
+            await held
+            counts = _attn_counts()
+            counts["gmm"], counts["gmm_sm90"] = gm.LAUNCHES, gm.LAUNCHES_SM90
+            return res, wall, counts, srv.statusz()["engine"]
+        finally:
+            await srv.stop_http()
+
+    res, wall, counts, st = asyncio.run(go())
+    fails = []
+    got = [r["ids"] for r in res]
+    if got != want:
+        fails.append("HTTP streams at tp=2 differ from tp=1's tokens: " +
+                     str([(i, next(j for j, (a, b) in enumerate(zip(g, w))
+                                   if a != b))
+                          for i, (g, w) in enumerate(zip(got, want))
+                          if g != w]))
+    if st["tp"] != 2 or st["pool_bytes"] != eng.g.pool_bytes:
+        fails.append(f"/statusz engine tp {st['tp']}, pool_bytes "
+                     f"{st['pool_bytes']}")
+    _check_streams("serve_tp http", res, max_tokens, vocab)
+    ttfts = sorted(r["ttft_s"] for r in res)
+    return dict(wall_s=wall, tokens_per_s=sum(map(len, got)) / wall,
+                ttft_p50_s=ttfts[len(ttfts) // 2], statusz_tp=st["tp"],
+                statusz_pool_bytes=st["pool_bytes"],
+                launches=counts), fails, counts
+
+
+def phase_serve_tp(cfg=None, moe_cfg=None, device="cuda"):
+    """Tensor-parallel serving on one card: ONE engine over two shard
+    devices, both ``cuda:0``, held against the tp=1 engine over the same
+    model.  Full llama2_7b (32 layers, bf16, random weights from the seed)
+    at the launcher's geometry, 8 streams (prompts 32-512, 64 new tokens):
+    tokens equal, the final hidden states of the first prefill and the first
+    decode step ``torch.equal``, every attention launch count exactly 2x
+    tp=1's on every route and every tp=2 launch planned with tp=1's split
+    count; the same over an int8 pool; the prefix cache with spill and swap-in
+    and both spec modes (K 4) in short waves, tokens equal; a session
+    exported mid-stream and resumed across degrees equal to the 1->1
+    resume, which passes ``_teacher_force`` with the no-fault run, and a
+    tp=1 and a tp=2 export of one session with one digest; warm tp=2 steps
+    between drains under ``assert_overhead(0, 0)`` and ``torch.cuda.set_sync_debug_mode
+    ("error")``; a ``ServingServer`` on the tp=2 engine serving 8 streams
+    over HTTP with tp=1's tokens and ``/statusz`` carrying tp 2 and the pool
+    bytes.  Then Mixtral widths cut to 4 layers (top-2 of 8 experts,
+    grouped): experts sharded (``_moe_shards`` 2), tokens equal, gmm launches
+    2x tp=1's and all on sm90; whether the hidden states are equal is
+    reported.  Reports tokens/s, decode step ms and idle share at tp=1 and
+    tp=2.  Returns the launch counts of the tp=2 runs (bf16 over HTTP, int8,
+    Mixtral) in ``phase_serve``'s form."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    c = SERVE_TP
+    cuda = device == "cuda"
+    cfg = cfg or LlamaConfig.llama2_7b()
+    moe_cfg = moe_cfg or LlamaConfig.mixtral_8x7b(
+        num_hidden_layers=c["moe_layers"])
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(11)
+    lens = [int(x) for x in np.linspace(*c["prompts"], c["requests"])]
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in lens]
+    model = LlamaForCausalLM(cfg, device=device, seed=0)
+    fails, rec = [], {}
+    # the main path at tp=2 against tp=1, bf16 then int8 pools
+    rec["bf16"], f, tokens1, _ = _tp_pair("bf16", model, prompts, device)
+    fails += [f"bf16: {x}" for x in f]
+    rec["int8"], f, _, int8_counts = _tp_pair("int8", model, prompts, device,
+                                              cache_dtype="int8")
+    fails += [f"int8: {x}" for x in f]
+    # warm steps at tp=2: no sync and no build between drains
+    eng = _tp_engine(model, 2, device)
+    for p in prompts:
+        eng.submit(p)
+    eng.step()
+    rec["steps_checked_without_sync"] = _steps_without_sync(eng, device)
+    eng.run()
+    del eng
+    rec["features"], f = _tp_feature_waves(model, cfg.vocab_size, device)
+    fails += [f"features: {x}" for x in f]
+    rec["migration"], f = _tp_migration(model, cfg.vocab_size, device)
+    fails += [f"migration: {x}" for x in f]
+    if cuda:
+        timed = [rng.integers(1, cfg.vocab_size, c["timed_context"]).tolist()
+                 for _ in range(c["max_batch"])]
+        rec["decode_timing"] = _tp_decode_timing(model, device, timed,
+                                                 c["timed_steps"])
+    eng = _tp_engine(model, 2, device)
+    rec["http"], f, http_counts = _tp_http(eng, prompts, tokens1,
+                                           c["new_tokens"], cfg.vocab_size)
+    fails += [f"http: {x}" for x in f]
+    del eng, model
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    moe = LlamaForCausalLM(moe_cfg, device=device, seed=0)
+    rec["moe"], f, _, moe_counts = _tp_pair(
+        "moe", moe, prompts, device, hidden_gate=False,
+        new_tokens=c["moe_new_tokens"])
+    fails += [f"moe: {x}" for x in f]
+    shards = rec["moe"]["moe_shards"]
+    m1, m2 = rec["moe"]["launches"][1], rec["moe"]["launches"][2]
+    if shards != 2 or (cuda and (
+            not m1["gmm"] or m2["gmm"] != 2 * m1["gmm"] or
+            m1["gmm_sm90"] != m1["gmm"] or m2["gmm_sm90"] != m2["gmm"])):
+        fails.append(f"moe: shards {shards}, gmm launches {m1['gmm']} / "
+                     f"{m2['gmm']}, on sm90 {m1['gmm_sm90']} / "
+                     f"{m2['gmm_sm90']}")
+    del moe
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    emit("serve_tp", preset="llama2_7b", layers=cfg.num_hidden_layers,
+         moe_layers=moe_cfg.num_hidden_layers, devices=["cuda:0", "cuda:0"]
+         if cuda else ["cpu", "cpu"], max_batch=c["max_batch"],
+         max_seq_len=c["max_seq_len"], page_size=c["page"],
+         prefill_bucket=c["bucket"], num_pages=c["num_pages"],
+         prompt_lens=lens, new_tokens=c["new_tokens"], **rec,
+         phase_s=time.perf_counter() - t_phase,
+         max_memory_allocated=torch.cuda.max_memory_allocated()
+         if cuda else None,
+         nvidia_smi=_nvidia_smi() if cuda else None)
+    if fails:
+        raise AssertionError("serve_tp: " + "; ".join(fails))
+    keys = ("attention", "attention_int8", "gmm", "attention_split",
+            "attention_int8_split", "attention_sm90", "attention_int8_sm90",
+            "gmm_sm90")
+    return {k: http_counts[k] + int8_counts[k] + moe_counts[k] for k in keys}
+
+
+TP_CARDS = dict(layers=8, moe_layers=4, new_tokens=32)
+
+
+def tp_cards() -> int:
+    """``python3 chip_smoke.py --tp-cards``: tensor-parallel serving with
+    its shards on separate cards (a machine with 4).  llama2_7b at full
+    width cut to ``TP_CARDS["layers"]`` layers (bf16, random weights from
+    the seed), at ``serve_tp``'s geometry and streams: engines over
+    ``["cuda:0", "cuda:1"]`` (tp=2; bf16 and int8 pools) and ``"cuda"``
+    (tp=4, shard i on ``cuda:i``) held against the tp=1 engine on cuda:0,
+    with ``_tp_pair``'s gates (tokens and final hidden states equal,
+    launches tp x tp=1's, tp=1's split plans); warm tp=2 steps with no sync
+    and no build; the prefix cache, spill ring and both spec modes, and a
+    session migrated across degrees, at tp=2 over the two cards; Mixtral
+    widths at ``TP_CARDS["moe_layers"]`` layers with the experts over the
+    two cards (tokens equal, hidden states reported).  Prints one line and
+    a summary line with ``ok``; exits 1 on a failed gate."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    phase_device()
+    have = torch.cuda.device_count()
+    if have < 4:
+        raise SystemExit(f"--tp-cards needs 4 cards, found {have}")
+    c, t = SERVE_TP, TP_CARDS
+    pair = ["cuda:0", "cuda:1"]
+    t_phase = time.perf_counter()
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=t["layers"])
+    rng = np.random.default_rng(11)
+    lens = [int(x) for x in np.linspace(*c["prompts"], c["requests"])]
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in lens]
+    model = LlamaForCausalLM(cfg, device="cuda", seed=0)
+    fails, rec = [], {}
+    for name, tp, devs, kw in (
+            ("bf16_tp2", 2, pair, {}),
+            ("int8_tp2", 2, pair, dict(cache_dtype="int8")),
+            ("bf16_tp4", 4, "cuda", {})):
+        rec[name], f, _, _ = _tp_pair(name, model, prompts, "cuda", tp=tp,
+                                      devices=devs,
+                                      new_tokens=t["new_tokens"], **kw)
+        fails += [f"{name}: {x}" for x in f]
+    eng = _tp_engine(model, 2, "cuda", devices=pair)
+    for p in prompts:
+        eng.submit(p)
+    eng.step()
+    rec["steps_checked_without_sync"] = _steps_without_sync(eng, "cuda")
+    eng.run()
+    del eng
+    rec["features"], f = _tp_feature_waves(model, cfg.vocab_size, "cuda",
+                                           devices=pair)
+    fails += [f"features: {x}" for x in f]
+    rec["migration"], f = _tp_migration(model, cfg.vocab_size, "cuda",
+                                        devices=pair)
+    fails += [f"migration: {x}" for x in f]
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = LlamaForCausalLM(LlamaConfig.mixtral_8x7b(
+        num_hidden_layers=t["moe_layers"]), device="cuda", seed=0)
+    rec["moe_tp2"], f, _, _ = _tp_pair("moe", moe, prompts, "cuda",
+                                       hidden_gate=False, devices=pair,
+                                       new_tokens=t["new_tokens"])
+    fails += [f"moe: {x}" for x in f]
+    if rec["moe_tp2"]["moe_shards"] != 2:
+        fails.append(f"moe: shards {rec['moe_tp2']['moe_shards']}")
+    del moe
+    gc.collect()
+    emit("tp_cards", preset="llama2_7b", layers=cfg.num_hidden_layers,
+         moe_layers=t["moe_layers"], cards=have, prompt_lens=lens,
+         new_tokens=t["new_tokens"], **rec,
+         phase_s=time.perf_counter() - t_phase,
+         max_memory_allocated={
+             i: torch.cuda.max_memory_allocated(i) for i in range(have)},
+         nvidia_smi=_nvidia_smi(every_card=True), failures=fails)
+    print(json.dumps({"ok": not fails, "cards": have}), flush=True)
+    return 1 if fails else 0
 
 
 # ------------------------------------------------------- flash attention ---
@@ -6683,6 +7280,7 @@ def main() -> int:
             phase_serve_migrate(),
             phase_serve_disagg(),
             phase_serve_routers(),
+            phase_serve_tp(),
             router_parity]
     phase_fleet_failover()
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
@@ -6811,4 +7409,4 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.exit(moe_parity_spread() if sys.argv[1:] == ["--moe-parity-spread"]
-             else main())
+             else tp_cards() if sys.argv[1:] == ["--tp-cards"] else main())

@@ -76,6 +76,17 @@ define_flag("kv_spill_pages", 0,
             "evicted idle cached page copies its KV to host memory instead "
             "of being dropped, and a later admission that matches it "
             "copies it back.  0 = off.  Requires the prefix cache.")
+define_flag("serving_tensor_parallel", 1,
+            "Tensor-parallel shard count of the serving engine (engine "
+            "kwarg tensor_parallel=): >1 shards the KV pool's storage and "
+            "attention by kv head and grouped MoE by expert over the shard "
+            "devices (device='cuda': shard i on cuda:i; 'cpu'; or a list, "
+            "repeats allowed), while weights, projections, norms, embedding "
+            "and sampling stay on shard 0's device, so greedy and seeded "
+            "sampled outputs stay bit-identical to tp=1.  Page ids, block "
+            "tables, the prefix cache, the spill ring and migration "
+            "snapshots stay host-global.  num_kv_heads and "
+            "num_attention_heads must be divisible by the shard count.")
 define_flag("spec_decode", "",
             "Speculative decoding mode for the serving engine "
             "(inference/speculative.py): '' = off, 'ngram' = prompt-lookup "

@@ -21,7 +21,7 @@ subprocesses on ``--router-port-base + i`` that discover the replicas from
 the store.  The launcher owns the fleet's ``TraceCollector``: replicas POST
 their spans to rt0's ``/collectz``, spawned routers ship theirs through the
 store, and ``GET /tracez?trace_id=`` on rt0 serves one merged timeline.
-``--tensor-parallel`` is not ported yet and raises.
+``--tensor-parallel N`` is forwarded to every replica's launcher.
 """
 
 from __future__ import annotations
@@ -87,8 +87,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="enable the shared-prefix KV cache on every "
                         "replica")
     p.add_argument("--tensor-parallel", type=int, default=None,
-                   help="tensor-parallel shard count (not ported yet: "
-                        "raises)")
+                   help="tensor-parallel shard count forwarded to every "
+                        "replica subprocess (--tensor-parallel on each "
+                        "replica's launcher)")
     p.add_argument("--cache-dtype", default=None,
                    help="KV pool dtype forwarded to every replica")
     p.add_argument("--set", action="append", default=[],
@@ -106,6 +107,8 @@ def replica_launch_args(args) -> List[str]:
         launch += ["--num-layers", str(args.num_layers)]
     if args.prefix_cache:
         launch.append("--prefix-cache")
+    if args.tensor_parallel is not None:
+        launch += ["--tensor-parallel", str(args.tensor_parallel)]
     if args.cache_dtype is not None:
         launch += ["--cache-dtype", args.cache_dtype]
     for pair in args.flag_sets:
@@ -115,9 +118,6 @@ def replica_launch_args(args) -> List[str]:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    if args.tensor_parallel is not None:
-        raise NotImplementedError(
-            "--tensor-parallel is ROADMAP item 14 and not ported yet")
     from ..serving.__main__ import apply_flag_sets
     apply_flag_sets(args.flag_sets)
 

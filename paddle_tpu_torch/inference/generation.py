@@ -35,8 +35,17 @@
   migration (``inference/migration.py``) exports and imports an engine's
   sessions between steps.
 
-Not ported yet (a later ROADMAP item; the constructors do not take its
-option): tensor parallelism (and with it the sharded MoE branch).
+- Tensor-parallel serving (``tensor_parallel=``, default
+  ``FLAGS_serving_tensor_parallel``): ONE engine drives a list of shard
+  devices (``device="cuda"``: shard i on ``cuda:i``; ``"cpu"``; or a list,
+  repeats allowed, so ``["cuda:0", "cuda:0"]`` runs tp=2 on one card).
+  Only the KV pool's storage (by kv head), attention (by kv head) and
+  grouped MoE (by expert) are sharded; the weights, projections, norms,
+  embedding and sampling stay on shard 0's device and run once there.
+  Each shard's ``ragged_paged_attention`` launch plans its split from the
+  global kv-head count, the shards' outputs join on the head axis in
+  shard order and the expert partials sum left to right in shard order,
+  so every token is bit-identical to tp=1.
 """
 
 from __future__ import annotations
@@ -50,7 +59,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import flags, resolve_device
+from .. import DEFAULT_DEVICE, flags, resolve_device
 from .. import observability as _obs
 from ..kernels.grouped_matmul import sorted_dispatch_plan
 from ..kernels.paged_attention import (ragged_paged_attention,
@@ -66,17 +75,46 @@ from .kv_spill import HostSpillPool
 from .prefix_cache import PrefixCache
 
 
-def _cow_copy_pages(arrays, src, dst):
+def _cow_copy_pages(shards, src, dst):
     """Whole-page copies ``src[i] -> dst[i]`` across every layer and head
-    of every pool plane (the prefix cache's copy-on-write), in place.
-    ``arrays`` is the pool tuple: ``(k, v)`` float or ``(k, v, k_scale,
-    v_scale)`` int8; each plane indexes pages on axis 2, so one loop copies
-    them all.  ``src``/``dst``: int64 index tensors on the pool's device,
-    holding live pairs only (the caller drops the no-op ones on the host:
-    on the int8 pool index ``num_pages`` is the commit's scratch page, not
-    an out-of-range id)."""
-    for arr in arrays:
-        arr.index_copy_(2, dst, arr.index_select(2, src))
+    of every pool plane of every shard (the prefix cache's copy-on-write),
+    in place.  ``shards`` holds one pool tuple a shard: ``(k, v)`` float or
+    ``(k, v, k_scale, v_scale)`` int8; each plane indexes pages on axis 2,
+    so one loop copies them all.  ``src``/``dst``: int64 index tensors on
+    shard 0's device, holding live pairs only (the caller drops the no-op
+    ones on the host: on the int8 pool index ``num_pages`` is the commit's
+    scratch page, not an out-of-range id)."""
+    for planes in shards:
+        dev = planes[0].device
+        s, d = (src.to(dev, non_blocking=True),
+                dst.to(dev, non_blocking=True))
+        for arr in planes:
+            arr.index_copy_(2, d, arr.index_select(2, s))
+
+
+def shard_devices(device, tp: int) -> List[torch.device]:
+    """The device of each of ``tp`` shards: a list of ``tp`` devices places
+    shard i on entry i (repeats allowed); ``"cpu"`` puts every shard on the
+    CPU; ``"cuda"`` (the default) puts shard i on ``cuda:i``.  Anything
+    else raises: no other device or degree is ever chosen."""
+    if isinstance(device, (list, tuple)):
+        if len(device) != tp:
+            raise ValueError(f"tensor_parallel={tp} needs {tp} devices, "
+                             f"the list names {len(device)}")
+        return [resolve_device(d) for d in device]
+    if tp == 1:
+        return [resolve_device(device)]
+    dev = torch.device(DEFAULT_DEVICE if device is None else device)
+    if dev.type == "cpu":
+        return [dev] * tp
+    if dev.type == "cuda" and dev.index is None:
+        have = torch.cuda.device_count()
+        if have < tp:
+            raise ValueError(f"tensor_parallel={tp} needs {tp} devices, "
+                             f"have {have}")
+        return [resolve_device(f"cuda:{i}") for i in range(tp)]
+    raise ValueError(f"tensor_parallel={tp} takes its devices as 'cuda', "
+                     f"'cpu' or a list of {tp} devices, not {device!r}")
 
 
 @dataclass
@@ -100,7 +138,7 @@ def _rope_bt(x, cos, sin):
     return torch.stack([o1, o2], dim=-1).reshape(x.shape).to(x.dtype)
 
 
-def _moe_ffn(y, lp, top_k, dispatch="dense", block_m=128):
+def _moe_ffn(y, lp, top_k, dispatch="dense", block_m=128, banks=None):
     """Routed SwiGLU expert mixture for the serving path.
 
     - grouped (``dispatch="grouped"``): the expert-sorted grouped-matmul
@@ -112,6 +150,16 @@ def _moe_ffn(y, lp, top_k, dispatch="dense", block_m=128):
     - dense (non-grouped configs): every expert runs over all rows in a
       plain loop, combined with the top-k gate weights — exact routing, no
       capacity.
+
+    ``banks`` (tensor-parallel serving, grouped only): one ``(device,
+    w_gate, w_up, w_down)`` a shard, its ``E / tp`` experts on its device.
+    Each shard runs the grouped path over its own bank: non-owned (token,
+    choice) entries go to a local discard group whose rows the combine's
+    sentinel read returns as zero, and the partial outputs are summed left
+    to right in shard order on ``y``'s device.  Bit-identical to the
+    single-device mixture: a token has at most ``top_k`` nonzero expert
+    terms, every other shard adds an exact zero, and IEEE addition of two
+    values is order-insensitive (sharding is only enabled for top_k <= 2).
     """
     gw = lp["mlp.gate.weight"]              # [H, E]
     shape = y.shape
@@ -123,6 +171,9 @@ def _moe_ffn(y, lp, top_k, dispatch="dense", block_m=128):
         N = xf.shape[0]
         bm = max(8, min(block_m, -(-N * top_k // 8) * 8))
         topv, topi, _, _ = _route_topk(xf, gw, top_k)
+        if banks is not None:
+            return _moe_ffn_sharded(xf, topv, topi, banks, top_k,
+                                    bm).reshape(shape)
         inv, pos, tg = sorted_dispatch_plan(topi.reshape(N * top_k), E, bm)
         out = _grouped_ffn(xf, wg, wu, wd, topv, inv, pos, tg, E, top_k, bm)
         return out.reshape(shape)
@@ -135,6 +186,40 @@ def _moe_ffn(y, lp, top_k, dispatch="dense", block_m=128):
         h = F.silu(xf @ wg[e]) * (xf @ wu[e])
         acc = acc + comb[:, e, None] * (h @ wd[e])
     return acc.reshape(shape)
+
+
+def _moe_ffn_sharded(xf, topv, topi, banks, top_k, bm):
+    """The expert-sharded grouped mixture (see :func:`_moe_ffn`): ``bm``
+    comes from the global row count, so every shard's grouped matmuls tile
+    as tp=1's do."""
+    N = xf.shape[0]
+    F = N * top_k
+    dev0 = xf.device
+    out = None
+    for s, (dev, wg, wu, wd) in enumerate(banks):
+        E_loc = wg.shape[0]
+        x_s, v_s, i_s = (t.to(dev, non_blocking=True) for t in
+                         (xf, topv, topi))
+        own = torch.div(i_s, E_loc, rounding_mode="floor") == s
+        # non-owned entries dispatch to local expert E_loc: a discard group
+        # appended to the shard's bank purely as a sort destination
+        local_e = torch.where(own, i_s % E_loc,
+                              torch.full_like(i_s, E_loc)).reshape(F)
+        inv, pos, tg = sorted_dispatch_plan(local_e, E_loc + 1, bm)
+        M = inv.shape[0]
+        own_flat = own.reshape(F)
+        inv = torch.where(
+            (inv < F) & own_flat[torch.clamp(inv, max=F - 1).long()],
+            inv, torch.full_like(inv, F))
+        keep = (pos < M) & own_flat
+        gates = v_s * keep.reshape(N, top_k)
+        pos = torch.where(keep, pos, torch.full_like(pos, M))
+        tg = torch.clamp(tg, max=E_loc - 1)
+        part = _grouped_ffn(x_s, wg, wu, wd, gates, inv, pos, tg, E_loc,
+                            top_k, bm).to(dev0, non_blocking=True)
+        # left to right in shard order: never an unordered reduction
+        out = part if out is None else out + part
+    return out
 
 
 def _filter_logits(logits, gc: GenerationConfig):
@@ -196,19 +281,41 @@ def _sample(logits, seed: int, pos, gc: GenerationConfig):
 
 class LlamaGenerator:
     """Batch text generation for ``LlamaForCausalLM`` with paged KV, on
-    ``device`` (default ``"cuda"``; the model must already live there)."""
+    ``device`` (default ``"cuda"``; the model must already live on shard
+    0's device).  ``tensor_parallel`` (default
+    ``FLAGS_serving_tensor_parallel``) shards the pool, attention and
+    grouped MoE over the devices :func:`shard_devices` names."""
 
     def __init__(self, model: LlamaForCausalLM, *, max_batch: int = 8,
                  max_seq_len: Optional[int] = None, page_size: int = 32,
                  cache_dtype: Optional[str] = None,
                  prefill_bucket: int = 64, sync_every: int = 8,
-                 num_pages: Optional[int] = None, device=None):
-        dev = resolve_device(device)
+                 num_pages: Optional[int] = None, device=None,
+                 tensor_parallel: Optional[int] = None):
+        c = model.config
+        if tensor_parallel is None:
+            tensor_parallel = int(flags.flag("serving_tensor_parallel") or 1)
+        tp = max(int(tensor_parallel), 1)
+        devs = shard_devices(device, tp)
+        if tp > 1 and (c.num_key_value_heads % tp or
+                       c.num_attention_heads % tp):
+            raise ValueError(
+                f"tensor_parallel={tp} must divide num_kv_heads="
+                f"{c.num_key_value_heads} and num_heads="
+                f"{c.num_attention_heads}")
+        dev = devs[0]
         if model.device != dev:
             raise ValueError(f"the model lives on {model.device}, but the "
                              f"generator was asked for {dev}")
         self.device = dev
-        c = model.config
+        self.devices = devs
+        self.tp = tp
+        # grouped MoE shards by expert only where the discard-group combine
+        # is bit-exact (top_k <= 2: at most two nonzero terms a token) and
+        # the bank divides; otherwise the mixture runs whole on shard 0
+        self._moe_shards = tp if (
+            tp > 1 and c.moe_num_experts and c.moe_dispatch == "grouped"
+            and c.moe_top_k <= 2 and c.moe_num_experts % tp == 0) else None
         self.config = c
         self.max_batch = max_batch
         self.max_seq_len = max_seq_len or c.max_position_embeddings
@@ -230,13 +337,32 @@ class LlamaGenerator:
         self.cache = PagedKVCache(
             num_layers=c.num_hidden_layers, num_pages=self.num_pages,
             page_size=self.page_size, num_kv_heads=c.num_key_value_heads,
-            head_dim=c.head_dim, dtype=cache_dtype or c.dtype, device=dev)
+            head_dim=c.head_dim, dtype=cache_dtype or c.dtype, devices=devs)
+        # host-global pool bytes (all shards): what stats() and /statusz
+        # advertise to the router's capacity-weighted placement
         self.pool_bytes = self.num_pages * PagedKVCache.bytes_per_page(
             c.num_hidden_layers, c.num_key_value_heads, self.page_size,
             c.head_dim, cache_dtype or c.dtype)
+        self.shard_pool_bytes = self.pool_bytes // tp
+        if self._moe_shards:
+            # each shard's own slice of every layer's expert bank on its
+            # device (a view where the device is shard 0's)
+            E_loc = c.moe_num_experts // tp
+            self._banks = [
+                [(d,) + tuple(lp[n][s * E_loc:(s + 1) * E_loc].to(d)
+                              for n in ("mlp.experts_gate", "mlp.experts_up",
+                                        "mlp.experts_down"))
+                 for s, d in enumerate(devs)]
+                for lp in self.params["blocks"]]
+        else:
+            self._banks = [None] * len(self.params["blocks"])
         self._cos, self._sin = _rope_cos_sin(self.max_seq_len, c.head_dim,
                                              c.rope_theta, device=dev)
         self._metrics_on = _obs.metrics_enabled()
+        if self._metrics_on:
+            _obs.metrics.gauge("serving.tp.degree").set(tp)
+            _obs.metrics.gauge("serving.tp.shard_pool_bytes").set(
+                self.shard_pool_bytes)
 
     # ---- params ----
     def _extract(self, model: LlamaForCausalLM):
@@ -266,21 +392,25 @@ class LlamaGenerator:
 
         tokens: [B, T] int32; ql: [B] valid tokens per row (0 = inert row);
         positions: [B] cache tokens BEFORE this step (the write cursor);
-        block_tables: [B, W] int32.  The pool is ``self.cache.arrays``:
-        (kc, vc) float, or (kc, vc, ks, vs) for the int8 plane, whose pages
-        dequantize inside the attention kernel and whose commit requantizes
-        per page.
+        block_tables: [B, W] int32.  The pool is ``self.cache.shards``: one
+        (kc, vc) float, or (kc, vc, ks, vs) int8, plane tuple a shard,
+        whose pages dequantize inside the attention kernel and whose commit
+        requantizes per page.
+
+        Under tensor parallelism shard s attends with q heads ``[s·qh/tp,
+        (s+1)·qh/tp)`` over its own kv heads ``[s·kvh/tp, (s+1)·kvh/tp)``
+        (q heads group per kv head, so that block is exactly the q heads
+        that read them); the shards' outputs join on the head axis in shard
+        order, the layout tp=1 computes, and feed the replicated
+        ``o_proj``.  Each launch plans from the global kv-head count, so a
+        shard's split route cuts the context as tp=1's does.
         """
         c = self.config
         B, T = tokens.shape
         page = self.page_size
         dev = tokens.device
-        cache = self.cache.arrays
-        quant = len(cache) == 4
-        if quant:
-            kc, vc, ks, vs = cache
-        else:
-            kc, vc = cache
+        shards = self.cache.shards
+        tp = self.tp
 
         offs = torch.arange(T, dtype=torch.int32, device=dev)
         pos = positions[:, None] + offs[None, :]                  # [B, T]
@@ -294,10 +424,16 @@ class LlamaGenerator:
         sin = self._sin[pos_c.long()]
         ctx_prev = torch.clamp(positions, max=self.max_seq_len).to(torch.int32)
         ql = ql.to(torch.int32)
+        # the step's small per-row inputs, once on each shard's device
+        ins = [(block_tables, ctx_prev, ql, positions, slots)]
+        if tp > 1:
+            ins = [tuple(t.to(d, non_blocking=True) for t in ins[0])
+                   for d in self.devices]
         toks = torch.clamp(tokens, 0, params["embed"].shape[0] - 1).long()
         h = params["embed"][toks]                                 # [B, T, H]
 
         qh, kvh, dh = c.num_attention_heads, c.num_key_value_heads, c.head_dim
+        qh_l, kvh_l = qh // tp, kvh // tp
         k_rows, v_rows = [], []
         for li, lp in enumerate(params["blocks"]):
             y = rms_norm_fp32(h, lp["input_layernorm.weight"], c.rms_norm_eps)
@@ -307,17 +443,31 @@ class LlamaGenerator:
             q = _rope_bt(q, cos, sin)
             k = _rope_bt(k, cos, sin)
             # prior context from the pool + this step's own rows (causal),
-            # one mixed-mode kernel call; the commit follows all layers
-            attn = ragged_paged_attention(
-                q, kc[li], vc[li], block_tables, ctx_prev, q_lens=ql,
-                k_new=k, v_new=v, k_scale=ks[li] if quant else None,
-                v_scale=vs[li] if quant else None)
+            # one mixed-mode kernel call a shard; the commit follows all
+            # layers
+            if tp == 1:
+                attn = self._attend(shards[0], li, q, k, v, ins[0])
+            else:
+                # one copy a tensor lays the head blocks out shard-major,
+                # so shard s's block is a contiguous [s] view
+                qkv = tuple(
+                    x.reshape(B, T, tp, n, dh).permute(2, 0, 1, 3, 4)
+                    .contiguous() for x, n in ((q, qh_l), (k, kvh_l),
+                                               (v, kvh_l)))
+                attn = torch.cat([
+                    self._attend(planes, li, *(x[s].to(d, non_blocking=True)
+                                               for x in qkv), ins[s])
+                    .to(dev, non_blocking=True)
+                    for s, (planes, d) in enumerate(zip(shards,
+                                                        self.devices))],
+                    dim=2)
             h = h + attn.reshape(B, T, -1) @ lp["self_attn.o_proj.weight"]
             y = rms_norm_fp32(h, lp["post_attention_layernorm.weight"],
                               c.rms_norm_eps)
             if "mlp.experts_gate" in lp:              # MoE model serving
                 h = h + _moe_ffn(y, lp, c.moe_top_k, dispatch=c.moe_dispatch,
-                                 block_m=c.moe_block_m)
+                                 block_m=c.moe_block_m,
+                                 banks=self._banks[li])
             else:
                 act = F.silu(y @ lp["mlp.gate_proj.weight"]) * \
                     (y @ lp["mlp.up_proj.weight"])
@@ -328,15 +478,42 @@ class LlamaGenerator:
         L = len(k_rows)
         k_all = torch.stack(k_rows).reshape(L, B * T, kvh, dh)
         v_all = torch.stack(v_rows).reshape(L, B * T, kvh, dh)
-        if quant:
-            # quantize fresh K/V per page on the way in (page-level RMW:
-            # the absmax scale covers every row of the page)
-            write_kv_pages_all_layers_quantized(
-                kc, vc, ks, vs, k_all, v_all, positions, ql, block_tables,
-                self.max_seq_len)
+        # each shard commits its own heads' fresh rows to its planes; the
+        # int8 scales are per (layer, kv head, page), so every shard's equal
+        # tp=1's bit for bit
+        if tp == 1:
+            self._commit(shards[0], k_all, v_all, ins[0])
         else:
-            write_kv_pages_all_layers(kc, vc, k_all, v_all, slots)
+            for s, planes in enumerate(shards):
+                d, blk = self.devices[s], self.cache.heads(s)
+                self._commit(planes,
+                             k_all[:, :, blk].to(d, non_blocking=True),
+                             v_all[:, :, blk].to(d, non_blocking=True),
+                             ins[s])
         return rms_norm_fp32(h, params["norm"], c.rms_norm_eps)
+
+    def _attend(self, planes, li, q, k, v, ins):
+        """One shard's attention at layer ``li``: its q heads and fresh
+        k/v rows over its pool planes, planned from the global kv-head
+        count; ``ins`` is the step's per-row inputs on its device."""
+        bt, ctx_prev, ql = ins[:3]
+        quant = len(planes) == 4
+        return ragged_paged_attention(
+            q, planes[0][li], planes[1][li], bt, ctx_prev, q_lens=ql,
+            k_new=k, v_new=v, k_scale=planes[2][li] if quant else None,
+            v_scale=planes[3][li] if quant else None,
+            plan_kv_heads=self.config.num_key_value_heads)
+
+    def _commit(self, planes, k_all, v_all, ins):
+        """Write one shard's fresh K/V rows of every layer into its pool
+        planes (the int8 pool quantizes them per page on the way in: a
+        page-level RMW whose absmax scale covers every row of the page)."""
+        bt, _ctx, ql, positions, slots = ins
+        if len(planes) == 4:
+            write_kv_pages_all_layers_quantized(
+                *planes, k_all, v_all, positions, ql, bt, self.max_seq_len)
+        else:
+            write_kv_pages_all_layers(*planes, k_all, v_all, slots)
 
     # ---- the ONE engine step ----
     @torch.no_grad()
@@ -696,10 +873,12 @@ class ContinuousBatchingEngine:
     steps the host drains sampled tokens, retires finished requests (their
     pages go back to the pool) and admits waiting ones.
 
-    ``device`` defaults to ``"cuda"`` and must match the model's device.
-    Engine geometry kwargs (``max_seq_len``, ``page_size``,
-    ``prefill_bucket``, ``num_pages``, ``cache_dtype``, ``sync_every``) go to
-    :class:`LlamaGenerator`.
+    ``device`` defaults to ``"cuda"`` and must match the model's device
+    (shard 0's under tensor parallelism).  ``tensor_parallel`` (default
+    ``FLAGS_serving_tensor_parallel``) and the engine geometry kwargs
+    (``max_seq_len``, ``page_size``, ``prefill_bucket``, ``num_pages``,
+    ``cache_dtype``, ``sync_every``) go to :class:`LlamaGenerator`; the
+    engine's carried state lives on shard 0's device.
 
     Optional features, each resolved from its flag when the argument is
     None and off by default:
@@ -734,10 +913,11 @@ class ContinuousBatchingEngine:
                  spec_decode=None, spec_k: Optional[int] = None,
                  spec_ngram_max: Optional[int] = None,
                  kv_spill_pages: Optional[int] = None,
-                 metrics: Optional[bool] = None, **kw):
+                 metrics: Optional[bool] = None,
+                 tensor_parallel: Optional[int] = None, **kw):
         self.gen_cfg = gen or GenerationConfig()
         self.g = LlamaGenerator(model, max_batch=max_batch, device=device,
-                                **kw)
+                                tensor_parallel=tensor_parallel, **kw)
         dev = self.g.device
         B = max_batch
         self.B = B
@@ -1076,7 +1256,7 @@ class ContinuousBatchingEngine:
         if starting:
             src = self.g.upload(np.asarray([s for s, _ in starting], np.int64))
             dst = self.g.upload(np.asarray([d for _, d in starting], np.int64))
-            _cow_copy_pages(self.g.cache.arrays, src, dst)
+            _cow_copy_pages(self.g.cache.shards, src, dst)
             if self.attribution is not None:
                 self.attribution.stamp("cow_copy", 0)
 
@@ -1122,8 +1302,10 @@ class ContinuousBatchingEngine:
         of device dispatches (with a feature off, its counters are absent
         or 0)."""
         s = self.g.cache.allocator.stats()
-        s["kv_cache_dtype"] = str(self.g.cache.k.dtype).replace("torch.", "")
+        s["kv_cache_dtype"] = str(self.g.cache.kv_dtype).replace("torch.",
+                                                                 "")
         s["pool_bytes"] = self.g.pool_bytes
+        s["tp"] = self.g.tp
         s["steps"] = self.steps
         s["prefix_cache_enabled"] = self.prefix_cache is not None
         if self.prefix_cache is not None:

@@ -11,6 +11,9 @@
   page)).  Each int8 plane holds one physical scratch page past
   ``num_pages`` that the allocator never hands out: the quantized commit
   writes its dropped window entries there instead of over a real page.
+- **Shards** (``devices=``, tensor-parallel serving): each shard stores
+  its block of kv heads of every plane on its own device; page ids and
+  everything host-side stay global.
 - **Host**: a free-list page allocator (plain Python) producing the int32
   block tables the kernel consumes.
 
@@ -269,55 +272,143 @@ class PageAllocator:
 
 
 class PagedKVCache:
-    """Device KV pool for all layers + the allocator that addresses it."""
+    """Device KV pool for all layers + the allocator that addresses it.
+
+    ``devices`` (default ``[device]``) lists one device per tensor-parallel
+    shard, repeats allowed.  Page *storage* is shard-local: shard ``s``
+    holds kv heads ``[s·kvh/tp, (s+1)·kvh/tp)`` of every plane on
+    ``devices[s]`` (:attr:`shards`), while page ids, block tables, the
+    allocator, the prefix cache and the spill ring stay host-global.
+    :meth:`page_planes`, :meth:`read_page` and :meth:`install_page` move
+    one page as its host-global planes (``[L, kvh, page, d]`` K and V,
+    ``[L, kvh]`` int8 scales), so migration snapshots and spill bytes are
+    the same at any shard count."""
 
     def __init__(self, num_layers: int, num_pages: int, page_size: int,
                  num_kv_heads: int, head_dim: int, dtype="bfloat16",
-                 device=None):
+                 device=None, devices=None):
         self.num_layers = num_layers
         self.page_size = page_size
         self.num_kv_heads = num_kv_heads
         self.head_dim = head_dim
         self.quantized = str(dtype) == "int8"
+        self.devices = [torch.device("cpu" if d is None else d) for d in
+                        (devices if devices is not None else [device])]
+        self.tp = len(self.devices)
+        if num_kv_heads % self.tp:
+            raise ValueError(
+                f"num_kv_heads={num_kv_heads} not divisible by "
+                f"tensor-parallel degree {self.tp}")
+        heads = num_kv_heads // self.tp
+        # + 1 on the int8 pool: the scratch page of the quantized commit
+        # (never handed out), one a shard
+        pages = num_pages + 1 if self.quantized else num_pages
+        shape = (num_layers, heads, pages, page_size, head_dim)
+        dt = torch.int8 if self.quantized else torch_dtype(dtype)
+        self.shards: List[Tuple[torch.Tensor, ...]] = []
+        for dev in self.devices:
+            planes = (torch.zeros(shape, dtype=dt, device=dev),
+                      torch.zeros(shape, dtype=dt, device=dev))
+            if self.quantized:
+                # all-zero pages dequantize to exactly 0 under any scale;
+                # 1.0 keeps untouched pages' dequant well-defined
+                planes += (torch.ones(shape[:3], dtype=torch.float32,
+                                      device=dev),
+                           torch.ones(shape[:3], dtype=torch.float32,
+                                      device=dev))
+            self.shards.append(planes)
         if self.quantized:
-            # + 1: the scratch page of the quantized commit (never handed out)
-            shape = (num_layers, num_kv_heads, num_pages + 1, page_size,
-                     head_dim)
-            self.k = torch.zeros(shape, dtype=torch.int8, device=device)
-            self.v = torch.zeros(shape, dtype=torch.int8, device=device)
-            # all-zero pages dequantize to exactly 0 under any scale; 1.0
-            # keeps untouched pages' dequant well-defined
-            self.k_scale = torch.ones(shape[:3], dtype=torch.float32,
-                                      device=device)
-            self.v_scale = torch.ones(shape[:3], dtype=torch.float32,
-                                      device=device)
             # pool bytes saved against an equal-page fp32 pool (K and V,
             # minus the scale planes)
             per = num_layers * num_kv_heads * num_pages
             saved = 2 * (per * page_size * head_dim * 3 - per * 4)
             _serving_bump("kv.quant_bytes_saved", max(saved, 0))
-        else:
-            shape = (num_layers, num_kv_heads, num_pages, page_size,
-                     head_dim)
-            dt = torch_dtype(dtype)
-            self.k = torch.zeros(shape, dtype=dt, device=device)
-            self.v = torch.zeros(shape, dtype=dt, device=device)
-            self.k_scale = None
-            self.v_scale = None
         self.allocator = PageAllocator(num_pages, page_size)
 
     @property
     def arrays(self):
-        """The device state of one engine step: ``(k, v)`` for a float
-        pool, ``(k, v, k_scale, v_scale)`` when quantized."""
-        if self.quantized:
-            return self.k, self.v, self.k_scale, self.v_scale
-        return self.k, self.v
+        """The device state of one engine step at tp=1: ``(k, v)`` for a
+        float pool, ``(k, v, k_scale, v_scale)`` when quantized.  A sharded
+        pool has no single tuple: read :attr:`shards`, or move pages with
+        the host-global accessors."""
+        if self.tp != 1:
+            raise RuntimeError(
+                f"a pool of {self.tp} shards has no single plane tuple: "
+                "read .shards or use page_planes / install_page")
+        return self.shards[0]
+
+    @property
+    def k(self):
+        return self.arrays[0]
+
+    @property
+    def v(self):
+        return self.arrays[1]
+
+    @property
+    def k_scale(self):
+        return self.arrays[2] if self.quantized else None
+
+    @property
+    def v_scale(self):
+        return self.arrays[3] if self.quantized else None
+
+    @property
+    def kv_dtype(self) -> torch.dtype:
+        """The K/V planes' storage dtype (``torch.int8`` when quantized)."""
+        return self.shards[0][0].dtype
+
+    def heads(self, shard: int) -> slice:
+        """The global kv heads shard ``shard`` stores."""
+        h = self.num_kv_heads // self.tp
+        return slice(shard * h, (shard + 1) * h)
+
+    def page_shapes(self) -> List[Tuple[Tuple[int, ...], torch.dtype]]:
+        """(shape, dtype) of each host-global page plane, in
+        :meth:`page_planes` order."""
+        out = []
+        for arr in self.shards[0]:
+            shape = (arr.shape[0], self.num_kv_heads) + tuple(arr.shape[3:])
+            out.append((shape, arr.dtype))
+        return out
+
+    def page_planes(self, page_id: int, device=None) -> Tuple[torch.Tensor,
+                                                             ...]:
+        """Page ``page_id``'s host-global planes as fresh tensors on
+        ``device`` (default: shard 0's): each plane's shards joined on the
+        head axis in shard order."""
+        dev = self.devices[0] if device is None else device
+        return tuple(
+            torch.cat([shard[i][:, :, page_id].to(dev) for shard in
+                       self.shards], dim=1)
+            for i in range(len(self.shards[0])))
+
+    def read_page(self, page_id: int, out: Sequence[torch.Tensor]) -> None:
+        """Copy page ``page_id``'s planes into the host-global ``out``
+        planes (a blocking copy when ``out`` is on the host)."""
+        for s, shard in enumerate(self.shards):
+            blk = self.heads(s)
+            for dst, arr in zip(out, shard):
+                dst[:, blk].copy_(arr[:, :, page_id])
+
+    def install_page(self, page_id: int, planes: Sequence[torch.Tensor],
+                     non_blocking: bool = False) -> None:
+        """Copy host-global ``planes`` into page ``page_id``, each shard
+        its head block, on the current streams.  Under shards a plane goes
+        to shard 0's device whole first, so the per-shard head blocks are
+        device copies."""
+        for i, p in enumerate(planes):
+            if self.tp > 1:
+                p = p.to(self.devices[0], non_blocking=non_blocking)
+            for s, shard in enumerate(self.shards):
+                shard[i][:, :, page_id].copy_(p[:, self.heads(s)],
+                                              non_blocking=non_blocking)
 
     @staticmethod
     def bytes_per_page(num_layers: int, num_kv_heads: int, page_size: int,
                        head_dim: int, dtype="bfloat16") -> int:
-        """Device bytes one pool page costs (K + V + scales, all layers)."""
+        """Device bytes one pool page costs (K + V + scales, all layers,
+        all shards)."""
         per = num_layers * num_kv_heads
         if str(dtype) == "int8":
             return 2 * per * (page_size * head_dim + 4)

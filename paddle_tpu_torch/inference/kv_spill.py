@@ -26,6 +26,9 @@ prefix pays a full re-prefill.  With it, eviction demotes the page:
 The ring is sized once, at engine build, and never grows: one pinned
 tensor per pool plane, ``[capacity, layers, kv_heads, page, head_dim]`` for
 K and V and ``[capacity, layers, kv_heads]`` for each int8 scale plane.
+Its slots are host-global under tensor parallelism: a spill copies each
+shard's head block into the slot and a swap-in copies it back, so the
+ring's bytes are the same at any shard count.
 """
 
 from __future__ import annotations
@@ -51,12 +54,12 @@ class HostSpillPool:
         self.capacity = int(capacity)
         self._free: List[int] = list(range(self.capacity - 1, -1, -1))
         self._used: Dict[int, None] = {}
-        cuda = cache.k.device.type == "cuda"
+        self._dev = cache.devices[0]
+        cuda = self._dev.type == "cuda"
         # one page of every plane per slot: [L, kvh, page, d] / [L, kvh]
         self._ring = tuple(
-            torch.empty((self.capacity,) + tuple(a.shape[:2]) +
-                        tuple(a.shape[3:]), dtype=a.dtype, pin_memory=cuda)
-            for a in cache.arrays)
+            torch.empty((self.capacity,) + shape, dtype=dt, pin_memory=cuda)
+            for shape, dt in cache.page_shapes())
         self._uploads: Dict[int, "torch.cuda.Event"] = {}
         self.spilled_pages = 0           # cumulative spills
         self.swapins = 0                 # cumulative swap-ins
@@ -100,8 +103,7 @@ class HostSpillPool:
             return None
         slot = self._free.pop()
         _obs.count_sync()                # eviction-path page readback
-        for ring, plane in zip(self._ring, self.cache.arrays):
-            ring[slot].copy_(plane[:, :, page_id])
+        self.cache.read_page(page_id, [ring[slot] for ring in self._ring])
         self._used[slot] = None
         self.spilled_pages += 1
         self._c_spilled.inc()
@@ -114,11 +116,12 @@ class HostSpillPool:
         write uses, so the page is whole before any later step reads it."""
         del self._used[slot]
         t0 = time.perf_counter()
-        for ring, plane in zip(self._ring, self.cache.arrays):
-            plane[:, :, page_id].copy_(ring[slot], non_blocking=True)
-        if self.cache.k.device.type == "cuda":
+        self.cache.install_page(page_id, [ring[slot] for ring in self._ring],
+                                non_blocking=True)
+        if self._dev.type == "cuda":
+            # the slot's one upload reads the ring on shard 0's stream
             ev = torch.cuda.Event()
-            ev.record()
+            ev.record(torch.cuda.current_stream(self._dev))
             self._uploads[slot] = ev
         ms = (time.perf_counter() - t0) * 1e3
         self.swapin_host_ms += ms

@@ -14,8 +14,9 @@ A session's KV becomes a transferable artifact:
 - **Import** installs pages on the successor through the existing seams:
   ``PageAllocator.acquire_page()`` (which reclaims idle cached pages under
   pressure, so an import can evict but never deadlock), one copy a plane
-  into ``cache.arrays[i][:, :, page]`` on the current stream (as the spill
-  tier swaps a page in), then a READY idle prefix-cache node.  The resumed
+  into the page through ``PagedKVCache.install_page`` on the current
+  stream (as the spill tier swaps a page in), then a READY idle
+  prefix-cache node.  The resumed
   request (``resume=True``) admits with a near-full prefix hit: only the
   partial-page tail (and the final token's copy-on-write re-prefill)
   computes.
@@ -29,7 +30,10 @@ payloads, the reference's format byte for byte: a plane is ``{"dtype",
 "shape", "b64"}`` with the dtype named as numpy names it (``"bfloat16"``,
 ``"float32"``, ``"int8"``), so snapshots cross between the two packages and
 hash to the same ``snapshot_digest``.  Live planes are CPU tensors; a bf16
-plane is encoded and hashed from its raw bytes.
+plane is encoded and hashed from its raw bytes.  Planes are host-global
+under tensor parallelism (every shard's heads, joined in shard order), so
+a snapshot and its digest are the same at any shard count, and an import
+re-shards.
 
 Export and import run on the engine's thread (the server's
 ``run_on_engine``), between steps; the codec touches no engine state, so
@@ -148,7 +152,7 @@ def _geometry(engine) -> Dict[str, object]:
             "kv_heads": cache.num_kv_heads,
             "page_size": cache.page_size,
             "head_dim": cache.head_dim,
-            "dtype": "int8" if cache.quantized else _DTYPES[cache.k.dtype]}
+            "dtype": "int8" if cache.quantized else _DTYPES[cache.kv_dtype]}
 
 
 def _check_geometry(engine, snap: dict) -> None:
@@ -161,16 +165,11 @@ def _check_geometry(engine, snap: dict) -> None:
 
 
 def _page_planes(engine, page_id: int) -> Tuple[torch.Tensor, ...]:
-    """One pool page's planes as CPU tensors, in ``cache.arrays`` order
-    (``[L, kvh, page, d]`` for K and V, ``[L, kvh]`` for the int8 scales).
-    The readback is a marked intentional sync on the migration path."""
+    """One pool page's host-global planes as fresh CPU tensors (``[L, kvh,
+    page, d]`` for K and V, ``[L, kvh]`` for the int8 scales).  The
+    readback is a marked intentional sync on the migration path."""
     _obs.count_sync()
-    out = []
-    for arr in engine.g.cache.arrays:
-        p = arr[:, :, page_id]
-        p = p.cpu() if p.device.type != "cpu" else p.clone()
-        out.append(p.contiguous())
-    return tuple(out)
+    return engine.g.cache.page_planes(page_id, device="cpu")
 
 
 def _plane_label(p) -> str:
@@ -385,15 +384,14 @@ def export_all(engine) -> List[dict]:
 # ---------------------------------------------------------------------------
 
 def _check_planes(engine, planes) -> None:
-    arrays = engine.g.cache.arrays
-    if len(planes) != len(arrays):
+    shapes = engine.g.cache.page_shapes()
+    if len(planes) != len(shapes):
         raise MigrationError(f"page has {len(planes)} planes, the pool "
-                             f"{len(arrays)}")
-    for p, arr in zip(planes, arrays):
-        want = tuple(arr.shape[:2]) + tuple(arr.shape[3:])
-        if tuple(p.shape) != want or p.dtype != arr.dtype:
+                             f"{len(shapes)}")
+    for p, (want, dt) in zip(planes, shapes):
+        if tuple(p.shape) != want or p.dtype != dt:
             raise MigrationError(f"plane {p.dtype} {tuple(p.shape)} does "
-                                 f"not fit the pool's {arr.dtype} {want}")
+                                 f"not fit the pool's {dt} {want}")
 
 
 def _install_page(engine, page_id: int, planes) -> None:
@@ -403,8 +401,7 @@ def _install_page(engine, page_id: int, planes) -> None:
     call returns, and stream order puts the page ahead of any later step's
     read."""
     _obs.count_sync()
-    for arr, p in zip(engine.g.cache.arrays, planes):
-        arr[:, :, page_id].copy_(p)
+    engine.g.cache.install_page(page_id, planes)
 
 
 def import_session(engine, snap: dict, resume: bool = False) -> dict:

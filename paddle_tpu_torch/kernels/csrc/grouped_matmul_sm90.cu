@@ -455,9 +455,7 @@ cudaError_t launch_narrow(const void* lhs, const void* rhs, const void* tg, cons
   CUtensorMap tw;
   if (!encode_weight(&tw, rhs, E, C, O, TRANS, kNarrowCols)) return cudaErrorInvalidValue;
   constexpr size_t bytes = NarrowSmem<TM>::bytes;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      gmm_sm90_narrow_kernel<TM, TRANS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+  const cudaError_t attr = allow_dynamic_smem<gmm_sm90_narrow_kernel<TM, TRANS>>(bytes);
   if (attr != cudaSuccess) return attr;
   const int grid = (M / TM) * (O / kNarrowCols);
   gmm_sm90_narrow_kernel<TM, TRANS><<<grid, kNarrowThreads, bytes, s>>>(

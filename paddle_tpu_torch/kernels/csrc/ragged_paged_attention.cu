@@ -762,9 +762,8 @@ cudaError_t launch_split_r(const void* q, const void* kc, const void* vc, const 
                            int B, int T_, int qh, int kvh, int num_pages, int page_size, int W,
                            int splits, cudaStream_t stream) {
   constexpr size_t bytes = SplitSmem<KV, D>::bytes;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      ragged_paged_attn_split_kernel<T, KV, D, RMAX>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  const cudaError_t attr =
+      sm90::allow_dynamic_smem<ragged_paged_attn_split_kernel<T, KV, D, RMAX>>(bytes);
   if (attr != cudaSuccess) return attr;
   ragged_paged_attn_split_kernel<T, KV, D, RMAX>
       <<<dim3(splits, kvh, B), kSplitThreads, bytes, stream>>>(

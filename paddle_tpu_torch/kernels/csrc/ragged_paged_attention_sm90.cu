@@ -466,9 +466,8 @@ cudaError_t launch(const void* q, const void* kc, const void* vc, const void* ks
       (!encode_bshd(&tkn, kn, B, T, kvh, D, kBN) || !encode_bshd(&tvn, vn, B, T, kvh, D, kBN)))
     return cudaErrorInvalidValue;
   constexpr size_t bytes = PrefillSmem<D, kQuant>::bytes;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(ragged_paged_attn_prefill_sm90_kernel<D, kQuant>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  const cudaError_t attr =
+      allow_dynamic_smem<ragged_paged_attn_prefill_sm90_kernel<D, kQuant>>(bytes);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((T * group + kBM - 1) / kBM, kvh, B);
   ragged_paged_attn_prefill_sm90_kernel<D, kQuant><<<grid, kThreads, bytes, stream>>>(

@@ -16,6 +16,7 @@
 #include <cuda_fp16.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 namespace sm90 {
@@ -645,23 +646,55 @@ __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
+// ---- per-device launch set-up ----------------------------------------------
+
+// A function attribute belongs to the device that was current when it was
+// set, so set-up done once per process would leave a launch on another card
+// without it.  Runs `setup` once for each device that launches `Kernel`
+// (the current device) and returns its result there; two threads that race
+// both run it, which is harmless for an attribute.
+constexpr int kMaxDevices = 64;
+
+template <auto Kernel, typename Setup>
+cudaError_t once_per_device(Setup setup) {
+  static std::atomic<int> state[kMaxDevices];  // 0: not yet, else error + 1
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return setup();
+  int s = state[dev].load(std::memory_order_acquire);
+  if (s == 0) {
+    s = static_cast<int>(setup()) + 1;
+    state[dev].store(s, std::memory_order_release);
+  }
+  return static_cast<cudaError_t>(s - 1);
+}
+
+// Allows `Kernel` `bytes` of dynamic shared memory on the current device.
+template <auto Kernel>
+cudaError_t allow_dynamic_smem(size_t bytes) {
+  return once_per_device<Kernel>([=]() -> cudaError_t {
+    return cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(bytes));
+  });
+}
+
 // A warp-specialised kernel's consumers raise their registers with
 // setmaxnreg.inc, which waits for registers the producer gives back; it can
 // only be met when the launch holds threads x numRegs >= `regs_needed`, the
-// sum of both roles' budgets.  Checked once per kernel, so a build that
-// breaks it fails the launch instead of hanging the card; then allows
-// `smem_bytes` of dynamic shared memory.
+// sum of both roles' budgets.  Checked once per kernel and device, so a
+// build that breaks it fails the launch instead of hanging the card; then
+// allows `smem_bytes` of dynamic shared memory.
 template <auto Kernel>
 cudaError_t prepare_warp_specialized(size_t smem_bytes, int threads, int regs_needed) {
-  static const cudaError_t checked = [=]() -> cudaError_t {
+  return once_per_device<Kernel>([=]() -> cudaError_t {
     cudaFuncAttributes attr;
     cudaError_t e = cudaFuncGetAttributes(&attr, Kernel);
     if (e != cudaSuccess) return e;
     if (attr.numRegs * threads < regs_needed) return cudaErrorLaunchOutOfResources;
     return cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 static_cast<int>(smem_bytes));
-  }();
-  return checked;
+  });
 }
 
 }  // namespace sm90

@@ -458,9 +458,7 @@ cudaError_t launch_narrow(const void* x, const void* w, const float* scale, void
       !encode_codes(&tw, w, INT4 ? (k + 1) / 2 : k, n, kNarrowCols, kNarrowRaw))
     return cudaErrorInvalidValue;
   constexpr size_t bytes = NarrowSmem<TM, INT4>::bytes;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(wo_narrow_kernel<T, INT4, TM>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  const cudaError_t attr = allow_dynamic_smem<wo_narrow_kernel<T, INT4, TM>>(bytes);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((n + kNarrowCols - 1) / kNarrowCols, splits);
   wo_narrow_kernel<T, INT4, TM><<<grid, kNarrowThreads, bytes, s>>>(

@@ -50,6 +50,8 @@ import ctypes
 
 import torch
 
+from . import on_device
+
 # Launches of each CUDA kernel since import (or the last reset by a caller).
 LAUNCHES = 0          # gmm, forward form (rhs [E, C, O])
 LAUNCHES_TRANS = 0    # gmm with trans_rhs (rhs [E, O, C])
@@ -320,10 +322,11 @@ def _cuda_gmm(lhs, rhs, tile_groups, bm, rows, trans_rhs, row_scale):
         tm = sm90_plan(bm, M, O)["tm"]
     else:
         fn, tm = _lib().ptt_gmm, row_tile(bm)
-    err = fn(_ptr(lhs), _ptr(rhs), _ptr(tile_groups), _ptr(rows),
-             _ptr(row_scale), _ptr(out), M, C, O, E, L, bm, tm,
-             int(trans_rhs), _DTYPE_CODE[lhs.dtype],
-             torch.cuda.current_stream(lhs.device).cuda_stream)
+    with on_device(lhs.device):
+        err = fn(_ptr(lhs), _ptr(rhs), _ptr(tile_groups), _ptr(rows),
+                 _ptr(row_scale), _ptr(out), M, C, O, E, L, bm, tm,
+                 int(trans_rhs), _DTYPE_CODE[lhs.dtype],
+                 torch.cuda.current_stream(lhs.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"grouped_matmul launch failed: CUDA error {err}")
     if trans_rhs:

@@ -50,6 +50,8 @@ import math
 
 import torch
 
+from . import on_device
+
 NEG_INF = -1e30
 
 # Launches of the CUDA kernel since import (or the last reset by a caller),
@@ -213,19 +215,35 @@ def split_plan(B, kvh, W, page_size):
     return max(1, min(want, -(-W // min_pages), _SPLIT_MAX))
 
 
+def _plan_heads(kvh, plan_kv_heads):
+    """The kv-head count a launch plans from: its own, or the global count
+    of a tensor-parallel shard's launch (a multiple of its own)."""
+    if plan_kv_heads is None:
+        return kvh
+    if plan_kv_heads < kvh or plan_kv_heads % kvh:
+        raise ValueError(f"plan_kv_heads ({plan_kv_heads}) must be a "
+                         f"multiple of the operand's kv heads ({kvh})")
+    return plan_kv_heads
+
+
 def launch_plan(q, k_cache, block_tables, *, v_cache=None, k_new=None,
-                v_new=None):
+                v_new=None, plan_kv_heads=None):
     """A launch's route, split count and partials workspace (fp32
     elements), from the operands' dtypes, shapes and alignment alone: no
     value is read, so the context lengths stay on the device (meta tensors
-    plan as well)."""
+    plan as well).  ``plan_kv_heads`` is the global kv-head count of a
+    tensor-parallel shard's launch: the split count is planned from it, so
+    every shard cuts each sequence's pages into the runs tp=1 does (the
+    lse merge of two splits rounds differently from one pass).  The route
+    depends on the GQA group, which sharding keeps."""
     b, t, qh, d = q.shape
     kvh, _, page_size, _ = k_cache.shape
+    heads = _plan_heads(kvh, plan_kv_heads)
     aligned = _tma_ready(k_cache, q, v_cache, k_new, v_new)
     route = _route(t, qh // kvh, q.dtype, k_cache.dtype, d, aligned)
     if route != "split":
         return {"route": route, "splits": None, "workspace": 0}
-    splits = split_plan(b, kvh, block_tables.shape[1], page_size)
+    splits = split_plan(b, heads, block_tables.shape[1], page_size)
     return {"route": "split", "splits": splits,
             "workspace": b * kvh * splits * _SPLIT_ROWS * (d + 2)
             if splits > 1 else 0}
@@ -318,7 +336,7 @@ def _entry_args(q, k_cache, v_cache, block_tables, context_lens, q_lens,
 
 def _cuda_ragged_paged_attention(q, k_cache, v_cache, block_tables,
                                  context_lens, q_lens, k_new, v_new,
-                                 k_scale, v_scale):
+                                 k_scale, v_scale, plan_kv_heads=None):
     """Launch the route's kernel(s) on the current stream."""
     global LAUNCHES, LAUNCHES_INT8, LAUNCHES_SPLIT, LAUNCHES_INT8_SPLIT, \
         LAUNCHES_SM90, LAUNCHES_INT8_SM90
@@ -328,21 +346,23 @@ def _cuda_ragged_paged_attention(q, k_cache, v_cache, block_tables,
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     args = _entry_args(q, k_cache, v_cache, block_tables, context_lens,
                        q_lens, k_new, v_new, k_scale, v_scale, out, lse)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    plan = launch_plan(q, k_cache, block_tables, v_cache=v_cache,
-                       k_new=k_new, v_new=v_new)
-    route = plan["route"]
-    if route == "split":
-        # the partials (m, l, acc[d]) of every split, merged after
-        ws = torch.empty((plan["workspace"],), dtype=torch.float32,
-                         device=q.device) if plan["workspace"] else None
-        err = _kernel_fn("ptt_ragged_paged_attention_split")(
-            *args, plan["splits"], None if ws is None else ws.data_ptr(),
-            stream)
-    elif route == "sm90":
-        err = _kernel_fn("ptt_ragged_paged_attention_sm90")(*args, stream)
-    else:
-        err = _kernel_fn()(*args, stream)
+    with on_device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        plan = launch_plan(q, k_cache, block_tables, v_cache=v_cache,
+                           k_new=k_new, v_new=v_new,
+                           plan_kv_heads=plan_kv_heads)
+        route = plan["route"]
+        if route == "split":
+            # the partials (m, l, acc[d]) of every split, merged after
+            ws = torch.empty((plan["workspace"],), dtype=torch.float32,
+                             device=q.device) if plan["workspace"] else None
+            err = _kernel_fn("ptt_ragged_paged_attention_split")(
+                *args, plan["splits"], None if ws is None else ws.data_ptr(),
+                stream)
+        elif route == "sm90":
+            err = _kernel_fn("ptt_ragged_paged_attention_sm90")(*args, stream)
+        else:
+            err = _kernel_fn()(*args, stream)
     if err != 0:
         raise RuntimeError(f"ragged_paged_attention ({route}) launch failed: "
                            f"CUDA error {err}")
@@ -361,7 +381,8 @@ def _cuda_ragged_paged_attention(q, k_cache, v_cache, block_tables,
 
 def ragged_paged_attention(q, k_cache, v_cache, block_tables, context_lens,
                            *, q_lens=None, k_new=None, v_new=None,
-                           k_scale=None, v_scale=None, with_lse=False):
+                           k_scale=None, v_scale=None, with_lse=False,
+                           plan_kv_heads=None):
     """Mixed-mode serving attention: prefill chunks and decode tokens in one
     call over a paged KV cache.
 
@@ -380,6 +401,9 @@ def ragged_paged_attention(q, k_cache, v_cache, block_tables, context_lens,
       k_scale/v_scale: [num_kv_heads, num_pages] fp32 — per-(kv-head,
                     page) dequant scales of an int8 pool.
       with_lse:     also return the fp32 logsumexp [batch, T, q_heads].
+      plan_kv_heads: the global kv-head count when this call is one
+                    tensor-parallel shard's (default: num_kv_heads); the
+                    split route plans from it (:func:`launch_plan`).
 
     CUDA tensors launch a Hopper kernel (the route :func:`_route` picks);
     CPU tensors take the plain version.  Returns out [batch, T,
@@ -392,10 +416,11 @@ def ragged_paged_attention(q, k_cache, v_cache, block_tables, context_lens,
         raise ValueError("k_new and v_new must be given together")
     if (k_scale is None) != (v_scale is None):
         raise ValueError("k_scale and v_scale must be given together")
+    _plan_heads(kvh, plan_kv_heads)
     if q.device.type == "cuda":
         out, lse = _cuda_ragged_paged_attention(
             q, k_cache, v_cache, block_tables, context_lens, q_lens, k_new,
-            v_new, k_scale, v_scale)
+            v_new, k_scale, v_scale, plan_kv_heads)
     elif q.device.type == "cpu":
         out, lse = _reference_ragged_paged_attention(
             q, k_cache, v_cache, block_tables, context_lens, q_lens, k_new,

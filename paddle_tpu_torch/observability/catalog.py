@@ -117,6 +117,16 @@ CATALOG: Dict[str, tuple] = {
     "serving.kv.handoff_reprefill_tokens": (
         "counter", "", "tokens the decode leg re-prefills because their "
         "pages did not survive the handoff"),
+    # ---- serving: tensor-parallel engine ----
+    "serving.tp.degree": (
+        "gauge", "", "tensor-parallel shard count of the serving engine "
+        "(FLAGS_serving_tensor_parallel; 1 = one device): the KV pool and "
+        "attention shard by kv head, grouped MoE by expert, with outputs "
+        "bit-identical to tp=1"),
+    "serving.tp.shard_pool_bytes": (
+        "gauge", "", "per-shard KV page-pool bytes (host-global pool bytes "
+        "/ tp): each shard stores only its kv heads' page planes and int8 "
+        "scale rows"),
     # ---- serving: speculative decoding ----
     "serving.spec.drafted_tokens": (
         "counter", "", "draft tokens dispatched for verification"),

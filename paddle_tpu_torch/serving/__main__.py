@@ -11,7 +11,11 @@ is built (``--prefix-cache``, or ``--set prefix_cache=1``;
 serving_slo_ttft_ms=500``, ``--set serving_sentinel=0``, ``--set
 flight_recorder_path=/tmp/fr.json``, ``--set fleet_drain_timeout_s=10``,
 ``--set metrics=0``).  ``--role prefill|decode|mixed`` sets the role the
-replica advertises to a router (``FLAGS_serving_role``).  The replica warms
+replica advertises to a router (``FLAGS_serving_role``).
+``--tensor-parallel N`` shards the engine over N shard devices: ``--device
+cuda`` puts shard i on ``cuda:i``, a comma-separated list names each
+shard's device (``--device cuda:0,cuda:0 --tensor-parallel 2`` on one
+card).  The replica warms
 up before ``/readyz`` reports ready unless ``--no-warmup`` is given.
 
 ``serve_forever`` wires SIGTERM to a graceful drain (after the flight
@@ -51,8 +55,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "(default: the preset)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
-                   help="torch device of the model and KV pool "
-                        "(cuda or cpu)")
+                   help="torch device of the model and KV pool (cuda or "
+                        "cpu), or a comma-separated list of one device a "
+                        "tensor-parallel shard (repeats allowed: "
+                        "cuda:0,cuda:0 runs tp=2 on one card)")
     p.add_argument("--max-batch", type=int, default=8,
                    help="engine slots (continuous-batching width)")
     p.add_argument("--max-seq-len", type=int, default=1024)
@@ -60,6 +66,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prefill-bucket", type=int, default=64)
     p.add_argument("--num-pages", type=int, default=None,
                    help="KV pool pages (default: engine sizing rule)")
+    p.add_argument("--tensor-parallel", type=int, default=None,
+                   help="shard the KV pool and attention by kv head and "
+                        "grouped MoE by expert over this many shard "
+                        "devices (FLAGS_serving_tensor_parallel; outputs "
+                        "stay bit-identical to tp=1)")
     p.add_argument("--cache-dtype", default=None,
                    choices=("auto", "fp32", "float32", "bf16", "bfloat16",
                             "int8"),
@@ -102,12 +113,15 @@ def engine_kwargs(args) -> dict:
     is threaded through to ``ContinuousBatchingEngine``)."""
     from ..inference import GenerationConfig
 
+    device = args.device.split(",") if "," in args.device else args.device
     kw = dict(max_batch=args.max_batch,
               gen=GenerationConfig(max_new_tokens=args.max_new_tokens),
               max_seq_len=args.max_seq_len, page_size=args.page_size,
-              prefill_bucket=args.prefill_bucket, device=args.device)
+              prefill_bucket=args.prefill_bucket, device=device)
     if args.num_pages is not None:
         kw["num_pages"] = args.num_pages
+    if getattr(args, "tensor_parallel", None) is not None:
+        kw["tensor_parallel"] = args.tensor_parallel
     if args.cache_dtype is not None:
         kw["cache_dtype"] = None if args.cache_dtype == "auto" \
             else args.cache_dtype
@@ -120,13 +134,18 @@ def build_engine(args):
     """Model + engine from parsed args (the flags set by ``--set`` are read
     when the engine is built)."""
     from ..inference import ContinuousBatchingEngine
+    from ..inference.generation import shard_devices
     from ..models.llama import LlamaConfig, LlamaForCausalLM
 
     kw = {} if args.num_layers is None else \
         {"num_hidden_layers": args.num_layers}
     cfg = getattr(LlamaConfig, args.preset)(**kw)
-    model = LlamaForCausalLM(cfg, device=args.device, seed=args.seed)
-    return ContinuousBatchingEngine(model, **engine_kwargs(args))
+    ekw = engine_kwargs(args)
+    devs = shard_devices(ekw["device"], ekw.get(
+        "tensor_parallel", int(flags.flag("serving_tensor_parallel") or 1)))
+    # the weights live on shard 0's device
+    model = LlamaForCausalLM(cfg, device=devs[0], seed=args.seed)
+    return ContinuousBatchingEngine(model, **ekw)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import asyncio
 import json
+import math
 import os
 import queue
 import signal
@@ -74,8 +75,8 @@ def _import_body_limit(engine) -> int:
     token lists and the rest.  A larger body carries more pages than the
     engine can adopt at once; the caller splits it."""
     cache = engine.g.cache
-    page_b64 = sum(4 * -(-(a.numel() // a.shape[2] * a.element_size()) // 3)
-                   for a in cache.arrays)
+    page_b64 = sum(4 * -(-(math.prod(shape) * dt.itemsize) // 3)
+                   for shape, dt in cache.page_shapes())
     return cache.allocator.num_pages * (page_b64 + _PAGE_FRAMING) \
         + _http.MAX_BODY
 
@@ -1013,7 +1014,10 @@ class ServingServer:
                 "slots_busy": sum(r is not None for r in eng.slot_req),
                 "slots": eng.B,
                 "streams_live": len(self._live),
-                "tp": 1,
+                # capacity advertisement, explicit so that it never waits
+                # on a drain to refresh last_stats: the router's
+                # capacity_score reads both
+                "tp": eng.g.tp,
                 "pool_bytes": eng.g.pool_bytes,
                 # greedy continuations are exact anywhere; sampled ones on
                 # an engine with this exact positional config

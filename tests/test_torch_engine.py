@@ -145,9 +145,11 @@ def test_sampled_run_is_seed_deterministic_across_batches(pair):
 
 
 def test_engine_rejects_unported_options(pair):
+    """Tensor parallelism is ported: a degree the heads cannot take raises
+    (kv heads 2 split 3 ways), as the reference does."""
     _, tm = pair
-    with pytest.raises(TypeError):
-        ContinuousBatchingEngine(tm, device="cpu", tensor_parallel=2)
+    with pytest.raises(ValueError, match="num_kv_heads"):
+        ContinuousBatchingEngine(tm, device="cpu", tensor_parallel=3)
     # the int8 plane is ported: the engine builds a quantized pool
     eng = ContinuousBatchingEngine(tm, device="cpu", cache_dtype="int8")
     assert eng.g.cache.quantized and len(eng.g.cache.arrays) == 4

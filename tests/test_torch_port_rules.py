@@ -178,8 +178,7 @@ def test_unported_control_plane_asks_raise(monkeypatch):
     and the fleet launcher's ``--routers 2`` reach their serving loops
     (stubbed here: the router's loop records its arguments, the fleet's
     router listener stops at once, its router slot spawns no process);
-    ``--tensor-parallel`` still raises naming item 14: nothing unported is
-    skipped quietly."""
+    ``--tensor-parallel 2`` is forwarded to every replica's launcher."""
     import asyncio
     import signal
 
@@ -221,8 +220,22 @@ def test_unported_control_plane_asks_raise(monkeypatch):
     finally:
         signal.signal(signal.SIGTERM, old)
     assert (seen["fleet"], seen["slot"]) == ("rt0", "rt1")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        fleet_main(["--tensor-parallel", "2"])
+    from paddle_tpu_torch.fleet.__main__ import (build_parser,
+                                                 replica_launch_args)
+    launch = replica_launch_args(build_parser().parse_args(
+        ["--tensor-parallel", "2", "--device", "cpu"]))
+    at = launch.index("--tensor-parallel")
+    assert launch[at + 1] == "2"
+
+    async def stop_at_once(self, host, port):
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(RouterServer, "start_http", stop_at_once)
+    try:
+        assert fleet_main(["--tensor-parallel", "2", "--replicas", "0",
+                           "--min-replicas", "0", "--device", "cpu"]) == 0
+    finally:
+        signal.signal(signal.SIGTERM, old)
 
 
 def test_importing_the_training_stack_loads_no_jax(stack_report):
