@@ -164,7 +164,8 @@ is caught; there is no ``ok`` line unless every phase passed):
     join the ``kernels`` line.
 7h. ``serve_tp`` — tensor-parallel serving on the one card: one engine
     over the shard devices ``["cuda:0", "cuda:0"]`` (tp=2) against the tp=1
-    engine over the same full llama2_7b (32 layers, bf16) at the launcher's
+    engine over the same llama2_7b widths cut to 16 layers (bf16; cut
+    from 32 to keep the whole script inside 900 s) at the launcher's
     geometry, 8 streams of 64 tokens (prompts 32-512): tokens equal, the
     final hidden states of a prefill and a decode step ``torch.equal``,
     every attention launch count 2x tp=1's on every route, each shard's
@@ -260,6 +261,40 @@ is caught; there is no ``ok`` line unless every phase passed):
     3·L·steps (``tgmm``), each all on the sm90 route, and the flash
     kernels' 2·L·steps, L·steps, L·steps; tokens/s, MFU on the active
     parameters, peak memory and the router's stats.
+13b. ``gpt_parity`` — GPT-2 medium widths (16 heads, d 64) at 2 layers,
+    fp32, B 2, S 512: one set of weights on the card (the flash kernels on
+    the "mma" route) and on the CPU: logits, loss and every gradient (the
+    tied head's one), held by train_parity's rules; launches one forward,
+    dQ and dK/dV a layer.
+13c. ``gpt2`` — GPT-2 medium at full depth (24 layers), bf16, B 8, S
+    1024: 1 warm-up, then 3 timed forward + loss + backward passes, flash
+    launches exactly 24 of each kernel a pass, all on "sm90"; losses and
+    gradients finite; tokens/s, pass ms, MFU (6·N), peak memory; the causal
+    d 64 kernels timed at this shape against SDPA and their bound.
+13d. ``dit_parity`` — DiT-L/2 widths at 512 px latents (s 1024, d 64), 2
+    blocks, fp32, class dropout 0: the trainer on the card against the CPU
+    from one carried state (adaLN-Zero parameters set to random values):
+    ``eps_fn``, first-step gradients, 3 ``train_step``s (PARITY_FAR_SHARE
+    rule), then an 8-step DDIM sample with guidance 4.0 from one x_T;
+    launches one of each kernel a block a step on "mma", the sampler two
+    forwards a block a step.
+13e. ``dit_train`` — through the DiT entry point's ``build_trainer``, bf16,
+    full depth, 1 warm-up + 3 timed steps each: DiT-XL/2 at 256 px (s 256,
+    d 72, B 32), where the reference's attention is XLA: 0 flash launches;
+    DiT-L/2 at 512 px (s 1024, d 64, B 8), where it is Pallas: 24 of each
+    kernel a step, all on "sm90"; then DDIM on that model (B 4, 25 steps,
+    guidance 4.0): 1200 forward launches, output finite.  images/s, MFU,
+    step ms, peak memory; the sampler's images/s; the full d 64 kernels
+    timed at the DiT-L/2 shape against SDPA and their bound.
+13f. ``moe_forms`` — Mixtral-8x7B widths at 2 layers, bf16, B 1, T 1024,
+    capacity factor 1.25: one ``PretrainStep.train_step`` with the
+    ``gather`` and one with the ``einsum`` dispatch, each from
+    ``init_state(seed=0)``: losses finite, flash launches as for grouped,
+    no grouped-matmul launch; einsum at one group against gather on layer
+    0's weights (bf16, MOE_FORMS_BF16_TOL; bit for bit reported), and both
+    at a capacity that drops nothing against the grouped form in fp32.
+    The flash rows of the ``kernels`` line count the launches of ``train``,
+    ``gpt2``, ``dit_train`` (its sampler too) and ``moe_forms``.
 14. ``kernel_wo`` — ptxas's record of the 21 kernels of
     ``weight_only_sm90.cu`` (0 spill bytes each, or it fails); then the
     weight-only W8A16/W4A16 kernels against their plain version: int8 and
@@ -445,6 +480,27 @@ MOE_SPREAD_SEEDS = (0, 0, 1, 2, 3)
 MOE_CONTROL_SEEDS = (0, 1)
 TRAIN_MOE_ARGV = ["--preset", "mixtral_8x7b", "--num-layers", "4",
                   "--batch", "4", "--seq", "2048"]
+# the model families' phases: train_parity's gradient rule (each entry
+# within PARITY_TOL x |want| + PARITY_TOL x the tensor's max |want|)
+PARITY_TOL = 1e-4
+GPT_PARITY = dict(layers=2, batch=2, seq=512)
+GPT2 = dict(batch=8, seq=1024, passes=3)
+DIT_PARITY = dict(input_size=64, depth=2, batch=2, steps=3, sample_steps=8,
+                  guidance=4.0)
+# DiT-XL/2 at 256 px (s 256, d 72: the reference's XLA attention) and
+# DiT-L/2 at 512 px (s 1024, d 64: its Pallas flash kernels)
+DIT_TRAIN = {"dit_xl_2_256": ["--preset", "dit_xl_2", "--batch", "32"],
+             "dit_l_2_512": ["--preset", "dit_l_2", "--input-size", "64",
+                             "--batch", "8"]}
+DIT_STEPS = 3                      # timed, after one warm-up step
+DIT_SAMPLE = dict(model="dit_l_2_512", batch=4, steps=25, guidance=4.0)
+MOE_FORMS = dict(layers=2, batch=1, seq=1024, capacity_factor=1.25)
+# einsum at one group against gather, bf16: the combine rounds the k
+# products once (a matmul) where gather rounds each product and their sum,
+# up to about 1.5 ulps of the row's largest term: 2 bf16 ulps of the
+# output's largest value, and 2 ulps of the entry
+MOE_FORMS_BF16_TOL = 2 ** -7
+MOE_FORMS_DROP_CF = 0.5            # a capacity factor at which entries drop
 WO_SOURCE = "paddle_tpu_torch/kernels/csrc/weight_only.cu"
 WO_SM90_SOURCE = "paddle_tpu_torch/kernels/csrc/weight_only_sm90.cu"
 WO_REPLACES = "paddle_tpu/kernels/weight_only.py:28"
@@ -501,8 +557,14 @@ PRIM_EW_TOL = 1e-6
 PRIM_WIDTHS = dict(rows=8192, hidden=4096, ffn=11008, vocab=32000)
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One phase's JSON line; ``at_s`` is the seconds since the script
+    started (what each phase costs of the run's time limit)."""
+    print(json.dumps({"phase": phase, **kw,
+                      "at_s": time.perf_counter() - _T0}), flush=True)
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -4146,8 +4208,9 @@ def phase_fleet_failover(argv=None):
 
 # ------------------------------------------------------ tensor parallel ---
 
-SERVE_TP = dict(max_batch=8, max_seq_len=1024, page=16, bucket=64,
-                num_pages=512, prompts=(32, 512), requests=8, new_tokens=64,
+SERVE_TP = dict(layers=16, max_batch=8, max_seq_len=1024, page=16,
+                bucket=64, num_pages=512, prompts=(32, 512), requests=8,
+                new_tokens=64,
                 timed_context=512, timed_steps=16, moe_layers=4,
                 moe_new_tokens=32, waves=dict(prefix=128, tails=(16, 64),
                                               requests=4, new_tokens=16,
@@ -4541,8 +4604,8 @@ def _tp_http(eng, prompts, want, max_tokens, vocab):
 def phase_serve_tp(cfg=None, moe_cfg=None, device="cuda"):
     """Tensor-parallel serving on one card: ONE engine over two shard
     devices, both ``cuda:0``, held against the tp=1 engine over the same
-    model.  Full llama2_7b (32 layers, bf16, random weights from the seed)
-    at the launcher's geometry, 8 streams (prompts 32-512, 64 new tokens):
+    model.  llama2_7b widths at SERVE_TP's depth (bf16, random weights from
+    the seed) at the launcher's geometry, 8 streams (prompts 32-512, 64 new tokens):
     tokens equal, the final hidden states of the first prefill and the first
     decode step ``torch.equal``, every attention launch count exactly 2x
     tp=1's on every route and every tp=2 launch planned with tp=1's split
@@ -4565,7 +4628,7 @@ def phase_serve_tp(cfg=None, moe_cfg=None, device="cuda"):
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
     c = SERVE_TP
     cuda = device == "cuda"
-    cfg = cfg or LlamaConfig.llama2_7b()
+    cfg = cfg or LlamaConfig.llama2_7b(num_hidden_layers=c["layers"])
     moe_cfg = moe_cfg or LlamaConfig.mixtral_8x7b(
         num_hidden_layers=c["moe_layers"])
     if cuda:
@@ -4873,13 +4936,8 @@ def phase_kernel_flash(built):
             del q, k, v, g
         torch.cuda.empty_cache()
     timing, train_checks = _flash_timing(gen)
-    failed += [f"training shape {k}: {c}" for k, c in train_checks.items()
-               if not c["ok"]]
-    if timing["routes"] != {"fwd": 1, "dq": 1, "dkv": 1, "fwd_sm90": 1,
-                             "dq_sm90": 1, "dkv_sm90": 1}:
-        failed.append(f"training shape routes: {timing['routes']}")
-    failed += [f"training shape: {k} not bit for bit on a repeat"
-               for k, same in timing["bitwise_repeat"].items() if not same]
+    failed += [f"training shape {f}"
+               for f in _flash_timing_failures(timing, train_checks)]
     ptxas = _sm90_ptxas("\n".join(built[lib]["log"]
                                   for lib in FLASH_SM90_LIBRARIES))
     if set(ptxas) != {f"{w} d{dd}{m}" for w in ("fwd", "dq", "dkv")
@@ -4902,9 +4960,23 @@ def phase_kernel_flash(built):
     return err, timing
 
 
-def _flash_timing(gen):
-    """At the training shape (b 4, s 2048, 32 heads, d 128, bf16, causal):
-    each kernel's output against its plain version's, then CUDA-event times
+def _flash_timing_failures(timing, checks):
+    """What ``_flash_timing`` found wrong: an output out of FLASH_TOL
+    against its plain version, a kernel launched other than once on "sm90",
+    a repeat that is not bit for bit."""
+    failed = [f"{k}: {c}" for k, c in checks.items() if not c["ok"]]
+    if timing["routes"] != {"fwd": 1, "dq": 1, "dkv": 1, "fwd_sm90": 1,
+                            "dq_sm90": 1, "dkv_sm90": 1}:
+        failed.append(f"routes: {timing['routes']}")
+    failed += [f"{k} not bit for bit on a repeat"
+               for k, same in timing["bitwise_repeat"].items() if not same]
+    return failed
+
+
+def _flash_timing(gen, shape=FLASH_TIMED, causal=True):
+    """At ``shape`` (default the training shape: b 4, s 2048, 32 heads, d
+    128; bf16, ``causal``): each kernel's output against its plain
+    version's, then CUDA-event times
     of each kernel and its plain version in turns (plain, kernel, kernel,
     plain), its bound, and scaled_dot_product_attention on the same inputs
     in [b, h, s, d]: forward, backward (autograd, computing dQ, dK and dV
@@ -4917,38 +4989,38 @@ def _flash_timing(gen):
     Returns (timing, checks)."""
     import torch
     from paddle_tpu_torch.kernels import flash_attention as fa
-    b, s, h, d = (FLASH_TIMED[x] for x in "bshd")
+    b, s, h, d = (shape[x] for x in "bshd")
     q, k, v, g = _flash_case(gen, torch.bfloat16, b, s, s, h, h, d)
     _reset_flash_counts()
-    checks = _flash_compare(q, k, v, g, True, FLASH_TOL["bfloat16"])
+    checks = _flash_compare(q, k, v, g, causal, FLASH_TOL["bfloat16"])
     counts = {**_flash_counts(), **_flash_sm90_counts()}
     routes = {key: counts[key] for key in ("fwd", "dq", "dkv", "fwd_sm90",
                                            "dq_sm90", "dkv_sm90")}
     torch.cuda.empty_cache()
-    out, lse = fa.flash_forward(q, k, v, True)
-    out2, lse2 = fa.flash_forward(q, k, v, True)
+    out, lse = fa.flash_forward(q, k, v, causal)
+    out2, lse2 = fa.flash_forward(q, k, v, causal)
     fwd_same = {"out": torch.equal(out, out2), "lse": torch.equal(lse, lse2)}
     del out2, lse2
     delta = fa._delta(out, g)
-    dq1 = fa._cuda_bwd_dq(q, k, v, g, lse, delta, True)
-    dq2 = fa._cuda_bwd_dq(q, k, v, g, lse, delta, True)
-    dk1, dv1 = fa._cuda_bwd_dkv(q, k, v, g, lse, delta, True)
-    dk2, dv2 = fa._cuda_bwd_dkv(q, k, v, g, lse, delta, True)
+    dq1 = fa._cuda_bwd_dq(q, k, v, g, lse, delta, causal)
+    dq2 = fa._cuda_bwd_dq(q, k, v, g, lse, delta, causal)
+    dk1, dv1 = fa._cuda_bwd_dkv(q, k, v, g, lse, delta, causal)
+    dk2, dv2 = fa._cuda_bwd_dkv(q, k, v, g, lse, delta, causal)
     bitwise = {**fwd_same, "dq": torch.equal(dq1, dq2),
                "dk": torch.equal(dk1, dk2), "dv": torch.equal(dv1, dv2)}
     del dq1, dq2, dk1, dv1, dk2, dv2
     calls = {
-        "fwd": (lambda: fa.flash_forward(q, k, v, True),
-                lambda: fa._reference_attention_lse(q, k, v, True)),
-        "dq": (lambda: fa._cuda_bwd_dq(q, k, v, g, lse, delta, True),
-               lambda: fa._flash_bwd_dq(q, k, v, g, lse, delta, True)),
-        "dkv": (lambda: fa._cuda_bwd_dkv(q, k, v, g, lse, delta, True),
-                lambda: fa._flash_bwd_dkv(q, k, v, g, lse, delta, True)),
+        "fwd": (lambda: fa.flash_forward(q, k, v, causal),
+                lambda: fa._reference_attention_lse(q, k, v, causal)),
+        "dq": (lambda: fa._cuda_bwd_dq(q, k, v, g, lse, delta, causal),
+               lambda: fa._flash_bwd_dq(q, k, v, g, lse, delta, causal)),
+        "dkv": (lambda: fa._cuda_bwd_dkv(q, k, v, g, lse, delta, causal),
+                lambda: fa._flash_bwd_dkv(q, k, v, g, lse, delta, causal)),
     }
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qh, kh, vh, gh = (x.transpose(1, 2).contiguous() for x in (q, k, v, g))
     leaves = [x.clone().requires_grad_() for x in (qh, kh, vh)]
-    lib_out = sdpa(*leaves, is_causal=True)
+    lib_out = sdpa(*leaves, is_causal=causal)
     lib_err = float((lib_out.detach().transpose(1, 2).float()
                      - out.float()).abs().max())
 
@@ -4956,14 +5028,15 @@ def _flash_timing(gen):
         return torch.autograd.grad(lib_out, leaves, gh, retain_graph=True)
 
     def lib_fwd_bwd():
-        o = sdpa(*leaves, is_causal=True)
+        o = sdpa(*leaves, is_causal=causal)
         return torch.autograd.grad(o, leaves, gh)
 
-    timing = {"shape": f"b={b} s={s} hq=hkv={h} d={d} bf16 causal",
+    timing = {"shape": f"b={b} s={s} hq=hkv={h} d={d} bf16 "
+                       f"{'causal' if causal else 'full'}",
               "routes": routes, "bitwise_repeat": bitwise,
               "library_max_abs_err_out": lib_err,
-              "sdpa_fwd_ms": cuda_ms(lambda: sdpa(qh, kh, vh, is_causal=True),
-                                     20),
+              "sdpa_fwd_ms": cuda_ms(
+                  lambda: sdpa(qh, kh, vh, is_causal=causal), 20),
               "sdpa_bwd_ms": cuda_ms(lib_bwd, 20),
               "sdpa_fwd_bwd_ms": cuda_ms(lib_fwd_bwd, 20)}
     for which, (kernel, plain) in calls.items():
@@ -4971,7 +5044,7 @@ def _flash_timing(gen):
         for key, fn in (("plain", plain), ("kernel", kernel),
                         ("kernel2", kernel), ("plain2", plain)):
             t[key] = cuda_ms(fn, 3 if key.startswith("plain") else 10)
-        b_ms, b_by = _flash_bound_ms(which, b, s, s, h, h, d, True, 2)
+        b_ms, b_by = _flash_bound_ms(which, b, s, s, h, h, d, causal, 2)
         timing[which] = {"kernel_ms": min(t["kernel"], t["kernel2"]),
                          "kernel_ms_runs": [t["kernel"], t["kernel2"]],
                          "plain_ms": min(t["plain"], t["plain2"]),
@@ -4983,7 +5056,7 @@ def _flash_timing(gen):
         timing["sdpa_bwd_ms"]
     # the backward pair (7 matmul units here, 5 in SDPA's backward, which
     # computes dS once) against SDPA's backward, and the rates of each
-    unit = 2 * b * h * d * _causal_pairs(s, s, True)
+    unit = 2 * b * h * d * _causal_pairs(s, s, causal)
     timing["fwd_rate"] = {
         "kernel_tflops": 2 * unit / timing["fwd"]["kernel_ms"] / 1e9,
         "sdpa_fwd_tflops": 2 * unit / timing["sdpa_fwd_ms"] / 1e9,
@@ -6125,6 +6198,540 @@ def phase_train_moe():
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+# ------------------------------------------------- model families ---
+
+def _parity_bad(got, want, tol=PARITY_TOL):
+    """(entries of ``got`` not finite or further from ``want`` than ``tol``
+    x |want| + ``tol`` x max |want|: train_parity's gradient rule, the
+    largest error)."""
+    import torch
+    g, w = got.detach().float().cpu(), want.detach().float().cpu()
+    err = (g - w).abs()
+    bad = (err > tol * w.abs() + tol * float(w.abs().max())) | \
+        ~torch.isfinite(g)
+    return int(bad.sum()), float(err.nan_to_num(float("inf")).max())
+
+
+def _flash_launches_check(phase, launches, L, n, sm90, fwd_per_layer=1):
+    """``launches`` (counters from 0) must be ``fwd_per_layer`` x L x n
+    forwards and L x n of dQ and dK/dV, all on the "sm90" route where
+    ``sm90`` (bf16 at d 64/128) and none there otherwise."""
+    k = L * n
+    want = {"fwd": fwd_per_layer * k, "dq": k, "dkv": k}
+    want.update({f"{key}_sm90": v if sm90 else 0 for key, v in want.items()})
+    if launches != want:
+        raise AssertionError(f"{phase}: flash launches {launches} != {want}")
+
+
+def _flash_all_counts():
+    return {**_flash_counts(), **_flash_sm90_counts()}
+
+
+def _raise_timing_failures(phase, timing, checks):
+    failed = _flash_timing_failures(timing, checks)
+    if failed:
+        raise AssertionError(f"{phase}: flash timing shape: {failed}")
+
+
+def _profile_breakdown(fn, wall_ms, top=6):
+    """``fn()`` once under ``torch.profiler`` (CPU and CUDA): device-busy
+    ms, the idle share against ``wall_ms`` (the same work's unprofiled wall
+    time), the flash kernels' and cuBLAS GEMMs' ms, the device ms of the
+    kernels inside ``record_function("adam")`` (the DiT trainer's update),
+    and the ``top`` kernels by device ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.profile_step import (GEMM_NAMES, _device_ms,
+                                               _range_device_ms)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = _device_ms(prof)
+    busy = sum(by_name.values())
+
+    def ms(*keys):
+        return sum(v for k, v in by_name.items() if any(x in k for x in keys))
+    return {"device_busy_ms": busy, "idle_share": 1 - busy / wall_ms,
+            "flash_ms": ms("flash_"), "gemm_ms": ms(*GEMM_NAMES),
+            "adam_ms": _range_device_ms(prof, "adam"),
+            "top_kernels_ms": [[k[:120], v] for k, v in sorted(
+                by_name.items(), key=lambda kv: -kv[1])[:top]]}
+
+
+def phase_gpt_parity(cfg=None, device="cuda"):
+    """gpt2_medium widths at GPT_PARITY's depth, fp32, one set of weights
+    on the card (the flash kernels on the "mma" route, cuBLAS fp32) and on
+    the CPU (plain versions): logits, loss and every gradient of the loss,
+    held by train_parity's rules (loss rtol 1e-4; each entry within 1e-4 x
+    |want| + 1e-4 x the tensor's max |want|).  Launches: one forward, dQ
+    and dK/dV a layer."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    c = GPT_PARITY
+    cfg = cfg or GPTConfig.gpt2_medium(num_hidden_layers=c["layers"],
+                                       dtype="float32")
+    cpu = GPTForCausalLM(cfg, device="cpu", seed=0)
+    card = GPTForCausalLM(cfg, device=device, seed=1)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    B, T = c["batch"], c["seq"]
+    ids, labels = (rng.integers(0, cfg.vocab_size, (B, T)) for _ in range(2))
+    labels[:, : T // 8] = -100
+    _reset_flash_counts()
+    out = {}
+    for name, m in (("card", card), ("cpu", cpu)):
+        logits, loss = m(torch.from_numpy(ids).to(m.device),
+                         torch.from_numpy(labels).to(m.device))
+        out[name] = (logits.detach(), loss.detach(),
+                     torch.autograd.grad(loss, list(m.parameters())))
+    launches = _flash_all_counts()
+    L = cfg.num_hidden_layers
+    if device == "cuda":
+        _flash_launches_check("gpt_parity", launches, L, 1, sm90=False)
+    logits_bad, logits_err = _parity_bad(out["card"][0], out["cpu"][0])
+    np.testing.assert_allclose(float(out["card"][1]), float(out["cpu"][1]),
+                               rtol=1e-4)
+    grads = {}
+    for (n, _), a, w in zip(cpu.named_parameters(), out["card"][2],
+                            out["cpu"][2]):
+        grads[n] = _parity_bad(a, w)
+    bad = {n: g for n, g in grads.items() if g[0]}
+    if logits_bad or bad:
+        raise AssertionError(f"gpt_parity: logits entries out of tolerance "
+                             f"{logits_bad} (max err {logits_err}); "
+                             f"gradients {bad}")
+    emit("gpt_parity", layers=L, hidden=cfg.hidden_size,
+         heads=cfg.num_attention_heads, vocab=cfg.vocab_size, batch=B,
+         seq=T, dtype="float32", loss_card=float(out["card"][1]),
+         loss_cpu=float(out["cpu"][1]), logits_max_abs_err=logits_err,
+         grad_max_abs_err=max(g[1] for g in grads.values()),
+         tol=PARITY_TOL, flash_launches=launches,
+         nvidia_smi=_nvidia_smi() if device == "cuda" else None)
+    del card, cpu, out
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def phase_gpt2(cfg=None, device="cuda"):
+    """gpt2_medium at full depth, bf16, GPT2's batch and sequence: one
+    warm-up, then GPT2["passes"] timed forward + loss + backward passes
+    (the model's ``forward(ids, labels)`` and ``torch.autograd.grad`` over
+    every parameter), flash launches counted from 0: one forward, dQ and
+    dK/dV a layer a pass, all on "sm90"; losses and gradients finite.
+    tokens/s, pass ms, MFU (6 x parameters x tokens/s over the bf16 peak),
+    peak memory; then the causal d 64 kernels timed at this shape against
+    SDPA and their bound.  Returns (launches, timing)."""
+    import math
+    import torch
+    from paddle_tpu_torch import PEAK_FLOPS
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    c = GPT2
+    cfg = cfg or GPTConfig.gpt2_medium()
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = GPTForCausalLM(cfg, device=device, seed=0)
+    params = list(model.parameters())
+    gen = torch.Generator(device=model.device).manual_seed(0)
+    B, T = c["batch"], c["seq"]
+    ids, labels = (torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                                 device=model.device) for _ in range(2))
+
+    def one_pass():
+        loss = model(ids, labels)[1]
+        return loss, torch.autograd.grad(loss, params)
+
+    losses = [float(one_pass()[0].detach())]
+    setup = time.perf_counter() - t0
+    _reset_flash_counts()
+    seconds = []
+    for _ in range(c["passes"]):
+        t1 = time.perf_counter()
+        loss, grads = one_pass()
+        losses.append(float(loss))                # waits for the pass
+        seconds.append(time.perf_counter() - t1)
+    launches = _flash_all_counts()
+    L = cfg.num_hidden_layers
+    if cuda:
+        _flash_launches_check("gpt2", launches, L, c["passes"], sm90=True)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    if not finite or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"gpt2: losses {losses}, gradients finite "
+                             f"{finite}")
+    n_params = sum(p.numel() for p in params)
+    step_s = sum(seconds) / len(seconds)
+    tok_s = B * T / step_s
+    result = dict(
+        preset="gpt2_medium", layers=L, hidden=cfg.hidden_size,
+        heads=cfg.num_attention_heads, head_dim=cfg.head_dim,
+        vocab=cfg.vocab_size, params=n_params, batch=B, seq=T,
+        dtype=cfg.dtype, setup_and_warmup_s=setup,
+        pass_ms_runs=[x * 1e3 for x in seconds], pass_ms=step_s * 1e3,
+        tokens_per_s=tok_s,
+        mfu_6n=6 * n_params * tok_s / PEAK_FLOPS["bfloat16"] if cuda else None,
+        max_memory_allocated=torch.cuda.max_memory_allocated()
+        if cuda else None, losses=losses, flash_launches=launches)
+    if cuda:
+        result["profile"] = _profile_breakdown(one_pass, step_s * 1e3)
+    del model, params, grads, ids, labels
+    gc.collect()
+    timing = None
+    if cuda:
+        torch.cuda.empty_cache()
+        timing, checks = _flash_timing(
+            torch.Generator(device="cuda").manual_seed(5),
+            dict(b=B, s=T, h=cfg.num_attention_heads, d=cfg.head_dim), True)
+        _raise_timing_failures("gpt2", timing, checks)
+        result["flash_timing"] = timing
+    emit("gpt2", **result, nvidia_smi=_nvidia_smi() if cuda else None)
+    return launches, timing
+
+
+def _dit_perturbed(canon, seed):
+    """``canon`` with its zero-initialised parameters (adaLN, final layer)
+    set to N(0, 0.02²): the model's output and every gradient are then
+    non-trivial from the first step."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+
+    def rnd(t):
+        return torch.from_numpy(
+            (rng.standard_normal(tuple(t.shape)) * 0.02).astype(np.float32))
+    p = canon["params"]
+    for k in ("final_ada_w", "final_ada_b", "final_head"):
+        p[k] = rnd(p[k])
+    for k in ("ada_w", "ada_b"):
+        p["blocks"][k] = rnd(p["blocks"][k])
+    return canon
+
+
+def phase_dit_parity(cfg=None, device="cuda"):
+    """DiT-L/2 widths at 512 px latents (s 1024, d 64) cut to DIT_PARITY's
+    depth, fp32, class dropout 0: the trainer on the card (the flash
+    kernels on "mma", cuBLAS fp32) against the same trainer on the CPU from
+    one carried state (its adaLN-Zero parameters set to random values):
+    ``eps_fn``, first-step gradients (train_parity's rules), 3
+    ``train_step``s (losses rtol 1e-4; at most PARITY_FAR_SHARE of the
+    parameters further apart than 1e-6), then one guided ``ddim_sample``
+    from one x_T (each entry within train_parity's rule).  Launches: one
+    forward, dQ and dK/dV a layer a step; the sampler two forwards a layer
+    a step."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models.dit import DiTConfig, DiTTrainStep
+    c = DIT_PARITY
+    cfg = cfg or DiTConfig.dit_l_2(input_size=c["input_size"],
+                                   depth=c["depth"], dtype="float32",
+                                   class_dropout_prob=0.0)
+    cpu = DiTTrainStep(cfg, device="cpu")
+    card = DiTTrainStep(cfg, device=device)
+    canon = _dit_perturbed(cpu.canonical_state(cpu.init_state(seed=0)), 1)
+    cs, gs = cpu.restore_canonical(canon), card.restore_canonical(canon)
+    del canon
+    rng = np.random.default_rng(0)
+    B, steps, L = c["batch"], c["steps"], cfg.depth
+    shape = (B, cfg.in_channels, cfg.input_size, cfg.input_size)
+    batch = (rng.standard_normal(shape, dtype=np.float32),
+             rng.integers(0, cpu.diffusion.num_timesteps, B),
+             rng.integers(0, cfg.num_classes, B),
+             rng.standard_normal(shape, dtype=np.float32))
+    cb, gb = cpu.shard_batch(*batch), card.shard_batch(*batch)
+    with torch.no_grad():
+        eps_bad, eps_err = _parity_bad(card.eps_fn(gs["params"], *gb[:3]),
+                                       cpu.eps_fn(cs["params"], *cb[:3]))
+    _reset_flash_counts()
+    g_loss, g_grads = card.loss_and_grads(gs["params"], *gb)
+    c_loss, c_grads = cpu.loss_and_grads(cs["params"], *cb)
+    np.testing.assert_allclose(float(g_loss), float(c_loss), rtol=1e-4)
+    grad = [_parity_bad(a, w) for a, w in zip(g_grads, c_grads)]
+    del g_grads, c_grads
+    bad = {i: g for i, g in enumerate(grad) if g[0]}
+    if eps_bad or bad:
+        raise AssertionError(f"dit_parity: eps entries out of tolerance "
+                             f"{eps_bad} (max err {eps_err}); gradient "
+                             f"leaves {bad}")
+    g_losses, c_losses = [], []
+    for _ in range(steps):
+        gs, gl = card.train_step(gs, *gb)
+        cs, cl = cpu.train_step(cs, *cb)
+        g_losses.append(float(gl))
+        c_losses.append(float(cl))
+    launches = _flash_all_counts()
+    if device == "cuda":
+        _flash_launches_check("dit_parity", launches, L, steps + 1,
+                              sm90=False)
+    np.testing.assert_allclose(g_losses, c_losses, rtol=1e-4)
+    total, far, worst = 0, 0, 0.0
+    for a, w in zip(card._leaves(gs["params"]), cpu._leaves(cs["params"])):
+        err = (a.detach().cpu() - w.detach()).abs()
+        total += err.numel()
+        far += int((err > 1e-6).sum())
+        worst = max(worst, float(err.max()))
+    if far > PARITY_FAR_SHARE * total:
+        raise AssertionError(f"dit_parity: {far} of {total} parameters "
+                             f"differ by more than 1e-6 (max {worst})")
+    x_t = torch.randn(shape, generator=torch.Generator().manual_seed(2))
+    y = torch.arange(B) % cfg.num_classes
+    _reset_flash_counts()
+    samples = {}
+    for name, ts, st in (("card", card, gs), ("cpu", cpu, cs)):
+        with torch.no_grad():
+            samples[name] = ts.diffusion.ddim_sample(
+                lambda x, t, yy, ts=ts, p=st["params"]: ts.eps_fn(p, x, t, yy),
+                shape, y.to(ts.device), steps=c["sample_steps"],
+                guidance_scale=c["guidance"], null_label=cfg.num_classes,
+                x_T=x_t)
+    sample_launches = _flash_all_counts()
+    if device == "cuda" and sample_launches != {
+            "fwd": 2 * L * c["sample_steps"], "dq": 0, "dkv": 0,
+            "fwd_sm90": 0, "dq_sm90": 0, "dkv_sm90": 0}:
+        raise AssertionError(f"dit_parity: sampler launches "
+                             f"{sample_launches}")
+    s_bad, s_err = _parity_bad(samples["card"], samples["cpu"])
+    if s_bad:
+        raise AssertionError(f"dit_parity: {s_bad} sample entries out of "
+                             f"tolerance (max err {s_err})")
+    emit("dit_parity", preset="dit_l_2", input_size=cfg.input_size,
+         seq_len=cfg.seq_len, head_dim=cfg.hidden_size // cfg.num_heads,
+         depth=L, batch=B, steps=steps, dtype="float32",
+         eps_max_abs_err=eps_err, first_step_grad_max_abs_err=max(
+             g[1] for g in grad), losses_card=g_losses, losses_cpu=c_losses,
+         params_max_abs_err=worst, params_further_than_1e6=far,
+         params_total=total, sample_steps=c["sample_steps"],
+         guidance=c["guidance"], sample_max_abs_err=s_err,
+         sample_max_abs=float(samples["cpu"].abs().max()), tol=PARITY_TOL,
+         flash_launches=launches, sampler_flash_launches=sample_launches,
+         nvidia_smi=_nvidia_smi() if device == "cuda" else None)
+    del gs, cs, card, cpu, samples
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def phase_dit_train(runs=None, sample=None, device="cuda"):
+    """Each of DIT_TRAIN's configurations at full depth, bf16, through the
+    entry point's ``build_trainer`` and ``run_steps``: 1 warm-up step, then
+    DIT_STEPS timed steps with flash launches counted from 0: none where
+    ``flash_route`` says the reference runs XLA (DiT-XL/2 at 256 px, d 72),
+    one forward (two with remat), dQ and dK/dV a layer a step on "sm90"
+    where it says Pallas (DiT-L/2 at 512 px, d 64); losses finite.  Then
+    the sampler on DIT_SAMPLE's model: ``dit.sample`` with guidance, two
+    forwards a layer a step, output finite.  images/s, MFU, step ms and
+    peak memory each; then the full (not causal) d 64 kernels timed at the
+    flash configuration's shape against SDPA and the bound.  Returns
+    (launches summed over the runs and the sampler, timing)."""
+    import math
+    import torch
+    from paddle_tpu_torch.models import dit
+    runs = runs or DIT_TRAIN
+    sample = sample or DIT_SAMPLE
+    cuda = device == "cuda"
+    total = dict.fromkeys(_flash_all_counts(), 0)
+    out, timing, flash_shape = {}, None, None
+    for name, argv in runs.items():
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        args = dit.build_parser().parse_args(argv + ["--device", device])
+        t0 = time.perf_counter()
+        ts, state, batch = dit.build_trainer(args)
+        c = ts.config
+        L, d = c.depth, c.hidden_size // c.num_heads
+        flash = dit.flash_route(c.seq_len, d)
+        state, losses, _ = dit.run_steps(ts, state, batch, 1)
+        setup = time.perf_counter() - t0
+        _reset_flash_counts()
+        state, timed, seconds = dit.run_steps(ts, state, batch, DIT_STEPS)
+        launches = _flash_all_counts()
+        if cuda:
+            _flash_launches_check(f"dit_train {name}", launches, L,
+                                  DIT_STEPS if flash else 0, sm90=True,
+                                  fwd_per_layer=2 if args.remat else 1)
+        losses += timed
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"dit_train {name}: losses {losses}")
+        r = dict(preset=args.preset, input_size=c.input_size,
+                 seq_len=c.seq_len, head_dim=d, depth=L,
+                 hidden=c.hidden_size, params=c.num_params(),
+                 batch=args.batch, remat=args.remat, flash_route=flash,
+                 setup_and_warmup_s=setup,
+                 step_ms_runs=[x * 1e3 for x in seconds],
+                 **dit.throughput(ts, batch, seconds), losses=losses,
+                 flash_launches=launches)
+        if cuda:
+            r["profile"] = _profile_breakdown(
+                lambda: dit.run_steps(ts, state, batch, 1), r["step_ms"])
+        if name == sample["model"]:
+            _reset_flash_counts()
+            images, s = dit.sample(ts, state, sample["batch"],
+                                   sample["steps"], sample["guidance"])
+            sampled = _flash_all_counts()
+            n = 2 * L * sample["steps"] if flash else 0
+            if cuda and sampled != {"fwd": n, "dq": 0, "dkv": 0,
+                                    "fwd_sm90": n, "dq_sm90": 0,
+                                    "dkv_sm90": 0}:
+                raise AssertionError(f"dit_train {name}: sampler launches "
+                                     f"{sampled}, want {n} forwards")
+            if not bool(torch.isfinite(images).all()):
+                raise AssertionError("dit_train: the sampler's output is "
+                                     "not finite")
+            r["sampler"] = dict(batch=sample["batch"], steps=sample["steps"],
+                                guidance=sample["guidance"], seconds=s,
+                                images_per_s=sample["batch"] / s,
+                                flash_launches=sampled)
+            launches = {k: launches[k] + sampled[k] for k in launches}
+        total = {k: total[k] + launches[k] for k in total}
+        if flash:
+            flash_shape = dict(b=args.batch, s=c.seq_len, h=c.num_heads, d=d)
+        out[name] = r
+        del ts, state, batch
+        gc.collect()
+    if cuda and flash_shape is not None:
+        torch.cuda.empty_cache()
+        timing, checks = _flash_timing(
+            torch.Generator(device="cuda").manual_seed(6), flash_shape,
+            False)
+        _raise_timing_failures("dit_train", timing, checks)
+    emit("dit_train", runs=out, flash_timing=timing,
+         nvidia_smi=_nvidia_smi() if cuda else None)
+    return total, timing
+
+
+def phase_moe_forms(cfg=None, device="cuda"):
+    """Mixtral-8x7B widths at MOE_FORMS' depth, bf16, capacity factor 1.25:
+    one ``PretrainStep.train_step`` with ``moe_dispatch="gather"`` and one
+    with ``"einsum"``, each from the state ``init_state(seed=0)`` makes
+    (the same on one card): losses finite, flash launches as for grouped
+    (one of each kernel a layer, on "sm90"), no grouped-matmul launch.
+    Then the forms as functions over layer 0's weights and one batch of
+    N(0, 1) hidden states: einsum at one group against gather in bf16 at
+    the configuration's capacity factor and at MOE_FORMS_DROP_CF (y within
+    MOE_FORMS_BF16_TOL x (|want| + max |want|), aux and stats within 1e-6,
+    whether bit for bit reported), and at a capacity that
+    drops nothing (factor E / top_k) both against the grouped form in fp32
+    (train_parity's rule).  Returns the flash launches of the two steps."""
+    import dataclasses
+    import math
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.models.pretrain import PretrainStep
+    c = MOE_FORMS
+    cfg = cfg or llama.LlamaConfig.mixtral_8x7b(
+        num_hidden_layers=c["layers"],
+        moe_capacity_factor=c["capacity_factor"])
+    cuda = device == "cuda"
+    rng = np.random.default_rng(0)
+    B, T, L = c["batch"], c["seq"], cfg.num_hidden_layers
+    ids, labels = (rng.integers(0, cfg.vocab_size, (B, T)) for _ in range(2))
+    total = dict.fromkeys(_flash_all_counts(), 0)
+    runs, w = {}, None
+    for dispatch in ("gather", "einsum"):
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        ps = PretrainStep(dataclasses.replace(cfg, moe_dispatch=dispatch),
+                          device=device)
+        state = ps.init_state(seed=0)
+        if w is None:
+            lp = state["params"]["blocks"][0]
+            w = [lp[f"mlp.{n}"].detach().clone() for n in (
+                "gate.weight", "experts_gate", "experts_up", "experts_down")]
+        ids_t, labels_t = ps.shard_batch(ids, labels)
+        _reset_flash_counts()
+        _reset_grouped_counts()
+        t0 = time.perf_counter()
+        state, loss = ps.train_step(state, ids_t, labels_t)
+        loss = float(loss)
+        seconds = time.perf_counter() - t0
+        launches = _flash_all_counts()
+        grouped = _grouped_counts()
+        if cuda:
+            _flash_launches_check(f"moe_forms {dispatch}", launches, L, 1,
+                                  sm90=True)
+        if any(grouped.values()):
+            raise AssertionError(f"moe_forms {dispatch}: grouped-matmul "
+                                 f"launches {grouped}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"moe_forms {dispatch}: loss {loss}")
+        runs[dispatch] = dict(loss=loss, step_s=seconds,
+                              router_stats=ps.router_stats(state, ids_t),
+                              max_memory_allocated=
+                              torch.cuda.max_memory_allocated()
+                              if cuda else None, flash_launches=launches)
+        total = {k: total[k] + launches[k] for k in total}
+        del ps, state, ids_t, labels_t
+        gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    H, k, E = cfg.hidden_size, cfg.moe_top_k, cfg.moe_num_experts
+    x = torch.randn((B, T, H), generator=torch.Generator(
+        device=w[0].device).manual_seed(3), device=w[0].device).to(w[0].dtype)
+    cf = cfg.moe_capacity_factor
+    g1 = {}
+    with torch.no_grad():
+        # the configuration's capacity factor, and MOE_FORMS_DROP_CF, where
+        # entries drop
+        for f in (cf, MOE_FORMS_DROP_CF):
+            ya, auxa, sa = llama.moe_mlp_forward(x, *w, top_k=k,
+                                                 capacity_factor=f)
+            yb, auxb, sb = llama.moe_mlp_forward_einsum(
+                x, *w, top_k=k, capacity_factor=f, groups=1)
+            tol = MOE_FORMS_BF16_TOL
+            err = (yb.float() - ya.float()).abs()
+            scale = float(ya.float().abs().max())
+            y_bad = int((err > tol * ya.float().abs() + tol * scale).sum())
+            np.testing.assert_allclose(float(auxb), float(auxa), rtol=1e-6)
+            np.testing.assert_allclose(sb.cpu().numpy(), sa.cpu().numpy(),
+                                       rtol=1e-6)
+            if y_bad:
+                raise AssertionError(
+                    f"moe_forms: einsum (one group) against gather at "
+                    f"capacity factor {f}: {y_bad} entries out of tolerance "
+                    f"(max err {float(err.max())})")
+            g1[f"cf_{f}"] = dict(
+                y_max_abs_err=float(err.max()), y_max_abs=scale,
+                kept_frac=float(sa[0]),
+                bitwise=dict(y=torch.equal(ya, yb),
+                             aux=torch.equal(auxa, auxb),
+                             stats=torch.equal(sa, sb)))
+            del ya, yb, err
+        w32, x32 = [t.float() for t in w], x.float()
+        del w
+        y_g = llama.moe_mlp_forward_grouped(x32, *w32, top_k=k,
+                                            block_m=cfg.moe_block_m)[0]
+        no_drop = {}
+        for name, fn, kw in (("gather", llama.moe_mlp_forward, {}),
+                             ("einsum", llama.moe_mlp_forward_einsum,
+                              dict(groups=1))):
+            y, _, st = fn(x32, *w32, top_k=k, capacity_factor=E / k, **kw)
+            n_bad, y_err = _parity_bad(y, y_g)
+            if n_bad or float(st[0]) != 1.0:
+                raise AssertionError(f"moe_forms: {name} without drops "
+                                     f"against grouped: {n_bad} entries out "
+                                     f"of tolerance (max err {y_err}), "
+                                     f"kept_frac {float(st[0])}")
+            no_drop[name] = dict(y_max_abs_err=y_err)
+            del y
+        del w32, x32, y_g
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    emit("moe_forms", preset="mixtral_8x7b", layers=L, hidden=H,
+         intermediate=cfg.intermediate_size, experts=E, top_k=k, batch=B,
+         seq=T, capacity_factor=cf, dtype=cfg.dtype, runs=runs,
+         einsum_one_group_vs_gather=g1, bf16_tol=MOE_FORMS_BF16_TOL,
+         no_drop_vs_grouped_fp32=no_drop, tol=PARITY_TOL,
+         nvidia_smi=_nvidia_smi() if cuda else None)
+    return total
 
 
 # ------------------------------------------------------- weight-only ---
@@ -7292,6 +7899,16 @@ def main() -> int:
     moe_err, moe_t, moe_mix = phase_kernel_tgmm(built)
     phase_moe_train_parity()
     moe_launches = phase_train_moe()
+    phase_gpt_parity()
+    gpt_launches, _gpt_t = phase_gpt2()
+    phase_dit_parity()
+    dit_launches, _dit_t = phase_dit_train()
+    forms_launches = phase_moe_forms()
+    # the flash kernels' launches on every training path: llama2_7b, GPT-2,
+    # DiT (training and the sampler) and the two MoE forms
+    flash_launches = {k: flash_launches[k] + gpt_launches[k] +
+                      dit_launches[k] + forms_launches[k]
+                      for k in flash_launches}
     wo_err, wo_t = phase_kernel_wo(built)
     wo_launches, _wo_sweeps = phase_weight_only_path()
     prim_err, prim_path, prim_t = phase_kernel_primitives(_smi, built)

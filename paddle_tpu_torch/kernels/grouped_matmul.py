@@ -124,6 +124,39 @@ def take_sentinel_rows(buf, idx):
     return z[torch.clamp(idx.long(), max=buf.shape[0])]
 
 
+def capacity_dispatch_plan(expert_ids, gate_vals, num_groups, capacity):
+    """k-major capacity dispatch maps of the ``gather`` MoE form
+    (``models.llama.moe_mlp_forward``).
+
+    expert_ids/gate_vals: [N, K] top-k routing.  Slot priority is k-major
+    (every token's first choice beats any second choice); an entry's
+    position in its expert's buffer is its rank among the entries routed
+    there; entries ranked past ``capacity`` drop.  Returns
+    (inv [E*capacity + 1], slot [K*N], gate_keep [K*N], keep [K*N]):
+    ``inv[b]`` = token id in buffer slot b (N = empty); ``slot[f]`` =
+    buffer slot of k-major flat entry f (E*capacity = the drop sentinel,
+    combined through :func:`take_sentinel_rows`); ``gate_keep`` = fp32
+    combine weight, zeroed for drops.  The sentinel slot ``inv[-1]`` holds
+    the last dropped entry's token (N when nothing drops), as a sequential
+    scatter of every entry leaves it.  Nothing is read back to the host."""
+    N, K = expert_ids.shape
+    dev = expert_ids.device
+    i32 = torch.int32
+    idx = expert_ids.t().reshape(K * N).long()
+    val = gate_vals.t().reshape(K * N).float()
+    oh = (idx[:, None] == torch.arange(num_groups, device=dev)).long()
+    pos = ((torch.cumsum(oh, dim=0) * oh).sum(-1) - 1).to(i32)
+    keep = pos < capacity
+    slot = torch.where(keep, idx.to(i32) * capacity + pos,
+                       torch.full_like(pos, num_groups * capacity))
+    tok = torch.arange(N, dtype=i32, device=dev).repeat(K)
+    inv = torch.full((num_groups * capacity + 1,), N, dtype=i32,
+                     device=dev).scatter_(0, slot.long(), tok)
+    last_drop = torch.where(keep, -1, torch.arange(K * N, device=dev)).max()
+    inv[-1:] = torch.where(last_drop >= 0, last_drop % N, N).to(i32)
+    return inv, slot, val * keep.float(), keep
+
+
 def sorted_dispatch_plan(expert_ids, num_groups, bm):
     """Build the gather maps for a grouped-GEMM dispatch.
 

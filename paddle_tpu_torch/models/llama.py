@@ -9,11 +9,13 @@ model's weights over one to one.  RoPE rotates interleaved pairs
 ``(x[..., 0::2], x[..., 1::2])`` as the reference does.
 
 MoE configurations (``moe_num_experts > 0``) replace every layer's MLP with
-:class:`LlamaMoEMLP`: a top-k router and stacked expert banks run through
-the grouped-matmul kernels (``moe_dispatch="grouped"``), forward and
-backward (:class:`_GroupedFFN`).  The reference's ``gather`` and ``einsum``
-dispatch forms of the full-sequence forward are not ported yet (serving
-takes its dense expert loop for them).
+:class:`LlamaMoEMLP`: a top-k router and stacked expert banks in one of the
+reference's three dispatch forms: ``"grouped"`` runs the grouped-matmul
+kernels, forward and backward (:class:`_GroupedFFN`); ``"gather"``
+(:func:`moe_mlp_forward`) and ``"einsum"`` (:func:`moe_mlp_forward_einsum`)
+are the capacity-bounded forms, plain PyTorch ops under autograd (the
+reference leaves them to XLA).  The serving engine keeps its dense expert
+loop for the two capacity forms.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ from torch import nn
 
 from .. import resolve_device
 from ..kernels.flash_attention import flash_attention
-from ..kernels.grouped_matmul import (gmm, sorted_dispatch_plan,
+from ..kernels.grouped_matmul import (capacity_dispatch_plan, gmm,
+                                      sorted_dispatch_plan,
                                       take_sentinel_rows, tgmm)
 from ..kernels.rms_norm import rms_norm_fp32
 
@@ -59,9 +62,7 @@ class LlamaConfig:
     dtype: str = "bfloat16"
     # MoE (Mixtral-style: every layer's MLP becomes a top-k expert mixture;
     # 0 experts = dense).  "grouped" runs the expert-sorted grouped-matmul
-    # kernel; "gather"/"einsum" (the reference's capacity formulations) are
-    # accepted for the serving path's dense expert loop but the
-    # full-sequence forward raises for them.
+    # kernel; "gather"/"einsum" are the reference's capacity formulations.
     moe_num_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
@@ -195,18 +196,28 @@ class _Init:
         self.gen = None if self.device.type == "meta" else \
             torch.Generator(device=self.device).manual_seed(seed)
 
-    def scaled(self, shape, fan_in):
+    def normal(self, shape, std):
+        """N(0, std²) drawn in fp32, cast to the model dtype."""
         if self.gen is None:
             return nn.Parameter(torch.empty(shape, device=self.device,
                                             dtype=self.dtype),
                                 requires_grad=False)
         w = torch.randn(shape, generator=self.gen, device=self.device,
-                        dtype=torch.float32) * (1.0 / math.sqrt(fan_in))
+                        dtype=torch.float32) * std
         return nn.Parameter(w.to(self.dtype), requires_grad=False)
 
-    def ones(self, shape):
+    def scaled(self, shape, fan_in):
+        return self.normal(shape, 1.0 / math.sqrt(fan_in))
+
+    def ones(self, shape, dtype=None):
         return nn.Parameter(torch.ones(shape, device=self.device,
-                                       dtype=self.dtype), requires_grad=False)
+                                       dtype=dtype or self.dtype),
+                            requires_grad=False)
+
+    def zeros(self, shape, dtype=None):
+        return nn.Parameter(torch.zeros(shape, device=self.device,
+                                        dtype=dtype or self.dtype),
+                            requires_grad=False)
 
 
 class _ParamLinear(nn.Module):
@@ -418,6 +429,90 @@ def moe_mlp_forward_grouped(x, gate_w, w_gate, w_up, w_down, *, top_k,
     return y.reshape(B, S, H), aux, stats
 
 
+def _swiglu_experts(expert_in, w_gate, w_up, w_down):
+    """The expert banks' SwiGLU FFN over ``[E, rows, H]`` buffers."""
+    h1 = F.silu(torch.einsum("erh,ehi->eri", expert_in, w_gate)) * \
+        torch.einsum("erh,ehi->eri", expert_in, w_up)
+    return torch.einsum("eri,eih->erh", h1, w_down)
+
+
+def moe_mlp_forward(x, gate_w, w_gate, w_up, w_down, *, top_k,
+                    capacity_factor):
+    """Capacity-bounded top-k expert mixture, the reference's ``gather``
+    form: each expert takes at most ``cap = max(1, int(N·k·cf/E))`` of the
+    (token, choice) entries in k-major priority
+    (:func:`~paddle_tpu_torch.kernels.grouped_matmul.capacity_dispatch_plan`),
+    the kept rows are gathered into a static ``[E, cap, H]`` buffer, and
+    the outputs are gathered back and combined with the gate weights;
+    dropped entries add nothing.  ``cap`` comes from shapes alone, so no
+    value is read back to the host.
+
+    x: [B, S, H]; gate_w: [H, E]; w_gate/w_up: [E, H, I]; w_down: [E, I, H].
+    Returns (y [B, S, H], aux loss, stats fp32 [kept_frac, imbalance]):
+    the share of routed entries that fit their expert's capacity, and the
+    busiest expert's first-choice share x E (1.0 = uniform)."""
+    B, S, H = x.shape
+    E = gate_w.shape[-1]
+    N = B * S
+    k = top_k
+    xf = x.reshape(N, H)
+    topv, topi, aux, ce = _route_topk(xf, gate_w, k)
+    cap = max(1, int(N * k * capacity_factor / E))
+    inv, slot, gate_keep, keep = capacity_dispatch_plan(topi, topv, E, cap)
+    expert_in = take_sentinel_rows(xf, inv[:-1]).reshape(E, cap, H)
+    out_e = _swiglu_experts(expert_in, w_gate, w_up,
+                            w_down).reshape(E * cap, H)
+    yf = take_sentinel_rows(out_e, slot) * gate_keep[:, None].to(x.dtype)
+    y = yf.reshape(k, N, H).sum(dim=0).reshape(B, S, H)
+    stats = torch.stack([keep.float().mean(), ce.max() * E])
+    return y, aux, stats
+
+
+def moe_mlp_forward_einsum(x, gate_w, w_gate, w_up, w_down, *, top_k,
+                           capacity_factor, groups=0):
+    """The reference's ``einsum`` form (GShard / t5x one-hot dispatch):
+    dispatch and combine are contractions against a ``[G, n, E, cap]``
+    combine tensor, with capacity per token group of ``n = N / G`` tokens
+    (``groups`` 0 means the batch dim; G = 1 routes as
+    :func:`moe_mlp_forward`).  Raises ``ValueError`` when G does not divide
+    the token count.  Shapes and returns as :func:`moe_mlp_forward`."""
+    B, S, H = x.shape
+    E = gate_w.shape[-1]
+    N = B * S
+    k = top_k
+    G = groups or B
+    if N % G:
+        raise ValueError(f"moe_groups ({G}) must divide tokens ({N})")
+    n = N // G
+    dev = x.device
+    xg = x.reshape(G, n, H)
+    # the router over the flat batch (routing is per token)
+    topv, topi, aux, ce = _route_topk(x.reshape(N, H), gate_w, k)
+    topv, topi = topv.reshape(G, n, k), topi.reshape(G, n, k)
+    cap = max(1, int(n * k * capacity_factor / E))
+    # k-major priority within each group: first choices claim slots first
+    idx = topi.transpose(1, 2).reshape(G, k * n)
+    gate_v = topv.transpose(1, 2).reshape(G, k * n).float()
+    oh = (idx[..., None] == torch.arange(E, device=dev)).float()  # [G, kn, E]
+    pos = ((torch.cumsum(oh, dim=1) * oh).sum(-1) - 1).long()
+    keep = pos < cap
+    pos_oh = (pos[..., None] == torch.arange(cap, device=dev)).float()
+    # combine[g, n, e, c]: the gate weight where token n routes to (e, c),
+    # built one choice at a time so the transient stays [G, n, E, cap]
+    combine = torch.zeros((G, n, E, cap), dtype=torch.float32, device=dev)
+    for kk in range(k):
+        sl = slice(kk * n, (kk + 1) * n)
+        w = (gate_v[:, sl] * keep[:, sl])[..., None, None]
+        combine = combine + w * (oh[:, sl, :, None] * pos_oh[:, sl, None])
+    dispatch = (combine > 0).to(x.dtype)
+    expert_in = torch.einsum("gnec,gnh->egch", dispatch, xg)
+    out_e = _swiglu_experts(expert_in.reshape(E, G * cap, H), w_gate, w_up,
+                            w_down).reshape(E, G, cap, H)
+    y = torch.einsum("gnec,egch->gnh", combine.to(x.dtype), out_e)
+    stats = torch.stack([keep.sum().float() / (k * N), ce.max() * E])
+    return y.reshape(B, S, H), aux, stats
+
+
 class LlamaMoEMLP(nn.Module):
     """Mixtral-style MoE FFN block (drop-in for LlamaMLP when
     ``config.moe_num_experts > 0``), with the reference's parameter names
@@ -440,14 +535,18 @@ class LlamaMoEMLP(nn.Module):
 
     def forward(self, x):
         c = self.config
-        if c.moe_dispatch != "grouped":
-            raise NotImplementedError(
-                f"the {c.moe_dispatch!r} MoE dispatch of the full-sequence "
-                "forward is not ported yet (ROADMAP Queue 1 item 7); use "
-                "moe_dispatch='grouped'")
-        y, aux, stats = moe_mlp_forward_grouped(
-            x, self.gate.weight, self.experts_gate, self.experts_up,
-            self.experts_down, top_k=c.moe_top_k, block_m=c.moe_block_m)
+        w = (x, self.gate.weight, self.experts_gate, self.experts_up,
+             self.experts_down)
+        if c.moe_dispatch == "einsum":
+            y, aux, stats = moe_mlp_forward_einsum(
+                *w, top_k=c.moe_top_k, capacity_factor=c.moe_capacity_factor,
+                groups=c.moe_groups)
+        elif c.moe_dispatch == "grouped":
+            y, aux, stats = moe_mlp_forward_grouped(
+                *w, top_k=c.moe_top_k, block_m=c.moe_block_m)
+        else:
+            y, aux, stats = moe_mlp_forward(
+                *w, top_k=c.moe_top_k, capacity_factor=c.moe_capacity_factor)
         self._last_aux = aux
         self._last_stats = stats
         return y

@@ -7,17 +7,19 @@ per-layer remat policies, the chunked cross-entropy, the MoE load-balancing
 aux loss and ``router_stats``, and the topology-free ``canonical_state`` /
 ``restore_canonical`` pair that carries a state between the two packages.
 Attention runs the flash-attention kernels (forward, and dQ and dK/dV in
-the backward) and the MoE expert FFN the grouped-matmul kernels (gmm
-forward; gmm ``trans_rhs`` and ``tgmm`` in the backward) on the card, and
-their plain versions on the CPU.
+the backward) and the grouped MoE expert FFN the grouped-matmul kernels
+(gmm forward; gmm ``trans_rhs`` and ``tgmm`` in the backward) on the card,
+and their plain versions on the CPU.  With ``FLAGS_metrics`` on, each step
+feeds ``observability.StepTimer("train")`` (step ms, tokens/s, kernel
+builds inside a step) from host timestamps, adding no sync.
 
 What differs from the reference, and why:
 
 - One device.  :class:`ParallelConfig` keeps every field, but only
   ``remat``, ``remat_policy``, ``loss_chunks``, ``m_dtype`` and ``v_dtype``
   may leave their defaults; the mesh, pipeline, ZeRO and ``grad_comm``
-  settings raise (ROADMAP Queue 1 item 18).  MoE trains with
-  ``moe_dispatch="grouped"`` only; ``gather``/``einsum`` raise.
+  settings raise (ROADMAP Queue 1 item 18).  MoE trains in every
+  dispatch form (``grouped``, ``gather``, ``einsum``).
 - No ``jit``: autograd computes the gradients, ``torch.utils.checkpoint``
   takes the place of ``jax.checkpoint``, and the layer loop is a Python
   loop over per-layer leaf tensors (stacked ``[L, ...]`` only at the state
@@ -56,7 +58,7 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from .. import PEAK_FLOPS, resolve_device
+from .. import PEAK_FLOPS, observability, resolve_device
 from ..kernels.rms_norm import rms_norm_fp32
 from .llama import (LlamaConfig, LlamaDecoderLayer, _Init, _rope_cos_sin,
                     torch_dtype)
@@ -172,11 +174,6 @@ class PretrainStep:
                  learning_rate: float = 3e-4, weight_decay: float = 0.1,
                  beta1: float = 0.9, beta2: float = 0.95, eps: float = 1e-8,
                  *, device=None):
-        if config.moe_num_experts and config.moe_dispatch != "grouped":
-            raise NotImplementedError(
-                f"MoE training with moe_dispatch={config.moe_dispatch!r} is "
-                "not ported (ROADMAP Queue 1 item 7); use "
-                "moe_dispatch='grouped'")
         self.config = config
         self._moe = bool(config.moe_num_experts)
         self.pc = parallel or ParallelConfig()
@@ -194,6 +191,8 @@ class PretrainStep:
         self._block = _remat(block, self.pc.remat_policy) \
             if self.pc.remat else block
         self._rope: Dict[int, Any] = {}
+        self._telemetry = observability.StepTimer("train") \
+            if observability.metrics_enabled() else None
 
     # ---- state ----
     def _tree(self, make) -> Dict[str, Any]:
@@ -380,16 +379,20 @@ class PretrainStep:
         """One AdamW step on ``(ids, labels)`` [B, T]; returns ``(state,
         loss)`` with ``state`` updated in place and ``loss`` a device
         scalar (nothing is read back inside the step)."""
+        if self._telemetry is not None:
+            self._telemetry.begin_step()
         ids, labels = self._batch(ids, labels)
         loss, grads = self._loss_and_grad_leaves(state["params"], ids, labels)
         with record_function("adamw"):
             self._update(state, grads)
+        if self._telemetry is not None:
+            self._telemetry.tick(tokens=ids.shape[0] * ids.shape[1])
         return state, loss
 
     def router_stats(self, state, ids):
         """Layer-mean MoE routing health on one batch (no gradients):
-        ``kept_frac`` (routed entries that were computed; 1.0 for the
-        grouped dispatch, which drops nothing) and ``imbalance`` (the
+        ``kept_frac`` (routed entries that fit their expert's capacity; 1.0
+        for the grouped dispatch, which drops nothing) and ``imbalance`` (the
         busiest expert's first-choice share x E; 1.0 = balanced)."""
         ids, _ = self._batch(ids, ids)
         with torch.no_grad():

@@ -149,13 +149,21 @@ def test_bf16_model_and_configs():
                   "moe_dispatch", "moe_groups", "moe_block_m"):
             assert getattr(mine, f) == getattr(ref, f), (name, f)
         assert mine.head_dim == ref.head_dim
-    # MoE models build; only the grouped dispatch of the full-sequence
-    # forward is ported
-    m = llama.LlamaForCausalLM(
-        llama.LlamaConfig.tiny(moe_num_experts=4, moe_dispatch="gather"),
-        device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        m(torch.tensor([[1, 2, 3, 4]]))
+    # every MoE dispatch form runs the full-sequence forward: with a
+    # capacity that holds every entry (factor E / top_k) the capacity forms
+    # compute the grouped form's exact mixture
+    ids = torch.tensor([[1, 2, 3, 4], [9, 8, 7, 6]])
+    logits = {}
+    for dispatch in ("grouped", "gather", "einsum"):
+        m = llama.LlamaForCausalLM(
+            llama.LlamaConfig.tiny(moe_num_experts=4, moe_dispatch=dispatch,
+                                   moe_capacity_factor=2.0, moe_block_m=8),
+            device="cpu")
+        logits[dispatch] = m(ids)
+        assert m.llama.layers[0].mlp._last_stats[0] == 1.0
+    for dispatch in ("gather", "einsum"):
+        torch.testing.assert_close(logits[dispatch], logits["grouped"],
+                                   rtol=1e-5, atol=1e-5)
 
 
 def test_extract_and_stack_params_match_jax(pair):

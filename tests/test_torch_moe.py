@@ -205,12 +205,25 @@ def test_mixtral_tiny_logits_match_jax(pair):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
 
 
-def test_non_grouped_dispatch_forward_is_not_ported():
-    cfg = dataclasses.replace(llama.LlamaConfig.mixtral_tiny(),
-                              moe_dispatch="gather")
-    m = llama.LlamaForCausalLM(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="gather"):
-        m(torch.zeros((1, 4), dtype=torch.long))
+def test_non_grouped_dispatch_forward_is_not_ported(pair):
+    """The ``gather`` and ``einsum`` dispatch forms of the full-sequence
+    forward, ported since: mixtral_tiny logits equal the reference's
+    model in the same form (jitted), weights carried from the pair; an
+    unknown form still raises."""
+    _, _, arrays = pair
+    ids = np.random.default_rng(0).integers(0, 256, (2, 13))
+    for dispatch in ("gather", "einsum"):
+        paddle.seed(0)
+        jm = jllama.LlamaForCausalLM(dataclasses.replace(
+            _moe_cfg(jllama), moe_dispatch=dispatch))
+        jm.set_state_dict(arrays)
+        want = np.asarray(paddle.jit.to_static(jm)(
+            paddle.to_tensor(ids))._data)
+        m = llama.LlamaForCausalLM(dataclasses.replace(
+            _moe_cfg(llama), moe_dispatch=dispatch), device="cpu")
+        load_reference_state(m, arrays)
+        np.testing.assert_allclose(m(torch.from_numpy(ids)).numpy(), want,
+                                   rtol=0, atol=1e-4)
     with pytest.raises(ValueError, match="moe_dispatch"):
         llama.LlamaConfig.mixtral_tiny(moe_dispatch="nope")
 

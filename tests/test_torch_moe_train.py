@@ -432,11 +432,26 @@ def test_router_stats_and_flops_per_token_match_jax(preset):
 
 
 def test_trainer_refuses_unported_moe_dispatch():
+    """The ``gather`` and ``einsum`` forms train since they were ported:
+    with a capacity that holds every entry (factor E / top_k) their loss
+    and gradients at one state equal the grouped form's (the same exact
+    mixture), and every entry is kept."""
+    ids, labels = _batch(seed=6)
+    results = {}
+    for dispatch in ("grouped", "gather", "einsum"):
+        ps = pretrain.PretrainStep(
+            llama.LlamaConfig.mixtral_tiny(moe_dispatch=dispatch,
+                                           moe_capacity_factor=2.0),
+            device="cpu")
+        state = ps.init_state(seed=4)
+        loss, g = ps.loss_and_grads(state["params"], ids, labels)
+        results[dispatch] = (float(loss), _port_grads(g))
+        assert ps.router_stats(state, ids)["kept_frac"] == 1.0
     for dispatch in ("gather", "einsum"):
-        with pytest.raises(NotImplementedError, match=dispatch):
-            pretrain.PretrainStep(
-                llama.LlamaConfig.mixtral_tiny(moe_dispatch=dispatch),
-                device="cpu")
+        assert results[dispatch][0] == pytest.approx(results["grouped"][0],
+                                                     rel=1e-6)
+        _assert_tree_close(results[dispatch][1], results["grouped"][1],
+                           rtol=1e-5, atol=1e-7)
 
 
 def test_entry_point_trains_mixtral_tiny_on_the_cpu(capsys):

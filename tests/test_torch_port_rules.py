@@ -83,6 +83,8 @@ _STACKS = (
                "paddle_tpu_torch.controlplane.sketch",
                "paddle_tpu_torch.fleet", "paddle_tpu_torch.fleet.__main__")),
     ("training", ("paddle_tpu_torch.models.pretrain",
+                  "paddle_tpu_torch.models.gpt",
+                  "paddle_tpu_torch.models.dit",
                   "paddle_tpu_torch.kernels.flash_attention",
                   "paddle_tpu_torch.profile_step")),
 )
@@ -270,6 +272,14 @@ def test_default_device_is_cuda_and_raises_without_gpu():
     with pytest.raises(RuntimeError, match="cuda"):
         pretrain.build_trainer(pretrain.build_parser().parse_args(
             ["--preset", "tiny"]))
+    from paddle_tpu_torch.models import dit, gpt
+    for make in (lambda: gpt.GPTForCausalLM(gpt.GPTConfig.tiny()),
+                 lambda: dit.DiT(dit.DiTConfig.tiny()),
+                 lambda: dit.DiTTrainStep(dit.DiTConfig.tiny()),
+                 lambda: dit.build_trainer(dit.build_parser().parse_args(
+                     ["--preset", "tiny"]))):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
 
 
 def test_serving_features_default_to_the_card():
@@ -298,7 +308,8 @@ _LAUNCHES = {"ragged_paged_attention", "paged_attention",
              "write_kv_pages_all_layers_quantized", "gmm", "tgmm",
              "_grouped_ffn", "_moe_ffn", "_forward_tokens", "_step_fn",
              "_spec_verify_fn", "_fused_decode_fn", "_dispatch_spec",
-             "_cow_copy_pages", "step"}
+             "_cow_copy_pages", "step", "flash_attention",
+             "_patch_attention"}
 
 
 def test_no_try_around_a_launch():
@@ -306,11 +317,15 @@ def test_no_try_around_a_launch():
     prefix cache, speculative decoding, the spill tier, the launcher) or in
     the control and observability plane (session migration, the SLO
     controller, the registry, tracer, attribution, flight recorder,
-    sentinel and catalog, the step watchdog) wraps a kernel launch or an
-    engine step."""
+    sentinel and catalog, the step watchdog) or in the models (the DiT
+    attention routes by shape, never by catching a kernel's refusal) wraps
+    a kernel launch or an engine step."""
     files = [PORT / "inference" / f for f in
              ("generation.py", "kv_cache.py") + SERVING_FEATURES] + \
-        [PORT / "serving" / "__main__.py"] + [PORT / f for f in CONTROL_PLANE]
+        [PORT / "serving" / "__main__.py"] + \
+        [PORT / f for f in CONTROL_PLANE] + \
+        [PORT / "models" / f for f in ("llama.py", "pretrain.py", "gpt.py",
+                                       "dit.py")]
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), filename=str(f))):

@@ -177,13 +177,20 @@ def test_port_state_round_trips_through_jax_restore_canonical():
 
 
 def test_unported_configurations_raise():
-    # MoE trains with the grouped dispatch only (tests/test_torch_moe_train.py)
-    pretrain.PretrainStep(llama.LlamaConfig.mixtral_tiny(), device="cpu")
-    for dispatch in ("gather", "einsum"):
-        with pytest.raises(NotImplementedError, match="MoE training"):
-            pretrain.PretrainStep(
-                llama.LlamaConfig.mixtral_tiny(moe_dispatch=dispatch),
-                device="cpu")
+    # MoE trains in every dispatch form (tests/test_torch_moe_forms.py);
+    # einsum's token groups must divide the batch's tokens
+    ids, labels = _batches(256, 1)[0]
+    for dispatch in ("grouped", "gather", "einsum"):
+        ps = pretrain.PretrainStep(
+            llama.LlamaConfig.mixtral_tiny(moe_dispatch=dispatch),
+            device="cpu")
+        _, loss = ps.train_step(ps.init_state(), ids, labels)
+        assert np.isfinite(float(loss))
+    ps = pretrain.PretrainStep(
+        llama.LlamaConfig.mixtral_tiny(moe_dispatch="einsum", moe_groups=5),
+        device="cpu")
+    with pytest.raises(ValueError, match="moe_groups"):
+        ps.train_step(ps.init_state(), ids, labels)
     for kw in (dict(dp=2), dict(pp=2, micro_batches=2), dict(mp=2),
                dict(zero1=True), dict(schedule="1f1b"),
                dict(grad_comm="ring")):
@@ -216,3 +223,29 @@ def test_entry_point_trains_on_the_cpu(capsys):
     last = lines[-1]
     assert last["device"] == "cpu" and last["mfu_6n"] is None
     assert last["tokens_per_s"] > 0
+
+
+def test_train_steps_feed_the_step_timer_without_a_sync():
+    """``PretrainStep`` ticks ``observability.StepTimer("train")`` a step,
+    as the reference's trainer does, from host timestamps: 3 steps add 3 to
+    ``train.steps`` and mark no device sync; with ``FLAGS_metrics`` off the
+    trainer has no timer."""
+    from paddle_tpu_torch import flags, observability as obs
+    ps = pretrain.PretrainStep(llama.LlamaConfig.tiny(num_hidden_layers=2),
+                               device="cpu")
+    state = ps.init_state(seed=0)
+    batch = _batches(256, 1)[0]
+    steps = obs.metrics.counter("train.steps")
+    before = steps.value
+    with obs.assert_overhead(max_compiles=0, max_syncs=0):
+        for _ in range(3):
+            state, _ = ps.train_step(state, *batch)
+    assert steps.value - before == 3
+    assert obs.metrics.gauge("train.tokens_per_sec").value > 0
+    old = flags.flag("metrics")
+    flags.set_flags({"metrics": False})
+    try:
+        off = pretrain.PretrainStep(llama.LlamaConfig.tiny(), device="cpu")
+    finally:
+        flags.set_flags({"metrics": old})
+    assert off._telemetry is None

@@ -175,6 +175,19 @@ def _reset_router_series():
     jobs.reset("router.")
 
 
+def _drop_router_series():
+    """Remove every ``router.*`` series from both registries.  ``reset``
+    zeroes a series but keeps it, and ``/metrics`` lists every family a
+    registry holds, so without this the families compared would depend on
+    which tests ran earlier in the process (a reference control-plane test
+    leaves ``router.forwarded`` in the reference's registry alone)."""
+    for reg in (obs.REGISTRY, jobs.REGISTRY):
+        with reg._lock:
+            for table in (reg._counters, reg._gauges, reg._histograms):
+                for key in [k for k in table if k[0].startswith("router.")]:
+                    del table[key]
+
+
 # ---------------------------------------------------------------------------
 # host parity: placement, quarantine, journal
 # ---------------------------------------------------------------------------
@@ -546,7 +559,7 @@ def test_statusz_and_metrics_carry_the_reference_families(pair):
     docs = {}
     for name, fleet_fn, model in (("port", port_fleet, tm),
                                   ("ref", ref_fleet, jm)):
-        _reset_router_series()
+        _drop_router_series()
         fleet = fleet_fn(model)
         try:
             async def main():
