@@ -249,7 +249,7 @@ is caught; there is no ``ok`` line unless every phase passed):
 12. ``moe_train_parity`` — ``PretrainStep`` on the card against the same
     step on the CPU from one ``restore_canonical`` state: 1 fp32 layer at
     Mixtral-8x7B widths (1.71 B parameters), B=2, T=256, remat and a
-    4-chunk loss; first-step gradients, then 3 steps' losses and
+    4-chunk loss; first-step gradients, then 2 steps' losses and
     parameters (at most MOE_PARITY_FAR_SHARE further apart than 1e-6);
     tokens whose top-2 experts differ between card and CPU in the first
     forward are counted as near-ties.
@@ -293,8 +293,40 @@ is caught; there is no ``ok`` line unless every phase passed):
     no grouped-matmul launch; einsum at one group against gather on layer
     0's weights (bf16, MOE_FORMS_BF16_TOL; bit for bit reported), and both
     at a capacity that drops nothing against the grouped form in fp32.
+13g. ``nn_parity`` — the Paddle-API path (``paddle_tpu_torch.nn``,
+    ``optimizer``, ``vision``, ``incubate.nn``) on the card against itself
+    on the CPU, fp32 with TF32 off for cuBLAS and cuDNN: every layer of the
+    slice forward and backward (activations, Linear, Embedding, Conv2D with
+    stride, groups and dilation, BatchNorm in training with its running
+    statistics and in eval, LayerNorm, the pools, Flatten,
+    MultiHeadAttention, the Transformer encoder layers, the losses), one
+    ``resnet50(num_classes=10)`` train step at B 2, 64 px (loss, every
+    gradient, the parameters and BatchNorm statistics after
+    ``Momentum.step()``), and a 2-layer ``FusedTransformerEncoderLayer``
+    stack at s 512, head dim 64 (one of each flash kernel a layer, on the
+    "mma" route), by train_parity's rule.
+13h. ``resnet50_train`` — ResNet-50 at full width (224 px, 1000 classes,
+    NCHW, B 64, random images and labels from a seed) through the Paddle
+    API's loop: forward under ``amp.auto_cast(level="O1",
+    dtype="bfloat16")``, ``backward``, ``Momentum(0.1, 0.9, weight_decay
+    1e-4)`` under ``CosineAnnealingDecay``; 2 warm-up steps, then 14 timed
+    steps with no sync and no build; the loss finite and falling; ms a
+    step, images/s, MFU (3 x 4.1 GFLOP an image), peak memory, one profiled
+    step's busy and idle share and top kernels.
+13i. ``encoder_train`` — 12 ``FusedTransformerEncoderLayer``s at
+    ERNIE-3.0-base widths (768, 12 heads of 64, FFN 3072, gelu, dropout
+    0.1, attention dropout 0) between ``Embedding(40000, 768)`` and
+    ``Linear(768, 40000)`` with ``cross_entropy``, s 512, B 16, under
+    ``amp.decorate(level="O2", dtype="bfloat16")`` with ``AdamW``: 2
+    warm-up steps, 8 timed steps with no sync and no build, each launching
+    the flash forward, dQ and dK/dV 12 times on "sm90" (counted from 0);
+    ms a step, tokens/s, the flash kernels' share of one profiled step's
+    busy time; then the kernels at this shape (b 16, s 512, 12 heads, d
+    64, full, bf16) against their plain versions, timed beside their bound
+    and SDPA.
     The flash rows of the ``kernels`` line count the launches of ``train``,
-    ``gpt2``, ``dit_train`` (its sampler too) and ``moe_forms``.
+    ``gpt2``, ``dit_train`` (its sampler too), ``moe_forms`` and
+    ``encoder_train``.
 14. ``kernel_wo`` — ptxas's record of the 21 kernels of
     ``weight_only_sm90.cu`` (0 spill bytes each, or it fails); then the
     weight-only W8A16/W4A16 kernels against their plain version: int8 and
@@ -375,6 +407,7 @@ c.phase_kernel_flash(c.phase_build())"`` (``phase_kernel_gmm`` and
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import gc
 import json
 import math
@@ -470,11 +503,15 @@ MOE_TIMED = dict(tokens=8192, E=8, k=2, bm=512, H=4096, I=14336)
 MOE_MIX = {"forward": {"gmm_up": 4, "gmm_down": 2},
            "trans": {"trans_da": 1, "trans_dx": 2},
            "tgmm": {"tgmm_dw_gate": 2, "tgmm_dw_down": 1}}
-MOE_PARITY = dict(preset="mixtral_8x7b", layers=1, batch=2, seq=256, steps=3)
+# 2 steps (3 before the Paddle-API phases, cut for the script's time): the
+# far share below was set from 3, and a step fewer moves fewer parameters
+# apart
+MOE_PARITY = dict(preset="mixtral_8x7b", layers=1, batch=2, seq=256, steps=2)
 # share of moe_train_parity's parameters further apart than 1e-6, set from
-# `python3 chip_smoke.py --moe-parity-spread` on an H100 80GB HBM3: fp32
-# read 1.3e-4 to 3.1e-4 over seeds 0-3, TF32 on (the control of a
-# lower-precision step) 0.18 and 0.25; 6x above the one, 90x below the other
+# `python3 chip_smoke.py --moe-parity-spread` on an H100 80GB HBM3 at 3
+# steps: fp32 read 1.3e-4 to 3.1e-4 over seeds 0-3, TF32 on (the control
+# of a lower-precision step) 0.18 and 0.25; 6x above the one, 90x below
+# the other
 MOE_PARITY_FAR_SHARE = 2e-3
 MOE_SPREAD_SEEDS = (0, 0, 1, 2, 3)
 MOE_CONTROL_SEEDS = (0, 1)
@@ -495,6 +532,25 @@ DIT_TRAIN = {"dit_xl_2_256": ["--preset", "dit_xl_2", "--batch", "32"],
 DIT_STEPS = 3                      # timed, after one warm-up step
 DIT_SAMPLE = dict(model="dit_l_2_512", batch=4, steps=25, guidance=4.0)
 MOE_FORMS = dict(layers=2, batch=1, seq=1024, capacity_factor=1.25)
+# the Paddle-API training path: nn_parity's sizes (fp32, card vs CPU),
+# ResNet-50 at full width (4.1 GFLOP a 224 px image forward), the fused
+# encoder at ERNIE-3.0-base widths
+NN_PARITY = dict(resnet_batch=2, resnet_px=64, resnet_classes=10,
+                 encoder_layers=2, encoder_width=128, encoder_heads=2,
+                 batch=2, seq=512)
+NN_PARITY_TOL = PARITY_TOL
+NN_PARITY_FLOOR = 1e-5
+# nn_parity's ResNet-50 step: the loss (rtol), float64 card vs CPU (the
+# same arithmetic), float32 card vs CPU measured against the CPU's own
+# float32 distance from float64 (_nn_parity_resnet)
+RESNET50_PARITY_TOL = 1e-4
+RESNET50_FP64_TOL = 1e-7
+RESNET50_FP32_FACTOR = 10.0
+RESNET50_TRAIN = dict(batch=64, px=224, classes=1000, warmup=2, steps=14,
+                      lr=0.1, momentum=0.9, weight_decay=1e-4)
+RESNET50_GFLOP = 4.1
+ENCODER_TRAIN = dict(vocab=40000, width=768, heads=12, ffn=3072, layers=12,
+                     batch=16, seq=512, warmup=2, steps=8, lr=1e-4)
 # einsum at one group against gather, bf16: the combine rounds the k
 # products once (a matmul) where gather rounds each product and their sum,
 # up to about 1.5 ulps of the row's largest term: 2 bf16 ulps of the
@@ -6202,14 +6258,14 @@ def phase_train_moe():
 
 # ------------------------------------------------- model families ---
 
-def _parity_bad(got, want, tol=PARITY_TOL):
+def _parity_bad(got, want, tol=PARITY_TOL, floor=0.0):
     """(entries of ``got`` not finite or further from ``want`` than ``tol``
-    x |want| + ``tol`` x max |want|: train_parity's gradient rule, the
-    largest error)."""
+    x |want| + ``tol`` x max |want| + ``floor``: train_parity's gradient
+    rule, the largest error)."""
     import torch
     g, w = got.detach().float().cpu(), want.detach().float().cpu()
     err = (g - w).abs()
-    bad = (err > tol * w.abs() + tol * float(w.abs().max())) | \
+    bad = (err > tol * w.abs() + tol * float(w.abs().max()) + floor) | \
         ~torch.isfinite(g)
     return int(bad.sum()), float(err.nan_to_num(float("inf")).max())
 
@@ -6732,6 +6788,490 @@ def phase_moe_forms(cfg=None, device="cuda"):
          no_drop_vs_grouped_fp32=no_drop, tol=PARITY_TOL,
          nvidia_smi=_nvidia_smi() if cuda else None)
     return total
+
+
+# ---------------------------------------------------- the Paddle API ---
+
+@contextlib.contextmanager
+def _paddle_device(device):
+    """``paddle_tpu_torch.set_device(device)`` for a block, then the device
+    set before it."""
+    from paddle_tpu_torch import device as pdev
+    old = pdev._current[0]
+    pdev.set_device(device)
+    try:
+        yield
+    finally:
+        pdev._current[0] = old
+
+
+def _nn_parity_cases(nn):
+    """(name, layer factory, inputs) of every layer of the Paddle-API path
+    held in ``nn_parity``: an input is a float shape (it gets a gradient),
+    ``("ids", shape, high)`` or ``("labels", shape, classes)`` /
+    ``("soft", shape)`` for a loss's second argument."""
+    acts = ["ReLU", "ReLU6", "LeakyReLU", "GELU", "Silu", "Swish", "Mish",
+            "Sigmoid", "LogSigmoid", "Tanh", "Tanhshrink", "Hardshrink",
+            "Softshrink", "Hardsigmoid", "Hardswish", "Hardtanh", "ELU",
+            "CELU", "SELU", "Softplus", "Softsign", "Softmax", "LogSoftmax",
+            "GLU"]
+    cases = [(a, (lambda a=a: getattr(nn, a)()), [(8, 64)]) for a in acts]
+    cases += [
+        ("Maxout", lambda: nn.Maxout(2), [(4, 8, 5)]),
+        ("Linear", lambda: nn.Linear(64, 48), [(8, 64)]),
+        ("Embedding", lambda: nn.Embedding(100, 16, padding_idx=0),
+         [("ids", (4, 12), 100)]),
+        ("Identity", lambda: nn.Identity(), [(4, 8)]),
+        ("Dropout_eval", lambda: nn.Dropout(0.5).eval(), [(4, 8)]),
+        ("Conv2D_stride_groups", lambda: nn.Conv2D(8, 16, 3, stride=2,
+                                                   padding=1, groups=2),
+         [(2, 8, 17, 17)]),
+        ("Conv2D_dilation", lambda: nn.Conv2D(8, 8, 3, padding=2,
+                                              dilation=2), [(2, 8, 12, 12)]),
+        ("BatchNorm2D_train", lambda: nn.BatchNorm2D(16), [(4, 16, 9, 9)]),
+        ("BatchNorm1D_train", lambda: nn.BatchNorm1D(16), [(32, 16)]),
+        ("BatchNorm_eval", lambda: nn.BatchNorm(16).eval(),
+         [(4, 16, 5, 5)]),
+        ("LayerNorm", lambda: nn.LayerNorm(64), [(4, 7, 64)]),
+        ("MaxPool2D", lambda: nn.MaxPool2D(3, 2, 1), [(2, 8, 15, 15)]),
+        ("AvgPool2D", lambda: nn.AvgPool2D(3, 2, 1), [(2, 8, 15, 15)]),
+        ("AdaptiveAvgPool2D", lambda: nn.AdaptiveAvgPool2D((3, 2)),
+         [(2, 8, 7, 5)]),
+        ("Flatten", lambda: nn.Flatten(), [(2, 3, 4, 5)]),
+        ("MultiHeadAttention", lambda: nn.MultiHeadAttention(64, 4),
+         [(2, 33, 64)]),
+        ("TransformerEncoderLayer", lambda: nn.TransformerEncoderLayer(
+            64, 4, 128, dropout=0.0, activation="gelu"), [(2, 33, 64)]),
+        ("TransformerEncoder", lambda: nn.TransformerEncoder(
+            nn.TransformerEncoderLayer(64, 4, 128, dropout=0.0,
+                                       normalize_before=True), 2,
+            norm=nn.LayerNorm(64)), [(2, 33, 64)]),
+        ("CrossEntropyLoss", lambda: nn.CrossEntropyLoss(ignore_index=1),
+         [(32, 10), ("labels", (32,), 10)]),
+        ("CrossEntropyLoss_soft", lambda: nn.CrossEntropyLoss(
+            soft_label=True), [(32, 10), ("soft", (32, 10))]),
+        ("MSELoss", lambda: nn.MSELoss(), [(8, 6), (8, 6)]),
+        ("L1Loss", lambda: nn.L1Loss(), [(8, 6), (8, 6)]),
+    ]
+    return cases
+
+
+def _nn_parity_inputs(gen, spec):
+    import torch
+    out = []
+    for s in spec:
+        if s[0] == "ids":
+            out.append(torch.randint(0, s[2], s[1], generator=gen))
+        elif s[0] == "labels":
+            out.append(torch.randint(0, s[2], s[1], generator=gen))
+        elif s[0] == "soft":
+            out.append(torch.softmax(torch.randn(s[1], generator=gen), -1))
+        else:
+            out.append(torch.randn(s, generator=gen))
+    return out
+
+
+def _pass_on(layer, inputs, grad_first_only):
+    """``layer(*inputs)`` forward and backward from a cotangent drawn on
+    the CPU from a fixed seed: (out, input gradients, parameter
+    gradients)."""
+    import torch
+    leaves = [x.clone().requires_grad_(x.is_floating_point() and
+                                       (i == 0 or not grad_first_only))
+              for i, x in enumerate(inputs)]
+    out = layer(*leaves)
+    cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(7))
+    (out * cot.to(out.device)).sum().backward()
+    return (out.detach(), [x.grad for x in leaves if x.requires_grad],
+            {n: p.grad for n, p in layer.named_parameters()})
+
+
+def _resnet_step(c, dev, dtype):
+    """One ``resnet50`` train step in ``dtype`` on ``dev`` from the state
+    of seed 0 (built on the CPU in fp32, then moved): (loss, gradients,
+    state after ``Momentum.step()``)."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision.models import resnet50
+    with _paddle_device("cpu"):
+        paddle.seed(0)
+        m = resnet50(num_classes=c["resnet_classes"])
+    m.to(device=dev, dtype=dtype)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((c["resnet_batch"], 3, c["resnet_px"], c["resnet_px"]),
+                    generator=gen)
+    y = torch.randint(0, c["resnet_classes"], (c["resnet_batch"],),
+                      generator=gen)
+    opt = paddle.optimizer.Momentum(0.1, 0.9, parameters=m.parameters(),
+                                    weight_decay=1e-4)
+    loss = paddle.nn.functional.cross_entropy(m(x.to(dev, dtype)),
+                                              y.to(dev))
+    loss.backward()
+    grads = {n: p.grad.detach().double().cpu()
+             for n, p in m.named_parameters()}
+    opt.step()
+    state = {k: v.double().cpu() for k, v in m.state_dict().items()}
+    return float(loss.detach()), grads, state
+
+
+def _nn_parity_resnet(c, device):
+    """One ``resnet50`` train step (B, px from ``c``) on ``device`` against
+    the CPU from one state.  In float64 the two must agree to
+    RESNET50_FP64_TOL (the same arithmetic).  In float32 a 50-layer
+    network's gradient at initialisation is ill-conditioned (the CPU's own
+    float32 step is up to ~30% of a tensor's largest entry from its float64
+    step), so the card's float32 gradients (then parameters and BatchNorm
+    statistics after the step) must be no further from the CPU's float64
+    ones than RESNET50_FP32_FACTOR x the CPU's float32 ones, over all
+    tensors together (the Frobenius norm of the differences: a tensor
+    alone is one draw of rounding noise).  TF32 would miss by ~1000x.
+    Returns the readings and what failed."""
+    import torch
+    runs = {(dev, dt): _resnet_step(c, dev, dt)
+            for dev in ("cpu", device)
+            for dt in (torch.float64, torch.float32)}
+    truth = runs[("cpu", torch.float64)]
+    out, failed = {"loss": {f"{d}_{str(t)[6:]}": r[0]
+                            for (d, t), r in runs.items()}}, {}
+    fp64 = runs[(device, torch.float64)]
+    if abs(fp64[0] - truth[0]) > RESNET50_FP64_TOL * abs(truth[0]):
+        failed["fp64_loss"] = (fp64[0], truth[0])
+    if abs(runs[(device, torch.float32)][0] - truth[0]) > \
+            RESNET50_PARITY_TOL * abs(truth[0]):
+        failed["fp32_loss"] = (runs[(device, torch.float32)][0], truth[0])
+    card32, cpu32 = runs[(device, torch.float32)], runs[("cpu", torch.float32)]
+    for group, idx in (("grads", 1), ("state_after_step", 2)):
+        worst64, sq_card, sq_cpu = 0.0, 0.0, 0.0
+        for n, w in truth[idx].items():
+            e64 = float((fp64[idx][n] - w).abs().max())
+            worst64 = max(worst64, e64 / max(float(w.abs().max()), 1e-30))
+            sq_card += float((card32[idx][n] - w).square().sum())
+            sq_cpu += float((cpu32[idx][n] - w).square().sum())
+        e_card, e_cpu = math.sqrt(sq_card), math.sqrt(sq_cpu)
+        out[group] = {"fp64_max_rel_err": worst64,
+                      "fp32_card_err_norm": e_card,
+                      "fp32_cpu_err_norm": e_cpu,
+                      "fp32_card_over_cpu": e_card / max(e_cpu, 1e-30)}
+        if worst64 > RESNET50_FP64_TOL:
+            failed[f"resnet50_{group}_fp64"] = worst64
+        if not e_card <= RESNET50_FP32_FACTOR * e_cpu:
+            failed[f"resnet50_{group}_fp32"] = (e_card, e_cpu)
+    return out, failed
+
+
+def phase_nn_parity(cfg=None, device="cuda"):
+    """The Paddle-API path on ``device`` against itself on the CPU, fp32
+    with TF32 off for cuDNN and cuBLAS: every layer of the slice forward
+    and backward (outputs, input and parameter gradients; BatchNorm's
+    running statistics), one ``resnet50`` train step (loss, every
+    gradient, then the parameters and BatchNorm statistics after
+    ``Momentum.step()``; ``_nn_parity_resnet``'s rules), and a 2-layer
+    ``FusedTransformerEncoderLayer`` stack at s 512, head dim 64 (the flash
+    kernels on the card, on the "mma" route in fp32, their plain versions
+    on the CPU; launches counted from 0: one of each kernel a layer).
+    Entries are held by train_parity's rule at NN_PARITY_TOL, plus
+    NN_PARITY_FLOOR for gradients that are zero but for rounding (a key
+    projection's bias: softmax ignores a shift common to every key)."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.incubate import nn as inn
+    c = cfg or NN_PARITY
+    cuda = device == "cuda"
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(0)
+    layers, failed = {}, {}
+    try:
+        for name, make, spec in _nn_parity_cases(paddle.nn):
+            built = {}
+            for dev in ("cpu", device):
+                with _paddle_device(dev):
+                    paddle.seed(0)
+                    built[dev] = make()
+            built[device].set_state_dict(built["cpu"].state_dict())
+            inputs = _nn_parity_inputs(gen, spec)
+            loss_layer = name.endswith(("Loss", "Loss_soft"))
+            got = _pass_on(built[device], [x.to(device) for x in inputs],
+                           loss_layer)
+            want = _pass_on(built["cpu"], inputs, loss_layer)
+            tol = (NN_PARITY_TOL, NN_PARITY_FLOOR)
+            checks = {"out": _parity_bad(got[0], want[0], *tol)}
+            for i, (g, w) in enumerate(zip(got[1], want[1])):
+                checks[f"input_grad_{i}"] = _parity_bad(g, w, *tol)
+            for n, w in want[2].items():
+                checks[f"grad_{n}"] = _parity_bad(got[2][n], w, *tol)
+            for n, b in built["cpu"].named_buffers():
+                checks[f"buffer_{n}"] = _parity_bad(
+                    dict(built[device].named_buffers())[n], b, *tol)
+            layers[name] = max(e for _, e in checks.values())
+            bad = {k: v for k, v in checks.items() if v[0]}
+            if bad:
+                failed[name] = bad
+        resnet, resnet_failed = _nn_parity_resnet(c, device)
+        failed.update(resnet_failed)
+        # the fused encoder at a flash shape
+        stacks = {}
+        for dev in ("cpu", device):
+            with _paddle_device(dev):
+                paddle.seed(0)
+                stacks[dev] = paddle.nn.Sequential(*[
+                    inn.FusedTransformerEncoderLayer(
+                        c["encoder_width"], c["encoder_heads"],
+                        4 * c["encoder_width"], dropout_rate=0.0,
+                        attn_dropout_rate=0.0, activation="gelu")
+                    for _ in range(c["encoder_layers"])])
+        stacks[device].set_state_dict(stacks["cpu"].state_dict())
+        x = torch.randn((c["batch"], c["seq"], c["encoder_width"]),
+                        generator=gen)
+        _reset_flash_counts()
+        got = _pass_on(stacks[device], [x.to(device)], False)
+        launches = _flash_all_counts()
+        want = _pass_on(stacks["cpu"], [x], False)
+        tol = (NN_PARITY_TOL, NN_PARITY_FLOOR)
+        enc = {"out": _parity_bad(got[0], want[0], *tol),
+               "input_grad": _parity_bad(got[1][0], want[1][0], *tol)}
+        enc.update({f"grad_{n}": _parity_bad(got[2][n], w, *tol)
+                    for n, w in want[2].items()})
+        failed.update({f"encoder_{k}": v for k, v in enc.items() if v[0]})
+        if cuda:
+            _flash_launches_check("nn_parity", launches,
+                                  c["encoder_layers"], 1, sm90=False)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    if failed:
+        raise AssertionError(f"nn_parity: out of tolerance (entries, max "
+                             f"err): {failed}")
+    emit("nn_parity", dtype="float32", tf32=False, tol=NN_PARITY_TOL,
+         floor=NN_PARITY_FLOOR, layers_max_abs_err=layers,
+         resnet50=dict(batch=c["resnet_batch"], px=c["resnet_px"],
+                       classes=c["resnet_classes"],
+                       fp64_tol=RESNET50_FP64_TOL,
+                       fp32_factor=RESNET50_FP32_FACTOR,
+                       loss_rtol=RESNET50_PARITY_TOL, **resnet),
+         fused_encoder=dict(layers=c["encoder_layers"],
+                            width=c["encoder_width"],
+                            heads=c["encoder_heads"], batch=c["batch"],
+                            seq=c["seq"], flash_launches=launches,
+                            max_abs_err=max(e for _, e in enc.values())),
+         nvidia_smi=_nvidia_smi() if cuda else None)
+
+
+def _train_steps_without_sync(step, n, device):
+    """``n`` calls of ``step`` (one training step, returning its loss
+    unread) under ``assert_overhead(max_compiles=0, max_syncs=0)`` and, on
+    the card, ``torch.cuda.set_sync_debug_mode("error")``: a step that
+    builds a kernel, marks a sync or makes a synchronizing CUDA call fails
+    the phase.  Returns (losses, seconds a step, host clock around the
+    steps and a final synchronize)."""
+    import torch
+    from paddle_tpu_torch import observability as obs
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with obs.assert_overhead(max_compiles=0, max_syncs=0):
+        mode = torch.cuda.get_sync_debug_mode() if cuda else 0
+        if cuda:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            losses = [step() for _ in range(n)]
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode(mode)
+    if cuda:
+        torch.cuda.synchronize()
+    return losses, (time.perf_counter() - t0) / n
+
+
+def phase_resnet50_train(cfg=None, device="cuda"):
+    """ResNet-50 at full width through the Paddle-API training loop:
+    ``set_device``, ``vision.models.resnet50``, the forward under
+    ``amp.auto_cast(level="O1", dtype="bfloat16")``, ``loss.backward()``,
+    ``Momentum.step()`` under a ``CosineAnnealingDecay`` schedule that
+    anneals over the run's steps, ``clear_grad()``.  NCHW, random images and labels from a seed, one
+    repeated batch: ``warmup`` steps, then ``steps`` timed steps without a
+    sync or a build (``_train_steps_without_sync``), the losses read after
+    them: finite and falling.  ms a step, images/s, MFU (3 x 4.1 GFLOP an
+    image over the bf16 peak), peak memory, and one profiled step's busy
+    and idle share and top device kernels."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import PEAK_FLOPS
+    from paddle_tpu_torch.vision.models import resnet50
+    c = cfg or RESNET50_TRAIN
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _paddle_device(device):
+        paddle.seed(0)
+        model = resnet50(num_classes=c["classes"])
+        sched = paddle.optimizer.lr.CosineAnnealingDecay(
+            c["lr"], T_max=c["warmup"] + c["steps"])
+        opt = paddle.optimizer.Momentum(
+            sched, c["momentum"], parameters=model.parameters(),
+            weight_decay=c["weight_decay"])
+        x = paddle.randn([c["batch"], 3, c["px"], c["px"]])
+        y = paddle.randint(0, c["classes"], [c["batch"]])
+
+    def step():
+        with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = paddle.nn.functional.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        return loss.detach()
+
+    warm = [step() for _ in range(c["warmup"])]
+    setup = time.perf_counter() - t0
+    timed, step_s = _train_steps_without_sync(step, c["steps"], device)
+    losses = [float(v) for v in warm + timed]
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"resnet50_train: losses {losses}")
+    img_s = c["batch"] / step_s
+    result = dict(
+        model="resnet50", layout="NCHW", batch=c["batch"], px=c["px"],
+        classes=c["classes"], amp="O1 bfloat16", optimizer="Momentum",
+        lr_schedule="CosineAnnealingDecay", setup_and_warmup_s=setup,
+        warmup_steps=c["warmup"], timed_steps=c["steps"],
+        steps_checked_without_sync=c["steps"], builds_after_warmup=0,
+        step_ms=step_s * 1e3, images_per_s=img_s,
+        mfu=3 * RESNET50_GFLOP * 1e9 * img_s / PEAK_FLOPS["bfloat16"]
+        if cuda else None,
+        max_memory_allocated=torch.cuda.max_memory_allocated()
+        if cuda else None, losses=losses)
+    if cuda:
+        prof = _profile_breakdown(step, step_s * 1e3, top=8)
+        prof["busy_share"] = 1 - prof["idle_share"]
+        result["profile"] = prof
+    emit("resnet50_train", **result,
+         nvidia_smi=_nvidia_smi() if cuda else None)
+    del model, opt, x, y
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+
+def _encoder_model(c):
+    """``nn.Embedding(vocab, width)``, ``layers`` x
+    ``FusedTransformerEncoderLayer(width, heads, ffn, dropout 0.1,
+    attention dropout 0, gelu)`` and ``Linear(width, vocab)``."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.incubate.nn import FusedTransformerEncoderLayer
+
+    class Encoder(paddle.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embed = paddle.nn.Embedding(c["vocab"], c["width"])
+            self.layers = paddle.nn.LayerList([
+                FusedTransformerEncoderLayer(
+                    c["width"], c["heads"], c["ffn"], dropout_rate=0.1,
+                    attn_dropout_rate=0.0, activation="gelu")
+                for _ in range(c["layers"])])
+            self.head = paddle.nn.Linear(c["width"], c["vocab"])
+
+        def forward(self, ids):
+            x = self.embed(ids)
+            for layer in self.layers:
+                x = layer(x)
+            return self.head(x)
+    return Encoder()
+
+
+def phase_encoder_train(cfg=None, device="cuda"):
+    """A transformer encoder of ``FusedTransformerEncoderLayer``s at
+    ERNIE-3.0-base widths (12 layers, 768 wide, 12 heads of 64, FFN 3072,
+    vocabulary 40000), s 512, B 16, token ids from a seed, through the
+    Paddle-API loop under ``amp.decorate(level="O2", dtype="bfloat16")``
+    and ``auto_cast(level="O2")`` with ``AdamW`` (float32 master weights):
+    ``warmup`` steps, then ``steps`` timed steps without a sync or a build,
+    the flash launches counted from 0 over them (forward, dQ and dK/dV
+    ``layers`` times each a step, all on "sm90"); losses finite.  ms a
+    step, tokens/s, MFU (6 x the matmul parameters), peak memory, one
+    profiled step (the flash kernels' share of the busy time); then the kernels at this shape (b 16, s 512,
+    12 heads, d 64, full, bf16) held against their plain versions and
+    timed beside their bound and SDPA (``_flash_timing``).  Returns
+    (launches, timing)."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import PEAK_FLOPS
+    c = cfg or ENCODER_TRAIN
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _paddle_device(device):
+        paddle.seed(0)
+        model = _encoder_model(c)
+        opt = paddle.optimizer.AdamW(c["lr"], parameters=model.parameters(),
+                                     weight_decay=0.01)
+        model, opt = paddle.amp.decorate(model, opt, level="O2",
+                                         dtype="bfloat16")
+        ids = paddle.randint(0, c["vocab"], [c["batch"], c["seq"]])
+        labels = paddle.randint(0, c["vocab"], [c["batch"] * c["seq"]])
+
+    def step():
+        with paddle.amp.auto_cast(level="O2", dtype="bfloat16"):
+            logits = model(ids)
+            loss = paddle.nn.functional.cross_entropy(
+                logits.reshape([-1, c["vocab"]]), labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    warm = [step() for _ in range(c["warmup"])]
+    setup = time.perf_counter() - t0
+    _reset_flash_counts()
+    timed, step_s = _train_steps_without_sync(step, c["steps"], device)
+    launches = _flash_all_counts()
+    if cuda:
+        _flash_launches_check("encoder_train", launches, c["layers"],
+                              c["steps"], sm90=True)
+    losses = [float(v) for v in warm + timed]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"encoder_train: losses {losses}")
+    n_params = sum(p.numel() for p in model.parameters())
+    tok_s = c["batch"] * c["seq"] / step_s
+    result = dict(
+        widths="ERNIE-3.0-base", layers=c["layers"], width=c["width"],
+        heads=c["heads"], head_dim=c["width"] // c["heads"], ffn=c["ffn"],
+        vocab=c["vocab"], params=n_params, batch=c["batch"], seq=c["seq"],
+        amp="O2 bfloat16", optimizer="AdamW (fp32 master weights)",
+        setup_and_warmup_s=setup, warmup_steps=c["warmup"],
+        timed_steps=c["steps"], steps_checked_without_sync=c["steps"],
+        builds_after_warmup=0, step_ms=step_s * 1e3, tokens_per_s=tok_s,
+        # 6 x the matmul parameters (all but the embedding table) x tokens/s
+        mfu_6n=6 * (n_params - c["vocab"] * c["width"]) * tok_s /
+        PEAK_FLOPS["bfloat16"] if cuda else None,
+        max_memory_allocated=torch.cuda.max_memory_allocated()
+        if cuda else None, losses=losses, flash_launches=launches)
+    timing = None
+    if cuda:
+        prof = _profile_breakdown(step, step_s * 1e3, top=8)
+        prof["flash_share_of_busy"] = prof["flash_ms"] / \
+            prof["device_busy_ms"]
+        result["profile"] = prof
+        del model, opt, ids, labels
+        gc.collect()
+        torch.cuda.empty_cache()
+        timing, checks = _flash_timing(
+            torch.Generator(device="cuda").manual_seed(6),
+            dict(b=c["batch"], s=c["seq"], h=c["heads"],
+                 d=c["width"] // c["heads"]), causal=False)
+        _raise_timing_failures("encoder_train", timing, checks)
+        result["flash_timing"] = timing
+        result["flash_checks"] = checks
+    emit("encoder_train", **result,
+         nvidia_smi=_nvidia_smi() if cuda else None)
+    return launches, timing
 
 
 # ------------------------------------------------------- weight-only ---
@@ -7904,11 +8444,15 @@ def main() -> int:
     phase_dit_parity()
     dit_launches, _dit_t = phase_dit_train()
     forms_launches = phase_moe_forms()
+    phase_nn_parity()
+    phase_resnet50_train()
+    encoder_launches, _encoder_t = phase_encoder_train()
     # the flash kernels' launches on every training path: llama2_7b, GPT-2,
-    # DiT (training and the sampler) and the two MoE forms
+    # DiT (training and the sampler), the two MoE forms and the Paddle-API
+    # fused encoder
     flash_launches = {k: flash_launches[k] + gpt_launches[k] +
-                      dit_launches[k] + forms_launches[k]
-                      for k in flash_launches}
+                      dit_launches[k] + forms_launches[k] +
+                      encoder_launches[k] for k in flash_launches}
     wo_err, wo_t = phase_kernel_wo(built)
     wo_launches, _wo_sweeps = phase_weight_only_path()
     prim_err, prim_path, prim_t = phase_kernel_primitives(_smi, built)

@@ -10,6 +10,12 @@ Every entry point that makes tensors takes ``device=`` and defaults to
 ``"cuda"``: with no GPU the default raises instead of running on the CPU.
 Pass ``device="cpu"`` to run the plain PyTorch versions of the kernels
 (what the tests do).
+
+The Paddle API (``import paddle_tpu_torch as paddle``: ``paddle.nn``,
+``paddle.optimizer``, ``paddle.amp``, ``paddle.vision``,
+``paddle.incubate``, ``paddle.to_tensor``, ``paddle.seed`` and the ops)
+places its tensors on the device ``paddle.set_device`` chose, by default the
+card; ``set_device("cpu")`` runs it on the CPU.
 """
 
 from __future__ import annotations
@@ -42,5 +48,26 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+# the Paddle API (after resolve_device, which its modules import)
+from . import dtypes  # noqa: E402
+from .core.random import get_rng_state, seed, set_rng_state  # noqa: E402
+from .core.tensor import Parameter, is_tensor, to_tensor  # noqa: E402
+from .device import get_device, set_device  # noqa: E402
+from .dtypes import (bfloat16, bool_, float16, float32,  # noqa: E402
+                     float64, get_default_dtype, int8, int16, int32, int64,
+                     set_default_dtype, uint8)
+from .ops import *  # noqa: E402,F401,F403
+from .ops import __all__ as _OPS  # noqa: E402
+from . import (amp, autograd, device, incubate, nn, optimizer,  # noqa: E402
+               vision)
+from .autograd import grad, no_grad  # noqa: E402
+from .nn.layer import ParamAttr  # noqa: E402
+
 __all__ = ["__version__", "DEFAULT_DEVICE", "HBM_BYTES_PER_S", "PEAK_FLOPS",
-           "resolve_device"]
+           "resolve_device", "Parameter", "ParamAttr", "amp", "autograd",
+           "bfloat16", "bool_", "device", "dtypes", "float16", "float32",
+           "float64", "get_default_dtype", "get_device", "get_rng_state",
+           "grad", "incubate", "int8", "int16", "int32", "int64",
+           "is_tensor", "nn", "no_grad", "optimizer", "seed",
+           "set_default_dtype", "set_device", "set_rng_state", "to_tensor",
+           "uint8", "vision"] + _OPS

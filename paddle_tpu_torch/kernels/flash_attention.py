@@ -277,6 +277,21 @@ def _lib(name="flash_attention"):
     return _setup(_build.load(name), name)
 
 
+# the reference's flash_attention_block_q / _kv defaults
+PALLAS_BLOCK = 512
+
+
+def pallas_shape(sq, sk, d) -> bool:
+    """Whether the reference's flash entry takes its Pallas kernels (not
+    its XLA fallback) at these lengths and head dim: its blocks, min(512,
+    s), must divide both lengths, and d must be 64, 96 or a multiple of 128
+    (``paddle_tpu/kernels/flash_attention.py`` ``_blocks_for``).  The
+    callers that ask the reference's question route by it."""
+    bq, bkv = min(PALLAS_BLOCK, sq), min(PALLAS_BLOCK, sk)
+    return sq % bq == 0 and sk % bkv == 0 and (d % 128 == 0 or
+                                                d in (64, 96))
+
+
 def _route(dtype, d):
     """The route of all three kernels for inputs of ``dtype`` at head dim
     ``d``: ``"sm90"`` (bf16 at d 64 and 128) or ``"mma"`` (the rest: fp32,

@@ -52,13 +52,10 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from .. import PEAK_FLOPS, resolve_device
-from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention import flash_attention, pallas_shape
 from .llama import _Init, _ParamLinear, torch_dtype
 from .pretrain import _to_torch
 
-# the reference's flash_attention_block_q / _kv defaults: its Pallas path
-# needs both to divide the sequence
-_FLASH_BLOCK = 512
 _FREQ_DIM = 256
 _DROP_SEED = 0xD17
 _BLOCK_KEYS = ("qkv", "proj", "fc1", "fc2", "ada_w", "ada_b")
@@ -174,9 +171,7 @@ def flash_route(s: int, d: int) -> bool:
     flash when s >= 512 and 128 divides s, and its flash entry takes the
     Pallas path when its 512-row blocks divide s and d is 64, 96 or a
     multiple of 128 (``_blocks_for``); XLA runs the rest."""
-    block = min(_FLASH_BLOCK, s)
-    return s >= 512 and s % 128 == 0 and s % block == 0 and \
-        (d % 128 == 0 or d in (64, 96))
+    return s >= 512 and s % 128 == 0 and pallas_shape(s, s, d)
 
 
 def _patch_attention(q, k, v):

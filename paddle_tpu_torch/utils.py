@@ -22,20 +22,32 @@ def stack_params(param_dicts) -> Dict[str, torch.Tensor]:
     return {k: torch.stack([d[k] for d in param_dicts]) for k in keys}
 
 
+def _state_tensors(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """Every parameter and persistent buffer of ``model``, by name."""
+    out = dict(model.named_parameters())
+    for mname, m in model.named_modules():
+        for bname, b in m._buffers.items():
+            if b is not None and bname not in m._non_persistent_buffers_set:
+                out[f"{mname}.{bname}" if mname else bname] = b
+    return out
+
+
 @torch.no_grad()
 def load_reference_state(model: nn.Module,
                          arrays: Mapping[str, np.ndarray]) -> nn.Module:
-    """Copy a reference model's weights into ``model`` in place.
+    """Copy a reference model's state into ``model`` in place.
 
     ``arrays`` holds numpy arrays keyed by the reference's ``state_dict()``
     names (``llama.layers.0.self_attn.q_proj.weight``, ``[in, out]``; for
     MoE layers ``llama.layers.0.mlp.gate.weight`` ``[H, E]`` and the expert
     banks ``llama.layers.0.mlp.experts_gate``/``experts_up`` ``[E, H, I]``
-    and ``experts_down`` ``[E, I, H]``) — the same names and layouts as the
-    port's parameters, so both packages then compute the same function.  Every parameter must be given, with
-    its exact shape; values are cast to the parameter's dtype.
+    and ``experts_down`` ``[E, I, H]``; a BatchNorm's running statistics
+    ``..._mean`` / ``..._variance``) — the same names and layouts as the
+    port's parameters and persistent buffers, so both packages then
+    compute the same function.  Every parameter and persistent buffer must
+    be given, with its exact shape; values are cast to its dtype.
     """
-    params = dict(model.named_parameters())
+    params = _state_tensors(model)
     missing = sorted(set(params) - set(arrays))
     extra = sorted(set(arrays) - set(params))
     if missing or extra:

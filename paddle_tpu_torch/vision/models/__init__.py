@@ -1,0 +1,8 @@
+"""The port of ``paddle_tpu.vision.models``: so far the ResNet family.  The
+other models wait for a later slice (``ROADMAP.md``)."""
+
+from .resnet import (BasicBlock, BottleneckBlock, ResNet, resnet18,  # noqa
+                     resnet34, resnet50, resnet101, resnet152,
+                     resnext50_32x4d, resnext50_64x4d, resnext101_32x4d,
+                     resnext101_64x4d, resnext152_32x4d, resnext152_64x4d,
+                     wide_resnet50_2, wide_resnet101_2)

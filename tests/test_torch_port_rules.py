@@ -46,6 +46,18 @@ FLEET_STACK = ("router/__init__.py", "router/__main__.py", "router/replica.py",
                "fleet/chaos.py", "fleet/supervisor.py")
 
 
+# the Paddle-API training path: framework core, nn, optimizers, amp,
+# ResNet and the fused layers
+PADDLE_API = ("device/__init__.py", "dtypes.py", "core/random.py",
+              "core/tensor.py", "core/amp_state.py", "autograd/__init__.py",
+              "ops/__init__.py", "ops/creation.py", "ops/manipulation.py",
+              "ops/linalg.py", "ops/math.py", "ops/random_ops.py",
+              "nn/__init__.py", "nn/layer.py", "nn/initializer.py",
+              "nn/clip.py", "nn/functional.py", "optimizer/__init__.py",
+              "optimizer/lr.py", "amp/__init__.py", "vision/models/resnet.py",
+              "incubate/nn/__init__.py", "incubate/nn/functional.py")
+
+
 def test_port_and_chip_smoke_import_no_jax():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
@@ -53,6 +65,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert {PORT / "inference" / f for f in SERVING_FEATURES} <= set(files)
     assert {PORT / f for f in CONTROL_PLANE} <= set(files)
     assert {PORT / f for f in FLEET_STACK} <= set(files)
+    assert {PORT / f for f in PADDLE_API} <= set(files)
     bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}"
            for f in files for mod, line in _imported_roots(f)
            if mod in ("jax", "jaxlib", "paddle_tpu")]
@@ -87,6 +100,8 @@ _STACKS = (
                   "paddle_tpu_torch.models.dit",
                   "paddle_tpu_torch.kernels.flash_attention",
                   "paddle_tpu_torch.profile_step")),
+    ("paddle_api", tuple("paddle_tpu_torch." + f[:-3].replace(
+        "/__init__", "").replace("/", ".") for f in PADDLE_API)),
 )
 _REPORT = """
 import contextlib, importlib, io, json, runpy, sys
@@ -244,6 +259,68 @@ def test_importing_the_training_stack_loads_no_jax(stack_report):
     _loaded_no_jax(stack_report, "training")
 
 
+def test_importing_the_paddle_api_loads_no_jax(stack_report):
+    _loaded_no_jax(stack_report, "paddle_api")
+
+
+def test_paddle_api_defaults_to_the_card():
+    """Layers, ``to_tensor``, the creation ops and the optimizers' layers
+    go to the device ``set_device`` chose, by default the card: with no
+    GPU they raise rather than carry on on the CPU."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import device
+    from paddle_tpu_torch.incubate import nn as inn
+    from paddle_tpu_torch.vision.models import resnet18
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device works here")
+    old = device._current[0]
+    device._current[0] = None
+    try:
+        for make in (lambda: paddle.nn.Linear(2, 2),
+                     lambda: paddle.nn.BatchNorm2D(2),
+                     lambda: inn.FusedTransformerEncoderLayer(8, 2, 16),
+                     lambda: resnet18(num_classes=2),
+                     lambda: paddle.to_tensor([1.0]),
+                     lambda: paddle.zeros([2]), lambda: paddle.randn([2]),
+                     lambda: paddle.set_device("gpu")):
+            with pytest.raises(RuntimeError, match="cuda"):
+                make()
+    finally:
+        device._current[0] = old
+
+
+def test_fused_attention_never_takes_the_plain_path_at_flash_shapes(
+        monkeypatch):
+    """At s 512, head dim 64 (no mask, no attention dropout) the fused
+    attention calls the flash entry; on a tensor that is neither on the
+    CPU nor on a card that call raises (the plain einsum-softmax, which
+    meta tensors would run, is never taken), and a CPU tensor reaches the
+    flash kernels' plain version.  At s 128 it takes the plain path."""
+    from paddle_tpu_torch import device
+    from paddle_tpu_torch.incubate import nn as inn
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    old = device._current[0]
+    device.set_device("cpu")
+    try:
+        layer = inn.FusedMultiHeadAttention(128, 2, dropout_rate=0.0,
+                                            attn_dropout_rate=0.0)
+    finally:
+        device._current[0] = old
+    plain = []
+    real = fa._reference_attention_lse
+    monkeypatch.setattr(fa, "_reference_attention_lse",
+                        lambda *a, **k: plain.append(1) or real(*a, **k))
+    with torch.no_grad():
+        layer(torch.zeros(1, 512, 128))
+        assert plain == [1]
+        layer(torch.zeros(1, 128, 128))
+        assert plain == [1]
+        torch.nn.Module.to(layer, "meta")
+        with pytest.raises(NotImplementedError, match="flash"):
+            layer(torch.empty(1, 512, 128, device="meta"))
+        assert layer(torch.empty(1, 128, 128, device="meta")).is_meta
+
+
 def test_default_device_is_cuda_and_raises_without_gpu():
     """Entry points run on the card unless the caller asks for the CPU:
     with no GPU the default raises instead of carrying on on the CPU."""
@@ -318,14 +395,16 @@ def test_no_try_around_a_launch():
     the control and observability plane (session migration, the SLO
     controller, the registry, tracer, attribution, flight recorder,
     sentinel and catalog, the step watchdog) or in the models (the DiT
-    attention routes by shape, never by catching a kernel's refusal) wraps
-    a kernel launch or an engine step."""
+    attention routes by shape, never by catching a kernel's refusal) or in
+    the Paddle-API path (the fused attention's flash call) wraps a kernel
+    launch or an engine step."""
     files = [PORT / "inference" / f for f in
              ("generation.py", "kv_cache.py") + SERVING_FEATURES] + \
         [PORT / "serving" / "__main__.py"] + \
         [PORT / f for f in CONTROL_PLANE] + \
         [PORT / "models" / f for f in ("llama.py", "pretrain.py", "gpt.py",
-                                       "dit.py")]
+                                       "dit.py")] + \
+        [PORT / f for f in PADDLE_API]
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), filename=str(f))):

@@ -2,6 +2,13 @@
 sockets): streamed ``/v1/completions`` tokens equal a direct port-engine run
 and the JAX engine on the same weights; ``/healthz`` and ``/readyz`` report
 liveness and post-warmup readiness; bad requests get their status codes.
+
+The registry is process-wide, and a server's SLO controller sheds on the
+``serving.ttft_ms`` / ``serving.itl_ms`` observations already in it (the
+reference's controller counts them too).  Another file's engines, run in
+the same worker before this one, can leave enough slow observations there
+to shed this file's first requests; so each server here is built on empty
+``serving.`` series (``_serve``), and the file leaves them empty.
 """
 
 import asyncio
@@ -18,7 +25,9 @@ from paddle_tpu.inference import GenerationConfig as JGen
 from paddle_tpu.models import llama as jllama
 from paddle_tpu_torch.inference import ContinuousBatchingEngine, GenerationConfig
 from paddle_tpu_torch.models import llama
+from paddle_tpu_torch import observability as obs
 from paddle_tpu_torch.serving import ServingServer
+from paddle_tpu_torch.serving.slo import SHED, SLOController
 from paddle_tpu_torch.serving.__main__ import (build_engine, build_parser,
                                                engine_kwargs)
 from paddle_tpu_torch.utils import load_reference_state
@@ -72,6 +81,20 @@ def completion(prompt, max_tokens, stream):
                        "stream": stream}).encode()
 
 
+def _serve(engine, **kw):
+    """A server over ``engine`` whose SLO controller starts from empty
+    ``serving.`` series."""
+    obs.reset("serving.")
+    return ServingServer(engine, **kw)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _serving_series_left_empty():
+    obs.reset("serving.")
+    yield
+    obs.reset("serving.")
+
+
 @pytest.fixture(scope="module")
 def models():
     paddle.seed(0)
@@ -100,7 +123,7 @@ def server(models):
     eng = ContinuousBatchingEngine(models[1],
                                    gen=GenerationConfig(max_new_tokens=6),
                                    device="cpu", **GEOM)
-    srv = ServingServer(eng, warmup=True)
+    srv = _serve(eng, warmup=True)
     yield srv
     srv.close()
 
@@ -152,7 +175,7 @@ def test_unary_completion_and_errors(models, oracles):
     eng = ContinuousBatchingEngine(models[1],
                                    gen=GenerationConfig(max_new_tokens=6),
                                    device="cpu", num_pages=4, **GEOM)
-    srv = ServingServer(eng).start()
+    srv = _serve(eng).start()
     _wait_ready(srv)
 
     async def go():
@@ -178,6 +201,38 @@ def test_unary_completion_and_errors(models, oracles):
     # bad JSON, out-of-vocab id, bad max_tokens, a prompt needing more
     # pages (5) than the pool has (4), wrong method, unknown route
     assert [s for s, _ in res[1:]] == [400, 400, 400, 413, 405, 404]
+
+
+def test_slow_observations_left_by_another_file_shed_nothing_here(
+        models, oracles):
+    """64 synthetic 1000 ms ITLs in the registry (what a slow engine of an
+    earlier file leaves): a controller built on them sheds, which is how
+    this file's streamed and unary requests got 503s.  A server built by
+    ``_serve`` answers both with 200 and the oracle's tokens."""
+    itl = obs.histogram("serving.itl_ms")
+    for _ in range(64):
+        itl.observe(1000.0)
+    assert SLOController().decide(record=False) == SHED
+    eng = ContinuousBatchingEngine(models[1],
+                                   gen=GenerationConfig(max_new_tokens=6),
+                                   device="cpu", **GEOM)
+    srv = _serve(eng, warmup=True).start()
+    _wait_ready(srv)
+
+    async def go():
+        return await asyncio.gather(
+            request(srv, "POST", "/v1/completions",
+                    completion(PROMPTS[0], 6, True)),
+            request(srv, "POST", "/v1/completions",
+                    completion(PROMPTS[1], 6, False)))
+
+    try:
+        (s_stream, p_stream), (s_unary, p_unary) = asyncio.run(go())
+    finally:
+        srv.close()
+    assert (s_stream, s_unary) == (200, 200)
+    assert sse_ids(p_stream) == (oracles[0][0], "length")
+    assert json.loads(p_unary)["choices"][0]["token_ids"] == oracles[0][1]
 
 
 def test_launcher_builds_the_engine_from_args():
