@@ -164,7 +164,7 @@ is caught; there is no ``ok`` line unless every phase passed):
     join the ``kernels`` line.
 7h. ``serve_tp`` — tensor-parallel serving on the one card: one engine
     over the shard devices ``["cuda:0", "cuda:0"]`` (tp=2) against the tp=1
-    engine over the same llama2_7b widths cut to 16 layers (bf16; cut
+    engine over the same llama2_7b widths cut to 8 layers (bf16; cut
     from 32 to keep the whole script inside 900 s) at the launcher's
     geometry, 8 streams of 64 tokens (prompts 32-512): tokens equal, the
     final hidden states of a prefill and a decode step ``torch.equal``,
@@ -304,7 +304,11 @@ is caught; there is no ``ok`` line unless every phase passed):
     gradient, the parameters and BatchNorm statistics after
     ``Momentum.step()``), and a 2-layer ``FusedTransformerEncoderLayer``
     stack at s 512, head dim 64 (one of each flash kernel a layer, on the
-    "mma" route), by train_parity's rule.
+    "mma" route), by train_parity's rule; and one O2 fp16 ``Momentum``
+    step with a ``GradScaler`` (2^16; true gradients near 2^-20, unscaled
+    into float32, bit for bit a float64 unscale of the scaled gradients):
+    fp16 parameters and float32 velocities by NN_PARITY_FP16_TOL, float32
+    masters by NN_PARITY_MASTER_TOL.
 13h. ``resnet50_train`` — ResNet-50 at full width (224 px, 1000 classes,
     NCHW, B 64, random images and labels from a seed) through the Paddle
     API's loop: forward under ``amp.auto_cast(level="O1",
@@ -324,9 +328,30 @@ is caught; there is no ``ok`` line unless every phase passed):
     busy time; then the kernels at this shape (b 16, s 512, 12 heads, d
     64, full, bf16) against their plain versions, timed beside their bound
     and SDPA.
+13j. ``hapi_fit`` — ``paddle.Model.fit`` at full width, fp32, from
+    ``DataLoader``s with 4 fork workers over the shared-memory ring: (a)
+    ResNet-50 (224 px, 1000 classes, B 64) on synthetic 256 px images
+    cropped, flipped and normalized in the workers, a seeded
+    ``RandomSampler``, ``Momentum`` under ``CosineAnnealingDecay`` with the
+    ``LRScheduler`` callback, ``Accuracy(topk=(1, 5))``; ``fit(eval_data,
+    epochs=1, save_dir)``: 2 warm-up and 12 timed steps, then
+    ``evaluate`` and ``predict`` over 2 batches each, ``Model.save`` and
+    ``load`` into a fresh model (bit for bit; ``predict_batch`` within
+    HAPI_PREDICT_TOL); (b) an ERNIE-3.0-base-width sentence classifier (the
+    ``encoder_train`` stack, a mean pool, ``Linear(768, 2)``; s 512, B 16)
+    through the same loop, its flash launches counted from 0 (12 forward,
+    dQ and dK/dV a training step on "mma", 12 forwards an evaluated or
+    predicted batch), then each kernel against its plain version at that
+    shape (b 16, s 512, 12 heads, d 64, full, fp32) by FLASH_TOL.  Each:
+    losses finite, every loader iteration served
+    by the fork ring with 4 distinct worker pids, every timed step exactly
+    1 + len(metrics) marked syncs and 0 builds under
+    ``set_sync_debug_mode("error")``; ms a step, images or tokens/s, the
+    loader-wait share, ``os.cpu_count()``, peak memory, one profiled
+    ``train_batch``'s busy and idle share.
     The flash rows of the ``kernels`` line count the launches of ``train``,
-    ``gpt2``, ``dit_train`` (its sampler too), ``moe_forms`` and
-    ``encoder_train``.
+    ``gpt2``, ``dit_train`` (its sampler too), ``moe_forms``,
+    ``encoder_train`` and ``hapi_fit``.
 14. ``kernel_wo`` — ptxas's record of the 21 kernels of
     ``weight_only_sm90.cu`` (0 spill bytes each, or it fails); then the
     weight-only W8A16/W4A16 kernels against their plain version: int8 and
@@ -551,6 +576,37 @@ RESNET50_TRAIN = dict(batch=64, px=224, classes=1000, warmup=2, steps=14,
 RESNET50_GFLOP = 4.1
 ENCODER_TRAIN = dict(vocab=40000, width=768, heads=12, ffn=3072, layers=12,
                      batch=16, seq=512, warmup=2, steps=8, lr=1e-4)
+# nn_parity's O2 fp16 step with a GradScaler: fp16 activations on the card
+# and on the CPU may round an fp16 ulp (2^-11 relative) apart, and that
+# reaches the fp16 gradients through a few more fp16 roundings; so the
+# velocities (the unscaled gradients) and the fp16 parameters are held to
+# 2^-8 of each value and of the tensor's largest (8 fp16 ulps).  The
+# float32 masters move by lr x velocity (~1e-7 against values near 0.1),
+# so a velocity apart by 2^-8 moves them far under one float32 ulp: they
+# are held to 2^-22 of each value and of the largest (4 float32 ulps at
+# the top).  The unscale itself is exact (an fp16 value times 2^-16 is a
+# float32 value) and is held bit for bit.
+NN_PARITY_FP16_TOL = 2.0 ** -8
+NN_PARITY_MASTER_TOL = 2.0 ** -22
+# hapi_fit: paddle.Model.fit over fork-worker DataLoaders, fp32 (the
+# reference's Model runs no amp).  (a) ResNet-50 on synthetic 256 px uint8
+# images, random-cropped to 224, flipped and normalized in the workers; (b)
+# an ERNIE-3.0-base-width sentence classifier (the encoder_train stack, a
+# mean pool and Linear(768, 2)) on token ids from a seed.  Each: warmup +
+# steps training batches, then eval_batches through fit's evaluation and
+# evaluate, predict_batches through predict
+HAPI_FIT = {
+    "resnet50": dict(batch=64, px=224, src_px=256, classes=1000, warmup=2,
+                     steps=12, eval_batches=2, predict_batches=2, workers=4,
+                     lr=0.025, momentum=0.9, weight_decay=1e-4, seed=1000),
+    "ernie": dict(vocab=40000, width=768, heads=12, ffn=3072, layers=12,
+                  classes=2, batch=16, seq=512, warmup=2, steps=12,
+                  eval_batches=2, predict_batches=2, workers=4, lr=1e-4,
+                  seed=2000),
+}
+# a saved and reloaded ResNet-50's predict_batch against the model it was
+# saved from (the same weights, the same card): relative to max |want|
+HAPI_PREDICT_TOL = 1e-5
 # einsum at one group against gather, bf16: the combine rounds the k
 # products once (a matmul) where gather rounds each product and their sum,
 # up to about 1.5 ulps of the row's largest term: 2 bf16 ulps of the
@@ -4264,7 +4320,7 @@ def phase_fleet_failover(argv=None):
 
 # ------------------------------------------------------ tensor parallel ---
 
-SERVE_TP = dict(layers=16, max_batch=8, max_seq_len=1024, page=16,
+SERVE_TP = dict(layers=8, max_batch=8, max_seq_len=1024, page=16,
                 bucket=64, num_pages=512, prompts=(32, 512), requests=8,
                 new_tokens=64,
                 timed_context=512, timed_steps=16, moe_layers=4,
@@ -6959,6 +7015,48 @@ def _nn_parity_resnet(c, device):
     return out, failed
 
 
+def _amp_fp16_step(dev):
+    """One ``Momentum`` step of a Linear-GELU-Linear net (64 -> 64 -> 16,
+    the state of seed 0) under ``amp.decorate(level="O2",
+    dtype="float16")`` and ``auto_cast(level="O2", dtype="float16")``, its
+    loss (1e-5 x the mean square of the output: true gradients near 2^-20,
+    under fp16's normal range) scaled by ``GradScaler(2^16)``, on ``dev``:
+    (whether a gradient was not finite, how many unscaled gradient entries
+    are not float32 or differ from a float64 unscale of the scaled fp16
+    gradient, {name: fp16 parameter, float32 master, float32 velocity} as
+    float64 CPU tensors)."""
+    import torch
+    import paddle_tpu_torch as paddle
+    with _paddle_device("cpu"):
+        paddle.seed(0)
+        net = paddle.nn.Sequential(paddle.nn.Linear(64, 64),
+                                   paddle.nn.GELU(), paddle.nn.Linear(64, 16))
+    net.to(device=dev)
+    opt = paddle.optimizer.Momentum(0.1, 0.9, parameters=net.parameters())
+    net, opt = paddle.amp.decorate(net, opt, level="O2", dtype="float16")
+    scaler = paddle.amp.GradScaler(init_loss_scaling=2.0 ** 16)
+    x = torch.randn((32, 64), generator=torch.Generator().manual_seed(3))
+    with paddle.amp.auto_cast(level="O2", dtype="float16"):
+        out = net(x.to(dev))
+    loss = out.float().square().mean() * 1e-5
+    scaler.scale(loss).backward()
+    params = list(net.named_parameters())
+    scaled = {n: p.grad.double().cpu() for n, p in params}
+    scaler.unscale_(opt)
+    inexact = sum(int((paddle.amp.float32_grad(p).double().cpu() !=
+                       scaled[n] / scaler.get_loss_scaling()).sum()) +
+                  int(paddle.amp.float32_grad(p).dtype != torch.float32)
+                  for n, p in params)
+    scaler.step(opt)
+    state = opt.state_dict()
+    got = {}
+    for i, (n, p) in enumerate(params):
+        got[f"param_{n}"] = p.detach().double().cpu()
+        got[f"master_{n}"] = opt._master_weights[id(p)].double().cpu()
+        got[f"velocity_{n}"] = state[f"velocity_{i}"].double().cpu()
+    return scaler._found_inf, inexact, got
+
+
 def phase_nn_parity(cfg=None, device="cuda"):
     """The Paddle-API path on ``device`` against itself on the CPU, fp32
     with TF32 off for cuDNN and cuBLAS: every layer of the slice forward
@@ -7011,6 +7109,28 @@ def phase_nn_parity(cfg=None, device="cuda"):
                 failed[name] = bad
         resnet, resnet_failed = _nn_parity_resnet(c, device)
         failed.update(resnet_failed)
+        # an O2 fp16 step with a GradScaler (gradients unscaled into fp32)
+        (inf_card, inexact_card, fp16_card), \
+            (inf_cpu, inexact_cpu, fp16_cpu) = \
+            _amp_fp16_step(device), _amp_fp16_step("cpu")
+        # an fp16 parameter may round the other way: one fp16 ulp of room
+        # (2^-10 of its largest value, 2^-24 among subnormals)
+        amp_fp16 = {k: _parity_bad(
+            fp16_card[k], w, NN_PARITY_MASTER_TOL
+            if k.startswith("master") else NN_PARITY_FP16_TOL,
+            2.0 ** -24 + 2.0 ** -10 * float(w.abs().max())
+            if k.startswith("param") else 0.0) for k, w in fp16_cpu.items()}
+        failed.update({f"amp_fp16_{k}": v for k, v in amp_fp16.items()
+                       if v[0]})
+        if inf_card or inf_cpu:
+            failed["amp_fp16_found_inf"] = (inf_card, inf_cpu)
+        if inexact_card or inexact_cpu:
+            failed["amp_fp16_unscale_inexact"] = (inexact_card, inexact_cpu)
+        zeros = sum(int(((v == 0) & (fp16_cpu[k] != 0)).sum())
+                    for k, v in fp16_card.items() if k.startswith("velocity"))
+        if zeros or not all(bool((v != 0).any()) for k, v in fp16_cpu.items()
+                            if k.startswith("velocity")):
+            failed["amp_fp16_velocity_zeros"] = zeros
         # the fused encoder at a flash shape
         stacks = {}
         for dev in ("cpu", device):
@@ -7046,6 +7166,11 @@ def phase_nn_parity(cfg=None, device="cuda"):
                              f"err): {failed}")
     emit("nn_parity", dtype="float32", tf32=False, tol=NN_PARITY_TOL,
          floor=NN_PARITY_FLOOR, layers_max_abs_err=layers,
+         amp_fp16_scaler=dict(
+             level="O2", dtype="float16", optimizer="Momentum",
+             loss_scale=2.0 ** 16, tol=NN_PARITY_FP16_TOL,
+             master_tol=NN_PARITY_MASTER_TOL, unscale_exact=True,
+             max_abs_err={k: e for k, (_, e) in amp_fp16.items()}),
          resnet50=dict(batch=c["resnet_batch"], px=c["resnet_px"],
                        classes=c["resnet_classes"],
                        fp64_tol=RESNET50_FP64_TOL,
@@ -7272,6 +7397,417 @@ def phase_encoder_train(cfg=None, device="cuda"):
     emit("encoder_train", **result,
          nvidia_smi=_nvidia_smi() if cuda else None)
     return launches, timing
+
+
+# ------------------------------------------------------ paddle.Model ---
+
+def _hapi_datasets():
+    """The synthetic datasets of ``hapi_fit`` (``paddle.io.Dataset``s whose
+    samples are numpy arrays, made in the fork workers)."""
+    import numpy as np
+    from paddle_tpu_torch import io
+
+    class SyntheticImages(io.Dataset):
+        """Sample i: a uint8 ``src_px`` x ``src_px`` x 3 image drawn from
+        ``default_rng(seed + i)``, random-cropped to ``px``, flipped half
+        the time, normalized by the ImageNet mean and std to float32 CHW;
+        label ``i % classes``."""
+
+        MEAN = np.array([0.485, 0.456, 0.406], np.float32) * 255
+        STD = np.array([0.229, 0.224, 0.225], np.float32) * 255
+
+        def __init__(self, n, c, offset=0):
+            self.n, self.c, self.offset = n, c, offset
+
+        def __len__(self):
+            return self.n
+
+        def __getitem__(self, i):
+            c = self.c
+            r = np.random.default_rng(c["seed"] + self.offset + i)
+            img = r.integers(0, 256, (c["src_px"], c["src_px"], 3),
+                             dtype=np.uint8)
+            y0, x0 = r.integers(0, c["src_px"] - c["px"] + 1, 2)
+            crop = img[y0:y0 + c["px"], x0:x0 + c["px"]]
+            if r.integers(0, 2):
+                crop = crop[:, ::-1]
+            x = (crop.astype(np.float32) - self.MEAN) / self.STD
+            return (np.ascontiguousarray(x.transpose(2, 0, 1)),
+                    np.int64(i % c["classes"]))
+
+    class SyntheticSentences(io.Dataset):
+        """Sample i: ``seq`` token ids drawn from ``default_rng(seed +
+        i)``; label ``i % classes``."""
+
+        def __init__(self, n, c, offset=0):
+            self.n, self.c, self.offset = n, c, offset
+
+        def __len__(self):
+            return self.n
+
+        def __getitem__(self, i):
+            c = self.c
+            r = np.random.default_rng(c["seed"] + self.offset + i)
+            return (r.integers(0, c["vocab"], (c["seq"],), dtype=np.int64),
+                    np.int64(i % c["classes"]))
+
+    return SyntheticImages, SyntheticSentences
+
+
+def _ernie_classifier(c):
+    """``_encoder_model``'s embedding and encoder layers, a mean pool over
+    the sequence and ``Linear(width, classes)``."""
+    import paddle_tpu_torch as paddle
+    enc = _encoder_model(c)
+
+    class Classifier(paddle.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embed = enc.embed
+            self.layers = enc.layers
+            self.head = paddle.nn.Linear(c["width"], c["classes"])
+
+        def forward(self, ids):
+            x = self.embed(ids)
+            for layer in self.layers:
+                x = layer(x)
+            return self.head(x.mean(axis=1))
+    return Classifier()
+
+
+def _timed_loader_class():
+    """A ``DataLoader`` whose iterators record the host seconds each
+    ``__next__`` waited (``waits``, in batch order)."""
+    from paddle_tpu_torch import io
+
+    class TimedLoader(io.DataLoader):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.waits = []
+
+        def __iter__(self):
+            it = super().__iter__()
+            waits = self.waits = []
+
+            def timed():
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        batch = next(it)
+                    except StopIteration:
+                        return
+                    waits.append(time.perf_counter() - t0)
+                    yield batch
+            return timed()
+    return TimedLoader
+
+
+def _step_clock(warmup, cuda):
+    """A ``paddle.callbacks.Callback`` that records, for each training
+    step from ``warmup`` on, its host seconds, marked syncs and kernel
+    builds, with ``torch.cuda.set_sync_debug_mode("error")`` on from the
+    first timed step's start to the last step's end (the loader's
+    ``__next__`` between them included): a synchronizing call other than
+    ``Model``'s marked reads fails the step."""
+    import torch
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class StepClock(Callback):
+        def __init__(self):
+            super().__init__()
+            self.steps, self.window = [], None
+            self.mode = 0
+
+        def on_train_batch_begin(self, step, logs=None):
+            if step == warmup:
+                if cuda:
+                    torch.cuda.synchronize()
+                    self.mode = torch.cuda.get_sync_debug_mode()
+                    torch.cuda.set_sync_debug_mode("error")
+                self.window = [time.perf_counter(), None]
+            self.t0 = time.perf_counter()
+            self.s0, self.c0 = obs.device_syncs(), obs.backend_compiles()
+
+        def on_train_batch_end(self, step, logs=None):
+            if step < warmup:
+                return
+            self.steps.append(dict(
+                s=time.perf_counter() - self.t0,
+                syncs=obs.device_syncs() - self.s0,
+                builds=obs.backend_compiles() - self.c0))
+            if step == self.params["steps"] - 1:
+                self.window[1] = time.perf_counter()
+                self.restore()
+
+        def restore(self):
+            if cuda:
+                torch.cuda.set_sync_debug_mode(self.mode)
+    return StepClock()
+
+
+def _hapi_fit_part(name, c, model, train, evaluate, predict, cuda,
+                   save_dir=None):
+    """``model.fit(train, eval_data=evaluate, epochs=1)`` with the step
+    clock and the ``LRScheduler`` callback, then ``evaluate`` and
+    ``predict(stack_outputs=True)``.  Fails the phase unless every loss is
+    finite, every DataLoader iteration was served by the fork workers'
+    ring (``io.ITERATORS``) by ``workers`` distinct processes, and every
+    timed step marked exactly 1 + len(metrics) syncs and built nothing.
+    Returns the readings and the predictions."""
+    import os
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import io
+    clock = _step_clock(c["warmup"], cuda)
+    used0 = dict(io.ITERATORS)
+    pids = []
+    t0 = time.perf_counter()
+    try:
+        history = model.fit(train, eval_data=evaluate, epochs=1, verbose=0,
+                            save_dir=save_dir,
+                            callbacks=[clock, paddle.callbacks.LRScheduler()])
+    finally:
+        clock.restore()
+    fit_s = time.perf_counter() - t0
+    pids += [train.worker_pids, evaluate.worker_pids]
+    waits = train.waits
+    logs = model.evaluate(evaluate, verbose=0)
+    pids.append(evaluate.worker_pids)
+    preds = model.predict(predict, stack_outputs=True)
+    pids.append(predict.worker_pids)
+    used = {k: io.ITERATORS[k] - used0[k] for k in used0}
+    n_metrics = len(model._metrics)
+    timed = clock.steps
+    bad = {}
+    if used != {k: (4 if k == "fork_ring" else 0) for k in used}:
+        bad["loader_paths"] = used
+        bad["fork_refused"] = [ld.fork_refused
+                               for ld in (train, evaluate, predict)]
+    if any(len(set(p)) != c["workers"] or os.getpid() in p for p in pids):
+        bad["worker_pids"] = pids
+    if len(timed) != c["steps"] or \
+            any(st["syncs"] != 1 + n_metrics or st["builds"] for st in timed):
+        bad["timed_steps"] = timed
+    losses = [h["loss"] for h in history] + [logs["eval_loss"]]
+    if not all(math.isfinite(v) for v in losses):
+        bad["losses"] = losses
+    if tuple(preds[0].shape) != (c["predict_batches"] * c["batch"],
+                                 c["classes"]) or \
+            not bool(torch.isfinite(preds[0]).all()):
+        bad["predict"] = tuple(preds[0].shape)
+    if bad:
+        raise AssertionError(f"hapi_fit {name}: {bad}")
+    window = clock.window[1] - clock.window[0]
+    # the waits for the timed steps' batches after the first (the first
+    # one's came before the window opened)
+    in_window = waits[c["warmup"] + 1:c["warmup"] + c["steps"]]
+    return dict(
+        fit_s=fit_s, step_ms=window / c["steps"] * 1e3,
+        compute_ms=sum(st["s"] for st in timed) / len(timed) * 1e3,
+        loader_wait_share=sum(in_window) / window,
+        loader_wait_ms=[w * 1e3 for w in in_window],
+        syncs_per_step=[st["syncs"] for st in timed],
+        builds_per_step=[st["builds"] for st in timed],
+        worker_pids=pids, loader_paths=used,
+        train_logs=history[-1], eval_logs=logs), preds
+
+
+def _hapi_flash_check(c):
+    """The three flash kernels against their plain versions at part (b)'s
+    shape (b, s from ``c``, its heads and head dim; fp32, full attention),
+    by FLASH_TOL["float32"]: one launch of each on the "mma" route, counted
+    from 0 here (after the part's own counts were read).  Raises on a
+    miss; returns each output's max abs error, relative error and need."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    d = c["width"] // c["heads"]
+    q, k, v, g = _flash_case(gen, torch.float32, c["batch"], c["seq"],
+                             c["seq"], c["heads"], c["heads"], d)
+    _reset_flash_counts()
+    checks = _flash_compare(q, k, v, g, False, FLASH_TOL["float32"])
+    routes = _flash_all_counts()
+    want = {"fwd": 1, "dq": 1, "dkv": 1,
+            "fwd_sm90": 0, "dq_sm90": 0, "dkv_sm90": 0}
+    failed = [f"{key}: {ck}" for key, ck in checks.items() if not ck["ok"]]
+    if routes != want:
+        failed.append(f"launches {routes} != {want}")
+    if failed:
+        raise AssertionError(f"hapi_fit ernie: flash kernels at b "
+                             f"{c['batch']} s {c['seq']} h {c['heads']} d "
+                             f"{d} fp32: {failed}")
+    return {key: {stat: val for stat, val in ck.items() if stat != "ok"}
+            for key, ck in checks.items()}
+
+
+def phase_hapi_fit(cfg=None, device="cuda"):
+    """``paddle.Model`` at full width, fp32, trained by ``fit`` from
+    ``DataLoader``s whose ``num_workers`` fork processes move batches
+    through the shared-memory ring (``HAPI_FIT``):
+
+    (a) ResNet-50 (224 px, 1000 classes, B 64, NCHW) on synthetic images
+        decoded and augmented in the workers, a seeded ``RandomSampler``,
+        ``Momentum(0.9, weight decay 1e-4)`` under ``CosineAnnealingDecay``
+        with the ``LRScheduler`` callback, ``CrossEntropyLoss`` and
+        ``Accuracy(topk=(1, 5))``: ``fit(eval_data=..., epochs=1,
+        save_dir=...)``, ``evaluate``, ``predict(stack_outputs=True)``;
+        then ``Model.save`` and ``load`` into a fresh model: parameters,
+        BatchNorm statistics and optimizer state equal bit for bit, and
+        ``predict_batch`` within HAPI_PREDICT_TOL of the saved model's;
+    (b) the same loop over an ERNIE-3.0-base-width sentence classifier (s
+        512, B 16) with ``AdamW``: the flash forward, dQ and dK/dV counted
+        from 0 (12 of each a training step on the fp32 "mma" route, 12
+        forwards an evaluated or predicted batch), then each held against
+        its plain version at the part's shape (``_hapi_flash_check``).
+
+    Each part: the losses finite, every DataLoader iteration served by the
+    fork ring with distinct worker pids, every timed step exactly 1 +
+    len(metrics) marked syncs and 0 builds under
+    ``torch.cuda.set_sync_debug_mode("error")`` (``_step_clock``).  Prints
+    ms a step (host clock, the loader's waits included), images or tokens
+    per second, the share of the step spent in the loader's ``__next__``,
+    ``os.cpu_count()``, peak memory and one profiled ``train_batch``'s busy
+    and idle share.  Returns part (b)'s flash launches."""
+    import os
+    import tempfile
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.vision.models import resnet50
+    cfg = cfg or HAPI_FIT
+    cuda = device == "cuda"
+    Images, Sentences = _hapi_datasets()
+    Loader = _timed_loader_class()
+    out = {}
+
+    def loaders(ds_cls, c):
+        n_train = (c["warmup"] + c["steps"]) * c["batch"]
+        train = Loader(ds_cls(n_train, c), batch_sampler=io.BatchSampler(
+            sampler=io.RandomSampler(ds_cls(n_train, c),
+                                     generator=c["seed"]),
+            batch_size=c["batch"], drop_last=True),
+            num_workers=c["workers"])
+        evaluate = Loader(ds_cls(c["eval_batches"] * c["batch"], c,
+                                 offset=10 ** 6),
+                          batch_size=c["batch"], num_workers=c["workers"])
+        predict = Loader(ds_cls(c["predict_batches"] * c["batch"], c,
+                                offset=2 * 10 ** 6),
+                         batch_size=c["batch"], num_workers=c["workers"])
+        return train, evaluate, predict
+
+    def profiled(model, batch, step_ms):
+        if not cuda:
+            return None
+        ins, labs = [batch[0]], [batch[1]]
+        prof = _profile_breakdown(lambda: model.train_batch(ins, labs),
+                                  step_ms, top=6)
+        prof["busy_share"] = 1 - prof["idle_share"]
+        return prof
+
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    with _paddle_device(device), tempfile.TemporaryDirectory() as tmp:
+        # (a) ResNet-50
+        c = cfg["resnet50"]
+        paddle.seed(0)
+        net = resnet50(num_classes=c["classes"])
+        steps = c["warmup"] + c["steps"]
+
+        def momentum(params):
+            return paddle.optimizer.Momentum(
+                paddle.optimizer.lr.CosineAnnealingDecay(c["lr"], T_max=steps),
+                c["momentum"], parameters=params,
+                weight_decay=c["weight_decay"])
+        model = paddle.Model(net).prepare(
+            momentum(net.parameters()), paddle.nn.CrossEntropyLoss(),
+            paddle.metric.Accuracy(topk=(1, 5)))
+        train, evaluate, predict = loaders(Images, c)
+        res, preds = _hapi_fit_part("resnet50", c, model, train, evaluate,
+                                    predict, cuda,
+                                    save_dir=os.path.join(tmp, "ckpt"))
+        ckpts = sorted(os.listdir(os.path.join(tmp, "ckpt")))
+        # Model.save -> load into a fresh model
+        path = os.path.join(tmp, "saved", "resnet50")
+        model.save(path)
+        paddle.seed(1)
+        fresh_net = resnet50(num_classes=c["classes"])
+        fresh = paddle.Model(fresh_net).prepare(
+            momentum(fresh_net.parameters()), paddle.nn.CrossEntropyLoss(),
+            paddle.metric.Accuracy(topk=(1, 5)))
+        fresh.load(path)
+        unequal = [k for (k, a), b in zip(
+            net.state_dict().items(), fresh_net.state_dict().values())
+            if not torch.equal(a, b)]
+        sa, sb = model._optimizer.state_dict(), fresh._optimizer.state_dict()
+        unequal += [k for k in sa if not (
+            torch.equal(sa[k], sb[k]) if torch.is_tensor(sa[k])
+            else sa[k] == sb.get(k))]
+        x, y = next(iter(io.DataLoader(predict.dataset,
+                                       batch_size=c["batch"])))
+        want = model.predict_batch([x])
+        got = fresh.predict_batch([x])
+        err = float((got - want).abs().max())
+        limit = HAPI_PREDICT_TOL * float(want.abs().max())
+        if unequal or not err <= limit:
+            raise AssertionError(f"hapi_fit resnet50: save/load unequal "
+                                 f"{unequal[:8]}, predict err {err} > "
+                                 f"{limit}")
+        res.update(
+            save_load=dict(bitwise_equal=True, entries=len(sa) + len(
+                net.state_dict()), predict_max_abs_err=err,
+                predict_tol=HAPI_PREDICT_TOL,
+                predict_equal=bool(torch.equal(got, want))),
+            checkpoints=ckpts, prediction_rows=int(preds[0].shape[0]),
+            images_per_s=c["batch"] / (res["step_ms"] / 1e3),
+            profile=profiled(model, (x, y), res["compute_ms"]))
+        out["resnet50"] = res
+        del model, fresh, net, fresh_net, preds, want, got, x, y
+        gc.collect()
+
+        # (b) the ERNIE-base-width sentence classifier
+        c = cfg["ernie"]
+        paddle.seed(0)
+        net = _ernie_classifier(c)
+        model = paddle.Model(net).prepare(
+            paddle.optimizer.AdamW(c["lr"], parameters=net.parameters(),
+                                   weight_decay=0.01),
+            paddle.nn.CrossEntropyLoss(), paddle.metric.Accuracy())
+        train, evaluate, predict = loaders(Sentences, c)
+        _reset_flash_counts()
+        res, preds = _hapi_fit_part("ernie", c, model, train, evaluate,
+                                    predict, cuda)
+        launches = _flash_all_counts()
+        steps = c["warmup"] + c["steps"]
+        # fit's evaluation and evaluate each run eval_batches forwards
+        forwards = steps + 2 * c["eval_batches"] + c["predict_batches"]
+        want = {"fwd": c["layers"] * forwards, "dq": c["layers"] * steps,
+                "dkv": c["layers"] * steps}
+        want.update({f"{k}_sm90": 0 for k in list(want)})
+        if cuda and launches != want:
+            raise AssertionError(f"hapi_fit ernie: flash launches "
+                                 f"{launches} != {want}")
+        flash_check = _hapi_flash_check(c) if cuda else None
+        x, y = next(iter(io.DataLoader(predict.dataset,
+                                       batch_size=c["batch"])))
+        res.update(tokens_per_s=c["batch"] * c["seq"] /
+                   (res["step_ms"] / 1e3),
+                   flash_launches=launches, flash_check=flash_check,
+                   profile=profiled(model, (x, y), res["compute_ms"]))
+        out["ernie"] = res
+        del model, net, preds, x, y
+        gc.collect()
+    for part, res in out.items():
+        c = cfg[part]
+        emit("hapi_fit", part=part, dtype="float32", batch=c["batch"],
+             workers=c["workers"], warmup_steps=c["warmup"],
+             timed_steps=c["steps"], cpu_count=os.cpu_count(), **res,
+             max_memory_allocated=torch.cuda.max_memory_allocated()
+             if cuda else None,
+             nvidia_smi=_nvidia_smi() if cuda else None)
+    if cuda:
+        torch.cuda.empty_cache()
+    return launches
 
 
 # ------------------------------------------------------- weight-only ---
@@ -8447,12 +8983,14 @@ def main() -> int:
     phase_nn_parity()
     phase_resnet50_train()
     encoder_launches, _encoder_t = phase_encoder_train()
+    hapi_launches = phase_hapi_fit()
     # the flash kernels' launches on every training path: llama2_7b, GPT-2,
-    # DiT (training and the sampler), the two MoE forms and the Paddle-API
-    # fused encoder
+    # DiT (training and the sampler), the two MoE forms, the Paddle-API
+    # fused encoder and paddle.Model's sentence classifier
     flash_launches = {k: flash_launches[k] + gpt_launches[k] +
                       dit_launches[k] + forms_launches[k] +
-                      encoder_launches[k] for k in flash_launches}
+                      encoder_launches[k] + hapi_launches[k]
+                      for k in flash_launches}
     wo_err, wo_t = phase_kernel_wo(built)
     wo_launches, _wo_sweeps = phase_weight_only_path()
     prim_err, prim_path, prim_t = phase_kernel_primitives(_smi, built)

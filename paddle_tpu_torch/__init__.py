@@ -13,7 +13,10 @@ Pass ``device="cpu"`` to run the plain PyTorch versions of the kernels
 
 The Paddle API (``import paddle_tpu_torch as paddle``: ``paddle.nn``,
 ``paddle.optimizer``, ``paddle.amp``, ``paddle.vision``,
-``paddle.incubate``, ``paddle.to_tensor``, ``paddle.seed`` and the ops)
+``paddle.incubate``, ``paddle.io``, ``paddle.metric``, ``paddle.Model``
+with ``paddle.callbacks``, ``paddle.summary`` / ``paddle.flops``,
+``paddle.save`` / ``paddle.load``, ``paddle.to_tensor``, ``paddle.seed`` and
+the ops)
 places its tensors on the device ``paddle.set_device`` chose, by default the
 card; ``set_device("cpu")`` runs it on the CPU.
 """
@@ -62,12 +65,18 @@ from . import (amp, autograd, device, incubate, nn, optimizer,  # noqa: E402
                vision)
 from .autograd import grad, no_grad  # noqa: E402
 from .nn.layer import ParamAttr  # noqa: E402
+from . import framework, hapi, io, metric  # noqa: E402
+from .framework import load, save  # noqa: E402
+from .hapi import Model, flops, summary  # noqa: E402
+from .hapi import callbacks  # noqa: E402
 
 __all__ = ["__version__", "DEFAULT_DEVICE", "HBM_BYTES_PER_S", "PEAK_FLOPS",
-           "resolve_device", "Parameter", "ParamAttr", "amp", "autograd",
-           "bfloat16", "bool_", "device", "dtypes", "float16", "float32",
-           "float64", "get_default_dtype", "get_device", "get_rng_state",
-           "grad", "incubate", "int8", "int16", "int32", "int64",
-           "is_tensor", "nn", "no_grad", "optimizer", "seed",
-           "set_default_dtype", "set_device", "set_rng_state", "to_tensor",
-           "uint8", "vision"] + _OPS
+           "resolve_device", "Model", "Parameter", "ParamAttr", "amp",
+           "autograd", "bfloat16", "bool_", "callbacks", "device", "dtypes",
+           "float16", "float32", "float64", "flops", "framework",
+           "get_default_dtype", "get_device", "get_rng_state", "grad",
+           "hapi", "incubate", "int8", "int16", "int32", "int64", "io",
+           "is_tensor", "load", "metric", "nn", "no_grad", "optimizer",
+           "save", "seed", "set_default_dtype", "set_device",
+           "set_rng_state", "summary", "to_tensor", "uint8",
+           "vision"] + _OPS

@@ -12,6 +12,8 @@ reference's dynamic loss-scaling state machine.
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from ..core import amp_state
@@ -110,15 +112,42 @@ def decorate(models, optimizers=None, level="O2", dtype="bfloat16",
     return models_out, (opt_list[0] if single_opt else opt_list)
 
 
+def keep_float32_grad(p, g):
+    """Write float32 ``g`` into ``p.grad`` (rounded to its dtype) and keep
+    ``g`` as the gradient's value for ``float32_grad``."""
+    p.grad.copy_(g)
+    p._float32_grad = (weakref.ref(p.grad), p.grad._version, g)
+
+
+def float32_grad(p):
+    """The float32 value ``keep_float32_grad`` kept for ``p.grad``, while
+    ``p.grad`` is the tensor it was kept beside and unchanged since; else
+    ``p.grad``.  So an optimizer step or a clip after
+    ``GradScaler.unscale_`` reads the float32 gradient, as the reference's
+    does, and an edit of ``.grad`` in between is not lost."""
+    kept = getattr(p, "_float32_grad", None)
+    if kept is not None and p.grad is not None:
+        grad, version, g = kept
+        if grad() is p.grad and p.grad._version == version:
+            return g
+    return p.grad
+
+
+def drop_grad(p):
+    """``p.grad = None``, and the float32 value kept for it."""
+    p.grad = None
+    p.__dict__.pop("_float32_grad", None)
+
+
 class GradScaler:
     """Dynamic loss scaling: scale the loss, unscale the gradients before
     the step, skip the step and shrink the scale when a gradient is not
     finite, grow it after ``incr_every_n_steps`` good steps.
 
-    The gradients are unscaled in place, in their own dtype: with the
-    default power-of-two scales that is exact, as the reference's float32
-    unscale is.  Whether one is not finite is read once a step (the step
-    is skipped on the host, as in the reference)."""
+    The gradients are unscaled into float32, as the reference's are (in
+    fp16 an unscaled value under 2^-14 would otherwise lose bits, and one
+    under 2^-25 would be 0).  Whether one is not finite is read once a step
+    (the step is skipped on the host, as in the reference)."""
 
     def __init__(self, enable=True, init_loss_scaling=2.0 ** 16,
                  incr_ratio=2.0, decr_ratio=0.5, incr_every_n_steps=2000,
@@ -149,6 +178,13 @@ class GradScaler:
 
     @torch.no_grad()
     def unscale_(self, optimizer):
+        """Unscale every gradient into float32, as the reference does, and
+        find whether one is not finite from those float32 values.  A float32
+        gradient is unscaled in place.  A half-precision one cannot hold the
+        float32 result (torch keeps a gradient in its parameter's dtype, and
+        in fp16 a value under 2^-14 would lose bits): ``.grad`` gets it
+        rounded to its dtype, and the float32 value is kept beside it for
+        the step (``float32_grad``)."""
         if not self._enable or self._unscaled:
             return
         inv = 1.0 / self._scale
@@ -156,8 +192,12 @@ class GradScaler:
         for p in optimizer._params:
             if p.grad is None:
                 continue
-            p.grad.mul_(inv)
-            bad.append(~torch.isfinite(p.grad).all())
+            if p.grad.dtype == torch.float32:
+                g = p.grad.mul_(inv)
+            else:
+                g = p.grad.float().mul_(inv)
+                keep_float32_grad(p, g)
+            bad.append(~torch.isfinite(g).all())
         self._found_inf = bool(torch.stack(bad).any()) if bad else False
         self._unscaled = True
 

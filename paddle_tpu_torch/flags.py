@@ -3,8 +3,8 @@
 Flags are seeded from the environment (``FLAGS_<name>``) at definition time
 and set at run time with :func:`set_flags` (the launcher's ``--set``).  Only
 the flags the port reads are registered here (the serving engine, the front
-door, observability, the watchdog, the router and the fleet supervisor),
-with the reference's names and defaults.
+door, observability, the watchdog, the router, the fleet supervisor and
+the DataLoader), with the reference's names and defaults.
 """
 
 from __future__ import annotations
@@ -456,3 +456,8 @@ define_flag("fleet_rebalance_cooldown_s", 10.0,
             "Min seconds between proactive rebalances (one victim per "
             "pass; the cooldown lets the SLO window react before the "
             "supervisor moves more state).")
+define_flag("use_native_dataloader", False,
+            "Route DataLoader prefetch through the C++ ring-buffer engine "
+            "(native/ringbuf.cc) with worker threads.  Off by default: "
+            "with num_workers > 0 the loader forks worker processes over "
+            "the shared-memory ring (io/mp_loader.py).")

@@ -84,10 +84,14 @@ class ClipGradByGlobalNorm(ClipGradBase):
 def clip_grad_norm_(parameters, max_norm, norm_type=2.0,
                     error_if_nonfinite=False):
     """Scale the ``.grad`` of ``parameters`` in place so their total
-    ``norm_type`` norm is at most ``max_norm``; returns the total norm."""
+    ``norm_type`` norm is at most ``max_norm``; returns the total norm.
+    After ``amp.GradScaler.unscale_`` a half-precision gradient is read
+    and scaled as its float32 value, as the reference's is."""
+    from ..amp import float32_grad, keep_float32_grad
     if torch.is_tensor(parameters):
         parameters = [parameters]
-    grads = [p.grad for p in parameters if p.grad is not None]
+    params = [p for p in parameters if p.grad is not None]
+    grads = [float32_grad(p) for p in params]
     if not grads:
         return torch.zeros(())
     if norm_type == float("inf"):
@@ -96,6 +100,8 @@ def clip_grad_norm_(parameters, max_norm, norm_type=2.0,
         total = torch.pow(sum(torch.sum(torch.pow(g.abs(), norm_type))
                               for g in grads), 1.0 / norm_type)
     scale = torch.clamp_max(max_norm / torch.clamp_min(total, 1e-6), 1.0)
-    for g in grads:
+    for p, g in zip(params, grads):
         g.mul_(scale)
+        if g is not p.grad:
+            keep_float32_grad(p, g)
     return total

@@ -218,8 +218,9 @@ class Layer(torch.nn.Module):
         raise NotImplementedError
 
     def clear_gradients(self, set_to_zero=True):
+        from ..amp import drop_grad
         for p in self.parameters():
-            p.grad = None
+            drop_grad(p)
 
     def full_name(self):
         return self._name_scope

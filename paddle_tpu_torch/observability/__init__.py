@@ -46,7 +46,7 @@ __all__ = ["metrics", "tracing", "catalog", "REGISTRY", "counter", "gauge",
            "StepAttribution", "Sentinel",
            "ClockSync", "SpanExporter", "TraceCollector",
            "InprocTransport", "StoreTransport", "HttpTransport",
-           "metrics_enabled", "count_sync",
+           "metrics_enabled", "count_sync", "device_syncs",
            "record_compile", "backend_compiles", "assert_overhead",
            "StepTimer", "export_chrome_trace"]
 
@@ -92,6 +92,11 @@ def count_sync(n: int = 1) -> None:
     the spill tier's eviction copy, a migration's page readback).
     ``assert_overhead`` bounds the count across a block."""
     _SYNCS.inc(n)
+
+
+def device_syncs() -> int:
+    """Process-wide marked syncs so far."""
+    return int(_SYNCS.value)
 
 
 class assert_overhead:

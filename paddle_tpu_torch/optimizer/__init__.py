@@ -30,6 +30,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from ..amp import drop_grad, float32_grad
 from . import lr  # noqa: F401
 from .lr import LRScheduler
 
@@ -96,7 +97,7 @@ class Optimizer:
         return self._parameter_list
 
     def _collect_params_grads(self):
-        return [(p, p.grad) for p in self._params
+        return [(p, float32_grad(p)) for p in self._params
                 if getattr(p, "trainable", p.requires_grad) and
                 p.grad is not None]
 
@@ -143,7 +144,7 @@ class Optimizer:
 
     def clear_grad(self, set_to_zero=True):
         for p in self._params:
-            p.grad = None
+            drop_grad(p)
 
     clear_gradients = clear_grad
 

@@ -378,6 +378,150 @@ def test_grad_scaler_state_machine():
     assert float(ts.scale(loss)) == 2048.0
 
 
+def _fp16_scaled_grads(scale):
+    """fp16 gradients (scaled by ``scale``) of true values near 2^-20 and
+    2^-26, both under fp16's normal range (2^-14) once unscaled, the second
+    under its smallest subnormal (2^-24)."""
+    rng = np.random.default_rng(11)
+    true = [rng.uniform(0.5, 1.0, s) * 2.0 ** e * rng.choice([-1, 1], s)
+            for s, e in zip(SHAPES.values(), (-20, -26, -20))]
+    return [(t * scale).astype(np.float16) for t in true]
+
+
+def test_grad_scaler_unscales_fp16_into_float32():
+    """fp16 gradients under scale 2^16: the port's unscaled values (what
+    its optimizer steps on) equal the reference's ``GradScaler.unscale_``,
+    a float32 gradient each, bit for bit; none is flushed to 0, and the
+    not-finite check reads the float32 values."""
+    scale = 2.0 ** 16
+    jp, tp = _params(dtype=np.float16)
+    jo = jopt.SGD(0.1, parameters=jp)
+    to = topt.SGD(0.1, parameters=tp)
+    js = jamp.GradScaler(init_loss_scaling=scale)
+    ts = tamp.GradScaler(init_loss_scaling=scale)
+    g = _fp16_scaled_grads(scale)
+    for p, a in zip(jp, g):
+        p.grad = JT(a)
+    for p, a in zip(tp, g):
+        p.grad = torch.tensor(a)
+    js.unscale_(jo)
+    ts.unscale_(to)
+    assert ts._found_inf is js._found_inf is False
+    got = dict(to._collect_params_grads())
+    for a, b in zip(jp, tp):
+        want = np.asarray(a.grad._data)
+        assert want.dtype == np.float32 and got[b].dtype == torch.float32
+        np.testing.assert_array_equal(got[b].numpy(), want)
+        assert (want != 0).all()
+    # an fp16 gradient whose unscaled value is not finite: found in float32
+    for p in tp:
+        p.grad = torch.tensor(g[0] if p.shape == g[0].shape else
+                              np.zeros(p.shape, np.float16))
+    tp[0].grad[0, 0] = float("inf")
+    ts._unscaled = False
+    ts.unscale_(to)
+    assert ts._found_inf is True
+
+
+def _o2_fp16_momentum_step(edit=None):
+    """One ``GradScaler`` step of ``Momentum`` under ``decorate(level="O2",
+    dtype="float16")`` in both packages, on fp16 gradients of true values
+    near 2^-20 and 2^-26.  ``edit(jp, tp)``, if given, runs between
+    ``unscale_`` and the step.  Returns (jp, tp, jo, to, js, ts)."""
+    scale = 2.0 ** 16
+    jp, tp = _params(dtype=np.float32)
+    for p in jp:
+        p._data = p._data * 1e-3
+    with torch.no_grad():
+        for p in tp:
+            p.mul_(1e-3)
+    jo = jopt.Momentum(0.1, 0.9, parameters=jp, weight_decay=1e-3)
+    to = topt.Momentum(0.1, 0.9, parameters=tp, weight_decay=1e-3)
+    for p in jp:
+        p._data = p._data.astype(np.float16)
+    with torch.no_grad():
+        for p in tp:
+            p.data = p.data.half()
+    jamp.decorate(jnn.Linear(2, 2), jo, level="O2", dtype="float16")
+    with _cpu():
+        tamp.decorate(tnn.Linear(2, 2), to, level="O2", dtype="float16")
+    js = jamp.GradScaler(init_loss_scaling=scale)
+    ts = tamp.GradScaler(init_loss_scaling=scale)
+    g = _fp16_scaled_grads(scale)
+    for p, a in zip(jp, g):
+        p.grad = JT(a)
+    for p, a in zip(tp, g):
+        p.grad = torch.tensor(a)
+    if edit is not None:
+        js.unscale_(jo)
+        ts.unscale_(to)
+        edit(jp, tp)
+    js.step(jo)
+    ts.step(to)
+    jo.clear_grad()
+    to.clear_grad()
+    return jp, tp, jo, to, js, ts
+
+
+def _check_o2_fp16_step(jp, tp, jo, to, js, ts):
+    """fp16 parameters bit for bit; float32 masters and velocities within
+    OPT_TOL."""
+    assert ts.state_dict() == js.state_dict()
+    for a, b in zip(jp, tp):
+        assert b.dtype == torch.float16
+        np.testing.assert_array_equal(b.detach().numpy(),
+                                      np.asarray(a._data))
+        _close(to._master_weights[id(b)], np.asarray(
+            jo._master_weights[id(a)], np.float32), OPT_TOL, a.name)
+    jstate, tstate = jo.state_dict(), to.state_dict()
+    for i, a in enumerate(jp):
+        want = np.asarray(jstate[f"velocity_{i}"]._data
+                          if hasattr(jstate[f"velocity_{i}"], "_data")
+                          else jstate[f"velocity_{i}"], np.float32)
+        got = tstate[f"velocity_{i}"]
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, rtol=OPT_TOL,
+                                   atol=0)
+
+
+def test_o2_fp16_momentum_step_with_grad_scaler():
+    """``decorate(level="O2", dtype="float16")`` and one ``GradScaler``
+    step of ``Momentum`` on fp16 gradients of true values near 2^-20 and
+    2^-26: the float32 master weights, the velocity and the fp16
+    parameters equal the reference's step (fp32 within OPT_TOL; fp16
+    bit for bit)."""
+    _check_o2_fp16_step(*_o2_fp16_momentum_step())
+
+
+def _clip_both(jp, tp):
+    """``clip_grad_norm_`` to 1e-6, under the unscaled gradients' norm."""
+    jt = jnn.clip_grad_norm_(jp, 1e-6)
+    tt = tnn.clip_grad_norm_(tp, 1e-6)
+    assert float(tt) > 1e-6
+    np.testing.assert_allclose(float(tt), float(np.asarray(jt._data)),
+                               rtol=OPT_TOL)
+
+
+def _zero_both(jp, tp):
+    for p in jp:
+        p.grad = JT(np.zeros(p.shape, np.float32))
+    for p in tp:
+        p.grad.zero_()
+
+
+@pytest.mark.parametrize("edit", [_clip_both, _zero_both],
+                         ids=["clip_grad_norm_", "zero_"])
+def test_o2_fp16_grad_edit_between_unscale_and_step(edit):
+    """``unscale_``, then an edit of the gradients, then the step, as in
+    the unscale-then-clip idiom: the step takes the edited gradients.
+    ``clip_grad_norm_`` reads and scales a half-precision gradient's
+    float32 value, as the reference's does on its float32 ``.grad``; an
+    in-place edit of ``.grad`` itself is not thrown away.  The parameters,
+    masters and velocities equal the reference's step by
+    ``_check_o2_fp16_step``."""
+    _check_o2_fp16_step(*_o2_fp16_momentum_step(edit))
+
+
 # ------------------------------------------------- ResNet train step ---
 
 def _bottleneck_net(nn, resnet):

@@ -47,7 +47,8 @@ FLEET_STACK = ("router/__init__.py", "router/__main__.py", "router/replica.py",
 
 
 # the Paddle-API training path: framework core, nn, optimizers, amp,
-# ResNet and the fused layers
+# ResNet and the fused layers; Model with its callbacks and summary, the
+# metrics, the data pipeline over the native ring, save / load
 PADDLE_API = ("device/__init__.py", "dtypes.py", "core/random.py",
               "core/tensor.py", "core/amp_state.py", "autograd/__init__.py",
               "ops/__init__.py", "ops/creation.py", "ops/manipulation.py",
@@ -55,7 +56,12 @@ PADDLE_API = ("device/__init__.py", "dtypes.py", "core/random.py",
               "nn/__init__.py", "nn/layer.py", "nn/initializer.py",
               "nn/clip.py", "nn/functional.py", "optimizer/__init__.py",
               "optimizer/lr.py", "amp/__init__.py", "vision/models/resnet.py",
-              "incubate/nn/__init__.py", "incubate/nn/functional.py")
+              "incubate/nn/__init__.py", "incubate/nn/functional.py",
+              "hapi/__init__.py", "hapi/model.py", "hapi/callbacks.py",
+              "hapi/summary.py", "metric/__init__.py", "io/__init__.py",
+              "io/native_loader.py", "io/mp_loader.py",
+              "framework/__init__.py", "framework/io.py",
+              "native/__init__.py")
 
 
 def test_port_and_chip_smoke_import_no_jax():
@@ -287,6 +293,61 @@ def test_paddle_api_defaults_to_the_card():
                 make()
     finally:
         device._current[0] = old
+
+
+def test_model_and_data_loader_default_to_the_card(tmp_path):
+    """``Model``'s steps, the ``DataLoader``'s batches and ``paddle.load``
+    put their tensors on the device ``set_device`` chose, by default the
+    card: with no GPU they raise rather than run on the CPU."""
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import device
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device works here")
+    old = device._current[0]
+    paddle.set_device("cpu")
+    net = paddle.nn.Linear(4, 2)
+    model = paddle.Model(net).prepare(
+        paddle.optimizer.SGD(0.1, parameters=net.parameters()),
+        paddle.nn.CrossEntropyLoss(), paddle.metric.Accuracy())
+    paddle.save({"w": torch.ones(2)}, str(tmp_path / "w.pd"))
+    data = [(np.ones(4, np.float32), np.int64(1))] * 4
+    device._current[0] = None
+    try:
+        for run in (lambda: model.train_batch([np.ones((2, 4), np.float32)],
+                                              [np.ones(2, np.int64)]),
+                    lambda: model.fit(data, batch_size=2, verbose=0),
+                    lambda: model.predict_batch([np.ones((2, 4),
+                                                         np.float32)]),
+                    lambda: next(iter(paddle.io.DataLoader(data,
+                                                           batch_size=2))),
+                    lambda: list(paddle.io.DataLoader(data, batch_size=2,
+                                                      num_workers=2)),
+                    lambda: paddle.load(str(tmp_path / "w.pd")),
+                    lambda: paddle.summary(net, (1, 4))):
+            with pytest.raises(RuntimeError, match="cuda"):
+                run()
+        assert all(p.device.type == "cpu" for p in net.parameters())
+    finally:
+        device._current[0] = old
+
+
+def test_ring_library_builds_beside_the_kernels_not_in_the_package():
+    """``native/ringbuf.cc`` (the reference's, byte for byte) builds with
+    g++ into ``build/paddle_tpu_torch_kernels/`` with its source-hash
+    stamp; nothing is built inside the package."""
+    from paddle_tpu_torch import native
+    from paddle_tpu_torch.kernels._build import BUILD_DIR
+    assert native.load_library() is not None
+    lib = Path(native.library_path())
+    assert lib.parent == BUILD_DIR == ROOT / "build" / \
+        "paddle_tpu_torch_kernels"
+    assert lib.exists() and Path(str(lib) + ".srchash").exists()
+    built = [p for p in PORT.rglob("*") if p.suffix in (".so", ".o") or
+             p.name == "build"]
+    assert not built, built
+    assert (PORT / "native" / "ringbuf.cc").read_bytes() == \
+        (ROOT / "paddle_tpu" / "native" / "ringbuf.cc").read_bytes()
 
 
 def test_fused_attention_never_takes_the_plain_path_at_flash_shapes(
