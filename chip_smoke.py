@@ -349,9 +349,41 @@ is caught; there is no ``ok`` line unless every phase passed):
     ``set_sync_debug_mode("error")``; ms a step, images or tokens/s, the
     loader-wait share, ``os.cpu_count()``, peak memory, one profiled
     ``train_batch``'s busy and idle share.
+13k. ``incubate_paths`` — the Paddle-API entries that reach the kernels,
+    at full width, one line a part: (a) a Llama-2-7B-width decode loop (4
+    layers, bf16, B 8, contexts spread up to 512, page 16) written with
+    ``incubate.nn.functional`` (``fused_rms_norm``, ``fused_linear``,
+    ``fused_rotary_position_embedding`` with ``position_ids``, the K/V
+    write into the pool, ``decode_attention`` over int64 block tables,
+    ``swiglu``): one warm and 8 timed steps, every ``decode_attention``
+    launch on the paged kernel's "split" route (counted from 0), each
+    warm-step call against the plain version and layer 0's against
+    ``masked_multihead_attention`` over the same keys in a dense cache (by
+    TOL), 0 builds and 0 syncs in the timed steps under
+    ``set_sync_debug_mode("error")``, ms a step and one profiled step's
+    idle share; (b) ``nn.functional.flashmask_attention`` forward and
+    backward at b 4, s 2048, 32 heads, d 128, bf16, causal, document-style
+    ``startend_row_indices``: 1 launch of each flash kernel on "sm90", out
+    and dQ/dK/dV bit for bit ``flash_attention(attn_mask=<the same mask>,
+    causal=True)``, each kernel against its plain version by
+    FLASH_TOL["bfloat16"], times; then rows with no live key, recorded
+    against the plain version, the mean of V over all keys and over keys
+    up to the row; (c) ``fused_moe`` at Mixtral-8x7B width (E 8, top 2,
+    H 4096, I 14336, bf16, 512 tokens) against a per-token routed fp32
+    oracle by FUSED_MOE_TOL; (d) ``MoELayer`` training (``GShardGate`` top
+    2, 8 experts ``Linear(4096, 14336)``, GELU, ``Linear(14336, 4096)``,
+    fp32, 4096 tokens, 2 ``AdamW`` steps): losses finite, every parameter
+    a finite gradient, the two dispatch forms within MOE_LAYER_FORMS_TOL;
+    (e) ``llm_int8_linear`` (outlier columns) and ``fp8_linear`` at [8,
+    4096] @ [4096, 11008] against the same calls on a CPU copy
+    (INCUBATE_QUANT_TOL), ``fp8_quantize`` overflowing a given scale (NaN
+    and bytes equal the CPU's), ``PTQ`` on a width-4096 two-``Linear`` MLP
+    within PTQ_REL_LIMIT.
     The flash rows of the ``kernels`` line count the launches of ``train``,
     ``gpt2``, ``dit_train`` (its sampler too), ``moe_forms``,
-    ``encoder_train`` and ``hapi_fit``.
+    ``encoder_train``, ``hapi_fit`` and ``incubate_paths``; the
+    ``ragged_paged_attention`` row counts ``incubate_paths``' decode
+    launches beside the serve phases'.
 14. ``kernel_wo`` — ptxas's record of the 21 kernels of
     ``weight_only_sm90.cu`` (0 spill bytes each, or it fails); then the
     weight-only W8A16/W4A16 kernels against their plain version: int8 and
@@ -613,6 +645,33 @@ HAPI_PREDICT_TOL = 1e-5
 # output's largest value, and 2 ulps of the entry
 MOE_FORMS_BF16_TOL = 2 ** -7
 MOE_FORMS_DROP_CF = 0.5            # a capacity factor at which entries drop
+# incubate_paths: the Paddle-API entries that reach the kernels, at full
+# width (Llama-2-7B, row 5m's flash shape, Mixtral-8x7B's FFN)
+INCUBATE_PATHS = {
+    "decode": dict(hidden=4096, heads=32, head_dim=128, ffn=11008, layers=4,
+                   batch=8, min_ctx=32, max_ctx=512, page=16, steps=8,
+                   eps=1e-5, seed=3000),
+    "flashmask": dict(b=4, s=2048, h=32, d=128, docs=6, masked_keys=256,
+                      seed=3100),
+    "fused_moe": dict(E=8, k=2, H=4096, I=14336, tokens=512, seed=3200),
+    "moe_layer": dict(E=8, k=2, H=4096, I=14336, tokens=4096, steps=2,
+                      lr=1e-4, seed=3300),
+    "quant": dict(m=8, k=4096, n=11008, outliers=6, ptq_width=4096,
+                  calib=3, seed=3400),
+}
+# fused_moe in bf16 against its per-token routed oracle in fp32: each expert
+# product, the SwiGLU, the combine weights and the running sum are rounded
+# to bf16 (about five roundings of 2^-9 on the way): relative Frobenius
+# error and the largest error over max |oracle|
+FUSED_MOE_TOL = dict(rel=1e-2, max_share=4e-2)
+# MoELayer's "gather" and "einsum" forms, fp32 with TF32 off: the same
+# expert products, the k terms of each token summed in another order
+MOE_LAYER_FORMS_TOL = 1e-5
+# quantization on the card against the same call on a CPU copy, relative to
+# max |cpu|: llm_int8_linear sums int8 code products in fp32 in another
+# order; fp8_linear's bf16 output may round one ulp apart
+INCUBATE_QUANT_TOL = {"llm_int8_linear": 1e-5, "fp8_linear": 2 ** -7}
+PTQ_REL_LIMIT = 0.1                # tests/test_ops_schema.py:182's limit
 WO_SOURCE = "paddle_tpu_torch/kernels/csrc/weight_only.cu"
 WO_SM90_SOURCE = "paddle_tpu_torch/kernels/csrc/weight_only_sm90.cu"
 WO_REPLACES = "paddle_tpu/kernels/weight_only.py:28"
@@ -7810,6 +7869,471 @@ def phase_hapi_fit(cfg=None, device="cuda"):
     return launches
 
 
+# ------------------------------------------ the Paddle-API entry points ---
+
+def _bf16_close(got, want):
+    """Max abs error of ``got`` against ``want`` and whether every entry is
+    within ``TOL[("out", "bfloat16")]`` (phase_kernel's attention rule)."""
+    import torch
+    rtol, atol = TOL[("out", "bfloat16")]
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    ok = bool(torch.isfinite(g).all()) and bool(
+        (err <= atol + rtol * w.abs()).all())
+    return float(err.max()), ok
+
+
+def _incubate_decode(c, device):
+    """Part (a): a decode loop written with ``incubate.nn.functional`` at
+    Llama-2-7B widths (bf16, ``c["layers"]`` layers, random weights): per
+    layer ``fused_rms_norm``, ``fused_linear`` q/k/v,
+    ``fused_rotary_position_embedding`` with ``position_ids``, the step's
+    K/V written into the layer's pool (``write_kv_pages``),
+    ``decode_attention`` over int64 block tables and lengths, ``fused_linear``
+    o and the residual, ``fused_rms_norm``, ``swiglu`` of gate and up,
+    ``fused_linear`` down.  One warm step (its attention calls recorded),
+    ``c["steps"]`` timed steps without a build or a sync, one profiled
+    step.  Returns the part's record and its attention launches."""
+    import torch
+    import paddle_tpu_torch.incubate.nn.functional as IF
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.models.llama import _rope_cos_sin
+    cuda = device == "cuda"
+    H, nh, d, I = c["hidden"], c["heads"], c["head_dim"], c["ffn"]
+    L, B, page, steps = c["layers"], c["batch"], c["page"], c["steps"]
+    gen = torch.Generator(device=device).manual_seed(c["seed"])
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=device) *
+                scale).bfloat16()
+    layers = [dict(ln1=1 + rnd(H, scale=0.1), ln2=1 + rnd(H, scale=0.1),
+                   wq=rnd(H, H, scale=H ** -0.5),
+                   wk=rnd(H, H, scale=H ** -0.5),
+                   wv=rnd(H, H, scale=H ** -0.5),
+                   wo=rnd(H, H, scale=H ** -0.5),
+                   wg=rnd(H, I, scale=H ** -0.5),
+                   wu=rnd(H, I, scale=H ** -0.5),
+                   wd=rnd(I, H, scale=I ** -0.5)) for _ in range(L)]
+    per = -(-c["max_ctx"] // page)
+    pages = B * per + 8
+    kc = [rnd(nh, pages, page, d) for _ in range(L)]
+    vc = [rnd(nh, pages, page, d) for _ in range(L)]
+    # int64, as a Paddle-API tensor is by default
+    bt = torch.randperm(pages, generator=gen, device=device)[:B * per] \
+        .reshape(B, per)
+    # contexts spread up to max_ctx over the warm, timed and profiled steps
+    last = c["max_ctx"] - (steps + 2)
+    ctx0 = torch.linspace(c["min_ctx"], last, B, device=device).long()
+    cos, sin = _rope_cos_sin(c["max_ctx"], d, 10000.0, torch.float32,
+                             device=device)
+    emb = rnd(steps + 2, B, 1, H)
+
+    def step(h, ctx, record=None):
+        pos = ctx[:, None]
+        slot = bt.gather(1, (ctx // page)[:, None])[:, 0] * page + ctx % page
+        lens = ctx + 1
+        for li, w in enumerate(layers):
+            x = IF.fused_rms_norm(h, w["ln1"], epsilon=c["eps"])
+            q, k, v = (IF.fused_linear(x, w[n]).reshape(B, 1, nh, d)
+                       for n in ("wq", "wk", "wv"))
+            q, k, _ = IF.fused_rotary_position_embedding(
+                q, k, sin=sin, cos=cos, position_ids=pos,
+                use_neox_rotary_style=False)
+            pa.write_kv_pages(kc[li], vc[li], k[:, 0], v[:, 0], slot)
+            attn = IF.decode_attention(q[:, 0], kc[li], vc[li], bt, lens)
+            if record is not None:
+                record.append(dict(q=q[:, 0].clone(), k=k[:, 0].clone(),
+                                   v=v[:, 0].clone(), kc=kc[li].clone(),
+                                   vc=vc[li].clone(), lens=lens.clone(),
+                                   out=attn.clone()))
+            h = h + IF.fused_linear(attn.reshape(B, 1, H), w["wo"])
+            x = IF.fused_rms_norm(h, w["ln2"], epsilon=c["eps"])
+            h = h + IF.fused_linear(IF.swiglu(IF.fused_linear(x, w["wg"]),
+                                              IF.fused_linear(x, w["wu"])),
+                                    w["wd"])
+        return h
+
+    state = {"i": 1, "ctx": ctx0 + 1}
+
+    def next_step():
+        h = step(emb[state["i"]], state["ctx"])
+        state["i"] += 1
+        state["ctx"] = state["ctx"] + 1
+        return h
+
+    _reset_attn_counts()
+    record = []
+    warm = step(emb[0], ctx0, record)
+    if cuda:
+        torch.cuda.synchronize()
+    outs, sec = _train_steps_without_sync(next_step, steps, device)
+    counts = _attn_counts()
+    want = {"attention": L * (1 + steps), "attention_split": L * (1 + steps),
+            "attention_sm90": 0, "attention_int8": 0,
+            "attention_int8_split": 0, "attention_int8_sm90": 0}
+    if cuda and counts != want:
+        raise AssertionError(f"incubate_paths decode: attention launches "
+                             f"{counts} != {want}")
+    wall_ms = sec * 1e3
+    prof = _profile_breakdown(next_step, wall_ms) if cuda else None
+    finite = all(bool(torch.isfinite(h).all()) for h in [warm] + outs)
+    # each attention call of the warm step against the plain version on the
+    # same operands, and layer 0's against masked_multihead_attention over
+    # the same keys in a dense cache
+    errs = []
+    for r in record:
+        plain = pa._reference_paged_attention(
+            r["q"], r["kc"], r["vc"], bt.to(torch.int32),
+            r["lens"].to(torch.int32))
+        errs.append(_bf16_close(r["out"], plain))
+    r = record[0]
+    S = per * page
+    dense = torch.stack([p[:, bt].reshape(nh, B, S, d).transpose(0, 1)
+                         for p in (r["kc"], r["vc"])])
+    packed = torch.stack([r["q"], r["k"], r["v"]], dim=1).reshape(B, 3 * H)
+    mmha, _ = IF.masked_multihead_attention(packed, dense, r["lens"] - 1)
+    mmha_err = _bf16_close(mmha, r["out"].reshape(B, H))
+    failed = [f"layer {i}: max abs err {e}" for i, (e, ok) in enumerate(errs)
+              if not ok]
+    if not mmha_err[1]:
+        failed.append(f"masked_multihead_attention: max abs err "
+                      f"{mmha_err[0]}")
+    if not finite:
+        failed.append("non-finite hidden state")
+    if failed:
+        raise AssertionError(f"incubate_paths decode: {failed}")
+    res = dict(layers=L, batch=B, steps=steps, page=page,
+               contexts=[int(ctx0.min()), int(ctx0.max()) + steps + 2],
+               ms_per_step=wall_ms, tokens_per_s=B / sec,
+               attention_launches=counts,
+               attention_max_abs_err=max(e for e, _ in errs),
+               mmha_max_abs_err=mmha_err[0],
+               attention_tol=list(TOL[("out", "bfloat16")]),
+               builds_in_timed_steps=0, syncs_in_timed_steps=0,
+               profile=prof)
+    return res, counts
+
+
+def _doc_starts(c, device):
+    """Document-style ``startend_row_indices`` ``[b, 1, s, 1]`` int32 from
+    the part's seed: key j is visible to the rows before the end of its
+    document, so start[j] > j and every causal row keeps a key."""
+    import torch
+    gen = torch.Generator().manual_seed(c["seed"])
+    s = c["s"]
+    rows = []
+    for _ in range(c["b"]):
+        cuts = (torch.randperm(s - 1, generator=gen)[:c["docs"] - 1] +
+                1).sort().values
+        ends = torch.cat([cuts, torch.tensor([s])])
+        rows.append(ends[torch.searchsorted(ends, torch.arange(s),
+                                            right=True)])
+    return torch.stack(rows)[:, None, :, None].to(torch.int32).to(device)
+
+
+def _incubate_flashmask(c, device):
+    """Part (b): ``nn.functional.flashmask_attention`` forward and backward
+    at row 5m's shape, bf16, causal, document-style indices; the three
+    launches counted from 0 (all "sm90" on the card), out and dQ/dK/dV bit
+    for bit those of ``flash_attention(attn_mask=<the same mask>,
+    causal=True)``, and each kernel against its plain version by
+    FLASH_TOL["bfloat16"].  Then one case whose first ``masked_keys`` keys
+    are masked for every row, so the first rows have no live key: recorded,
+    not gated."""
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.nn import functional as F
+    cuda = device == "cuda"
+    b, s, h, d = c["b"], c["s"], c["h"], c["d"]
+    gen = torch.Generator(device=device).manual_seed(c["seed"])
+    q, k, v, g = (torch.randn(b, s, h, d, generator=gen,
+                              device=device).bfloat16() for _ in range(4))
+    si = _doc_starts(c, device)
+
+    def run(fn):
+        a = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*a)
+        out.backward(g)
+        return [out.detach()] + [t.grad for t in a]
+    _reset_flash_counts()
+    got = run(lambda *a: F.flashmask_attention(*a, si, causal=True))
+    launches = _flash_all_counts()
+    want_launches = {key: int(cuda) for key in (
+        "fwd", "dq", "dkv", "fwd_sm90", "dq_sm90", "dkv_sm90")}
+    rows = torch.arange(s, device=device)[:, None]
+    mask = torch.where(rows >= si[..., 0][:, :, None, :], -1e9, 0.0)
+    same = run(lambda *a: fa.flash_attention(*a, causal=True,
+                                             attn_mask=mask))
+    bitwise = [bool(torch.equal(x, y)) for x, y in zip(got, same)]
+    checks = _flash_compare(q, k, v, g, True, FLASH_TOL["bfloat16"],
+                            mask=mask)
+    failed = [f"{key}: {ck}" for key, ck in checks.items() if not ck["ok"]]
+    if launches != want_launches:
+        failed.append(f"launches {launches} != {want_launches}")
+    if not all(bitwise):
+        failed.append(f"not bit for bit flash_attention(attn_mask=): "
+                      f"{bitwise} (out, dq, dk, dv)")
+    if failed:
+        raise AssertionError(f"incubate_paths flashmask: {failed}")
+    timing = None
+    if cuda:
+        fwd = cuda_ms(lambda: F.flashmask_attention(q, k, v, si,
+                                                    causal=True), 10)
+        a = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        pair = cuda_ms(lambda: F.flashmask_attention(
+            *a, si, causal=True).backward(g), 5)
+        timing = dict(fwd_ms=fwd, fwd_bwd_ms=pair,
+                      mask_build_ms=cuda_ms(lambda: torch.where(
+                          rows >= si[..., 0][:, :, None, :], -1e9, 0.0), 10))
+    # the first masked_keys keys masked for every row: rows below
+    # masked_keys keep no key (under causal)
+    m = c["masked_keys"]
+    si_dead = si.clone()
+    si_dead[:, :, :m] = 0
+    mask_dead = torch.where(rows >= si_dead[..., 0][:, :, None, :], -1e9, 0.0)
+    dead = F.flashmask_attention(q, k, v, si_dead, causal=True)[:, :m].float()
+    plain = fa._reference_attention(q, k, v, True, mask=mask_dead)[:, :m]
+    vf = v.float()
+    all_keys = vf.mean(1, keepdim=True)                 # the reference's
+    prefix = vf[:, :m].cumsum(1) / torch.arange(
+        1, m + 1, device=device)[None, :, None, None]   # keys <= row
+    dead_rows = dict(rows=m, finite=bool(torch.isfinite(dead).all()),
+                     max_abs_vs_plain=float((dead - plain.float()).abs()
+                                            .max()),
+                     max_abs_vs_mean_of_all_keys=float(
+                         (dead - all_keys).abs().max()),
+                     max_abs_vs_mean_of_keys_to_the_row=float(
+                         (dead - prefix).abs().max()),
+                     plain_vs_mean_of_all_keys=float(
+                         (plain.float() - all_keys).abs().max()))
+    res = dict(shape=[b, s, h, d], dtype="bfloat16", causal=True,
+               docs=c["docs"], launches=launches,
+               bitwise_flash_attention_with_mask=True,
+               checks={key: {st: val for st, val in ck.items() if st != "ok"}
+                       for key, ck in checks.items()},
+               tol=FLASH_TOL["bfloat16"], timing=timing,
+               fully_masked_rows=dead_rows)
+    return res, launches
+
+
+def _incubate_fused_moe(c, device):
+    """Part (c): ``fused_moe`` at Mixtral-8x7B's FFN width, bf16, against
+    a per-token routed oracle in fp32 on the same device (each expert over
+    the tokens routed to it, fp32 weights, TF32 off) by FUSED_MOE_TOL."""
+    import torch
+    import torch.nn.functional as TF
+    import paddle_tpu_torch.incubate.nn.functional as IF
+    cuda = device == "cuda"
+    E, k, H, I, N = c["E"], c["k"], c["H"], c["I"], c["tokens"]
+    gen = torch.Generator(device=device).manual_seed(c["seed"])
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=device) *
+                scale).bfloat16()
+    x = rnd(1, N, H)
+    gw = rnd(H, E, scale=H ** -0.5)
+    w1 = rnd(E, H, 2 * I, scale=H ** -0.5)
+    w2 = rnd(E, I, H, scale=I ** -0.5)
+    y = IF.fused_moe(x, gw, w1, w2, moe_topk=k)
+    xf = x.reshape(N, H).float()
+    probs = torch.softmax(xf @ gw.float(), dim=-1)
+    topv, topi = torch.topk(probs, k, dim=-1)
+    topv = topv / topv.sum(-1, keepdim=True)
+    oracle = torch.zeros(N, H, device=device)
+    for e in range(E):
+        tok, slot = (topi == e).nonzero(as_tuple=True)
+        h1 = xf[tok] @ w1[e].float()
+        o = (TF.silu(h1[:, :I]) * h1[:, I:]) @ w2[e].float()
+        oracle.index_add_(0, tok, topv[tok, slot, None] * o)
+    got = y.reshape(N, H).float()
+    err = (got - oracle).abs()
+    rel = float(err.norm() / oracle.norm())
+    share = float(err.max() / oracle.abs().max())
+    ok = bool(torch.isfinite(got).all()) and rel <= FUSED_MOE_TOL["rel"] \
+        and share <= FUSED_MOE_TOL["max_share"]
+    if not ok:
+        raise AssertionError(f"incubate_paths fused_moe: rel {rel}, max "
+                             f"share {share} > {FUSED_MOE_TOL}")
+    ms = cuda_ms(lambda: IF.fused_moe(x, gw, w1, w2, moe_topk=k), 3) \
+        if cuda else None
+    return dict(E=E, k=k, H=H, I=I, tokens=N, dtype="bfloat16", rel=rel,
+                max_share=share, tol=FUSED_MOE_TOL, ms=ms,
+                tokens_per_expert=torch.bincount(topi.reshape(-1),
+                                                 minlength=E).tolist())
+
+
+def _incubate_moe_layer(c, device):
+    """Part (d): ``MoELayer`` training, fp32: a ``GShardGate`` (top k) over
+    E experts ``Sequential(Linear(H, I), GELU(), Linear(I, H))``,
+    ``c["tokens"]`` tokens, ``c["steps"]`` steps of the port's ``AdamW``
+    on an MSE loss plus 0.01 x the aux loss.  Losses finite, every
+    expert's and the gate's parameters get a finite gradient in the first
+    step, and the "gather" and "einsum" forms give the same output within
+    MOE_LAYER_FORMS_TOL of max |out|."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+    cuda = device == "cuda"
+    E, k, H, I, N = c["E"], c["k"], c["H"], c["I"], c["tokens"]
+    with _paddle_device(device):
+        paddle.seed(c["seed"])
+        moe = MoELayer(H, [nn.Sequential(nn.Linear(H, I), nn.GELU(),
+                                         nn.Linear(I, H))
+                           for _ in range(E)],
+                       gate={"type": "gshard", "top_k": k})
+        opt = paddle.optimizer.AdamW(c["lr"], parameters=moe.parameters())
+        x, target = paddle.randn([N, H]), paddle.randn([N, H])
+        losses, aux, step_ms, missing = [], [], [], []
+        for i in range(c["steps"]):
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = moe(x)
+            loss = torch.nn.functional.mse_loss(y, target) + 0.01 * moe.loss
+            loss.backward()
+            if i == 0:
+                missing = [n for n, p in moe.named_parameters()
+                           if p.grad is None or
+                           not bool(torch.isfinite(p.grad).all())]
+            opt.step()
+            opt.clear_grad()
+            if cuda:
+                torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss.detach()))
+            aux.append(float(moe.loss.detach()))
+        with torch.no_grad():
+            gather = moe(x)
+            moe.dispatch = "einsum"
+            einsum = moe(x)
+            moe.dispatch = "gather"
+        forms_err = float((gather - einsum).abs().max() /
+                          gather.abs().max())
+    failed = []
+    if not all(math.isfinite(v) for v in losses + aux):
+        failed.append(f"losses {losses}, aux {aux}")
+    if missing:
+        failed.append(f"no finite gradient: {missing[:8]}")
+    if not forms_err <= MOE_LAYER_FORMS_TOL:
+        failed.append(f"gather vs einsum {forms_err} > "
+                      f"{MOE_LAYER_FORMS_TOL}")
+    if failed:
+        raise AssertionError(f"incubate_paths moe_layer: {failed}")
+    return dict(E=E, k=k, H=H, I=I, tokens=N, dtype="float32",
+                capacity=moe._capacity(N), losses=losses, aux_losses=aux,
+                step_ms=step_ms, params_with_grad=len(moe.parameters()),
+                forms_max_share=forms_err, forms_tol=MOE_LAYER_FORMS_TOL)
+
+
+def _incubate_quant(c, device):
+    """Part (e): quantization at Llama-2-7B's gate width ([m, k] @ [k, n]),
+    each call against the same call on a CPU copy: ``llm_int8_linear`` (fp32,
+    ``c["outliers"]`` columns above the threshold), ``fp8_linear`` (bf16)
+    by INCUBATE_QUANT_TOL, ``fp8_quantize`` with a given scale that
+    overflows (NaN where the CPU's reference semantics give NaN, every
+    byte equal); then ``PTQ`` on a two-``Linear`` MLP of width
+    ``c["ptq_width"]``: calibrate, convert, relative error under
+    PTQ_REL_LIMIT."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch import quantization as Q
+    cuda = device == "cuda"
+    m, kd, n = c["m"], c["k"], c["n"]
+    gen = torch.Generator(device=device).manual_seed(c["seed"])
+    x = torch.randn(m, kd, generator=gen, device=device)
+    cols = torch.randperm(kd, generator=gen, device=device)[:c["outliers"]]
+    x[:, cols] *= 20.0
+    w = torch.randn(kd, n, generator=gen, device=device) * kd ** -0.5
+    qw, s = Q.weight_quantize(w)
+    res, failed = {}, []
+    calls = {"llm_int8_linear": (lambda *a: Q.llm_int8_linear(
+                 a[0], a[1], weight_scale=a[2]), (x, qw, s)),
+             "fp8_linear": (lambda *a: Q.fp8_linear(a[0], a[1]),
+                            (x.bfloat16(), w.bfloat16()))}
+    for name, (fn, args) in calls.items():
+        got = fn(*args)
+        want = fn(*(a.cpu() for a in args))
+        err = float((got.cpu().float() - want.float()).abs().max() /
+                    want.float().abs().max())
+        res[name] = dict(max_share=err, tol=INCUBATE_QUANT_TOL[name],
+                         ms=cuda_ms(lambda: fn(*args), 20) if cuda else None)
+        if not (err <= INCUBATE_QUANT_TOL[name] and
+                bool(torch.isfinite(got).all())):
+            failed.append(f"{name}: {err} > {INCUBATE_QUANT_TOL[name]}")
+    outlier_cols = int((x.abs().amax(0) > 6.0).sum())
+    scale = torch.tensor(0.5, device=device)
+    v = torch.cat([torch.linspace(-600, 600, 241, device=device),
+                   torch.tensor([464.0, 464.1, float("inf")],
+                                device=device)]) * 0.5
+    got, _ = Q.fp8_quantize(v, scale=scale)
+    want, _ = Q.fp8_quantize(v.cpu(), scale=scale.cpu())
+    g, wnt = got.cpu().float(), want.float()
+    nan_same = bool(torch.equal(g.isnan(), wnt.isnan()))
+    bytes_same = bool(torch.equal(got.cpu().view(torch.uint8),
+                                  want.view(torch.uint8)))
+    res["fp8_overflow"] = dict(values=int(v.numel()),
+                               nan=int(wnt.isnan().sum()),
+                               nan_equal=nan_same, bytes_equal=bytes_same)
+    if not (nan_same and bytes_same and int(wnt.isnan().sum()) > 0):
+        failed.append(f"fp8 overflow: {res['fp8_overflow']}")
+    W = c["ptq_width"]
+    with _paddle_device(device):
+        paddle.seed(c["seed"])
+        mlp = nn.Sequential(nn.Linear(W, W), nn.ReLU(), nn.Linear(W, W))
+        xs = paddle.randn([m, W])
+        ref = mlp(xs).detach()
+        Q.PTQ(Q.QuantConfig()).quantize(mlp)
+        for _ in range(c["calib"]):
+            mlp(paddle.randn([m, W]))
+        Q.PTQ.convert(mlp)
+        out = mlp(xs).detach()
+    rel = float((out - ref).abs().max() / ref.abs().max())
+    res["ptq"] = dict(width=W, calibration_batches=c["calib"], rel=rel,
+                      limit=PTQ_REL_LIMIT)
+    if not rel < PTQ_REL_LIMIT:
+        failed.append(f"PTQ rel {rel} >= {PTQ_REL_LIMIT}")
+    if failed:
+        raise AssertionError(f"incubate_paths quant: {failed}")
+    res.update(m=m, k=kd, n=n, outlier_columns=outlier_cols)
+    return res
+
+
+def phase_incubate_paths(cfg=None, device="cuda"):
+    """The Paddle-API entries that reach the ported kernels, at full width
+    (INCUBATE_PATHS): (a) a Llama-2-7B-width decode loop through
+    ``incubate.nn.functional`` (``decode_attention`` on the paged kernel's
+    "split" route), (b) ``nn.functional.flashmask_attention`` at row 5m's
+    shape (the flash kernels' mask mode), (c) ``fused_moe`` at
+    Mixtral-8x7B's width, (d) ``MoELayer`` training with a GShard gate,
+    (e) ``llm_int8_linear``, the fp8 ops and ``PTQ``.  One line per part;
+    returns the paged-attention launches of (a) and the flash launches of
+    (b), each counted from 0 around its part."""
+    import torch
+    cfg = cfg or INCUBATE_PATHS
+    cuda = device == "cuda"
+    parts = (("decode", _incubate_decode), ("flashmask", _incubate_flashmask),
+             ("fused_moe", _incubate_fused_moe),
+             ("moe_layer", _incubate_moe_layer), ("quant", _incubate_quant))
+    launches = {}
+    for part, fn in parts:
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        res = fn(cfg[part], device)
+        if part in ("decode", "flashmask"):
+            res, launches[part] = res
+        emit("incubate_paths", part=part, **res,
+             max_memory_allocated=torch.cuda.max_memory_allocated()
+             if cuda else None,
+             nvidia_smi=_nvidia_smi() if cuda else None)
+        gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return launches
+
+
 # ------------------------------------------------------- weight-only ---
 
 def _wo_counts():
@@ -8984,12 +9508,17 @@ def main() -> int:
     phase_resnet50_train()
     encoder_launches, _encoder_t = phase_encoder_train()
     hapi_launches = phase_hapi_fit()
+    incubate = phase_incubate_paths()
+    for key in ("attention", "attention_split"):
+        launches[key] += incubate["decode"][key]
     # the flash kernels' launches on every training path: llama2_7b, GPT-2,
     # DiT (training and the sampler), the two MoE forms, the Paddle-API
-    # fused encoder and paddle.Model's sentence classifier
+    # fused encoder, paddle.Model's sentence classifier and
+    # flashmask_attention
     flash_launches = {k: flash_launches[k] + gpt_launches[k] +
                       dit_launches[k] + forms_launches[k] +
-                      encoder_launches[k] + hapi_launches[k]
+                      encoder_launches[k] + hapi_launches[k] +
+                      incubate["flashmask"][k]
                       for k in flash_launches}
     wo_err, wo_t = phase_kernel_wo(built)
     wo_launches, _wo_sweeps = phase_weight_only_path()

@@ -1,3 +1,4 @@
-"""The port of ``paddle_tpu.incubate``: so far ``nn``'s fused layers."""
+"""The port of ``paddle_tpu.incubate``: ``nn``'s fused layers and functional
+ops, and ``distributed.models.moe``."""
 
-from . import nn  # noqa: F401
+from . import distributed, nn  # noqa: F401

@@ -469,6 +469,37 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
     return (out, None) if return_softmax is not None else out
 
 
+def flashmask_attention(query, key, value, startend_row_indices=None,
+                        dropout=0.0, causal=False, training=True, name=None):
+    """Attention with a row-index mask (``nn/functional.py`` :2332) over
+    ``[b, s, h, d]`` tensors, GQA when key/value have fewer heads.
+
+    ``startend_row_indices`` ``[b, h|1, sk, 1|2]``: for key column j the
+    rows from ``startend_row_indices[..., j, 0]`` on are masked.  The mask is
+    built on the device as the reference builds it, fp32 ``[b, h|1, sq,
+    sk]`` with -1e9 where masked, and goes to the flash kernels' mask mode
+    (:func:`paddle_tpu_torch.kernels.flash_attention.flash_attention`, with
+    ``causal``); ``dropout`` is ignored there, as in the reference.  The
+    reference's causal mask is the top-left one: where sq != sk it is added
+    to the mask (-1e9) and the kernel runs without ``causal``.  Without
+    indices this is :func:`scaled_dot_product_attention`."""
+    if startend_row_indices is None:
+        return scaled_dot_product_attention(query, key, value,
+                                            dropout_p=dropout,
+                                            is_causal=causal,
+                                            training=training)
+    sq, sk = query.shape[1], key.shape[1]
+    start = startend_row_indices[..., 0][:, :, None, :]
+    rows = torch.arange(sq, device=query.device)[:, None]
+    masked = rows >= start
+    kernel_causal = bool(causal) and sq == sk
+    if causal and not kernel_causal:
+        masked = masked | (torch.arange(sk, device=query.device) > rows)
+    mask = torch.where(masked, -1e9, 0.0).to(torch.float32)
+    return _fa.flash_attention(query, key, value, causal=kernel_causal,
+                               attn_mask=mask)
+
+
 def flash_attn_qkvpacked(qkv, dropout=0.0, causal=False, return_softmax=False,
                          fixed_seed_offset=None, rng_name="", training=True,
                          name=None):
@@ -499,6 +530,7 @@ __all__ = [
     "adaptive_avg_pool2d", "avg_pool2d", "batch_norm", "celu",
     "conv2d", "cross_entropy", "dropout", "elu", "embedding",
     "flash_attention", "flash_attn_qkvpacked", "flash_attn_varlen_qkvpacked",
+    "flashmask_attention",
     "gelu", "glu", "hardshrink", "hardsigmoid", "hardswish", "hardtanh",
     "l1_loss", "layer_norm", "leaky_relu", "linear", "log_sigmoid",
     "log_softmax", "max_pool2d", "maxout", "mish", "mse_loss",

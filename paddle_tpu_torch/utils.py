@@ -41,8 +41,11 @@ def load_reference_state(model: nn.Module,
     names (``llama.layers.0.self_attn.q_proj.weight``, ``[in, out]``; for
     MoE layers ``llama.layers.0.mlp.gate.weight`` ``[H, E]`` and the expert
     banks ``llama.layers.0.mlp.experts_gate``/``experts_up`` ``[E, H, I]``
-    and ``experts_down`` ``[E, I, H]``; a BatchNorm's running statistics
-    ``..._mean`` / ``..._variance``) — the same names and layouts as the
+    and ``experts_down`` ``[E, I, H]``; an ``incubate`` ``MoELayer``'s
+    ``gate.weight`` ``[d_model, E]`` and ``experts.<i>.<j>.weight`` /
+    ``.bias`` of each expert's ``Linear``s; a BatchNorm's running statistics
+    ``..._mean`` / ``..._variance``; a ``PTQ``-converted model's weights
+    under their own names) — the same names and layouts as the
     port's parameters and persistent buffers, so both packages then
     compute the same function.  Every parameter and persistent buffer must
     be given, with its exact shape; values are cast to its dtype.

@@ -1204,3 +1204,105 @@ def test_primitives_matmul_routes_on_card(h100, dtype, out_dtype, m, k, n,
     assert bool(((got.float() - wf).abs() <= lim).all())
     if route == "sm90":
         assert torch.equal(got, again)
+
+
+# ---- the Paddle-API entries that reach the kernels ----
+
+def _decode_operands(dev, *, B=8, qh=32, kvh=32, d=128, page=16, pages=300,
+                     ctxs=(1, 17, 100, 255, 256, 300, 448, 512), seed=0):
+    g = torch.Generator().manual_seed(seed)
+    per = -(-max(ctxs) // page)
+    q = torch.randn(B, qh, d, generator=g)
+    kc = torch.randn(kvh, pages, page, d, generator=g)
+    vc = torch.randn(kvh, pages, page, d, generator=g)
+    bt = torch.randperm(pages, generator=g)[:B * per].reshape(B, per)
+    cl = torch.tensor(ctxs, dtype=torch.int64)
+    return [t.to(dev) for t in (q.bfloat16(), kc.bfloat16(), vc.bfloat16(),
+                                bt, cl)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qh,kvh", [(32, 32), (32, 8)], ids=["mha", "gqa4"])
+def test_decode_attention_takes_the_split_route_on_card(h100, qh, kvh):
+    """``incubate.nn.functional.decode_attention`` with int64 block tables
+    and lengths: one launch on the "split" route, equal to the plain
+    version on a CPU copy within the bf16 ``out`` tolerance."""
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    ops = _decode_operands(h100, qh=qh, kvh=kvh)
+    split = pa.LAUNCHES_SPLIT
+    got = IF.decode_attention(*ops)
+    assert pa.LAUNCHES_SPLIT == split + 1
+    want = IF.decode_attention(*(t.cpu() for t in ops))
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=1e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_decode_attention_refuses_what_the_kernel_does_not_take(h100):
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    q, kc, vc, bt, cl = _decode_operands(h100, d=96, pages=40,
+                                         ctxs=(5,) * 8)
+    with pytest.raises(ValueError, match="head_dim"):
+        IF.decode_attention(q, kc, vc, bt, cl)
+    q, kc, vc, bt, cl = _decode_operands(h100, qh=32, kvh=2, pages=40,
+                                         ctxs=(5,) * 8)
+    with pytest.raises(ValueError, match="GQA group"):
+        IF.decode_attention(q, kc, vc, bt, cl)
+
+
+@pytest.mark.cuda
+def test_flashmask_equals_flash_with_its_mask_on_card(h100):
+    """``nn.functional.flashmask_attention`` builds the reference's mask on
+    the card and takes the flash kernels' mask mode ("sm90" at bf16 d 128):
+    out and dQ/dK/dV bit for bit those of ``flash_attention(attn_mask=...,
+    causal=True)``, one launch of each kernel on "sm90"."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.nn import functional as F
+    g = torch.Generator().manual_seed(0)
+    b, s, h, d = 2, 512, 4, 128
+    q, k, v, cot = (torch.randn(b, s, h, d, generator=g).bfloat16().to(h100)
+                    for _ in range(4))
+    ends = torch.tensor([128, 320, 512])
+    start = ends[torch.searchsorted(ends, torch.arange(s), right=True)]
+    si = start.reshape(1, 1, s, 1).expand(b, 1, s, 1).contiguous().to(h100)
+    rows = torch.arange(s, device=h100)[:, None]
+    mask = torch.where(rows >= si[..., 0][:, :, None, :], -1e9, 0.0)
+
+    def run(fn):
+        a = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*a)
+        (out.float() * cot.float()).sum().backward()
+        return [out] + [t.grad for t in a]
+    before = (fa.LAUNCHES_FWD_SM90, fa.LAUNCHES_BWD_DQ_SM90,
+              fa.LAUNCHES_BWD_DKV_SM90)
+    got = run(lambda *a: F.flashmask_attention(*a, si, causal=True))
+    assert (fa.LAUNCHES_FWD_SM90, fa.LAUNCHES_BWD_DQ_SM90,
+            fa.LAUNCHES_BWD_DKV_SM90) == tuple(n + 1 for n in before)
+    want = run(lambda *a: fa.flash_attention(*a, causal=True,
+                                             attn_mask=mask.float()))
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_quantization_on_card_equals_the_cpu(h100):
+    """fp8 casts give NaN past e4m3's range on the card as on the CPU;
+    ``llm_int8_linear`` and ``fp8_linear`` on the card against a CPU copy
+    (fp32 sums in other orders)."""
+    from paddle_tpu_torch import quantization as Q
+    v = torch.tensor([1.0, 440, 460, 464, 464.1, 470, 1e5, -470, float("inf")])
+    got, _ = Q.fp8_quantize(v.to(h100), scale=torch.tensor(1.0).to(h100))
+    want, _ = Q.fp8_quantize(v, scale=torch.tensor(1.0))
+    torch.testing.assert_close(got.cpu().float(), want.float(),
+                               equal_nan=True, rtol=0, atol=0)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(8, 512, generator=g)
+    x[:, [5, 77]] *= 20.0
+    w = torch.randn(512, 256, generator=g)
+    qw, s = Q.weight_quantize(w)
+    for fn in (lambda *a: Q.llm_int8_linear(a[0], a[1], weight_scale=a[2]),
+               lambda *a: Q.fp8_linear(a[0], a[3])):
+        ref = fn(x, qw, s, w)
+        out = fn(*(t.to(h100) for t in (x, qw, s, w))).cpu()
+        torch.testing.assert_close(out, ref, rtol=1e-5,
+                                   atol=1e-5 * float(ref.abs().max()))

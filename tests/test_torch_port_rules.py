@@ -48,7 +48,8 @@ FLEET_STACK = ("router/__init__.py", "router/__main__.py", "router/replica.py",
 
 # the Paddle-API training path: framework core, nn, optimizers, amp,
 # ResNet and the fused layers; Model with its callbacks and summary, the
-# metrics, the data pipeline over the native ring, save / load
+# metrics, the data pipeline over the native ring, save / load; the fused
+# functional ops, the MoE layer and its gates, the quantization API
 PADDLE_API = ("device/__init__.py", "dtypes.py", "core/random.py",
               "core/tensor.py", "core/amp_state.py", "autograd/__init__.py",
               "ops/__init__.py", "ops/creation.py", "ops/manipulation.py",
@@ -61,7 +62,13 @@ PADDLE_API = ("device/__init__.py", "dtypes.py", "core/random.py",
               "hapi/summary.py", "metric/__init__.py", "io/__init__.py",
               "io/native_loader.py", "io/mp_loader.py",
               "framework/__init__.py", "framework/io.py",
-              "native/__init__.py")
+              "native/__init__.py", "incubate/__init__.py",
+              "incubate/distributed/__init__.py",
+              "incubate/distributed/models/__init__.py",
+              "incubate/distributed/models/moe/__init__.py",
+              "incubate/distributed/models/moe/gate.py",
+              "incubate/distributed/models/moe/moe_layer.py",
+              "quantization/__init__.py")
 
 
 def test_port_and_chip_smoke_import_no_jax():
