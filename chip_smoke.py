@@ -44,10 +44,11 @@ is caught; there is no ``ok`` line unless every phase passed):
    prefill shapes, with ``torch._grouped_mm`` (or per-expert matmuls) as
    the yardstick.
 6. ``engine_parity``, ``engine_parity_int8``, ``engine_parity_moe`` — a
-   2-layer fp32 model (llama2_7b widths; the same over an int8 pool;
-   Mixtral-8x7B widths) served by the continuous-batching engine on the
-   card, its greedy tokens held against the port's full-sequence forward on
-   the CPU (teacher forcing); near-ties are counted.
+   2-layer fp32 model (llama2_7b widths; the same over an int8 pool) and a
+   1-layer one at Mixtral-8x7B widths (2 before the sequence phases)
+   served by the continuous-batching engine on the card, its greedy
+   tokens held against the port's full-sequence forward on the CPU
+   (teacher forcing); near-ties are counted.
 6b. ``engine_parity_prefix_spec`` — the prefix cache, ngram speculative
     decoding (K 4) and the pinned host spill ring (8 pages) together, on
     the same 2-layer fp32 model over a float and an int8 pool, then the
@@ -219,8 +220,8 @@ is caught; there is no ``ok`` line unless every phase passed):
     card against the CPU (fp32, bool and additive masks, causal, dropout).
 9. ``train_parity`` — ``PretrainStep`` on the card (kernels) against the
    same step on the CPU (plain versions) from one ``restore_canonical``
-   state: a 2-layer fp32 model at llama2_7b widths, B=2, T=256, remat and
-   a 4-chunk loss, first-step gradients, then 3 steps' losses and
+   state: a 1-layer fp32 model at llama2_7b widths, B=2, T=256, remat and
+   a 4-chunk loss, first-step gradients, then 2 steps' losses and
    parameters.
 10. ``train`` — through the pretrain entry point's ``build_trainer``: full
     llama2_7b (bf16, remat full, 16 loss chunks, bf16 ``m``, fp32 ``v``),
@@ -271,9 +272,10 @@ is caught; there is no ``ok`` line unless every phase passed):
     launches exactly 24 of each kernel a pass, all on "sm90"; losses and
     gradients finite; tokens/s, pass ms, MFU (6·N), peak memory; the causal
     d 64 kernels timed at this shape against SDPA and their bound.
-13d. ``dit_parity`` — DiT-L/2 widths at 512 px latents (s 1024, d 64), 2
-    blocks, fp32, class dropout 0: the trainer on the card against the CPU
-    from one carried state (adaLN-Zero parameters set to random values):
+13d. ``dit_parity`` — DiT-L/2 widths at 512 px latents (s 1024, d 64), 1
+    block (2 before the sequence phases), fp32, class dropout 0: the
+    trainer on the card against the CPU from one carried state (adaLN-Zero
+    parameters set to random values):
     ``eps_fn``, first-step gradients, 3 ``train_step``s (PARITY_FAR_SHARE
     rule), then an 8-step DDIM sample with guidance 4.0 from one x_T;
     launches one of each kernel a block a step on "mma", the sampler two
@@ -384,6 +386,28 @@ is caught; there is no ``ok`` line unless every phase passed):
     ``encoder_train``, ``hapi_fit`` and ``incubate_paths``; the
     ``ragged_paged_attention`` row counts ``incubate_paths``' decode
     launches beside the serve phases'.
+13l. ``nn_seq_parity`` — the sequence half of ``nn`` on the card
+    against the port on the CPU, fp32 with TF32 off, by train_parity's
+    rule at NN_PARITY_TOL: every deterministic function of the slice (the
+    losses, ``ctc_loss`` and ``rnnt_loss`` among them, the sequence
+    utilities, the activations) and every layer (the cells, ``RNN``,
+    ``BiRNN``, a bidirectional 2-layer LSTM and a 2-layer GRU with
+    ``sequence_length``, the Transformer decoder, the loss layers, the
+    containers), outputs and input and parameter gradients; ``nn.utils``;
+    one Adam step of a 2+2-layer seq2seq Transformer; the random draws by
+    shape, support and moments.  No Pallas kernel is on this path.
+13m. ``seq_models`` — the sequence half at full published width: (a) the
+    Transformer base (``nn.Transformer()``'s defaults, 37000-token shared
+    vocabulary, B 16 x 256 + 256 tokens, O1 bf16, label smoothing 0.1,
+    ``Adam(0.9, 0.98, 1e-9)`` under ``NoamDecay(512, 4000)``), (b) the
+    PTB-large LSTM LM (2 x 1500, 35 steps x batch 20, fp32, ``SGD(1.0)``,
+    global-norm clip 10): each the first step's loss of two sequences on
+    the card against the CPU (fp32, TF32 off, dropout off), then warm steps
+    with 0 builds and 0 syncs, ms a step, tokens/s, busy and idle share,
+    launches a step; (c) ``BeamSearchDecoder`` + ``dynamic_decode`` over
+    (b)'s cells at beam 4, batch 8, 32 steps: ids, scores and lengths equal
+    the CPU's but where a near-tie (NEAR_TIE_REL) excuses a row; ms a step
+    and marked syncs a step.
 14. ``kernel_wo`` — ptxas's record of the 21 kernels of
     ``weight_only_sm90.cu`` (0 spill bytes each, or it fails); then the
     weight-only W8A16/W4A16 kernels against their plain version: int8 and
@@ -541,9 +565,12 @@ FLASH_KEEP_CHECK = dict(b=2, s=2048, h=4, routes=(("float32", 256),
                                                   ("bfloat16", 128)))
 FLASH_KEEP_RATES = (0.1, 0.5)
 FLASH_VARLEN_LENS = (512, 1024, 1536, 2048, 3072)
-PARITY = dict(preset="llama2_7b", layers=2, batch=2, seq=256, steps=3)
+# 1 layer and 2 steps (2 and 3 before the sequence phases, cut for the
+# script's time)
+PARITY = dict(preset="llama2_7b", layers=1, batch=2, seq=256, steps=2)
 # share of parameters further apart than 1e-6 after the parity steps:
-# 8.4e-5 measured on an H100 80GB HBM3, with 6x room
+# 8.4e-5 measured on an H100 80GB HBM3 at 2 layers and 3 steps, with 6x
+# room (a step fewer moves fewer parameters apart)
 PARITY_FAR_SHARE = 5e-4
 TRAIN_ARGV = ["--preset", "llama2_7b", "--batch", "4", "--seq", "2048"]
 TRAIN_STEPS = 4                    # timed, after one warm-up step
@@ -579,7 +606,8 @@ TRAIN_MOE_ARGV = ["--preset", "mixtral_8x7b", "--num-layers", "4",
 PARITY_TOL = 1e-4
 GPT_PARITY = dict(layers=2, batch=2, seq=512)
 GPT2 = dict(batch=8, seq=1024, passes=3)
-DIT_PARITY = dict(input_size=64, depth=2, batch=2, steps=3, sample_steps=8,
+# depth 1 (2 before the sequence phases, cut for the script's time)
+DIT_PARITY = dict(input_size=64, depth=1, batch=2, steps=3, sample_steps=8,
                   guidance=4.0)
 # DiT-XL/2 at 256 px (s 256, d 72: the reference's XLA attention) and
 # DiT-L/2 at 512 px (s 1024, d 64: its Pallas flash kernels)
@@ -659,6 +687,40 @@ INCUBATE_PATHS = {
     "quant": dict(m=8, k=4096, n=11008, outliers=6, ptq_width=4096,
                   calib=3, seed=3400),
 }
+# nn_seq_parity: the sequence half of nn on the card against the
+# port on the CPU, fp32 with TF32 off, by train_parity's rule at
+# NN_PARITY_TOL (NN_PARITY_FLOOR for gradients that are 0 but for
+# rounding); small widths
+NN_SEQ_PARITY = dict(seed=4000, rnn=dict(B=4, T=12, I=32, H=48),
+                     ctc=dict(T=30, B=4, C=20, L=8),
+                     rnnt=dict(B=3, T=12, U=6, V=16),
+                     transformer=dict(vocab=40, d=32, heads=4, layers=2,
+                                      ffn=64, batch=3, src=10, tgt=9,
+                                      warmup_steps=4))
+# a gradient entry below this is rounding noise: Adam moves it by about lr
+# x sign(noise), which the two devices draw apart, so the parameters after
+# nn_seq_parity's Adam step are held where the CPU's gradient is above it
+NN_SEQ_NOISE = 1e-6
+# seq_models: the sequence half at full published width.  (a) the
+# Transformer base of Vaswani et al. 2017 (nn.Transformer's defaults) over
+# a shared 37000-token vocabulary (WMT14 En-De BPE, their 5.1), label
+# smoothing 0.1, Adam(0.9, 0.98, 1e-9) under NoamDecay(512, 4000), O1 bf16;
+# (b) Zaremba et al. 2014's "large" PTB LSTM language model (Paddle's PTB
+# LM example): 2 x 1500, dropout 0.65, 35 unrolled steps at batch 20,
+# SGD(1.0), global-norm clip 10, fp32; (c) beam search over (b)'s cells
+SEQ_MODELS = {
+    "transformer": dict(vocab=37000, d_model=512, heads=8, layers=6,
+                        ffn=2048, dropout=0.1, batch=16, src=256, tgt=256,
+                        smoothing=0.1, warmup_steps=4000, parity_rows=2,
+                        warmup=2, steps=6, seed=4100),
+    "lstm": dict(vocab=10000, hidden=1500, layers=2, dropout=0.65,
+                 batch=20, unroll=35, lr=1.0, clip=10.0, parity_rows=2,
+                 warmup=2, steps=6, seed=4200),
+    "beam": dict(beam=4, batch=8, max_steps=32, start=0, end=1, seed=4300),
+}
+# beam search: a step where the CPU's k-th and (k+1)-th totals lie this
+# close (relative) may choose otherwise on the card
+NEAR_TIE_REL = 1e-5
 # fused_moe in bf16 against its per-token routed oracle in fp32: each expert
 # product, the SwiGLU, the combine weights and the running sum are rounded
 # to bf16 (about five roundings of 2^-9 on the way): relative Frobenius
@@ -1762,12 +1824,13 @@ def phase_engine_parity_int8():
 
 
 def phase_engine_parity_moe():
-    """Mixtral widths, 2 layers, fp32; block_m 64 keeps the CPU forward's
+    """Mixtral widths, 1 layer (2 before the sequence phases, cut for the
+    script's time), fp32; block_m 64 keeps the CPU forward's
     padded rows (and its time) small and runs the kernel at bm 64 in
     prefill beside the decode steps' bm 16."""
     import numpy as np
     from paddle_tpu_torch.models.llama import LlamaConfig
-    cfg = LlamaConfig.mixtral_8x7b(num_hidden_layers=2, dtype="float32",
+    cfg = LlamaConfig.mixtral_8x7b(num_hidden_layers=1, dtype="float32",
                                    moe_block_m=64)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
@@ -4068,6 +4131,30 @@ def _cuda_contexts():
     return len(out.split())
 
 
+def _process_tree(pid):
+    """``[(pid, state, command line)]`` of ``pid``'s living descendants, read
+    from ``/proc``."""
+    out, todo = [], [pid]
+    while todo:
+        p = todo.pop()
+        try:
+            with open(f"/proc/{p}/task/{p}/children") as f:
+                kids = [int(k) for k in f.read().split()]
+        except OSError:
+            kids = []
+        for k in kids:
+            try:
+                with open(f"/proc/{k}/cmdline", "rb") as f:
+                    cmd = f.read().replace(b"\0", b" ").decode()[:200]
+                with open(f"/proc/{k}/stat") as f:
+                    state = f.read().rsplit(")", 1)[1].split()[0]
+            except OSError:
+                continue
+            out.append((k, state, cmd))
+            todo.append(k)
+    return out
+
+
 def _pid_alive(pid):
     import os
     try:
@@ -4296,7 +4383,15 @@ def phase_fleet_failover(argv=None):
         st, statusz = _get_json(port, "/statusz")
         proc.send_signal(signal.SIGTERM)
         t_term = time.perf_counter()
-        rc = proc.wait(timeout=c["drain_s"])
+        try:
+            rc = proc.wait(timeout=c["drain_s"])
+        except subprocess.TimeoutExpired:
+            print(f"fleet_failover: the launcher (pid {proc.pid}) outlived "
+                  f"its {c['drain_s']} s drain after SIGTERM; its living "
+                  f"children: {_process_tree(proc.pid)}; its log ends:\n"
+                  f"{log_tail()}", flush=True)
+            raise AssertionError(f"fleet_failover: the launcher did not exit "
+                                 f"within {c['drain_s']} s of SIGTERM")
         drain_s = time.perf_counter() - t_term
         left = sorted(p for p in pids if p and _pid_alive(p))
     finally:
@@ -5594,7 +5689,7 @@ def _reset_flash_counts():
 
 
 def phase_train_parity():
-    """A 2-layer fp32 model at llama2_7b widths (remat full, 4 loss chunks,
+    """A 1-layer fp32 model at llama2_7b widths (remat full, 4 loss chunks,
     B=2, T=256): the trainer on the card (the flash kernels, cuBLAS fp32
     without TF32) against the same trainer on the CPU (plain versions),
     from one state carried with restore_canonical.
@@ -5603,7 +5698,7 @@ def phase_train_parity():
     the leaf's largest |grad| (fp32 sums in other orders).  AdamW's first
     update is lr x sign(grad), so an entry whose gradient sits below the
     two devices' rounding noise moves the other way (2 x lr apart); after
-    3 steps at most PARITY_FAR_SHARE of the parameters may lie further
+    the steps at most PARITY_FAR_SHARE of the parameters may lie further
     apart than 1e-6."""
     import numpy as np
     import torch
@@ -6409,23 +6504,26 @@ def _raise_timing_failures(phase, timing, checks):
 def _profile_breakdown(fn, wall_ms, top=6):
     """``fn()`` once under ``torch.profiler`` (CPU and CUDA): device-busy
     ms, the idle share against ``wall_ms`` (the same work's unprofiled wall
-    time), the flash kernels' and cuBLAS GEMMs' ms, the device ms of the
+    time), the device kernels launched, the flash kernels' and cuBLAS
+    GEMMs' ms, the device ms of the
     kernels inside ``record_function("adam")`` (the DiT trainer's update),
     and the ``top`` kernels by device ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from paddle_tpu_torch.profile_step import (GEMM_NAMES, _device_ms,
-                                               _range_device_ms)
+    from paddle_tpu_torch.profile_step import (GEMM_NAMES, _device_events,
+                                               _device_ms, _range_device_ms)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     by_name = _device_ms(prof)
     busy = sum(by_name.values())
+    launches = sum(1 for _ in _device_events(prof, annotations=False))
 
     def ms(*keys):
         return sum(v for k, v in by_name.items() if any(x in k for x in keys))
     return {"device_busy_ms": busy, "idle_share": 1 - busy / wall_ms,
+            "launches": launches,
             "flash_ms": ms("flash_"), "gemm_ms": ms(*GEMM_NAMES),
             "adam_ms": _range_device_ms(prof, "adam"),
             "top_kernels_ms": [[k[:120], v] for k, v in sorted(
@@ -8334,6 +8432,931 @@ def phase_incubate_paths(cfg=None, device="cuda"):
     return launches
 
 
+# ------------------------------------------- the sequence half of nn ---
+
+def _tree_leaves(tree):
+    if isinstance(tree, (tuple, list)):
+        return [x for t in tree for x in _tree_leaves(t)]
+    return [tree]
+
+
+def _seq_pass(call, module, inputs, grad_idx):
+    """``call(module, *inputs)`` forward, then backward from cotangents
+    drawn on the CPU from a fixed seed, one a float output leaf: (the
+    outputs, the gradients of ``inputs[i]`` for i in ``grad_idx``, the
+    parameter gradients)."""
+    import torch
+    xs = [x.clone().requires_grad_(i in grad_idx)
+          for i, x in enumerate(inputs)]
+    outs = _tree_leaves(call(module, *xs))
+    gen = torch.Generator().manual_seed(7)
+    total = sum((o * torch.randn(o.shape, generator=gen).to(o.device)).sum()
+                for o in outs if o.is_floating_point())
+    if torch.is_tensor(total) and total.requires_grad:
+        total.backward()
+    params = dict(module.named_parameters()) \
+        if hasattr(module, "named_parameters") else {}
+    return ([o.detach() for o in outs], [xs[i].grad for i in grad_idx],
+            {n: p.grad for n, p in params.items()})
+
+
+def _seq_checks(got, want):
+    """train_parity's rule at NN_PARITY_TOL (+ NN_PARITY_FLOOR) over every
+    output, input gradient and parameter gradient: {entry: (bad, err)}."""
+    tol = (NN_PARITY_TOL, NN_PARITY_FLOOR)
+    checks = {f"out_{i}": _parity_bad(g, w, *tol)
+              for i, (g, w) in enumerate(zip(got[0], want[0]))}
+    checks.update({f"input_grad_{i}": _parity_bad(g, w, *tol)
+                   for i, (g, w) in enumerate(zip(got[1], want[1]))})
+    checks.update({f"grad_{n}": _parity_bad(got[2][n], w, *tol)
+                   for n, w in want[2].items() if w is not None})
+    if len(got[0]) != len(want[0]) or any(
+            g is None for g in got[1]) or set(got[2]) != set(want[2]):
+        checks["structure"] = (1, float("inf"))
+    return checks
+
+
+def _seq_fn_cases(c):
+    """(name, call(F, *xs), inputs(gen), grad indices) of every function of
+    the slice whose value does not depend on a random draw."""
+    import torch
+
+    def gen_fns(g):
+        """Draws from ``g``: normal, uniform in [lo, hi), integers below
+        ``hi``, Bernoulli(0.4) as floats, and +-1."""
+        def r(*s):
+            return torch.randn(s, generator=g)
+
+        def u(lo, hi, *s):
+            return torch.rand(s, generator=g) * (hi - lo) + lo
+
+        def i(hi, *s):
+            return torch.randint(0, hi, s, generator=g)
+
+        def b(*s):
+            return (torch.rand(s, generator=g) < 0.4).float()
+
+        def pm(*s):
+            return torch.where(torch.rand(s, generator=g) < 0.5, -1.0, 1.0)
+        return r, u, i, b, pm
+    ctc, rt = c["ctc"], c["rnnt"]
+
+    def ctc_in(g):
+        r, u, i, b, pm = gen_fns(g)
+        lens = torch.linspace(ctc["T"], ctc["T"] // 2, ctc["B"]).long()
+        labs = torch.linspace(ctc["L"], 2, ctc["B"]).long()
+        return [r(ctc["T"], ctc["B"], ctc["C"]),
+                torch.randint(1, ctc["C"], (ctc["B"], ctc["L"]), generator=g),
+                lens, labs]
+
+    def rnnt_in(g):
+        r, u, i, b, pm = gen_fns(g)
+        return [r(rt["B"], rt["T"], rt["U"] + 1, rt["V"]),
+                torch.randint(1, rt["V"], (rt["B"], rt["U"]), generator=g),
+                torch.linspace(rt["T"], rt["T"] // 2, rt["B"]).long(),
+                torch.linspace(rt["U"], 1, rt["B"]).long()]
+
+    def csr(g):
+        offs, cols = [], []
+        for _ in range(2):
+            rows = [torch.sort(torch.randperm(8, generator=g)[
+                :int(torch.randint(1, 9, (1,), generator=g))]).values
+                for _ in range(8)]
+            offs.append(torch.cumsum(torch.tensor(
+                [0] + [len(x) for x in rows]), 0))
+            cols.append(torch.cat(rows))
+        n = max(len(x) for x in cols)
+        cols = [torch.nn.functional.pad(x, (0, n - len(x))) for x in cols]
+        return [torch.stack(offs).reshape(1, 2, 9).int(),
+                torch.stack(cols).reshape(1, 2, n).int()]
+
+    def mk(f):
+        return lambda g: f(*gen_fns(g))
+    sm = torch.softmax
+    return [
+        ("nll_loss", lambda F, x, l: F.nll_loss(x, l, ignore_index=1),
+         mk(lambda r, u, i, b, pm: [torch.log_softmax(r(16, 10), -1),
+                                    i(10, 16)]), [0]),
+        ("binary_cross_entropy", lambda F, p, y: F.binary_cross_entropy(p, y),
+         mk(lambda r, u, i, b, pm: [u(.05, .95, 16, 8), u(0, 1, 16, 8)]),
+         [0]),
+        ("binary_cross_entropy_with_logits",
+         lambda F, z, y, w, pw: F.binary_cross_entropy_with_logits(
+             z, y, w, "mean", pw),
+         mk(lambda r, u, i, b, pm: [r(16, 8) * 3, u(0, 1, 16, 8),
+                                    u(.5, 2, 8), u(.5, 3, 8)]), [0]),
+        ("kl_div", lambda F, x, t: F.kl_div(x, t, "batchmean"),
+         mk(lambda r, u, i, b, pm: [torch.log_softmax(r(8, 10), -1),
+                                    sm(r(8, 10), -1)]), [0]),
+        ("smooth_l1_loss", lambda F, a, y: F.smooth_l1_loss(a, y, delta=0.7),
+         mk(lambda r, u, i, b, pm: [r(16, 8), r(16, 8)]), [0, 1]),
+        ("huber_loss", lambda F, a, y: F.huber_loss(a, y, 0.7),
+         mk(lambda r, u, i, b, pm: [r(16, 8), r(16, 8)]), [0, 1]),
+        ("margin_ranking_loss",
+         lambda F, a, o, y: F.margin_ranking_loss(a, o, y, 0.1),
+         mk(lambda r, u, i, b, pm: [r(32), r(32), pm(32)]), [0, 1]),
+        ("cosine_embedding_loss",
+         lambda F, a, o, y: F.cosine_embedding_loss(a, o, y, 0.1),
+         mk(lambda r, u, i, b, pm: [r(16, 8), r(16, 8), pm(16).long()]),
+         [0, 1]),
+        ("hinge_embedding_loss", lambda F, a, y: F.hinge_embedding_loss(a, y),
+         mk(lambda r, u, i, b, pm: [r(16, 8), pm(16, 8)]), [0]),
+        ("soft_margin_loss", lambda F, a, y: F.soft_margin_loss(a, y),
+         mk(lambda r, u, i, b, pm: [r(16, 8), pm(16, 8)]), [0]),
+        ("multi_label_soft_margin_loss",
+         lambda F, a, y: F.multi_label_soft_margin_loss(a, y),
+         mk(lambda r, u, i, b, pm: [r(16, 8), b(16, 8)]), [0]),
+        ("multi_margin_loss", lambda F, a, y: F.multi_margin_loss(a, y, 2),
+         mk(lambda r, u, i, b, pm: [r(16, 8), i(8, 16)]), [0]),
+        ("poisson_nll_loss",
+         lambda F, a, y: F.poisson_nll_loss(a, y, full=True),
+         mk(lambda r, u, i, b, pm: [r(16, 8), i(5, 16, 8).float()]), [0]),
+        ("gaussian_nll_loss",
+         lambda F, a, y, v: F.gaussian_nll_loss(a, y, v, full=True),
+         mk(lambda r, u, i, b, pm: [r(16, 8), r(16, 8), u(.1, 2, 16, 8)]),
+         [0, 1, 2]),
+        ("triplet_margin_loss",
+         lambda F, a, p, n: F.triplet_margin_loss(a, p, n, swap=True),
+         mk(lambda r, u, i, b, pm: [r(16, 8), r(16, 8), r(16, 8)]),
+         [0, 1, 2]),
+        ("triplet_margin_with_distance_loss",
+         lambda F, a, p, n: F.triplet_margin_with_distance_loss(
+             a, p, n, margin=2.0),
+         mk(lambda r, u, i, b, pm: [r(16, 8), r(16, 8), r(16, 8)]),
+         [0, 1, 2]),
+        ("square_error_cost", lambda F, a, y: F.square_error_cost(a, y),
+         mk(lambda r, u, i, b, pm: [r(16, 8), r(16, 8)]), [0, 1]),
+        ("log_loss", lambda F, p, y: F.log_loss(p, y),
+         mk(lambda r, u, i, b, pm: [u(.05, .95, 16, 1), b(16, 1)]), [0]),
+        ("dice_loss", lambda F, a, y: F.dice_loss(a, y),
+         mk(lambda r, u, i, b, pm: [sm(r(4, 6, 6, 3), -1),
+                                    i(3, 4, 6, 6, 1)]), [0]),
+        ("npair_loss", lambda F, a, p, y: F.npair_loss(a, p, y),
+         mk(lambda r, u, i, b, pm: [r(12, 8), r(12, 8), i(4, 12)]), [0, 1]),
+        ("sigmoid_focal_loss",
+         lambda F, z, y, n: F.sigmoid_focal_loss(z, y, n),
+         mk(lambda r, u, i, b, pm: [r(16, 8) * 2, b(16, 8),
+                                    torch.tensor([4.0])]), [0]),
+        ("softmax_with_cross_entropy",
+         lambda F, x, y: F.softmax_with_cross_entropy(x, y),
+         mk(lambda r, u, i, b, pm: [r(16, 10), i(10, 16, 1)]), [0]),
+        ("margin_cross_entropy",
+         lambda F, x, y: F.margin_cross_entropy(x, y, 1.0, 0.3, 0.1, 16.0),
+         mk(lambda r, u, i, b, pm: [u(-.9, .9, 16, 12), i(12, 16)]), [0]),
+        ("hsigmoid_loss",
+         lambda F, x, y, w, bb: F.hsigmoid_loss(x, y, 12, w, bb),
+         mk(lambda r, u, i, b, pm: [r(16, 8), i(12, 16), r(11, 8), r(11)]),
+         [0, 2, 3]),
+        ("adaptive_log_softmax_with_loss",
+         lambda F, x, y, hw, a1, a2, b1, b2: F.adaptive_log_softmax_with_loss(
+             x, y, hw, None, [5, 15, 30], [(a1, a2), (b1, b2)]),
+         mk(lambda r, u, i, b, pm: [r(16, 8), i(30, 16), r(7, 8), r(8, 4),
+                                    r(4, 10), r(8, 2), r(2, 15)]),
+         [0, 2, 3, 4, 5, 6]),
+        ("ctc_loss", lambda F, *a: F.ctc_loss(*a), ctc_in, [0]),
+        ("rnnt_loss", lambda F, *a: F.rnnt_loss(*a), rnnt_in, [0]),
+        ("one_hot", lambda F, x: F.one_hot(x, 10),
+         mk(lambda r, u, i, b, pm: [i(11, 16) - 1]), []),
+        ("sequence_mask", lambda F, n: F.sequence_mask(n, 10, "float32"),
+         mk(lambda r, u, i, b, pm: [i(11, 16)]), []),
+        ("label_smooth", lambda F, y: F.label_smooth(y, epsilon=0.2),
+         mk(lambda r, u, i, b, pm: [sm(r(8, 10), -1)]), [0]),
+        ("edit_distance", lambda F, h, g, hl, rl: F.edit_distance(h, g, hl,
+                                                                  rl),
+         mk(lambda r, u, i, b, pm: [i(5, 8, 12), i(5, 8, 10), i(13, 8),
+                                    i(11, 8)]), []),
+        ("gather_tree", lambda F, x, p: F.gather_tree(x, p),
+         mk(lambda r, u, i, b, pm: [i(20, 12, 4, 5), i(5, 12, 4, 5)]), []),
+        ("normalize", lambda F, x: F.normalize(x),
+         mk(lambda r, u, i, b, pm: [r(8, 16)]), [0]),
+        ("cosine_similarity", lambda F, a, y: F.cosine_similarity(a, y, -1),
+         mk(lambda r, u, i, b, pm: [r(8, 16), r(8, 16)]), [0, 1]),
+        ("pairwise_distance", lambda F, a, y: F.pairwise_distance(a, y),
+         mk(lambda r, u, i, b, pm: [r(8, 16), r(8, 16)]), [0, 1]),
+        ("bilinear", lambda F, a, y, w, bb: F.bilinear(a, y, w, bb),
+         mk(lambda r, u, i, b, pm: [r(8, 6), r(8, 7), r(5, 6, 7), r(1, 5)]),
+         [0, 1, 2, 3]),
+        ("rms_norm", lambda F, x, w: F.rms_norm(x, w),
+         mk(lambda r, u, i, b, pm: [r(4, 12, 32), r(32)]), [0, 1]),
+        ("swiglu", lambda F, x: F.swiglu(x),
+         mk(lambda r, u, i, b, pm: [r(8, 32)]), [0]),
+        ("fused_softmax_mask", lambda F, x, m: F.fused_softmax_mask(x, m, 0.5),
+         mk(lambda r, u, i, b, pm: [r(2, 4, 16, 16),
+                                    (b(2, 1, 16, 16) * -1e4)]), [0]),
+        ("fused_softmax_mask_upper_triangle",
+         lambda F, x: F.fused_softmax_mask_upper_triangle(x),
+         mk(lambda r, u, i, b, pm: [r(2, 4, 16, 16)]), [0]),
+        ("sparse_attention",
+         lambda F, q, k, v, o, cc: F.sparse_attention(q, k, v, o, cc),
+         lambda g: [torch.randn(1, 2, 8, 16, generator=g) for _ in range(3)]
+         + csr(g), [0, 1, 2]),
+        ("prelu", lambda F, x, w: F.prelu(x, w),
+         mk(lambda r, u, i, b, pm: [r(4, 6, 5), u(.1, .5, 6)]), [0, 1]),
+        ("rrelu", lambda F, x: F.rrelu(x, training=False),
+         mk(lambda r, u, i, b, pm: [r(16, 8)]), [0]),
+        ("thresholded_relu", lambda F, x: F.thresholded_relu(x, 0.5),
+         mk(lambda r, u, i, b, pm: [r(16, 8)]), [0]),
+        ("tanh_shrink", lambda F, x: F.tanh_shrink(x),
+         mk(lambda r, u, i, b, pm: [r(16, 8)]), [0]),
+    ] + [(name, (lambda F, x, name=name: getattr(F, name)(x * 1.0)),
+          mk(lambda r, u, i, b, pm: [r(16, 8)]), [0])
+         for name in ("relu_", "elu_", "leaky_relu_", "hardtanh_",
+                      "softmax_", "tanh_", "thresholded_relu_")] + [
+        (f"{name}_eval", (lambda F, x, name=name: getattr(F, name)(
+            x, 0.3, training=False)),
+         mk(lambda r, u, i, b, pm: [r(4, 6, 3, 3, 2)]), [0])
+        for name in ("alpha_dropout", "feature_alpha_dropout", "dropout2d",
+                     "dropout3d")]
+
+
+def _seq_layer_cases(c, fn_inputs):
+    """(name, make(nn), call(layer, *xs), inputs(gen), grad indices) of
+    every layer of the slice; a loss layer takes its function's inputs
+    (``fn_inputs``)."""
+    import torch
+    rc = c["rnn"]
+    B, Tn, I, H = rc["B"], rc["T"], rc["I"], rc["H"]
+    tc = c["transformer"]
+    d = tc["d"]
+
+    def seq(g):
+        return [torch.randn(B, Tn, I, generator=g),
+                torch.randint(1, Tn + 1, (B,), generator=g)]
+
+    def dec_in(g):
+        s = tc["tgt"]
+        mask = torch.where(torch.ones(s, s, dtype=torch.bool).tril(), 0.0,
+                           -1e9)
+        return [torch.randn(tc["batch"], s, d, generator=g),
+                torch.randn(tc["batch"], tc["src"], d, generator=g), mask]
+
+    def x(*s):
+        return lambda g: [torch.randn(s, generator=g)]
+
+    def layer_of(cls, *args, fn=None, **kw):
+        return (cls, lambda nn: getattr(nn, cls)(*args, **kw),
+                lambda m, *xs: m(*xs), fn_inputs[fn], [0])
+    cases = [
+        ("SimpleRNNCell", lambda nn: nn.SimpleRNNCell(I, H),
+         lambda m, x: m(x), x(B, I), [0]),
+        ("LSTMCell", lambda nn: nn.LSTMCell(I, H),
+         lambda m, x: m(x), x(B, I), [0]),
+        ("GRUCell", lambda nn: nn.GRUCell(I, H), lambda m, x: m(x),
+         x(B, I), [0]),
+        ("RNN_lstm_lengths", lambda nn: nn.RNN(nn.LSTMCell(I, H)),
+         lambda m, x, s: m(x, sequence_length=s), seq, [0]),
+        ("BiRNN_gru_lengths",
+         lambda nn: nn.BiRNN(nn.GRUCell(I, H), nn.GRUCell(I, H)),
+         lambda m, x, s: m(x, sequence_length=s), seq, [0]),
+        ("SimpleRNN_2_layers", lambda nn: nn.SimpleRNN(I, H, num_layers=2),
+         lambda m, x, s: m(x), seq, [0]),
+        ("LSTM_bidirect_2_layers_lengths",
+         lambda nn: nn.LSTM(I, H, num_layers=2, direction="bidirect"),
+         lambda m, x, s: m(x, sequence_length=s), seq, [0]),
+        ("GRU_2_layers_lengths", lambda nn: nn.GRU(I, H, num_layers=2),
+         lambda m, x, s: m(x, sequence_length=s), seq, [0]),
+        ("TransformerDecoderLayer", lambda nn: nn.TransformerDecoderLayer(
+            d, tc["heads"], tc["ffn"], dropout=0.0),
+         lambda m, t, mem, msk: m(t, mem, tgt_mask=msk), dec_in, [0, 1]),
+        ("TransformerDecoder", lambda nn: nn.TransformerDecoder(
+            nn.TransformerDecoderLayer(d, tc["heads"], tc["ffn"],
+                                       dropout=0.0, normalize_before=True),
+            2, norm=nn.LayerNorm(d)),
+         lambda m, t, mem, msk: m(t, mem, tgt_mask=msk), dec_in, [0, 1]),
+        ("Transformer", lambda nn: nn.Transformer(
+            d, tc["heads"], 2, 2, tc["ffn"], dropout=0.0),
+         lambda m, t, mem, msk: m(mem, t, tgt_mask=msk), dec_in, [0, 1]),
+        layer_of("NLLLoss", fn="nll_loss"),
+        layer_of("BCELoss", fn="binary_cross_entropy"),
+        ("BCEWithLogitsLoss", lambda nn: nn.BCEWithLogitsLoss(),
+         lambda m, z, y, w, pw: m(z, y),
+         fn_inputs["binary_cross_entropy_with_logits"], [0]),
+        layer_of("KLDivLoss", "batchmean", fn="kl_div"),
+        layer_of("SmoothL1Loss", fn="smooth_l1_loss"),
+        layer_of("MarginRankingLoss", 0.1, fn="margin_ranking_loss"),
+        layer_of("CTCLoss", fn="ctc_loss"),
+        layer_of("RNNTLoss", fn="rnnt_loss"),
+        layer_of("CosineEmbeddingLoss", fn="cosine_embedding_loss"),
+        layer_of("HingeEmbeddingLoss", fn="hinge_embedding_loss"),
+        layer_of("MultiLabelSoftMarginLoss",
+                 fn="multi_label_soft_margin_loss"),
+        layer_of("MultiMarginLoss", fn="multi_margin_loss"),
+        layer_of("PoissonNLLLoss", fn="poisson_nll_loss"),
+        layer_of("GaussianNLLLoss", fn="gaussian_nll_loss"),
+        layer_of("SoftMarginLoss", fn="soft_margin_loss"),
+        layer_of("TripletMarginLoss", fn="triplet_margin_loss"),
+        layer_of("TripletMarginWithDistanceLoss",
+                 fn="triplet_margin_with_distance_loss"),
+        ("HSigmoidLoss", lambda nn: nn.HSigmoidLoss(8, 12),
+         lambda m, x, y, w, b: m(x, y), fn_inputs["hsigmoid_loss"], [0]),
+        ("AdaptiveLogSoftmaxWithLoss",
+         lambda nn: nn.AdaptiveLogSoftmaxWithLoss(8, 30, [5, 15]),
+         lambda m, x, y, *w: m(x, y),
+         fn_inputs["adaptive_log_softmax_with_loss"], [0]),
+        layer_of("CosineSimilarity", axis=-1, fn="cosine_similarity"),
+        layer_of("PairwiseDistance", fn="pairwise_distance"),
+        ("PReLU", lambda nn: nn.PReLU(6), lambda m, x: m(x),
+         x(4, 6, 5), [0]),
+        ("RReLU", lambda nn: nn.RReLU().eval(), lambda m, x: m(x),
+         x(16, 8), [0]),
+        ("ThresholdedReLU", lambda nn: nn.ThresholdedReLU(0.3),
+         lambda m, x: m(x), x(16, 8), [0]),
+        ("Softmax2D", lambda nn: nn.Softmax2D(), lambda m, x: m(x),
+         x(2, 5, 4, 4), [0]),
+        ("RMSNorm", lambda nn: nn.RMSNorm(32), lambda m, x: m(x),
+         x(4, 12, 32), [0]),
+        ("Bilinear", lambda nn: nn.Bilinear(6, 7, 5),
+         lambda m, a, y: m(a, y),
+         lambda g: [torch.randn(8, 6, generator=g),
+                    torch.randn(8, 7, generator=g)], [0, 1]),
+        ("Unflatten", lambda nn: nn.Unflatten(1, [4, 3]), lambda m, x: m(x),
+         x(4, 12, 2), [0]),
+        ("LayerDict", lambda nn: nn.LayerDict({"a": nn.Linear(8, 4)}),
+         lambda m, x: m["a"](x), x(16, 8), [0]),
+        ("ParameterDict", lambda nn: nn.ParameterDict(
+            {"w": nn.Linear(8, 4).weight}), lambda m, x: x @ m["w"],
+         x(16, 8), [0]),
+    ] + [(cls, (lambda nn, cls=cls: getattr(nn, cls)(0.3).eval()),
+          lambda m, x: m(x), x(4, 6, 3, 3, 2), [0])
+         for cls in ("AlphaDropout", "FeatureAlphaDropout", "Dropout2D",
+                     "Dropout3D")]
+    return cases
+
+
+def _seq_random_checks(device):
+    """The slice's random draws on ``device`` (a ``torch.Generator`` of the
+    card, not the reference's threefry): shape, support and moments."""
+    import torch
+    import paddle_tpu_torch as paddle
+    F = paddle.nn.functional
+    paddle.seed(1)
+    x = torch.randn(512, 64, generator=torch.Generator().manual_seed(3)) \
+        .to(device)
+    out = {}
+    y = F.rrelu(x, 0.1, 0.3, training=True)
+    slope = (y[x < 0] / x[x < 0])
+    out["rrelu"] = bool(torch.equal(y[x >= 0], x[x >= 0])) and \
+        0.1 - 1e-6 <= float(slope.min()) and float(slope.max()) < 0.3 + 1e-6
+    soft = F.gumbel_softmax(x, 0.5)
+    hard = F.gumbel_softmax(x, hard=True)
+    out["gumbel_softmax"] = bool((soft.sum(-1) - 1).abs().max() < 1e-5) and \
+        bool((hard.sum(-1) == 1).all())
+    lab = torch.tensor([3, 17, 3, 8, 29, 17], device=device)
+    remap, sampled = F.class_center_sample(lab, 40, 10)
+    out["class_center_sample"] = bool(torch.equal(sampled[remap], lab)) and \
+        len(set(sampled.tolist())) == 10
+    z = torch.randn(256, 64, 8, generator=torch.Generator().manual_seed(4)) \
+        .to(device)
+    for name in ("alpha_dropout", "feature_alpha_dropout"):
+        v = getattr(F, name)(z, 0.2)
+        out[name] = abs(float(v.mean())) < 0.03 and \
+            abs(float(v.var()) - 1) < 0.05
+    ones = torch.ones(16, 32, 2, 2, 2, device=device)
+    for name, view in (("dropout2d", ones[..., 0]), ("dropout3d", ones)):
+        v = getattr(F, name)(view, 0.25).reshape(16, 32, -1)
+        out[name] = bool(((v == 0).all(-1) | (v == 1 / 0.75).all(-1)).all())
+    return out
+
+
+def _seq2seq_model(paddle, vocab, d, heads, layers, ffn, dropout, length):
+    """Source and target Embeddings over one vocabulary, scaled by sqrt(d),
+    plus sinusoidal positions (a non-persistable buffer), ``nn.Transformer``
+    and a Linear to the vocabulary."""
+    import torch
+    nn = paddle.nn
+    pos = torch.arange(length, dtype=torch.float64)[:, None]
+    i = torch.arange(d)[None, :]
+    ang = pos / torch.pow(10000.0, (2 * (i // 2) / d).double())
+    table = torch.where(i % 2 == 0, torch.sin(ang), torch.cos(ang)).float()
+
+    class Seq2Seq(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.src_embed = nn.Embedding(vocab, d)
+            self.tgt_embed = nn.Embedding(vocab, d)
+            self.transformer = nn.Transformer(d, heads, layers, layers, ffn,
+                                              dropout=dropout)
+            self.head = nn.Linear(d, vocab)
+            self.register_buffer("pos", table.to(
+                self.head.weight.device), persistable=False)
+            self.scale = d ** 0.5
+
+        def forward(self, src, tgt, tgt_mask):
+            s = self.src_embed(src) * self.scale + self.pos[:src.shape[1]]
+            t = self.tgt_embed(tgt) * self.scale + self.pos[:tgt.shape[1]]
+            return self.head(self.transformer(s, t, tgt_mask=tgt_mask))
+    return Seq2Seq()
+
+
+def _smoothed_ce(F, logits, labels, vocab, eps):
+    """Label-smoothed cross-entropy: ``label_smooth`` of the one-hot
+    labels and ``softmax_with_cross_entropy(soft_label=True)``, the mean."""
+    soft = F.label_smooth(F.one_hot(labels, vocab), epsilon=eps)
+    return F.softmax_with_cross_entropy(logits, soft, soft_label=True).mean()
+
+
+def _lstm_lm_model(paddle, vocab, hidden, layers, dropout):
+    nn = paddle.nn
+
+    class LM(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(vocab, hidden)
+            self.rnn = nn.LSTM(hidden, hidden, num_layers=layers,
+                               dropout=dropout)
+            self.head = nn.Linear(hidden, vocab)
+
+        def forward(self, ids):
+            return self.head(self.rnn(self.embed(ids))[0])
+    return LM()
+
+
+def _stack_cell(nn, c1, c2):
+    """Two LSTM cells as one cell: ``cell(x, [s1, s2]) -> (h2, [s1',
+    s2'])``."""
+    class StackCell(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.c1, self.c2 = c1, c2
+
+        def forward(self, x, states):
+            h1, s1 = self.c1(x, states[0])
+            h2, s2 = self.c2(h1, states[1])
+            return h2, [s1, s2]
+    return StackCell()
+
+
+def _transformer_adam_step(c, device):
+    """One Adam step (NoamDecay) of a 2+2-layer seq2seq Transformer on
+    ``device`` and on the CPU from one state, fp32: (checks, parameter
+    entries left out as rounding noise)."""
+    import torch
+    import paddle_tpu_torch as paddle
+    tc = c["transformer"]
+    models, runs = {}, {}
+    gen = torch.Generator().manual_seed(c["seed"] + 1)
+    src = torch.randint(0, tc["vocab"], (tc["batch"], tc["src"]),
+                        generator=gen)
+    tgt = torch.randint(0, tc["vocab"], (tc["batch"], tc["tgt"] + 1),
+                        generator=gen)
+    for key, dev in (("cpu", "cpu"), ("dev", device)):
+        with _paddle_device(dev):
+            paddle.seed(0)
+            models[key] = _seq2seq_model(paddle, tc["vocab"], tc["d"],
+                                         tc["heads"], tc["layers"],
+                                         tc["ffn"], 0.0, 64)
+    models["dev"].set_state_dict(models["cpu"].state_dict())
+    for key, m in models.items():
+        dev = "cpu" if key == "cpu" else device
+        with _paddle_device(dev):
+            sched = paddle.optimizer.lr.NoamDecay(tc["d"], tc["warmup_steps"])
+            opt = paddle.optimizer.Adam(sched, 0.9, 0.98, 1e-9,
+                                        parameters=m.parameters())
+            mask = m.transformer.generate_square_subsequent_mask(tc["tgt"])
+            loss = _smoothed_ce(paddle.nn.functional,
+                                m(src.to(dev), tgt[:, :-1].to(dev), mask),
+                                tgt[:, 1:].to(dev), tc["vocab"], 0.1)
+            loss.backward()
+            grads = {n: p.grad.detach().clone()
+                     for n, p in m.named_parameters()}
+            opt.step()
+            runs[key] = (loss.detach(), grads,
+                         {n: p.detach() for n, p in m.named_parameters()})
+    tol = (NN_PARITY_TOL, NN_PARITY_FLOOR)
+    (gl, gg, gp), (cl, cg, cp) = runs["dev"], runs["cpu"]
+    checks = {"loss": _parity_bad(gl, cl, *tol)}
+    checks.update({f"grad_{n}": _parity_bad(gg[n], w, *tol)
+                   for n, w in cg.items()})
+    left_out = 0
+    for n, w in cp.items():
+        live = cg[n].abs() >= NN_SEQ_NOISE
+        left_out += int((~live & (cg[n] != 0)).sum())
+        if bool(live.any()):
+            checks[f"param_{n}"] = _parity_bad(gp[n].cpu()[live], w[live],
+                                               *tol)
+    return checks, left_out
+
+
+def phase_nn_seq_parity(cfg=None, device="cuda"):
+    """The sequence half of ``nn`` on ``device`` against the port on
+    the CPU, fp32 with TF32 off: every deterministic function of the slice
+    and every layer, forward and backward (outputs, input and parameter
+    gradients) by train_parity's rule at NN_PARITY_TOL (+ NN_PARITY_FLOOR),
+    among them a bidirectional 2-layer LSTM and a 2-layer GRU with
+    ``sequence_length``, ``ctc_loss`` and ``rnnt_loss`` with their
+    gradients; ``nn.utils`` (weight norm, spectral norm, the clips); one
+    Adam step of a 2+2-layer seq2seq Transformer (parameters held where the
+    CPU's gradient is above NN_SEQ_NOISE); the random draws held by shape,
+    support and moments on the card."""
+    import torch
+    import paddle_tpu_torch as paddle
+    c = cfg or NN_SEQ_PARITY
+    cuda = device == "cuda"
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    F = paddle.nn.functional
+    errs, failed = {}, {}
+    t0 = time.perf_counter()
+    try:
+        fn_cases = _seq_fn_cases(c)
+        fn_inputs = {name: make for name, _, make, _ in fn_cases}
+        for k, (name, call, make, grad) in enumerate(fn_cases):
+            xs = make(torch.Generator().manual_seed(c["seed"] + k))
+            got = _seq_pass(call, F, [x.to(device) for x in xs], grad)
+            want = _seq_pass(call, F, xs, grad)
+            checks = _seq_checks(got, want)
+            errs[name] = max([e for _, e in checks.values()], default=0.0)
+            bad = {k2: v for k2, v in checks.items() if v[0]}
+            if bad:
+                failed[name] = bad
+        layer_cases = _seq_layer_cases(c, fn_inputs)
+        for k, (name, make, call, inputs, grad) in enumerate(layer_cases):
+            built = {}
+            for key, dev in (("cpu", "cpu"), ("dev", device)):
+                with _paddle_device(dev):
+                    paddle.seed(0)
+                    built[key] = make(paddle.nn)
+            built["dev"].set_state_dict(built["cpu"].state_dict())
+            built["dev"].train(built["cpu"].training)
+            xs = inputs(torch.Generator().manual_seed(c["seed"] + 500 + k))
+            got = _seq_pass(call, built["dev"], [x.to(device) for x in xs],
+                            grad)
+            want = _seq_pass(call, built["cpu"], xs, grad)
+            checks = _seq_checks(got, want)
+            errs[name] = max([e for _, e in checks.values()], default=0.0)
+            bad = {k2: v for k2, v in checks.items() if v[0]}
+            if bad:
+                failed[name] = bad
+        # nn.utils: a weight-normed and a spectral-normed Linear, the clips
+        utils = {}
+        for name, wrap in (("weight_norm", lambda m: paddle.nn.utils
+                            .weight_norm(m, dim=1)),
+                           ("spectral_norm", lambda m: paddle.nn.utils
+                            .spectral_norm(m, n_power_iterations=2))):
+            built = {}
+            for key, dev in (("cpu", "cpu"), ("dev", device)):
+                with _paddle_device(dev):
+                    paddle.seed(0)
+                    built[key] = wrap(paddle.nn.Linear(24, 16))
+            built["dev"].set_state_dict(built["cpu"].state_dict())
+            xs = [torch.randn(8, 24, generator=torch.Generator()
+                              .manual_seed(c["seed"] + 900))]
+            call = (lambda m, x: m(x))
+            got = _seq_pass(call, built["dev"], [xs[0].to(device)], [0])
+            want = _seq_pass(call, built["cpu"], xs, [0])
+            utils[name] = _seq_checks(got, want)
+            grads = {key: [p.grad for p in m.parameters()]
+                     for key, m in built.items()}
+            for m in built.values():
+                paddle.nn.utils.clip_grad_norm_(m.parameters(), 0.5)
+                paddle.nn.utils.clip_grad_value_(m.parameters(), 0.01)
+            utils[name].update({f"clipped_{i}": _parity_bad(
+                g, grads["cpu"][i], NN_PARITY_TOL, NN_PARITY_FLOOR)
+                for i, g in enumerate(grads["dev"])})
+            utils[name]["to_vector"] = _parity_bad(
+                paddle.nn.utils.parameters_to_vector(
+                    built["dev"].parameters()),
+                paddle.nn.utils.parameters_to_vector(
+                    built["cpu"].parameters()), NN_PARITY_TOL, 0.0)
+            if name == "weight_norm":
+                for m in built.values():
+                    paddle.nn.utils.remove_weight_norm(m)
+                utils[name]["removed"] = _parity_bad(
+                    built["dev"].weight, built["cpu"].weight,
+                    NN_PARITY_TOL, NN_PARITY_FLOOR)
+        for name, checks in utils.items():
+            errs[name] = max(e for _, e in checks.values())
+            bad = {k2: v for k2, v in checks.items() if v[0]}
+            if bad:
+                failed[name] = bad
+        step_checks, left_out = _transformer_adam_step(c, device)
+        errs["transformer_adam_step"] = max(e for _, e in
+                                            step_checks.values())
+        bad = {k2: v for k2, v in step_checks.items() if v[0]}
+        if bad:
+            failed["transformer_adam_step"] = bad
+        random = _seq_random_checks(device)
+        failed.update({f"random_{k2}": v for k2, v in random.items()
+                       if not v})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    if failed:
+        raise AssertionError(f"nn_seq_parity: out of tolerance (entries, "
+                             f"max err): {failed}")
+    emit("nn_seq_parity", dtype="float32", tf32=False, tol=NN_PARITY_TOL,
+         floor=NN_PARITY_FLOOR, functions=len(fn_cases),
+         layers=len(layer_cases), max_abs_err=errs,
+         adam_step_noise_entries_left_out=left_out,
+         noise=NN_SEQ_NOISE, random_draws=random,
+         seconds=time.perf_counter() - t0,
+         nvidia_smi=_nvidia_smi() if cuda else None)
+
+
+def _seq_train_report(name, model, step, c, device, tokens):
+    """``warmup`` steps, then ``steps`` timed steps without a sync or a build
+    (``_train_steps_without_sync``), losses read after them (finite); ms a
+    step, tokens/s, and on the card one profiled step's busy and idle share
+    and its kernel launches."""
+    import torch
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    warm = [step() for _ in range(c["warmup"])]
+    if cuda:
+        torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    timed, step_s = _train_steps_without_sync(step, c["steps"], device)
+    losses = [float(v) for v in warm + timed]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"seq_models {name}: losses {losses}")
+    result = dict(warmup_s=warm_s, warmup_steps=c["warmup"],
+                  timed_steps=c["steps"],
+                  steps_checked_without_sync=c["steps"],
+                  builds_after_warmup=0, step_ms=step_s * 1e3,
+                  tokens_per_s=tokens / step_s, losses=losses,
+                  params=sum(p.numel() for p in model.parameters()),
+                  max_memory_allocated=torch.cuda.max_memory_allocated()
+                  if cuda else None)
+    if cuda:
+        prof = _profile_breakdown(step, step_s * 1e3, top=6)
+        prof["busy_share"] = 1 - prof["idle_share"]
+        result["profile"] = prof
+        result["launches_a_step"] = prof["launches"]
+    return result
+
+
+def _first_step_loss(models, loss_of, device, rows):
+    """The loss of ``rows`` of the batch on the card and on the CPU, the
+    models in eval (no dropout) and fp32 with TF32 off: (card, cpu)."""
+    import torch
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for dev, m in models.items():
+            m.eval()
+            with torch.no_grad():
+                out[dev] = float(loss_of(m, dev, rows))
+            m.train()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out[device], out["cpu"]
+
+
+def _beam_decode(paddle, lm, c, device, record):
+    """``dynamic_decode`` of a ``BeamSearchDecoder`` over ``lm``'s two
+    LSTM cells as one cell (``embedding_fn`` its Embedding, ``output_fn``
+    its Linear) from zero states: (ids, scores, lengths, the decoder)."""
+    import torch
+    nn = paddle.nn
+    cls = nn.BeamSearchDecoder
+    if record:
+        class Recording(nn.BeamSearchDecoder):
+            """Records each step's top ``beam + 1`` totals and the chosen
+            flat indices."""
+
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                self.trace = []
+
+            def _select(self, total):
+                vals, idx = torch.topk(total, self.beam_size + 1, dim=-1)
+                self.trace.append((vals, idx[:, :self.beam_size]))
+                return vals[:, :self.beam_size], idx[:, :self.beam_size]
+        cls = Recording
+    dec = cls(_stack_cell(nn, lm.rnn.cells[0], lm.rnn.cells[1]), c["start"],
+              c["end"], c["beam"], embedding_fn=lm.embed,
+              output_fn=lm.head)
+    h = lm.rnn.hidden_size
+    z = torch.zeros((c["batch"], h), device=device)
+    with torch.no_grad():
+        ids, scores, lens = nn.dynamic_decode(
+            dec, [(z, z), (z, z)], max_step_num=c["max_steps"],
+            return_length=True)
+    return ids, scores, lens, dec
+
+
+def _beam_compare(card, cpu, c):
+    """The card's beam search against the CPU's: rows whose choices agree
+    at every step must give equal ids and lengths and scores within
+    NN_PARITY_TOL; a row whose choice differs must show a near-tie (the
+    CPU's k-th and (k+1)-th totals, or two neighbours among the top
+    ``beam + 1``, within NEAR_TIE_REL relative) at its first differing
+    step.  Returns the readings and the failures."""
+    import torch
+    k = c["beam"]
+    trace_card = [(v.cpu(), i.cpu()) for v, i in card[3].trace]
+    trace_cpu = cpu[3].trace
+    steps = min(len(trace_card), len(trace_cpu))
+    near_k, near_any, diverged, fails = 0, 0, {}, []
+    for s in range(len(trace_cpu)):
+        v = trace_cpu[s][0]
+        gap = (v[:, :-1] - v[:, 1:]).abs() <= NEAR_TIE_REL * v[:, :-1].abs()
+        near_k += int(bool(gap[:, k - 1].any()))
+        near_any += int(bool(gap.any()))
+        if s >= steps:
+            continue
+        for b in torch.nonzero(~(trace_card[s][1] == trace_cpu[s][1])
+                               .all(-1)).flatten().tolist():
+            if b in diverged:
+                continue
+            diverged[b] = s
+            if not bool(gap[b].any()):
+                fails.append(f"row {b} chose otherwise at step {s} with no "
+                             f"near-tie (CPU totals {v[b].tolist()})")
+    same = [b for b in range(c["batch"]) if b not in diverged]
+    ids_eq = bool(torch.equal(card[0].cpu()[same], cpu[0][same]))
+    lens_eq = bool(torch.equal(card[2].cpu()[same], cpu[2][same]))
+    score = _parity_bad(card[1].cpu()[same], cpu[1][same], NN_PARITY_TOL)
+    if len(trace_card) != len(trace_cpu) and not diverged:
+        fails.append(f"{len(trace_card)} steps on the card, "
+                     f"{len(trace_cpu)} on the CPU")
+    if not ids_eq or not lens_eq or score[0]:
+        fails.append(f"rows {same}: ids equal {ids_eq}, lengths equal "
+                     f"{lens_eq}, scores {score}")
+    return dict(steps_card=len(trace_card), steps_cpu=len(trace_cpu),
+                near_tie_steps=near_k, near_tie_steps_any_rank=near_any,
+                rows_diverged_at_near_tie=diverged, rows_equal=len(same),
+                scores_max_abs_err=score[1],
+                lengths_card=card[2].cpu().tolist()), fails
+
+
+def phase_seq_models(cfg=None, device="cuda"):
+    """The sequence half of ``nn`` at full published width (SEQ_MODELS):
+    (a) the Transformer base trained under O1 bf16 with label smoothing and
+    Adam over NoamDecay, (b) the PTB-large LSTM language model trained in
+    fp32 with SGD and global-norm clipping, (c) beam search over (b)'s
+    cells.  Each model is built on the CPU from a seed and carried to the
+    card; the loss of ``parity_rows`` of the first batch (eval, fp32, TF32
+    off) on the card is held within NN_PARITY_TOL of the CPU's; then
+    ``warmup`` steps and ``steps`` timed steps with 0 builds and 0 syncs
+    (``_train_steps_without_sync``), every loss finite.  (c) runs on the
+    card and on the CPU from (b)'s first state (fp32, TF32 off): the ids,
+    scores and lengths agree but where a near-tie excuses a row
+    (``_beam_compare``); then a timed card run, its marked syncs (one a
+    step, the reference's own stop check)."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import observability as obs
+    cfg = cfg or SEQ_MODELS
+    cuda = device == "cuda"
+    F = paddle.nn.functional
+    t_phase = time.perf_counter()
+    # (a) the Transformer base
+    c = cfg["transformer"]
+    gen = torch.Generator().manual_seed(c["seed"])
+    src = torch.randint(0, c["vocab"], (c["batch"], c["src"]), generator=gen)
+    tgt = torch.randint(0, c["vocab"], (c["batch"], c["tgt"] + 1),
+                        generator=gen)
+    models = {}
+    for dev in ("cpu", device):
+        with _paddle_device(dev):
+            paddle.seed(c["seed"])
+            models[dev] = _seq2seq_model(
+                paddle, c["vocab"], c["d_model"], c["heads"], c["layers"],
+                c["ffn"], c["dropout"], max(c["src"], c["tgt"]))
+    models[device].set_state_dict(models["cpu"].state_dict())
+    masks = {}
+    for dev, m in models.items():
+        with _paddle_device(dev):
+            masks[dev] = m.transformer.generate_square_subsequent_mask(
+                c["tgt"])
+
+    def t_loss(m, dev, rows):
+        return _smoothed_ce(F, m(src[:rows].to(dev), tgt[:rows, :-1].to(dev),
+                                 masks[dev]),
+                            tgt[:rows, 1:].to(dev), c["vocab"],
+                            c["smoothing"])
+    card_l, cpu_l = _first_step_loss(models, t_loss, device,
+                                     c["parity_rows"])
+    if not abs(card_l - cpu_l) <= NN_PARITY_TOL * abs(cpu_l):
+        raise AssertionError(f"seq_models transformer: first-step loss "
+                             f"{card_l} on the card, {cpu_l} on the CPU")
+    model = models[device]
+    del models
+    gc.collect()
+    with _paddle_device(device):
+        sched = paddle.optimizer.lr.NoamDecay(c["d_model"],
+                                              c["warmup_steps"])
+        opt = paddle.optimizer.Adam(sched, 0.9, 0.98, 1e-9,
+                                    parameters=model.parameters())
+    src_d, tgt_in, tgt_out = (src.to(device), tgt[:, :-1].to(device),
+                              tgt[:, 1:].to(device))
+    mask = masks[device]
+
+    def t_step():
+        with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = _smoothed_ce(F, model(src_d, tgt_in, mask), tgt_out,
+                                c["vocab"], c["smoothing"])
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        return loss.detach()
+    tr = _seq_train_report("transformer", model, t_step, c, device,
+                           c["batch"] * c["tgt"])
+    emit("seq_models", part="transformer_base", config=(
+        "Vaswani et al. 2017 base: d_model 512, 8 heads, 6+6 layers, FFN "
+        "2048, dropout 0.1; shared 37000-token vocabulary (WMT14 En-De "
+        "BPE)"), vocab=c["vocab"], batch=c["batch"], src=c["src"],
+        tgt=c["tgt"], amp="O1 bfloat16", optimizer="Adam(0.9, 0.98, 1e-9)",
+        lr_schedule="NoamDecay(512, 4000)", label_smoothing=c["smoothing"],
+        parity_rows=c["parity_rows"], first_step_loss_card=card_l,
+        first_step_loss_cpu=cpu_l, parity_tol=NN_PARITY_TOL,
+        target_tokens_per_step=c["batch"] * c["tgt"], **tr,
+        nvidia_smi=_nvidia_smi() if cuda else None)
+    del model, opt, t_step
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    # (b) the PTB-large LSTM language model
+    c = cfg["lstm"]
+    gen = torch.Generator().manual_seed(c["seed"])
+    ids = torch.randint(0, c["vocab"], (c["batch"], c["unroll"] + 1),
+                        generator=gen)
+    lms = {}
+    for dev in ("cpu", device):
+        with _paddle_device(dev):
+            paddle.seed(c["seed"])
+            lms[dev] = _lstm_lm_model(paddle, c["vocab"], c["hidden"],
+                                      c["layers"], c["dropout"])
+    lms[device].set_state_dict(lms["cpu"].state_dict())
+
+    def lm_loss(m, dev, rows):
+        x = ids[:rows].to(dev)
+        return F.cross_entropy(m(x[:, :-1]).reshape([-1, c["vocab"]]),
+                               x[:, 1:].reshape([-1]))
+    card_l, cpu_l = _first_step_loss(lms, lm_loss, device, c["parity_rows"])
+    if not abs(card_l - cpu_l) <= NN_PARITY_TOL * abs(cpu_l):
+        raise AssertionError(f"seq_models lstm: first-step loss {card_l} on "
+                             f"the card, {cpu_l} on the CPU")
+    # (c) beam search from the first state, card against CPU, fp32
+    bc = cfg["beam"]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for m in lms.values():
+            m.eval()
+        beam_cpu = _beam_decode(paddle, lms["cpu"], bc, "cpu", True)
+        beam_card = _beam_decode(paddle, lms[device], bc, device, True)
+        beam, fails = _beam_compare(beam_card, beam_cpu, bc)
+        if cuda:
+            torch.cuda.synchronize()
+        syncs0 = obs.device_syncs()
+        t0 = time.perf_counter()
+        out = _beam_decode(paddle, lms[device], bc, device, False)
+        if cuda:
+            torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        steps = out[0].shape[-1]
+        beam.update(timed_steps=steps, ms_a_step=decode_s * 1e3 / steps,
+                    marked_syncs_a_step=(obs.device_syncs() - syncs0) / steps)
+        for m in lms.values():
+            m.train()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    if fails:
+        raise AssertionError(f"seq_models beam search: {fails}")
+    lm = lms[device]
+    del lms
+    gc.collect()
+    with _paddle_device(device):
+        opt = paddle.optimizer.SGD(
+            c["lr"], parameters=lm.parameters(),
+            grad_clip=paddle.nn.ClipGradByGlobalNorm(c["clip"]))
+    x_in, x_out = ids[:, :-1].to(device), ids[:, 1:].reshape([-1]).to(device)
+
+    def lm_step():
+        loss = F.cross_entropy(lm(x_in).reshape([-1, c["vocab"]]), x_out)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+    tr = _seq_train_report("lstm", lm, lm_step, c, device,
+                           c["batch"] * c["unroll"])
+    emit("seq_models", part="ptb_large_lstm", config=(
+        "Zaremba et al. 2014 large: Embedding(10000, 1500), LSTM 2 x 1500, "
+        "dropout 0.65, 35 unrolled steps, batch 20 (Paddle's PTB LM "
+        "example)"), dtype="float32", optimizer="SGD(1.0)",
+        grad_clip="ClipGradByGlobalNorm(10)", parity_rows=c["parity_rows"],
+        first_step_loss_card=card_l, first_step_loss_cpu=cpu_l,
+        parity_tol=NN_PARITY_TOL, **tr,
+        nvidia_smi=_nvidia_smi() if cuda else None)
+    emit("seq_models", part="beam_search", beam=bc["beam"],
+         batch=bc["batch"], max_step_num=bc["max_steps"],
+         near_tie_rel=NEAR_TIE_REL, dtype="float32", tf32=False, **beam,
+         seconds=time.perf_counter() - t_phase,
+         nvidia_smi=_nvidia_smi() if cuda else None)
+    del lm, opt, lm_step
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------- weight-only ---
 
 def _wo_counts():
@@ -9509,6 +10532,8 @@ def main() -> int:
     encoder_launches, _encoder_t = phase_encoder_train()
     hapi_launches = phase_hapi_fit()
     incubate = phase_incubate_paths()
+    phase_nn_seq_parity()
+    phase_seq_models()
     for key in ("attention", "attention_split"):
         launches[key] += incubate["decode"][key]
     # the flash kernels' launches on every training path: llama2_7b, GPT-2,

@@ -87,6 +87,17 @@ def clip_grad_norm_(parameters, max_norm, norm_type=2.0,
     ``norm_type`` norm is at most ``max_norm``; returns the total norm.
     After ``amp.GradScaler.unscale_`` a half-precision gradient is read
     and scaled as its float32 value, as the reference's is."""
+    return _clip_grad_norm(
+        parameters, max_norm, norm_type,
+        lambda total: max_norm / torch.clamp_min(total, 1e-6))
+
+
+def _clip_grad_norm(parameters, max_norm, norm_type, scale_of,
+                    error_if_nonfinite=False):
+    """The total ``norm_type`` norm of the gradients, each then scaled in
+    place by ``min(scale_of(total), 1)`` (``nn.clip_grad_norm_`` and
+    ``nn.utils.clip_grad_norm_`` differ only in ``scale_of``).  With
+    ``error_if_nonfinite`` the norm is read on the host (a marked sync)."""
     from ..amp import float32_grad, keep_float32_grad
     if torch.is_tensor(parameters):
         parameters = [parameters]
@@ -99,7 +110,12 @@ def clip_grad_norm_(parameters, max_norm, norm_type=2.0,
     else:
         total = torch.pow(sum(torch.sum(torch.pow(g.abs(), norm_type))
                               for g in grads), 1.0 / norm_type)
-    scale = torch.clamp_max(max_norm / torch.clamp_min(total, 1e-6), 1.0)
+    if error_if_nonfinite:
+        from ..observability import count_sync
+        count_sync()
+        if not bool(torch.isfinite(total)):
+            raise RuntimeError("non-finite total norm in clip_grad_norm_")
+    scale = torch.clamp_max(scale_of(total), 1.0)
     for p, g in zip(params, grads):
         g.mul_(scale)
         if g is not p.grad:

@@ -526,14 +526,786 @@ def flash_attn_varlen_qkvpacked(qkv, cu_seqlens_q, cu_seqlens_k,
     return out, None
 
 
+
+# ================= the sequence half of nn.functional =================
+#
+# The reference's remaining functions outside the spatial ops
+# (``paddle_tpu/nn/functional.py``), each with the reference's arithmetic
+# and its op name given to the autocast rule.  None reaches a Pallas kernel
+# in the reference: ``ctc_loss`` (:1231) and ``rnnt_loss`` (:1112) are
+# ``lax.scan``s, the rest plain ``jnp``.  Random draws (``rrelu`` in
+# training, ``gumbel_softmax``, ``class_center_sample``, the alpha
+# dropouts) come from the device's ``torch.Generator``, not threefry.
+
+_NEG = -1e30
+
+
+def _gen(x):
+    return generator(x.device)
+
+
+# ---------------- activations ----------------
+
+def prelu(x, weight, data_format="NCHW", name=None):
+    """``where(x >= 0, x, w * x)``; a weight of more than one entry runs
+    along dim 1 for "NCHW" and along the last dim for every other
+    ``data_format`` (the reference's rule, "NCL" included)."""
+    x, weight = _amp("prelu", x, weight)
+    if weight.numel() > 1:
+        shape = [1] * x.ndim
+        shape[1 if data_format == "NCHW" else x.ndim - 1] = weight.numel()
+        weight = weight.reshape(shape)
+    return torch.where(x >= 0, x, weight * x)
+
+
+def thresholded_relu(x, threshold=1.0, value=0.0, name=None):
+    (x,) = _amp("thresholded_relu", x)
+    return torch.where(x > threshold, x, value)
+
+
+tanh_shrink = tanhshrink
+
+
+def rrelu(x, lower=1.0 / 8, upper=1.0 / 3, training=True, name=None):
+    """Randomized leaky ReLU: in training each negative entry's slope is
+    drawn uniformly from ``[lower, upper)`` (float32, then x's dtype); in
+    eval the slope is ``(lower + upper) / 2``."""
+    (x,) = _amp("rrelu", x)
+    if not training:
+        return torch.where(x >= 0, x, (lower + upper) / 2.0 * x)
+    alpha = torch.rand(x.shape, device=x.device, generator=_gen(x)) * \
+        (upper - lower) + lower
+    return torch.where(x >= 0, x, alpha.to(x.dtype) * x)
+
+
+def gumbel_softmax(x, temperature=1.0, hard=False, axis=-1, name=None):
+    """``softmax((x + g) / temperature)`` with Gumbel noise ``g``; ``hard``
+    gives the one-hot of the argmax with the soft gradient (the reference's
+    two straight-through lines, as written)."""
+    (x,) = _amp("gumbel_softmax", x)
+    tiny = torch.finfo(x.dtype).tiny
+    u = torch.rand(x.shape, device=x.device, generator=_gen(x),
+                   dtype=x.dtype).clamp_min(tiny)
+    g = -torch.log(-torch.log(u))
+    y = torch.softmax((x + g) / temperature, dim=axis)
+    if hard:
+        idx = torch.argmax(y, dim=axis, keepdim=True)
+        y_hard = torch.zeros_like(y).scatter(axis, idx, 1.0)
+        y = y_hard + (-y).detach() + y
+        y = y_hard - y.detach() + y
+    return y
+
+
+def _inplace(fn, fname):
+    def act_(x, *args, **kwargs):
+        out = fn(x.clone(), *args, **kwargs)
+        if x.is_leaf and x.requires_grad:
+            with torch.no_grad():
+                return x.copy_(out)
+        return x.copy_(out)
+    act_.__name__ = act_.__qualname__ = fname
+    act_.__doc__ = (f"``{fn.__name__}`` written into ``x`` (returns "
+                    "``x``).  A leaf that requires grad takes the value "
+                    "outside autograd, as the reference swaps a tensor's "
+                    "data.")
+    return act_
+
+
+relu_ = _inplace(relu, "relu_")
+elu_ = _inplace(elu, "elu_")
+hardtanh_ = _inplace(hardtanh, "hardtanh_")
+leaky_relu_ = _inplace(leaky_relu, "leaky_relu_")
+softmax_ = _inplace(softmax, "softmax_")
+tanh_ = _inplace(tanh, "tanh_")
+thresholded_relu_ = _inplace(thresholded_relu, "thresholded_relu_")
+
+
+def swiglu(x, y=None, name=None):
+    """``silu(x) * y``; without ``y`` x is split in half on its last
+    dim."""
+    if y is None:
+        (x,) = _amp("swiglu", x)
+        x, y = torch.chunk(x, 2, dim=-1)
+    else:
+        x, y = _amp("swiglu", x, y)
+    return TF.silu(x) * y
+
+
+def fused_softmax_mask(x, mask, scale=1.0, name=None):
+    """``softmax(x * scale + mask)`` in float32, back in x's dtype."""
+    x, mask = _amp("fused_softmax_mask", x, mask)
+    return torch.softmax(x.float() * scale + mask.float(), dim=-1).to(x.dtype)
+
+
+def fused_softmax_mask_upper_triangle(x, name=None):
+    """Softmax with the entries above the (bottom-right aligned) diagonal
+    at -1e30, in float32."""
+    (x,) = _amp("fused_softmax_mask_upper_triangle", x)
+    t_q, t_k = x.shape[-2], x.shape[-1]
+    keep = torch.ones((t_q, t_k), dtype=torch.bool,
+                      device=x.device).tril(t_k - t_q)
+    return torch.softmax(torch.where(keep, x.float(), _NEG),
+                         dim=-1).to(x.dtype)
+
+
+# ---------------- dropouts ----------------
+
+def dropout2d(x, p=0.5, training=True, data_format="NCHW", name=None):
+    axis = (0, 1) if data_format == "NCHW" else (0, 3)
+    return dropout(x, p=p, axis=axis, training=training)
+
+
+def dropout3d(x, p=0.5, training=True, data_format="NCDHW", name=None):
+    axis = (0, 1) if data_format == "NCDHW" else (0, 4)
+    return dropout(x, p=p, axis=axis, training=training)
+
+
+def _alpha_keep(p):
+    alpha_p = -1.6732632423543772 * 1.0507009873554805
+    keep = 1.0 - p
+    a = (keep + alpha_p ** 2 * keep * (1 - keep)) ** -0.5
+    return alpha_p, keep, a, -a * alpha_p * (1 - keep)
+
+
+def alpha_dropout(x, p=0.5, training=True, name=None):
+    """Dropout that keeps SELU's mean and variance: dropped entries take
+    ``-alpha * scale``, then ``a * x + b``."""
+    if not training or p == 0.0:
+        return x
+    (x,) = _amp("alpha_dropout", x)
+    alpha_p, keep, a, b = _alpha_keep(p)
+    mask = _keep_mask(tuple(x.shape), keep, x.device)
+    return a * torch.where(mask, x, alpha_p) + b
+
+
+def feature_alpha_dropout(x, p=0.5, training=True, name=None):
+    """Alpha dropout of whole channels (dim 1)."""
+    if not training or p == 0.0:
+        return x
+    (x,) = _amp("feature_alpha_dropout", x)
+    alpha_p, keep, a, b = _alpha_keep(p)
+    shape = (x.shape[0], x.shape[1]) + (1,) * (x.ndim - 2)
+    mask = _keep_mask(shape, keep, x.device)
+    return a * torch.where(mask, x, alpha_p) + b
+
+
+# ---------------- sequence utilities ----------------
+
+def one_hot(x, num_classes, name=None):
+    """float32 one-hot rows; an id outside ``[0, num_classes)`` gives a row
+    of zeros, as ``jax.nn.one_hot`` does."""
+    return (x[..., None] == torch.arange(int(num_classes),
+                                         device=x.device)).float()
+
+
+def bilinear(x1, x2, weight, bias=None, name=None):
+    """``out[b, o] = x1[b] @ weight[o] @ x2[b] (+ bias)``."""
+    x1, x2, weight, bias = _amp("bilinear", x1, x2, weight, bias)
+    out = torch.einsum("bi,oij,bj->bo", x1, weight, x2)
+    return out if bias is None else out + bias
+
+
+def rms_norm(x, weight, epsilon=1e-6, name=None):
+    """``x * rsqrt(mean(x^2) + eps) * weight``, the mean in float32 and the
+    scale cast to x's dtype."""
+    x, weight = _amp("rms_norm", x, weight)
+    var = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + epsilon).to(x.dtype)) * weight
+
+
+def _vnorm(a, p, dim, keepdim=False):
+    return torch.linalg.vector_norm(a, ord=p, dim=dim, keepdim=keepdim)
+
+
+def normalize(x, p=2, axis=1, epsilon=1e-12, name=None):
+    (x,) = _amp("normalize", x)
+    return x / torch.clamp_min(_vnorm(x, p, axis, True), epsilon)
+
+
+def cosine_similarity(x1, x2, axis=1, eps=1e-8):
+    x1, x2 = _amp("cosine_similarity", x1, x2)
+    num = torch.sum(x1 * x2, dim=axis)
+    return num / torch.clamp_min(_vnorm(x1, 2, axis) * _vnorm(x2, 2, axis),
+                                 eps)
+
+
+def pairwise_distance(x, y, p=2.0, epsilon=1e-6, keepdim=False, name=None):
+    """The ``p``-norm of ``x - y + epsilon`` over the last dim (``p`` 0
+    counts the nonzero entries, inf takes the largest)."""
+    x, y = _amp("pairwise_distance", x, y)
+    d = x - y + epsilon
+    if p == float("inf"):
+        return torch.amax(d.abs(), dim=-1, keepdim=keepdim)
+    if p == 0.0:
+        return torch.sum((d != 0).to(d.dtype), dim=-1, keepdim=keepdim)
+    return torch.sum(d.abs() ** p, dim=-1, keepdim=keepdim) ** (1.0 / p)
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):
+    """``(1 - epsilon) * label + epsilon / n``.  ``prior_dist`` is accepted
+    and ignored, as in the reference (``nn/functional.py:1407``)."""
+    (label,) = _amp("label_smooth", label)
+    return (1 - epsilon) * label + epsilon / label.shape[-1]
+
+
+def sequence_mask(x, maxlen=None, dtype="int64", name=None):
+    """``arange(maxlen) < x[..., None]`` in ``dtype``; without ``maxlen``
+    the largest length is read on the host (one marked sync)."""
+    from .. import dtypes
+    if maxlen is None:
+        from ..observability import count_sync
+        count_sync()
+        maxlen = int(x.max())
+    out = torch.arange(int(maxlen), device=x.device) < x[..., None]
+    return out.to(dtypes.convert_dtype(dtype))
+
+
+def gather_tree(ids, parents):
+    """Beam-search backtrace over ``[max_time, batch, beam]`` ids and
+    parents: from the last step back, each beam's token and then its
+    parent."""
+    T, B, W = ids.shape
+    sel = torch.arange(W, device=ids.device, dtype=parents.dtype).expand(B, W)
+    outs = [None] * T
+    for t in range(T - 1, -1, -1):
+        outs[t] = torch.gather(ids[t], 1, sel.long())
+        sel = torch.gather(parents[t], 1, sel.long())
+    return torch.stack(outs)
+
+
+def edit_distance(hyps, refs, hyp_lengths, ref_lengths, normalized=True,
+                  name=None):
+    """Batched Levenshtein distance over padded ``[B, maxH]`` / ``[B,
+    maxR]`` ids: ``([B] distances, [1] int64 count)``, the distance divided
+    by the reference's length when ``normalized``.  One DP row a hypothesis
+    position; the left-to-right minimum of a row is a running minimum of
+    ``m[k] - k`` (exact on these small integers)."""
+    B, maxH = hyps.shape
+    maxR = refs.shape[1]
+    dev = hyps.device
+    hl, rl = hyp_lengths.long(), ref_lengths.long()
+    j = torch.arange(maxR + 1, device=dev, dtype=torch.float32)
+    row = j.expand(B, maxR + 1)
+    for i in range(maxH):
+        sub = (hyps[:, i:i + 1] != refs).float()
+        m = torch.minimum(row[:, :-1] + sub, row[:, 1:] + 1.0)
+        m = torch.cat([torch.full((B, 1), i + 1.0, device=dev), m], dim=1)
+        new = torch.cummin(m - j, dim=1).values + j
+        row = torch.where((i < hl)[:, None], new, row)
+    dist = torch.gather(row, 1, rl[:, None])[:, 0]
+    if normalized:
+        dist = dist / torch.clamp_min(rl.float(), 1.0)
+    return dist, torch.full((1,), B, dtype=torch.int64, device=dev)
+
+
+def sparse_attention(query, key, value, sparse_csr_offset, sparse_csr_columns,
+                     key_padding_mask=None, attn_mask=None, name=None):
+    """Attention of ``[b, h, s, d]`` tensors over the CSR layout's nonzeros
+    (``offset`` ``[b, h, s + 1]``, ``columns`` ``[b, h, nnz]``): the layout
+    becomes a dense mask (others at -1e9) and the softmax and products run
+    in float32; ``key_padding_mask`` and ``attn_mask`` are ignored, as in
+    the reference (``nn/functional.py:2248``)."""
+    q, k, v = _amp("sparse_attention", query, key, value)
+    b, h, s, d = q.shape
+    off, cols = sparse_csr_offset.long(), sparse_csr_columns.long()
+    nnz = cols.shape[-1]
+    i = torch.arange(nnz, device=q.device).expand(b, h, nnz).contiguous()
+    r = torch.searchsorted(off.contiguous(), i, right=True) - 1
+    valid = i < off[..., -1:]
+    mask = torch.zeros((b, h, s + 1, s + 1), dtype=torch.bool,
+                       device=q.device)
+    bi = torch.arange(b, device=q.device)[:, None, None].expand(b, h, nnz)
+    hi = torch.arange(h, device=q.device)[None, :, None].expand(b, h, nnz)
+    mask[bi, hi, torch.where(valid, r, s), torch.where(valid, cols, s)] = True
+    mask = mask[..., :s, :s]
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * \
+        (1.0 / math.sqrt(d))
+    probs = torch.softmax(torch.where(mask, scores, -1e9), dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
+
+
+# ---------------- losses ----------------
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False, axis=-1):
+    """The per-entry cross-entropy (``reduction="none"``) with ``axis``
+    kept as a dim of 1; with ``return_softmax`` also the softmax."""
+    loss = cross_entropy(logits, label, soft_label=soft_label,
+                         ignore_index=ignore_index, reduction="none",
+                         axis=axis).unsqueeze(axis)
+    if return_softmax:
+        return loss, softmax(logits, axis=axis)
+    return loss
+
+
+def nll_loss(input, label, weight=None, ignore_index=-100,  # noqa: A002
+             reduction="mean", name=None):
+    """``-input[n, label[n], ...]`` over dim 1, ``ignore_index`` skipped (a
+    weighted mean divides by the kept entries' weights)."""
+    logp, label, weight = _amp("nll_loss", input, label, weight)
+    lab = label.long()
+    valid = lab != ignore_index
+    safe = torch.where(valid, lab, 0)
+    picked = torch.gather(logp, 1, safe.unsqueeze(1)).squeeze(1)
+    loss = torch.where(valid, -picked, 0.0)
+    if weight is not None:
+        wt = weight[safe]
+        loss = loss * wt
+        if reduction == "mean":
+            return loss.sum() / torch.clamp_min(
+                torch.where(valid, wt, 0.0).sum(), 1e-10)
+    return _reduce_loss(loss, reduction)
+
+
+def smooth_l1_loss(input, label, reduction="mean", delta=1.0,  # noqa: A002
+                   name=None):
+    a, b = _amp("smooth_l1", input, label)
+    d = torch.abs(a - b)
+    loss = torch.where(d < delta, 0.5 * d * d / delta, d - 0.5 * delta)
+    return _reduce_loss(loss, reduction)
+
+
+def huber_loss(input, label, delta=1.0, reduction="mean",  # noqa: A002
+               name=None):
+    a, b = _amp("huber_loss", input, label)
+    diff = a - b
+    ad = diff.abs()
+    loss = torch.where(ad <= delta, 0.5 * diff * diff,
+                       delta * (ad - 0.5 * delta))
+    return _reduce_loss(loss, reduction)
+
+
+def binary_cross_entropy(input, label, weight=None,  # noqa: A002
+                         reduction="mean", name=None):
+    p, y, weight = _amp("bce", input, label, weight)
+    p = torch.clamp(p, 1e-12, 1 - 1e-12)
+    loss = -(y * torch.log(p) + (1 - y) * torch.log(1 - p))
+    if weight is not None:
+        loss = loss * weight
+    return _reduce_loss(loss, reduction)
+
+
+def binary_cross_entropy_with_logits(logit, label, weight=None,
+                                     reduction="mean", pos_weight=None,
+                                     name=None):
+    z, y, weight, pos_weight = _amp("bce_logits", logit, label, weight,
+                                    pos_weight)
+    max_val = torch.clamp_min(-z, 0.0)
+    soft = torch.log1p(torch.exp(-z.abs()))
+    if pos_weight is not None:
+        loss = (1 - y) * z + ((pos_weight - 1) * y + 1) * (soft + max_val)
+    else:
+        loss = (1 - y) * z + soft + max_val
+    if weight is not None:
+        loss = loss * weight
+    return _reduce_loss(loss, reduction)
+
+
+def sigmoid_focal_loss(logit, label, normalizer=None, alpha=0.25, gamma=2.0,
+                       reduction="sum", name=None):
+    z, y, normalizer = _amp("sigmoid_focal", logit, label, normalizer)
+    p = torch.sigmoid(z)
+    ce = torch.clamp_min(z, 0) - z * y + torch.log1p(torch.exp(-z.abs()))
+    p_t = p * y + (1 - p) * (1 - y)
+    a_t = alpha * y + (1 - alpha) * (1 - y)
+    loss = a_t * torch.pow(1 - p_t, gamma) * ce
+    if normalizer is not None:
+        loss = loss / normalizer
+    return _reduce_loss(loss, reduction)
+
+
+def kl_div(input, label, reduction="mean", log_target=False,  # noqa: A002
+           name=None):
+    logp, tgt = _amp("kl_div", input, label)
+    if log_target:
+        loss = torch.exp(tgt) * (tgt - logp)
+    else:
+        loss = tgt * (torch.log(torch.clamp_min(tgt, 1e-30)) - logp)
+    if reduction == "batchmean":
+        return loss.sum() / logp.shape[0]
+    return _reduce_loss(loss, reduction)
+
+
+def margin_ranking_loss(input, other, label, margin=0.0,  # noqa: A002
+                        reduction="mean", name=None):
+    a, b, y = _amp("margin_ranking", input, other, label)
+    return _reduce_loss(torch.clamp_min(-y * (a - b) + margin, 0.0),
+                        reduction)
+
+
+def cosine_embedding_loss(input1, input2, label, margin=0.0,
+                          reduction="mean", name=None):
+    a, b, y = _amp("cosine_embedding", input1, input2, label)
+    cos = torch.sum(a * b, dim=1) / torch.clamp_min(
+        _vnorm(a, 2, 1) * _vnorm(b, 2, 1), 1e-8)
+    loss = torch.where(y == 1, 1 - cos, torch.clamp_min(cos - margin, 0.0))
+    return _reduce_loss(loss, reduction)
+
+
+def triplet_margin_loss(input, positive, negative, margin=1.0,  # noqa: A002
+                        p=2.0, epsilon=1e-6, swap=False, reduction="mean",
+                        name=None):
+    a, pos, neg = _amp("triplet_margin", input, positive, negative)
+    dp = _vnorm(a - pos + epsilon, p, -1)
+    dn = _vnorm(a - neg + epsilon, p, -1)
+    if swap:
+        dn = torch.minimum(dn, _vnorm(pos - neg + epsilon, p, -1))
+    return _reduce_loss(torch.clamp_min(dp - dn + margin, 0.0), reduction)
+
+
+def triplet_margin_with_distance_loss(input, positive, negative,  # noqa: A002
+                                      distance_function=None, margin=1.0,
+                                      swap=False, reduction="mean",
+                                      name=None):
+    """``max(0, d(a, p) - d(a, n) + margin)``, ``d`` by default the 2-norm
+    of the difference over the last dim (no epsilon)."""
+    a, pos, neg = _amp("triplet_margin_with_distance_loss", input, positive,
+                       negative)
+    dist = distance_function if distance_function is not None else \
+        (lambda u, w: _vnorm(u - w, 2, -1))
+    d_pos, d_neg = dist(a, pos), dist(a, neg)
+    if swap:
+        d_neg = torch.minimum(d_neg, dist(pos, neg))
+    return _reduce_loss(torch.clamp_min(d_pos - d_neg + margin, 0.0),
+                        reduction)
+
+
+def hinge_embedding_loss(input, label, margin=1.0,  # noqa: A002
+                         reduction="mean", name=None):
+    a, y = _amp("hinge_embedding", input, label)
+    loss = torch.where(y == 1, a, torch.clamp_min(margin - a, 0.0))
+    return _reduce_loss(loss, reduction)
+
+
+def square_error_cost(input, label):  # noqa: A002
+    a, b = _amp("square_error_cost", input, label)
+    return torch.square(a - b)
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):  # noqa: A002
+    p, y = _amp("log_loss", input, label)
+    return -y * torch.log(p + epsilon) - (1.0 - y) * torch.log(
+        1.0 - p + epsilon)
+
+
+def soft_margin_loss(input, label, reduction="mean", name=None):  # noqa: A002
+    a, y = _amp("soft_margin_loss", input, label)
+    return _reduce_loss(torch.log1p(torch.exp(-y * a)), reduction)
+
+
+def multi_label_soft_margin_loss(input, label, weight=None,  # noqa: A002
+                                 reduction="mean", name=None):
+    a, y, weight = _amp("multi_label_soft_margin_loss", input, label, weight)
+    loss = -(y * TF.logsigmoid(a) + (1 - y) * TF.logsigmoid(-a))
+    if weight is not None:
+        loss = loss * weight
+    return _reduce_loss(loss.mean(dim=-1), reduction)
+
+
+def multi_margin_loss(input, label, p=1, margin=1.0, weight=None,  # noqa: A002
+                      reduction="mean", name=None):
+    a, weight = _amp("multi_margin_loss", input, weight)
+    n, c = a.shape
+    y = label.long()
+    correct = a[torch.arange(n, device=a.device), y][:, None]
+    m = torch.clamp_min(margin - correct + a, 0.0)
+    if p != 1:
+        m = m ** p
+    if weight is not None:
+        m = m * weight[y][:, None]
+    mask = 1.0 - one_hot(y, c).to(a.dtype)
+    return _reduce_loss((m * mask).sum(dim=1) / c, reduction)
+
+
+def poisson_nll_loss(input, label, log_input=True, full=False,  # noqa: A002
+                     epsilon=1e-8, reduction="mean", name=None):
+    a, y = _amp("poisson_nll_loss", input, label)
+    if log_input:
+        loss = torch.exp(a) - y * a
+    else:
+        loss = a - y * torch.log(a + epsilon)
+    if full:
+        stirling = y * torch.log(y + epsilon) - y + \
+            0.5 * torch.log(2 * math.pi * (y + epsilon))
+        loss = loss + torch.where(y > 1, stirling, 0.0)
+    return _reduce_loss(loss, reduction)
+
+
+def gaussian_nll_loss(input, label, variance, full=False,  # noqa: A002
+                      epsilon=1e-6, reduction="mean", name=None):
+    a, y, var = _amp("gaussian_nll_loss", input, label, variance)
+    var = torch.clamp_min(var, epsilon)
+    loss = 0.5 * (torch.log(var) + (a - y) ** 2 / var)
+    if full:
+        loss = loss + 0.5 * torch.log(torch.full((), 2 * math.pi,
+                                                 dtype=a.dtype,
+                                                 device=a.device))
+    return _reduce_loss(loss, reduction)
+
+
+def dice_loss(input, label, epsilon=1e-5, name=None):  # noqa: A002
+    """``mean(1 - (2 |X n Y| + eps) / (|X| + |Y| + eps))`` over the
+    flattened non-batch dims; integer labels of another shape than the
+    input are one-hot over its last dim."""
+    (a,) = _amp("dice_loss", input)
+    n = a.shape[0]
+    if tuple(label.shape) != tuple(a.shape):
+        yf = one_hot(label.reshape(n, -1), a.shape[-1]).to(a.dtype)
+    else:
+        yf = label.reshape(n, -1)
+    af, yf = a.reshape(n, -1), yf.reshape(n, -1)
+    inter = (af * yf).sum(dim=1)
+    union = af.sum(dim=1) + yf.sum(dim=1)
+    return torch.mean(1.0 - (2 * inter + epsilon) / (union + epsilon))
+
+
+def npair_loss(anchor, positive, labels, l2_reg=0.002):
+    a, p = _amp("npair_loss", anchor, positive)
+    sim = a @ p.T
+    tgt = (labels[:, None] == labels[None, :]).to(a.dtype)
+    tgt = tgt / tgt.sum(dim=1, keepdim=True)
+    ce = -(torch.log_softmax(sim, dim=1) * tgt).sum(dim=1).mean()
+    l2 = (torch.sum(a * a) + torch.sum(p * p)) / a.shape[0]
+    return ce + l2_reg * l2 * 0.25
+
+
+def margin_cross_entropy(logits, label, margin1=1.0, margin2=0.5, margin3=0.0,
+                         scale=64.0, group=None, return_softmax=False,
+                         reduction="mean"):
+    """ArcFace-style margin softmax cross-entropy over cosine logits: the
+    target's logit becomes ``cos(margin1 * theta + margin2) - margin3``,
+    all scaled by ``scale``, in float32.  ``group`` (classes sharded over
+    ranks) raises until the port's distributed module (``ROADMAP.md`` item
+    18)."""
+    if group is not None:
+        raise NotImplementedError("margin_cross_entropy(group=...) waits "
+                                  "for the port's distributed module")
+    (lg,) = _amp("margin_cross_entropy", logits)
+    cos = torch.clamp(lg.float(), -1.0, 1.0)
+    tgt = torch.cos(margin1 * torch.arccos(cos) + margin2) - margin3
+    onehot = one_hot(label, lg.shape[-1])
+    out = torch.where(onehot > 0, tgt, cos) * scale
+    loss = torch.logsumexp(out, dim=-1) - torch.sum(out * onehot, dim=-1)
+    loss = _reduce_loss(loss, reduction)
+    if return_softmax:
+        return loss, torch.softmax(out, dim=-1)
+    return loss
+
+
+def class_center_sample(label, num_classes, num_samples, group=None):
+    """``num_samples`` class centres, the batch's positive classes first,
+    each group in random order, returned sorted with the labels remapped
+    to their positions among them (a label left out maps to
+    ``num_samples - 1``).  ``group`` raises as in
+    :func:`margin_cross_entropy`."""
+    if group is not None:
+        raise NotImplementedError("class_center_sample(group=...) waits "
+                                  "for the port's distributed module")
+    pos = torch.zeros((num_classes,), dtype=torch.float32,
+                      device=label.device)
+    pos[label.long()] = 1.0
+    noise = torch.rand((num_classes,), device=label.device,
+                       generator=_gen(label))
+    rank = torch.argsort(-pos + noise * 0.5)
+    sampled = torch.sort(rank[:num_samples]).values.to(label.dtype)
+    idx = torch.searchsorted(sampled, label.contiguous())
+    idx_c = torch.clamp(idx, 0, num_samples - 1)
+    found = sampled[idx_c] == label
+    return torch.where(found, idx_c, num_samples - 1).to(label.dtype), sampled
+
+
+def hsigmoid_loss(input, label, num_classes, weight, bias=None,  # noqa: A002
+                  path_table=None, path_code=None, is_sparse=False,
+                  name=None):
+    """Hierarchical sigmoid, the per-sample ``[N, 1]`` loss in float32.
+    Without ``path_table`` / ``path_code`` class c's path is the binary
+    expansion of ``c + num_classes`` from the root (internal node ``(code
+    >> k) - 1``); a custom tree gives node ids (negative: padding) and bits
+    a sample."""
+    x, weight, bias = _amp("hsigmoid_loss", input, weight, bias)
+    xf = x.float()
+
+    def node_loss(node, bit, valid):
+        nw = weight[torch.clamp(node, 0, weight.shape[0] - 1)].float()
+        logit = torch.einsum("bd,bd->b", xf, nw)
+        if bias is not None:
+            logit = logit + bias[torch.clamp(node, 0,
+                                             bias.shape[0] - 1)].float()
+        bce = torch.clamp_min(logit, 0) - logit * bit + \
+            torch.log1p(torch.exp(-logit.abs()))
+        return torch.where(valid, bce, 0.0)
+
+    total = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+    if path_table is not None and path_code is not None:
+        for k in range(path_table.shape[1]):
+            node = path_table[:, k].long()
+            total = total + node_loss(node, path_code[:, k].float(),
+                                      node >= 0)
+    else:
+        depth = max(1, int(math.ceil(math.log2(max(2, num_classes)))))
+        code = label.long() + num_classes
+        for k in range(depth, 0, -1):
+            node = (code >> k) - 1
+            bit = ((code >> (k - 1)) & 1).float()
+            total = total + node_loss(node, bit, node >= 0)
+    return total[:, None]
+
+
+def adaptive_log_softmax_with_loss(input, label, head_weight,  # noqa: A002
+                                   head_bias, cutoffs, tail_weights,
+                                   name=None):
+    """The adaptive softmax of Grave et al. in float32: a head over the
+    shortlist and one entry a cluster, two-matrix tails.  Returns (each
+    sample's target log-probability, the mean negative of it)."""
+    x, head_weight, head_bias = _amp("adaptive_log_softmax_with_loss",
+                                     input, head_weight, head_bias)
+    cutoffs = list(cutoffs)
+    short = cutoffs[0]
+    xf = x.float()
+    head = xf @ head_weight.float().T
+    if head_bias is not None:
+        head = head + head_bias.float()
+    head_lsm = torch.log_softmax(head, dim=-1)
+    lab = label.long()
+    out = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+    short_lp = torch.gather(head_lsm, 1,
+                            torch.clamp(lab, 0, short - 1)[:, None])[:, 0]
+    out = torch.where(lab < short, short_lp, out)
+    for c in range(len(cutoffs) - 1):
+        lo, hi = cutoffs[c], cutoffs[c + 1]
+        w1, w2 = tail_weights[c]
+        tail_lsm = torch.log_softmax((xf @ w1.float()) @ w2.float(), dim=-1)
+        rel = torch.clamp(lab - lo, 0, hi - lo - 1)
+        lp = head_lsm[:, short + c] + torch.gather(tail_lsm, 1,
+                                                   rel[:, None])[:, 0]
+        out = torch.where((lab >= lo) & (lab < hi), lp, out)
+    return out, -torch.mean(out)
+
+
+def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
+             reduction="mean", norm_by_times=False, name=None):
+    """Connectionist Temporal Classification loss, warpctc's semantics as
+    the reference keeps them (``nn/functional.py:1231``): ``log_probs``
+    ``[T, B, C]`` are logits (log_softmax is applied here, in float32),
+    the alpha recursion over the extended label runs once a time step in
+    log space with -1e30 for minus infinity (an input too short for its
+    labels gives a huge finite loss, not inf), its gradient is autograd's
+    through the steps.  ``norm_by_times`` divides each loss by its input
+    length; ``"mean"`` divides each by its label length, then averages."""
+    (lp,) = _amp("ctc_loss", log_probs)
+    T, B, _ = lp.shape
+    lp = torch.log_softmax(lp.float(), dim=-1)
+    dev = lp.device
+    lab = labels.long()
+    L = lab.shape[1]
+    S = 2 * L + 1
+    s = torch.arange(S, device=dev)
+    lab_at = lab[:, torch.clamp(torch.div(s - 1, 2, rounding_mode="floor"),
+                                0, max(L - 1, 0))]
+    ext = torch.where(s[None, :] % 2 == 0, blank, lab_at)
+    prev2 = torch.cat([torch.full((B, 2), -1, dtype=ext.dtype, device=dev),
+                       ext[:, :-2]], dim=1)
+    skip = (s[None, :] % 2 == 1) & (ext != prev2)
+    emit = torch.gather(lp, 2, ext[None].expand(T, B, S))   # [T, B, S]
+    neg1 = torch.full((B, 1), _NEG, device=dev)
+    alpha = torch.where(s[None, :] < 2, emit[0], _NEG)
+    alphas = [alpha]
+    for t in range(1, T):
+        a2 = torch.cat([neg1, alpha[:, :-1]], dim=1)
+        a3 = torch.where(skip, torch.cat([neg1, neg1, alpha[:, :-2]], dim=1),
+                         _NEG)
+        m = torch.maximum(torch.maximum(alpha, a2), a3)
+        tot = m + torch.log(torch.exp(alpha - m) + torch.exp(a2 - m) +
+                            torch.exp(a3 - m))
+        alpha = tot + emit[t]
+        alphas.append(alpha)
+    alphas = torch.stack(alphas)
+    t_idx = torch.clamp(input_lengths.long() - 1, 0, T - 1)
+    a_last = alphas[t_idx, torch.arange(B, device=dev)]
+    sl = 2 * label_lengths.long()
+    a_end = torch.gather(a_last, 1, sl[:, None])[:, 0]
+    a_end2 = torch.gather(a_last, 1, torch.clamp_min(sl - 1, 0)[:, None])[:, 0]
+    m = torch.maximum(a_end, a_end2)
+    loss = -(m + torch.log(torch.exp(a_end - m) + torch.exp(a_end2 - m)))
+    if norm_by_times:
+        loss = loss / torch.clamp_min(input_lengths.float(), 1.0)
+    if reduction == "mean":
+        return torch.mean(loss / torch.clamp_min(label_lengths.float(), 1.0))
+    return _reduce_loss(loss, reduction)
+
+
+def rnnt_loss(logits, labels, input_lengths, label_lengths, blank=0,
+              fastemit_lambda=0.0, reduction="mean", name=None):
+    """RNN-Transducer loss over ``[B, T, U + 1, V]`` logits (log_softmax
+    applied here, in float32) and ``[B, U]`` labels, the reference's
+    arithmetic (``nn/functional.py:1112``): alpha(t, u) =
+    logaddexp(alpha(t - 1, u) + blank(t - 1, u), alpha(t, u - 1) +
+    label(t, u - 1)), a plain sum on the first row and column.  The
+    lattice is walked by anti-diagonals ``t + u = d`` (T + U - 1 steps,
+    each a vector over u), not by a loop over u inside one over t; a
+    missing term is -1e30, which logaddexp adds as exactly 0.
+    ``fastemit_lambda`` is accepted and ignored, as in the reference;
+    ``"mean"`` averages the per-sequence losses."""
+    (lg,) = _amp("rnnt_loss", logits)
+    B, T, U1, _ = lg.shape
+    U = U1 - 1
+    dev = lg.device
+    lp = torch.log_softmax(lg.float(), dim=-1)
+    blank_lp = lp[..., blank]                                   # [B, T, U+1]
+    lab_lp = torch.gather(lp[:, :, :U, :], 3, labels.long()[:, None, :, None]
+                          .expand(B, T, U, 1))[..., 0]          # [B, T, U]
+    u = torch.arange(U1, device=dev)
+    D = T + U
+    d = torch.arange(1, D, device=dev)[:, None]                 # [D-1, 1]
+    th, tv = d - 1 - u, d - u               # rows of the two moves into d
+    ok_h = (th >= 0) & (th < T)
+    ok_v = (tv >= 0) & (tv < T) & (u >= 1)
+    horiz = torch.where(ok_h, blank_lp[:, th.clamp(0, T - 1), u], _NEG)
+    lab_pad = torch.cat([torch.zeros((B, T, 1), device=dev), lab_lp], dim=2)
+    vert = torch.where(ok_v, lab_pad[:, tv.clamp(0, T - 1), u], _NEG)
+    diag = torch.where(u == 0, 0.0, _NEG).expand(B, U1)         # d = 0
+    diags = [diag]
+    neg1 = torch.full((B, 1), _NEG, device=dev)
+    for k in range(D - 1):
+        from_h = diag + horiz[:, k]
+        from_v = torch.cat([neg1, diag[:, :-1]], dim=1) + vert[:, k]
+        cell_ok = (tv[k] >= 0) & (tv[k] < T)
+        diag = torch.where(cell_ok, torch.logaddexp(from_h, from_v), _NEG)
+        diags.append(diag)
+    alphas = torch.stack(diags, dim=1)                          # [B, D, U+1]
+    t_idx = torch.clamp(input_lengths.long() - 1, 0, T - 1)
+    u_len = label_lengths.long()
+    bi = torch.arange(B, device=dev)
+    a_end = alphas[bi, t_idx + u_len, u_len]
+    loss = -(a_end + blank_lp[bi, t_idx, u_len])
+    return _reduce_loss(loss, reduction)
+
 __all__ = [
-    "adaptive_avg_pool2d", "avg_pool2d", "batch_norm", "celu",
-    "conv2d", "cross_entropy", "dropout", "elu", "embedding",
-    "flash_attention", "flash_attn_qkvpacked", "flash_attn_varlen_qkvpacked",
-    "flashmask_attention",
-    "gelu", "glu", "hardshrink", "hardsigmoid", "hardswish", "hardtanh",
-    "l1_loss", "layer_norm", "leaky_relu", "linear", "log_sigmoid",
-    "log_softmax", "max_pool2d", "maxout", "mish", "mse_loss",
-    "relu", "relu6", "scaled_dot_product_attention", "selu", "sigmoid",
-    "silu", "softmax", "softplus", "softshrink", "softsign", "swish", "tanh",
-    "tanhshrink"]
+    "adaptive_avg_pool2d", "adaptive_log_softmax_with_loss",
+    "alpha_dropout", "avg_pool2d", "batch_norm", "bilinear",
+    "binary_cross_entropy", "binary_cross_entropy_with_logits", "celu",
+    "class_center_sample", "conv2d", "cosine_embedding_loss",
+    "cosine_similarity", "cross_entropy", "ctc_loss", "dice_loss",
+    "dropout", "dropout2d", "dropout3d", "edit_distance", "elu", "elu_",
+    "embedding", "feature_alpha_dropout", "flash_attention",
+    "flash_attn_qkvpacked", "flash_attn_varlen_qkvpacked",
+    "flashmask_attention", "fused_softmax_mask",
+    "fused_softmax_mask_upper_triangle", "gather_tree",
+    "gaussian_nll_loss", "gelu", "glu", "gumbel_softmax", "hardshrink",
+    "hardsigmoid", "hardswish", "hardtanh", "hardtanh_",
+    "hinge_embedding_loss", "hsigmoid_loss", "huber_loss", "kl_div",
+    "l1_loss", "label_smooth", "layer_norm", "leaky_relu", "leaky_relu_",
+    "linear", "log_loss", "log_sigmoid", "log_softmax",
+    "margin_cross_entropy", "margin_ranking_loss", "max_pool2d", "maxout",
+    "mish", "mse_loss", "multi_label_soft_margin_loss",
+    "multi_margin_loss", "nll_loss", "normalize", "npair_loss", "one_hot",
+    "pairwise_distance", "poisson_nll_loss", "prelu", "relu", "relu6",
+    "relu_", "rms_norm", "rnnt_loss", "rrelu",
+    "scaled_dot_product_attention", "selu", "sequence_mask", "sigmoid",
+    "sigmoid_focal_loss", "silu", "smooth_l1_loss", "soft_margin_loss",
+    "softmax", "softmax_", "softmax_with_cross_entropy", "softplus",
+    "softshrink", "softsign", "sparse_attention", "square_error_cost",
+    "swiglu", "swish", "tanh", "tanh_", "tanh_shrink", "tanhshrink",
+    "thresholded_relu", "thresholded_relu_", "triplet_margin_loss",
+    "triplet_margin_with_distance_loss"]

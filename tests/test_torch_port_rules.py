@@ -49,7 +49,8 @@ FLEET_STACK = ("router/__init__.py", "router/__main__.py", "router/replica.py",
 # the Paddle-API training path: framework core, nn, optimizers, amp,
 # ResNet and the fused layers; Model with its callbacks and summary, the
 # metrics, the data pipeline over the native ring, save / load; the fused
-# functional ops, the MoE layer and its gates, the quantization API
+# functional ops, the MoE layer and its gates, the quantization API; the
+# recurrent layers, beam search and nn.utils
 PADDLE_API = ("device/__init__.py", "dtypes.py", "core/random.py",
               "core/tensor.py", "core/amp_state.py", "autograd/__init__.py",
               "ops/__init__.py", "ops/creation.py", "ops/manipulation.py",
@@ -68,7 +69,8 @@ PADDLE_API = ("device/__init__.py", "dtypes.py", "core/random.py",
               "incubate/distributed/models/moe/__init__.py",
               "incubate/distributed/models/moe/gate.py",
               "incubate/distributed/models/moe/moe_layer.py",
-              "quantization/__init__.py")
+              "quantization/__init__.py", "nn/rnn.py", "nn/decode.py",
+              "nn/utils.py")
 
 
 def test_port_and_chip_smoke_import_no_jax():
