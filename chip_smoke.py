@@ -408,6 +408,26 @@ is caught; there is no ``ok`` line unless every phase passed):
     (b)'s cells at beam 4, batch 8, 32 steps: ids, scores and lengths equal
     the CPU's but where a near-tie (NEAR_TIE_REL) excuses a row; ms a step
     and marked syncs a step.
+13n. ``nn_spatial_parity`` — the spatial half of ``nn`` on the card
+    against the port on the CPU, fp32 with TF32 off for cuBLAS and cuDNN,
+    by train_parity's rule at NN_PARITY_TOL: 88 function cases (the 1-D,
+    2-D, 3-D and transposed convolutions over every padding form,
+    channels-last layout, stride, dilation and ``output_size``; every pool,
+    ``return_mask`` through ``max_unpool``; the image norms; ``pad`` in
+    every mode; ``interpolate`` in every mode up and down; ``grid_sample``'s
+    three padding modes) and the 43 layers, outputs and input and
+    parameter gradients, pool indices equal; beside it, torch's own
+    channels-last ``avg_pool2d`` backward against a contiguous input's
+    (``_channels_last_avg_pool_probe``).  No Pallas kernel is on this path.
+13o. ``spatial_models`` — the spatial half at full published width, each
+    under ``amp.auto_cast(level="O1", dtype="bfloat16")`` with Adam: (a)
+    DDPM's CIFAR-10 U-Net (35.7M parameters, B 128 at 32 px, epsilon MSE
+    over timesteps and noise drawn on the card each step), (b) the 3D
+    U-Net (19,069,955 parameters, one 3 x 132 x 132 x 116 tile to 44 x 44
+    x 28 voxels of 3 classes): the first step's loss against the CPU's in
+    fp32 with TF32 off (DDPM at B 2, the 3D U-Net on a 92^3 tile), then
+    warm steps with 0 builds and 0 syncs; ms a step, samples/s, busy and
+    idle share, launches a step, busy ms by op family, peak memory.
 14. ``kernel_wo`` — ptxas's record of the 21 kernels of
     ``weight_only_sm90.cu`` (0 spill bytes each, or it fails); then the
     weight-only W8A16/W4A16 kernels against their plain version: int8 and
@@ -717,6 +737,33 @@ SEQ_MODELS = {
                  batch=20, unroll=35, lr=1.0, clip=10.0, parity_rows=2,
                  warmup=2, steps=6, seed=4200),
     "beam": dict(beam=4, batch=8, max_steps=32, start=0, end=1, seed=4300),
+}
+# nn_spatial_parity: the spatial half of nn on the card against the port on
+# the CPU, fp32 with TF32 off (cuBLAS and cuDNN), by train_parity's rule at
+# NN_PARITY_TOL (NN_PARITY_FLOOR for gradients that are 0 but for
+# rounding); small shapes, every data_format, stride, dilation, padding
+# form, output_size and resampling mode of the slice
+NN_SPATIAL_PARITY = dict(seed=5000, n=2, c=4, l=19, hw=(13, 11),
+                         dhw=(7, 9, 6))
+# spatial_models: the spatial half at full published width, both under O1
+# bf16 with Adam.  (a) DDPM's CIFAR-10 U-Net (Ho et al. 2020, App. B; the
+# official diffusion repo's cifar10 config): ch 128, ch_mult (1, 2, 2, 2),
+# 2 res blocks a level, attention at 16x16, dropout 0.1, GroupNorm(32),
+# SiLU, epsilon-prediction MSE, T 1000, linear betas 1e-4 -> 0.02, batch
+# 128 at 32 px, lr 2e-4.  (b) The 3D U-Net (Cicek et al. 2016, sec. 2): a
+# 3 x 132 x 132 x 116 tile to a 44 x 44 x 28 output over 3 classes, 32 ->
+# 512 channels, one tile a step (lr 1e-4, not in the paper: it trained
+# with SGD; the slice's optimizer is Adam).  Parity: the first step's loss
+# at batch 2 / the smallest valid tile (92^3 -> 4^3), card against CPU in
+# fp32 with TF32 off
+SPATIAL_MODELS = {
+    "ddpm": dict(ch=128, ch_mult=(1, 2, 2, 2), num_res_blocks=2,
+                 attn_res=(16,), dropout=0.1, groups=32, px=32, batch=128,
+                 timesteps=1000, beta=(1e-4, 0.02), lr=2e-4, parity_batch=2,
+                 warmup=2, steps=6, seed=5100),
+    "unet3d": dict(in_ch=3, base=32, levels=4, classes=3,
+                   tile=(132, 132, 116), parity_tile=(92, 92, 92), lr=1e-4,
+                   warmup=2, steps=4, seed=5200),
 }
 # beam search: a step where the CPU's k-th and (k+1)-th totals lie this
 # close (relative) may choose otherwise on the card
@@ -6501,13 +6548,15 @@ def _raise_timing_failures(phase, timing, checks):
         raise AssertionError(f"{phase}: flash timing shape: {failed}")
 
 
-def _profile_breakdown(fn, wall_ms, top=6):
+def _profile_breakdown(fn, wall_ms, top=6, groups=None):
     """``fn()`` once under ``torch.profiler`` (CPU and CUDA): device-busy
     ms, the idle share against ``wall_ms`` (the same work's unprofiled wall
     time), the device kernels launched, the flash kernels' and cuBLAS
     GEMMs' ms, the device ms of the
     kernels inside ``record_function("adam")`` (the DiT trainer's update),
-    and the ``top`` kernels by device ms."""
+    and the ``top`` kernels by device ms; with ``groups`` ({family: name
+    keys}) also the busy ms by family (a kernel in the first family one of
+    whose keys its lower-cased name holds, "other" the rest)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.profile_step import (GEMM_NAMES, _device_events,
@@ -6522,12 +6571,20 @@ def _profile_breakdown(fn, wall_ms, top=6):
 
     def ms(*keys):
         return sum(v for k, v in by_name.items() if any(x in k for x in keys))
+    split = None
+    if groups:
+        split = dict.fromkeys([*groups, "other"], 0.0)
+        for name, v in by_name.items():
+            low = name.lower()
+            split[next((f for f, keys in groups.items()
+                        if any(k in low for k in keys)), "other")] += v
     return {"device_busy_ms": busy, "idle_share": 1 - busy / wall_ms,
             "launches": launches,
             "flash_ms": ms("flash_"), "gemm_ms": ms(*GEMM_NAMES),
             "adam_ms": _range_device_ms(prof, "adam"),
             "top_kernels_ms": [[k[:120], v] for k, v in sorted(
-                by_name.items(), key=lambda kv: -kv[1])[:top]]}
+                by_name.items(), key=lambda kv: -kv[1])[:top]],
+            **({"busy_ms_by_op": split} if groups else {})}
 
 
 def phase_gpt_parity(cfg=None, device="cuda"):
@@ -9055,7 +9112,7 @@ def phase_nn_seq_parity(cfg=None, device="cuda"):
          nvidia_smi=_nvidia_smi() if cuda else None)
 
 
-def _seq_train_report(name, model, step, c, device, tokens):
+def _seq_train_report(name, model, step, c, device, tokens, groups=None):
     """``warmup`` steps, then ``steps`` timed steps without a sync or a build
     (``_train_steps_without_sync``), losses read after them (finite); ms a
     step, tokens/s, and on the card one profiled step's busy and idle share
@@ -9082,7 +9139,7 @@ def _seq_train_report(name, model, step, c, device, tokens):
                   max_memory_allocated=torch.cuda.max_memory_allocated()
                   if cuda else None)
     if cuda:
-        prof = _profile_breakdown(step, step_s * 1e3, top=6)
+        prof = _profile_breakdown(step, step_s * 1e3, top=6, groups=groups)
         prof["busy_share"] = 1 - prof["idle_share"]
         result["profile"] = prof
         result["launches_a_step"] = prof["launches"]
@@ -9352,6 +9409,845 @@ def phase_seq_models(cfg=None, device="cuda"):
          seconds=time.perf_counter() - t_phase,
          nvidia_smi=_nvidia_smi() if cuda else None)
     del lm, opt, lm_step
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+
+def _spatial_checks(got, want):
+    """``_seq_checks``' rule over float outputs and gradients; integer
+    outputs (pool indices) must be equal: {entry: (bad, err)}."""
+    import torch
+    fl = [i for i, w in enumerate(want[0]) if w.is_floating_point()]
+    checks = _seq_checks(([got[0][i] for i in fl], got[1], got[2]),
+                         ([want[0][i] for i in fl], want[1], want[2]))
+    for i, w in enumerate(want[0]):
+        if not w.is_floating_point():
+            g = got[0][i].cpu()
+            same = g.dtype == w.dtype and torch.equal(g, w)
+            checks[f"out_{i}_exact"] = (0 if same else 1,
+                                        0.0 if same else float("inf"))
+    return checks
+
+
+def _spatial_fn_cases(c):
+    """(name, call(F, *xs), inputs(gen), grad indices) of every function of
+    the spatial half: every data_format, stride, dilation, padding form and
+    output_size; each interpolate mode up and down; the return_mask forms
+    through max_unpool; grid_sample's three padding modes."""
+    import torch
+    n, ch, L = c["n"], c["c"], c["l"]
+    H, W = c["hw"]
+    D3, H3, W3 = c["dhw"]
+
+    def xs(*shapes):
+        return lambda g: [torch.randn(s, generator=g) for s in shapes]
+
+    def unpool_in(shape, n_out):
+        return lambda g: [torch.randn(shape, generator=g),
+                          torch.randint(0, n_out, shape, generator=g).int()]
+
+    def grid_in(lo, hi):
+        return lambda g: [torch.randn(n, ch, H, W, generator=g),
+                          torch.rand(n, 5, 7, 2, generator=g) * (hi - lo) +
+                          lo]
+
+    def stats_in(shape):
+        return lambda g: [torch.randn(shape, generator=g),
+                          torch.randn(shape[1], generator=g),
+                          torch.rand(shape[1], generator=g) + 0.5]
+
+    def tsize(i, s, p, k, d=1):
+        """The largest size a transposed convolution reaches."""
+        return (i - 1) * s - 2 * p + (k - 1) * d + 1 + s - 1
+
+    def masked(nd):
+        def call(F, x):
+            pool = F.max_pool2d if nd == 2 else F.max_pool3d
+            unpool = F.max_unpool2d if nd == 2 else F.max_unpool3d
+            out, idx = pool(x, 3, 2, 1, return_mask=True)
+            return out, idx, unpool(out, idx, 3, 2, 1,
+                                    output_size=list(x.shape))
+        return call
+    x1, x2, x3 = (n, ch, L), (n, ch, H, W), (n, ch, D3, H3, W3)
+    return [
+        # convolutions
+        ("conv1d_ncl", lambda F, x, w, b: F.conv1d(
+            x, w, b, stride=2, padding=[1, 2], dilation=2),
+         xs(x1, (6, ch, 3), (6,)), [0, 1, 2]),
+        ("conv1d_nlc_same_groups", lambda F, x, w: F.conv1d(
+            x, w, stride=2, padding="SAME", groups=2, data_format="NLC"),
+         xs((n, L, ch), (6, ch // 2, 3)), [0, 1]),
+        ("conv1d_valid", lambda F, x, w: F.conv1d(x, w, padding="VALID"),
+         xs(x1, (5, ch, 4)), [0, 1]),
+        ("conv1d_nested", lambda F, x, w: F.conv1d(
+            x, w, padding=[[0, 0], [0, 0], [2, 1]]),
+         xs(x1, (5, ch, 4)), [0, 1]),
+        ("conv2d_same_stride_dilation", lambda F, x, w, b: F.conv2d(
+            x, w, b, stride=2, padding="SAME", dilation=2),
+         xs(x2, (6, ch, 3, 3), (6,)), [0, 1, 2]),
+        ("conv2d_nhwc_four_ints", lambda F, x, w: F.conv2d(
+            x, w, padding=[1, 0, 2, 1], data_format="NHWC"),
+         xs((n, H, W, ch), (5, ch, 3, 2)), [0, 1]),
+        ("conv2d_nested_groups", lambda F, x, w: F.conv2d(
+            x, w, padding=[[0, 0], [0, 0], [1, 2], [0, 1]], groups=2),
+         xs(x2, (6, ch // 2, 3, 3)), [0, 1]),
+        ("conv3d_ncdhw", lambda F, x, w, b: F.conv3d(
+            x, w, b, stride=(1, 2, 1), padding=1, dilation=(2, 1, 1)),
+         xs(x3, (3, ch, 3, 3, 2), (3,)), [0, 1, 2]),
+        ("conv3d_ndhwc_same", lambda F, x, w: F.conv3d(
+            x, w, stride=2, padding="SAME", data_format="NDHWC"),
+         xs((n, D3, H3, W3, ch), (3, ch, 3, 2, 3)), [0, 1]),
+        ("conv3d_six_ints_groups", lambda F, x, w: F.conv3d(
+            x, w, padding=[1, 0, 0, 2, 1, 1], groups=2),
+         xs(x3, (4, ch // 2, 3, 3, 3)), [0, 1]),
+        ("conv3d_nested", lambda F, x, w: F.conv3d(
+            x, w, padding=[[0, 0], [0, 0], [1, 1], [0, 1], [2, 0]]),
+         xs(x3, (3, ch, 3, 3, 3)), [0, 1]),
+        ("conv1d_transpose", lambda F, x, w, b: F.conv1d_transpose(
+            x, w, b, stride=2, padding=1, output_padding=1, dilation=2),
+         xs(x1, (ch, 3, 3), (3,)), [0, 1, 2]),
+        ("conv1d_transpose_nlc_output_size", lambda F, x, w:
+         F.conv1d_transpose(x, w, stride=3, padding=1, data_format="NLC",
+                            output_size=[tsize(L, 3, 1, 3)]),
+         xs((n, L, ch), (ch, 3, 3)), [0, 1]),
+        ("conv2d_transpose", lambda F, x, w, b: F.conv2d_transpose(
+            x, w, b, stride=(2, 1), padding=(1, 0), output_padding=(1, 0),
+            dilation=(1, 2)),
+         xs(x2, (ch, 3, 3, 2), (3,)), [0, 1, 2]),
+        ("conv2d_transpose_nhwc_output_size", lambda F, x, w:
+         F.conv2d_transpose(x, w, stride=2, padding=1, data_format="NHWC",
+                            output_size=[tsize(H, 2, 1, 3),
+                                         tsize(W, 2, 1, 3)]),
+         xs((n, H, W, ch), (ch, 3, 3, 3)), [0, 1]),
+        ("conv3d_transpose", lambda F, x, w, b: F.conv3d_transpose(
+            x, w, b, stride=2), xs(x3, (ch, 2, 2, 2, 2), (2,)), [0, 1, 2]),
+        ("conv3d_transpose_ndhwc_output_size", lambda F, x, w:
+         F.conv3d_transpose(x, w, stride=(2, 1, 2), padding=(1, 0, 1),
+                            dilation=(1, 2, 1), data_format="NDHWC",
+                            output_size=[tsize(D3, 2, 1, 3),
+                                         tsize(H3, 1, 0, 3, 2),
+                                         tsize(W3, 2, 1, 3)]),
+         xs((n, D3, H3, W3, ch), (ch, 3, 3, 3, 3)), [0, 1]),
+        # pools
+        ("max_pool1d", lambda F, x: F.max_pool1d(x, 3, 2, 1), xs(x1), [0]),
+        ("avg_pool1d", lambda F, x: F.avg_pool1d(x, 3, 2, 1), xs(x1), [0]),
+        ("max_pool2d", lambda F, x: F.max_pool2d(x, 3, 2, 1), xs(x2), [0]),
+        ("max_pool2d_nhwc", lambda F, x: F.max_pool2d(
+            x, 2, data_format="NHWC"), xs((n, H, W, ch)), [0]),
+        ("avg_pool2d_exclusive", lambda F, x: F.avg_pool2d(x, 3, 2, 1),
+         xs(x2), [0]),
+        ("avg_pool2d_inclusive_nhwc", lambda F, x: F.avg_pool2d(
+            x, 3, 2, 1, exclusive=False, data_format="NHWC"),
+         xs((n, H, W, ch)), [0]),
+        ("avg_pool2d_divisor", lambda F, x: F.avg_pool2d(
+            x, 2, 2, 1, divisor_override=3), xs(x2), [0]),
+        ("avg_pool2d_wide_padding", lambda F, x: F.avg_pool2d(x, 3, 1, 2),
+         xs(x2), [0]),
+        ("max_pool3d", lambda F, x: F.max_pool3d(
+            x, (2, 3, 2), (2, 2, 1), (1, 1, 0)), xs(x3), [0]),
+        ("max_pool3d_ndhwc", lambda F, x: F.max_pool3d(
+            x, 2, data_format="NDHWC"), xs((n, D3, H3, W3, ch)), [0]),
+        ("avg_pool3d_exclusive", lambda F, x: F.avg_pool3d(x, 3, 2, 1),
+         xs(x3), [0]),
+        ("avg_pool3d_inclusive_ndhwc", lambda F, x: F.avg_pool3d(
+            x, 3, 2, 1, exclusive=False, data_format="NDHWC"),
+         xs((n, D3, H3, W3, ch)), [0]),
+        ("avg_pool3d_divisor", lambda F, x: F.avg_pool3d(
+            x, 2, 2, 1, divisor_override=3), xs(x3), [0]),
+        ("max_pool2d_mask_unpool", masked(2), xs(x2), [0]),
+        ("max_pool3d_mask_unpool", masked(3), xs(x3), [0]),
+        ("max_pool2d_with_index", lambda F, x: F.max_pool2d_with_index(
+            x, 2, 2), xs(x2), [0]),
+        ("max_pool3d_with_index", lambda F, x: F.max_pool3d_with_index(
+            x, 3, 2, 1), xs(x3), [0]),
+        ("max_unpool1d_repeated_index", lambda F, x, i: F.max_unpool1d(
+            x, i, 3, 1, output_size=[9]), unpool_in((n, ch, 7), 9), [0]),
+        ("adaptive_avg_pool1d", lambda F, x: F.adaptive_avg_pool1d(x, 5),
+         xs(x1), [0]),
+        ("adaptive_avg_pool2d_nhwc", lambda F, x: F.adaptive_avg_pool2d(
+            x, (4, 3), data_format="NHWC"), xs((n, H, W, ch)), [0]),
+        ("adaptive_avg_pool3d", lambda F, x: F.adaptive_avg_pool3d(
+            x, (3, 4, 2)), xs(x3), [0]),
+        ("adaptive_max_pool1d", lambda F, x: F.adaptive_max_pool1d(x, 5),
+         xs(x1), [0]),
+        ("adaptive_max_pool2d", lambda F, x: F.adaptive_max_pool2d(
+            x, (4, 3)), xs(x2), [0]),
+        ("adaptive_max_pool3d", lambda F, x: F.adaptive_max_pool3d(x, 2),
+         xs(x3), [0]),
+        ("lp_pool1d", lambda F, x: F.lp_pool1d(x, 2, 3, 2), xs(x1), [0]),
+        ("lp_pool2d_padding", lambda F, x: F.lp_pool2d(x, 3, 3, 2, 1),
+         xs(x2), [0]),
+        ("fractional_max_pool2d", lambda F, x: F.fractional_max_pool2d(
+            x, (5, 4), random_u=0.3), xs(x2), [0]),
+        ("fractional_max_pool3d", lambda F, x: F.fractional_max_pool3d(
+            x, (3, 4, 2), random_u=0.6), xs(x3), [0]),
+        # norms
+        ("instance_norm", lambda F, x, w, b: F.instance_norm(
+            x, weight=w, bias=b), xs(x2, (ch,), (ch,)), [0, 1, 2]),
+        ("group_norm", lambda F, x, w, b: F.group_norm(x, 2, 1e-5, w, b),
+         xs(x2, (ch,), (ch,)), [0, 1, 2]),
+        ("group_norm_nhwc", lambda F, x: F.group_norm(
+            x, 2, data_format="NHWC"), xs((n, H, W, ch)), [0]),
+        ("group_norm_3d", lambda F, x: F.group_norm(x, 4), xs(x3), [0]),
+        ("local_response_norm", lambda F, x: F.local_response_norm(
+            x, 3, 1e-2, 0.75, 2.0), xs(x2), [0]),
+        ("local_response_norm_ndhwc", lambda F, x: F.local_response_norm(
+            x, 3, 0.1, 0.5, data_format="NDHWC"),
+         xs((n, D3, H3, W3, ch)), [0]),
+        ("sync_batch_norm_training", lambda F, x, m, v: F.sync_batch_norm(
+            x, m.clone(), v.clone(), training=True), stats_in(x2), [0]),
+        ("sync_batch_norm_eval", lambda F, x, m, v: F.sync_batch_norm(
+            x, m, v), stats_in(x3), [0]),
+        ("spectral_norm", lambda F, w: F.spectral_norm(w, 2),
+         xs((6, ch, 3)), [0]),
+        ("spectral_norm_dim_1", lambda F, w: F.spectral_norm(w, dim=1),
+         xs((5, 7)), [0]),
+        # padding
+        ("pad_constant", lambda F, x: F.pad(x, [1, 2, 0, 3], value=0.5),
+         xs(x2), [0]),
+        ("pad_reflect_nhwc", lambda F, x: F.pad(
+            x, [2, 1, 1, 3], mode="reflect", data_format="NHWC"),
+         xs((n, H, W, ch)), [0]),
+        ("pad_replicate_3d", lambda F, x: F.pad(
+            x, [1, 0, 2, 1, 0, 2], mode="replicate", data_format="NCDHW"),
+         xs(x3), [0]),
+        ("pad_circular_ncl", lambda F, x: F.pad(
+            x, [3, 2], mode="circular", data_format="NCL"), xs(x1), [0]),
+        ("zeropad2d", lambda F, x: F.zeropad2d(x, [1, 0, 2, 1]), xs(x2),
+         [0]),
+        # resampling
+        ("interpolate_nearest_up", lambda F, x: F.interpolate(
+            x, size=[2 * H + 1, W + 3]), xs(x2), [0]),
+        ("interpolate_nearest_down", lambda F, x: F.interpolate(
+            x, scale_factor=0.6), xs(x2), [0]),
+        ("interpolate_bilinear_up", lambda F, x: F.interpolate(
+            x, size=[2 * H, W + 2], mode="bilinear"), xs(x2), [0]),
+        ("interpolate_bilinear_down", lambda F, x: F.interpolate(
+            x, size=[H // 2, W // 3], mode="bilinear"), xs(x2), [0]),
+        ("interpolate_bilinear_corners", lambda F, x: F.interpolate(
+            x, size=[2 * H, W // 2], mode="bilinear", align_corners=True),
+         xs(x2), [0]),
+        ("interpolate_bicubic_up", lambda F, x: F.interpolate(
+            x, size=[2 * H, W + 1], mode="bicubic"), xs(x2), [0]),
+        ("interpolate_bicubic_down", lambda F, x: F.interpolate(
+            x, size=[H // 2, W // 2], mode="bicubic"), xs(x2), [0]),
+        ("interpolate_area_down", lambda F, x: F.interpolate(
+            x, size=[H // 3, W // 2], mode="area"), xs(x2), [0]),
+        ("interpolate_linear_up", lambda F, x: F.interpolate(
+            x, size=[2 * L + 1], mode="linear", data_format="NCW"),
+         xs(x1), [0]),
+        ("interpolate_linear_down_corners", lambda F, x: F.interpolate(
+            x, size=[L // 3], mode="linear", align_corners=True), xs(x1),
+         [0]),
+        ("interpolate_trilinear_up_down", lambda F, x: F.interpolate(
+            x, size=[2 * D3, H3 // 2, W3 + 1], mode="trilinear"), xs(x3),
+         [0]),
+        ("interpolate_bilinear_nhwc_scale", lambda F, x: F.interpolate(
+            x, scale_factor=[1.5, 0.5], mode="bilinear", data_format="NHWC"),
+         xs((n, H, W, ch)), [0]),
+        ("upsample_nearest_3d", lambda F, x: F.upsample(
+            x, scale_factor=2, data_format="NCDHW"), xs(x3), [0]),
+        ("pixel_shuffle", lambda F, x: F.pixel_shuffle(x, 2),
+         xs((n, 4 * ch, H, W)), [0]),
+        ("pixel_unshuffle", lambda F, x: F.pixel_unshuffle(x, 2),
+         xs((n, ch, 2 * H, 2 * W)), [0]),
+        ("channel_shuffle", lambda F, x: F.channel_shuffle(x, 2), xs(x2),
+         [0]),
+        ("channel_shuffle_nhwc", lambda F, x: F.channel_shuffle(
+            x, 2, data_format="NHWC"), xs((n, H, W, ch)), [0]),
+        ("temporal_shift", lambda F, x: F.temporal_shift(x, 3, 0.25),
+         xs((3 * n, ch, H, W)), [0]),
+        ("unfold", lambda F, x: F.unfold(x, 3, 2, 1), xs(x2), [0]),
+        ("unfold_dilated", lambda F, x: F.unfold(x, [2, 3], 1, 0, 2),
+         xs(x2), [0]),
+        ("fold", lambda F, x: F.fold(x, [H, W], 3, 2, 1),
+         xs((n, 9 * ch, ((H - 1) // 2 + 1) * ((W - 1) // 2 + 1))), [0]),
+        ("affine_grid", lambda F, t: F.affine_grid(t, [n, ch, H, W]),
+         xs((n, 2, 3)), [0]),
+        ("affine_grid_half_pixel", lambda F, t: F.affine_grid(
+            t, [n, ch, H, W], align_corners=False), xs((n, 2, 3)), [0]),
+        ("grid_sample_zeros", lambda F, x, g: F.grid_sample(x, g),
+         grid_in(-1.3, 1.3), [0, 1]),
+        ("grid_sample_border_half_pixel", lambda F, x, g: F.grid_sample(
+            x, g, padding_mode="border", align_corners=False),
+         grid_in(-1.3, 1.3), [0, 1]),
+        ("grid_sample_reflection", lambda F, x, g: F.grid_sample(
+            x, g, padding_mode="reflection"), grid_in(-2.5, 2.5), [0, 1]),
+        ("grid_sample_reflection_half_pixel", lambda F, x, g:
+         F.grid_sample(x, g, padding_mode="reflection",
+                       align_corners=False), grid_in(-2.5, 2.5), [0, 1]),
+        ("grid_sample_nearest", lambda F, x, g: F.grid_sample(
+            x, g, mode="nearest"), grid_in(-1.3, 1.3), [0]),
+    ]
+
+
+def _spatial_layer_cases(c):
+    """(name, make(nn), inputs(gen)) of every layer of the spatial half
+    (its 43 classes)."""
+    import torch
+    n, ch, L = c["n"], c["c"], c["l"]
+    H, W = c["hw"]
+    D3, H3, W3 = c["dhw"]
+
+    def xs(*shapes):
+        return lambda g: [torch.randn(s, generator=g) for s in shapes]
+
+    def unpool_in(shape, n_out):
+        return lambda g: [torch.randn(shape, generator=g),
+                          torch.randint(0, n_out, shape, generator=g).int()]
+    x1, x2, x3 = (n, ch, L), (n, ch, H, W), (n, ch, D3, H3, W3)
+    return [
+        ("Conv1D", lambda nn: nn.Conv1D(ch, 6, 3, stride=2, padding=1,
+                                        groups=2), xs(x1)),
+        ("Conv3D", lambda nn: nn.Conv3D(ch, 3, 3, padding="SAME",
+                                        data_format="NDHWC"),
+         xs((n, D3, H3, W3, ch))),
+        ("Conv1DTranspose", lambda nn: nn.Conv1DTranspose(
+            ch, 3, 3, stride=2, padding=1), xs(x1)),
+        ("Conv2DTranspose", lambda nn: nn.Conv2DTranspose(
+            ch, 3, (2, 3), stride=2, output_padding=1), xs(x2)),
+        ("Conv3DTranspose", lambda nn: nn.Conv3DTranspose(ch, 2, 2,
+                                                          stride=2), xs(x3)),
+        ("MaxPool1D", lambda nn: nn.MaxPool1D(3, 2, 1), xs(x1)),
+        ("AvgPool1D", lambda nn: nn.AvgPool1D(3, 2, 1), xs(x1)),
+        ("MaxPool3D", lambda nn: nn.MaxPool3D(2, data_format="NDHWC"),
+         xs((n, D3, H3, W3, ch))),
+        ("AvgPool3D", lambda nn: nn.AvgPool3D(3, 2, 1, exclusive=False),
+         xs(x3)),
+        ("AdaptiveAvgPool1D", lambda nn: nn.AdaptiveAvgPool1D(4), xs(x1)),
+        ("AdaptiveAvgPool3D", lambda nn: nn.AdaptiveAvgPool3D((2, 3, 1)),
+         xs(x3)),
+        ("AdaptiveMaxPool1D", lambda nn: nn.AdaptiveMaxPool1D(4), xs(x1)),
+        ("AdaptiveMaxPool2D", lambda nn: nn.AdaptiveMaxPool2D((3, 2)),
+         xs(x2)),
+        ("AdaptiveMaxPool3D", lambda nn: nn.AdaptiveMaxPool3D(2), xs(x3)),
+        ("MaxUnPool1D", lambda nn: nn.MaxUnPool1D(2, output_size=[11]),
+         unpool_in((n, ch, 5), 11)),
+        ("MaxUnPool2D", lambda nn: nn.MaxUnPool2D(2, 2),
+         unpool_in((n, ch, 3, 4), 48)),
+        ("MaxUnPool3D", lambda nn: nn.MaxUnPool3D(2, 2),
+         unpool_in((n, ch, 2, 2, 3), 96)),
+        ("FractionalMaxPool2D", lambda nn: nn.FractionalMaxPool2D(
+            3, random_u=0.45), xs(x2)),
+        ("FractionalMaxPool3D", lambda nn: nn.FractionalMaxPool3D(
+            (2, 3, 2), random_u=0.2), xs(x3)),
+        ("LPPool1D", lambda nn: nn.LPPool1D(3, 2), xs(x1)),
+        ("LPPool2D", lambda nn: nn.LPPool2D(2, 3, 2, 1), xs(x2)),
+        ("BatchNorm3D", lambda nn: nn.BatchNorm3D(ch), xs(x3)),
+        ("SyncBatchNorm", lambda nn: nn.SyncBatchNorm(ch, momentum=0.8),
+         xs(x2)),
+        ("GroupNorm", lambda nn: nn.GroupNorm(2, ch), xs(x2)),
+        ("InstanceNorm1D", lambda nn: nn.InstanceNorm1D(ch), xs(x1)),
+        ("InstanceNorm2D", lambda nn: nn.InstanceNorm2D(ch), xs(x2)),
+        ("InstanceNorm3D", lambda nn: nn.InstanceNorm3D(ch), xs(x3)),
+        ("LocalResponseNorm", lambda nn: nn.LocalResponseNorm(3, 0.1),
+         xs(x2)),
+        ("SpectralNorm", lambda nn: nn.SpectralNorm([6, 4], power_iters=2),
+         xs((6, 4))),
+        ("Pad1D", lambda nn: nn.Pad1D([2, 1], mode="reflect"), xs(x1)),
+        ("Pad2D", lambda nn: nn.Pad2D([1, 2, 0, 1], mode="replicate",
+                                      data_format="NHWC"),
+         xs((n, H, W, ch))),
+        ("Pad3D", lambda nn: nn.Pad3D([1, 1, 0, 2, 1, 0], value=1.5),
+         xs(x3)),
+        ("ZeroPad1D", lambda nn: nn.ZeroPad1D([0, 3]), xs(x1)),
+        ("ZeroPad2D", lambda nn: nn.ZeroPad2D([1, 0, 2, 2]), xs(x2)),
+        ("ZeroPad3D", lambda nn: nn.ZeroPad3D([1, 0, 0, 1, 2, 0]), xs(x3)),
+        ("Upsample", lambda nn: nn.Upsample(scale_factor=2,
+                                            mode="bilinear"), xs(x2)),
+        ("UpsamplingNearest2D", lambda nn: nn.UpsamplingNearest2D(
+            size=[H + 4, W + 2]), xs(x2)),
+        ("UpsamplingBilinear2D", lambda nn: nn.UpsamplingBilinear2D(
+            scale_factor=1.5), xs(x2)),
+        ("PixelShuffle", lambda nn: nn.PixelShuffle(2),
+         xs((n, 4 * ch, H, W))),
+        ("PixelUnshuffle", lambda nn: nn.PixelUnshuffle(2),
+         xs((n, ch, 2 * H, 2 * W))),
+        ("ChannelShuffle", lambda nn: nn.ChannelShuffle(2), xs(x2)),
+        ("Unfold", lambda nn: nn.Unfold([2, 3], strides=2, paddings=1),
+         xs(x2)),
+        ("Fold", lambda nn: nn.Fold([H, W], 2, strides=1),
+         xs((n, 4 * ch, (H - 1) * (W - 1)))),
+    ]
+
+
+def _channels_last_avg_pool_probe(device):
+    """torch's own ``avg_pool2d`` backward (count_include_pad, padding 1)
+    over a channels-last-strided input against the same over a contiguous
+    copy, on ``device``: the largest gradient difference (the port pools a
+    contiguous copy, ``nn/functional.py`` ``_avg_pool``)."""
+    import torch
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(2, 13, 11, 4, generator=g).to(device)
+    cot = torch.randn(2, 4, 7, 6, generator=g).to(device)
+    grads = []
+    for contiguous in (False, True):
+        a = x.clone().requires_grad_(True)
+        b = a.movedim(-1, 1)
+        b = b.contiguous() if contiguous else b
+        (torch.nn.functional.avg_pool2d(b, 3, 2, 1) * cot).sum().backward()
+        grads.append(a.grad)
+    return {"max_abs_diff": float((grads[0] - grads[1]).abs().max()),
+            "max_abs_grad": float(grads[1].abs().max())}
+
+
+def phase_nn_spatial_parity(cfg=None, device="cuda"):
+    """The spatial half of ``nn`` on ``device`` against the port on the
+    CPU, fp32 with TF32 off (cuBLAS and cuDNN): every function of the
+    slice (``_spatial_fn_cases``) and every layer (``_spatial_layer_cases``,
+    its 43 classes; BatchNorm3D and SyncBatchNorm in training, their
+    running statistics after the pass), outputs and input and parameter
+    gradients by train_parity's rule at NN_PARITY_TOL (+ NN_PARITY_FLOOR),
+    pool indices equal.  No Pallas kernel is on this path."""
+    import torch
+    import paddle_tpu_torch as paddle
+    c = cfg or NN_SPATIAL_PARITY
+    cuda = device == "cuda"
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    F = paddle.nn.functional
+    errs, failed = {}, {}
+    t0 = time.perf_counter()
+
+    def record(name, checks):
+        errs[name] = max([e for _, e in checks.values()], default=0.0)
+        bad = {k: v for k, v in checks.items() if v[0]}
+        if bad:
+            failed[name] = bad
+    try:
+        fn_cases = _spatial_fn_cases(c)
+        for k, (name, call, make, grad) in enumerate(fn_cases):
+            xs = make(torch.Generator().manual_seed(c["seed"] + k))
+            got = _seq_pass(call, F, [x.to(device) for x in xs], grad)
+            want = _seq_pass(call, F, xs, grad)
+            record(name, _spatial_checks(got, want))
+        layer_cases = _spatial_layer_cases(c)
+        for k, (name, make, inputs) in enumerate(layer_cases):
+            built = {}
+            for key, dev in (("cpu", "cpu"), ("dev", device)):
+                with _paddle_device(dev):
+                    paddle.seed(0)
+                    built[key] = make(paddle.nn)
+            built["dev"].set_state_dict(built["cpu"].state_dict())
+            xs = inputs(torch.Generator().manual_seed(c["seed"] + 500 + k))
+            got = _seq_pass(lambda m, *a: m(*a), built["dev"],
+                            [x.to(device) for x in xs], [0])
+            want = _seq_pass(lambda m, *a: m(*a), built["cpu"], xs, [0])
+            checks = _spatial_checks(got, want)
+            cpu_bufs = dict(built["cpu"].named_buffers())
+            checks.update({f"buffer_{bn}": _parity_bad(
+                b, cpu_bufs[bn], NN_PARITY_TOL, NN_PARITY_FLOOR)
+                for bn, b in built["dev"].named_buffers()})
+            record(name, checks)
+        probe = _channels_last_avg_pool_probe(device)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    if failed:
+        raise AssertionError(f"nn_spatial_parity: out of tolerance "
+                             f"(entries, max err): {failed}")
+    emit("nn_spatial_parity", dtype="float32", tf32=False,
+         tol=NN_PARITY_TOL, floor=NN_PARITY_FLOOR, functions=len(fn_cases),
+         layers=len(layer_cases), max_abs_err=errs,
+         worst=max(errs.items(), key=lambda kv: kv[1]),
+         channels_last_avg_pool2d_backward=probe,
+         seconds=time.perf_counter() - t0,
+         nvidia_smi=_nvidia_smi() if cuda else None)
+
+
+def _ddpm_unet(paddle, c):
+    """DDPM's CIFAR-10 U-Net (Ho et al. 2020, App. B) from the Paddle API
+    of ``paddle`` (the port, or the JAX package in the CPU tests):
+    ``forward(x, temb)`` with ``temb`` the ``[B, ch]`` sinusoidal embedding
+    of the timesteps (``_ddpm_temb``).  Residual blocks GroupNorm -> SiLU
+    -> 3x3 conv (+ the time embedding's projection) -> GroupNorm -> SiLU ->
+    dropout -> 3x3 conv, a 1x1 conv on the skip where the width changes;
+    self-attention (GroupNorm, 1x1 q/k/v/proj) at ``attn_res``; stride-2
+    "SAME" 3x3 convolutions down, ``Upsample(2, "nearest")`` + a 3x3
+    convolution up, the skips concatenated."""
+    nn, F = paddle.nn, paddle.nn.functional
+    ch, groups = c["ch"], c["groups"]
+
+    class ResBlock(nn.Layer):
+        def __init__(self, cin, cout):
+            super().__init__()
+            self.norm1 = nn.GroupNorm(groups, cin)
+            self.conv1 = nn.Conv2D(cin, cout, 3, padding=1)
+            self.temb_proj = nn.Linear(4 * ch, cout)
+            self.norm2 = nn.GroupNorm(groups, cout)
+            self.dropout = nn.Dropout(c["dropout"])
+            self.conv2 = nn.Conv2D(cout, cout, 3, padding=1)
+            self.nin = nn.Conv2D(cin, cout, 1) if cin != cout else None
+
+        def forward(self, x, temb):
+            h = self.conv1(F.silu(self.norm1(x)))
+            t = self.temb_proj(F.silu(temb))
+            h = h + t.reshape([t.shape[0], t.shape[1], 1, 1])
+            h = self.conv2(self.dropout(F.silu(self.norm2(h))))
+            return (x if self.nin is None else self.nin(x)) + h
+
+    class Attn(nn.Layer):
+        def __init__(self, cc):
+            super().__init__()
+            self.norm = nn.GroupNorm(groups, cc)
+            self.q, self.k, self.v, self.proj = (nn.Conv2D(cc, cc, 1)
+                                                 for _ in range(4))
+
+        def forward(self, x):
+            b, cc, hh, ww = x.shape
+            h = self.norm(x)
+            q, k, v = (m(h).reshape([b, cc, hh * ww])
+                       for m in (self.q, self.k, self.v))
+            w = F.softmax(paddle.matmul(q, k, transpose_x=True) *
+                          (float(cc) ** -0.5), axis=-1)
+            h = paddle.matmul(v, w, transpose_y=True).reshape(
+                [b, cc, hh, ww])
+            return x + self.proj(h)
+
+    class Up(nn.Layer):
+        def __init__(self, cc):
+            super().__init__()
+            self.up = nn.Upsample(scale_factor=2, mode="nearest")
+            self.conv = nn.Conv2D(cc, cc, 3, padding=1)
+
+        def forward(self, x):
+            return self.conv(self.up(x))
+
+    class UNet(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.temb1 = nn.Linear(ch, 4 * ch)
+            self.temb2 = nn.Linear(4 * ch, 4 * ch)
+            self.conv_in = nn.Conv2D(3, ch, 3, padding=1)
+            self.down = nn.LayerList()
+            chans, cur, res = [ch], ch, c["px"]
+            for i, m in enumerate(c["ch_mult"]):
+                for _ in range(c["num_res_blocks"]):
+                    blocks = nn.LayerList([ResBlock(cur, ch * m)])
+                    cur = ch * m
+                    if res in c["attn_res"]:
+                        blocks.append(Attn(cur))
+                    self.down.append(blocks)
+                    chans.append(cur)
+                if i != len(c["ch_mult"]) - 1:
+                    self.down.append(nn.Conv2D(cur, cur, 3, stride=2,
+                                               padding="SAME"))
+                    chans.append(cur)
+                    res //= 2
+            self.mid = nn.LayerList([ResBlock(cur, cur), Attn(cur),
+                                     ResBlock(cur, cur)])
+            self.up = nn.LayerList()
+            for i, m in reversed(list(enumerate(c["ch_mult"]))):
+                for _ in range(c["num_res_blocks"] + 1):
+                    blocks = nn.LayerList([ResBlock(cur + chans.pop(),
+                                                    ch * m)])
+                    cur = ch * m
+                    if res in c["attn_res"]:
+                        blocks.append(Attn(cur))
+                    self.up.append(blocks)
+                if i != 0:
+                    self.up.append(Up(cur))
+                    res *= 2
+            self.norm_out = nn.GroupNorm(groups, cur)
+            self.conv_out = nn.Conv2D(cur, 3, 3, padding=1)
+
+        @staticmethod
+        def _block(blocks, h, temb):
+            if isinstance(blocks, nn.LayerList):
+                h = blocks[0](h, temb)
+                for a in list(blocks)[1:]:
+                    h = a(h)
+                return h
+            return blocks(h)
+
+        def forward(self, x, temb):
+            temb = self.temb2(F.silu(self.temb1(temb)))
+            hs = [self.conv_in(x)]
+            for blocks in self.down:
+                hs.append(self._block(blocks, hs[-1], temb))
+            h = self.mid[0](hs[-1], temb)
+            h = self.mid[2](self.mid[1](h), temb)
+            for blocks in self.up:
+                if isinstance(blocks, nn.LayerList):
+                    h = paddle.concat([h, hs.pop()], axis=1)
+                h = self._block(blocks, h, temb)
+            return self.conv_out(F.silu(self.norm_out(h)))
+    return UNet()
+
+
+def _ddpm_temb(t, dim):
+    """DDPM's sinusoidal timestep embedding, ``[sin, cos]`` of ``t *
+    exp(-log(10000) i / (dim / 2 - 1))``, on t's device."""
+    import torch
+    half = dim // 2
+    freq = torch.exp(torch.arange(half, device=t.device) *
+                     -(math.log(10000.0) / (half - 1)))
+    ang = t.float()[:, None] * freq[None]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=1)
+
+
+def _ddpm_noised(x0, t, noise, abar):
+    """``x_t = sqrt(abar_t) x_0 + sqrt(1 - abar_t) noise``."""
+    a = abar[t][:, None, None, None]
+    return a.sqrt() * x0 + (1 - a).sqrt() * noise
+
+
+def _unet3d(paddle, c):
+    """The 3D U-Net (Cicek et al. 2016) from the Paddle API of ``paddle``
+    (the port, or the JAX package in the CPU tests): ``levels``
+    levels of two valid 3x3x3 ``Conv3D`` + ``BatchNorm3D`` + ReLU (the
+    second doubling the channels), ``MaxPool3D(2)`` down,
+    ``Conv3DTranspose(2, stride 2)`` up with the center-cropped skip
+    concatenated, a 1x1x1 head.  The batch norms have no scale or shift
+    and the up-convolutions no bias (Caffe's ``BatchNorm``; the paper's
+    19,069,955 parameters)."""
+    nn = paddle.nn
+    base, levels = c["base"], c["levels"]
+
+    def norm(cc):
+        return nn.BatchNorm3D(cc, weight_attr=False, bias_attr=False)
+
+    def double(cin, mid, cout):
+        return nn.Sequential(nn.Conv3D(cin, mid, 3), norm(mid), nn.ReLU(),
+                             nn.Conv3D(mid, cout, 3), norm(cout), nn.ReLU())
+
+    class UNet3D(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.analysis = nn.LayerList()
+            cin = c["in_ch"]
+            for i in range(levels):
+                cc = base * 2 ** i
+                self.analysis.append(double(cin, cc if i else base, 2 * cc))
+                cin = 2 * cc
+            self.pool = nn.MaxPool3D(2)
+            self.upconv, self.synthesis = nn.LayerList(), nn.LayerList()
+            for i in reversed(range(levels - 1)):
+                cc = base * 2 ** (i + 1)
+                self.upconv.append(nn.Conv3DTranspose(
+                    2 * cc, 2 * cc, 2, stride=2, bias_attr=False))
+                self.synthesis.append(double(3 * cc, cc, cc))
+            self.head = nn.Conv3D(2 * base, c["classes"], 1)
+
+        def forward(self, x):
+            skips = []
+            for i, level in enumerate(self.analysis):
+                x = level(x)
+                if i != levels - 1:
+                    skips.append(x)
+                    x = self.pool(x)
+            for up, level in zip(self.upconv, self.synthesis):
+                x = up(x)
+                s = skips.pop()
+                o = [(a - b) // 2 for a, b in zip(s.shape[2:], x.shape[2:])]
+                d, h, w = x.shape[2:]
+                s = s[:, :, o[0]:o[0] + d, o[1]:o[1] + h, o[2]:o[2] + w]
+                x = level(paddle.concat([x, s], axis=1))
+            return self.head(x)
+    return UNet3D()
+
+
+def _unet3d_out(tile, levels):
+    """The output size of a valid 3D U-Net on ``tile`` (4 lost a level
+    each way, halved and doubled between)."""
+    out = []
+    for n in tile:
+        for _ in range(levels - 1):
+            n = (n - 4) // 2
+        n -= 4
+        for _ in range(levels - 1):
+            n = 2 * n - 4
+        out.append(n)
+    return out
+
+
+SPATIAL_OP_GROUPS = {  # kernel-name keys, lower case, first family wins
+    "conv": ("fprop", "dgrad", "wgrad", "conv", "winograd", "nchwtonhwc",
+             "nhwctonchw"),
+    "gemm": ("gemm", "gemv", "nvjet", "cutlass"),
+    "norm": ("norm", "moments", "internalgradients", "fusedparams",
+             "gammabeta", "welford"),
+    "pool_resample": ("pool", "index", "gather", "scatter", "upsample"),
+}
+
+
+def _spatial_train_report(name, model, step, c, device, samples):
+    """``_seq_train_report``'s warm-up and timed steps (0 builds, 0 syncs)
+    with the rate as samples/s and, on the card, the busy split by op
+    (SPATIAL_OP_GROUPS)."""
+    tr = _seq_train_report(name, model, step, c, device, samples,
+                           groups=SPATIAL_OP_GROUPS)
+    tr["samples_per_s"] = tr.pop("tokens_per_s")
+    return tr
+
+
+def phase_spatial_models(cfg=None, device="cuda"):
+    """The spatial half of ``nn`` at full published width (SPATIAL_MODELS),
+    both built from the port's Paddle-API layers and trained under
+    ``amp.auto_cast(level="O1", dtype="bfloat16")`` with Adam: (a) DDPM's
+    CIFAR-10 U-Net, epsilon-prediction MSE over fresh timesteps and noise
+    each step (drawn on the card); (b) the 3D U-Net on one 132 x 132 x 116
+    tile, softmax cross-entropy over its 44 x 44 x 28 output voxels.  Each
+    model is built on the CPU from a seed and carried to the card; its
+    first step's loss in fp32 with TF32 off (DDPM at ``parity_batch``
+    with the same t and noise, in eval: no dropout; the 3D U-Net in
+    training on the smallest valid tile) is held within NN_PARITY_TOL of
+    the CPU's; then ``warmup`` and ``steps`` timed steps with 0 builds and
+    0 syncs, losses finite; ms a step, samples/s, busy / idle share,
+    launches a step, the busy split by op, peak memory (reckoned before:
+    ``memory_reckoned_gb``)."""
+    import torch
+    import paddle_tpu_torch as paddle
+    cfg = cfg or SPATIAL_MODELS
+    cuda = device == "cuda"
+    F = paddle.nn.functional
+    t_phase = time.perf_counter()
+
+    def first_loss(models, loss_of, train):
+        tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            out = {}
+            for dev, m in models.items():
+                m.train(train)
+                with torch.no_grad():
+                    out[dev] = float(loss_of(m, dev))
+                m.train()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, \
+                torch.backends.cudnn.allow_tf32 = tf32
+        return out[device], out["cpu"]
+
+    def build(make, c):
+        models = {}
+        for dev in ("cpu", device):
+            with _paddle_device(dev):
+                paddle.seed(c["seed"])
+                models[dev] = make(paddle, c)
+        models[device].set_state_dict(models["cpu"].state_dict())
+        return models
+    # (a) DDPM's CIFAR-10 U-Net
+    c = cfg["ddpm"]
+    gen = torch.Generator().manual_seed(c["seed"])
+    betas = torch.linspace(c["beta"][0], c["beta"][1], c["timesteps"],
+                           dtype=torch.float64)
+    abar = torch.cumprod(1 - betas, 0).float()
+    pb = c["parity_batch"]
+    x0 = torch.rand(pb, 3, c["px"], c["px"], generator=gen) * 2 - 1
+    t = torch.randint(0, c["timesteps"], (pb,), generator=gen)
+    noise = torch.randn(pb, 3, c["px"], c["px"], generator=gen)
+    models = build(_ddpm_unet, c)
+
+    def ddpm_loss(m, dev):
+        xt = _ddpm_noised(x0, t, noise, abar).to(dev)
+        return F.mse_loss(m(xt, _ddpm_temb(t, c["ch"]).to(dev)),
+                          noise.to(dev))
+    card_l, cpu_l = first_loss(models, ddpm_loss, False)
+    if not abs(card_l - cpu_l) <= NN_PARITY_TOL * abs(cpu_l):
+        raise AssertionError(f"spatial_models ddpm: first-step loss "
+                             f"{card_l} on the card, {cpu_l} on the CPU")
+    model = models[device]
+    del models
+    gc.collect()
+    params = sum(p.numel() for p in model.parameters())
+    with _paddle_device(device):
+        opt = paddle.optimizer.Adam(c["lr"], parameters=model.parameters())
+    dgen = torch.Generator(device=device).manual_seed(c["seed"] + 1)
+    B = c["batch"]
+    x0_d = (torch.rand(B, 3, c["px"], c["px"], generator=gen) * 2 - 1).to(
+        device)
+    abar_d = abar.to(device)
+
+    def d_step():
+        tt = torch.randint(0, c["timesteps"], (B,), device=device,
+                           generator=dgen)
+        eps = torch.randn(x0_d.shape, device=device, generator=dgen)
+        with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = F.mse_loss(model(_ddpm_noised(x0_d, tt, eps, abar_d),
+                                    _ddpm_temb(tt, c["ch"])), eps)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+    # reckoned: fp32 parameters, gradients and two Adam moments (16 bytes
+    # a parameter) plus the activations autograd keeps, about 60 tensors
+    # of [B, 128..256, 32..4, 32..4] a level in bf16 and fp32 (the
+    # GroupNorms run in fp32 under O1): ~5 GB at B 128
+    reckoned_gb = (16 * params + 5e9) / 1e9
+    tr = _spatial_train_report("ddpm", model, d_step, c, device, B)
+    emit("spatial_models", part="ddpm_cifar10_unet", config=(
+        "Ho et al. 2020 App. B, the official diffusion repo's cifar10 "
+        "config: ch 128, ch_mult (1, 2, 2, 2), 2 res blocks a level, "
+        "attention at 16x16, dropout 0.1, GroupNorm(32), SiLU; epsilon "
+        "MSE, T 1000, linear betas 1e-4 -> 0.02"), batch=B, px=c["px"],
+        amp="O1 bfloat16", optimizer=f"Adam({c['lr']})",
+        parity_batch=pb, first_step_loss_card=card_l,
+        first_step_loss_cpu=cpu_l, parity_tol=NN_PARITY_TOL,
+        memory_reckoned_gb=reckoned_gb, **tr,
+        nvidia_smi=_nvidia_smi() if cuda else None)
+    del model, opt, d_step
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    # (b) the 3D U-Net
+    c = cfg["unet3d"]
+    gen = torch.Generator().manual_seed(c["seed"])
+    models = build(_unet3d, c)
+    pt = c["parity_tile"]
+    px = torch.randn(1, c["in_ch"], *pt, generator=gen)
+    plab = torch.randint(0, c["classes"],
+                         (1, *_unet3d_out(pt, c["levels"])), generator=gen)
+
+    def voxel_ce(logits, labels):
+        return F.cross_entropy(logits.permute(0, 2, 3, 4, 1), labels)
+
+    def u_loss(m, dev):
+        return voxel_ce(m(px.to(dev)), plab.to(dev))
+    card_l, cpu_l = first_loss(models, u_loss, True)
+    if not abs(card_l - cpu_l) <= NN_PARITY_TOL * abs(cpu_l):
+        raise AssertionError(f"spatial_models unet3d: first-step loss "
+                             f"{card_l} on the card, {cpu_l} on the CPU")
+    model = models[device]
+    del models
+    gc.collect()
+    params = sum(p.numel() for p in model.parameters())
+    with _paddle_device(device):
+        opt = paddle.optimizer.Adam(c["lr"], parameters=model.parameters())
+    out_sz = _unet3d_out(c["tile"], c["levels"])
+    x = torch.randn(1, c["in_ch"], *c["tile"], generator=gen).to(device)
+    lab = torch.randint(0, c["classes"], (1, *out_sz), generator=gen).to(
+        device)
+
+    def u_step():
+        with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = voxel_ce(model(x), lab)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+    # reckoned: the level-0 maps, 1.8M voxels x 32 / 64 channels, each
+    # kept as the bf16 conv output, the fp32 BatchNorm output (BatchNorm
+    # is on the O1 block list) and the ReLU output: ~2.6 GB; the deeper
+    # levels an eighth as much each, the synthesis path about as much
+    # again: ~7 GB with the parameters' 0.3 GB
+    reckoned_gb = 7.0
+    tr = _spatial_train_report("unet3d", model, u_step, c, device, 1)
+    emit("spatial_models", part="unet3d", config=(
+        "Cicek et al. 2016 sec. 2: two valid 3x3x3 convs + BN + ReLU a "
+        "level, 32 -> 512 channels, 2x2x2 max pool, 2x2x2 up-conv stride "
+        "2, 1x1x1 head to 3 classes; tile 3 x 132 x 132 x 116 -> 44 x 44 "
+        "x 28"), tile=list(c["tile"]), out=out_sz, amp="O1 bfloat16",
+        optimizer=f"Adam({c['lr']})", parity_tile=list(pt),
+        first_step_loss_card=card_l, first_step_loss_cpu=cpu_l,
+        parity_tol=NN_PARITY_TOL, memory_reckoned_gb=reckoned_gb, **tr,
+        seconds=time.perf_counter() - t_phase,
+        nvidia_smi=_nvidia_smi() if cuda else None)
+    del model, opt, u_step
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
@@ -10534,6 +11430,8 @@ def main() -> int:
     incubate = phase_incubate_paths()
     phase_nn_seq_parity()
     phase_seq_models()
+    phase_nn_spatial_parity()
+    phase_spatial_models()
     for key in ("attention", "attention_split"):
         launches[key] += incubate["decode"][key]
     # the flash kernels' launches on every training path: llama2_7b, GPT-2,

@@ -7,9 +7,11 @@ out]``, a conv weight ``[out, in / groups, kh, kw]``, and BatchNorm keeps its
 running statistics in the buffers ``_mean`` and ``_variance``.  The
 recurrent layers (:mod:`.rnn`), beam search (:mod:`.decode`),
 :mod:`.utils`, the Transformer decoder, the losses and the containers are
-in; the spatial half of the reference's ``nn`` (the other convolutions and
-pools, pads, resampling, the image norms) waits for a later slice
-(``ROADMAP.md`` item 17.3b).
+in, and so is the spatial half: the 1-D, 3-D and transposed convolutions,
+every pool, the pads, resampling and the image norms (none of them a
+Pallas kernel in the reference: XLA convolutions, ``reduce_window`` and
+plain ``jnp``; here cuDNN / ATen, with the reference's own rules where
+they are not torch's).
 """
 
 from __future__ import annotations
@@ -139,17 +141,17 @@ Maxout = _act_layer("Maxout", F.maxout)
 GLU = _act_layer("GLU", F.glu)
 
 
-class Conv2D(Layer):
-    """2-D convolution, weight ``[out, in / groups, kh, kw]`` drawn by
-    ``KaimingUniform(fan_in)``, bias by ``Uniform(+-1/sqrt(fan_in))``
-    (the reference's ``_ConvNd``, :141)."""
+class _ConvNd(Layer):
+    """An ``nd``-D convolution's parameters: weight ``[out, in / groups,
+    k...]`` drawn by ``KaimingUniform(fan_in)``, bias by
+    ``Uniform(+-1/sqrt(fan_in))`` (the reference's ``_ConvNd``, :141)."""
 
-    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+    def __init__(self, in_channels, out_channels, kernel_size, nd, stride=1,
                  padding=0, dilation=1, groups=1, padding_mode="zeros",
                  weight_attr=None, bias_attr=None, data_format="NCHW"):
         super().__init__()
         if isinstance(kernel_size, int):
-            kernel_size = (kernel_size,) * 2
+            kernel_size = (kernel_size,) * nd
         self._in_channels, self._out_channels = in_channels, out_channels
         self._kernel_size = tuple(kernel_size)
         self._stride, self._padding, self._dilation = stride, padding, \
@@ -166,9 +168,104 @@ class Conv2D(Layer):
             default_initializer=I.Uniform(-bound, bound))
 
     def forward(self, x):
-        return F.conv2d(x, self.weight, self.bias, self._stride,
-                        self._padding, self._dilation, self._groups,
-                        self._data_format)
+        return self._conv(x, self.weight, self.bias, self._stride,
+                          self._padding, self._dilation, self._groups,
+                          self._data_format)
+
+
+class Conv1D(_ConvNd):
+    _conv = staticmethod(F.conv1d)
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, dilation=1, groups=1, padding_mode="zeros",
+                 weight_attr=None, bias_attr=None, data_format="NCL"):
+        super().__init__(in_channels, out_channels, kernel_size, 1, stride,
+                         padding, dilation, groups, padding_mode,
+                         weight_attr, bias_attr, data_format)
+
+
+class Conv2D(_ConvNd):
+    _conv = staticmethod(F.conv2d)
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, dilation=1, groups=1, padding_mode="zeros",
+                 weight_attr=None, bias_attr=None, data_format="NCHW"):
+        super().__init__(in_channels, out_channels, kernel_size, 2, stride,
+                         padding, dilation, groups, padding_mode,
+                         weight_attr, bias_attr, data_format)
+
+
+class Conv3D(_ConvNd):
+    _conv = staticmethod(F.conv3d)
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, dilation=1, groups=1, padding_mode="zeros",
+                 weight_attr=None, bias_attr=None, data_format="NCDHW"):
+        super().__init__(in_channels, out_channels, kernel_size, 3, stride,
+                         padding, dilation, groups, padding_mode,
+                         weight_attr, bias_attr, data_format)
+
+
+class _ConvTransposeNd(Layer):
+    """A transposed convolution's parameters: weight ``[in, out / groups,
+    k...]`` drawn by ``XavierNormal``, bias zeros (the reference's
+    ``Conv2DTranspose``, :195)."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, nd, stride,
+                 padding, output_padding, dilation, groups, weight_attr,
+                 bias_attr, data_format):
+        super().__init__()
+        if isinstance(kernel_size, int):
+            kernel_size = (kernel_size,) * nd
+        self._stride, self._padding = stride, padding
+        self._output_padding = output_padding
+        self._dilation, self._groups = dilation, groups
+        self._data_format = data_format
+        self.weight = self.create_parameter(
+            [in_channels, out_channels // groups, *kernel_size],
+            attr=weight_attr, default_initializer=I.XavierNormal())
+        self.bias = None if bias_attr is False else self.create_parameter(
+            [out_channels], attr=None, is_bias=True)
+
+    def forward(self, x, output_size=None):
+        return self._conv(x, self.weight, self.bias, self._stride,
+                          self._padding, self._output_padding, self._groups,
+                          self._dilation, self._data_format, output_size)
+
+
+class Conv1DTranspose(_ConvTransposeNd):
+    _conv = staticmethod(F.conv1d_transpose)
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, output_padding=0, groups=1, dilation=1,
+                 weight_attr=None, bias_attr=None, data_format="NCL"):
+        super().__init__(in_channels, out_channels, kernel_size, 1, stride,
+                         padding, output_padding, dilation, groups,
+                         weight_attr, bias_attr, data_format)
+
+
+class Conv2DTranspose(_ConvTransposeNd):
+    """(``dilation`` before ``groups`` in the constructor, as in the
+    reference; the 1-D and 3-D forms take ``groups`` first.)"""
+    _conv = staticmethod(F.conv2d_transpose)
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, output_padding=0, dilation=1, groups=1,
+                 weight_attr=None, bias_attr=None, data_format="NCHW"):
+        super().__init__(in_channels, out_channels, kernel_size, 2, stride,
+                         padding, output_padding, dilation, groups,
+                         weight_attr, bias_attr, data_format)
+
+
+class Conv3DTranspose(_ConvTransposeNd):
+    _conv = staticmethod(F.conv3d_transpose)
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, output_padding=0, groups=1, dilation=1,
+                 weight_attr=None, bias_attr=None, data_format="NCDHW"):
+        super().__init__(in_channels, out_channels, kernel_size, 3, stride,
+                         padding, output_padding, dilation, groups,
+                         weight_attr, bias_attr, data_format)
 
 
 class _NormBase(Layer):
@@ -212,6 +309,46 @@ class BatchNorm1D(_NormBase):
 
 class BatchNorm2D(_NormBase):
     pass
+
+
+class BatchNorm3D(_NormBase):
+    pass
+
+
+class SyncBatchNorm(_NormBase):
+    """Batch norm over every rank of ``group`` (:func:`F.sync_batch_norm`:
+    in one process, batch norm)."""
+
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 group=None, name=None):
+        super().__init__(num_features, momentum, epsilon, weight_attr,
+                         bias_attr, data_format)
+        self._group = group
+
+    def forward(self, x):
+        return F.sync_batch_norm(
+            x, self._mean, self._variance, self.weight, self.bias,
+            training=self.training, momentum=self._momentum,
+            epsilon=self._epsilon, data_format=self._data_format,
+            group=self._group)
+
+    @classmethod
+    def convert_sync_batchnorm(cls, layer):
+        """``layer`` with every other batch norm in it replaced by a
+        ``SyncBatchNorm`` that takes over its parameters, running
+        statistics and mode (a batch norm ``layer`` is itself replaced and
+        returned)."""
+        if isinstance(layer, _NormBase) and not isinstance(layer, cls):
+            new = cls(layer._num_features, momentum=layer._momentum,
+                      epsilon=layer._epsilon, data_format=layer._data_format)
+            new.weight, new.bias = layer.weight, layer.bias
+            new._mean, new._variance = layer._mean, layer._variance
+            new.train(layer.training)
+            return new
+        for name, sub in list(layer.named_children()):
+            setattr(layer, name, cls.convert_sync_batchnorm(sub))
+        return layer
 
 
 class LayerNorm(Layer):
@@ -269,6 +406,363 @@ class AdaptiveAvgPool2D(Layer):
 
     def forward(self, x):
         return F.adaptive_avg_pool2d(x, self.output_size, self.data_format)
+
+
+class AdaptiveMaxPool2D(Layer):
+    """``return_mask`` is ignored, as in the reference (and by the 1-D and
+    3-D forms)."""
+
+    def __init__(self, output_size, return_mask=False, name=None):
+        super().__init__()
+        self.output_size = output_size
+
+    def forward(self, x):
+        return F.adaptive_max_pool2d(x, self.output_size)
+
+
+class MaxPool1D(Layer):
+    """``return_mask`` is ignored, as in the reference."""
+
+    def __init__(self, kernel_size, stride=None, padding=0, return_mask=False,
+                 ceil_mode=False, name=None):
+        super().__init__()
+        self.k, self.s, self.p = kernel_size, stride, padding
+
+    def forward(self, x):
+        return F.max_pool1d(x, self.k, self.s, self.p)
+
+
+class AvgPool1D(Layer):
+    """``exclusive`` is ignored, as in the reference: the window's size
+    divides."""
+
+    def __init__(self, kernel_size, stride=None, padding=0, exclusive=True,
+                 ceil_mode=False, name=None):
+        super().__init__()
+        self.k, self.s, self.p = kernel_size, stride, padding
+
+    def forward(self, x):
+        return F.avg_pool1d(x, self.k, self.s, self.p)
+
+
+class MaxPool3D(Layer):
+    """With ``return_mask``, ``(out, index)`` (:func:`F.max_pool3d_with_index`,
+    over "NCDHW")."""
+
+    def __init__(self, kernel_size, stride=None, padding=0, return_mask=False,
+                 ceil_mode=False, data_format="NCDHW", name=None):
+        super().__init__()
+        self.k, self.s, self.p = kernel_size, stride, padding
+        self.return_mask, self.data_format = return_mask, data_format
+
+    def forward(self, x):
+        if self.return_mask:
+            return F.max_pool3d_with_index(x, self.k, self.s, self.p)
+        return F.max_pool3d(x, self.k, self.s, self.p,
+                            data_format=self.data_format)
+
+
+class AvgPool3D(AvgPool2D):
+    def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
+                 exclusive=True, divisor_override=None, data_format="NCDHW",
+                 name=None):
+        super().__init__(kernel_size, stride, padding, ceil_mode, exclusive,
+                         divisor_override, data_format)
+
+    def forward(self, x):
+        return F.avg_pool3d(x, self.k, self.s, self.p,
+                            exclusive=self.exclusive,
+                            divisor_override=self.divisor,
+                            data_format=self.data_format)
+
+
+class AdaptiveAvgPool1D(Layer):
+    def __init__(self, output_size, name=None):
+        super().__init__()
+        self.output_size = output_size
+
+    def forward(self, x):
+        return F.adaptive_avg_pool1d(x, self.output_size)
+
+
+class AdaptiveAvgPool3D(AdaptiveAvgPool2D):
+    def __init__(self, output_size, data_format="NCDHW", name=None):
+        super().__init__(output_size, data_format)
+
+    def forward(self, x):
+        return F.adaptive_avg_pool3d(x, self.output_size, self.data_format)
+
+
+class AdaptiveMaxPool1D(AdaptiveMaxPool2D):
+    def forward(self, x):
+        return F.adaptive_max_pool1d(x, self.output_size)
+
+
+class AdaptiveMaxPool3D(AdaptiveMaxPool2D):
+    def forward(self, x):
+        return F.adaptive_max_pool3d(x, self.output_size)
+
+
+class _MaxUnPool(Layer):
+    """Unpooling by :func:`F.max_unpool1d` / ``2d`` / ``3d`` (``data_format``
+    is not passed on, as in the reference)."""
+
+    def __init__(self, kernel_size, stride=None, padding=0, data_format=None,
+                 output_size=None, name=None):
+        super().__init__()
+        self.k, self.s, self.p = kernel_size, stride, padding
+        self.output_size = output_size
+
+    def forward(self, x, indices):
+        return self._unpool(x, indices, self.k, self.s, self.p,
+                            output_size=self.output_size)
+
+
+class MaxUnPool1D(_MaxUnPool):
+    _unpool = staticmethod(F.max_unpool1d)
+
+
+class MaxUnPool2D(_MaxUnPool):
+    _unpool = staticmethod(F.max_unpool2d)
+
+
+class MaxUnPool3D(_MaxUnPool):
+    _unpool = staticmethod(F.max_unpool3d)
+
+
+class FractionalMaxPool2D(Layer):
+    def __init__(self, output_size, kernel_size=None, random_u=None,
+                 return_mask=False, name=None):
+        super().__init__()
+        self.output_size, self.random_u = output_size, random_u
+
+    def forward(self, x):
+        return F.fractional_max_pool2d(x, self.output_size,
+                                       random_u=self.random_u)
+
+
+class FractionalMaxPool3D(FractionalMaxPool2D):
+    def forward(self, x):
+        return F.fractional_max_pool3d(x, self.output_size,
+                                       random_u=self.random_u)
+
+
+class LPPool1D(Layer):
+    def __init__(self, norm_type, kernel_size, stride=None, padding=0,
+                 ceil_mode=False, data_format="NCL", name=None):
+        super().__init__()
+        self._args = (norm_type, kernel_size, stride, padding, ceil_mode,
+                      data_format)
+
+    def forward(self, x):
+        n, k, s, p, c, df = self._args
+        return F.lp_pool1d(x, n, k, stride=s, padding=p, ceil_mode=c,
+                           data_format=df)
+
+
+class LPPool2D(LPPool1D):
+    def __init__(self, norm_type, kernel_size, stride=None, padding=0,
+                 ceil_mode=False, data_format="NCHW", name=None):
+        super().__init__(norm_type, kernel_size, stride, padding, ceil_mode,
+                         data_format)
+
+    def forward(self, x):
+        n, k, s, p, c, df = self._args
+        return F.lp_pool2d(x, n, k, stride=s, padding=p, ceil_mode=c,
+                           data_format=df)
+
+
+class GroupNorm(Layer):
+    """Group norm: weight ones, bias zeros (``weight_attr`` / ``bias_attr``
+    False drop them; other attributes are not read, as in the
+    reference)."""
+
+    def __init__(self, num_groups, num_channels, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self._num_groups, self._epsilon = num_groups, epsilon
+        self._data_format = data_format
+        self.weight = None if weight_attr is False else \
+            self.create_parameter([num_channels],
+                                  default_initializer=I.Constant(1.0))
+        self.bias = None if bias_attr is False else self.create_parameter(
+            [num_channels], is_bias=True)
+
+    def forward(self, x):
+        return F.group_norm(x, self._num_groups, self._epsilon, self.weight,
+                            self.bias, self._data_format)
+
+
+class InstanceNorm2D(Layer):
+    """Instance norm with the reference's parameter names: ``scale`` (ones)
+    and ``bias`` (zeros); ``momentum`` and ``data_format`` are not used."""
+
+    def __init__(self, num_features, epsilon=1e-5, momentum=0.9,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self._epsilon = epsilon
+        self.scale = None if weight_attr is False else \
+            self.create_parameter([num_features],
+                                  default_initializer=I.Constant(1.0))
+        self.bias = None if bias_attr is False else self.create_parameter(
+            [num_features], is_bias=True)
+
+    def forward(self, x):
+        return F.instance_norm(x, weight=self.scale, bias=self.bias,
+                               eps=self._epsilon)
+
+
+class InstanceNorm1D(InstanceNorm2D):
+    pass
+
+
+class InstanceNorm3D(InstanceNorm2D):
+    pass
+
+
+class LocalResponseNorm(Layer):
+    def __init__(self, size, alpha=1e-4, beta=0.75, k=1.0,
+                 data_format="NCHW", name=None):
+        super().__init__()
+        self.args = (size, alpha, beta, k)
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.local_response_norm(x, *self.args,
+                                     data_format=self.data_format)
+
+
+class SpectralNorm(Layer):
+    """:func:`F.spectral_norm` of the weight it is called on (no state:
+    the power iteration starts from ones each call)."""
+
+    def __init__(self, weight_shape, dim=0, power_iters=1, epsilon=1e-12,
+                 dtype="float32"):
+        super().__init__()
+        self.dim, self.power_iters, self.epsilon = dim, power_iters, epsilon
+
+    def forward(self, weight):
+        return F.spectral_norm(weight, self.power_iters, self.epsilon,
+                               self.dim)
+
+
+class Pad1D(Layer):
+    def __init__(self, padding, mode="constant", value=0.0, data_format="NCL",
+                 name=None):
+        super().__init__()
+        self.padding, self.mode, self.value = padding, mode, value
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pad(x, self.padding, self.mode, self.value, self.data_format)
+
+
+class Pad2D(Pad1D):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCHW", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad3D(Pad1D):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCDHW", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class ZeroPad1D(Pad1D):
+    def __init__(self, padding, data_format="NCL", name=None):
+        super().__init__(padding, "constant", 0.0, data_format)
+
+
+class ZeroPad2D(Pad1D):
+    def __init__(self, padding, data_format="NCHW", name=None):
+        super().__init__(padding, "constant", 0.0, data_format)
+
+
+class ZeroPad3D(Pad1D):
+    def __init__(self, padding, data_format="NCDHW", name=None):
+        super().__init__(padding, "constant", 0.0, data_format)
+
+
+class Upsample(Layer):
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, align_mode=0, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self.size, self.scale_factor, self.mode = size, scale_factor, mode
+        self.align_corners, self.align_mode = align_corners, align_mode
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.interpolate(x, self.size, self.scale_factor, self.mode,
+                             self.align_corners, self.align_mode,
+                             self.data_format)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "nearest",
+                         data_format=data_format)
+
+
+class UpsamplingBilinear2D(Upsample):
+    """Bilinear with ``align_corners=True``."""
+
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "bilinear", align_corners=True,
+                         data_format=data_format)
+
+
+class PixelShuffle(Layer):
+    def __init__(self, upscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.r = upscale_factor
+
+    def forward(self, x):
+        return F.pixel_shuffle(x, self.r)
+
+
+class PixelUnshuffle(Layer):
+    def __init__(self, downscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.r, self.data_format = downscale_factor, data_format
+
+    def forward(self, x):
+        return F.pixel_unshuffle(x, self.r, self.data_format)
+
+
+class ChannelShuffle(Layer):
+    def __init__(self, groups, data_format="NCHW", name=None):
+        super().__init__()
+        self.groups, self.data_format = groups, data_format
+
+    def forward(self, x):
+        return F.channel_shuffle(x, self.groups, self.data_format)
+
+
+class Unfold(Layer):
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1,
+                 name=None):
+        super().__init__()
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return F.unfold(x, *self.args)
+
+
+class Fold(Layer):
+    def __init__(self, output_sizes, kernel_sizes, strides=1, paddings=0,
+                 dilations=1, name=None):
+        super().__init__()
+        self.args = (output_sizes, kernel_sizes, strides, paddings,
+                     dilations)
+
+    def forward(self, x):
+        return F.fold(x, *self.args)
 
 
 class Flatten(Layer):
@@ -1014,27 +1508,39 @@ from . import utils  # noqa: E402,F401
 from .decode import BeamSearchDecoder, dynamic_decode  # noqa: E402
 
 __all__ = [
-    "AdaptiveAvgPool2D", "AdaptiveLogSoftmaxWithLoss", "AlphaDropout",
-    "AvgPool2D", "BCELoss", "BCEWithLogitsLoss", "BatchNorm",
-    "BatchNorm1D", "BatchNorm2D", "BeamSearchDecoder", "BiRNN", "Bilinear",
-    "CELU", "CTCLoss", "ClipGradByGlobalNorm", "ClipGradByNorm",
-    "ClipGradByValue", "Conv2D", "CosineEmbeddingLoss", "CosineSimilarity",
+    "AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D",
+    "AdaptiveLogSoftmaxWithLoss", "AdaptiveMaxPool1D",
+    "AdaptiveMaxPool2D", "AdaptiveMaxPool3D", "AlphaDropout", "AvgPool1D",
+    "AvgPool2D", "AvgPool3D", "BCELoss", "BCEWithLogitsLoss", "BatchNorm",
+    "BatchNorm1D", "BatchNorm2D", "BatchNorm3D", "BeamSearchDecoder",
+    "BiRNN", "Bilinear", "CELU", "CTCLoss", "ChannelShuffle",
+    "ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue", "Conv1D",
+    "Conv1DTranspose", "Conv2D", "Conv2DTranspose", "Conv3D",
+    "Conv3DTranspose", "CosineEmbeddingLoss", "CosineSimilarity",
     "CrossEntropyLoss", "Dropout", "Dropout2D", "Dropout3D", "ELU",
-    "Embedding", "FeatureAlphaDropout", "Flatten", "GELU", "GLU", "GRU",
-    "GRUCell", "GaussianNLLLoss", "HSigmoidLoss", "Hardshrink",
-    "Hardsigmoid", "Hardswish", "Hardtanh", "HingeEmbeddingLoss",
-    "Identity", "KLDivLoss", "L1Loss", "LSTM", "LSTMCell", "Layer",
-    "LayerDict", "LayerList", "LayerNorm", "LeakyReLU", "Linear",
-    "LogSigmoid", "LogSoftmax", "MSELoss", "MarginRankingLoss",
-    "MaxPool2D", "Maxout", "Mish", "MultiHeadAttention",
-    "MultiLabelSoftMarginLoss", "MultiMarginLoss", "NLLLoss", "PReLU",
+    "Embedding", "FeatureAlphaDropout", "Flatten", "Fold",
+    "FractionalMaxPool2D", "FractionalMaxPool3D", "GELU", "GLU", "GRU",
+    "GRUCell", "GaussianNLLLoss", "GroupNorm", "HSigmoidLoss",
+    "Hardshrink", "Hardsigmoid", "Hardswish", "Hardtanh",
+    "HingeEmbeddingLoss", "Identity", "InstanceNorm1D", "InstanceNorm2D",
+    "InstanceNorm3D", "KLDivLoss", "L1Loss", "LPPool1D", "LPPool2D",
+    "LSTM", "LSTMCell", "Layer", "LayerDict", "LayerList", "LayerNorm",
+    "LeakyReLU", "Linear", "LocalResponseNorm", "LogSigmoid",
+    "LogSoftmax", "MSELoss", "MarginRankingLoss", "MaxPool1D",
+    "MaxPool2D", "MaxPool3D", "MaxUnPool1D", "MaxUnPool2D", "MaxUnPool3D",
+    "Maxout", "Mish", "MultiHeadAttention", "MultiLabelSoftMarginLoss",
+    "MultiMarginLoss", "NLLLoss", "PReLU", "Pad1D", "Pad2D", "Pad3D",
     "PairwiseDistance", "ParamAttr", "Parameter", "ParameterDict",
-    "ParameterList", "PoissonNLLLoss", "RMSNorm", "RNN", "RNNCellBase",
-    "RNNTLoss", "RReLU", "ReLU", "ReLU6", "SELU", "Sequential", "SiLU",
-    "Sigmoid", "Silu", "SimpleRNN", "SimpleRNNCell", "SmoothL1Loss",
-    "SoftMarginLoss", "Softmax", "Softmax2D", "Softplus", "Softshrink",
-    "Softsign", "Swish", "Tanh", "Tanhshrink", "Tensor", "ThresholdedReLU",
-    "Transformer", "TransformerDecoder", "TransformerDecoderLayer",
-    "TransformerEncoder", "TransformerEncoderLayer", "TripletMarginLoss",
-    "TripletMarginWithDistanceLoss", "Unflatten", "clip_grad_norm_",
-    "dynamic_decode", "functional", "initializer", "utils"]
+    "ParameterList", "PixelShuffle", "PixelUnshuffle", "PoissonNLLLoss",
+    "RMSNorm", "RNN", "RNNCellBase", "RNNTLoss", "RReLU", "ReLU", "ReLU6",
+    "SELU", "Sequential", "SiLU", "Sigmoid", "Silu", "SimpleRNN",
+    "SimpleRNNCell", "SmoothL1Loss", "SoftMarginLoss", "Softmax",
+    "Softmax2D", "Softplus", "Softshrink", "Softsign", "SpectralNorm",
+    "Swish", "SyncBatchNorm", "Tanh", "Tanhshrink", "Tensor",
+    "ThresholdedReLU", "Transformer", "TransformerDecoder",
+    "TransformerDecoderLayer", "TransformerEncoder",
+    "TransformerEncoderLayer", "TripletMarginLoss",
+    "TripletMarginWithDistanceLoss", "Unflatten", "Unfold", "Upsample",
+    "UpsamplingBilinear2D", "UpsamplingNearest2D", "ZeroPad1D",
+    "ZeroPad2D", "ZeroPad3D", "clip_grad_norm_", "dynamic_decode",
+    "functional", "initializer", "utils"]

@@ -29,12 +29,14 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as TF
 
 from ..core.amp_state import cast as _amp
 from ..core.random import generator
 from ..kernels import flash_attention as _fa
+from ..ops.manipulation import pad as _pad
 
 
 def _pair(v, n=2):
@@ -270,7 +272,115 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     return out.movedim(1, ch) if ch != 1 else out
 
 
+def instance_norm(x, running_mean=None, running_var=None, weight=None,
+                  bias=None, use_input_stats=True, momentum=0.9, eps=1e-5,
+                  data_format="NCHW", name=None):
+    """Each (sample, channel) normalised over dims 2.. by its mean and
+    biased variance, then ``weight`` / ``bias`` along dim 1.  The running
+    statistics, ``use_input_stats``, ``momentum`` and ``data_format`` are
+    ignored, as in the reference (:380)."""
+    x, weight, bias = _amp("instance_norm", x, weight, bias)
+    return TF.instance_norm(x, None, None, weight, bias,
+                            use_input_stats=True, eps=float(eps))
+
+
+def group_norm(x, num_groups, epsilon=1e-5, weight=None, bias=None,
+               data_format="NCHW", name=None):
+    """Group norm over "NCHW" (or "NHWC"): each group of channels
+    normalised by its mean and biased variance.  A half-precision ``x``
+    keeps the reference's roundings: the statistics are taken in float32
+    and rounded to x's dtype before they normalise (``jnp.mean`` /
+    ``jnp.var``)."""
+    x, weight, bias = _amp("group_norm", x, weight, bias)
+    channels_last = data_format == "NHWC"
+    x = _channels_first(x, channels_last)
+    if x.dtype == torch.float32:
+        out = TF.group_norm(x, num_groups, weight, bias, float(epsilon))
+    else:
+        n, c = x.shape[:2]
+        g = x.reshape(n, num_groups, -1)
+        var, mean = torch.var_mean(g.float(), dim=-1, correction=0,
+                                   keepdim=True)
+        out = ((g - mean.to(x.dtype)) * torch.rsqrt(
+            var.to(x.dtype) + epsilon)).reshape(x.shape)
+        shape = [1, c] + [1] * (x.ndim - 2)
+        if weight is not None:
+            out = out * weight.reshape(shape)
+        if bias is not None:
+            out = out + bias.reshape(shape)
+    return _channels_back(out, channels_last)
+
+
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
+                        data_format="NCHW", name=None):
+    """``x / (k + alpha * s)^beta`` with ``s`` the sum of squares over the
+    ``size`` channels around each (``size // 2`` before): the reference's
+    rule (:435), with no division of the sum by ``size``, so not torch's
+    ``local_response_norm``."""
+    (x,) = _amp("lrn", x)
+    ch = 1 if data_format.startswith("NC") else x.ndim - 1
+    half = size // 2
+    sq = x.movedim(ch, -1).square()
+    sq = TF.pad(sq, (half, size - half - 1))
+    n = x.shape[ch]
+    acc = sq[..., 0:n]
+    for i in range(1, size):
+        acc = acc + sq[..., i:i + n]
+    return x / torch.pow(k + alpha * acc.movedim(-1, ch), beta)
+
+
+def sync_batch_norm(x, running_mean, running_var, weight=None, bias=None,
+                    training=False, momentum=0.9, epsilon=1e-5,
+                    data_format="NCHW", group=None, name=None):
+    """Batch norm with the statistics of every rank of ``group``: in one
+    process that is :func:`batch_norm` (the port's rule, its gradient
+    through the batch statistics).  A group of more than one rank, or a
+    default group of a process group over more than one rank, raises until
+    the port's distributed module (``ROADMAP.md`` item 18)."""
+    nranks = getattr(group, "nranks", 1) if group is not None else (
+        torch.distributed.get_world_size()
+        if torch.distributed.is_available() and
+        torch.distributed.is_initialized() else 1)
+    if training and nranks > 1:
+        raise NotImplementedError("sync_batch_norm over more than one rank "
+                                  "waits for the port's distributed module")
+    return batch_norm(x, running_mean, running_var, weight, bias,
+                      training=training, momentum=momentum, epsilon=epsilon,
+                      data_format=data_format)
+
+
+def spectral_norm(weight, n_power_iterations=1, eps=1e-12, dim=0, name=None):
+    """``weight / sigma``, ``sigma`` from ``max(1, n_power_iterations)``
+    power iterations over ``weight`` as a ``[shape[dim], -1]`` matrix that
+    start from ones on every call (no kept ``u`` / ``v``), as in the
+    reference (:1839); the gradient flows through the iterations."""
+    (w,) = _amp("spectral_norm", weight)
+    wm = w.movedim(dim, 0).reshape(w.shape[dim], -1)
+    u = torch.ones(wm.shape[0], dtype=torch.float32, device=w.device)
+    v = torch.ones(wm.shape[1], dtype=torch.float32, device=w.device)
+    for _ in range(max(1, n_power_iterations)):
+        v = wm.T @ u
+        v = v / torch.clamp_min(torch.linalg.vector_norm(v), eps)
+        u = wm @ v
+        u = u / torch.clamp_min(torch.linalg.vector_norm(u), eps)
+    return w / torch.clamp_min(u @ wm @ v, eps)
+
+
 # ================= convolution =================
+
+_CHANNELS_LAST = ("NHWC", "NLC", "NDHWC")
+_TF_CONV = {1: TF.conv1d, 2: TF.conv2d, 3: TF.conv3d}
+_TF_TCONV = {1: TF.conv_transpose1d, 2: TF.conv_transpose2d,
+             3: TF.conv_transpose3d}
+
+
+def _channels_first(x, channels_last):
+    return x.movedim(-1, 1) if channels_last else x
+
+
+def _channels_back(x, channels_last):
+    return x.movedim(1, -1) if channels_last else x
+
 
 def _same_pads(size, k, s, d):
     """XLA's 'SAME' padding of one spatial dim: (low, high)."""
@@ -279,87 +389,698 @@ def _same_pads(size, k, s, d):
     return total // 2, total - total // 2
 
 
+def _conv_pads(padding, nd, spatial, kernel, stride, dilation, channels_last):
+    """(low, high) a spatial dim from the reference's padding forms
+    (``_conv_nd``, :460): "SAME" / "VALID", the full nested form, ``2 nd``
+    ints (low, high a dim), or an int or one int a dim."""
+    if isinstance(padding, str):
+        if padding.upper() == "VALID":
+            return ((0, 0),) * nd
+        if padding.upper() == "SAME":
+            return tuple(_same_pads(n, k, s, d) for n, k, s, d in
+                         zip(spatial, kernel, stride, dilation))
+        raise ValueError(f"bad padding {padding}")
+    if isinstance(padding, (list, tuple)) and padding and \
+            isinstance(padding[0], (list, tuple)):
+        sp = padding[1:-1] if channels_last else padding[2:]
+        return tuple(tuple(int(v) for v in p) for p in sp)
+    if isinstance(padding, (list, tuple)) and len(padding) == 2 * nd:
+        return tuple((int(padding[2 * i]), int(padding[2 * i + 1]))
+                     for i in range(nd))
+    return tuple((p, p) for p in _pair(padding, nd))
+
+
+def _conv_nd(name, x, weight, bias, stride, padding, dilation, groups, nd,
+             data_format):
+    x, weight, bias = _amp(name, x, weight, bias)
+    channels_last = data_format in _CHANNELS_LAST
+    x = _channels_first(x, channels_last)
+    stride, dilation = _pair(stride, nd), _pair(dilation, nd)
+    pads = _conv_pads(padding, nd, x.shape[2:], weight.shape[2:], stride,
+                      dilation, channels_last)
+    if all(lo == hi for lo, hi in pads):
+        out = _TF_CONV[nd](x, weight, bias, stride,
+                           tuple(lo for lo, _ in pads), dilation, groups)
+    else:
+        x = TF.pad(x, [v for lo_hi in reversed(pads) for v in lo_hi])
+        out = _TF_CONV[nd](x, weight, bias, stride, 0, dilation, groups)
+    return _channels_back(out, channels_last)
+
+
+def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCL", name=None):
+    """Convolution over ``[N, C, L]`` ("NCL") or ``[N, L, C]`` ("NLC")
+    with a ``[out, in / groups, k]`` weight; ``padding`` as
+    :func:`conv2d`'s, with two ints meaning (low, high)."""
+    return _conv_nd("conv1d", x, weight, bias, stride, padding, dilation,
+                    groups, 1, "NLC" if data_format == "NLC" else "NCL")
+
+
 def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCHW", name=None):
     """Convolution with a ``[out, in / groups, kh, kw]`` weight; ``padding``
     is an int, a pair, four ints ``[top, bottom, left, right]``, the full
-    ``[[0, 0], [0, 0], [t, b], [l, r]]`` form, or "SAME" / "VALID"."""
-    x, weight, bias = _amp("conv2d", x, weight, bias)
-    channels_last = data_format == "NHWC"
-    if channels_last:
-        x = x.permute(0, 3, 1, 2)
-    stride, dilation = _pair(stride), _pair(dilation)
-    kh, kw = weight.shape[-2:]
-    if isinstance(padding, str):
-        if padding.upper() == "VALID":
-            pads = ((0, 0), (0, 0))
-        elif padding.upper() == "SAME":
-            pads = tuple(_same_pads(n, k, s, d) for n, k, s, d in zip(
-                x.shape[-2:], (kh, kw), stride, dilation))
-        else:
-            raise ValueError(f"bad padding {padding}")
-    elif isinstance(padding, (list, tuple)) and padding and             isinstance(padding[0], (list, tuple)):
-        sp = padding[1:-1] if channels_last else padding[2:]
-        pads = tuple(tuple(int(v) for v in p) for p in sp)
-    elif isinstance(padding, (list, tuple)) and len(padding) == 4:
-        pads = ((int(padding[0]), int(padding[1])),
-                (int(padding[2]), int(padding[3])))
+    ``[[0, 0], [0, 0], [t, b], [l, r]]`` form, or "SAME" / "VALID" (XLA's
+    rule)."""
+    return _conv_nd("conv2d", x, weight, bias, stride, padding, dilation,
+                    groups, 2, data_format)
+
+
+def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCDHW", name=None):
+    """Convolution over "NCDHW" or "NDHWC" with a ``[out, in / groups, kd,
+    kh, kw]`` weight; ``padding`` as :func:`conv2d`'s, six ints meaning
+    (low, high) a dim."""
+    return _conv_nd("conv3d", x, weight, bias, stride, padding, dilation,
+                    groups, 3, data_format)
+
+
+def _tconv_output_padding(output_size, in_spatial, stride, padding, kernel,
+                          dilation):
+    """The output padding that makes a transposed convolution give
+    ``output_size`` (one of the ``stride`` sizes it can reach)."""
+    op = []
+    for o, i, s, p, k, d in zip(output_size, in_spatial, stride, padding,
+                                kernel, dilation):
+        base = (i - 1) * s - 2 * p + (k - 1) * d + 1
+        extra = int(o) - base
+        if not 0 <= extra < s:
+            raise ValueError(
+                f"output_size {o} unreachable: valid range "
+                f"[{base}, {base + s - 1}] for this stride/pad/kernel")
+        op.append(extra)
+    return tuple(op)
+
+
+def _conv_transpose(name, x, weight, bias, stride, padding, output_padding,
+                    groups, dilation, nd, channels_last, output_size):
+    """Transposed convolution with a ``[in, out / groups, k...]`` weight.
+    ``groups`` > 1 raises ``ValueError``, as the reference does: it swaps
+    the whole weight's first two axes before a grouped convolution, whose
+    feature counts then disagree."""
+    if groups != 1:
+        raise ValueError(f"{name}: groups={groups}: the transposed "
+                         "convolution takes groups=1 only (its weight's "
+                         "in / out axes are swapped as a whole)")
+    x, weight, bias = _amp(name, x, weight, bias)
+    x = _channels_first(x, channels_last)
+    stride, dilation = _pair(stride, nd), _pair(dilation, nd)
+    pad = _pair(padding, nd)
+    if output_size is not None:
+        sizes = output_size if isinstance(output_size, (list, tuple)) \
+            else [output_size]
+        op = _tconv_output_padding([int(v) for v in sizes][-nd:],
+                                   x.shape[2:], stride, pad,
+                                   weight.shape[2:], dilation)
     else:
-        pads = tuple((p, p) for p in _pair(padding))
-    if all(lo == hi for lo, hi in pads):
-        out = TF.conv2d(x, weight, bias, stride, tuple(lo for lo, _ in pads),
-                        dilation, groups)
-    else:
-        x = TF.pad(x, (pads[1][0], pads[1][1], pads[0][0], pads[0][1]))
-        out = TF.conv2d(x, weight, bias, stride, 0, dilation, groups)
-    return out.permute(0, 2, 3, 1) if channels_last else out
+        op = _pair(output_padding, nd)
+    out = _TF_TCONV[nd](x, weight, bias, stride, pad, op, 1, dilation)
+    return _channels_back(out, channels_last)
+
+
+def conv1d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     data_format="NCL", output_size=None, name=None):
+    """The transpose of :func:`conv1d` (weight ``[in, out, k]``);
+    ``output_size`` picks the output padding.  Named "conv2d_transpose"
+    to autocast, as the reference's goes through its 2-D form."""
+    return _conv_transpose("conv2d_transpose", x, weight, bias, stride,
+                           padding, output_padding, groups, dilation, 1,
+                           data_format == "NLC", output_size)
+
+
+def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     data_format="NCHW", output_size=None, name=None):
+    """The transpose of :func:`conv2d` (weight ``[in, out, kh, kw]``,
+    ``padding`` an int or a pair)."""
+    return _conv_transpose("conv2d_transpose", x, weight, bias, stride,
+                           padding, output_padding, groups, dilation, 2,
+                           data_format == "NHWC", output_size)
+
+
+def conv3d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     data_format="NCDHW", output_size=None, name=None):
+    """The transpose of :func:`conv3d` (weight ``[in, out, kd, kh, kw]``,
+    ``padding`` an int or one a dim)."""
+    return _conv_transpose("conv3d_transpose", x, weight, bias, stride,
+                           padding, output_padding, groups, dilation, 3,
+                           data_format == "NDHWC", output_size)
 
 
 # ================= pooling =================
+#
+# Every pool ignores ``ceil_mode``, as the reference's ``lax.reduce_window``
+# pools do; padding is symmetric, one int a dim.
 
-def _nchw(x, data_format):
-    return x.permute(0, 3, 1, 2) if data_format == "NHWC" else x
+_TF_MAX = {1: TF.max_pool1d, 2: TF.max_pool2d, 3: TF.max_pool3d}
+_TF_AVG = {1: TF.avg_pool1d, 2: TF.avg_pool2d, 3: TF.avg_pool3d}
 
 
-def _back(x, data_format):
-    return x.permute(0, 2, 3, 1) if data_format == "NHWC" else x
+def _pool_args(kernel_size, stride, padding, nd):
+    k = _pair(kernel_size, nd)
+    return k, _pair(stride if stride is not None else k, nd), \
+        _pair(padding, nd)
+
+
+def _pad_sym(x, pads, value):
+    """``x`` padded by ``pads[i]`` on both sides of its last
+    ``len(pads)`` dims with ``value``."""
+    if not any(pads):
+        return x
+    return TF.pad(x, [v for p in reversed(pads) for v in (p, p)],
+                  value=value)
+
+
+def _max_pool(name, x, kernel_size, stride, padding, nd, data_format):
+    """Max over windows of ``x`` padded with -inf."""
+    (x,) = _amp(name, x)
+    channels_last = data_format in _CHANNELS_LAST
+    k, s, p = _pool_args(kernel_size, stride, padding, nd)
+    out = _TF_MAX[nd](_pad_sym(_channels_first(x, channels_last), p,
+                               -math.inf), k, s)
+    return _channels_back(out, channels_last)
+
+
+def _avg_pool(name, x, kernel_size, stride, padding, nd, data_format,
+              exclusive, divisor_override):
+    """Window sums over ``divisor_override``, else (with ``exclusive``)
+    over the count of input entries in the window, else over the window's
+    size.  Padding beyond half a window, which torch's pools refuse, pads
+    first.  A channels-last input is pooled from a contiguous copy: on the
+    card, torch 2.11's avg_pool2d backward over a channels-last-strided
+    input with padding and ``count_include_pad`` gave wrong gradients
+    (``chip_smoke.py`` ``nn_spatial_parity``)."""
+    (x,) = _amp(name, x)
+    channels_last = data_format in _CHANNELS_LAST
+    x = _channels_first(x, channels_last).contiguous()
+    k, s, p = _pool_args(kernel_size, stride, padding, nd)
+    extra = {} if nd == 1 else {"divisor_override": divisor_override or None}
+    if all(pi <= ki // 2 for pi, ki in zip(p, k)):
+        out = _TF_AVG[nd](x, k, s, p, count_include_pad=not exclusive,
+                          **extra)
+    else:
+        out = _TF_AVG[nd](_pad_sym(x, p, 0.0), k, s)
+        if divisor_override:
+            out = out * (math.prod(k) / divisor_override)
+        elif exclusive:
+            ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                              device=x.device)
+            out = out / _TF_AVG[nd](_pad_sym(ones, p, 0.0), k, s)
+    return _channels_back(out, channels_last)
+
+
+def max_pool1d(x, kernel_size, stride=None, padding=0, return_mask=False,
+               ceil_mode=False, name=None):
+    """Max pooling over "NCL"; ``return_mask`` is ignored, as in the
+    reference."""
+    return _max_pool("max_pool1d", x, kernel_size, stride, padding, 1, "NCL")
 
 
 def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                return_mask=False, data_format="NCHW", name=None):
-    """Max over windows padded with -inf (``ceil_mode`` is ignored, as in
-    the reference)."""
+    """Max over windows padded with -inf; ``return_mask`` gives
+    :func:`max_pool2d_with_index`'s ``(out, index)`` (over "NCHW")."""
     if return_mask:
-        raise NotImplementedError("max_pool2d(return_mask=True) is not "
-                                  "ported yet")
-    (x,) = _amp("max_pool2d", x)
-    k = _pair(kernel_size)
-    out = TF.max_pool2d(_nchw(x, data_format), k,
-                        _pair(stride if stride is not None else k),
-                        _pair(padding))
-    return _back(out, data_format)
+        return max_pool2d_with_index(x, kernel_size, stride, padding)
+    return _max_pool("max_pool2d", x, kernel_size, stride, padding, 2,
+                     data_format)
+
+
+def max_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               return_mask=False, data_format="NCDHW", name=None):
+    if return_mask:
+        return max_pool3d_with_index(x, kernel_size, stride, padding)
+    return _max_pool("max_pool3d", x, kernel_size, stride, padding, 3,
+                     data_format)
+
+
+def avg_pool1d(x, kernel_size, stride=None, padding=0, exclusive=True,
+               ceil_mode=False, name=None):
+    """Mean pooling over "NCL" that always divides by the window's size:
+    ``exclusive`` is ignored, as in the reference (:612)."""
+    return _avg_pool("avg_pool1d", x, kernel_size, stride, padding, 1, "NCL",
+                     False, None)
 
 
 def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                exclusive=True, divisor_override=None, data_format="NCHW",
                name=None):
-    """Mean over windows; with ``exclusive`` the padding is not counted
-    (``ceil_mode`` is ignored, as in the reference)."""
-    (x,) = _amp("avg_pool2d", x)
-    k = _pair(kernel_size)
-    out = TF.avg_pool2d(_nchw(x, data_format), k,
-                        _pair(stride if stride is not None else k),
-                        _pair(padding), count_include_pad=not exclusive,
-                        divisor_override=divisor_override or None)
-    return _back(out, data_format)
+    """Mean over windows; with ``exclusive`` the padding is not counted."""
+    return _avg_pool("avg_pool2d", x, kernel_size, stride, padding, 2,
+                     data_format, exclusive, divisor_override)
+
+
+def avg_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True, divisor_override=None, data_format="NCDHW",
+               name=None):
+    return _avg_pool("avg_pool3d", x, kernel_size, stride, padding, 3,
+                     data_format, exclusive, divisor_override)
+
+
+def _max_pool_with_index(name, x, kernel_size, stride, padding, nd):
+    """Max pooling over "NC..." and the int32 flat spatial index of each
+    window's largest entry in the unpadded input (the first, on a tie)."""
+    (x,) = _amp(name, x)
+    k, s, p = _pool_args(kernel_size, stride, padding, nd)
+    out, idx = _TF_MAX[nd](_pad_sym(x, p, -math.inf), k, s,
+                           return_indices=True)
+    if any(p):
+        padded = [n + 2 * pi for n, pi in zip(x.shape[2:], p)]
+        coords = []
+        for n in reversed(padded):
+            coords.append(idx % n)
+            idx = torch.div(idx, n, rounding_mode="floor")
+        idx = torch.zeros_like(coords[0])
+        for c, n, pi in zip(reversed(coords), x.shape[2:], p):
+            idx = idx * n + (c - pi)
+    return out, idx.to(torch.int32)
+
+
+def max_pool2d_with_index(x, kernel_size, stride=None, padding=0, name=None):
+    return _max_pool_with_index("max_pool2d_with_index", x, kernel_size,
+                                stride, padding, 2)
+
+
+def max_pool3d_with_index(x, kernel_size, stride=None, padding=0, name=None):
+    return _max_pool_with_index("max_pool3d_with_index", x, kernel_size,
+                                stride, padding, 3)
+
+
+def _max_unpool(name, x, indices, kernel_size, stride, padding, nd,
+                output_size):
+    """Each pooled value added at its flat spatial index of a zero output
+    of ``output_size`` (or ``(n - 1) s - 2 p + k`` a dim): where windows
+    overlap, a repeated index sums its values, as the reference's
+    ``.at[...].add`` does (torch's ``max_unpool`` writes one)."""
+    (x,) = _amp(name, x)
+    k, s, p = _pool_args(kernel_size, stride, padding, nd)
+    if output_size is not None:
+        sizes = output_size if isinstance(output_size, (list, tuple)) \
+            else [output_size]
+        out_sp = [int(v) for v in sizes][-nd:]
+    else:
+        out_sp = [(n - 1) * si - 2 * pi + ki
+                  for n, ki, si, pi in zip(x.shape[2:], k, s, p)]
+    n, c = x.shape[:2]
+    out = x.new_zeros((n, c, math.prod(out_sp))).scatter_add(
+        2, indices.reshape(n, c, -1).long(), x.reshape(n, c, -1))
+    return out.reshape(n, c, *out_sp)
+
+
+def max_unpool1d(x, indices, kernel_size, stride=None, padding=0,
+                 data_format="NCL", output_size=None, name=None):
+    return _max_unpool("max_unpool1d", x, indices, kernel_size, stride,
+                       padding, 1, output_size)
+
+
+def max_unpool2d(x, indices, kernel_size, stride=None, padding=0,
+                 data_format="NCHW", output_size=None, name=None):
+    return _max_unpool("max_unpool2d", x, indices, kernel_size, stride,
+                       padding, 2, output_size)
+
+
+def max_unpool3d(x, indices, kernel_size, stride=None, padding=0,
+                 data_format="NCDHW", output_size=None, name=None):
+    return _max_unpool("max_unpool3d", x, indices, kernel_size, stride,
+                       padding, 3, output_size)
+
+
+def adaptive_avg_pool1d(x, output_size, name=None):
+    """Mean over torch's adaptive bins (bin i of n spans [floor(i n_in /
+    n), ceil((i + 1) n_in / n))), the bins the reference builds."""
+    (x,) = _amp("adaptive_avg_pool1d", x)
+    return TF.adaptive_avg_pool1d(x, int(output_size))
 
 
 def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
-    """Mean over torch's adaptive bins (bin i of n spans [floor(i n_in /
-    n), ceil((i + 1) n_in / n))), the bins the reference builds."""
     (x,) = _amp("adaptive_avg_pool2d", x)
-    out = TF.adaptive_avg_pool2d(_nchw(x, data_format), _pair(output_size))
-    return _back(out, data_format)
+    channels_last = data_format == "NHWC"
+    out = TF.adaptive_avg_pool2d(_channels_first(x, channels_last),
+                                 _pair(output_size))
+    return _channels_back(out, channels_last)
+
+
+def adaptive_avg_pool3d(x, output_size, data_format="NCDHW", name=None):
+    """Over dims 2-4 whatever ``data_format`` says, as in the reference
+    (:1948)."""
+    (x,) = _amp("adaptive_avg_pool3d", x)
+    return TF.adaptive_avg_pool3d(x, _pair(output_size, 3))
+
+
+def adaptive_max_pool1d(x, output_size, return_mask=False, name=None):
+    """Max over the adaptive bins; ``return_mask`` is ignored, as in the
+    reference (so are the 2-D and 3-D forms')."""
+    (x,) = _amp("adaptive_max_pool1d", x)
+    return TF.adaptive_max_pool1d(x, int(output_size))
+
+
+def adaptive_max_pool2d(x, output_size, return_mask=False, name=None):
+    (x,) = _amp("adaptive_max_pool2d", x)
+    return TF.adaptive_max_pool2d(x, _pair(output_size))
+
+
+def adaptive_max_pool3d(x, output_size, return_mask=False, name=None):
+    (x,) = _amp("adaptive_max_pool3d", x)
+    return TF.adaptive_max_pool3d(x, _pair(output_size, 3))
+
+
+def lp_pool1d(x, norm_type, kernel_size, stride=None, padding=0,
+              ceil_mode=False, data_format="NCL", name=None):
+    """``(sum |x|^p)^(1/p)`` over windows: :func:`avg_pool1d` of ``|x|^p``
+    times the window's size."""
+    (x,) = _amp("lp_pow", x)
+    ks = kernel_size if isinstance(kernel_size, int) else kernel_size[0]
+    pooled = avg_pool1d(x.abs() ** float(norm_type), kernel_size, stride,
+                        padding)
+    (pooled,) = _amp("lp_root", pooled)
+    return (pooled * ks) ** (1.0 / float(norm_type))
+
+
+def lp_pool2d(x, norm_type, kernel_size, stride=None, padding=0,
+              ceil_mode=False, data_format="NCHW", name=None):
+    """As :func:`lp_pool1d` over "NCHW" (``data_format`` is ignored): the
+    exclusive mean of :func:`avg_pool2d` times the window's full size, so
+    with padding a border window's sum is scaled up, as in the reference
+    (:2176)."""
+    (x,) = _amp("lp_pow", x)
+    count = kernel_size * kernel_size if isinstance(kernel_size, int) \
+        else kernel_size[0] * kernel_size[1]
+    pooled = avg_pool2d(x.abs() ** float(norm_type), kernel_size, stride,
+                        padding, exclusive=True)
+    (pooled,) = _amp("lp_root", pooled)
+    return (pooled * count) ** (1.0 / float(norm_type))
+
+
+def _fractional_edges(n_in, n_out, u):
+    """The reference's bin edges (:1799): ``ceil(alpha (i + u)) -
+    ceil(alpha u)`` with ``alpha = n_in / n_out``, the last at ``n_in``."""
+    alpha = n_in / n_out
+    i = np.arange(n_out + 1)
+    e = np.ceil(alpha * (i + u)).astype(int) - int(np.ceil(alpha * u))
+    e[-1] = n_in
+    return np.clip(e, 0, n_in)
+
+
+def fractional_max_pool2d(x, output_size, kernel_size=None, random_u=None,
+                          return_mask=False, name=None):
+    """Max over pseudo-random bins (Graham 2014) of "NCHW" ``x``, the bins
+    from ``random_u`` or, without it, from a draw of the CPU generator
+    (not threefry's); ``kernel_size`` and ``return_mask`` are ignored.  A
+    bin's max is taken over its rows, then its columns."""
+    oh, ow = (output_size,) * 2 if isinstance(output_size, int) \
+        else output_size
+    u = float(random_u) if random_u is not None else float(
+        torch.rand((), generator=generator("cpu")))
+    (x,) = _amp("fractional_max_pool2d", x)
+    eh = _fractional_edges(x.shape[2], oh, u)
+    ew = _fractional_edges(x.shape[3], ow, u)
+    x = torch.stack([x[:, :, eh[i]:max(eh[i + 1], eh[i] + 1)].amax(dim=2)
+                     for i in range(oh)], dim=2)
+    return torch.stack([x[..., ew[j]:max(ew[j + 1], ew[j] + 1)].amax(dim=-1)
+                        for j in range(ow)], dim=-1)
+
+
+def fractional_max_pool3d(x, output_size, kernel_size=None, random_u=None,
+                          return_mask=False, name=None):
+    """The reference's composition (:1823): (h, w) pooled with depth folded
+    into the channels, then depth pooled over unit bins of the folded
+    ``oh * ow`` (each call with its own draw when ``random_u`` is None)."""
+    od, oh, ow = (output_size,) * 3 if isinstance(output_size, int) \
+        else output_size
+    n, c, d, h, w = x.shape
+    hw = fractional_max_pool2d(x.reshape(n, c * d, h, w), (oh, ow),
+                               random_u=random_u)
+    out = fractional_max_pool2d(hw.reshape(n, c, d, oh * ow),
+                                (od, oh * ow), random_u=random_u)
+    return out.reshape(n, c, od, oh, ow)
+
+
+# ================= padding / resampling =================
+
+def pad(x, pad, mode="constant", value=0.0, data_format="NCHW",  # noqa: A002
+        name=None):
+    """:func:`paddle_tpu_torch.ops.pad`."""
+    return _pad(x, pad, mode=mode, value=value, data_format=data_format)
+
+
+def zeropad2d(x, padding, data_format="NCHW", name=None):
+    return pad(x, _pair(padding, 4), mode="constant", value=0.0,
+               data_format=data_format)
+
+
+# resampling matrices and gather indices, one a (n_in, n_out, rule, dtype,
+# device): a warm step makes no host-to-device copy
+_RESAMPLE = {}
+
+
+def _keys_cubic(x):
+    """Keys' cubic with a = -0.5 (``jax.image``'s; torch's bicubic takes
+    -0.75)."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return np.where(x >= 2.0, 0.0, out)
+
+
+def _scale_matrix(n_in, n_out, rule):
+    """``jax.image.resize``'s ``[n_out, n_in]`` weights for ``rule``
+    ("linear" or "cubic"), in float64: half-pixel sample points, the kernel
+    widened by the shrink factor when shrinking (antialiasing), each row
+    normalised to sum 1."""
+    inv = n_in / n_out
+    sample = (np.arange(n_out, dtype=np.float64) + 0.5) * inv - 0.5
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float64)[:, None])
+    x = x / max(inv, 1.0)
+    w = np.maximum(0.0, 1.0 - x) if rule == "linear" else _keys_cubic(x)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, 0.0).T
+
+
+def _corner_matrix(n_in, n_out):
+    """The reference's ``align_corners=True`` two-tap matrix (``_ac_weights``,
+    :702), its sample points ``i (n_in - 1) / (n_out - 1)`` in float32."""
+    w = np.zeros((n_out, n_in), np.float32)
+    if n_out == 1 or n_in == 1:
+        w[:, 0] = 1.0
+        return w
+    src = np.arange(n_out, dtype=np.float32) * np.float32(n_in - 1) / \
+        np.float32(n_out - 1)
+    lo = np.clip(np.floor(src).astype(np.int32), 0, n_in - 2)
+    frac = src - lo.astype(np.float32)
+    rows = np.arange(n_out)
+    np.add.at(w, (rows, lo), 1.0 - frac)
+    np.add.at(w, (rows, lo + 1), frac)
+    return w
+
+
+def _nearest_index(n_in, n_out):
+    """``jax.image``'s nearest source rows, ``floor((i + 0.5) n_in /
+    n_out)`` in float32 (torch's "nearest-exact", not its "nearest")."""
+    f = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * \
+        np.float32(n_in) / np.float32(n_out)
+    return np.floor(f).astype(np.int64)
+
+
+def _resample_tensor(n_in, n_out, rule, dtype, device):
+    key = (n_in, n_out, rule, dtype, str(device))
+    t = _RESAMPLE.get(key)
+    if t is None:
+        if rule == "nearest":
+            t = torch.from_numpy(_nearest_index(n_in, n_out)).to(device)
+        else:
+            w = _corner_matrix(n_in, n_out) if rule == "corners" else \
+                _scale_matrix(n_in, n_out, rule)
+            t = torch.from_numpy(np.ascontiguousarray(w.T)).to(
+                device=device, dtype=dtype)
+        _RESAMPLE[key] = t
+    return t
+
+
+def interpolate(x, size=None, scale_factor=None, mode="nearest",
+                align_corners=False, align_mode=0, data_format="NCHW",
+                name=None):
+    """Resampling by the reference's rule (:689), which is
+    ``jax.image.resize``, not torch's ``interpolate``: "nearest" takes row
+    ``floor((i + 0.5) n_in / n_out)``; "linear" / "bilinear" /
+    "trilinear" / "area" are one separable linear resample with half-pixel
+    centres that antialiases when it shrinks, "bicubic" the same with
+    Keys' cubic (a = -0.5); with ``align_corners`` the linear modes take
+    the two-tap corner-aligned matrix.  ``align_mode`` is ignored; a
+    ``scale_factor`` gives ``int(n * f)``.  Each changed dim is one matmul
+    with a cached ``[n_in, n_out]`` matrix (a gather for "nearest")."""
+    (x,) = _amp("interpolate", x)
+    nd = x.ndim - 2
+    first = data_format.startswith("NC")
+    axes = list(range(2, x.ndim)) if first else list(range(1, x.ndim - 1))
+    if size is None:
+        sf = scale_factor if isinstance(scale_factor, (list, tuple)) \
+            else [scale_factor] * nd
+        size = [int(x.shape[a] * f) for a, f in zip(axes, sf)]
+    size = [int(s) for s in (size if isinstance(size, (list, tuple))
+                             else [size] * nd)]
+    rule = {"nearest": "nearest", "bilinear": "linear", "linear": "linear",
+            "trilinear": "linear", "bicubic": "cubic", "area": "linear"}[mode]
+    if align_corners and rule == "linear":
+        rule = "corners"
+    out = x
+    for ax, n_out in zip(axes, size):
+        n_in = out.shape[ax]
+        if n_in == n_out:
+            continue
+        t = _resample_tensor(n_in, n_out, rule, out.dtype, out.device)
+        if rule == "nearest":
+            out = out.index_select(ax, t)
+        else:
+            out = torch.matmul(out.movedim(ax, -1), t).movedim(-1, ax)
+    return out
+
+
+def upsample(x, size=None, scale_factor=None, mode="nearest",
+             align_corners=False, align_mode=0, data_format="NCHW",
+             name=None):
+    return interpolate(x, size, scale_factor, mode, align_corners,
+                       align_mode, data_format)
+
+
+def pixel_shuffle(x, upscale_factor, data_format="NCHW", name=None):
+    """``[N, C r^2, H, W] -> [N, C, H r, W r]``; ``data_format`` is
+    ignored, as in the reference."""
+    (x,) = _amp("pixel_shuffle", x)
+    return TF.pixel_shuffle(x, int(upscale_factor))
+
+
+def pixel_unshuffle(x, downscale_factor, data_format="NCHW", name=None):
+    """The inverse of :func:`pixel_shuffle` (``data_format`` ignored)."""
+    (x,) = _amp("pixel_unshuffle", x)
+    return TF.pixel_unshuffle(x, int(downscale_factor))
+
+
+def channel_shuffle(x, groups, data_format="NCHW", name=None):
+    """ShuffleNet's shuffle: channels as ``[groups, C / groups]``,
+    transposed."""
+    (x,) = _amp("channel_shuffle", x)
+    g = int(groups)
+    if data_format == "NCHW":
+        n, c, h, w = x.shape
+        return x.reshape(n, g, c // g, h, w).transpose(1, 2).reshape(x.shape)
+    n, h, w, c = x.shape
+    return x.reshape(n, h, w, g, c // g).transpose(3, 4).reshape(x.shape)
+
+
+def temporal_shift(x, seg_num, shift_ratio=0.25, data_format="NCHW",
+                   name=None):
+    """TSM's shift over ``[N T, C, H, W]``: the first ``int(C ratio)``
+    channels one segment later in time, the next as many one earlier, zero
+    where nothing shifts in; ``data_format`` is ignored, as in the
+    reference."""
+    (x,) = _amp("temporal_shift", x)
+    nt, c, h, w = x.shape
+    a = x.reshape(nt // seg_num, seg_num, c, h, w)
+    fold = int(c * shift_ratio)
+    back = TF.pad(a[:, :-1, :fold], (0, 0, 0, 0, 0, 0, 1, 0))
+    ahead = TF.pad(a[:, 1:, fold:2 * fold], (0, 0, 0, 0, 0, 0, 0, 1))
+    return torch.cat([back, ahead, a[:, :, 2 * fold:]], dim=2).reshape(
+        nt, c, h, w)
+
+
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
+    """im2col: ``[N, C, H, W] -> [N, C kh kw, L]`` (symmetric padding, one
+    int a dim)."""
+    (x,) = _amp("unfold", x)
+    return TF.unfold(x, _pair(kernel_sizes), _pair(dilations),
+                     _pair(paddings), _pair(strides))
+
+
+def fold(x, output_sizes, kernel_sizes, strides=1, paddings=0, dilations=1,
+         name=None):
+    """col2im, the adjoint of :func:`unfold`: overlapping patches sum."""
+    (x,) = _amp("fold", x)
+    return TF.fold(x, _pair(output_sizes), _pair(kernel_sizes),
+                   _pair(dilations), _pair(paddings), _pair(strides))
+
+
+def affine_grid(theta, out_shape, align_corners=True, name=None):
+    """The ``[N, H, W, 2]`` sampling grid of ``[N, 2, 3]`` affine matrices
+    for ``out_shape`` ``[N, C, H, W]``, in float32 (the reference's is
+    float64 under its x64 mode)."""
+    if torch.is_tensor(out_shape):
+        out_shape = out_shape.tolist()
+    _, _, h, w = [int(v) for v in out_shape]
+    (theta,) = _amp("affine_grid", theta)
+    dev = theta.device
+
+    def line(n):
+        if align_corners:
+            return torch.linspace(-1.0, 1.0, n, device=dev)
+        return (torch.arange(n, device=dev) * 2 + 1) / n - 1.0
+    ys, xs = line(h), line(w)
+    base = torch.stack([xs[None, :].expand(h, w), ys[:, None].expand(h, w),
+                        torch.ones((h, w), device=dev)], dim=-1)
+    return torch.einsum("hwk,nik->nhwi", base, theta.float())
+
+
+def grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                align_corners=True, name=None):
+    """Sample ``[N, C, H, W]`` at ``grid`` ``[N, Hg, Wg, 2]`` (x, y in [-1,
+    1]) by the reference's gathers (:1492): "bilinear" or "nearest" (half
+    to even); "zeros" zeroes out-of-bounds corners, "border" clamps the
+    corner indices, "reflection" reflects the coordinates first."""
+    if mode not in ("bilinear", "nearest"):
+        raise ValueError(f"grid_sample mode {mode!r} not supported")
+    if padding_mode not in ("zeros", "border", "reflection"):
+        raise ValueError(f"grid_sample padding_mode {padding_mode!r}")
+    x, grid = _amp("grid_sample", x, grid)
+    n, c, h, w = x.shape
+    hg, wg = grid.shape[1:3]
+
+    def unnormalize(coord, size):
+        if align_corners:
+            return (coord + 1) * 0.5 * (size - 1)
+        return ((coord + 1) * size - 1) * 0.5
+
+    def reflect(coord, size):
+        if align_corners:
+            if size == 1:
+                return torch.zeros_like(coord)
+            span = 2 * (size - 1)
+            m = torch.remainder(coord, span)
+            return torch.where(m > size - 1, span - m, m)
+        span = 2 * size
+        m = torch.remainder(coord + 0.5, span)
+        return torch.clamp(torch.where(m > size - 0.5, span - m, m) - 0.5,
+                           0, size - 1)
+
+    gx = unnormalize(grid[..., 0].float(), w)
+    gy = unnormalize(grid[..., 1].float(), h)
+    if padding_mode == "reflection":
+        gx, gy = reflect(gx, w), reflect(gy, h)
+    flat = x.reshape(n, c, h * w)
+
+    def inb(iy, ix):
+        return ((ix >= 0) & (ix <= w - 1) & (iy >= 0) &
+                (iy <= h - 1)).to(x.dtype)
+
+    def sample(iy, ix):
+        idx = (iy.clamp(0, h - 1) * w + ix.clamp(0, w - 1)).reshape(n, 1, -1)
+        vals = torch.gather(flat, 2, idx.expand(n, c, -1)).reshape(
+            n, c, hg, wg)
+        if padding_mode == "zeros":
+            vals = vals * inb(iy, ix).reshape(n, 1, hg, wg)
+        return vals
+
+    if mode == "nearest":
+        return sample(torch.round(gy).long(), torch.round(gx).long())
+    x0, y0 = torch.floor(gx).long(), torch.floor(gy).long()
+    x1, y1 = x0 + 1, y0 + 1
+    wx = (gx - x0).to(x.dtype).reshape(n, 1, hg, wg)
+    wy = (gy - y0).to(x.dtype).reshape(n, 1, hg, wg)
+    top = sample(y0, x0) * (1 - wx) + sample(y0, x1) * wx
+    bot = sample(y1, x0) * (1 - wx) + sample(y1, x1) * wx
+    return top * (1 - wy) + bot * wy
 
 
 # ================= losses =================
@@ -1282,30 +2003,41 @@ def rnnt_loss(logits, labels, input_lengths, label_lengths, blank=0,
     return _reduce_loss(loss, reduction)
 
 __all__ = [
-    "adaptive_avg_pool2d", "adaptive_log_softmax_with_loss",
-    "alpha_dropout", "avg_pool2d", "batch_norm", "bilinear",
-    "binary_cross_entropy", "binary_cross_entropy_with_logits", "celu",
-    "class_center_sample", "conv2d", "cosine_embedding_loss",
-    "cosine_similarity", "cross_entropy", "ctc_loss", "dice_loss",
-    "dropout", "dropout2d", "dropout3d", "edit_distance", "elu", "elu_",
-    "embedding", "feature_alpha_dropout", "flash_attention",
-    "flash_attn_qkvpacked", "flash_attn_varlen_qkvpacked",
-    "flashmask_attention", "fused_softmax_mask",
-    "fused_softmax_mask_upper_triangle", "gather_tree",
-    "gaussian_nll_loss", "gelu", "glu", "gumbel_softmax", "hardshrink",
-    "hardsigmoid", "hardswish", "hardtanh", "hardtanh_",
-    "hinge_embedding_loss", "hsigmoid_loss", "huber_loss", "kl_div",
-    "l1_loss", "label_smooth", "layer_norm", "leaky_relu", "leaky_relu_",
-    "linear", "log_loss", "log_sigmoid", "log_softmax",
-    "margin_cross_entropy", "margin_ranking_loss", "max_pool2d", "maxout",
-    "mish", "mse_loss", "multi_label_soft_margin_loss",
-    "multi_margin_loss", "nll_loss", "normalize", "npair_loss", "one_hot",
-    "pairwise_distance", "poisson_nll_loss", "prelu", "relu", "relu6",
-    "relu_", "rms_norm", "rnnt_loss", "rrelu",
+    "adaptive_avg_pool1d", "adaptive_avg_pool2d", "adaptive_avg_pool3d",
+    "adaptive_log_softmax_with_loss", "adaptive_max_pool1d",
+    "adaptive_max_pool2d", "adaptive_max_pool3d", "affine_grid",
+    "alpha_dropout", "avg_pool1d", "avg_pool2d", "avg_pool3d",
+    "batch_norm", "bilinear", "binary_cross_entropy",
+    "binary_cross_entropy_with_logits", "celu", "channel_shuffle",
+    "class_center_sample", "conv1d", "conv1d_transpose", "conv2d",
+    "conv2d_transpose", "conv3d", "conv3d_transpose",
+    "cosine_embedding_loss", "cosine_similarity", "cross_entropy",
+    "ctc_loss", "dice_loss", "dropout", "dropout2d", "dropout3d",
+    "edit_distance", "elu", "elu_", "embedding", "feature_alpha_dropout",
+    "flash_attention", "flash_attn_qkvpacked",
+    "flash_attn_varlen_qkvpacked", "flashmask_attention", "fold",
+    "fractional_max_pool2d", "fractional_max_pool3d",
+    "fused_softmax_mask", "fused_softmax_mask_upper_triangle",
+    "gather_tree", "gaussian_nll_loss", "gelu", "glu", "grid_sample",
+    "group_norm", "gumbel_softmax", "hardshrink", "hardsigmoid",
+    "hardswish", "hardtanh", "hardtanh_", "hinge_embedding_loss",
+    "hsigmoid_loss", "huber_loss", "instance_norm", "interpolate",
+    "kl_div", "l1_loss", "label_smooth", "layer_norm", "leaky_relu",
+    "leaky_relu_", "linear", "local_response_norm", "log_loss",
+    "log_sigmoid", "log_softmax", "lp_pool1d", "lp_pool2d",
+    "margin_cross_entropy", "margin_ranking_loss", "max_pool1d",
+    "max_pool2d", "max_pool2d_with_index", "max_pool3d",
+    "max_pool3d_with_index", "max_unpool1d", "max_unpool2d",
+    "max_unpool3d", "maxout", "mish", "mse_loss",
+    "multi_label_soft_margin_loss", "multi_margin_loss", "nll_loss",
+    "normalize", "npair_loss", "one_hot", "pad", "pairwise_distance",
+    "pixel_shuffle", "pixel_unshuffle", "poisson_nll_loss", "prelu",
+    "relu", "relu6", "relu_", "rms_norm", "rnnt_loss", "rrelu",
     "scaled_dot_product_attention", "selu", "sequence_mask", "sigmoid",
     "sigmoid_focal_loss", "silu", "smooth_l1_loss", "soft_margin_loss",
     "softmax", "softmax_", "softmax_with_cross_entropy", "softplus",
-    "softshrink", "softsign", "sparse_attention", "square_error_cost",
-    "swiglu", "swish", "tanh", "tanh_", "tanh_shrink", "tanhshrink",
+    "softshrink", "softsign", "sparse_attention", "spectral_norm",
+    "square_error_cost", "swiglu", "swish", "sync_batch_norm", "tanh",
+    "tanh_", "tanh_shrink", "tanhshrink", "temporal_shift",
     "thresholded_relu", "thresholded_relu_", "triplet_margin_loss",
-    "triplet_margin_with_distance_loss"]
+    "triplet_margin_with_distance_loss", "unfold", "upsample", "zeropad2d"]

@@ -5,9 +5,9 @@ level.  The rest of the reference's ops wait for a later slice
 
 from .creation import arange, full, ones, zeros
 from .linalg import matmul
-from .manipulation import concat, flatten, reshape
+from .manipulation import concat, flatten, pad, reshape
 from .math import add
 from .random_ops import randint, randn
 
 __all__ = ["add", "arange", "concat", "flatten", "full", "matmul", "ones",
-           "randint", "randn", "reshape", "zeros"]
+           "pad", "randint", "randn", "reshape", "zeros"]

@@ -584,36 +584,9 @@ def test_dynamic_decode_over_the_lm(lm_pair):
 
 # ---------------- the surface ----------------
 
-# Item 17.3b (ROADMAP.md): the spatial half of the reference's nn, the one
-# part of its surface the port lacks.
-MISSING_17_3B = {
-    "nn": {
-        "AdaptiveAvgPool1D", "AdaptiveAvgPool3D", "AdaptiveMaxPool1D",
-        "AdaptiveMaxPool2D", "AdaptiveMaxPool3D", "AvgPool1D", "AvgPool3D",
-        "BatchNorm3D", "ChannelShuffle", "Conv1D", "Conv1DTranspose",
-        "Conv2DTranspose", "Conv3D", "Conv3DTranspose", "Fold",
-        "FractionalMaxPool2D", "FractionalMaxPool3D", "GroupNorm",
-        "InstanceNorm1D", "InstanceNorm2D", "InstanceNorm3D", "LPPool1D",
-        "LPPool2D", "LocalResponseNorm", "MaxPool1D", "MaxPool3D",
-        "MaxUnPool1D", "MaxUnPool2D", "MaxUnPool3D", "Pad1D", "Pad2D",
-        "Pad3D", "PixelShuffle", "PixelUnshuffle", "SpectralNorm",
-        "SyncBatchNorm", "Unfold", "Upsample", "UpsamplingBilinear2D",
-        "UpsamplingNearest2D", "ZeroPad1D", "ZeroPad2D", "ZeroPad3D"},
-    "functional": {
-        "adaptive_avg_pool1d", "adaptive_avg_pool3d", "adaptive_max_pool1d",
-        "adaptive_max_pool2d", "adaptive_max_pool3d", "affine_grid",
-        "avg_pool1d", "avg_pool3d", "channel_shuffle", "conv1d",
-        "conv1d_transpose", "conv2d_transpose", "conv3d", "conv3d_transpose",
-        "fold", "fractional_max_pool2d", "fractional_max_pool3d",
-        "grid_sample", "group_norm", "instance_norm", "interpolate",
-        "local_response_norm", "lp_pool1d", "lp_pool2d", "max_pool1d",
-        "max_pool2d_with_index", "max_pool3d", "max_pool3d_with_index",
-        "max_unpool1d", "max_unpool2d", "max_unpool3d", "pad",
-        "pixel_shuffle", "pixel_unshuffle", "spectral_norm",
-        "sync_batch_norm", "temporal_shift", "unfold", "upsample",
-        "zeropad2d"},
-    "utils": set(),
-}
+# Item 17.3b (ROADMAP.md), the spatial half of the reference's nn: ported,
+# so nothing of the surface is missing.
+MISSING_17_3B = {"nn": set(), "functional": set(), "utils": set()}
 # helpers the reference's modules import for themselves, not API
 NOT_API = {"Tensor", "apply_op"}
 
@@ -629,14 +602,15 @@ def _public(module, owner, keep=()):
 
 def test_nn_surface_lacks_only_17_3b():
     """The port's ``nn``, ``nn.functional`` and ``nn.utils`` have every
-    name of the reference's but item 17.3b's (43 classes, 40 functions):
-    ``nn`` keeps its ``Tensor`` and ``Parameter`` re-exports."""
+    name of the reference's: item 17.3b's 43 classes and 40 functions are
+    in, so none is missing.  ``nn`` keeps its ``Tensor`` and ``Parameter``
+    re-exports."""
     import paddle_tpu.nn.functional as jF
     import paddle_tpu.nn.utils as jU
     import paddle_tpu_torch.nn.functional as tF
     import paddle_tpu_torch.nn.utils as tU
-    assert len(MISSING_17_3B["nn"]) == 43
-    assert len(MISSING_17_3B["functional"]) == 40
+    assert len(MISSING_17_3B["nn"]) == 0
+    assert len(MISSING_17_3B["functional"]) == 0
     for key, ref, port, drop in (("nn", jnn, tnn, set()),
                                  ("functional", jF, tF, NOT_API),
                                  ("utils", jU, tU, NOT_API)):
