@@ -428,6 +428,26 @@ is caught; there is no ``ok`` line unless every phase passed):
     fp32 with TF32 off (DDPM at B 2, the 3D U-Net on a 92^3 tile), then
     warm steps with 0 builds and 0 syncs; ms a step, samples/s, busy and
     idle share, launches a step, busy ms by op family, peak memory.
+13p. ``ops_parity`` — every op of the port's ``ops`` (the table of
+    ``ops/_generated.py``, the math, creation, search, shape, gather and
+    scatter, linalg, random, extras and compat ops), the ``Tensor`` method
+    table, the operator dunders and the ``op_`` family on the card against
+    the port on the CPU, fp32 with TF32 off: floats by train_parity's rule
+    at NN_PARITY_TOL, integer, bool and index results exactly,
+    decompositions by reconstruction, random ops by support and moments,
+    each ``op_`` returning its input with its op's value; the worst case
+    and its name.  No Pallas kernel is on this path.
+13q. ``tensor_paths`` — (a) the Transformer base (SEQ_MODELS' widths, O1
+    bf16, Adam over NoamDecay) trained twice, interleaved, from the same
+    parameters and generator state: on a batch made by ``to_tensor`` and on
+    the same batch as plain tensors; a bit-for-bit equal first-step loss,
+    equal launches a step, 0 builds and 0 syncs in the timed steps; ms a
+    step each, idle share, ``Tensor.__torch_function__`` entries a step;
+    (b) the tensor's card-side surface (``place``, ``cpu()`` / ``cuda()``,
+    ``numpy()`` one marked sync, ``astype``, ``stop_gradient``,
+    ``set_value``, the ``shape`` / ``size`` idioms, one marked sync each
+    for ``unique``, ``nonzero``, ``masked_select``, ``bincount``,
+    ``histogram`` and a mask read).
 14. ``kernel_wo`` — ptxas's record of the 21 kernels of
     ``weight_only_sm90.cu`` (0 spill bytes each, or it fails); then the
     weight-only W8A16/W4A16 kernels against their plain version: int8 and
@@ -765,6 +785,15 @@ SPATIAL_MODELS = {
                    tile=(132, 132, 116), parity_tile=(92, 92, 92), lr=1e-4,
                    warmup=2, steps=4, seed=5200),
 }
+# ops_parity: every op, method and dunder of the slice on the card against
+# the port on the CPU (fp32, TF32 off); random ops by moments over ``draws``
+# draws (5% of max(1, |moment|))
+OPS_PARITY = dict(seed=6000, draws=200000)
+# tensor_paths: (a) the Transformer base of SEQ_MODELS at its widths, once on
+# a Tensor batch and once on the same batch as plain tensors; (b) the
+# tensor's card-side surface
+TENSOR_PATHS = {"transformer": dict(SEQ_MODELS["transformer"], warmup=2,
+                                    steps=4, seed=6100)}
 # beam search: a step where the CPU's k-th and (k+1)-th totals lie this
 # close (relative) may choose otherwise on the card
 NEAR_TIE_REL = 1e-5
@@ -10253,6 +10282,700 @@ def phase_spatial_models(cfg=None, device="cuda"):
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------ ops and the Tensor ---
+
+def _ops_parity_cases(seed):
+    """(name, call(paddle, *args), args, kind) of every op of the port's
+    table, its other ops, the method table, the dunders and the ``op_``
+    family; ``args`` are CPU tensors (or Python values) drawn from
+    ``seed``.  ``kind``: "value" (held entry by entry), "qr" / "svd" /
+    "eigh" / "eig" / "eigvals" (by reconstruction), "random" ((mean, std,
+    lo, hi) of the draw), "inplace" (identity and value)."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.ops._generated import TABLE
+    g = torch.Generator().manual_seed(seed)
+
+    def f(*s, lo=None, hi=None):
+        if lo is not None:
+            return torch.rand(s, generator=g) * (hi - lo) + lo
+        return torch.randn(s, generator=g)
+
+    def i(*s, lo=0, hi=5):
+        return torch.randint(lo, hi, s, generator=g)
+
+    def b(*s):
+        return torch.rand(s, generator=g) < 0.5
+
+    def spd(n):
+        a = f(n, n)
+        return a @ a.T + n * torch.eye(n)
+
+    cases = []
+
+    def op(name, *args, kind="value", method=True, **kw):
+        cases.append((name, lambda P, *a, _n=name.split("[")[0], _k=kw:
+                      getattr(P, _n)(*a, **_k), args, kind))
+        n = name.split("[")[0]
+        if method and args and torch.is_tensor(args[0]) and \
+                hasattr(paddle.Tensor, n) and kind == "value" and \
+                n in ops._METHODS:
+            cases.append((name + ".method", lambda P, x, *a, _n=n, _k=kw:
+                          getattr(x, _n)(*a, **_k), args, kind))
+
+    def call(name, fn, *args, kind="value"):
+        cases.append((name, fn, args, kind))
+    pos = {"log", "log2", "log10", "log1p", "sqrt", "rsqrt", "reciprocal",
+           "lgamma", "gammaln", "digamma", "acosh", "pow", "gammainc",
+           "gammaincc"}
+    unit = {"asin", "acos", "atanh", "erfinv", "logit"}
+    ints = {"bitwise_not", "gcd", "lcm", "bitwise_and", "bitwise_or",
+            "bitwise_xor", "bitwise_left_shift", "bitwise_right_shift",
+            "floor_mod", "remainder", "mod", "floor_divide"}
+    bools = {"logical_not", "logical_and", "logical_or", "logical_xor",
+             "all", "any"}
+
+    def x_for(n):
+        if n in bools:
+            return b(6, 7)
+        if n in ints:
+            return i(6, 7, lo=1, hi=30)
+        if n in pos:
+            return f(6, 7, lo=1.1 if n == "acosh" else 0.5, hi=2.5)
+        if n in unit:
+            return f(6, 7, lo=0.1, hi=0.9)
+        return f(6, 7)
+    for row in TABLE:
+        for n in (row[0],) + tuple(row[3]):
+            x = x_for(n)
+            if row[1] == "unary":
+                op(n, x)
+            elif row[1] == "binary":
+                y = i(7, lo=0, hi=4) if n.startswith("bitwise_") and \
+                    "shift" in n else x_for(n)[0]
+                op(n, x, y)
+                if n in ("add", "multiply", "divide", "pow", "maximum"):
+                    op(n + "[scalar]", x, 2.0, method=False)
+            else:
+                op(n, x)
+                op(n + "[axis]", x, axis=1, keepdim=True)
+    sq = f(5, 5) + 5 * torch.eye(5)
+    low = f(8, 2) @ f(2, 6)
+    hh, tau = torch.geqrf(f(6, 4))
+    chol = torch.linalg.cholesky(spd(4))
+    x3 = f(3, 4, 5)
+    for spec in (
+            ("scale", (f(4, 5),), dict(scale=2.0, bias=1.0)),
+            ("clip", (f(4, 5),), dict(min=-0.5, max=0.5)),
+            ("lerp", (f(4, 5), f(4, 5), 0.3), {}),
+            ("stanh", (f(4, 5),), {}), ("std", (f(4, 5),), dict(axis=1)),
+            ("var", (f(4, 5),), {}), ("median", (f(4, 6),), dict(axis=1)),
+            ("quantile", (f(4, 6), 0.3), dict(axis=1)),
+            ("nanmedian", (f(4, 6),), {}), ("cumsum", (f(4, 5),),
+                                            dict(axis=1)),
+            ("cumprod", (f(4, 5),), dict(dim=0)),
+            ("cummax", (f(4, 5),), dict(axis=1)),
+            ("cummin", (f(4, 5),), dict(axis=0)),
+            ("logcumsumexp", (f(4, 5),), dict(axis=1)),
+            ("argmax", (f(4, 5),), dict(axis=1)), ("argmin", (f(4, 5),), {}),
+            ("allclose", (f(4, 5), f(4, 5)), {}),
+            ("isclose", (f(4, 5), f(4, 5)), dict(atol=1.0)),
+            ("equal_all", (i(4, 5), i(4, 5)), {}),
+            ("kron", (f(2, 3), f(3, 2)), {}), ("diff", (f(4, 5),), {}),
+            ("trapezoid", (f(4, 5),), dict(dx=0.5)),
+            ("nan_to_num", (f(4, 5).log(),), {}),
+            ("renorm", (f(4, 5), 2.0, 0, 1.0), {}),
+            ("addmm", (f(3, 2), f(3, 4), f(4, 2)), {}),
+            ("polygamma", (f(4, lo=0.5, hi=2), 1), {}),
+            ("multiplex", ([f(4, 3), f(4, 3)], i(4, 1, hi=2)), {}),
+            ("zeros_like", (f(2, 3),), {}), ("ones_like", (f(2, 3),), {}),
+            ("full_like", (f(2, 3), 2.5), {}),
+            ("empty_like", (f(2, 3),), {}), ("diag", (f(4),), {}),
+            ("diagflat", (f(2, 2),), {}), ("tril", (f(4, 5),), {}),
+            ("triu", (f(4, 5),), dict(diagonal=1)),
+            ("assign", (f(3),), {}), ("clone", (f(3),), {}),
+            ("complex", (f(3), f(3)), {}),
+            ("sort", (f(4, 6),), dict(descending=True)),
+            ("argsort", (f(4, 6),), {}), ("topk", (f(4, 6), 2), {}),
+            ("kthvalue", (f(4, 6), 2), {}), ("mode", (i(4, 6, hi=3),), {}),
+            ("index_select", (f(5, 3), i(4, hi=5)), {}),
+            ("masked_select", (f(4, 5), b(4, 5)), {}),
+            ("where", (b(4, 5), f(4, 5), f(4, 5)), {}),
+            ("nonzero", (b(4, 5),), {}),
+            ("bucketize", (f(4, 5), torch.sort(f(6)).values), {}),
+            ("searchsorted", (torch.sort(f(6)).values, f(4, 5)), {}),
+            ("cast", (f(3, 4), "int32"), {}), ("reshape", (x3, [4, -1]), {}),
+            ("flatten", (x3,), dict(start_axis=1)),
+            ("unflatten", (f(2, 12), 1, [3, 4]), {}),
+            ("transpose", (x3, [2, 0, 1]), {}), ("moveaxis", (x3, 0, 2), {}),
+            ("swapaxes", (x3, 0, 2), {}), ("squeeze", (f(1, 3, 1),), {}),
+            ("unsqueeze", (f(3, 4), [0, -1]), {}),
+            ("concat", ([f(2, 3), f(2, 4)],), dict(axis=1)),
+            ("stack", ([f(2, 3), f(2, 3)],), dict(axis=1)),
+            ("unstack", (x3,), dict(axis=1)), ("split", (f(6, 4), 3), {}),
+            ("split[sections]", (f(6, 4), [1, -1, 2]), {}),
+            ("chunk", (f(4, 6), 2), dict(axis=1)),
+            ("tile", (f(2, 3), [2, 1, 2]), {}),
+            ("expand", (f(1, 3), [4, -1]), {}),
+            ("expand_as", (f(3, 1), f(3, 4)), {}),
+            ("broadcast_to", (f(3, 1), [2, 3, 4]), {}),
+            ("broadcast_tensors", ([f(3, 1), f(1, 4)],), {}),
+            ("flip", (x3, [0, 2]), {}), ("roll", (x3, 1), {}),
+            ("rot90", (f(3, 4),), dict(k=3)),
+            ("repeat_interleave", (f(2, 3), 2), dict(axis=1)),
+            ("as_strided", (f(12), [3, 2], [4, 1], 1), {}),
+            ("view", (f(3, 4), [2, 6]), {}),
+            ("pad", (f(1, 2, 5, 5), [1, 2, 2, 1]), dict(mode="reflect")),
+            ("unbind", (x3,), dict(axis=2)), ("unique", (i(20),), {}),
+            ("unique[all]", (i(20),), dict(return_index=True,
+                                           return_inverse=True,
+                                           return_counts=True)),
+            ("unique_consecutive", (i(20, hi=3),),
+             dict(return_inverse=True, return_counts=True)),
+            ("masked_fill", (f(3, 4), b(3, 4), 2.0), {}),
+            ("index_sample", (f(3, 5), i(3, 2)), {}),
+            ("take_along_axis", (f(3, 5), i(3, 2), 1), {}),
+            ("put_along_axis", (f(3, 5), i(3, 1), f(3, 1), 1),
+             dict(reduce="add")),
+            ("gather", (f(5, 3), i(3, hi=5)), {}),
+            ("gather_nd", (f(3, 4, 2), torch.tensor([[0, 1], [2, 3]])), {}),
+            ("scatter", (f(5, 3), torch.tensor([3, 1]), f(2, 3)), {}),
+            ("scatter_nd_add", (f(4, 3), torch.tensor([[1], [1], [3]]),
+                                f(3, 3)), {}),
+            ("scatter_nd", (torch.tensor([[0], [2]]), f(2, 3), [4, 3]), {}),
+            ("index_add", (f(4, 3), torch.tensor([0, 0, 3]), 0, f(3, 3)),
+             {}),
+            ("index_put", (f(4, 3), (torch.tensor([0, 3]),), f(2, 3)),
+             dict(accumulate=True)),
+            ("index_fill", (f(4, 3), torch.tensor([0, 2]), 0, 7.5), {}),
+            ("numel", (x3,), {}), ("shard_index", (i(6, 1, hi=20), 20, 2, 1),
+                                   {}),
+            ("one_hot", (i(5, hi=4), 4), {}), ("bincount", (i(30),), {}),
+            ("diagonal", (x3,), dict(offset=1, axis1=1, axis2=2)),
+            ("diag_embed", (f(2, 3),), {}),
+            ("crop", (f(4, 5),), dict(shape=[2, 3], offsets=[1, 2])),
+            ("strided_slice", (f(6, 7), [0, 1], [1, 6], [5, 0], [2, -2]),
+             {}),
+            ("slice", (f(6, 7), [1], [2], [5]), {}),
+            ("tensordot", (x3, f(4, 5, 2)), {}),
+            ("atleast_1d", (f(3),), {}), ("atleast_2d", (f(3),), {}),
+            ("atleast_3d", (f(3),), {}), ("hsplit", (f(2, 6), 3), {}),
+            ("vsplit", (f(4, 3), [1, 3]), {}),
+            ("dsplit", (f(2, 2, 4), 2), {}),
+            ("hstack", ([f(2, 3), f(2, 1)],), {}),
+            ("vstack", ([f(3), f(3)],), {}),
+            ("dstack", ([f(2, 3), f(2, 3)],), {}),
+            ("column_stack", ([f(3), f(3, 2)],), {}),
+            ("row_stack", ([f(2, 3), f(1, 3)],), {}),
+            ("tensor_split", (f(7, 2), 3), {}),
+            ("as_complex", (f(3, 2),), {}),
+            ("fill_diagonal", (f(3, 4), 2.0), {}),
+            ("fill_diagonal_tensor", (f(4, 4), f(4)), {}),
+            ("matmul", (f(3, 4), f(4, 5)), {}), ("mm", (f(3, 4), f(4, 2)), {}),
+            ("dot", (f(5), f(5)), {}), ("inner", (f(3, 4), f(2, 4)), {}),
+            ("outer", (f(3), f(4)), {}),
+            ("bmm", (f(2, 3, 4), f(2, 4, 2)), {}),
+            ("mv", (f(3, 4), f(4)), {}), ("t", (f(3, 4),), {}),
+            ("cross", (f(3, 4), f(3, 4)), {}), ("norm", (f(3, 4),), {}),
+            ("norm[p1]", (f(3, 4),), dict(p=1, axis=1)),
+            ("vector_norm", (f(3, 4),), dict(p=3.0, axis=1)),
+            ("matrix_norm", (f(2, 3, 4),), {}),
+            ("dist", (f(3, 4), f(3, 4)), {}),
+            ("histogram", (f(50),), dict(bins=5)),
+            ("histogramdd", (f(30, 2),), dict(bins=3)),
+            ("matrix_power", (f(3, 3), 3), {}),
+            ("eigvalsh", (spd(4),), {}), ("det", (sq,), {}),
+            ("slogdet", (sq,), {}), ("inv", (sq,), {}),
+            ("pinv", (f(4, 3),), {}), ("solve", (sq, f(5, 2)), {}),
+            ("triangular_solve", (torch.triu(sq), f(5, 2)), {}),
+            ("cholesky", (spd(4),), {}),
+            ("cholesky_solve", (f(4, 2), chol), {}), ("lu", (sq,), {}),
+            ("matrix_rank", (low,), {}), ("lstsq", (f(6, 3), f(6, 2)), {}),
+            ("cov", (f(3, 6),), {}), ("corrcoef", (f(3, 6),), {}),
+            ("trace", (f(4, 4),), dict(offset=1)),
+            ("multi_dot", ([f(3, 4), f(4, 5), f(5, 2)],), {}),
+            ("cond", (sq,), {}), ("ormqr", (hh, tau, f(6, 2)), {}),
+            ("householder_product", (hh, tau), {}),
+            ("vander", (f(4),), dict(n=3)),
+            ("block_diag", ([f(2, 2), f(1, 3)],), {}),
+            ("polar", (f(3, lo=0.5, hi=2), f(3)), {}), ("sgn", (f(3, 4),), {}),
+            ("add_n", ([f(3, 4), f(3, 4)],), {}),
+            ("take", (f(3, 4), torch.tensor([[0, 5], [-1, 11]])), {}),
+            ("isin", (i(3, 4), torch.tensor([1, 3])), {}),
+            ("isneginf", (f(5).log(),), {}), ("isposinf", (1 / f(5),), {}),
+            ("nanquantile", (f(4, 6), 0.25), dict(axis=1)),
+            ("histogram_bin_edges", (f(20),), dict(bins=4)),
+            ("cumulative_trapezoid", (f(3, 5),), {}),
+            ("frexp", (f(3, 4) * 10,), {}),
+            ("multigammaln", (f(3, lo=2, hi=4), 3), {}),
+            ("matrix_exp", (f(3, 3) * 0.3,), {}),
+            ("cholesky_inverse", (chol,), {}),
+            ("cdist", (f(4, 3), f(5, 3)), {}),
+            ("cartesian_prod", ([i(3), i(2)],), {}),
+            ("combinations", (f(4),), {}),
+            ("diagonal_scatter", (f(3, 4), f(3)), dict(offset=1)),
+            ("select_scatter", (f(3, 4), f(4), 0, 1), {}),
+            ("slice_scatter", (f(5, 4), f(2, 4), [0], [1], [5], [2]), {}),
+            ("masked_scatter", (f(3, 4), b(3, 4), f(12)), {}),
+            ("is_empty", (f(0, 3),), {}), ("view_as", (f(3, 4), f(6, 2)), {}),
+            ("unfold", (f(3, 8), 1, 3, 2), {}), ("shape", (x3,), {}),
+            ("rank", (x3,), {}), ("reverse", (x3, [1]), {}),
+            ("pdist", (f(4, 3),), {}),
+            ("reduce_as", (f(2, 3, 4), f(3, 1)), {})):
+        op(spec[0], *spec[1], **spec[2])
+    for name, fn in (
+            ("zeros", lambda P: P.zeros([2, 3], "int32")),
+            ("ones", lambda P: P.ones([2, 3])),
+            ("full", lambda P: P.full([2, 3], 1.5)),
+            ("empty", lambda P: P.empty([2, 3])),
+            ("arange", lambda P: P.arange(2, 11, 3)),
+            ("linspace", lambda P: P.linspace(0.0, 1.0, 5)),
+            ("logspace", lambda P: P.logspace(0.0, 2.0, 3)),
+            ("eye", lambda P: P.eye(3, 4)),
+            ("meshgrid", lambda P: P.meshgrid(P.arange(3), P.arange(2))),
+            ("tril_indices", lambda P: P.tril_indices(4, 3, 0)),
+            ("triu_indices", lambda P: P.triu_indices(3, 4, 1)),
+            ("fill_constant", lambda P: P.fill_constant([2], "int32", 4)),
+            ("to_tensor", lambda P: P.to_tensor([[1.0, 2.0]])),
+            ("create_tensor", lambda P: P.create_tensor("int32")),
+            ("array", lambda P: P.array_read(P.array_write(
+                P.ones([2]), 0), 0))):
+        call(name, fn)
+    for name, args, k in (("qr", (f(5, 3),), "qr"),
+                          ("svd", (f(5, 3),), "svd"),
+                          ("eigh", (spd(4),), "eigh"),
+                          ("eig", (f(4, 4),), "eig"),
+                          ("eigvals", (f(4, 4),), "eigvals")):
+        op(name, *args, kind=k)
+    n = OPS_PARITY["draws"]
+    for name, fn, moments in (
+            ("randn", lambda P: P.randn([n]), (0.0, 1.0, None, None)),
+            ("rand", lambda P: P.rand([n]), (0.5, 12 ** -0.5, 0.0, 1.0)),
+            ("uniform", lambda P: P.uniform([n], min=2.0, max=4.0),
+             (3.0, 2 * 12 ** -0.5, 2.0, 4.0)),
+            ("normal", lambda P: P.normal(1.0, 2.0, [n]),
+             (1.0, 2.0, None, None)),
+            ("gaussian", lambda P: P.gaussian([n], mean=-1.0, std=0.5),
+             (-1.0, 0.5, None, None)),
+            ("standard_normal", lambda P: P.standard_normal([n]),
+             (0.0, 1.0, None, None)),
+            ("randint", lambda P: P.randint(0, 10, [n]),
+             (4.5, (99 / 12) ** 0.5, 0, 9)),
+            ("randperm", lambda P: P.randperm(n).float(),
+             ((n - 1) / 2, ((n * n - 1) / 12) ** 0.5, 0, n - 1)),
+            ("multinomial", lambda P: P.multinomial(
+                P.to_tensor([0.2, 0.3, 0.5]), n, True).float(),
+             (1.3, 0.61 ** 0.5, 0, 2)),
+            ("bernoulli", lambda P: P.bernoulli(P.full([n], 0.3)),
+             (0.3, 0.21 ** 0.5, 0, 1)),
+            ("poisson", lambda P: P.poisson(P.full([n], 4.0)),
+             (4.0, 2.0, 0, None)),
+            ("binomial", lambda P: P.binomial(
+                P.full([n], 10), P.full([n], 0.3)).float(),
+             (3.0, 2.1 ** 0.5, 0, 10)),
+            ("exponential_", lambda P: P.exponential_(P.zeros([n]), 2.0),
+             (0.5, 0.5, 0.0, None)),
+            ("normal_", lambda P: P.normal_(P.zeros([n]), 1.0, 3.0),
+             (1.0, 3.0, None, None)),
+            ("uniform_", lambda P: P.uniform_(P.zeros([n]), 0.0, 2.0),
+             (1.0, 2 * 12 ** -0.5, 0.0, 2.0)),
+            ("bernoulli_", lambda P: P.bernoulli_(P.zeros([n]), 0.3),
+             (0.3, 0.21 ** 0.5, 0, 1)),
+            ("log_normal_", lambda P: P.log(P.log_normal_(P.zeros([n]),
+                                                          1.0, 0.5)),
+             (1.0, 0.5, None, None)),
+            ("geometric_", lambda P: P.geometric_(P.zeros([n]), 0.4),
+             (-1 / math.log1p(-0.4), None, 0.0, None)),
+            ("rand_like", lambda P: P.rand_like(P.zeros([n])),
+             (0.5, 12 ** -0.5, 0.0, 1.0)),
+            ("randn_like", lambda P: P.randn_like(P.zeros([n])),
+             (0.0, 1.0, None, None)),
+            ("randint_like", lambda P: P.randint_like(P.zeros([n]), 3, 7),
+             (4.5, (15 / 12) ** 0.5, 3, 6)),
+            ("log_normal", lambda P: P.log(P.log_normal(0.0, 0.5, [n])),
+             (0.0, 0.5, None, None)),
+            ("standard_gamma", lambda P: P.standard_gamma(P.full([n], 3.0)),
+             (3.0, 3 ** 0.5, 0.0, None)),
+            ("top_p_sampling", lambda P: P.top_p_sampling(
+                P.to_tensor([[0.1, 0.5, 0.4]] * n), P.full([n], 0.8)
+            )[1].float(), (1 + 0.4 / 0.9, (0.5 * 0.4) ** 0.5 / 0.9, 1, 2))):
+        call(name, fn, kind=("random",) + moments)
+    # the op_ family: identity and value on a non-leaf
+    for name in [v for v in ops.__all__ if v.endswith("_") and
+                 v[:-1] in ops.extras.INPLACE_BASES]:
+        base = name[:-1]
+        x = x_for(base)
+        extra = {"clip": (-0.5, 0.5), "lerp": (x_for("lerp"), 0.25),
+                 "cumsum": (1,), "cumprod": (1,), "fill_diagonal": (2.0,),
+                 "squeeze": (0,), "unsqueeze": (0,), "cast": ("float64",),
+                 "scatter": (torch.tensor([2, 0]), f(2, 7)),
+                 "index_add": (torch.tensor([1, 1]), 0, f(2, 7)),
+                 "index_put": ((torch.tensor([0, 2]),), f(2, 7)),
+                 "masked_fill": (b(6, 7), 0.5),
+                 "put_along_axis": (i(6, 1, hi=7), f(6, 1), 1),
+                 "transpose": ([1, 0],), "t": (), "flatten": (),
+                 "tril": (), "triu": (1,), "nan_to_num": ()}
+        if base in extra:
+            args = (x,) + extra[base]
+        else:
+            fn = getattr(ops, base)
+            args = (x, x_for(base)) if any(
+                r[0] == base and r[1] == "binary" for r in TABLE) or \
+                base in ("remainder",) else (x,)
+            del fn
+        if base == "squeeze":
+            args = (f(1, 6, 7), 0)
+        def inplace(P, x, *a, _n=name):
+            y = x * 1 if x.dtype != torch.bool else P.logical_and(x, x)
+            out = getattr(P, _n)(y, *a)
+            return out, out is y
+        call(name, inplace, *args, kind="inplace")
+    # the dunders
+    xa, ya = f(4, 5), f(4, 5, lo=0.5, hi=2.0)
+    xi, yi = i(4, 5, lo=-4, hi=4), i(4, 5, lo=1, hi=4)
+    for tag, x, y in (("float", xa, ya), ("int", xi, yi)):
+        for name, fn in (
+                ("add", lambda P, x, y: x + y), ("radd", lambda P, x, y: 2 + x),
+                ("sub", lambda P, x, y: x - y),
+                ("rsub", lambda P, x, y: 1.5 - x),
+                ("mul", lambda P, x, y: x * y), ("rmul", lambda P, x, y: 3 * x),
+                ("truediv", lambda P, x, y: x / y),
+                ("rtruediv", lambda P, x, y: 2.0 / y),
+                ("floordiv", lambda P, x, y: x // y),
+                ("mod", lambda P, x, y: x % y),
+                ("pow", lambda P, x, y: y ** 2),
+                ("neg", lambda P, x, y: -x), ("abs", lambda P, x, y: abs(x)),
+                ("eq", lambda P, x, y: x == y), ("ne", lambda P, x, y: x != y),
+                ("lt", lambda P, x, y: x < y), ("le", lambda P, x, y: x <= y),
+                ("gt", lambda P, x, y: x > y), ("ge", lambda P, x, y: x >= y),
+                ("invert", lambda P, x, y: ~x),
+                ("and", lambda P, x, y: x & y), ("or", lambda P, x, y: x | y),
+                ("xor", lambda P, x, y: x ^ y),
+                ("getitem", lambda P, x, y: [x[1], x[:, 1:3], x[x > 0],
+                                             x[[0, 2]]])):
+            call(f"__{name}__[{tag}]", fn, x, y)
+    call("__matmul__", lambda P, x, y: x @ y, f(3, 4), f(4, 2))
+    return cases
+
+
+def _ops_parity_compare(kind, got, want):
+    """(bad, err) of one ops_parity case: floats by train_parity's rule at
+    NN_PARITY_TOL (NaN where the CPU has NaN), integers, bools and indices
+    exactly, decompositions by reconstruction, draws by moments."""
+    import torch
+
+    def leaves(v):
+        """Flat, tensors as plain ones (the comparison is torch code)."""
+        if isinstance(v, (list, tuple)):
+            return [e for x in v for e in leaves(x)]
+        return [v.as_subclass(torch.Tensor) if torch.is_tensor(v) else v]
+    g, w = leaves(got), leaves(want)
+    if kind == "value":
+        if len(g) != len(w):
+            return 1, float("inf")
+        bad, err = 0, 0.0
+        for a, c in zip(g, w):
+            if not torch.is_tensor(c):
+                bad += int(a != c)
+                continue
+            if a.dtype != c.dtype or tuple(a.shape) != tuple(c.shape):
+                return 1, float("inf")
+            a = a.detach().cpu()
+            if c.is_floating_point() or c.is_complex():
+                a, c = torch.view_as_real(a.cfloat()) if c.is_complex() \
+                    else a.float(), torch.view_as_real(c.cfloat()) \
+                    if c.is_complex() else c.float()
+                both_nan = torch.isnan(a) & torch.isnan(c)
+                a = torch.where(both_nan, torch.zeros_like(a), a)
+                c = torch.where(both_nan, torch.zeros_like(c), c)
+                same_inf = torch.isinf(c) & (a == c)
+                a = torch.where(same_inf, torch.zeros_like(a), a)
+                c = torch.where(same_inf, torch.zeros_like(c), c)
+                nb, e = _parity_bad(a, c, NN_PARITY_TOL) if c.numel() \
+                    else (0, 0.0)
+                bad, err = bad + nb, max(err, e)
+            else:
+                nb = int((a != c).sum())
+                bad, err = bad + nb, max(err, float(nb))
+        return bad, err
+    if kind in ("qr", "svd", "eigh", "eig", "eigvals"):
+        a = [v.detach().cpu().double() if not v.is_complex()
+             else v.detach().cpu().cdouble() for v in g]
+        c = [v.double() if not v.is_complex() else v.cdouble() for v in w]
+        if kind == "qr":
+            e = (a[0] @ a[1] - c[0] @ c[1]).abs().max()
+        elif kind == "svd":
+            e = ((a[0] * a[1]) @ a[2] - (c[0] * c[1]) @ c[2]).abs().max()
+        elif kind == "eigh":
+            e = ((a[1] * a[0]) @ a[1].T - (c[1] * c[0]) @ c[1].T).abs().max()
+        else:
+            key = (lambda v: torch.sort(v.real * 1e3 + v.imag).values)
+            e = (key(a[0]) - key(c[0])).abs().max()
+        e = float(e)
+        return int(e > 1e-3), e
+    if kind[0] == "random":
+        mean, std, lo, hi = kind[1:]
+        v = g[0].detach().cpu().double()
+        bad = int(tuple(g[0].shape) != tuple(w[0].shape) or
+                  g[0].dtype != w[0].dtype)
+        err = abs(float(v.mean()) - mean) / max(1.0, abs(mean))
+        bad += int(err > 0.05)
+        if std is not None:
+            e2 = abs(float(v.std()) - std) / max(1.0, std)
+            err = max(err, e2)
+            bad += int(e2 > 0.05)
+        if lo is not None:
+            bad += int(float(v.min()) < lo)
+        if hi is not None:
+            bad += int(float(v.max()) > hi)
+        return bad, err
+    raise ValueError(kind)
+
+
+def phase_ops_parity(cfg=None, device="cuda"):
+    """Every op of the port's table, its other ops, the method table, the
+    dunders and the ``op_`` family (``_ops_parity_cases``) on ``device``
+    against the port on the CPU, fp32 with TF32 off: floats by
+    train_parity's rule at NN_PARITY_TOL, integer, bool and index results
+    exactly, decompositions by reconstruction, random ops by support and
+    moments (OPS_PARITY["draws"] draws), each ``op_`` returning its input
+    with the value of its op.  Prints the worst case and its name.  No
+    Pallas kernel is on this path."""
+    import torch
+    import paddle_tpu_torch as paddle
+    c = cfg or OPS_PARITY
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    worst, failed, counts = ("", 0.0), {}, {}
+
+    def put(v, dev):
+        if torch.is_tensor(v):
+            return paddle.to_tensor(v, place=dev)
+        if isinstance(v, (list, tuple)):
+            return type(v)(put(e, dev) for e in v)
+        return v
+    try:
+        cases = _ops_parity_cases(c["seed"])
+        for name, fn, args, kind in cases:
+            kname = kind if isinstance(kind, str) else kind[0]
+            counts[kname] = counts.get(kname, 0) + 1
+            outs = {}
+            for dev in ("cpu", device):
+                with _paddle_device(dev):
+                    paddle.seed(c["seed"])
+                    a = put(args, dev)
+                    outs[dev] = fn(paddle, *a)
+            if kind == "inplace":
+                # identity: the op_ returns the non-leaf it wrote into;
+                # value: the CPU's op_ result, entry by entry
+                bad, err = _ops_parity_compare("value", outs[device][0],
+                                               outs["cpu"][0])
+                bad += int(not (outs[device][1] and outs["cpu"][1]))
+            else:
+                bad, err = _ops_parity_compare(kind, outs[device],
+                                               outs["cpu"])
+            if kname == "value" and err > worst[1]:
+                worst = (name, err)
+            if bad:
+                failed[name] = (bad, err)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32[0]
+        torch.backends.cudnn.allow_tf32 = tf32[1]
+    emit("ops_parity", cases=len(cases), by_kind=counts,
+         worst_case=worst[0], worst_err=worst[1], tol=NN_PARITY_TOL,
+         failed=failed, seconds=time.perf_counter() - t0,
+         nvidia_smi=_nvidia_smi() if device == "cuda" else None)
+    if failed:
+        raise AssertionError(f"ops_parity: {len(failed)} of {len(cases)} "
+                             f"cases off: {failed}")
+    return worst
+
+
+def phase_tensor_paths(cfg=None, device="cuda"):
+    """The slice at full published width.  (a) The Transformer base
+    (TENSOR_PATHS["transformer"], SEQ_MODELS' widths, O1 bf16) trained
+    twice in one call, interleaved, from the same parameters and the same
+    generator state (so the same dropout draws): once on a batch made by
+    ``paddle.to_tensor`` (``Tensor`` flows in), once on the same batch as
+    plain tensors.  Gates: a bit-for-bit equal first-step loss, equal
+    device kernel launches a step (the profiler's), 0 builds and 0 syncs in
+    the timed steps, timed in turns (tensor, plain, plain, tensor).
+    Printed: ms a step each, the idle share, the
+    ``Tensor.__torch_function__`` entries a step.  (b) The tensor's
+    card-side surface: ``place``, ``cpu()`` / ``cuda()``, ``numpy()`` one
+    marked sync, ``astype``, ``stop_gradient``, ``set_value``, the
+    ``shape`` / ``size`` idioms, and one marked sync each for the ops whose
+    output shape the data decides."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.core import tensor as ct
+    c = (cfg or TENSOR_PATHS)["transformer"]
+    cuda = device == "cuda"
+    F = paddle.nn.functional
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(c["seed"])
+    src = torch.randint(0, c["vocab"], (c["batch"], c["src"]), generator=gen)
+    tgt = torch.randint(0, c["vocab"], (c["batch"], c["tgt"] + 1),
+                        generator=gen)
+    with _paddle_device(device):
+        paddle.seed(c["seed"])
+        model_t = _seq2seq_model(paddle, c["vocab"], c["d_model"],
+                                 c["heads"], c["layers"], c["ffn"],
+                                 c["dropout"], max(c["src"], c["tgt"]))
+        model_p = _seq2seq_model(paddle, c["vocab"], c["d_model"],
+                                 c["heads"], c["layers"], c["ffn"],
+                                 c["dropout"], max(c["src"], c["tgt"]))
+        model_p.set_state_dict(model_t.state_dict())
+        mask = model_t.transformer.generate_square_subsequent_mask(c["tgt"])
+        batches = {
+            "tensor": (paddle.to_tensor(src), paddle.to_tensor(
+                tgt[:, :-1]), paddle.to_tensor(tgt[:, 1:])),
+            "plain": (src.to(device), tgt[:, :-1].to(device),
+                      tgt[:, 1:].to(device))}
+        runs = {}
+        for key, model in (("tensor", model_t), ("plain", model_p)):
+            sched = paddle.optimizer.lr.NoamDecay(c["d_model"],
+                                                  c["warmup_steps"])
+            opt = paddle.optimizer.Adam(sched, 0.9, 0.98, 1e-9,
+                                        parameters=model.parameters())
+            s, ti, to = batches[key]
+
+            def step(model=model, opt=opt, sched=sched, s=s, ti=ti, to=to):
+                with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+                    loss = _smoothed_ce(F, model(s, ti, mask), to,
+                                        c["vocab"], c["smoothing"])
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+                sched.step()
+                return loss.detach()
+            runs[key] = step
+    assert isinstance(batches["tensor"][0], paddle.Tensor)
+    assert type(batches["plain"][0]) is torch.Tensor
+    gen_state = (paddle.get_rng_state(), torch.get_rng_state(),
+                 torch.cuda.get_rng_state_all() if cuda else None)
+    first = {}
+    for key in ("tensor", "plain"):
+        paddle.set_rng_state(gen_state[0])
+        torch.set_rng_state(gen_state[1])
+        if cuda:
+            torch.cuda.set_rng_state_all(gen_state[2])
+        first[key] = runs[key]()
+    first = {k: float(v) for k, v in first.items()}
+    if first["tensor"] != first["plain"] or not math.isfinite(
+            first["tensor"]):
+        raise AssertionError(f"tensor_paths: first-step losses {first}")
+    for _ in range(c["warmup"]):
+        for key in ("tensor", "plain"):
+            runs[key]()
+    # timed in turns (tensor, plain, plain, tensor): the host's drift
+    # between blocks falls on both runs alike
+    result = {k: dict(block_ms=[], losses=[], entries=0)
+              for k in ("tensor", "plain")}
+    for key in ("tensor", "plain", "plain", "tensor"):
+        entries0 = ct.TORCH_FUNCTION_ENTRIES[0]
+        losses, step_s = _train_steps_without_sync(runs[key], c["steps"],
+                                                   device)
+        result[key]["entries"] += ct.TORCH_FUNCTION_ENTRIES[0] - entries0
+        result[key]["block_ms"].append(step_s * 1e3)
+        result[key]["losses"] += [float(v) for v in losses]
+    for key, r in result.items():
+        if not all(math.isfinite(v) for v in r["losses"]):
+            raise AssertionError(f"tensor_paths {key}: losses {r['losses']}")
+        step_s = sum(r["block_ms"]) / len(r["block_ms"]) / 1e3
+        r.update(step_ms=step_s * 1e3, tokens_per_s=c["batch"] * c["tgt"] /
+                 step_s, torch_function_entries_a_step=r.pop("entries") /
+                 len(r["losses"]))
+        if cuda:
+            prof = _profile_breakdown(runs[key], step_s * 1e3, top=4)
+            r.update(launches_a_step=prof["launches"],
+                     idle_share=prof["idle_share"],
+                     device_busy_ms=prof["device_busy_ms"])
+    if cuda and result["tensor"]["launches_a_step"] != \
+            result["plain"]["launches_a_step"]:
+        raise AssertionError(f"tensor_paths: launches a step "
+                             f"{result['tensor']['launches_a_step']} "
+                             f"(Tensor batch) != "
+                             f"{result['plain']['launches_a_step']} (plain)")
+    emit("tensor_paths", part="transformer_base_tensor_vs_plain", config=(
+        "Vaswani et al. 2017 base (SEQ_MODELS): d_model 512, 8 heads, 6+6 "
+        "layers, FFN 2048, vocabulary 37000"), batch=c["batch"],
+         src=c["src"], tgt=c["tgt"], amp="O1 bfloat16",
+         first_step_loss=first, warmup_steps=c["warmup"],
+         timed_steps=2 * c["steps"], builds_after_warmup=0,
+         syncs_in_timed_steps=0, **result,
+         nvidia_smi=_nvidia_smi() if cuda else None)
+    del runs, model_t, model_p, batches
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    surface = _tensor_surface(paddle, device)
+    emit("tensor_paths", part="card_surface", **surface,
+         seconds=time.perf_counter() - t_phase)
+    return result
+
+
+def _tensor_surface(paddle, device):
+    """The tensor's card-side surface, each check an assertion; returns
+    the marked syncs each data-dependent-shape op counted."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import observability as obs
+    cuda = device == "cuda"
+    with _paddle_device(device):
+        x = paddle.to_tensor(np.arange(12, dtype=np.float32).reshape(3, 4))
+        want_place = f"gpu:{torch.cuda.current_device()}" if cuda \
+            else "cpu:0"
+        assert x.place == want_place, x.place
+        host = x.cpu()
+        assert isinstance(host, paddle.Tensor) and host.place == "cpu:0"
+        if cuda:
+            back = host.cuda()
+            assert isinstance(back, paddle.Tensor) and \
+                back.place == want_place
+        s0 = obs.device_syncs()
+        arr = x.numpy()
+        numpy_syncs = obs.device_syncs() - s0
+        assert numpy_syncs == (1 if cuda else 0), numpy_syncs
+        assert arr.shape == (3, 4) and arr[2, 3] == 11.0
+        y = x.astype("int32")
+        assert y.dtype == torch.int32 and y.place == want_place
+        assert x.stop_gradient
+        x.stop_gradient = False
+        assert x.requires_grad and x.is_leaf
+        x.stop_gradient = True
+        x.set_value(np.ones((3, 4)))
+        assert float(x.sum()) == 12.0 and x.place == want_place
+        assert x.shape == [3, 4] and x.shape[:-1] + [5] == [3, 5]
+        assert x.size == 12 and x.size(1) == 4
+        assert x.shape + (1,) == (3, 4, 1) and x.shape.numel() == 12
+        v = paddle.to_tensor(np.array([3, 1, 3, 0, 2, 2], np.int64))
+        m = v > 1
+        data_dependent = {}
+        for name, fn in (("unique", lambda: paddle.unique(v)),
+                         ("nonzero", lambda: paddle.nonzero(m)),
+                         ("masked_select", lambda: paddle.masked_select(
+                             v, m)),
+                         ("bincount", lambda: paddle.bincount(v)),
+                         ("histogram", lambda: paddle.histogram(
+                             v.astype("float32"), bins=4)),
+                         ("getitem_mask", lambda: v[m])):
+            s0 = obs.device_syncs()
+            out = fn()
+            data_dependent[name] = obs.device_syncs() - s0
+            assert isinstance(out, paddle.Tensor)
+        if cuda:
+            assert all(n == 1 for n in data_dependent.values()), \
+                data_dependent
+    return dict(place=want_place, numpy_marked_syncs=numpy_syncs,
+                marked_syncs=data_dependent)
+
+
 # ------------------------------------------------------- weight-only ---
 
 def _wo_counts():
@@ -11432,6 +12155,8 @@ def main() -> int:
     phase_seq_models()
     phase_nn_spatial_parity()
     phase_spatial_models()
+    phase_ops_parity()
+    phase_tensor_paths()
     for key in ("attention", "attention_split"):
         launches[key] += incubate["decode"][key]
     # the flash kernels' launches on every training path: llama2_7b, GPT-2,

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 __version__ = "0.1.0"
+version = __version__
 
 DEFAULT_DEVICE = "cuda"
 
@@ -54,23 +55,46 @@ def resolve_device(device=None) -> torch.device:
 # the Paddle API (after resolve_device, which its modules import)
 from . import dtypes  # noqa: E402
 from .core.random import get_rng_state, seed, set_rng_state  # noqa: E402
-from .core.tensor import Parameter, is_tensor, to_tensor  # noqa: E402
-from .device import get_device, set_device  # noqa: E402
-from .dtypes import (bfloat16, bool_, float16, float32,  # noqa: E402
+from .core.tensor import Parameter, Tensor, is_tensor, to_tensor  # noqa: E402
+from .device import device_count, get_device, set_device  # noqa: E402
+from .dtypes import (bfloat16, bool_, complex64, complex128,  # noqa: E402
+                     dtype, float8_e4m3fn, float8_e5m2, float16, float32,
                      float64, get_default_dtype, int8, int16, int32, int64,
-                     set_default_dtype, uint8)
+                     pstring, raw, set_default_dtype, uint8)
+from . import errors  # noqa: E402
+from .flags import get_flags, set_flags  # noqa: E402
 from .ops import *  # noqa: E402,F401,F403
 from .ops import __all__ as _OPS  # noqa: E402
 from . import (amp, autograd, device, incubate, nn, optimizer,  # noqa: E402
                vision)
-from .autograd import grad, no_grad  # noqa: E402
+from .autograd import (enable_grad, grad, is_grad_enabled,  # noqa: E402
+                       no_grad, set_grad_enabled)
+from . import linalg  # noqa: E402
 from .nn.layer import ParamAttr  # noqa: E402
 from . import framework, hapi, io, metric  # noqa: E402
 from .framework import load, save  # noqa: E402
 from .hapi import Model, flops, summary  # noqa: E402
 from .hapi import callbacks  # noqa: E402
 
-__all__ = ["__version__", "DEFAULT_DEVICE", "HBM_BYTES_PER_S", "PEAK_FLOPS",
+def is_compiled_with_cuda() -> bool:
+    """True: the port is built for the card."""
+    return True
+
+
+def is_compiled_with_xpu() -> bool:
+    return False
+
+
+def is_compiled_with_tpu() -> bool:
+    return False
+
+
+__all__ = ["__version__", "Tensor", "complex64", "complex128", "dtype",
+           "float8_e4m3fn", "float8_e5m2", "enable_grad",
+           "set_grad_enabled", "is_grad_enabled", "get_flags", "set_flags",
+           "device_count", "is_compiled_with_cuda", "is_compiled_with_tpu",
+           "is_compiled_with_xpu", "errors", "version", "pstring", "raw",
+           "linalg", "DEFAULT_DEVICE", "HBM_BYTES_PER_S", "PEAK_FLOPS",
            "resolve_device", "Model", "Parameter", "ParamAttr", "amp",
            "autograd", "bfloat16", "bool_", "callbacks", "device", "dtypes",
            "float16", "float32", "float64", "flops", "framework",

@@ -16,6 +16,8 @@ import weakref
 
 import torch
 
+from ..core.tensor import boundary
+
 from ..core import amp_state
 from ..core.amp_state import BLACK_LIST, WHITE_LIST, AmpAttrs
 
@@ -173,10 +175,12 @@ class GradScaler:
     def get_loss_scaling(self) -> float:
         return self._scale
 
+    @boundary
     def scale(self, loss):
         return loss * self._scale if self._enable else loss
 
     @torch.no_grad()
+    @boundary
     def unscale_(self, optimizer):
         """Unscale every gradient into float32, as the reference does, and
         find whether one is not finite from those float32 values.  A float32
@@ -201,6 +205,7 @@ class GradScaler:
         self._found_inf = bool(torch.stack(bad).any()) if bad else False
         self._unscaled = True
 
+    @boundary
     def step(self, optimizer):
         if not self._enable:
             optimizer.step()
@@ -211,9 +216,11 @@ class GradScaler:
         self._update_scale()
         self._unscaled = False
 
+    @boundary
     def update(self):
         """No-op kept for API parity; the scale moves in ``step``."""
 
+    @boundary
     def minimize(self, optimizer, scaled_loss):
         scaled_loss.backward()
         self.step(optimizer)

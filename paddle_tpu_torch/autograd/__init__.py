@@ -12,6 +12,8 @@ from typing import List
 
 import torch
 
+from ..core.tensor import wrap
+
 no_grad = torch.no_grad
 enable_grad = torch.enable_grad
 set_grad_enabled = torch.set_grad_enabled
@@ -45,7 +47,7 @@ def grad(outputs, inputs, grad_outputs=None, retain_graph=None,
                               retain_graph=retain_graph,
                               create_graph=create_graph,
                               allow_unused=allow_unused)
-    return list(out)
+    return wrap(list(out))
 
 
 class PyLayerContext:

@@ -23,6 +23,13 @@ float32 = torch.float32
 float64 = torch.float64
 complex64 = torch.complex64
 complex128 = torch.complex128
+float8_e4m3fn = torch.float8_e4m3fn
+float8_e5m2 = torch.float8_e5m2
+# the reference's non-numeric placeholder dtypes (string tensors, opaque
+# bytes): markers only
+pstring = "pstring"
+raw = "raw"
+dtype = torch.dtype     # the ``paddle.dtype`` type
 
 _ALIASES = {
     "bool": bool_, "uint8": uint8, "int8": int8, "int16": int16,
@@ -30,6 +37,7 @@ _ALIASES = {
     "bfloat16": bfloat16, "bf16": bfloat16, "float32": float32,
     "fp32": float32, "float64": float64, "fp64": float64,
     "complex64": complex64, "complex128": complex128,
+    "float8_e4m3fn": float8_e4m3fn, "float8_e5m2": float8_e5m2,
 }
 
 FLOATING = {float16, bfloat16, float32, float64}

@@ -24,6 +24,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..core.tensor import boundary
+
 from ..core.tensor import Parameter
 
 _PROTOCOL = 4
@@ -115,6 +117,7 @@ def save(obj: Any, path: str, protocol: int = _PROTOCOL, **configs) -> None:
         pickle.dump(_pack(obj), f, protocol=protocol)
 
 
+@boundary
 def load(path: str, return_numpy: bool = False, **configs) -> Any:
     """Load an object saved by :func:`save` (or by the reference's
     ``paddle.save``); tensors land on the device ``set_device`` chose."""

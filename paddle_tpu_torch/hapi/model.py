@@ -20,6 +20,8 @@ import os
 import numpy as np
 import torch
 
+from ..core.tensor import boundary
+
 from .. import observability as _obs
 from ..io import DataLoader, _to_device
 from .callbacks import CallbackList, ModelCheckpoint, ProgBarLogger
@@ -81,6 +83,7 @@ class Model:
         return self
 
     # ---- single steps ----
+    @boundary
     def train_batch(self, inputs, labels=None, update=True):
         self.network.train()
         inputs = _to_list(inputs)
@@ -94,6 +97,7 @@ class Model:
         metrics = self._update_metrics(outputs, labels)
         return [float(_host_read([losses])[0])] + metrics
 
+    @boundary
     def eval_batch(self, inputs, labels=None):
         self.network.eval()
         with torch.no_grad():
@@ -104,6 +108,7 @@ class Model:
             metrics = self._update_metrics(outputs, labels)
         return [float(_host_read([losses])[0])] + metrics
 
+    @boundary
     def predict_batch(self, inputs):
         self.network.eval()
         with torch.no_grad():
@@ -126,6 +131,7 @@ class Model:
         return [float(v) for v in vals]
 
     # ---- loops ----
+    @boundary
     def fit(self, train_data=None, eval_data=None, batch_size=1, epochs=1,
             eval_freq=1, log_freq=10, save_dir=None, save_freq=1, verbose=2,
             drop_last=False, shuffle=True, num_workers=0, callbacks=None,
@@ -176,6 +182,7 @@ class Model:
         cb.call("on_train_end")
         return history
 
+    @boundary
     def evaluate(self, eval_data, batch_size=1, log_freq=10, verbose=2,
                  num_workers=0, callbacks=None, num_samples=None):
         loader = self._loader(eval_data, batch_size, False, False,
@@ -197,6 +204,7 @@ class Model:
         cb.call("on_eval_end", logs)
         return logs
 
+    @boundary
     def predict(self, test_data, batch_size=1, num_workers=0,
                 stack_outputs=False, callbacks=None, verbose=1):
         import inspect

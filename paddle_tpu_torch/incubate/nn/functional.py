@@ -248,3 +248,7 @@ __all__ = ["block_multihead_attention", "decode_attention",
            "fused_layer_norm", "fused_linear", "fused_linear_activation",
            "fused_moe", "fused_rms_norm", "fused_rotary_position_embedding",
            "masked_multihead_attention", "number_count", "swiglu"]
+
+from ...core.tensor import boundary_module  # noqa: E402
+
+boundary_module(globals(), __all__)

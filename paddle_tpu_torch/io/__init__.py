@@ -33,6 +33,8 @@ from typing import Any, Dict, List, Sequence
 import numpy as np
 import torch
 
+from ..core.tensor import tensor_batches
+
 __all__ = [
     "Dataset", "IterableDataset", "TensorDataset", "ComposeDataset",
     "ChainDataset", "ConcatDataset", "Subset", "random_split",
@@ -392,6 +394,7 @@ def default_collate_fn(batch: List[Any]):
         f"batch data can not be a batch of {type(sample).__name__}")
 
 
+@tensor_batches
 class _MapIterator:
     """Single-process map-style iterator."""
 
@@ -408,6 +411,7 @@ class _MapIterator:
         return self.loader.collate_fn(samples)
 
 
+@tensor_batches
 class _IterableIterator:
     def __init__(self, loader):
         self.loader = loader
@@ -433,6 +437,7 @@ class _IterableIterator:
         return self.loader.collate_fn(samples)
 
 
+@tensor_batches
 class _PrefetchIterator:
     """Worker threads pull index batches and push collated batches into a
     bounded re-order buffer, preserving batch order."""

@@ -29,6 +29,7 @@ import traceback
 
 import torch
 
+from ..core.tensor import tensor_batches
 from ..native import SharedRingBuffer, load_library
 from .native_loader import (_batch_spec, _flatten_batch, _read_batch,
                             _serialized_size, _worker_collate, _write_batch)
@@ -101,6 +102,7 @@ def _worker_main(loader, rb, task_q, side_q, wid, num_workers, seed):
             pass
 
 
+@tensor_batches
 class _MPPrefetchIterator:
     """Order-preserving iterator over the batches that fork workers
     produce."""

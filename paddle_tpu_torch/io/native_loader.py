@@ -18,6 +18,7 @@ from typing import List
 import numpy as np
 import torch
 
+from ..core.tensor import tensor_batches
 from ..native import RingBuffer, load_library
 
 # dtype codes of the slot format; code 3 is the reference's bfloat16, which
@@ -174,6 +175,7 @@ def _read_batch(view: np.ndarray):
     return batch_idx, spec, arrays
 
 
+@tensor_batches
 class _NativePrefetchIterator:
     """The user-facing handle.  Worker threads hold the separate
     ``_NativeImpl``; ``weakref.finalize`` on this object closes it when the

@@ -594,3 +594,9 @@ def flash_attn_varlen(q, k, v, cu_seqlens_q, cu_seqlens_k, causal=False):
 
 
 flash_attn_unpadded = flash_attn_varlen
+
+
+# Paddle-API tensors handed to a kernel's entry run it on plain tensors
+from ..core.tensor import plain_module  # noqa: E402
+
+plain_module(globals())

@@ -532,3 +532,9 @@ def grouped_matmul(lhs, rhs, tile_groups, num_groups, bm=512):
     ``gmm`` against the transposed expert weights (dlhs) and :func:`tgmm`
     (drhs).  lhs [M, C] row-grouped, rhs [E, C, O]; returns [M, O]."""
     return _GroupedMatmul.apply(lhs, rhs, tile_groups, num_groups, bm)
+
+
+# Paddle-API tensors handed to a kernel's entry run it on plain tensors
+from ..core.tensor import plain_module  # noqa: E402
+
+plain_module(globals())

@@ -602,3 +602,9 @@ def write_kv_pages_all_layers_quantized(k_cache, v_cache, k_scale, v_scale,
         cache.index_copy_(2, flat_pid, qp)
         scale.index_copy_(2, flat_pid, sc)
     return k_cache, v_cache, k_scale, v_scale
+
+
+# Paddle-API tensors handed to a kernel's entry run it on plain tensors
+from ..core.tensor import plain_module  # noqa: E402
+
+plain_module(globals())

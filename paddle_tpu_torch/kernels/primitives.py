@@ -462,3 +462,9 @@ def dequant_int8(q, scale, axis: int = -1):
     shape[axis % q.dim()] = -1
     s = scale.reshape(shape)
     return q.to(s.dtype) * s
+
+
+# Paddle-API tensors handed to a kernel's entry run it on plain tensors
+from ..core.tensor import plain_module  # noqa: E402
+
+plain_module(globals())

@@ -17,3 +17,9 @@ def rms_norm_fp32(x, weight, eps: float, bias=None, dim=(-1,)):
     if bias is not None:
         out = out + bias.float()
     return out.to(x.dtype)
+
+
+# Paddle-API tensors handed to a kernel's entry run it on plain tensors
+from ..core.tensor import plain_module  # noqa: E402
+
+plain_module(globals())

@@ -282,3 +282,9 @@ def weight_only_matmul(x, wq, scale, int4_rows=None, out_dtype=None):
     out = _WeightOnlyMatmul.apply(x.reshape(m, k), wq, scale, int4, k,
                                   out_dtype)
     return out.reshape(lead + (n,))
+
+
+# Paddle-API tensors handed to a kernel's entry run it on plain tensors
+from ..core.tensor import plain_module  # noqa: E402
+
+plain_module(globals())

@@ -9,8 +9,11 @@ from __future__ import annotations
 
 import torch
 
+from ..core.tensor import boundary
+
 
 class ClipGradBase:
+    @boundary
     def __call__(self, params_grads):
         return self._dygraph_clip(params_grads)
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.tensor import boundary
 from ..observability import count_sync
 
 __all__ = ["BeamSearchDecoder", "dynamic_decode"]
@@ -105,6 +106,7 @@ class BeamSearchDecoder:
         return torch.topk(total, self.beam_size, dim=-1)
 
 
+@boundary
 def dynamic_decode(decoder, inits=None, max_step_num=None,
                    output_time_major=False, impute_finished=False,
                    is_test=False, return_length=False, **kwargs):

@@ -2041,3 +2041,7 @@ __all__ = [
     "tanh_", "tanh_shrink", "tanhshrink", "temporal_shift",
     "thresholded_relu", "thresholded_relu_", "triplet_margin_loss",
     "triplet_margin_with_distance_loss", "unfold", "upsample", "zeropad2d"]
+
+from ..core.tensor import boundary_module  # noqa: E402
+
+boundary_module(globals(), __all__)

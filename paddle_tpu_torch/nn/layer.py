@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from .. import dtypes
-from ..core.tensor import Parameter
+from ..core.tensor import Parameter, boundary
 from ..device import _place, current
 from . import initializer as I
 
@@ -216,6 +216,13 @@ class Layer(torch.nn.Module):
 
     def forward(self, *inputs, **kwargs):
         raise NotImplementedError
+
+    @boundary
+    def __call__(self, *inputs, **kwargs):
+        """torch's module call as a Paddle-API entry: the forward runs on
+        plain tensors (parameters answer as torch's), the outputs come
+        back as ``Tensor``."""
+        return torch.nn.Module.__call__(self, *inputs, **kwargs)
 
     def clear_gradients(self, set_to_zero=True):
         from ..amp import drop_grad

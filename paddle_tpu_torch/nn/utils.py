@@ -148,3 +148,7 @@ def clip_grad_value_(parameters, clip_value):
 __all__ = ["clip_grad_norm_", "clip_grad_value_", "parameters_to_vector",
            "remove_weight_norm", "spectral_norm", "vector_to_parameters",
            "weight_norm"]
+
+from ..core.tensor import boundary_module  # noqa: E402
+
+boundary_module(globals(), __all__)

@@ -30,6 +30,8 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from ..core.tensor import boundary
+
 from ..amp import drop_grad, float32_grad
 from . import lr  # noqa: F401
 from .lr import LRScheduler
@@ -102,6 +104,7 @@ class Optimizer:
                 p.grad is not None]
 
     @torch.no_grad()
+    @boundary
     def step(self):
         self._apply_optimize(self._collect_params_grads())
 
@@ -142,12 +145,14 @@ class Optimizer:
         from gradient ``g``."""
         raise NotImplementedError
 
+    @boundary
     def clear_grad(self, set_to_zero=True):
         for p in self._params:
             drop_grad(p)
 
     clear_gradients = clear_grad
 
+    @boundary
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):
         loss.backward()

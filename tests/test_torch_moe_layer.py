@@ -216,7 +216,7 @@ def test_gates_route_as_the_reference(gate):
 def test_switch_gate_noise_in_training_only():
     _, t = _pair(GATES["switch"])
     x = torch.tensor(_x(24, D, seed=5))
-    clean = t.gate.scores(x).float().softmax(-1).max(-1).values
+    clean = torch.max(t.gate.scores(x).float().softmax(-1), -1).values
     t.gate.eval()
     assert torch.equal(t.gate(x)[0][:, 0], clean)
     t.gate.train()

@@ -464,8 +464,8 @@ def test_rrelu_training_slopes():
     slope = y[~pos] / x[~pos]
     assert slope.min() >= 0.1 - 1e-6 and slope.max() < 0.3 + 1e-6
     assert abs(slope.mean().item() - 0.2) < 0.005
-    assert tnn.RReLU(0.1, 0.3).eval()(x).equal(
-        tF.rrelu(x, 0.1, 0.3, training=False))
+    assert torch.equal(tnn.RReLU(0.1, 0.3).eval()(x),
+                       tF.rrelu(x, 0.1, 0.3, training=False))
 
 
 def test_gumbel_softmax_soft_and_hard():

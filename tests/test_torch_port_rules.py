@@ -70,7 +70,9 @@ PADDLE_API = ("device/__init__.py", "dtypes.py", "core/random.py",
               "incubate/distributed/models/moe/gate.py",
               "incubate/distributed/models/moe/moe_layer.py",
               "quantization/__init__.py", "nn/rnn.py", "nn/decode.py",
-              "nn/utils.py")
+              "nn/utils.py", "ops/_prim.py", "ops/_generated.py",
+              "ops/indexing.py", "ops/search.py", "ops/extras.py",
+              "ops/compat.py", "ops/array.py", "linalg.py", "errors.py")
 
 
 def test_port_and_chip_smoke_import_no_jax():
