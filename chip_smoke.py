@@ -249,7 +249,7 @@ is caught; there is no ``ok`` line unless every phase passed):
     kernel's forms on the training step.
 12. ``moe_train_parity`` — ``PretrainStep`` on the card against the same
     step on the CPU from one ``restore_canonical`` state: 1 fp32 layer at
-    Mixtral-8x7B widths (1.71 B parameters), B=2, T=256, remat and a
+    Mixtral-8x7B widths (1.71 B parameters), B=1, T=256, remat and a
     4-chunk loss; first-step gradients, then 2 steps' losses and
     parameters (at most MOE_PARITY_FAR_SHARE further apart than 1e-6);
     tokens whose top-2 experts differ between card and CPU in the first
@@ -448,6 +448,31 @@ is caught; there is no ``ok`` line unless every phase passed):
     ``set_value``, the ``shape`` / ``size`` idioms, one marked sync each
     for ``unique``, ``nonzero``, ``masked_select``, ``bincount``,
     ``histogram`` and a mask read).
+13r. ``optim_parity`` — the optimizers and the rest of the framework core
+    on the card against the port on the CPU, fp32 with TF32 off, at small
+    shapes: all 15 optimizers 8 steps each (parameters and every
+    accumulator), the L1 / L2 regularizers, ``LookAhead`` and
+    ``ModelAverage``; ``Embedding(sparse=True)`` under SGD, lazy and exact
+    Adam and AdamW with a global-norm clip (the gradient row-sparse each
+    step; the rows the last step moved against the rows it touched:
+    equal for the lazy rules); LBFGS (Armijo, strong Wolfe): losses and
+    closure calls; ``jacobian``, ``hessian``, ``jvp``, ``vjp``;
+    ``check_numerics``' counts; ``collect_operator_stats`` at fp32 and bf16
+    (equal counts); ``Stream`` / ``Event`` timing against
+    ``torch.cuda.Event``'s (EVENT_MS_TOL) and the memory counters against
+    ``torch.cuda``'s (equal).  Each case's worst error within
+    OPTIM_PARITY_TOL.  No Pallas kernel is on this path.
+13s. ``optim_models`` — the slice's optimizers at full width
+    (OPTIM_MODELS), each model trained on one repeated batch: (a)
+    ResNet-50 (224 px, B 64, O1 bf16) under ``Lars``; (b) the
+    ERNIE-3.0-base encoder (12 x 768, s 512, B 16) under ``Lamb`` at O2
+    bf16 with float32 masters; (c) the PTB-large LSTM LM with
+    ``Embedding(sparse=True)`` under ``SGD(1.0)`` + global-norm clip 10 and
+    under ``Adam(lazy_mode=True)``, its embedding's rows moved in one step
+    equal to the rows touched (none outside).  Warm-up, then timed steps
+    with 0 builds and 0 syncs; losses finite and falling; ms a step,
+    images or tokens/s, busy / idle share, peak memory, beside the same
+    model's figures under its old optimizer in this run.
 14. ``kernel_wo`` — ptxas's record of the 21 kernels of
     ``weight_only_sm90.cu`` (0 spill bytes each, or it fails); then the
     weight-only W8A16/W4A16 kernels against their plain version: int8 and
@@ -627,10 +652,11 @@ MOE_TIMED = dict(tokens=8192, E=8, k=2, bm=512, H=4096, I=14336)
 MOE_MIX = {"forward": {"gmm_up": 4, "gmm_down": 2},
            "trans": {"trans_da": 1, "trans_dx": 2},
            "tgmm": {"tgmm_dw_gate": 2, "tgmm_dw_down": 1}}
-# 2 steps (3 before the Paddle-API phases, cut for the script's time): the
-# far share below was set from 3, and a step fewer moves fewer parameters
-# apart
-MOE_PARITY = dict(preset="mixtral_8x7b", layers=1, batch=2, seq=256, steps=2)
+# 2 steps (3 before the Paddle-API phases) and batch 1 (2 before the
+# optimizer phases), each cut for the script's time (its CPU side is the
+# script's longest phase): the far share below was set from 3 steps at
+# batch 2, and fewer steps and tokens move fewer parameters apart
+MOE_PARITY = dict(preset="mixtral_8x7b", layers=1, batch=1, seq=256, steps=2)
 # share of moe_train_parity's parameters further apart than 1e-6, set from
 # `python3 chip_smoke.py --moe-parity-spread` on an H100 80GB HBM3 at 3
 # steps: fp32 read 1.3e-4 to 3.1e-4 over seeds 0-3, TF32 on (the control
@@ -794,6 +820,36 @@ OPS_PARITY = dict(seed=6000, draws=200000)
 # tensor's card-side surface
 TENSOR_PATHS = {"transformer": dict(SEQ_MODELS["transformer"], warmup=2,
                                     steps=4, seed=6100)}
+# optim_parity: every optimizer, LookAhead / ModelAverage, the
+# regularizers, the row-sparse updates, LBFGS and the framework core on the
+# card against the port on the CPU (fp32, TF32 off) at small shapes.
+# OPTIM_PARITY_TOL is of the largest |value| compared: the updates are
+# elementwise and agree to rounding; Lamb's and Lars' norms and the global
+# norm clip sum in another order on the card
+OPTIM_PARITY = dict(seed=7000, steps=8, shapes=((16, 12), (12,), (4, 4, 3)),
+                    vocab=64, dim=16, ids=(4, 24), sparse_steps=4,
+                    lbfgs=dict(rows=64, cols=8, outs=3, max_iter=4,
+                               max_eval=10, calls=3))
+OPTIM_PARITY_TOL = 1e-5
+# an Event pair's elapsed time against torch.cuda.Event's on the same
+# stream at the same points (both read the same CUDA clock)
+EVENT_MS_TOL = dict(rel=0.05, abs=0.05)
+# optim_models: this slice's optimizers on the models of resnet50_train,
+# encoder_train and seq_models at their widths.  (a) LARS (You et al. 2017,
+# trust coefficient 0.001, weight decay 5e-4; momentum 0.9) at lr 2.0 on
+# ResNet-50, O1 bf16; (b) LAMB (You et al. 2019: beta 0.9 / 0.999, eps
+# 1e-6, weight decay 0.01 off the biases and norms) at lr 2e-3 on the
+# ERNIE-3.0-base encoder, O2 bf16 with float32 masters; (c) the PTB-large
+# LSTM LM with Embedding(sparse=True) under SGD(1.0) + global-norm clip 10
+# (its seq_models setting) and under Adam(lazy_mode=True) at lr 1e-3, fp32
+OPTIM_MODELS = {
+    "resnet50": dict(RESNET50_TRAIN, warmup=2, steps=8, lr=2.0,
+                     lars_coeff=0.001, lars_weight_decay=5e-4, seed=7100),
+    "encoder": dict(ENCODER_TRAIN, warmup=2, steps=6, lr=2e-3,
+                    weight_decay=0.01, seed=7200),
+    "lstm": dict(SEQ_MODELS["lstm"], warmup=2, steps=6, adam_lr=1e-3,
+                 seed=7300),
+}
 # beam search: a step where the CPU's k-th and (k+1)-th totals lie this
 # close (relative) may choose otherwise on the card
 NEAR_TIE_REL = 1e-5
@@ -922,6 +978,11 @@ def graph_ms(fn, calls: int, reps: int = 5) -> float:
     end.synchronize()
     del graph
     return start.elapsed_time(end) / (reps * calls)
+
+
+# each phase's figures that a later phase prints beside its own
+# (``_old_optimizer``), by phase
+_PHASE_RESULTS = {}
 
 
 # ------------------------------------------------------------ device ---
@@ -6353,7 +6414,7 @@ def _first_layer_topk(ps, params, ids):
 
 def _moe_parity_run(seed, tf32=False):
     """One fp32 layer at Mixtral-8x7B widths (remat full, 4 loss chunks,
-    B=2, T=256): the trainer on the card (the grouped and flash kernels,
+    MOE_PARITY's B and T): the trainer on the card (the grouped and flash kernels,
     cuBLAS fp32) against the same trainer on the CPU (plain versions), from
     one state carried with restore_canonical; ``seed`` draws the state and
     the batch.  With ``tf32`` cuBLAS runs the card's dense matmuls in TF32
@@ -7518,6 +7579,11 @@ def phase_resnet50_train(cfg=None, device="cuda"):
         prof = _profile_breakdown(step, step_s * 1e3, top=8)
         prof["busy_share"] = 1 - prof["idle_share"]
         result["profile"] = prof
+    _PHASE_RESULTS["resnet50_train"] = dict(
+        optimizer="Momentum(0.1, 0.9, weight decay 1e-4)",
+        step_ms=result["step_ms"],
+        max_memory_allocated=result["max_memory_allocated"],
+        busy_share=result.get("profile", {}).get("busy_share"))
     emit("resnet50_train", **result,
          nvidia_smi=_nvidia_smi() if cuda else None)
     del model, opt, x, y
@@ -7627,6 +7693,12 @@ def phase_encoder_train(cfg=None, device="cuda"):
         prof["flash_share_of_busy"] = prof["flash_ms"] / \
             prof["device_busy_ms"]
         result["profile"] = prof
+    _PHASE_RESULTS["encoder_train"] = dict(
+        optimizer="AdamW(1e-4, weight decay 0.01), fp32 masters",
+        step_ms=result["step_ms"],
+        max_memory_allocated=result["max_memory_allocated"],
+        busy_share=1 - prof["idle_share"] if cuda else None)
+    if cuda:
         del model, opt, ids, labels
         gc.collect()
         torch.cuda.empty_cache()
@@ -8941,13 +9013,13 @@ def _smoothed_ce(F, logits, labels, vocab, eps):
     return F.softmax_with_cross_entropy(logits, soft, soft_label=True).mean()
 
 
-def _lstm_lm_model(paddle, vocab, hidden, layers, dropout):
+def _lstm_lm_model(paddle, vocab, hidden, layers, dropout, sparse=False):
     nn = paddle.nn
 
     class LM(nn.Layer):
         def __init__(self):
             super().__init__()
-            self.embed = nn.Embedding(vocab, hidden)
+            self.embed = nn.Embedding(vocab, hidden, sparse=sparse)
             self.rnn = nn.LSTM(hidden, hidden, num_layers=layers,
                                dropout=dropout)
             self.head = nn.Linear(hidden, vocab)
@@ -9424,6 +9496,11 @@ def phase_seq_models(cfg=None, device="cuda"):
         return loss.detach()
     tr = _seq_train_report("lstm", lm, lm_step, c, device,
                            c["batch"] * c["unroll"])
+    _PHASE_RESULTS["lstm"] = dict(
+        optimizer="SGD(1.0) + ClipGradByGlobalNorm(10), dense embedding "
+        "gradient", step_ms=tr["step_ms"],
+        max_memory_allocated=tr["max_memory_allocated"],
+        busy_share=tr.get("profile", {}).get("busy_share"))
     emit("seq_models", part="ptb_large_lstm", config=(
         "Zaremba et al. 2014 large: Embedding(10000, 1500), LSTM 2 x 1500, "
         "dropout 0.65, 35 unrolled steps, batch 20 (Paddle's PTB LM "
@@ -10976,6 +11053,571 @@ def _tensor_surface(paddle, device):
                 marked_syncs=data_dependent)
 
 
+# ------------------------------------------- optimizers, framework core ---
+
+def _optim_cases(paddle):
+    """(name, make(params) -> optimizer-like) for every optimizer of the
+    port, the regularizers (``L1`` / ``L2`` on the first parameter),
+    ``LookAhead`` over Adam and ``ModelAverage`` over SGD (its ``step``
+    after the inner one, then ``apply``)."""
+    o = paddle.optimizer
+    clip = paddle.nn.ClipGradByGlobalNorm
+
+    def reg(kind, make):
+        def build(ps):
+            ps[0].regularizer = getattr(paddle.regularizer, kind)(0.05)
+            return make(ps)
+        return build
+    return [
+        ("sgd", lambda ps: o.SGD(0.1, parameters=ps, weight_decay=0.01)),
+        ("momentum", lambda ps: o.Momentum(0.1, 0.9, parameters=ps,
+                                           use_nesterov=True,
+                                           weight_decay=1e-3)),
+        ("adam", lambda ps: o.Adam(0.01, parameters=ps, weight_decay=0.01,
+                                   grad_clip=clip(2.0))),
+        ("adamw", lambda ps: o.AdamW(0.01, parameters=ps, weight_decay=0.05,
+                                     lr_ratio=lambda p: 0.5)),
+        ("adamax", lambda ps: o.Adamax(0.05, parameters=ps,
+                                       weight_decay=0.01)),
+        ("rmsprop_centered", lambda ps: o.RMSProp(
+            0.01, rho=0.9, momentum=0.5, centered=True, parameters=ps)),
+        ("adagrad", lambda ps: o.Adagrad(0.1, parameters=ps,
+                                         initial_accumulator_value=0.1)),
+        ("adadelta", lambda ps: o.Adadelta(1.0, parameters=ps, rho=0.9)),
+        ("nadam", lambda ps: o.NAdam(0.02, parameters=ps,
+                                     weight_decay=0.01)),
+        ("radam", lambda ps: o.RAdam(0.05, parameters=ps)),
+        ("asgd", lambda ps: o.ASGD(0.05, batch_num=3, parameters=ps)),
+        ("rprop", lambda ps: o.Rprop(0.01, parameters=ps,
+                                     learning_rate_range=(1e-4, 0.05))),
+        ("lamb", lambda ps: o.Lamb(0.02, lamb_weight_decay=0.01,
+                                   parameters=ps, grad_clip=clip(2.0))),
+        ("lars", lambda ps: o.Lars(0.5, 0.9, lars_coeff=0.01,
+                                   lars_weight_decay=1e-3, parameters=ps)),
+        ("l1_decay", reg("L1Decay", lambda ps: o.SGD(
+            0.1, parameters=ps, weight_decay=0.3))),
+        ("l2_decay", reg("L2Decay", lambda ps: o.Momentum(
+            0.1, 0.9, parameters=ps, weight_decay=0.3))),
+        ("lookahead", lambda ps: paddle.incubate.optimizer.LookAhead(
+            o.Adam(0.05, parameters=ps), alpha=0.4, k=3)),
+        ("model_average", lambda ps: _AveragedSGD(paddle, ps)),
+    ]
+
+
+class _AveragedSGD:
+    """SGD steps with a ``ModelAverage`` over them (window 2..3, so it
+    restarts); ``averaged()`` applies the average."""
+
+    def __init__(self, paddle, ps):
+        self.sgd = paddle.optimizer.SGD(0.1, parameters=ps)
+        self.avg = paddle.incubate.optimizer.ModelAverage(
+            0.5, parameters=ps, min_average_window=2, max_average_window=3)
+
+    def step(self):
+        self.sgd.step()
+        self.avg.step()
+
+    def clear_grad(self):
+        self.sgd.clear_grad()
+
+    def state_dict(self):
+        return self.avg.state_dict()
+
+    def averaged(self):
+        self.avg.apply(need_restore=False)
+
+
+def _rel_err(got, want):
+    import torch
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    scale = max(1.0, float(want.abs().max())) if want.numel() else 1.0
+    return float((got - want).abs().max()) / scale if want.numel() else 0.0
+
+
+def _optim_dense_run(paddle, make, c, dev):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(c["seed"])
+    with _paddle_device(dev):
+        ps = [paddle.Parameter(torch.tensor(
+            rng.standard_normal(s).astype(np.float32), device=dev),
+            name=f"p{i}") for i, s in enumerate(c["shapes"])]
+        opt = make(ps)
+        for _ in range(c["steps"]):
+            for p in ps:
+                p.grad = torch.tensor(rng.standard_normal(
+                    tuple(p.shape)).astype(np.float32) * 3.0, device=dev)
+            opt.step()
+            opt.clear_grad()
+        if isinstance(opt, _AveragedSGD):
+            opt.averaged()
+        state = {k: v for k, v in opt.state_dict().items()
+                 if torch.is_tensor(v)}
+    return ps, state
+
+
+# which rows a sparse case's last step moves: the touched ones ("touched"),
+# those and rows touched before (exact Adam's moments), or every row (exact
+# AdamW's decoupled decay)
+SPARSE_MOVES = {"sgd_wd": "touched", "adam_lazy": "touched",
+                "adamw_lazy": "touched", "adam_exact": "superset",
+                "adamw_exact": "all"}
+SPARSE_CASES = {
+    "sgd_wd": lambda o, ps, clip: o.SGD(1.0, parameters=ps,
+                                        weight_decay=0.01, grad_clip=clip),
+    "adam_lazy": lambda o, ps, clip: o.Adam(0.05, parameters=ps,
+                                            lazy_mode=True, grad_clip=clip),
+    "adam_exact": lambda o, ps, clip: o.Adam(0.05, parameters=ps,
+                                             grad_clip=clip),
+    "adamw_lazy": lambda o, ps, clip: o.AdamW(
+        0.05, parameters=ps, lazy_mode=True, weight_decay=0.05,
+        grad_clip=clip),
+    "adamw_exact": lambda o, ps, clip: o.AdamW(0.05, parameters=ps,
+                                               weight_decay=0.05,
+                                               grad_clip=clip),
+}
+
+
+def _optim_sparse_run(paddle, name, c, dev, w0):
+    """``sparse_steps`` steps of an ``Embedding(sparse=True)`` under
+    ``SPARSE_CASES[name]`` with a global-norm clip; the weight, and the
+    last step's rows moved and rows touched."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(c["seed"] + 1)
+    with _paddle_device(dev):
+        emb = paddle.nn.Embedding(c["vocab"], c["dim"], sparse=True)
+        with torch.no_grad():
+            emb.weight.copy_(torch.tensor(w0))
+        opt = SPARSE_CASES[name](paddle.optimizer, emb.parameters(),
+                                 paddle.nn.ClipGradByGlobalNorm(1.0))
+        for _ in range(c["sparse_steps"]):
+            ids = torch.tensor(rng.integers(0, c["vocab"] // 2, c["ids"]),
+                               device=dev)
+            scale = torch.tensor(rng.standard_normal(
+                c["ids"] + (c["dim"],)).astype(np.float32), device=dev)
+            before = emb.weight.detach().clone()
+            (emb(ids) * scale).sum().backward()
+            if not emb.weight.grad.is_selected_rows():
+                raise AssertionError(f"optim_parity sparse_{name}: the "
+                                     "embedding's gradient is dense")
+            opt.step()
+            opt.clear_grad()
+        moved = (emb.weight.detach() != before).any(1)
+        touched = torch.zeros(c["vocab"], dtype=torch.bool, device=dev)
+        touched[ids.reshape(-1)] = True
+    return emb.weight.detach(), int(moved.sum()), int(touched.sum()), \
+        int((moved & ~touched).sum())
+
+
+def _lbfgs_run(paddle, c, dev, line_search):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(c["seed"] + 2)
+    b = c["lbfgs"]
+    x = (rng.standard_normal((b["rows"], b["cols"])) *
+         np.logspace(0, 0.6, b["cols"])).astype(np.float32)
+    y = rng.standard_normal((b["rows"], b["outs"])).astype(np.float32)
+    w0 = (rng.standard_normal((b["cols"], b["outs"])) * 0.5).astype(
+        np.float32)
+    with _paddle_device(dev):
+        w = paddle.Parameter(torch.tensor(w0, device=dev), name="w")
+        xt, yt = paddle.to_tensor(x), paddle.to_tensor(y)
+        opt = paddle.optimizer.LBFGS(
+            0.2, max_iter=b["max_iter"], max_eval=b["max_eval"],
+            history_size=4, line_search_fn=line_search, parameters=[w],
+            weight_decay=0.01)
+        calls = [0]
+
+        def closure():
+            calls[0] += 1
+            loss = ((xt.matmul(w) - yt) ** 2).mean()
+            loss.backward()
+            return loss
+        losses = [float(opt.step(closure)) for _ in range(b["calls"])]
+    return losses, calls[0], w.detach()
+
+
+def _transform_cases(paddle, dev):
+    import numpy as np
+    ag = paddle.autograd
+    rng = np.random.default_rng(7400)
+    with _paddle_device(dev):
+        x, y, v = (paddle.to_tensor(rng.standard_normal(5).astype(
+            np.float32)) for _ in range(3))
+        return {
+            "jacobian": ag.jacobian(lambda a, b: paddle.sin(a) * b + a,
+                                    [x, y]),
+            "hessian": ag.hessian(lambda a: (paddle.tanh(a) * a * a).sum(),
+                                  x),
+            "jvp": ag.jvp(lambda a: paddle.exp(a) * a, x, v),
+            "vjp": ag.vjp(lambda a, b: paddle.sin(a) * b, [x, y], v),
+        }
+
+
+def _flat(tree):
+    import torch
+    if torch.is_tensor(tree):
+        return [tree]
+    return [t for v in tree for t in _flat(v)]
+
+
+def _op_stats(paddle, dev):
+    from paddle_tpu_torch.amp import debugging
+    with _paddle_device(dev):
+        paddle.seed(7500)
+        m = paddle.nn.Sequential(paddle.nn.Linear(16, 32), paddle.nn.GELU(),
+                                 paddle.nn.LayerNorm(32),
+                                 paddle.nn.Linear(32, 4))
+        x = paddle.randn([8, 16])
+        out = []
+        for amp in (False, True):
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(contextlib.redirect_stdout(None))
+                if amp:
+                    stack.enter_context(paddle.amp.auto_cast(
+                        dtype="bfloat16"))
+                st = stack.enter_context(debugging.collect_operator_stats())
+                y = m(x)
+                _ = paddle.nn.functional.softmax(y) * 2.0 + y.sum()
+            out.append(dict(st))
+    return out
+
+
+def _stream_and_memory(paddle):
+    """Event timing on a side stream against ``torch.cuda.Event``'s at the
+    same points, and the memory namespace against ``torch.cuda``'s
+    counters."""
+    import torch
+    d = paddle.device
+    a = torch.randn(2048, 2048, device="cuda")
+    s = d.Stream()
+    s.wait_stream(d.current_stream())
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0 = s.record_event()
+    t0.record(s._stream)
+    with torch.cuda.stream(s._stream):
+        for _ in range(8):
+            a = a @ a * 1e-3
+    e1 = d.Event()
+    e1.record(s)
+    t1.record(s._stream)
+    ms = e0.elapsed_time(e1)
+    torch_ms = t0.elapsed_time(t1)
+    d.current_stream().wait_stream(s)
+    counters = {
+        "memory_allocated": (d.cuda.memory_allocated(),
+                             torch.cuda.memory_allocated()),
+        "max_memory_allocated": (d.cuda.max_memory_allocated(),
+                                 torch.cuda.max_memory_allocated()),
+        "memory_reserved": (d.cuda.memory_reserved(),
+                            torch.cuda.memory_reserved()),
+        "max_memory_reserved": (d.tpu.max_memory_reserved(),
+                                torch.cuda.max_memory_reserved())}
+    ma = d.memory_analysis(lambda x: (x @ x).relu(), a)
+    live = d.live_arrays_report(top=3)
+    return dict(event_ms=ms, torch_event_ms=torch_ms, counters=counters,
+                summary_lines=len(d.cuda.memory_summary().splitlines()),
+                memory_analysis=ma, live_cuda_rows=sum(
+                    r["device"].startswith("cuda") for r in live["top"]),
+                available=d.get_available_device())
+
+
+def phase_optim_parity(cfg=None, device="cuda"):
+    """The slice on ``device`` against the port on the CPU, fp32 with TF32
+    off, at small shapes (OPTIM_PARITY): every optimizer (and the L1 / L2
+    regularizers, ``LookAhead``, ``ModelAverage``) for ``steps`` steps on
+    the same parameters and gradients, parameters and every accumulator;
+    the row-sparse SGD / Adam / AdamW updates (lazy and exact) under a
+    global-norm clip, each step's gradient row-sparse, the last step's
+    moved rows within the touched ones (equal under the lazy rules);
+    LBFGS (Armijo and strong Wolfe): its losses (relative) and closure
+    calls, the objective it promises (its iterate's difference is printed:
+    near the minimum the objective is flat, and in the first card run the
+    iterates were 1.2e-5 apart where the losses agreed to 1.4e-7); the four
+    autograd transforms; ``check_numerics`` (its counts); the operator
+    stats of a small model at fp32 and bf16 (equal counts); on the card,
+    ``Stream`` / ``Event`` timing against ``torch.cuda.Event``'s and the
+    memory counters against ``torch.cuda``'s.  Each case's worst error
+    (of the largest |value|) within OPTIM_PARITY_TOL.  No Pallas kernel is
+    on this path."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    c = cfg or OPTIM_PARITY
+    cuda = device == "cuda"
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    errs, failed, extra = {}, {}, {}
+    try:
+        for name, make in _optim_cases(paddle):
+            (cp, cs), (dp, ds) = (_optim_dense_run(paddle, make, c, dev)
+                                  for dev in ("cpu", device))
+            if set(cs) != set(ds):
+                failed[name] = f"state keys {sorted(cs)} / {sorted(ds)}"
+                continue
+            errs[name] = max([_rel_err(b, a) for a, b in zip(cp, dp)] +
+                             [_rel_err(ds[k], cs[k]) for k in cs])
+        w0 = np.random.default_rng(c["seed"] + 3).standard_normal(
+            (c["vocab"], c["dim"])).astype(np.float32)
+        for name in SPARSE_CASES:
+            (cw, *_), (dw, moved, touched, outside) = (
+                _optim_sparse_run(paddle, name, c, dev, w0)
+                for dev in ("cpu", device))
+            errs[f"sparse_{name}"] = _rel_err(dw, cw)
+            rows = dict(rows_moved=moved, rows_touched=touched,
+                        rows_moved_untouched=outside, rule=SPARSE_MOVES[name])
+            extra[f"sparse_{name}"] = rows
+            ok = {"touched": moved == touched and not outside,
+                  "superset": touched <= moved <= c["vocab"] // 2,
+                  "all": moved == c["vocab"]}[SPARSE_MOVES[name]]
+            if not ok:
+                failed[f"sparse_{name}"] = rows
+        for ls in (None, "strong_wolfe"):
+            (cl, cc, cw), (dl, dc, dw) = (_lbfgs_run(paddle, c, dev, ls)
+                                          for dev in ("cpu", device))
+            key = f"lbfgs_{ls or 'armijo'}"
+            errs[key] = max(abs(a - b) / abs(a) for a, b in zip(cl, dl))
+            extra[key] = dict(closure_calls=(dc, cc), losses=dl,
+                              losses_cpu=cl, iterate_err=_rel_err(dw, cw))
+            if dc != cc:
+                failed[key] = f"closure calls {dc} on {device}, {cc} on cpu"
+        ct, dt = (_transform_cases(paddle, dev) for dev in ("cpu", device))
+        for k in ct:
+            errs[f"autograd_{k}"] = max(
+                _rel_err(b, a) for a, b in zip(_flat(ct[k]), _flat(dt[k])))
+        with _paddle_device(device):
+            bad = paddle.to_tensor(np.array([np.nan, 1.0, np.inf, np.nan],
+                                            np.float32))
+            from paddle_tpu_torch.amp import debugging
+            try:
+                debugging.check_numerics(bad, "probe", "bad")
+                failed["check_numerics"] = "no FloatingPointError"
+            except FloatingPointError as e:
+                extra["check_numerics"] = str(e)
+                if "2 NaN, 1 Inf" not in str(e):
+                    failed["check_numerics"] = str(e)
+        stats = {dev: _op_stats(paddle, dev) for dev in ("cpu", device)}
+        extra["operator_stats"] = stats[device]
+        if stats[device] != stats["cpu"]:
+            failed["operator_stats"] = stats
+        if cuda:
+            sm = _stream_and_memory(paddle)
+            extra["stream_and_memory"] = sm
+            if not abs(sm["event_ms"] - sm["torch_event_ms"]) <= \
+                    EVENT_MS_TOL["rel"] * sm["torch_event_ms"] + \
+                    EVENT_MS_TOL["abs"] or not sm["event_ms"] > 0:
+                failed["event_ms"] = (sm["event_ms"], sm["torch_event_ms"])
+            for k, (got, want) in sm["counters"].items():
+                if got != want:
+                    failed[k] = (got, want)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32[0]
+        torch.backends.cudnn.allow_tf32 = tf32[1]
+    failed.update({k: v for k, v in errs.items()
+                   if not v <= OPTIM_PARITY_TOL})
+    worst = max(errs, key=errs.get)
+    emit("optim_parity", cases=len(errs), errors=errs, worst_case=worst,
+         worst_err=errs[worst], tol=OPTIM_PARITY_TOL, checks=extra,
+         failed=failed, seconds=time.perf_counter() - t0,
+         nvidia_smi=_nvidia_smi() if cuda else None)
+    if failed:
+        raise AssertionError(f"optim_parity: {failed}")
+
+
+def _optim_train_report(name, model, step, c, device, units):
+    """``warmup`` steps, ``steps`` timed steps with 0 builds and 0 syncs
+    (``_train_steps_without_sync``); the losses finite and the last below
+    the first; ms a step, units/s, peak memory and, on the card, one
+    profiled step's busy and idle share."""
+    import torch
+    cuda = device == "cuda"
+    warm = [step() for _ in range(c["warmup"])]
+    timed, step_s = _train_steps_without_sync(step, c["steps"], device)
+    losses = [float(v) for v in warm + timed]
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"optim_models {name}: losses {losses}")
+    result = dict(warmup_steps=c["warmup"], timed_steps=c["steps"],
+                  steps_checked_without_sync=c["steps"],
+                  builds_after_warmup=0, step_ms=step_s * 1e3,
+                  per_s=units / step_s, losses=losses,
+                  max_memory_allocated=torch.cuda.max_memory_allocated()
+                  if cuda else None)
+    if cuda:
+        prof = _profile_breakdown(step, step_s * 1e3, top=4)
+        result["busy_share"] = 1 - prof["idle_share"]
+        result["idle_share"] = prof["idle_share"]
+        result["device_busy_ms"] = prof["device_busy_ms"]
+        result["launches_a_step"] = prof["launches"]
+        result["top_kernels_ms"] = prof["top_kernels_ms"]
+    return result
+
+
+def _old_optimizer(key):
+    """The same model's figures under its old optimizer, from its phase of
+    this run (None where that phase did not run)."""
+    r = _PHASE_RESULTS.get(key)
+    return None if r is None else {k: r.get(k) for k in (
+        "optimizer", "step_ms", "max_memory_allocated", "busy_share")}
+
+
+def _cuda_fresh(cuda):
+    import torch
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def phase_optim_models(cfg=None, device="cuda"):
+    """This slice's optimizers on full-width models (OPTIM_MODELS), each
+    built on ``device`` from a seed and trained on one repeated batch:
+    (a) ResNet-50 of ``resnet50_train`` (224 px, B 64, O1 bf16) under
+    ``Lars``; (b) the ERNIE-3.0-base encoder of ``encoder_train`` (12 x
+    768, s 512, B 16) under ``Lamb`` at O2 bf16 with float32 masters; (c)
+    the PTB-large LSTM LM of ``seq_models`` with ``Embedding(sparse=True)``
+    under ``SGD(1.0)`` + ``ClipGradByGlobalNorm(10)`` and under
+    ``Adam(lazy_mode=True)``.  Each: ``warmup`` steps, ``steps`` timed
+    steps with 0 builds and 0 syncs, losses finite and falling; ms a step,
+    units/s, busy / idle share, peak memory, beside the same model's
+    figures under its old optimizer in this run.  (c) also: one more step
+    with the embedding's rows compared before and after (rows moved
+    against rows touched: equal, none outside), and the coalesce mode."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision.models import resnet50
+    cfg = cfg or OPTIM_MODELS
+    cuda = device == "cuda"
+    F = paddle.nn.functional
+    t_phase = time.perf_counter()
+    # (a) ResNet-50 under LARS
+    c = cfg["resnet50"]
+    _cuda_fresh(cuda)
+    with _paddle_device(device):
+        paddle.seed(c["seed"])
+        model = resnet50(num_classes=c["classes"])
+        opt = paddle.optimizer.Lars(
+            c["lr"], c["momentum"], lars_coeff=c["lars_coeff"],
+            lars_weight_decay=c["lars_weight_decay"],
+            parameters=model.parameters())
+        x = paddle.randn([c["batch"], 3, c["px"], c["px"]])
+        y = paddle.randint(0, c["classes"], [c["batch"]])
+
+    def r_step():
+        with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+    tr = _optim_train_report("resnet50", model, r_step, c, device,
+                             c["batch"])
+    emit("optim_models", part="resnet50_lars", batch=c["batch"],
+         px=c["px"], amp="O1 bfloat16",
+         optimizer=f"Lars(lr {c['lr']}, momentum {c['momentum']}, "
+         f"coeff {c['lars_coeff']}, weight decay {c['lars_weight_decay']})",
+         units="images", **tr,
+         old_optimizer_this_run=_old_optimizer("resnet50_train"),
+         nvidia_smi=_nvidia_smi() if cuda else None)
+    del model, opt, x, y, r_step
+    # (b) the ERNIE-3.0-base encoder under LAMB, O2
+    c = cfg["encoder"]
+    _cuda_fresh(cuda)
+    with _paddle_device(device):
+        paddle.seed(c["seed"])
+        model = _encoder_model(c)
+        opt = paddle.optimizer.Lamb(
+            c["lr"], lamb_weight_decay=c["weight_decay"],
+            parameters=model.parameters(),
+            exclude_from_weight_decay_fn=lambda p: p.ndim < 2)
+        model, opt = paddle.amp.decorate(model, opt, level="O2",
+                                         dtype="bfloat16")
+        ids = paddle.randint(0, c["vocab"], [c["batch"], c["seq"]])
+        labels = paddle.randint(0, c["vocab"], [c["batch"] * c["seq"]])
+
+    def e_step():
+        with paddle.amp.auto_cast(level="O2", dtype="bfloat16"):
+            loss = F.cross_entropy(model(ids).reshape([-1, c["vocab"]]),
+                                   labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+    tr = _optim_train_report("encoder", model, e_step, c, device,
+                             c["batch"] * c["seq"])
+    emit("optim_models", part="encoder_lamb", layers=c["layers"],
+         width=c["width"], batch=c["batch"], seq=c["seq"],
+         amp="O2 bfloat16 (float32 masters)",
+         optimizer=f"Lamb(lr {c['lr']}, weight decay {c['weight_decay']} "
+         "off biases and norms)", units="tokens", **tr,
+         old_optimizer_this_run=_old_optimizer("encoder_train"),
+         nvidia_smi=_nvidia_smi() if cuda else None)
+    del model, opt, ids, labels, e_step
+    # (c) the PTB-large LSTM with a row-sparse embedding gradient
+    c = cfg["lstm"]
+    gen = torch.Generator().manual_seed(c["seed"])
+    batch = torch.randint(0, c["vocab"], (c["batch"], c["unroll"] + 1),
+                          generator=gen)
+    x_in = batch[:, :-1].to(device)
+    x_out = batch[:, 1:].reshape([-1]).to(device)
+    for label, make in (
+            ("sgd", lambda ps: paddle.optimizer.SGD(
+                c["lr"], parameters=ps,
+                grad_clip=paddle.nn.ClipGradByGlobalNorm(c["clip"]))),
+            ("adam_lazy", lambda ps: paddle.optimizer.Adam(
+                c["adam_lr"], parameters=ps, lazy_mode=True))):
+        _cuda_fresh(cuda)
+        with _paddle_device(device):
+            paddle.seed(c["seed"])
+            lm = _lstm_lm_model(paddle, c["vocab"], c["hidden"],
+                                c["layers"], c["dropout"], sparse=True)
+            opt = make(lm.parameters())
+
+        def l_step():
+            loss = F.cross_entropy(lm(x_in).reshape([-1, c["vocab"]]), x_out)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss.detach()
+        tr = _optim_train_report(f"lstm {label}", lm, l_step, c, device,
+                                 c["batch"] * c["unroll"])
+        w = lm.embed.weight
+        before = w.detach().clone()
+        loss = F.cross_entropy(lm(x_in).reshape([-1, c["vocab"]]), x_out)
+        loss.backward()
+        sparse = w.grad.is_selected_rows()
+        opt.step()
+        opt.clear_grad()
+        moved = (w.detach() != before).any(1)
+        touched = torch.zeros_like(moved)
+        touched[x_in.reshape(-1)] = True
+        rows = dict(rows_moved=int(moved.sum()),
+                    rows_touched=int(touched.sum()),
+                    rows_moved_untouched=int((moved & ~touched).sum()),
+                    vocab=c["vocab"])
+        emit("optim_models", part=f"ptb_large_lstm_sparse_{label}",
+             dtype="float32", optimizer=str(type(opt).__name__) +
+             (" (lazy_mode)" if label == "adam_lazy" else
+              f"({c['lr']}) + ClipGradByGlobalNorm({c['clip']})"),
+             embedding_grad_row_sparse=sparse,
+             coalesce_mode="fixed-size buffer, no host read",
+             units="tokens", **tr, **rows,
+             old_optimizer_this_run=_old_optimizer("lstm"),
+             nvidia_smi=_nvidia_smi() if cuda else None)
+        if not sparse or rows["rows_moved_untouched"] or \
+                rows["rows_moved"] != rows["rows_touched"]:
+            raise AssertionError(f"optim_models lstm {label}: {rows}, "
+                                 f"row-sparse {sparse}")
+        del lm, opt, l_step, w, before
+    _cuda_fresh(cuda)
+    emit("optim_models", part="done",
+         seconds=time.perf_counter() - t_phase)
+
+
 # ------------------------------------------------------- weight-only ---
 
 def _wo_counts():
@@ -12157,6 +12799,8 @@ def main() -> int:
     phase_spatial_models()
     phase_ops_parity()
     phase_tensor_paths()
+    phase_optim_parity()
+    phase_optim_models()
     for key in ("attention", "attention_split"):
         launches[key] += incubate["decode"][key]
     # the flash kernels' launches on every training path: llama2_7b, GPT-2,

@@ -66,7 +66,7 @@ from .flags import get_flags, set_flags  # noqa: E402
 from .ops import *  # noqa: E402,F401,F403
 from .ops import __all__ as _OPS  # noqa: E402
 from . import (amp, autograd, device, incubate, nn, optimizer,  # noqa: E402
-               vision)
+               regularizer, vision)
 from .autograd import (enable_grad, grad, is_grad_enabled,  # noqa: E402
                        no_grad, set_grad_enabled)
 from . import linalg  # noqa: E402

@@ -188,14 +188,18 @@ class GradScaler:
         float32 result (torch keeps a gradient in its parameter's dtype, and
         in fp16 a value under 2^-14 would lose bits): ``.grad`` gets it
         rounded to its dtype, and the float32 value is kept beside it for
-        the step (``float32_grad``)."""
+        the step (``float32_grad``).  A row-sparse gradient is densified
+        first, as the reference's is."""
         if not self._enable or self._unscaled:
             return
+        from ..core.selected_rows import SelectedRowsTensor
         inv = 1.0 / self._scale
         bad = []
         for p in optimizer._params:
             if p.grad is None:
                 continue
+            if isinstance(p.grad, SelectedRowsTensor):
+                p.grad = p.grad._dense()
             if p.grad.dtype == torch.float32:
                 g = p.grad.mul_(inv)
             else:
@@ -252,3 +256,6 @@ class GradScaler:
         self._scale = state["scale"]
         self._good_steps = state.get("good_steps", 0)
         self._bad_steps = state.get("bad_steps", 0)
+
+
+from . import debugging  # noqa: E402,F401

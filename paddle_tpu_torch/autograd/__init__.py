@@ -3,7 +3,12 @@
 
 The reference records its own tape (``paddle_tpu/core/autograd.py``); in the
 port torch's autograd is that tape.  ``backward``, ``grad``, ``no_grad`` and
-:class:`PyLayer` keep the reference's signatures over it.
+:class:`PyLayer` keep the reference's signatures over it.  The functional
+transforms ``jacobian``, ``hessian``, ``jvp`` and ``vjp`` (the reference's
+``jax.jacrev`` / ``hessian`` / ``jvp`` / ``vjp``, :130-238) run on
+``torch.func``; the function sees :class:`~paddle_tpu_torch.Tensor`
+arguments, and the results keep the reference's structure: one tensor for
+one input, tuples otherwise.
 """
 
 from __future__ import annotations
@@ -12,7 +17,7 @@ from typing import List
 
 import torch
 
-from ..core.tensor import wrap
+from ..core.tensor import Tensor, _to_plain, wrap
 
 no_grad = torch.no_grad
 enable_grad = torch.enable_grad
@@ -20,7 +25,8 @@ set_grad_enabled = torch.set_grad_enabled
 is_grad_enabled = torch.is_grad_enabled
 
 __all__ = ["backward", "grad", "no_grad", "enable_grad", "set_grad_enabled",
-           "is_grad_enabled", "PyLayer", "PyLayerContext"]
+           "is_grad_enabled", "PyLayer", "PyLayerContext", "LegacyPyLayer",
+           "jacobian", "hessian", "jvp", "vjp", "saved_tensors_hooks"]
 
 
 def _list(xs):
@@ -51,16 +57,52 @@ def grad(outputs, inputs, grad_outputs=None, retain_graph=None,
 
 
 class PyLayerContext:
-    """The ``ctx`` a :class:`PyLayer`'s ``forward`` and ``backward`` get."""
+    """The ``ctx`` a :class:`PyLayer`'s ``forward`` and ``backward`` get.
+    Under :class:`saved_tensors_hooks` ``save_for_backward`` keeps what the
+    pack hook returns and ``saved_tensor`` gives it back through the unpack
+    hook."""
 
     def __init__(self, ctx):
         self._ctx = ctx
+        self._packed = None
 
     def save_for_backward(self, *tensors):
-        self._ctx.save_for_backward(*tensors)
+        hooks = saved_tensors_hooks._active[-1] \
+            if saved_tensors_hooks._active else None
+        if hooks is None:
+            self._packed = None
+            self._ctx.save_for_backward(*tensors)
+        else:
+            self._packed = (hooks, [hooks.pack_hook(t) for t in tensors])
 
     def saved_tensor(self) -> List[torch.Tensor]:
+        if self._packed is not None:
+            hooks, packed = self._packed
+            return [hooks.unpack_hook(h) for h in packed]
         return list(self._ctx.saved_tensors)
+
+
+class saved_tensors_hooks:
+    """Hooks on what a :class:`PyLayer` saves (the reference's
+    ``saved_tensors_hooks``): inside the block ``pack_hook(t)`` runs at
+    ``ctx.save_for_backward`` and ``unpack_hook(packed)`` at
+    ``ctx.saved_tensor()``.  Only ``PyLayer`` contexts are hooked, as in
+    the reference; torch's own saved tensors are not (its global
+    ``torch.autograd.graph.saved_tensors_hooks`` would hook every op)."""
+
+    _active: list = []
+
+    def __init__(self, pack_hook, unpack_hook):
+        self.pack_hook = pack_hook
+        self.unpack_hook = unpack_hook
+
+    def __enter__(self):
+        saved_tensors_hooks._active.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        saved_tensors_hooks._active.pop()
+        return False
 
 
 class PyLayerMeta(type):
@@ -108,3 +150,81 @@ class PyLayer(metaclass=PyLayerMeta):
     @classmethod
     def apply(cls, *args, **kwargs):
         return _function_of(cls).apply(kwargs, *args)
+
+
+class LegacyPyLayer(PyLayer):
+    pass
+
+
+# ---- functional transforms (torch.func) ----
+
+def _inputs(xs):
+    """``(single, plain inputs)``."""
+    single = torch.is_tensor(xs)
+    return single, [_to_plain(x).detach() for x in ((xs,) if single else xs)]
+
+
+def _lift(func):
+    """``func`` over plain tensors: its arguments seen as ``Tensor``, its
+    results (a list as a tuple) returned plain."""
+    def plain_fn(*args):
+        out = func(*[a.as_subclass(Tensor) for a in args])
+        if isinstance(out, (tuple, list)):
+            return tuple(_to_plain(o) for o in out)
+        return _to_plain(out)
+    return plain_fn
+
+
+def _tuples(x):
+    return tuple(_tuples(v) for v in x) if isinstance(x, (tuple, list)) \
+        else x
+
+
+def jacobian(func, xs, is_batched=False):
+    """The reverse-mode Jacobian of ``func`` at ``xs`` (``jax.jacrev`` in
+    the reference, which ignores ``is_batched`` too): ``out.shape +
+    x.shape`` for one input, a tuple over the inputs otherwise."""
+    single, args = _inputs(xs)
+    jac = torch.func.jacrev(_lift(func), argnums=tuple(range(len(args))))(
+        *args)
+    if single and isinstance(jac, tuple):
+        jac = jac[0]
+    return wrap(_tuples(jac))
+
+
+def hessian(func, xs):
+    """The Hessian of scalar ``func`` at ``xs``: ``x.shape + x.shape`` for
+    one input, nested tuples ``[i][j]`` otherwise."""
+    single, args = _inputs(xs)
+    hes = torch.func.hessian(_lift(func), argnums=tuple(range(len(args))))(
+        *args)
+    if single and isinstance(hes, tuple):
+        hes = hes[0][0]
+    return wrap(_tuples(hes))
+
+
+def jvp(func, xs, v=None):
+    """``(func(xs), J v)``, ``v`` ones where not given."""
+    single, args = _inputs(xs)
+    if v is None:
+        tangents = tuple(torch.ones_like(a) for a in args)
+    else:
+        tangents = tuple(_to_plain(t).detach() for t in
+                         ((v,) if torch.is_tensor(v) else v))
+    out, tangent = torch.func.jvp(_lift(func), tuple(args), tangents)
+    return wrap(_tuples(out)), wrap(_tuples(tangent))
+
+
+def vjp(func, xs, v=None):
+    """``(func(xs), v^T J)``, ``v`` ones where not given; the gradient is
+    one tensor for one input, a tuple otherwise."""
+    single, args = _inputs(xs)
+    out, pullback = torch.func.vjp(_lift(func), *args)
+    if v is None:
+        cot = tuple(torch.ones_like(o) for o in out) \
+            if isinstance(out, tuple) else torch.ones_like(out)
+    else:
+        cot = tuple(_to_plain(t).detach() for t in v) \
+            if isinstance(v, (tuple, list)) else _to_plain(v).detach()
+    grads = pullback(cot)
+    return wrap(_tuples(out)), wrap(grads[0] if single else _tuples(grads))

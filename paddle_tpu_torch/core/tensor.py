@@ -104,19 +104,36 @@ def leaf(t, requires_grad=None):
         t.requires_grad if requires_grad is None else requires_grad)
 
 
-def boundary(fn):
+# observers of every op's result (``amp.debugging``'s tensor checker and
+# operator stats): each is called as ``observer(op_name, result)`` after an
+# op of ``boundary_module`` returns, nested calls too, with subclass
+# dispatch off
+OP_OBSERVERS: list = []
+
+
+def _observe(op, out):
+    for observer in tuple(OP_OBSERVERS):
+        observer(op, out)
+
+
+def boundary(fn, op=None):
     """``fn`` as a Paddle-API entry: outside a boundary its tensor
     arguments but parameters are unwrapped, its body runs with subclass
     dispatch off, and its tensor results are wrapped; inside one it is
-    called as it is."""
+    called as it is.  ``op`` names an op for :data:`OP_OBSERVERS`."""
     @functools.wraps(fn)
     def entry(*args, **kwargs):
         if _ST.depth:
-            return fn(*args, **kwargs)
+            out = fn(*args, **kwargs)
+            if op is not None and OP_OBSERVERS:
+                _observe(op, out)
+            return out
         _ST.depth += 1
         try:
             with _DISABLE():
                 out = fn(*unwrap(args, False), **unwrap(kwargs, False))
+                if op is not None and OP_OBSERVERS:
+                    _observe(op, out)
         finally:
             _ST.depth -= 1
         return wrap(out)
@@ -126,7 +143,8 @@ def boundary(fn):
 
 def boundary_module(ns: dict, names) -> None:
     """Wrap every function of ``names`` in namespace ``ns`` (a module's
-    ``globals()``) with :func:`boundary`; two names of one function keep
+    ``globals()``) with :func:`boundary` as an op of its function's name;
+    two names of one function keep
     one entry, and a function of another module (a re-export) or an
     in-place one (``*_``, which returns its input) stays as it is."""
     made = {}
@@ -136,7 +154,7 @@ def boundary_module(ns: dict, names) -> None:
                 f.__module__ == ns["__name__"] and \
                 not hasattr(f, "__wrapped_entry__"):
             if id(f) not in made:
-                made[id(f)] = boundary(f)
+                made[id(f)] = boundary(f, op=f.__name__)
             ns[n] = made[id(f)]
 
 
@@ -364,9 +382,14 @@ class Tensor(torch.Tensor):
     @property
     def grad(self):
         """The gradient as a :class:`Tensor`: a plain gradient autograd
-        wrote is stored back as one, so every read returns one object."""
+        wrote is stored back as one, so every read returns one object.  A
+        row-sparse gradient (``Embedding(sparse=True)``) reads as a
+        coalesced ``SelectedRowsTensor``."""
         with _DISABLE():
             g = torch.Tensor.grad.__get__(self)
+            if g is not None and g.layout is torch.sparse_coo:
+                from .selected_rows import from_torch
+                return from_torch(g)
             if g is None or type(g) is not torch.Tensor:
                 return g
             g = g.as_subclass(Tensor)

@@ -1,4 +1,10 @@
 """The port of ``paddle_tpu.incubate``: ``nn``'s fused layers and functional
-ops, and ``distributed.models.moe``."""
+ops, ``distributed.models.moe``, and ``optimizer`` (``LookAhead``,
+``ModelAverage``)."""
 
-from . import distributed, nn  # noqa: F401
+from . import distributed, nn, optimizer  # noqa: F401
+
+
+def autograd_enabled():
+    """True: the dygraph autograd is always on (torch's)."""
+    return True

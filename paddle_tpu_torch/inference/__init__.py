@@ -6,10 +6,14 @@ from .generation import (ContinuousBatchingEngine, GenerationConfig,
                          LlamaGenerator, Request, generate)
 from .kv_cache import PagedKVCache, PageAllocator
 from .kv_spill import HostSpillPool
-from .prefix_cache import MatchPlan, PrefixCache, block_hashes
+from .migration import (MigrationError, export_session, import_session,
+                        import_sessions)
+from .prefix_cache import MatchPlan, PrefixCache, block_hashes, serving_stats
 from .speculative import SpecConfig, SpecHistory, resolve_spec_config
 
 __all__ = ["ContinuousBatchingEngine", "GenerationConfig", "HostSpillPool",
-           "LlamaGenerator", "MatchPlan", "PagedKVCache", "PageAllocator",
-           "PrefixCache", "Request", "SpecConfig", "SpecHistory",
-           "block_hashes", "generate", "resolve_spec_config"]
+           "LlamaGenerator", "MatchPlan", "MigrationError", "PagedKVCache",
+           "PageAllocator", "PrefixCache", "Request", "SpecConfig",
+           "SpecHistory", "block_hashes", "export_session", "generate",
+           "import_session", "import_sessions", "resolve_spec_config",
+           "serving_stats"]

@@ -3,7 +3,8 @@ with its diffusion schedule and training step."""
 
 from .dit import DiT, DiTConfig, DiTTrainStep, GaussianDiffusion
 from .gpt import GPTConfig, GPTForCausalLM
-from .llama import LlamaConfig, LlamaForCausalLM
+from .llama import LlamaConfig, LlamaForCausalLM, LlamaModel
 
 __all__ = ["DiT", "DiTConfig", "DiTTrainStep", "GaussianDiffusion",
-           "GPTConfig", "GPTForCausalLM", "LlamaConfig", "LlamaForCausalLM"]
+           "GPTConfig", "GPTForCausalLM", "LlamaConfig", "LlamaForCausalLM",
+           "LlamaModel"]

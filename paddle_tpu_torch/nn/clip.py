@@ -2,13 +2,17 @@
 
 A clip object takes the optimizer's ``[(param, grad), ...]`` and returns
 new pairs; the norms stay on the device (no host read).  Parameters with
-``need_clip = False`` pass unclipped.
+``need_clip = False`` pass unclipped.  A row-sparse gradient
+(``SelectedRowsTensor``) keeps its rows under ``ClipGradByGlobalNorm``,
+whose norm is taken from its values (:56-95); ``ClipGradByValue`` and
+``ClipGradByNorm`` densify it, as the reference does (:23-50).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..core.selected_rows import SelectedRowsTensor
 from ..core.tensor import boundary
 
 
@@ -25,13 +29,18 @@ def _skip(p, g):
     return g is None or not getattr(p, "need_clip", True)
 
 
+def _dense(g):
+    return g._dense() if isinstance(g, SelectedRowsTensor) else g
+
+
 class ClipGradByValue(ClipGradBase):
     def __init__(self, max, min=None):  # noqa: A002
         self.max = float(max)
         self.min = float(min) if min is not None else -self.max
 
     def _dygraph_clip(self, params_grads):
-        return [(p, g if _skip(p, g) else torch.clamp(g, self.min, self.max))
+        return [(p, g if _skip(p, g) else
+                 torch.clamp(_dense(g), self.min, self.max))
                 for p, g in params_grads]
 
 
@@ -47,6 +56,7 @@ class ClipGradByNorm(ClipGradBase):
             if _skip(p, g):
                 out.append((p, g))
                 continue
+            g = _dense(g)
             norm = torch.sqrt(torch.sum(torch.square(g)))
             scale = torch.clamp_max(
                 self.clip_norm / torch.clamp_min(norm, 1e-12), 1.0)
@@ -68,6 +78,9 @@ class ClipGradByGlobalNorm(ClipGradBase):
         for p, g in params_grads:
             if _skip(p, g):
                 continue
+            if isinstance(g, SelectedRowsTensor):
+                # coalesced rows: the values' norm is the dense one
+                g = g._values
             s = torch.sum(torch.square(g.float()))
             sq = s if sq is None else sq + s
         return sq
@@ -80,8 +93,14 @@ class ClipGradByGlobalNorm(ClipGradBase):
             sq = sq + extra_norm_sq
         scale = self.clip_norm / torch.clamp_min(torch.sqrt(sq),
                                                  self.clip_norm)
-        return [(p, g if _skip(p, g) else (g.float() * scale).to(g.dtype))
+        return [(p, g if _skip(p, g) else _scaled(g, scale))
                 for p, g in params_grads]
+
+
+def _scaled(g, scale):
+    if isinstance(g, SelectedRowsTensor):
+        return g._with_values(_scaled(g._values, scale))
+    return (g.float() * scale).to(g.dtype)
 
 
 def clip_grad_norm_(parameters, max_norm, norm_type=2.0,

@@ -193,10 +193,19 @@ def linear(x, weight, bias=None, name=None):
 
 def embedding(x, weight, padding_idx=None, sparse=False, name=None):
     """Rows of ``weight``; the rows of ids equal to ``padding_idx`` are 0
-    (and pass no gradient).  ``sparse`` is accepted: the port's gradient is
-    dense."""
-    (weight,) = _amp("embedding", weight)
-    out = TF.embedding(x, weight)
+    (and pass no gradient).  With ``sparse`` the gradient of a leaf weight
+    that requires grad (grad enabled) is row-sparse: torch's sparse COO
+    tensor over the coalesced touched rows, ``padding_idx`` left out, which
+    the optimizers and clips read as a ``SelectedRowsTensor``
+    (``core/selected_rows.py``); otherwise it is dense, as the
+    reference's."""
+    (cast,) = _amp("embedding", weight)
+    if sparse and cast is weight and weight.is_leaf and \
+            weight.requires_grad and torch.is_grad_enabled():
+        from ..core.selected_rows import sparse_embedding
+        out = sparse_embedding(x, weight, padding_idx)
+    else:
+        out = TF.embedding(x, cast)
     if padding_idx is not None:
         out = torch.where((x == padding_idx)[..., None], 0.0, out)
     return out

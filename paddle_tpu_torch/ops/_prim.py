@@ -19,7 +19,8 @@ import torch
 from .. import dtypes
 from ..core import amp_state
 from ..core.amp_state import cast as _amp
-from ..core.tensor import _DISABLE, boundary, inside
+from ..core.tensor import (_DISABLE, OP_OBSERVERS, _observe, boundary,
+                           inside)
 
 OP_REGISTRY: dict = {}
 
@@ -98,9 +99,12 @@ def apply_op(name, prim, tensors, kwargs=None):
     """``prim(*tensors, **kwargs)`` as op ``name`` runs it: inputs cast as
     autocast casts that op's inputs, on plain tensors."""
     if inside():
-        return prim(*_amp(name, *tensors), **(kwargs or {}))
-    return boundary(lambda *ts: prim(*_amp(name, *ts), **(kwargs or {})))(
-        *tensors)
+        out = prim(*_amp(name, *tensors), **(kwargs or {}))
+        if OP_OBSERVERS:
+            _observe(name, out)
+        return out
+    return boundary(lambda *ts: prim(*_amp(name, *ts), **(kwargs or {})),
+                    op=name)(*tensors)
 
 
 def device():
@@ -135,12 +139,14 @@ def scalar_like(x, y):
     if xs and ys:
         x = t_(x)
         xs = False
+    # the number is filled in on the tensor's device (``torch.tensor`` on
+    # the card would copy it from the host and synchronize)
     if ys:
         rt = torch.result_type(x, y)
-        return x.to(rt), torch.tensor(y, dtype=rt, device=x.device)
+        return x.to(rt), torch.full((), y, dtype=rt, device=x.device)
     if xs:
         rt = torch.result_type(y, x)
-        return torch.tensor(x, dtype=rt, device=y.device), y.to(rt)
+        return torch.full((), x, dtype=rt, device=y.device), y.to(rt)
     return x, y
 
 
@@ -164,7 +170,7 @@ def unary_op(name, fn, spmd_rule="elementwise"):
     name_ = name
     op.__name__ = op.__qualname__ = name
     register_op(name, fn, spmd_rule=spmd_rule)
-    return boundary(op)
+    return boundary(op, op=name)
 
 
 def binary_op(name, fn, spmd_rule="elementwise"):
@@ -175,7 +181,7 @@ def binary_op(name, fn, spmd_rule="elementwise"):
     name_ = name
     op.__name__ = op.__qualname__ = name
     register_op(name, fn, spmd_rule=spmd_rule)
-    return boundary(op)
+    return boundary(op, op=name)
 
 
 def reduce_op(name, fn, dtype_arg=False, spmd_rule="reduction"):
@@ -188,7 +194,7 @@ def reduce_op(name, fn, dtype_arg=False, spmd_rule="reduction"):
     name_ = name
     op.__name__ = op.__qualname__ = name
     register_op(name, fn, spmd_rule=spmd_rule)
-    return boundary(op)
+    return boundary(op, op=name)
 
 
 # ---- in place: the reference's ``op_`` family ----

@@ -41,7 +41,7 @@ def shape(x):
 def rank(x):
     """The number of dims as a 0-d int32 tensor."""
     x = t_(x)
-    return torch.tensor(x.ndim, dtype=torch.int32, device=x.device)
+    return torch.full((), x.ndim, dtype=torch.int32, device=x.device)
 
 
 def tolist(x):

@@ -107,8 +107,8 @@ def histogram_bin_edges(input, bins=100, min=0, max=0,  # noqa: A002
                         name=None):
     v = t_(input)
     if min != 0 or max != 0:
-        lo = torch.tensor(float(min), device=v.device)
-        hi = torch.tensor(float(max), device=v.device)
+        lo = torch.full((), float(min), device=v.device)
+        hi = torch.full((), float(max), device=v.device)
     else:
         lo, hi = v.min().float(), v.max().float()
     steps = torch.linspace(0.0, 1.0, bins + 1, device=v.device)
@@ -252,7 +252,7 @@ def is_complex(x) -> bool:
 
 def is_empty(x):
     x = t_(x)
-    return torch.tensor(x.numel() == 0, device=x.device)
+    return torch.full((), x.numel() == 0, device=x.device)
 
 
 # --------------------------------------------------------------- printing

@@ -287,7 +287,7 @@ def unique_consecutive(x, return_inverse=False, return_counts=False,
 def masked_fill(x, mask, value, name=None):
     x = t_(x)
     v = value.to(x.dtype) if torch.is_tensor(value) else \
-        torch.tensor(value, dtype=x.dtype, device=x.device)
+        torch.full((), value, dtype=x.dtype, device=x.device)
     return torch.where(t_(mask).bool(), v, x)
 
 
@@ -409,7 +409,7 @@ def nonzero(x, as_tuple=False):
 
 def numel(x, name=None):
     x = t_(x)
-    return torch.tensor(x.numel(), dtype=torch.int64, device=x.device)
+    return torch.full((), x.numel(), dtype=torch.int64, device=x.device)
 
 
 def shard_index(input, index_num, nshards, shard_id,  # noqa: A002

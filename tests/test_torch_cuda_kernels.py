@@ -1306,3 +1306,57 @@ def test_quantization_on_card_equals_the_cpu(h100):
         out = fn(*(t.to(h100) for t in (x, qw, s, w))).cpu()
         torch.testing.assert_close(out, ref, rtol=1e-5,
                                    atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+def test_sparse_embedding_step_reads_nothing_on_the_card(h100):
+    """A row-sparse gradient is coalesced and a lazy Adam / clipped SGD
+    step applied with no synchronizing CUDA call, and the step equals the
+    CPU's (fp32, the same order of sums but for atomics: 1e-6)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import device as pdev
+    weights = {}
+    for dev in ("cpu", "cuda"):
+        old = pdev._current[0]
+        paddle.set_device(dev)
+        ids = torch.tensor([[3, 1, 3, 9], [1, 1, 0, 7]], device=dev)
+        try:
+            paddle.seed(0)
+            emb = paddle.nn.Embedding(12, 8, sparse=True)
+            with torch.no_grad():
+                emb.weight.copy_(torch.arange(96.0).reshape(12, 8) / 96)
+            for opt in (paddle.optimizer.Adam(0.1, parameters=[emb.weight],
+                                              lazy_mode=True),
+                        paddle.optimizer.SGD(
+                            1.0, parameters=[emb.weight],
+                            grad_clip=paddle.nn.ClipGradByGlobalNorm(0.5))):
+                mode = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("error" if dev == "cuda"
+                                               else mode)
+                try:
+                    (emb(ids) ** 2).sum().backward()
+                    opt.step()
+                    opt.clear_grad()
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
+            weights[dev] = emb.weight.detach().cpu()
+        finally:
+            pdev._current[0] = old
+    torch.testing.assert_close(weights["cuda"], weights["cpu"], rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_scalar_operands_read_nothing_on_the_card(h100):
+    """A Paddle op with a Python number beside a tensor fills the number in
+    on the card: no synchronizing host-to-device copy."""
+    import paddle_tpu_torch as paddle
+    x = paddle.to_tensor(torch.arange(6.0), place="gpu")
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = (x ** 2 + 1.0) * 3 - 2 * x
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.testing.assert_close(y.cpu(), (torch.arange(6.0) ** 2 + 1) * 3 -
+                               2 * torch.arange(6.0))

@@ -50,7 +50,9 @@ FLEET_STACK = ("router/__init__.py", "router/__main__.py", "router/replica.py",
 # ResNet and the fused layers; Model with its callbacks and summary, the
 # metrics, the data pipeline over the native ring, save / load; the fused
 # functional ops, the MoE layer and its gates, the quantization API; the
-# recurrent layers, beam search and nn.utils
+# recurrent layers, beam search and nn.utils; the regularizers, the
+# row-sparse gradients, LookAhead / ModelAverage, the numerics debugging
+# tools and the memory tools
 PADDLE_API = ("device/__init__.py", "dtypes.py", "core/random.py",
               "core/tensor.py", "core/amp_state.py", "autograd/__init__.py",
               "ops/__init__.py", "ops/creation.py", "ops/manipulation.py",
@@ -72,7 +74,10 @@ PADDLE_API = ("device/__init__.py", "dtypes.py", "core/random.py",
               "quantization/__init__.py", "nn/rnn.py", "nn/decode.py",
               "nn/utils.py", "ops/_prim.py", "ops/_generated.py",
               "ops/indexing.py", "ops/search.py", "ops/extras.py",
-              "ops/compat.py", "ops/array.py", "linalg.py", "errors.py")
+              "ops/compat.py", "ops/array.py", "linalg.py", "errors.py",
+              "regularizer.py", "core/selected_rows.py",
+              "incubate/optimizer.py", "amp/debugging.py",
+              "device/memory_debug.py")
 
 
 def test_port_and_chip_smoke_import_no_jax():
